@@ -1,0 +1,112 @@
+"""Build the package's CUDA kernels with ``nvcc`` and bind them with ``ctypes``.
+
+All of ``csrc/*.cu`` compiles into one shared library with a plain C
+interface, for ``sm_90a`` (Hopper), at first use. The library lands in
+``build/slam_llm_tpu_torch/`` at the root of the checkout, named by a hash of
+the sources and flags, so an edited source rebuilds and an unchanged one
+loads the existing file. A missing ``nvcc`` or a failed build raises: no
+kernel has a fallback on CUDA tensors.
+
+Every C entry point returns ``cudaGetLastError()`` right after its launch;
+``check`` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "slam_llm_tpu_torch"
+# no --use_fast_math: rowquant's division and rounding must stay IEEE-exact
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    "slam_rowquant": [_P, _P, _P, _L, _I, _P],
+    "slam_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "slam_flash_fwd": [_P] * 6 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _I, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None  # wall time of the last compile in this process
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc") if os.environ.get("CUDA_HOME") else None,
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): cannot build the CUDA kernels")
+
+
+def library_path() -> Path:
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libslam_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` unless the library for these sources exists."""
+    global build_seconds
+    so = library_path()
+    if so.exists():
+        return so
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    # ptxas -v reports registers, shared memory and spills per kernel
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.slam_error_string.argtypes = [ctypes.c_int]
+        lib.slam_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        msg = library().slam_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_ptr(t) -> int:
+    """PyTorch's current stream on ``t``'s device, as the C entry points take it."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

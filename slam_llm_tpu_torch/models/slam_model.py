@@ -1,0 +1,158 @@
+"""The fusion model: Whisper encoder -> projector -> embedding splice -> LLM.
+
+Counterpart of ``slam_llm_tpu/models/slam_model.py`` with the same batch
+contract (``audio_mel``/``audio_mel_mask``, ``input_ids`` with -1 on audio
+pseudo-tokens, ``attention_mask``, ``modality_mask``). Only the Whisper
+encoder and the linear projector are ported; the other encoders and
+projectors raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from slam_llm_tpu_torch.models.llm import CausalLM, KVCache, LLMConfig
+from slam_llm_tpu_torch.models.projector import ProjectorConfig, build_projector
+from slam_llm_tpu_torch.models.whisper import PRESETS as WHISPER_PRESETS
+from slam_llm_tpu_torch.models.whisper import WhisperEncoder
+
+_TODO_ENCODERS = "ROADMAP: port the other encoders and recipes"
+
+
+@dataclass(frozen=True)
+class SLAMConfig:
+    llm: LLMConfig = field(default_factory=LLMConfig.tiny_test)
+    encoder_name: Optional[str] = "whisper"
+    encoder: Any = None  # WhisperEncoderConfig
+    projector: str = "linear"
+    projector_cfg: ProjectorConfig = field(default_factory=ProjectorConfig)
+
+
+def splice_modality(
+    inputs_embeds: torch.Tensor,  # (B, T, D)
+    encoder_outs: torch.Tensor,  # (B, Te, D)
+    modality_mask: torch.Tensor,  # (B, T) 1 where audio pseudo-tokens sit
+) -> torch.Tensor:
+    """Encoder frame j lands at position start + j, where start is the first
+    set slot of ``modality_mask``. Pseudo-token slots past the encoder length
+    become ZERO embeddings, not text embeddings (the reference's
+    ``encoder_outs_pad + inputs_embeds * ~modality_mask``)."""
+    t = inputs_embeds.shape[1]
+    enc_t = encoder_outs.shape[1]
+    mm = modality_mask.bool()
+    start = mm.to(torch.int32).argmax(dim=1)  # 0 for an empty row
+    rel = torch.arange(t, device=mm.device)[None, :] - start[:, None]
+    valid = mm & (rel >= 0) & (rel < enc_t)
+    idx = rel.clamp(0, enc_t - 1)[..., None].expand(-1, -1, encoder_outs.shape[-1])
+    gathered = torch.gather(encoder_outs, 1, idx).to(inputs_embeds.dtype)
+    out = torch.where(valid[..., None], gathered, inputs_embeds)
+    return torch.where((mm & ~valid)[..., None], torch.zeros_like(out), out)
+
+
+class SLAMModel(nn.Module):
+    def __init__(self, cfg: SLAMConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        if cfg.encoder_name == "whisper":
+            self.encoder = WhisperEncoder(cfg.encoder, device)
+        elif cfg.encoder_name is None:
+            self.encoder = None
+        else:
+            raise NotImplementedError(f"encoder {cfg.encoder_name!r} is not ported yet ({_TODO_ENCODERS})")
+        self.encoder_projector = build_projector(cfg.projector, cfg.projector_cfg, device)
+        self.llm = CausalLM(cfg.llm, device)
+
+    def encode(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Projected encoder states + their validity mask."""
+        enc, enc_mask = self.encoder(batch["audio_mel"], batch.get("audio_mel_mask"))
+        proj = self.encoder_projector(enc)
+        k = self.cfg.projector_cfg.ds_rate
+        t_keep = (enc_mask.shape[1] // k) * k
+        proj_mask = enc_mask[:, :t_keep].reshape(enc_mask.shape[0], -1, k).amax(-1)
+        return proj, proj_mask[:, : proj.shape[1]]
+
+    def forward_embeds(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Spliced ``inputs_embeds`` and the attention mask."""
+        inputs_embeds = self.llm.embed(batch["input_ids"].clamp_min(0))  # -1 pseudo -> 0
+        if self.encoder is not None:
+            encoder_outs, _ = self.encode(batch)
+            inputs_embeds = splice_modality(inputs_embeds, encoder_outs, batch["modality_mask"])
+        return inputs_embeds, batch["attention_mask"]
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(B, T, V) f32 logits over the whole sequence."""
+        return self.llm(*self.forward_embeds(batch))
+
+    def prefill(self, batch: Dict[str, torch.Tensor], cache: KVCache):
+        return self.llm.prefill(*self.forward_embeds(batch), cache)
+
+    def decode_step(self, token_ids, cache, cache_index, attention_mask, positions):
+        embeds = self.llm.embed(token_ids.clamp_min(0))
+        return self.llm.decode_step(embeds, cache, cache_index, attention_mask, positions)
+
+
+def build_slam_config(train_config, model_config) -> SLAMConfig:
+    """Map the user-facing configs (``slam_llm_tpu.config``) to ``SLAMConfig``."""
+    mc, tc = model_config, train_config
+    if mc.encoder_name == "whisper":
+        enc_cfg = WHISPER_PRESETS[mc.encoder_config or "whisper-tiny"]()
+        encoder_dim = enc_cfg.d_model
+    elif mc.encoder_name is None:
+        enc_cfg, encoder_dim = None, mc.encoder_dim
+    else:
+        raise NotImplementedError(f"encoder {mc.encoder_name!r} is not ported yet ({_TODO_ENCODERS})")
+
+    llm_presets = {
+        "tinyllama-1.1b": LLMConfig.tinyllama_1_1b,
+        "vicuna-7b": LLMConfig.vicuna_7b,
+        "qwen2-7b": LLMConfig.qwen2_7b,
+        "tiny-test": LLMConfig.tiny_test,
+    }
+    if mc.llm_name not in llm_presets:
+        raise ValueError(f"unknown llm_name {mc.llm_name!r}; presets: {sorted(llm_presets)}")
+    llm_cfg = llm_presets[mc.llm_name]()
+    if tc.use_peft:
+        pc = tc.peft_config
+        method = getattr(pc, "peft_method", "lora")
+        if method != "lora":
+            raise NotImplementedError(f"peft_method {method!r} is not ported yet (only lora)")
+        llm_cfg = dataclasses.replace(
+            llm_cfg, peft_method="lora", lora_rank=pc.r, lora_alpha=float(pc.lora_alpha),
+            lora_targets=tuple(pc.target_modules),
+        )
+    # the int8 base only: the reference's other shard knobs (remat, scan,
+    # the int8 backward modes) shape training, which is not ported yet
+    llm_cfg = dataclasses.replace(llm_cfg, base_quant=getattr(tc.shard, "base_quant", "none"))
+    proj_cfg = ProjectorConfig(
+        encoder_dim=encoder_dim, llm_dim=llm_cfg.d_model, ds_rate=mc.encoder_projector_ds_rate
+    )
+    if mc.encoder_projector != "linear":
+        raise NotImplementedError(
+            f"projector {mc.encoder_projector!r} is not ported yet "
+            "(ROADMAP: port the conv1d and q-former projectors)"
+        )
+    return SLAMConfig(
+        llm=llm_cfg, encoder_name=mc.encoder_name, encoder=enc_cfg,
+        projector=mc.encoder_projector, projector_cfg=proj_cfg,
+    )
+
+
+def model_factory(train_config, model_config, device=None, **kwargs):
+    """Build ``(SLAMModel, tokenizer)`` with zero-filled weights on ``device``;
+    ``pipeline.common.materialize_params`` fills them."""
+    from slam_llm_tpu.data.tokenizer import load_tokenizer
+
+    if model_config.llm_name.startswith("vallex"):
+        raise NotImplementedError(f"llm_name {model_config.llm_name!r} is not ported yet ({_TODO_ENCODERS})")
+    tokenizer = load_tokenizer(model_config.llm_path)
+    cfg = build_slam_config(train_config, model_config)
+    if tokenizer.vocab_size > cfg.llm.vocab_size:
+        cfg = dataclasses.replace(
+            cfg, llm=dataclasses.replace(cfg.llm, vocab_size=tokenizer.vocab_size)
+        )
+    return SLAMModel(cfg, device), tokenizer

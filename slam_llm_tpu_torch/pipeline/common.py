@@ -1,0 +1,95 @@
+"""Shared pipeline assembly: config -> (model, tokenizer, dataset) -> weights.
+
+Counterpart of ``slam_llm_tpu/pipeline/common.py``. ``materialize_params``
+draws the port's own random init from ``train_config.seed`` through a
+``torch.Generator`` on the model's device; loading pretrained or trained
+weights is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+import random
+
+import numpy as np
+import torch
+from torch import nn
+
+from slam_llm_tpu.config import RunConfig
+from slam_llm_tpu_torch.models.layers import DenseGeneralLora
+from slam_llm_tpu_torch.ops.quant import quantize_int8
+from slam_llm_tpu_torch.registry import get_custom_dataset_factory, get_custom_model_factory
+
+_TODO_LOADERS = "ROADMAP: port the HF / checkpoint loaders"
+
+
+def set_seed(seed: int) -> None:
+    random.seed(seed)
+    np.random.seed(seed)
+
+
+def resolve_device(device) -> torch.device:
+    """A ``torch.device``; asking for CUDA without a usable GPU raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+    return dev
+
+
+def build_model_and_data(cfg: RunConfig, split: str = "train", device="cpu"):
+    """Resolve the factories, build (model, tokenizer, dataset); the model's
+    tensors are allocated on ``device`` and zero-filled."""
+    factory = get_custom_model_factory(cfg.model_config)
+    model, tokenizer = factory(cfg.train_config, cfg.model_config, device=resolve_device(device))
+    ds_factory = get_custom_dataset_factory(cfg.dataset_config)
+    dataset = ds_factory(cfg.dataset_config, tokenizer, split)
+    return model, tokenizer, dataset
+
+
+@torch.no_grad()
+def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random init in place, drawn on the generator's device, following the
+    reference's initializers: dense and conv kernels normal with std
+    1/sqrt(fan_in), biases 0, LoRA A normal with std 1/r and B zero,
+    embeddings standard normal, norms 1 / 0. An int8 base is the
+    quantization of such a kernel."""
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=generator, device=generator.device) * std
+
+    for mod in model.modules():
+        if isinstance(mod, DenseGeneralLora):
+            w = normal((mod.features, mod.in_features), 1.0 / math.sqrt(mod.in_features))
+            if mod.quant == "int8":
+                q, s = quantize_int8(w, contract_axis=-1)
+                mod.kernel_q.copy_(q)
+                mod.kernel_scale.copy_(s)
+            else:
+                mod.weight.copy_(w)
+            if mod.bias is not None:
+                mod.bias.zero_()
+            if mod.lora_rank > 0:
+                mod.lora_a.copy_(normal(mod.lora_a.shape, 1.0 / mod.lora_rank))
+                mod.lora_b.zero_()
+        elif isinstance(mod, nn.Conv1d):
+            fan_in = mod.in_channels * mod.kernel_size[0]
+            mod.weight.copy_(normal(mod.weight.shape, 1.0 / math.sqrt(fan_in)))
+            mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.copy_(normal(mod.weight.shape, 1.0))
+    return model
+
+
+def materialize_params(model: nn.Module, cfg: RunConfig) -> nn.Module:
+    """Fill the model's weights: the seeded random init. Pretrained
+    (``llm_path`` / ``encoder_path``) and trained (``ckpt_path``) weights
+    raise until their loaders are ported."""
+    mc = cfg.model_config
+    for key, val in (("model_config.llm_path", mc.llm_path),
+                     ("model_config.encoder_path", mc.encoder_path),
+                     ("ckpt_path", cfg.ckpt_path)):
+        if val:
+            raise NotImplementedError(f"{key}: loading weights is not ported yet ({_TODO_LOADERS})")
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(cfg.train_config.seed)
+    return init_params_(model, gen)

@@ -1,0 +1,88 @@
+"""Carry a parameter tree of the JAX package into the port.
+
+``from_flax_params`` maps ``slam_llm_tpu``'s (flax) parameter tree, as
+nested dicts of numpy arrays, onto this package's ``state_dict`` names:
+
+* the scanned ``layers`` axis is unstacked into ``layers.{i}``, and
+  ``llm.decoder.layers`` becomes ``llm.layers``;
+* dense ``kernel`` (in, out) becomes ``weight`` (out, in), like ``nn.Linear``;
+  the int8 ``kernel_q`` (in, out) becomes ``kernel_q`` (out, in), the K-major
+  layout the int8 GEMM reads; LoRA ``lora_a`` (in, r) and ``lora_b`` (r, out)
+  are transposed the same way;
+* flax ``Conv`` ``kernel`` (k, in, out) becomes ``Conv1d.weight`` (out, in, k);
+* ``Embed.embedding`` (V, D) becomes ``embed_tokens.weight``;
+* the backward-only ``kernel_qr`` / ``kernel_scale_r`` and ``kernel_t`` are
+  dropped.
+
+The result loads with ``model.load_state_dict(sd)``, which casts each tensor
+to the dtype the port stores it in.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+_DROPPED = ("kernel_qr", "kernel_scale_r", "kernel_t")
+
+
+def _leaf(name: str, arr: np.ndarray):
+    if name in _DROPPED:
+        return None
+    if name == "kernel":
+        if arr.ndim == 3:  # Conv (k, in, out) -> (out, in, k)
+            return "weight", arr.transpose(2, 1, 0)
+        return "weight", arr.T
+    if name in ("kernel_q", "lora_a", "lora_b"):
+        return name, arr.T
+    if name == "embedding":
+        return "weight", arr
+    return name, arr  # bias, scale, kernel_scale
+
+
+def _walk(node: Mapping, prefix: List[str], out: Dict[str, torch.Tensor]) -> None:
+    for key, val in node.items():
+        if isinstance(val, Mapping):
+            if key == "layers":
+                n = _leading_dim(val)
+                for i in range(n):
+                    _walk(_index(val, i), prefix + ["layers", str(i)], out)
+            elif key == "decoder":
+                _walk(val, prefix, out)
+            else:
+                _walk(val, prefix + [key], out)
+            continue
+        mapped = _leaf(key, np.asarray(val))
+        if mapped is not None:
+            out[".".join(prefix + [mapped[0]])] = torch.from_numpy(np.array(mapped[1]))
+
+
+def _leading_dim(node: Mapping) -> int:
+    for val in node.values():
+        return _leading_dim(val) if isinstance(val, Mapping) else np.shape(val)[0]
+    raise ValueError("empty layers subtree")
+
+
+def _index(node: Mapping, i: int) -> dict:
+    return {k: _index(v, i) if isinstance(v, Mapping) else np.asarray(v)[i] for k, v in node.items()}
+
+
+def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Map any flax subtree (a whole model or one module) to ``state_dict`` names."""
+    out: Dict[str, torch.Tensor] = {}
+    _walk(params, [], out)
+    return out
+
+
+def from_flax_params(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """``params``: the flax ``params`` collection of a ``SLAMModel`` (unboxed)
+    as nested dicts of arrays; ``cfg``: the port's ``SLAMConfig``. Returns
+    the port model's ``state_dict``."""
+    out = flax_to_state_dict(params)
+    n = sum(1 for key in out if key.startswith("llm.layers.") and key.endswith(".input_norm.scale"))
+    if n != cfg.llm.n_layers:
+        raise ValueError(f"parameter tree has {n} decoder layers, config {cfg.llm.n_layers}")
+    return out

@@ -1,0 +1,150 @@
+"""CUDA kernels of slam_llm_tpu_torch against their plain twins, on the card.
+
+Every test here needs a CUDA GPU and skips without one. The file imports no
+JAX, so it also runs on a torch-only GPU host, where the repository's
+conftest (which imports JAX) has to be left out:
+
+    python -m pytest --noconftest -q tests/test_torch_gpu.py
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from slam_llm_tpu_torch.ops import quant as tquant
+from slam_llm_tpu_torch.ops.kernels import flash_attention as tflash
+from slam_llm_tpu_torch.ops.kernels import rowquant as trowquant
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode; their twins are tested on the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("t,h,hkv,d,causal", [(1500, 12, 12, 64, False), (448, 32, 4, 64, True),
+                                               (512, 8, 8, 128, True), (70, 4, 1, 64, True)])
+def test_flash_kernel_matches_twin(gen, t, h, hkv, d, causal):
+    """bf16 out within 2e-2 abs of the f32 twin on the same bf16 inputs (the
+    kernel rounds p to bf16 for the p.v product); live-row lse within 1e-3;
+    rows with no visible key exactly 0."""
+    b = 2
+    q = torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(b, t, hkv, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, t, hkv, d, generator=gen, device="cuda").bfloat16()
+    mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
+    mask[0, :17] = 0
+    mask[1, t - 11:] = 0
+    before = tflash.flash_attention_fwd.launches
+    out, lse = tflash.flash_attention_fwd(q, k, v, mask, causal)
+    assert tflash.flash_attention_fwd.launches == before + 1
+    ref, ref_lse = tflash.flash_attention_ref(q.float(), k.float(), v.float(), mask, causal)
+    live = mask.cumsum(1) > 0 if causal else torch.ones_like(mask, dtype=torch.bool)
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    assert (lse - ref_lse)[live].abs().max().item() <= 1e-3
+    assert bool((out[~live] == 0).all())
+
+
+def test_flash_kernel_cross_attention_and_routing(gen):
+    """Non-causal Tq != Tk runs the kernel; ``mha_attention`` keeps a dense
+    bias and end-aligned causal Tq != Tk on the plain path."""
+    from slam_llm_tpu_torch.models import layers
+
+    q = torch.randn(2, 70, 4, 64, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(2, 200, 2, 64, generator=gen, device="cuda").bfloat16()
+    mask = torch.ones(2, 200, dtype=torch.int32, device="cuda")
+    mask[1, 150:] = 0
+    out, _ = tflash.flash_attention_fwd(q, k, k, mask)
+    ref, _ = tflash.flash_attention_ref(q.float(), k.float(), k.float(), mask)
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    before = tflash.flash_attention_fwd.launches
+    got = layers.mha_attention(q, k, k, kv_mask=mask, causal=True)
+    want = layers._xla_attention(q, k, k, None, kv_mask=mask, causal=True)
+    assert torch.equal(got, want) and tflash.flash_attention_fwd.launches == before
+    bias = layers.make_padding_bias(mask, 70)
+    assert torch.equal(layers.mha_attention(q, k, k, bias=bias), layers._xla_attention(q, k, k, bias))
+    assert tflash.flash_attention_fwd.launches == before
+
+
+def test_flash_kernel_refuses_what_it_cannot_take(gen):
+    q = torch.randn(1, 64, 2, 32, generator=gen, device="cuda").bfloat16()
+    mask = torch.ones(1, 64, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        tflash.flash_attention_fwd(q, q, q, mask)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tflash.flash_attention_fwd(q.float(), q.float(), q.float(), mask)
+
+
+@pytest.mark.parametrize("m,k", [(4096, 2048), (32, 5632), (1337, 2056), (5, 104)])
+def test_rowquant_kernel_bit_exact(gen, m, k):
+    """bf16 in, bit-exact; f32 input and K % 8 != 0 are refused."""
+    x = (torch.randn(m, k, generator=gen, device="cuda") * 3).bfloat16()
+    x[0] = 0
+    q, s = trowquant.rowquant(x)
+    rq, rs = trowquant.rowquant_ref(x)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    with pytest.raises(TypeError, match="bfloat16"):
+        trowquant.rowquant(x.float())
+    with pytest.raises(ValueError, match="K % 8"):
+        trowquant.rowquant(x[:, :-4].contiguous())
+
+
+@pytest.mark.parametrize("m", [1, 8, 32, 4096])
+@pytest.mark.parametrize("k,f", [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (48, 40)])
+def test_int8_matmul_kernel_matches_twin(gen, m, k, f):
+    """Bit-exact against the f64 twin, or at most one bf16 ulp; the kernel
+    writes bf16 only and refuses an f32 output."""
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    wq = torch.randint(-127, 128, (f, k), generator=gen, device="cuda", dtype=torch.int8)
+    xs = torch.rand(m, generator=gen, device="cuda") * 0.05
+    ws = torch.rand(f, generator=gen, device="cuda") * 0.01
+    out = tquant.int8_matmul(xq, wq, xs, ws, torch.bfloat16)
+    ref = tquant.int8_matmul_ref(xq, wq, xs, ws, torch.bfloat16)
+    assert (out.view(torch.int16).int() - ref.view(torch.int16).int()).abs().max().item() <= 1
+    with pytest.raises(TypeError, match="bfloat16"):
+        tquant.int8_matmul(xq, wq, xs, ws, torch.float32)
+
+
+def test_small_slice_on_card_matches_cpu_plain_path(gen):
+    """A narrow sandwich with 64-wide heads (the flash kernel's width): the
+    card's prefill logits (K1, K2, K3) keep a cosine >= 0.99 with the CPU
+    plain path on the same bf16 weights, and every kernel launched."""
+    from slam_llm_tpu_torch.models.llm import LLMConfig, init_kv_cache
+    from slam_llm_tpu_torch.models.projector import ProjectorConfig
+    from slam_llm_tpu_torch.models.slam_model import SLAMConfig, SLAMModel
+    from slam_llm_tpu_torch.models.whisper import WhisperEncoderConfig
+    from slam_llm_tpu_torch.pipeline.common import init_params_
+
+    llm = dataclasses.replace(LLMConfig.tiny_test(vocab_size=300), d_model=256, n_heads=4,
+                              n_kv_heads=2, head_dim=64, ffn_dim=512, lora_rank=8, base_quant="int8")
+    cfg = SLAMConfig(llm=llm, encoder=WhisperEncoderConfig(80, 128, 2, 2, 100),
+                     projector_cfg=ProjectorConfig(encoder_dim=128, llm_dim=256, hidden_dim=256))
+    model = init_params_(SLAMModel(cfg, device="cuda").eval(), gen)
+    for mod in model.modules():  # nonzero LoRA B, so the LoRA branch counts
+        if getattr(mod, "lora_rank", 0):
+            mod.lora_b.normal_(0, 0.05, generator=gen)
+    b, t, n_audio = 2, 40, 20
+    ids = torch.randint(3, 250, (b, t), generator=gen, device="cuda")
+    ids[:, :n_audio] = -1
+    modality = torch.zeros(b, t, dtype=torch.int32, device="cuda")
+    modality[:, :n_audio] = 1
+    batch = {"input_ids": ids, "attention_mask": torch.ones(b, t, dtype=torch.int32, device="cuda"),
+             "modality_mask": modality,
+             "audio_mel": torch.randn(b, 200, 80, generator=gen, device="cuda"),
+             "audio_mel_mask": torch.ones(b, 200, dtype=torch.int32, device="cuda")}
+    counters = (tflash.flash_attention_fwd, trowquant.rowquant, tquant.int8_matmul)
+    before = [fn.launches for fn in counters]
+    with torch.inference_mode():
+        gpu, _ = model.prefill(batch, init_kv_cache(llm, b, t + 1, gen_start=t, device="cuda"))
+        torch.cuda.synchronize()
+        assert all(fn.launches > n for fn, n in zip(counters, before))
+        model = model.to("cpu")
+        cpu, _ = model.prefill({k: v.cpu() for k, v in batch.items()}, init_kv_cache(llm, b, t + 1, gen_start=t))
+    cos = torch.nn.functional.cosine_similarity(gpu.cpu().flatten(0, 1), cpu.flatten(0, 1), dim=-1)
+    assert bool(torch.isfinite(gpu).all()) and cos.min().item() >= 0.99

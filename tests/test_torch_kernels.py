@@ -1,0 +1,161 @@
+"""Kernel twins of slam_llm_tpu_torch against the JAX package's kernels.
+
+On the CPU each wrapper runs its plain PyTorch twin; the same numpy inputs go
+through the JAX function (Pallas in interpret mode, or its XLA expression)
+and the twin. The CUDA kernels against their twins: tests/test_torch_gpu.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slam_llm_tpu.ops import quant as jquant
+from slam_llm_tpu.ops.kernels.flash_attention import _flash_fwd
+from slam_llm_tpu.ops.kernels.rowquant import rowquant as jrowquant
+from slam_llm_tpu_torch.ops import quant as tquant
+from slam_llm_tpu_torch.ops.kernels import flash_attention as tflash
+from slam_llm_tpu_torch.ops.kernels import rowquant as trowquant
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+# ---- K1 flash-attention forward ----------------------------------------
+
+
+@pytest.mark.parametrize(
+    "t,h,hkv,causal,pad",
+    [
+        (200, 4, 4, False, "right"),  # ragged T, MHA (whisper-like)
+        (128, 4, 2, True, "left"),  # GQA causal prefill, left-padded prompts
+        (130, 2, 1, True, "none"),  # MQA, ragged causal
+    ],
+)
+def test_flash_twin_matches_pallas_forward(t, h, hkv, causal, pad):
+    """Twin vs the Pallas forward (interpret mode), f32: out and live-row lse
+    within 1e-5 abs; rows with no visible key exactly 0 in both."""
+    rng = np.random.default_rng(t + h)
+    b, d = 2, 64
+    q = rng.standard_normal((b, t, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
+    mask = np.ones((b, t), np.int32)
+    if pad == "right":
+        mask[1, t - 37:] = 0
+    elif pad == "left":
+        mask[0, :29] = 0
+    scale = 1.0 / np.sqrt(d)
+    j_out, j_lse = _flash_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), causal, scale,
+        128, 128, True,
+    )
+    t_out, t_lse = tflash.flash_attention_fwd(_t(q), _t(k), _t(v), _t(mask), causal)
+    live = mask.cumsum(1) > 0 if causal else np.ones((b, t), bool)
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(t_lse.numpy()[live], np.asarray(j_lse)[live], atol=1e-5, rtol=0)
+    assert np.all(t_out.numpy()[~live] == 0) and np.all(np.asarray(j_out)[~live] == 0)
+
+
+def test_flash_wrapper_uses_twin_on_cpu_and_checks_causal_shapes():
+    q = torch.randn(1, 8, 2, 64)
+    k = torch.randn(1, 8, 2, 64)
+    mask = torch.ones(1, 8, dtype=torch.int32)
+    before = tflash.flash_attention_fwd.launches
+    out = tflash.flash_attention_fwd(q, k, k, mask, causal=True)[0]
+    ref, _ = tflash.flash_attention_ref(q, k, k, mask, causal=True)
+    assert torch.equal(out, ref) and tflash.flash_attention_fwd.launches == before
+    with pytest.raises(ValueError, match="tq == tk"):
+        tflash.flash_attention_fwd(q[:, :4], k, k, mask, causal=True)
+
+
+# ---- K2 rowquant -----------------------------------------------------------
+
+
+def _rowquant_inputs(dtype):
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((37, 256)) * 3).astype(np.float32)
+    x[0] = 0.0  # all-zero row: s = 1e-28 / 127, q = 0
+    # exact .5 ties: amax 127 makes s == 1, so x / s == x
+    x[1] = (np.arange(256) % 254 - 127) + 0.5
+    x[1, 0] = 127.0
+    x[2] = x[1] * 1e-3  # ties that land after a true division
+    return x.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rowquant_twin_bit_exact_against_jax(dtype):
+    x = _rowquant_inputs(np.float32)
+    jx = jnp.asarray(x, dtype=getattr(jnp, dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    jq, js = jrowquant(jx)
+    tq, ts = trowquant.rowquant(tx)
+    assert tq.dtype == torch.int8 and ts.shape == (37, 1)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert np.all(tq.numpy()[0] == 0)
+
+
+def test_rowquant_training_variants_not_ported():
+    x = torch.randn(4, 32)
+    with pytest.raises(NotImplementedError):
+        trowquant.rowquant(x, fold=torch.ones(32))
+    with pytest.raises(NotImplementedError):
+        trowquant.rowquant(x, seed=0)
+    with pytest.raises(NotImplementedError):
+        trowquant.rowquant(x, rotate=True)
+
+
+# ---- K3 int8 GEMM + int8_linear ------------------------------------------
+
+
+def test_quantize_int8_matches_jax():
+    w = np.random.default_rng(1).standard_normal((48, 24)).astype(np.float32)
+    jq, js = jquant.quantize_int8(jnp.asarray(w))
+    tq, ts = tquant.quantize_int8(torch.from_numpy(w))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    deq = tquant.dequantize_int8(tq, ts)
+    np.testing.assert_allclose(deq.numpy(), np.asarray(jquant.dequantize_int8(jq, js)), rtol=0, atol=0)
+
+
+def test_int8_matmul_twin_is_exact_integer_product():
+    rng = np.random.default_rng(2)
+    xq = rng.integers(-127, 128, (9, 5632), dtype=np.int8)
+    wq = rng.integers(-127, 128, (7, 5632), dtype=np.int8)
+    xs = rng.random(9).astype(np.float32)
+    ws = rng.random(7).astype(np.float32)
+    acc = xq.astype(np.int64) @ wq.astype(np.int64).T
+    want = acc.astype(np.float32) * xs[:, None] * ws[None, :]
+    got = tquant.int8_matmul(_t(xq), _t(wq), _t(xs), _t(ws), torch.float32)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_int8_linear_matches_jax_int8_dot_forward():
+    """fp32, within 1e-6 relative of the reference's s8 product + epilogue."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 5, 64)).astype(np.float32)
+    w = rng.standard_normal((64, 48)).astype(np.float32) * 0.1
+    jq, js = jquant.quantize_int8(jnp.asarray(w))  # (K, F) int8, (F,)
+    want = np.asarray(jquant.int8_dot(jnp.asarray(x), jq, js, bwd="bf16"))
+    got = tquant.int8_linear(_t(x), _t(np.asarray(jq).T.copy()), _t(js))
+    assert got.shape == (2, 5, 48) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch):
+    from slam_llm_tpu_torch.kernels import build
+
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(build, "library_path", lambda: build.BUILD_DIR / "absent.so")
+    if __import__("os").path.isfile("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this host has nvcc under /usr/local/cuda")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build()
+
+
+def test_jax_runs_on_cpu_here():
+    assert jax.default_backend() == "cpu"
