@@ -4,18 +4,30 @@
 
 Phases, each fatal on failure:
   1. setup   -- card name and power limit, versions, TF32 off, CUDA required;
-  2. build   -- compile the port's CUDA kernels (csrc/*.cu) for sm_90a;
+  2. build   -- compile the port's CUDA kernels (csrc/*.cu, one nvcc per
+                source, in parallel) for sm_90a;
   3. kernels -- each kernel against its plain PyTorch twin on the card, with
-                its time beside the twin's: at the shapes the batch-decode
-                path launches (prompt bucket T = 512, so M = 4096 rows at
-                prefill and 32 beam rows at decode), plus ragged,
-                left-padded and D = 128 cases the path does not reach;
-  4. slice   -- the recipe examples/asr_librispeech/conf/asr_whisper_tinyllama.yaml
+                its time beside the twin's, at the shapes the two paths
+                launch: K1 flash forward (whisper-small; TinyLlama prefill;
+                the training path with fused RoPE), K4 flash backward (the
+                training shape (16, 512, 32/4, 64) with fused RoPE, and a
+                whisper-like shape), K2 rowquant (deterministic, and rotate +
+                stochastic rounding at the int8_rot dy shapes, bit-exact), K3
+                s8 GEMM (prefill, decode and dx shapes, bit-exact), plus
+                ragged, left-padded and D = 128 cases;
+  4. decode  -- the recipe examples/asr_librispeech/conf/asr_whisper_tinyllama.yaml
                 through slam_llm_tpu_torch.pipeline.inference_batch on 16
                 synthetic utterances (whisper-small, TinyLlama-1.1B int8 base,
                 beam 4, 200 new tokens, random weights from the recipe's
                 seed), with kernel launch counts, a prefill-logit check
-                against the CPU plain path, and throughput.
+                against the CPU plain path, and throughput;
+  5. train   -- the same recipe through slam_llm_tpu_torch.pipeline.finetune
+                (frozen whisper-small, trained projector, TinyLlama-1.1B int8
+                base with LoRA r8 on q/v, int8_rot backward, batch 16) for a
+                few steps on synthetic utterances, with validation and the
+                trainable-only checkpoint; step time, throughput, peak memory
+                and launches per kernel; then the trainable gradients of one
+                utterance on the card against the CPU plain path.
 
 Prints one JSON line of kernel results before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -127,38 +139,53 @@ def host_ms(fn, calls: int = 50) -> float:
     return 1000 * (time.perf_counter() - t0) / calls
 
 
+def _padding_mask(b, t, pad, dev="cuda"):
+    mask = torch.ones(b, t, dtype=torch.int32, device=dev)
+    for i in range(b):
+        n_pad = (i * 37) % (t // 3)
+        if pad in ("right", "both"):
+            mask[i, t - n_pad // (2 if pad == "both" else 1):] = 0
+        if pad in ("left", "both"):
+            mask[i, :n_pad] = 0
+    return mask
+
+
+def _rope_for(mask, d):
+    from slam_llm_tpu_torch.models.layers import rope_tables
+
+    return rope_tables((mask.long().cumsum(1) - 1).clamp_min(0), d)
+
+
 def check_flash(gen) -> dict:
     from slam_llm_tpu_torch.ops.kernels.flash_attention import (
+        apply_rope_tables,
         flash_attention_fwd,
         flash_attention_ref,
     )
 
     dev = "cuda"
     cases = [
-        # (name, B, T, H, Hkv, D, causal, padding)
-        ("whisper-small self-attn", 8, 1500, 12, 12, 64, False, "right"),
-        ("tinyllama prefill, the slice's bucket", 8, 512, 32, 4, 64, True, "none"),
-        ("tinyllama prefill, left-padded", 8, 448, 32, 4, 64, True, "left"),
-        ("head_dim 128", 2, 512, 32, 32, 128, True, "left"),
+        # (name, B, T, H, Hkv, D, causal, padding, fused rope)
+        ("whisper-small self-attn", 8, 1500, 12, 12, 64, False, "right", False),
+        ("tinyllama prefill, the slice's bucket", 8, 512, 32, 4, 64, True, "none", False),
+        ("tinyllama training, fused RoPE, left-padded", 16, 512, 32, 4, 64, True, "left", True),
+        ("tinyllama prefill, left-padded", 8, 448, 32, 4, 64, True, "left", False),
+        ("head_dim 128", 2, 512, 32, 32, 128, True, "left", False),
     ]
     worst, first = 0.0, None
-    for name, b, t, h, hkv, d, causal, pad in cases:
+    for name, b, t, h, hkv, d, causal, pad, fused in cases:
         q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
         k = torch.randn(b, t, hkv, d, generator=gen, device=dev).bfloat16()
         v = torch.randn(b, t, hkv, d, generator=gen, device=dev).bfloat16()
-        mask = torch.ones(b, t, dtype=torch.int32, device=dev)
-        for i in range(b):
-            n_pad = (i * 37) % (t // 3)
-            if pad == "right":
-                mask[i, t - n_pad:] = 0
-            elif pad == "left":
-                mask[i, :n_pad] = 0
-        out, lse = flash_attention_fwd(q, k, v, mask, causal)
+        mask = _padding_mask(b, t, pad)
+        rope = _rope_for(mask, d) if fused else None
+        out, lse = flash_attention_fwd(q, k, v, mask, causal, rope=rope)
         torch.cuda.synchronize()
-        ref, ref_lse = flash_attention_ref(q.float(), k.float(), v.float(), mask, causal)
+        # the twin sees q / k rotated as the kernel rotates them (f32, one bf16 rounding)
+        qr, kr = (apply_rope_tables(x, *rope) for x in (q, k)) if fused else (q, k)
+        ref, ref_lse = flash_attention_ref(qr.float(), kr.float(), v.float(), mask, causal)
         if causal:
-            live = torch.ones(b, t, dtype=torch.bool, device=dev)
-            live &= mask.cumsum(1) > 0  # left padding + causal: rows before the first key are dead
+            live = mask.cumsum(1) > 0  # left padding + causal: rows before the first key are dead
         else:
             live = (mask.sum(1, keepdim=True) > 0).expand(b, t)
         err = (out.float() - ref).abs().max().item()
@@ -166,8 +193,8 @@ def check_flash(gen) -> dict:
         dead = out[~live]
         dead_ok = bool((dead == 0).all().item()) if dead.numel() else True
         n_dead = int((~live).sum().item())
-        ms = time_ms(lambda: flash_attention_fwd(q, k, v, mask, causal))
-        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, mask, causal), reps=3)
+        ms = time_ms(lambda: flash_attention_fwd(q, k, v, mask, causal, rope=rope))
+        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, mask, causal, rope=rope), reps=3)
         log(f"[K1] {name} {(b, t, h, hkv, d)} causal={causal}: max|out-ref| {err:.3e} "
             f"max|lse-ref| {lse_err:.3e} dead rows {n_dead} all-zero {dead_ok} | "
             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
@@ -180,14 +207,66 @@ def check_flash(gen) -> dict:
     return dict(max_abs_err=worst, **first)
 
 
+def check_flash_bwd(gen) -> dict:
+    """K4 against the f32 twin on the kernel's own inputs (q / k rotated in
+    bf16 as the kernel rotates them, dq / dk counter-rotated in f32)."""
+    from slam_llm_tpu_torch.ops.kernels.flash_attention import (
+        apply_rope_tables,
+        flash_attention_bwd,
+        flash_attention_bwd_ref,
+        flash_attention_fwd,
+    )
+
+    dev = "cuda"
+    cases = [
+        ("tinyllama training, fused RoPE, left + right padded", 16, 512, 32, 4, 64, True, "both", True),
+        ("whisper-like, not causal, right-padded", 2, 1500, 12, 12, 64, False, "right", False),
+    ]
+    worst, first = 0.0, None
+    for name, b, t, h, hkv, d, causal, pad, fused in cases:
+        q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
+        k = torch.randn(b, t, hkv, d, generator=gen, device=dev).bfloat16()
+        v = torch.randn(b, t, hkv, d, generator=gen, device=dev).bfloat16()
+        dout = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
+        mask = _padding_mask(b, t, pad)
+        rope = _rope_for(mask, d) if fused else None
+        out, lse = flash_attention_fwd(q, k, v, mask, causal, rope=rope)
+        got = flash_attention_bwd(q, k, v, mask, out, lse, dout, causal, rope=rope)
+        torch.cuda.synchronize()
+        qr, kr = (apply_rope_tables(x, *rope) for x in (q, k)) if fused else (q, k)
+        args32 = (qr.float(), kr.float(), v.float(), mask, out.float(), lse, dout.float(), causal)
+        want = flash_attention_bwd_ref(*args32)
+        if fused:
+            want = (apply_rope_tables(want[0], *rope, inverse=True),
+                    apply_rope_tables(want[1], *rope, inverse=True), want[2])
+        rel = [((g.float() - w).norm() / w.norm()).item() for g, w in zip(got, want)]
+        err = max((g.float() - w).abs().max().item() for g, w in zip(got, want))
+        dead = (mask.cumsum(1) == 0) if causal else torch.zeros_like(mask, dtype=torch.bool)
+        dead_ok = bool((got[0][dead] == 0).all().item()) if bool(dead.any()) else True
+        again = flash_attention_bwd(q, k, v, mask, out, lse, dout, causal, rope=rope)
+        deterministic = all(torch.equal(a, g) for a, g in zip(again, got))
+        ms = time_ms(lambda: flash_attention_bwd(q, k, v, mask, out, lse, dout, causal, rope=rope))
+        plain_ms = time_ms(lambda: flash_attention_bwd_ref(*args32), reps=3)
+        log(f"[K4] {name} {(b, t, h, hkv, d)}: rel L2 dq {rel[0]:.3e} dk {rel[1]:.3e} dv {rel[2]:.3e} "
+            f"max abs {err:.3e}, dead rows {int(dead.sum())} dq zero {dead_ok}, deterministic "
+            f"{deterministic} | kernel {ms:.4f} ms plain f32 {plain_ms:.4f} ms")
+        if not (max(rel) <= 2e-2 and dead_ok and deterministic):
+            raise AssertionError(f"K4 {name}: rel L2 {rel} (tol 2e-2), dead dq zero {dead_ok}, "
+                                 f"deterministic {deterministic}")
+        worst = max(worst, err)
+        if first is None:
+            first = dict(ms=ms, plain_ms=plain_ms, max_rel_l2=max(rel), at=f"{name} {(b, t, h, hkv, d)}")
+    return dict(max_abs_err=worst, **first)
+
+
 def check_rowquant(gen) -> dict:
     from slam_llm_tpu_torch.ops.kernels.rowquant import rowquant, rowquant_ref
 
     dev = "cuda"
     worst, first = 0.0, None
-    # prefill (M = 4096) and beam decode (M = 32) shapes first, then others
-    for m, k in ((4096, 2048), (4096, 5632), (32, 2048), (32, 5632), (3584, 2048), (1337, 5632),
-                 (3, 2056)):
+    # prefill (M = 4096), beam decode (M = 32) and training (M = 8192) shapes first, then others
+    for m, k in ((4096, 2048), (4096, 5632), (32, 2048), (32, 5632), (8192, 2048), (3584, 2048),
+                 (1337, 5632), (3, 2056)):
         x = torch.randn(m, k, generator=gen, device=dev) * 3
         x[0] = 0.0  # all-zero row
         # exact .5 ties after scaling: amax 127 gives s == 1, so x/s == x
@@ -211,48 +290,93 @@ def check_rowquant(gen) -> dict:
     return dict(max_abs_err=worst, **first)
 
 
+def check_rowquant_rot_sr(gen) -> dict:
+    """K2's rotate + stochastic-rounding kernel at the int8_rot dy shapes of
+    the training step (M = 16 x 512 rows; F = 2048, 256, 5632), bit-exact
+    against the twin's Philox stream and butterfly order."""
+    from slam_llm_tpu_torch.ops.kernels.rowquant import rowquant, rowquant_ref
+
+    dev = "cuda"
+    worst, first = 0.0, None
+    for m, k, seed, rotate in ((8192, 2048, 1234567, True), (8192, 256, 7, True), (8192, 5632, 2**32 - 1, True),
+                               (37, 2048, None, True), (37, 2048, 99, False)):
+        x = torch.randn(m, k, generator=gen, device=dev) * 1e-3
+        x[0] = 0.0  # all-zero row
+        x[1, 5] = 2.0  # one large outlier
+        x = x.bfloat16()
+        q, s = rowquant(x, seed=seed, rotate=rotate)
+        torch.cuda.synchronize()
+        rq, rs = rowquant_ref(x, seed=seed, rotate=rotate)
+        exact = bool(torch.equal(q, rq) and torch.equal(s, rs))
+        err = (q.int() - rq.int()).abs().max().item()
+        ms = time_ms(lambda: rowquant(x, seed=seed, rotate=rotate))
+        plain_ms = time_ms(lambda: rowquant_ref(x, seed=seed, rotate=rotate), reps=3)
+        log(f"[K2 rot/SR] ({m}, {k}) seed={seed} rotate={rotate}: bit-exact {exact} | kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms")
+        if not exact:
+            raise AssertionError(f"K2 rot/SR ({m}, {k}) not bit-exact: max |q - ref| {err}")
+        worst = max(worst, float(err))
+        if first is None:
+            first = dict(ms=ms, plain_ms=plain_ms, at=f"({m}, {k}) rotate + SR")
+    return dict(max_abs_err=worst, **first)
+
+
 def check_int8_matmul(gen) -> dict:
     from slam_llm_tpu_torch.ops.quant import int8_matmul, int8_matmul_ref
 
     dev = "cuda"
     worst, first = 0.0, None
-    for m in (4096, 32, 8, 3584):
-        for k, f in ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048)):
-            xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
-            wq = torch.randint(-127, 128, (f, k), generator=gen, device=dev, dtype=torch.int8)
-            xs = torch.rand(m, generator=gen, device=dev) * 0.05 + 1e-3
-            ws = torch.rand(f, generator=gen, device=dev) * 0.01 + 1e-4
-            out = int8_matmul(xq, wq, xs, ws, torch.bfloat16)
-            torch.cuda.synchronize()
-            ref = int8_matmul_ref(xq, wq, xs, ws, torch.bfloat16)
-            ulp = (out.view(torch.int16).int() - ref.view(torch.int16).int()).abs().max().item()
-            err = (out.float() - ref.float()).abs().max().item()
-            ms = time_ms(lambda: int8_matmul(xq, wq, xs, ws, torch.bfloat16))
-            plain_ms = time_ms(lambda: int8_matmul_ref(xq, wq, xs, ws, torch.bfloat16), reps=3)
-            xb, wb = xq.bfloat16(), wq.bfloat16()
-            bf16_ms = time_ms(lambda: xb @ wb.T)
-            log(f"[K3] M={m} K={k} F={f}: max ulp {ulp} max abs {err:.3e} | kernel {ms:.4f} ms "
-                f"plain(f64) {plain_ms:.4f} ms bf16 matmul {bf16_ms:.4f} ms | eager call with launch "
-                f"{host_ms(lambda: int8_matmul(xq, wq, xs, ws, torch.bfloat16)):.4f} ms")
-            if ulp > 1:
-                raise AssertionError(f"K3 M={m} K={k} F={f}: {ulp} bf16 ulps from the reference")
-            worst = max(worst, err)
-            if m == 4096 and k == 2048 and f == 5632:
-                first = dict(ms=ms, plain_ms=plain_ms, at=f"M={m} K={k} F={f}")
+    # (M, Kc, N): the forward's (K, F) at prefill / decode M, then the int8_rot
+    # dx products of the training step, z (M, F) x wr_q (K, F)
+    shapes = [(m, kc, n) for m in (4096, 32, 8, 3584)
+              for kc, n in ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048))]
+    shapes += [(8192, kc, n) for kc, n in ((2048, 2048), (256, 2048), (5632, 2048), (2048, 5632))]
+    for m, k, f in shapes:
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (f, k), generator=gen, device=dev, dtype=torch.int8)
+        xs = torch.rand(m, generator=gen, device=dev) * 0.05 + 1e-3
+        ws = torch.rand(f, generator=gen, device=dev) * 0.01 + 1e-4
+        out = int8_matmul(xq, wq, xs, ws, torch.bfloat16)
+        torch.cuda.synchronize()
+        ref = int8_matmul_ref(xq, wq, xs, ws, torch.bfloat16)
+        ulp = (out.view(torch.int16).int() - ref.view(torch.int16).int()).abs().max().item()
+        err = (out.float() - ref.float()).abs().max().item()
+        ms = time_ms(lambda: int8_matmul(xq, wq, xs, ws, torch.bfloat16))
+        plain_ms = time_ms(lambda: int8_matmul_ref(xq, wq, xs, ws, torch.bfloat16), reps=3)
+        xb, wb = xq.bfloat16(), wq.bfloat16()
+        bf16_ms = time_ms(lambda: xb @ wb.T)
+        log(f"[K3] M={m} K={k} F={f}: max ulp {ulp} max abs {err:.3e} | kernel {ms:.4f} ms "
+            f"plain(f64) {plain_ms:.4f} ms bf16 matmul {bf16_ms:.4f} ms | eager call with launch "
+            f"{host_ms(lambda: int8_matmul(xq, wq, xs, ws, torch.bfloat16)):.4f} ms")
+        if ulp > 1:
+            raise AssertionError(f"K3 M={m} K={k} F={f}: {ulp} bf16 ulps from the reference")
+        worst = max(worst, err)
+        if m == 4096 and k == 2048 and f == 5632:
+            first = dict(ms=ms, plain_ms=plain_ms, at=f"M={m} K={k} F={f}")
     return dict(max_abs_err=worst, **first)
+
+
+KERNELS = [
+    # name, source, the TPU kernel it replaces
+    ("flash_attention_fwd", "slam_llm_tpu_torch/csrc/flash_attention.cu",
+     "slam_llm_tpu/ops/kernels/flash_attention.py:522"),
+    ("flash_attention_bwd", "slam_llm_tpu_torch/csrc/flash_attention_bwd.cu",
+     "slam_llm_tpu/ops/kernels/flash_attention.py:1157"),
+    ("rowquant", "slam_llm_tpu_torch/csrc/rowquant.cu", "slam_llm_tpu/ops/kernels/rowquant.py:186"),
+    ("rowquant_rot_sr", "slam_llm_tpu_torch/csrc/rowquant.cu", "slam_llm_tpu/ops/kernels/rowquant.py:222"),
+    ("int8_matmul", "slam_llm_tpu_torch/csrc/int8_matmul.cu", "slam_llm_tpu/ops/quant.py:116"),
+]
 
 
 def check_kernels() -> list:
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = [
-        dict(name="flash_attention_fwd", route="cuda",
-             source="slam_llm_tpu_torch/csrc/flash_attention.cu",
-             replaces="slam_llm_tpu/ops/kernels/flash_attention.py:522", **check_flash(gen)),
-        dict(name="rowquant", route="cuda", source="slam_llm_tpu_torch/csrc/rowquant.cu",
-             replaces="slam_llm_tpu/ops/kernels/rowquant.py:186", **check_rowquant(gen)),
-        dict(name="int8_matmul", route="cuda", source="slam_llm_tpu_torch/csrc/int8_matmul.cu",
-             replaces="slam_llm_tpu/ops/quant.py:116", **check_int8_matmul(gen)),
-    ]
+    checks = {
+        "flash_attention_fwd": check_flash, "flash_attention_bwd": check_flash_bwd,
+        "rowquant": check_rowquant, "rowquant_rot_sr": check_rowquant_rot_sr,
+        "int8_matmul": check_int8_matmul,
+    }
+    results = [dict(name=name, route="cuda", source=src, replaces=rep, **checks[name](gen))
+               for name, src, rep in KERNELS]
     torch.cuda.synchronize()
     return results
 
@@ -262,18 +386,18 @@ def check_kernels() -> list:
 # ---------------------------------------------------------------------------
 
 
-def write_corpus(root: Path, n: int = 16, seed: int = 0) -> Path:
+def write_corpus(root: Path, n: int = 16, seed: int = 0, name: str = "test") -> Path:
     """n synthetic 16 kHz wavs of 2-10 s (tone + noise) and a jsonl manifest."""
     import wave
 
     rng = np.random.default_rng(seed)
-    manifest = root / "test.jsonl"
+    manifest = root / f"{name}.jsonl"
     with open(manifest, "w") as f:
         for i in range(n):
             seconds = 2.0 + 8.0 * i / (n - 1)
             t = np.arange(int(seconds * 16000)) / 16000
-            x = 0.3 * np.sin(2 * np.pi * (200 + 50 * i) * t) + 0.02 * rng.standard_normal(t.size)
-            path = root / f"utt{i}.wav"
+            x = 0.3 * np.sin(2 * np.pi * (200 + 50 * (i % 16)) * t) + 0.02 * rng.standard_normal(t.size)
+            path = root / f"{name}_utt{i}.wav"
             with wave.open(str(path), "wb") as w:
                 w.setnchannels(1)
                 w.setsampwidth(2)
@@ -283,15 +407,31 @@ def write_corpus(root: Path, n: int = 16, seed: int = 0) -> Path:
     return manifest
 
 
+DECODE_PATH = ("flash_attention_fwd", "rowquant", "int8_matmul")  # the kernels decode runs
+
+
 def kernel_counters():
     from slam_llm_tpu_torch.ops import quant
     from slam_llm_tpu_torch.ops.kernels import flash_attention, rowquant
 
     return {
         "flash_attention_fwd": flash_attention.flash_attention_fwd,
+        "flash_attention_bwd": flash_attention.flash_attention_bwd,
         "rowquant": rowquant.rowquant,
+        "rowquant_rot_sr": rowquant.rowquant_rot_sr,
         "int8_matmul": quant.int8_matmul,
     }
+
+
+def run_counted(fn):
+    """``fn()`` with every kernel's launch count set to 0 just before; returns
+    (its result, the counts just after)."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: c.launches for name, c in counters.items()}
 
 
 def check_prefill_against_cpu(cfg) -> None:
@@ -332,7 +472,7 @@ def check_prefill_against_cpu(cfg) -> None:
         raise AssertionError(f"prefill logits cosine {cos.min().item()} < 0.99 against the CPU path")
 
 
-def run_slice() -> None:
+def run_slice() -> dict:
     from slam_llm_tpu_torch.pipeline import inference_batch
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -343,14 +483,11 @@ def run_slice() -> None:
         f"++dataset_config.val_data_path={manifest}",
         f"++decode_config.decode_log={tmp / 'decode'}",
     ])
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = inference_batch.main(cfg, device="cuda")
+    res, launches = run_counted(lambda: inference_batch.main(cfg, device="cuda"))
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     preds = Path(res["pred"]).read_text().splitlines()
     log(f"[slice] {res['n']} utterances, {len(preds)} pred lines, launches {launches}")
@@ -359,24 +496,138 @@ def run_slice() -> None:
         f"decode {1000 * res['decode_s'] / max(res['decode_steps'], 1):.2f} ms/step over "
         f"{res['decode_steps']} steps, {res['generated_tokens']} tokens, "
         f"{res['generated_tokens'] / res['seconds']:.1f} tokens/s, RTF {res['rtf']:.4f} "
-        f"({res['audio_seconds']:.1f} s of audio), peak memory {peak / 2**30:.2f} GiB")
+        f"({res['audio_seconds']:.1f} s of audio), peak memory {peak / 2**30:.2f} GiB "
+        f"({base / 2**30:.2f} GiB in use before the phase)")
     print("\n".join(preds[:3]))
     if res["n"] != 16 or len(preds) != 16:
         raise AssertionError(f"expected 16 decoded utterances, got {res['n']} / {len(preds)} lines")
-    missing = [name for name, n in launches.items() if n == 0]
+    missing = [name for name in DECODE_PATH if launches[name] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"kernels never launched on the decode path: {missing}")
     check_prefill_against_cpu(cfg)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the training slice
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 8  # the first two are warm-up; step time is the mean of the rest
+
+
+def run_training() -> dict:
+    """The recipe's training step through ``pipeline.finetune.main`` on
+    TRAIN_STEPS x 16 synthetic utterances, validation on 8, a trainable-only
+    checkpoint; then the gradient check against the CPU plain path."""
+    from slam_llm_tpu_torch.pipeline import finetune
+    from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    cfg = finetune.load_run_config([
+        "--config", str(RECIPE),
+        f"++dataset_config.train_data_path={write_corpus(tmp, n=16 * TRAIN_STEPS, name='train')}",
+        f"++dataset_config.val_data_path={write_corpus(tmp, n=8, seed=1, name='val')}",
+        f"++train_config.max_steps_per_epoch={TRAIN_STEPS}",
+        "++train_config.log_interval=1",
+        f"++train_config.output_dir={tmp / 'out'}",
+    ])
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, launches = run_counted(lambda: finetune.main(cfg, device="cuda"))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    trainer, steps = res["trainer"], res["steps"]
+    for s in steps:
+        log(f"[train] step {s['step']}: loss {s['loss']:.5f} acc {s['acc']:.4f} grad_norm {s['grad_norm']:.5e} "
+            f"lr {s['lr']:.3e} | {1000 * s['seconds']:.1f} ms, batch {s['shape']}, {s['tokens']} tokens")
+    timed = steps[2:]
+    step_s = float(np.mean([s["seconds"] for s in timed]))
+    b, t = steps[-1]["shape"]
+    tokens = float(np.mean([s["tokens"] for s in timed]))
+    log(f"[train] {len(steps)} steps of batch {b} x T {t}: step {1000 * step_s:.1f} ms (mean of steps 3-"
+        f"{len(steps)}), {b / step_s:.2f} utt/s, {tokens / step_s:.0f} attended tokens/s "
+        f"({b * t / step_s:.0f} padded), peak memory {peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB in use "
+        f"before the phase), wall {wall:.1f} s (build, "
+        f"init, steps, validation, checkpoint); validation {res['final_val']}")
+    log(f"[train] launches during training {launches}; per step K4 "
+        f"{launches['flash_attention_bwd'] / len(steps):.0f}, K2 rot/SR {launches['rowquant_rot_sr'] / len(steps):.0f}")
+    if len(steps) != TRAIN_STEPS:
+        raise AssertionError(f"expected {TRAIN_STEPS} training steps, got {len(steps)}")
+    if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps):
+        raise AssertionError("non-finite loss or gradient norm")
+    missing = [name for name, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the training path: {missing}")
+    ckpt = Path(res["checkpoints"][-1]) / "model.pt"
+    if not ckpt.is_file():
+        raise AssertionError(f"checkpoint missing: {ckpt}")
+    log(f"[train] checkpoint {ckpt} ({ckpt.stat().st_size / 2**20:.1f} MiB)")
+
+    # every trainable tensor moved away from the seeded init
+    fresh, _, dataset = build_model_and_data(cfg, split=cfg.dataset_config.train_split, device="cuda")
+    materialize_params(fresh, cfg)
+    init = dict(fresh.named_parameters())
+    unchanged = [n for n, p in trainer.trainable.items() if torch.equal(p.float(), init[n].float())]
+    log(f"[train] {len(trainer.trainable)} trainable tensors, unchanged after {len(steps)} steps: {len(unchanged)}")
+    if unchanged:
+        raise AssertionError(f"trainable tensors unchanged by training: {unchanged[:5]}")
+    del fresh, init
+    check_train_grads_against_cpu(trainer, dataset)
+    return launches
+
+
+def check_train_grads_against_cpu(trainer, dataset) -> None:
+    """The trainable gradients of one utterance, card vs CPU plain path: the
+    trained weights with LoRA B redrawn nonzero (so every LoRA factor gets a
+    gradient), the recipe's int8_rot backward with the same seeds on both
+    sides, dropout off. Cosine >= 0.99 for every tensor with a gradient."""
+    model = trainer.model
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if getattr(mod, "lora_rank", 0):
+                mod.lora_b.normal_(0.0, 0.02, generator=gen)
+    batch = dataset.collator([dataset[0]])
+    names = list(trainer.trainable)
+    seeds = trainer.draw_quant_seeds()
+
+    def grads(device):
+        b = {k: torch.as_tensor(v).to(device) for k, v in batch.items() if isinstance(v, np.ndarray)}
+        for mod, seed in zip(trainer.rot_modules, seeds):
+            mod.quant_seed = seed
+        model.eval()
+        params = dict(model.named_parameters())
+        out = model(b)
+        g = torch.autograd.grad(out["loss"], [params[n] for n in names])
+        return float(out["loss"].detach()), [x.float().cpu() for x in g], tuple(b["input_ids"].shape)
+
+    loss_gpu, g_gpu, shape = grads("cuda")
+    model.to("cpu")
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu, _ = grads("cpu")
+    cpu_s = time.perf_counter() - t0
+    cos = {n: torch.nn.functional.cosine_similarity(a.flatten(), c.flatten(), dim=0).item()
+           for n, a, c in zip(names, g_gpu, g_cpu) if c.abs().max() > 0}
+    worst = min(cos, key=cos.get)
+    log(f"[train] gradient check, one utterance {shape}, {model.cfg.llm.n_layers} layers, card vs CPU plain "
+        f"path ({cpu_s:.1f} s on CPU): loss {loss_gpu:.5f} vs {loss_cpu:.5f}; {len(cos)} of {len(names)} "
+        f"tensors with a gradient, min cosine {cos[worst]:.5f} ({worst}), mean {np.mean(list(cos.values())):.5f}")
+    if len(cos) != len(names) or cos[worst] < 0.99:
+        raise AssertionError(f"gradient check: min cosine {cos[worst]} (< 0.99) or zero gradients "
+                             f"({len(names) - len(cos)})")
 
 
 def main() -> int:
     setup()
     build()
     results = check_kernels()
-    launches = run_slice()
+    decode = run_slice()
+    train = run_training()
     for r in results:
-        r["launches"] = launches[r["name"]]
+        by_path = {"decode": decode[r["name"]], "train": train[r["name"]]}
+        r["launches"] = sum(by_path.values())
+        r["launches_by_path"] = by_path
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

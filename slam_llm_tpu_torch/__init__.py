@@ -12,5 +12,7 @@ Each kernel's wrapper sits beside a plain PyTorch twin: CPU tensors go to
 the twin, CUDA tensors to the kernel, and what the kernel cannot take raises.
 
 Ported so far: the ASR batch-decode path (Whisper encoder, linear projector,
-LoRA LLM with an int8 base, greedy and beam decode).
+LoRA LLM with an int8 base, greedy and beam decode) and its LoRA training
+step (frozen encoder, trained projector and LoRA, the int8_rot backward,
+fused chunked cross-entropy, AdamW, ``pipeline/finetune.py``).
 """

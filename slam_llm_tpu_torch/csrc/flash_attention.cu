@@ -1,4 +1,5 @@
-// K1: flash-attention forward, bf16 in, f32 online softmax, GQA.
+// K1: flash-attention forward, bf16 in, f32 online softmax, GQA, optional
+// fused RoPE.
 //
 // Replaces the Pallas forward of slam_llm_tpu/ops/kernels/flash_attention.py
 // (_flash_fwd: _fwd_wide_kernel and _fwd_kernel):
@@ -7,6 +8,10 @@
 // int32 mask, causal start-aligned (key j visible to query i iff j <= i, so
 // the caller only asks for it when Tq == Tk), and all-masked query rows
 // written as exactly 0 (their lse is meaningless, as in the TPU kernel).
+// With (cos, sin) tables (B, T, D/2) f32 the kernel takes PRE-rotation q/k
+// and rotates each q row fragment in registers and each k tile once as it
+// is loaded (flash_common.cuh: f32 rotation, one bf16 rounding -- the
+// numerics of the plain apply_rope_tables, not the TPU kernel's bf16 chain).
 //
 // Bound on the H100: at the slice's shapes (T = 448..1500, D = 64) the
 // tensor cores and the softmax's exp2 per score; the (Tq, Tk) scores never
@@ -20,47 +25,34 @@
 // (B, T, H, D) layout through explicit strides. Ragged T is masked in the
 // kernel. Causal blocks stop at the diagonal tile.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using slam::kNeg;
+using slam::ld32;
+using slam::load_chunk8;
+using slam::load_pair;
+using slam::mma_bf16;
+using slam::pack_bf16;
 
 constexpr int BQ = 64;   // query rows per block (4 warps x 16)
 constexpr int BKV = 64;  // keys per tile
 constexpr int kThreads = 128;
-constexpr float kNeg = -1.0e30f;  // masked-score sentinel (log2 domain)
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two floats -> one bf16x2 register, lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int tq, int tk, int h, int hkv,
-    long long qsb, long long qst, long long qsh, long long ksb, long long kst, long long ksh,
-    long long vsb, long long vst, long long vsh, float scale2, int causal) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, const float* __restrict__ cos_t,
+    const float* __restrict__ sin_t, int tq, int tk, int h, int hkv, long long qsb, long long qst,
+    long long qsh, long long ksb, long long kst, long long ksh, long long vsb, long long vst,
+    long long vsh, float scale2, int causal) {
   constexpr int LDK = D + 8;    // K tile row pitch (elements)
   constexpr int LDV = BKV + 8;  // transposed V tile row pitch (elements)
   constexpr int ND = D / 8;     // n8 tiles across D
   constexpr int NK = BKV / 8;   // n8 tiles across a key tile
+  constexpr int HALF = D / 2;
   __shared__ __align__(16) __nv_bfloat16 Ks[BKV * LDK];
   __shared__ __align__(16) __nv_bfloat16 Vt[D * LDV];
   __shared__ int kvalid[BKV];
@@ -73,17 +65,26 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const __nv_bfloat16* kb = k + b * ksb + hk * ksh;
   const __nv_bfloat16* vb = v + b * vsb + hk * vsh;
   const int* mb = mask + static_cast<long long>(b) * tk;
+  // RoPE tables of this batch row (self-attention: one table for q and k)
+  const float* cb = cos_t ? cos_t + static_cast<long long>(b) * tq * HALF : nullptr;
+  const float* sb = sin_t ? sin_t + static_cast<long long>(b) * tq * HALF : nullptr;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this thread's two query rows
 
   // Q as mma row operand, read once from device memory (rows past tq are 0)
   uint32_t qf[D / 16][4];
+  {
+    const float* c0 = cb && r0 < tq ? cb + r0 * HALF : nullptr;
+    const float* s0 = cb && r0 < tq ? sb + r0 * HALF : nullptr;
+    const float* c1 = cb && r1 < tq ? cb + r1 * HALF : nullptr;
+    const float* s1 = cb && r1 < tq ? sb + r1 * HALF : nullptr;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + t * 2;
-    qf[kk][0] = r0 < tq ? ld32(qb + r0 * qst + c) : 0u;
-    qf[kk][1] = r1 < tq ? ld32(qb + r1 * qst + c) : 0u;
-    qf[kk][2] = r0 < tq ? ld32(qb + r0 * qst + c + 8) : 0u;
-    qf[kk][3] = r1 < tq ? ld32(qb + r1 * qst + c + 8) : 0u;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 + t * 2;
+      qf[kk][0] = r0 < tq ? load_pair(qb + r0 * qst, c, c0, s0, HALF) : 0u;
+      qf[kk][1] = r1 < tq ? load_pair(qb + r1 * qst, c, c1, s1, HALF) : 0u;
+      qf[kk][2] = r0 < tq ? load_pair(qb + r0 * qst, c + 8, c0, s0, HALF) : 0u;
+      qf[kk][3] = r1 < tq ? load_pair(qb + r1 * qst, c + 8, c1, s1, HALF) : 0u;
+    }
   }
 
   float o[ND][4];
@@ -101,8 +102,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       const int r = c / (D / 8), col = (c % (D / 8)) * 8;
       uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
       if (k0 + r < tk) {
-        kv4 = *reinterpret_cast<const uint4*>(kb + (k0 + r) * kst + col);
-        vv4 = *reinterpret_cast<const uint4*>(vb + (k0 + r) * vst + col);
+        const int key = k0 + r;
+        kv4 = load_chunk8(kb + key * kst, col, cb ? cb + key * HALF : nullptr,
+                          sb ? sb + key * HALF : nullptr, HALF);
+        vv4 = *reinterpret_cast<const uint4*>(vb + key * vst + col);
       }
       *reinterpret_cast<uint4*>(Ks + r * LDK + col) = kv4;
       const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv4);
@@ -211,10 +214,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 }  // namespace
 
 extern "C" int slam_flash_fwd(const void* q, const void* k, const void* v, const void* mask,
-                              void* out, void* lse, int b, int tq, int tk, int h, int hkv, int d,
-                              long long qsb, long long qst, long long qsh, long long ksb,
-                              long long kst, long long ksh, long long vsb, long long vst,
-                              long long vsh, float scale, int causal, void* stream) {
+                              void* out, void* lse, const void* cos_t, const void* sin_t, int b,
+                              int tq, int tk, int h, int hkv, int d, long long qsb, long long qst,
+                              long long qsh, long long ksb, long long kst, long long ksh,
+                              long long vsb, long long vst, long long vsh, float scale, int causal,
+                              void* stream) {
+  if ((cos_t != nullptr || sin_t != nullptr) && tq != tk) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((tq + BQ - 1) / BQ, h, b);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
@@ -223,14 +228,16 @@ extern "C" int slam_flash_fwd(const void* q, const void* k, const void* v, const
   const auto* mp = static_cast<const int*>(mask);
   auto* op = static_cast<__nv_bfloat16*>(out);
   auto* lp = static_cast<float*>(lse);
-  const float scale2 = scale * kLog2e;
+  const auto* cp = static_cast<const float*>(cos_t);
+  const auto* sp = static_cast<const float*>(sin_t);
+  const float scale2 = scale * slam::kLog2e;
   if (d == 64) {
-    flash_fwd_kernel<64><<<grid, kThreads, 0, st>>>(qp, kp, vp, mp, op, lp, tq, tk, h, hkv, qsb,
-                                                    qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
+    flash_fwd_kernel<64><<<grid, kThreads, 0, st>>>(qp, kp, vp, mp, op, lp, cp, sp, tq, tk, h, hkv,
+                                                    qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
                                                     scale2, causal);
   } else if (d == 128) {
-    flash_fwd_kernel<128><<<grid, kThreads, 0, st>>>(qp, kp, vp, mp, op, lp, tq, tk, h, hkv, qsb,
-                                                     qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
+    flash_fwd_kernel<128><<<grid, kThreads, 0, st>>>(qp, kp, vp, mp, op, lp, cp, sp, tq, tk, h, hkv,
+                                                     qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
                                                      scale2, causal);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels with ``nvcc`` and bind them with ``ctypes``.
 
-All of ``csrc/*.cu`` compiles into one shared library with a plain C
-interface, for ``sm_90a`` (Hopper), at first use. The library lands in
+Each ``csrc/*.cu`` compiles to an object file in its own ``nvcc`` process,
+all started together, and the objects link into one shared library with a
+plain C interface, for ``sm_90a`` (Hopper), at first use. The library lands in
 ``build/slam_llm_tpu_torch/`` at the root of the checkout, named by a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one
 loads the existing file. A missing ``nvcc`` or a failed build raises: no
@@ -27,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "slam_llm_tpu_torch"
 # no --use_fast_math: rowquant's division and rounding must stay IEEE-exact
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
@@ -35,8 +36,12 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "slam_rowquant": [_P, _P, _P, _L, _I, _P],
+    "slam_rowquant_rot_sr": [_P, _P, _P, _L, _I, _I, _I, _L, _P],
     "slam_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "slam_flash_fwd": [_P] * 6 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _I, _P],
+    # q k v mask out lse cos sin | b tq tk h hkv d | q/k/v strides | scale causal stream
+    "slam_flash_fwd": [_P] * 8 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _I, _P],
+    # q k v mask out dout lse cos sin delta dq dk dv (all contiguous) | b t h hkv d | scale causal stream
+    "slam_flash_bwd": [_P] * 13 + [_I] * 5 + [ctypes.c_float, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -55,7 +60,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
@@ -71,15 +76,34 @@ def build() -> Path:
         return so
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    tag = f"{so.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    tmp = so.with_name(f"{tag}.tmp")
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     # ptxas -v reports registers, shared memory and spills per kernel
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    so.with_suffix(".log").write_text("".join(logs))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, so)
     return so
 

@@ -4,11 +4,15 @@ Counterpart of ``slam_llm_tpu/models/layers.py``. Numerics follow the
 reference: dense products run in the compute ``dtype``; norms reduce in f32;
 attention scores and softmax are f32 over compute-dtype operands.
 
-Parameter storage: weights whose reference counterpart is cast to the
-compute dtype at every use (dense and conv kernels, biases, LoRA factors,
-embeddings) are stored in the compute dtype, which gives the same values
-without a cast per call; norm scales and biases, which the reference reads
-in f32, are stored in f32.
+Parameter storage: trainable tensors (LoRA factors, the projector's kernels
+and biases, and whatever else ``train.optimizer.param_label`` marks
+``train``) are f32 masters (``param_dtype``), cast to the compute dtype at
+use, as in the reference. Frozen dense and conv kernels, biases and
+embeddings are stored in the compute dtype, the dtype the reference's
+trainer casts the frozen subtree to and every use casts to; norm scales and
+biases are stored in f32 and read in f32. Every use casts a weight to the
+compute dtype, so a tensor the trainer re-stores (f32 masters, bf16 frozen
+copies) needs no other change.
 """
 
 from __future__ import annotations
@@ -20,35 +24,46 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from slam_llm_tpu_torch.ops.kernels.flash_attention import flash_attention_fwd
-from slam_llm_tpu_torch.ops.quant import int8_linear
+from slam_llm_tpu_torch.ops.kernels.flash_attention import Rope, apply_rope_tables, flash_attention
+from slam_llm_tpu_torch.ops.quant import int8_dot
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 class DenseGeneralLora(nn.Module):
-    """``y = x W^T (+ b) + (x A^T * alpha/r) B^T``.
+    """``y = x W^T (+ b) + (dropout(x) A^T * alpha/r) B^T``.
 
     ``quant="int8"`` stores the frozen base as ``kernel_q`` (F, K) int8 and
-    ``kernel_scale`` (F,) f32 and runs it through ``int8_linear`` (K2 + K3
-    on CUDA); otherwise ``weight`` (F, K) is a plain product. LoRA ``lora_a``
-    (r, K) and ``lora_b`` (F, r) stay in the compute dtype, and the LoRA
-    scale multiplies the rank-r intermediate, as in the reference.
+    ``kernel_scale`` (F,) f32 and runs it through ``int8_dot`` (K2 + K3 on
+    CUDA), whose backward is ``quant_bwd``; ``"int8_rot"`` adds the rotated
+    backward pair ``kernel_qr`` (K, F) int8 and ``kernel_scale_r`` (K,) f32,
+    derived by ``ops.quant.quantize_base_params`` and never loaded (they are
+    not in the state dict). ``quant_seed`` is the uint32 seed of the int8_rot
+    dy quantization, set fresh per step by the trainer. Otherwise ``weight``
+    (F, K) is a plain product. ``frozen_base`` stores the kernel and bias in
+    the compute dtype; a trainable base keeps them in ``param_dtype``. LoRA
+    ``lora_a`` (r, K) and ``lora_b`` (F, r) are ``param_dtype`` masters; the
+    LoRA scale multiplies the rank-r intermediate, and LoRA dropout (training
+    mode only) applies to the LoRA input, drawn from ``generator``.
     """
 
     def __init__(
         self, in_features: int, features: int, *, use_bias: bool = False,
-        dtype: torch.dtype = torch.bfloat16, lora_rank: int = 0, lora_alpha: float = 32.0,
-        quant: str = "none", device=None,
+        dtype: torch.dtype = torch.bfloat16, param_dtype: torch.dtype = torch.float32,
+        frozen_base: bool = True, lora_rank: int = 0, lora_alpha: float = 32.0,
+        lora_dropout: float = 0.0, quant: str = "none", quant_bwd: str = "bf16", device=None,
     ):
         super().__init__()
         if quant not in ("none", "int8"):
             raise ValueError(f"unknown quant {quant!r}")
         self.in_features, self.features = in_features, features
-        self.dtype, self.quant = dtype, quant
-        self.lora_rank, self.lora_alpha = lora_rank, lora_alpha
+        self.dtype, self.quant, self.quant_bwd = dtype, quant, quant_bwd
+        self.lora_rank, self.lora_alpha, self.lora_dropout = lora_rank, lora_alpha, lora_dropout
         # the reference multiplies by the scale rounded to the compute dtype
         self.lora_scale = float(torch.tensor(lora_alpha / max(lora_rank, 1), dtype=dtype))
+        self.quant_seed = 0
+        self.generator: Optional[torch.Generator] = None
+        base_dtype = dtype if frozen_base else param_dtype
         if quant == "int8":
             self.register_buffer(
                 "kernel_q", torch.zeros(features, in_features, dtype=torch.int8, device=device)
@@ -56,33 +71,50 @@ class DenseGeneralLora(nn.Module):
             self.register_buffer(
                 "kernel_scale", torch.ones(features, dtype=torch.float32, device=device)
             )
+            if quant_bwd == "int8_rot":
+                self.register_buffer("kernel_qr", torch.zeros(
+                    in_features, features, dtype=torch.int8, device=device), persistent=False)
+                self.register_buffer("kernel_scale_r", torch.ones(
+                    in_features, dtype=torch.float32, device=device), persistent=False)
         else:
             self.weight = nn.Parameter(
-                torch.zeros(features, in_features, dtype=dtype, device=device), requires_grad=False
+                torch.zeros(features, in_features, dtype=base_dtype, device=device), requires_grad=False
             )
         self.bias = (
-            nn.Parameter(torch.zeros(features, dtype=dtype, device=device), requires_grad=False)
+            nn.Parameter(torch.zeros(features, dtype=base_dtype, device=device), requires_grad=False)
             if use_bias else None
         )
         if lora_rank > 0:
             self.lora_a = nn.Parameter(
-                torch.zeros(lora_rank, in_features, dtype=dtype, device=device), requires_grad=False
+                torch.zeros(lora_rank, in_features, dtype=param_dtype, device=device), requires_grad=False
             )
             self.lora_b = nn.Parameter(
-                torch.zeros(features, lora_rank, dtype=dtype, device=device), requires_grad=False
+                torch.zeros(features, lora_rank, dtype=param_dtype, device=device), requires_grad=False
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x.to(self.dtype)
         if self.quant == "int8":
-            y = int8_linear(h, self.kernel_q, self.kernel_scale)
+            w_rot = (self.kernel_qr, self.kernel_scale_r) if self.quant_bwd == "int8_rot" else None
+            y = int8_dot(h, self.kernel_q, self.kernel_scale, bwd=self.quant_bwd,
+                         seed=self.quant_seed, w_rot=w_rot)
         else:
-            y = F.linear(h, self.weight)
+            y = F.linear(h, self.weight.to(self.dtype))
         if self.bias is not None:
-            y = y + self.bias
+            y = y + self.bias.to(self.dtype)
         if self.lora_rank > 0:
-            y = y + F.linear(F.linear(h, self.lora_a) * self.lora_scale, self.lora_b)
+            if self.lora_dropout > 0.0 and self.training:
+                h = _dropout(h, self.lora_dropout, self.generator)
+            inner = F.linear(h, self.lora_a.to(self.dtype)) * self.lora_scale
+            y = y + F.linear(inner, self.lora_b.to(self.dtype))
         return y
+
+
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with an explicit generator: keep with probability
+    1 - rate and scale the kept entries by 1 / (1 - rate), as flax does."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class RMSNorm(nn.Module):
@@ -128,16 +160,6 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float = 10000.0):
     return torch.cos(angles), torch.sin(angles)
 
 
-def apply_rope_tables(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x (B, T, H, D); rotate in f32 and cast each half back to x's dtype."""
-    half = x.shape[-1] // 2
-    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-    x1, x2 = x[..., :half].float(), x[..., half:].float()
-    out1 = (x1 * cos - x2 * sin).to(x.dtype)
-    out2 = (x2 * cos + x1 * sin).to(x.dtype)
-    return torch.cat([out1, out2], dim=-1)
-
-
 # ---------------------------------------------------------------------------
 # Attention core
 # ---------------------------------------------------------------------------
@@ -150,19 +172,26 @@ def mha_attention(
     bias: Optional[torch.Tensor] = None,  # (B, 1|H, Tq, Tk) additive f32
     kv_mask: Optional[torch.Tensor] = None,  # (B, Tk) structured key validity
     causal: bool = False,
+    rope: Rope = None,  # (cos, sin) (B, T, D/2): q/k come PRE-rotation
 ) -> torch.Tensor:
     """Multi-head attention with GQA. A structured mask (no ``bias``) on a
-    CUDA tensor runs the flash kernel K1; a dense bias, a CPU tensor, or
-    causal with Tq != Tk (end-aligned, which only the plain path defines)
-    runs the plain path."""
-    use_kernel = bias is None and q.is_cuda and not (causal and q.shape[1] != k.shape[1])
+    CUDA tensor runs the flash kernels (K1 forward, K4 backward), with the
+    RoPE rotation fused into them when ``rope`` is given; a dense bias, a CPU
+    tensor, causal with Tq != Tk (end-aligned, which only the plain path
+    defines) or rope with Tq != Tk rotates first and runs the plain path."""
+    use_kernel = bias is None and q.is_cuda and not (
+        (causal or rope is not None) and q.shape[1] != k.shape[1]
+    )
     if use_kernel:
         mask = (
             kv_mask.to(torch.int32)
             if kv_mask is not None
             else torch.ones(k.shape[:2], dtype=torch.int32, device=k.device)
         )
-        return flash_attention_fwd(q, k, v, mask, causal)[0]
+        return flash_attention(q, k, v, mask, causal, rope)
+    if rope is not None:
+        q = apply_rope_tables(q, *rope)
+        k = apply_rope_tables(k, *rope)
     return _xla_attention(q, k, v, bias, kv_mask, causal)
 
 

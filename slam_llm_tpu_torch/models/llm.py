@@ -4,8 +4,15 @@ Counterpart of ``slam_llm_tpu/models/llm.py``. The same module runs prefill
 over spliced ``inputs_embeds`` and single-token decode steps against an
 explicit KV cache (a dict of tensors, not module state). Layers are a
 ``ModuleList`` walked in a loop. Decoder dense layers run the int8 path
-(K2 + K3 on CUDA) when ``base_quant == "int8"``; prefill's causal attention
-runs the flash kernel K1 on CUDA; decode attention is plain PyTorch.
+(K2 + K3 on CUDA) when ``base_quant == "int8"``, with the backward
+``base_quant_bwd`` picks per module (``ops.quant.resolve_bwd``). The
+training path (no cache) runs the flash kernels with RoPE fused (K1 forward,
+K4 backward); prefill rotates first (the cache stores rotated keys) and runs
+K1; decode attention is plain PyTorch. ``loss_and_accuracy`` fuses the head
+into a chunked cross-entropy (``ops.fused_ce``).
+
+Activation checkpointing (``remat``) is not applied yet: training keeps
+every activation, which gives the same numbers with more memory.
 
 Unlike the reference, whose arrays are immutable, the port writes the KV
 cache in place: prefill fills the prompt prefix, and each decode step writes
@@ -31,6 +38,7 @@ from slam_llm_tpu_torch.models.layers import (
     mha_attention,
     rope_tables,
 )
+from slam_llm_tpu_torch.ops.quant import resolve_bwd
 
 
 @dataclass(frozen=True)
@@ -51,8 +59,14 @@ class LLMConfig:
     peft_method: str = "lora"  # lora | none (prefix / adaption_prompt: not ported yet)
     lora_rank: int = 0
     lora_alpha: float = 32.0
+    lora_dropout: float = 0.0
     lora_targets: Tuple[str, ...] = ("q_proj", "v_proj")
     base_quant: str = "none"  # none | int8
+    # dx mode of the int8 denses: bf16 | int8_rot | <mode>_mlp (ops/quant.py)
+    base_quant_bwd: str = "bf16"
+    remat: bool = True  # accepted; checkpointing is not applied yet
+    remat_policy: str = "dots_flash_saveable"
+    ce_chunk: int = 64  # fused-CE time chunk
 
     @staticmethod
     def tinyllama_1_1b() -> "LLMConfig":
@@ -154,6 +168,15 @@ def _shared_prefix_decode_attention(
     return out.to(dt)
 
 
+def _dense(c: LLMConfig, name: str, fin: int, fout: int, use_bias: bool, device) -> DenseGeneralLora:
+    return DenseGeneralLora(
+        fin, fout, use_bias=use_bias, dtype=c.dtype,
+        lora_rank=c.lora_rank if name in c.lora_targets else 0, lora_alpha=c.lora_alpha,
+        lora_dropout=c.lora_dropout, quant=c.base_quant, quant_bwd=resolve_bwd(c.base_quant_bwd, name),
+        device=device,
+    )
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: LLMConfig, device=None):
         super().__init__()
@@ -164,11 +187,7 @@ class Attention(nn.Module):
             ("v_proj", c.d_model, c.n_kv_heads * c.head_dim),
             ("o_proj", c.n_heads * c.head_dim, c.d_model),
         ):
-            setattr(self, name, DenseGeneralLora(
-                fin, fout, use_bias=c.qkv_bias and name != "o_proj", dtype=c.dtype,
-                lora_rank=c.lora_rank if name in c.lora_targets else 0,
-                lora_alpha=c.lora_alpha, quant=c.base_quant, device=device,
-            ))
+            setattr(self, name, _dense(c, name, fin, fout, c.qkv_bias and name != "o_proj", device))
 
     def forward(
         self,
@@ -183,7 +202,8 @@ class Attention(nn.Module):
         gen_v: Optional[torch.Tensor] = None,
         cache_index: Optional[int] = None,
     ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
-        """Returns ``(out, new_kv)``. Prefill (``bias`` None) writes the
+        """Returns ``(out, new_kv)``. Without a cache (training) RoPE is
+        fused into the flash kernels; prefill (``bias`` None) writes the
         prompt's rotated k/v into ``cache_k[:, :T]`` in place; a decode step
         (``bias`` given, T == 1) only reads the cache and returns the token's
         k/v for the caller to write at ``cache_index``."""
@@ -192,13 +212,17 @@ class Attention(nn.Module):
         q = self.q_proj(x).reshape(b, t, c.n_heads, c.head_dim)
         k = self.k_proj(x).reshape(b, t, c.n_kv_heads, c.head_dim)
         v = self.v_proj(x).reshape(b, t, c.n_kv_heads, c.head_dim)
-        # rotate before attention: the cache stores rotated keys
         cos, sin = rope_tables(positions, c.head_dim, c.rope_theta)
+        if cache_k is None:
+            # training path: the flash kernels rotate q/k as they load them
+            out = mha_attention(q, k, v, kv_mask=kv_mask, causal=True, rope=(cos, sin))
+            return self.o_proj(out.reshape(b, t, c.n_heads * c.head_dim)), None
+        # rotate before attention: the cache stores rotated keys
         q = apply_rope_tables(q, cos, sin)
         k = apply_rope_tables(k, cos, sin)
 
         new_kv = None
-        if cache_k is not None and bias is not None:
+        if bias is not None:
             if t != 1:
                 raise ValueError("a decode step takes one token per row")
             # the caller marks slot cache_index valid (this token lands
@@ -217,12 +241,11 @@ class Attention(nn.Module):
                 vv = torch.cat([cache_v, gen_v, new_kv[1]], dim=1).to(q.dtype)
                 out = mha_attention(q, kk, vv, bias=bias)
         else:
-            if cache_k is not None:
-                # prefill: the fresh k/v ARE the cache prefix [0, t); attending
-                # them directly keeps Tq == Tk, so the causal mask stays
-                # structured and runs the flash kernel
-                cache_k[:, :t] = k.to(cache_k.dtype)
-                cache_v[:, :t] = v.to(cache_v.dtype)
+            # prefill: the fresh k/v ARE the cache prefix [0, t); attending
+            # them directly keeps Tq == Tk, so the causal mask stays
+            # structured and runs the flash kernel
+            cache_k[:, :t] = k.to(cache_k.dtype)
+            cache_v[:, :t] = v.to(cache_v.dtype)
             out = mha_attention(q, k, v, kv_mask=kv_mask, causal=True)
         out = self.o_proj(out.reshape(b, t, c.n_heads * c.head_dim))
         return out, new_kv
@@ -237,11 +260,7 @@ class MLP(nn.Module):
             ("up_proj", c.d_model, c.ffn_dim),
             ("down_proj", c.ffn_dim, c.d_model),
         ):
-            setattr(self, name, DenseGeneralLora(
-                fin, fout, dtype=c.dtype,
-                lora_rank=c.lora_rank if name in c.lora_targets else 0,
-                lora_alpha=c.lora_alpha, quant=c.base_quant, device=device,
-            ))
+            setattr(self, name, _dense(c, name, fin, fout, False, device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -285,11 +304,11 @@ class CausalLM(nn.Module):
             raise ValueError("head_size requires an untied lm_head")
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.embed_tokens(input_ids)
+        return self.embed_tokens(input_ids).to(self.cfg.dtype)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tied_embeddings:
-            logits = F.linear(x.to(self.cfg.dtype), self.embed_tokens.weight)
+            logits = F.linear(x.to(self.cfg.dtype), self.embed_tokens.weight.to(self.cfg.dtype))
         else:
             logits = self.lm_head(x)
         return logits.float()
@@ -305,6 +324,24 @@ class CausalLM(nn.Module):
 
     def forward(self, inputs_embeds, attention_mask, positions=None) -> torch.Tensor:
         return self._head(self.trunk(inputs_embeds, attention_mask, positions))
+
+    def loss_and_accuracy(
+        self,
+        inputs_embeds: torch.Tensor,  # (B, T, D)
+        attention_mask: torch.Tensor,  # (B, T)
+        labels: torch.Tensor,  # (B, T) with -100 on ignored positions
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Shifted CE + next-token accuracy without the (B, T, V) logits: the
+        head is fused into a chunked CE (``ops.fused_ce``) whose head gradient
+        is formed only when the head trains."""
+        from slam_llm_tpu_torch.ops.fused_ce import fused_linear_ce
+
+        x = self.trunk(inputs_embeds, attention_mask)
+        kernel = self.embed_tokens.weight if self.cfg.tied_embeddings else self.lm_head.weight  # (V, D)
+        return fused_linear_ce(
+            x[:, :-1], kernel, labels[:, 1:], chunk=self.cfg.ce_chunk,
+            kernel_needs_grad=kernel.requires_grad, compute_dtype=self.cfg.dtype,
+        )
 
     def prefill(
         self,

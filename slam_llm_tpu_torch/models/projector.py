@@ -2,8 +2,9 @@
 
 Counterpart of ``slam_llm_tpu/models/projector.py``'s ``ProjectorConcat``:
 stack ``ds_rate`` consecutive frames (dropping the ``T % ds_rate`` tail),
-then linear -> ReLU -> linear to the LLM width. The conv1d and q-former
-projectors are not ported yet.
+then linear -> ReLU -> linear to the LLM width. The projector trains: its
+kernels and biases are ``param_dtype`` (f32) masters, cast to the compute
+dtype at use. The conv1d and q-former projectors are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ class ProjectorConfig:
     ds_rate: int = 5  # encoder_projector_ds_rate
     hidden_dim: int = 2048
     dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
 
 
 class ProjectorConcat(nn.Module):
@@ -32,13 +34,13 @@ class ProjectorConcat(nn.Module):
     def __init__(self, cfg: ProjectorConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        self.linear1 = DenseGeneralLora(
-            cfg.encoder_dim * cfg.ds_rate, cfg.hidden_dim, use_bias=True, dtype=cfg.dtype,
-            device=device,
-        )
-        self.linear2 = DenseGeneralLora(
-            cfg.hidden_dim, cfg.llm_dim, use_bias=True, dtype=cfg.dtype, device=device
-        )
+
+        def dense(fin, fout):
+            return DenseGeneralLora(fin, fout, use_bias=True, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+                                    frozen_base=False, device=device)
+
+        self.linear1 = dense(cfg.encoder_dim * cfg.ds_rate, cfg.hidden_dim)
+        self.linear2 = dense(cfg.hidden_dim, cfg.llm_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, e = x.shape

@@ -2,13 +2,16 @@
 
 Counterpart of ``slam_llm_tpu/models/slam_model.py`` with the same batch
 contract (``audio_mel``/``audio_mel_mask``, ``input_ids`` with -1 on audio
-pseudo-tokens, ``attention_mask``, ``modality_mask``). Only the Whisper
-encoder and the linear projector are ported; the other encoders and
+pseudo-tokens, ``attention_mask``, ``modality_mask``, ``labels`` with -100
+on ignored positions). ``forward`` returns the loss and next-token accuracy
+of the training step; a frozen encoder runs without autograd. Only the
+Whisper encoder and the linear projector are ported; the other encoders and
 projectors raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
@@ -20,7 +23,9 @@ from slam_llm_tpu_torch.models.llm import CausalLM, KVCache, LLMConfig
 from slam_llm_tpu_torch.models.projector import ProjectorConfig, build_projector
 from slam_llm_tpu_torch.models.whisper import PRESETS as WHISPER_PRESETS
 from slam_llm_tpu_torch.models.whisper import WhisperEncoder
+from slam_llm_tpu_torch.ops.quant import check_bwd_mode
 
+IGNORE_INDEX = -100
 _TODO_ENCODERS = "ROADMAP: port the other encoders and recipes"
 
 
@@ -31,6 +36,8 @@ class SLAMConfig:
     encoder: Any = None  # WhisperEncoderConfig
     projector: str = "linear"
     projector_cfg: ProjectorConfig = field(default_factory=ProjectorConfig)
+    freeze_encoder: bool = True
+    freeze_llm: bool = True
 
 
 def splice_modality(
@@ -54,6 +61,20 @@ def splice_modality(
     return torch.where((mm & ~valid)[..., None], torch.zeros_like(out), out)
 
 
+def causal_lm_loss_and_accuracy(
+    logits: torch.Tensor,  # (B, T, V) f32
+    labels: torch.Tensor,  # (B, T) with IGNORE_INDEX masking
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shifted CE + next-token accuracy over the non-ignored positions."""
+    shift_logits, shift_labels = logits[:, :-1], labels[:, 1:]
+    mask = (shift_labels != IGNORE_INDEX).float()
+    safe = shift_labels.clamp_min(0)
+    nll = torch.logsumexp(shift_logits, dim=-1) - shift_logits.gather(-1, safe[..., None])[..., 0]
+    denom = mask.sum().clamp_min(1.0)
+    acc = ((shift_logits.argmax(-1) == safe).float() * mask).sum() / denom
+    return (nll * mask).sum() / denom, acc.detach()
+
+
 class SLAMModel(nn.Module):
     def __init__(self, cfg: SLAMConfig, device=None):
         super().__init__()
@@ -68,8 +89,11 @@ class SLAMModel(nn.Module):
         self.llm = CausalLM(cfg.llm, device)
 
     def encode(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Projected encoder states + their validity mask."""
-        enc, enc_mask = self.encoder(batch["audio_mel"], batch.get("audio_mel_mask"))
+        """Projected encoder states + their validity mask. A frozen encoder
+        runs under ``no_grad``: nothing upstream of the projector trains."""
+        frozen = contextlib.nullcontext() if not self.cfg.freeze_encoder else torch.no_grad()
+        with frozen:
+            enc, enc_mask = self.encoder(batch["audio_mel"], batch.get("audio_mel_mask"))
         proj = self.encoder_projector(enc)
         k = self.cfg.projector_cfg.ds_rate
         t_keep = (enc_mask.shape[1] // k) * k
@@ -84,9 +108,17 @@ class SLAMModel(nn.Module):
             inputs_embeds = splice_modality(inputs_embeds, encoder_outs, batch["modality_mask"])
         return inputs_embeds, batch["attention_mask"]
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """(B, T, V) f32 logits over the whole sequence."""
-        return self.llm(*self.forward_embeds(batch))
+    def forward(self, batch: Dict[str, torch.Tensor], return_logits: bool = False) -> Dict[str, torch.Tensor]:
+        """``{"loss", "acc"}`` of the batch's shifted labels, the head fused
+        into a chunked CE; ``return_logits`` takes the unfused path and adds
+        the (B, T, V) f32 ``logits``."""
+        inputs_embeds, attention_mask = self.forward_embeds(batch)
+        if return_logits:
+            logits = self.llm(inputs_embeds, attention_mask)
+            loss, acc = causal_lm_loss_and_accuracy(logits, batch["labels"])
+            return {"loss": loss, "acc": acc, "logits": logits}
+        loss, acc = self.llm.loss_and_accuracy(inputs_embeds, attention_mask, batch["labels"])
+        return {"loss": loss, "acc": acc}
 
     def prefill(self, batch: Dict[str, torch.Tensor], cache: KVCache):
         return self.llm.prefill(*self.forward_embeds(batch), cache)
@@ -123,11 +155,28 @@ def build_slam_config(train_config, model_config) -> SLAMConfig:
             raise NotImplementedError(f"peft_method {method!r} is not ported yet (only lora)")
         llm_cfg = dataclasses.replace(
             llm_cfg, peft_method="lora", lora_rank=pc.r, lora_alpha=float(pc.lora_alpha),
-            lora_targets=tuple(pc.target_modules),
+            lora_dropout=float(pc.lora_dropout), lora_targets=tuple(pc.target_modules),
         )
-    # the int8 base only: the reference's other shard knobs (remat, scan,
-    # the int8 backward modes) shape training, which is not ported yet
-    llm_cfg = dataclasses.replace(llm_cfg, base_quant=getattr(tc.shard, "base_quant", "none"))
+    shard = tc.shard
+    llm_cfg = dataclasses.replace(
+        llm_cfg,
+        base_quant=getattr(shard, "base_quant", "none"),
+        base_quant_bwd=getattr(shard, "base_quant_bwd", "bf16"),
+        remat=shard.remat,
+        remat_policy=shard.remat_policy,
+    )
+    if llm_cfg.base_quant != "none":
+        check_bwd_mode(llm_cfg.base_quant_bwd)
+    ce_quant = getattr(shard, "ce_quant", "none")
+    if ce_quant != "none":
+        raise NotImplementedError(
+            f"ce_quant={ce_quant!r} is not ported yet (ROADMAP Queue 1: rowquant fold and ce_quant)"
+        )
+    if getattr(tc, "frozen_dtype", "bfloat16") in ("float32", "fp32", None):
+        raise NotImplementedError(
+            "frozen_dtype float32 is not ported: the port stores the frozen subtree in the compute "
+            "dtype (ROADMAP Queue 1)"
+        )
     proj_cfg = ProjectorConfig(
         encoder_dim=encoder_dim, llm_dim=llm_cfg.d_model, ds_rate=mc.encoder_projector_ds_rate
     )
@@ -139,6 +188,7 @@ def build_slam_config(train_config, model_config) -> SLAMConfig:
     return SLAMConfig(
         llm=llm_cfg, encoder_name=mc.encoder_name, encoder=enc_cfg,
         projector=mc.encoder_projector, projector_cfg=proj_cfg,
+        freeze_encoder=tc.freeze_encoder, freeze_llm=tc.freeze_llm,
     )
 
 

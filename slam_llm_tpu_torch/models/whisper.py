@@ -137,8 +137,8 @@ class WhisperEncoder(nn.Module):
         c = self.cfg
         b = mel.shape[0]
         x = mel.to(c.dtype).transpose(1, 2)  # (B, n_mels, T)
-        x = F.gelu(self.conv1(x), approximate="none")
-        x = F.gelu(self.conv2(x), approximate="none").transpose(1, 2)  # (B, T//2, D)
+        x = F.gelu(_conv(self.conv1, x, c.dtype), approximate="none")
+        x = F.gelu(_conv(self.conv2, x, c.dtype), approximate="none").transpose(1, 2)  # (B, T//2, D)
         t_out = x.shape[1]
         x = x + sinusoidal_positions(t_out, c.d_model, device=x.device).to(c.dtype)[None]
 
@@ -151,3 +151,8 @@ class WhisperEncoder(nn.Module):
         for layer in self.layers:
             x = layer(x, kv_mask)
         return self.ln_post(x), out_mask
+
+
+def _conv(conv: nn.Conv1d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``conv(x)`` with its weights cast to the compute dtype at use."""
+    return F.conv1d(x, conv.weight.to(dtype), conv.bias.to(dtype), conv.stride, conv.padding)

@@ -1,18 +1,23 @@
-"""Flash-attention forward: the CUDA kernel K1 and its plain twin.
+"""Flash attention: the CUDA kernels K1 (forward) and K4 (backward), their
+plain twins, and the autograd Function that joins them.
 
-Counterpart of the forward half of
-``slam_llm_tpu/ops/kernels/flash_attention.py`` (``flash_attention`` /
-``_flash_fwd``). Inputs keep the model's layout: q (B, Tq, H, D), k/v
+Counterpart of ``slam_llm_tpu/ops/kernels/flash_attention.py``
+(``flash_attention``: ``_flash_fwd``, ``_flash_bwd``, ``_fwd_rule``,
+``_bwd_rule``). Inputs keep the model's layout: q (B, Tq, H, D), k/v
 (B, Tk, Hkv, D), ``H % Hkv == 0`` (query head h reads kv head h // (H/Hkv)),
 kv_mask (B, Tk) with 1 on valid keys. ``causal`` is start-aligned and so
-only defined for Tq == Tk. Returns ``out`` like q and ``lse`` (B, Tq, H) f32
-in the log2 domain (log2-sum-exp2 of the scaled scores). Query rows that see
-no valid key output exactly 0; their lse carries no meaning.
+only defined for Tq == Tk. ``lse`` (B, Tq, H) f32 is in the log2 domain
+(log2-sum-exp2 of the scaled scores). Query rows that see no valid key
+output exactly 0 and get dq = 0; their lse carries no meaning.
 
-``flash_attention_fwd`` sends CPU tensors to ``flash_attention_ref`` and CUDA
-tensors to ``csrc/flash_attention.cu`` (bf16, D in {64, 128}, last dim
-contiguous); it raises on anything else. The backward and the fused-RoPE
-variant serve training and are not ported yet.
+``rope=(cos, sin)``, each (B, T, D/2) f32 from ``rope_tables``, fuses the
+RoPE rotation: q/k come PRE-rotation, the kernels rotate them as they load
+them (f32 rotation, one rounding to q's dtype: ``apply_rope_tables``) and
+the backward counter-rotates dq/dk. Self-attention only (Tq == Tk).
+
+The wrappers send CPU tensors to the twins and CUDA tensors to
+``csrc/flash_attention.cu`` (K1) and ``csrc/flash_attention_bwd.cu`` (K4):
+bf16, D in {64, 128}; they raise on anything else.
 """
 
 from __future__ import annotations
@@ -25,8 +30,25 @@ import torch
 NEG_INF = -1.0e30  # masked-score sentinel, as in the TPU kernel
 LOG2E = 1.4426950408889634
 
+Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
-def _check_shapes(q, k, v, kv_mask, causal):
+
+def apply_rope_tables(
+    x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, inverse: bool = False
+) -> torch.Tensor:
+    """x (B, T, H, D) rotate-half RoPE with (B, T, D/2) tables: rotate in
+    f32 and cast each half back to x's dtype. ``inverse`` applies R^T."""
+    half = x.shape[-1] // 2
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    if inverse:
+        sin = -sin
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out1 = (x1 * cos - x2 * sin).to(x.dtype)
+    out2 = (x2 * cos + x1 * sin).to(x.dtype)
+    return torch.cat([out1, out2], dim=-1)
+
+
+def _check_shapes(q, k, v, kv_mask, causal, rope: Rope = None):
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     if causal and tq != tk:
@@ -38,24 +60,39 @@ def _check_shapes(q, k, v, kv_mask, causal):
             f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
             f"kv_mask {tuple(kv_mask.shape)}"
         )
+    if rope is not None:
+        if tq != tk:
+            raise ValueError(f"fused rope requires self-attention (tq == tk), got {tq} vs {tk}")
+        for t in rope:
+            if t.shape != (b, tq, d // 2):
+                raise ValueError(f"rope tables must be (B, T, D/2) = {(b, tq, d // 2)}, got {tuple(t.shape)}")
+
+
+def _scores(q, k, kv_mask, causal, scale, rope: Rope):
+    """(rotated q, rotated k, log2-domain scores (B, Hkv, G, Tq, Tk) f32,
+    validity mask) of the twin."""
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    if rope is not None:
+        q = apply_rope_tables(q, *rope)
+        k = apply_rope_tables(k, *rope)
+    qg = q.float().reshape(b, tq, hkv, h // hkv, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (scale * LOG2E)
+    valid = kv_mask.bool()[:, None, None, None, :]
+    if causal:
+        valid = valid & torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril()
+    return q, k, s, valid.expand(s.shape)
 
 
 def flash_attention_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor,
-    causal: bool = False, scale: Optional[float] = None,
+    causal: bool = False, scale: Optional[float] = None, rope: Rope = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of the kernel, in f32: ``(out, lse)``."""
-    _check_shapes(q, k, v, kv_mask, causal)
+    """Plain PyTorch twin of K1, in f32: ``(out, lse)``."""
+    _check_shapes(q, k, v, kv_mask, causal, rope)
     b, tq, h, d = q.shape
-    tk, hkv = k.shape[1], k.shape[2]
-    g = h // hkv
     scale = 1.0 / math.sqrt(d) if scale is None else scale
-    qg = q.float().reshape(b, tq, hkv, g, d)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (scale * LOG2E)
-    valid = kv_mask.bool()[:, None, None, None, :]
-    if causal:
-        tri = torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril()
-        valid = valid & tri
+    _, _, s, valid = _scores(q, k, kv_mask, causal, scale, rope)
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m)
@@ -69,20 +106,60 @@ def flash_attention_ref(
     )
 
 
-def flash_attention_fwd(
+def flash_attention_bwd_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor,
-    causal: bool = False, scale: Optional[float] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(out, lse)``: the kernel on CUDA tensors, the twin on CPU tensors."""
-    if not q.is_cuda:
-        return flash_attention_ref(q, k, v, kv_mask, causal, scale)
-    _check_shapes(q, k, v, kv_mask, causal)
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    causal: bool = False, scale: Optional[float] = None, rope: Rope = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of K4, in f32: ``(dq, dk, dv)`` in q's / k's / v's dtypes.
+    P is recomputed from (q, k, lse) as the kernel does; invalid pairs and
+    dead rows give P = 0."""
+    _check_shapes(q, k, v, kv_mask, causal, rope)
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"flash kernel takes bfloat16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    qr, kr, s, valid = _scores(q, k, kv_mask, causal, scale, rope)
+    lse5 = lse.float().reshape(b, tq, hkv, g).permute(0, 2, 3, 1)[..., None]  # (B, Hkv, G, Tq, 1)
+    p = torch.where(valid, torch.exp2(torch.where(valid, s - lse5, 0.0)), 0.0)
+    do = dout.float().reshape(b, tq, hkv, g, d)
+    delta = (dout.float() * out.float()).sum(-1).reshape(b, tq, hkv, g).permute(0, 2, 3, 1)[..., None]
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do, v.float())
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kr.float()).reshape(b, tq, h, d) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qr.float().reshape(b, tq, hkv, g, d)) * scale
+    if rope is not None:
+        dq = apply_rope_tables(dq, *rope, inverse=True)
+        dk = apply_rope_tables(dk, *rope, inverse=True)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_inputs(d, *tensors):
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise TypeError(f"flash kernels take bfloat16, got {[t.dtype for t in tensors]}")
     if d not in (64, 128):
-        raise ValueError(f"flash kernel takes head_dim 64 or 128, got {d}")
+        raise ValueError(f"flash kernels take head_dim 64 or 128, got {d}")
+
+
+def _kernel_rope(rope: Rope, device):
+    if rope is None:
+        return None, None, 0, 0
+    cos, sin = (t.to(device=device, dtype=torch.float32).contiguous() for t in rope)
+    return cos, sin, cos.data_ptr(), sin.data_ptr()
+
+
+def flash_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor,
+    causal: bool = False, scale: Optional[float] = None, rope: Rope = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)``: K1 on CUDA tensors, the twin on CPU tensors."""
+    if not q.is_cuda:
+        return flash_attention_ref(q, k, v, kv_mask, causal, scale, rope)
+    _check_shapes(q, k, v, kv_mask, causal, rope)
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    _check_kernel_inputs(d, q, k, v)
     for name, x in (("q", q), ("k", k), ("v", v)):
         # 16-byte K/V row loads and 4-byte Q fragment loads
         if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
@@ -94,11 +171,12 @@ def flash_attention_fwd(
         return out, lse
     from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
 
+    cos, sin, cos_p, sin_p = _kernel_rope(rope, q.device)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     with torch.cuda.device(q.device):
         err = library().slam_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, tq, tk, h, hkv, d,
+            out.data_ptr(), lse.data_ptr(), cos_p, sin_p, b, tq, tk, h, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             float(scale), int(causal), stream_ptr(q),
         )
@@ -109,3 +187,76 @@ def flash_attention_fwd(
 
 flash_attention_fwd.launches = 0
 
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    causal: bool = False, scale: Optional[float] = None, rope: Rope = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)``: K4 on CUDA tensors, the twin on CPU tensors.
+    Self-attention only on the card (Tq == Tk)."""
+    if not q.is_cuda:
+        return flash_attention_bwd_ref(q, k, v, kv_mask, out, lse, dout, causal, scale, rope)
+    _check_shapes(q, k, v, kv_mask, causal, rope)
+    b, t, h, d = q.shape
+    hkv = k.shape[2]
+    if k.shape[1] != t:
+        raise ValueError(f"flash backward kernel takes self-attention (tq == tk), got {t} vs {k.shape[1]}")
+    _check_kernel_inputs(d, q, k, v, out, dout)
+    q, k, v, out, dout = (x.contiguous() for x in (q, k, v, out, dout))
+    lse = lse.float().contiguous()
+    mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, t, h), dtype=torch.float32, device=q.device)
+    from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
+
+    cos, sin, cos_p, sin_p = _kernel_rope(rope, q.device)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    with torch.cuda.device(q.device):
+        err = library().slam_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), cos_p, sin_p, delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, hkv, d,
+            float(scale), int(causal), stream_ptr(q),
+        )
+    check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 forward, K4 backward. Saves (q, k, v, kv_mask, out, lse, rope) as
+    the reference's ``_fwd_rule`` does: no (Tq, Tk) tensor survives the
+    forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal: bool, scale: Optional[float], cos, sin):
+        rope = None if cos is None else (cos, sin)
+        out, lse = flash_attention_fwd(q, k, v, kv_mask, causal, scale, rope)
+        ctx.causal, ctx.scale, ctx.has_rope = causal, scale, rope is not None
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse, *(rope or ()))
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_mask, out, lse, *rope = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, kv_mask, out, lse, dout, ctx.causal, ctx.scale, tuple(rope) if ctx.has_rope else None
+        )
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor,
+    causal: bool = False, rope: Rope = None, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Differentiable flash attention over (q, k, v); ``rope`` fuses RoPE."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return flash_attention_fwd(q, k, v, kv_mask, causal, scale, rope)[0]  # no backward to prepare for
+    cos, sin = rope if rope is not None else (None, None)
+    return FlashAttention.apply(q, k, v, kv_mask, causal, scale, cos, sin)

@@ -1,32 +1,156 @@
 """Per-row dynamic int8 quantization: the CUDA kernel K2 and its plain twin.
 
 Counterpart of ``slam_llm_tpu/ops/kernels/rowquant.py``. ``rowquant`` sends
-a CPU tensor to ``rowquant_ref`` and a CUDA tensor to the kernel in
-``csrc/rowquant.cu`` (one warp per row, bit-exact against the reference's
-``jnp.round(x / s)``); it raises on what the kernel does not take. The
-reference's fold, stochastic-rounding and Hadamard-rotation variants serve
-only the training backward and are not ported yet.
+a CPU tensor to ``rowquant_ref`` and a CUDA tensor to one of two kernels in
+``csrc/rowquant.cu``; it raises on what a kernel does not take.
+
+* Deterministic rounding (forward activations): ``q = round(x / s)``, one
+  warp per row, bit-exact against the reference's ``jnp.round(x / s)``.
+  Counted on ``rowquant.launches``.
+* ``seed`` (stochastic rounding, ``q = floor(y + u)``) and ``rotate`` (the
+  block-diagonal Hadamard of ``rotate_cols`` before quantizing), the dy
+  quantization of the ``int8_rot`` backward: one block per row, a fast
+  Walsh-Hadamard transform in f32 and a counter-based Philox4x32-10 stream.
+  Counted on ``rowquant_rot_sr.launches``.
+
+The TPU draws ``u`` from its own generator, which nothing else reproduces.
+Here ``u`` comes from Philox4x32-10 keyed by ``(seed, 0)`` with counter
+``(col // 4, row mod 2**32, row // 2**32, 0)``, word ``col % 4``, low 24
+bits times ``2**-24``. The twin computes the same stream in int64 torch
+arithmetic and the same butterfly order, so kernel and twin agree bit for
+bit; against JAX the stochastic rounding is tested by its statistics.
+
+The reference's per-column ``fold`` serves the ``int8_sr`` / ``int8``
+backward modes and ``ce_quant``, which are not ported (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
 _EPS_AMAX = 1e-28  # amax floor: keeps s > 0 for all-zero rows
+ROT_BLOCK = 256  # preferred block-diagonal Hadamard rotation block
+
+_TODO_FOLD = "rowquant fold (the int8_sr / int8 backward modes, ce_quant) is not ported yet (ROADMAP Queue 1)"
 
 
-def rowquant_ref(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch rowquant: ``q = clip(round(x / s))``, ``s = amax/127``."""
-    x32 = x.float()
+def rot_block(f: int, cap: int = ROT_BLOCK) -> int:
+    """Rotation block for a feature dim ``f``: the largest power of two
+    dividing ``f``, capped at ``cap``. The dy quantization and the rotated
+    weight (``ops.quant.rotate_quantize_bwd``) derive it from the same axis."""
+    b = f & -f
+    return min(b, cap) if f else cap
+
+
+def hadamard(n: int = ROT_BLOCK) -> torch.Tensor:
+    """Sylvester Hadamard matrix scaled orthonormal (``H @ H.T = I``), f32."""
+    if n <= 0 or n & (n - 1):
+        raise ValueError(f"hadamard size must be a power of 2, got {n}")
+    h = torch.ones(1, 1)
+    while h.shape[0] < n:
+        h = torch.cat([torch.cat([h, h], 1), torch.cat([h, -h], 1)], 0)
+    return h / math.sqrt(n)
+
+
+def _fwht_scale(b: int) -> float:
+    """1/sqrt(b) rounded to f32 (exact for b a power of four, e.g. 256)."""
+    return float(torch.tensor(1.0 / math.sqrt(b), dtype=torch.float32))
+
+
+def rotate_cols(x: torch.Tensor) -> torch.Tensor:
+    """Block-diagonal orthonormal Hadamard along the last axis, block
+    ``rot_block(F)``, computed in f32 as a fast Walsh-Hadamard transform:
+    log2(b) butterfly stages of add/sub in natural (Sylvester) order, stride
+    1 first, then one multiply by 1/sqrt(b). K2 runs the same stages in the
+    same order, so the two agree bit for bit. Returns f32."""
+    f = x.shape[-1]
+    b = rot_block(f)
+    y = x.float().reshape(-1, f // b, b)
+    h = 1
+    while h < b:
+        y = y.reshape(-1, f // b, b // (2 * h), 2, h)
+        lo, hi = y[..., 0, :], y[..., 1, :]
+        y = torch.stack([lo + hi, lo - hi], dim=-2)
+        h *= 2
+    # an f32-representable Python scalar: the product is exact f32 rounding
+    return y.reshape(x.shape[:-1] + (f,)) * _fwht_scale(b)
+
+
+# ---- Philox4x32-10 in int64 arithmetic ------------------------------------
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """High and low 32 bits of ``a * b`` for a < 2**32 and int64 b in
+    [0, 2**32). The 64-bit product would overflow int64, so b is split into
+    16-bit halves and every partial product stays below 2**49."""
+    p1 = a * (b & 0xFFFF)
+    t = (p1 >> 16) + a * (b >> 16)
+    return t >> 16, ((t & 0xFFFF) << 16) | (p1 & 0xFFFF)
+
+
+def philox4x32(c0, c1, c2, c3, k0: int, k1: int = 0):
+    """Ten Philox4x32 rounds on int64 tensors holding uint32 values; the key
+    is bumped by the Weyl constants before every round but the first."""
+    for i in range(10):
+        if i:
+            k0, k1 = (k0 + _W0) & _MASK32, (k1 + _W1) & _MASK32
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def uniform_ref(m: int, k: int, seed: int, device=None) -> torch.Tensor:
+    """The (m, k) f32 uniforms in [0, 1) that K2's stochastic rounding adds:
+    element (row, col) is word ``col % 4`` of Philox at counter
+    ``(col // 4, row lo, row hi, 0)``, key ``(seed, 0)``, low 24 bits."""
+    g = (k + 3) // 4
+    c0 = torch.arange(g, dtype=torch.int64, device=device)[None, :].expand(m, g)
+    rows = torch.arange(m, dtype=torch.int64, device=device)[:, None].expand(m, g)
+    zero = torch.zeros_like(c0)
+    words = philox4x32(c0, rows & _MASK32, rows >> 32, zero, int(seed) & _MASK32)
+    bits = torch.stack(words, dim=-1).reshape(m, 4 * g)[:, :k]
+    return (bits & 0xFFFFFF).float() * 2.0 ** -24
+
+
+# ---- the twin and the wrapper ----------------------------------------------
+
+
+def rowquant_ref(
+    x: torch.Tensor, *, seed: Optional[int] = None, rotate: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch rowquant: ``s = amax/127`` per row of (rotated) x,
+    ``q = clip(round(x / s))``, or ``clip(floor(x / s + u))`` with ``seed``."""
+    k = x.shape[-1]
+    x32 = rotate_cols(x) if rotate else x.float()
     a = x32.abs().amax(dim=-1, keepdim=True)
     # divide by a tensor, not the Python scalar: on CUDA, PyTorch turns division
     # by a host scalar into a multiplication by its reciprocal, which rounds
     # differently from the true division the reference (and K2) performs
     s = torch.clamp_min(a, _EPS_AMAX) / a.new_full((), 127.0)
-    q = torch.round(x32 / s).clamp_(-127, 127).to(torch.int8)
-    return q, s
+    y = x32 / s
+    if seed is None:
+        q = torch.round(y)
+    else:
+        m = x.numel() // k if k else 0
+        q = torch.floor(y + uniform_ref(m, k, seed, x.device).reshape(x.shape))
+    return q.clamp_(-127, 127).to(torch.int8), s
+
+
+def _check_kernel_input(x: torch.Tensor, k_multiple: int) -> None:
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"rowquant kernel takes bfloat16, got {x.dtype}")
+    if x.shape[-1] % k_multiple or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(
+            f"rowquant kernel needs a contiguous, 16-byte aligned input with K % {k_multiple} == 0"
+        )
 
 
 def rowquant(
@@ -36,20 +160,19 @@ def rowquant(
     seed: Optional[int] = None,
     rotate: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row (last-axis) symmetric int8: ``(q int8 like x, s f32 x.shape[:-1] + (1,))``."""
-    if fold is not None or seed is not None or rotate:
-        raise NotImplementedError(
-            "rowquant fold / stochastic rounding / rotate are training-only and not ported yet"
-        )
+    """Per-row (last-axis) symmetric int8: ``(q int8 like x, s f32
+    x.shape[:-1] + (1,))``. ``seed``: a uint32 switching to stochastic
+    rounding; ``rotate``: the block-diagonal Hadamard before quantizing."""
+    if fold is not None:
+        raise NotImplementedError(_TODO_FOLD)
     if not x.is_cuda:
-        return rowquant_ref(x)
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"rowquant kernel takes bfloat16, got {x.dtype}")
-    k = x.shape[-1]
-    if k % 8 or not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("rowquant kernel needs a contiguous, 16-byte aligned input with K % 8 == 0")
+        return rowquant_ref(x, seed=seed, rotate=rotate)
+    if seed is not None or rotate:
+        return rowquant_rot_sr(x, seed=seed, rotate=rotate)
+    _check_kernel_input(x, 8)
     from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
 
+    k = x.shape[-1]
     m = x.numel() // k if k else 0
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     s = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
@@ -63,3 +186,36 @@ def rowquant(
 
 
 rowquant.launches = 0
+
+
+def rowquant_rot_sr(
+    x: torch.Tensor, *, seed: Optional[int] = None, rotate: bool = True
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's rotate / stochastic-rounding kernel on a CUDA bf16 tensor.
+    Rotation takes K % 256 == 0 (block 256, the only block the slice's
+    widths give); without it K % 8 == 0."""
+    if not x.is_cuda:
+        return rowquant_ref(x, seed=seed, rotate=rotate)
+    if rotate and rot_block(x.shape[-1]) != ROT_BLOCK:
+        raise ValueError(f"rowquant rotate kernel takes K % {ROT_BLOCK} == 0, got K={x.shape[-1]}")
+    _check_kernel_input(x, ROT_BLOCK if rotate else 8)
+    from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
+
+    k = x.shape[-1]
+    m = x.numel() // k if k else 0
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    s = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
+    if m == 0 or k == 0:
+        return q, s.fill_(_EPS_AMAX / 127.0)
+    with torch.cuda.device(x.device):
+        err = library().slam_rowquant_rot_sr(
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), m, k,
+            int(rotate), int(seed is not None), (int(seed) & _MASK32) if seed is not None else 0,
+            stream_ptr(x),
+        )
+    check(err, "rowquant_rot_sr")
+    rowquant_rot_sr.launches += 1
+    return q, s
+
+
+rowquant_rot_sr.launches = 0

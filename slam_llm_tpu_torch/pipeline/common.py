@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 import random
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +27,19 @@ _TODO_LOADERS = "ROADMAP: port the HF / checkpoint loaders"
 def set_seed(seed: int) -> None:
     random.seed(seed)
     np.random.seed(seed)
+
+
+def parse_device(argv: List[str]) -> Tuple[List[str], str]:
+    """Split ``--device <name>`` (default ``cuda``) off a CLI argument list."""
+    argv = list(argv)
+    device = "cuda"
+    if "--device" in argv:
+        i = argv.index("--device")
+        if i + 1 >= len(argv):
+            raise SystemExit("--device needs a value, e.g. --device cuda")
+        device = argv[i + 1]
+        del argv[i : i + 2]
+    return argv, device
 
 
 def resolve_device(device) -> torch.device:

@@ -1,0 +1,92 @@
+"""Training entry point: train split -> steps -> validation -> checkpoint.
+
+Counterpart of ``slam_llm_tpu/pipeline/finetune.py`` with the same
+``--config`` + ``++key=value`` surface, plus ``--device`` (default ``cuda``;
+asking for CUDA without a GPU raises). One process, one device:
+
+    python -m slam_llm_tpu_torch.pipeline.finetune \\
+        --config examples/asr_librispeech/conf/asr_whisper_tinyllama.yaml \\
+        ++dataset_config.train_data_path=train.jsonl ++dataset_config.val_data_path=val.jsonl \\
+        ++train_config.max_steps_per_epoch=10 ++train_config.output_dir=/tmp/out
+
+Weights are the seeded random init of ``pipeline.common.materialize_params``
+until the loaders are ported (ROADMAP Queue 4). The options below raise
+until their ROADMAP item is done.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import List, Optional
+
+from slam_llm_tpu.config import RunConfig, load_run_config
+from slam_llm_tpu.data.loader import build_dataloader
+from slam_llm_tpu.utils.logging_utils import setup_logger
+from slam_llm_tpu_torch.pipeline.common import (
+    build_model_and_data,
+    materialize_params,
+    parse_device,
+    resolve_device,
+    set_seed,
+)
+from slam_llm_tpu_torch.registry import get_custom_dataset_factory
+from slam_llm_tpu_torch.train.loop import train
+from slam_llm_tpu_torch.train.optimizer import count_params
+from slam_llm_tpu_torch.train.state import Trainer
+
+
+def check_ported(cfg: RunConfig) -> None:
+    """Raise on the training options the port does not run yet."""
+    tc = cfg.train_config
+    todo = "is not ported yet (ROADMAP Queue 1)"
+    if tc.run_test_during_validation:
+        raise NotImplementedError(f"run_test_during_validation {todo}")
+    if tc.resume_from or tc.save_optimizer:
+        raise NotImplementedError(f"resume_from / save_optimizer {todo}")
+    if tc.shard.fsdp > 1 or tc.shard.tp > 1:
+        raise NotImplementedError("multi-GPU training (shard.fsdp / shard.tp > 1) is not ported yet "
+                                  "(ROADMAP Queue 7)")
+
+
+def main(cfg: RunConfig, device="cuda"):
+    """Train on the train split; returns the loop's results (step metrics,
+    validations, checkpoint paths) plus the trainer."""
+    dev = resolve_device(device)
+    logger = setup_logger("slam_llm_tpu_torch", log_file=cfg.log_config.log_file)
+    check_ported(cfg)
+    tc = cfg.train_config
+    set_seed(tc.seed)
+
+    model, tokenizer, train_ds = build_model_and_data(cfg, split=cfg.dataset_config.train_split, device=dev)
+    eval_ds = None
+    if tc.run_validation and cfg.dataset_config.val_data_path:
+        eval_ds = get_custom_dataset_factory(cfg.dataset_config)(cfg.dataset_config, tokenizer, "validation")
+    train_loader = build_dataloader(
+        train_ds, tc.batch_size_training, shuffle=True,
+        num_workers=cfg.dataset_config.num_workers, prefetch=cfg.dataset_config.prefetch,
+        seed=tc.seed, worker_type=cfg.dataset_config.worker_type,
+    )
+    eval_loader = (
+        build_dataloader(eval_ds, tc.val_batch_size, shuffle=False, drop_last=False)
+        if eval_ds is not None else None
+    )
+
+    materialize_params(model, cfg)
+    trainer = Trainer(model, model.cfg, tc).state_from_params()
+    int8_base = sum(buf.numel() for name, buf in model.named_buffers() if name.endswith("kernel_q"))
+    logger.info("params: trainable=%.2fM frozen=%.2fM (+ %.2fM in the int8 base) on %s",
+                count_params(trainer.trainable) / 1e6, count_params(trainer.frozen) / 1e6, int8_base / 1e6, dev)
+    results = train(trainer, train_loader, eval_loader, train_config=tc, log_config=cfg.log_config)
+    logger.info("training done: best_val_loss=%s checkpoints=%s",
+                results.get("best_val_loss"), results.get("checkpoints"))
+    results["trainer"] = trainer
+    return results
+
+
+def main_cli(argv: Optional[List[str]] = None):
+    argv, device = parse_device(list(sys.argv[1:] if argv is None else argv))
+    return main(load_run_config(argv), device=device)
+
+
+if __name__ == "__main__":
+    main_cli()

@@ -25,6 +25,7 @@ from slam_llm_tpu_torch.inference.generate import GenerationConfig, Generator, s
 from slam_llm_tpu_torch.pipeline.common import (
     build_model_and_data,
     materialize_params,
+    parse_device,
     resolve_device,
     set_seed,
 )
@@ -104,14 +105,7 @@ def main(cfg: RunConfig, device="cuda"):
 
 
 def main_cli(argv: Optional[List[str]] = None):
-    argv = list(sys.argv[1:] if argv is None else argv)
-    device = "cuda"
-    if "--device" in argv:
-        i = argv.index("--device")
-        if i + 1 >= len(argv):
-            raise SystemExit("--device needs a value, e.g. --device cuda")
-        device = argv[i + 1]
-        del argv[i : i + 2]
+    argv, device = parse_device(list(sys.argv[1:] if argv is None else argv))
     return main(load_run_config(argv), device=device)
 
 

@@ -1,0 +1,115 @@
+"""The epoch / step training loop.
+
+Counterpart of ``slam_llm_tpu/train/loop.py``: the epoch loop with a
+per-epoch step cap (``max_steps_per_epoch``), metrics every
+``log_interval`` steps, validation every ``validation_interval`` steps and
+at the end, and a trainable-only checkpoint named
+``{model_name}_epoch_{e}_step_{s}`` whenever the validation loss improves
+(or once at the end without validation). The logger is the reference's
+JAX-free ``MetricsLogger``.
+"""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from slam_llm_tpu.utils.logging_utils import MetricsLogger
+from slam_llm_tpu_torch.train.state import Trainer
+from slam_llm_tpu_torch.utils.checkpoint import save_trainable
+
+
+def evaluate(trainer: Trainer, eval_loader) -> Dict[str, float]:
+    """Batch-size-weighted mean loss and accuracy over the eval loader."""
+    losses, accs, weights = [], [], []
+    for batch in eval_loader:
+        m = trainer.eval_step(trainer.put_batch(batch))
+        losses.append(float(m["loss"]))
+        accs.append(float(m["acc"]))
+        first = next(v for v in batch.values() if isinstance(v, np.ndarray) and v.ndim)
+        weights.append(len(first))
+    if not losses:
+        return {"loss": float("inf"), "acc": 0.0, "ppl": float("inf")}
+    loss = float(np.average(losses, weights=weights))
+    acc = float(np.average(accs, weights=weights))
+    return {"loss": loss, "acc": acc, "ppl": float(np.exp(min(loss, 50.0)))}
+
+
+def _memory_report(device: torch.device) -> Dict[str, float]:
+    if device.type != "cuda":
+        return {}
+    return {"peak_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30,
+            "in_use_gib": torch.cuda.memory_allocated(device) / 2 ** 30}
+
+
+def train(trainer: Trainer, train_loader, eval_loader=None, train_config=None, log_config=None) -> Dict[str, Any]:
+    """Returns epoch times, checkpoint paths, the final validation, the best
+    validation loss, and ``steps``: for every logged step its metrics, its
+    wall time in seconds (measured when it logs, which waits for the
+    device), the batch shape and its count of attended tokens."""
+    tc = train_config or trainer.train_config
+    logger = MetricsLogger(log_config, tc) if log_config is not None else MetricsLogger(
+        type("L", (), {"use_wandb": False, "log_file": None})()
+    )
+    best_val_loss = float("inf")
+    results: Dict[str, Any] = {"epoch_times": [], "checkpoints": [], "steps": []}
+    step = trainer.step
+    last_val = None  # (step, metrics) of the latest mid-epoch validation
+    log_interval = getattr(tc, "log_interval", 5)
+
+    for epoch in range(tc.num_epochs):
+        t_epoch = time.perf_counter()
+        epoch_steps = 0
+        for batch in train_loader:
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(trainer.put_batch(batch))
+            step += 1
+            if step % log_interval == 0:
+                metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
+                results["steps"].append({
+                    "step": step, "seconds": time.perf_counter() - t0, **metrics,
+                    "shape": tuple(batch["input_ids"].shape), "tokens": int(batch["attention_mask"].sum()),
+                })
+                logger.log(metrics, step)
+            if tc.run_validation and eval_loader is not None and step % tc.validation_interval == 0:
+                val = evaluate(trainer, eval_loader)
+                last_val = (step, val)
+                logger.log(val, step, prefix="valid")
+                if val["loss"] < best_val_loss and tc.save_model:
+                    best_val_loss = val["loss"]
+                    ckpt = _save_checkpoint(trainer, tc, epoch, step)
+                    results["checkpoints"].append(ckpt)
+                    logger.logger.info("new best val loss %.4f -> saved %s", val["loss"], ckpt)
+            # per-epoch cap, counted from the start of this epoch
+            epoch_steps += 1
+            if 0 < tc.max_steps_per_epoch <= epoch_steps:
+                break
+        results["epoch_times"].append(time.perf_counter() - t_epoch)
+        logger.logger.info("epoch %d done in %.1f s %s", epoch, results["epoch_times"][-1],
+                           _memory_report(trainer.device))
+
+    # end-of-training validation + final save
+    if tc.run_validation and eval_loader is not None:
+        if last_val is not None and last_val[0] == step:
+            val = last_val[1]  # the last step just validated this state
+        else:
+            val = evaluate(trainer, eval_loader)
+            logger.log(val, step, prefix="valid")
+        results["final_val"] = val
+        if tc.save_model and (val["loss"] < best_val_loss or not results["checkpoints"]):
+            best_val_loss = min(best_val_loss, float(val["loss"]))
+            results["checkpoints"].append(_save_checkpoint(trainer, tc, tc.num_epochs - 1, step))
+    elif tc.save_model:
+        results["checkpoints"].append(_save_checkpoint(trainer, tc, tc.num_epochs - 1, step))
+    results["best_val_loss"] = best_val_loss
+    return results
+
+
+def _save_checkpoint(trainer: Trainer, tc, epoch: int, step: int) -> str:
+    out = Path(tc.output_dir) / f"{tc.model_name}_epoch_{epoch + 1}_step_{step}"
+    save_trainable(str(out / "model.pt"), trainer.trainable)
+    return str(out)

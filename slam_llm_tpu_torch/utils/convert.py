@@ -12,10 +12,13 @@ nested dicts of numpy arrays, onto this package's ``state_dict`` names:
 * flax ``Conv`` ``kernel`` (k, in, out) becomes ``Conv1d.weight`` (out, in, k);
 * ``Embed.embedding`` (V, D) becomes ``embed_tokens.weight``;
 * the backward-only ``kernel_qr`` / ``kernel_scale_r`` and ``kernel_t`` are
-  dropped.
+  dropped: the port derives its ``int8_rot`` pair itself
+  (``ops.quant.quantize_base_params``).
 
 The result loads with ``model.load_state_dict(sd)``, which casts each tensor
-to the dtype the port stores it in.
+to the dtype the port stores it in: the trainable leaves (LoRA factors, the
+projector) into their f32 masters, bit-equal to the JAX values.
+``trainable_to_flax`` maps trainable tensors back into the flax layout.
 """
 
 from __future__ import annotations
@@ -86,3 +89,35 @@ def from_flax_params(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
     if n != cfg.llm.n_layers:
         raise ValueError(f"parameter tree has {n} decoder layers, config {cfg.llm.n_layers}")
     return out
+
+
+def trainable_to_flax(tensors: Mapping) -> dict:
+    """Inverse of ``from_flax_params`` for trainable tensors (LoRA factors,
+    projector kernels and biases): ``{name: tensor}`` in the port's
+    ``state_dict`` names -> nested dicts of f32 numpy arrays in the flax
+    layout, with the per-layer tensors restacked on the ``layers`` axis and
+    the LLM's under ``decoder``."""
+    out: dict = {}
+    stacked: Dict[tuple, Dict[int, np.ndarray]] = {}
+    for name, t in tensors.items():
+        *path, leaf = name.split(".")
+        arr = t.detach().cpu().float().numpy()
+        if leaf == "weight":
+            leaf, arr = "kernel", arr.T
+        elif leaf in ("kernel_q", "lora_a", "lora_b"):
+            arr = arr.T
+        if "layers" in path:
+            i = path.index("layers")
+            key = tuple(path[:i] + (["decoder"] if path[:i] == ["llm"] else []) + ["layers"] + path[i + 2:] + [leaf])
+            stacked.setdefault(key, {})[int(path[i + 1])] = arr
+        else:
+            _set(out, path + [leaf], arr)
+    for key, layers in stacked.items():
+        _set(out, list(key), np.stack([layers[i] for i in sorted(layers)]))
+    return out
+
+
+def _set(node: dict, path: List[str], value) -> None:
+    for key in path[:-1]:
+        node = node.setdefault(key, {})
+    node[path[-1]] = value

@@ -9,6 +9,7 @@ conftest (which imports JAX) has to be left out:
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -148,3 +149,156 @@ def test_small_slice_on_card_matches_cpu_plain_path(gen):
         cpu, _ = model.prefill({k: v.cpu() for k, v in batch.items()}, init_kv_cache(llm, b, t + 1, gen_start=t))
     cos = torch.nn.functional.cosine_similarity(gpu.cpu().flatten(0, 1), cpu.flatten(0, 1), dim=-1)
     assert bool(torch.isfinite(gpu).all()) and cos.min().item() >= 0.99
+
+
+# ---- training-path kernels: K1 + fused RoPE, K4, K2 rotate / SR ------------
+
+
+def _rope(b, t, gen, left_pad=None):
+    from slam_llm_tpu_torch.models.layers import rope_tables
+
+    mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
+    if left_pad is not None:
+        for i, n in enumerate(left_pad):
+            mask[i, :n] = 0
+    pos = (mask.long().cumsum(1) - 1).clamp_min(0)
+    return mask, rope_tables(pos, 64)
+
+
+def _qkv(b, t, h, hkv, d, gen):
+    return [torch.randn(b, t, n, d, generator=gen, device="cuda").bfloat16() for n in (h, hkv, hkv)]
+
+
+@pytest.mark.parametrize("b,t,h,hkv", [(2, 70, 4, 1), (16, 512, 32, 4)])
+def test_flash_fused_rope_matches_rotate_then_twin(gen, b, t, h, hkv):
+    """K1 with fused RoPE against apply_rope_tables (f32 rotation, one bf16
+    rounding: the kernel's numerics) then the f32 twin: out within 2e-2,
+    live-row lse within 1e-3, left-padded dead rows exactly 0."""
+    q, k, v = _qkv(b, t, h, hkv, 64, gen)
+    mask, rope = _rope(b, t, gen, left_pad=[(i * 37) % (t // 3) for i in range(b)])
+    out, lse = tflash.flash_attention_fwd(q, k, v, mask, True, rope=rope)
+    qr, kr = (tflash.apply_rope_tables(x, *rope) for x in (q, k))
+    ref, ref_lse = tflash.flash_attention_ref(qr.float(), kr.float(), v.float(), mask, True)
+    live = mask.cumsum(1) > 0
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    assert (lse - ref_lse)[live].abs().max().item() <= 1e-3
+    assert bool((out[~live] == 0).all())
+
+
+def _bwd_twin_f32(q, k, v, mask, out, lse, dout, causal, rope):
+    """The f32 twin of K4 on the kernel's own inputs: q / k rotated in bf16
+    as the kernel rotates them, then f32 throughout, dq / dk counter-rotated
+    in f32."""
+    if rope is not None:
+        q, k = (tflash.apply_rope_tables(x, *rope) for x in (q, k))
+    dq, dk, dv = tflash.flash_attention_bwd_ref(q.float(), k.float(), v.float(), mask, out.float(), lse,
+                                                dout.float(), causal)
+    if rope is not None:
+        dq, dk = (tflash.apply_rope_tables(x, *rope, inverse=True) for x in (dq, dk))
+    return dq, dk, dv
+
+
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("b,t,h,hkv,d,causal,rope,pad", [
+    (2, 130, 4, 2, 64, True, True, "left"),
+    (16, 512, 32, 4, 64, True, True, "both"),  # the training path's shape
+    (2, 1500, 12, 12, 64, False, False, "right"),  # whisper-small
+    (2, 256, 8, 8, 128, True, False, "left"),
+])
+def test_flash_backward_kernel_matches_twin(gen, b, t, h, hkv, d, causal, rope, pad):
+    """K4 dq / dk / dv within 2e-2 relative L2 of the f32 twin (the kernel
+    rounds P and dS to bf16 for its products); dead rows' dq exactly 0;
+    two runs bit-identical (no atomics)."""
+    q, k, v = _qkv(b, t, h, hkv, d, gen)
+    dout = torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
+    mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
+    for i in range(b):
+        n = 5 + (i * 37) % (t // 3)
+        if pad in ("left", "both"):
+            mask[i, :n] = 0
+        if pad in ("right", "both"):
+            mask[i, t - n // 2:] = 0
+    tables = None
+    if rope:
+        from slam_llm_tpu_torch.models.layers import rope_tables
+
+        tables = rope_tables((mask.long().cumsum(1) - 1).clamp_min(0), d)
+    out, lse = tflash.flash_attention_fwd(q, k, v, mask, causal, rope=tables)
+    before = tflash.flash_attention_bwd.launches
+    got = tflash.flash_attention_bwd(q, k, v, mask, out, lse, dout, causal, rope=tables)
+    again = tflash.flash_attention_bwd(q, k, v, mask, out, lse, dout, causal, rope=tables)
+    assert tflash.flash_attention_bwd.launches == before + 2
+    want = _bwd_twin_f32(q, k, v, mask, out, lse, dout, causal, tables)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert _rel_l2(g, w) <= 2e-2
+    if causal:
+        dead = mask.cumsum(1) == 0
+        assert bool((got[0][dead] == 0).all())
+
+
+@pytest.mark.parametrize("m,k", [(512, 2048), (512, 256), (300, 5632), (5, 256)])
+@pytest.mark.parametrize("seed,rotate", [(11, True), (None, True), (12, False)])
+def test_rowquant_rot_sr_kernel_bit_exact(gen, m, k, seed, rotate):
+    """K2's rotate / stochastic-rounding kernel bit-exact against the twin
+    (same Philox stream, same butterfly order), with an all-zero row and a
+    row holding one large outlier; rotation refuses K % 256 != 0."""
+    x = torch.randn(m, k, generator=gen, device="cuda") * 0.3
+    x[0] = 0
+    x[min(1, m - 1), 7] = 300.0
+    x = x.bfloat16()
+    before = trowquant.rowquant_rot_sr.launches
+    q, s = trowquant.rowquant(x, seed=seed, rotate=rotate)
+    assert trowquant.rowquant_rot_sr.launches == before + 1
+    rq, rs = trowquant.rowquant_ref(x, seed=seed, rotate=rotate)
+    assert torch.equal(s, rs) and torch.equal(q, rq)
+    assert bool((q[0] == 0).all())
+    if rotate:
+        with pytest.raises(ValueError, match="K % 256"):
+            trowquant.rowquant(x[:, :k - 128].contiguous(), seed=seed, rotate=True)
+
+
+def test_training_step_full_width_on_card(gen):
+    """One training step of the recipe's model at full width (whisper-small,
+    TinyLlama-1.1B with an int8 base and the int8_rot backward, LoRA r8 on
+    q / v), batch 2: finite loss and gradient norm, and every kernel of the
+    training path launched (K1, K4, K2 both kernels, K3)."""
+    from slam_llm_tpu.config import TrainConfig
+    from slam_llm_tpu_torch.models.llm import LLMConfig
+    from slam_llm_tpu_torch.models.projector import ProjectorConfig
+    from slam_llm_tpu_torch.models.slam_model import SLAMConfig, SLAMModel
+    from slam_llm_tpu_torch.models.whisper import WhisperEncoderConfig
+    from slam_llm_tpu_torch.pipeline.common import init_params_
+    from slam_llm_tpu_torch.train.state import Trainer
+
+    llm = dataclasses.replace(LLMConfig.tinyllama_1_1b(), lora_rank=8, base_quant="int8",
+                              base_quant_bwd="int8_rot", lora_dropout=0.05)
+    enc = WhisperEncoderConfig.small()
+    cfg = SLAMConfig(llm=llm, encoder=enc, projector_cfg=ProjectorConfig(encoder_dim=768, llm_dim=2048))
+    model = init_params_(SLAMModel(cfg, device="cuda"), gen)
+    tc = TrainConfig()
+    tc.use_peft, tc.warmup_steps = True, 2
+    trainer = Trainer(model, cfg, tc).state_from_params()
+    b, t, n_audio = 2, 448, 300
+    ids = torch.randint(3, 32000, (b, t), generator=gen, device="cuda")
+    ids[:, :n_audio] = -1
+    labels = ids.clone()
+    labels[:, :n_audio + 8] = -100
+    modality = torch.zeros(b, t, dtype=torch.int32, device="cuda")
+    modality[:, :n_audio] = 1
+    attn = torch.ones(b, t, dtype=torch.int32, device="cuda")
+    attn[1, :20] = 0  # left padding
+    batch = {"input_ids": ids, "labels": labels, "attention_mask": attn, "modality_mask": modality,
+             "audio_mel": torch.randn(b, 3000, 80, generator=gen, device="cuda"),
+             "audio_mel_mask": torch.ones(b, 3000, dtype=torch.int32, device="cuda")}
+    counters = (tflash.flash_attention_fwd, tflash.flash_attention_bwd, trowquant.rowquant,
+                trowquant.rowquant_rot_sr, tquant.int8_matmul)
+    before = [fn.launches for fn in counters]
+    for _ in range(2):
+        m = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    assert all(fn.launches > n for fn, n in zip(counters, before))
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"])) and m["lr"] > 0

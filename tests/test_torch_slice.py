@@ -51,7 +51,7 @@ def _jax_cfg(dtype):
 
 def _port_cfg(jcfg, dtype):
     def conv(cls, obj):
-        names = {f.name for f in dataclasses.fields(cls)} - {"dtype"}
+        names = {f.name for f in dataclasses.fields(cls)} - {"dtype", "param_dtype"}
         return cls(**{n: getattr(obj, n) for n in names if hasattr(obj, n)}, dtype=dtype)
 
     return tslam.SLAMConfig(
@@ -232,6 +232,19 @@ def test_unported_parts_raise(tmp_path):
         mc = dataclasses.replace(cfg.model_config, **{key: val})
         with pytest.raises(NotImplementedError, match="not ported yet"):
             tslam.build_slam_config(cfg.train_config, mc)
+    # training modes outside the ported slice, each with its ROADMAP pointer
+    for key, val, match in (("base_quant_bwd", "int8_sr", "ROADMAP Queue 1"),
+                            ("base_quant_bwd", "int8_rot_otf", "ROADMAP: do not port"),
+                            ("ce_quant", "int8_sr", "ROADMAP Queue 1")):
+        tc = dataclasses.replace(cfg.train_config, shard=dataclasses.replace(cfg.train_config.shard, **{key: val}))
+        with pytest.raises(NotImplementedError, match=match):
+            tslam.build_slam_config(tc, cfg.model_config)
+    with pytest.raises(NotImplementedError, match="frozen_dtype"):
+        tslam.build_slam_config(dataclasses.replace(cfg.train_config, frozen_dtype="float32"), cfg.model_config)
+    from slam_llm_tpu_torch.ops.kernels.rowquant import rowquant
+
+    with pytest.raises(NotImplementedError, match="fold"):
+        rowquant(torch.ones(2, 8), fold=torch.ones(8))
     model, _ = tslam.model_factory(cfg.train_config, cfg.model_config)
     cfg.ckpt_path = str(tmp_path / "ckpt")
     with pytest.raises(NotImplementedError, match="ckpt_path"):
@@ -249,21 +262,29 @@ tmp = Path(tempfile.mkdtemp())
 cfg = tiny_run_config(make_corpus(tmp, n=2), **{"decode_config.decode_log": str(tmp / "d"),
     "decode_config.max_new_tokens": 3, "train_config.shard.base_quant": "int8"})
 res = inference_batch.main(cfg, device="cpu")
+from slam_llm_tpu_torch.pipeline import finetune
+train = finetune.main(tiny_run_config(make_corpus(tmp, n=2), **{
+    "train_config.use_peft": True, "train_config.freeze_encoder": True, "train_config.freeze_llm": True,
+    "train_config.shard.base_quant": "int8", "train_config.shard.base_quant_bwd": "int8_rot",
+    "train_config.max_steps_per_epoch": 1, "train_config.log_interval": 1,
+    "train_config.output_dir": str(tmp / "out")}), device="cpu")
 for mod in pkgutil.walk_packages(slam_llm_tpu_torch.__path__, "slam_llm_tpu_torch."):
     importlib.import_module(mod.name)
-print(json.dumps({"n": res["n"], "jax": "jax" in sys.modules, "flax": "flax" in sys.modules}))
+print(json.dumps({"n": res["n"], "steps": len(train["steps"]), "jax": "jax" in sys.modules,
+                  "flax": "flax" in sys.modules}))
 """
 
 
 def test_port_runs_without_importing_jax():
-    """The slice, and every module of the package, in a fresh interpreter:
-    neither jax nor flax is ever imported (this test process has both)."""
+    """The decode slice, a training step through the finetune CLI, and every
+    module of the package, in a fresh interpreter: neither jax nor flax is
+    ever imported (this test process has both)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", _PROBE, str(REPO)], capture_output=True, text=True, env=env,
         timeout=300, check=True,
     )
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"n": 2, "jax": False, "flax": False}
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"n": 2, "steps": 1, "jax": False, "flax": False}
 
 
 def test_port_sources_never_import_jax():
