@@ -12,8 +12,11 @@ Phases, each fatal on failure:
                 the training path with fused RoPE), K4 flash backward (the
                 training shape (16, 512, 32/4, 64) with fused RoPE, and a
                 whisper-like shape), K2 rowquant (deterministic, and rotate +
-                stochastic rounding at the int8_rot dy shapes, bit-exact), K3
-                s8 GEMM (prefill, decode and dx shapes, bit-exact), plus
+                stochastic rounding at the int8_rot dy shapes, bit-exact; fold,
+                deterministic and stochastic, at the int8_sr dy shapes and the
+                int8 CE head's f32 dlog, bit-exact), K3 s8 GEMM (prefill,
+                decode, dx and transposed-weight dx shapes, and the f32
+                epilogue of the int8 CE head's logits, bit-exact), plus
                 ragged, left-padded and D = 128 cases;
   4. decode  -- the recipe examples/asr_librispeech/conf/asr_whisper_tinyllama.yaml
                 through slam_llm_tpu_torch.pipeline.inference_batch on 16
@@ -25,9 +28,17 @@ Phases, each fatal on failure:
                 (frozen whisper-small, trained projector, TinyLlama-1.1B int8
                 base with LoRA r8 on q/v, int8_rot backward, batch 16) for a
                 few steps on synthetic utterances, with validation and the
-                trainable-only checkpoint; step time, throughput, peak memory
-                and launches per kernel; then the trainable gradients of one
-                utterance on the card against the CPU plain path.
+                trainable-only checkpoint, with the recipe's activation
+                checkpointing (remat, dots_flash_saveable); step time,
+                throughput, peak memory and launches per kernel, and the same
+                step time and peak memory from a short run with remat off;
+                then the trainable gradients of one utterance on the card
+                against the CPU plain path;
+  6. modes   -- the same recipe through pipeline.finetune with the int8_sr
+                backward, the int8_sr CE head, anyprecision, gradient
+                accumulation 2, full-state checkpoints and the validation
+                decode of one wav: 8 micro-steps, a resume from the
+                checkpoint for 2 more, and the card-vs-CPU gradient check.
 
 Prints one JSON line of kernel results before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -321,6 +332,72 @@ def check_rowquant_rot_sr(gen) -> dict:
     return dict(max_abs_err=worst, **first)
 
 
+def check_rowquant_fold(gen) -> dict:
+    """K2's fold kernels, deterministic and stochastic rounding, bit-exact
+    against the twin: the int8_sr / int8 dy shapes of the training step
+    (M = 16 x 512, bf16, a fold of f32 weight scales) and the int8 CE
+    head's f32 dlog (16 x 64 rows of 32000)."""
+    from slam_llm_tpu_torch.ops.kernels.rowquant import rowquant, rowquant_ref
+
+    dev = "cuda"
+    worst, first = 0.0, None
+    cases = [(8192, k, dt, seed) for k in (2048, 5632, 256) for dt in (torch.bfloat16,) for seed in (None, 977)]
+    cases += [(1024, 32000, torch.float32, 2**32 - 5), (1024, 32000, torch.float32, None), (37, 2056, torch.bfloat16, 3)]
+    for m, k, dt, seed in cases:
+        x = torch.randn(m, k, generator=gen, device=dev) * 1e-2
+        x[0] = 0.0  # all-zero row
+        x[1, 5] = 3.0  # one large outlier
+        x = x.to(dt)
+        fold = torch.rand(k, generator=gen, device=dev) * 0.02 + 1e-4
+        q, s = rowquant(x, fold, seed=seed)
+        torch.cuda.synchronize()
+        rq, rs = rowquant_ref(x, fold, seed=seed)
+        exact = bool(torch.equal(q, rq) and torch.equal(s, rs))
+        err = (q.int() - rq.int()).abs().max().item()
+        ms = time_ms(lambda: rowquant(x, fold, seed=seed))
+        plain_ms = time_ms(lambda: rowquant_ref(x, fold, seed=seed), reps=3)
+        name = f"({m}, {k}) {str(dt).split('.')[-1]} {'SR' if seed is not None else 'deterministic'}"
+        log(f"[K2 fold] {name}: bit-exact {exact} | kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        if not exact:
+            raise AssertionError(f"K2 fold {name} not bit-exact: max |q - ref| {err}")
+        worst = max(worst, float(err))
+        if first is None and seed is not None:
+            first = dict(ms=ms, plain_ms=plain_ms, at=name)
+    return dict(max_abs_err=worst, variants=["deterministic", "stochastic rounding", "bf16 input", "f32 input"],
+                **first)
+
+
+def check_int8_matmul_f32(gen) -> dict:
+    """K3's f32 epilogue at the int8 CE head's logits, (1024, 2048 -> 32000),
+    and at an f32 dx shape: bit-exact against the f64 twin."""
+    from slam_llm_tpu_torch.ops.quant import int8_matmul, int8_matmul_ref
+
+    dev = "cuda"
+    worst, first = 0.0, None
+    for m, k, f in ((1024, 2048, 32000), (1024, 32000, 2048), (37, 48, 40)):
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (f, k), generator=gen, device=dev, dtype=torch.int8)
+        xs = torch.rand(m, generator=gen, device=dev) * 0.05 + 1e-3
+        ws = torch.rand(f, generator=gen, device=dev) * 0.01 + 1e-4
+        out = int8_matmul(xq, wq, xs, ws, torch.float32)
+        torch.cuda.synchronize()
+        ref = int8_matmul_ref(xq, wq, xs, ws, torch.float32)
+        exact = bool(torch.equal(out, ref))
+        err = (out - ref).abs().max().item()
+        ms = time_ms(lambda: int8_matmul(xq, wq, xs, ws, torch.float32))
+        plain_ms = time_ms(lambda: int8_matmul_ref(xq, wq, xs, ws, torch.float32), reps=3)
+        xb, wb = xq.bfloat16(), wq.bfloat16()
+        bf16_ms = time_ms(lambda: torch.mm(xb, wb.T, out_dtype=torch.float32))
+        log(f"[K3 f32] M={m} K={k} F={f}: bit-exact {exact} max abs {err:.3e} | kernel {ms:.4f} ms "
+            f"plain(f64) {plain_ms:.4f} ms bf16 matmul (f32 out) {bf16_ms:.4f} ms")
+        if not exact:
+            raise AssertionError(f"K3 f32 M={m} K={k} F={f}: max |out - ref| {err}")
+        worst = max(worst, err)
+        if first is None:
+            first = dict(ms=ms, plain_ms=plain_ms, at=f"M={m} K={k} F={f} f32 out")
+    return dict(max_abs_err=worst, **first)
+
+
 def check_int8_matmul(gen) -> dict:
     from slam_llm_tpu_torch.ops.quant import int8_matmul, int8_matmul_ref
 
@@ -331,6 +408,9 @@ def check_int8_matmul(gen) -> dict:
     shapes = [(m, kc, n) for m in (4096, 32, 8, 3584)
               for kc, n in ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048))]
     shapes += [(8192, kc, n) for kc, n in ((2048, 2048), (256, 2048), (5632, 2048), (2048, 5632))]
+    # the int8_sr / int8 dx against the stored transpose kernel_qt, and the
+    # int8_sr CE head's dx, z (1024, 32000) x head_qt (2048, 32000)
+    shapes += [(1024, 32000, 2048)]
     for m, k, f in shapes:
         xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
         wq = torch.randint(-127, 128, (f, k), generator=gen, device=dev, dtype=torch.int8)
@@ -364,7 +444,9 @@ KERNELS = [
      "slam_llm_tpu/ops/kernels/flash_attention.py:1157"),
     ("rowquant", "slam_llm_tpu_torch/csrc/rowquant.cu", "slam_llm_tpu/ops/kernels/rowquant.py:186"),
     ("rowquant_rot_sr", "slam_llm_tpu_torch/csrc/rowquant.cu", "slam_llm_tpu/ops/kernels/rowquant.py:222"),
+    ("rowquant_fold", "slam_llm_tpu_torch/csrc/rowquant.cu", "slam_llm_tpu/ops/kernels/rowquant.py:162"),
     ("int8_matmul", "slam_llm_tpu_torch/csrc/int8_matmul.cu", "slam_llm_tpu/ops/quant.py:116"),
+    ("int8_matmul_f32", "slam_llm_tpu_torch/csrc/int8_matmul.cu", "slam_llm_tpu/ops/fused_ce.py:115"),
 ]
 
 
@@ -373,7 +455,8 @@ def check_kernels() -> list:
     checks = {
         "flash_attention_fwd": check_flash, "flash_attention_bwd": check_flash_bwd,
         "rowquant": check_rowquant, "rowquant_rot_sr": check_rowquant_rot_sr,
-        "int8_matmul": check_int8_matmul,
+        "rowquant_fold": check_rowquant_fold, "int8_matmul": check_int8_matmul,
+        "int8_matmul_f32": check_int8_matmul_f32,
     }
     results = [dict(name=name, route="cuda", source=src, replaces=rep, **checks[name](gen))
                for name, src, rep in KERNELS]
@@ -419,7 +502,9 @@ def kernel_counters():
         "flash_attention_bwd": flash_attention.flash_attention_bwd,
         "rowquant": rowquant.rowquant,
         "rowquant_rot_sr": rowquant.rowquant_rot_sr,
+        "rowquant_fold": rowquant.rowquant_fold,
         "int8_matmul": quant.int8_matmul,
+        "int8_matmul_f32": quant.int8_matmul_f32,
     }
 
 
@@ -513,75 +598,172 @@ def run_slice() -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_STEPS = 8  # the first two are warm-up; step time is the mean of the rest
+NO_REMAT_STEPS = 6  # the short run with activation checkpointing off
 
 
-def run_training() -> dict:
-    """The recipe's training step through ``pipeline.finetune.main`` on
-    TRAIN_STEPS x 16 synthetic utterances, validation on 8, a trainable-only
-    checkpoint; then the gradient check against the CPU plain path."""
+def _train_cfg(tmp: Path, steps: int, *extra: str):
     from slam_llm_tpu_torch.pipeline import finetune
-    from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
 
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
-    cfg = finetune.load_run_config([
+    return finetune.load_run_config([
         "--config", str(RECIPE),
-        f"++dataset_config.train_data_path={write_corpus(tmp, n=16 * TRAIN_STEPS, name='train')}",
+        f"++dataset_config.train_data_path={write_corpus(tmp, n=16 * steps, name='train')}",
         f"++dataset_config.val_data_path={write_corpus(tmp, n=8, seed=1, name='val')}",
-        f"++train_config.max_steps_per_epoch={TRAIN_STEPS}",
+        f"++train_config.max_steps_per_epoch={steps}",
         "++train_config.log_interval=1",
         f"++train_config.output_dir={tmp / 'out'}",
+        *extra,
     ])
+
+
+def _finetune(cfg, label: str):
+    """``pipeline.finetune.main`` on the card with the launch counts and the
+    peak memory of the run; logs every step and the step time of steps 3 on."""
+    from slam_llm_tpu_torch.pipeline import finetune
+
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res, launches = run_counted(lambda: finetune.main(cfg, device="cuda"))
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    trainer, steps = res["trainer"], res["steps"]
+    steps = res["steps"]
     for s in steps:
-        log(f"[train] step {s['step']}: loss {s['loss']:.5f} acc {s['acc']:.4f} grad_norm {s['grad_norm']:.5e} "
+        log(f"[{label}] step {s['step']}: loss {s['loss']:.5f} acc {s['acc']:.4f} grad_norm {s['grad_norm']:.5e} "
             f"lr {s['lr']:.3e} | {1000 * s['seconds']:.1f} ms, batch {s['shape']}, {s['tokens']} tokens")
-    timed = steps[2:]
+    timed = steps[2:] or steps
     step_s = float(np.mean([s["seconds"] for s in timed]))
     b, t = steps[-1]["shape"]
     tokens = float(np.mean([s["tokens"] for s in timed]))
-    log(f"[train] {len(steps)} steps of batch {b} x T {t}: step {1000 * step_s:.1f} ms (mean of steps 3-"
-        f"{len(steps)}), {b / step_s:.2f} utt/s, {tokens / step_s:.0f} attended tokens/s "
+    log(f"[{label}] {len(steps)} steps of batch {b} x T {t}: step {1000 * step_s:.1f} ms (mean of steps "
+        f"{timed[0]['step']}-{timed[-1]['step']}), {b / step_s:.2f} utt/s, {tokens / step_s:.0f} attended tokens/s "
         f"({b * t / step_s:.0f} padded), peak memory {peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB in use "
-        f"before the phase), wall {wall:.1f} s (build, "
-        f"init, steps, validation, checkpoint); validation {res['final_val']}")
-    log(f"[train] launches during training {launches}; per step K4 "
-        f"{launches['flash_attention_bwd'] / len(steps):.0f}, K2 rot/SR {launches['rowquant_rot_sr'] / len(steps):.0f}")
-    if len(steps) != TRAIN_STEPS:
-        raise AssertionError(f"expected {TRAIN_STEPS} training steps, got {len(steps)}")
+        f"before the run, so {(peak - base) / 2**30:.2f} GiB of its own), wall {wall:.1f} s (build, init, steps, "
+        f"validation, checkpoint); validation {res.get('final_val')}")
+    log(f"[{label}] launches {launches}")
     if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps):
-        raise AssertionError("non-finite loss or gradient norm")
-    missing = [name for name, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the training path: {missing}")
-    ckpt = Path(res["checkpoints"][-1]) / "model.pt"
-    if not ckpt.is_file():
-        raise AssertionError(f"checkpoint missing: {ckpt}")
-    log(f"[train] checkpoint {ckpt} ({ckpt.stat().st_size / 2**20:.1f} MiB)")
+        raise AssertionError(f"{label}: non-finite loss or gradient norm")
+    return res, launches, dict(step_ms=1000 * step_s, peak_gib=peak / 2**30, own_peak_gib=(peak - base) / 2**30)
 
-    # every trainable tensor moved away from the seeded init
+
+def _check_moved(trainer, cfg, steps: int):
+    """Every trainable tensor moved away from the seeded init."""
+    from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
+
     fresh, _, dataset = build_model_and_data(cfg, split=cfg.dataset_config.train_split, device="cuda")
     materialize_params(fresh, cfg)
     init = dict(fresh.named_parameters())
     unchanged = [n for n, p in trainer.trainable.items() if torch.equal(p.float(), init[n].float())]
-    log(f"[train] {len(trainer.trainable)} trainable tensors, unchanged after {len(steps)} steps: {len(unchanged)}")
+    log(f"[train] {len(trainer.trainable)} trainable tensors, unchanged after {steps} steps: {len(unchanged)}")
     if unchanged:
         raise AssertionError(f"trainable tensors unchanged by training: {unchanged[:5]}")
-    del fresh, init
-    check_train_grads_against_cpu(trainer, dataset)
+    return dataset
+
+
+TRAIN_PATH = ("flash_attention_fwd", "flash_attention_bwd", "rowquant", "rowquant_rot_sr", "int8_matmul")
+
+
+def run_training() -> dict:
+    """The recipe's training step through ``pipeline.finetune.main``, as
+    shipped (the int8_rot backward, remat with dots_flash_saveable), on
+    TRAIN_STEPS x 16 synthetic utterances, validation on 8, a trainable-only
+    checkpoint; the same for NO_REMAT_STEPS with remat off, for its step
+    time and peak memory; then the gradient check against the CPU plain
+    path."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    cfg = _train_cfg(tmp, TRAIN_STEPS)
+    if not (cfg.train_config.shard.remat and cfg.train_config.shard.remat_policy == "dots_flash_saveable"):
+        raise AssertionError("the recipe no longer ships remat with dots_flash_saveable")
+    res, launches, remat_on = _finetune(cfg, "train")
+    trainer, steps = res["trainer"], res["steps"]
+    if len(steps) != TRAIN_STEPS:
+        raise AssertionError(f"expected {TRAIN_STEPS} training steps, got {len(steps)}")
+    missing = [name for name in TRAIN_PATH if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the training path: {missing}")
+    log(f"[train] per step K4 {launches['flash_attention_bwd'] / len(steps):.0f}, K1 "
+        f"{launches['flash_attention_fwd'] / len(steps):.1f} (the encoder's 12, 22 LLM layers, validation; no "
+        f"recompute under dots_flash_saveable), K2 rot/SR {launches['rowquant_rot_sr'] / len(steps):.0f}")
+    ckpt = Path(res["checkpoints"][-1]) / "model.pt"
+    if not ckpt.is_file():
+        raise AssertionError(f"checkpoint missing: {ckpt}")
+    log(f"[train] checkpoint {ckpt} ({ckpt.stat().st_size / 2**20:.1f} MiB)")
+    dataset = _check_moved(trainer, cfg, len(steps))
+    del res
+    tmp_off = Path(tempfile.mkdtemp(prefix="chip_smoke_noremat_"))
+    res_off, _, remat_off = _finetune(_train_cfg(tmp_off, NO_REMAT_STEPS, "++train_config.shard.remat=false",
+                                                 "++train_config.run_validation=false",
+                                                 "++train_config.save_model=false"), "train remat=false")
+    if res_off["trainer"].model.cfg.llm.remat:
+        raise AssertionError("remat=false did not reach the model")
+    del res_off
+    log(f"[train] remat on (dots_flash_saveable) vs off: step {remat_on['step_ms']:.1f} vs {remat_off['step_ms']:.1f} "
+        f"ms, the run's own peak {remat_on['own_peak_gib']:.2f} vs {remat_off['own_peak_gib']:.2f} GiB")
+    check_train_grads_against_cpu(trainer, dataset, "train")
     return launches
 
 
-def check_train_grads_against_cpu(trainer, dataset) -> None:
+MODES_STEPS = 8  # micro-steps before the checkpoint; then 2 more from the resumed state
+MODES_PATH = ("flash_attention_fwd", "flash_attention_bwd", "rowquant", "rowquant_fold", "int8_matmul",
+              "int8_matmul_f32")
+
+
+def run_training_modes() -> dict:
+    """Phase 6: the recipe at full width with the int8_sr backward and CE
+    head, anyprecision, gradient accumulation 2, full-state checkpoints and
+    the validation decode; then a resume and the gradient check."""
+    import wave
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_modes_"))
+    probe = tmp / "probe.wav"
+    t = np.arange(3 * 16000) / 16000
+    with wave.open(str(probe), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((0.3 * np.sin(2 * np.pi * 330 * t) * 32767).astype("<i2").tobytes())
+    modes = ["++train_config.shard.base_quant_bwd=int8_sr", "++train_config.shard.ce_quant=int8_sr",
+             "++train_config.shard.remat_policy=dots_flash_saveable", "++train_config.optimizer=anyprecision",
+             "++train_config.gradient_accumulation_steps=2", "++train_config.save_optimizer=true",
+             "++train_config.run_test_during_validation=true",
+             f"++train_config.run_test_during_validation_file={probe}", "++decode_config.max_new_tokens=32",
+             f"++train_config.validation_interval={MODES_STEPS}"]
+    cfg = _train_cfg(tmp, MODES_STEPS, *modes)
+    res, launches, stats = _finetune(cfg, "modes")
+    trainer, steps = res["trainer"], res["steps"]
+    opt = trainer.optimizer
+    log(f"[modes] optimizer {type(opt).__name__}({type(opt.inner).__name__}): {opt.inner.count} inner updates in "
+        f"{trainer.step} micro-steps; validation decode {res['decoded']}")
+    if len(steps) != MODES_STEPS or trainer.step != MODES_STEPS or opt.inner.count != MODES_STEPS // 2:
+        raise AssertionError(f"modes: {len(steps)} steps, step {trainer.step}, {opt.inner.count} inner updates")
+    if not res["decoded"] or not all(isinstance(x, str) for x in res["decoded"]):
+        raise AssertionError(f"modes: no validation decode ({res['decoded']})")
+    missing = [name for name in MODES_PATH if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the int8_sr training path: {missing}")
+    ckpt = Path(res["checkpoints"][-1])
+    if not (ckpt / "full_state.pt").is_file():
+        raise AssertionError(f"no full state in {ckpt}")
+    del res, trainer
+    cfg2 = _train_cfg(Path(tempfile.mkdtemp(prefix="chip_smoke_resume_")), MODES_STEPS, *modes,
+                      f"++train_config.resume_from={ckpt}", "++train_config.max_steps_per_epoch=2")
+    res2, launches2, _ = _finetune(cfg2, "modes resumed")
+    trainer2 = res2["trainer"]
+    if [s["step"] for s in res2["steps"]] != [MODES_STEPS + 1, MODES_STEPS + 2] \
+            or trainer2.optimizer.inner.count != MODES_STEPS // 2 + 1:
+        raise AssertionError(f"resume: steps {[s['step'] for s in res2['steps']]}, "
+                             f"{trainer2.optimizer.inner.count} inner updates")
+    log(f"[modes] resumed from {ckpt} at step {MODES_STEPS}: steps {[s['step'] for s in res2['steps']]}, "
+        f"{trainer2.optimizer.inner.count} inner updates")
+    check_train_grads_against_cpu(trainer2, _check_moved(trainer2, cfg2, trainer2.step), "modes")
+    return {k: launches[k] + launches2[k] for k in launches}
+
+
+def check_train_grads_against_cpu(trainer, dataset, label: str) -> None:
     """The trainable gradients of one utterance, card vs CPU plain path: the
     trained weights with LoRA B redrawn nonzero (so every LoRA factor gets a
-    gradient), the recipe's int8_rot backward with the same seeds on both
-    sides, dropout off. Cosine >= 0.99 for every tensor with a gradient."""
+    gradient), the run's backward modes with the same stochastic-rounding
+    seeds on both sides, remat as configured, dropout off. Cosine >= 0.99
+    for every tensor with a gradient."""
     model = trainer.model
     gen = torch.Generator(device="cuda").manual_seed(1)
     with torch.no_grad():
@@ -594,8 +776,7 @@ def check_train_grads_against_cpu(trainer, dataset) -> None:
 
     def grads(device):
         b = {k: torch.as_tensor(v).to(device) for k, v in batch.items() if isinstance(v, np.ndarray)}
-        for mod, seed in zip(trainer.rot_modules, seeds):
-            mod.quant_seed = seed
+        trainer.set_quant_seeds(seeds)
         model.eval()
         params = dict(model.named_parameters())
         out = model(b)
@@ -610,7 +791,7 @@ def check_train_grads_against_cpu(trainer, dataset) -> None:
     cos = {n: torch.nn.functional.cosine_similarity(a.flatten(), c.flatten(), dim=0).item()
            for n, a, c in zip(names, g_gpu, g_cpu) if c.abs().max() > 0}
     worst = min(cos, key=cos.get)
-    log(f"[train] gradient check, one utterance {shape}, {model.cfg.llm.n_layers} layers, card vs CPU plain "
+    log(f"[{label}] gradient check, one utterance {shape}, {model.cfg.llm.n_layers} layers, card vs CPU plain "
         f"path ({cpu_s:.1f} s on CPU): loss {loss_gpu:.5f} vs {loss_cpu:.5f}; {len(cos)} of {len(names)} "
         f"tensors with a gradient, min cosine {cos[worst]:.5f} ({worst}), mean {np.mean(list(cos.values())):.5f}")
     if len(cos) != len(names) or cos[worst] < 0.99:
@@ -624,8 +805,9 @@ def main() -> int:
     results = check_kernels()
     decode = run_slice()
     train = run_training()
+    modes = run_training_modes()
     for r in results:
-        by_path = {"decode": decode[r["name"]], "train": train[r["name"]]}
+        by_path = {"decode": decode[r["name"]], "train": train[r["name"]], "train_int8_sr": modes[r["name"]]}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
     print(json.dumps({"kernels": results}))

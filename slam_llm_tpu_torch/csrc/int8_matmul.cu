@@ -1,18 +1,22 @@
 // K3: s8 x s8 -> s32 GEMM with the W8A8 scale epilogue fused in.
 //
-// Replaces the forward product of slam_llm_tpu/ops/quant.py (_s8_dot and
-// _fwd_value), which XLA computes on the TPU:
+// Replaces the s8 products of slam_llm_tpu/ops/quant.py (_s8_dot and
+// _fwd_value; the dx products of _int8_dx and _int8_dx_rot) and of the int8
+// CE head (ops/fused_ce.py chunk_logits and its int8_sr dx), which XLA
+// computes on the TPU:
 //   out[m, n] = (float)(sum_k xq[m, k] * wq[n, k]) * xs[m] * ws[n]
-// cast to bf16 in the same pass. xq (M, K) and wq (N, K) are both
-// K-contiguous ("TN"), the layout mma.sync's row.col int8 form reads directly
-// and the layout later wgmma work wants.
+// written as bf16 (the denses) or f32 (the CE head's logits, and dx in f32
+// compute) in the same pass. xq (M, K) and wq (N, K) are both K-contiguous
+// ("TN"), the layout mma.sync's row.col int8 form reads directly and the
+// layout later wgmma work wants; the dx products read a stored transpose of
+// the weight for that reason.
 //
 // Bound on the H100: at prefill (M ~ 3.6k rows) the int8 tensor cores; at
 // decode (M = 8..32 rows) the bytes of wq, read once per call. This first
 // version is simple: 64x64 output tiles, four warps of 32x32, each running
 // mma.sync.m16n8k32 on 64-byte K slices staged through padded shared memory
 // (row pitch 80 bytes: fragment reads are bank-conflict free), with an exact
-// s32 accumulator (K <= 5632 keeps |acc| <= 9.1e7). Occupancy, not a software
+// s32 accumulator (K <= 32000 keeps |acc| <= 5.2e8 < 2^31). Occupancy, not a software
 // pipeline, hides the global loads. The epilogue converts acc to f32 with
 // round-to-nearest and multiplies row scale then column scale, the order
 // _fwd_value uses, so the result is bit-exact against a float64 reference.
@@ -39,10 +43,14 @@ __device__ __forceinline__ uint32_t ld32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+
+template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
     int8_matmul_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
                        const float* __restrict__ xs, const float* __restrict__ ws,
-                       __nv_bfloat16* __restrict__ out, int m, int n, int k) {
+                       OutT* __restrict__ out, int m, int n, int k) {
   __shared__ __align__(16) int8_t As[BM * LDS];
   __shared__ __align__(16) int8_t Bs[BN * LDS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -104,14 +112,14 @@ __global__ void __launch_bounds__(kThreads)
       const int row = m0 + wm + i * 16 + g + hrow * 8;
       if (row >= m) continue;
       const float sx = xs[row];
-      __nv_bfloat16* orow = out + static_cast<long long>(row) * n;
+      OutT* orow = out + static_cast<long long>(row) * n;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = n0 + wn + j * 8 + t * 2 + e;
           if (col < n)
-            orow[col] = __float2bfloat16_rn(static_cast<float>(acc[i][j][hrow * 2 + e]) * sx * ws[col]);
+            store(orow + col, static_cast<float>(acc[i][j][hrow * 2 + e]) * sx * ws[col]);
         }
       }
     }
@@ -121,10 +129,17 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 extern "C" int slam_int8_matmul(const void* xq, const void* wq, const void* xs, const void* ws,
-                                void* out, int m, int n, int k, void* stream) {
+                                void* out, int m, int n, int k, int out_f32, void* stream) {
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  int8_matmul_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wq), static_cast<const float*>(xs),
-      static_cast<const float*>(ws), static_cast<__nv_bfloat16*>(out), m, n, k);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* a = static_cast<const int8_t*>(xq);
+  const int8_t* b = static_cast<const int8_t*>(wq);
+  const float* sa = static_cast<const float*>(xs);
+  const float* sb = static_cast<const float*>(ws);
+  if (out_f32)
+    int8_matmul_kernel<float><<<grid, kThreads, 0, st>>>(a, b, sa, sb, static_cast<float*>(out), m, n, k);
+  else
+    int8_matmul_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(a, b, sa, sb,
+                                                                 static_cast<__nv_bfloat16*>(out), m, n, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,10 +24,37 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from slam_llm_tpu_torch.models.remat import DEAD_SITES, SumOf, Tape, placeholder
 from slam_llm_tpu_torch.ops.kernels.flash_attention import Rope, apply_rope_tables, flash_attention
 from slam_llm_tpu_torch.ops.quant import int8_dot
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+class _Linear(torch.autograd.Function):
+    """``x @ w^T`` whose backward reads only its inputs (dx = dy w, and
+    dw = dy^T x when w trains). With ``out`` the forward returns ``out``
+    instead of computing the product: a checkpointed layer's replay that
+    already holds the value, or whose value nothing reads."""
+
+    @staticmethod
+    def forward(ctx, x, w, out):
+        ctx.save_for_backward(x if w.requires_grad else None, w)
+        return F.linear(x, w) if out is None else out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy2 = dy.reshape(-1, dy.shape[-1])
+        dx = dy2.mm(w).reshape(*dy.shape[:-1], w.shape[1]) if ctx.needs_input_grad[0] else None
+        dw = dy2.t().mm(x.reshape(-1, x.shape[-1])) if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
+        return F.linear(x, w) if out is None else out
+    return _Linear.apply(x, w, out)
 
 
 class DenseGeneralLora(nn.Module):
@@ -37,14 +64,20 @@ class DenseGeneralLora(nn.Module):
     ``kernel_scale`` (F,) f32 and runs it through ``int8_dot`` (K2 + K3 on
     CUDA), whose backward is ``quant_bwd``; ``"int8_rot"`` adds the rotated
     backward pair ``kernel_qr`` (K, F) int8 and ``kernel_scale_r`` (K,) f32,
+    ``"int8_sr"`` and ``"int8"`` the transpose ``kernel_qt`` (K, F) int8, all
     derived by ``ops.quant.quantize_base_params`` and never loaded (they are
-    not in the state dict). ``quant_seed`` is the uint32 seed of the int8_rot
-    dy quantization, set fresh per step by the trainer. Otherwise ``weight``
-    (F, K) is a plain product. ``frozen_base`` stores the kernel and bias in
-    the compute dtype; a trainable base keeps them in ``param_dtype``. LoRA
-    ``lora_a`` (r, K) and ``lora_b`` (F, r) are ``param_dtype`` masters; the
-    LoRA scale multiplies the rank-r intermediate, and LoRA dropout (training
-    mode only) applies to the LoRA input, drawn from ``generator``.
+    not in the state dict). ``quant_seed`` is the uint32 seed of the
+    stochastic dy quantization (int8_rot, int8_rot_otf, int8_sr), set fresh
+    per step by the trainer. Otherwise ``weight`` (F, K) is a plain product.
+    ``frozen_base`` stores the kernel and bias in the compute dtype; a
+    trainable base keeps them in ``param_dtype``. LoRA ``lora_a`` (r, K) and
+    ``lora_b`` (F, r) are ``param_dtype`` masters; the LoRA scale multiplies
+    the rank-r intermediate, and LoRA dropout (training mode only) applies
+    to the LoRA input, drawn from ``generator``.
+
+    Under activation checkpointing (``tape``, ``models.remat``) the dense is
+    the checkpoint site ``site`` (``attn_q`` ...), and each of its matrix
+    products a ``dot`` site.
     """
 
     def __init__(
@@ -76,6 +109,9 @@ class DenseGeneralLora(nn.Module):
                     in_features, features, dtype=torch.int8, device=device), persistent=False)
                 self.register_buffer("kernel_scale_r", torch.ones(
                     in_features, dtype=torch.float32, device=device), persistent=False)
+            elif quant_bwd in ("int8_sr", "int8"):
+                self.register_buffer("kernel_qt", torch.zeros(
+                    in_features, features, dtype=torch.int8, device=device), persistent=False)
         else:
             self.weight = nn.Parameter(
                 torch.zeros(features, in_features, dtype=base_dtype, device=device), requires_grad=False
@@ -92,21 +128,52 @@ class DenseGeneralLora(nn.Module):
                 torch.zeros(features, lora_rank, dtype=param_dtype, device=device), requires_grad=False
             )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x.to(self.dtype)
+    def _base(self, h: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
         if self.quant == "int8":
-            w_rot = (self.kernel_qr, self.kernel_scale_r) if self.quant_bwd == "int8_rot" else None
-            y = int8_dot(h, self.kernel_q, self.kernel_scale, bwd=self.quant_bwd,
-                         seed=self.quant_seed, w_rot=w_rot)
-        else:
-            y = F.linear(h, self.weight.to(self.dtype))
+            return int8_dot(h, self.kernel_q, self.kernel_scale, bwd=self.quant_bwd, seed=self.quant_seed,
+                            w_rot=(self.kernel_qr, self.kernel_scale_r) if self.quant_bwd == "int8_rot" else None,
+                            w_t=getattr(self, "kernel_qt", None), out=out)
+        return linear(h, self.weight.to(self.dtype), out)
+
+    def forward(self, x: torch.Tensor, tape: Optional[Tape] = None, site: Optional[str] = None) -> torch.Tensor:
+        h = x.to(self.dtype)
+        # a dense whose output is saved (or read by no backward) replays
+        # lazily: no product its own backward does not read is formed again
+        lazy = tape is not None and site is not None and (site in DEAD_SITES or tape.saves(site))
+        value = None
+        if lazy and tape.replaying:
+            value = (placeholder(h.shape[:-1] + (self.features,), self.dtype, h.device) if site in DEAD_SITES
+                     else tape.get(self, site))
+
+        def dot(part, compute, fn, skip):
+            """One matrix product as a checkpoint site."""
+            if tape is None:
+                return compute()
+            if tape.replaying:
+                if skip:
+                    return fn(placeholder(h.shape[:-1] + (self.features,), self.dtype, h.device))
+                return fn(tape.get(self, part)) if tape.saves("dot") else compute()
+            y = compute()
+            if not skip and tape.saves("dot"):
+                tape.put(self, part, y)
+            return y
+
+        y = dot("base", lambda: self._base(h, None), lambda out: self._base(h, out), lazy)
+        parts = [y]
         if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
+            parts.append(self.bias.to(self.dtype))
         if self.lora_rank > 0:
             if self.lora_dropout > 0.0 and self.training:
                 h = _dropout(h, self.lora_dropout, self.generator)
-            inner = F.linear(h, self.lora_a.to(self.dtype)) * self.lora_scale
-            y = y + F.linear(inner, self.lora_b.to(self.dtype))
+            a, b = self.lora_a.to(self.dtype), self.lora_b.to(self.dtype)
+            inner = dot("lora_a", lambda: linear(h, a), lambda out: linear(h, a, out), False) * self.lora_scale
+            parts.append(dot("lora_b", lambda: linear(inner, b), lambda out: linear(inner, b, out), lazy))
+        if value is not None:
+            return SumOf.apply(value, *parts)
+        for part in parts[1:]:
+            y = y + part
+        if lazy and site not in DEAD_SITES:
+            tape.put(self, site, y)
         return y
 
 
@@ -173,10 +240,13 @@ def mha_attention(
     kv_mask: Optional[torch.Tensor] = None,  # (B, Tk) structured key validity
     causal: bool = False,
     rope: Rope = None,  # (cos, sin) (B, T, D/2): q/k come PRE-rotation
+    tape: Optional[Tape] = None,  # activation checkpointing (models.remat)
+    owner: Optional[nn.Module] = None,  # the tape's key for this call
 ) -> torch.Tensor:
     """Multi-head attention with GQA. A structured mask (no ``bias``) on a
     CUDA tensor runs the flash kernels (K1 forward, K4 backward), with the
-    RoPE rotation fused into them when ``rope`` is given; a dense bias, a CPU
+    RoPE rotation fused into them when ``rope`` is given, as the checkpoint
+    site ``flash`` of ``owner`` under a ``tape``; a dense bias, a CPU
     tensor, causal with Tq != Tk (end-aligned, which only the plain path
     defines) or rope with Tq != Tk rotates first and runs the plain path."""
     use_kernel = bias is None and q.is_cuda and not (
@@ -188,7 +258,7 @@ def mha_attention(
             if kv_mask is not None
             else torch.ones(k.shape[:2], dtype=torch.int32, device=k.device)
         )
-        return flash_attention(q, k, v, mask, causal, rope)
+        return flash_attention(q, k, v, mask, causal, rope, tape=tape, owner=owner)
     if rope is not None:
         q = apply_rope_tables(q, *rope)
         k = apply_rope_tables(k, *rope)

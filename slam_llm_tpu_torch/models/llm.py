@@ -9,10 +9,11 @@ explicit KV cache (a dict of tensors, not module state). Layers are a
 training path (no cache) runs the flash kernels with RoPE fused (K1 forward,
 K4 backward); prefill rotates first (the cache stores rotated keys) and runs
 K1; decode attention is plain PyTorch. ``loss_and_accuracy`` fuses the head
-into a chunked cross-entropy (``ops.fused_ce``).
+into a chunked cross-entropy (``ops.fused_ce``), with an int8 head under
+``ce_quant``.
 
-Activation checkpointing (``remat``) is not applied yet: training keeps
-every activation, which gives the same numbers with more memory.
+With ``remat`` the training path (autograd on, no cache) checkpoints each
+decoder layer with ``remat_policy`` (``models.remat``); inference never does.
 
 Unlike the reference, whose arrays are immutable, the port writes the KV
 cache in place: prefill fills the prompt prefix, and each decode step writes
@@ -38,6 +39,7 @@ from slam_llm_tpu_torch.models.layers import (
     mha_attention,
     rope_tables,
 )
+from slam_llm_tpu_torch.models.remat import DENSE_SITES, Tape, checkpoint_layer, policy_names
 from slam_llm_tpu_torch.ops.quant import resolve_bwd
 
 
@@ -62,10 +64,11 @@ class LLMConfig:
     lora_dropout: float = 0.0
     lora_targets: Tuple[str, ...] = ("q_proj", "v_proj")
     base_quant: str = "none"  # none | int8
-    # dx mode of the int8 denses: bf16 | int8_rot | <mode>_mlp (ops/quant.py)
+    # dx mode of the int8 denses: bf16 | int8_rot | int8_rot_otf | int8_sr | int8 | <mode>_mlp (ops/quant.py)
     base_quant_bwd: str = "bf16"
-    remat: bool = True  # accepted; checkpointing is not applied yet
-    remat_policy: str = "dots_flash_saveable"
+    ce_quant: str = "none"  # none | int8 | int8_sr: the int8 head of the fused CE (frozen head)
+    remat: bool = True  # checkpoint each decoder layer on the training path
+    remat_policy: str = "dots_flash_saveable"  # models.remat.POLICIES
     ce_chunk: int = 64  # fused-CE time chunk
 
     @staticmethod
@@ -201,6 +204,7 @@ class Attention(nn.Module):
         gen_k: Optional[torch.Tensor] = None,  # (B, max_new, Hkv, D) this layer's tail (decode)
         gen_v: Optional[torch.Tensor] = None,
         cache_index: Optional[int] = None,
+        tape: Optional[Tape] = None,  # training path under activation checkpointing
     ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
         """Returns ``(out, new_kv)``. Without a cache (training) RoPE is
         fused into the flash kernels; prefill (``bias`` None) writes the
@@ -209,14 +213,14 @@ class Attention(nn.Module):
         k/v for the caller to write at ``cache_index``."""
         c = self.cfg
         b, t, _ = x.shape
-        q = self.q_proj(x).reshape(b, t, c.n_heads, c.head_dim)
-        k = self.k_proj(x).reshape(b, t, c.n_kv_heads, c.head_dim)
-        v = self.v_proj(x).reshape(b, t, c.n_kv_heads, c.head_dim)
+        q = self.q_proj(x, tape, DENSE_SITES["q_proj"]).reshape(b, t, c.n_heads, c.head_dim)
+        k = self.k_proj(x, tape, DENSE_SITES["k_proj"]).reshape(b, t, c.n_kv_heads, c.head_dim)
+        v = self.v_proj(x, tape, DENSE_SITES["v_proj"]).reshape(b, t, c.n_kv_heads, c.head_dim)
         cos, sin = rope_tables(positions, c.head_dim, c.rope_theta)
         if cache_k is None:
             # training path: the flash kernels rotate q/k as they load them
-            out = mha_attention(q, k, v, kv_mask=kv_mask, causal=True, rope=(cos, sin))
-            return self.o_proj(out.reshape(b, t, c.n_heads * c.head_dim)), None
+            out = mha_attention(q, k, v, kv_mask=kv_mask, causal=True, rope=(cos, sin), tape=tape, owner=self)
+            return self.o_proj(out.reshape(b, t, c.n_heads * c.head_dim), tape, DENSE_SITES["o_proj"]), None
         # rotate before attention: the cache stores rotated keys
         q = apply_rope_tables(q, cos, sin)
         k = apply_rope_tables(k, cos, sin)
@@ -262,8 +266,10 @@ class MLP(nn.Module):
         ):
             setattr(self, name, _dense(c, name, fin, fout, False, device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x: torch.Tensor, tape: Optional[Tape] = None) -> torch.Tensor:
+        gate = self.gate_proj(x, tape, DENSE_SITES["gate_proj"])
+        up = self.up_proj(x, tape, DENSE_SITES["up_proj"])
+        return self.down_proj(F.silu(gate) * up, tape, DENSE_SITES["down_proj"])
 
 
 class DecoderLayer(nn.Module):
@@ -275,10 +281,10 @@ class DecoderLayer(nn.Module):
         self.post_attn_norm = RMSNorm(c.d_model, c.rms_eps, c.dtype, device)
         self.mlp = MLP(c, device)
 
-    def forward(self, x, positions, **attn_kwargs):
-        attn_out, new_kv = self.attn(self.input_norm(x), positions, **attn_kwargs)
+    def forward(self, x, positions, tape: Optional[Tape] = None, **attn_kwargs):
+        attn_out, new_kv = self.attn(self.input_norm(x), positions, tape=tape, **attn_kwargs)
         x = x + attn_out
-        x = x + self.mlp(self.post_attn_norm(x))
+        x = x + self.mlp(self.post_attn_norm(x), tape)
         return x, new_kv
 
 
@@ -302,6 +308,20 @@ class CausalLM(nn.Module):
             )
         elif c.head_size:
             raise ValueError("head_size requires an untied lm_head")
+        if c.ce_quant not in ("none", "int8", "int8_sr"):
+            raise ValueError(f"unknown ce_quant {c.ce_quant!r}: expected none, int8 or int8_sr")
+        if c.ce_quant != "none":
+            # the int8 head of the fused CE, derived from the frozen head by
+            # ops.quant.quantize_base_params and never loaded
+            v = c.head_size or c.vocab_size
+            for name, shape, dtype in (("head_q", (v, c.d_model), torch.int8), ("head_scale", (v,), torch.float32),
+                                       ("head_qt", (c.d_model, v), torch.int8)):
+                self.register_buffer(name, torch.zeros(shape, dtype=dtype, device=device), persistent=False)
+        self.ce_seed = 0  # uint32 seed of the int8_sr CE head's dx, set fresh per step by the trainer
+
+    def head_weight(self) -> torch.Tensor:
+        """The (V, D) head: ``lm_head.weight`` or the tied embedding table."""
+        return self.embed_tokens.weight if self.cfg.tied_embeddings else self.lm_head.weight
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens(input_ids).to(self.cfg.dtype)
@@ -318,8 +338,13 @@ class CausalLM(nn.Module):
         if positions is None:
             positions = _positions_from_mask(attention_mask)
         x = inputs_embeds.to(self.cfg.dtype)
-        for layer in self.layers:
-            x, _ = layer(x, positions, kv_mask=attention_mask)
+        if self.cfg.remat and torch.is_grad_enabled():
+            names = policy_names(self.cfg.remat_policy)
+            for layer in self.layers:
+                x = checkpoint_layer(layer, names, x, positions, attention_mask)
+        else:
+            for layer in self.layers:
+                x, _ = layer(x, positions, kv_mask=attention_mask)
         return self.final_norm(x)
 
     def forward(self, inputs_embeds, attention_mask, positions=None) -> torch.Tensor:
@@ -333,14 +358,17 @@ class CausalLM(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Shifted CE + next-token accuracy without the (B, T, V) logits: the
         head is fused into a chunked CE (``ops.fused_ce``) whose head gradient
-        is formed only when the head trains."""
-        from slam_llm_tpu_torch.ops.fused_ce import fused_linear_ce
+        is formed only when the head trains; ``ce_quant`` runs the int8 head."""
+        from slam_llm_tpu_torch.ops.fused_ce import QuantHead, fused_linear_ce
 
         x = self.trunk(inputs_embeds, attention_mask)
-        kernel = self.embed_tokens.weight if self.cfg.tied_embeddings else self.lm_head.weight  # (V, D)
+        kernel = self.head_weight()  # (V, D)
+        head = None
+        if self.cfg.ce_quant != "none":
+            head = QuantHead(self.head_q, self.head_scale, self.head_qt, self.cfg.ce_quant == "int8_sr", self.ce_seed)
         return fused_linear_ce(
             x[:, :-1], kernel, labels[:, 1:], chunk=self.cfg.ce_chunk,
-            kernel_needs_grad=kernel.requires_grad, compute_dtype=self.cfg.dtype,
+            kernel_needs_grad=kernel.requires_grad, compute_dtype=self.cfg.dtype, head=head,
         )
 
     def prefill(

@@ -158,25 +158,18 @@ def build_slam_config(train_config, model_config) -> SLAMConfig:
             lora_dropout=float(pc.lora_dropout), lora_targets=tuple(pc.target_modules),
         )
     shard = tc.shard
+    if getattr(shard, "bwd_pretranspose", False):
+        raise NotImplementedError("shard.bwd_pretranspose is not ported yet (ROADMAP Queue 1)")
     llm_cfg = dataclasses.replace(
         llm_cfg,
         base_quant=getattr(shard, "base_quant", "none"),
         base_quant_bwd=getattr(shard, "base_quant_bwd", "bf16"),
+        ce_quant=getattr(shard, "ce_quant", "none"),
         remat=shard.remat,
         remat_policy=shard.remat_policy,
     )
     if llm_cfg.base_quant != "none":
         check_bwd_mode(llm_cfg.base_quant_bwd)
-    ce_quant = getattr(shard, "ce_quant", "none")
-    if ce_quant != "none":
-        raise NotImplementedError(
-            f"ce_quant={ce_quant!r} is not ported yet (ROADMAP Queue 1: rowquant fold and ce_quant)"
-        )
-    if getattr(tc, "frozen_dtype", "bfloat16") in ("float32", "fp32", None):
-        raise NotImplementedError(
-            "frozen_dtype float32 is not ported: the port stores the frozen subtree in the compute "
-            "dtype (ROADMAP Queue 1)"
-        )
     proj_cfg = ProjectorConfig(
         encoder_dim=encoder_dim, llm_dim=llm_cfg.d_model, ds_rate=mc.encoder_projector_ds_rate
     )

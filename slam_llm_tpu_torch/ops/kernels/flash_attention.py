@@ -232,12 +232,14 @@ flash_attention_bwd.launches = 0
 class FlashAttention(torch.autograd.Function):
     """K1 forward, K4 backward. Saves (q, k, v, kv_mask, out, lse, rope) as
     the reference's ``_fwd_rule`` does: no (Tq, Tk) tensor survives the
-    forward."""
+    forward. Given ``out`` and ``lse`` (a checkpointed layer's replay), the
+    forward takes them instead of running K1."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, causal: bool, scale: Optional[float], cos, sin):
+    def forward(ctx, q, k, v, kv_mask, causal: bool, scale: Optional[float], cos, sin, out, lse):
         rope = None if cos is None else (cos, sin)
-        out, lse = flash_attention_fwd(q, k, v, kv_mask, causal, scale, rope)
+        if out is None:
+            out, lse = flash_attention_fwd(q, k, v, kv_mask, causal, scale, rope)
         ctx.causal, ctx.scale, ctx.has_rope = causal, scale, rope is not None
         ctx.save_for_backward(q, k, v, kv_mask, out, lse, *(rope or ()))
         return out
@@ -248,15 +250,26 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(
             q, k, v, kv_mask, out, lse, dout, ctx.causal, ctx.scale, tuple(rope) if ctx.has_rope else None
         )
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor,
-    causal: bool = False, rope: Rope = None, scale: Optional[float] = None,
+    causal: bool = False, rope: Rope = None, scale: Optional[float] = None, tape=None, owner=None,
 ) -> torch.Tensor:
-    """Differentiable flash attention over (q, k, v); ``rope`` fuses RoPE."""
-    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
-        return flash_attention_fwd(q, k, v, kv_mask, causal, scale, rope)[0]  # no backward to prepare for
+    """Differentiable flash attention over (q, k, v); ``rope`` fuses RoPE.
+    With a ``models.remat.Tape`` the call is the checkpoint site ``flash`` of
+    ``owner``: a recording tape keeps (out, lse) when its policy saves them,
+    a replaying one hands them back and K1 does not run again."""
+    saved = tape is not None and tape.saves("flash")
     cos, sin = rope if rope is not None else (None, None)
-    return FlashAttention.apply(q, k, v, kv_mask, causal, scale, cos, sin)
+    if saved and tape.replaying:
+        out, lse = tape.get(owner, "flash_out"), tape.get(owner, "flash_lse")
+        return FlashAttention.apply(q, k, v, kv_mask, causal, scale, cos, sin, out, lse)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        out, lse = flash_attention_fwd(q, k, v, kv_mask, causal, scale, rope)  # no backward to prepare for
+        if saved:
+            tape.put(owner, "flash_out", out)
+            tape.put(owner, "flash_lse", lse)
+        return out
+    return FlashAttention.apply(q, k, v, kv_mask, causal, scale, cos, sin, None, None)

@@ -1,7 +1,7 @@
 """Per-row dynamic int8 quantization: the CUDA kernel K2 and its plain twin.
 
 Counterpart of ``slam_llm_tpu/ops/kernels/rowquant.py``. ``rowquant`` sends
-a CPU tensor to ``rowquant_ref`` and a CUDA tensor to one of two kernels in
+a CPU tensor to ``rowquant_ref`` and a CUDA tensor to one of three kernels in
 ``csrc/rowquant.cu``; it raises on what a kernel does not take.
 
 * Deterministic rounding (forward activations): ``q = round(x / s)``, one
@@ -12,6 +12,12 @@ a CPU tensor to ``rowquant_ref`` and a CUDA tensor to one of two kernels in
   quantization of the ``int8_rot`` backward: one block per row, a fast
   Walsh-Hadamard transform in f32 and a counter-based Philox4x32-10 stream.
   Counted on ``rowquant_rot_sr.launches``.
+* ``fold`` (a per-column f32 vector multiplied into x first, one rounding):
+  the dy quantization of the ``int8`` (deterministic) and ``int8_sr``
+  (stochastic) backward modes, whose weight scales sit inside the dx
+  contraction, and of the int8 CE head's f32 ``dlog``. bf16 or f32 input;
+  counted on ``rowquant_fold.launches``. ``fold`` with ``rotate`` raises, as
+  in the reference (the two would order the column mixing differently).
 
 The TPU draws ``u`` from its own generator, which nothing else reproduces.
 Here ``u`` comes from Philox4x32-10 keyed by ``(seed, 0)`` with counter
@@ -19,9 +25,6 @@ Here ``u`` comes from Philox4x32-10 keyed by ``(seed, 0)`` with counter
 bits times ``2**-24``. The twin computes the same stream in int64 torch
 arithmetic and the same butterfly order, so kernel and twin agree bit for
 bit; against JAX the stochastic rounding is tested by its statistics.
-
-The reference's per-column ``fold`` serves the ``int8_sr`` / ``int8``
-backward modes and ``ce_quant``, which are not ported (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -33,8 +36,6 @@ import torch
 
 _EPS_AMAX = 1e-28  # amax floor: keeps s > 0 for all-zero rows
 ROT_BLOCK = 256  # preferred block-diagonal Hadamard rotation block
-
-_TODO_FOLD = "rowquant fold (the int8_sr / int8 backward modes, ce_quant) is not ported yet (ROADMAP Queue 1)"
 
 
 def rot_block(f: int, cap: int = ROT_BLOCK) -> int:
@@ -123,13 +124,26 @@ def uniform_ref(m: int, k: int, seed: int, device=None) -> torch.Tensor:
 # ---- the twin and the wrapper ----------------------------------------------
 
 
+def _check_fold(fold: Optional[torch.Tensor], rotate: bool) -> None:
+    if fold is not None and rotate:
+        raise ValueError("rowquant: fold and rotate are mutually exclusive")
+
+
 def rowquant_ref(
-    x: torch.Tensor, *, seed: Optional[int] = None, rotate: bool = False
+    x: torch.Tensor, fold: Optional[torch.Tensor] = None, *, seed: Optional[int] = None,
+    rotate: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch rowquant: ``s = amax/127`` per row of (rotated) x,
-    ``q = clip(round(x / s))``, or ``clip(floor(x / s + u))`` with ``seed``."""
+    """Plain PyTorch rowquant: ``s = amax/127`` per row of (rotated, or
+    folded: ``x * fold`` in f32) x, ``q = clip(round(x / s))``, or
+    ``clip(floor(x / s + u))`` with ``seed``."""
+    _check_fold(fold, rotate)
     k = x.shape[-1]
-    x32 = rotate_cols(x) if rotate else x.float()
+    if rotate:
+        x32 = rotate_cols(x)
+    elif fold is not None:
+        x32 = x.float() * fold.float()
+    else:
+        x32 = x.float()
     a = x32.abs().amax(dim=-1, keepdim=True)
     # divide by a tensor, not the Python scalar: on CUDA, PyTorch turns division
     # by a host scalar into a multiplication by its reciprocal, which rounds
@@ -144,9 +158,9 @@ def rowquant_ref(
     return q.clamp_(-127, 127).to(torch.int8), s
 
 
-def _check_kernel_input(x: torch.Tensor, k_multiple: int) -> None:
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"rowquant kernel takes bfloat16, got {x.dtype}")
+def _check_kernel_input(x: torch.Tensor, k_multiple: int, dtypes=(torch.bfloat16,)) -> None:
+    if x.dtype not in dtypes:
+        raise TypeError(f"rowquant kernel takes {' or '.join(map(str, dtypes))}, got {x.dtype}")
     if x.shape[-1] % k_multiple or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(
             f"rowquant kernel needs a contiguous, 16-byte aligned input with K % {k_multiple} == 0"
@@ -161,12 +175,14 @@ def rowquant(
     rotate: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row (last-axis) symmetric int8: ``(q int8 like x, s f32
-    x.shape[:-1] + (1,))``. ``seed``: a uint32 switching to stochastic
-    rounding; ``rotate``: the block-diagonal Hadamard before quantizing."""
-    if fold is not None:
-        raise NotImplementedError(_TODO_FOLD)
+    x.shape[:-1] + (1,))``. ``fold``: a (K,) f32 vector multiplied into x
+    before quantizing; ``seed``: a uint32 switching to stochastic rounding;
+    ``rotate``: the block-diagonal Hadamard before quantizing."""
+    _check_fold(fold, rotate)
     if not x.is_cuda:
-        return rowquant_ref(x, seed=seed, rotate=rotate)
+        return rowquant_ref(x, fold, seed=seed, rotate=rotate)
+    if fold is not None:
+        return rowquant_fold(x, fold, seed=seed)
     if seed is not None or rotate:
         return rowquant_rot_sr(x, seed=seed, rotate=rotate)
     _check_kernel_input(x, 8)
@@ -219,3 +235,38 @@ def rowquant_rot_sr(
 
 
 rowquant_rot_sr.launches = 0
+
+
+def rowquant_fold(
+    x: torch.Tensor, fold: torch.Tensor, *, seed: Optional[int] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's fold kernel on a CUDA tensor: bf16 x with K % 8 == 0 or f32 x
+    with K % 4 == 0, fold a contiguous (K,) f32 vector; deterministic
+    rounding, or stochastic with ``seed``."""
+    if not x.is_cuda:
+        return rowquant_ref(x, fold, seed=seed)
+    _check_kernel_input(x, 4 if x.dtype == torch.float32 else 8, (torch.bfloat16, torch.float32))
+    k = x.shape[-1]
+    if fold.shape != (k,) or fold.dtype != torch.float32 or not fold.is_contiguous() \
+            or fold.data_ptr() % 16 or fold.device != x.device:
+        raise ValueError(f"rowquant fold kernel takes a contiguous, 16-byte aligned f32 fold of shape ({k},) "
+                         f"on {x.device}, got {fold.dtype}{tuple(fold.shape)} on {fold.device}")
+    from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
+
+    m = x.numel() // k if k else 0
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    s = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
+    if m == 0 or k == 0:
+        return q, s.fill_(_EPS_AMAX / 127.0)
+    with torch.cuda.device(x.device):
+        err = library().slam_rowquant_fold(
+            x.data_ptr(), fold.data_ptr(), q.data_ptr(), s.data_ptr(), m, k,
+            int(x.dtype == torch.float32), int(seed is not None),
+            (int(seed) & _MASK32) if seed is not None else 0, stream_ptr(x),
+        )
+    check(err, "rowquant_fold")
+    rowquant_fold.launches += 1
+    return q, s
+
+
+rowquant_fold.launches = 0

@@ -14,16 +14,33 @@ no activation. Its backward modes, per module through ``resolve_bwd``:
 * ``"bf16"``: dx = dy @ dequant(w), a plain bf16 product (XLA in JAX too);
 * ``"int8_rot"``: dy is rotated by the block-diagonal Hadamard and
   stochastically rounded to int8 (K2), then contracted with the write-once
-  rotated weight ``quant(W R)`` (K3): dx = (dy R)(W R)^T, R orthonormal.
+  rotated weight ``quant(W R)`` (K3): dx = (dy R)(W R)^T, R orthonormal;
+* ``"int8_rot_otf"``: the same product with ``quant(W R)`` re-derived from
+  ``(w_q, w_scale)`` inside the backward (``rotate_quantize_bwd`` of the
+  dequantized weight, the chain ``quantize_base_params`` runs for the stored
+  pair, so the two modes give the same dx bit for bit): no second copy;
+* ``"int8_sr"`` / ``"int8"``: ``w_scale`` folded into dy and dy quantized per
+  row (K2 fold; stochastic rounding with the seed, or round-half-even),
+  then contracted with the int8 weight (K3): dx = (dy_q w_q) * s_dy.
 
-``int8_sr`` / ``int8`` (rowquant ``fold``) are not ported yet (ROADMAP
-Queue 1); ``int8_rot_otf`` is not ported (ROADMAP "Do not port").
+Layout of the int8_sr / int8 dx product. K3 contracts the last axis of
+both operands (``mma.sync`` s8 takes B only K-major, and ``ldmatrix`` has no
+``.trans`` for 8-bit elements), but dx contracts ``w_q`` (F, K) over F. So
+each such dense keeps ``kernel_qt`` (K, F) int8, the transpose of
+``kernel_q``, as a non-persistent buffer that ``quantize_base_params``
+derives and no checkpoint stores: one more byte per base parameter, as the
+int8_rot pair costs. K3 gets a cached ``ones(K)`` as its column scale, so
+its epilogue ``acc * s_dy * 1.0`` equals the reference's ``acc * s_dy``.
+
 ``int8_matmul`` sends CPU tensors to ``int8_matmul_ref`` and CUDA tensors to
-``csrc/int8_matmul.cu``; it raises on what the kernel does not take.
+``csrc/int8_matmul.cu`` (bf16 output, counted on ``int8_matmul.launches``;
+f32 output through ``int8_matmul_f32``, counted on its own); it raises on
+what the kernel does not take.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -37,12 +54,9 @@ _EPS = 1e-30
 PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 # the MLP subset: a "_mlp"-suffixed mode quantizes dy only here
 MLP_PROJ_NAMES = ("gate_proj", "up_proj", "down_proj")
-PORTED_BWD = ("bf16", "int8_rot")
-_TODO_BWD = {
-    "int8_sr": "ROADMAP Queue 1: rowquant fold and the int8_sr / int8 backward modes",
-    "int8": "ROADMAP Queue 1: rowquant fold and the int8_sr / int8 backward modes",
-    "int8_rot_otf": "ROADMAP: do not port (80 GB holds the stored rotated pair)",
-}
+BWD_MODES = ("bf16", "int8_rot", "int8_rot_otf", "int8_sr", "int8")
+# modes whose dy quantization rounds stochastically: a fresh seed per step
+SR_MODES = ("int8_rot", "int8_rot_otf", "int8_sr")
 
 
 def resolve_bwd(mode: str, proj_name: str) -> str:
@@ -54,13 +68,10 @@ def resolve_bwd(mode: str, proj_name: str) -> str:
 
 
 def check_bwd_mode(mode: str) -> None:
-    """Raise on a ``base_quant_bwd`` the port does not run."""
+    """Raise on a ``base_quant_bwd`` the reference does not define."""
     for name in PROJ_NAMES:
-        bwd = resolve_bwd(mode, name)
-        if bwd in _TODO_BWD:
-            raise NotImplementedError(f"base_quant_bwd={mode!r} is not ported ({_TODO_BWD[bwd]})")
-        if bwd not in PORTED_BWD:
-            raise ValueError(f"unknown base_quant_bwd {mode!r}")
+        if resolve_bwd(mode, name) not in BWD_MODES:
+            raise ValueError(f"unknown base_quant_bwd {mode!r}: expected one of {BWD_MODES} or <mode>_mlp")
 
 
 def quantize_int8(w: torch.Tensor, contract_axis: int = -2) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -96,20 +107,35 @@ def rotate_quantize_bwd(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 @torch.no_grad()
 def quantize_base_params(model: nn.Module) -> nn.Module:
-    """Derive every ``int8_rot`` dense's rotated pair (``kernel_qr``,
-    ``kernel_scale_r``) from its forward pair (``kernel_q``, ``kernel_scale``)
-    in place: from the DEQUANTIZED forward weight, so the backward
-    approximates the matrix the forward used. The pair is always re-derived,
-    never trusted (a converter or loader may carry a stale copy). The port
-    keeps ``kernel_scale_r`` in f32."""
+    """Derive, in place, every buffer that the backward contracts and no
+    checkpoint stores, from the forward pair (``kernel_q``, ``kernel_scale``):
+    an ``int8_rot`` dense's rotated pair (``kernel_qr``, ``kernel_scale_r``)
+    from the DEQUANTIZED forward weight, so the backward approximates the
+    matrix the forward used, and an ``int8_sr`` / ``int8`` dense's transpose
+    ``kernel_qt``; and the int8 CE head of a ``ce_quant`` model
+    (``head_q``, ``head_scale``, ``head_qt``, from ``head_weight()``). They are
+    always re-derived, never trusted (a converter or loader may carry a stale
+    copy). The port keeps ``kernel_scale_r`` in f32."""
     for mod in model.modules():
-        if getattr(mod, "kernel_qr", None) is None:
-            continue
-        w = dequantize_int8(mod.kernel_q, mod.kernel_scale, contract_axis=-1)  # (F, K)
-        qr, sr = rotate_quantize_bwd(w.T)
-        mod.kernel_qr.copy_(qr)
-        mod.kernel_scale_r.copy_(sr)
+        if getattr(mod, "kernel_qr", None) is not None:
+            qr, sr = rotated_pair(mod.kernel_q, mod.kernel_scale)
+            mod.kernel_qr.copy_(qr)
+            mod.kernel_scale_r.copy_(sr)
+        if getattr(mod, "kernel_qt", None) is not None:
+            mod.kernel_qt.copy_(mod.kernel_q.T)
+        if getattr(mod, "head_q", None) is not None:
+            q, scale = quantize_int8(mod.head_weight(), contract_axis=-1)  # per vocab row, over D
+            mod.head_q.copy_(q)
+            mod.head_scale.copy_(scale)
+            mod.head_qt.copy_(q.T)
     return model
+
+
+def rotated_pair(w_q: torch.Tensor, w_scale: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``int8_rot`` backward pair ``(quant(W R) (K, F), scale (K,))`` of
+    the dequantized forward weight ``W = dequant(w_q (F, K), w_scale)^T``."""
+    w = dequantize_int8(w_q, w_scale, contract_axis=-1)  # (F, K)
+    return rotate_quantize_bwd(w.T)
 
 
 def act_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -127,14 +153,7 @@ def int8_matmul_ref(
     return (acc * x_s.reshape(-1, 1) * w_scale).to(out_dtype)
 
 
-def int8_matmul(
-    x_q: torch.Tensor, w_q: torch.Tensor, x_s: torch.Tensor, w_scale: torch.Tensor,
-    out_dtype: torch.dtype = torch.bfloat16,
-) -> torch.Tensor:
-    """x_q (M, K) int8, w_q (F, K) int8, x_s (M,) or (M, 1) f32, w_scale (F,)
-    f32 -> (M, F) ``out_dtype``; the kernel writes bfloat16 only."""
-    if not x_q.is_cuda:
-        return int8_matmul_ref(x_q, w_q, x_s, w_scale, out_dtype)
+def _int8_matmul_launch(x_q, w_q, x_s, w_scale, out_dtype: torch.dtype) -> torch.Tensor:
     m, k = x_q.shape
     f = w_q.shape[0]
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8 or w_q.shape != (f, k):
@@ -143,8 +162,8 @@ def int8_matmul(
     if x_s.dtype != torch.float32 or w_scale.dtype != torch.float32 or x_s.numel() != m \
             or w_scale.shape != (f,):
         raise TypeError("int8_matmul takes f32 scales x_s (M,) and w_scale (F,)")
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"int8_matmul kernel writes bfloat16, got {out_dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"int8_matmul kernel writes bfloat16 or float32, got {out_dtype}")
     if k % 16 or not all(t.is_contiguous() for t in (x_q, w_q, x_s, w_scale)) \
             or x_q.data_ptr() % 16 or w_q.data_ptr() % 16:
         raise ValueError("int8_matmul kernel needs contiguous, 16-byte aligned operands and K % 16 == 0")
@@ -156,14 +175,50 @@ def int8_matmul(
     with torch.cuda.device(x_q.device):
         err = library().slam_int8_matmul(
             x_q.data_ptr(), w_q.data_ptr(), x_s.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-            m, f, k, stream_ptr(x_q),
+            m, f, k, int(out_dtype == torch.float32), stream_ptr(x_q),
         )
     check(err, "int8_matmul")
+    return out
+
+
+def int8_matmul(
+    x_q: torch.Tensor, w_q: torch.Tensor, x_s: torch.Tensor, w_scale: torch.Tensor,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """x_q (M, K) int8, w_q (F, K) int8, x_s (M,) or (M, 1) f32, w_scale (F,)
+    f32 -> (M, F) ``out_dtype``; the kernel writes bfloat16, or float32
+    through ``int8_matmul_f32``."""
+    if not x_q.is_cuda:
+        return int8_matmul_ref(x_q, w_q, x_s, w_scale, out_dtype)
+    if out_dtype == torch.float32:
+        return int8_matmul_f32(x_q, w_q, x_s, w_scale)
+    out = _int8_matmul_launch(x_q, w_q, x_s, w_scale, out_dtype)
     int8_matmul.launches += 1
     return out
 
 
 int8_matmul.launches = 0
+
+
+def int8_matmul_f32(
+    x_q: torch.Tensor, w_q: torch.Tensor, x_s: torch.Tensor, w_scale: torch.Tensor
+) -> torch.Tensor:
+    """K3 with the f32 epilogue (the int8 CE head's logits, and dx in f32)."""
+    if not x_q.is_cuda:
+        return int8_matmul_ref(x_q, w_q, x_s, w_scale, torch.float32)
+    out = _int8_matmul_launch(x_q, w_q, x_s, w_scale, torch.float32)
+    int8_matmul_f32.launches += 1
+    return out
+
+
+int8_matmul_f32.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def unit_scale(n: int, device: torch.device) -> torch.Tensor:
+    """A cached ``ones(n)`` f32: K3's column scale where the reference
+    applies the row scale alone."""
+    return torch.ones(n, dtype=torch.float32, device=device)
 
 
 def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
@@ -175,35 +230,55 @@ def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> to
     return y.reshape(*x.shape[:-1], w_q.shape[0])
 
 
+def int8_dx(dy: torch.Tensor, bwd: str, seed: int, out_dtype: torch.dtype, w_q, w_scale, w_aux=None):
+    """dx (M, K) of ``dy (M, F) @ dequant(w_q (F, K))`` in a quantized mode:
+    ``w_aux`` is the rotated pair (int8_rot), or ``kernel_qt`` (int8_sr /
+    int8); int8_rot_otf derives the rotated pair here."""
+    if bwd in ("int8_rot", "int8_rot_otf"):
+        wr_q, wr_scale = w_aux if bwd == "int8_rot" else rotated_pair(w_q, w_scale)
+        z, s_dy = rowquant(dy, seed=seed, rotate=True)
+        return int8_matmul(z, wr_q, s_dy.reshape(-1), wr_scale, out_dtype)
+    z, s_dy = rowquant(dy, w_scale, seed=seed if bwd == "int8_sr" else None)
+    return int8_matmul(z, w_aux, s_dy.reshape(-1), unit_scale(w_aux.shape[0], w_aux.device), out_dtype)
+
+
 class _Int8Dot(torch.autograd.Function):
     """``int8_linear`` with the straight-through gradient to ``x``. Saves
     the frozen weights the backward contracts (buffers, no copy) and never
-    the activation or its int8 form."""
+    the activation or its int8 form; the stochastic-rounding seed is a
+    plain int fixed when the forward ran, so a checkpointed layer's replay
+    reads the same one. With ``out`` the forward returns ``out`` instead of
+    computing the product (a replay that already holds the value, or whose
+    value nothing reads)."""
 
     @staticmethod
-    def forward(ctx, x, w_q, w_scale, wr_q, wr_scale, bwd: str, seed: int):
+    def forward(ctx, x, w_q, w_scale, w_aux_a, w_aux_b, bwd: str, seed: int, out):
         ctx.bwd, ctx.seed, ctx.x_dtype = bwd, seed, x.dtype
         if bwd == "int8_rot":
-            ctx.save_for_backward(wr_q, wr_scale)
+            ctx.save_for_backward(w_aux_a, w_aux_b)
+        elif bwd in ("int8_sr", "int8"):
+            ctx.save_for_backward(w_q, w_scale, w_aux_a)
         else:
             ctx.save_for_backward(w_q, w_scale)
-        return int8_linear(x, w_q, w_scale)
+        return int8_linear(x, w_q, w_scale) if out is None else out
 
     @staticmethod
     def backward(ctx, dy):
-        w, scale = ctx.saved_tensors
         f = dy.shape[-1]
-        dy2 = dy.reshape(-1, f)
+        dy2 = dy.reshape(-1, f).contiguous()
         if ctx.bwd == "int8_rot":
-            z, s_dy = rowquant(dy2.contiguous(), seed=ctx.seed, rotate=True)
-            dx = int8_matmul(z, w, s_dy.reshape(-1), scale, ctx.x_dtype)
-        else:
+            wr_q, wr_scale = ctx.saved_tensors
+            dx = int8_dx(dy2, "int8_rot", ctx.seed, ctx.x_dtype, None, None, (wr_q, wr_scale))
+        elif ctx.bwd == "bf16":
+            w, scale = ctx.saved_tensors
             # the dequantized weight in bf16, contracted with f32 accumulation:
             # an f32 x keeps the f32 sum, a bf16 x rounds it once
             acc = torch.float32 if ctx.x_dtype == torch.float32 else torch.bfloat16
             wd = dequantize_int8(w, scale, contract_axis=-1, dtype=torch.bfloat16)
             dx = torch.matmul(dy2.to(torch.bfloat16).to(acc), wd.to(acc)).to(ctx.x_dtype)
-        return dx.reshape(*dy.shape[:-1], dx.shape[-1]), None, None, None, None, None, None
+        else:
+            dx = int8_dx(dy2, ctx.bwd, ctx.seed, ctx.x_dtype, *ctx.saved_tensors)
+        return dx.reshape(*dy.shape[:-1], dx.shape[-1]), None, None, None, None, None, None, None
 
 
 def int8_dot(
@@ -214,17 +289,24 @@ def int8_dot(
     bwd: str = "bf16",
     seed: Optional[int] = None,
     w_rot: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    w_t: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``x @ dequant(w_q)^T`` computed s8 x s8, differentiable in ``x``.
 
     x (..., K); w_q int8 (F, K); w_scale f32 (F,). ``bwd="int8_rot"`` needs
     ``w_rot=(wr_q (K, F) int8, wr_scale (K,) f32)`` from
-    ``rotate_quantize_bwd`` and a uint32 ``seed``, fresh per step."""
-    if bwd not in PORTED_BWD:
-        raise NotImplementedError(f"int8_dot bwd={bwd!r} is not ported ({_TODO_BWD.get(bwd, 'unknown mode')})")
+    ``rotate_quantize_bwd``; ``"int8_sr"`` and ``"int8"`` need ``w_t``, the
+    (K, F) transpose of ``w_q``. The stochastic modes take a uint32 ``seed``,
+    fresh per step. ``out``: the product's value, already known (see
+    ``_Int8Dot``)."""
+    if bwd not in BWD_MODES:
+        raise ValueError(f"int8_dot bwd={bwd!r}: expected one of {BWD_MODES}")
     if bwd == "int8_rot" and w_rot is None:
         raise ValueError("int8_dot bwd='int8_rot' needs w_rot=(wr_q, wr_scale)")
+    if bwd in ("int8_sr", "int8") and w_t is None:
+        raise ValueError(f"int8_dot bwd={bwd!r} needs w_t, the (K, F) transpose of w_q")
     if not (torch.is_grad_enabled() and x.requires_grad):
-        return int8_linear(x, w_q, w_scale)  # no backward to prepare for
-    wr_q, wr_scale = w_rot if w_rot is not None else (None, None)
-    return _Int8Dot.apply(x, w_q, w_scale, wr_q, wr_scale, bwd, 0 if seed is None else int(seed))
+        return int8_linear(x, w_q, w_scale) if out is None else out  # no backward to prepare for
+    aux_a, aux_b = w_rot if w_rot is not None else (w_t, None)
+    return _Int8Dot.apply(x, w_q, w_scale, aux_a, aux_b, bwd, 0 if seed is None else int(seed), out)

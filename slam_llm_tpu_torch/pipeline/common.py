@@ -3,7 +3,8 @@
 Counterpart of ``slam_llm_tpu/pipeline/common.py``. ``materialize_params``
 draws the port's own random init from ``train_config.seed`` through a
 ``torch.Generator`` on the model's device; loading pretrained or trained
-weights is not ported yet.
+weights is not ported yet. ``encode_one`` builds the one-wav batch of the
+reference's ``pipeline/inference.py`` (``run_test_during_validation``).
 """
 
 from __future__ import annotations
@@ -107,3 +108,31 @@ def materialize_params(model: nn.Module, cfg: RunConfig) -> nn.Module:
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(cfg.train_config.seed)
     return init_params_(model, gen)
+
+
+def encode_one(wav_path: str, prompt: str, tokenizer, dataset_config, ds_rate=None) -> dict:
+    """A batch of one wav with the speech dataset's token assembly, as the
+    reference's ``encode_one``: whisper log-mel of the wav padded or trimmed
+    to ``max_audio_length_s``, ``(mel frames + 1) // 2 // ds_rate`` audio
+    pseudo-tokens (id -1) and then the templated prompt. ``ds_rate`` is the
+    projector's (``model_config.encoder_projector_ds_rate``)."""
+    from slam_llm_tpu.data.speech_dataset import PROMPT_TEMPLATE
+    from slam_llm_tpu.ops import audio as audio_ops
+
+    mel_size = getattr(dataset_config, "mel_size", 80)
+    max_samples = int(getattr(dataset_config, "max_audio_length_s", 30.0) * audio_ops.SAMPLE_RATE)
+    audio = audio_ops.pad_or_trim(audio_ops.load_audio(wav_path), max_samples)
+    mel = audio_ops.log_mel_spectrogram(audio, n_mels=mel_size)
+    if ds_rate is None:
+        ds_rate = getattr(dataset_config, "encoder_projector_ds_rate", 5)
+    audio_length = (mel.shape[0] + 1) // 2 // ds_rate
+    prompt_ids = tokenizer.encode(PROMPT_TEMPLATE.format(prompt))
+    input_ids = np.concatenate([np.full(audio_length, -1, np.int64), np.asarray(prompt_ids, np.int64)])
+    t = len(input_ids)
+    return {
+        "input_ids": input_ids[None],
+        "attention_mask": np.ones((1, t), np.int32),
+        "modality_mask": np.concatenate([np.ones(audio_length, np.int32), np.zeros(t - audio_length, np.int32)])[None],
+        "audio_mel": mel[None].astype(np.float32),
+        "audio_mel_mask": np.ones((1, mel.shape[0]), np.int32),
+    }

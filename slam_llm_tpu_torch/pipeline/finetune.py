@@ -10,8 +10,12 @@ asking for CUDA without a GPU raises). One process, one device:
         ++train_config.max_steps_per_epoch=10 ++train_config.output_dir=/tmp/out
 
 Weights are the seeded random init of ``pipeline.common.materialize_params``
-until the loaders are ported (ROADMAP Queue 4). The options below raise
-until their ROADMAP item is done.
+until the loaders are ported (ROADMAP Queue 1). ``resume_from`` (a
+checkpoint directory or its ``full_state.pt``) restores the trainable
+tensors, the optimizer state and the step that ``save_optimizer`` wrote;
+``run_test_during_validation`` decodes ``run_test_during_validation_file``
+greedily after every validation and logs the text. Multi-GPU training
+raises until its ROADMAP item is done.
 """
 
 from __future__ import annotations
@@ -22,8 +26,10 @@ from typing import List, Optional
 from slam_llm_tpu.config import RunConfig, load_run_config
 from slam_llm_tpu.data.loader import build_dataloader
 from slam_llm_tpu.utils.logging_utils import setup_logger
+from slam_llm_tpu_torch.inference.generate import GenerationConfig, Generator, strip_after_eos
 from slam_llm_tpu_torch.pipeline.common import (
     build_model_and_data,
+    encode_one,
     materialize_params,
     parse_device,
     resolve_device,
@@ -33,19 +39,49 @@ from slam_llm_tpu_torch.registry import get_custom_dataset_factory
 from slam_llm_tpu_torch.train.loop import train
 from slam_llm_tpu_torch.train.optimizer import count_params
 from slam_llm_tpu_torch.train.state import Trainer
+from slam_llm_tpu_torch.utils.checkpoint import load_state
 
 
 def check_ported(cfg: RunConfig) -> None:
     """Raise on the training options the port does not run yet."""
     tc = cfg.train_config
-    todo = "is not ported yet (ROADMAP Queue 1)"
-    if tc.run_test_during_validation:
-        raise NotImplementedError(f"run_test_during_validation {todo}")
-    if tc.resume_from or tc.save_optimizer:
-        raise NotImplementedError(f"resume_from / save_optimizer {todo}")
     if tc.shard.fsdp > 1 or tc.shard.tp > 1:
         raise NotImplementedError("multi-GPU training (shard.fsdp / shard.tp > 1) is not ported yet "
-                                  "(ROADMAP Queue 7)")
+                                  "(ROADMAP Queue 1)")
+
+
+def build_decode_hook(cfg: RunConfig, model, tokenizer):
+    """The reference's ``run_test_during_validation`` hook: greedy decode of
+    one wav with ``decode_config.max_new_tokens``; None without a file."""
+    tc = cfg.train_config
+    if not (tc.run_test_during_validation and tc.run_test_during_validation_file):
+        return None
+    if cfg.model_config.encoder_name not in (None, "whisper"):
+        # the one-wav batch is whisper mel: fail at start-up, not at the first validation
+        raise ValueError(
+            "run_test_during_validation supports mel (whisper) recipes; encoder "
+            f"{cfg.model_config.encoder_name!r} needs its dataset pipeline: decode with "
+            "pipeline.inference_batch instead"
+        )
+    from slam_llm_tpu.data.speech_dataset import DEFAULT_PROMPT
+
+    dc = cfg.decode_config
+    gen = Generator(model, GenerationConfig(
+        max_new_tokens=dc.max_new_tokens, num_beams=1, eos_token_id=tokenizer.eos_token_id,
+        pad_token_id=tokenizer.pad_token_id, bos_token_id=tokenizer.bos_token_id,
+    ))
+    batch = encode_one(
+        tc.run_test_during_validation_file,
+        tc.run_test_during_validation_prompt or cfg.dataset_config.prompt or DEFAULT_PROMPT,
+        tokenizer, cfg.dataset_config, ds_rate=cfg.model_config.encoder_projector_ds_rate,
+    )
+
+    def decode_hook(trainer: Trainer) -> str:
+        trainer.model.eval()
+        toks = strip_after_eos(gen.generate(batch), tokenizer.eos_token_id, tokenizer.pad_token_id)
+        return tokenizer.decode(toks[0])
+
+    return decode_hook
 
 
 def main(cfg: RunConfig, device="cuda"):
@@ -73,10 +109,14 @@ def main(cfg: RunConfig, device="cuda"):
 
     materialize_params(model, cfg)
     trainer = Trainer(model, model.cfg, tc).state_from_params()
+    if tc.resume_from:
+        logger.info("resuming the full state (trainable tensors, optimizer, step) from %s", tc.resume_from)
+        trainer.load_state_dict(load_state(tc.resume_from))
     int8_base = sum(buf.numel() for name, buf in model.named_buffers() if name.endswith("kernel_q"))
     logger.info("params: trainable=%.2fM frozen=%.2fM (+ %.2fM in the int8 base) on %s",
                 count_params(trainer.trainable) / 1e6, count_params(trainer.frozen) / 1e6, int8_base / 1e6, dev)
-    results = train(trainer, train_loader, eval_loader, train_config=tc, log_config=cfg.log_config)
+    results = train(trainer, train_loader, eval_loader, train_config=tc, log_config=cfg.log_config,
+                    decode_hook=build_decode_hook(cfg, model, tokenizer))
     logger.info("training done: best_val_loss=%s checkpoints=%s",
                 results.get("best_val_loss"), results.get("checkpoints"))
     results["trainer"] = trainer

@@ -2,12 +2,14 @@
 ``torch.profiler``, its device time split by kernel family, the unprofiled
 step time, and the fused cross-entropy alone.
 
-    python -m slam_llm_tpu_torch.tools.profile_train    # from the repo root, on a GPU
+    python -m slam_llm_tpu_torch.tools.profile_train [++key=value ...]   # from the repo root, on a GPU
 
 Builds the recipe of ``chip_smoke.py`` (asr_whisper_tinyllama.yaml, full
 width, random weights from the recipe's seed: frozen whisper-small, trained
 projector, TinyLlama-1.1B int8 base with LoRA r8 on q / v and the int8_rot
-backward) on its synthetic corpus, takes the first training batch of 16,
+backward, remat with dots_flash_saveable; ``++`` overrides as the finetune
+CLI takes them, e.g. ``++train_config.shard.base_quant_bwd=int8_sr``) on its
+synthetic corpus, takes the first training batch of 16,
 runs warm-up steps, then profiles one step. Kernel families: K3 the s8
 GEMM, K4 the flash backward, K1 the flash forward, K2 rowquant (both
 kernels), cuBLAS GEMMs (encoder, LoRA, head), and the rest (elementwise,
@@ -18,6 +20,7 @@ directory of ``tools/profile_decode.py``.
 
 from __future__ import annotations
 
+import sys
 import tempfile
 import time
 from collections import defaultdict
@@ -47,7 +50,7 @@ def split_by_family(prof) -> dict:
     return dict(out)
 
 
-def main(steps: int = 3) -> None:
+def main(overrides=(), steps: int = 3) -> None:
     import chip_smoke as cs
     from slam_llm_tpu_torch.ops.fused_ce import fused_linear_ce
     from slam_llm_tpu_torch.pipeline import finetune
@@ -58,7 +61,8 @@ def main(steps: int = 3) -> None:
     cs.build()
     tmp = Path(tempfile.mkdtemp(prefix="profile_train_"))
     cfg = finetune.load_run_config(["--config", str(cs.RECIPE),
-                                    f"++dataset_config.train_data_path={cs.write_corpus(tmp, n=16, name='train')}"])
+                                    f"++dataset_config.train_data_path={cs.write_corpus(tmp, n=16, name='train')}",
+                                    *overrides])
     model, _, dataset = build_model_and_data(cfg, split=cfg.dataset_config.train_split, device="cuda")
     materialize_params(model, cfg)
     trainer = Trainer(model, model.cfg, cfg.train_config).state_from_params()
@@ -103,4 +107,4 @@ def main(steps: int = 3) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -3,24 +3,27 @@
 Counterpart of ``slam_llm_tpu/train/loop.py``: the epoch loop with a
 per-epoch step cap (``max_steps_per_epoch``), metrics every
 ``log_interval`` steps, validation every ``validation_interval`` steps and
-at the end, and a trainable-only checkpoint named
+at the end (each followed by ``decode_hook``'s text, the reference's
+``run_test_during_validation``), and a checkpoint named
 ``{model_name}_epoch_{e}_step_{s}`` whenever the validation loss improves
-(or once at the end without validation). The logger is the reference's
-JAX-free ``MetricsLogger``.
+(or once at the end without validation): the trainable tensors in
+``model.pt`` and, with ``save_optimizer``, the full state in
+``full_state.pt``. Steps count micro-steps under gradient accumulation, as
+in the reference. The logger is the reference's JAX-free ``MetricsLogger``.
 """
 
 from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from slam_llm_tpu.utils.logging_utils import MetricsLogger
 from slam_llm_tpu_torch.train.state import Trainer
-from slam_llm_tpu_torch.utils.checkpoint import save_trainable
+from slam_llm_tpu_torch.utils.checkpoint import save_state, save_trainable
 
 
 def evaluate(trainer: Trainer, eval_loader) -> Dict[str, float]:
@@ -46,17 +49,28 @@ def _memory_report(device: torch.device) -> Dict[str, float]:
             "in_use_gib": torch.cuda.memory_allocated(device) / 2 ** 30}
 
 
-def train(trainer: Trainer, train_loader, eval_loader=None, train_config=None, log_config=None) -> Dict[str, Any]:
+def train(trainer: Trainer, train_loader, eval_loader=None, train_config=None, log_config=None,
+          decode_hook: Optional[Callable[[Trainer], str]] = None) -> Dict[str, Any]:
     """Returns epoch times, checkpoint paths, the final validation, the best
-    validation loss, and ``steps``: for every logged step its metrics, its
-    wall time in seconds (measured when it logs, which waits for the
-    device), the batch shape and its count of attended tokens."""
+    validation loss, the texts ``decode_hook`` returned, and ``steps``: for
+    every logged step its metrics, its wall time in seconds (measured when
+    it logs, which waits for the device), the batch shape and its count of
+    attended tokens."""
     tc = train_config or trainer.train_config
     logger = MetricsLogger(log_config, tc) if log_config is not None else MetricsLogger(
         type("L", (), {"use_wandb": False, "log_file": None})()
     )
     best_val_loss = float("inf")
-    results: Dict[str, Any] = {"epoch_times": [], "checkpoints": [], "steps": []}
+    results: Dict[str, Any] = {"epoch_times": [], "checkpoints": [], "steps": [], "decoded": []}
+
+    def validate() -> Dict[str, float]:
+        val = evaluate(trainer, eval_loader)
+        logger.log(val, step, prefix="valid")
+        if decode_hook is not None:
+            results["decoded"].append(decode_hook(trainer))
+            logger.logger.info("validation decode: %s", results["decoded"][-1])
+        return val
+
     step = trainer.step
     last_val = None  # (step, metrics) of the latest mid-epoch validation
     log_interval = getattr(tc, "log_interval", 5)
@@ -76,9 +90,8 @@ def train(trainer: Trainer, train_loader, eval_loader=None, train_config=None, l
                 })
                 logger.log(metrics, step)
             if tc.run_validation and eval_loader is not None and step % tc.validation_interval == 0:
-                val = evaluate(trainer, eval_loader)
+                val = validate()
                 last_val = (step, val)
-                logger.log(val, step, prefix="valid")
                 if val["loss"] < best_val_loss and tc.save_model:
                     best_val_loss = val["loss"]
                     ckpt = _save_checkpoint(trainer, tc, epoch, step)
@@ -97,8 +110,7 @@ def train(trainer: Trainer, train_loader, eval_loader=None, train_config=None, l
         if last_val is not None and last_val[0] == step:
             val = last_val[1]  # the last step just validated this state
         else:
-            val = evaluate(trainer, eval_loader)
-            logger.log(val, step, prefix="valid")
+            val = validate()
         results["final_val"] = val
         if tc.save_model and (val["loss"] < best_val_loss or not results["checkpoints"]):
             best_val_loss = min(best_val_loss, float(val["loss"]))
@@ -112,4 +124,6 @@ def train(trainer: Trainer, train_loader, eval_loader=None, train_config=None, l
 def _save_checkpoint(trainer: Trainer, tc, epoch: int, step: int) -> str:
     out = Path(tc.output_dir) / f"{tc.model_name}_epoch_{epoch + 1}_step_{step}"
     save_trainable(str(out / "model.pt"), trainer.trainable)
+    if tc.save_optimizer:
+        save_state(str(out), trainer.state_dict())
     return str(out)

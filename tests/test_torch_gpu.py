@@ -99,8 +99,8 @@ def test_rowquant_kernel_bit_exact(gen, m, k):
 @pytest.mark.parametrize("m", [1, 8, 32, 4096])
 @pytest.mark.parametrize("k,f", [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (48, 40)])
 def test_int8_matmul_kernel_matches_twin(gen, m, k, f):
-    """Bit-exact against the f64 twin, or at most one bf16 ulp; the kernel
-    writes bf16 only and refuses an f32 output."""
+    """Bit-exact against the f64 twin, or at most one bf16 ulp; the f32
+    epilogue (counted on its own) bit-exact; other output types refused."""
     xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
     wq = torch.randint(-127, 128, (f, k), generator=gen, device="cuda", dtype=torch.int8)
     xs = torch.rand(m, generator=gen, device="cuda") * 0.05
@@ -108,8 +108,54 @@ def test_int8_matmul_kernel_matches_twin(gen, m, k, f):
     out = tquant.int8_matmul(xq, wq, xs, ws, torch.bfloat16)
     ref = tquant.int8_matmul_ref(xq, wq, xs, ws, torch.bfloat16)
     assert (out.view(torch.int16).int() - ref.view(torch.int16).int()).abs().max().item() <= 1
-    with pytest.raises(TypeError, match="bfloat16"):
-        tquant.int8_matmul(xq, wq, xs, ws, torch.float32)
+    before = tquant.int8_matmul_f32.launches
+    out32 = tquant.int8_matmul(xq, wq, xs, ws, torch.float32)
+    assert tquant.int8_matmul_f32.launches == before + 1
+    assert torch.equal(out32, tquant.int8_matmul_ref(xq, wq, xs, ws, torch.float32))
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tquant.int8_matmul(xq, wq, xs, ws, torch.float16)
+
+
+@pytest.mark.parametrize("m,k,f", [(1024, 2048, 32000), (1024, 32000, 2048), (512, 5632, 2048)])
+def test_int8_matmul_head_and_transposed_dx_shapes(gen, m, k, f):
+    """The int8 CE head's f32 logits and its int8_sr dx (K = 32000), and a
+    transposed-weight dx: bit-exact against the f64 twin."""
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    wq = torch.randint(-127, 128, (f, k), generator=gen, device="cuda", dtype=torch.int8)
+    xs = torch.rand(m, generator=gen, device="cuda") * 0.05
+    ws = torch.rand(f, generator=gen, device="cuda") * 0.01
+    for dt in (torch.float32, torch.bfloat16):
+        assert torch.equal(tquant.int8_matmul(xq, wq, xs, ws, dt), tquant.int8_matmul_ref(xq, wq, xs, ws, dt))
+
+
+@pytest.mark.parametrize("m,k,dtype", [(512, 2048, torch.bfloat16), (300, 5632, torch.bfloat16),
+                                       (5, 256, torch.bfloat16), (64, 32000, torch.float32),
+                                       (7, 44, torch.float32)])
+@pytest.mark.parametrize("seed", [None, 31])
+def test_rowquant_fold_kernel_bit_exact(gen, m, k, dtype, seed):
+    """K2's fold kernels (deterministic and stochastic rounding; bf16 dy and
+    the f32 dlog of the int8 CE head) bit-exact against the twin, with an
+    all-zero row and an outlier; counted on their own; a fold that is not a
+    contiguous f32 (K,) vector, K % 8 != 0 for bf16 and fold with rotate are
+    refused."""
+    x = torch.randn(m, k, generator=gen, device="cuda") * 0.3
+    x[0] = 0
+    x[min(1, m - 1), 3] = 50.0
+    x = x.to(dtype)
+    fold = torch.rand(k, generator=gen, device="cuda") * 0.02 + 1e-4
+    before = trowquant.rowquant_fold.launches
+    q, s = trowquant.rowquant(x, fold, seed=seed)
+    assert trowquant.rowquant_fold.launches == before + 1
+    rq, rs = trowquant.rowquant_ref(x, fold, seed=seed)
+    assert torch.equal(s, rs) and torch.equal(q, rq)
+    assert bool((q[0] == 0).all())
+    with pytest.raises(ValueError, match="fold"):
+        trowquant.rowquant(x, fold.double(), seed=seed)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        trowquant.rowquant(x, fold, rotate=True)
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="K % 8"):
+            trowquant.rowquant(x[:, :-4].contiguous(), fold[:-4].contiguous(), seed=seed)
 
 
 def test_small_slice_on_card_matches_cpu_plain_path(gen):
@@ -302,3 +348,58 @@ def test_training_step_full_width_on_card(gen):
     torch.cuda.synchronize()
     assert all(fn.launches > n for fn, n in zip(counters, before))
     assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"])) and m["lr"] > 0
+
+
+@pytest.mark.parametrize("policy", ["dots_flash_saveable", "full"])
+def test_remat_on_card_is_bit_identical_and_saves_memory(gen, policy):
+    """A narrow LLM with 64-wide heads on the card, LoRA dropout 0.05, the
+    int8_sr backward and the int8_sr CE head: the loss and every LoRA
+    gradient with checkpointing equal those without it bit for bit (K1, K3
+    and K4 are deterministic, the replay redraws the dropout mask), the
+    replay skips K1 where the policy saved its output, and the peak memory
+    of the forward + backward drops."""
+    from slam_llm_tpu.config import TrainConfig
+    from slam_llm_tpu_torch.models.llm import CausalLM, LLMConfig
+    from slam_llm_tpu_torch.ops import quant as q
+    from slam_llm_tpu_torch.pipeline.common import init_params_
+
+    def run(remat):
+        cfg = dataclasses.replace(LLMConfig.tiny_test(vocab_size=512), d_model=512, n_heads=8, n_kv_heads=2,
+                                  head_dim=64, ffn_dim=1024, n_layers=4, lora_rank=8, lora_dropout=0.05,
+                                  base_quant="int8", base_quant_bwd="int8_sr", ce_quant="int8_sr",
+                                  remat=remat, remat_policy=policy)
+        model = init_params_(CausalLM(cfg, device="cuda"), torch.Generator(device="cuda").manual_seed(1))
+        with torch.no_grad():
+            for mod in model.modules():
+                if getattr(mod, "lora_rank", 0):
+                    mod.lora_b.normal_(0, 0.05, generator=torch.Generator(device="cuda").manual_seed(2))
+        q.quantize_base_params(model)
+        drop = torch.Generator(device="cuda").manual_seed(3)
+        params = []
+        for mod in model.modules():
+            if getattr(mod, "lora_rank", 0):
+                mod.generator, mod.quant_seed = drop, 77
+                params += [mod.lora_a.requires_grad_(True), mod.lora_b.requires_grad_(True)]
+            elif getattr(mod, "quant", None) == "int8":
+                mod.quant_seed = 78
+        model.ce_seed = 79
+        model.train()
+        g = torch.Generator(device="cuda").manual_seed(4)
+        x = torch.randn(8, 256, 512, generator=g, device="cuda").bfloat16().requires_grad_(True)
+        mask = torch.ones(8, 256, dtype=torch.int32, device="cuda")
+        mask[1, :30] = 0
+        labels = torch.randint(0, 512, (8, 256), generator=g, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        k1 = tflash.flash_attention_fwd.launches
+        loss, _ = model.loss_and_accuracy(x, mask, labels)
+        grads = torch.autograd.grad(loss, params + [x])
+        torch.cuda.synchronize()
+        return loss.detach(), grads, torch.cuda.max_memory_allocated() - base, tflash.flash_attention_fwd.launches - k1
+
+    loss_off, grads_off, peak_off, k1_off = run(False)
+    loss_on, grads_on, peak_on, k1_on = run(True)
+    assert torch.equal(loss_on, loss_off) and all(torch.equal(a, b) for a, b in zip(grads_on, grads_off))
+    assert peak_on < peak_off
+    assert k1_off == 4 and k1_on == (4 if policy == "dots_flash_saveable" else 8)

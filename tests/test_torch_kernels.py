@@ -99,14 +99,27 @@ def test_rowquant_twin_bit_exact_against_jax(dtype):
 
 
 def test_rowquant_training_variants_not_ported():
-    """Of the training variants only ``fold`` (the int8_sr / int8 backward
-    modes, ce_quant) is still unported; seed and rotate run on the twin."""
-    x = torch.randn(4, 32)
-    with pytest.raises(NotImplementedError, match="fold"):
-        trowquant.rowquant(x, fold=torch.ones(32))
+    """Every training variant runs on the twin: ``fold`` (the int8 / int8_sr
+    backward modes and the int8 CE head) bit-exact against the reference's
+    ``rowquant(x, fold)`` with and without a seed's stochastic rounding
+    (the seeded streams differ, so only the scale is compared there), seed
+    and rotate; ``fold`` with ``rotate`` raises as in the reference."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((5, 32)).astype(np.float32)
+    fold = rng.uniform(0.1, 3.0, 32).astype(np.float32)
+    jq, js = jrowquant(jnp.asarray(x), jnp.asarray(fold))
+    tq, ts = trowquant.rowquant(_t(x), _t(fold))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    _, js_sr = jrowquant(jnp.asarray(x), jnp.asarray(fold), seed=jnp.uint32(3))
+    q_sr, ts_sr = trowquant.rowquant(_t(x), _t(fold), seed=3)
+    np.testing.assert_array_equal(ts_sr.numpy(), np.asarray(js_sr))
+    assert (q_sr.int() - tq.int()).abs().max() <= 1
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        trowquant.rowquant(_t(x), fold=_t(fold), rotate=True)
     for kw in ({"seed": 0}, {"rotate": True}, {"seed": 7, "rotate": True}):
-        q, s = trowquant.rowquant(x, **kw)
-        assert q.dtype == torch.int8 and q.shape == x.shape and s.shape == (4, 1)
+        q, s = trowquant.rowquant(_t(x), **kw)
+        assert q.dtype == torch.int8 and q.shape == x.shape and s.shape == (5, 1)
         assert q.abs().max() <= 127
 
 

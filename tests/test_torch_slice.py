@@ -232,19 +232,26 @@ def test_unported_parts_raise(tmp_path):
         mc = dataclasses.replace(cfg.model_config, **{key: val})
         with pytest.raises(NotImplementedError, match="not ported yet"):
             tslam.build_slam_config(cfg.train_config, mc)
-    # training modes outside the ported slice, each with its ROADMAP pointer
-    for key, val, match in (("base_quant_bwd", "int8_sr", "ROADMAP Queue 1"),
-                            ("base_quant_bwd", "int8_rot_otf", "ROADMAP: do not port"),
-                            ("ce_quant", "int8_sr", "ROADMAP Queue 1")):
+    # the training modes ported since build their model, with the buffers
+    # their backward reads; an undefined mode or a TPU-only knob raises
+    for key, val, buffer in (("base_quant_bwd", "int8_sr", "kernel_qt"), ("base_quant_bwd", "int8_rot_otf", None),
+                             ("ce_quant", "int8_sr", "head_qt")):
         tc = dataclasses.replace(cfg.train_config, shard=dataclasses.replace(cfg.train_config.shard, **{key: val}))
-        with pytest.raises(NotImplementedError, match=match):
+        sc = tslam.build_slam_config(tc, cfg.model_config)
+        assert getattr(sc.llm, key) == val
+        names = {n.rsplit(".", 1)[-1] for n, _ in tslam.SLAMModel(sc).named_buffers()}
+        assert (buffer in names) if buffer else not names & {"kernel_qr", "kernel_qt", "head_qt"}
+    for shard, err in (({"base_quant_bwd": "int4"}, ValueError), ({"bwd_pretranspose": True}, NotImplementedError)):
+        tc = dataclasses.replace(cfg.train_config, shard=dataclasses.replace(cfg.train_config.shard, **shard))
+        with pytest.raises(err, match="base_quant_bwd|ROADMAP Queue 1"):
             tslam.build_slam_config(tc, cfg.model_config)
-    with pytest.raises(NotImplementedError, match="frozen_dtype"):
-        tslam.build_slam_config(dataclasses.replace(cfg.train_config, frozen_dtype="float32"), cfg.model_config)
+    tslam.build_slam_config(dataclasses.replace(cfg.train_config, frozen_dtype="float32"), cfg.model_config)
     from slam_llm_tpu_torch.ops.kernels.rowquant import rowquant
 
-    with pytest.raises(NotImplementedError, match="fold"):
-        rowquant(torch.ones(2, 8), fold=torch.ones(8))
+    q, s = rowquant(torch.ones(2, 8), fold=torch.full((8,), 2.0))
+    assert torch.equal(q, torch.full((2, 8), 127, dtype=torch.int8)) and torch.allclose(s, torch.full((2, 1), 2 / 127))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        rowquant(torch.ones(2, 8), fold=torch.ones(8), rotate=True)
     model, _ = tslam.model_factory(cfg.train_config, cfg.model_config)
     cfg.ckpt_path = str(tmp_path / "ckpt")
     with pytest.raises(NotImplementedError, match="ckpt_path"):

@@ -234,16 +234,16 @@ def test_int8_rot_seeds_are_fresh_per_step_and_per_layer():
     step from the seeded generator; the seeds reach the backward (the
     reference's quant rng stream: a fixed seed would repeat the dither)."""
     tm, trainer = _rot_model()
-    assert len(trainer.rot_modules) == 2 * 7
+    assert len(trainer.sr_modules) == 2 * 7
     s1, s2 = trainer.draw_quant_seeds(), trainer.draw_quant_seeds()
     assert len(set(s1)) == len(s1) and not set(s1) & set(s2)
-    assert [m.quant_seed for m in trainer.rot_modules] == s2
+    assert [m.quant_seed for m in trainer.sr_modules] == s2
     assert all(0 <= s < 2 ** 32 for s in s1 + s2)
     _, again = _rot_model()
     assert again.draw_quant_seeds() == s1  # seeded from train_config.seed
 
     def grads(seeds):
-        for mod, seed in zip(trainer.rot_modules, seeds):
+        for mod, seed in zip(trainer.sr_modules, seeds):
             mod.quant_seed = seed
         out = tm(_tbatch())
         return torch.autograd.grad(out["loss"], list(trainer.trainable.values()))
@@ -322,34 +322,82 @@ def test_finetune_cli_refuses_cuda_without_a_gpu():
         finetune.main_cli(["--device", "cuda"])
 
 
+def _dense_modes(trainer):
+    return {n.rsplit(".", 1)[-1]: m.quant_bwd for n, m in trainer.model.named_modules()
+            if n.startswith("llm.layers.0.") and hasattr(m, "quant_bwd")}
+
+
+def _reached(key, res, tmp_path):
+    """What each ported training option leaves behind after its step."""
+    from slam_llm_tpu_torch.train.optimizer import AnyPrecisionAdamW, MultiSteps
+
+    trainer = res["trainer"]
+    llm = trainer.model.llm
+    return {
+        "int8_sr": lambda: set(_dense_modes(trainer).values()) == {"int8_sr"} and all(
+            m.kernel_qt.abs().sum() > 0 for m in trainer.sr_modules),
+        "int8": lambda: set(_dense_modes(trainer).values()) == {"int8"} and not trainer.sr_modules,
+        "int8_sr_mlp": lambda: _dense_modes(trainer) == {
+            "q_proj": "bf16", "k_proj": "bf16", "v_proj": "bf16", "o_proj": "bf16",
+            "gate_proj": "int8_sr", "up_proj": "int8_sr", "down_proj": "int8_sr"},
+        "int8_rot_otf": lambda: set(_dense_modes(trainer).values()) == {"int8_rot_otf"} and not any(
+            n.endswith("kernel_qr") for n, _ in trainer.model.named_buffers()) and len(trainer.sr_modules) == 14,
+        "ce_quant": lambda: llm.head_q.abs().sum() > 0 and torch.equal(llm.head_qt, llm.head_q.T),
+        "frozen_dtype": lambda: {p.dtype for n, p in trainer.frozen.items() if "norm" in n} == {torch.float32},
+        "optimizer": lambda: isinstance(trainer.optimizer, AnyPrecisionAdamW) and trainer.optimizer.count == 1,
+        "gradient_accumulation_steps": lambda: isinstance(trainer.optimizer, MultiSteps) and trainer.step == 2
+        and trainer.optimizer.inner.count == 1,
+        "run_test_during_validation": lambda: len(res["decoded"]) == 1 and isinstance(res["decoded"][0], str),
+        "save_optimizer": lambda: (Path(res["checkpoints"][-1]) / "full_state.pt").is_file(),
+    }[key]()
+
+
 @pytest.mark.parametrize(
-    "key,val,match",
+    "key,overrides,raises",
     [
-        ("train_config.shard.base_quant_bwd", "int8_sr", "ROADMAP Queue 1"),
-        ("train_config.shard.base_quant_bwd", "int8", "ROADMAP Queue 1"),
-        ("train_config.shard.base_quant_bwd", "int8_sr_mlp", "ROADMAP Queue 1"),
-        ("train_config.shard.base_quant_bwd", "int8_rot_otf", "do not port"),
-        ("train_config.shard.ce_quant", "int8", "ce_quant"),
-        ("train_config.frozen_dtype", "float32", "frozen_dtype"),
-        ("train_config.optimizer", "anyprecision", "anyprecision"),
-        ("train_config.gradient_accumulation_steps", 2, "gradient_accumulation"),
-        ("train_config.run_test_during_validation", True, "run_test_during_validation"),
-        ("train_config.resume_from", "/nonexistent", "resume_from"),
-        ("train_config.save_optimizer", True, "save_optimizer"),
-        ("train_config.shard.fsdp", 2, "multi-GPU"),
+        ("int8_sr", {"train_config.shard.base_quant_bwd": "int8_sr"}, None),
+        ("int8", {"train_config.shard.base_quant_bwd": "int8"}, None),
+        ("int8_sr_mlp", {"train_config.shard.base_quant_bwd": "int8_sr_mlp"}, None),
+        ("int8_rot_otf", {"train_config.shard.base_quant_bwd": "int8_rot_otf"}, None),
+        ("ce_quant", {"train_config.shard.ce_quant": "int8"}, None),
+        ("frozen_dtype", {"train_config.frozen_dtype": "float32"}, None),
+        ("optimizer", {"train_config.optimizer": "anyprecision"}, None),
+        ("gradient_accumulation_steps", {"train_config.gradient_accumulation_steps": 2,
+                                         "train_config.max_steps_per_epoch": 2}, None),
+        ("run_test_during_validation", {"train_config.run_test_during_validation": True,
+                                        "decode_config.max_new_tokens": 3}, None),
+        ("resume_from", {"train_config.resume_from": "/nonexistent"}, (FileNotFoundError, "full training state")),
+        ("save_optimizer", {"train_config.save_optimizer": True}, None),
+        ("fsdp", {"train_config.shard.fsdp": 2}, (NotImplementedError, "multi-GPU")),
     ],
 )
-def test_unported_training_options_raise(tmp_path, key, val, match):
+def test_unported_training_options_raise(tmp_path, key, overrides, raises):
+    """The training options that were not ported before: each ported one
+    trains on the CPU through the finetune CLI and reaches its own code
+    path; multi-GPU training still raises with its ROADMAP pointer, and a
+    resume from a directory with no full state says so."""
+    from helpers import write_wav
+
     from slam_llm_tpu_torch.pipeline import finetune
 
-    with pytest.raises(NotImplementedError, match=match):
-        finetune.main(_tiny_train_cfg(tmp_path, **{key: val}), device="cpu")
+    extra = {"train_config.max_steps_per_epoch": 1, **overrides}
+    if key == "run_test_during_validation":
+        extra["train_config.run_test_during_validation_file"] = str(write_wav(tmp_path / "probe.wav", seconds=0.3))
+    cfg = _tiny_train_cfg(tmp_path, **extra)
+    if raises is not None:
+        with pytest.raises(raises[0], match=raises[1]):
+            finetune.main(cfg, device="cpu")
+        return
+    res = finetune.main(cfg, device="cpu")
+    assert res["steps"] and all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in res["steps"])
+    assert _reached(key, res, tmp_path)
 
 
 def test_build_slam_config_maps_the_recipes_training_knobs():
     """The recipe's yaml through the port's ``build_slam_config``: the int8
     base with the int8_rot backward, LoRA r8 / alpha 32 / dropout 0.05 on
-    q and v, remat accepted, both freeze flags, f32 trainable masters."""
+    q and v, remat with the dots_flash_saveable policy, both freeze flags,
+    f32 trainable masters."""
     from slam_llm_tpu.config import load_run_config
 
     recipe = Path(__file__).resolve().parent.parent / "examples/asr_librispeech/conf/asr_whisper_tinyllama.yaml"

@@ -261,7 +261,8 @@ def test_int8_dot_bf16_backward_matches_jax():
 def test_int8_dot_rot_backward_on_outlier_dy():
     """bwd="int8_rot" on the reference's outlier-dy case (8 of 512 output
     coordinates x300): dx keeps a cosine > 0.999 with the exact dx, and the
-    backward saves no activation (only the two rotated weight buffers)."""
+    backward saves no activation (only the two rotated weight buffers); a
+    mode the reference does not define raises."""
     rng = np.random.default_rng(4)
     kk, f, b = 256, 512, 32
     x = rng.standard_normal((b, kk)).astype(np.float32)
@@ -277,8 +278,8 @@ def test_int8_dot_rot_backward_on_outlier_dy():
     (y * _t(m)).sum().backward()
     exact = np.broadcast_to(m, (b, f)).astype(np.float64) @ w_deq.double().numpy()
     assert _cos(tx.grad.numpy(), exact) > 0.999
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tquant.int8_dot(tx, wq, ws, bwd="int8_sr")
+    with pytest.raises(ValueError, match="int8_dot bwd='int8_fp8'"):
+        tquant.int8_dot(tx, wq, ws, bwd="int8_fp8")
 
 
 # ---- (f) fused linear + cross-entropy -----------------------------------------
