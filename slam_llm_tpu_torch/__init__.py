@@ -1,9 +1,11 @@
 """slam_llm_tpu_torch: the PyTorch / CUDA port of slam_llm_tpu for NVIDIA Hopper.
 
 It mirrors the JAX package's layout and names (``models/llm.py`` is the
-counterpart of ``slam_llm_tpu/models/llm.py``, and so on) and imports no JAX.
-Host-side modules without JAX (config, datasets, loader, tokenizer, audio
-frontend, WER) are reused from ``slam_llm_tpu`` by import.
+counterpart of ``slam_llm_tpu/models/llm.py``, and so on) and imports
+nothing of JAX or of ``slam_llm_tpu``: the host modules its entry points
+reach (``config``, ``registry``, ``data/{speech_dataset,loader,tokenizer}``,
+``ops/{audio,specaug}``, ``utils/logging_utils``) are its own copies, under
+the JAX package's module names.
 
 Every kernel the JAX package wrote in Pallas for the TPU, on the ported
 path, is a hand-written CUDA kernel for ``sm_90a`` under ``csrc/``, built

@@ -38,8 +38,8 @@ _SIGNATURES = {
     "slam_rowquant": [_P, _P, _P, _L, _I, _P],
     "slam_rowquant_rot_sr": [_P, _P, _P, _L, _I, _I, _I, _L, _P],
     "slam_rowquant_fold": [_P, _P, _P, _P, _L, _I, _I, _I, _L, _P],
-    # xq wq xs ws out | m n k out_f32 | stream
-    "slam_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xq wq xs ws out scratch counters | m n k out_f32 path bm splits sms | stream
+    "slam_int8_matmul": [_P] * 7 + [_I] * 8 + [_P],
     # q k v mask out lse cos sin | b tq tk h hkv d | q/k/v strides | scale causal stream
     "slam_flash_fwd": [_P] * 8 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _I, _P],
     # q k v mask out dout lse cos sin delta dq dk dv (all contiguous) | b t h hkv d | scale causal stream

@@ -188,7 +188,7 @@ def build_slam_config(train_config, model_config) -> SLAMConfig:
 def model_factory(train_config, model_config, device=None, **kwargs):
     """Build ``(SLAMModel, tokenizer)`` with zero-filled weights on ``device``;
     ``pipeline.common.materialize_params`` fills them."""
-    from slam_llm_tpu.data.tokenizer import load_tokenizer
+    from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
 
     if model_config.llm_name.startswith("vallex"):
         raise NotImplementedError(f"llm_name {model_config.llm_name!r} is not ported yet ({_TODO_ENCODERS})")

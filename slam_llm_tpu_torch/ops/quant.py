@@ -35,13 +35,16 @@ its epilogue ``acc * s_dy * 1.0`` equals the reference's ``acc * s_dy``.
 ``int8_matmul`` sends CPU tensors to ``int8_matmul_ref`` and CUDA tensors to
 ``csrc/int8_matmul.cu`` (bf16 output, counted on ``int8_matmul.launches``;
 f32 output through ``int8_matmul_f32``, counted on its own); it raises on
-what the kernel does not take.
+what the kernel does not take. ``plan_int8_matmul`` picks the kernel's code
+path (wgmma at M >= 128, split-K below), its tile and its K splits; each
+path counts its launches in ``K3_PATHS``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -153,7 +156,95 @@ def int8_matmul_ref(
     return (acc * x_s.reshape(-1, 1) * w_scale).to(out_dtype)
 
 
-def _int8_matmul_launch(x_q, w_q, x_s, w_scale, out_dtype: torch.dtype) -> torch.Tensor:
+class Int8Plan(NamedTuple):
+    """How K3 runs one product: ``path`` "wgmma" (TMA + wgmma, tile 128 x
+    256) or "splitk" (TMA + mma.sync, tile bm x 64, the splits of a tile one
+    thread-block cluster), the tile ``(bm, bn, bk)`` with bk in bytes, and
+    ``splits``, the number of parts K is cut into (a divisor of the 128-byte
+    K slices)."""
+
+    path: str
+    tile: Tuple[int, int, int]
+    splits: int
+
+
+K_SLICE = 128  # bytes of K per pipeline stage, both paths
+WGMMA_MIN_M = 128
+# a wgmma split pays its partial-sum round trip only over a long K
+WGMMA_MIN_SPLIT_SLICES = 32
+# the split-K kernel's TMA ring by tile rows (sk_stages in csrc/int8_matmul.cu)
+SPLITK_STAGES = {16: 6, 32: 6, 64: 4}
+SPLITK_MAX_SPLITS = 16  # its splits form one thread-block cluster (non-portable above 8)
+
+
+def _divisors(n: int) -> List[int]:
+    return [d for d in range(1, n + 1) if n % d == 0]
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_int8_matmul(m: int, n: int, k: int, sms: int = 132) -> Int8Plan:
+    """K3's path, tile and K splits for (M, K) x (N, K) on a card of ``sms``
+    SMs. M >= 128 takes the wgmma path; where its tiles leave SMs idle and K
+    is long, K is split too: the divisor of the K slices that fills the last
+    wave best while each split keeps at least ``WGMMA_MIN_SPLIT_SLICES``.
+    Smaller M takes split-K, bound by the bytes of the weight: K is cut (into
+    at most 16 parts, one cluster) so that each block's slices fit its ring
+    at once (one round trip to memory), and into more parts while the grid
+    has fewer than one and a half blocks per SM. A split product reduces in
+    s32, so no plan changes the result."""
+    k_slices = -(-k // K_SLICE)
+    if m >= WGMMA_MIN_M:
+        tiles = -(-m // 128) * -(-n // 256)
+
+        def fill(d):
+            units = tiles * d
+            return units / (-(-units // sms) * sms)
+
+        splits = max((d for d in _divisors(k_slices) if d == 1 or k_slices // d >= WGMMA_MIN_SPLIT_SLICES),
+                     key=lambda d: (fill(d), -d))
+        return Int8Plan("wgmma", (128, 256, K_SLICE), splits)
+    bm = 16 if m <= 16 else 32 if m <= 32 else 64
+    tiles = -(-m // bm) * -(-n // 64)
+    # a cluster of more than 8 (non-portable) pays only for 16-row tiles (measured)
+    divs = [d for d in _divisors(k_slices) if d <= (SPLITK_MAX_SPLITS if bm == 16 else 8)]
+    fits = [d for d in divs if -(-k_slices // d) <= SPLITK_STAGES[bm]] or divs[-1:]
+    splits = next((d for d in fits if 2 * tiles * d >= 3 * sms), fits[-1])
+    return Int8Plan("splitk", (bm, 64, K_SLICE), splits)
+
+
+@dataclasses.dataclass
+class PathCount:
+    launches: int = 0
+
+
+# launches per K3 code path (beside the per-epilogue counts on the wrappers)
+K3_PATHS = {"wgmma": PathCount(), "splitk": PathCount()}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_counters = {}  # device index -> s32 tile counters of split wgmma products, 0 between calls
+
+
+def _split_counters(device: torch.device, tiles: int) -> torch.Tensor:
+    """The per-tile counters a split wgmma product's blocks count on. The
+    kernel leaves them 0 again, so one zeroed tensor per device serves every
+    call (calls on one device run in stream order)."""
+    have = _counters.get(device.index)
+    if have is None or have.numel() < tiles:
+        have = _counters[device.index] = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=device)
+    return have
+
+
+def _tiles(plan: Int8Plan, m: int, n: int) -> int:
+    bm, bn, _ = plan.tile
+    return -(-m // bm) * -(-n // bn)
+
+
+def _int8_matmul_launch(x_q, w_q, x_s, w_scale, out_dtype: torch.dtype, plan: Optional[Int8Plan] = None):
     m, k = x_q.shape
     f = w_q.shape[0]
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8 or w_q.shape != (f, k):
@@ -172,27 +263,37 @@ def _int8_matmul_launch(x_q, w_q, x_s, w_scale, out_dtype: torch.dtype) -> torch
         return out
     from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
 
+    sms = _sm_count(x_q.device.index)
+    plan = plan or plan_int8_matmul(m, f, k, sms)
+    scratch = counters = None
+    if plan.path == "wgmma" and plan.splits > 1:  # (splits, M, N) partial sums, and a counter per tile
+        scratch = torch.empty((plan.splits, m, f), dtype=torch.int32, device=x_q.device)
+        counters = _split_counters(x_q.device, _tiles(plan, m, f))
     with torch.cuda.device(x_q.device):
         err = library().slam_int8_matmul(
             x_q.data_ptr(), w_q.data_ptr(), x_s.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-            m, f, k, int(out_dtype == torch.float32), stream_ptr(x_q),
+            None if scratch is None else scratch.data_ptr(), None if counters is None else counters.data_ptr(),
+            m, f, k, int(out_dtype == torch.float32), 0 if plan.path == "wgmma" else 1, plan.tile[0], plan.splits,
+            sms, stream_ptr(x_q),
         )
-    check(err, "int8_matmul")
+    check(err, f"int8_matmul {plan}")
+    K3_PATHS[plan.path].launches += 1
     return out
 
 
 def int8_matmul(
     x_q: torch.Tensor, w_q: torch.Tensor, x_s: torch.Tensor, w_scale: torch.Tensor,
-    out_dtype: torch.dtype = torch.bfloat16,
+    out_dtype: torch.dtype = torch.bfloat16, plan: Optional[Int8Plan] = None,
 ) -> torch.Tensor:
     """x_q (M, K) int8, w_q (F, K) int8, x_s (M,) or (M, 1) f32, w_scale (F,)
     f32 -> (M, F) ``out_dtype``; the kernel writes bfloat16, or float32
-    through ``int8_matmul_f32``."""
+    through ``int8_matmul_f32``. ``plan`` overrides ``plan_int8_matmul``
+    (tests and measurements)."""
     if not x_q.is_cuda:
         return int8_matmul_ref(x_q, w_q, x_s, w_scale, out_dtype)
     if out_dtype == torch.float32:
-        return int8_matmul_f32(x_q, w_q, x_s, w_scale)
-    out = _int8_matmul_launch(x_q, w_q, x_s, w_scale, out_dtype)
+        return int8_matmul_f32(x_q, w_q, x_s, w_scale, plan)
+    out = _int8_matmul_launch(x_q, w_q, x_s, w_scale, out_dtype, plan)
     int8_matmul.launches += 1
     return out
 
@@ -201,12 +302,13 @@ int8_matmul.launches = 0
 
 
 def int8_matmul_f32(
-    x_q: torch.Tensor, w_q: torch.Tensor, x_s: torch.Tensor, w_scale: torch.Tensor
+    x_q: torch.Tensor, w_q: torch.Tensor, x_s: torch.Tensor, w_scale: torch.Tensor,
+    plan: Optional[Int8Plan] = None,
 ) -> torch.Tensor:
     """K3 with the f32 epilogue (the int8 CE head's logits, and dx in f32)."""
     if not x_q.is_cuda:
         return int8_matmul_ref(x_q, w_q, x_s, w_scale, torch.float32)
-    out = _int8_matmul_launch(x_q, w_q, x_s, w_scale, torch.float32)
+    out = _int8_matmul_launch(x_q, w_q, x_s, w_scale, torch.float32, plan)
     int8_matmul_f32.launches += 1
     return out
 

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from slam_llm_tpu.config import RunConfig
+from slam_llm_tpu_torch.config import RunConfig
 from slam_llm_tpu_torch.models.layers import DenseGeneralLora
 from slam_llm_tpu_torch.ops.quant import quantize_int8
 from slam_llm_tpu_torch.registry import get_custom_dataset_factory, get_custom_model_factory
@@ -116,8 +116,8 @@ def encode_one(wav_path: str, prompt: str, tokenizer, dataset_config, ds_rate=No
     to ``max_audio_length_s``, ``(mel frames + 1) // 2 // ds_rate`` audio
     pseudo-tokens (id -1) and then the templated prompt. ``ds_rate`` is the
     projector's (``model_config.encoder_projector_ds_rate``)."""
-    from slam_llm_tpu.data.speech_dataset import PROMPT_TEMPLATE
-    from slam_llm_tpu.ops import audio as audio_ops
+    from slam_llm_tpu_torch.data.speech_dataset import PROMPT_TEMPLATE
+    from slam_llm_tpu_torch.ops import audio as audio_ops
 
     mel_size = getattr(dataset_config, "mel_size", 80)
     max_samples = int(getattr(dataset_config, "max_audio_length_s", 30.0) * audio_ops.SAMPLE_RATE)

@@ -23,9 +23,8 @@ from __future__ import annotations
 import sys
 from typing import List, Optional
 
-from slam_llm_tpu.config import RunConfig, load_run_config
-from slam_llm_tpu.data.loader import build_dataloader
-from slam_llm_tpu.utils.logging_utils import setup_logger
+from slam_llm_tpu_torch.config import RunConfig, load_run_config
+from slam_llm_tpu_torch.data.loader import build_dataloader
 from slam_llm_tpu_torch.inference.generate import GenerationConfig, Generator, strip_after_eos
 from slam_llm_tpu_torch.pipeline.common import (
     build_model_and_data,
@@ -40,6 +39,7 @@ from slam_llm_tpu_torch.train.loop import train
 from slam_llm_tpu_torch.train.optimizer import count_params
 from slam_llm_tpu_torch.train.state import Trainer
 from slam_llm_tpu_torch.utils.checkpoint import load_state
+from slam_llm_tpu_torch.utils.logging_utils import setup_logger
 
 
 def check_ported(cfg: RunConfig) -> None:
@@ -63,7 +63,7 @@ def build_decode_hook(cfg: RunConfig, model, tokenizer):
             f"{cfg.model_config.encoder_name!r} needs its dataset pipeline: decode with "
             "pipeline.inference_batch instead"
         )
-    from slam_llm_tpu.data.speech_dataset import DEFAULT_PROMPT
+    from slam_llm_tpu_torch.data.speech_dataset import DEFAULT_PROMPT
 
     dc = cfg.decode_config
     gen = Generator(model, GenerationConfig(

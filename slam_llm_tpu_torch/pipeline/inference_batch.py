@@ -18,9 +18,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from slam_llm_tpu.config import RunConfig, load_run_config
-from slam_llm_tpu.data.loader import build_dataloader
-from slam_llm_tpu.utils.logging_utils import setup_logger
+from slam_llm_tpu_torch.config import RunConfig, load_run_config
+from slam_llm_tpu_torch.data.loader import build_dataloader
 from slam_llm_tpu_torch.inference.generate import GenerationConfig, Generator, strip_after_eos
 from slam_llm_tpu_torch.pipeline.common import (
     build_model_and_data,
@@ -29,6 +28,7 @@ from slam_llm_tpu_torch.pipeline.common import (
     resolve_device,
     set_seed,
 )
+from slam_llm_tpu_torch.utils.logging_utils import setup_logger
 
 
 def decode_loader(cfg: RunConfig, dataset):

@@ -1,18 +1,64 @@
-"""Factory resolution for the port.
+"""Plugin loading: resolve ``file: path/to/mod.py:factory`` config strings.
 
-The model factory defaults to the port's own ``model_factory``; a
-``model_config.file`` spec (``path/to/file.py:fn`` or ``pkg.mod:fn``) is
-resolved by the reference package's JAX-free loader. Datasets come from the
-reference package's registry unchanged: they are host-side numpy code.
+Counterpart of ``slam_llm_tpu/registry.py``: the core never imports the
+recipes; recipes inject their model factory and dataset factory through
+config strings (reference utils/dataset_utils.py:14-46,
+utils/model_utils.py:4-29). The model factory defaults to the port's own
+``model_factory`` and the dataset factory to the port's speech dataset; the
+JAX package's other in-tree datasets are not ported yet.
 """
 
 from __future__ import annotations
 
+import importlib
+import importlib.util
+import sys
+from pathlib import Path
 from typing import Any, Callable, Optional
 
-from slam_llm_tpu.registry import get_custom_dataset_factory, resolve_factory
+# the JAX package's in-tree datasets the port does not carry yet (ROADMAP.md
+# Queue 1, item 4: the other encoders and recipes)
+UNPORTED_DATASETS = (
+    "audio_dataset", "mir_dataset", "s2s_dataset", "text_dataset", "vallex_dataset", "echat_dataset",
+    "avhubert_dataset", "spatial_audio_dataset", "speech_dataset_large",
+)
 
-__all__ = ["get_custom_dataset_factory", "get_custom_model_factory"]
+
+def load_module_from_py_file(py_file: str):
+    """Import a python file that is NOT on sys.path as an anonymous module."""
+    path = Path(py_file)
+    module_name = path.stem + "_" + hex(abs(hash(str(path.resolve()))))[2:10]
+    if module_name in sys.modules:
+        return sys.modules[module_name]
+    spec = importlib.util.spec_from_file_location(module_name, str(path))
+    if spec is None or spec.loader is None:
+        raise ImportError(f"Cannot load module from {py_file}")
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[module_name] = module
+    try:
+        spec.loader.exec_module(module)
+    except BaseException:
+        # don't cache a half-initialized module: a retry would get the
+        # broken shell and fail later with a confusing AttributeError
+        sys.modules.pop(module_name, None)
+        raise
+    return module
+
+
+def resolve_factory(spec: str, default_name: str = "factory") -> Callable[..., Any]:
+    """Resolve ``"pkg.mod:fn"``, ``"path/to/file.py:fn"`` or ``"path/to/file.py"``."""
+    if ":" in spec:
+        target, func_name = spec.rsplit(":", 1)
+    else:
+        target, func_name = spec, default_name
+    if target.endswith(".py"):
+        module = load_module_from_py_file(target)
+    else:
+        module = importlib.import_module(target)
+    try:
+        return getattr(module, func_name)
+    except AttributeError as e:
+        raise AttributeError(f"{target} has no factory '{func_name}'") from e
 
 
 def get_custom_model_factory(model_config) -> Callable[..., Any]:
@@ -22,3 +68,20 @@ def get_custom_model_factory(model_config) -> Callable[..., Any]:
 
         return model_factory
     return resolve_factory(spec, default_name="model_factory")
+
+
+def get_custom_dataset_factory(dataset_config) -> Callable[..., Any]:
+    """A ``dataset_config.file`` spec, else the in-tree dataset named by
+    ``dataset_config.dataset``: the speech dataset, or a raise for the
+    datasets not ported yet."""
+    spec: Optional[str] = getattr(dataset_config, "file", None)
+    if spec:
+        return resolve_factory(spec, default_name="get_speech_dataset")
+    name = getattr(dataset_config, "dataset", "speech_dataset")
+    if name in UNPORTED_DATASETS:
+        raise NotImplementedError(
+            f"dataset {name!r} is not ported to slam_llm_tpu_torch yet (ROADMAP.md Queue 1, item 4: "
+            "the other encoders and recipes)")
+    from slam_llm_tpu_torch.data.speech_dataset import get_speech_dataset
+
+    return get_speech_dataset

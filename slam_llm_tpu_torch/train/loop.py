@@ -9,7 +9,8 @@ at the end (each followed by ``decode_hook``'s text, the reference's
 (or once at the end without validation): the trainable tensors in
 ``model.pt`` and, with ``save_optimizer``, the full state in
 ``full_state.pt``. Steps count micro-steps under gradient accumulation, as
-in the reference. The logger is the reference's JAX-free ``MetricsLogger``.
+in the reference. The logger is ``utils/logging_utils.py``'s
+``MetricsLogger``.
 """
 
 from __future__ import annotations
@@ -19,11 +20,10 @@ from pathlib import Path
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
-import torch
 
-from slam_llm_tpu.utils.logging_utils import MetricsLogger
 from slam_llm_tpu_torch.train.state import Trainer
 from slam_llm_tpu_torch.utils.checkpoint import save_state, save_trainable
+from slam_llm_tpu_torch.utils.logging_utils import MemoryTrace, MetricsLogger
 
 
 def evaluate(trainer: Trainer, eval_loader) -> Dict[str, float]:
@@ -40,13 +40,6 @@ def evaluate(trainer: Trainer, eval_loader) -> Dict[str, float]:
     loss = float(np.average(losses, weights=weights))
     acc = float(np.average(accs, weights=weights))
     return {"loss": loss, "acc": acc, "ppl": float(np.exp(min(loss, 50.0)))}
-
-
-def _memory_report(device: torch.device) -> Dict[str, float]:
-    if device.type != "cuda":
-        return {}
-    return {"peak_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30,
-            "in_use_gib": torch.cuda.memory_allocated(device) / 2 ** 30}
 
 
 def train(trainer: Trainer, train_loader, eval_loader=None, train_config=None, log_config=None,
@@ -76,34 +69,34 @@ def train(trainer: Trainer, train_loader, eval_loader=None, train_config=None, l
     log_interval = getattr(tc, "log_interval", 5)
 
     for epoch in range(tc.num_epochs):
-        t_epoch = time.perf_counter()
-        epoch_steps = 0
-        for batch in train_loader:
-            t0 = time.perf_counter()
-            metrics = trainer.train_step(trainer.put_batch(batch))
-            step += 1
-            if step % log_interval == 0:
-                metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
-                results["steps"].append({
-                    "step": step, "seconds": time.perf_counter() - t0, **metrics,
-                    "shape": tuple(batch["input_ids"].shape), "tokens": int(batch["attention_mask"].sum()),
-                })
-                logger.log(metrics, step)
-            if tc.run_validation and eval_loader is not None and step % tc.validation_interval == 0:
-                val = validate()
-                last_val = (step, val)
-                if val["loss"] < best_val_loss and tc.save_model:
-                    best_val_loss = val["loss"]
-                    ckpt = _save_checkpoint(trainer, tc, epoch, step)
-                    results["checkpoints"].append(ckpt)
-                    logger.logger.info("new best val loss %.4f -> saved %s", val["loss"], ckpt)
-            # per-epoch cap, counted from the start of this epoch
-            epoch_steps += 1
-            if 0 < tc.max_steps_per_epoch <= epoch_steps:
-                break
-        results["epoch_times"].append(time.perf_counter() - t_epoch)
-        logger.logger.info("epoch %d done in %.1f s %s", epoch, results["epoch_times"][-1],
-                           _memory_report(trainer.device))
+        with MemoryTrace() as mem:
+            t_epoch = time.perf_counter()
+            epoch_steps = 0
+            for batch in train_loader:
+                t0 = time.perf_counter()
+                metrics = trainer.train_step(trainer.put_batch(batch))
+                step += 1
+                if step % log_interval == 0:
+                    metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
+                    results["steps"].append({
+                        "step": step, "seconds": time.perf_counter() - t0, **metrics,
+                        "shape": tuple(batch["input_ids"].shape), "tokens": int(batch["attention_mask"].sum()),
+                    })
+                    logger.log(metrics, step)
+                if tc.run_validation and eval_loader is not None and step % tc.validation_interval == 0:
+                    val = validate()
+                    last_val = (step, val)
+                    if val["loss"] < best_val_loss and tc.save_model:
+                        best_val_loss = val["loss"]
+                        ckpt = _save_checkpoint(trainer, tc, epoch, step)
+                        results["checkpoints"].append(ckpt)
+                        logger.logger.info("new best val loss %.4f -> saved %s", val["loss"], ckpt)
+                # per-epoch cap, counted from the start of this epoch
+                epoch_steps += 1
+                if 0 < tc.max_steps_per_epoch <= epoch_steps:
+                    break
+            results["epoch_times"].append(time.perf_counter() - t_epoch)
+            logger.logger.info("epoch %d done in %.1f s %s", epoch, results["epoch_times"][-1], mem.stats())
 
     # end-of-training validation + final save
     if tc.run_validation and eval_loader is not None:

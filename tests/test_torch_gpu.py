@@ -116,6 +116,50 @@ def test_int8_matmul_kernel_matches_twin(gen, m, k, f):
         tquant.int8_matmul(xq, wq, xs, ws, torch.float16)
 
 
+K3_BOUNDARY = [(m, 48, 40) for m in (1, 16, 17, 64, 65, 127, 128)] + [(129, 2064, 264), (300, 5632, 2048)]
+K3_RECIPE = [(m, kc, n) for m in (8, 32, 4096) for kc, n in ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048))]
+K3_RECIPE += [(8192, 256, 2048), (1024, 32000, 2048), (1024, 2048, 32000)]
+# one utterance's int8 CE head dx (a chunk of 64 rows, K = 32000) and a
+# 33-127 row tile with long K: split counts whose owners hold uneven rows
+K3_RECIPE += [(64, 32000, 2048), (100, 5632, 2048)]
+
+
+@pytest.mark.parametrize("m,k,f", K3_BOUNDARY + K3_RECIPE)
+def test_int8_matmul_paths_exact_and_deterministic(gen, m, k, f):
+    """K3 at the planner's path boundaries and the recipe's shapes, and every
+    split count its path allows there: f32 bit-exact against the f64 twin,
+    bf16 within one ulp, two runs bit-identical; each launch counted on the
+    path the plan names."""
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    wq = torch.randint(-127, 128, (f, k), generator=gen, device="cuda", dtype=torch.int8)
+    xs = torch.rand(m, generator=gen, device="cuda") * 0.05 + 1e-3
+    ws = torch.rand(f, generator=gen, device="cuda") * 0.01 + 1e-4
+    ref16 = tquant.int8_matmul_ref(xq, wq, xs, ws, torch.bfloat16)
+    ref32 = tquant.int8_matmul_ref(xq, wq, xs, ws, torch.float32)
+    plan = tquant.plan_int8_matmul(m, f, k, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.path == ("wgmma" if m >= 128 else "splitk")
+    slices = -(-k // tquant.K_SLICE)
+    cap = tquant.SPLITK_MAX_SPLITS if plan.path == "splitk" else 2
+    for splits in sorted({plan.splits} | {d for d in range(1, cap + 1) if slices % d == 0}):
+        alt = tquant.Int8Plan(plan.path, plan.tile, splits)
+        before = tquant.K3_PATHS[plan.path].launches
+        out = tquant.int8_matmul(xq, wq, xs, ws, torch.bfloat16, plan=alt)
+        again = tquant.int8_matmul(xq, wq, xs, ws, torch.bfloat16, plan=alt)
+        out32 = tquant.int8_matmul(xq, wq, xs, ws, torch.float32, plan=alt)
+        assert tquant.K3_PATHS[plan.path].launches == before + 3
+        assert (out.view(torch.int16).int() - ref16.view(torch.int16).int()).abs().max().item() <= 1, alt
+        assert torch.equal(out, again) and torch.equal(out32, ref32), alt
+
+
+def test_int8_matmul_refuses_a_plan_the_kernel_cannot_take(gen):
+    xq = torch.randint(-127, 128, (32, 2048), generator=gen, device="cuda", dtype=torch.int8)
+    wq = torch.randint(-127, 128, (256, 2048), generator=gen, device="cuda", dtype=torch.int8)
+    xs, ws = torch.rand(32, device="cuda"), torch.rand(256, device="cuda")
+    for bad in (tquant.Int8Plan("splitk", (32, 64, 128), 3), tquant.Int8Plan("wgmma", (64, 256, 128), 1)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            tquant.int8_matmul(xq, wq, xs, ws, plan=bad)
+
+
 @pytest.mark.parametrize("m,k,f", [(1024, 2048, 32000), (1024, 32000, 2048), (512, 5632, 2048)])
 def test_int8_matmul_head_and_transposed_dx_shapes(gen, m, k, f):
     """The int8 CE head's f32 logits and its int8_sr dx (K = 32000), and a

@@ -148,6 +148,75 @@ def test_int8_matmul_twin_is_exact_integer_product():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# the shapes chip_smoke.py phase 3 checks (M, K, N), and edge shapes
+K3_PHASE3_SHAPES = [(m, kc, n) for m in (4096, 32, 8, 3584)
+                    for kc, n in ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048))]
+K3_PHASE3_SHAPES += [(8192, kc, n) for kc, n in ((2048, 2048), (256, 2048), (5632, 2048), (2048, 5632))]
+K3_PHASE3_SHAPES += [(1024, 32000, 2048), (1024, 2048, 32000), (37, 48, 40)]
+K3_EDGE_SHAPES = [(m, 48, 40) for m in (1, 16, 17, 64, 65, 127, 128)] + [(300, 5632, 2048), (129, 2064, 264)]
+K3_EDGE_SHAPES += [(64, 32000, 2048), (100, 5632, 2048)]
+
+
+@pytest.mark.parametrize("m,k,n", K3_PHASE3_SHAPES + K3_EDGE_SHAPES)
+def test_k3_planner_picks_a_path_the_kernel_takes(m, k, n):
+    """wgmma (tile 128 x 256) from M = 128 up, split-K below; the splits
+    divide the 128-byte K slices, stay within a cluster on the split-K path,
+    and on the wgmma path split only K long enough to pay its round trip."""
+    plan = tquant.plan_int8_matmul(m, n, k, 132)
+    slices = -(-k // tquant.K_SLICE)
+    assert slices % plan.splits == 0
+    if m >= 128:
+        assert plan.path == "wgmma" and plan.tile == (128, 256, 128)
+        assert plan.splits == 1 or slices // plan.splits >= tquant.WGMMA_MIN_SPLIT_SLICES
+    else:
+        assert plan.path == "splitk" and plan.tile[1:] == (64, 128)
+        bm = plan.tile[0]
+        assert bm in (16, 32, 64) and (bm >= m or bm == 64) and (bm == 16 or bm // 2 < m)
+        assert 1 <= plan.splits <= tquant.SPLITK_MAX_SPLITS
+
+
+def test_k3_planner_fills_the_card_where_it_should():
+    """The CE head's dx (8 x 8 tiles of 128 x 256) splits K in two: 128 units
+    on 132 SMs; decode cuts K = 2048 so a block's share fits the split-K ring
+    (4 parts), and into 8 where 32 column tiles would leave the grid under
+    one and a half blocks per SM; the training shapes run unsplit."""
+    assert tquant.plan_int8_matmul(1024, 2048, 32000, 132).splits == 2
+    assert tquant.plan_int8_matmul(32, 5632, 2048, 132) == tquant.Int8Plan("splitk", (32, 64, 128), 4)
+    assert tquant.plan_int8_matmul(8, 2048, 2048, 132) == tquant.Int8Plan("splitk", (16, 64, 128), 8)
+    for n, k in ((2048, 2048), (2048, 5632), (5632, 2048), (2048, 256)):
+        assert tquant.plan_int8_matmul(8192, n, k, 132).splits == 1
+
+
+def _split_k_emulation(xq, wq, xs, ws, plan, out_dtype):
+    """K3's arithmetic for one plan on the CPU: per-split s32 partial sums over
+    the plan's 128-byte K slices, added in split order, then the epilogue."""
+    k = xq.shape[1]
+    per = -(-k // tquant.K_SLICE) // plan.splits * tquant.K_SLICE
+    acc = torch.zeros(xq.shape[0], wq.shape[0], dtype=torch.int32)
+    for s in range(plan.splits):
+        part = slice(s * per, min((s + 1) * per, k))
+        acc += (xq[:, part].to(torch.int64) @ wq[:, part].to(torch.int64).T).to(torch.int32)
+    return (acc.float() * xs.reshape(-1, 1) * ws).to(out_dtype)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 96), (32, 5632, 40), (37, 48, 40), (300, 4096, 264), (129, 2064, 264)])
+def test_k3_split_k_s32_reduction_equals_the_twin(m, k, n):
+    """Any split of K reaches the epilogue with the same integer: the
+    emulation of every plan the path allows equals int8_matmul_ref bit for
+    bit, f32 and bf16."""
+    rng = np.random.default_rng(m + k + n)
+    xq = _t(rng.integers(-127, 128, (m, k), dtype=np.int8))
+    wq = _t(rng.integers(-127, 128, (n, k), dtype=np.int8))
+    xs = _t(rng.random(m).astype(np.float32) * 0.05 + 1e-3)
+    ws = _t(rng.random(n).astype(np.float32) * 0.01 + 1e-4)
+    plan = tquant.plan_int8_matmul(m, n, k, 132)
+    slices = -(-k // tquant.K_SLICE)
+    for d in [d for d in range(1, 9) if slices % d == 0]:
+        alt = tquant.Int8Plan(plan.path, plan.tile, d)
+        for dt in (torch.float32, torch.bfloat16):
+            assert torch.equal(_split_k_emulation(xq, wq, xs, ws, alt, dt), tquant.int8_matmul_ref(xq, wq, xs, ws, dt))
+
+
 def test_int8_linear_matches_jax_int8_dot_forward():
     """fp32, within 1e-6 relative of the reference's s8 product + epilogue."""
     rng = np.random.default_rng(3)

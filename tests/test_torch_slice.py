@@ -263,7 +263,24 @@ import json, sys, tempfile, pkgutil, importlib
 from pathlib import Path
 sys.path[:0] = [sys.argv[1], sys.argv[1] + "/tests"]
 import slam_llm_tpu_torch
-from helpers import make_corpus, tiny_run_config
+from helpers import make_corpus
+from slam_llm_tpu_torch.config import RunConfig, set_by_path
+
+
+def tiny_run_config(manifest, **overrides):
+    # tests/helpers.py's tiny config, built with the port's own config module
+    cfg = RunConfig()
+    for key, value in {"model_config.llm_name": "tiny-test", "model_config.encoder_name": "whisper",
+                       "model_config.encoder_config": "whisper-tiny-test", "model_config.encoder_projector": "linear",
+                       "model_config.encoder_projector_ds_rate": 5, "dataset_config.train_data_path": str(manifest),
+                       "dataset_config.val_data_path": str(manifest), "dataset_config.mel_size": 8,
+                       "dataset_config.input_type": "mel", "train_config.batch_size_training": 2,
+                       "train_config.val_batch_size": 2, "train_config.warmup_steps": 2,
+                       "train_config.total_steps": 20, "train_config.shard.dp": -1, **overrides}.items():
+        set_by_path(cfg, key, value)
+    return cfg
+
+
 from slam_llm_tpu_torch.pipeline import inference_batch
 tmp = Path(tempfile.mkdtemp())
 cfg = tiny_run_config(make_corpus(tmp, n=2), **{"decode_config.decode_log": str(tmp / "d"),
@@ -278,20 +295,23 @@ train = finetune.main(tiny_run_config(make_corpus(tmp, n=2), **{
 for mod in pkgutil.walk_packages(slam_llm_tpu_torch.__path__, "slam_llm_tpu_torch."):
     importlib.import_module(mod.name)
 print(json.dumps({"n": res["n"], "steps": len(train["steps"]), "jax": "jax" in sys.modules,
-                  "flax": "flax" in sys.modules}))
+                  "flax": "flax" in sys.modules,
+                  "slam_llm_tpu": sorted(m for m in sys.modules if m == "slam_llm_tpu" or m.startswith("slam_llm_tpu."))}))
 """
 
 
 def test_port_runs_without_importing_jax():
     """The decode slice, a training step through the finetune CLI, and every
-    module of the package, in a fresh interpreter: neither jax nor flax is
-    ever imported (this test process has both)."""
+    module of the package, in a fresh interpreter with a config from the
+    port's own ``config`` module: neither jax nor flax nor any module of the
+    JAX package is ever imported (this test process has all three)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", _PROBE, str(REPO)], capture_output=True, text=True, env=env,
         timeout=300, check=True,
     )
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"n": 2, "steps": 1, "jax": False, "flax": False}
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "n": 2, "steps": 1, "jax": False, "flax": False, "slam_llm_tpu": []}
 
 
 def test_port_sources_never_import_jax():
@@ -302,9 +322,10 @@ def test_port_sources_never_import_jax():
 
 
 def test_chip_smoke_reaches_the_host_modules_only_through_the_port():
-    """chip_smoke.py and the port's tools name no module of the JAX package:
-    config, data and loader come through ``slam_llm_tpu_torch.pipeline``."""
+    """No file of the port, and not chip_smoke.py, imports a module of the
+    JAX package: config, registry, data, audio and logging are the port's own
+    copies (``tests/test_torch_host.py`` holds them against the originals)."""
     pattern = re.compile(r"^\s*(import|from)\s+slam_llm_tpu(\.|\s|$)", re.M)
-    files = [REPO / "chip_smoke.py", *sorted((REPO / "slam_llm_tpu_torch" / "tools").rglob("*.py"))]
-    assert len(files) > 1
+    files = [REPO / "chip_smoke.py", *sorted((REPO / "slam_llm_tpu_torch").rglob("*.py"))]
+    assert len(files) > 30
     assert [str(f) for f in files if pattern.search(f.read_text())] == []
