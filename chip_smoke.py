@@ -6,12 +6,17 @@ Phases, each fatal on failure:
   1. setup   -- card name and power limit, versions, TF32 off, CUDA required;
   2. build   -- compile the port's CUDA kernels (csrc/*.cu, one nvcc per
                 source, in parallel) for sm_90a;
-  3. kernels -- each kernel against its plain PyTorch twin on the card, with
+  3. kernels -- first the wgmma operand layouts K1 and K4 rest on, on one
+                tile each; then each kernel against its plain PyTorch twin on
+                the card, with
                 its time beside the twin's, its bound (operations or bytes at
                 the card's peak) and share of it, and the library call that
                 computes the same function where there is one (SDPA forward
                 and backward; torch._int_mm and bf16 cuBLAS for K3, with the
-                weight cold in L2 at decode M), at the shapes the two paths
+                weight cold in L2 at decode M) or, for fused-RoPE and
+                left-padded flash calls, the nearest one, labelled as such
+                (SDPA on q / k rotated beforehand with the equivalent boolean
+                mask), at the shapes the two paths
                 launch: K1 flash forward (whisper-small; TinyLlama prefill;
                 the training path with fused RoPE), K4 flash backward (the
                 training shape (16, 512, 32/4, 64) with fused RoPE, and a
@@ -231,6 +236,46 @@ def _rope_for(mask, d):
     return rope_tables((mask.long().cumsum(1) - 1).clamp_min(0), d)
 
 
+# the library call nearest to a fused-RoPE or left-padded flash call: SDPA on
+# q / k rotated beforehand, with the equivalent boolean (key mask x causal)
+# mask; it is not the same function on the same inputs, so it is reported
+# beside library_ms, never as it
+NEAR = "SDPA, RoPE applied before, boolean mask"
+
+
+def _r(x):
+    return x if x is None else round(x, 4)
+
+
+def _bool_mask(mask, causal: bool):
+    t = mask.shape[1]
+    valid = mask.bool()[:, None, None, :]
+    if causal:
+        valid = valid & torch.ones(t, t, dtype=torch.bool, device=mask.device).tril()
+    return valid
+
+
+def check_wgmma_layouts(gen) -> None:
+    """The operand layouts K1 and K4 rest on, on one tile each (the card
+    tests' probe): S = Q K^T from K-major panels, O = bf16(S) V with S as
+    the register fragment and V MN-major."""
+    from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
+
+    for d, n in ((64, 64), (64, 128), (128, 64), (128, 128)):
+        q, k, v = (torch.randn(r, d, generator=gen, device="cuda").bfloat16() for r in (64, n, n))
+        s, o = torch.empty(64, n, device="cuda"), torch.empty(64, d, device="cuda")
+        check(library().slam_wgmma_probe(q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr(),
+                                         d, n, stream_ptr(q)), "wgmma probe")
+        torch.cuda.synchronize()
+        want_s = q.float() @ k.float().T
+        want_o = s.bfloat16().float() @ v.float()
+        es = ((s - want_s).abs().max() / want_s.abs().max()).item()
+        eo = ((o - want_o).abs().max() / want_o.abs().max()).item()
+        log(f"[wgmma layouts] D={d} N={n}: S rel err {es:.2e}, O rel err {eo:.2e}")
+        if not (es <= 1e-3 and eo <= 1e-4):
+            raise AssertionError(f"wgmma layout probe D={d} N={n}: S {es}, O {eo}")
+
+
 def check_flash(gen) -> dict:
     from slam_llm_tpu_torch.ops.kernels.flash_attention import (
         apply_rope_tables,
@@ -247,7 +292,7 @@ def check_flash(gen) -> dict:
         ("tinyllama prefill, left-padded", 8, 448, 32, 4, 64, True, "left", False),
         ("head_dim 128", 2, 512, 32, 32, 128, True, "left", False),
     ]
-    worst, first = 0.0, None
+    worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, fused in cases:
         q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
         k = torch.randn(b, t, hkv, d, generator=gen, device=dev).bfloat16()
@@ -272,24 +317,29 @@ def check_flash(gen) -> dict:
         plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, mask, causal, rope=rope), reps=3)
         bound_ms, bound_by = bound(4 * h * d * attended_pairs(mask, causal),
                                    nbytes(q, k, v, mask, out, lse, *(rope or ())), BF16_FLOPS)
-        library_ms = None
+        library_ms = near_ms = None
         if pad in ("none", "right") and not fused:  # SDPA computes the same function
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             sdpa_mask = None if pad == "none" else mask[:, None, None, :].bool()
             library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=sdpa_mask, is_causal=causal and sdpa_mask is None, enable_gqa=h != hkv))
+        else:  # a near yardstick only: RoPE applied before, the equivalent boolean mask
+            qt, kt, vt = (x.transpose(1, 2) for x in (qr, kr, v))
+            near_mask = _bool_mask(mask, causal)
+            near_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=near_mask, enable_gqa=h != hkv))
         log(f"[K1] {name} {(b, t, h, hkv, d)} causal={causal}: max|out-ref| {err:.3e} "
             f"max|lse-ref| {lse_err:.3e} dead rows {n_dead} all-zero {dead_ok} | "
             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) share "
-            f"{bound_ms / ms:.3f} SDPA {library_ms if library_ms is None else round(library_ms, 4)} ms")
+            f"{bound_ms / ms:.3f} SDPA {_r(library_ms)} ms | {NEAR}: {_r(near_ms)} ms")
         if not (err <= 2e-2 and lse_err <= 1e-3 and dead_ok):
             raise AssertionError(f"K1 {name}: out err {err} (tol 2e-2), lse err {lse_err} "
                                  f"(tol 1e-3), dead rows zero {dead_ok}")
         worst = max(worst, err)
-        if first is None:
-            first = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                         at=f"{name} {(b, t, h, hkv, d)}")
-    return dict(max_abs_err=worst, **first)
+        rows.append(dict(at=f"{name} {(b, t, h, hkv, d)}", ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms, near_library_ms=near_ms))
+    return dict(max_abs_err=worst, **{k: v for k, v in rows[0].items() if k != "near_library_ms"},
+                near_library=NEAR, cases=rows)
 
 
 def check_flash_bwd(gen) -> dict:
@@ -307,7 +357,7 @@ def check_flash_bwd(gen) -> dict:
         ("tinyllama training, fused RoPE, left + right padded", 16, 512, 32, 4, 64, True, "both", True),
         ("whisper-like, not causal, right-padded", 2, 1500, 12, 12, 64, False, "right", False),
     ]
-    worst, first = 0.0, None
+    worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, fused in cases:
         q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
         k = torch.randn(b, t, hkv, d, generator=gen, device=dev).bfloat16()
@@ -334,26 +384,29 @@ def check_flash_bwd(gen) -> dict:
         plain_ms = time_ms(lambda: flash_attention_bwd_ref(*args32), reps=3)
         bound_ms, bound_by = bound(10 * h * d * attended_pairs(mask, causal),
                                    nbytes(q, k, v, mask, out, lse, dout, *got, *(rope or ())), BF16_FLOPS)
-        library_ms = None
-        if not causal and not fused:  # SDPA's backward computes the same gradients
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-            ref_out = torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask[:, None, None, :].bool(), enable_gqa=h != hkv)
-            dout_t = dout.transpose(1, 2)
-            library_ms = event_ms(lambda: torch.autograd.grad(ref_out, (qt, kt, vt), dout_t, retain_graph=True))
+        # SDPA's backward computes the same gradients where there is no fused
+        # RoPE and no causal left padding; else it is the near yardstick
+        same = not causal and not fused
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in ((q, k, v) if same else (qr, kr, v)))
+        ref_out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=_bool_mask(mask, causal), enable_gqa=h != hkv)
+        dout_t = dout.transpose(1, 2)
+        sdpa_bwd = event_ms(lambda: torch.autograd.grad(ref_out, (qt, kt, vt), dout_t, retain_graph=True))
+        library_ms, near_ms = (sdpa_bwd, None) if same else (None, sdpa_bwd)
+        del ref_out
         log(f"[K4] {name} {(b, t, h, hkv, d)}: rel L2 dq {rel[0]:.3e} dk {rel[1]:.3e} dv {rel[2]:.3e} "
             f"max abs {err:.3e}, dead rows {int(dead.sum())} dq zero {dead_ok}, deterministic "
             f"{deterministic} | kernel {ms:.4f} ms plain f32 {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
-            f"({bound_by}) share {bound_ms / ms:.3f} SDPA backward "
-            f"{library_ms if library_ms is None else round(library_ms, 4)} ms")
+            f"({bound_by}) share {bound_ms / ms:.3f} SDPA backward {_r(library_ms)} ms | {NEAR} "
+            f"(backward): {_r(near_ms)} ms")
         if not (max(rel) <= 2e-2 and dead_ok and deterministic):
             raise AssertionError(f"K4 {name}: rel L2 {rel} (tol 2e-2), dead dq zero {dead_ok}, "
                                  f"deterministic {deterministic}")
         worst = max(worst, err)
-        if first is None:
-            first = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                         max_rel_l2=max(rel), at=f"{name} {(b, t, h, hkv, d)}")
-    return dict(max_abs_err=worst, **first)
+        rows.append(dict(at=f"{name} {(b, t, h, hkv, d)}", ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms, near_library_ms=near_ms, max_rel_l2=max(rel)))
+    return dict(max_abs_err=worst, **{k: v for k, v in rows[0].items() if k != "near_library_ms"},
+                near_library=NEAR + " (backward)", cases=rows)
 
 
 def check_rowquant(gen) -> dict:
@@ -577,6 +630,7 @@ KERNELS = [
 
 def check_kernels() -> list:
     gen = torch.Generator(device="cuda").manual_seed(0)
+    check_wgmma_layouts(gen)
     checks = {
         "flash_attention_fwd": check_flash, "flash_attention_bwd": check_flash_bwd,
         "rowquant": check_rowquant, "rowquant_rot_sr": check_rowquant_rot_sr,

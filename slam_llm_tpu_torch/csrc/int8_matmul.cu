@@ -58,20 +58,27 @@
 // reference, bf16 within its one rounding. Both kernels load the scales
 // before their main loop, so no output store waits on a load.
 //
-// The TMA descriptors are encoded here with cuTensorMapEncodeTiled, reached
-// through cudaGetDriverEntryPoint(ByVersion), so the library links no libcuda.
+// The TMA descriptors are encoded per call (hopper.cuh: cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint(ByVersion), so the library links no
+// libcuda).
 
 #include <cooperative_groups.h>
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using slam::desc_kmajor;
+using slam::mbar_arrive;
+using slam::mbar_expect_tx;
+using slam::mbar_init;
+using slam::mbar_wait;
+using slam::smem_u32;
+using slam::tma_load_2d;
+using slam::wgmma_commit;
+using slam::wgmma_fence;
+using slam::wgmma_wait;
 
 // Every thread of both kernels holds its results as pairs of neighbouring
 // columns (col even). These move one pair, masked by N, as one vector access
@@ -145,52 +152,6 @@ struct WgParams {
   int m_tiles, n_tiles, k_tiles_per_split, splits, units;
 };
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-// spins until the barrier's phase differs from parity; a wait of more than
-// ~10 s (a broken pipeline) traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long t0 = clock64();
-  uint32_t done = 0;
-  do {
-    if (clock64() - t0 > 20000000000LL) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// K-major operand in shared memory, rows of 128 bytes under the 128-byte
-// swizzle: 8-row groups 1024 bytes apart (SBO); LBO is unused for this layout.
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  const uint32_t addr = smem_u32(p);
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
 // d[64 x 256] (+)= A[64 x 32] * B[256 x 32]^T, both K-major int8 in shared memory
 __device__ __forceinline__ void wgmma_m64n256k32(int (&d)[128], uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -222,13 +183,6 @@ __device__ __forceinline__ void wgmma_m64n256k32(int (&d)[128], uint64_t desc_a,
         "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
         "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // unit -> (M tile, N tile, split): consecutive units take the splits of one
@@ -323,8 +277,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       int prev = 0;
       for (int kt = 0; kt < p.k_tiles_per_split; ++kt) {
         mbar_wait(&full[stage], phase);
-        const uint64_t da = smem_desc(sa + stage * WG_A_BYTES + wg * 64 * WG_BK);
-        const uint64_t db = smem_desc(sb + stage * WG_B_BYTES);
+        const uint64_t da = desc_kmajor(sa + stage * WG_A_BYTES + wg * 64 * WG_BK);
+        const uint64_t db = desc_kmajor(sb + stage * WG_B_BYTES);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < WG_BK / 32; ++kk)  // +32 bytes along K = +2 in 16-byte units
@@ -629,37 +583,12 @@ __global__ void __launch_bounds__(SK_THREADS)
 // host side
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // a (rows, k) int8 row-major operand, loaded as boxes of box_rows x 128 bytes
 bool encode_operand(CUtensorMap* map, const void* base, int rows, int k, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k)};  // bytes between rows
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(WG_BK), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return slam::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, base, dims, strides, box);
 }
 
 // a kernel's launch attributes, set once per device (one bit each in `done`)

@@ -40,10 +40,13 @@ _SIGNATURES = {
     "slam_rowquant_fold": [_P, _P, _P, _P, _L, _I, _I, _I, _L, _P],
     # xq wq xs ws out scratch counters | m n k out_f32 path bm splits sms | stream
     "slam_int8_matmul": [_P] * 7 + [_I] * 8 + [_P],
-    # q k v mask out lse cos sin | b tq tk h hkv d | q/k/v strides | scale causal stream
-    "slam_flash_fwd": [_P] * 8 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _I, _P],
-    # q k v mask out dout lse cos sin delta dq dk dv (all contiguous) | b t h hkv d | scale causal stream
-    "slam_flash_bwd": [_P] * 13 + [_I] * 5 + [ctypes.c_float, _I, _P],
+    # q k v mask out lse cos sin k_rot | b tq tk h hkv d | q/k/v strides | scale causal hb bn sms stream
+    "slam_flash_fwd": [_P] * 9 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _I, _I, _I, _I, _P],
+    # q k v mask out dout lse cos sin lse_t dlt_t q_rot k_rot dq dk dv (all contiguous) | b t h hkv d |
+    # scale | causal hb tpad sms | stream
+    "slam_flash_bwd": [_P] * 16 + [_I] * 5 + [ctypes.c_float] + [_I] * 4 + [_P],
+    # q k v s_out o_out | d n | stream
+    "slam_wgmma_probe": [_P] * 5 + [_I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -17,13 +17,17 @@ the backward counter-rotates dq/dk. Self-attention only (Tq == Tk).
 
 The wrappers send CPU tensors to the twins and CUDA tensors to
 ``csrc/flash_attention.cu`` (K1) and ``csrc/flash_attention_bwd.cu`` (K4):
-bf16, D in {64, 128}; they raise on anything else.
+bf16, D in {64, 128}; they raise on anything else. ``plan_flash`` decides,
+in plain Python, how the kernels cut a call into units of work (rows per
+unit, query heads packed per unit, key or query tile, ring stages, grid,
+launch order, shared memory); the C entry points take its choices.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -135,6 +139,109 @@ def flash_attention_bwd_ref(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# ---- the kernels' planner ---------------------------------------------------
+
+UNIT_ROWS = 128  # query rows of a K1 / dq unit, keys of a dk/dv unit: two consumer warpgroups of 64
+SMEM_LIMIT = 232448  # dynamic shared memory one block may use on the H100 (227 KB)
+_BAR_BYTES = 8
+_ALIGN_SLACK = 1024  # the kernels align their shared memory to the 128-byte swizzle's 1024 bytes
+
+
+class PassPlan(NamedTuple):
+    """One kernel's cut of a call. ``rows``: rows of a unit (query rows =
+    positions x ``heads`` query heads of one kv head; keys for dk/dv, which
+    loops over the G heads); ``positions``: query positions of a unit (K1,
+    dq); ``tile``: keys (K1, dq) or queries (dk/dv) per ring stage; ``units``
+    over a persistent ``grid``, the longest first when ``longest_first``."""
+
+    rows: int
+    heads: int
+    positions: int
+    tile: int
+    stages: int
+    units: int
+    grid: int
+    longest_first: bool
+    smem_bytes: int
+
+
+class FlashPlan(NamedTuple):
+    fwd: PassPlan
+    dq: Optional[PassPlan]  # None where the backward kernel does not run (Tq != Tk)
+    dkv: Optional[PassPlan]
+
+
+def heads_per_unit(g: int) -> int:
+    """Query heads packed into one unit's rows: the largest divisor of the
+    group G = H / Hkv that fits the unit's 128 rows (G itself up to 128)."""
+    return max(x for x in range(1, min(g, UNIT_ROWS) + 1) if g % x == 0)
+
+
+def plan_flash(b: int, tq: int, tk: int, h: int, hkv: int, d: int, causal: bool, rope: bool,
+               sms: int = 132) -> FlashPlan:
+    """K1's and K4's plans for one call (mirrors the layouts in
+    csrc/flash_attention*.cu). K1 and the dq pass pack ``heads_per_unit``
+    query heads of one kv head into 128 rows, so a K / V tile serves all of
+    them, and double-buffer the unit's Q (and dout); K1 streams 128-key
+    tiles through 3 stages at D = 64 without the causal mask, else 64-key
+    tiles through 4 (3 at D = 128); dq 64-key tiles through 3. The dk/dv
+    pass owns 128 keys of one kv head and streams 64-query tiles of each of
+    the G heads through 3 stages (2 at D = 128). K4's two passes are one
+    launch: they share its grid and shared memory. Raises on what the
+    kernels do not take."""
+    if d not in (64, 128):
+        raise ValueError(f"flash kernels take head_dim 64 or 128, got {d}")
+    if min(b, tq, tk, h, hkv) < 1 or h % hkv:
+        raise ValueError(f"flash kernels need B, T >= 1 and H % Hkv == 0, got B={b} Tq={tq} Tk={tk} H={h} Hkv={hkv}")
+    if (causal or rope) and tq != tk:
+        raise ValueError(f"causal / fused-rope flash attention requires tq == tk, got {tq} vs {tk}")
+    g = h // hkv
+    # K1: 128-key tiles at D = 64 without the causal mask, else 64 (less of
+    # the diagonal tile is wasted, and D = 128 fits); two Q buffers and the
+    # output's staging rows
+    bn = 128 if d == 64 and not causal else 64
+    st_fwd = 3 if bn == 128 else (4 if d == 64 else 3)
+    hb = heads_per_unit(g)
+    units = -(-tq // (UNIT_ROWS // hb)) * (h // hb) * b
+    smem = (2 * UNIT_ROWS * d * 2 + UNIT_ROWS * (d * 2 + 16) + st_fwd * (2 * bn * d * 2 + bn // 32 * 4)
+            + (4 + 2 * st_fwd) * _BAR_BYTES + _ALIGN_SLACK)
+    fwd = PassPlan(UNIT_ROWS, hb, UNIT_ROWS // hb, bn, st_fwd, units, min(units, sms), causal, smem)
+    if tq != tk:
+        return FlashPlan(fwd, None, None)
+    # K4: the dk/dv and dq passes run as one persistent launch (dk/dv units
+    # first) in one shared-memory region, the larger of the two layouts
+    st_dkv = 3 if d == 64 else 2
+    dkv_bytes = 2 * UNIT_ROWS * d * 2 + st_dkv * (2 * 64 * d * 2 + 2 * 64 * 4)
+    dq_bytes = 4 * UNIT_ROWS * d * 2 + 3 * 2 * 64 * d * 2
+    smem = max(dkv_bytes, dq_bytes) + 3 * 2 * 4 + (2 + 2 * st_dkv + 4 + 2 * 3) * _BAR_BYTES + _ALIGN_SLACK
+    dq_units = -(-tq // (UNIT_ROWS // hb)) * (h // hb) * b
+    dkv_units = -(-tq // UNIT_ROWS) * hkv * b
+    grid = min(dq_units + dkv_units, sms)
+    dq = PassPlan(UNIT_ROWS, hb, UNIT_ROWS // hb, 64, 3, dq_units, grid, causal, smem)
+    dkv = PassPlan(UNIT_ROWS, 1, 0, 64, st_dkv, dkv_units, grid, causal, smem)
+    return FlashPlan(fwd, dq, dkv)
+
+
+def unit_rows(plan: PassPlan, b: int, t: int, h: int, u: int):
+    """``(batch, positions, heads)`` of the live rows of unit ``u`` of a K1
+    or dq pass, in the kernels' order: the rank (slowest) walks the query
+    tiles, reversed when ``longest_first``; then batch; then head group."""
+    groups = h // plan.heads
+    n_qt = -(-t // plan.positions)
+    rank, rem = divmod(u, groups * b)
+    bb, hg = divmod(rem, groups)
+    q0 = (n_qt - 1 - rank if plan.longest_first else rank) * plan.positions
+    r = torch.arange(plan.heads * plan.positions)
+    pos = q0 + r // plan.heads
+    live = pos < t
+    return bb, pos[live], (hg * plan.heads + r % plan.heads)[live]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check_kernel_inputs(d, *tensors):
     if any(t.dtype != torch.bfloat16 for t in tensors):
         raise TypeError(f"flash kernels take bfloat16, got {[t.dtype for t in tensors]}")
@@ -161,8 +268,8 @@ def flash_attention_fwd(
     tk, hkv = k.shape[1], k.shape[2]
     _check_kernel_inputs(d, q, k, v)
     for name, x in (("q", q), ("k", k), ("v", v)):
-        # 16-byte K/V row loads and 4-byte Q fragment loads
-        if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
+        # TMA: 16-byte aligned base and strides
+        if x.stride(-1) != 1 or any(s % 8 or s == 0 for s in x.stride()[:-1]) or x.data_ptr() % 16:
             raise ValueError(f"flash kernel needs {name} with a contiguous, 16-byte aligned last dim")
     mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
@@ -172,13 +279,16 @@ def flash_attention_fwd(
     from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
 
     cos, sin, cos_p, sin_p = _kernel_rope(rope, q.device)
+    plan = plan_flash(b, tq, tk, h, hkv, d, causal, rope is not None)
+    # fused RoPE: k is rotated into this scratch once, then loaded by TMA
+    k_rot = torch.empty((b, tk, hkv, d), dtype=k.dtype, device=q.device) if rope is not None else None
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     with torch.cuda.device(q.device):
         err = library().slam_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), cos_p, sin_p, b, tq, tk, h, hkv, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(scale), int(causal), stream_ptr(q),
+            out.data_ptr(), lse.data_ptr(), cos_p, sin_p, k_rot.data_ptr() if k_rot is not None else 0,
+            b, tq, tk, h, hkv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            float(scale), int(causal), plan.fwd.heads, plan.fwd.tile, _sm_count(q.device.index), stream_ptr(q),
         )
     check(err, "flash_attention")
     flash_attention_fwd.launches += 1
@@ -209,7 +319,14 @@ def flash_attention_bwd(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((b, t, h), dtype=torch.float32, device=q.device)
+    plan = plan_flash(b, t, t, h, hkv, d, causal, rope is not None)
+    # lse and delta in a (B, H, Tpad) layout, each query tile's values one
+    # 256-byte bulk copy; with fused RoPE, q and k rotated once
+    tpad = -(-t // 64) * 64
+    lse_t = torch.empty((b, h, tpad), dtype=torch.float32, device=q.device)
+    dlt_t = torch.empty_like(lse_t)
+    q_rot = torch.empty_like(q) if rope is not None else None
+    k_rot = torch.empty_like(k) if rope is not None else None
     from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
 
     cos, sin, cos_p, sin_p = _kernel_rope(rope, q.device)
@@ -217,9 +334,10 @@ def flash_attention_bwd(
     with torch.cuda.device(q.device):
         err = library().slam_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), cos_p, sin_p, delta.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), cos_p, sin_p, lse_t.data_ptr(), dlt_t.data_ptr(),
+            q_rot.data_ptr() if q_rot is not None else 0, k_rot.data_ptr() if k_rot is not None else 0,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, hkv, d,
-            float(scale), int(causal), stream_ptr(q),
+            float(scale), int(causal), plan.dq.heads, tpad, _sm_count(q.device.index), stream_ptr(q),
         )
     check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1

@@ -34,7 +34,7 @@ from slam_llm_tpu_torch.tools.profile_decode import _device_us, report
 FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("K3 int8_matmul", ("int8_matmul_",)),
     ("K4 flash_bwd", ("flash_bwd_",)),
-    ("K1 flash_fwd", ("flash_fwd_kernel",)),
+    ("K1 flash_fwd", ("flash_fwd_",)),
     ("K2 rowquant", ("rowquant",)),
     ("cuBLAS GEMM", ("gemm", "xmma", "cutlass", "nvjet", "Kernel2")),
 )

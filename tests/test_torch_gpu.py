@@ -29,12 +29,39 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+@pytest.mark.parametrize("d,n", [(64, 64), (64, 128), (128, 64), (128, 128)])
+def test_wgmma_layouts_on_one_tile(gen, d, n):
+    """The operand layouts K1 and K4 build on, pinned on one tile: S = Q K^T
+    with both operands K-major from TMA's 128-byte-swizzled panels, then
+    O = bf16(S) V with S taken from the accumulator registers as the A
+    fragment and V read MN-major (the transpose bit; at D = 128 across two
+    panels, the LBO)."""
+    from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
+
+    q = torch.randn(64, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(n, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(n, d, generator=gen, device="cuda").bfloat16()
+    s = torch.empty(64, n, device="cuda")
+    o = torch.empty(64, d, device="cuda")
+    check(library().slam_wgmma_probe(q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr(), d, n,
+                                     stream_ptr(q)), "wgmma probe")
+    torch.cuda.synchronize()
+    want_s = q.float() @ k.float().T
+    assert (s - want_s).abs().max().item() <= 1e-3 * want_s.abs().max().item()
+    want_o = s.bfloat16().float() @ v.float()  # the kernel's own S, rounded as the fragment rounds it
+    assert (o - want_o).abs().max().item() <= 1e-4 * want_o.abs().max().item()
+
+
 @pytest.mark.parametrize("t,h,hkv,d,causal", [(1500, 12, 12, 64, False), (448, 32, 4, 64, True),
-                                               (512, 8, 8, 128, True), (70, 4, 1, 64, True)])
+                                               (512, 8, 8, 128, True), (70, 4, 1, 64, True),
+                                               (1, 8, 1, 64, True), (449, 8, 4, 64, True),
+                                               (449, 12, 3, 64, False), (1500, 12, 12, 128, False),
+                                               (70, 16, 2, 128, True), (1500, 32, 4, 64, False)])
 def test_flash_kernel_matches_twin(gen, t, h, hkv, d, causal):
     """bf16 out within 2e-2 abs of the f32 twin on the same bf16 inputs (the
     kernel rounds p to bf16 for the p.v product); live-row lse within 1e-3;
-    rows with no visible key exactly 0."""
+    rows with no visible key exactly 0. T = 1 masks every key of both
+    batch rows."""
     b = 2
     q = torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
     k = torch.randn(b, t, hkv, d, generator=gen, device="cuda").bfloat16()
@@ -48,8 +75,40 @@ def test_flash_kernel_matches_twin(gen, t, h, hkv, d, causal):
     ref, ref_lse = tflash.flash_attention_ref(q.float(), k.float(), v.float(), mask, causal)
     live = mask.cumsum(1) > 0 if causal else torch.ones_like(mask, dtype=torch.bool)
     assert (out.float() - ref).abs().max().item() <= 2e-2
-    assert (lse - ref_lse)[live].abs().max().item() <= 1e-3
+    if bool(live.any()):
+        assert (lse - ref_lse)[live].abs().max().item() <= 1e-3
     assert bool((out[~live] == 0).all())
+
+
+def test_flash_kernel_strided_cross_attention(gen):
+    """Non-causal Tq != Tk on views of fused projections (q from a (B, T, 3,
+    H, D) tensor, k / v from a (B, T, 2, Hkv, D) one): the tensor maps take
+    the model's strides; G = 4."""
+    qkv = torch.randn(2, 70, 3, 8, 64, generator=gen, device="cuda").bfloat16()
+    kv = torch.randn(2, 449, 2, 2, 64, generator=gen, device="cuda").bfloat16()
+    q, k, v = qkv[:, :, 0], kv[:, :, 0], kv[:, :, 1]
+    mask = torch.ones(2, 449, dtype=torch.int32, device="cuda")
+    mask[1, 300:] = 0
+    out, lse = tflash.flash_attention_fwd(q, k, v, mask)
+    ref, ref_lse = tflash.flash_attention_ref(q.float(), k.float(), v.float(), mask)
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+def test_flash_row_with_every_key_masked(gen):
+    """A batch row whose keys are all masked: its outputs are exactly 0, its
+    dq exactly 0, and its dk / dv exactly 0 (no pair of it is valid)."""
+    q, k, v = _qkv(2, 130, 8, 2, 64, gen)
+    dout = torch.randn_like(q)
+    mask = torch.ones(2, 130, dtype=torch.int32, device="cuda")
+    mask[0] = 0
+    for causal in (False, True):
+        out, lse = tflash.flash_attention_fwd(q, k, v, mask, causal)
+        dq, dk, dv = tflash.flash_attention_bwd(q, k, v, mask, out, lse, dout, causal)
+        assert bool((out[0] == 0).all()) and bool((dq[0] == 0).all())
+        assert bool((dk[0] == 0).all()) and bool((dv[0] == 0).all())
+        ref, _ = tflash.flash_attention_ref(q.float(), k.float(), v.float(), mask, causal)
+        assert (out[1].float() - ref[1]).abs().max().item() <= 2e-2
 
 
 def test_flash_kernel_cross_attention_and_routing(gen):
@@ -297,6 +356,10 @@ def _rel_l2(a, b):
     (16, 512, 32, 4, 64, True, True, "both"),  # the training path's shape
     (2, 1500, 12, 12, 64, False, False, "right"),  # whisper-small
     (2, 256, 8, 8, 128, True, False, "left"),
+    (2, 449, 8, 2, 64, True, True, "left"),  # G = 4, ragged T
+    (2, 70, 8, 8, 128, False, False, "right"),
+    (2, 1500, 16, 2, 64, True, True, "both"),  # G = 8 at whisper's T
+    (3, 130, 4, 2, 128, True, True, "left"),
 ])
 def test_flash_backward_kernel_matches_twin(gen, b, t, h, hkv, d, causal, rope, pad):
     """K4 dq / dk / dv within 2e-2 relative L2 of the f32 twin (the kernel

@@ -71,6 +71,71 @@ def test_flash_wrapper_uses_twin_on_cpu_and_checks_causal_shapes():
         tflash.flash_attention_fwd(q[:, :4], k, k, mask, causal=True)
 
 
+# the slices' shapes (B, Tq, Tk, H, Hkv, D, causal, rope), then edges: cross
+# attention, T = 1, G = 3, G above a unit's 128 rows, D = 128
+FLASH_PLAN_SHAPES = [
+    (8, 1500, 1500, 12, 12, 64, False, False),  # whisper-small encoder, decode batch
+    (16, 1500, 1500, 12, 12, 64, False, False),  # the same, training batch
+    (8, 512, 512, 32, 4, 64, True, False),  # TinyLlama prefill
+    (16, 512, 512, 32, 4, 64, True, True),  # TinyLlama training, fused RoPE
+    (2, 70, 200, 4, 2, 64, False, False),
+    (2, 1, 1, 8, 1, 128, True, False),
+    (3, 449, 449, 12, 4, 128, True, True),
+    (1, 70, 70, 256, 1, 64, True, False),
+]
+
+
+@pytest.mark.parametrize("shape", FLASH_PLAN_SHAPES)
+def test_flash_plan_covers_every_row_once_and_fits(shape):
+    """K1's and dq's units cover every (batch, position, head) row exactly
+    once; dk/dv's cover every key of every kv head; every pass fits the
+    card's 227 KB of shared memory; G >= 2 heads are packed into a unit."""
+    b, tq, tk, h, hkv, d, causal, rope = shape
+    plan = tflash.plan_flash(*shape)
+    for p in (plan.fwd, plan.dq):
+        if p is None:
+            continue
+        count = torch.zeros(b, tq, h, dtype=torch.int32)
+        for u in range(p.units):
+            bb, pos, head = tflash.unit_rows(p, b, tq, h, u)
+            count[bb, pos, head] += 1
+        assert bool((count == 1).all())
+        assert p.heads * p.positions <= p.rows
+        assert (h // hkv) % p.heads == 0 and p.heads >= min(h // hkv, 2)
+        assert p.smem_bytes <= tflash.SMEM_LIMIT
+    assert plan.fwd.grid == min(plan.fwd.units, 132)
+    assert (plan.dq is None) == (tq != tk) == (plan.dkv is None)
+    if plan.dkv is not None:  # K4's two passes: one launch, one grid
+        assert plan.dkv.units * plan.dkv.rows >= tk * hkv * b and plan.dkv.units == -(-tk // 128) * hkv * b
+        assert plan.dq.grid == plan.dkv.grid == min(plan.dq.units + plan.dkv.units, 132)
+        assert plan.dkv.smem_bytes == plan.dq.smem_bytes <= tflash.SMEM_LIMIT
+
+
+def test_flash_plan_at_the_slices_shapes():
+    """The plans PERF.md names: 128-row units, 128 positions of one head at
+    whisper's G = 1, 16 positions x 8 heads at TinyLlama's G = 8; K1 takes
+    128-key tiles through 3 stages without the causal mask at D = 64, else
+    64-key tiles (4 stages, 3 at D = 128); dk/dv 3 stages (2 at D = 128);
+    causal units longest first; and the planner refuses what the kernels do
+    not take."""
+    whisper = tflash.plan_flash(8, 1500, 1500, 12, 12, 64, False, False)
+    assert whisper.fwd == tflash.PassPlan(128, 1, 128, 128, 3, 1152, 132, False, 150656)
+    assert whisper.dq == tflash.PassPlan(128, 1, 128, 64, 3, 1152, 132, False, 115880)
+    assert whisper.dkv == tflash.PassPlan(128, 1, 0, 64, 3, 1152, 132, False, 115880)
+    prefill = tflash.plan_flash(8, 512, 512, 32, 4, 64, True, False)
+    assert prefill.fwd == tflash.PassPlan(128, 8, 16, 64, 4, 1024, 132, True, 117888)
+    train = tflash.plan_flash(16, 512, 512, 32, 4, 64, True, True)
+    assert train.fwd.units == 2048 and train.dq.units == 2048 and train.dkv.units == 256
+    wide = tflash.plan_flash(2, 512, 512, 32, 32, 128, True, False)
+    assert (wide.fwd.tile, wide.fwd.stages, wide.dq.stages, wide.dkv.stages) == (64, 3, 3, 2)
+    assert max(wide.fwd.smem_bytes, wide.dq.smem_bytes, wide.dkv.smem_bytes) <= tflash.SMEM_LIMIT
+    for bad in ((2, 64, 64, 4, 4, 32, False, False), (2, 64, 64, 6, 4, 64, False, False),
+                (2, 64, 80, 4, 4, 64, True, False), (2, 64, 80, 4, 4, 64, False, True),
+                (2, 0, 0, 4, 4, 64, False, False)):
+        with pytest.raises(ValueError):
+            tflash.plan_flash(*bad)
+
+
 # ---- K2 rowquant -----------------------------------------------------------
 
 
