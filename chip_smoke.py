@@ -409,13 +409,17 @@ def check_flash_bwd(gen) -> dict:
                 near_library=NEAR + " (backward)", cases=rows)
 
 
+def _k2_case(at: str, ms: float, plain_ms: float, bound_ms: float) -> dict:
+    return dict(at=at, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, share=bound_ms / ms)
+
+
 def check_rowquant(gen) -> dict:
     from slam_llm_tpu_torch.ops.kernels.rowquant import rowquant, rowquant_ref
 
     dev = "cuda"
-    worst, first = 0.0, None
+    worst, first, rows = 0.0, None, []
     # prefill (M = 4096), beam decode (M = 32) and training (M = 8192) shapes first, then others
-    for m, k in ((4096, 2048), (4096, 5632), (32, 2048), (32, 5632), (8192, 2048), (3584, 2048),
+    for m, k in ((4096, 2048), (4096, 5632), (32, 2048), (32, 5632), (8192, 2048), (8192, 5632), (3584, 2048),
                  (1337, 5632), (3, 2056)):
         x = torch.randn(m, k, generator=gen, device=dev) * 3
         x[0] = 0.0  # all-zero row
@@ -437,10 +441,11 @@ def check_rowquant(gen) -> dict:
         if not exact:
             raise AssertionError(f"K2 ({m}, {k}) not bit-exact: max |q - ref| {err}")
         worst = max(worst, float(err))
+        rows.append(_k2_case(f"({m}, {k}) bf16", ms, plain_ms, bound_ms))
         if first is None:
             first = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                          at=f"({m}, {k}) bf16")
-    return dict(max_abs_err=worst, **first)
+    return dict(max_abs_err=worst, **first, cases=rows)
 
 
 def check_rowquant_rot_sr(gen) -> dict:
@@ -450,7 +455,7 @@ def check_rowquant_rot_sr(gen) -> dict:
     from slam_llm_tpu_torch.ops.kernels.rowquant import rowquant, rowquant_ref
 
     dev = "cuda"
-    worst, first = 0.0, None
+    worst, first, rows = 0.0, None, []
     for m, k, seed, rotate in ((8192, 2048, 1234567, True), (8192, 256, 7, True), (8192, 5632, 2**32 - 1, True),
                                (37, 2048, None, True), (37, 2048, 99, False)):
         x = torch.randn(m, k, generator=gen, device=dev) * 1e-3
@@ -470,10 +475,11 @@ def check_rowquant_rot_sr(gen) -> dict:
         if not exact:
             raise AssertionError(f"K2 rot/SR ({m}, {k}) not bit-exact: max |q - ref| {err}")
         worst = max(worst, float(err))
+        rows.append(_k2_case(f"({m}, {k}) seed={seed} rotate={rotate}", ms, plain_ms, bound_ms))
         if first is None:
             first = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                          at=f"({m}, {k}) rotate + SR")
-    return dict(max_abs_err=worst, **first)
+    return dict(max_abs_err=worst, **first, cases=rows)
 
 
 def check_rowquant_fold(gen) -> dict:
@@ -484,7 +490,7 @@ def check_rowquant_fold(gen) -> dict:
     from slam_llm_tpu_torch.ops.kernels.rowquant import rowquant, rowquant_ref
 
     dev = "cuda"
-    worst, first = 0.0, None
+    worst, first, rows = 0.0, None, []
     cases = [(8192, k, dt, seed) for k in (2048, 5632, 256) for dt in (torch.bfloat16,) for seed in (None, 977)]
     cases += [(1024, 32000, torch.float32, 2**32 - 5), (1024, 32000, torch.float32, None), (37, 2056, torch.bfloat16, 3)]
     for m, k, dt, seed in cases:
@@ -507,10 +513,11 @@ def check_rowquant_fold(gen) -> dict:
         if not exact:
             raise AssertionError(f"K2 fold {name} not bit-exact: max |q - ref| {err}")
         worst = max(worst, float(err))
+        rows.append(_k2_case(name, ms, plain_ms, bound_ms))
         if first is None and seed is not None:
             first = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None, at=name)
     return dict(max_abs_err=worst, variants=["deterministic", "stochastic rounding", "bf16 input", "f32 input"],
-                **first)
+                **first, cases=rows)
 
 
 def _k3_line(xq, wqs, out, plan, ms: float) -> tuple:
@@ -530,7 +537,8 @@ def _k3_line(xq, wqs, out, plan, ms: float) -> tuple:
 def check_int8_matmul_f32(gen) -> dict:
     """K3's f32 epilogue at the int8 CE head's logits, (1024, 2048 -> 32000),
     and at an f32 dx shape: bit-exact against the f64 twin."""
-    from slam_llm_tpu_torch.ops.quant import _sm_count, int8_matmul, int8_matmul_ref, plan_int8_matmul
+    from slam_llm_tpu_torch.kernels.build import sm_count
+    from slam_llm_tpu_torch.ops.quant import int8_matmul, int8_matmul_ref, plan_int8_matmul
 
     dev = "cuda"
     worst, first = 0.0, None
@@ -550,7 +558,7 @@ def check_int8_matmul_f32(gen) -> dict:
         bf16_ms = time_ms(lambda: torch.mm(xb, wb.T, out_dtype=torch.float32))
         log(f"[K3 f32] M={m} K={k} F={f}: bit-exact {exact} max abs {err:.3e} | kernel {ms:.4f} ms "
             f"plain(f64) {plain_ms:.4f} ms bf16 matmul (f32 out) {bf16_ms:.4f} ms")
-        bound_ms, bound_by, int_mm = _k3_line(xq, itertools.repeat(wq), out, plan_int8_matmul(m, f, k, _sm_count(0)),
+        bound_ms, bound_by, int_mm = _k3_line(xq, itertools.repeat(wq), out, plan_int8_matmul(m, f, k, sm_count(0)),
                                               ms)
         if not exact:
             raise AssertionError(f"K3 f32 M={m} K={k} F={f}: max |out - ref| {err}")
@@ -566,7 +574,8 @@ def check_int8_matmul(gen) -> dict:
     for each), within one bf16 ulp of the f64 twin and bit-identical on a
     second run; its time beside the bound, ``torch._int_mm`` and the bf16
     cuBLAS product of the same shape, which reads twice the weight bytes."""
-    from slam_llm_tpu_torch.ops.quant import _sm_count, int8_matmul, int8_matmul_ref, plan_int8_matmul
+    from slam_llm_tpu_torch.kernels.build import sm_count
+    from slam_llm_tpu_torch.ops.quant import int8_matmul, int8_matmul_ref, plan_int8_matmul
 
     dev = "cuda"
     worst, first = 0.0, None
@@ -603,7 +612,7 @@ def check_int8_matmul(gen) -> dict:
             f"kernel {ms:.4f} ms plain(f64) {plain_ms:.4f} ms bf16 matmul {bf16_ms:.4f} ms"
             f"{' (weights cold in L2)' if m <= 32 else ''} | eager call with launch "
             f"{host_ms(lambda: int8_matmul(xq, wq, xs, ws, torch.bfloat16)):.4f} ms")
-        bound_ms, bound_by, int_mm = _k3_line(xq, wqs, out, plan_int8_matmul(m, f, k, _sm_count(0)), ms)
+        bound_ms, bound_by, int_mm = _k3_line(xq, wqs, out, plan_int8_matmul(m, f, k, sm_count(0)), ms)
         if ulp > 1 or not deterministic:
             raise AssertionError(f"K3 M={m} K={k} F={f}: {ulp} bf16 ulps from the reference, "
                                  f"run-to-run identical {deterministic}")
@@ -668,6 +677,8 @@ def write_corpus(root: Path, n: int = 16, seed: int = 0, name: str = "test") -> 
             f.write(json.dumps({"key": f"utt{i}", "source": str(path), "target": f"utterance {i}"}) + "\n")
     return manifest
 
+
+RECIPE_LAYERS = 22  # TinyLlama-1.1B's decoder layers
 
 # the kernels decode runs; K3's beam steps (M = 32) take its split-K path
 DECODE_PATH = ("flash_attention_fwd", "rowquant", "int8_matmul", "int8_matmul/splitk")
@@ -772,6 +783,10 @@ def run_slice() -> dict:
     missing = [name for name in DECODE_PATH if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the decode path: {missing}")
+    forwards = res["calls"] + res["decode_steps"]  # one prefill per batch, then the beam steps
+    log(f"[slice] K2 deterministic {launches['rowquant']} launches over {res['calls']} prefills and "
+        f"{res['decode_steps']} beam steps: {launches['rowquant'] / forwards / RECIPE_LAYERS:.2f} per layer per "
+        f"forward (q / k / v share one, gate / up one)")
     check_prefill_against_cpu(cfg)
     return launches
 
@@ -828,6 +843,47 @@ def _finetune(cfg, label: str):
     return res, launches, dict(step_ms=1000 * step_s, peak_gib=peak / 2**30, own_peak_gib=(peak - base) / 2**30)
 
 
+K2_KERNELS = ("rowquant", "rowquant_rot_sr", "rowquant_fold")
+
+
+def k2_per_step(trainer, dataset, launches: dict, n_steps: int, label: str) -> dict:
+    """K2 in the training step: launches per step of the phase's run (which
+    includes its validation), and the launches and device ms of one forward
+    + backward of 16 utterances under ``torch.profiler``, with seeds set,
+    none drawn, and no update; the quant seeds and the train / eval mode
+    are put back afterwards, so the trainer's state is left as it was."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from slam_llm_tpu_torch.tools.profile_train import split_by_family
+
+    batch = trainer.put_batch(dataset.collator([dataset[i] for i in range(16)]))
+    params = list(trainer.trainable.values())
+    seeds = [m.quant_seed for m in trainer.sr_modules] + ([trainer.model.llm.ce_seed] if trainer.ce_sr else [])
+    training = trainer.model.training
+    trainer.set_quant_seeds([12345] * len(seeds))
+    trainer.model.eval()
+
+    def fwd_bwd():
+        out = trainer.model(batch)
+        torch.autograd.grad(out["loss"], params, allow_unused=True)
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    before = {n: counters[n].launches for n in K2_KERNELS}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fwd_bwd()
+        torch.cuda.synchronize()
+    one = {n: counters[n].launches - before[n] for n in K2_KERNELS}
+    trainer.set_quant_seeds(seeds)
+    trainer.model.train(training)
+    ms = split_by_family(prof).get("K2 rowquant", 0.0)
+    log(f"[{label}] K2 per step: {ms:.2f} ms of device time and launches {one} in one forward + backward of "
+        f"16 utterances ({one['rowquant'] / RECIPE_LAYERS:.2f} deterministic per layer); over the run "
+        f"{ {n: round(launches[n] / n_steps, 1) for n in K2_KERNELS} } per step, validation included")
+    return dict(ms=ms, launches=one)
+
+
 def _check_moved(trainer, cfg, steps: int):
     """Every trainable tensor moved away from the seeded init."""
     from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
@@ -872,6 +928,7 @@ def run_training() -> dict:
         raise AssertionError(f"checkpoint missing: {ckpt}")
     log(f"[train] checkpoint {ckpt} ({ckpt.stat().st_size / 2**20:.1f} MiB)")
     dataset = _check_moved(trainer, cfg, len(steps))
+    k2_per_step(trainer, dataset, launches, len(steps), "train")
     del res
     tmp_off = Path(tempfile.mkdtemp(prefix="chip_smoke_noremat_"))
     res_off, _, remat_off = _finetune(_train_cfg(tmp_off, NO_REMAT_STEPS, "++train_config.shard.remat=false",
@@ -938,7 +995,9 @@ def run_training_modes() -> dict:
                              f"{trainer2.optimizer.inner.count} inner updates")
     log(f"[modes] resumed from {ckpt} at step {MODES_STEPS}: steps {[s['step'] for s in res2['steps']]}, "
         f"{trainer2.optimizer.inner.count} inner updates")
-    check_train_grads_against_cpu(trainer2, _check_moved(trainer2, cfg2, trainer2.step), "modes")
+    dataset = _check_moved(trainer2, cfg2, trainer2.step)
+    k2_per_step(trainer2, dataset, {k: launches[k] + launches2[k] for k in launches}, MODES_STEPS + 2, "modes")
+    check_train_grads_against_cpu(trainer2, dataset, "modes")
     return {k: launches[k] + launches2[k] for k in launches}
 
 

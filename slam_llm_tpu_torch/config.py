@@ -265,9 +265,9 @@ class LogConfig:
     wandb_exp_name: str = "exp"
     log_file: Optional[str] = None
     log_interval: int = 5
-    # write a jax.profiler trace of training steps [profile_start,
-    # profile_start+profile_steps) to this dir (SURVEY §5.1's TPU equivalent
-    # of torch.profiler; view with tensorboard/xprof)
+    # write a torch.profiler Chrome trace of training steps [profile_start,
+    # profile_start+profile_steps) of the run to this dir (train/loop.py;
+    # open it in chrome://tracing or Perfetto)
     profile_dir: Optional[str] = None
     profile_start: int = 3
     profile_steps: int = 5

@@ -15,6 +15,7 @@ Every C entry point returns ``cudaGetLastError()`` right after its launch;
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -35,9 +36,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "slam_rowquant": [_P, _P, _P, _L, _I, _P],
-    "slam_rowquant_rot_sr": [_P, _P, _P, _L, _I, _I, _I, _L, _P],
-    "slam_rowquant_fold": [_P, _P, _P, _P, _L, _I, _I, _I, _L, _P],
+    # x fold q s | m k x_f32 rotate stochastic seed | threads rows units fold_smem | stream
+    "slam_rowquant": [_P] * 4 + [_L, _I, _I, _I, _I, _L] + [_I] * 4 + [_P],
     # xq wq xs ws out scratch counters | m n k out_f32 path bm splits sms | stream
     "slam_int8_matmul": [_P] * 7 + [_I] * 8 + [_P],
     # q k v mask out lse cos sin k_rot | b tq tk h hkv d | q/k/v strides | scale causal hb bn sms stream
@@ -132,6 +132,15 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().slam_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: the planners size
+    persistent grids and K splits by it."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr(t) -> int:

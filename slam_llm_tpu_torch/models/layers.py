@@ -26,7 +26,7 @@ from torch import nn
 
 from slam_llm_tpu_torch.models.remat import DEAD_SITES, SumOf, Tape, placeholder
 from slam_llm_tpu_torch.ops.kernels.flash_attention import Rope, apply_rope_tables, flash_attention
-from slam_llm_tpu_torch.ops.quant import int8_dot
+from slam_llm_tpu_torch.ops.quant import SharedActQuant, int8_dot
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -77,7 +77,9 @@ class DenseGeneralLora(nn.Module):
 
     Under activation checkpointing (``tape``, ``models.remat``) the dense is
     the checkpoint site ``site`` (``attn_q`` ...), and each of its matrix
-    products a ``dot`` site.
+    products a ``dot`` site. ``pre_quant`` (an int8 base only): the
+    ``ops.quant.SharedActQuant`` of this input, which the denses over one
+    input share, asked only if the base product is computed.
     """
 
     def __init__(
@@ -128,14 +130,15 @@ class DenseGeneralLora(nn.Module):
                 torch.zeros(features, lora_rank, dtype=param_dtype, device=device), requires_grad=False
             )
 
-    def _base(self, h: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+    def _base(self, h: torch.Tensor, out: Optional[torch.Tensor], pre_quant: Optional[SharedActQuant]) -> torch.Tensor:
         if self.quant == "int8":
             return int8_dot(h, self.kernel_q, self.kernel_scale, bwd=self.quant_bwd, seed=self.quant_seed,
                             w_rot=(self.kernel_qr, self.kernel_scale_r) if self.quant_bwd == "int8_rot" else None,
-                            w_t=getattr(self, "kernel_qt", None), out=out)
+                            w_t=getattr(self, "kernel_qt", None), out=out, pre_quant=pre_quant)
         return linear(h, self.weight.to(self.dtype), out)
 
-    def forward(self, x: torch.Tensor, tape: Optional[Tape] = None, site: Optional[str] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tape: Optional[Tape] = None, site: Optional[str] = None,
+                pre_quant: Optional[SharedActQuant] = None) -> torch.Tensor:
         h = x.to(self.dtype)
         # a dense whose output is saved (or read by no backward) replays
         # lazily: no product its own backward does not read is formed again
@@ -158,7 +161,7 @@ class DenseGeneralLora(nn.Module):
                 tape.put(self, part, y)
             return y
 
-        y = dot("base", lambda: self._base(h, None), lambda out: self._base(h, out), lazy)
+        y = dot("base", lambda: self._base(h, None, pre_quant), lambda out: self._base(h, out, pre_quant), lazy)
         parts = [y]
         if self.bias is not None:
             parts.append(self.bias.to(self.dtype))

@@ -40,7 +40,7 @@ from slam_llm_tpu_torch.models.layers import (
     rope_tables,
 )
 from slam_llm_tpu_torch.models.remat import DENSE_SITES, Tape, checkpoint_layer, policy_names
-from slam_llm_tpu_torch.ops.quant import resolve_bwd
+from slam_llm_tpu_torch.ops.quant import SharedActQuant, resolve_bwd
 
 
 @dataclass(frozen=True)
@@ -180,6 +180,12 @@ def _dense(c: LLMConfig, name: str, fin: int, fout: int, use_bias: bool, device)
     )
 
 
+def _shared_quant(c: LLMConfig, x: torch.Tensor) -> Optional[SharedActQuant]:
+    """The int8 form of a dense input that several int8 denses read, formed
+    lazily by the first one that computes its product."""
+    return SharedActQuant(x.to(c.dtype)) if c.base_quant == "int8" else None
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: LLMConfig, device=None):
         super().__init__()
@@ -213,9 +219,10 @@ class Attention(nn.Module):
         k/v for the caller to write at ``cache_index``."""
         c = self.cfg
         b, t, _ = x.shape
-        q = self.q_proj(x, tape, DENSE_SITES["q_proj"]).reshape(b, t, c.n_heads, c.head_dim)
-        k = self.k_proj(x, tape, DENSE_SITES["k_proj"]).reshape(b, t, c.n_kv_heads, c.head_dim)
-        v = self.v_proj(x, tape, DENSE_SITES["v_proj"]).reshape(b, t, c.n_kv_heads, c.head_dim)
+        xq = _shared_quant(c, x)  # one K2 for the three projections
+        q = self.q_proj(x, tape, DENSE_SITES["q_proj"], xq).reshape(b, t, c.n_heads, c.head_dim)
+        k = self.k_proj(x, tape, DENSE_SITES["k_proj"], xq).reshape(b, t, c.n_kv_heads, c.head_dim)
+        v = self.v_proj(x, tape, DENSE_SITES["v_proj"], xq).reshape(b, t, c.n_kv_heads, c.head_dim)
         cos, sin = rope_tables(positions, c.head_dim, c.rope_theta)
         if cache_k is None:
             # training path: the flash kernels rotate q/k as they load them
@@ -267,8 +274,9 @@ class MLP(nn.Module):
             setattr(self, name, _dense(c, name, fin, fout, False, device))
 
     def forward(self, x: torch.Tensor, tape: Optional[Tape] = None) -> torch.Tensor:
-        gate = self.gate_proj(x, tape, DENSE_SITES["gate_proj"])
-        up = self.up_proj(x, tape, DENSE_SITES["up_proj"])
+        xq = _shared_quant(self.cfg, x)  # one K2 for gate and up
+        gate = self.gate_proj(x, tape, DENSE_SITES["gate_proj"], xq)
+        up = self.up_proj(x, tape, DENSE_SITES["up_proj"], xq)
         return self.down_proj(F.silu(gate) * up, tape, DENSE_SITES["down_proj"])
 
 

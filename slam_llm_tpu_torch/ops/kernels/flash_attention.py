@@ -25,7 +25,6 @@ launch order, shared memory); the C entry points take its choices.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -237,11 +236,6 @@ def unit_rows(plan: PassPlan, b: int, t: int, h: int, u: int):
     return bb, pos[live], (hg * plan.heads + r % plan.heads)[live]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _check_kernel_inputs(d, *tensors):
     if any(t.dtype != torch.bfloat16 for t in tensors):
         raise TypeError(f"flash kernels take bfloat16, got {[t.dtype for t in tensors]}")
@@ -276,7 +270,7 @@ def flash_attention_fwd(
     lse = torch.empty((b, tq, h), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
+    from slam_llm_tpu_torch.kernels.build import check, library, sm_count, stream_ptr
 
     cos, sin, cos_p, sin_p = _kernel_rope(rope, q.device)
     plan = plan_flash(b, tq, tk, h, hkv, d, causal, rope is not None)
@@ -288,7 +282,7 @@ def flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             out.data_ptr(), lse.data_ptr(), cos_p, sin_p, k_rot.data_ptr() if k_rot is not None else 0,
             b, tq, tk, h, hkv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(scale), int(causal), plan.fwd.heads, plan.fwd.tile, _sm_count(q.device.index), stream_ptr(q),
+            float(scale), int(causal), plan.fwd.heads, plan.fwd.tile, sm_count(q.device.index), stream_ptr(q),
         )
     check(err, "flash_attention")
     flash_attention_fwd.launches += 1
@@ -327,7 +321,7 @@ def flash_attention_bwd(
     dlt_t = torch.empty_like(lse_t)
     q_rot = torch.empty_like(q) if rope is not None else None
     k_rot = torch.empty_like(k) if rope is not None else None
-    from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
+    from slam_llm_tpu_torch.kernels.build import check, library, sm_count, stream_ptr
 
     cos, sin, cos_p, sin_p = _kernel_rope(rope, q.device)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
@@ -337,7 +331,7 @@ def flash_attention_bwd(
             dout.data_ptr(), lse.data_ptr(), cos_p, sin_p, lse_t.data_ptr(), dlt_t.data_ptr(),
             q_rot.data_ptr() if q_rot is not None else 0, k_rot.data_ptr() if k_rot is not None else 0,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, hkv, d,
-            float(scale), int(causal), plan.dq.heads, tpad, _sm_count(q.device.index), stream_ptr(q),
+            float(scale), int(causal), plan.dq.heads, tpad, sm_count(q.device.index), stream_ptr(q),
         )
     check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1

@@ -1,17 +1,20 @@
 """Per-row dynamic int8 quantization: the CUDA kernel K2 and its plain twin.
 
 Counterpart of ``slam_llm_tpu/ops/kernels/rowquant.py``. ``rowquant`` sends
-a CPU tensor to ``rowquant_ref`` and a CUDA tensor to one of three kernels in
-``csrc/rowquant.cu``; it raises on what a kernel does not take.
+a CPU tensor to ``rowquant_ref`` and a CUDA tensor to the one kernel of
+``csrc/rowquant.cu``, through three wrappers with a launch count each; it
+raises on what the kernel does not take. ``plan_rowquant`` (pure Python)
+picks the kernel's block, rows per group and units per thread from the
+shape.
 
-* Deterministic rounding (forward activations): ``q = round(x / s)``, one
-  warp per row, bit-exact against the reference's ``jnp.round(x / s)``.
-  Counted on ``rowquant.launches``.
+* Deterministic rounding (forward activations): ``q = round(x / s)``,
+  bit-exact against the reference's ``jnp.round(x / s)``. Counted on
+  ``rowquant.launches``.
 * ``seed`` (stochastic rounding, ``q = floor(y + u)``) and ``rotate`` (the
   block-diagonal Hadamard of ``rotate_cols`` before quantizing), the dy
-  quantization of the ``int8_rot`` backward: one block per row, a fast
-  Walsh-Hadamard transform in f32 and a counter-based Philox4x32-10 stream.
-  Counted on ``rowquant_rot_sr.launches``.
+  quantization of the ``int8_rot`` backward: a fast Walsh-Hadamard
+  transform in f32 and a counter-based Philox4x32-10 stream. Counted on
+  ``rowquant_rot_sr.launches``.
 * ``fold`` (a per-column f32 vector multiplied into x first, one rounding):
   the dy quantization of the ``int8`` (deterministic) and ``int8_sr``
   (stochastic) backward modes, whose weight scales sit inside the dx
@@ -29,8 +32,9 @@ bit; against JAX the stochastic rounding is tested by its statistics.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -167,6 +171,128 @@ def _check_kernel_input(x: torch.Tensor, k_multiple: int, dtypes=(torch.bfloat16
         )
 
 
+# ---- the kernel's plan -------------------------------------------------------
+
+MAX_THREADS = 512
+MAX_ROWS = 64  # rows per group
+MAX_VALUES = 64  # f32 values a thread holds in registers
+MAX_K = MAX_THREADS * MAX_VALUES  # the longest row one block holds; longer rows take the long-row path
+ONE_ROW_UNITS = 4  # above this many units a thread, a group is one row (the kernel's rule)
+FOLD_SMEM_MAX = 128 * 1024  # fold bytes the kernel stages in shared memory
+SMEM_MAX = 200 * 1024  # dynamic shared memory of a block: fold and the stochastic-rounding stage
+MIN_GROUPS_PER_SM = 4  # row groups per SM before rows are grouped at all
+BLOCK_TARGET = 128  # threads a block should have at least, where rows allow (64 under the rotation)
+SR_THREADS = 128  # the block of a one-row group under stochastic rounding without the rotation
+
+
+class RowquantPlan(NamedTuple):
+    """How K2 runs one call (``csrc/rowquant.cu``): ``threads`` per block,
+    ``rows`` per group, ``units`` per thread per group (16 bytes of x, or 32
+    columns under the rotation; 0 for the long-row path), and whether
+    ``fold`` sits in shared memory (beside the group's f32 stage under
+    stochastic rounding)."""
+
+    threads: int
+    rows: int
+    units: int
+    fold_smem: bool
+
+
+def unit_elems(elem_bytes: int, rotate: bool) -> int:
+    """Columns a thread takes at a time: 32 under the rotation, else 16 bytes."""
+    return 32 if rotate else 16 // elem_bytes
+
+
+def _threads_for(units: int, max_per_thread: int, target: int) -> Tuple[float, int, int]:
+    """(fill, threads, units per thread) for a group of ``units``: the
+    multiple of 32 threads and the units each takes that leave the fewest
+    threads idle, then units per thread nearest ``target``, then the
+    smaller block; fill 0 where no block holds the group."""
+    best = ((0.0,), 0, 0)
+    for n in range(1, max_per_thread + 1):
+        nt = 32 * -(-units // (32 * n))
+        if nt > MAX_THREADS:
+            continue
+        key = (units / (nt * n), -abs(n - target), -nt)
+        if key > best[0]:
+            best = (key, nt, n)
+    return best[0][0], best[1], best[2]
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_rowquant(m: int, k: int, elem_bytes: int = 2, rotate: bool = False, fold: bool = False,
+                  sms: int = 132, sr: bool = False) -> RowquantPlan:
+    """K2's plan for an (m, k) input of ``elem_bytes`` per element.
+
+    Units per thread aim at 2 (1 under the rotation, whose 32 values a unit
+    already fill the registers): measured on the H100, more loads per thread
+    cost more in occupancy than they gain in bytes in flight. A group takes
+    rows (powers of two) until its block reaches ``BLOCK_TARGET`` threads
+    (64 under the rotation), while the card keeps ``MIN_GROUPS_PER_SM``
+    groups per SM; without the rotation, twice as many rows where that
+    leaves fewer threads idle (the rotation measured faster with idle lanes
+    than with larger blocks). Stochastic rounding without the rotation
+    gives a one-row group ``SR_THREADS`` threads where that leaves at most a
+    tenth of them idle and the rows fill the card: its pass over the stage
+    measured faster with fewer, busier threads (fold SR at (8192, 5632):
+    0.100 ms at 128 x 6 units against 0.112 at 352 x 2). Rows longer than
+    ``MAX_K`` elements do not fit one block's registers: they take the
+    kernel's long-row path (``units`` 0: a block of ``MAX_THREADS`` per row,
+    x read twice, nothing staged). ``fold`` goes to shared memory where it
+    fits beside the stochastic-rounding stage (``rows`` x K f32)."""
+    unit = unit_elems(elem_bytes, rotate)
+    if k % unit or (rotate and k % 256):
+        raise ValueError(f"rowquant kernel takes K % {256 if rotate else unit} == 0, got K={k}")
+    if k > MAX_K:
+        return RowquantPlan(MAX_THREADS, 1, 0, False)
+    w = k // unit  # units per row
+    slots = MAX_VALUES // unit
+    target = 1 if rotate else 2
+    block = BLOCK_TARGET // 2 if rotate else BLOCK_TARGET
+    rows = 1
+    while (rows * w < block * target and 2 * rows <= MAX_ROWS
+           and -(-m // (2 * rows)) >= MIN_GROUPS_PER_SM * sms):
+        rows *= 2
+    cap = slots if rows == 1 else min(slots, ONE_ROW_UNITS)
+    fill, threads, units = _threads_for(rows * w, cap, target)
+    if not rotate and 2 * rows <= MAX_ROWS and -(-m // (2 * rows)) >= sms:
+        fill2, threads2, units2 = _threads_for(2 * rows * w, min(slots, ONE_ROW_UNITS), target)
+        if fill2 >= fill + 0.05:
+            rows, threads, units = 2 * rows, threads2, units2
+    if sr and not rotate and rows == 1 and m >= sms:
+        n = -(-w // SR_THREADS)
+        if n <= slots and w / (SR_THREADS * n) >= 0.9:
+            threads, units = SR_THREADS, n
+    stage = 4 * rows * k + 2 * k if sr else 0  # and Philox's 8 bytes per column group
+    return RowquantPlan(threads, rows, units, fold and 4 * k <= FOLD_SMEM_MAX and 4 * k + stage <= SMEM_MAX)
+
+
+def _launch(x: torch.Tensor, fold: Optional[torch.Tensor], seed: Optional[int], rotate: bool,
+            plan: Optional[RowquantPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One K2 launch on a checked CUDA input; ``plan`` overrides
+    ``plan_rowquant`` (tests and measurements)."""
+    from slam_llm_tpu_torch.kernels.build import check, library, sm_count, stream_ptr
+
+    k = x.shape[-1]
+    m = x.numel() // k if k else 0
+    dev = x.device
+    q = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    s = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=dev)
+    if m == 0 or k == 0:
+        return q, s.fill_(_EPS_AMAX / 127.0)
+    plan = plan or plan_rowquant(m, k, x.element_size(), rotate, fold is not None, sm_count(dev.index),
+                                 seed is not None)
+    with torch.cuda.device(dev):
+        err = library().slam_rowquant(
+            x.data_ptr(), None if fold is None else fold.data_ptr(), q.data_ptr(), s.data_ptr(), m, k,
+            int(x.dtype == torch.float32), int(rotate), int(seed is not None),
+            (int(seed) & _MASK32) if seed is not None else 0, *plan, stream_ptr(x),
+        )
+    if err:  # the message is formatted only on failure: this path runs per decode step
+        check(err, f"rowquant {plan}")
+    return q, s
+
+
 def rowquant(
     x: torch.Tensor,
     fold: Optional[torch.Tensor] = None,
@@ -186,19 +312,9 @@ def rowquant(
     if seed is not None or rotate:
         return rowquant_rot_sr(x, seed=seed, rotate=rotate)
     _check_kernel_input(x, 8)
-    from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
-
-    k = x.shape[-1]
-    m = x.numel() // k if k else 0
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    s = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
-    if m == 0 or k == 0:
-        return q, s.fill_(_EPS_AMAX / 127.0)
-    with torch.cuda.device(x.device):
-        err = library().slam_rowquant(x.data_ptr(), q.data_ptr(), s.data_ptr(), m, k, stream_ptr(x))
-    check(err, "rowquant")
+    out = _launch(x, None, None, False)
     rowquant.launches += 1
-    return q, s
+    return out
 
 
 rowquant.launches = 0
@@ -215,23 +331,9 @@ def rowquant_rot_sr(
     if rotate and rot_block(x.shape[-1]) != ROT_BLOCK:
         raise ValueError(f"rowquant rotate kernel takes K % {ROT_BLOCK} == 0, got K={x.shape[-1]}")
     _check_kernel_input(x, ROT_BLOCK if rotate else 8)
-    from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
-
-    k = x.shape[-1]
-    m = x.numel() // k if k else 0
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    s = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
-    if m == 0 or k == 0:
-        return q, s.fill_(_EPS_AMAX / 127.0)
-    with torch.cuda.device(x.device):
-        err = library().slam_rowquant_rot_sr(
-            x.data_ptr(), q.data_ptr(), s.data_ptr(), m, k,
-            int(rotate), int(seed is not None), (int(seed) & _MASK32) if seed is not None else 0,
-            stream_ptr(x),
-        )
-    check(err, "rowquant_rot_sr")
+    out = _launch(x, None, seed, rotate)
     rowquant_rot_sr.launches += 1
-    return q, s
+    return out
 
 
 rowquant_rot_sr.launches = 0
@@ -251,22 +353,9 @@ def rowquant_fold(
             or fold.data_ptr() % 16 or fold.device != x.device:
         raise ValueError(f"rowquant fold kernel takes a contiguous, 16-byte aligned f32 fold of shape ({k},) "
                          f"on {x.device}, got {fold.dtype}{tuple(fold.shape)} on {fold.device}")
-    from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
-
-    m = x.numel() // k if k else 0
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    s = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
-    if m == 0 or k == 0:
-        return q, s.fill_(_EPS_AMAX / 127.0)
-    with torch.cuda.device(x.device):
-        err = library().slam_rowquant_fold(
-            x.data_ptr(), fold.data_ptr(), q.data_ptr(), s.data_ptr(), m, k,
-            int(x.dtype == torch.float32), int(seed is not None),
-            (int(seed) & _MASK32) if seed is not None else 0, stream_ptr(x),
-        )
-    check(err, "rowquant_fold")
+    out = _launch(x, fold, seed, False)
     rowquant_fold.launches += 1
-    return q, s
+    return out
 
 
 rowquant_fold.launches = 0

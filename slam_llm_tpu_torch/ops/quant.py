@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -146,6 +146,22 @@ def act_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return rowquant(x)
 
 
+class SharedActQuant:
+    """``act_quant(x)`` of one activation that several denses read (q / k /
+    v, gate / up), formed at the first call and kept: the ``pre_quant`` the
+    denses hand to ``int8_dot``. Lazy, so a checkpointed layer's replay in
+    which every such dense takes its saved value quantizes nothing."""
+
+    def __init__(self, x: torch.Tensor):
+        self.x = x
+        self._pair: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def __call__(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self._pair is None:
+            self._pair = act_quant(self.x)
+        return self._pair
+
+
 def int8_matmul_ref(
     x_q: torch.Tensor, w_q: torch.Tensor, x_s: torch.Tensor, w_scale: torch.Tensor,
     out_dtype: torch.dtype,
@@ -221,11 +237,6 @@ class PathCount:
 K3_PATHS = {"wgmma": PathCount(), "splitk": PathCount()}
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 _counters = {}  # device index -> s32 tile counters of split wgmma products, 0 between calls
 
 
@@ -261,9 +272,9 @@ def _int8_matmul_launch(x_q, w_q, x_s, w_scale, out_dtype: torch.dtype, plan: Op
     out = torch.empty((m, f), dtype=out_dtype, device=x_q.device)
     if out.numel() == 0:
         return out
-    from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
+    from slam_llm_tpu_torch.kernels.build import check, library, sm_count, stream_ptr
 
-    sms = _sm_count(x_q.device.index)
+    sms = sm_count(x_q.device.index)
     plan = plan or plan_int8_matmul(m, f, k, sms)
     scratch = counters = None
     if plan.path == "wgmma" and plan.splits > 1:  # (splits, M, N) partial sums, and a counter per tile
@@ -323,11 +334,16 @@ def unit_scale(n: int, device: torch.device) -> torch.Tensor:
     return torch.ones(n, dtype=torch.float32, device=device)
 
 
-def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+PreQuant = Callable[[], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                pre_quant: Optional[PreQuant] = None) -> torch.Tensor:
     """Forward of the reference's ``int8_dot``: ``x (..., K) @ dequant(w_q)^T``
-    computed s8 x s8, returned in x's dtype."""
+    computed s8 x s8, returned in x's dtype; ``pre_quant`` returns x's
+    ``act_quant`` pair."""
     k = x.shape[-1]
-    x_q, x_s = act_quant(x)
+    x_q, x_s = act_quant(x) if pre_quant is None else pre_quant()
     y = int8_matmul(x_q.reshape(-1, k), w_q, x_s.reshape(-1), w_scale, x.dtype)
     return y.reshape(*x.shape[:-1], w_q.shape[0])
 
@@ -351,10 +367,10 @@ class _Int8Dot(torch.autograd.Function):
     plain int fixed when the forward ran, so a checkpointed layer's replay
     reads the same one. With ``out`` the forward returns ``out`` instead of
     computing the product (a replay that already holds the value, or whose
-    value nothing reads)."""
+    value nothing reads), and never asks ``pre_quant`` for x's int8 form."""
 
     @staticmethod
-    def forward(ctx, x, w_q, w_scale, w_aux_a, w_aux_b, bwd: str, seed: int, out):
+    def forward(ctx, x, w_q, w_scale, w_aux_a, w_aux_b, bwd: str, seed: int, out, pre_quant):
         ctx.bwd, ctx.seed, ctx.x_dtype = bwd, seed, x.dtype
         if bwd == "int8_rot":
             ctx.save_for_backward(w_aux_a, w_aux_b)
@@ -362,7 +378,7 @@ class _Int8Dot(torch.autograd.Function):
             ctx.save_for_backward(w_q, w_scale, w_aux_a)
         else:
             ctx.save_for_backward(w_q, w_scale)
-        return int8_linear(x, w_q, w_scale) if out is None else out
+        return int8_linear(x, w_q, w_scale, pre_quant) if out is None else out
 
     @staticmethod
     def backward(ctx, dy):
@@ -380,7 +396,7 @@ class _Int8Dot(torch.autograd.Function):
             dx = torch.matmul(dy2.to(torch.bfloat16).to(acc), wd.to(acc)).to(ctx.x_dtype)
         else:
             dx = int8_dx(dy2, ctx.bwd, ctx.seed, ctx.x_dtype, *ctx.saved_tensors)
-        return dx.reshape(*dy.shape[:-1], dx.shape[-1]), None, None, None, None, None, None, None
+        return dx.reshape(*dy.shape[:-1], dx.shape[-1]), None, None, None, None, None, None, None, None
 
 
 def int8_dot(
@@ -393,6 +409,7 @@ def int8_dot(
     w_rot: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     w_t: Optional[torch.Tensor] = None,
     out: Optional[torch.Tensor] = None,
+    pre_quant: Optional[PreQuant] = None,
 ) -> torch.Tensor:
     """``x @ dequant(w_q)^T`` computed s8 x s8, differentiable in ``x``.
 
@@ -401,7 +418,10 @@ def int8_dot(
     ``rotate_quantize_bwd``; ``"int8_sr"`` and ``"int8"`` need ``w_t``, the
     (K, F) transpose of ``w_q``. The stochastic modes take a uint32 ``seed``,
     fresh per step. ``out``: the product's value, already known (see
-    ``_Int8Dot``)."""
+    ``_Int8Dot``). ``pre_quant``: a callable returning ``act_quant(x)``'s
+    ``(x_q, x_s)`` (``SharedActQuant``), asked only when the product is
+    computed: denses over one input quantize it once, as with the
+    reference's ``pre_quant``. The gradient flows through ``x`` alone."""
     if bwd not in BWD_MODES:
         raise ValueError(f"int8_dot bwd={bwd!r}: expected one of {BWD_MODES}")
     if bwd == "int8_rot" and w_rot is None:
@@ -409,6 +429,6 @@ def int8_dot(
     if bwd in ("int8_sr", "int8") and w_t is None:
         raise ValueError(f"int8_dot bwd={bwd!r} needs w_t, the (K, F) transpose of w_q")
     if not (torch.is_grad_enabled() and x.requires_grad):
-        return int8_linear(x, w_q, w_scale) if out is None else out  # no backward to prepare for
+        return int8_linear(x, w_q, w_scale, pre_quant) if out is None else out  # no backward to prepare for
     aux_a, aux_b = w_rot if w_rot is not None else (w_t, None)
-    return _Int8Dot.apply(x, w_q, w_scale, aux_a, aux_b, bwd, 0 if seed is None else int(seed), out)
+    return _Int8Dot.apply(x, w_q, w_scale, aux_a, aux_b, bwd, 0 if seed is None else int(seed), out, pre_quant)

@@ -51,9 +51,10 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def build_model_and_data(cfg: RunConfig, split: str = "train", device="cpu"):
+def build_model_and_data(cfg: RunConfig, split: str = "train", device="cuda"):
     """Resolve the factories, build (model, tokenizer, dataset); the model's
-    tensors are allocated on ``device`` and zero-filled."""
+    tensors are allocated on ``device`` (the card unless the caller asks for
+    the CPU) and zero-filled."""
     factory = get_custom_model_factory(cfg.model_config)
     model, tokenizer = factory(cfg.train_config, cfg.model_config, device=resolve_device(device))
     ds_factory = get_custom_dataset_factory(cfg.dataset_config)

@@ -82,11 +82,12 @@ def alternatives(m: int, k: int, n: int, sms: int):
 
 def main(argv) -> int:
     import chip_smoke as cs
-    from slam_llm_tpu_torch.ops.quant import _sm_count, int8_matmul, plan_int8_matmul
+    from slam_llm_tpu_torch.kernels.build import sm_count
+    from slam_llm_tpu_torch.ops.quant import int8_matmul, plan_int8_matmul
 
     smi = cs.setup()
     cs.build()
-    sms = _sm_count(0)
+    sms = sm_count(0)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, failed = [], []
     for m, k, n in EDGES + SHAPES:

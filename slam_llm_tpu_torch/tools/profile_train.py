@@ -78,6 +78,8 @@ def main(overrides=(), steps: int = 3) -> None:
     print(f"unprofiled step {1000 * (time.perf_counter() - t0) / steps:.1f} ms (mean of {steps}), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
+    counters = {n: c for n, c in cs.kernel_counters().items() if n in cs.K2_KERNELS}
+    before = {n: c.launches for n, c in counters.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         m = trainer.train_step(batch)
@@ -88,6 +90,7 @@ def main(overrides=(), steps: int = 3) -> None:
     total = sum(fams.values())
     for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
         print(f"  {fam:45s} {ms:9.2f} ms  {100 * ms / total:5.1f} %", flush=True)
+    print(f"K2 launches in the profiled step: { {n: c.launches - before[n] for n, c in counters.items()} }", flush=True)
 
     # the fused CE alone, at the step's shape (hidden of the trunk, frozen head)
     b, t = batch["input_ids"].shape

@@ -141,11 +141,39 @@ def test_flash_kernel_refuses_what_it_cannot_take(gen):
         tflash.flash_attention_fwd(q.float(), q.float(), q.float(), mask)
 
 
-@pytest.mark.parametrize("m,k", [(4096, 2048), (32, 5632), (1337, 2056), (5, 104)])
+# K2 at M in {1, 5, 32, 300, 8192}: decode, ragged and training rows
+K2_M = (1, 5, 32, 300, 8192)
+
+
+def _k2_rows(m, k, gen, scale, dtype=torch.bfloat16):
+    """Random rows, the first of them replaced by the adversarial ones:
+    exact .5 ties (amax 127 x 2^-3, so s = 2^-3 and x / s = n + 0.5), values
+    down to bf16's subnormals beside a scale of 1 (the division's slow
+    branch), an all-zero row, a row whose amax is below the 1e-28 floor, and
+    one outlier beside tiny values."""
+    x = torch.randn(m, k, generator=gen, device="cuda") * scale
+    ties = (torch.arange(k, device="cuda").remainder(254) - 127).float() + 0.5
+    special = [torch.where(torch.arange(k, device="cuda") == 0, 127.0, ties) * 0.125]
+    tiny = torch.tensor([2.0 ** -126, -2.0 ** -130, 2.0 ** -133, 1e-30, -3.5e-31], device="cuda")
+    row = tiny.repeat(-(-k // 5))[:k].clone()
+    row[1] = 127.0
+    special.append(row)
+    special.append(torch.zeros(k, device="cuda"))
+    special.append(torch.randn(k, generator=gen, device="cuda") * 1e-30)
+    row = torch.randn(k, generator=gen, device="cuda") * 1e-3
+    row[k // 2] = 300.0
+    special.append(row)
+    for i, r in enumerate(special[:m]):
+        x[i] = r
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("m", K2_M)
+@pytest.mark.parametrize("k", [2048, 5632, 256, 2056, 104])
 def test_rowquant_kernel_bit_exact(gen, m, k):
-    """bf16 in, bit-exact; f32 input and K % 8 != 0 are refused."""
-    x = (torch.randn(m, k, generator=gen, device="cuda") * 3).bfloat16()
-    x[0] = 0
+    """bf16 in, bit-exact with the adversarial rows; f32 input and
+    K % 8 != 0 are refused."""
+    x = _k2_rows(m, k, gen, 3.0)
     q, s = trowquant.rowquant(x)
     rq, rs = trowquant.rowquant_ref(x)
     assert torch.equal(q, rq) and torch.equal(s, rs)
@@ -153,6 +181,37 @@ def test_rowquant_kernel_bit_exact(gen, m, k):
         trowquant.rowquant(x.float())
     with pytest.raises(ValueError, match="K % 8"):
         trowquant.rowquant(x[:, :-4].contiguous())
+
+
+def test_rowquant_kernel_division_is_correctly_rounded(gen):
+    """The reciprocal-and-FMA quotient against a true division over scales
+    from the 1e-28 floor to 1e30 and quotients from 2^-130 up: 8192 rows of
+    2048, each row's amax set, the other values spread over 40 binades."""
+    m, k = 8192, 2048
+    amax = torch.exp2(torch.empty(m, device="cuda").uniform_(-100, 100, generator=gen))
+    mag = torch.exp2(torch.empty(m, k, device="cuda").uniform_(-40, 0, generator=gen))
+    sign = torch.randint(0, 2, (m, k), generator=gen, device="cuda").float() * 2 - 1
+    x = (sign * mag * amax[:, None]).bfloat16()
+    x[:, 0] = amax.bfloat16()
+    q, s = trowquant.rowquant(x)
+    rq, rs = trowquant.rowquant_ref(x)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    q, s = trowquant.rowquant(x, seed=5)
+    rq, rs = trowquant.rowquant_ref(x, seed=5)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+
+
+def test_rowquant_plans_every_width(gen):
+    """Other plans than the planner's (rows per group, threads, units per
+    thread) run bit-exact, and a plan the kernel cannot take is refused."""
+    x = _k2_rows(300, 2048, gen, 1.0)
+    rq, rs = trowquant.rowquant_ref(x)
+    for threads, rows, units in ((256, 1, 1), (128, 1, 2), (256, 4, 4), (512, 8, 4), (32, 1, 8), (128, 2, 4)):
+        plan = trowquant.RowquantPlan(threads, rows, units, False)
+        q, s = trowquant._launch(x, None, None, False, plan)
+        assert torch.equal(q, rq) and torch.equal(s, rs), plan
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        trowquant._launch(x, None, None, False, trowquant.RowquantPlan(256, 4, 1, False))
 
 
 @pytest.mark.parametrize("m", [1, 8, 32, 4096])
@@ -231,27 +290,25 @@ def test_int8_matmul_head_and_transposed_dx_shapes(gen, m, k, f):
         assert torch.equal(tquant.int8_matmul(xq, wq, xs, ws, dt), tquant.int8_matmul_ref(xq, wq, xs, ws, dt))
 
 
-@pytest.mark.parametrize("m,k,dtype", [(512, 2048, torch.bfloat16), (300, 5632, torch.bfloat16),
-                                       (5, 256, torch.bfloat16), (64, 32000, torch.float32),
-                                       (7, 44, torch.float32)])
+K2_FOLD = [(m, k, torch.bfloat16) for m in K2_M for k in (2048, 5632, 256, 2056)]
+K2_FOLD += [(m, k, torch.float32) for m in (1, 5, 32, 300, 1024) for k in (32000, 44, 2048)]
+
+
+@pytest.mark.parametrize("m,k,dtype", K2_FOLD)
 @pytest.mark.parametrize("seed", [None, 31])
 def test_rowquant_fold_kernel_bit_exact(gen, m, k, dtype, seed):
     """K2's fold kernels (deterministic and stochastic rounding; bf16 dy and
-    the f32 dlog of the int8 CE head) bit-exact against the twin, with an
-    all-zero row and an outlier; counted on their own; a fold that is not a
-    contiguous f32 (K,) vector, K % 8 != 0 for bf16 and fold with rotate are
-    refused."""
-    x = torch.randn(m, k, generator=gen, device="cuda") * 0.3
-    x[0] = 0
-    x[min(1, m - 1), 3] = 50.0
-    x = x.to(dtype)
-    fold = torch.rand(k, generator=gen, device="cuda") * 0.02 + 1e-4
-    before = trowquant.rowquant_fold.launches
-    q, s = trowquant.rowquant(x, fold, seed=seed)
-    assert trowquant.rowquant_fold.launches == before + 1
-    rq, rs = trowquant.rowquant_ref(x, fold, seed=seed)
-    assert torch.equal(s, rs) and torch.equal(q, rq)
-    assert bool((q[0] == 0).all())
+    the f32 dlog of the int8 CE head) bit-exact against the twin, with the
+    adversarial rows (a unit fold keeps their ties exact) and random folds;
+    counted on their own; a fold that is not a contiguous f32 (K,) vector,
+    K % 8 != 0 for bf16 and fold with rotate are refused."""
+    x = _k2_rows(m, k, gen, 0.3, dtype)
+    for fold in (torch.ones(k, device="cuda"), torch.rand(k, generator=gen, device="cuda") * 0.02 + 1e-4):
+        before = trowquant.rowquant_fold.launches
+        q, s = trowquant.rowquant(x, fold, seed=seed)
+        assert trowquant.rowquant_fold.launches == before + 1
+        rq, rs = trowquant.rowquant_ref(x, fold, seed=seed)
+        assert torch.equal(s, rs) and torch.equal(q, rq)
     with pytest.raises(ValueError, match="fold"):
         trowquant.rowquant(x, fold.double(), seed=seed)
     with pytest.raises(ValueError, match="mutually exclusive"):
@@ -393,25 +450,89 @@ def test_flash_backward_kernel_matches_twin(gen, b, t, h, hkv, d, causal, rope, 
         assert bool((got[0][dead] == 0).all())
 
 
-@pytest.mark.parametrize("m,k", [(512, 2048), (512, 256), (300, 5632), (5, 256)])
+def _one_hot_blocks(m, k, gen):
+    """Rows whose 256-blocks each hold one value at their first column: the
+    rotation spreads c to c / 16 over the block, so a block of 2032 sets
+    s = 1 and blocks of 16 (n + 0.5) give exact ties."""
+    x = torch.zeros(m, k, device="cuda")
+    c = (torch.randint(-127, 127, (m, k // 256), generator=gen, device="cuda").float() + 0.5) * 16
+    c[:, 0] = 2032.0
+    x[:, ::256] = c
+    return x.bfloat16()
+
+
+@pytest.mark.parametrize("m", K2_M)
+@pytest.mark.parametrize("k", [2048, 256, 5632, 512])
 @pytest.mark.parametrize("seed,rotate", [(11, True), (None, True), (12, False)])
 def test_rowquant_rot_sr_kernel_bit_exact(gen, m, k, seed, rotate):
     """K2's rotate / stochastic-rounding kernel bit-exact against the twin
-    (same Philox stream, same butterfly order), with an all-zero row and a
-    row holding one large outlier; rotation refuses K % 256 != 0."""
-    x = torch.randn(m, k, generator=gen, device="cuda") * 0.3
-    x[0] = 0
-    x[min(1, m - 1), 7] = 300.0
-    x = x.bfloat16()
-    before = trowquant.rowquant_rot_sr.launches
-    q, s = trowquant.rowquant(x, seed=seed, rotate=rotate)
-    assert trowquant.rowquant_rot_sr.launches == before + 1
-    rq, rs = trowquant.rowquant_ref(x, seed=seed, rotate=rotate)
-    assert torch.equal(s, rs) and torch.equal(q, rq)
-    assert bool((q[0] == 0).all())
+    (same Philox stream, same butterfly order), with the adversarial rows,
+    and rows whose rotation gives exact ties; rotation refuses K % 256 != 0."""
+    for x in (_k2_rows(m, k, gen, 0.3), _one_hot_blocks(m, k, gen)):
+        before = trowquant.rowquant_rot_sr.launches
+        q, s = trowquant.rowquant(x, seed=seed, rotate=rotate)
+        assert trowquant.rowquant_rot_sr.launches == before + 1
+        rq, rs = trowquant.rowquant_ref(x, seed=seed, rotate=rotate)
+        assert torch.equal(s, rs) and torch.equal(q, rq)
     if rotate:
         with pytest.raises(ValueError, match="K % 256"):
             trowquant.rowquant(x[:, :k - 128].contiguous(), seed=seed, rotate=True)
+
+
+@pytest.mark.parametrize("m", [1, 5, 64])
+@pytest.mark.parametrize("seed", [None, 31])
+def test_rowquant_fold_long_rows_bit_exact(gen, m, seed):
+    """qwen2's int8 CE head dlog, (m, 152064) f32 with a fold: rows longer
+    than a block's registers take the kernel's long-row path, bit-exact
+    against the twin with the adversarial rows, deterministic and seeded."""
+    k = 152064
+    assert trowquant.plan_rowquant(m, k, 4, False, True).units == 0
+    x = _k2_rows(m, k, gen, 0.3, torch.float32)
+    fold = torch.rand(k, generator=gen, device="cuda") * 0.02 + 1e-4
+    q, s = trowquant.rowquant(x, fold, seed=seed)
+    rq, rs = trowquant.rowquant_ref(x, fold, seed=seed)
+    assert torch.equal(s, rs) and torch.equal(q, rq)
+
+
+@pytest.mark.parametrize("k,rotate,fold", [(33024, False, False), (33024, True, False), (2056, False, False),
+                                           (2056, False, True), (512, True, False), (44, False, True)])
+@pytest.mark.parametrize("seed", [None, 11])
+def test_rowquant_long_row_path_bit_exact(gen, k, rotate, fold, seed):
+    """The long-row path under every mode the wrappers take: bf16 rows just
+    past MAX_K through the planner, and the path forced on narrow and
+    ragged widths (a row shorter than one pass of the block) at 512 and 64
+    threads; bit-exact against the twin with the adversarial rows."""
+    dtype = torch.float32 if k == 44 else torch.bfloat16
+    x = _k2_rows(37, k, gen, 0.3, dtype)
+    f = torch.rand(k, generator=gen, device="cuda") * 0.02 + 1e-4 if fold else None
+    rq, rs = trowquant.rowquant_ref(x, f, seed=seed, rotate=rotate)
+    if k > trowquant.MAX_K:
+        q, s = trowquant.rowquant(x, f, seed=seed, rotate=rotate)
+        assert torch.equal(s, rs) and torch.equal(q, rq)
+    for threads in (512, 64):
+        q, s = trowquant._launch(x, f, seed, rotate, trowquant.RowquantPlan(threads, 1, 0, False))
+        assert torch.equal(s, rs) and torch.equal(q, rq), threads
+
+
+@pytest.mark.parametrize("rotate,fold", [(False, False), (True, False), (False, True)])
+def test_rowquant_sr_takes_a_true_division_at_a_zero_draw(gen, rotate, fold):
+    """Philox keyed 11 draws 0 at row 15289, columns 160-163 (word 0 of
+    counter 40), where stochastic rounding is floor(x / s) itself: the
+    kernel redoes those four values with div.rn, on the group path and on
+    the long-row path. Around that column the row holds tiny values of both
+    signs, signed zeros, ties and its amax."""
+    m, k = 15290, 256
+    x = torch.randn(m, k, generator=gen, device="cuda") * 0.3
+    x[-1, 152:168] = torch.tensor([-1e-30, 1e-30, -0.0, 2.5, -2.5, 3e-39, -3e-39, 0.0,
+                                   -2.0 ** -133, 2.0 ** -133, -0.0, 127.0, -127.0, 1.0, -1.0, 0.5], device="cuda")
+    x = x.bfloat16()
+    f = torch.rand(k, generator=gen, device="cuda") + 0.5 if fold else None
+    assert float(trowquant.uniform_ref(m, k, 11, "cuda")[-1, 160]) == 0.0
+    q, s = trowquant.rowquant(x, f, seed=11, rotate=rotate)
+    rq, rs = trowquant.rowquant_ref(x, f, seed=11, rotate=rotate)
+    assert torch.equal(s, rs) and torch.equal(q, rq)
+    q, s = trowquant._launch(x, f, 11, rotate, trowquant.RowquantPlan(256, 1, 0, False))  # the long-row path
+    assert torch.equal(s, rs) and torch.equal(q, rq)
 
 
 def test_training_step_full_width_on_card(gen):
@@ -510,3 +631,31 @@ def test_remat_on_card_is_bit_identical_and_saves_memory(gen, policy):
     assert torch.equal(loss_on, loss_off) and all(torch.equal(a, b) for a, b in zip(grads_on, grads_off))
     assert peak_on < peak_off
     assert k1_off == 4 and k1_on == (4 if policy == "dots_flash_saveable" else 8)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_training_step_quantizes_each_shared_activation_once(gen, remat):
+    """One forward + backward of a 4-layer int8 LLM on the card (int8_rot
+    backward, the recipe's remat policy): 4 K2 deterministic launches per
+    layer (q / k / v share one, gate / up one, o and down one each) and 7
+    rotate + SR launches (one per dense's dy); the replay under
+    dots_flash_saveable quantizes nothing again."""
+    from slam_llm_tpu_torch.models.llm import CausalLM, LLMConfig
+    from slam_llm_tpu_torch.pipeline.common import init_params_
+
+    # k / v 256 wide: the rotation's block
+    cfg = dataclasses.replace(LLMConfig.tiny_test(vocab_size=512), d_model=512, n_heads=8, n_kv_heads=4,
+                              head_dim=64, ffn_dim=1024, n_layers=4, lora_rank=8, base_quant="int8",
+                              base_quant_bwd="int8_rot", remat=remat, remat_policy="dots_flash_saveable")
+    model = init_params_(CausalLM(cfg, device="cuda"), gen)
+    tquant.quantize_base_params(model)
+    params = [p.requires_grad_(True) for n, p in model.named_parameters() if "lora" in n]
+    x = torch.randn(2, 128, 512, generator=gen, device="cuda").bfloat16().requires_grad_(True)
+    mask = torch.ones(2, 128, dtype=torch.int32, device="cuda")
+    labels = torch.randint(0, 512, (2, 128), generator=gen, device="cuda")
+    before = trowquant.rowquant.launches, trowquant.rowquant_rot_sr.launches
+    loss, _ = model.loss_and_accuracy(x, mask, labels)
+    torch.autograd.grad(loss, params + [x])
+    torch.cuda.synchronize()
+    assert trowquant.rowquant.launches - before[0] == 4 * cfg.n_layers
+    assert trowquant.rowquant_rot_sr.launches - before[1] == 7 * cfg.n_layers

@@ -308,3 +308,104 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
 
 def test_jax_runs_on_cpu_here():
     assert jax.default_backend() == "cpu"
+
+
+@pytest.mark.parametrize("bwd", ["bf16", "int8_rot", "int8_sr"])
+def test_int8_dot_pre_quant_is_the_same_product(bwd):
+    """``int8_dot`` with ``pre_quant`` (a callable returning the pair, or
+    the lazy shared form) is bit-equal to the one that quantizes x itself,
+    forward and dx; and equals the reference's ``int8_dot`` with
+    ``pre_quant`` within 1e-6 relative (f32)."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 5, 256)).astype(np.float32)
+    w = rng.standard_normal((256, 512)).astype(np.float32) * 0.1
+    jq, js = jquant.quantize_int8(jnp.asarray(w))
+    wq, ws = _t(np.asarray(jq).T.copy()), _t(js)
+    aux = dict(w_rot=tquant.rotated_pair(wq, ws)) if bwd == "int8_rot" else dict(w_t=wq.T.contiguous())
+    dy = torch.from_numpy(rng.standard_normal((2, 5, 512)).astype(np.float32))
+    outs = []
+    for pre in (None, "pair", "shared"):
+        xt = _t(x).requires_grad_(True)
+        pair = tquant.act_quant(xt.detach())
+        pq = {"pair": lambda: pair, "shared": tquant.SharedActQuant(xt.detach())}.get(pre)
+        y = tquant.int8_dot(xt, wq, ws, bwd=bwd, seed=9, pre_quant=pq, **aux)
+        (dx,) = torch.autograd.grad(y, xt, dy)
+        outs.append((y.detach(), dx))
+    for y, dx in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(dx, outs[0][1])
+    xj = jnp.asarray(x)
+    want = np.asarray(jquant.int8_dot(xj, jq, js, bwd="bf16", pre_quant=jquant.act_quant(xj)))
+    np.testing.assert_allclose(outs[0][0].numpy(), want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("m,k,elem,rotate,fold", [
+    (8192, 2048, 2, False, False), (4096, 5632, 2, False, False), (32, 2048, 2, False, False),
+    (32, 5632, 2, False, False), (8192, 2048, 2, True, False), (8192, 256, 2, True, False),
+    (8192, 5632, 2, True, False), (8192, 2048, 2, False, True), (1024, 32000, 4, False, True),
+])
+def test_k2_planner_fills_every_thread_at_the_slices_widths(m, k, elem, rotate, fold):
+    """At the widths the slices launch, K2's plan leaves at most a tenth of
+    its threads idle (none at the bf16 widths without the rotation), a
+    block's units cover its group, every unit stays in the register slots
+    the kernel has, a decode batch gets a block per row, and the f32 dlog's
+    fold sits in shared memory."""
+    plan = trowquant.plan_rowquant(m, k, elem, rotate, fold)
+    unit = trowquant.unit_elems(elem, rotate)
+    assert plan.threads % 32 == 0 and plan.threads <= trowquant.MAX_THREADS
+    held = plan.threads * plan.units * unit
+    assert held >= plan.rows * k and plan.rows * k / held >= 0.9
+    if elem == 2 and not rotate:
+        assert held == plan.rows * k
+    assert plan.units * unit <= trowquant.MAX_VALUES and plan.rows <= trowquant.MAX_ROWS
+    if m <= 64:
+        assert plan.rows == 1
+    assert plan.fold_smem == fold
+
+
+@pytest.mark.parametrize("m,k,elem,rotate", [(1337, 2056, 2, False), (5, 104, 2, False), (7, 44, 4, False),
+                                             (3, 512, 2, True), (100, 32768, 4, False)])
+def test_k2_planner_covers_other_widths(m, k, elem, rotate):
+    """Any other width the wrappers take gets a plan whose threads cover its
+    group within the register slots; rows beyond MAX_K (qwen2's 152064-wide
+    dlog) take the long-row path, one row a block with nothing staged, SR
+    and fold included; widths the kernel does not take are refused."""
+    plan = trowquant.plan_rowquant(m, k, elem, rotate, False)
+    unit = trowquant.unit_elems(elem, rotate)
+    assert plan.rows * k <= plan.threads * plan.units * unit and plan.units * unit <= trowquant.MAX_VALUES
+    assert plan.units >= 1
+    for long_k in (trowquant.MAX_K + 256, 152064):
+        for sr in (False, True):
+            assert trowquant.plan_rowquant(m, long_k, elem, rotate, not rotate, sr=sr) == \
+                trowquant.RowquantPlan(trowquant.MAX_THREADS, 1, 0, False)
+    with pytest.raises(ValueError, match="K %"):
+        trowquant.plan_rowquant(m, k + (128 if rotate else 2), elem, rotate, False)
+
+
+@pytest.mark.parametrize("m,k,elem,rotate,fold_fits", [(1024, 32000, 4, False, False), (8192, 5632, 2, False, True),
+                                                       (8192, 256, 2, False, True), (8192, 5632, 2, True, False)])
+def test_k2_planner_keeps_the_sr_stage_in_shared_memory(m, k, elem, rotate, fold_fits):
+    """Under stochastic rounding a group's values wait in an f32 stage of
+    rows x K in shared memory; ``fold`` joins it there only where both fit
+    (not beside the f32 dlog's 32000-wide row), and never under the
+    rotation, which takes no fold."""
+    fold = not rotate
+    plan = trowquant.plan_rowquant(m, k, elem, rotate, fold, sr=True)
+    assert plan.fold_smem == fold_fits
+    assert 4 * k * (plan.rows + plan.fold_smem) <= trowquant.SMEM_MAX
+    assert trowquant.plan_rowquant(m, k, elem, rotate, fold).fold_smem == fold
+
+
+@pytest.mark.parametrize("m,k,fold,want", [
+    (8192, 5632, True, (128, 1, 6)), (8192, 2048, True, (128, 1, 2)), (8192, 256, True, (128, 8, 2)),
+    (32, 5632, False, (352, 1, 2)), (37, 2056, True, (96, 1, 3)), (8192, 5632, False, (128, 1, 6)),
+])
+def test_k2_planner_gives_sr_rows_a_block_of_128(m, k, fold, want):
+    """Stochastic rounding without the rotation: a one-row group takes 128
+    threads where at most a tenth of them idle and the rows fill the card
+    (measured faster at 5632 wide); decode-sized M and ragged widths keep
+    the deterministic plan's wider block."""
+    plan = trowquant.plan_rowquant(m, k, 2, False, fold, sr=True)
+    assert (plan.threads, plan.rows, plan.units) == want
+    assert plan.threads * plan.units * 8 >= plan.rows * k
+    if m < 132:
+        assert plan[:3] == trowquant.plan_rowquant(m, k, 2, False, fold)[:3]
