@@ -49,7 +49,18 @@ Phases, each fatal on failure:
                 backward, the int8_sr CE head, anyprecision, gradient
                 accumulation 2, full-state checkpoints and the validation
                 decode of one wav: 8 micro-steps, a resume from the
-                checkpoint for 2 more, and the card-vs-CPU gradient check.
+                checkpoint for 2 more, and the card-vs-CPU gradient check;
+  7. weights -- the recipe from pretrained-shaped weights: whisper-small and
+                TinyLlama-1.1B written as random bf16 HF directories (with a
+                32000-entry Llama tokenizer.json) by tools/synth_checkpoint;
+                pipeline.finetune from them (batch 16, int8_rot, remat,
+                model.pt); the loaded int8 base, embedding and norms against
+                the written tensors and the derived int8_rot buffers;
+                pipeline.inference_batch with ckpt_path on 16 utterances,
+                whose trainable tensors equal the trained ones and whose
+                decoded text equals the in-memory trained model's; the port's
+                WER over the logs; export_llama read back and a merged q_proj
+                checked.
 
 Prints one JSON line of kernel results before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -1042,6 +1053,217 @@ def check_train_grads_against_cpu(trainer, dataset, label: str) -> None:
                              f"({len(names) - len(cos)})")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the weights path
+# ---------------------------------------------------------------------------
+
+WEIGHTS_STEPS = 4
+WEIGHTS_NEW_TOKENS = 32  # decode length of the reload check (a random model rarely stops early)
+WEIGHTS_PATH = ("flash_attention_fwd", "flash_attention_bwd", "rowquant", "rowquant_rot_sr", "int8_matmul")
+
+
+def write_weights(tmp: Path) -> dict:
+    """(a) whisper-small and TinyLlama-1.1B as random bf16 HF directories and
+    a 32000-entry tokenizer, with the port's own writer."""
+    from slam_llm_tpu_torch.models.llm import LLMConfig
+    from slam_llm_tpu_torch.models.whisper import WhisperEncoderConfig
+    from slam_llm_tpu_torch.tools import synth_checkpoint as synth
+
+    t0 = time.perf_counter()
+    llm = synth.write_llama(str(tmp / "llm"), LLMConfig.tinyllama_1_1b(), seed=0, device="cuda")
+    t1 = time.perf_counter()
+    tok = synth.write_tokenizer(str(tmp / "llm"), 32000, seed=0)
+    t2 = time.perf_counter()
+    enc = synth.write_whisper(str(tmp / "whisper"), WhisperEncoderConfig.small(), seed=1, device="cuda")
+    t3 = time.perf_counter()
+    log(f"[weights] wrote TinyLlama-1.1B bf16 ({llm / 1e9:.3f} GB, 2 shards) in {t1 - t0:.2f} s, the tokenizer "
+        f"({tok / 1e6:.2f} MB, 32000 entries) in {t2 - t1:.2f} s, whisper-small bf16 ({enc / 1e9:.3f} GB) in "
+        f"{t3 - t2:.2f} s")
+    return {"llm_path": str(tmp / "llm"), "encoder_path": str(tmp / "whisper")}
+
+
+def check_loaded_base(model, paths: dict, layers=(0, 11, 21)) -> None:
+    """(c) the int8 base of a few layers equals quantize_int8 (on the CPU) of
+    the written bf16 weights; the embedding and norms equal the written
+    tensors bit for bit; kernel_qr / kernel_scale_r equal what
+    quantize_base_params derives from the loaded pair."""
+    from slam_llm_tpu_torch.ops.quant import quantize_int8, rotated_pair
+    from slam_llm_tpu_torch.utils.hf_loader import load_hf_state_dict
+
+    sd = load_hf_state_dict(paths["llm_path"])
+    llm = model.llm
+    if not torch.equal(llm.embed_tokens.weight.cpu(), sd["model.embed_tokens.weight"]):
+        raise AssertionError("loaded embedding differs from the written one")
+    if not torch.equal(llm.final_norm.scale.float().cpu(), sd["model.norm.weight"].float()):
+        raise AssertionError("loaded final norm differs from the written one")
+    n = 0
+    for i in layers:
+        layer, src = llm.layers[i], f"model.layers.{i}."
+        for norm, hf in ((layer.input_norm, "input_layernorm"), (layer.post_attn_norm, "post_attention_layernorm")):
+            if not torch.equal(norm.scale.float().cpu(), sd[f"{src}{hf}.weight"].float()):
+                raise AssertionError(f"layer {i} {hf} differs from the written one")
+        for group, hf_group, names in (("attn", "self_attn", ("q_proj", "k_proj", "v_proj", "o_proj")),
+                                       ("mlp", "mlp", ("gate_proj", "up_proj", "down_proj"))):
+            for name in names:
+                mod = getattr(getattr(layer, group), name)
+                q, s = quantize_int8(sd[f"{src}{hf_group}.{name}.weight"], contract_axis=-1)
+                if not (torch.equal(mod.kernel_q.cpu(), q) and torch.equal(mod.kernel_scale.cpu(), s)):
+                    raise AssertionError(f"layer {i} {name}: kernel_q / kernel_scale differ from quantize_int8 of "
+                                         "the written weight")
+                qr, sr = rotated_pair(mod.kernel_q, mod.kernel_scale)
+                if not (torch.equal(mod.kernel_qr, qr) and torch.equal(mod.kernel_scale_r, sr)):
+                    raise AssertionError(f"layer {i} {name}: kernel_qr / kernel_scale_r not derived from the loaded base")
+                n += 1
+    log(f"[weights] loaded base checked on layers {layers}: {n} int8 denses equal quantize_int8 (CPU) of the "
+        f"written bf16 weights, their int8_rot pairs derived from them; embedding and {2 * len(layers) + 1} norms "
+        f"bit-equal to the written tensors")
+
+
+def decode_texts(model, tokenizer, cfg) -> list:
+    """Decode the test split with ``model`` as inference_batch does (its
+    loader, generation config and text), for the in-memory comparison."""
+    from slam_llm_tpu_torch.inference.generate import Generator, strip_after_eos
+    from slam_llm_tpu_torch.pipeline.inference_batch import decode_loader, generation_config
+    from slam_llm_tpu_torch.registry import get_custom_dataset_factory
+
+    cfg.dataset_config.inference_mode = True
+    dataset = get_custom_dataset_factory(cfg.dataset_config)(cfg.dataset_config, tokenizer, cfg.dataset_config.test_split)
+    gen = Generator(model.eval(), generation_config(cfg, tokenizer))
+    lines = []
+    for batch in decode_loader(cfg, dataset):
+        tokens = strip_after_eos(gen.generate({k: v for k, v in batch.items() if isinstance(v, np.ndarray)}),
+                                 tokenizer.eos_token_id, tokenizer.pad_token_id)
+        lines += [f"{key}\t{tokenizer.decode(tokens[i])}" for i, key in enumerate(batch["keys"])]
+    return lines
+
+
+def check_wer(res) -> None:
+    """(e) the port's WER over the decode logs: its %WER line, which must
+    parse back to its own counts, and ref words = sub + del + hits."""
+    import re
+
+    from slam_llm_tpu_torch.utils.wer import align, compute_wer_files, read_trn
+
+    detail = res["pred"] + "_wer"
+    wer = compute_wer_files(res["gt"], res["pred"], detail)
+    refs, hyps = read_trn(res["gt"]), read_trn(res["pred"])
+    hits = sum(align(hyps[k], refs[k])[0]["cor"] for k in refs if k in hyps)
+    line = wer.summary().splitlines()[0]
+    log(f"[weights] {line} (hits {hits}) over {wer.sentences} utterances")
+    m = re.fullmatch(r"%WER (\S+) \[ (\d+) / (\d+), (\d+) ins, (\d+) del, (\d+) sub \]", line)
+    text = Path(detail).read_text()
+    if (not m or float(m.group(1)) != wer.wer or [int(x) for x in m.groups()[1:]] != [
+            wer.errors, wer.words, wer.ins, wer.dels, wer.subs] or line not in text):
+        raise AssertionError(f"the %WER line does not parse back: {line!r}")
+    if wer.words != wer.subs + wer.dels + hits or wer.sentences != 16:
+        raise AssertionError(f"WER counts: {wer.words} ref words vs {wer.subs} sub + {wer.dels} del + {hits} hits, "
+                             f"{wer.sentences} utterances")
+
+
+def check_export(trainer, tmp: Path) -> None:
+    """(f) export_llama of the trained model, read back with the port's
+    reader; layer 0's and the last layer's merged q_proj against dequant +
+    B A * alpha / r (computed on the CPU), within bf16 rounding; the export
+    is removed afterwards."""
+    import shutil
+
+    from slam_llm_tpu_torch.ops.quant import dequantize_int8
+    from slam_llm_tpu_torch.utils.hf_export import export_llama
+    from slam_llm_tpu_torch.utils.safetensors_io import load_file
+
+    llm = trainer.model.llm
+    out = tmp / "export"
+    t0 = time.perf_counter()
+    export_llama(llm, str(out))
+    secs = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in out.iterdir())
+    sd = load_file(str(out / "model.safetensors"))
+    c = llm.cfg
+    for i in (0, c.n_layers - 1):
+        q = llm.layers[i].attn.q_proj
+        want = dequantize_int8(q.kernel_q.cpu(), q.kernel_scale.cpu(), contract_axis=-1) + (
+            q.lora_b.detach().cpu().float() @ q.lora_a.detach().cpu().float()) * (c.lora_alpha / c.lora_rank)
+        got = sd[f"model.layers.{i}.self_attn.q_proj.weight"]
+        err = (got - want).abs().max().item()
+        if got.dtype != torch.float32 or err > 2 ** -8 * want.abs().max().item():
+            raise AssertionError(f"exported layer {i} q_proj: max |merged - (dequant + B A alpha/r)| = {err}")
+        log(f"[weights] export layer {i} q_proj: max |merged - (dequant + B A alpha/r)| {err:.3e} "
+            f"(LoRA delta max {(want - dequantize_int8(q.kernel_q.cpu(), q.kernel_scale.cpu(), -1)).abs().max():.3e})")
+    if len(sd) != 3 + 9 * c.n_layers:
+        raise AssertionError(f"export holds {len(sd)} tensors")
+    del sd
+    shutil.rmtree(out)
+    log(f"[weights] export_llama wrote {size / 1e9:.3f} GB of f32 in {secs:.2f} s; removed after the check")
+
+
+def run_weights() -> dict:
+    """Phase 7: write pretrained-shaped HF directories, train from them, and
+    decode, score and export the trained model."""
+    import shutil
+
+    from slam_llm_tpu_torch.pipeline import inference_batch
+    from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
+    from slam_llm_tpu_torch.utils.checkpoint import load_trainable
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_weights_"))
+    paths = write_weights(tmp)
+    hf = [f"++model_config.llm_path={paths['llm_path']}", f"++model_config.encoder_path={paths['encoder_path']}"]
+    # a short warm-up, so that 4 steps move LoRA B far enough for the reload and export checks to see it
+    cfg = _train_cfg(tmp, WEIGHTS_STEPS, *hf, "++train_config.run_validation=false", "++train_config.warmup_steps=2",
+                     "++train_config.lr=1e-3")
+    if cfg.train_config.shard.base_quant_bwd != "int8_rot" or not cfg.train_config.shard.remat:
+        raise AssertionError("the recipe no longer ships the int8_rot backward with remat")
+    res, launches, stats = _finetune(cfg, "weights")
+    trainer = res["trainer"]
+    log(f"[weights] finetune from the HF directories: materialized in {res['load_seconds']:.2f} s, step "
+        f"{stats['step_ms']:.1f} ms, peak memory {stats['peak_gib']:.2f} GiB")
+    if len(res["steps"]) != WEIGHTS_STEPS or not res["checkpoints"]:
+        raise AssertionError(f"weights: {len(res['steps'])} steps, checkpoints {res['checkpoints']}")
+    ckpt = res["checkpoints"][-1]
+    check_loaded_base(trainer.model, paths)
+    saved = load_trainable(ckpt)
+    if set(saved) != set(trainer.trainable) or not all(torch.equal(saved[n], p.detach().cpu())
+                                                        for n, p in trainer.trainable.items()):
+        raise AssertionError("model.pt differs from the trained tensors")
+
+    dec = inference_batch.load_run_config([
+        "--config", str(RECIPE), *hf, f"++ckpt_path={ckpt}",
+        f"++dataset_config.val_data_path={write_corpus(tmp, n=16, seed=2, name='test')}",
+        f"++decode_config.decode_log={tmp / 'decode'}", f"++decode_config.max_new_tokens={WEIGHTS_NEW_TOKENS}",
+    ])
+    (out, dec_launches) = run_counted(lambda: inference_batch.main(dec, device="cuda"))
+    log(f"[weights] inference_batch with ckpt_path: {out['n']} utterances, weights materialized in "
+        f"{out['load_seconds']:.2f} s, decode {out['seconds']:.2f} s, {out['generated_tokens']} tokens, "
+        f"RTF {out['rtf']:.4f} ({out['audio_seconds']:.1f} s of audio); launches {dec_launches}")
+    model, tokenizer, _ = build_model_and_data(dec, split=dec.dataset_config.test_split, device="cuda")
+    t0 = time.perf_counter()
+    materialize_params(model.eval(), dec)
+    log(f"[weights] a fresh model materialized (random init, HF overlay with quantize-at-load, model.pt) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    params = dict(model.named_parameters())
+    bad = [n for n, p in trainer.trainable.items() if not torch.equal(params[n], p)]
+    if bad:
+        raise AssertionError(f"reloaded trainable tensors differ from the trained ones: {bad[:5]}")
+    del model, params
+    preds = Path(out["pred"]).read_text().splitlines()
+    mine = decode_texts(trainer.model, tokenizer, dec)
+    same = sum(a == b for a, b in zip(preds, mine))
+    log(f"[weights] {len(trainer.trainable)} trainable tensors reloaded bit-equal; decoded text of the entry point "
+        f"vs the in-memory trained model: {same} / {len(preds)} lines identical")
+    print("\n".join(preds[:3]))
+    if len(preds) != 16 or preds != mine:
+        raise AssertionError("the reloaded model's decode differs from the in-memory trained model's")
+    check_wer(out)
+    check_export(trainer, tmp)
+    del res, trainer
+    shutil.rmtree(tmp)
+    total = {k: launches[k] + dec_launches[k] for k in launches}
+    missing = [name for name in WEIGHTS_PATH if total[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the weights path: {missing}")
+    return total
+
+
 def main() -> int:
     setup()
     build()
@@ -1049,13 +1271,14 @@ def main() -> int:
     decode = run_slice()
     train = run_training()
     modes = run_training_modes()
+    weights = run_weights()
+    paths = {"decode": decode, "train": train, "train_int8_sr": modes, "weights": weights}
     for r in results:
-        by_path = {"decode": decode[r["name"]], "train": train[r["name"]], "train_int8_sr": modes[r["name"]]}
-        r["launches"] = sum(by_path.values())
-        r["launches_by_path"] = by_path
+        r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
         if r["name"].startswith("int8_matmul"):  # the code paths count both epilogues together
-            r["launches_by_code_path"] = {p: {"decode": decode[f"int8_matmul/{p}"], "train": train[f"int8_matmul/{p}"],
-                                              "train_int8_sr": modes[f"int8_matmul/{p}"]} for p in ("wgmma", "splitk")}
+            r["launches_by_code_path"] = {p: {path: counts[f"int8_matmul/{p}"] for path, counts in paths.items()}
+                                          for p in ("wgmma", "splitk")}
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

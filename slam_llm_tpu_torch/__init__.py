@@ -16,5 +16,12 @@ the twin, CUDA tensors to the kernel, and what the kernel cannot take raises.
 Ported so far: the ASR batch-decode path (Whisper encoder, linear projector,
 LoRA LLM with an int8 base, greedy and beam decode) and its LoRA training
 step (frozen encoder, trained projector and LoRA, the int8_rot backward,
-fused chunked cross-entropy, AdamW, ``pipeline/finetune.py``).
+fused chunked cross-entropy, AdamW, ``pipeline/finetune.py``), and the
+weights path around them: HF checkpoints in (``utils/hf_loader.py``),
+trainable checkpoints out and back in (``model.pt`` or the JAX package's
+``model.msgpack``, ``utils/checkpoint.py``), the Llama tokenizer
+(``data/tokenizer.py``), WER (``utils/wer.py``), HF export
+(``utils/hf_export.py``) and the interactive ``pipeline/inference.py``, with
+their file formats read and written in plain Python
+(``utils/safetensors_io.py``, ``utils/msgpack_codec.py``).
 """

@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -132,6 +132,19 @@ def quantize_base_params(model: nn.Module) -> nn.Module:
             mod.head_scale.copy_(scale)
             mod.head_qt.copy_(q.T)
     return model
+
+
+def dequantize_base_params(module: nn.Module, dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """The module's ``state_dict`` with every int8 base (``kernel_q``,
+    ``kernel_scale``) replaced by its dequantized fp ``weight`` (F, K) in
+    ``dtype``, the structure an fp model of the same config has (export,
+    interop). Values are lossy-roundtripped. The module is not changed."""
+    sd = dict(module.state_dict())
+    for name in [n for n in sd if n.endswith(".kernel_q") or n == "kernel_q"]:
+        base = name[: -len("kernel_q")]
+        q, scale = sd.pop(name), sd.pop(base + "kernel_scale")
+        sd[base + "weight"] = dequantize_int8(q, scale, contract_axis=-1, dtype=dtype)
+    return sd
 
 
 def rotated_pair(w_q: torch.Tensor, w_scale: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

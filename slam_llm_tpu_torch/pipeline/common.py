@@ -2,13 +2,15 @@
 
 Counterpart of ``slam_llm_tpu/pipeline/common.py``. ``materialize_params``
 draws the port's own random init from ``train_config.seed`` through a
-``torch.Generator`` on the model's device; loading pretrained or trained
-weights is not ported yet. ``encode_one`` builds the one-wav batch of the
+``torch.Generator`` on the model's device, then overlays the HF checkpoints
+(``model_config.llm_path`` / ``encoder_path``) and the trainable checkpoint
+(``ckpt_path``), in the reference's order. ``encode_one`` builds the one-wav batch of the
 reference's ``pipeline/inference.py`` (``run_test_during_validation``).
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import random
 from typing import List, Tuple
@@ -21,9 +23,8 @@ from slam_llm_tpu_torch.config import RunConfig
 from slam_llm_tpu_torch.models.layers import DenseGeneralLora
 from slam_llm_tpu_torch.ops.quant import quantize_int8
 from slam_llm_tpu_torch.registry import get_custom_dataset_factory, get_custom_model_factory
-
-_TODO_LOADERS = "ROADMAP: port the HF / checkpoint loaders"
-
+from slam_llm_tpu_torch.utils.checkpoint import load_trainable_into
+from slam_llm_tpu_torch.utils.hf_loader import load_pretrained_into
 
 def set_seed(seed: int) -> None:
     random.seed(seed)
@@ -97,18 +98,26 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def materialize_params(model: nn.Module, cfg: RunConfig) -> nn.Module:
-    """Fill the model's weights: the seeded random init. Pretrained
-    (``llm_path`` / ``encoder_path``) and trained (``ckpt_path``) weights
-    raise until their loaders are ported."""
-    mc = cfg.model_config
-    for key, val in (("model_config.llm_path", mc.llm_path),
-                     ("model_config.encoder_path", mc.encoder_path),
-                     ("ckpt_path", cfg.ckpt_path)):
-        if val:
-            raise NotImplementedError(f"{key}: loading weights is not ported yet ({_TODO_LOADERS})")
+    """Fill the model's weights as the reference does: the seeded random
+    init, then the HF weights of ``model_config.llm_path`` /
+    ``encoder_path`` (``utils.hf_loader``), then the trainable tensors of
+    ``ckpt_path`` (``utils.checkpoint.load_trainable_into``: a directory
+    holding ``model.pt``, else ``model.msgpack``, or either file). A path
+    that is given and missing raises. The int8 backward buffers and CE head
+    are derived from the loaded weights afterwards, by the trainer
+    (``ops.quant.quantize_base_params``)."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(cfg.train_config.seed)
-    return init_params_(model, gen)
+    init_params_(model, gen)
+    mc = cfg.model_config
+    if mc.llm_path or mc.encoder_path:
+        load_pretrained_into(model, mc)
+    if cfg.ckpt_path:
+        logging.getLogger("slam_llm_tpu_torch").info("loading trainable checkpoint from %s", cfg.ckpt_path)
+        load_trainable_into(model, cfg.ckpt_path)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)  # a caller timing the load sees the copies and quantizations done
+    return model
 
 
 def encode_one(wav_path: str, prompt: str, tokenizer, dataset_config, ds_rate=None) -> dict:

@@ -9,8 +9,10 @@ asking for CUDA without a GPU raises). One process, one device:
         ++dataset_config.train_data_path=train.jsonl ++dataset_config.val_data_path=val.jsonl \\
         ++train_config.max_steps_per_epoch=10 ++train_config.output_dir=/tmp/out
 
-Weights are the seeded random init of ``pipeline.common.materialize_params``
-until the loaders are ported (ROADMAP Queue 1). ``resume_from`` (a
+Weights come from ``pipeline.common.materialize_params``: the seeded random
+init, then the HF checkpoints of ``++model_config.llm_path=<dir>`` /
+``++model_config.encoder_path=<dir>``, then the trainable tensors of
+``++ckpt_path=<checkpoint dir, model.pt or model.msgpack>``. ``resume_from`` (a
 checkpoint directory or its ``full_state.pt``) restores the trainable
 tensors, the optimizer state and the step that ``save_optimizer`` wrote;
 ``run_test_during_validation`` decodes ``run_test_during_validation_file``
@@ -21,6 +23,7 @@ raises until its ROADMAP item is done.
 from __future__ import annotations
 
 import sys
+import time
 from typing import List, Optional
 
 from slam_llm_tpu_torch.config import RunConfig, load_run_config
@@ -86,7 +89,8 @@ def build_decode_hook(cfg: RunConfig, model, tokenizer):
 
 def main(cfg: RunConfig, device="cuda"):
     """Train on the train split; returns the loop's results (step metrics,
-    validations, checkpoint paths) plus the trainer."""
+    validations, checkpoint paths) plus the trainer and the seconds that
+    ``materialize_params`` took (``load_seconds``)."""
     dev = resolve_device(device)
     logger = setup_logger("slam_llm_tpu_torch", log_file=cfg.log_config.log_file)
     check_ported(cfg)
@@ -107,19 +111,21 @@ def main(cfg: RunConfig, device="cuda"):
         if eval_ds is not None else None
     )
 
+    t0 = time.perf_counter()
     materialize_params(model, cfg)
+    load_s = time.perf_counter() - t0
     trainer = Trainer(model, model.cfg, tc).state_from_params()
     if tc.resume_from:
         logger.info("resuming the full state (trainable tensors, optimizer, step) from %s", tc.resume_from)
         trainer.load_state_dict(load_state(tc.resume_from))
     int8_base = sum(buf.numel() for name, buf in model.named_buffers() if name.endswith("kernel_q"))
-    logger.info("params: trainable=%.2fM frozen=%.2fM (+ %.2fM in the int8 base) on %s",
-                count_params(trainer.trainable) / 1e6, count_params(trainer.frozen) / 1e6, int8_base / 1e6, dev)
+    logger.info("params: trainable=%.2fM frozen=%.2fM (+ %.2fM in the int8 base) on %s, materialized in %.2f s",
+                count_params(trainer.trainable) / 1e6, count_params(trainer.frozen) / 1e6, int8_base / 1e6, dev, load_s)
     results = train(trainer, train_loader, eval_loader, train_config=tc, log_config=cfg.log_config,
                     decode_hook=build_decode_hook(cfg, model, tokenizer))
     logger.info("training done: best_val_loss=%s checkpoints=%s",
                 results.get("best_val_loss"), results.get("checkpoints"))
-    results["trainer"] = trainer
+    results["trainer"], results["load_seconds"] = trainer, load_s
     return results
 
 

@@ -6,7 +6,13 @@ plus ``--device`` (default ``cuda``; asking for CUDA without a GPU raises):
 
     python -m slam_llm_tpu_torch.pipeline.inference_batch \\
         --config examples/asr_librispeech/conf/asr_whisper_tinyllama.yaml \\
-        ++dataset_config.val_data_path=test.jsonl ++decode_config.decode_log=/tmp/decode
+        ++dataset_config.val_data_path=test.jsonl ++decode_config.decode_log=/tmp/decode \\
+        ++model_config.llm_path=<hf dir> ++model_config.encoder_path=<hf dir> ++ckpt_path=<checkpoint dir>
+
+Weights come from ``pipeline.common.materialize_params`` (the seeded random
+init, the HF directories, then the trainable checkpoint: a directory holding
+``model.pt`` or the JAX package's ``model.msgpack``, or either file).
+``utils.wer`` scores the ``_pred`` / ``_gt`` logs.
 """
 
 from __future__ import annotations
@@ -41,20 +47,10 @@ def decode_loader(cfg: RunConfig, dataset):
     )
 
 
-def main(cfg: RunConfig, device="cuda"):
-    """Decode the test split; returns counts, timings and the log paths."""
-    dev = resolve_device(device)
-    logger = setup_logger("slam_llm_tpu_torch", log_file=cfg.log_config.log_file)
-    set_seed(cfg.train_config.seed)
-    cfg.dataset_config.inference_mode = True
-
-    model, tokenizer, dataset = build_model_and_data(cfg, split=cfg.dataset_config.test_split, device=dev)
-    model.eval()
-    materialize_params(model, cfg)
-    loader = decode_loader(cfg, dataset)
-
+def generation_config(cfg: RunConfig, tokenizer) -> GenerationConfig:
+    """``decode_config`` with the tokenizer's special ids."""
     dc = cfg.decode_config
-    gen_cfg = GenerationConfig(
+    return GenerationConfig(
         max_new_tokens=dc.max_new_tokens,
         num_beams=dc.num_beams,
         num_return_sequences=getattr(dc, "num_return_sequences", 1),
@@ -68,6 +64,23 @@ def main(cfg: RunConfig, device="cuda"):
         pad_token_id=tokenizer.pad_token_id,
         bos_token_id=tokenizer.bos_token_id,
     )
+
+
+def main(cfg: RunConfig, device="cuda"):
+    """Decode the test split; returns counts, timings and the log paths."""
+    dev = resolve_device(device)
+    logger = setup_logger("slam_llm_tpu_torch", log_file=cfg.log_config.log_file)
+    set_seed(cfg.train_config.seed)
+    cfg.dataset_config.inference_mode = True
+
+    model, tokenizer, dataset = build_model_and_data(cfg, split=cfg.dataset_config.test_split, device=dev)
+    model.eval()
+    t0 = time.perf_counter()
+    materialize_params(model, cfg)
+    load_s = time.perf_counter() - t0
+    loader = decode_loader(cfg, dataset)
+
+    gen_cfg = generation_config(cfg, tokenizer)
     generator = Generator(model, gen_cfg)
     sampler = torch.Generator(device=dev).manual_seed(cfg.train_config.seed)
     nrs = (
@@ -76,7 +89,7 @@ def main(cfg: RunConfig, device="cuda"):
         else 1
     )
 
-    pred_path, gt_path = dc.decode_log + "_pred", dc.decode_log + "_gt"
+    pred_path, gt_path = cfg.decode_config.decode_log + "_pred", cfg.decode_config.decode_log + "_gt"
     n, n_tokens, t_total, audio_s = 0, 0, 0.0, 0.0
     with open(pred_path, "w", encoding="utf-8") as f_pred, open(gt_path, "w", encoding="utf-8") as f_gt:
         for batch in loader:
@@ -97,9 +110,10 @@ def main(cfg: RunConfig, device="cuda"):
             elif "audio_mel_mask" in batch:
                 audio_s += float(batch["audio_mel_mask"].sum()) * 0.01  # 10 ms hop
     rtf = t_total / audio_s if audio_s else float("nan")
-    logger.info("decoded %d utts in %.1fs (RTF=%.4f) on %s -> %s", n, t_total, rtf, dev, pred_path)
+    logger.info("decoded %d utts in %.1fs (RTF=%.4f) on %s -> %s (weights materialized in %.2f s)",
+                n, t_total, rtf, dev, pred_path, load_s)
     return {
-        "n": n, "seconds": t_total, "rtf": rtf, "audio_seconds": audio_s,
+        "n": n, "seconds": t_total, "rtf": rtf, "audio_seconds": audio_s, "load_seconds": load_s,
         "generated_tokens": n_tokens, "pred": pred_path, "gt": gt_path, **generator.stats,
     }
 

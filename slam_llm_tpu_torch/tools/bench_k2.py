@@ -8,10 +8,11 @@ of two trees on one card, and the design points of this tree's kernel.
 Times every K2 shape of phase 3 by CUDA-graph replay (``chip_smoke.time_ms``)
 ``repeats`` times (default 3) and prints one JSON line: the card's name and
 power limit, and per shape the times in ms, the bound (bytes at the card's
-memory rate) and the share of it. The default mode calls only the wrappers'
-public signatures and ``chip_smoke``'s helpers, so the same file runs
-against an older checkout of the port: copy it into that tree and run it
-from that tree's root, in turns with this one.
+memory rate), the share of it, and the plain twin's (``rowquant_ref``) time.
+The default mode calls only the wrappers' public signatures, the twin and
+``chip_smoke``'s helpers, so the same file runs against an older checkout of
+the port: copy it into that tree and run it from that tree's root, in turns
+with this one.
 
 ``--design`` adds, for this tree's kernel: each shape under other plans
 than ``plan_rowquant``'s (rows per group, threads, units per thread), and
@@ -121,7 +122,7 @@ def design(gen, repeats: int) -> dict:
 
 def main(argv) -> dict:
     import chip_smoke as cs
-    from slam_llm_tpu_torch.ops.kernels.rowquant import rowquant
+    from slam_llm_tpu_torch.ops.kernels.rowquant import rowquant, rowquant_ref
 
     repeats = int(argv[0]) if argv and argv[0].isdigit() else 3
     smi = cs.setup()
@@ -134,6 +135,8 @@ def main(argv) -> dict:
         b = bound_ms(x, f)
         res["K2"][key(name, m, k, dtype)] = dict(ms=[round(t, 5) for t in ms], bound_ms=round(b, 5),
                                                  share=round(b / min(ms), 3))
+        res["K2"][key(name, m, k, dtype)]["plain_ms"] = round(
+            cs.time_ms(lambda: rowquant_ref(x, f, seed=seed, rotate=rotate)), 5)
     if "--design" in argv:
         res.update(design(gen, repeats))
     print(json.dumps(res))

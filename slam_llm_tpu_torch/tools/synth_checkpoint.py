@@ -1,0 +1,220 @@
+"""Seeded random checkpoints in the published HF layouts, at any width.
+
+    python -m slam_llm_tpu_torch.tools.synth_checkpoint <out dir> \\
+        [--llm tinyllama-1.1b] [--encoder whisper-small] [--seed 0] [--device cpu]
+
+writes ``<out dir>/llm`` and ``<out dir>/whisper`` with the port's own
+safetensors writer (``utils.safetensors_io``), for runs that need pretrained-
+shaped weights where the real ones are not at hand:
+
+* ``write_llama``: an HF Llama directory: ``config.json``, the weights in
+  bf16 over two shards (``model-00001-of-00002.safetensors``,
+  ``model-00002-of-00002.safetensors``) with ``model.safetensors.index.json``;
+* ``write_tokenizer``: a Llama-layout ``tokenizer.json`` (BPE with
+  ``byte_fallback``, TinyLlama's Prepend + Replace normalizer, ``<s>``
+  template) + ``tokenizer_config.json``: ``<unk>`` ``<s>`` ``</s>``, the 256
+  ``<0xXX>`` byte tokens, the transcripts' alphabet, then seeded merges of
+  two existing tokens until the vocabulary holds ``vocab_size`` entries;
+* ``write_whisper``: an HF whisper directory: ``config.json`` and
+  ``model.safetensors`` (bf16) with the encoder under ``model.encoder.``, its
+  sinusoidal ``embed_positions``, and a few decoder tensors, as a
+  ``WhisperForConditionalGeneration`` checkpoint carries them.
+
+Linear weights are normal with std 1/sqrt(fan_in), embeddings with std 1,
+norm scales 1 + N(0, 0.05^2), biases N(0, 0.02^2). Each ``write_*`` returns
+the bytes it wrote.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import sys
+from typing import Dict
+
+import numpy as np
+import torch
+
+from slam_llm_tpu_torch.models.layers import sinusoidal_positions
+from slam_llm_tpu_torch.utils.safetensors_io import save_file
+
+ALPHABET = "▁abcdefghijklmnopqrstuvwxyz0123456789.,'?!:"
+MAX_TOKEN_CHARS = 12  # the longest merged token
+DTYPE = torch.bfloat16
+
+
+class _Draw:
+    """Seeded tensors, drawn on ``device``, stored in bf16 on the CPU."""
+
+    def __init__(self, seed: int, device):
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.device = device
+
+    def normal(self, shape, std: float, mean: float = 0.0) -> torch.Tensor:
+        x = torch.randn(shape, generator=self.gen, device=self.device) * std + mean
+        return x.to(DTYPE).cpu()
+
+    def linear(self, out_f: int, in_f: int) -> torch.Tensor:
+        return self.normal((out_f, in_f), 1.0 / math.sqrt(in_f))
+
+
+def write_llama(out_dir: str, cfg, seed: int = 0, device="cpu") -> int:
+    """An HF Llama directory for ``cfg`` (the port's ``LLMConfig``)."""
+    d = _Draw(seed, device)
+    hd = cfg.head_dim
+    first: Dict[str, torch.Tensor] = {"model.embed_tokens.weight": d.normal((cfg.vocab_size, cfg.d_model), 1.0)}
+    second: Dict[str, torch.Tensor] = {}
+    for i in range(cfg.n_layers):
+        shard = first if i < (cfg.n_layers + 1) // 2 else second
+        p = f"model.layers.{i}."
+        shard[p + "input_layernorm.weight"] = d.normal((cfg.d_model,), 0.05, 1.0)
+        shard[p + "post_attention_layernorm.weight"] = d.normal((cfg.d_model,), 0.05, 1.0)
+        for name, out_f, in_f in (("q_proj", cfg.n_heads * hd, cfg.d_model), ("k_proj", cfg.n_kv_heads * hd, cfg.d_model),
+                                  ("v_proj", cfg.n_kv_heads * hd, cfg.d_model), ("o_proj", cfg.d_model, cfg.n_heads * hd)):
+            shard[f"{p}self_attn.{name}.weight"] = d.linear(out_f, in_f)
+            if cfg.qkv_bias and name != "o_proj":
+                shard[f"{p}self_attn.{name}.bias"] = d.normal((out_f,), 0.02)
+        for name, out_f, in_f in (("gate_proj", cfg.ffn_dim, cfg.d_model), ("up_proj", cfg.ffn_dim, cfg.d_model),
+                                  ("down_proj", cfg.d_model, cfg.ffn_dim)):
+            shard[f"{p}mlp.{name}.weight"] = d.linear(out_f, in_f)
+    second["model.norm.weight"] = d.normal((cfg.d_model,), 0.05, 1.0)
+    if not cfg.tied_embeddings:
+        second["lm_head.weight"] = d.linear(cfg.vocab_size, cfg.d_model)
+    os.makedirs(out_dir, exist_ok=True)
+    names = ("model-00001-of-00002.safetensors", "model-00002-of-00002.safetensors")
+    written = sum(save_file(shard, os.path.join(out_dir, name), metadata={"format": "pt"})
+                  for shard, name in zip((first, second), names))
+    index = {"metadata": {"total_size": sum(t.numel() * t.element_size() for s in (first, second) for t in s.values())},
+             "weight_map": {k: name for shard, name in zip((first, second), names) for k in shard}}
+    config = {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama", "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.d_model, "intermediate_size": cfg.ffn_dim, "num_hidden_layers": cfg.n_layers,
+        "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads, "head_dim": hd,
+        "rms_norm_eps": cfg.rms_eps, "rope_theta": cfg.rope_theta, "max_position_embeddings": 2048,
+        "tie_word_embeddings": cfg.tied_embeddings, "attention_bias": bool(cfg.qkv_bias), "hidden_act": "silu",
+        "bos_token_id": 1, "eos_token_id": 2, "torch_dtype": "bfloat16",
+    }
+    return written + _write_json(out_dir, "model.safetensors.index.json", index) + _write_json(out_dir, "config.json", config)
+
+
+def write_tokenizer(out_dir: str, vocab_size: int, seed: int = 0) -> int:
+    """A Llama-layout ``tokenizer.json`` + ``tokenizer_config.json`` of
+    ``vocab_size`` entries (module docstring)."""
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2, **{f"<0x{b:02X}>": 3 + b for b in range(256)}}
+    words = []
+    for ch in ALPHABET:
+        if ch not in vocab:
+            vocab[ch] = len(vocab)
+            words.append(ch)
+    if vocab_size < len(vocab):
+        raise ValueError(f"vocab_size {vocab_size} < the {len(vocab)} specials, bytes and alphabet")
+    rng = np.random.default_rng(seed)
+    merges = []
+    while len(vocab) < vocab_size:
+        # early tokens are drawn more often, so merges build on merges
+        a, b = (words[int(len(words) * rng.random() ** 2)] for _ in range(2))
+        if len(a) + len(b) > MAX_TOKEN_CHARS or a + b in vocab or b.startswith("▁"):
+            continue
+        vocab[a + b] = len(vocab)
+        words.append(a + b)
+        merges.append(f"{a} {b}")
+    added = [{"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True} for i, t in enumerate(("<unk>", "<s>", "</s>"))]
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "▁"}, {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}]},
+        "pre_tokenizer": None,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}}, {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "<s>", "type_id": 0}}, {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "<s>", "type_id": 1}}, {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {"<s>": {"id": "<s>", "ids": [1], "tokens": ["<s>"]}}},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"}, "content": " "}, {"type": "ByteFallback"},
+            {"type": "Fuse"}, {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>", "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+    config = {"tokenizer_class": "LlamaTokenizerFast", "bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>",
+              "pad_token": None, "add_bos_token": True, "add_eos_token": False, "legacy": False,
+              "clean_up_tokenization_spaces": False, "model_max_length": 2048}
+    return _write_json(out_dir, "tokenizer.json", spec) + _write_json(out_dir, "tokenizer_config.json", config)
+
+
+def write_whisper(out_dir: str, cfg, seed: int = 0, device="cpu", decoder_vocab: int = 51865) -> int:
+    """An HF whisper directory for ``cfg`` (the port's ``WhisperEncoderConfig``)
+    with ``decoder_vocab`` rows of decoder embedding (whisper's 51865)."""
+    d = _Draw(seed, device)
+    dm, p = cfg.d_model, "model.encoder."
+    sd: Dict[str, torch.Tensor] = {
+        p + "conv1.weight": d.normal((dm, cfg.n_mels, 3), 1.0 / math.sqrt(3 * cfg.n_mels)),
+        p + "conv1.bias": d.normal((dm,), 0.02),
+        p + "conv2.weight": d.normal((dm, dm, 3), 1.0 / math.sqrt(3 * dm)),
+        p + "conv2.bias": d.normal((dm,), 0.02),
+        p + "embed_positions.weight": sinusoidal_positions(cfg.max_source_positions, dm).to(DTYPE),
+        p + "layer_norm.weight": d.normal((dm,), 0.05, 1.0),
+        p + "layer_norm.bias": d.normal((dm,), 0.02),
+    }
+    for i in range(cfg.n_layers):
+        q = f"{p}layers.{i}."
+        for ln in ("self_attn_layer_norm", "final_layer_norm"):
+            sd[f"{q}{ln}.weight"] = d.normal((dm,), 0.05, 1.0)
+            sd[f"{q}{ln}.bias"] = d.normal((dm,), 0.02)
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd[f"{q}self_attn.{name}.weight"] = d.linear(dm, dm)
+            if name != "k_proj":
+                sd[f"{q}self_attn.{name}.bias"] = d.normal((dm,), 0.02)
+        sd[q + "fc1.weight"], sd[q + "fc1.bias"] = d.linear(4 * dm, dm), d.normal((4 * dm,), 0.02)
+        sd[q + "fc2.weight"], sd[q + "fc2.bias"] = d.linear(dm, 4 * dm), d.normal((dm,), 0.02)
+    # the decoder tensors a whisper checkpoint also carries (the port never loads them)
+    sd["model.decoder.embed_tokens.weight"] = d.normal((decoder_vocab, dm), 0.02)
+    sd["model.decoder.layer_norm.weight"] = d.normal((dm,), 0.05, 1.0)
+    sd["model.decoder.layer_norm.bias"] = d.normal((dm,), 0.02)
+    config = {
+        "architectures": ["WhisperForConditionalGeneration"], "model_type": "whisper", "num_mel_bins": cfg.n_mels,
+        "d_model": dm, "encoder_layers": cfg.n_layers, "encoder_attention_heads": cfg.n_heads,
+        "encoder_ffn_dim": 4 * dm, "decoder_layers": 1, "decoder_attention_heads": cfg.n_heads,
+        "decoder_ffn_dim": 4 * dm, "max_source_positions": cfg.max_source_positions, "max_target_positions": 448,
+        "vocab_size": decoder_vocab, "torch_dtype": "bfloat16",
+    }
+    written = save_file(sd, os.path.join(out_dir, "model.safetensors"), metadata={"format": "pt"})
+    return written + _write_json(out_dir, "config.json", config)
+
+
+def _write_json(out_dir: str, name: str, obj) -> int:
+    os.makedirs(out_dir, exist_ok=True)
+    data = json.dumps(obj, indent=1, ensure_ascii=False).encode("utf-8")
+    with open(os.path.join(out_dir, name), "wb") as f:
+        f.write(data)
+    return len(data)
+
+
+def main(argv=None) -> dict:
+    import argparse
+
+    from slam_llm_tpu_torch.models.llm import LLMConfig
+    from slam_llm_tpu_torch.models.whisper import PRESETS as WHISPER_PRESETS
+
+    llms = {"tinyllama-1.1b": LLMConfig.tinyllama_1_1b, "vicuna-7b": LLMConfig.vicuna_7b, "tiny-test": LLMConfig.tiny_test}
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("out")
+    ap.add_argument("--llm", default="tinyllama-1.1b", choices=sorted(llms))
+    ap.add_argument("--encoder", default="whisper-small", choices=sorted(WHISPER_PRESETS))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cpu")
+    args = ap.parse_args(argv)
+    llm_cfg, enc_cfg = llms[args.llm](), WHISPER_PRESETS[args.encoder]()
+    llm_dir, enc_dir = os.path.join(args.out, "llm"), os.path.join(args.out, "whisper")
+    sizes = {"llm": write_llama(llm_dir, llm_cfg, args.seed, args.device)
+             + write_tokenizer(llm_dir, llm_cfg.vocab_size, args.seed),
+             "whisper": write_whisper(enc_dir, enc_cfg, args.seed + 1, args.device)}
+    print(json.dumps({"llm_path": llm_dir, "encoder_path": enc_dir, "bytes": sizes}))
+    return sizes
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

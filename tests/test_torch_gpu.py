@@ -659,3 +659,85 @@ def test_training_step_quantizes_each_shared_activation_once(gen, remat):
     torch.cuda.synchronize()
     assert trowquant.rowquant.launches - before[0] == 4 * cfg.n_layers
     assert trowquant.rowquant_rot_sr.launches - before[1] == 7 * cfg.n_layers
+
+
+def _synth_weights(tmp_path):
+    """A 2-layer, 64-wide-head LLM (int8 base, LoRA r8 on q / v) and a
+    2-layer whisper encoder, written as bf16 HF directories by the port's
+    own writer (the card's host has no transformers)."""
+    from types import SimpleNamespace
+
+    from slam_llm_tpu_torch.models.llm import LLMConfig
+    from slam_llm_tpu_torch.models.projector import ProjectorConfig
+    from slam_llm_tpu_torch.models.slam_model import SLAMConfig
+    from slam_llm_tpu_torch.models.whisper import WhisperEncoderConfig
+    from slam_llm_tpu_torch.tools.synth_checkpoint import write_llama, write_whisper
+
+    llm = dataclasses.replace(LLMConfig.tiny_test(vocab_size=512), d_model=512, n_heads=8, n_kv_heads=2,
+                              head_dim=64, ffn_dim=1024, n_layers=2, lora_rank=8, base_quant="int8")
+    enc = WhisperEncoderConfig(n_mels=80, d_model=256, n_heads=4, n_layers=2)
+    write_llama(str(tmp_path / "llm"), llm, seed=0)
+    write_whisper(str(tmp_path / "whisper"), enc, seed=1, decoder_vocab=64)
+    cfg = SLAMConfig(llm=llm, encoder=enc, projector_cfg=ProjectorConfig(encoder_dim=256, llm_dim=512, hidden_dim=512))
+    mc = SimpleNamespace(llm_path=str(tmp_path / "llm"), encoder_path=str(tmp_path / "whisper"), encoder_name="whisper")
+    return cfg, mc
+
+
+def test_hf_loader_puts_every_tensor_on_the_card(gen, tmp_path):
+    from slam_llm_tpu_torch.models.slam_model import SLAMModel
+    from slam_llm_tpu_torch.utils.hf_loader import load_hf_state_dict, load_pretrained_into
+
+    cfg, mc = _synth_weights(tmp_path)
+    model = load_pretrained_into(SLAMModel(cfg, device="cuda"), mc)
+    assert {t.device.type for t in model.state_dict().values()} == {"cuda"}
+    assert {t.device.type for _, t in model.named_buffers()} == {"cuda"}
+    sd = load_hf_state_dict(mc.llm_path)
+    assert torch.equal(model.llm.embed_tokens.weight.cpu(), sd["model.embed_tokens.weight"])
+    assert torch.equal(model.llm.layers[1].input_norm.scale.cpu(), sd["model.layers.1.input_layernorm.weight"].float())
+
+
+def test_quantize_at_load_on_the_card_equals_the_cpu(gen, tmp_path):
+    from slam_llm_tpu_torch.models.slam_model import SLAMModel
+    from slam_llm_tpu_torch.utils.hf_loader import load_pretrained_into
+
+    cfg, mc = _synth_weights(tmp_path)
+    on_card = load_pretrained_into(SLAMModel(cfg, device="cuda"), mc).state_dict()
+    on_cpu = load_pretrained_into(SLAMModel(cfg, device="cpu"), mc).state_dict()
+    assert sum(n.endswith("kernel_q") for n in on_cpu) == 14
+    for name, t in on_cpu.items():
+        assert torch.equal(on_card[name].cpu(), t), name
+
+
+def test_checkpoint_round_trip_decodes_the_same_tokens_on_the_card(gen, tmp_path):
+    from slam_llm_tpu_torch.inference.generate import GenerationConfig, Generator
+    from slam_llm_tpu_torch.models.slam_model import SLAMModel
+    from slam_llm_tpu_torch.pipeline.common import init_params_
+    from slam_llm_tpu_torch.utils.checkpoint import load_trainable_into, save_trainable
+    from slam_llm_tpu_torch.utils.hf_loader import load_pretrained_into
+
+    cfg, mc = _synth_weights(tmp_path)
+    rng = np.random.default_rng(0)
+    n_audio, n_text = 40, 8  # 400 mel frames -> 200 encoder frames -> 40 projected
+    ids = np.concatenate([np.full((2, n_audio), -1), rng.integers(3, 512, (2, n_text))], axis=1)
+    batch = {"input_ids": ids, "attention_mask": np.ones(ids.shape, np.int32),
+             "modality_mask": (ids < 0).astype(np.int32),
+             "audio_mel": rng.standard_normal((2, 400, 80)).astype(np.float32),
+             "audio_mel_mask": np.ones((2, 400), np.int32)}
+
+    def decode(model):
+        return Generator(model.eval(), GenerationConfig(max_new_tokens=8, num_beams=1, eos_token_id=2, pad_token_id=2,
+                                                        bos_token_id=1)).generate(batch)
+
+    trained = load_pretrained_into(init_params_(SLAMModel(cfg, device="cuda"), gen), mc)
+    with torch.no_grad():
+        for name, p in trained.named_parameters():
+            if "lora_b" in name or "encoder_projector" in name:
+                p.normal_(0.0, 0.05, generator=gen)
+    before = decode(trained)
+    save_trainable(str(tmp_path / "ckpt" / "model.pt"),
+                   {n: p for n, p in trained.named_parameters() if "lora" in n or "encoder_projector" in n})
+    fresh = load_pretrained_into(init_params_(SLAMModel(cfg, device="cuda"), torch.Generator(device="cuda").manual_seed(9)),
+                                 mc)
+    load_trainable_into(fresh, str(tmp_path / "ckpt"))
+    assert all(torch.equal(a, b) for a, b in zip(trained.state_dict().values(), fresh.state_dict().values()))
+    assert np.array_equal(decode(fresh), before)

@@ -252,10 +252,18 @@ def test_unported_parts_raise(tmp_path):
     assert torch.equal(q, torch.full((2, 8), 127, dtype=torch.int8)) and torch.allclose(s, torch.full((2, 1), 2 / 127))
     with pytest.raises(ValueError, match="mutually exclusive"):
         rowquant(torch.ones(2, 8), fold=torch.ones(8), rotate=True)
+    # ckpt_path: a missing checkpoint raises, an existing one loads
+    from slam_llm_tpu_torch.utils.checkpoint import save_trainable
+
     model, _ = tslam.model_factory(cfg.train_config, cfg.model_config)
     cfg.ckpt_path = str(tmp_path / "ckpt")
-    with pytest.raises(NotImplementedError, match="ckpt_path"):
+    with pytest.raises(FileNotFoundError, match="ckpt"):
         materialize_params(model, cfg)
+    trained = {n: torch.full_like(p, 0.5) for n, p in model.named_parameters() if "encoder_projector" in n}
+    save_trainable(str(tmp_path / "ckpt" / "model.pt"), trained)
+    materialize_params(model, cfg)
+    params = dict(model.named_parameters())
+    assert trained and all(torch.equal(params[n], t) for n, t in trained.items())
 
 
 _PROBE = r"""
