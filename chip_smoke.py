@@ -60,7 +60,20 @@ Phases, each fatal on failure:
                 whose trainable tensors equal the trained ones and whose
                 decoded text equals the in-memory trained model's; the port's
                 WER over the logs; export_llama read back and a merged q_proj
-                checked.
+                checked;
+  8. st      -- the speech-translation recipe
+                examples/st_covost2/conf/st_whisper_qwen.yaml at full width
+                (whisper-large-v3, the Q-Former with 80 queries and 8 layers,
+                Qwen2-7B in bf16; random weights from the recipe's seed and a
+                qwen2-layout ByteLevel tokenizer written by
+                tools/synth_checkpoint): pipeline.finetune for 4 steps of 8
+                utterances with the recipe's remat (every Q-Former tensor
+                moved, every encoder and LLM tensor bit-unchanged);
+                pipeline.inference_batch with ckpt_path (16 utterances, beam
+                4) against the in-memory trained model's decode; BLEU through
+                tools/eval_werbleu; the prefill logits and every Q-Former
+                gradient of one utterance against the CPU plain path at 2 LLM
+                and 2 encoder layers.
 
 Prints one JSON line of kernel results before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -241,10 +254,10 @@ def _padding_mask(b, t, pad, dev="cuda"):
     return mask
 
 
-def _rope_for(mask, d):
+def _rope_for(mask, d, theta):
     from slam_llm_tpu_torch.models.layers import rope_tables
 
-    return rope_tables((mask.long().cumsum(1) - 1).clamp_min(0), d)
+    return rope_tables((mask.long().cumsum(1) - 1).clamp_min(0), d, theta)
 
 
 # the library call nearest to a fused-RoPE or left-padded flash call: SDPA on
@@ -296,20 +309,27 @@ def check_flash(gen) -> dict:
 
     dev = "cuda"
     cases = [
-        # (name, B, T, H, Hkv, D, causal, padding, fused rope)
-        ("whisper-small self-attn", 8, 1500, 12, 12, 64, False, "right", False),
-        ("tinyllama prefill, the slice's bucket", 8, 512, 32, 4, 64, True, "none", False),
-        ("tinyllama training, fused RoPE, left-padded", 16, 512, 32, 4, 64, True, "left", True),
-        ("tinyllama prefill, left-padded", 8, 448, 32, 4, 64, True, "left", False),
-        ("head_dim 128", 2, 512, 32, 32, 128, True, "left", False),
+        # (name, B, T, H, Hkv, D, causal, padding, fused RoPE's theta or 0)
+        ("whisper-small self-attn", 8, 1500, 12, 12, 64, False, "right", 0),
+        ("tinyllama prefill, the slice's bucket", 8, 512, 32, 4, 64, True, "none", 0),
+        ("tinyllama training, fused RoPE, left-padded", 16, 512, 32, 4, 64, True, "left", 1e4),
+        ("tinyllama prefill, left-padded", 8, 448, 32, 4, 64, True, "left", 0),
+        ("head_dim 128", 2, 512, 32, 32, 128, True, "left", 0),
+        # the ST recipe: whisper-large-v3's encoder (30 s of mel, unpadded),
+        # the Q-Former's self-attention, qwen2-7b's training and prefill
+        ("whisper-large-v3 self-attn", 8, 1500, 20, 20, 64, False, "none", 0),
+        ("Q-Former self-attn", 8, 80, 12, 12, 64, False, "none", 0),
+        ("qwen2-7b training, fused RoPE theta 1e6, left-padded", 8, ST_T, 28, 4, 128, True, "left", 1e6),
+        ("qwen2-7b prefill, left-padded", 8, ST_PREFILL_T, 28, 4, 128, True, "left", 0),
     ]
     worst, rows = 0.0, []
-    for name, b, t, h, hkv, d, causal, pad, fused in cases:
+    for name, b, t, h, hkv, d, causal, pad, theta in cases:
+        fused = theta > 0
         q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
         k = torch.randn(b, t, hkv, d, generator=gen, device=dev).bfloat16()
         v = torch.randn(b, t, hkv, d, generator=gen, device=dev).bfloat16()
         mask = _padding_mask(b, t, pad)
-        rope = _rope_for(mask, d) if fused else None
+        rope = _rope_for(mask, d, theta) if fused else None
         out, lse = flash_attention_fwd(q, k, v, mask, causal, rope=rope)
         torch.cuda.synchronize()
         # the twin sees q / k rotated as the kernel rotates them (f32, one bf16 rounding)
@@ -365,17 +385,21 @@ def check_flash_bwd(gen) -> dict:
 
     dev = "cuda"
     cases = [
-        ("tinyllama training, fused RoPE, left + right padded", 16, 512, 32, 4, 64, True, "both", True),
-        ("whisper-like, not causal, right-padded", 2, 1500, 12, 12, 64, False, "right", False),
+        # (name, B, T, H, Hkv, D, causal, padding, fused RoPE's theta or 0)
+        ("tinyllama training, fused RoPE, left + right padded", 16, 512, 32, 4, 64, True, "both", 1e4),
+        ("whisper-like, not causal, right-padded", 2, 1500, 12, 12, 64, False, "right", 0),
+        ("qwen2-7b training, fused RoPE theta 1e6, left-padded", 8, ST_T, 28, 4, 128, True, "left", 1e6),
+        ("Q-Former self-attn", 8, 80, 12, 12, 64, False, "none", 0),
     ]
     worst, rows = 0.0, []
-    for name, b, t, h, hkv, d, causal, pad, fused in cases:
+    for name, b, t, h, hkv, d, causal, pad, theta in cases:
+        fused = theta > 0
         q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
         k = torch.randn(b, t, hkv, d, generator=gen, device=dev).bfloat16()
         v = torch.randn(b, t, hkv, d, generator=gen, device=dev).bfloat16()
         dout = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
         mask = _padding_mask(b, t, pad)
-        rope = _rope_for(mask, d) if fused else None
+        rope = _rope_for(mask, d, theta) if fused else None
         out, lse = flash_attention_fwd(q, k, v, mask, causal, rope=rope)
         got = flash_attention_bwd(q, k, v, mask, out, lse, dout, causal, rope=rope)
         torch.cuda.synchronize()
@@ -668,8 +692,9 @@ def check_kernels() -> list:
 # ---------------------------------------------------------------------------
 
 
-def write_corpus(root: Path, n: int = 16, seed: int = 0, name: str = "test") -> Path:
-    """n synthetic 16 kHz wavs of 2-10 s (tone + noise) and a jsonl manifest."""
+def write_corpus(root: Path, n: int = 16, seed: int = 0, name: str = "test", targets=None) -> Path:
+    """n synthetic 16 kHz wavs of 2-10 s (tone + noise) and a jsonl manifest;
+    the targets are ``targets`` in turn, else "utterance i"."""
     import wave
 
     rng = np.random.default_rng(seed)
@@ -685,7 +710,8 @@ def write_corpus(root: Path, n: int = 16, seed: int = 0, name: str = "test") -> 
                 w.setsampwidth(2)
                 w.setframerate(16000)
                 w.writeframes((x * 32767).astype("<i2").tobytes())
-            f.write(json.dumps({"key": f"utt{i}", "source": str(path), "target": f"utterance {i}"}) + "\n")
+            target = targets[i % len(targets)] if targets else f"utterance {i}"
+            f.write(json.dumps({"key": f"utt{i}", "source": str(path), "target": target}, ensure_ascii=False) + "\n")
     return manifest
 
 
@@ -727,13 +753,20 @@ def run_counted(fn):
 def check_prefill_against_cpu(cfg) -> None:
     """Prefill logits of the first batch on the card (finite), and of its
     first utterance against the CPU plain path with the same weights and dtype."""
-    from slam_llm_tpu_torch.models.llm import init_kv_cache
     from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
     from slam_llm_tpu_torch.pipeline.inference_batch import decode_loader
 
     model, _, dataset = build_model_and_data(cfg, split=cfg.dataset_config.test_split, device="cuda")
     materialize_params(model.eval(), cfg)
-    batch = next(iter(decode_loader(cfg, dataset)))
+    compare_prefill(model, next(iter(decode_loader(cfg, dataset))), "slice")
+
+
+def compare_prefill(model, batch, label: str) -> None:
+    """The prefill logits of ``batch`` on the card (finite), and of its first
+    utterance against the CPU plain path with the same weights and dtype
+    (cosine >= 0.99 at every valid position); ``model`` ends on the CPU."""
+    from slam_llm_tpu_torch.models.llm import init_kv_cache
+
     keys = ("input_ids", "attention_mask", "modality_mask", "audio_mel", "audio_mel_mask")
 
     def run(m, rows, device):
@@ -747,7 +780,8 @@ def check_prefill_against_cpu(cfg) -> None:
     logits, _ = run(model, slice(None), "cuda")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("non-finite prefill logits on the card")
-    log(f"[slice] prefill logits {tuple(logits.shape)} finite")
+    log(f"[{label}] prefill logits {tuple(logits.shape)} finite")
+    del logits
     gpu, mask = run(model, slice(0, 1), "cuda")
     t0 = time.perf_counter()
     cpu, _ = run(model.to("cpu"), slice(0, 1), "cpu")
@@ -755,7 +789,7 @@ def check_prefill_against_cpu(cfg) -> None:
     g, c = gpu[mask], cpu[mask]  # (valid positions, V)
     cos = torch.nn.functional.cosine_similarity(g, c, dim=-1)
     agree = (g.argmax(-1) == c.argmax(-1)).float().mean().item()
-    log(f"[slice] utterance 0 prefill logits, card vs CPU plain path ({cpu_s:.1f} s on CPU): "
+    log(f"[{label}] utterance 0 prefill logits, card vs CPU plain path ({cpu_s:.1f} s on CPU): "
         f"min cosine {cos.min().item():.5f} mean {cos.mean().item():.5f} argmax agreement {agree:.4f} "
         f"max |diff| {(g - c).abs().max().item():.4f}")
     if cos.min().item() < 0.99:
@@ -1017,7 +1051,9 @@ def check_train_grads_against_cpu(trainer, dataset, label: str) -> None:
     trained weights with LoRA B redrawn nonzero (so every LoRA factor gets a
     gradient), the run's backward modes with the same stochastic-rounding
     seeds on both sides, remat as configured, dropout off. Cosine >= 0.99
-    for every tensor with a gradient."""
+    for every tensor with a gradient; a key projection's bias (the
+    Q-Former's), whose gradient is 0 in exact arithmetic, within 5e-2 of
+    its query bias's gradient norm on both sides."""
     model = trainer.model
     gen = torch.Generator(device="cuda").manual_seed(1)
     with torch.no_grad():
@@ -1042,15 +1078,26 @@ def check_train_grads_against_cpu(trainer, dataset, label: str) -> None:
     t0 = time.perf_counter()
     loss_cpu, g_cpu, _ = grads("cpu")
     cpu_s = time.perf_counter() - t0
+    grads = dict(zip(names, zip(g_gpu, g_cpu)))
+    # a key projection's bias shifts every score of a query by one constant,
+    # which the softmax cancels: its gradient is 0 in exact arithmetic, so
+    # both sides are round-off, held against the query bias's gradient
+    key_bias = {n: max(a.norm().item(), c.norm().item()) / grads[n.replace("k_proj", "q_proj")][1].norm().item()
+                for n, (a, c) in grads.items() if n.endswith("k_proj.bias")}
     cos = {n: torch.nn.functional.cosine_similarity(a.flatten(), c.flatten(), dim=0).item()
-           for n, a, c in zip(names, g_gpu, g_cpu) if c.abs().max() > 0}
+           for n, (a, c) in grads.items() if c.abs().max() > 0 and n not in key_bias}
     worst = min(cos, key=cos.get)
     log(f"[{label}] gradient check, one utterance {shape}, {model.cfg.llm.n_layers} layers, card vs CPU plain "
-        f"path ({cpu_s:.1f} s on CPU): loss {loss_gpu:.5f} vs {loss_cpu:.5f}; {len(cos)} of {len(names)} "
-        f"tensors with a gradient, min cosine {cos[worst]:.5f} ({worst}), mean {np.mean(list(cos.values())):.5f}")
-    if len(cos) != len(names) or cos[worst] < 0.99:
-        raise AssertionError(f"gradient check: min cosine {cos[worst]} (< 0.99) or zero gradients "
-                             f"({len(names) - len(cos)})")
+        f"path ({cpu_s:.1f} s on CPU): loss {loss_gpu:.5f} vs {loss_cpu:.5f}; {len(cos)} of "
+        f"{len(names) - len(key_bias)} tensors with a gradient, min cosine {cos[worst]:.5f} ({worst}), mean "
+        f"{np.mean(list(cos.values())):.5f}" + (f"; {len(key_bias)} key-projection biases (gradient 0 in exact "
+                                               f"arithmetic): largest |g| / |g of the query bias| "
+                                               f"{max(key_bias.values()):.2e}" if key_bias else ""))
+    worst_key_bias = max(key_bias.values(), default=0.0)
+    if len(cos) + len(key_bias) != len(names) or cos[worst] < 0.99 or worst_key_bias > 5e-2:
+        raise AssertionError(f"gradient check: min cosine {cos[worst]} (< 0.99), zero gradients "
+                             f"({len(names) - len(cos) - len(key_bias)}) or a key bias's gradient above round-off "
+                             f"({worst_key_bias})")
 
 
 # ---------------------------------------------------------------------------
@@ -1119,15 +1166,22 @@ def check_loaded_base(model, paths: dict, layers=(0, 11, 21)) -> None:
         f"bit-equal to the written tensors")
 
 
+def dataset_of(cfg, tokenizer, split: str):
+    """The run's dataset of ``split``, through the registry as the entry
+    points build it."""
+    from slam_llm_tpu_torch.registry import get_custom_dataset_factory
+
+    return get_custom_dataset_factory(cfg.dataset_config)(cfg.dataset_config, tokenizer, split)
+
+
 def decode_texts(model, tokenizer, cfg) -> list:
     """Decode the test split with ``model`` as inference_batch does (its
     loader, generation config and text), for the in-memory comparison."""
     from slam_llm_tpu_torch.inference.generate import Generator, strip_after_eos
     from slam_llm_tpu_torch.pipeline.inference_batch import decode_loader, generation_config
-    from slam_llm_tpu_torch.registry import get_custom_dataset_factory
 
     cfg.dataset_config.inference_mode = True
-    dataset = get_custom_dataset_factory(cfg.dataset_config)(cfg.dataset_config, tokenizer, cfg.dataset_config.test_split)
+    dataset = dataset_of(cfg, tokenizer, cfg.dataset_config.test_split)
     gen = Generator(model.eval(), generation_config(cfg, tokenizer))
     lines = []
     for batch in decode_loader(cfg, dataset):
@@ -1264,6 +1318,227 @@ def run_weights() -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the speech-translation recipe (whisper-large-v3 + Q-Former + Qwen2-7B)
+# ---------------------------------------------------------------------------
+
+ST_RECIPE = ROOT / "examples" / "st_covost2" / "conf" / "st_whisper_qwen.yaml"
+ST_STEPS = 4
+ST_NEW_TOKENS = 32  # decode length (a random model rarely emits EOS)
+ST_DECODE_BATCH = 8
+ST_LAYERS = 2  # LLM and encoder depth of the card-vs-CPU checks
+ST_PATH = ("flash_attention_fwd", "flash_attention_bwd")
+# made-up CoT-ST targets, "<transcript> <|de|> <translation>"
+ST_PAIRS = [
+    ("the weather is nice today", "das Wetter ist heute schön"),
+    ("where is the train station", "wo ist der Bahnhof"),
+    ("i would like a cup of coffee", "ich hätte gern eine Tasse Kaffee"),
+    ("the children are playing in the garden", "die Kinder spielen im Garten"),
+    ("we are going to the museum tomorrow", "wir gehen morgen ins Museum"),
+    ("this book is very interesting", "dieses Buch ist sehr interessant"),
+    ("can you help me please", "können Sie mir bitte helfen"),
+    ("the meeting starts at nine o'clock", "die Besprechung beginnt um neun Uhr"),
+]
+ST_TARGETS = [f"{en} <|de|> {de}" for en, de in ST_PAIRS]
+# the text buckets of a training batch (80 query slots, the prompt, a target,
+# EOS) and of a decode batch (no target), which phase 3 times K1 / K4 at
+ST_T, ST_PREFILL_T = 192, 128
+
+# the directory of the synthetic qwen2 tokenizer, set by run_st
+_st_tokenizer_dir = None
+
+
+def st_model_factory(train_config, model_config, device=None, **kwargs):
+    """The port's model factory with the tokenizer read from the synthetic
+    qwen2 directory, its model config otherwise untouched: the weights are
+    the seeded random init that ``materialize_params`` draws (no 15 GB Qwen2
+    directory is written). The recipe reaches it as
+    ``++model_config.file=__main__:st_model_factory``."""
+    import dataclasses
+
+    from slam_llm_tpu_torch.models.slam_model import model_factory
+
+    return model_factory(train_config, dataclasses.replace(model_config, llm_path=_st_tokenizer_dir), device=device,
+                         **kwargs)
+
+
+def _st_config(loader, *extra):
+    return loader(["--config", str(ST_RECIPE), "++model_config.file=__main__:st_model_factory", *extra])
+
+
+def check_st_params(trainer, cfg) -> None:
+    """Every Q-Former tensor moved from the seeded init; every encoder and
+    LLM tensor is bit-equal to a freshly materialized model's (in the dtype
+    the trainer stores it in)."""
+    from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
+
+    fresh, _, _ = build_model_and_data(cfg, split=cfg.dataset_config.train_split, device="cuda")
+    materialize_params(fresh, cfg)
+    init = dict(fresh.named_parameters())
+    if not trainer.trainable or any(not n.startswith("encoder_projector.") for n in trainer.trainable):
+        raise AssertionError(f"the ST recipe trains the Q-Former alone, not {sorted(trainer.trainable)[:5]}")
+    unmoved = [n for n, p in trainer.trainable.items() if torch.equal(p, init[n].to(p.dtype))]
+    changed = [n for n, p in trainer.frozen.items() if not torch.equal(p, init[n].to(p.dtype))]
+    n_train = sum(p.numel() for p in trainer.trainable.values())
+    n_frozen = sum(p.numel() for p in trainer.frozen.values())
+    log(f"[st] {len(trainer.trainable)} Q-Former tensors ({n_train / 1e6:.1f} M parameters), unmoved: {len(unmoved)}; "
+        f"{len(trainer.frozen)} frozen encoder / LLM tensors ({n_frozen / 1e9:.3f} G parameters), changed: "
+        f"{len(changed)}")
+    del fresh, init
+    if unmoved or changed:
+        raise AssertionError(f"Q-Former tensors unmoved {unmoved[:5]}, frozen tensors changed {changed[:5]}")
+
+
+def st_bleu(out) -> dict:
+    """``tools/eval_werbleu.py`` over the decode logs: its printed lines, the
+    BLEU line parsed back."""
+    import contextlib
+    import io
+
+    from slam_llm_tpu_torch.tools import eval_werbleu
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        eval_werbleu.main(["--pred", out["pred"], "--gt", out["gt"]])
+    printed = [json.loads(line) for line in buf.getvalue().splitlines()]
+    bleu = [line for line in printed if "bleu" in line]
+    wer = [line for line in printed if "wer" in line]
+    if len(bleu) != 1 or bleu[0]["count"] != out["n"] or not 0.0 <= bleu[0]["bleu"] <= 100.0 or not wer:
+        raise AssertionError(f"eval_werbleu printed {printed}")
+    log(f"[st] eval_werbleu: {json.dumps(wer[0])} {json.dumps(bleu[0])} (a {ST_STEPS}-step random model: no target)")
+    return bleu[0]
+
+
+def check_st_against_cpu(trainer, cfg, dec) -> None:
+    """The recipe at its full widths but ST_LAYERS LLM and encoder layers (a
+    7B f32 model on the host is neither quick nor small), with the trained
+    Q-Former whole: the bf16 prefill logits of one utterance and every
+    Q-Former gradient of one utterance, card vs CPU plain path."""
+    import dataclasses
+
+    from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
+    from slam_llm_tpu_torch.models.slam_model import SLAMModel
+    from slam_llm_tpu_torch.pipeline.common import init_params_
+    from slam_llm_tpu_torch.pipeline.inference_batch import decode_loader
+    from slam_llm_tpu_torch.train.state import Trainer
+
+    big = trainer.model.cfg
+    small_cfg = dataclasses.replace(big, llm=dataclasses.replace(big.llm, n_layers=ST_LAYERS),
+                                    encoder=dataclasses.replace(big.encoder, n_layers=ST_LAYERS))
+    small = SLAMModel(small_cfg, device="cuda")
+    init_params_(small, torch.Generator(device="cuda").manual_seed(cfg.train_config.seed))
+    trained = {n: p for n, p in trainer.model.named_parameters() if n.startswith("encoder_projector.")}
+    with torch.no_grad():
+        for n, p in small.named_parameters():
+            if n in trained:
+                p.copy_(trained[n])
+    small_trainer = Trainer(small, small_cfg, cfg.train_config).state_from_params()
+    log(f"[st] card vs CPU at {ST_LAYERS} of {big.llm.n_layers} LLM layers and {ST_LAYERS} of {big.encoder.n_layers} "
+        f"encoder layers (full widths, the trained Q-Former whole)")
+    tokenizer = load_tokenizer(_st_tokenizer_dir)
+    dec.dataset_config.inference_mode = True
+    test = dataset_of(dec, tokenizer, dec.dataset_config.test_split)
+    compare_prefill(small.eval(), next(iter(decode_loader(dec, test))), "st")
+    small.to("cuda")
+    check_train_grads_against_cpu(small_trainer, dataset_of(cfg, tokenizer, cfg.dataset_config.train_split), "st")
+
+
+def run_st() -> dict:
+    """Phase 8: the ST recipe at full width: pipeline.finetune for ST_STEPS
+    steps of the recipe's batch 8 (the Q-Former alone trains, the gradient
+    coming back through the frozen Qwen2-7B), the reload through
+    pipeline.inference_batch with ckpt_path against the in-memory model's
+    decode, BLEU, and the card-vs-CPU checks at reduced depth."""
+    global _st_tokenizer_dir
+    import shutil
+
+    from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
+    from slam_llm_tpu_torch.pipeline import finetune, inference_batch
+    from slam_llm_tpu_torch.pipeline.inference_batch import decode_loader
+    from slam_llm_tpu_torch.tools.synth_checkpoint import QWEN2_BPE, write_qwen2_tokenizer
+    from slam_llm_tpu_torch.utils.checkpoint import load_trainable
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_st_"))
+    t0 = time.perf_counter()
+    size = write_qwen2_tokenizer(str(tmp / "qwen2"), QWEN2_BPE, seed=0, corpus=ST_TARGETS)
+    _st_tokenizer_dir = str(tmp / "qwen2")
+    tokenizer = load_tokenizer(_st_tokenizer_dir)
+    log(f"[st] wrote a qwen2-layout ByteLevel tokenizer ({size / 1e6:.2f} MB, {tokenizer.vocab_size} tokens) and read "
+        f"it back in {time.perf_counter() - t0:.2f} s; bos {tokenizer.bos_token_id} eos {tokenizer.eos_token_id} "
+        f"pad {tokenizer.pad_token_id}")
+    # a 2-step warm-up at the recipe's lr, so 4 steps move every Q-Former tensor
+    cfg = _st_config(
+        finetune.load_run_config,
+        f"++dataset_config.train_data_path={write_corpus(tmp, n=8 * ST_STEPS, name='train', targets=ST_TARGETS)}",
+        f"++dataset_config.val_data_path={write_corpus(tmp, n=8, seed=1, name='val', targets=ST_TARGETS)}",
+        f"++train_config.max_steps_per_epoch={ST_STEPS}", "++train_config.log_interval=1",
+        "++train_config.run_validation=false", "++train_config.warmup_steps=2",
+        f"++train_config.output_dir={tmp / 'out'}",
+    )
+    mc, dc, sh = cfg.model_config, cfg.dataset_config, cfg.train_config.shard
+    if (mc.encoder_projector, mc.query_len, mc.qformer_layers, mc.encoder_config, mc.llm_name, dc.mel_size,
+            dc.fix_length_audio, cfg.train_config.batch_size_training, sh.remat) != (
+            "q-former", 80, 8, "whisper-large-v3", "qwen2-7b", 128, 80, 8, True):
+        raise AssertionError(f"the ST recipe changed: {mc} {dc}")
+    res, launches, stats = _finetune(cfg, "st")
+    trainer = res["trainer"]
+    c = trainer.model.cfg
+    log(f"[st] model: whisper-large-v3 ({c.encoder.n_layers} layers, {c.encoder.n_mels} mels) + Q-Former "
+        f"({c.projector_cfg.query_len} queries, {c.projector_cfg.qformer_layers} layers, {c.projector_cfg.qformer_dim} "
+        f"wide) + qwen2-7b ({c.llm.n_layers} layers, {c.llm.n_heads} / {c.llm.n_kv_heads} heads, vocab "
+        f"{c.llm.vocab_size}), bf16, remat {c.llm.remat_policy}; materialized in {res['load_seconds']:.2f} s; step "
+        f"{stats['step_ms']:.1f} ms, peak memory {stats['peak_gib']:.2f} GiB; per step K1 "
+        f"{launches['flash_attention_fwd'] / ST_STEPS:.0f} K4 {launches['flash_attention_bwd'] / ST_STEPS:.0f}")
+    if len(res["steps"]) != ST_STEPS or not res["checkpoints"]:
+        raise AssertionError(f"st: {len(res['steps'])} steps, checkpoints {res['checkpoints']}")
+    if {s["shape"][1] for s in res["steps"]} != {ST_T}:
+        raise AssertionError(f"the training batches' T is not the T = {ST_T} phase 3 checks K1 / K4 at")
+    check_st_params(trainer, cfg)
+    ckpt = res["checkpoints"][-1]
+    saved = load_trainable(ckpt)
+    if set(saved) != set(trainer.trainable) or not all(torch.equal(saved[n], p.detach().cpu())
+                                                        for n, p in trainer.trainable.items()):
+        raise AssertionError("model.pt differs from the trained Q-Former")
+
+    dec = _st_config(
+        inference_batch.load_run_config, f"++ckpt_path={ckpt}",
+        f"++dataset_config.val_data_path={write_corpus(tmp, n=16, seed=2, name='test', targets=ST_TARGETS)}",
+        f"++decode_config.decode_log={tmp / 'decode'}", f"++decode_config.max_new_tokens={ST_NEW_TOKENS}",
+        f"++train_config.val_batch_size={ST_DECODE_BATCH}",
+    )
+    out, dec_launches = run_counted(lambda: inference_batch.main(dec, device="cuda"))
+    prefill_t = {len(b["input_ids"][0]) for b in decode_loader(dec, dataset_of(dec, tokenizer,
+                                                                               dec.dataset_config.test_split))}
+    if prefill_t != {ST_PREFILL_T}:
+        raise AssertionError(f"the decode batches' T is {prefill_t}, not the T = {ST_PREFILL_T} phase 3 checks K1 at")
+    log(f"[st] inference_batch with ckpt_path: {out['n']} utterances in batches of {ST_DECODE_BATCH}, beam "
+        f"{dec.decode_config.num_beams}, {ST_NEW_TOKENS} new tokens at most (a random model rarely emits EOS); "
+        f"materialized in {out['load_seconds']:.2f} s; decode {out['seconds']:.2f} s, prefill "
+        f"{1000 * out['prefill_s'] / out['calls']:.1f} ms/batch, "
+        f"{1000 * out['decode_s'] / max(out['decode_steps'], 1):.2f} ms/beam step over {out['decode_steps']} steps, "
+        f"{out['generated_tokens']} tokens, RTF {out['rtf']:.4f} "
+        f"({out['audio_seconds']:.1f} s of audio); launches {dec_launches}")
+    # a random model's text may hold line breaks: the log is compared whole, as written
+    with open(out["pred"], encoding="utf-8", newline="") as f:
+        text = f.read()
+    mine = decode_texts(trainer.model, tokenizer, dec)
+    same = sum(f"{line}\n" in text for line in mine)
+    log(f"[st] decoded text of the entry point vs the in-memory trained model: {same} / {len(mine)} utterances "
+        f"identical")
+    print("\n".join(repr(line) for line in mine[:3]))
+    if len(mine) != 16 or text != "".join(f"{line}\n" for line in mine):
+        raise AssertionError("the reloaded ST model's decode differs from the in-memory trained model's")
+    st_bleu(out)
+    check_st_against_cpu(trainer, cfg, dec)
+    del res, trainer
+    shutil.rmtree(tmp)
+    total = {k: launches[k] + dec_launches[k] for k in launches}
+    missing = [name for name in ST_PATH if total[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the ST path: {missing}")
+    return total
+
+
 def main() -> int:
     setup()
     build()
@@ -1272,7 +1547,8 @@ def main() -> int:
     train = run_training()
     modes = run_training_modes()
     weights = run_weights()
-    paths = {"decode": decode, "train": train, "train_int8_sr": modes, "weights": weights}
+    st = run_st()
+    paths = {"decode": decode, "train": train, "train_int8_sr": modes, "weights": weights, "st": st}
     for r in results:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())

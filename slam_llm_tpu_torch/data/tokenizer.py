@@ -2,10 +2,12 @@
 
 Counterpart of ``slam_llm_tpu/data/tokenizer.py``, which wraps HF
 ``AutoTokenizer`` (reference models/slam_model.py:54-65) with the
-``pad_token = eos_token`` fallback. The port reads a Llama-family
-``tokenizer.json`` itself, in plain Python (``LlamaTokenizer``), so no
-``transformers`` / ``tokenizers`` is needed; ``ByteTokenizer`` is the
-dependency-free byte-level tokenizer of the tests and the synthetic recipes.
+``pad_token = eos_token`` fallback. The port reads an HF ``tokenizer.json``
+itself, in plain Python, so no ``transformers`` / ``tokenizers`` / ``regex``
+is needed: ``LlamaTokenizer`` for the Llama family (sentencepiece-style BPE),
+``ByteLevelTokenizer`` for qwen2's ByteLevel BPE; ``load_tokenizer`` picks
+one from the file. ``ByteTokenizer`` is the dependency-free byte-level
+tokenizer of the tests and the synthetic recipes.
 """
 
 from __future__ import annotations
@@ -14,13 +16,12 @@ import heapq
 import json
 import os
 import re
+import unicodedata
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 SPIECE = "▁"  # "▁", sentencepiece's word boundary
-_TODO_BYTELEVEL = ("ROADMAP Queue 1 item 4: the ByteLevel BPE tokenizers (qwen2, Llama-3) come with the "
-                   "other whisper recipes")
 
 
 class ByteTokenizer:
@@ -73,9 +74,9 @@ class LlamaTokenizer:
 
     bos / eos / pad come from ``tokenizer_config.json`` or
     ``special_tokens_map.json``; pad is eos when neither sets one.
-    ``vocab_size`` counts the added tokens, like ``len(tokenizer)``. ByteLevel
-    tokenizers (qwen2, Llama-3) and other components raise
-    ``NotImplementedError``.
+    ``vocab_size`` counts the added tokens, like ``len(tokenizer)``. A
+    ByteLevel tokenizer (``ByteLevelTokenizer``'s) and other components
+    raise ``NotImplementedError``.
     """
 
     def __init__(self, spec: dict, config: Optional[dict] = None):
@@ -86,23 +87,12 @@ class LlamaTokenizer:
         for key in ("continuing_subword_prefix", "end_of_word_suffix", "dropout", "ignore_merges"):
             if model.get(key):
                 raise NotImplementedError(f"BPE {key}={model[key]!r} is not ported")
-        _refuse_byte_level(spec)
-        self.vocab: Dict[str, int] = dict(model["vocab"])
-        self.ranks: Dict[Tuple[int, int], Tuple[int, int]] = {}
-        for rank, merge in enumerate(model.get("merges", [])):
-            a, b = merge.split(" ", 1) if isinstance(merge, str) else merge
-            self.ranks[(self.vocab[a], self.vocab[b])] = (rank, self.vocab[a + b])
+        if _byte_level(spec):
+            raise NotImplementedError("a ByteLevel tokenizer.json is read by ByteLevelTokenizer, not LlamaTokenizer")
+        _read_bpe(self, spec)
         self.byte_fallback = bool(model.get("byte_fallback", False))
         self.fuse_unk = bool(model.get("fuse_unk", False))
         self.unk_id = self.vocab.get(model["unk_token"]) if model.get("unk_token") else None
-
-        self.added = sorted(spec.get("added_tokens", []), key=lambda t: -len(t["content"]))
-        if any(t.get(key) for t in self.added for key in ("single_word", "lstrip", "rstrip")):
-            raise NotImplementedError("added tokens with single_word / lstrip / rstrip are not ported")
-        self.id_to_token = {i: tok for tok, i in self.vocab.items()}
-        self.id_to_token.update({t["id"]: t["content"] for t in self.added})
-        self.special_ids = {t["id"] for t in self.added if t.get("special")}
-        self.vocab_size = len({**self.vocab, **{t["content"]: t["id"] for t in self.added}})
 
         self.normalizers = _flatten(spec.get("normalizer"), "normalizers")
         for n in self.normalizers:
@@ -119,39 +109,13 @@ class LlamaTokenizer:
             if d["type"] not in ("Replace", "ByteFallback", "Fuse", "Strip"):
                 raise NotImplementedError(f"decoder {d['type']!r} is not ported")
 
-        def token_id(key, default):
-            tok = config.get(key, default)
-            tok = tok.get("content") if isinstance(tok, dict) else tok
-            if tok is None:
-                return None
-            found = [t["id"] for t in self.added if t["content"] == tok]
-            return found[0] if found else self.vocab.get(tok)
-
         llama = str(config.get("tokenizer_class", "")).startswith("Llama")
-        self.bos_token_id = token_id("bos_token", "<s>" if llama else None)
-        self.eos_token_id = token_id("eos_token", "</s>" if llama else None)
-        pad = token_id("pad_token", None)
-        self.pad_token_id = self.eos_token_id if pad is None else pad  # reference slam_model.py:64
+        _special_ids(self, config, "<s>" if llama else None, "</s>" if llama else None)
         self.prefix, self.suffix = _template(spec.get("post_processor"))
         if llama:  # LlamaTokenizerFast.update_post_processor
             self.prefix = [self.bos_token_id] if config.get("add_bos_token", True) else []
             self.suffix = [self.eos_token_id] if config.get("add_eos_token", False) else []
         self.clean_up_spaces = bool(config.get("clean_up_tokenization_spaces", False))
-
-    @classmethod
-    def from_dir(cls, path: str) -> "LlamaTokenizer":
-        spec_path = os.path.join(path, "tokenizer.json")
-        if not os.path.isfile(spec_path):
-            raise FileNotFoundError(f"no tokenizer.json in {path} (the port reads the HF tokenizers format only)")
-        with open(spec_path, encoding="utf-8") as f:
-            spec = json.load(f)
-        config: dict = {}
-        for name in ("special_tokens_map.json", "tokenizer_config.json"):  # the latter wins
-            p = os.path.join(path, name)
-            if os.path.isfile(p):
-                with open(p, encoding="utf-8") as f:
-                    config.update(json.load(f))
-        return cls(spec, config)
 
     # -- encoding -------------------------------------------------------
 
@@ -159,7 +123,7 @@ class LlamaTokenizer:
         """Token ids of ``text``; ``add_bos`` applies the post-processor's
         template (``add_special_tokens``)."""
         ids: List[int] = []
-        for piece, offset, added_id in self._split_added(text):
+        for piece, offset, added_id in _split_added(self.added, text):
             if added_id is not None:
                 ids.append(added_id)
                 continue
@@ -169,23 +133,6 @@ class LlamaTokenizer:
 
     def __call__(self, text: str):
         return {"input_ids": self.encode(text)}
-
-    def _split_added(self, text: str):
-        """(piece, its offset in ``text``, None) and (token, offset, id) in
-        order; the added tokens matched leftmost-longest, empty pieces dropped."""
-        out, start, i = [], 0, 0
-        while i < len(text):
-            tok = next((t for t in self.added if text.startswith(t["content"], i)), None)
-            if tok is None:
-                i += 1
-                continue
-            if i > start:
-                out.append((text[start:i], start, None))
-            out.append((tok["content"], i, tok["id"]))
-            start = i = i + len(tok["content"])
-        if start < len(text):
-            out.append((text[start:], start, None))
-        return out
 
     def _normalize(self, s: str) -> str:
         for n in self.normalizers:
@@ -226,52 +173,309 @@ class LlamaTokenizer:
             if not (self.fuse_unk and unk_open):
                 syms.append(self.unk_id)
             unk_open = True
-        return self._merge(syms)
-
-    def _merge(self, syms: List[int]) -> List[int]:
-        """Apply the merges by rank, the lowest-ranked adjacent pair first and
-        the leftmost of equal ranks, as ``tokenizers``' ``Word::merge_all``:
-        a heap of (rank, position) over a linked list of symbols, entries
-        whose pair has changed skipped when they come up."""
-        nxt = list(range(1, len(syms))) + [-1]
-        prv = list(range(-1, len(syms) - 1))
-        heap = []
-
-        def push(i):
-            if i >= 0 and nxt[i] >= 0:
-                hit = self.ranks.get((syms[i], syms[nxt[i]]))
-                if hit is not None:
-                    heapq.heappush(heap, (hit[0], i))
-
-        for i in range(len(syms) - 1):
-            push(i)
-        while heap:
-            rank, i = heapq.heappop(heap)
-            j = nxt[i]
-            hit = self.ranks.get((syms[i], syms[j])) if syms[i] is not None and j >= 0 else None
-            if hit is None or hit[0] != rank:
-                continue  # stale: one side was merged away since
-            syms[i], syms[j] = hit[1], None
-            nxt[i] = nxt[j]
-            if nxt[j] >= 0:
-                prv[nxt[j]] = i
-            push(prv[i])
-            push(i)
-        return [t for t in syms if t is not None]
+        return _merge(self.ranks, syms)
 
     # -- decoding -------------------------------------------------------
 
     def decode(self, ids, skip_special_tokens: bool = True) -> str:
-        tokens = []
-        for i in np.asarray(ids).reshape(-1).tolist():
-            i = int(i)
-            if i < 0 or i not in self.id_to_token or (skip_special_tokens and i in self.special_ids):
-                continue
-            tokens.append(self.id_to_token[i])
+        tokens = _id_tokens(self, ids, skip_special_tokens)
         for d in self.decoders:
             tokens = _decode_step(d, tokens)
         text = "".join(tokens)
         return _clean_up(text) if self.clean_up_spaces else text
+
+
+# the Split pattern of qwen2's tokenizer.json, the one ByteLevelTokenizer takes
+QWEN2_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}| ?[^\s\p{L}\p{N}]+[\r\n]*|"
+               r"\s*[\r\n]+|\s+(?!\S)|\s+")
+
+
+class ByteLevelTokenizer:
+    r"""qwen2's ``tokenizer.json`` (ByteLevel BPE), encoded and decoded as
+    ``AutoTokenizer`` does:
+
+    * the added tokens (``<|endoftext|>``, ``<|im_start|>``, ``<|im_end|>``)
+      are split out of the raw text first, leftmost-longest;
+    * the normalizer: NFC, or none;
+    * the pre-tokenizer: ``Split`` with ``QWEN2_SPLIT`` (behaviour
+      ``Isolated``), run by a scanner over ``unicodedata`` categories
+      (``split_qwen2``), since Python's ``re`` has no ``\p{..}``; then
+      ``ByteLevel`` (no prefix space, no regex of its own): each piece's
+      UTF-8 bytes through GPT-2's byte -> unicode map;
+    * the model: BPE, merges applied by rank as ``LlamaTokenizer`` applies
+      them;
+    * the post-processor: ``ByteLevel``, which adds no token (no BOS);
+    * the decoder: ``ByteLevel``: each token's characters back to bytes (a
+      token with a character outside the map gives its own UTF-8 bytes), the
+      bytes decoded with U+FFFD for invalid sequences. Ids neither in the
+      vocabulary nor added decode to nothing, as in ``tokenizers`` (qwen2's
+      model has 152064 rows for 151646 tokens); ``skip_special_tokens``
+      drops the special added tokens.
+
+    bos / eos / pad come from ``tokenizer_config.json`` or
+    ``special_tokens_map.json``, with no default (qwen2's bos is null); pad
+    is eos when neither sets one. Any other pre-tokenizer, pattern (such as
+    Llama-3's ``\p{N}{1,3}``) or component raises ``NotImplementedError``.
+    """
+
+    def __init__(self, spec: dict, config: Optional[dict] = None):
+        config = config or {}
+        model = spec.get("model") or {}
+        if model.get("type") != "BPE":
+            raise NotImplementedError(f"tokenizer model {model.get('type')!r}: only BPE is ported")
+        for key in ("continuing_subword_prefix", "end_of_word_suffix", "dropout", "ignore_merges", "byte_fallback"):
+            if model.get(key):
+                raise NotImplementedError(f"BPE {key}={model[key]!r} is not ported for ByteLevel")
+        _read_bpe(self, spec)
+        if any(t.get("normalized") for t in self.added):
+            raise NotImplementedError("normalized added tokens are not ported for ByteLevel")
+        for n in _flatten(spec.get("normalizer"), "normalizers"):
+            if n["type"] != "NFC":
+                raise NotImplementedError(f"normalizer {n['type']!r} is not ported for ByteLevel (NFC is)")
+        self.nfc = spec.get("normalizer") is not None
+        pre = _flatten(spec.get("pre_tokenizer"), "pretokenizers")
+        kinds = [p["type"] for p in pre]
+        if kinds != ["Split", "ByteLevel"]:
+            raise NotImplementedError(f"pre-tokenizers {kinds} are not ported (Split + ByteLevel is)")
+        split, level = pre
+        if (split["pattern"].get("Regex") != QWEN2_SPLIT or split.get("behavior") != "Isolated"
+                or split.get("invert")):
+            raise NotImplementedError(f"Split {split} is not ported (qwen2's pattern, Isolated, is)")
+        if level.get("add_prefix_space") or level.get("use_regex"):
+            raise NotImplementedError(f"{level} is not ported (ByteLevel without prefix space or regex is)")
+        # the ByteLevel post-processor adds no token and the decoder maps
+        # bytes back whatever their flags (which touch only offsets)
+        post, dec = spec.get("post_processor"), _flatten(spec.get("decoder"), "decoders")
+        if (post is not None and post["type"] != "ByteLevel") or [d["type"] for d in dec] != ["ByteLevel"]:
+            raise NotImplementedError(f"post-processor {post} / decoders {dec} are not ported (ByteLevel is)")
+        _special_ids(self, config, None, None)
+        self.clean_up_spaces = bool(config.get("clean_up_tokenization_spaces", False))
+
+    def encode(self, text: str, add_bos: bool = True) -> List[int]:
+        """Token ids of ``text``; the ByteLevel post-processor adds none, so
+        ``add_bos`` changes nothing."""
+        ids: List[int] = []
+        for piece, _, added_id in _split_added(self.added, text):
+            if added_id is not None:
+                ids.append(added_id)
+                continue
+            if self.nfc:
+                piece = unicodedata.normalize("NFC", piece)
+            for word in split_qwen2(piece):
+                syms = []
+                for ch in "".join(BYTE_TO_UNICODE[b] for b in word.encode("utf-8")):
+                    if ch not in self.vocab:
+                        raise ValueError(f"byte character {ch!r} is not in the vocabulary")
+                    syms.append(self.vocab[ch])
+                ids.extend(_merge(self.ranks, syms))
+        return ids
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        data = bytearray()
+        for tok in _id_tokens(self, ids, skip_special_tokens):
+            if all(ch in UNICODE_TO_BYTE for ch in tok):
+                data.extend(UNICODE_TO_BYTE[ch] for ch in tok)
+            else:
+                data.extend(tok.encode("utf-8"))
+        text = data.decode("utf-8", errors="replace")
+        return _clean_up(text) if self.clean_up_spaces else text
+
+
+def _bytes_to_unicode() -> Dict[int, str]:
+    """GPT-2's byte -> printable character map: the printable Latin-1 bytes
+    map to themselves, the other 68 to U+0100 onwards, in byte order; the
+    printable ones first, the order of the map and of qwen2's first 256 ids."""
+    keep = [*range(ord("!"), ord("~") + 1), *range(ord("¡"), ord("¬") + 1), *range(ord("®"), ord("ÿ") + 1)]
+    rest = [b for b in range(256) if b not in keep]
+    return {**{b: chr(b) for b in keep}, **{b: chr(256 + n) for n, b in enumerate(rest)}}
+
+
+BYTE_TO_UNICODE = _bytes_to_unicode()
+UNICODE_TO_BYTE = {ch: b for b, ch in BYTE_TO_UNICODE.items()}
+
+# Unicode's White_Space: what \s matches in the Oniguruma patterns of tokenizers
+_SPACE = frozenset("\t\n\x0b\x0c\r \x85\xa0\u1680\u2028\u2029\u202f\u205f\u3000"
+                   + "".join(map(chr, range(0x2000, 0x200B))))
+_CONTRACTIONS = ("s", "t", "re", "ve", "m", "ll", "d")
+
+
+def _letter(ch: str) -> bool:
+    return unicodedata.category(ch)[0] == "L"
+
+
+def _number(ch: str) -> bool:
+    return unicodedata.category(ch)[0] == "N"
+
+
+def _other(ch: str) -> bool:
+    r"""``[^\s\p{L}\p{N}]``"""
+    return ch not in _SPACE and unicodedata.category(ch)[0] not in "LN"
+
+
+def split_qwen2(text: str) -> List[str]:
+    """``text`` cut by ``QWEN2_SPLIT`` (every character lands in a match)."""
+    out, i = [], 0
+    while i < len(text):
+        j = _match_qwen2(text, i)
+        out.append(text[i:j])
+        i = j
+    return out
+
+
+def _match_qwen2(s: str, i: int) -> int:
+    """End of the leftmost alternative of ``QWEN2_SPLIT`` matching at ``i``,
+    with the regex engine's greedy backtracking worked out per alternative."""
+    n, c = len(s), s[i]
+    if c == "'":  # (?i:'s|'t|'re|'ve|'m|'ll|'d): the first alternative that matches
+        for suffix in _CONTRACTIONS:
+            end = i + 1 + len(suffix)
+            if end <= n and all(a.casefold() == b for a, b in zip(s[i + 1:end], suffix)):
+                return end
+    # [^\r\n\p{L}\p{N}]?\p{L}+
+    start = i if _letter(c) else (i + 1 if c not in "\r\n" and not _number(c) and i + 1 < n
+                                  and _letter(s[i + 1]) else None)
+    if start is not None:
+        while start < n and _letter(s[start]):
+            start += 1
+        return start
+    if _number(c):  # \p{N}
+        return i + 1
+    # ' ?[^\s\p{L}\p{N}]+[\r\n]*'
+    j = i + 1 if c == " " and i + 1 < n and _other(s[i + 1]) else i
+    if _other(s[j]):
+        while j < n and _other(s[j]):
+            j += 1
+        while j < n and s[j] in "\r\n":
+            j += 1
+        return j
+    # c is white space: \s*[\r\n]+ ends after the run's last line break;
+    # \s+(?!\S) takes the run, less its last character before a non-space;
+    # \s+ the run
+    end = i
+    while end < n and s[end] in _SPACE:
+        end += 1
+    breaks = [k for k in range(i, end) if s[k] in "\r\n"]
+    if breaks:
+        return breaks[-1] + 1
+    if end == n or end - i == 1:
+        return end
+    return end - 1
+
+
+def _read_dir(path: str) -> Tuple[dict, dict]:
+    """(``tokenizer.json``, the configs) of an HF directory."""
+    spec_path = os.path.join(path, "tokenizer.json")
+    if not os.path.isfile(spec_path):
+        raise FileNotFoundError(f"no tokenizer.json in {path} (the port reads the HF tokenizers format only)")
+    with open(spec_path, encoding="utf-8") as f:
+        spec = json.load(f)
+    config: dict = {}
+    for name in ("special_tokens_map.json", "tokenizer_config.json"):  # the latter wins
+        p = os.path.join(path, name)
+        if os.path.isfile(p):
+            with open(p, encoding="utf-8") as f:
+                config.update(json.load(f))
+    return spec, config
+
+
+def _read_bpe(tok, spec: dict) -> None:
+    """The BPE vocabulary, merge ranks and added tokens of a tokenizer.json
+    onto ``tok``: ``vocab``, ``ranks`` ((a, b) -> (rank, merged id)),
+    ``added`` (longest first), ``id_to_token``, ``special_ids`` and
+    ``vocab_size``, which counts the added tokens, like ``len(tokenizer)``."""
+    model = spec["model"]
+    tok.vocab = dict(model["vocab"])
+    tok.ranks = {}
+    for rank, merge in enumerate(model.get("merges", [])):
+        a, b = merge.split(" ", 1) if isinstance(merge, str) else merge
+        tok.ranks[(tok.vocab[a], tok.vocab[b])] = (rank, tok.vocab[a + b])
+    tok.added = sorted(spec.get("added_tokens", []), key=lambda t: -len(t["content"]))
+    if any(t.get(key) for t in tok.added for key in ("single_word", "lstrip", "rstrip")):
+        raise NotImplementedError("added tokens with single_word / lstrip / rstrip are not ported")
+    tok.id_to_token = {i: t for t, i in tok.vocab.items()}
+    tok.id_to_token.update({t["id"]: t["content"] for t in tok.added})
+    tok.special_ids = {t["id"] for t in tok.added if t.get("special")}
+    tok.vocab_size = len({**tok.vocab, **{t["content"]: t["id"] for t in tok.added}})
+
+
+def _special_ids(tok, config: dict, bos_default: Optional[str], eos_default: Optional[str]) -> None:
+    """``bos_token_id`` / ``eos_token_id`` / ``pad_token_id`` from the configs
+    (an added token's id, else the vocabulary's); pad falls back to eos."""
+
+    def token_id(key, default):
+        t = config.get(key, default)
+        t = t.get("content") if isinstance(t, dict) else t
+        if t is None:
+            return None
+        found = [a["id"] for a in tok.added if a["content"] == t]
+        return found[0] if found else tok.vocab.get(t)
+
+    tok.bos_token_id = token_id("bos_token", bos_default)
+    tok.eos_token_id = token_id("eos_token", eos_default)
+    pad = token_id("pad_token", None)
+    tok.pad_token_id = tok.eos_token_id if pad is None else pad  # reference slam_model.py:64
+
+
+def _split_added(added: List[dict], text: str):
+    """(piece, its offset in ``text``, None) and (token, offset, id) in
+    order; the added tokens matched leftmost-longest, empty pieces dropped."""
+    out, start, i = [], 0, 0
+    while i < len(text):
+        tok = next((t for t in added if text.startswith(t["content"], i)), None)
+        if tok is None:
+            i += 1
+            continue
+        if i > start:
+            out.append((text[start:i], start, None))
+        out.append((tok["content"], i, tok["id"]))
+        start = i = i + len(tok["content"])
+    if start < len(text):
+        out.append((text[start:], start, None))
+    return out
+
+
+def _merge(ranks: Dict[Tuple[int, int], Tuple[int, int]], syms: List[int]) -> List[int]:
+    """Apply the merges by rank, the lowest-ranked adjacent pair first and
+    the leftmost of equal ranks, as ``tokenizers``' ``Word::merge_all``: a
+    heap of (rank, position) over a linked list of symbols, entries whose
+    pair has changed skipped when they come up."""
+    nxt = list(range(1, len(syms))) + [-1]
+    prv = list(range(-1, len(syms) - 1))
+    heap = []
+
+    def push(i):
+        if i >= 0 and nxt[i] >= 0:
+            hit = ranks.get((syms[i], syms[nxt[i]]))
+            if hit is not None:
+                heapq.heappush(heap, (hit[0], i))
+
+    for i in range(len(syms) - 1):
+        push(i)
+    while heap:
+        rank, i = heapq.heappop(heap)
+        j = nxt[i]
+        hit = ranks.get((syms[i], syms[j])) if syms[i] is not None and j >= 0 else None
+        if hit is None or hit[0] != rank:
+            continue  # stale: one side was merged away since
+        syms[i], syms[j] = hit[1], None
+        nxt[i] = nxt[j]
+        if nxt[j] >= 0:
+            prv[nxt[j]] = i
+        push(prv[i])
+        push(i)
+    return [t for t in syms if t is not None]
+
+
+def _id_tokens(tok, ids, skip_special_tokens: bool) -> List[str]:
+    """The token strings of ``ids``: negative ids and ids the tokenizer does
+    not know are dropped, as are the special added tokens when asked."""
+    out = []
+    for i in np.asarray(ids).reshape(-1).tolist():
+        i = int(i)
+        if i < 0 or i not in tok.id_to_token or (skip_special_tokens and i in tok.special_ids):
+            continue
+        out.append(tok.id_to_token[i])
+    return out
 
 
 def _flatten(node: Optional[dict], key: str) -> List[dict]:
@@ -282,10 +486,10 @@ def _flatten(node: Optional[dict], key: str) -> List[dict]:
     return [node]
 
 
-def _refuse_byte_level(spec: dict) -> None:
-    for part, key in (("pre_tokenizer", "pretokenizers"), ("decoder", "decoders"), ("post_processor", "processors")):
-        if any(n.get("type") == "ByteLevel" for n in _flatten(spec.get(part), key)):
-            raise NotImplementedError(f"a ByteLevel {part} is not ported ({_TODO_BYTELEVEL})")
+def _byte_level(spec: dict) -> bool:
+    return any(n.get("type") == "ByteLevel" for part, key in (
+        ("pre_tokenizer", "pretokenizers"), ("decoder", "decoders"), ("post_processor", "processors"))
+        for n in _flatten(spec.get(part), key))
 
 
 def _template(node: Optional[dict]) -> Tuple[List[int], List[int]]:
@@ -355,10 +559,12 @@ def _clean_up(text: str) -> str:
 
 
 def load_tokenizer(llm_path: Optional[str]):
-    """The ``tokenizer.json`` of an HF checkpoint directory, or the byte
+    """The ``tokenizer.json`` of an HF checkpoint directory (a ByteLevel one
+    through ``ByteLevelTokenizer``, else ``LlamaTokenizer``), or the byte
     tokenizer when no path is configured (tests / synthetic recipes)."""
     if llm_path in (None, "", "byte"):
         return ByteTokenizer()
     if not os.path.isdir(llm_path):
         raise FileNotFoundError(f"model_config.llm_path={llm_path!r} is not a checkpoint directory")
-    return LlamaTokenizer.from_dir(llm_path)
+    spec, config = _read_dir(llm_path)
+    return (ByteLevelTokenizer if _byte_level(spec) else LlamaTokenizer)(spec, config)

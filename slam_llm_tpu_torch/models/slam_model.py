@@ -5,8 +5,9 @@ contract (``audio_mel``/``audio_mel_mask``, ``input_ids`` with -1 on audio
 pseudo-tokens, ``attention_mask``, ``modality_mask``, ``labels`` with -100
 on ignored positions). ``forward`` returns the loss and next-token accuracy
 of the training step; a frozen encoder runs without autograd. Only the
-Whisper encoder and the linear projector are ported; the other encoders and
-projectors raise ``NotImplementedError``.
+Whisper encoder is ported (the other encoders raise
+``NotImplementedError``); the projector is linear, cov1d-linear or
+q-former.
 """
 
 from __future__ import annotations
@@ -94,6 +95,11 @@ class SLAMModel(nn.Module):
         frozen = contextlib.nullcontext() if not self.cfg.freeze_encoder else torch.no_grad()
         with frozen:
             enc, enc_mask = self.encoder(batch["audio_mel"], batch.get("audio_mel_mask"))
+        if self.cfg.projector == "q-former":
+            # every query slot stays attendable, as in the reference: the
+            # queries cross-attend the masked encoder states
+            proj = self.encoder_projector(enc, enc_mask)
+            return proj, torch.ones(proj.shape[:2], dtype=torch.int32, device=proj.device)
         proj = self.encoder_projector(enc)
         k = self.cfg.projector_cfg.ds_rate
         t_keep = (enc_mask.shape[1] // k) * k
@@ -171,13 +177,10 @@ def build_slam_config(train_config, model_config) -> SLAMConfig:
     if llm_cfg.base_quant != "none":
         check_bwd_mode(llm_cfg.base_quant_bwd)
     proj_cfg = ProjectorConfig(
-        encoder_dim=encoder_dim, llm_dim=llm_cfg.d_model, ds_rate=mc.encoder_projector_ds_rate
+        encoder_dim=encoder_dim, llm_dim=llm_cfg.d_model, ds_rate=mc.encoder_projector_ds_rate,
+        query_len=mc.query_len, qformer_layers=mc.qformer_layers,
+        qformer_dim=getattr(mc, "qformer_dim", 768), qformer_heads=getattr(mc, "qformer_heads", 12),
     )
-    if mc.encoder_projector != "linear":
-        raise NotImplementedError(
-            f"projector {mc.encoder_projector!r} is not ported yet "
-            "(ROADMAP: port the conv1d and q-former projectors)"
-        )
     return SLAMConfig(
         llm=llm_cfg, encoder_name=mc.encoder_name, encoder=enc_cfg,
         projector=mc.encoder_projector, projector_cfg=proj_cfg,

@@ -21,6 +21,7 @@ from torch import nn
 
 from slam_llm_tpu_torch.config import RunConfig
 from slam_llm_tpu_torch.models.layers import DenseGeneralLora
+from slam_llm_tpu_torch.models.projector import ProjectorQFormer
 from slam_llm_tpu_torch.ops.quant import quantize_int8
 from slam_llm_tpu_torch.registry import get_custom_dataset_factory, get_custom_model_factory
 from slam_llm_tpu_torch.utils.checkpoint import load_trainable_into
@@ -68,8 +69,8 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random init in place, drawn on the generator's device, following the
     reference's initializers: dense and conv kernels normal with std
     1/sqrt(fan_in), biases 0, LoRA A normal with std 1/r and B zero,
-    embeddings standard normal, norms 1 / 0. An int8 base is the
-    quantization of such a kernel."""
+    embeddings and the Q-Former's queries standard normal, norms 1 / 0. An
+    int8 base is the quantization of such a kernel."""
 
     def normal(shape, std):
         return torch.randn(shape, generator=generator, device=generator.device) * std
@@ -94,6 +95,8 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):
             mod.weight.copy_(normal(mod.weight.shape, 1.0))
+        elif isinstance(mod, ProjectorQFormer):
+            mod.query.copy_(normal(mod.query.shape, 1.0))
     return model
 
 

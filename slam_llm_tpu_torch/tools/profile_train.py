@@ -2,15 +2,18 @@
 ``torch.profiler``, its device time split by kernel family, the unprofiled
 step time, and the fused cross-entropy alone.
 
-    python -m slam_llm_tpu_torch.tools.profile_train [++key=value ...]   # from the repo root, on a GPU
+    python -m slam_llm_tpu_torch.tools.profile_train [--recipe st] [++key=value ...]   # from the repo root, on a GPU
 
 Builds the recipe of ``chip_smoke.py`` (asr_whisper_tinyllama.yaml, full
 width, random weights from the recipe's seed: frozen whisper-small, trained
 projector, TinyLlama-1.1B int8 base with LoRA r8 on q / v and the int8_rot
 backward, remat with dots_flash_saveable; ``++`` overrides as the finetune
 CLI takes them, e.g. ``++train_config.shard.base_quant_bwd=int8_sr``) on its
-synthetic corpus, takes the first training batch of 16,
-runs warm-up steps, then profiles one step. Kernel families: K3 the s8
+synthetic corpus, or with ``--recipe st`` phase 8's speech-translation
+recipe (st_whisper_qwen.yaml: frozen whisper-large-v3 and Qwen2-7B, the
+trained Q-Former, its synthetic qwen2 tokenizer and corpus), takes the first
+training batch of the recipe's size, runs warm-up steps, then profiles one
+step. Kernel families: K3 the s8
 GEMM, K4 the flash backward, K1 the flash forward, K2 rowquant (both
 kernels), cuBLAS GEMMs (encoder, LoRA, head), and the rest (elementwise,
 reductions, copies: the glue). The full ``key_averages`` tables go to
@@ -55,18 +58,29 @@ def main(overrides=(), steps: int = 3) -> None:
     from slam_llm_tpu_torch.ops.fused_ce import fused_linear_ce
     from slam_llm_tpu_torch.pipeline import finetune
     from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
+    from slam_llm_tpu_torch.tools.synth_checkpoint import QWEN2_BPE, write_qwen2_tokenizer
     from slam_llm_tpu_torch.train.state import Trainer
 
+    overrides = list(overrides)
+    st = overrides[:2] == ["--recipe", "st"]
+    if st:
+        overrides = overrides[2:]
     smi = cs.setup()
     cs.build()
     tmp = Path(tempfile.mkdtemp(prefix="profile_train_"))
-    cfg = finetune.load_run_config(["--config", str(cs.RECIPE),
-                                    f"++dataset_config.train_data_path={cs.write_corpus(tmp, n=16, name='train')}",
-                                    *overrides])
+    if st:
+        write_qwen2_tokenizer(str(tmp / "qwen2"), QWEN2_BPE, corpus=cs.ST_TARGETS)
+        cs._st_tokenizer_dir = str(tmp / "qwen2")
+        head = ["--config", str(cs.ST_RECIPE), "++model_config.file=chip_smoke:st_model_factory"]
+    else:
+        head = ["--config", str(cs.RECIPE)]
+    n = finetune.load_run_config(head + overrides).train_config.batch_size_training
+    corpus = cs.write_corpus(tmp, n=n, name="train", targets=cs.ST_TARGETS if st else None)
+    cfg = finetune.load_run_config(head + [f"++dataset_config.train_data_path={corpus}", *overrides])
     model, _, dataset = build_model_and_data(cfg, split=cfg.dataset_config.train_split, device="cuda")
     materialize_params(model, cfg)
     trainer = Trainer(model, model.cfg, cfg.train_config).state_from_params()
-    batch = trainer.put_batch(dataset.collator([dataset[i] for i in range(16)]))
+    batch = trainer.put_batch(dataset.collator([dataset[i] for i in range(n)]))
     print(f"batch {tuple(batch['input_ids'].shape)}, {int(batch['attention_mask'].sum())} attended tokens", flush=True)
     for _ in range(2):  # warm-up
         trainer.train_step(batch)

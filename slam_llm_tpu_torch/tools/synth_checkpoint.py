@@ -1,20 +1,29 @@
 """Seeded random checkpoints in the published HF layouts, at any width.
 
     python -m slam_llm_tpu_torch.tools.synth_checkpoint <out dir> \\
-        [--llm tinyllama-1.1b] [--encoder whisper-small] [--seed 0] [--device cpu]
+        [--llm tinyllama-1.1b | vicuna-7b | qwen2-7b | tiny-test] \\
+        [--encoder whisper-small | whisper-large-v3 | ...] [--seed 0] [--device cpu]
 
 writes ``<out dir>/llm`` and ``<out dir>/whisper`` with the port's own
 safetensors writer (``utils.safetensors_io``), for runs that need pretrained-
 shaped weights where the real ones are not at hand:
 
-* ``write_llama``: an HF Llama directory: ``config.json``, the weights in
-  bf16 over two shards (``model-00001-of-00002.safetensors``,
-  ``model-00002-of-00002.safetensors``) with ``model.safetensors.index.json``;
+* ``write_llama``: an HF Llama (or, with q/k/v biases, Qwen2) directory:
+  ``config.json``, the weights in bf16 over two shards
+  (``model-00001-of-00002.safetensors``, ``model-00002-of-00002.safetensors``)
+  with ``model.safetensors.index.json``;
 * ``write_tokenizer``: a Llama-layout ``tokenizer.json`` (BPE with
   ``byte_fallback``, TinyLlama's Prepend + Replace normalizer, ``<s>``
   template) + ``tokenizer_config.json``: ``<unk>`` ``<s>`` ``</s>``, the 256
   ``<0xXX>`` byte tokens, the transcripts' alphabet, then seeded merges of
   two existing tokens until the vocabulary holds ``vocab_size`` entries;
+* ``write_qwen2_tokenizer``: a ``tokenizer.json`` in qwen2's published
+  layout (NFC, qwen2's ``Split`` pattern + ``ByteLevel``, BPE, ``ByteLevel``
+  post-processor and decoder) + qwen2's ``tokenizer_config.json``: the 256
+  byte characters, merges learned greedily from a corpus (the most frequent
+  adjacent pair first), then seeded merges of two existing tokens until the
+  BPE holds ``vocab_size`` entries; ``<|endoftext|>`` (eos and pad),
+  ``<|im_start|>``, ``<|im_end|>`` follow as special added tokens;
 * ``write_whisper``: an HF whisper directory: ``config.json`` and
   ``model.safetensors`` (bf16) with the encoder under ``model.encoder.``, its
   sinusoidal ``embed_positions``, and a few decoder tensors, as a
@@ -31,11 +40,14 @@ import json
 import math
 import os
 import sys
-from typing import Dict
+import unicodedata
+from collections import Counter
+from typing import Dict, Iterable
 
 import numpy as np
 import torch
 
+from slam_llm_tpu_torch.data.tokenizer import BYTE_TO_UNICODE, QWEN2_SPLIT, split_qwen2
 from slam_llm_tpu_torch.models.layers import sinusoidal_positions
 from slam_llm_tpu_torch.utils.safetensors_io import save_file
 
@@ -87,8 +99,10 @@ def write_llama(out_dir: str, cfg, seed: int = 0, device="cpu") -> int:
                   for shard, name in zip((first, second), names))
     index = {"metadata": {"total_size": sum(t.numel() * t.element_size() for s in (first, second) for t in s.values())},
              "weight_map": {k: name for shard, name in zip((first, second), names) for k in shard}}
+    qwen2 = bool(cfg.qkv_bias)
     config = {
-        "architectures": ["LlamaForCausalLM"], "model_type": "llama", "vocab_size": cfg.vocab_size,
+        "architectures": ["Qwen2ForCausalLM" if qwen2 else "LlamaForCausalLM"],
+        "model_type": "qwen2" if qwen2 else "llama", "vocab_size": cfg.vocab_size,
         "hidden_size": cfg.d_model, "intermediate_size": cfg.ffn_dim, "num_hidden_layers": cfg.n_layers,
         "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads, "head_dim": hd,
         "rms_norm_eps": cfg.rms_eps, "rope_theta": cfg.rope_theta, "max_position_embeddings": 2048,
@@ -142,6 +156,77 @@ def write_tokenizer(out_dir: str, vocab_size: int, seed: int = 0) -> int:
     config = {"tokenizer_class": "LlamaTokenizerFast", "bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>",
               "pad_token": None, "add_bos_token": True, "add_eos_token": False, "legacy": False,
               "clean_up_tokenization_spaces": False, "model_max_length": 2048}
+    return _write_json(out_dir, "tokenizer.json", spec) + _write_json(out_dir, "tokenizer_config.json", config)
+
+
+QWEN2_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>")
+QWEN2_BPE = 151643  # qwen2's BPE entries before its special tokens
+
+
+def write_qwen2_tokenizer(out_dir: str, vocab_size: int = QWEN2_BPE, seed: int = 0, corpus: Iterable[str] = ()) -> int:
+    """A qwen2-layout ``tokenizer.json`` + ``tokenizer_config.json`` whose BPE
+    holds ``vocab_size`` entries (module docstring); ``corpus`` is the text
+    its first merges are learned from."""
+    vocab = {ch: i for i, ch in enumerate(BYTE_TO_UNICODE.values())}
+    if vocab_size < len(vocab):
+        raise ValueError(f"vocab_size {vocab_size} < the 256 byte characters")
+    merges = []
+    # greedy BPE over the corpus: the most frequent adjacent pair (the first
+    # seen of equal counts) merges next, while a pair occurs twice or more
+    words = Counter("".join(BYTE_TO_UNICODE[b] for b in w.encode("utf-8"))
+                    for text in corpus for w in split_qwen2(unicodedata.normalize("NFC", text)))
+    seqs = {w: list(w) for w in words}
+    while len(vocab) < vocab_size:
+        pairs: Counter = Counter()
+        for w, n in words.items():
+            for pair in zip(seqs[w], seqs[w][1:]):
+                pairs[pair] += n
+        if not pairs or pairs.most_common(1)[0][1] < 2:
+            break
+        (a, b), _ = pairs.most_common(1)[0]
+        vocab.setdefault(a + b, len(vocab))  # ("ab", "c") and ("a", "bc") make one token
+        merges.append(f"{a} {b}")
+        for w, sq in seqs.items():
+            out, i = [], 0
+            while i < len(sq):
+                if i + 1 < len(sq) and sq[i] == a and sq[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(sq[i])
+                    i += 1
+            seqs[w] = out
+    # then seeded merges of two existing tokens, early tokens drawn more often
+    tokens = list(vocab)
+    rng = np.random.default_rng(seed)
+    space = BYTE_TO_UNICODE[ord(" ")]
+    while len(vocab) < vocab_size:
+        a, b = (tokens[int(len(tokens) * rng.random() ** 2)] for _ in range(2))
+        if len(a) + len(b) > MAX_TOKEN_CHARS or a + b in vocab or space in b:
+            continue
+        vocab[a + b] = len(vocab)
+        tokens.append(a + b)
+        merges.append(f"{a} {b}")
+    added = [{"id": vocab_size + i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+              "normalized": False, "special": True} for i, t in enumerate(QWEN2_SPECIALS)]
+    level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False, "use_regex": False}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "NFC"},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": QWEN2_SPLIT}, "behavior": "Isolated", "invert": False}, level]},
+        "post_processor": level, "decoder": level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": "",
+                  "end_of_word_suffix": "", "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+    config = {
+        "tokenizer_class": "Qwen2Tokenizer", "add_prefix_space": False, "bos_token": None,
+        "eos_token": QWEN2_SPECIALS[0], "pad_token": QWEN2_SPECIALS[0], "unk_token": None,
+        "additional_special_tokens": list(QWEN2_SPECIALS[1:]), "clean_up_tokenization_spaces": False,
+        "errors": "replace", "model_max_length": 32768, "split_special_tokens": False,
+        "added_tokens_decoder": {str(t["id"]): {k: v for k, v in t.items() if k != "id"} for t in added},
+    }
     return _write_json(out_dir, "tokenizer.json", spec) + _write_json(out_dir, "tokenizer_config.json", config)
 
 
@@ -199,7 +284,8 @@ def main(argv=None) -> dict:
     from slam_llm_tpu_torch.models.llm import LLMConfig
     from slam_llm_tpu_torch.models.whisper import PRESETS as WHISPER_PRESETS
 
-    llms = {"tinyllama-1.1b": LLMConfig.tinyllama_1_1b, "vicuna-7b": LLMConfig.vicuna_7b, "tiny-test": LLMConfig.tiny_test}
+    llms = {"tinyllama-1.1b": LLMConfig.tinyllama_1_1b, "vicuna-7b": LLMConfig.vicuna_7b,
+            "qwen2-7b": LLMConfig.qwen2_7b, "tiny-test": LLMConfig.tiny_test}
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("out")
     ap.add_argument("--llm", default="tinyllama-1.1b", choices=sorted(llms))
@@ -209,8 +295,9 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     llm_cfg, enc_cfg = llms[args.llm](), WHISPER_PRESETS[args.encoder]()
     llm_dir, enc_dir = os.path.join(args.out, "llm"), os.path.join(args.out, "whisper")
-    sizes = {"llm": write_llama(llm_dir, llm_cfg, args.seed, args.device)
-             + write_tokenizer(llm_dir, llm_cfg.vocab_size, args.seed),
+    tokenizer = (write_qwen2_tokenizer(llm_dir, QWEN2_BPE, args.seed) if args.llm == "qwen2-7b"
+                 else write_tokenizer(llm_dir, llm_cfg.vocab_size, args.seed))
+    sizes = {"llm": write_llama(llm_dir, llm_cfg, args.seed, args.device) + tokenizer,
              "whisper": write_whisper(enc_dir, enc_cfg, args.seed + 1, args.device)}
     print(json.dumps({"llm_path": llm_dir, "encoder_path": enc_dir, "bytes": sizes}))
     return sizes

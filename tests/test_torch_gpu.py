@@ -56,7 +56,11 @@ def test_wgmma_layouts_on_one_tile(gen, d, n):
                                                (512, 8, 8, 128, True), (70, 4, 1, 64, True),
                                                (1, 8, 1, 64, True), (449, 8, 4, 64, True),
                                                (449, 12, 3, 64, False), (1500, 12, 12, 128, False),
-                                               (70, 16, 2, 128, True), (1500, 32, 4, 64, False)])
+                                               (70, 16, 2, 128, True), (1500, 32, 4, 64, False),
+                                               # the ST recipe: qwen2-7b's G = 7 at decode T = 1, vicuna-7b,
+                                               # whisper-large-v3's encoder, the Q-Former's self-attention
+                                               (1, 28, 4, 128, True), (512, 32, 32, 128, True),
+                                               (1500, 20, 20, 64, False), (80, 12, 12, 64, False)])
 def test_flash_kernel_matches_twin(gen, t, h, hkv, d, causal):
     """bf16 out within 2e-2 abs of the f32 twin on the same bf16 inputs (the
     kernel rounds p to bf16 for the p.v product); live-row lse within 1e-3;
@@ -360,7 +364,7 @@ def test_small_slice_on_card_matches_cpu_plain_path(gen):
 # ---- training-path kernels: K1 + fused RoPE, K4, K2 rotate / SR ------------
 
 
-def _rope(b, t, gen, left_pad=None):
+def _rope(b, t, gen, left_pad=None, d=64, theta=10000.0):
     from slam_llm_tpu_torch.models.layers import rope_tables
 
     mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
@@ -368,7 +372,7 @@ def _rope(b, t, gen, left_pad=None):
         for i, n in enumerate(left_pad):
             mask[i, :n] = 0
     pos = (mask.long().cumsum(1) - 1).clamp_min(0)
-    return mask, rope_tables(pos, 64)
+    return mask, rope_tables(pos, d, theta)
 
 
 def _qkv(b, t, h, hkv, d, gen):
@@ -380,8 +384,21 @@ def test_flash_fused_rope_matches_rotate_then_twin(gen, b, t, h, hkv):
     """K1 with fused RoPE against apply_rope_tables (f32 rotation, one bf16
     rounding: the kernel's numerics) then the f32 twin: out within 2e-2,
     live-row lse within 1e-3, left-padded dead rows exactly 0."""
-    q, k, v = _qkv(b, t, h, hkv, 64, gen)
-    mask, rope = _rope(b, t, gen, left_pad=[(i * 37) % (t // 3) for i in range(b)])
+    _check_fused_rope(gen, b, t, h, hkv, 64, 10000.0)
+
+
+@pytest.mark.parametrize("t", [449, 130])
+def test_flash_fused_rope_at_qwen2_heads(gen, t):
+    """The same check at qwen2-7b's attention: 28 query heads over 4 kv heads
+    (G = 7: 7 heads x 18 positions fill 126 of a unit's 128 rows, and a
+    unit's 18 positions straddle the 64-key tiles), head_dim 128, RoPE at
+    theta 1e6, rows left-padded."""
+    _check_fused_rope(gen, 2, t, 28, 4, 128, 1e6)
+
+
+def _check_fused_rope(gen, b, t, h, hkv, d, theta):
+    q, k, v = _qkv(b, t, h, hkv, d, gen)
+    mask, rope = _rope(b, t, gen, left_pad=[(i * 37) % (t // 3) for i in range(b)], d=d, theta=theta)
     out, lse = tflash.flash_attention_fwd(q, k, v, mask, True, rope=rope)
     qr, kr = (tflash.apply_rope_tables(x, *rope) for x in (q, k))
     ref, ref_lse = tflash.flash_attention_ref(qr.float(), kr.float(), v.float(), mask, True)
@@ -422,6 +439,20 @@ def test_flash_backward_kernel_matches_twin(gen, b, t, h, hkv, d, causal, rope, 
     """K4 dq / dk / dv within 2e-2 relative L2 of the f32 twin (the kernel
     rounds P and dS to bf16 for its products); dead rows' dq exactly 0;
     two runs bit-identical (no atomics)."""
+    _check_flash_backward(gen, b, t, h, hkv, d, causal, rope, pad, 10000.0)
+
+
+@pytest.mark.parametrize("b,t,h,hkv,d,causal,rope,pad", [
+    (2, 449, 28, 4, 128, True, True, "left"),  # qwen2-7b: G = 7, head_dim 128
+    (2, 130, 28, 4, 128, True, True, "both"),
+    (2, 80, 12, 12, 64, False, False, "right"),  # the Q-Former's self-attention
+])
+def test_flash_backward_kernel_at_the_st_shapes(gen, b, t, h, hkv, d, causal, rope, pad):
+    """The same check at the ST recipe's shapes, RoPE at qwen2's theta 1e6."""
+    _check_flash_backward(gen, b, t, h, hkv, d, causal, rope, pad, 1e6)
+
+
+def _check_flash_backward(gen, b, t, h, hkv, d, causal, rope, pad, theta):
     q, k, v = _qkv(b, t, h, hkv, d, gen)
     dout = torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
     mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
@@ -435,7 +466,7 @@ def test_flash_backward_kernel_matches_twin(gen, b, t, h, hkv, d, causal, rope, 
     if rope:
         from slam_llm_tpu_torch.models.layers import rope_tables
 
-        tables = rope_tables((mask.long().cumsum(1) - 1).clamp_min(0), d)
+        tables = rope_tables((mask.long().cumsum(1) - 1).clamp_min(0), d, theta)
     out, lse = tflash.flash_attention_fwd(q, k, v, mask, causal, rope=tables)
     before = tflash.flash_attention_bwd.launches
     got = tflash.flash_attention_bwd(q, k, v, mask, out, lse, dout, causal, rope=tables)
@@ -741,3 +772,81 @@ def test_checkpoint_round_trip_decodes_the_same_tokens_on_the_card(gen, tmp_path
     load_trainable_into(fresh, str(tmp_path / "ckpt"))
     assert all(torch.equal(a, b) for a, b in zip(trained.state_dict().values(), fresh.state_dict().values()))
     assert np.array_equal(decode(fresh), before)
+
+
+# ---- the ST recipe: the Q-Former and the ByteLevel tokenizer ----------------
+
+
+def test_qformer_on_card_matches_the_cpu_plain_path(gen):
+    """The recipe's Q-Former (80 queries, 768 wide, 12 heads; 2 of its 8
+    blocks) over whisper-large-v3-wide states, some padded: the output and
+    every gradient of a weighted sum, card (K1 forward and K4 backward in
+    each block's self-attention) vs the CPU plain path, both bf16, cosine
+    >= 0.99; the key projections' biases, whose gradient is 0 in exact
+    arithmetic, within 5e-2 of their query biases' gradient norm."""
+    from slam_llm_tpu_torch.models.projector import ProjectorConfig, ProjectorQFormer
+    from slam_llm_tpu_torch.pipeline.common import init_params_
+
+    model = init_params_(ProjectorQFormer(ProjectorConfig(encoder_dim=1280, llm_dim=3584, query_len=80,
+                                                          qformer_layers=2), device="cuda"), gen)
+    model.requires_grad_(True)
+    x = torch.randn(4, 1500, 1280, generator=gen, device="cuda").bfloat16()
+    mask = torch.ones(4, 1500, dtype=torch.int32, device="cuda")
+    mask[1, 1000:] = 0
+    weight = torch.randn(4, 80, 3584, generator=gen, device="cuda")
+    names = [n for n, _ in model.named_parameters()]
+
+    def run():
+        params = list(model.parameters())
+        out = model(x.to(params[0].device), mask.to(params[0].device))
+        grads = torch.autograd.grad((out.float() * weight.to(out.device)).sum(), params)
+        return out.float().cpu(), dict(zip(names, (g.float().cpu() for g in grads)))
+
+    fwd, bwd = tflash.flash_attention_fwd.launches, tflash.flash_attention_bwd.launches
+    out_gpu, g_gpu = run()
+    assert (tflash.flash_attention_fwd.launches - fwd, tflash.flash_attention_bwd.launches - bwd) == (2, 2)
+    model.to("cpu")
+    out_cpu, g_cpu = run()
+    cos = torch.nn.functional.cosine_similarity(out_gpu.flatten(0, 1), out_cpu.flatten(0, 1), dim=-1)
+    assert bool(torch.isfinite(out_gpu).all()) and cos.min().item() >= 0.99
+    for name in names:
+        a, c = g_gpu[name], g_cpu[name]
+        if name.endswith("k_proj.bias"):
+            ref = g_cpu[name.replace("k_proj", "q_proj")].norm()
+            assert max(a.norm(), c.norm()) <= 5e-2 * ref, name
+        else:
+            assert torch.nn.functional.cosine_similarity(a.flatten(), c.flatten(), dim=0).item() >= 0.99, name
+
+
+_BYTELEVEL_PROBE = r"""
+import json, sys, tempfile
+from slam_llm_tpu_torch.data.tokenizer import ByteLevelTokenizer, load_tokenizer
+from slam_llm_tpu_torch.tools.synth_checkpoint import QWEN2_BPE, write_qwen2_tokenizer
+from slam_llm_tpu_torch.tools import eval_werbleu
+d = tempfile.mkdtemp()
+write_qwen2_tokenizer(d, QWEN2_BPE, corpus=["das Wetter ist heute schön"])
+tok = load_tokenizer(d)
+text = "Übersetze: das Wetter ist heute schön 😀 翻译 <|im_start|>x<|im_end|>\n"
+ids = tok.encode(text)
+print(json.dumps({"type": type(tok).__name__, "vocab": tok.vocab_size, "round_trip": tok.decode(ids, False) == text,
+                  "absent": sorted(m for m in ("tokenizers", "transformers", "regex", "sacrebleu", "jax")
+                                   if m in sys.modules)}))
+"""
+
+
+def test_bytelevel_tokenizer_runs_on_the_cards_host(gen, tmp_path):
+    """qwen2's ByteLevel tokenizer at its full 151,646 tokens, written,
+    read and round-tripped in a fresh interpreter on the card's host, which
+    imports none of tokenizers, transformers, regex, sacrebleu or jax."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = str(Path(__file__).resolve().parent.parent)
+    env = {**os.environ, "PYTHONPATH": repo}
+    out = subprocess.run([sys.executable, "-c", _BYTELEVEL_PROBE], capture_output=True, text=True, env=env,
+                         timeout=120, check=True, cwd=repo)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "type": "ByteLevelTokenizer", "vocab": 151646, "round_trip": True, "absent": []}

@@ -228,10 +228,12 @@ def test_unported_parts_raise(tmp_path):
     from slam_llm_tpu_torch.pipeline.common import materialize_params
 
     cfg = _tiny_cfg(tmp_path, n=2)
-    for key, val in (("encoder_name", "wavlm"), ("encoder_projector", "q-former")):
-        mc = dataclasses.replace(cfg.model_config, **{key: val})
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tslam.build_slam_config(cfg.train_config, mc)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tslam.build_slam_config(cfg.train_config, dataclasses.replace(cfg.model_config, encoder_name="wavlm"))
+    # the q-former and conv1d projectors are ported: they build
+    for kind, cls in (("q-former", tproj.ProjectorQFormer), ("cov1d-linear", tproj.ProjectorConv1d)):
+        sc = tslam.build_slam_config(cfg.train_config, dataclasses.replace(cfg.model_config, encoder_projector=kind))
+        assert isinstance(tslam.SLAMModel(sc).encoder_projector, cls)
     # the training modes ported since build their model, with the buffers
     # their backward reads; an undefined mode or a TPU-only knob raises
     for key, val, buffer in (("base_quant_bwd", "int8_sr", "kernel_qt"), ("base_quant_bwd", "int8_rot_otf", None),
@@ -300,26 +302,44 @@ train = finetune.main(tiny_run_config(make_corpus(tmp, n=2), **{
     "train_config.shard.base_quant": "int8", "train_config.shard.base_quant_bwd": "int8_rot",
     "train_config.max_steps_per_epoch": 1, "train_config.log_interval": 1,
     "train_config.output_dir": str(tmp / "out")}), device="cpu")
+# the ST recipe's pieces: a qwen2-layout ByteLevel tokenizer, a Q-Former
+# model's forward and backward, BLEU over the decode logs
+from slam_llm_tpu_torch.tools.synth_checkpoint import write_qwen2_tokenizer
+from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
+from slam_llm_tpu_torch.tools import eval_werbleu
+write_qwen2_tokenizer(str(tmp / "qwen2"), 400, corpus=["Übersetze die Sprache ins Deutsche."])
+tok = load_tokenizer(str(tmp / "qwen2"))
+assert tok.decode(tok.encode("Grüße 👋 <|im_end|>"), skip_special_tokens=False) == "Grüße 👋 <|im_end|>"
+st = finetune.main(tiny_run_config(make_corpus(tmp, n=2), **{
+    "model_config.encoder_projector": "q-former", "model_config.query_len": 4, "model_config.qformer_layers": 1,
+    "model_config.qformer_dim": 32, "model_config.qformer_heads": 2, "dataset_config.fix_length_audio": 4,
+    "train_config.max_steps_per_epoch": 1, "train_config.log_interval": 1, "train_config.run_validation": False,
+    "train_config.output_dir": str(tmp / "st")}), device="cpu")
+bleu = eval_werbleu.main(["--pred", res["pred"], "--gt", res["gt"]])
 for mod in pkgutil.walk_packages(slam_llm_tpu_torch.__path__, "slam_llm_tpu_torch."):
     importlib.import_module(mod.name)
-print(json.dumps({"n": res["n"], "steps": len(train["steps"]), "jax": "jax" in sys.modules,
-                  "flax": "flax" in sys.modules,
+print(json.dumps({"n": res["n"], "steps": len(train["steps"]) + len(st["steps"]), "bleu": "bleu" in bleu[-1],
+                  "jax": "jax" in sys.modules, "flax": "flax" in sys.modules,
+                  "hf": sorted(m for m in ("tokenizers", "transformers", "regex", "sacrebleu") if m in sys.modules),
                   "slam_llm_tpu": sorted(m for m in sys.modules if m == "slam_llm_tpu" or m.startswith("slam_llm_tpu."))}))
 """
 
 
 def test_port_runs_without_importing_jax():
-    """The decode slice, a training step through the finetune CLI, and every
-    module of the package, in a fresh interpreter with a config from the
-    port's own ``config`` module: neither jax nor flax nor any module of the
-    JAX package is ever imported (this test process has all three)."""
+    """The decode slice, a training step through the finetune CLI, the ST
+    recipe's pieces (a qwen2-layout ByteLevel tokenizer, a Q-Former training
+    step, BLEU over the decode logs) and every module of the package, in a
+    fresh interpreter with a config from the port's own ``config`` module:
+    neither jax nor flax nor any module of the JAX package is ever imported
+    (this test process has all three), nor tokenizers, transformers, regex
+    or sacrebleu."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", _PROBE, str(REPO)], capture_output=True, text=True, env=env,
         timeout=300, check=True,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {
-        "n": 2, "steps": 1, "jax": False, "flax": False, "slam_llm_tpu": []}
+        "n": 2, "steps": 2, "bleu": True, "jax": False, "flax": False, "hf": [], "slam_llm_tpu": []}
 
 
 def test_port_sources_never_import_jax():

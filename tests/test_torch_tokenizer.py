@@ -150,7 +150,7 @@ def test_byte_level_and_missing_files_raise(tmp_path):
     build_llama_tokenizer(tmp_path)
     spec = json.loads((tmp_path / "tokenizer.json").read_text())
     spec["pre_tokenizer"] = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True, "use_regex": True}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="ByteLevelTokenizer"):
         LlamaTokenizer(spec, {})
     with pytest.raises(FileNotFoundError):
         load_tokenizer(str(tmp_path / "missing"))
