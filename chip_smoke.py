@@ -73,7 +73,25 @@ Phases, each fatal on failure:
                 4) against the in-memory trained model's decode; BLEU through
                 tools/eval_werbleu; the prefill logits and every Q-Former
                 gradient of one utterance against the CPU plain path at 2 LLM
-                and 2 encoder layers.
+                and 2 encoder layers;
+  9. wavlm   -- the WavLM recipe examples/asr_librispeech/conf/asr_wavlm_vicuna.yaml
+                at full width (WavLM-large written as a random bf16 HF
+                directory by tools/synth_checkpoint and loaded through
+                encoder_path, the linear projector, vicuna-7b's seeded random
+                init in the int8 base with the bf16 backward, a synthetic
+                32000-entry Llama tokenizer): pipeline.finetune for 4 steps of
+                16 utterances (the projector moves; the encoder, the int8
+                base, its scales, the embedding, the head and the norms stay
+                bit-unchanged; K2 / K3 launch at 4096 and 11008 wide, K4 once
+                a layer a step); pipeline.inference_batch with ckpt_path
+                (beam 4, batches of 8) against the in-memory trained model's
+                decode, RTF from the raw audio_mask, WER; the prefill logits
+                and projector gradients of one utterance against the CPU
+                plain path at 2 LLM and 2 encoder layers; and the whole
+                WavLM-large, hubert-large and emotion2vec-base encoders on two
+                ragged utterances against the CPU f32 plain path (K1 once a
+                layer for the last two, whose attention takes no rel-pos
+                bias; these runs count on the wavlm path).
 
 Prints one JSON line of kernel results before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -321,6 +339,14 @@ def check_flash(gen) -> dict:
         ("Q-Former self-attn", 8, 80, 12, 12, 64, False, "none", 0),
         ("qwen2-7b training, fused RoPE theta 1e6, left-padded", 8, ST_T, 28, 4, 128, True, "left", 1e6),
         ("qwen2-7b prefill, left-padded", 8, ST_PREFILL_T, 28, 4, 128, True, "left", 0),
+        # the WavLM recipe: vicuna-7b's training and prefill, and the encoders
+        # whose attention takes no rel-pos bias (phase 9's encoder check: two
+        # utterances of a 10 s bucket, 160,000 samples -> 499 frames)
+        *(("vicuna-7b training, fused RoPE theta 1e4, left-padded", 16, t, 32, 32, 128, True, "left", 1e4)
+          for t in W_TRAIN_T),
+        *(("vicuna-7b prefill, left-padded", 8, t, 32, 32, 128, True, "left", 0) for t in W_PREFILL_T),
+        ("hubert-large encoder, right-padded", 2, W_ENC_T, 16, 16, 64, False, "right", 0),
+        ("emotion2vec-base encoder, right-padded", 2, W_ENC_T, 12, 12, 64, False, "right", 0),
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
@@ -390,6 +416,8 @@ def check_flash_bwd(gen) -> dict:
         ("whisper-like, not causal, right-padded", 2, 1500, 12, 12, 64, False, "right", 0),
         ("qwen2-7b training, fused RoPE theta 1e6, left-padded", 8, ST_T, 28, 4, 128, True, "left", 1e6),
         ("Q-Former self-attn", 8, 80, 12, 12, 64, False, "none", 0),
+        *(("vicuna-7b training, fused RoPE theta 1e4, left-padded", 16, t, 32, 32, 128, True, "left", 1e4)
+          for t in W_TRAIN_T),
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
@@ -454,8 +482,11 @@ def check_rowquant(gen) -> dict:
     dev = "cuda"
     worst, first, rows = 0.0, None, []
     # prefill (M = 4096), beam decode (M = 32) and training (M = 8192) shapes first, then others
+    # then vicuna-7b's rows (phase 9): training M = 16 x T, prefill M = 8 x T, beam M = 32
+    vicuna = [(m, k) for m in sorted({16 * t for t in W_TRAIN_T} | {8 * t for t in W_PREFILL_T} | {32}, reverse=True)
+              for k in (4096, 11008)]
     for m, k in ((4096, 2048), (4096, 5632), (32, 2048), (32, 5632), (8192, 2048), (8192, 5632), (3584, 2048),
-                 (1337, 5632), (3, 2056)):
+                 (1337, 5632), (3, 2056), *vicuna):
         x = torch.randn(m, k, generator=gen, device=dev) * 3
         x[0] = 0.0  # all-zero row
         # exact .5 ties after scaling: amax 127 gives s == 1, so x/s == x
@@ -623,6 +654,11 @@ def check_int8_matmul(gen) -> dict:
     # int8_sr CE head's dx, z (1024, 32000) x head_qt (2048, 32000), and that
     # of one utterance's 64-row chunk (phase 6's gradient check: split-K)
     shapes += [(1024, 32000, 2048), (64, 32000, 2048)]
+    # vicuna-7b's int8 base (phase 9): q / k / v / o, gate / up and down at
+    # training, prefill and beam M
+    shapes += [(m, kc, n) for m in sorted({16 * t for t in W_TRAIN_T} | {8 * t for t in W_PREFILL_T} | {32},
+                                          reverse=True)
+               for kc, n in ((4096, 4096), (4096, 11008), (11008, 4096))]
     for m, k, f in shapes:
         xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
         wq = torch.randint(-127, 128, (f, k), generator=gen, device=dev, dtype=torch.int8)
@@ -739,14 +775,23 @@ def kernel_counters():
     }
 
 
+# the launches by width (K2: row width; K3: (K, F)) of the last run_counted run
+WIDTHS = {}
+
+
 def run_counted(fn):
     """``fn()`` with every kernel's launch count set to 0 just before; returns
-    (its result, the counts just after)."""
+    (its result, the counts just after), and leaves the K2 / K3 launches by
+    width of the run in ``WIDTHS``."""
     counters = kernel_counters()
     for c in counters.values():
         c.launches = 0
+        if hasattr(c, "widths"):
+            c.widths.clear()
     out = fn()
     torch.cuda.synchronize()
+    WIDTHS.clear()
+    WIDTHS.update({name: dict(c.widths) for name, c in counters.items() if hasattr(c, "widths")})
     return out, {name: c.launches for name, c in counters.items()}
 
 
@@ -767,7 +812,8 @@ def compare_prefill(model, batch, label: str) -> None:
     (cosine >= 0.99 at every valid position); ``model`` ends on the CPU."""
     from slam_llm_tpu_torch.models.llm import init_kv_cache
 
-    keys = ("input_ids", "attention_mask", "modality_mask", "audio_mel", "audio_mel_mask")
+    keys = [k for k in ("input_ids", "attention_mask", "modality_mask", "audio_mel", "audio_mel_mask", "audio",
+                        "audio_mask") if k in batch]
 
     def run(m, rows, device):
         b = {k: torch.as_tensor(batch[k][rows]).to(device) for k in keys}
@@ -1191,7 +1237,7 @@ def decode_texts(model, tokenizer, cfg) -> list:
     return lines
 
 
-def check_wer(res) -> None:
+def check_wer(res, label: str = "weights") -> None:
     """(e) the port's WER over the decode logs: its %WER line, which must
     parse back to its own counts, and ref words = sub + del + hits."""
     import re
@@ -1203,7 +1249,7 @@ def check_wer(res) -> None:
     refs, hyps = read_trn(res["gt"]), read_trn(res["pred"])
     hits = sum(align(hyps[k], refs[k])[0]["cor"] for k in refs if k in hyps)
     line = wer.summary().splitlines()[0]
-    log(f"[weights] {line} (hits {hits}) over {wer.sentences} utterances")
+    log(f"[{label}] {line} (hits {hits}) over {wer.sentences} utterances")
     m = re.fullmatch(r"%WER (\S+) \[ (\d+) / (\d+), (\d+) ins, (\d+) del, (\d+) sub \]", line)
     text = Path(detail).read_text()
     if (not m or float(m.group(1)) != wer.wer or [int(x) for x in m.groups()[1:]] != [
@@ -1344,49 +1390,52 @@ ST_TARGETS = [f"{en} <|de|> {de}" for en, de in ST_PAIRS]
 # EOS) and of a decode batch (no target), which phase 3 times K1 / K4 at
 ST_T, ST_PREFILL_T = 192, 128
 
-# the directory of the synthetic qwen2 tokenizer, set by run_st
-_st_tokenizer_dir = None
+# the directory of the synthetic tokenizer, set by run_st and run_wavlm
+_synth_tokenizer_dir = None
 
 
-def st_model_factory(train_config, model_config, device=None, **kwargs):
+def synth_tokenizer_factory(train_config, model_config, device=None, **kwargs):
     """The port's model factory with the tokenizer read from the synthetic
-    qwen2 directory, its model config otherwise untouched: the weights are
-    the seeded random init that ``materialize_params`` draws (no 15 GB Qwen2
-    directory is written). The recipe reaches it as
-    ``++model_config.file=__main__:st_model_factory``."""
+    tokenizer directory (phase 8's qwen2 one, phase 9's Llama one), its
+    model config otherwise untouched: the LLM's weights are the seeded
+    random init that ``materialize_params`` draws (no 15 GB Qwen2 or 13 GB
+    vicuna directory is written). A recipe reaches it as
+    ``++model_config.file=__main__:synth_tokenizer_factory``."""
     import dataclasses
 
     from slam_llm_tpu_torch.models.slam_model import model_factory
 
-    return model_factory(train_config, dataclasses.replace(model_config, llm_path=_st_tokenizer_dir), device=device,
+    return model_factory(train_config, dataclasses.replace(model_config, llm_path=_synth_tokenizer_dir), device=device,
                          **kwargs)
 
 
 def _st_config(loader, *extra):
-    return loader(["--config", str(ST_RECIPE), "++model_config.file=__main__:st_model_factory", *extra])
+    return loader(["--config", str(ST_RECIPE), "++model_config.file=__main__:synth_tokenizer_factory", *extra])
 
 
-def check_st_params(trainer, cfg) -> None:
-    """Every Q-Former tensor moved from the seeded init; every encoder and
-    LLM tensor is bit-equal to a freshly materialized model's (in the dtype
-    the trainer stores it in)."""
+def check_projector_trained(trainer, cfg, label: str) -> None:
+    """Every projector tensor moved from the seeded init; every other tensor
+    of the state dict (encoder and LLM weights, an int8 base and its scales,
+    norms) is bit-equal to a freshly materialized model's, in the dtype the
+    trainer stores it in."""
     from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
 
     fresh, _, _ = build_model_and_data(cfg, split=cfg.dataset_config.train_split, device="cuda")
     materialize_params(fresh, cfg)
-    init = dict(fresh.named_parameters())
+    init = fresh.state_dict()
     if not trainer.trainable or any(not n.startswith("encoder_projector.") for n in trainer.trainable):
-        raise AssertionError(f"the ST recipe trains the Q-Former alone, not {sorted(trainer.trainable)[:5]}")
+        raise AssertionError(f"{label}: the recipe trains the projector alone, not {sorted(trainer.trainable)[:5]}")
     unmoved = [n for n, p in trainer.trainable.items() if torch.equal(p, init[n].to(p.dtype))]
-    changed = [n for n, p in trainer.frozen.items() if not torch.equal(p, init[n].to(p.dtype))]
+    state = trainer.model.state_dict()
+    changed = [n for n, t in state.items() if n not in trainer.trainable and not torch.equal(t, init[n].to(t.dtype))]
     n_train = sum(p.numel() for p in trainer.trainable.values())
-    n_frozen = sum(p.numel() for p in trainer.frozen.values())
-    log(f"[st] {len(trainer.trainable)} Q-Former tensors ({n_train / 1e6:.1f} M parameters), unmoved: {len(unmoved)}; "
-        f"{len(trainer.frozen)} frozen encoder / LLM tensors ({n_frozen / 1e9:.3f} G parameters), changed: "
-        f"{len(changed)}")
+    n_other = sum(t.numel() for n, t in state.items() if n not in trainer.trainable)
+    log(f"[{label}] {len(trainer.trainable)} projector tensors ({n_train / 1e6:.1f} M parameters), unmoved: "
+        f"{len(unmoved)}; {len(state) - len(trainer.trainable)} other state tensors ({n_other / 1e9:.3f} G "
+        f"elements: encoder, LLM, int8 base, scales, norms), changed: {len(changed)}")
     del fresh, init
     if unmoved or changed:
-        raise AssertionError(f"Q-Former tensors unmoved {unmoved[:5]}, frozen tensors changed {changed[:5]}")
+        raise AssertionError(f"{label}: projector tensors unmoved {unmoved[:5]}, frozen tensors changed {changed[:5]}")
 
 
 def st_bleu(out) -> dict:
@@ -1409,22 +1458,21 @@ def st_bleu(out) -> dict:
     return bleu[0]
 
 
-def check_st_against_cpu(trainer, cfg, dec) -> None:
-    """The recipe at its full widths but ST_LAYERS LLM and encoder layers (a
-    7B f32 model on the host is neither quick nor small), with the trained
-    Q-Former whole: the bf16 prefill logits of one utterance and every
-    Q-Former gradient of one utterance, card vs CPU plain path."""
+def check_reduced_against_cpu(trainer, cfg, prefill_batch, train_ds, label: str, layers: int = 2) -> None:
+    """The recipe at its full widths but ``layers`` LLM and encoder layers
+    (a 7B f32 model on the host is neither quick nor small), with the
+    trained projector whole: the bf16 prefill logits of ``prefill_batch``'s
+    first utterance and every projector gradient of one utterance of
+    ``train_ds``, card vs CPU plain path."""
     import dataclasses
 
-    from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
     from slam_llm_tpu_torch.models.slam_model import SLAMModel
     from slam_llm_tpu_torch.pipeline.common import init_params_
-    from slam_llm_tpu_torch.pipeline.inference_batch import decode_loader
     from slam_llm_tpu_torch.train.state import Trainer
 
     big = trainer.model.cfg
-    small_cfg = dataclasses.replace(big, llm=dataclasses.replace(big.llm, n_layers=ST_LAYERS),
-                                    encoder=dataclasses.replace(big.encoder, n_layers=ST_LAYERS))
+    small_cfg = dataclasses.replace(big, llm=dataclasses.replace(big.llm, n_layers=layers),
+                                    encoder=dataclasses.replace(big.encoder, n_layers=layers))
     small = SLAMModel(small_cfg, device="cuda")
     init_params_(small, torch.Generator(device="cuda").manual_seed(cfg.train_config.seed))
     trained = {n: p for n, p in trainer.model.named_parameters() if n.startswith("encoder_projector.")}
@@ -1433,14 +1481,11 @@ def check_st_against_cpu(trainer, cfg, dec) -> None:
             if n in trained:
                 p.copy_(trained[n])
     small_trainer = Trainer(small, small_cfg, cfg.train_config).state_from_params()
-    log(f"[st] card vs CPU at {ST_LAYERS} of {big.llm.n_layers} LLM layers and {ST_LAYERS} of {big.encoder.n_layers} "
-        f"encoder layers (full widths, the trained Q-Former whole)")
-    tokenizer = load_tokenizer(_st_tokenizer_dir)
-    dec.dataset_config.inference_mode = True
-    test = dataset_of(dec, tokenizer, dec.dataset_config.test_split)
-    compare_prefill(small.eval(), next(iter(decode_loader(dec, test))), "st")
+    log(f"[{label}] card vs CPU at {layers} of {big.llm.n_layers} LLM layers and {layers} of {big.encoder.n_layers} "
+        f"encoder layers (full widths, the trained projector whole)")
+    compare_prefill(small.eval(), prefill_batch, label)
     small.to("cuda")
-    check_train_grads_against_cpu(small_trainer, dataset_of(cfg, tokenizer, cfg.dataset_config.train_split), "st")
+    check_train_grads_against_cpu(small_trainer, train_ds, label)
 
 
 def run_st() -> dict:
@@ -1449,7 +1494,7 @@ def run_st() -> dict:
     coming back through the frozen Qwen2-7B), the reload through
     pipeline.inference_batch with ckpt_path against the in-memory model's
     decode, BLEU, and the card-vs-CPU checks at reduced depth."""
-    global _st_tokenizer_dir
+    global _synth_tokenizer_dir
     import shutil
 
     from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
@@ -1461,8 +1506,8 @@ def run_st() -> dict:
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_st_"))
     t0 = time.perf_counter()
     size = write_qwen2_tokenizer(str(tmp / "qwen2"), QWEN2_BPE, seed=0, corpus=ST_TARGETS)
-    _st_tokenizer_dir = str(tmp / "qwen2")
-    tokenizer = load_tokenizer(_st_tokenizer_dir)
+    _synth_tokenizer_dir = str(tmp / "qwen2")
+    tokenizer = load_tokenizer(_synth_tokenizer_dir)
     log(f"[st] wrote a qwen2-layout ByteLevel tokenizer ({size / 1e6:.2f} MB, {tokenizer.vocab_size} tokens) and read "
         f"it back in {time.perf_counter() - t0:.2f} s; bos {tokenizer.bos_token_id} eos {tokenizer.eos_token_id} "
         f"pad {tokenizer.pad_token_id}")
@@ -1493,7 +1538,7 @@ def run_st() -> dict:
         raise AssertionError(f"st: {len(res['steps'])} steps, checkpoints {res['checkpoints']}")
     if {s["shape"][1] for s in res["steps"]} != {ST_T}:
         raise AssertionError(f"the training batches' T is not the T = {ST_T} phase 3 checks K1 / K4 at")
-    check_st_params(trainer, cfg)
+    check_projector_trained(trainer, cfg, "st")
     ckpt = res["checkpoints"][-1]
     saved = load_trainable(ckpt)
     if set(saved) != set(trainer.trainable) or not all(torch.equal(saved[n], p.detach().cpu())
@@ -1529,7 +1574,9 @@ def run_st() -> dict:
     if len(mine) != 16 or text != "".join(f"{line}\n" for line in mine):
         raise AssertionError("the reloaded ST model's decode differs from the in-memory trained model's")
     st_bleu(out)
-    check_st_against_cpu(trainer, cfg, dec)
+    test = dataset_of(dec, tokenizer, dec.dataset_config.test_split)
+    check_reduced_against_cpu(trainer, cfg, next(iter(decode_loader(dec, test))),
+                              dataset_of(cfg, tokenizer, cfg.dataset_config.train_split), "st", ST_LAYERS)
     del res, trainer
     shutil.rmtree(tmp)
     total = {k: launches[k] + dec_launches[k] for k in launches}
@@ -1539,8 +1586,261 @@ def run_st() -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the WavLM recipe (WavLM-large + linear + vicuna-7b, int8 base, bf16 backward)
+# ---------------------------------------------------------------------------
+
+W_RECIPE = ROOT / "examples" / "asr_librispeech" / "conf" / "asr_wavlm_vicuna.yaml"
+W_STEPS = 4
+W_NEW_TOKENS = 32  # decode length (a random model rarely emits EOS)
+W_LAYERS = 2  # LLM and encoder depth of the card-vs-CPU checks
+# the text buckets of the training batches (up to 100 audio slots, the
+# prompt, a target, EOS) and of a decode batch (no target), and the encoder
+# frames of a 10 s bucket (160,000 samples), which phase 3 times the kernels at
+W_TRAIN_T, W_PREFILL_T, W_ENC_T = (192, 128), (128, 192), 499
+W_PATH = ("flash_attention_fwd", "flash_attention_bwd", "rowquant", "int8_matmul", "int8_matmul/wgmma",
+          "int8_matmul/splitk")
+# vicuna-7b's K2 rows and K3 (K, F) products
+W_WIDTHS = {"rowquant": {4096, 11008}, "int8_matmul": {(4096, 4096), (4096, 11008), (11008, 4096)}}
+SMI = ""  # the card's name and power limit, set by main
+
+
+def _wavlm_config(loader, *extra):
+    return loader(["--config", str(W_RECIPE), "++model_config.file=__main__:synth_tokenizer_factory", *extra])
+
+
+def check_wavlm_loaded(model, enc_dir: str) -> None:
+    """The loaded encoder equal to the written directory's tensors, and the
+    folded positional conv against ``g * v / ||v||`` computed on the card."""
+    from slam_llm_tpu_torch.utils.hf_loader import load_hf_state_dict
+
+    sd = load_hf_state_dict(enc_dir)
+    enc, n = model.encoder, 0
+    last = len(enc.cfg.conv_dim) - 1
+    checks = [(enc.feature_extractor.conv_0.weight, "feature_extractor.conv_layers.0.conv.weight"),
+              (getattr(enc.feature_extractor, f"ln_{last}").scale,
+               f"feature_extractor.conv_layers.{last}.layer_norm.weight"),
+              (enc.fp_proj.weight, "feature_projection.projection.weight"),
+              (enc.encoder_ln.bias, "encoder.layer_norm.bias"),
+              (enc.rel_attn_embed, "encoder.layers.0.attention.rel_attn_embed.weight")]
+    for i in sorted({0, enc.cfg.n_layers // 2, enc.cfg.n_layers - 1}):
+        layer, src = enc.layers[i], f"encoder.layers.{i}."
+        checks += [(layer.attention.q_proj.weight, src + "attention.q_proj.weight"),
+                   (layer.attention.out_proj.bias, src + "attention.out_proj.bias"),
+                   (layer.attention.gru_rel_pos_linear.weight, src + "attention.gru_rel_pos_linear.weight"),
+                   (layer.attention.gru_rel_pos_const, src + "attention.gru_rel_pos_const"),
+                   (layer.fc2.weight, src + "feed_forward.output_dense.weight"),
+                   (layer.final_layer_norm.scale, src + "final_layer_norm.weight")]
+    for got, name in checks:
+        if not torch.equal(got.detach().cpu(), sd[name].to(got.dtype)):
+            raise AssertionError(f"loaded encoder tensor differs from the written {name}")
+        n += 1
+    base = "encoder.pos_conv_embed.conv."
+    g, v = sd[base + "weight_g"].cuda().float(), sd[base + "weight_v"].cuda().float()
+    want = g * v / v.square().sum(dim=(0, 1), keepdim=True).sqrt()
+    w = enc.pos_conv.conv.weight
+    rel = ((w.float() - want).abs().max() / want.abs().max()).item()
+    same = (w == want.to(w.dtype)).float().mean().item()
+    log(f"[wavlm] loaded encoder: {n} tensors bit-equal to the written ones; the folded positional conv "
+        f"{tuple(w.shape)} against g * v / ||v|| on the card: max rel diff {rel:.2e}, {100 * same:.3f} % identical "
+        f"in {w.dtype}")
+    if rel > 2 ** -8:
+        raise AssertionError(f"the folded positional conv differs from g * v / ||v|| by {rel}")
+
+
+def check_encoder_against_cpu(label: str, enc, audio, mask, expect_k1: bool) -> dict:
+    """A whole encoder on the card (bf16) against the CPU f32 plain path on
+    the same weights: the last hidden state's cosine >= 0.99 at every valid
+    frame, the masks equal; K1 once per layer without the rel-pos bias,
+    never with it. Returns the launch counts of the card run."""
+    import dataclasses
+
+    from slam_llm_tpu_torch.models.wavlm import WavLMEncoder
+
+    with torch.no_grad():
+        (out, out_mask), launches = run_counted(lambda: enc(audio.cuda(), mask.cuda()))
+        cpu = WavLMEncoder(dataclasses.replace(enc.cfg, dtype=torch.float32)).eval()
+        cpu.load_state_dict({k: v.float().cpu() for k, v in enc.state_dict().items()})
+        t0 = time.perf_counter()
+        ref, ref_mask = cpu(audio, mask)
+        cpu_s = time.perf_counter() - t0
+    live = ref_mask.bool()
+    cos = torch.nn.functional.cosine_similarity(out.float().cpu()[live], ref[live], dim=-1)
+    k1 = launches["flash_attention_fwd"]
+    log(f"[wavlm] {label} ({enc.cfg.n_layers} layers, d {enc.cfg.d_model}, {enc.cfg.n_heads} heads, rel-pos bias "
+        f"{enc.cfg.rel_bias}) on {tuple(audio.shape)} samples, frames {live.sum(1).tolist()} of {live.shape[1]}: card "
+        f"bf16 vs CPU f32 plain path ({cpu_s:.1f} s on CPU): min cosine {cos.min().item():.5f} mean "
+        f"{cos.mean().item():.5f}; K1 launches {k1}")
+    if not (torch.equal(out_mask.cpu(), ref_mask) and bool(torch.isfinite(out).all()) and cos.min().item() >= 0.99):
+        raise AssertionError(f"{label}: masks equal {torch.equal(out_mask.cpu(), ref_mask)}, cosine {cos.min().item()}")
+    if k1 != (enc.cfg.n_layers if expect_k1 else 0):
+        raise AssertionError(f"{label}: {k1} K1 launches for {enc.cfg.n_layers} layers (expected K1: {expect_k1})")
+    del cpu
+    return launches
+
+
+def wavlm_encoder_times(trainer, batch) -> dict:
+    """The frozen encoder (and the projector) forward of one training batch,
+    by CUDA events, and the plain biased attention of one of its layers at
+    that batch's shape (CUDA-graph replay), beside SDPA with the same
+    additive f32 mask (the library call that computes the same function on
+    rows with a live key)."""
+    from slam_llm_tpu_torch.models.layers import mha_attention
+
+    model = trainer.model
+    with torch.no_grad():
+        enc_ms = event_ms(lambda: model.encode(batch), reps=3)
+    c = model.encoder.cfg
+    b, t, h, d = batch["audio"].shape[0], W_ENC_T, c.n_heads, c.d_model // c.n_heads
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16() for _ in range(3))
+    bias = torch.randn(b, h, t, t, generator=gen, device="cuda")
+    bias[1, :, :, t - 100:] = -0.7 * torch.finfo(torch.float32).max  # a padded row's keys
+    attn_ms = time_ms(lambda: mha_attention(q, k, v, bias=bias), reps=3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias.bfloat16()))
+    return dict(encoder_ms=enc_ms, attn_ms=attn_ms, sdpa_ms=sdpa_ms, shape=(b, t, h, d))
+
+
+def run_wavlm() -> dict:
+    """Phase 9: asr_wavlm_vicuna at full width: a random bf16 WavLM-large
+    HF directory (tools/synth_checkpoint) through ``encoder_path`` and
+    vicuna-7b's seeded random init in the int8 base; pipeline.finetune for
+    W_STEPS steps of 16 utterances (the projector trains, the bf16 dx goes
+    back through 32 frozen int8 layers), pipeline.inference_batch with
+    ckpt_path against the in-memory trained model's decode, WER, and the
+    card-vs-CPU checks: prefill logits and projector gradients at W_LAYERS
+    LLM and encoder layers, and the whole WavLM-large, hubert-large and
+    emotion2vec-base encoders on two ragged utterances."""
+    global _synth_tokenizer_dir
+    import shutil
+
+    from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
+    from slam_llm_tpu_torch.models.wavlm import WAVLM_PRESETS, WavLMEncoder
+    from slam_llm_tpu_torch.pipeline import finetune, inference_batch
+    from slam_llm_tpu_torch.pipeline.common import init_params_
+    from slam_llm_tpu_torch.pipeline.inference_batch import decode_loader
+    from slam_llm_tpu_torch.tools import synth_checkpoint as synth
+    from slam_llm_tpu_torch.utils.checkpoint import load_trainable
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_wavlm_"))
+    t0 = time.perf_counter()
+    enc_bytes = synth.write_wavlm(str(tmp / "wavlm"), WAVLM_PRESETS["wavlm-large"](), seed=1, device="cuda")
+    t1 = time.perf_counter()
+    tok_bytes = synth.write_tokenizer(str(tmp / "tokenizer"), 32000, seed=0)
+    _synth_tokenizer_dir = str(tmp / "tokenizer")
+    tokenizer = load_tokenizer(_synth_tokenizer_dir)
+    log(f"[wavlm] wrote WavLM-large bf16 ({enc_bytes / 1e9:.3f} GB, positional conv as weight_g / weight_v) in "
+        f"{t1 - t0:.2f} s and a 32000-entry Llama tokenizer ({tok_bytes / 1e6:.2f} MB) in {time.perf_counter() - t1:.2f} s")
+    enc_path = f"++model_config.encoder_path={tmp / 'wavlm'}"
+    cfg = _wavlm_config(
+        finetune.load_run_config, enc_path,
+        f"++dataset_config.train_data_path={write_corpus(tmp, n=16 * W_STEPS, name='train')}",
+        f"++dataset_config.val_data_path={write_corpus(tmp, n=8, seed=1, name='val')}",
+        f"++train_config.max_steps_per_epoch={W_STEPS}", "++train_config.log_interval=1",
+        "++train_config.run_validation=false", "++train_config.warmup_steps=2", "++train_config.num_epochs=1",
+        f"++train_config.output_dir={tmp / 'out'}",
+    )
+    mc, dc, tc = cfg.model_config, cfg.dataset_config, cfg.train_config
+    if (mc.encoder_name, mc.encoder_config, mc.encoder_projector, mc.llm_name, dc.input_type, dc.normalize,
+            tc.batch_size_training, tc.freeze_encoder, tc.freeze_llm, tc.use_peft, tc.shard.base_quant,
+            tc.shard.base_quant_bwd) != ("wavlm", "wavlm-large", "linear", "vicuna-7b", "raw", True, 16, True, True,
+                                         False, "int8", "bf16"):
+        raise AssertionError(f"the WavLM recipe changed: {mc} {dc} {tc}")
+    res, launches, stats = _finetune(cfg, "wavlm")
+    trainer = res["trainer"]
+    c = trainer.model.cfg
+    steps = len(res["steps"])
+    log(f"[wavlm] model: WavLM-large ({c.encoder.n_layers} layers, d {c.encoder.d_model}, {c.encoder.n_heads} heads, "
+        f"{c.encoder.num_buckets} buckets) + linear (ds 5) + vicuna-7b ({c.llm.n_layers} layers, int8 base, "
+        f"{c.llm.base_quant_bwd} backward, remat {c.llm.remat_policy}); materialized in {res['load_seconds']:.2f} s; "
+        f"step {stats['step_ms']:.1f} ms, {16 / stats['step_ms'] * 1000:.2f} utt/s, peak memory {stats['peak_gib']:.2f} "
+        f"GiB ({stats['own_peak_gib']:.2f} of its own); per step K1 {launches['flash_attention_fwd'] / steps:.0f} K4 "
+        f"{launches['flash_attention_bwd'] / steps:.0f} K2 {launches['rowquant'] / steps:.0f} K3 "
+        f"{launches['int8_matmul'] / steps:.0f} | {SMI}")
+    if steps != W_STEPS or not res["checkpoints"]:
+        raise AssertionError(f"wavlm: {steps} steps, checkpoints {res['checkpoints']}")
+    if {s["shape"][1] for s in res["steps"]} != set(W_TRAIN_T):
+        raise AssertionError(f"the training batches' T are not the T = {W_TRAIN_T} phase 3 checks the kernels at")
+    if launches["flash_attention_bwd"] != c.llm.n_layers * steps:
+        raise AssertionError(f"K4 launched {launches['flash_attention_bwd']} times in {steps} steps of "
+                             f"{c.llm.n_layers} layers")
+    widths = {"rowquant": set(WIDTHS["rowquant"]), "int8_matmul": set(WIDTHS["int8_matmul"])}
+    log(f"[wavlm] launches by width in the training run: K2 {dict(WIDTHS['rowquant'])} K3 {dict(WIDTHS['int8_matmul'])}")
+    if not all(W_WIDTHS[k] <= widths[k] for k in W_WIDTHS):
+        raise AssertionError(f"K2 / K3 did not launch at vicuna-7b's widths: {widths}")
+    check_projector_trained(trainer, cfg, "wavlm")
+    check_wavlm_loaded(trainer.model, str(tmp / "wavlm"))
+    ckpt = res["checkpoints"][-1]
+    saved = load_trainable(ckpt)
+    if set(saved) != set(trainer.trainable) or not all(torch.equal(saved[n], p.detach().cpu())
+                                                        for n, p in trainer.trainable.items()):
+        raise AssertionError("model.pt differs from the trained projector")
+    train_ds = dataset_of(cfg, tokenizer, cfg.dataset_config.train_split)
+    batch16 = trainer.put_batch(train_ds.collator([train_ds[i] for i in range(48, 64)]))
+    enc_times = wavlm_encoder_times(trainer, batch16)
+    log(f"[wavlm] encoder + projector forward of a training batch {tuple(batch16['audio'].shape)}: "
+        f"{enc_times['encoder_ms']:.2f} ms, {enc_times['encoder_ms'] / stats['step_ms']:.3f} of the step; plain biased "
+        f"attention {enc_times['shape']} (the dense (B, H, T, T) rel-pos bias): {enc_times['attn_ms']:.4f} ms a layer, "
+        f"{enc_times['attn_ms'] * c.encoder.n_layers:.2f} ms over {c.encoder.n_layers} layers; SDPA with the same "
+        f"additive mask {enc_times['sdpa_ms']:.4f} ms | {SMI}")
+    del batch16
+
+    dec = _wavlm_config(
+        inference_batch.load_run_config, enc_path, f"++ckpt_path={ckpt}",
+        f"++dataset_config.val_data_path={write_corpus(tmp, n=16, seed=2, name='test')}",
+        f"++decode_config.decode_log={tmp / 'decode'}", f"++decode_config.max_new_tokens={W_NEW_TOKENS}",
+    )
+    out, dec_launches = run_counted(lambda: inference_batch.main(dec, device="cuda"))
+    test_ds = dataset_of(dec, tokenizer, dec.dataset_config.test_split)
+    batches = list(decode_loader(dec, test_ds))
+    raw_s = sum(float(b["audio_mask"].sum()) for b in batches) / 16000
+    log(f"[wavlm] inference_batch with ckpt_path: {out['n']} utterances in batches of {dec.train_config.val_batch_size}"
+        f" (T {[b['input_ids'].shape[1] for b in batches]}, audio {[b['audio'].shape[1] for b in batches]} samples), "
+        f"beam {dec.decode_config.num_beams}, {W_NEW_TOKENS} new tokens at most; materialized in "
+        f"{out['load_seconds']:.2f} s; decode {out['seconds']:.2f} s, prefill "
+        f"{1000 * out['prefill_s'] / out['calls']:.1f} ms/batch, "
+        f"{1000 * out['decode_s'] / max(out['decode_steps'], 1):.2f} ms/beam step over {out['decode_steps']} steps, "
+        f"{out['generated_tokens']} tokens, RTF {out['rtf']:.4f} ({out['audio_seconds']:.3f} s of audio; the raw "
+        f"audio_mask counts {raw_s:.3f} s); launches {dec_launches} | {SMI}")
+    if abs(raw_s - out["audio_seconds"]) > 1e-6 * raw_s:
+        raise AssertionError(f"RTF audio seconds {out['audio_seconds']} differ from the raw audio_mask's {raw_s}")
+    if {b["input_ids"].shape[1] for b in batches} != set(W_PREFILL_T):
+        raise AssertionError(f"the decode batches' T are not the T = {W_PREFILL_T} phase 3 checks K1 at")
+    preds = Path(out["pred"]).read_text().splitlines()
+    mine = decode_texts(trainer.model, tokenizer, dec)
+    same = sum(a == b for a, b in zip(preds, mine))
+    log(f"[wavlm] decoded text of the entry point vs the in-memory trained model: {same} / {len(mine)} lines identical")
+    print("\n".join(preds[:3]))
+    if len(preds) != 16 or preds != mine:
+        raise AssertionError("the reloaded WavLM model's decode differs from the in-memory trained model's")
+    check_wer(out, "wavlm")
+
+    check_reduced_against_cpu(trainer, cfg, batches[-1], train_ds, "wavlm", W_LAYERS)
+
+    # whole encoders on two ragged utterances (10 s and 4.1 s of one 160,000-sample bucket)
+    two = test_ds.collator([test_ds[15], test_ds[4]])
+    audio, mask = torch.from_numpy(two["audio"]), torch.from_numpy(two["audio_mask"])
+    enc_launches = check_encoder_against_cpu("wavlm-large (the loaded directory)", trainer.model.encoder, audio, mask,
+                                             expect_k1=False)
+    del res, trainer
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for preset in ("hubert-large", "emotion2vec-base"):
+        enc = init_params_(WavLMEncoder(WAVLM_PRESETS[preset](), device="cuda").eval(), gen)
+        got = check_encoder_against_cpu(f"{preset} (random init)", enc, audio, mask, expect_k1=True)
+        enc_launches = {k: enc_launches[k] + got[k] for k in enc_launches}
+        del enc
+    shutil.rmtree(tmp)
+    total = {k: launches[k] + dec_launches[k] + enc_launches[k] for k in launches}
+    missing = [name for name in W_PATH if total[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the WavLM path: {missing}")
+    return total
+
+
 def main() -> int:
-    setup()
+    global SMI
+    SMI = setup()
     build()
     results = check_kernels()
     decode = run_slice()
@@ -1548,7 +1848,9 @@ def main() -> int:
     modes = run_training_modes()
     weights = run_weights()
     st = run_st()
-    paths = {"decode": decode, "train": train, "train_int8_sr": modes, "weights": weights, "st": st}
+    wavlm = run_wavlm()
+    paths = {"decode": decode, "train": train, "train_int8_sr": modes, "weights": weights, "st": st,
+             "wavlm": wavlm}
     for r in results:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())

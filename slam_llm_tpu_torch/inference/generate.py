@@ -22,7 +22,7 @@ import torch
 from slam_llm_tpu_torch.models.llm import init_kv_cache, reorder_cache
 
 NEG_INF = -1.0e9
-_BATCH_KEYS = ("input_ids", "attention_mask", "modality_mask", "audio_mel", "audio_mel_mask")
+_BATCH_KEYS = ("input_ids", "attention_mask", "modality_mask", "audio_mel", "audio_mel_mask", "audio", "audio_mask")
 
 
 @dataclass(frozen=True)

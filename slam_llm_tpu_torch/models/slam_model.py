@@ -1,13 +1,14 @@
-"""The fusion model: Whisper encoder -> projector -> embedding splice -> LLM.
+"""The fusion model: audio encoder -> projector -> embedding splice -> LLM.
 
 Counterpart of ``slam_llm_tpu/models/slam_model.py`` with the same batch
-contract (``audio_mel``/``audio_mel_mask``, ``input_ids`` with -1 on audio
-pseudo-tokens, ``attention_mask``, ``modality_mask``, ``labels`` with -100
-on ignored positions). ``forward`` returns the loss and next-token accuracy
-of the training step; a frozen encoder runs without autograd. Only the
-Whisper encoder is ported (the other encoders raise
-``NotImplementedError``); the projector is linear, cov1d-linear or
-q-former.
+contract (``audio_mel``/``audio_mel_mask`` for whisper, ``audio``/``audio_mask``
+for the raw-waveform encoders, ``input_ids`` with -1 on audio pseudo-tokens,
+``attention_mask``, ``modality_mask``, ``labels`` with -100 on ignored
+positions). ``forward`` returns the loss and next-token accuracy of the
+training step; a frozen encoder runs without autograd. The ported encoders
+are whisper and the WavLM family (``wavlm``, ``hubert``, ``emotion2vec``);
+the others raise ``NotImplementedError``. The projector is linear,
+cov1d-linear or q-former.
 """
 
 from __future__ import annotations
@@ -22,19 +23,21 @@ from torch import nn
 
 from slam_llm_tpu_torch.models.llm import CausalLM, KVCache, LLMConfig
 from slam_llm_tpu_torch.models.projector import ProjectorConfig, build_projector
+from slam_llm_tpu_torch.models.wavlm import WAVLM_PRESETS, WavLMEncoder
 from slam_llm_tpu_torch.models.whisper import PRESETS as WHISPER_PRESETS
 from slam_llm_tpu_torch.models.whisper import WhisperEncoder
 from slam_llm_tpu_torch.ops.quant import check_bwd_mode
 
 IGNORE_INDEX = -100
 _TODO_ENCODERS = "ROADMAP: port the other encoders and recipes"
+RAW_ENCODERS = ("wavlm", "hubert", "emotion2vec")  # read the raw waveform
 
 
 @dataclass(frozen=True)
 class SLAMConfig:
     llm: LLMConfig = field(default_factory=LLMConfig.tiny_test)
-    encoder_name: Optional[str] = "whisper"
-    encoder: Any = None  # WhisperEncoderConfig
+    encoder_name: Optional[str] = "whisper"  # whisper | wavlm | hubert | emotion2vec | None
+    encoder: Any = None  # WhisperEncoderConfig or WavLMConfig
     projector: str = "linear"
     projector_cfg: ProjectorConfig = field(default_factory=ProjectorConfig)
     freeze_encoder: bool = True
@@ -82,6 +85,8 @@ class SLAMModel(nn.Module):
         self.cfg = cfg
         if cfg.encoder_name == "whisper":
             self.encoder = WhisperEncoder(cfg.encoder, device)
+        elif cfg.encoder_name in RAW_ENCODERS:
+            self.encoder = WavLMEncoder(cfg.encoder, device)
         elif cfg.encoder_name is None:
             self.encoder = None
         else:
@@ -94,7 +99,10 @@ class SLAMModel(nn.Module):
         runs under ``no_grad``: nothing upstream of the projector trains."""
         frozen = contextlib.nullcontext() if not self.cfg.freeze_encoder else torch.no_grad()
         with frozen:
-            enc, enc_mask = self.encoder(batch["audio_mel"], batch.get("audio_mel_mask"))
+            if self.cfg.encoder_name in RAW_ENCODERS:
+                enc, enc_mask = self.encoder(batch["audio"], batch.get("audio_mask"))
+            else:
+                enc, enc_mask = self.encoder(batch["audio_mel"], batch.get("audio_mel_mask"))
         if self.cfg.projector == "q-former":
             # every query slot stays attendable, as in the reference: the
             # queries cross-attend the masked encoder states
@@ -139,6 +147,10 @@ def build_slam_config(train_config, model_config) -> SLAMConfig:
     mc, tc = model_config, train_config
     if mc.encoder_name == "whisper":
         enc_cfg = WHISPER_PRESETS[mc.encoder_config or "whisper-tiny"]()
+        encoder_dim = enc_cfg.d_model
+    elif mc.encoder_name in RAW_ENCODERS:
+        preset = mc.encoder_config or ("emotion2vec-base" if mc.encoder_name == "emotion2vec" else "wavlm-base")
+        enc_cfg = WAVLM_PRESETS[preset]()
         encoder_dim = enc_cfg.d_model
     elif mc.encoder_name is None:
         enc_cfg, encoder_dim = None, mc.encoder_dim

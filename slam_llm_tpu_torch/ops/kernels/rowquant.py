@@ -22,6 +22,8 @@ shape.
   counted on ``rowquant_fold.launches``. ``fold`` with ``rotate`` raises, as
   in the reference (the two would order the column mixing differently).
 
+Each wrapper also counts its launches by row width in ``.widths``.
+
 The TPU draws ``u`` from its own generator, which nothing else reproduces.
 Here ``u`` comes from Philox4x32-10 keyed by ``(seed, 0)`` with counter
 ``(col // 4, row mod 2**32, row // 2**32, 0)``, word ``col % 4``, low 24
@@ -32,6 +34,7 @@ bit; against JAX the stochastic rounding is tested by its statistics.
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
 from typing import NamedTuple, Optional, Tuple
@@ -314,10 +317,12 @@ def rowquant(
     _check_kernel_input(x, 8)
     out = _launch(x, None, None, False)
     rowquant.launches += 1
+    rowquant.widths[x.shape[-1]] += 1
     return out
 
 
 rowquant.launches = 0
+rowquant.widths = collections.Counter()  # launches by row width K
 
 
 def rowquant_rot_sr(
@@ -333,10 +338,12 @@ def rowquant_rot_sr(
     _check_kernel_input(x, ROT_BLOCK if rotate else 8)
     out = _launch(x, None, seed, rotate)
     rowquant_rot_sr.launches += 1
+    rowquant_rot_sr.widths[x.shape[-1]] += 1
     return out
 
 
 rowquant_rot_sr.launches = 0
+rowquant_rot_sr.widths = collections.Counter()  # launches by row width K
 
 
 def rowquant_fold(
@@ -355,7 +362,9 @@ def rowquant_fold(
                          f"on {x.device}, got {fold.dtype}{tuple(fold.shape)} on {fold.device}")
     out = _launch(x, fold, seed, False)
     rowquant_fold.launches += 1
+    rowquant_fold.widths[k] += 1
     return out
 
 
 rowquant_fold.launches = 0
+rowquant_fold.widths = collections.Counter()  # launches by row width K

@@ -37,11 +37,13 @@ its epilogue ``acc * s_dy * 1.0`` equals the reference's ``acc * s_dy``.
 f32 output through ``int8_matmul_f32``, counted on its own); it raises on
 what the kernel does not take. ``plan_int8_matmul`` picks the kernel's code
 path (wgmma at M >= 128, split-K below), its tile and its K splits; each
-path counts its launches in ``K3_PATHS``.
+path counts its launches in ``K3_PATHS``, and each wrapper its launches by
+``(K, F)`` in ``.widths``.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -319,10 +321,12 @@ def int8_matmul(
         return int8_matmul_f32(x_q, w_q, x_s, w_scale, plan)
     out = _int8_matmul_launch(x_q, w_q, x_s, w_scale, out_dtype, plan)
     int8_matmul.launches += 1
+    int8_matmul.widths[tuple(reversed(w_q.shape))] += 1
     return out
 
 
 int8_matmul.launches = 0
+int8_matmul.widths = collections.Counter()  # launches by (K, F)
 
 
 def int8_matmul_f32(
@@ -334,10 +338,12 @@ def int8_matmul_f32(
         return int8_matmul_ref(x_q, w_q, x_s, w_scale, torch.float32)
     out = _int8_matmul_launch(x_q, w_q, x_s, w_scale, torch.float32, plan)
     int8_matmul_f32.launches += 1
+    int8_matmul_f32.widths[tuple(reversed(w_q.shape))] += 1
     return out
 
 
 int8_matmul_f32.launches = 0
+int8_matmul_f32.widths = collections.Counter()  # launches by (K, F)
 
 
 @functools.lru_cache(maxsize=None)

@@ -22,6 +22,7 @@ from torch import nn
 from slam_llm_tpu_torch.config import RunConfig
 from slam_llm_tpu_torch.models.layers import DenseGeneralLora
 from slam_llm_tpu_torch.models.projector import ProjectorQFormer
+from slam_llm_tpu_torch.models.wavlm import WavLMEncoder
 from slam_llm_tpu_torch.ops.quant import quantize_int8
 from slam_llm_tpu_torch.registry import get_custom_dataset_factory, get_custom_model_factory
 from slam_llm_tpu_torch.utils.checkpoint import load_trainable_into
@@ -69,8 +70,9 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random init in place, drawn on the generator's device, following the
     reference's initializers: dense and conv kernels normal with std
     1/sqrt(fan_in), biases 0, LoRA A normal with std 1/r and B zero,
-    embeddings and the Q-Former's queries standard normal, norms 1 / 0. An
-    int8 base is the quantization of such a kernel."""
+    embeddings and the Q-Former's queries standard normal, WavLM's
+    relative-position table normal with std 0.02, norms (and WavLM's gate
+    constants) 1 / 0. An int8 base is the quantization of such a kernel."""
 
     def normal(shape, std):
         return torch.randn(shape, generator=generator, device=generator.device) * std
@@ -90,13 +92,16 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 mod.lora_a.copy_(normal(mod.lora_a.shape, 1.0 / mod.lora_rank))
                 mod.lora_b.zero_()
         elif isinstance(mod, nn.Conv1d):
-            fan_in = mod.in_channels * mod.kernel_size[0]
+            fan_in = mod.weight.shape[1] * mod.kernel_size[0]  # input channels per group x taps
             mod.weight.copy_(normal(mod.weight.shape, 1.0 / math.sqrt(fan_in)))
-            mod.bias.zero_()
+            if mod.bias is not None:
+                mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):
             mod.weight.copy_(normal(mod.weight.shape, 1.0))
         elif isinstance(mod, ProjectorQFormer):
             mod.query.copy_(normal(mod.query.shape, 1.0))
+        elif isinstance(mod, WavLMEncoder) and mod.rel_attn_embed is not None:
+            mod.rel_attn_embed.copy_(normal(mod.rel_attn_embed.shape, 0.02))
     return model
 
 

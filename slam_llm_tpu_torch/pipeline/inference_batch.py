@@ -66,6 +66,19 @@ def generation_config(cfg: RunConfig, tokenizer) -> GenerationConfig:
     )
 
 
+def batch_audio_seconds(batch) -> float:
+    """Seconds of audio in a batch, for the RTF: the collator's true
+    (pre-pad) durations where it summed them, else the valid frames of the
+    mel mask (10 ms hop) or of the raw waveform's mask (16 kHz)."""
+    if "audio_seconds" in batch:
+        return float(batch["audio_seconds"])
+    if "audio_mel_mask" in batch:
+        return float(batch["audio_mel_mask"].sum()) * 0.01
+    if "audio_mask" in batch:
+        return float(batch["audio_mask"].sum()) / 16000.0
+    return 0.0
+
+
 def main(cfg: RunConfig, device="cuda"):
     """Decode the test split; returns counts, timings and the log paths."""
     dev = resolve_device(device)
@@ -105,10 +118,7 @@ def main(cfg: RunConfig, device="cuda"):
                     f_pred.write(f"{key}\t{tokenizer.decode(tokens[i * nrs + j])}\n")
                 f_gt.write(f"{key}\t{target}\n")
                 n += 1
-            if "audio_seconds" in batch:
-                audio_s += float(batch["audio_seconds"])
-            elif "audio_mel_mask" in batch:
-                audio_s += float(batch["audio_mel_mask"].sum()) * 0.01  # 10 ms hop
+            audio_s += batch_audio_seconds(batch)
     rtf = t_total / audio_s if audio_s else float("nan")
     logger.info("decoded %d utts in %.1fs (RTF=%.4f) on %s -> %s (weights materialized in %.2f s)",
                 n, t_total, rtf, dev, pred_path, load_s)

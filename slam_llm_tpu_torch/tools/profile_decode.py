@@ -2,13 +2,15 @@
 under ``torch.profiler``, the unprofiled decode step, and the host cost of one
 K2 / K3 wrapper call beside its device time.
 
-    python -m slam_llm_tpu_torch.tools.profile_decode    # from the repo root, on a GPU
+    python -m slam_llm_tpu_torch.tools.profile_decode [--recipe st | wavlm]   # from the repo root, on a GPU
 
 Builds the recipe of ``chip_smoke.py`` (asr_whisper_tinyllama.yaml, full width,
-random weights from the recipe's seed) on its synthetic corpus, takes the
-first batch of 8, and prints for each profiled region its wall time, the summed
-device-kernel time, their ratio (the busy share) and the top kernels by device
-time. The full ``key_averages`` tables go to ``chiprun_out/profile_*.txt``.
+random weights from the recipe's seed; or, with ``--recipe``, phase 8's or
+phase 9's recipe, as ``tools/profile_train.py`` builds them) on its
+synthetic corpus, takes the first batch of 8, and prints for each profiled
+region its wall time, the summed device-kernel time, their ratio (the busy
+share) and the top kernels by device time. The full ``key_averages`` tables
+go to ``chiprun_out/profile_*.txt``.
 """
 
 from __future__ import annotations
@@ -82,24 +84,20 @@ def wrapper_cost(calls: int = 500) -> None:
               f"device {a.elapsed_time(b) * 1000 / 50:.1f} us/call", flush=True)
 
 
-def main() -> None:
+def main(argv=()) -> None:
     import chip_smoke as cs
-    from slam_llm_tpu_torch.inference.generate import GenerationConfig, Generator
+    from slam_llm_tpu_torch.inference.generate import _BATCH_KEYS, GenerationConfig, Generator
     from slam_llm_tpu_torch.models.llm import init_kv_cache
-    from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
-    from slam_llm_tpu_torch.pipeline.inference_batch import decode_loader, load_run_config
+    from slam_llm_tpu_torch.pipeline.inference_batch import decode_loader
+    from slam_llm_tpu_torch.tools.profile_train import build_recipe, split_recipe
 
+    recipe, overrides = split_recipe(argv)
     smi = cs.setup()
     cs.build()
     tmp = Path(tempfile.mkdtemp(prefix="profile_decode_"))
-    manifest = cs.write_corpus(tmp)
-    cfg = load_run_config(["--config", str(cs.RECIPE), f"++dataset_config.val_data_path={manifest}",
-                           f"++decode_config.decode_log={tmp / 'decode'}"])
-    cfg.dataset_config.inference_mode = True
-    model, tok, dataset = build_model_and_data(cfg, split=cfg.dataset_config.test_split, device="cuda")
-    materialize_params(model.eval(), cfg)
-    keys = ("input_ids", "attention_mask", "modality_mask", "audio_mel", "audio_mel_mask")
-    batch = {k: v for k, v in next(iter(decode_loader(cfg, dataset))).items() if k in keys}
+    cfg, model, tok, dataset, _ = build_recipe(recipe, overrides, tmp, split="test")
+    model.eval()
+    batch = {k: v for k, v in next(iter(decode_loader(cfg, dataset))).items() if k in _BATCH_KEYS}
 
     gen = Generator(model, GenerationConfig(max_new_tokens=24, num_beams=4, eos_token_id=tok.eos_token_id,
                                             pad_token_id=tok.pad_token_id))
@@ -137,4 +135,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    main(sys.argv[1:])

@@ -2,7 +2,7 @@
 ``torch.profiler``, its device time split by kernel family, the unprofiled
 step time, and the fused cross-entropy alone.
 
-    python -m slam_llm_tpu_torch.tools.profile_train [--recipe st] [++key=value ...]   # from the repo root, on a GPU
+    python -m slam_llm_tpu_torch.tools.profile_train [--recipe st | wavlm] [++key=value ...]   # from the repo root, on a GPU
 
 Builds the recipe of ``chip_smoke.py`` (asr_whisper_tinyllama.yaml, full
 width, random weights from the recipe's seed: frozen whisper-small, trained
@@ -11,14 +11,20 @@ backward, remat with dots_flash_saveable; ``++`` overrides as the finetune
 CLI takes them, e.g. ``++train_config.shard.base_quant_bwd=int8_sr``) on its
 synthetic corpus, or with ``--recipe st`` phase 8's speech-translation
 recipe (st_whisper_qwen.yaml: frozen whisper-large-v3 and Qwen2-7B, the
-trained Q-Former, its synthetic qwen2 tokenizer and corpus), takes the first
-training batch of the recipe's size, runs warm-up steps, then profiles one
-step. Kernel families: K3 the s8
-GEMM, K4 the flash backward, K1 the flash forward, K2 rowquant (both
-kernels), cuBLAS GEMMs (encoder, LoRA, head), and the rest (elementwise,
-reductions, copies: the glue). The full ``key_averages`` tables go to
-``profile_train_step.txt`` and ``profile_fused_ce.txt`` in the output
-directory of ``tools/profile_decode.py``.
+trained Q-Former, its synthetic qwen2 tokenizer and corpus), or with
+``--recipe wavlm`` phase 9's asr_wavlm_vicuna.yaml (frozen WavLM-large and
+vicuna-7b in the int8 base with the bf16 backward, the trained linear
+projector, a synthetic 32000-entry Llama tokenizer; seeded random weights),
+takes the first training batch of the recipe's size, runs warm-up steps,
+then profiles one step. Kernel families: K3 the s8 GEMM, K4 the flash
+backward, K1 the flash forward, K2 rowquant (both kernels), cuBLAS GEMMs
+(encoder, LoRA, head), and the rest (elementwise, reductions, copies: the
+glue). ``--recipe wavlm`` adds the frozen encoder's forward alone, split the
+same way, and the plain biased attention of its layers (the dense
+(B, H, T, T) rel-pos bias, which no kernel takes) as a row of its own. The
+full ``key_averages`` tables go to ``profile_train_step.txt`` and
+``profile_fused_ce.txt`` in the output directory of
+``tools/profile_decode.py``.
 """
 
 from __future__ import annotations
@@ -53,32 +59,62 @@ def split_by_family(prof) -> dict:
     return dict(out)
 
 
-def main(overrides=(), steps: int = 3) -> None:
+RECIPES = ("asr", "st", "wavlm")
+
+
+def split_recipe(argv) -> tuple:
+    """``--recipe <name>`` (default ``asr``) off the front of an argument list."""
+    argv = list(argv)
+    if argv[:1] == ["--recipe"]:
+        if len(argv) < 2 or argv[1] not in RECIPES:
+            raise SystemExit(f"--recipe takes one of {RECIPES}")
+        return argv[1], argv[2:]
+    return "asr", argv
+
+
+def build_recipe(recipe: str, overrides, tmp: Path, device="cuda", split: str = "train"):
+    """The recipe's run config, model (materialized) and dataset of
+    ``split`` on ``device``, with the synthetic corpus and tokenizer
+    ``chip_smoke.py`` uses for it written under ``tmp``."""
     import chip_smoke as cs
-    from slam_llm_tpu_torch.ops.fused_ce import fused_linear_ce
     from slam_llm_tpu_torch.pipeline import finetune
     from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
-    from slam_llm_tpu_torch.tools.synth_checkpoint import QWEN2_BPE, write_qwen2_tokenizer
+    from slam_llm_tpu_torch.tools.synth_checkpoint import QWEN2_BPE, write_qwen2_tokenizer, write_tokenizer
+
+    factory = "++model_config.file=chip_smoke:synth_tokenizer_factory"
+    targets = None
+    if recipe == "st":
+        write_qwen2_tokenizer(str(tmp / "qwen2"), QWEN2_BPE, corpus=cs.ST_TARGETS)
+        cs._synth_tokenizer_dir = str(tmp / "qwen2")
+        head, targets = ["--config", str(cs.ST_RECIPE), factory], cs.ST_TARGETS
+    elif recipe == "wavlm":
+        write_tokenizer(str(tmp / "tokenizer"), 32000)
+        cs._synth_tokenizer_dir = str(tmp / "tokenizer")
+        head = ["--config", str(cs.W_RECIPE), factory]
+    else:
+        head = ["--config", str(cs.RECIPE)]
+    n = finetune.load_run_config(head + list(overrides)).train_config.batch_size_training
+    corpus = cs.write_corpus(tmp, n=n, name=split, targets=targets)
+    cfg = finetune.load_run_config(head + [f"++dataset_config.train_data_path={corpus}",
+                                           f"++dataset_config.val_data_path={corpus}", *overrides])
+    if split != "train":
+        cfg.dataset_config.inference_mode = True
+    model, tokenizer, dataset = build_model_and_data(cfg, split=getattr(cfg.dataset_config, f"{split}_split"),
+                                                     device=device)
+    materialize_params(model, cfg)
+    return cfg, model, tokenizer, dataset, n
+
+
+def main(argv=(), steps: int = 3) -> None:
+    import chip_smoke as cs
+    from slam_llm_tpu_torch.ops.fused_ce import fused_linear_ce
     from slam_llm_tpu_torch.train.state import Trainer
 
-    overrides = list(overrides)
-    st = overrides[:2] == ["--recipe", "st"]
-    if st:
-        overrides = overrides[2:]
+    recipe, overrides = split_recipe(argv)
     smi = cs.setup()
     cs.build()
     tmp = Path(tempfile.mkdtemp(prefix="profile_train_"))
-    if st:
-        write_qwen2_tokenizer(str(tmp / "qwen2"), QWEN2_BPE, corpus=cs.ST_TARGETS)
-        cs._st_tokenizer_dir = str(tmp / "qwen2")
-        head = ["--config", str(cs.ST_RECIPE), "++model_config.file=chip_smoke:st_model_factory"]
-    else:
-        head = ["--config", str(cs.RECIPE)]
-    n = finetune.load_run_config(head + overrides).train_config.batch_size_training
-    corpus = cs.write_corpus(tmp, n=n, name="train", targets=cs.ST_TARGETS if st else None)
-    cfg = finetune.load_run_config(head + [f"++dataset_config.train_data_path={corpus}", *overrides])
-    model, _, dataset = build_model_and_data(cfg, split=cfg.dataset_config.train_split, device="cuda")
-    materialize_params(model, cfg)
+    cfg, model, _, dataset, n = build_recipe(recipe, overrides, tmp)
     trainer = Trainer(model, model.cfg, cfg.train_config).state_from_params()
     batch = trainer.put_batch(dataset.collator([dataset[i] for i in range(n)]))
     print(f"batch {tuple(batch['input_ids'].shape)}, {int(batch['attention_mask'].sum())} attended tokens", flush=True)
@@ -89,7 +125,8 @@ def main(overrides=(), steps: int = 3) -> None:
     for _ in range(steps):
         m = trainer.train_step(batch)
     float(m["loss"])
-    print(f"unprofiled step {1000 * (time.perf_counter() - t0) / steps:.1f} ms (mean of {steps}), "
+    step_ms = 1000 * (time.perf_counter() - t0) / steps
+    print(f"unprofiled step {step_ms:.1f} ms (mean of {steps}), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
     counters = {n: c for n, c in cs.kernel_counters().items() if n in cs.K2_KERNELS}
@@ -105,6 +142,8 @@ def main(overrides=(), steps: int = 3) -> None:
     for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
         print(f"  {fam:45s} {ms:9.2f} ms  {100 * ms / total:5.1f} %", flush=True)
     print(f"K2 launches in the profiled step: { {n: c.launches - before[n] for n, c in counters.items()} }", flush=True)
+    if recipe == "wavlm":
+        encoder_rows(trainer, batch, step_ms)
 
     # the fused CE alone, at the step's shape (hidden of the trunk, frozen head)
     b, t = batch["input_ids"].shape
@@ -121,6 +160,30 @@ def main(overrides=(), steps: int = 3) -> None:
         wall = time.perf_counter() - t0
     report(prof, wall, "fused_ce")
     print(smi)
+
+
+def encoder_rows(trainer, batch, step_ms: float) -> None:
+    """The frozen encoder's forward (and the projector's) alone, split by
+    kernel family, and the plain biased attention of one of its layers by
+    CUDA-graph replay, times the layers, as rows of their own."""
+    import chip_smoke as cs
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.model.encode(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report(prof, wall, "encoder_forward")
+    fams = split_by_family(prof)
+    times = cs.wavlm_encoder_times(trainer, batch)
+    layers = trainer.model.encoder.cfg.n_layers
+    print(f"encoder + projector forward: {times['encoder_ms']:.2f} ms by CUDA events, "
+          f"{times['encoder_ms'] / step_ms:.3f} of the unprofiled step", flush=True)
+    for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
+        print(f"  encoder {fam:37s} {ms:9.2f} ms", flush=True)
+    print(f"  plain biased attention {times['shape']}: {times['attn_ms']:.4f} ms a layer, "
+          f"{times['attn_ms'] * layers:.2f} ms over {layers} layers (SDPA with the same additive mask "
+          f"{times['sdpa_ms']:.4f} ms a layer)", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,13 @@
 """Seeded random checkpoints in the published HF layouts, at any width.
 
     python -m slam_llm_tpu_torch.tools.synth_checkpoint <out dir> \\
-        [--llm tinyllama-1.1b | vicuna-7b | qwen2-7b | tiny-test] \\
-        [--encoder whisper-small | whisper-large-v3 | ...] [--seed 0] [--device cpu]
+        [--llm tinyllama-1.1b | vicuna-7b | qwen2-7b | none] \\
+        [--encoder whisper-small | whisper-large-v3 | wavlm-large | hubert-large | ...] [--seed 0] [--device cpu]
 
-writes ``<out dir>/llm`` and ``<out dir>/whisper`` with the port's own
-safetensors writer (``utils.safetensors_io``), for runs that need pretrained-
-shaped weights where the real ones are not at hand:
+writes ``<out dir>/llm`` (unless ``--llm none``) and ``<out dir>/whisper``
+(or, for a WavLM-family preset, ``<out dir>/wavlm``) with the port's own safetensors writer
+(``utils.safetensors_io``), for runs that need pretrained-shaped weights
+where the real ones are not at hand:
 
 * ``write_llama``: an HF Llama (or, with q/k/v biases, Qwen2) directory:
   ``config.json``, the weights in bf16 over two shards
@@ -27,7 +28,12 @@ shaped weights where the real ones are not at hand:
 * ``write_whisper``: an HF whisper directory: ``config.json`` and
   ``model.safetensors`` (bf16) with the encoder under ``model.encoder.``, its
   sinusoidal ``embed_positions``, and a few decoder tensors, as a
-  ``WhisperForConditionalGeneration`` checkpoint carries them.
+  ``WhisperForConditionalGeneration`` checkpoint carries them;
+* ``write_wavlm``: an HF ``WavLMModel`` (with the relative-position bias) or
+  ``HubertModel`` (without) directory: ``config.json`` and
+  ``model.safetensors`` (bf16), the positional conv stored under weight norm
+  as ``weight_g`` / ``weight_v``, ``rel_attn_embed`` in layer 0 alone, as
+  HF's checkpoints hold them.
 
 Linear weights are normal with std 1/sqrt(fan_in), embeddings with std 1,
 norm scales 1 + N(0, 0.05^2), biases N(0, 0.02^2). Each ``write_*`` returns
@@ -270,6 +276,68 @@ def write_whisper(out_dir: str, cfg, seed: int = 0, device="cpu", decoder_vocab:
     return written + _write_json(out_dir, "config.json", config)
 
 
+def write_wavlm(out_dir: str, cfg, seed: int = 0, device="cpu") -> int:
+    """An HF WavLM / HuBERT directory for ``cfg`` (the port's ``WavLMConfig``)."""
+    d = _Draw(seed, device)
+    dm, hd, k = cfg.d_model, cfg.d_model // cfg.n_heads, cfg.conv_pos
+    fe = "feature_extractor.conv_layers."
+    sd: Dict[str, torch.Tensor] = {}
+    c_in = 1
+    for i, (dim, width) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel)):
+        sd[f"{fe}{i}.conv.weight"] = d.normal((dim, c_in, width), 1.0 / math.sqrt(c_in * width))
+        if cfg.feat_extract_norm == "layer" or i == 0:  # "group": a GroupNorm after conv 0 alone
+            sd[f"{fe}{i}.layer_norm.weight"] = d.normal((dim,), 0.05, 1.0)
+            sd[f"{fe}{i}.layer_norm.bias"] = d.normal((dim,), 0.02)
+        c_in = dim
+    sd["feature_projection.layer_norm.weight"] = d.normal((c_in,), 0.05, 1.0)
+    sd["feature_projection.layer_norm.bias"] = d.normal((c_in,), 0.02)
+    sd["feature_projection.projection.weight"] = d.linear(dm, c_in)
+    sd["feature_projection.projection.bias"] = d.normal((dm,), 0.02)
+    # weight norm over every axis but the taps: w = g * v / ||v||
+    per_group = dm // cfg.conv_pos_groups
+    v = d.normal((dm, per_group, k), 1.0 / math.sqrt(per_group * k))
+    norm = v.float().square().sum(dim=(0, 1), keepdim=True).sqrt()
+    sd["encoder.pos_conv_embed.conv.weight_v"] = v
+    sd["encoder.pos_conv_embed.conv.weight_g"] = (norm * (1.0 + 0.05 * d.normal((1, 1, k), 1.0).float())).to(DTYPE)
+    sd["encoder.pos_conv_embed.conv.bias"] = d.normal((dm,), 0.02)
+    sd["encoder.layer_norm.weight"] = d.normal((dm,), 0.05, 1.0)
+    sd["encoder.layer_norm.bias"] = d.normal((dm,), 0.02)
+    sd["masked_spec_embed"] = d.normal((dm,), 1.0)
+    for i in range(cfg.n_layers):
+        p = f"encoder.layers.{i}."
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd[f"{p}attention.{name}.weight"] = d.linear(dm, dm)
+            sd[f"{p}attention.{name}.bias"] = d.normal((dm,), 0.02)
+        if cfg.rel_bias:
+            sd[p + "attention.gru_rel_pos_linear.weight"] = d.linear(8, hd)
+            sd[p + "attention.gru_rel_pos_linear.bias"] = d.normal((8,), 0.02)
+            sd[p + "attention.gru_rel_pos_const"] = d.normal((1, cfg.n_heads, 1, 1), 0.05, 1.0)
+            if i == 0:
+                sd[p + "attention.rel_attn_embed.weight"] = d.normal((cfg.num_buckets, cfg.n_heads), 0.02)
+        for ln in ("layer_norm", "final_layer_norm"):
+            sd[f"{p}{ln}.weight"] = d.normal((dm,), 0.05, 1.0)
+            sd[f"{p}{ln}.bias"] = d.normal((dm,), 0.02)
+        sd[p + "feed_forward.intermediate_dense.weight"] = d.linear(cfg.ffn_dim, dm)
+        sd[p + "feed_forward.intermediate_dense.bias"] = d.normal((cfg.ffn_dim,), 0.02)
+        sd[p + "feed_forward.output_dense.weight"] = d.linear(dm, cfg.ffn_dim)
+        sd[p + "feed_forward.output_dense.bias"] = d.normal((dm,), 0.02)
+    kind = "wavlm" if cfg.rel_bias else "hubert"
+    config = {
+        "architectures": ["WavLMModel" if cfg.rel_bias else "HubertModel"], "model_type": kind,
+        "hidden_size": dm, "num_hidden_layers": cfg.n_layers, "num_attention_heads": cfg.n_heads,
+        "intermediate_size": cfg.ffn_dim, "hidden_act": "gelu", "conv_dim": list(cfg.conv_dim),
+        "conv_kernel": list(cfg.conv_kernel), "conv_stride": list(cfg.conv_stride), "conv_bias": False,
+        "feat_extract_norm": cfg.feat_extract_norm, "feat_extract_activation": "gelu",
+        "do_stable_layer_norm": cfg.do_stable_layer_norm, "num_conv_pos_embeddings": k,
+        "num_conv_pos_embedding_groups": cfg.conv_pos_groups, "layer_norm_eps": cfg.layer_norm_eps,
+        "hidden_dropout": 0.0, "attention_dropout": 0.0, "activation_dropout": 0.0, "feat_proj_dropout": 0.0,
+        "layerdrop": 0.0, "torch_dtype": "bfloat16",
+        **({"num_buckets": cfg.num_buckets, "max_bucket_distance": cfg.max_distance} if cfg.rel_bias else {}),
+    }
+    written = save_file(sd, os.path.join(out_dir, "model.safetensors"), metadata={"format": "pt"})
+    return written + _write_json(out_dir, "config.json", config)
+
+
 def _write_json(out_dir: str, name: str, obj) -> int:
     os.makedirs(out_dir, exist_ok=True)
     data = json.dumps(obj, indent=1, ensure_ascii=False).encode("utf-8")
@@ -282,24 +350,30 @@ def main(argv=None) -> dict:
     import argparse
 
     from slam_llm_tpu_torch.models.llm import LLMConfig
+    from slam_llm_tpu_torch.models.wavlm import WAVLM_PRESETS
     from slam_llm_tpu_torch.models.whisper import PRESETS as WHISPER_PRESETS
 
     llms = {"tinyllama-1.1b": LLMConfig.tinyllama_1_1b, "vicuna-7b": LLMConfig.vicuna_7b,
             "qwen2-7b": LLMConfig.qwen2_7b, "tiny-test": LLMConfig.tiny_test}
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("out")
-    ap.add_argument("--llm", default="tinyllama-1.1b", choices=sorted(llms))
-    ap.add_argument("--encoder", default="whisper-small", choices=sorted(WHISPER_PRESETS))
+    ap.add_argument("--llm", default="tinyllama-1.1b", choices=sorted(llms) + ["none"])
+    ap.add_argument("--encoder", default="whisper-small", choices=sorted({**WHISPER_PRESETS, **WAVLM_PRESETS}))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cpu")
     args = ap.parse_args(argv)
-    llm_cfg, enc_cfg = llms[args.llm](), WHISPER_PRESETS[args.encoder]()
-    llm_dir, enc_dir = os.path.join(args.out, "llm"), os.path.join(args.out, "whisper")
-    tokenizer = (write_qwen2_tokenizer(llm_dir, QWEN2_BPE, args.seed) if args.llm == "qwen2-7b"
-                 else write_tokenizer(llm_dir, llm_cfg.vocab_size, args.seed))
-    sizes = {"llm": write_llama(llm_dir, llm_cfg, args.seed, args.device) + tokenizer,
-             "whisper": write_whisper(enc_dir, enc_cfg, args.seed + 1, args.device)}
-    print(json.dumps({"llm_path": llm_dir, "encoder_path": enc_dir, "bytes": sizes}))
+    whisper = args.encoder in WHISPER_PRESETS
+    llm_dir, enc_dir = os.path.join(args.out, "llm"), os.path.join(args.out, "whisper" if whisper else "wavlm")
+    sizes = {}
+    if args.llm != "none":
+        llm_cfg = llms[args.llm]()
+        tokenizer = (write_qwen2_tokenizer(llm_dir, QWEN2_BPE, args.seed) if args.llm == "qwen2-7b"
+                     else write_tokenizer(llm_dir, llm_cfg.vocab_size, args.seed))
+        sizes["llm"] = write_llama(llm_dir, llm_cfg, args.seed, args.device) + tokenizer
+    write_encoder = write_whisper if whisper else write_wavlm
+    enc_cfg = (WHISPER_PRESETS if whisper else WAVLM_PRESETS)[args.encoder]()
+    sizes["encoder"] = write_encoder(enc_dir, enc_cfg, args.seed + 1, args.device)
+    print(json.dumps({"llm_path": llm_dir if "llm" in sizes else None, "encoder_path": enc_dir, "bytes": sizes}))
     return sizes
 
 

@@ -4,12 +4,15 @@
 nested dicts of numpy arrays, onto this package's ``state_dict`` names:
 
 * the scanned ``layers`` axis is unstacked into ``layers.{i}``, and
-  ``llm.decoder.layers`` becomes ``llm.layers``;
+  ``llm.decoder.layers`` becomes ``llm.layers``; every leaf under it is cut
+  on axis 0, so the WavLM encoder's ``gru_rel_pos_const`` (L, 1, H, 1, 1)
+  becomes each layer's (1, H, 1, 1);
 * dense ``kernel`` (in, out) becomes ``weight`` (out, in), like ``nn.Linear``;
   the int8 ``kernel_q`` (in, out) becomes ``kernel_q`` (out, in), the K-major
   layout the int8 GEMM reads; LoRA ``lora_a`` (in, r) and ``lora_b`` (r, out)
   are transposed the same way;
-* flax ``Conv`` ``kernel`` (k, in, out) becomes ``Conv1d.weight`` (out, in, k);
+* flax ``Conv`` ``kernel`` (k, in / groups, out) becomes ``Conv1d.weight``
+  (out, in / groups, k), and back (``.T`` reverses the three axes);
 * ``Embed.embedding`` (V, D) becomes ``embed_tokens.weight``;
 * the backward-only ``kernel_qr`` / ``kernel_scale_r`` and ``kernel_t`` are
   dropped: the port derives its ``int8_rot`` pair itself

@@ -1,4 +1,4 @@
-"""HF checkpoint -> the port's modules (llama family + whisper encoder).
+"""HF checkpoint -> the port's modules (llama family, whisper, WavLM / HuBERT).
 
 Counterpart of ``slam_llm_tpu/utils/hf_loader.py``. The reference reads an HF
 directory into f32 numpy, stacks every per-layer tensor on a scanned layer
@@ -14,6 +14,10 @@ onto one ``state_dict`` name, with no stack, transpose or second copy:
   prefixes); HF names nothing maps to are ignored, as in the reference:
   whisper's decoder and its learned ``embed_positions`` (the port's encoder
   adds the fixed sinusoid itself), llama's ``rotary_emb.inv_freq``;
+* ``convert_encoder_checkpoint`` dispatches an encoder checkpoint as the
+  reference does: an HF directory to whisper's converter or, for ``wavlm`` /
+  ``hubert``, to ``models.wavlm.convert_wavlm``; a torch file of ``hubert``
+  to ``models.wavlm.convert_hubert_fairseq``;
 * ``overlay_`` copies each tensor into the model's tensor of that name, one
   tensor at a time, converting on the way to the stored dtype and device;
   an fp kernel meeting an int8 base (``kernel_q`` / ``kernel_scale``) is
@@ -33,6 +37,7 @@ from typing import Dict
 import torch
 from torch import nn
 
+from slam_llm_tpu_torch.models.wavlm import convert_hubert_fairseq, convert_wavlm
 from slam_llm_tpu_torch.ops.quant import quantize_int8
 from slam_llm_tpu_torch.utils.safetensors_io import load_file, torch_load_file
 
@@ -101,19 +106,52 @@ def convert_whisper_encoder(sd: Dict[str, torch.Tensor], enc_cfg) -> Dict[str, t
     return out
 
 
+# the file-checkpoint families of the reference's dispatcher that the port has not taken yet
+_UNPORTED_FILE_ENCODERS = ("spatial_ast", "eat", "av_hubert", "beats", "beats_tokenizer", "clap")
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A torch ``.pt`` / ``.pth`` file -> its state dict, unwrapping the
+    fairseq / lightning nests (``{"model": sd}``, ``{"state_dict": sd}``,
+    ``{"module": sd}``). A fairseq checkpoint pickles its config beside the
+    weights, so the file is unpickled whole, as the reference does: load
+    only checkpoints from a source you trust."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    while isinstance(sd, dict):
+        for k in ("model", "state_dict", "module"):
+            if k in sd and isinstance(sd[k], dict):
+                sd = sd[k]
+                break
+        else:
+            break
+    return sd
+
+
 def convert_encoder_checkpoint(encoder_path: str, encoder_name: str, enc_cfg) -> Dict[str, torch.Tensor]:
-    """An encoder checkpoint through its family's converter: whisper reads an
-    HF directory; the other families are not ported yet."""
+    """An encoder checkpoint through its family's converter, dispatched as
+    the reference's: an HF directory serves whisper, wavlm and hubert; a
+    torch file serves hubert (fairseq's schema). Any other directory raises
+    ``ValueError``, as in the reference (which has no directory converter
+    for them, emotion2vec included); a file of a family the reference loads
+    and the port does not yet raises ``NotImplementedError``."""
+    if os.path.isdir(encoder_path):
+        if encoder_name == "whisper":
+            return convert_whisper_encoder(load_hf_state_dict(encoder_path), enc_cfg)
+        if encoder_name in ("wavlm", "hubert"):
+            return convert_wavlm(load_hf_state_dict(encoder_path), enc_cfg)
+        raise ValueError(f"encoder_name={encoder_name!r} cannot load an HF directory ({encoder_path!r}); "
+                         "expected a torch checkpoint file")
     if not os.path.exists(encoder_path):
         # a typo here must not silently train random-init weights
         raise FileNotFoundError(
             f"model_config.encoder_path={encoder_path!r} does not exist (expected an HF dir or a torch checkpoint file)"
         )
-    if encoder_name != "whisper":
+    if encoder_name == "hubert":
+        return convert_hubert_fairseq(load_torch_checkpoint(encoder_path), enc_cfg)
+    if encoder_name in _UNPORTED_FILE_ENCODERS:
         raise NotImplementedError(f"loading a {encoder_name!r} encoder checkpoint is not ported yet ({_TODO_ENCODERS})")
-    if not os.path.isdir(encoder_path):
-        raise ValueError(f"encoder_name='whisper' loads an HF directory, not the file {encoder_path!r}")
-    return convert_whisper_encoder(load_hf_state_dict(encoder_path), enc_cfg)
+    raise ValueError(f"no file-checkpoint converter for encoder {encoder_name!r} ({encoder_path!r}); whisper, wavlm "
+                     "and hubert load HF directories, hubert also a fairseq file")
 
 
 @torch.no_grad()

@@ -84,6 +84,23 @@ def test_flash_kernel_matches_twin(gen, t, h, hkv, d, causal):
     assert bool((out[~live] == 0).all())
 
 
+@pytest.mark.parametrize("h", [16, 12])  # hubert-large, emotion2vec-base
+def test_flash_kernel_at_the_encoder_shapes(gen, h):
+    """K1 at the raw-waveform encoders' attention: T = 499 (a 10 s bucket of
+    160,000 samples), non-causal, key masks right-padded to ragged lengths
+    as ``WavLMEncoder`` builds them; within 2e-2 of the f32 twin, lse within
+    1e-3 on every row."""
+    b, t, d = 4, 499, 64
+    q, k, v = _qkv(b, t, h, h, d, gen)
+    mask = torch.zeros(b, t, dtype=torch.int32, device="cuda")
+    for i, n in enumerate((499, 436, 249, 99)):
+        mask[i, :n] = 1
+    out, lse = tflash.flash_attention_fwd(q, k, v, mask, False)
+    ref, ref_lse = tflash.flash_attention_ref(q.float(), k.float(), v.float(), mask, False)
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
 def test_flash_kernel_strided_cross_attention(gen):
     """Non-causal Tq != Tk on views of fused projections (q from a (B, T, 3,
     H, D) tensor, k / v from a (B, T, 2, Hkv, D) one): the tensor maps take
@@ -173,7 +190,7 @@ def _k2_rows(m, k, gen, scale, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("m", K2_M)
-@pytest.mark.parametrize("k", [2048, 5632, 256, 2056, 104])
+@pytest.mark.parametrize("k", [2048, 5632, 256, 2056, 104, 4096, 11008])  # 4096 / 11008: vicuna-7b's rows
 def test_rowquant_kernel_bit_exact(gen, m, k):
     """bf16 in, bit-exact with the adversarial rows; f32 input and
     K % 8 != 0 are refused."""
@@ -244,6 +261,9 @@ K3_RECIPE += [(8192, 256, 2048), (1024, 32000, 2048), (1024, 2048, 32000)]
 # one utterance's int8 CE head dx (a chunk of 64 rows, K = 32000) and a
 # 33-127 row tile with long K: split counts whose owners hold uneven rows
 K3_RECIPE += [(64, 32000, 2048), (100, 5632, 2048)]
+# vicuna-7b's int8 base (asr_wavlm_vicuna): q / k / v / o, gate / up and down
+# at decode M, prefill M and a training M that is not a multiple of 128
+K3_RECIPE += [(m, kc, n) for m in (8, 32, 4096, 3000) for kc, n in ((4096, 4096), (4096, 11008), (11008, 4096))]
 
 
 @pytest.mark.parametrize("m,k,f", K3_BOUNDARY + K3_RECIPE)
@@ -450,6 +470,16 @@ def test_flash_backward_kernel_matches_twin(gen, b, t, h, hkv, d, causal, rope, 
 def test_flash_backward_kernel_at_the_st_shapes(gen, b, t, h, hkv, d, causal, rope, pad):
     """The same check at the ST recipe's shapes, RoPE at qwen2's theta 1e6."""
     _check_flash_backward(gen, b, t, h, hkv, d, causal, rope, pad, 1e6)
+
+
+@pytest.mark.parametrize("b,t,h,hkv,d,causal,rope,pad", [
+    (2, 449, 32, 32, 128, True, True, "left"),  # vicuna-7b: 32 / 32 heads, head_dim 128
+    (2, 130, 32, 32, 128, True, True, "both"),
+])
+def test_flash_backward_kernel_at_vicuna_shapes(gen, b, t, h, hkv, d, causal, rope, pad):
+    """The same check at vicuna-7b's attention (asr_wavlm_vicuna's training
+    step), RoPE at theta 1e4."""
+    _check_flash_backward(gen, b, t, h, hkv, d, causal, rope, pad, 1e4)
 
 
 def _check_flash_backward(gen, b, t, h, hkv, d, causal, rope, pad, theta):
@@ -850,3 +880,38 @@ def test_bytelevel_tokenizer_runs_on_the_cards_host(gen, tmp_path):
                          timeout=120, check=True, cwd=repo)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {
         "type": "ByteLevelTokenizer", "vocab": 151646, "round_trip": True, "absent": []}
+
+
+# ---- the WavLM recipe: the raw-waveform encoders ----------------------------
+
+
+@pytest.mark.parametrize("rel_bias", [True, False])
+def test_wavlm_encoder_on_card_matches_the_cpu_plain_path(gen, rel_bias):
+    """A narrow WavLM / HuBERT encoder (64-wide heads, the flash kernel's
+    width; pre-LN, the layer-norm extractor) over two ragged waveforms: the
+    card's bf16 output within cosine 0.99 of the CPU plain path on the same
+    weights at every valid frame, the masks equal. With the relative-position
+    bias every layer runs the plain attention (no K1); without it every
+    layer runs K1 once."""
+    from slam_llm_tpu_torch.models.wavlm import WavLMConfig, WavLMEncoder
+    from slam_llm_tpu_torch.pipeline.common import init_params_
+
+    cfg = WavLMConfig(d_model=128, n_heads=2, n_layers=2, ffn_dim=256, conv_dim=(64, 64, 64),
+                      conv_kernel=(10, 3, 2), conv_stride=(5, 2, 2), conv_pos=16, conv_pos_groups=4,
+                      feat_extract_norm="layer", do_stable_layer_norm=True, rel_bias=rel_bias)
+    enc = init_params_(WavLMEncoder(cfg, device="cuda").eval(), gen)
+    audio = torch.randn(2, 16000, generator=gen, device="cuda")
+    mask = torch.ones(2, 16000, dtype=torch.int32, device="cuda")
+    mask[1, 9000:] = 0
+    before = tflash.flash_attention_fwd.launches
+    with torch.no_grad():
+        gpu, gpu_mask = enc(audio, mask)
+        torch.cuda.synchronize()
+        launched = tflash.flash_attention_fwd.launches - before
+        enc.to("cpu")
+        cpu, cpu_mask = enc(audio.cpu(), mask.cpu())
+    assert launched == (0 if rel_bias else cfg.n_layers)
+    assert torch.equal(gpu_mask.cpu(), cpu_mask)
+    live = cpu_mask.bool()
+    cos = torch.nn.functional.cosine_similarity(gpu.float().cpu()[live], cpu.float()[live], dim=-1)
+    assert bool(torch.isfinite(gpu).all()) and cos.min().item() >= 0.99

@@ -229,7 +229,7 @@ def test_unported_parts_raise(tmp_path):
 
     cfg = _tiny_cfg(tmp_path, n=2)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tslam.build_slam_config(cfg.train_config, dataclasses.replace(cfg.model_config, encoder_name="wavlm"))
+        tslam.build_slam_config(cfg.train_config, dataclasses.replace(cfg.model_config, encoder_name="beats"))
     # the q-former and conv1d projectors are ported: they build
     for kind, cls in (("q-former", tproj.ProjectorQFormer), ("cov1d-linear", tproj.ProjectorConv1d)):
         sc = tslam.build_slam_config(cfg.train_config, dataclasses.replace(cfg.model_config, encoder_projector=kind))
@@ -316,9 +316,23 @@ st = finetune.main(tiny_run_config(make_corpus(tmp, n=2), **{
     "train_config.max_steps_per_epoch": 1, "train_config.log_interval": 1, "train_config.run_validation": False,
     "train_config.output_dir": str(tmp / "st")}), device="cpu")
 bleu = eval_werbleu.main(["--pred", res["pred"], "--gt", res["gt"]])
+# the WavLM recipe's pieces: an HF WavLM directory written and read by the
+# port, and a raw-audio decode through it (the published 320x conv stack at
+# tiny widths)
+from slam_llm_tpu_torch.models import wavlm
+from slam_llm_tpu_torch.tools.synth_checkpoint import write_wavlm
+narrow = wavlm.WavLMConfig(d_model=32, n_heads=2, n_layers=1, ffn_dim=64, conv_dim=(8,) * 7, conv_pos=16,
+                           conv_pos_groups=2, num_buckets=32, max_distance=50)
+wavlm.WAVLM_PRESETS["wavlm-narrow-test"] = lambda: narrow
+write_wavlm(str(tmp / "wavlm"), narrow, seed=1)
+raw = inference_batch.main(tiny_run_config(make_corpus(tmp, n=2), **{
+    "model_config.encoder_name": "wavlm", "model_config.encoder_config": "wavlm-narrow-test",
+    "model_config.encoder_path": str(tmp / "wavlm"), "dataset_config.input_type": "raw",
+    "decode_config.decode_log": str(tmp / "w"), "decode_config.max_new_tokens": 3,
+    "train_config.shard.base_quant": "int8"}), device="cpu")
 for mod in pkgutil.walk_packages(slam_llm_tpu_torch.__path__, "slam_llm_tpu_torch."):
     importlib.import_module(mod.name)
-print(json.dumps({"n": res["n"], "steps": len(train["steps"]) + len(st["steps"]), "bleu": "bleu" in bleu[-1],
+print(json.dumps({"n": res["n"] + raw["n"], "steps": len(train["steps"]) + len(st["steps"]), "bleu": "bleu" in bleu[-1],
                   "jax": "jax" in sys.modules, "flax": "flax" in sys.modules,
                   "hf": sorted(m for m in ("tokenizers", "transformers", "regex", "sacrebleu") if m in sys.modules),
                   "slam_llm_tpu": sorted(m for m in sys.modules if m == "slam_llm_tpu" or m.startswith("slam_llm_tpu."))}))
@@ -328,7 +342,8 @@ print(json.dumps({"n": res["n"], "steps": len(train["steps"]) + len(st["steps"])
 def test_port_runs_without_importing_jax():
     """The decode slice, a training step through the finetune CLI, the ST
     recipe's pieces (a qwen2-layout ByteLevel tokenizer, a Q-Former training
-    step, BLEU over the decode logs) and every module of the package, in a
+    step, BLEU over the decode logs), the WavLM recipe's (an HF WavLM
+    directory written and loaded, a raw-audio decode) and every module of the package, in a
     fresh interpreter with a config from the port's own ``config`` module:
     neither jax nor flax nor any module of the JAX package is ever imported
     (this test process has all three), nor tokenizers, transformers, regex
@@ -339,7 +354,7 @@ def test_port_runs_without_importing_jax():
         timeout=300, check=True,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {
-        "n": 2, "steps": 2, "bleu": True, "jax": False, "flax": False, "hf": [], "slam_llm_tpu": []}
+        "n": 4, "steps": 2, "bleu": True, "jax": False, "flax": False, "hf": [], "slam_llm_tpu": []}
 
 
 def test_port_sources_never_import_jax():

@@ -383,8 +383,13 @@ def test_loaders_raise_on_unknown_keys_wrong_shapes_and_missing_paths(jax_model,
         hf_loader.load_pretrained_into(tm, mc)
     with pytest.raises(FileNotFoundError, match="encoder_path"):
         hf_loader.convert_encoder_checkpoint(str(tmp_path / "no_enc"), "whisper", None)
+    # a family the reference loads from a file and the port does not yet;
+    # a directory of a family that has no directory converter
+    torch.save({"model": {}}, tmp_path / "beats.pt")
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        hf_loader.convert_encoder_checkpoint(str(tmp_path), "wavlm", None)
+        hf_loader.convert_encoder_checkpoint(str(tmp_path / "beats.pt"), "beats", None)
+    with pytest.raises(ValueError, match="cannot load an HF directory"):
+        hf_loader.convert_encoder_checkpoint(str(tmp_path), "beats", None)
     with pytest.raises(FileNotFoundError, match="no safetensors"):
         hf_loader.load_hf_state_dict(str(tmp_path / "none"))
     llm = _port_llm(n_layers=2, vocab_size=120)  # the checkpoint has 128 rows
