@@ -347,6 +347,13 @@ def check_flash(gen) -> dict:
         *(("vicuna-7b prefill, left-padded", 8, t, 32, 32, 128, True, "left", 0) for t in W_PREFILL_T),
         ("hubert-large encoder, right-padded", 2, W_ENC_T, 16, 16, 64, False, "right", 0),
         ("emotion2vec-base encoder, right-padded", 2, W_ENC_T, 12, 12, 64, False, "right", 0),
+        # the AAC recipes: EAT-base at the fixed 1024-frame length (64 x 8
+        # patches + CLS) in a training and a decode batch, and vicuna-7b's
+        # training step at aac_eat_vicuna's text bucket
+        ("EAT-base encoder, training batch", 16, AAC_ENC_T, 12, 12, 64, False, "none", 0),
+        ("EAT-base encoder, decode batch", 8, AAC_ENC_T, 12, 12, 64, False, "none", 0),
+        ("vicuna-7b training (aac), fused RoPE theta 1e4, left-padded", 16, AAC_TRAIN_T, 32, 32, 128, True, "left",
+         1e4),
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
@@ -418,6 +425,8 @@ def check_flash_bwd(gen) -> dict:
         ("Q-Former self-attn", 8, 80, 12, 12, 64, False, "none", 0),
         *(("vicuna-7b training, fused RoPE theta 1e4, left-padded", 16, t, 32, 32, 128, True, "left", 1e4)
           for t in W_TRAIN_T),
+        ("vicuna-7b training (aac), fused RoPE theta 1e4, left-padded", 16, AAC_TRAIN_T, 32, 32, 128, True, "left",
+         1e4),
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
@@ -1413,24 +1422,28 @@ def _st_config(loader, *extra):
     return loader(["--config", str(ST_RECIPE), "++model_config.file=__main__:synth_tokenizer_factory", *extra])
 
 
-def check_projector_trained(trainer, cfg, label: str) -> None:
-    """Every projector tensor moved from the seeded init; every other tensor
-    of the state dict (encoder and LLM weights, an int8 base and its scales,
-    norms) is bit-equal to a freshly materialized model's, in the dtype the
-    trainer stores it in."""
+def check_projector_trained(trainer, cfg, label: str, lora: bool = False) -> None:
+    """Every projector tensor (and, with ``lora``, every LoRA factor) moved
+    from the seeded init; every other tensor of the state dict (encoder and
+    LLM weights, an int8 base and its scales, norms) is bit-equal to a
+    freshly materialized model's, in the dtype the trainer stores it in."""
     from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
 
     fresh, _, _ = build_model_and_data(cfg, split=cfg.dataset_config.train_split, device="cuda")
     materialize_params(fresh, cfg)
     init = fresh.state_dict()
-    if not trainer.trainable or any(not n.startswith("encoder_projector.") for n in trainer.trainable):
-        raise AssertionError(f"{label}: the recipe trains the projector alone, not {sorted(trainer.trainable)[:5]}")
+    factors = {n for n in trainer.trainable if n.endswith((".lora_a", ".lora_b"))}
+    if (not trainer.trainable or bool(factors) != lora
+            or any(not n.startswith("encoder_projector.") for n in set(trainer.trainable) - factors)):
+        raise AssertionError(f"{label}: the recipe trains the projector{' and LoRA' if lora else ''} alone, not "
+                             f"{sorted(trainer.trainable)[:5]}")
     unmoved = [n for n, p in trainer.trainable.items() if torch.equal(p, init[n].to(p.dtype))]
     state = trainer.model.state_dict()
     changed = [n for n, t in state.items() if n not in trainer.trainable and not torch.equal(t, init[n].to(t.dtype))]
     n_train = sum(p.numel() for p in trainer.trainable.values())
     n_other = sum(t.numel() for n, t in state.items() if n not in trainer.trainable)
-    log(f"[{label}] {len(trainer.trainable)} projector tensors ({n_train / 1e6:.1f} M parameters), unmoved: "
+    log(f"[{label}] {len(trainer.trainable)} projector{' and LoRA' if lora else ''} tensors ({n_train / 1e6:.1f} M "
+        f"parameters, {len(factors)} LoRA factors), unmoved: "
         f"{len(unmoved)}; {len(state) - len(trainer.trainable)} other state tensors ({n_other / 1e9:.3f} G "
         f"elements: encoder, LLM, int8 base, scales, norms), changed: {len(changed)}")
     del fresh, init
@@ -1461,9 +1474,10 @@ def st_bleu(out) -> dict:
 def check_reduced_against_cpu(trainer, cfg, prefill_batch, train_ds, label: str, layers: int = 2) -> None:
     """The recipe at its full widths but ``layers`` LLM and encoder layers
     (a 7B f32 model on the host is neither quick nor small), with the
-    trained projector whole: the bf16 prefill logits of ``prefill_batch``'s
-    first utterance and every projector gradient of one utterance of
-    ``train_ds``, card vs CPU plain path."""
+    trained projector whole (and the trained LoRA factors of the layers
+    kept): the bf16 prefill logits of ``prefill_batch``'s first utterance
+    and every trainable gradient of one utterance of ``train_ds``, card vs
+    CPU plain path."""
     import dataclasses
 
     from slam_llm_tpu_torch.models.slam_model import SLAMModel
@@ -1475,14 +1489,14 @@ def check_reduced_against_cpu(trainer, cfg, prefill_batch, train_ds, label: str,
                                     encoder=dataclasses.replace(big.encoder, n_layers=layers))
     small = SLAMModel(small_cfg, device="cuda")
     init_params_(small, torch.Generator(device="cuda").manual_seed(cfg.train_config.seed))
-    trained = {n: p for n, p in trainer.model.named_parameters() if n.startswith("encoder_projector.")}
+    trained = trainer.trainable
     with torch.no_grad():
         for n, p in small.named_parameters():
             if n in trained:
                 p.copy_(trained[n])
     small_trainer = Trainer(small, small_cfg, cfg.train_config).state_from_params()
     log(f"[{label}] card vs CPU at {layers} of {big.llm.n_layers} LLM layers and {layers} of {big.encoder.n_layers} "
-        f"encoder layers (full widths, the trained projector whole)")
+        f"encoder layers (full widths, the trained tensors of those layers and the projector whole)")
     compare_prefill(small.eval(), prefill_batch, label)
     small.to("cuda")
     check_train_grads_against_cpu(small_trainer, train_ds, label)
@@ -1651,15 +1665,14 @@ def check_wavlm_loaded(model, enc_dir: str) -> None:
 def check_encoder_against_cpu(label: str, enc, audio, mask, expect_k1: bool) -> dict:
     """A whole encoder on the card (bf16) against the CPU f32 plain path on
     the same weights: the last hidden state's cosine >= 0.99 at every valid
-    frame, the masks equal; K1 once per layer without the rel-pos bias,
-    never with it. Returns the launch counts of the card run."""
+    frame, the masks equal; K1 once per layer where the attention takes a
+    key mask (no rel-pos bias), never with the bias. Returns the launch
+    counts of the card run."""
     import dataclasses
-
-    from slam_llm_tpu_torch.models.wavlm import WavLMEncoder
 
     with torch.no_grad():
         (out, out_mask), launches = run_counted(lambda: enc(audio.cuda(), mask.cuda()))
-        cpu = WavLMEncoder(dataclasses.replace(enc.cfg, dtype=torch.float32)).eval()
+        cpu = type(enc)(dataclasses.replace(enc.cfg, dtype=torch.float32)).eval()
         cpu.load_state_dict({k: v.float().cpu() for k, v in enc.state_dict().items()})
         t0 = time.perf_counter()
         ref, ref_mask = cpu(audio, mask)
@@ -1667,8 +1680,9 @@ def check_encoder_against_cpu(label: str, enc, audio, mask, expect_k1: bool) -> 
     live = ref_mask.bool()
     cos = torch.nn.functional.cosine_similarity(out.float().cpu()[live], ref[live], dim=-1)
     k1 = launches["flash_attention_fwd"]
-    log(f"[wavlm] {label} ({enc.cfg.n_layers} layers, d {enc.cfg.d_model}, {enc.cfg.n_heads} heads, rel-pos bias "
-        f"{enc.cfg.rel_bias}) on {tuple(audio.shape)} samples, frames {live.sum(1).tolist()} of {live.shape[1]}: card "
+    log(f"{label} ({enc.cfg.n_layers} layers, d {enc.cfg.d_model}, {enc.cfg.n_heads} heads, rel-pos bias "
+        f"{not expect_k1}) on an input of {tuple(audio.shape)}, frames {live.sum(1).tolist()} of "
+        f"{live.shape[1]}: card "
         f"bf16 vs CPU f32 plain path ({cpu_s:.1f} s on CPU): min cosine {cos.min().item():.5f} mean "
         f"{cos.mean().item():.5f}; K1 launches {k1}")
     if not (torch.equal(out_mask.cpu(), ref_mask) and bool(torch.isfinite(out).all()) and cos.min().item() >= 0.99):
@@ -1685,13 +1699,21 @@ def wavlm_encoder_times(trainer, batch) -> dict:
     that batch's shape (CUDA-graph replay), beside SDPA with the same
     additive f32 mask (the library call that computes the same function on
     rows with a live key)."""
-    from slam_llm_tpu_torch.models.layers import mha_attention
-
     model = trainer.model
     with torch.no_grad():
         enc_ms = event_ms(lambda: model.encode(batch), reps=3)
     c = model.encoder.cfg
-    b, t, h, d = batch["audio"].shape[0], W_ENC_T, c.n_heads, c.d_model // c.n_heads
+    shape = (batch["audio"].shape[0], W_ENC_T, c.n_heads, c.d_model // c.n_heads)
+    return dict(encoder_ms=enc_ms, **biased_attention_times(*shape), shape=shape)
+
+
+def biased_attention_times(b: int, t: int, h: int, d: int) -> dict:
+    """The plain attention under a dense (B, H, T, T) f32 bias (row 1's last
+    keys padded) by CUDA-graph replay, beside SDPA with the same additive
+    mask (the library call that computes the same function on rows with a
+    live key)."""
+    from slam_llm_tpu_torch.models.layers import mha_attention
+
     gen = torch.Generator(device="cuda").manual_seed(3)
     q, k, v = (torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16() for _ in range(3))
     bias = torch.randn(b, h, t, t, generator=gen, device="cuda")
@@ -1699,7 +1721,7 @@ def wavlm_encoder_times(trainer, batch) -> dict:
     attn_ms = time_ms(lambda: mha_attention(q, k, v, bias=bias), reps=3)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias.bfloat16()))
-    return dict(encoder_ms=enc_ms, attn_ms=attn_ms, sdpa_ms=sdpa_ms, shape=(b, t, h, d))
+    return dict(attn_ms=attn_ms, sdpa_ms=sdpa_ms)
 
 
 def run_wavlm() -> dict:
@@ -1821,13 +1843,13 @@ def run_wavlm() -> dict:
     # whole encoders on two ragged utterances (10 s and 4.1 s of one 160,000-sample bucket)
     two = test_ds.collator([test_ds[15], test_ds[4]])
     audio, mask = torch.from_numpy(two["audio"]), torch.from_numpy(two["audio_mask"])
-    enc_launches = check_encoder_against_cpu("wavlm-large (the loaded directory)", trainer.model.encoder, audio, mask,
+    enc_launches = check_encoder_against_cpu("[wavlm] wavlm-large (the loaded directory)", trainer.model.encoder, audio, mask,
                                              expect_k1=False)
     del res, trainer
     gen = torch.Generator(device="cuda").manual_seed(4)
     for preset in ("hubert-large", "emotion2vec-base"):
         enc = init_params_(WavLMEncoder(WAVLM_PRESETS[preset](), device="cuda").eval(), gen)
-        got = check_encoder_against_cpu(f"{preset} (random init)", enc, audio, mask, expect_k1=True)
+        got = check_encoder_against_cpu(f"[wavlm] {preset} (random init)", enc, audio, mask, expect_k1=True)
         enc_launches = {k: enc_launches[k] + got[k] for k in enc_launches}
         del enc
     shutil.rmtree(tmp)
@@ -1838,8 +1860,275 @@ def run_wavlm() -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the audio-captioning recipes (EAT-base + linear + vicuna-7b in
+# bf16; SLAM-AAC adds LoRA r8 on q / v)
+# ---------------------------------------------------------------------------
+
+AAC_RECIPE = ROOT / "examples" / "aac_audiocaps" / "conf" / "aac_eat_vicuna.yaml"
+SLAM_AAC_RECIPE = ROOT / "examples" / "slam_aac" / "conf" / "slam_aac_eat_vicuna.yaml"
+AAC_STEPS = 4
+# LoRA B starts at 0 and step 0's lr is 0 under warmup, so LoRA A first
+# receives a gradient at step 2 (the third)
+SLAM_AAC_STEPS = 3
+AAC_NEW_TOKENS = 32  # decode length (a random model rarely emits EOS)
+AAC_DECODE_BATCH = 8
+AAC_LAYERS = 2  # LLM and encoder depth of the card-vs-CPU checks
+AAC_PATH = ("flash_attention_fwd", "flash_attention_bwd")
+AAC_BYPASSED = ("rowquant", "rowquant_rot_sr", "rowquant_fold", "int8_matmul", "int8_matmul_f32")  # no int8 base
+# made-up captions in the AudioCaps style
+AAC_CAPTIONS = [
+    "a dog barks while cars pass by on a wet road",
+    "rain falls steadily on a metal roof",
+    "a man speaks and a crowd laughs in the distance",
+    "birds chirp as wind blows through the trees",
+    "a train horn sounds as the train passes",
+    "water runs from a faucet into a sink",
+    "an engine idles and then revs up loudly",
+    "people talk over music in a busy restaurant",
+]
+# EAT-base's tokens at the recipes' fixed 1024 frames (64 x 8 patches + CLS),
+# and the text buckets of the training batches (102 audio slots, the prompt,
+# a caption, EOS): aac_eat_vicuna's long prompt, SLAM-AAC's default one
+AAC_ENC_T, AAC_TRAIN_T, SLAM_AAC_T = 513, 256, 192
+
+
+def _aac_config(recipe, loader, *extra):
+    return loader(["--config", str(recipe), "++model_config.file=__main__:synth_tokenizer_factory", *extra])
+
+
+def check_eat_loaded(model, path: Path) -> None:
+    """The loaded EAT-base equal to the written data2vec2 file's tensors,
+    the fused qkv split into q / k / v."""
+    from slam_llm_tpu_torch.utils.hf_loader import load_torch_checkpoint
+
+    sd = load_torch_checkpoint(str(path))
+    enc = model.encoder
+    d, n = enc.cfg.d_model, enc.cfg.n_layers
+    pre = "modality_encoders.IMAGE."
+    checks = [(enc.patch_embed.weight, sd[pre + "local_encoder.proj.weight"]),
+              (enc.patch_embed.bias, sd[pre + "local_encoder.proj.bias"]),
+              (enc.cls_token, sd[pre + "extra_tokens"].reshape(enc.cls_token.shape)),
+              (enc.norm.scale, sd["norm.weight"])]
+    for i in sorted({0, n // 2, n - 1}):
+        blk, src = enc.blocks[i], f"blocks.{i}."
+        qkv_w, qkv_b = sd[src + "attn.qkv.weight"], sd[src + "attn.qkv.bias"]
+        checks += [(blk.q_proj.weight, qkv_w[:d]), (blk.k_proj.weight, qkv_w[d:2 * d]),
+                   (blk.v_proj.weight, qkv_w[2 * d:]), (blk.k_proj.bias, qkv_b[d:2 * d]),
+                   (blk.proj.weight, sd[src + "attn.proj.weight"]), (blk.fc2.bias, sd[src + "mlp.fc2.bias"]),
+                   (blk.norm1.scale, sd[src + "norm1.weight"])]
+    for got, want in checks:
+        if not torch.equal(got.detach().cpu(), want.to(got.dtype)):
+            raise AssertionError(f"a loaded EAT tensor {tuple(got.shape)} differs from the written one")
+    log(f"[aac] loaded EAT-base: {len(checks)} tensors bit-equal to the written data2vec2 file's (the fused qkv split "
+        f"into q / k / v)")
+
+
+def run_aac() -> dict:
+    """Phase 10: aac_eat_vicuna and SLAM-AAC at full width: a random f32
+    EAT-base file in the data2vec2 layout (tools/synth_checkpoint) through
+    ``encoder_path`` and vicuna-7b's seeded random init in bf16;
+    pipeline.finetune for AAC_STEPS steps of 16 fixed-length clips (the
+    projector trains, the gradient going back through 32 frozen bf16
+    layers), SLAM-AAC for SLAM_AAC_STEPS (LoRA r8 on q / v too),
+    pipeline.inference_batch with SLAM-AAC's ckpt_path against the
+    in-memory trained model's decode, the caption metrics, the card-vs-CPU
+    checks at AAC_LAYERS LLM and encoder layers, and the whole EAT-base and
+    BEATs-iter3 encoders on two ragged clips."""
+    global _synth_tokenizer_dir
+    import contextlib
+    import io
+    import shutil
+
+    from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
+    from slam_llm_tpu_torch.models.beats import BEATS_PRESETS, BEATsEncoder
+    from slam_llm_tpu_torch.models.vit import VIT_PRESETS
+    from slam_llm_tpu_torch.pipeline import finetune, inference_batch
+    from slam_llm_tpu_torch.pipeline.common import init_params_
+    from slam_llm_tpu_torch.pipeline.inference_batch import decode_loader
+    from slam_llm_tpu_torch.tools import synth_checkpoint as synth
+    from slam_llm_tpu_torch.utils import caption_metrics
+    from slam_llm_tpu_torch.utils.checkpoint import load_trainable
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_aac_"))
+    eat_path = tmp / "eat.pt"
+    t0 = time.perf_counter()
+    enc_bytes = synth.write_eat(str(eat_path), VIT_PRESETS["eat-base"](), seed=1, device="cuda")
+    t1 = time.perf_counter()
+    tok_bytes = synth.write_tokenizer(str(tmp / "tokenizer"), 32000, seed=0)
+    _synth_tokenizer_dir = str(tmp / "tokenizer")
+    tokenizer = load_tokenizer(_synth_tokenizer_dir)
+    log(f"[aac] wrote EAT-base f32 in the data2vec2 layout ({enc_bytes / 1e9:.3f} GB, torch.save) in {t1 - t0:.2f} s "
+        f"and a 32000-entry Llama tokenizer ({tok_bytes / 1e6:.2f} MB) in {time.perf_counter() - t1:.2f} s")
+    enc_path = f"++model_config.encoder_path={eat_path}"
+    common = (enc_path, "++train_config.log_interval=1", "++train_config.run_validation=false",
+              "++train_config.warmup_steps=2", "++train_config.num_epochs=1")
+    cfg = _aac_config(
+        AAC_RECIPE, finetune.load_run_config, *common,
+        f"++dataset_config.train_data_path={write_corpus(tmp, n=16 * AAC_STEPS, name='train', targets=AAC_CAPTIONS)}",
+        f"++dataset_config.val_data_path={write_corpus(tmp, n=8, seed=1, name='val', targets=AAC_CAPTIONS)}",
+        f"++train_config.max_steps_per_epoch={AAC_STEPS}", f"++train_config.output_dir={tmp / 'out'}",
+    )
+    mc, dc, tc = cfg.model_config, cfg.dataset_config, cfg.train_config
+    if (mc.encoder_name, mc.encoder_config, mc.encoder_projector, mc.encoder_projector_ds_rate, mc.llm_name,
+            dc.dataset, dc.encoder_name, dc.fixed_length, dc.target_length, dc.random_crop, tc.batch_size_training,
+            tc.freeze_encoder, tc.freeze_llm, tc.use_peft, tc.shard.base_quant) != (
+            "eat", "eat-base", "linear", 5, "vicuna-7b", "audio_dataset", "eat", True, 1024, True, 16, True, True,
+            False, "none"):
+        raise AssertionError(f"the AAC recipe changed: {mc} {dc} {tc}")
+    res, launches, stats = _finetune(cfg, "aac")
+    trainer = res["trainer"]
+    c = trainer.model.cfg
+    steps = len(res["steps"])
+    k1_step = c.encoder.n_layers + c.llm.n_layers  # the frozen encoder's forward, the LLM's (flash is saved)
+    log(f"[aac] model: EAT-base ({c.encoder.n_layers} layers, d {c.encoder.d_model}, {c.encoder.n_heads} heads, "
+        f"{AAC_ENC_T} tokens) + linear (ds {c.projector_cfg.ds_rate}) + vicuna-7b ({c.llm.n_layers} layers, "
+        f"{c.llm.n_heads} / {c.llm.n_kv_heads} heads, base {c.llm.base_quant}, remat {c.llm.remat_policy}); "
+        f"materialized in {res['load_seconds']:.2f} s; step {stats['step_ms']:.1f} ms, "
+        f"{16 / stats['step_ms'] * 1000:.2f} utt/s, peak memory {stats['peak_gib']:.2f} GiB "
+        f"({stats['own_peak_gib']:.2f} of its own); per step K1 {launches['flash_attention_fwd'] / steps:.0f} "
+        f"K4 {launches['flash_attention_bwd'] / steps:.0f} K2 {launches['rowquant'] / steps:.0f} "
+        f"K3 {launches['int8_matmul'] / steps:.0f} | {SMI}")
+    if steps != AAC_STEPS or not res["checkpoints"]:
+        raise AssertionError(f"aac: {steps} steps, checkpoints {res['checkpoints']}")
+    if {s["shape"] for s in res["steps"]} != {(16, AAC_TRAIN_T)}:
+        raise AssertionError(f"the training batches are not the (16, {AAC_TRAIN_T}) phase 3 checks K1 / K4 at")
+    if (launches["flash_attention_fwd"], launches["flash_attention_bwd"]) != (k1_step * steps, c.llm.n_layers * steps):
+        raise AssertionError(f"K1 / K4 launched {launches['flash_attention_fwd']} / {launches['flash_attention_bwd']} "
+                             f"times in {steps} steps, not {k1_step} / {c.llm.n_layers} a step")
+    if any(launches[k] for k in AAC_BYPASSED):
+        raise AssertionError(f"K2 / K3 launched on the bf16 base: { {k: launches[k] for k in AAC_BYPASSED} }")
+    check_projector_trained(trainer, cfg, "aac")
+    check_eat_loaded(trainer.model, eat_path)
+    saved = load_trainable(res["checkpoints"][-1])
+    if set(saved) != set(trainer.trainable) or not all(torch.equal(saved[n], p.detach().cpu())
+                                                        for n, p in trainer.trainable.items()):
+        raise AssertionError("model.pt differs from the trained projector")
+    train_ds = dataset_of(cfg, tokenizer, cfg.dataset_config.train_split)
+    batch16 = trainer.put_batch(train_ds.collator([train_ds[i] for i in range(16)]))
+    with torch.no_grad():
+        enc_ms = event_ms(lambda: trainer.model.encode(batch16), reps=3)
+    log(f"[aac] EAT-base + projector forward of a training batch {tuple(batch16['audio_mel'].shape)}: {enc_ms:.2f} ms "
+        f"by CUDA events, {enc_ms / stats['step_ms']:.3f} of the step | {SMI}")
+    del batch16, res, trainer, train_ds
+    torch.cuda.empty_cache()
+
+    # SLAM-AAC: the same model with LoRA r8 on q / v over the bf16 base
+    slam_train = write_corpus(tmp, n=16 * SLAM_AAC_STEPS, name="slam_train", targets=AAC_CAPTIONS)
+    cfg2 = _aac_config(
+        SLAM_AAC_RECIPE, finetune.load_run_config, *common, f"++dataset_config.train_data_path={slam_train}",
+        f"++dataset_config.val_data_path={write_corpus(tmp, n=8, seed=1, name='val', targets=AAC_CAPTIONS)}",
+        f"++train_config.max_steps_per_epoch={SLAM_AAC_STEPS}", f"++train_config.output_dir={tmp / 'slam_out'}",
+    )
+    tc2, pc = cfg2.train_config, cfg2.train_config.peft_config
+    if (tc2.use_peft, pc.r, tuple(pc.target_modules), tc2.shard.base_quant, tc2.batch_size_training) != (
+            True, 8, ("q_proj", "v_proj"), "none", 16):
+        raise AssertionError(f"the SLAM-AAC recipe changed: {tc2}")
+    res2, launches2, stats2 = _finetune(cfg2, "slam_aac")
+    trainer2 = res2["trainer"]
+    steps2 = len(res2["steps"])
+    log(f"[slam_aac] LoRA r{pc.r} on {list(pc.target_modules)} over the bf16 vicuna-7b: step "
+        f"{stats2['step_ms']:.1f} ms, {16 / stats2['step_ms'] * 1000:.2f} utt/s, peak memory "
+        f"{stats2['peak_gib']:.2f} GiB ({stats2['own_peak_gib']:.2f} of its own); per step K1 {launches2['flash_attention_fwd'] / steps2:.0f} "
+        f"K4 {launches2['flash_attention_bwd'] / steps2:.0f} | {SMI}")
+    if steps2 != SLAM_AAC_STEPS or {s["shape"] for s in res2["steps"]} != {(16, SLAM_AAC_T)}:
+        raise AssertionError(f"slam_aac: steps {[s['shape'] for s in res2['steps']]}")
+    if any(launches2[k] for k in AAC_BYPASSED) or (launches2["flash_attention_fwd"], launches2["flash_attention_bwd"]) != (
+            k1_step * steps2, c.llm.n_layers * steps2):
+        raise AssertionError(f"slam_aac launches {launches2}, not K1 {k1_step} / K4 {c.llm.n_layers} a step")
+    check_projector_trained(trainer2, cfg2, "slam_aac", lora=True)
+    ckpt = res2["checkpoints"][-1]
+    saved = load_trainable(ckpt)
+    if set(saved) != set(trainer2.trainable) or not all(torch.equal(saved[n], p.detach().cpu())
+                                                         for n, p in trainer2.trainable.items()):
+        raise AssertionError("model.pt differs from the trained projector and LoRA factors")
+
+    test_manifest = write_corpus(tmp, n=16, seed=2, name="test", targets=AAC_CAPTIONS)
+    dec = _aac_config(
+        SLAM_AAC_RECIPE, inference_batch.load_run_config, enc_path, f"++ckpt_path={ckpt}",
+        f"++dataset_config.val_data_path={test_manifest}", f"++decode_config.decode_log={tmp / 'decode'}",
+        f"++decode_config.max_new_tokens={AAC_NEW_TOKENS}", f"++train_config.val_batch_size={AAC_DECODE_BATCH}",
+    )
+    out, dec_launches = run_counted(lambda: inference_batch.main(dec, device="cuda"))
+    test_ds = dataset_of(dec, tokenizer, dec.dataset_config.test_split)
+    batches = list(decode_loader(dec, test_ds))
+    log(f"[slam_aac] inference_batch with ckpt_path: {out['n']} clips in batches of {AAC_DECODE_BATCH} (T "
+        f"{[b['input_ids'].shape[1] for b in batches]}, fbank {batches[0]['audio_mel'].shape[1:]}), beam "
+        f"{dec.decode_config.num_beams}, {AAC_NEW_TOKENS} new tokens at most; materialized in "
+        f"{out['load_seconds']:.2f} s; decode {out['seconds']:.2f} s, prefill "
+        f"{1000 * out['prefill_s'] / out['calls']:.1f} ms/batch, "
+        f"{1000 * out['decode_s'] / max(out['decode_steps'], 1):.2f} ms/beam step over {out['decode_steps']} steps, "
+        f"{out['generated_tokens']} tokens, RTF {out['rtf']:.4f} ({out['audio_seconds']:.2f} s of audio from "
+        f"audio_mel_mask at 10 ms); launches {dec_launches} | {SMI}")
+    if abs(out["audio_seconds"] - 16 * 10.24) > 1e-6 or {b["input_ids"].shape[1] for b in batches} != {SLAM_AAC_T}:
+        raise AssertionError(f"decode: {out['audio_seconds']} s of audio (16 fixed-length clips count 10.24 s each), "
+                             f"T {[b['input_ids'].shape for b in batches]}")
+    # a random model's text may hold line breaks: the log is compared whole, as written
+    with open(out["pred"], encoding="utf-8", newline="") as f:
+        text = f.read()
+    mine = decode_texts(trainer2.model, tokenizer, dec)
+    log(f"[slam_aac] decoded text of the entry point vs the in-memory trained model: "
+        f"{sum(f'{line}' + chr(10) in text for line in mine)} / {len(mine)} clips identical")
+    print("\n".join(repr(line) for line in mine[:3]))
+    if len(mine) != 16 or text != "".join(f"{line}\n" for line in mine):
+        raise AssertionError("the reloaded SLAM-AAC model's decode differs from the in-memory trained model's")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):  # the CLI's JSON line, parsed back
+        metrics = caption_metrics.main(out["gt"], out["pred"])
+    log(f"[slam_aac] utils.caption_metrics over the decode logs in {time.perf_counter() - t0:.2f} s on the host: "
+        f"{json.dumps(metrics)} (a {SLAM_AAC_STEPS}-step random model: no target)")
+    if (json.loads(buf.getvalue()) != metrics or set(metrics) != {
+            "bleu_1", "bleu_4", "rouge_l", "meteor", "cider", "spice", "spider"} or not all(
+            np.isfinite(v) for v in metrics.values())):
+        raise AssertionError(f"caption metrics {metrics}, printed {buf.getvalue()!r}")
+    check_reduced_against_cpu(trainer2, cfg2, batches[0], dataset_of(cfg2, tokenizer, cfg2.dataset_config.train_split),
+                              "slam_aac", AAC_LAYERS)
+
+    # the whole encoders on two ragged clips (fixed_length: false), 10 s and 4.1 s
+    def two_clips(*extra):
+        ragged = _aac_config(AAC_RECIPE, inference_batch.load_run_config, "++dataset_config.fixed_length=false",
+                             f"++dataset_config.val_data_path={test_manifest}", *extra)
+        ragged.dataset_config.inference_mode = True
+        ds = dataset_of(ragged, tokenizer, ragged.dataset_config.test_split)
+        two = ds.collator([ds[15], ds[4]])
+        return torch.from_numpy(two["audio_mel"]), torch.from_numpy(two["audio_mel_mask"])
+
+    mel, mask = two_clips()
+    enc_launches = check_encoder_against_cpu("[aac] EAT-base (the loaded file)", trainer2.model.encoder, mel, mask,
+                                             expect_k1=True)
+    del res2, trainer2
+    torch.cuda.empty_cache()
+    mel, mask = two_clips("++dataset_config.encoder_name=beats", "++dataset_config.fbank_mean=15.41663",
+                          "++dataset_config.fbank_std=6.55582")
+    beats = init_params_(BEATsEncoder(BEATS_PRESETS["beats-iter3"](), device="cuda").eval(),
+                         torch.Generator(device="cuda").manual_seed(4))
+    got = check_encoder_against_cpu("[aac] BEATs-iter3 (random init)", beats, mel, mask, expect_k1=False)
+    enc_launches = {k: enc_launches[k] + got[k] for k in enc_launches}
+    bc = beats.cfg
+    n_feat = (mel.shape[1] // bc.patch_size) * (bc.n_mels // bc.patch_size)
+    with torch.no_grad():
+        beats_ms = event_ms(lambda: beats(mel.cuda(), mask.cuda()), reps=3)
+    times = biased_attention_times(2, n_feat, bc.n_heads, bc.d_model // bc.n_heads)
+    log(f"[aac] BEATs-iter3 forward of {tuple(mel.shape)}: {beats_ms:.2f} ms by CUDA events; plain biased attention "
+        f"{(2, n_feat, bc.n_heads, bc.d_model // bc.n_heads)} (the dense (B, H, T, T) rel-pos bias): "
+        f"{times['attn_ms']:.4f} ms a layer, {times['attn_ms'] * bc.n_layers:.2f} ms over {bc.n_layers} layers; SDPA "
+        f"with the same additive mask {times['sdpa_ms']:.4f} ms | {SMI}")
+    del beats
+    shutil.rmtree(tmp)
+    total = {k: launches[k] + launches2[k] + dec_launches[k] + enc_launches[k] for k in launches}
+    missing = [name for name in AAC_PATH if total[name] == 0]
+    if missing or any(total[k] for k in AAC_BYPASSED):
+        raise AssertionError(f"kernels never launched on the AAC path: {missing}; K2 / K3 launched: "
+                             f"{ {k: total[k] for k in AAC_BYPASSED} }")
+    log(f"[aac] phase 10 in {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     global SMI
+    t0 = time.perf_counter()
     SMI = setup()
     build()
     results = check_kernels()
@@ -1849,14 +2138,16 @@ def main() -> int:
     weights = run_weights()
     st = run_st()
     wavlm = run_wavlm()
+    aac = run_aac()
     paths = {"decode": decode, "train": train, "train_int8_sr": modes, "weights": weights, "st": st,
-             "wavlm": wavlm}
+             "wavlm": wavlm, "aac": aac}
     for r in results:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
         if r["name"].startswith("int8_matmul"):  # the code paths count both epilogues together
             r["launches_by_code_path"] = {p: {path: counts[f"int8_matmul/{p}"] for path, counts in paths.items()}
                                           for p in ("wgmma", "splitk")}
+    log(f"[chip_smoke] phases 1-10 in {time.perf_counter() - t0:.1f} s | {SMI}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

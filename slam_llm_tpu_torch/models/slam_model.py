@@ -6,9 +6,11 @@ for the raw-waveform encoders, ``input_ids`` with -1 on audio pseudo-tokens,
 ``attention_mask``, ``modality_mask``, ``labels`` with -100 on ignored
 positions). ``forward`` returns the loss and next-token accuracy of the
 training step; a frozen encoder runs without autograd. The ported encoders
-are whisper and the WavLM family (``wavlm``, ``hubert``, ``emotion2vec``);
-the others raise ``NotImplementedError``. The projector is linear,
-cov1d-linear or q-former.
+are whisper, the WavLM family (``wavlm``, ``hubert``, ``emotion2vec``) and
+the fbank encoders of the audio-captioning recipes (``eat``, ``beats``),
+which read ``audio_mel`` / ``audio_mel_mask`` as whisper does; the others
+raise ``NotImplementedError``. The projector is linear, cov1d-linear or
+q-former.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from slam_llm_tpu_torch.models.beats import BEATS_PRESETS, BEATsEncoder
 from slam_llm_tpu_torch.models.llm import CausalLM, KVCache, LLMConfig
 from slam_llm_tpu_torch.models.projector import ProjectorConfig, build_projector
+from slam_llm_tpu_torch.models.vit import VIT_PRESETS, ViTEncoder
 from slam_llm_tpu_torch.models.wavlm import WAVLM_PRESETS, WavLMEncoder
 from slam_llm_tpu_torch.models.whisper import PRESETS as WHISPER_PRESETS
 from slam_llm_tpu_torch.models.whisper import WhisperEncoder
@@ -36,8 +40,8 @@ RAW_ENCODERS = ("wavlm", "hubert", "emotion2vec")  # read the raw waveform
 @dataclass(frozen=True)
 class SLAMConfig:
     llm: LLMConfig = field(default_factory=LLMConfig.tiny_test)
-    encoder_name: Optional[str] = "whisper"  # whisper | wavlm | hubert | emotion2vec | None
-    encoder: Any = None  # WhisperEncoderConfig or WavLMConfig
+    encoder_name: Optional[str] = "whisper"  # whisper | wavlm | hubert | emotion2vec | eat | beats | None
+    encoder: Any = None  # WhisperEncoderConfig, WavLMConfig, ViTEncoderConfig or BEATsEncoderConfig
     projector: str = "linear"
     projector_cfg: ProjectorConfig = field(default_factory=ProjectorConfig)
     freeze_encoder: bool = True
@@ -87,6 +91,10 @@ class SLAMModel(nn.Module):
             self.encoder = WhisperEncoder(cfg.encoder, device)
         elif cfg.encoder_name in RAW_ENCODERS:
             self.encoder = WavLMEncoder(cfg.encoder, device)
+        elif cfg.encoder_name == "eat":
+            self.encoder = ViTEncoder(cfg.encoder, device)
+        elif cfg.encoder_name == "beats":
+            self.encoder = BEATsEncoder(cfg.encoder, device)
         elif cfg.encoder_name is None:
             self.encoder = None
         else:
@@ -101,7 +109,7 @@ class SLAMModel(nn.Module):
         with frozen:
             if self.cfg.encoder_name in RAW_ENCODERS:
                 enc, enc_mask = self.encoder(batch["audio"], batch.get("audio_mask"))
-            else:
+            else:  # whisper, eat, beats
                 enc, enc_mask = self.encoder(batch["audio_mel"], batch.get("audio_mel_mask"))
         if self.cfg.projector == "q-former":
             # every query slot stays attendable, as in the reference: the
@@ -151,6 +159,12 @@ def build_slam_config(train_config, model_config) -> SLAMConfig:
     elif mc.encoder_name in RAW_ENCODERS:
         preset = mc.encoder_config or ("emotion2vec-base" if mc.encoder_name == "emotion2vec" else "wavlm-base")
         enc_cfg = WAVLM_PRESETS[preset]()
+        encoder_dim = enc_cfg.d_model
+    elif mc.encoder_name == "eat":
+        enc_cfg = VIT_PRESETS[mc.encoder_config or "eat-base"]()
+        encoder_dim = enc_cfg.d_model
+    elif mc.encoder_name == "beats":
+        enc_cfg = BEATS_PRESETS[mc.encoder_config or "beats-iter3"]()
         encoder_dim = enc_cfg.d_model
     elif mc.encoder_name is None:
         enc_cfg, encoder_dim = None, mc.encoder_dim

@@ -143,8 +143,9 @@ def relative_position_buckets(t: int, num_buckets: int, max_distance: int) -> np
 
 
 @functools.lru_cache(maxsize=8)
-def _buckets(t: int, num_buckets: int, max_distance: int) -> torch.Tensor:
-    return torch.from_numpy(relative_position_buckets(t, num_buckets, max_distance)).long()
+def _buckets(t: int, num_buckets: int, max_distance: int, device: torch.device) -> torch.Tensor:
+    """The (T, T) bucket table, made once per length on the device it indexes on."""
+    return torch.from_numpy(relative_position_buckets(t, num_buckets, max_distance)).long().to(device)
 
 
 def _frozen_conv(c_in: int, c_out: int, k: int, dtype, device, **kw) -> nn.Conv1d:
@@ -310,7 +311,7 @@ class WavLMEncoder(nn.Module):
             key_mask_bias = torch.where(valid, 0.0, NEG_INF).float()
         position_bias = None
         if c.rel_bias:
-            buckets = _buckets(t, c.num_buckets, c.max_distance).to(feats.device)
+            buckets = _buckets(t, c.num_buckets, c.max_distance, feats.device)
             position_bias = self.rel_attn_embed[buckets].permute(2, 0, 1).float()  # (H, T, T)
         for layer in self.layers:
             h = layer(h, key_mask_bias, position_bias, kv_mask)

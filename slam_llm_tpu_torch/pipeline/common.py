@@ -20,8 +20,10 @@ import torch
 from torch import nn
 
 from slam_llm_tpu_torch.config import RunConfig
+from slam_llm_tpu_torch.models.beats import BEATsTransformer
 from slam_llm_tpu_torch.models.layers import DenseGeneralLora
 from slam_llm_tpu_torch.models.projector import ProjectorQFormer
+from slam_llm_tpu_torch.models.vit import ViTEncoder
 from slam_llm_tpu_torch.models.wavlm import WavLMEncoder
 from slam_llm_tpu_torch.ops.quant import quantize_int8
 from slam_llm_tpu_torch.registry import get_custom_dataset_factory, get_custom_model_factory
@@ -68,11 +70,12 @@ def build_model_and_data(cfg: RunConfig, split: str = "train", device="cuda"):
 @torch.no_grad()
 def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random init in place, drawn on the generator's device, following the
-    reference's initializers: dense and conv kernels normal with std
-    1/sqrt(fan_in), biases 0, LoRA A normal with std 1/r and B zero,
-    embeddings and the Q-Former's queries standard normal, WavLM's
-    relative-position table normal with std 0.02, norms (and WavLM's gate
-    constants) 1 / 0. An int8 base is the quantization of such a kernel."""
+    reference's initializers: dense and conv kernels (1-D and 2-D) normal
+    with std 1/sqrt(fan_in), biases 0, LoRA A normal with std 1/r and B
+    zero, embeddings and the Q-Former's queries standard normal, WavLM's
+    and BEATs' relative-position tables and EAT's CLS token normal with std
+    0.02, norms (and WavLM's gate constants) 1 / 0. An int8 base is the
+    quantization of such a kernel."""
 
     def normal(shape, std):
         return torch.randn(shape, generator=generator, device=generator.device) * std
@@ -91,8 +94,8 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if mod.lora_rank > 0:
                 mod.lora_a.copy_(normal(mod.lora_a.shape, 1.0 / mod.lora_rank))
                 mod.lora_b.zero_()
-        elif isinstance(mod, nn.Conv1d):
-            fan_in = mod.weight.shape[1] * mod.kernel_size[0]  # input channels per group x taps
+        elif isinstance(mod, (nn.Conv1d, nn.Conv2d)):
+            fan_in = mod.weight[0].numel()  # input channels per group x taps
             mod.weight.copy_(normal(mod.weight.shape, 1.0 / math.sqrt(fan_in)))
             if mod.bias is not None:
                 mod.bias.zero_()
@@ -100,8 +103,10 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.weight.copy_(normal(mod.weight.shape, 1.0))
         elif isinstance(mod, ProjectorQFormer):
             mod.query.copy_(normal(mod.query.shape, 1.0))
-        elif isinstance(mod, WavLMEncoder) and mod.rel_attn_embed is not None:
+        elif isinstance(mod, (WavLMEncoder, BEATsTransformer)) and mod.rel_attn_embed is not None:
             mod.rel_attn_embed.copy_(normal(mod.rel_attn_embed.shape, 0.02))
+        elif isinstance(mod, ViTEncoder):
+            mod.cls_token.copy_(normal(mod.cls_token.shape, 0.02))
     return model
 
 

@@ -4,8 +4,9 @@ Counterpart of ``slam_llm_tpu/registry.py``: the core never imports the
 recipes; recipes inject their model factory and dataset factory through
 config strings (reference utils/dataset_utils.py:14-46,
 utils/model_utils.py:4-29). The model factory defaults to the port's own
-``model_factory`` and the dataset factory to the port's speech dataset; the
-JAX package's other in-tree datasets are not ported yet.
+``model_factory`` and the dataset factory to the port's speech dataset or,
+by ``dataset_config.dataset``, its audio-captioning dataset; the JAX
+package's other in-tree datasets are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Any, Callable, Optional
 # the JAX package's in-tree datasets the port does not carry yet (ROADMAP.md
 # Queue 1, item 4: the other encoders and recipes)
 UNPORTED_DATASETS = (
-    "audio_dataset", "mir_dataset", "s2s_dataset", "text_dataset", "vallex_dataset", "echat_dataset",
+    "mir_dataset", "s2s_dataset", "text_dataset", "vallex_dataset", "echat_dataset",
     "avhubert_dataset", "spatial_audio_dataset", "speech_dataset_large",
 )
 
@@ -72,12 +73,16 @@ def get_custom_model_factory(model_config) -> Callable[..., Any]:
 
 def get_custom_dataset_factory(dataset_config) -> Callable[..., Any]:
     """A ``dataset_config.file`` spec, else the in-tree dataset named by
-    ``dataset_config.dataset``: the speech dataset, or a raise for the
-    datasets not ported yet."""
+    ``dataset_config.dataset``: the speech or audio-captioning dataset, or a
+    raise for the datasets not ported yet."""
     spec: Optional[str] = getattr(dataset_config, "file", None)
     if spec:
         return resolve_factory(spec, default_name="get_speech_dataset")
     name = getattr(dataset_config, "dataset", "speech_dataset")
+    if name == "audio_dataset":
+        from slam_llm_tpu_torch.data.audio_dataset import get_audio_dataset
+
+        return get_audio_dataset
     if name in UNPORTED_DATASETS:
         raise NotImplementedError(
             f"dataset {name!r} is not ported to slam_llm_tpu_torch yet (ROADMAP.md Queue 1, item 4: "

@@ -2,7 +2,7 @@
 ``torch.profiler``, its device time split by kernel family, the unprofiled
 step time, and the fused cross-entropy alone.
 
-    python -m slam_llm_tpu_torch.tools.profile_train [--recipe st | wavlm] [++key=value ...]   # from the repo root, on a GPU
+    python -m slam_llm_tpu_torch.tools.profile_train [--recipe st | wavlm | aac] [++key=value ...]   # from the repo root, on a GPU
 
 Builds the recipe of ``chip_smoke.py`` (asr_whisper_tinyllama.yaml, full
 width, random weights from the recipe's seed: frozen whisper-small, trained
@@ -15,16 +15,19 @@ trained Q-Former, its synthetic qwen2 tokenizer and corpus), or with
 ``--recipe wavlm`` phase 9's asr_wavlm_vicuna.yaml (frozen WavLM-large and
 vicuna-7b in the int8 base with the bf16 backward, the trained linear
 projector, a synthetic 32000-entry Llama tokenizer; seeded random weights),
+or with ``--recipe aac`` phase 10's aac_eat_vicuna.yaml (frozen EAT-base
+and vicuna-7b in bf16, the trained linear projector, the same tokenizer,
+fixed-length 1024-frame fbank; seeded random weights),
 takes the first training batch of the recipe's size, runs warm-up steps,
 then profiles one step. Kernel families: K3 the s8 GEMM, K4 the flash
 backward, K1 the flash forward, K2 rowquant (both kernels), cuBLAS GEMMs
 (encoder, LoRA, head), and the rest (elementwise, reductions, copies: the
-glue). ``--recipe wavlm`` adds the frozen encoder's forward alone, split the
-same way, and the plain biased attention of its layers (the dense
-(B, H, T, T) rel-pos bias, which no kernel takes) as a row of its own. The
-full ``key_averages`` tables go to ``profile_train_step.txt`` and
-``profile_fused_ce.txt`` in the output directory of
-``tools/profile_decode.py``.
+glue). ``--recipe wavlm`` and ``aac`` add the frozen encoder's forward
+alone, split the same way; ``wavlm`` also the plain biased attention of its
+layers (the dense (B, H, T, T) rel-pos bias, which no kernel takes) as a
+row of its own. The full ``key_averages`` tables go to
+``profile_train_step.txt`` and ``profile_fused_ce.txt`` in the output
+directory of ``tools/profile_decode.py``.
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ def split_by_family(prof) -> dict:
     return dict(out)
 
 
-RECIPES = ("asr", "st", "wavlm")
+RECIPES = ("asr", "st", "wavlm", "aac")
 
 
 def split_recipe(argv) -> tuple:
@@ -87,10 +90,11 @@ def build_recipe(recipe: str, overrides, tmp: Path, device="cuda", split: str = 
         write_qwen2_tokenizer(str(tmp / "qwen2"), QWEN2_BPE, corpus=cs.ST_TARGETS)
         cs._synth_tokenizer_dir = str(tmp / "qwen2")
         head, targets = ["--config", str(cs.ST_RECIPE), factory], cs.ST_TARGETS
-    elif recipe == "wavlm":
+    elif recipe in ("wavlm", "aac"):
         write_tokenizer(str(tmp / "tokenizer"), 32000)
         cs._synth_tokenizer_dir = str(tmp / "tokenizer")
-        head = ["--config", str(cs.W_RECIPE), factory]
+        head = ["--config", str(cs.W_RECIPE if recipe == "wavlm" else cs.AAC_RECIPE), factory]
+        targets = cs.AAC_CAPTIONS if recipe == "aac" else None
     else:
         head = ["--config", str(cs.RECIPE)]
     n = finetune.load_run_config(head + list(overrides)).train_config.batch_size_training
@@ -142,7 +146,7 @@ def main(argv=(), steps: int = 3) -> None:
     for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
         print(f"  {fam:45s} {ms:9.2f} ms  {100 * ms / total:5.1f} %", flush=True)
     print(f"K2 launches in the profiled step: { {n: c.launches - before[n] for n, c in counters.items()} }", flush=True)
-    if recipe == "wavlm":
+    if recipe in ("wavlm", "aac"):
         encoder_rows(trainer, batch, step_ms)
 
     # the fused CE alone, at the step's shape (hidden of the trunk, frozen head)
@@ -164,9 +168,12 @@ def main(argv=(), steps: int = 3) -> None:
 
 def encoder_rows(trainer, batch, step_ms: float) -> None:
     """The frozen encoder's forward (and the projector's) alone, split by
-    kernel family, and the plain biased attention of one of its layers by
-    CUDA-graph replay, times the layers, as rows of their own."""
+    kernel family, and for WavLM's rel-pos presets the plain biased
+    attention of one of its layers by CUDA-graph replay, times the layers,
+    as rows of their own."""
     import chip_smoke as cs
+
+    biased = getattr(trainer.model.encoder.cfg, "rel_bias", False)
 
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -175,12 +182,18 @@ def encoder_rows(trainer, batch, step_ms: float) -> None:
         wall = time.perf_counter() - t0
     report(prof, wall, "encoder_forward")
     fams = split_by_family(prof)
-    times = cs.wavlm_encoder_times(trainer, batch)
+    if biased:
+        times = cs.wavlm_encoder_times(trainer, batch)
+    else:
+        with torch.no_grad():
+            times = dict(encoder_ms=cs.event_ms(lambda: trainer.model.encode(batch), reps=3))
     layers = trainer.model.encoder.cfg.n_layers
     print(f"encoder + projector forward: {times['encoder_ms']:.2f} ms by CUDA events, "
           f"{times['encoder_ms'] / step_ms:.3f} of the unprofiled step", flush=True)
     for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
         print(f"  encoder {fam:37s} {ms:9.2f} ms", flush=True)
+    if not biased:
+        return
     print(f"  plain biased attention {times['shape']}: {times['attn_ms']:.4f} ms a layer, "
           f"{times['attn_ms'] * layers:.2f} ms over {layers} layers (SDPA with the same additive mask "
           f"{times['sdpa_ms']:.4f} ms a layer)", flush=True)

@@ -2,12 +2,15 @@
 
     python -m slam_llm_tpu_torch.tools.synth_checkpoint <out dir> \\
         [--llm tinyllama-1.1b | vicuna-7b | qwen2-7b | none] \\
-        [--encoder whisper-small | whisper-large-v3 | wavlm-large | hubert-large | ...] [--seed 0] [--device cpu]
+        [--encoder whisper-small | whisper-large-v3 | wavlm-large | hubert-large | eat-base | beats-iter3 | ...]
+        [--seed 0] [--device cuda]
 
 writes ``<out dir>/llm`` (unless ``--llm none``) and ``<out dir>/whisper``
 (or, for a WavLM-family preset, ``<out dir>/wavlm``) with the port's own safetensors writer
-(``utils.safetensors_io``), for runs that need pretrained-shaped weights
-where the real ones are not at hand:
+(``utils.safetensors_io``), or for an EAT / BEATs preset the torch file
+``<out dir>/eat.pt`` / ``<out dir>/beats.pt``, for runs that need
+pretrained-shaped weights where the real ones are not at hand. The tensors
+are drawn on ``--device`` (the card unless the caller asks for the CPU):
 
 * ``write_llama``: an HF Llama (or, with q/k/v biases, Qwen2) directory:
   ``config.json``, the weights in bf16 over two shards
@@ -33,7 +36,19 @@ where the real ones are not at hand:
   ``HubertModel`` (without) directory: ``config.json`` and
   ``model.safetensors`` (bf16), the positional conv stored under weight norm
   as ``weight_g`` / ``weight_v``, ``rel_attn_embed`` in layer 0 alone, as
-  HF's checkpoints hold them.
+  HF's checkpoints hold them;
+* ``write_eat``: an EAT fairseq checkpoint, ``{"model": sd}`` (f32, as
+  the published files) in the data2vec2 layout
+  (``modality_encoders.IMAGE.local_encoder.proj``, ``extra_tokens``,
+  ``blocks.N.attn.qkv`` fused, the top-level ``norm``);
+* ``write_beats``: an official BEATs checkpoint, ``{"cfg": {...}, "model":
+  sd}`` (f32), the positional conv under weight norm in the
+  ``parametrizations.weight.original0`` / ``original1`` form and the
+  relative-position table in every layer (BEATs shares layer 0's).
+
+The two torch files hold tensors and plain dicts only, so
+``utils.hf_loader.load_torch_checkpoint`` reads them without fairseq or
+omegaconf.
 
 Linear weights are normal with std 1/sqrt(fan_in), embeddings with std 1,
 norm scales 1 + N(0, 0.05^2), biases N(0, 0.02^2). Each ``write_*`` returns
@@ -338,6 +353,84 @@ def write_wavlm(out_dir: str, cfg, seed: int = 0, device="cpu") -> int:
     return written + _write_json(out_dir, "config.json", config)
 
 
+def write_eat(path: str, cfg, seed: int = 0, device="cpu") -> int:
+    """An EAT fairseq checkpoint file for ``cfg`` (the port's ``ViTEncoderConfig``)."""
+    d = _Draw(seed, device)
+    dm, p, hidden = cfg.d_model, cfg.patch_size, int(cfg.d_model * cfg.mlp_ratio)
+    pre = "modality_encoders.IMAGE."
+    sd: Dict[str, torch.Tensor] = {
+        pre + "local_encoder.proj.weight": d.normal((dm, 1, p, p), 1.0 / p),
+        pre + "local_encoder.proj.bias": d.normal((dm,), 0.02),
+        pre + "extra_tokens": d.normal((1, 1, dm), 0.02),
+    }
+    for i in range(cfg.n_layers):
+        q = f"blocks.{i}."
+        for ln in ("norm1", "norm2"):
+            sd[f"{q}{ln}.weight"] = d.normal((dm,), 0.05, 1.0)
+            sd[f"{q}{ln}.bias"] = d.normal((dm,), 0.02)
+        sd[q + "attn.qkv.weight"], sd[q + "attn.qkv.bias"] = d.linear(3 * dm, dm), d.normal((3 * dm,), 0.02)
+        sd[q + "attn.proj.weight"], sd[q + "attn.proj.bias"] = d.linear(dm, dm), d.normal((dm,), 0.02)
+        sd[q + "mlp.fc1.weight"], sd[q + "mlp.fc1.bias"] = d.linear(hidden, dm), d.normal((hidden,), 0.02)
+        sd[q + "mlp.fc2.weight"], sd[q + "mlp.fc2.bias"] = d.linear(dm, hidden), d.normal((dm,), 0.02)
+    sd["norm.weight"], sd["norm.bias"] = d.normal((dm,), 0.05, 1.0), d.normal((dm,), 0.02)
+    return _save_torch(path, {"model": sd})
+
+
+def write_beats(path: str, cfg, seed: int = 0, device="cpu") -> int:
+    """An official BEATs checkpoint file for ``cfg`` (the port's ``BEATsEncoderConfig``)."""
+    d = _Draw(seed, device)
+    dm, pe, p, k = cfg.d_model, cfg.patch_embed_dim, cfg.patch_size, cfg.conv_pos
+    sd: Dict[str, torch.Tensor] = {
+        "patch_embedding.weight": d.normal((pe, 1, p, p), 1.0 / p),
+        "layer_norm.weight": d.normal((pe,), 0.05, 1.0),
+        "layer_norm.bias": d.normal((pe,), 0.02),
+        "post_extract_proj.weight": d.linear(dm, pe),
+        "post_extract_proj.bias": d.normal((dm,), 0.02),
+    }
+    # weight norm over every axis but the taps (dim=2): w = g * v / ||v||
+    per_group = dm // cfg.conv_pos_groups
+    v = d.normal((dm, per_group, k), 1.0 / math.sqrt(per_group * k))
+    norm = v.float().square().sum(dim=(0, 1), keepdim=True).sqrt()
+    sd["encoder.pos_conv.0.parametrizations.weight.original0"] = (
+        norm * (1.0 + 0.05 * d.normal((1, 1, k), 1.0).float())).to(DTYPE)
+    sd["encoder.pos_conv.0.parametrizations.weight.original1"] = v
+    sd["encoder.pos_conv.0.bias"] = d.normal((dm,), 0.02)
+    sd["encoder.layer_norm.weight"] = d.normal((dm,), 0.05, 1.0)
+    sd["encoder.layer_norm.bias"] = d.normal((dm,), 0.02)
+    rel = d.normal((cfg.num_buckets, cfg.n_heads), 0.02)
+    for i in range(cfg.n_layers):
+        q = f"encoder.layers.{i}."
+        for name in ("k_proj", "v_proj", "q_proj", "out_proj"):
+            sd[f"{q}self_attn.{name}.weight"] = d.linear(dm, dm)
+            sd[f"{q}self_attn.{name}.bias"] = d.normal((dm,), 0.02)
+        sd[q + "self_attn.grep_linear.weight"] = d.linear(8, dm // cfg.n_heads)
+        sd[q + "self_attn.grep_linear.bias"] = d.normal((8,), 0.02)
+        sd[q + "self_attn.grep_a"] = d.normal((1, cfg.n_heads, 1, 1), 0.05, 1.0)
+        sd[q + "self_attn.relative_attention_bias.weight"] = rel
+        for ln in ("self_attn_layer_norm", "final_layer_norm"):
+            sd[f"{q}{ln}.weight"] = d.normal((dm,), 0.05, 1.0)
+            sd[f"{q}{ln}.bias"] = d.normal((dm,), 0.02)
+        sd[q + "fc1.weight"], sd[q + "fc1.bias"] = d.linear(cfg.ffn_dim, dm), d.normal((cfg.ffn_dim,), 0.02)
+        sd[q + "fc2.weight"], sd[q + "fc2.bias"] = d.linear(dm, cfg.ffn_dim), d.normal((dm,), 0.02)
+    beats_cfg = {
+        "input_patch_size": p, "embed_dim": pe, "conv_bias": False, "encoder_layers": cfg.n_layers,
+        "encoder_embed_dim": dm, "encoder_ffn_embed_dim": cfg.ffn_dim, "encoder_attention_heads": cfg.n_heads,
+        "activation_fn": "gelu", "layer_wise_gradient_decay_ratio": 1.0, "layer_norm_first": False,
+        "deep_norm": True, "dropout": 0.0, "attention_dropout": 0.0, "activation_dropout": 0.0,
+        "encoder_layerdrop": 0.0, "dropout_input": 0.0, "conv_pos": k, "conv_pos_groups": cfg.conv_pos_groups,
+        "relative_position_embedding": True, "num_buckets": cfg.num_buckets,
+        "max_distance": cfg.max_distance, "gru_rel_pos": True, "finetuned_model": False,
+    }
+    return _save_torch(path, {"cfg": beats_cfg, "model": sd})
+
+
+def _save_torch(path: str, obj: dict) -> int:
+    """``obj`` with its ``model`` state dict in f32, the published files' dtype."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({**obj, "model": {k: v.float() for k, v in obj["model"].items()}}, path)
+    return os.path.getsize(path)
+
+
 def _write_json(out_dir: str, name: str, obj) -> int:
     os.makedirs(out_dir, exist_ok=True)
     data = json.dumps(obj, indent=1, ensure_ascii=False).encode("utf-8")
@@ -349,30 +442,38 @@ def _write_json(out_dir: str, name: str, obj) -> int:
 def main(argv=None) -> dict:
     import argparse
 
+    from slam_llm_tpu_torch.models.beats import BEATS_PRESETS
     from slam_llm_tpu_torch.models.llm import LLMConfig
+    from slam_llm_tpu_torch.models.vit import VIT_PRESETS
     from slam_llm_tpu_torch.models.wavlm import WAVLM_PRESETS
     from slam_llm_tpu_torch.models.whisper import PRESETS as WHISPER_PRESETS
+    from slam_llm_tpu_torch.pipeline.common import resolve_device
 
     llms = {"tinyllama-1.1b": LLMConfig.tinyllama_1_1b, "vicuna-7b": LLMConfig.vicuna_7b,
             "qwen2-7b": LLMConfig.qwen2_7b, "tiny-test": LLMConfig.tiny_test}
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("out")
     ap.add_argument("--llm", default="tinyllama-1.1b", choices=sorted(llms) + ["none"])
-    ap.add_argument("--encoder", default="whisper-small", choices=sorted({**WHISPER_PRESETS, **WAVLM_PRESETS}))
+    encoders = {  # preset -> (its presets, writer, what it writes under <out>)
+        **{name: (WHISPER_PRESETS, write_whisper, "whisper") for name in WHISPER_PRESETS},
+        **{name: (WAVLM_PRESETS, write_wavlm, "wavlm") for name in WAVLM_PRESETS},
+        **{name: (VIT_PRESETS, write_eat, "eat.pt") for name in VIT_PRESETS},
+        **{name: (BEATS_PRESETS, write_beats, "beats.pt") for name in BEATS_PRESETS},
+    }
+    ap.add_argument("--encoder", default="whisper-small", choices=sorted(encoders))
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    whisper = args.encoder in WHISPER_PRESETS
-    llm_dir, enc_dir = os.path.join(args.out, "llm"), os.path.join(args.out, "whisper" if whisper else "wavlm")
+    resolve_device(args.device)  # CUDA without a usable GPU raises
+    presets, write_encoder, enc_name = encoders[args.encoder]
+    llm_dir, enc_dir = os.path.join(args.out, "llm"), os.path.join(args.out, enc_name)
     sizes = {}
     if args.llm != "none":
         llm_cfg = llms[args.llm]()
         tokenizer = (write_qwen2_tokenizer(llm_dir, QWEN2_BPE, args.seed) if args.llm == "qwen2-7b"
                      else write_tokenizer(llm_dir, llm_cfg.vocab_size, args.seed))
         sizes["llm"] = write_llama(llm_dir, llm_cfg, args.seed, args.device) + tokenizer
-    write_encoder = write_whisper if whisper else write_wavlm
-    enc_cfg = (WHISPER_PRESETS if whisper else WAVLM_PRESETS)[args.encoder]()
-    sizes["encoder"] = write_encoder(enc_dir, enc_cfg, args.seed + 1, args.device)
+    sizes["encoder"] = write_encoder(enc_dir, presets[args.encoder](), args.seed + 1, args.device)
     print(json.dumps({"llm_path": llm_dir if "llm" in sizes else None, "encoder_path": enc_dir, "bytes": sizes}))
     return sizes
 

@@ -3,16 +3,19 @@
 ``from_flax_params`` maps ``slam_llm_tpu``'s (flax) parameter tree, as
 nested dicts of numpy arrays, onto this package's ``state_dict`` names:
 
-* the scanned ``layers`` axis is unstacked into ``layers.{i}``, and
-  ``llm.decoder.layers`` becomes ``llm.layers``; every leaf under it is cut
-  on axis 0, so the WavLM encoder's ``gru_rel_pos_const`` (L, 1, H, 1, 1)
-  becomes each layer's (1, H, 1, 1);
+* the scanned ``layers`` axis (the ViT encoder's ``blocks``) is unstacked
+  into ``layers.{i}`` (``blocks.{i}``), and ``llm.decoder.layers`` becomes
+  ``llm.layers``; every leaf under it is cut on axis 0, so the WavLM
+  encoder's ``gru_rel_pos_const`` (L, 1, H, 1, 1) becomes each layer's
+  (1, H, 1, 1);
 * dense ``kernel`` (in, out) becomes ``weight`` (out, in), like ``nn.Linear``;
   the int8 ``kernel_q`` (in, out) becomes ``kernel_q`` (out, in), the K-major
   layout the int8 GEMM reads; LoRA ``lora_a`` (in, r) and ``lora_b`` (r, out)
   are transposed the same way;
 * flax ``Conv`` ``kernel`` (k, in / groups, out) becomes ``Conv1d.weight``
-  (out, in / groups, k), and back (``.T`` reverses the three axes);
+  (out, in / groups, k), and back (``.T`` reverses the three axes); a 2-D
+  ``Conv`` ``kernel`` (kh, kw, in, out) becomes ``Conv2d.weight`` (out, in,
+  kh, kw);
 * ``Embed.embedding`` (V, D) becomes ``embed_tokens.weight``;
 * the backward-only ``kernel_qr`` / ``kernel_scale_r`` and ``kernel_t`` are
   dropped: the port derives its ``int8_rot`` pair itself
@@ -33,12 +36,15 @@ import numpy as np
 import torch
 
 _DROPPED = ("kernel_qr", "kernel_scale_r", "kernel_t")
+_SCANNED = ("layers", "blocks")  # subtrees with a leading layer axis
 
 
 def _leaf(name: str, arr: np.ndarray):
     if name in _DROPPED:
         return None
     if name == "kernel":
+        if arr.ndim == 4:  # Conv (kh, kw, in, out) -> (out, in, kh, kw)
+            return "weight", arr.transpose(3, 2, 0, 1)
         if arr.ndim == 3:  # Conv (k, in, out) -> (out, in, k)
             return "weight", arr.transpose(2, 1, 0)
         return "weight", arr.T
@@ -52,10 +58,10 @@ def _leaf(name: str, arr: np.ndarray):
 def _walk(node: Mapping, prefix: List[str], out: Dict[str, torch.Tensor]) -> None:
     for key, val in node.items():
         if isinstance(val, Mapping):
-            if key == "layers":
+            if key in _SCANNED:
                 n = _leading_dim(val)
                 for i in range(n):
-                    _walk(_index(val, i), prefix + ["layers", str(i)], out)
+                    _walk(_index(val, i), prefix + [key, str(i)], out)
             elif key == "decoder":
                 _walk(val, prefix, out)
             else:
@@ -98,20 +104,21 @@ def trainable_to_flax(tensors: Mapping) -> dict:
     """Inverse of ``from_flax_params`` for trainable tensors (LoRA factors,
     projector kernels and biases): ``{name: tensor}`` in the port's
     ``state_dict`` names -> nested dicts of f32 numpy arrays in the flax
-    layout, with the per-layer tensors restacked on the ``layers`` axis and
-    the LLM's under ``decoder``."""
+    layout, with the per-layer tensors restacked on the ``layers`` (or
+    ``blocks``) axis and the LLM's under ``decoder``."""
     out: dict = {}
     stacked: Dict[tuple, Dict[int, np.ndarray]] = {}
     for name, t in tensors.items():
         *path, leaf = name.split(".")
         arr = t.detach().cpu().float().numpy()
         if leaf == "weight":
-            leaf, arr = "kernel", arr.T
+            leaf, arr = "kernel", arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         elif leaf in ("kernel_q", "lora_a", "lora_b"):
             arr = arr.T
-        if "layers" in path:
-            i = path.index("layers")
-            key = tuple(path[:i] + (["decoder"] if path[:i] == ["llm"] else []) + ["layers"] + path[i + 2:] + [leaf])
+        scanned = [k for k in path if k in _SCANNED]
+        if scanned:
+            i = path.index(scanned[0])
+            key = tuple(path[:i] + (["decoder"] if path[:i] == ["llm"] else []) + [path[i]] + path[i + 2:] + [leaf])
             stacked.setdefault(key, {})[int(path[i + 1])] = arr
         else:
             _set(out, path + [leaf], arr)

@@ -1,4 +1,4 @@
-"""HF checkpoint -> the port's modules (llama family, whisper, WavLM / HuBERT).
+"""HF checkpoint -> the port's modules (llama family, whisper, WavLM / HuBERT, EAT, BEATs).
 
 Counterpart of ``slam_llm_tpu/utils/hf_loader.py``. The reference reads an HF
 directory into f32 numpy, stacks every per-layer tensor on a scanned layer
@@ -17,7 +17,9 @@ onto one ``state_dict`` name, with no stack, transpose or second copy:
 * ``convert_encoder_checkpoint`` dispatches an encoder checkpoint as the
   reference does: an HF directory to whisper's converter or, for ``wavlm`` /
   ``hubert``, to ``models.wavlm.convert_wavlm``; a torch file of ``hubert``
-  to ``models.wavlm.convert_hubert_fairseq``;
+  to ``models.wavlm.convert_hubert_fairseq``, of ``eat`` to
+  ``models.vit.convert_eat_fairseq`` and of ``beats`` to
+  ``models.beats.convert_beats``;
 * ``overlay_`` copies each tensor into the model's tensor of that name, one
   tensor at a time, converting on the way to the stored dtype and device;
   an fp kernel meeting an int8 base (``kernel_q`` / ``kernel_scale``) is
@@ -37,6 +39,8 @@ from typing import Dict
 import torch
 from torch import nn
 
+from slam_llm_tpu_torch.models.beats import convert_beats
+from slam_llm_tpu_torch.models.vit import convert_eat_fairseq
 from slam_llm_tpu_torch.models.wavlm import convert_hubert_fairseq, convert_wavlm
 from slam_llm_tpu_torch.ops.quant import quantize_int8
 from slam_llm_tpu_torch.utils.safetensors_io import load_file, torch_load_file
@@ -107,7 +111,9 @@ def convert_whisper_encoder(sd: Dict[str, torch.Tensor], enc_cfg) -> Dict[str, t
 
 
 # the file-checkpoint families of the reference's dispatcher that the port has not taken yet
-_UNPORTED_FILE_ENCODERS = ("spatial_ast", "eat", "av_hubert", "beats", "beats_tokenizer", "clap")
+_UNPORTED_FILE_ENCODERS = ("spatial_ast", "av_hubert", "beats_tokenizer", "clap")
+# the file-checkpoint families the port converts, by encoder_name
+_FILE_CONVERTERS = {"hubert": convert_hubert_fairseq, "eat": convert_eat_fairseq, "beats": convert_beats}
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
@@ -130,7 +136,8 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 def convert_encoder_checkpoint(encoder_path: str, encoder_name: str, enc_cfg) -> Dict[str, torch.Tensor]:
     """An encoder checkpoint through its family's converter, dispatched as
     the reference's: an HF directory serves whisper, wavlm and hubert; a
-    torch file serves hubert (fairseq's schema). Any other directory raises
+    torch file serves hubert (fairseq's schema), eat (data2vec2's) and beats
+    (the official BEATs checkpoint). Any other directory raises
     ``ValueError``, as in the reference (which has no directory converter
     for them, emotion2vec included); a file of a family the reference loads
     and the port does not yet raises ``NotImplementedError``."""
@@ -146,12 +153,12 @@ def convert_encoder_checkpoint(encoder_path: str, encoder_name: str, enc_cfg) ->
         raise FileNotFoundError(
             f"model_config.encoder_path={encoder_path!r} does not exist (expected an HF dir or a torch checkpoint file)"
         )
-    if encoder_name == "hubert":
-        return convert_hubert_fairseq(load_torch_checkpoint(encoder_path), enc_cfg)
+    if encoder_name in _FILE_CONVERTERS:
+        return _FILE_CONVERTERS[encoder_name](load_torch_checkpoint(encoder_path), enc_cfg)
     if encoder_name in _UNPORTED_FILE_ENCODERS:
         raise NotImplementedError(f"loading a {encoder_name!r} encoder checkpoint is not ported yet ({_TODO_ENCODERS})")
     raise ValueError(f"no file-checkpoint converter for encoder {encoder_name!r} ({encoder_path!r}); whisper, wavlm "
-                     "and hubert load HF directories, hubert also a fairseq file")
+                     "and hubert load HF directories; hubert, eat and beats torch files")
 
 
 @torch.no_grad()

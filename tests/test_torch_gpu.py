@@ -101,6 +101,64 @@ def test_flash_kernel_at_the_encoder_shapes(gen, h):
     assert (lse - ref_lse).abs().max().item() <= 1e-3
 
 
+@pytest.mark.parametrize("b,t,lengths", [
+    (16, 513, None),  # EAT-base's fixed-length training batch: 1024 frames -> 64 x 8 patches + CLS
+    (8, 513, None),  # its decode batch
+    (4, 513, (1, 129, 257, 513)),  # ragged keys: the CLS alone, one past a 128-key tile, ...
+    (2, 97, None), (2, 1025, None),  # fixed_length: false at 1.9 s and 20.5 s (1 + 8 * frames / 16)
+])
+def test_flash_kernel_at_the_eat_shapes(gen, b, t, lengths):
+    """K1 at EAT-base's attention: 12 heads, D = 64, non-causal, so 128-key
+    tiles and 128-row units, of which T = 513 fills the last with one key
+    and one row; right-padded key masks as ``ViTEncoder`` builds them.
+    Within 2e-2 abs of the f32 twin, lse within 1e-3 on every row."""
+    h, d = 12, 64
+    plan = tflash.plan_flash(b, t, t, h, h, d, False, False).fwd
+    assert (plan.tile, plan.positions) == (128, 128)
+    q, k, v = _qkv(b, t, h, h, d, gen)
+    mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
+    for i, n in enumerate(lengths or ()):
+        mask[i, n:] = 0
+    before = tflash.flash_attention_fwd.launches
+    out, lse = tflash.flash_attention_fwd(q, k, v, mask, False)
+    assert tflash.flash_attention_fwd.launches == before + 1
+    ref, ref_lse = tflash.flash_attention_ref(q.float(), k.float(), v.float(), mask, False)
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+def test_eat_block_matches_its_cpu_twin(gen):
+    """One whole EAT-base block (pre-LN, q / k / v / proj with bias, K1,
+    the exact-GELU MLP) in bf16 on the card against the same block in f32
+    on the CPU plain path, ragged key masks: cosine >= 0.999 at every token,
+    one K1 launch."""
+    from slam_llm_tpu_torch.models.vit import VIT_PRESETS, ViTBlock
+    from slam_llm_tpu_torch.pipeline.common import init_params_
+
+    cfg = VIT_PRESETS["eat-base"]()
+    blk = init_params_(ViTBlock(cfg, device="cuda").eval(), gen)
+    with torch.no_grad():
+        for mod in blk.modules():  # biases and norms away from 0 / 1
+            for name in ("bias", "scale"):
+                t = getattr(mod, name, None)
+                if isinstance(t, torch.Tensor):
+                    t.add_(0.1 * torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype))
+    x = torch.randn(4, 513, cfg.d_model, generator=gen, device="cuda").bfloat16()
+    mask = torch.ones(4, 513, dtype=torch.int32, device="cuda")
+    for i, n in enumerate((513, 401, 129, 1)):
+        mask[i, n:] = 0
+    before = tflash.flash_attention_fwd.launches
+    with torch.no_grad():
+        out = blk(x, mask)
+    assert tflash.flash_attention_fwd.launches == before + 1
+    cpu = ViTBlock(dataclasses.replace(cfg, dtype=torch.float32)).eval()
+    cpu.load_state_dict({k: v.float().cpu() for k, v in blk.state_dict().items()})
+    with torch.no_grad():
+        ref = cpu(x.float().cpu(), mask.cpu())
+    cos = torch.nn.functional.cosine_similarity(out.float().cpu(), ref, dim=-1)
+    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all()) and cos.min().item() >= 0.999
+
+
 def test_flash_kernel_strided_cross_attention(gen):
     """Non-causal Tq != Tk on views of fused projections (q from a (B, T, 3,
     H, D) tensor, k / v from a (B, T, 2, Hkv, D) one): the tensor maps take

@@ -2,15 +2,18 @@
 
 ``slam_llm_tpu_torch`` carries copies of the host code its two entry points
 reach (config, registry, the speech dataset and its loader, the tokenizer,
-the audio frontend, SpecAugment, logging). Each is held here against its
-counterpart in ``slam_llm_tpu``: equal configs from every recipe YAML with
-``++`` overrides, bit-equal log-mel, identical collated batches and sampler
-orders, identical token ids. CPU only, tiny inputs.
+the audio frontend, SpecAugment, logging, and for the audio-captioning
+recipes the Kaldi fbank, the caption metrics and SPICE). Each is held here
+against its counterpart in ``slam_llm_tpu``: equal configs from every recipe
+YAML with ``++`` overrides, bit-equal log-mel and fbank, identical collated
+batches and sampler orders, identical token ids, equal caption metrics and
+the same CLI JSON. CPU only, tiny inputs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import sys
 import wave
 from pathlib import Path
@@ -28,16 +31,22 @@ from slam_llm_tpu.data import loader as jloader  # noqa: E402
 from slam_llm_tpu.data import speech_dataset as jspeech  # noqa: E402
 from slam_llm_tpu.data import tokenizer as jtok  # noqa: E402
 from slam_llm_tpu.ops import audio as jaudio  # noqa: E402
+from slam_llm_tpu.ops import fbank as jfbank  # noqa: E402
 from slam_llm_tpu.ops import specaug as jspecaug  # noqa: E402
+from slam_llm_tpu.utils import caption_metrics as jcaption  # noqa: E402
 from slam_llm_tpu.utils import logging_utils as jlog  # noqa: E402
+from slam_llm_tpu.utils import spice as jspice  # noqa: E402
 from slam_llm_tpu_torch import config as tconfig  # noqa: E402
 from slam_llm_tpu_torch import registry as tregistry  # noqa: E402
 from slam_llm_tpu_torch.data import loader as tloader  # noqa: E402
 from slam_llm_tpu_torch.data import speech_dataset as tspeech  # noqa: E402
 from slam_llm_tpu_torch.data import tokenizer as ttok  # noqa: E402
 from slam_llm_tpu_torch.ops import audio as taudio  # noqa: E402
+from slam_llm_tpu_torch.ops import fbank as tfbank  # noqa: E402
 from slam_llm_tpu_torch.ops import specaug as tspecaug  # noqa: E402
+from slam_llm_tpu_torch.utils import caption_metrics as tcaption  # noqa: E402
 from slam_llm_tpu_torch.utils import logging_utils as tlog  # noqa: E402
+from slam_llm_tpu_torch.utils import spice as tspice  # noqa: E402
 
 RECIPES = sorted((REPO / "examples").rglob("conf/*.yaml"))
 OVERRIDES = [
@@ -212,3 +221,96 @@ def test_logging_surface_matches(tmp_path):
     assert {"host_rss_peak_gb", "elapsed_s"} <= set(stats) <= {
         "host_rss_peak_gb", "elapsed_s", "hbm_in_use_gb", "hbm_peak_gb", "hbm_limit_gb"}
     tlog.MetricsLogger(tconfig.LogConfig()).log({"loss": 1.5}, step=3)
+
+
+def _waveform(seconds: float, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    n = int(seconds * 16000)
+    t = np.arange(n) / 16000
+    return (0.3 * np.sin(2 * np.pi * 523 * t) + 0.05 * rng.standard_normal(n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("seconds", [0.02, 1.3, 4.7])
+def test_fbank_is_bit_equal(seconds):
+    """The Kaldi fbank and both encoders' preprocessing, bit-equal on seeded
+    waveforms: ``fbank`` at 128 and 80 bins, ``eat_preprocess`` padded to a
+    multiple of 16, padded or trimmed to a fixed length, and randomly
+    cropped with the same generator, ``beats_preprocess``; the banks and the
+    window too."""
+    x = _waveform(seconds, seed=int(seconds * 10))
+    for bins in (128, 80):
+        got, want = tfbank.fbank(x, num_mel_bins=bins), jfbank.fbank(x, num_mel_bins=bins)
+        assert got.dtype == want.dtype == np.float32 and np.array_equal(got, want)
+    for kw in ({}, {"fixed_length": True, "target_length": 96}, {"fixed_length": True, "target_length": 64},
+               {"fixed_length": True, "target_length": 64, "random_crop": True}):
+        got = tfbank.eat_preprocess(x, **kw, rng=np.random.default_rng(5))
+        want = jfbank.eat_preprocess(x, **kw, rng=np.random.default_rng(5))
+        assert got.shape == want.shape and np.array_equal(got, want), kw
+    assert np.array_equal(tfbank.beats_preprocess(x), jfbank.beats_preprocess(x))
+    assert np.array_equal(tfbank.kaldi_mel_banks(128), jfbank.kaldi_mel_banks(128))
+    assert np.array_equal(tfbank._hann_symmetric(400), jfbank._hann_symmetric(400))
+
+
+def test_eat_random_crop_draws_from_the_generator():
+    """A clip longer than the fixed length is cropped at a generator-drawn
+    start (the same start in both), and trimmed from 0 without ``random_crop``."""
+    x = _waveform(1.3, seed=2)  # 128 frames
+    crops = {tfbank.eat_preprocess(x, target_length=64, fixed_length=True, random_crop=True,
+                                   rng=np.random.default_rng(seed))[0, 0] for seed in range(6)}
+    assert len(crops) > 1
+    full = tfbank.eat_preprocess(x, target_length=128, fixed_length=True)
+    assert np.array_equal(tfbank.eat_preprocess(x, target_length=64, fixed_length=True), full[:64])
+
+
+CANDIDATES = ["a dog barks in the yard while a car passes", "rain falls on a metal roof",
+              "a man talks while music plays", "birds are chirping", "quantum entanglement", ""]
+REFERENCES = [
+    ["a dog barks loudly in the yard", "a dog is barking as a vehicle drives by", "dogs bark outside"],
+    ["rain falls on the roof", "heavy rain hits a tin roof"],
+    ["a man speaks while music plays", "a person talks over background music", "music and a male voice"],
+    ["several birds chirp in the trees", "birds sing"],
+    ["an engine idles", "a motor runs"],
+    ["water flows from a tap"],
+]
+
+
+def test_caption_metrics_and_spice_agree():
+    """Every metric of ``compute_caption_metrics``, each scorer alone, FENSE
+    with the same callables, and SPICE's tokenizer, tagger, lemmas and scene
+    graphs, on multi-reference captions."""
+    assert tcaption.compute_caption_metrics(CANDIDATES, REFERENCES) == jcaption.compute_caption_metrics(
+        CANDIDATES, REFERENCES)
+    for name in ("bleu", "rouge_l", "cider_d", "meteor_lite"):
+        assert getattr(tcaption, name)(CANDIDATES, REFERENCES) == getattr(jcaption, name)(CANDIDATES, REFERENCES)
+    assert tspice.spice(CANDIDATES, REFERENCES) == jspice.spice(CANDIDATES, REFERENCES)
+
+    def embed(texts):
+        return np.stack([np.bincount([ord(c) % 16 for c in t] or [0], minlength=16) / (len(t) + 1.0) for t in texts])
+
+    def disfluent(texts):
+        return [len(t.split()) < 3 for t in texts]
+
+    got = tcaption.compute_caption_metrics(CANDIDATES, REFERENCES, fense_embed_fn=embed, fense_fluency_fn=disfluent)
+    assert got == jcaption.compute_caption_metrics(CANDIDATES, REFERENCES, fense_embed_fn=embed,
+                                                  fense_fluency_fn=disfluent) and "fense" in got
+    for caption in CANDIDATES + [r for refs in REFERENCES for r in refs]:
+        tokens = tspice.tokenize(caption)
+        assert tokens == jspice.tokenize(caption) and tspice.pos_tag(tokens) == jspice.pos_tag(tokens)
+        assert [tspice.lemma(w) for w in tokens] == [jspice.lemma(w) for w in tokens]
+        assert tspice.scene_graph(caption) == jspice.scene_graph(caption)
+
+
+def test_caption_metrics_cli_prints_the_same_json(tmp_path):
+    """``python -m slam_llm_tpu_torch.utils.caption_metrics <gt> <pred>``
+    prints the JAX module's JSON, every reference of a key kept."""
+    import subprocess
+
+    gt, pred = tmp_path / "decode_gt", tmp_path / "decode_pred"
+    gt.write_text("".join(f"clip{i}\t{r}\n" for i, refs in enumerate(REFERENCES) for r in refs))
+    pred.write_text("".join(f"clip{i}\t{c}\n" for i, c in enumerate(CANDIDATES)))
+    assert tcaption._read_log(str(gt)) == jcaption._read_log(str(gt)) == {
+        f"clip{i}": refs for i, refs in enumerate(REFERENCES)}
+    out = subprocess.run([sys.executable, "-m", "slam_llm_tpu_torch.utils.caption_metrics", str(gt), str(pred)],
+                         cwd=REPO, capture_output=True, text=True, timeout=120, check=True).stdout
+    want = jcaption.compute_caption_metrics(CANDIDATES, REFERENCES)
+    assert json.loads(out.strip().splitlines()[-1]) == want and out.strip().splitlines()[-1] == json.dumps(want)

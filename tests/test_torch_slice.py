@@ -229,7 +229,7 @@ def test_unported_parts_raise(tmp_path):
 
     cfg = _tiny_cfg(tmp_path, n=2)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tslam.build_slam_config(cfg.train_config, dataclasses.replace(cfg.model_config, encoder_name="beats"))
+        tslam.build_slam_config(cfg.train_config, dataclasses.replace(cfg.model_config, encoder_name="musicfm"))
     # the q-former and conv1d projectors are ported: they build
     for kind, cls in (("q-former", tproj.ProjectorQFormer), ("cov1d-linear", tproj.ProjectorConv1d)):
         sc = tslam.build_slam_config(cfg.train_config, dataclasses.replace(cfg.model_config, encoder_projector=kind))
@@ -330,9 +330,24 @@ raw = inference_batch.main(tiny_run_config(make_corpus(tmp, n=2), **{
     "model_config.encoder_path": str(tmp / "wavlm"), "dataset_config.input_type": "raw",
     "decode_config.decode_log": str(tmp / "w"), "decode_config.max_new_tokens": 3,
     "train_config.shard.base_quant": "int8"}), device="cpu")
+# the AAC recipes' pieces: an EAT file in the data2vec2 layout, a fixed-length
+# fbank decode through the audio dataset, the caption metrics over its logs
+import contextlib, io
+from slam_llm_tpu_torch.models import vit
+from slam_llm_tpu_torch.tools.synth_checkpoint import write_eat
+from slam_llm_tpu_torch.utils import caption_metrics
+write_eat(str(tmp / "eat.pt"), vit.ViTEncoderConfig.tiny_test(), seed=1)
+aac = inference_batch.main(tiny_run_config(make_corpus(tmp, n=2), **{
+    "model_config.encoder_name": "eat", "model_config.encoder_config": "eat-tiny-test",
+    "model_config.encoder_path": str(tmp / "eat.pt"), "dataset_config.dataset": "audio_dataset",
+    "dataset_config.target_length": 64, "decode_config.decode_log": str(tmp / "a"),
+    "decode_config.max_new_tokens": 3}), device="cpu")
+with contextlib.redirect_stdout(io.StringIO()):
+    scores = caption_metrics.main(aac["gt"], aac["pred"])
 for mod in pkgutil.walk_packages(slam_llm_tpu_torch.__path__, "slam_llm_tpu_torch."):
     importlib.import_module(mod.name)
-print(json.dumps({"n": res["n"] + raw["n"], "steps": len(train["steps"]) + len(st["steps"]), "bleu": "bleu" in bleu[-1],
+print(json.dumps({"n": res["n"] + raw["n"] + aac["n"], "steps": len(train["steps"]) + len(st["steps"]),
+                  "bleu": "bleu" in bleu[-1] and "spider" in scores,
                   "jax": "jax" in sys.modules, "flax": "flax" in sys.modules,
                   "hf": sorted(m for m in ("tokenizers", "transformers", "regex", "sacrebleu") if m in sys.modules),
                   "slam_llm_tpu": sorted(m for m in sys.modules if m == "slam_llm_tpu" or m.startswith("slam_llm_tpu."))}))
@@ -343,7 +358,9 @@ def test_port_runs_without_importing_jax():
     """The decode slice, a training step through the finetune CLI, the ST
     recipe's pieces (a qwen2-layout ByteLevel tokenizer, a Q-Former training
     step, BLEU over the decode logs), the WavLM recipe's (an HF WavLM
-    directory written and loaded, a raw-audio decode) and every module of the package, in a
+    directory written and loaded, a raw-audio decode), the AAC recipes' (an
+    EAT file written and loaded, an fbank decode through the audio dataset,
+    the caption metrics) and every module of the package, in a
     fresh interpreter with a config from the port's own ``config`` module:
     neither jax nor flax nor any module of the JAX package is ever imported
     (this test process has all three), nor tokenizers, transformers, regex
@@ -354,7 +371,7 @@ def test_port_runs_without_importing_jax():
         timeout=300, check=True,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {
-        "n": 4, "steps": 2, "bleu": True, "jax": False, "flax": False, "hf": [], "slam_llm_tpu": []}
+        "n": 6, "steps": 2, "bleu": True, "jax": False, "flax": False, "hf": [], "slam_llm_tpu": []}
 
 
 def test_port_sources_never_import_jax():

@@ -287,7 +287,7 @@ def test_synth_wavlm_directory_reads_in_transformers(tmp_path, preset):
         ref = ref_model(torch.from_numpy(audio)).last_hidden_state.numpy()
     sd = hf_loader.convert_encoder_checkpoint(str(tmp_path), "wavlm" if cfg.rel_bias else "hubert", cfg)
     np.testing.assert_allclose(_run_port(cfg, sd, audio), ref, atol=5e-4, rtol=1e-3)
-    out = synth.main([str(tmp_path / "cli"), "--llm", "none", "--encoder", "wavlm-tiny-test"])
+    out = synth.main([str(tmp_path / "cli"), "--llm", "none", "--encoder", "wavlm-tiny-test", "--device", "cpu"])
     assert (tmp_path / "cli" / "wavlm" / "config.json").is_file() and set(out) == {"encoder"}
 
 
