@@ -91,7 +91,19 @@ Phases, each fatal on failure:
                 WavLM-large, hubert-large and emotion2vec-base encoders on two
                 ragged utterances against the CPU f32 plain path (K1 once a
                 layer for the last two, whose attention takes no rel-pos
-                bias; these runs count on the wavlm path).
+                bias; these runs count on the wavlm path);
+ 10. aac     -- aac_eat_vicuna and SLAM-AAC (EAT-base + linear + vicuna-7b in
+                bf16, LoRA r8 for SLAM-AAC) through both entry points at full
+                width (run_aac);
+ 11. clap    -- the CLAP recipes at full width (run_clap): HTSAT-base +
+                BERT-base CLAP from a reference-layout file; SLAM-AAC's decode
+                of phase 10's clips with 4 candidates a key, reranked by
+                utils.clap_refine and scored with the caption metrics and
+                FENSE; DRCap (drcap.yaml: CLAP latents + linear + vicuna-7b):
+                a caption store, a RAG manifest, training steps through the
+                trainer's step (K1 = K4 = 32 a step, K2 = K3 = 0), the decode
+                from projection-decoded audio latents; the card against the
+                CPU for the whole CLAP and for DRCap at 2 LLM layers.
 
 Prints one JSON line of kernel results before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -737,6 +749,15 @@ def check_kernels() -> list:
 # ---------------------------------------------------------------------------
 
 
+def _corpus_samples(i: int, n: int) -> int:
+    return int((2.0 + 8.0 * i / (n - 1)) * 16000)
+
+
+def corpus_seconds(n: int) -> float:
+    """The seconds of audio ``write_corpus`` writes for ``n`` clips."""
+    return sum(_corpus_samples(i, n) for i in range(n)) / 16000
+
+
 def write_corpus(root: Path, n: int = 16, seed: int = 0, name: str = "test", targets=None) -> Path:
     """n synthetic 16 kHz wavs of 2-10 s (tone + noise) and a jsonl manifest;
     the targets are ``targets`` in turn, else "utterance i"."""
@@ -746,8 +767,7 @@ def write_corpus(root: Path, n: int = 16, seed: int = 0, name: str = "test", tar
     manifest = root / f"{name}.jsonl"
     with open(manifest, "w") as f:
         for i in range(n):
-            seconds = 2.0 + 8.0 * i / (n - 1)
-            t = np.arange(int(seconds * 16000)) / 16000
+            t = np.arange(_corpus_samples(i, n)) / 16000
             x = 0.3 * np.sin(2 * np.pi * (200 + 50 * (i % 16)) * t) + 0.02 * rng.standard_normal(t.size)
             path = root / f"{name}_utt{i}.wav"
             with wave.open(str(path), "wb") as w:
@@ -1473,7 +1493,8 @@ def st_bleu(out) -> dict:
 
 def check_reduced_against_cpu(trainer, cfg, prefill_batch, train_ds, label: str, layers: int = 2) -> None:
     """The recipe at its full widths but ``layers`` LLM and encoder layers
-    (a 7B f32 model on the host is neither quick nor small), with the
+    (a 7B f32 model on the host is neither quick nor small; a model without
+    an encoder keeps none), with the
     trained projector whole (and the trained LoRA factors of the layers
     kept): the bf16 prefill logits of ``prefill_batch``'s first utterance
     and every trainable gradient of one utterance of ``train_ds``, card vs
@@ -1486,7 +1507,7 @@ def check_reduced_against_cpu(trainer, cfg, prefill_batch, train_ds, label: str,
 
     big = trainer.model.cfg
     small_cfg = dataclasses.replace(big, llm=dataclasses.replace(big.llm, n_layers=layers),
-                                    encoder=dataclasses.replace(big.encoder, n_layers=layers))
+                                    encoder=big.encoder and dataclasses.replace(big.encoder, n_layers=layers))
     small = SLAMModel(small_cfg, device="cuda")
     init_params_(small, torch.Generator(device="cuda").manual_seed(cfg.train_config.seed))
     trained = trainer.trainable
@@ -1495,8 +1516,9 @@ def check_reduced_against_cpu(trainer, cfg, prefill_batch, train_ds, label: str,
             if n in trained:
                 p.copy_(trained[n])
     small_trainer = Trainer(small, small_cfg, cfg.train_config).state_from_params()
-    log(f"[{label}] card vs CPU at {layers} of {big.llm.n_layers} LLM layers and {layers} of {big.encoder.n_layers} "
-        f"encoder layers (full widths, the trained tensors of those layers and the projector whole)")
+    encoder = f"{layers} of {big.encoder.n_layers} encoder layers" if big.encoder else "no encoder"
+    log(f"[{label}] card vs CPU at {layers} of {big.llm.n_layers} LLM layers and {encoder} (full widths, the trained "
+        f"tensors of those layers and the projector whole)")
     compare_prefill(small.eval(), prefill_batch, label)
     small.to("cuda")
     check_train_grads_against_cpu(small_trainer, train_ds, label)
@@ -1934,11 +1956,12 @@ def run_aac() -> dict:
     pipeline.inference_batch with SLAM-AAC's ckpt_path against the
     in-memory trained model's decode, the caption metrics, the card-vs-CPU
     checks at AAC_LAYERS LLM and encoder layers, and the whole EAT-base and
-    BEATs-iter3 encoders on two ragged clips."""
+    BEATs-iter3 encoders on two ragged clips. Returns the launch counts and
+    what phase 11 reuses: the directory (which it removes), the EAT file's
+    override, SLAM-AAC's checkpoint and the test clips' manifest."""
     global _synth_tokenizer_dir
     import contextlib
     import io
-    import shutil
 
     from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
     from slam_llm_tpu_torch.models.beats import BEATS_PRESETS, BEATsEncoder
@@ -2059,10 +2082,11 @@ def run_aac() -> dict:
         f"{out['load_seconds']:.2f} s; decode {out['seconds']:.2f} s, prefill "
         f"{1000 * out['prefill_s'] / out['calls']:.1f} ms/batch, "
         f"{1000 * out['decode_s'] / max(out['decode_steps'], 1):.2f} ms/beam step over {out['decode_steps']} steps, "
-        f"{out['generated_tokens']} tokens, RTF {out['rtf']:.4f} ({out['audio_seconds']:.2f} s of audio from "
-        f"audio_mel_mask at 10 ms); launches {dec_launches} | {SMI}")
-    if abs(out["audio_seconds"] - 16 * 10.24) > 1e-6 or {b["input_ids"].shape[1] for b in batches} != {SLAM_AAC_T}:
-        raise AssertionError(f"decode: {out['audio_seconds']} s of audio (16 fixed-length clips count 10.24 s each), "
+        f"{out['generated_tokens']} tokens, RTF {out['rtf']:.4f} ({out['audio_seconds']:.2f} s of audio: the clips' "
+        f"true seconds, not the 10.24 s of fbank each is padded to); launches {dec_launches} | {SMI}")
+    if abs(out["audio_seconds"] - corpus_seconds(16)) > 1e-6 or {b["input_ids"].shape[1] for b in batches} != {
+            SLAM_AAC_T}:
+        raise AssertionError(f"decode: {out['audio_seconds']} s of audio, not the clips' {corpus_seconds(16)}; "
                              f"T {[b['input_ids'].shape for b in batches]}")
     # a random model's text may hold line breaks: the log is compared whole, as written
     with open(out["pred"], encoding="utf-8", newline="") as f:
@@ -2116,13 +2140,345 @@ def run_aac() -> dict:
         f"{times['attn_ms']:.4f} ms a layer, {times['attn_ms'] * bc.n_layers:.2f} ms over {bc.n_layers} layers; SDPA "
         f"with the same additive mask {times['sdpa_ms']:.4f} ms | {SMI}")
     del beats
-    shutil.rmtree(tmp)
     total = {k: launches[k] + launches2[k] + dec_launches[k] + enc_launches[k] for k in launches}
     missing = [name for name in AAC_PATH if total[name] == 0]
     if missing or any(total[k] for k in AAC_BYPASSED):
         raise AssertionError(f"kernels never launched on the AAC path: {missing}; K2 / K3 launched: "
                              f"{ {k: total[k] for k in AAC_BYPASSED} }")
     log(f"[aac] phase 10 in {time.perf_counter() - t_phase:.1f} s")
+    # phase 11 decodes the same clips with the same files; it removes tmp
+    return total, dict(tmp=tmp, enc_path=enc_path, ckpt=ckpt, test_manifest=test_manifest)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: CLAP (HTSAT-base + BERT-base) with CLAP-Refine and FENSE on
+# SLAM-AAC's decode, and DRCap (CLAP latents + linear + vicuna-7b in bf16)
+# ---------------------------------------------------------------------------
+
+DRCAP_RECIPE = ROOT / "examples" / "drcap_zeroshot_aac" / "conf" / "drcap.yaml"
+DRCAP_STEPS = 3
+DRCAP_SUPPORT = 512  # captions in the support store
+DRCAP_DECODE = 8  # clips decoded
+DRCAP_LAYERS = 2  # LLM depth of the card-vs-CPU check
+REFINE_BEAMS = 4  # num_return_sequences of SLAM-AAC's decode, the candidates CLAP-Refine picks from
+# a random model's text has no spaces, so BERT's WordPiece splits it letter
+# by letter: longer candidates would fill its 64 pieces with their shared
+# prefix and leave CLAP-Refine only ties
+REFINE_NEW_TOKENS = 8
+CLAP_PATH = ("flash_attention_fwd", "flash_attention_bwd")
+_SUBJECTS = ("a dog", "a man", "a woman", "a child", "birds", "a car", "a train", "rain", "wind", "water",
+             "an engine", "people", "a crowd", "a bell", "a cat", "thunder")
+_ACTIONS = ("barks", "speaks softly", "sings", "chirp", "passes by", "falls steadily", "blows hard", "runs",
+            "idles", "talk", "cheers", "rings twice", "meows", "rumbles", "hums", "whistles")
+_PLACES = ("in the distance", "on a busy street", "near a river", "inside a small room", "in the rain",
+           "on a metal roof", "at night", "in a park", "over loud music", "while cars pass", "by the sea",
+           "in a forest", "in a kitchen", "on a train platform", "behind a door", "under a bridge")
+
+
+def drcap_captions(n: int = DRCAP_SUPPORT, seed: int = 0) -> list:
+    """``n`` distinct made-up captions in the AudioCaps style."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    while len(out) < n:
+        s, a, p = (int(rng.integers(16)) for _ in range(3))
+        out.setdefault(f"{_SUBJECTS[s]} {_ACTIONS[a]} {_PLACES[p]}")
+    return list(out)
+
+
+def _drcap_config(loader, *extra):
+    return loader(["--config", str(DRCAP_RECIPE), "++model_config.file=__main__:synth_tokenizer_factory", *extra])
+
+
+def _clap_vs_cpu(model, mels, texts, tok, cands, selection) -> None:
+    """The whole CLAP on the card against a CPU f32 copy: ``encode_audio`` of
+    the first 2 clips and ``encode_text`` of 4 captions, cosine >= 0.999 a
+    row; and the CLAP-Refine choice of every key whose top-2 similarity
+    margin on the CPU exceeds 1e-4 equal to the card's ``selection``."""
+    from slam_llm_tpu_torch.models.clap import CLAP, embed_texts
+
+    cpu = CLAP(model.cfg, device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        two = torch.from_numpy(np.stack(list(mels.values())[:2]))
+        ca = torch.nn.functional.cosine_similarity(model.encode_audio(two.cuda()).cpu(), cpu.encode_audio(two), dim=-1)
+        ct = torch.nn.functional.cosine_similarity(torch.from_numpy(embed_texts(model, tok, texts[:4])),
+                                                   torch.from_numpy(embed_texts(cpu, tok, texts[:4])), dim=-1)
+        za = cpu.encode_audio(torch.from_numpy(np.stack([mels[k] for k in cands]))).numpy()
+    agree, kept = 0, 0
+    for i, (key, options) in enumerate(cands.items()):
+        sims = embed_texts(cpu, tok, options) @ za[i]
+        top = np.sort(sims)
+        if top[-1] - top[-2] > 1e-4:
+            kept += 1
+            agree += selection[key] == options[int(np.argmax(sims))]
+    cpu_s = time.perf_counter() - t0
+    log(f"[clap] CLAP-base card vs CPU f32 ({cpu_s:.1f} s on CPU): encode_audio of 2 clips min cosine "
+        f"{ca.min().item():.6f}, encode_text of 4 captions min cosine {ct.min().item():.6f}; CLAP-Refine choice "
+        f"equal on {agree} of the {kept} keys (of {len(cands)}) whose top-2 margin exceeds 1e-4")
+    if ca.min().item() < 0.999 or ct.min().item() < 0.999 or agree != kept:
+        raise AssertionError(f"CLAP card vs CPU: audio cosine {ca.min().item()}, text {ct.min().item()}, refine "
+                             f"choice equal on {agree} of {kept} keys")
+
+
+def clap_speed_rows(model, one, ids, mask) -> dict:
+    """The plain attention of BERT-base (the candidates' batch, 12 heads of
+    64, the -1e9 key mask) and of HTSAT-base's first stage (one clip: 64
+    windows of 64 tokens, 4 heads of 24, the bias table and the shift mask)
+    in f32 as ``models/bert.py`` / ``models/htsat.py`` compute it, beside
+    SDPA with the same additive mask (CUDA-graph replay); and the whole
+    CLAP encoders in f32 beside bf16 autocast (CUDA events)."""
+    from slam_llm_tpu_torch.models.htsat import relative_position_index, shift_attn_mask
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for name, (b, t, h, d), bias in (
+            ("bert", (ids.shape[0], ids.shape[1], 12, 64),
+             torch.where(mask[:, None, None, :] > 0, 0.0, -1e9).float()),
+            ("htsat", (64, 64, 4, 24),
+             (torch.randn(225, 4, generator=gen, device="cuda")[torch.from_numpy(relative_position_index(8).reshape(
+                 -1)).cuda()].reshape(64, 64, 4).permute(2, 0, 1)[None]
+              + torch.from_numpy(shift_attn_mask(64, 64, 8, 4)).cuda()[:, None]))):
+        q, k, v = (torch.randn(b, h, t, d, generator=gen, device="cuda") for _ in range(3))
+
+        def plain():
+            probs = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q, k) / d ** 0.5 + bias, dim=-1)
+            return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+        out[f"{name}_plain_ms"], out[f"{name}_sdpa_ms"] = time_ms(plain), time_ms(lambda: sdpa(q, k, v, attn_mask=bias))
+        out[f"{name}_shape"] = (b, t, h, d)
+    with torch.inference_mode():
+        for tower, fn in (("audio", lambda: model.encode_audio(one)), ("text", lambda: model.encode_text(ids, mask))):
+            out[f"{tower}_f32_ms"] = event_ms(fn, reps=5)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                out[f"{tower}_bf16_ms"] = event_ms(fn, reps=5)
+    return out
+
+
+def run_clap(aac: dict) -> dict:
+    """Phase 11: full-width CLAP (HTSAT-base + BERT-base-uncased, 1024 wide,
+    f32) from a reference-layout ASE file, and FENSE's SBERT / echecker, all
+    written by tools/synth_checkpoint. (a) SLAM-AAC's decode of phase 10's
+    clips with ``num_return_sequences`` 4 through pipeline.inference_batch,
+    reranked by ``utils.clap_refine.clap_refine_with_model`` and scored with
+    the caption metrics, FENSE included. (b) DRCap (drcap.yaml): a support
+    store of DRCAP_SUPPORT captions, a RAG manifest, DRCAP_STEPS training
+    steps of 16 text latents through the trainer's step (the projector
+    trains; the gradient crosses the frozen bf16 vicuna-7b), then the decode
+    of DRCAP_DECODE clips: CLAP audio latent -> projection decode onto the
+    store -> the top 3 captions in the prompt -> beam 4. The card-vs-CPU
+    checks: the whole CLAP, and DRCap at DRCAP_LAYERS LLM layers."""
+    import shutil
+
+    from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
+    from slam_llm_tpu_torch.inference.generate import Generator
+    from slam_llm_tpu_torch.models.clap import CLAPConfig, embed_texts, load_clap
+    from slam_llm_tpu_torch.pipeline import finetune, inference_batch
+    from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
+    from slam_llm_tpu_torch.tools import synth_checkpoint as synth
+    from slam_llm_tpu_torch.train.state import Trainer
+    from slam_llm_tpu_torch.utils import caption_metrics, clap_refine, drcap
+    from slam_llm_tpu_torch.utils.fense import FenseScorer, WordPieceTokenizer
+
+    t_phase = time.perf_counter()
+    tmp, cfg = aac["tmp"], CLAPConfig()
+    captions = drcap_captions()
+    words = captions + AAC_CAPTIONS
+    t0 = time.perf_counter()
+    sizes = dict(clap=synth.write_clap(str(tmp / "clap" / "clap.pt"), cfg, seed=7, device="cuda"),
+                 vocab=synth.write_bert_vocab(str(tmp / "clap" / "vocab.txt"), cfg.bert.vocab_size, words=words),
+                 sbert=synth.write_sbert(str(tmp / "sbert"), seed=8, device="cuda", words=words),
+                 echecker=synth.write_echecker(str(tmp / "echecker.ckpt"), seed=9, device="cuda"))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = load_clap(str(tmp / "clap" / "clap.pt"), cfg, "cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    tok = WordPieceTokenizer(str(tmp / "clap" / "vocab.txt"))
+    n_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    log(f"[clap] wrote the ASE file (HTSAT-base {cfg.htsat.depths} x {cfg.htsat.embed_dim}, BERT-base, embed "
+        f"{cfg.embed_dim}), a {cfg.bert.vocab_size}-line vocab.txt, the SBERT directory and the echecker ({sizes} "
+        f"bytes) in {write_s:.2f} s; loaded CLAP on the card through convert_ase_torch_state in {load_s:.2f} s: "
+        f"{n_bytes / 1e9:.3f} GB of f32 parameters")
+
+    # (a) SLAM-AAC's candidates, CLAP-Refine, the caption metrics with FENSE
+    dec = _aac_config(
+        SLAM_AAC_RECIPE, inference_batch.load_run_config, aac["enc_path"], f"++ckpt_path={aac['ckpt']}",
+        f"++dataset_config.val_data_path={aac['test_manifest']}", f"++decode_config.decode_log={tmp / 'refine'}",
+        f"++decode_config.max_new_tokens={REFINE_NEW_TOKENS}", f"++train_config.val_batch_size={AAC_DECODE_BATCH}",
+        f"++decode_config.num_return_sequences={REFINE_BEAMS}",
+    )
+    out, launches_a = run_counted(lambda: inference_batch.main(dec, device="cuda"))
+    cands = clap_refine.read_candidates([out["pred"]])
+    log(f"[clap] SLAM-AAC inference_batch, beam {dec.decode_config.num_beams} with num_return_sequences "
+        f"{REFINE_BEAMS}: {out['n']} clips, {sum(map(len, cands.values()))} candidate lines; decode "
+        f"{out['seconds']:.2f} s, prefill {1000 * out['prefill_s'] / out['calls']:.1f} ms/batch, "
+        f"{1000 * out['decode_s'] / max(out['decode_steps'], 1):.2f} ms/beam step, RTF {out['rtf']:.4f} over "
+        f"{out['audio_seconds']:.2f} s of audio (the clips' true seconds); launches {launches_a} | {SMI}")
+    if out["n"] != 16 or sorted(map(len, cands.values())) != [REFINE_BEAMS] * 16:
+        raise AssertionError(f"{out['n']} clips, candidates a key {sorted(map(len, cands.values()))}")
+    if abs(out["audio_seconds"] - corpus_seconds(16)) > 1e-6:
+        raise AssertionError(f"the RTF counts {out['audio_seconds']} s, not the clips' {corpus_seconds(16)}")
+    t0 = time.perf_counter()
+    selection = clap_refine.clap_refine_with_model([out["pred"]], str(tmp / "clap" / "clap.pt"),
+                                                   str(aac["test_manifest"]), str(tmp / "refined"), cfg=cfg,
+                                                   device="cuda")
+    refine_s = time.perf_counter() - t0
+    if set(selection) != set(cands) or any(selection[k] not in cands[k] for k in cands):
+        raise AssertionError("a refined caption is not one of its key's candidates")
+    changed = sum(selection[k] != cands[k][0] for k in cands)
+    distinct = sum(len({tuple(tok.encode(t)) for t in options}) > 1 for options in cands.values())
+    mels = {k: clap_refine.clip_mel(src, cfg) for k, src in clap_refine.read_manifest(str(aac["test_manifest"])).items()}
+    one = torch.from_numpy(mels["utt0"])[None].cuda()
+    texts = [t for options in cands.values() for t in options]
+    ids, mask = (torch.from_numpy(x).cuda() for x in tok.batch(texts))
+    with torch.inference_mode():
+        audio_ms = event_ms(lambda: model.encode_audio(one), reps=5)
+        text_ms = event_ms(lambda: model.encode_text(ids, mask), reps=5) / len(texts)
+    scorer = FenseScorer(str(tmp / "sbert"), str(tmp / "echecker.ckpt"), device="cuda")
+    gts = caption_metrics._read_log(out["gt"])
+    refs, chosen = [gts[k] for k in selection], list(selection.values())
+    t0 = time.perf_counter()
+    fense = scorer.score(chosen, refs)
+    fense_ms = 1000 * (time.perf_counter() - t0)
+    metrics = caption_metrics.compute_caption_metrics(chosen, refs, fense_embed_fn=scorer.embed,
+                                                      fense_fluency_fn=scorer.fluency_errors)
+    log(f"[clap] CLAP-Refine: {len(selection)} keys reranked in {refine_s:.2f} s (load included), {distinct} with "
+        f"candidates that differ in BERT's word pieces, {changed} picked another candidate than the beam's best; CLAP-base audio embed {audio_ms:.2f} ms a clip "
+        f"{tuple(one.shape)}, text embed {text_ms:.3f} ms a candidate ({len(texts)} in one batch {tuple(ids.shape)}), "
+        f"by CUDA events; FENSE over {len(chosen)} captions {fense_ms:.1f} ms wall (SBERT {scorer.sbert.cfg.d_model} "
+        f"wide x {scorer.sbert.cfg.n_layers}, echecker {scorer.echecker.cfg.d_model} x "
+        f"{scorer.echecker.cfg.n_layers}) | {SMI}")
+    log(f"[clap] caption metrics of the refined captions (random weights: no target): {json.dumps(metrics)}")
+    rows = clap_speed_rows(model, one, ids, mask)
+    log(f"[clap] plain attention vs SDPA (f32, the same additive mask, graph replay): BERT-base "
+        f"{rows['bert_shape']} {rows['bert_plain_ms']:.4f} vs {rows['bert_sdpa_ms']:.4f} ms a layer; HTSAT-base stage "
+        f"0 windows {rows['htsat_shape']} {rows['htsat_plain_ms']:.4f} vs {rows['htsat_sdpa_ms']:.4f} ms a block; "
+        f"CLAP f32 vs bf16 autocast (CUDA events): encode_audio of one clip {rows['audio_f32_ms']:.2f} vs "
+        f"{rows['audio_bf16_ms']:.2f} ms, encode_text of {len(texts)} candidates {rows['text_f32_ms']:.2f} vs "
+        f"{rows['text_bf16_ms']:.2f} ms | {SMI}")
+    if not ("fense" in metrics and abs(metrics["fense"] - round(fense, 4)) < 1e-4
+            and all(np.isfinite(v) for v in metrics.values())):
+        raise AssertionError(f"caption metrics {metrics}, FENSE {fense}")
+    _clap_vs_cpu(model, mels, texts, tok, cands, selection)
+    del scorer
+    torch.cuda.empty_cache()
+
+    # (b) DRCap: the support store, the RAG manifest, training on text latents
+    def embed(texts_):
+        return embed_texts(model, tok, texts_)
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        support = drcap.encode_captions(captions, lambda i, m: model.encode_text(
+            torch.from_numpy(i).cuda(), torch.from_numpy(m).cuda()), tok)
+    store_s = time.perf_counter() - t0
+    drcap.save_support(str(tmp / "support"), captions, support)
+    captions, support = drcap.load_support(str(tmp / "support"))
+    targets = [captions[(7 * i) % DRCAP_SUPPORT] for i in range(16 * DRCAP_STEPS)]
+    train = write_corpus(tmp, n=16 * DRCAP_STEPS, name="drcap_train", targets=targets)
+    drcap.augment_manifest_with_rag(str(train), str(tmp / "drcap_rag.jsonl"), captions, support, embed, k=3)
+    rag = [json.loads(line) for line in open(tmp / "drcap_rag.jsonl")]
+    if any(len(r["similar_captions"]) != 3 or r["target"] in r["similar_captions"] for r in rag):
+        raise AssertionError("a RAG row lacks 3 similar captions or retrieved its own")
+    cfg_b = _drcap_config(
+        finetune.load_run_config, f"++dataset_config.train_data_path={tmp / 'drcap_rag.jsonl'}",
+        f"++dataset_config.val_data_path={tmp / 'drcap_rag.jsonl'}", "++train_config.warmup_steps=2",
+    )
+    mc, dc, tc = cfg_b.model_config, cfg_b.dataset_config, cfg_b.train_config
+    if (mc.encoder_name, mc.encoder_dim, mc.encoder_projector, mc.encoder_projector_ds_rate, mc.llm_name,
+            dc.dataset, dc.fix_length_audio, tc.batch_size_training, tc.freeze_llm, tc.use_peft, tc.shard.base_quant,
+            cfg_b.decode_config.num_beams, cfg_b.decode_config.max_new_tokens) != (
+            None, cfg.embed_dim, "linear", 1, "vicuna-7b", "speech_dataset", 1, 16, True, False, "none", 4, 64):
+        raise AssertionError(f"the DRCap recipe changed: {mc} {dc} {tc}")
+    t0 = time.perf_counter()
+    llm_model, llm_tok, ds = build_model_and_data(cfg_b, split="train", device="cuda")
+    materialize_params(llm_model, cfg_b)
+    build_s = time.perf_counter() - t0
+    trainer = Trainer(llm_model, llm_model.cfg, tc).state_from_params()
+    train_ds = drcap.LatentCaptionDataset(ds, embed([r["target"] for r in rag]))
+    batches = [trainer.put_batch(train_ds.collator([train_ds[i] for i in range(16 * s, 16 * s + 16)]))
+               for s in range(DRCAP_STEPS)]
+    shapes = {tuple(b["input_ids"].shape) for b in batches} | {tuple(b["audio_mel"].shape) for b in batches}
+    if len(shapes) != 2 or (16, 1, cfg.embed_dim) not in shapes or not any((16, t) in shapes for t in W_TRAIN_T):
+        raise AssertionError(f"DRCap's batches {shapes} are not at a T phase 3 checks K1 / K4 at ({W_TRAIN_T})")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def steps():
+        times, losses = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            m = trainer.train_step(b)
+            losses.append(float(m["loss"]))  # waits for the step
+            times.append(time.perf_counter() - t0)
+        return times, losses
+
+    (times, losses), launches_b = run_counted(steps)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.mean(times[1:]))
+    n_layers = llm_model.cfg.llm.n_layers
+    log(f"[drcap] support store of {len(captions)} captions embedded in {store_s:.2f} s; RAG manifest of {len(rag)} "
+        f"rows (k 3, itself excluded); vicuna-7b built and materialized in {build_s:.2f} s; {DRCAP_STEPS} steps of "
+        f"batch {tuple(batches[0]['input_ids'].shape)}: losses {[round(x, 5) for x in losses]}, step {1000 * step_s:.1f} ms (mean of "
+        f"steps 2-{DRCAP_STEPS}), {16 / step_s:.2f} utt/s, peak memory {peak / 2**30:.2f} GiB "
+        f"({(peak - base) / 2**30:.2f} of its own); per step K1 {launches_b['flash_attention_fwd'] / DRCAP_STEPS:.0f} "
+        f"K4 {launches_b['flash_attention_bwd'] / DRCAP_STEPS:.0f} K2 {launches_b['rowquant'] / DRCAP_STEPS:.0f} "
+        f"K3 {launches_b['int8_matmul'] / DRCAP_STEPS:.0f} | {SMI}")
+    if not all(np.isfinite(losses)) or (launches_b["flash_attention_fwd"], launches_b["flash_attention_bwd"]) != (
+            n_layers * DRCAP_STEPS, n_layers * DRCAP_STEPS) or any(launches_b[k] for k in AAC_BYPASSED):
+        raise AssertionError(f"DRCap training: losses {losses}, launches {launches_b} (K1 = K4 = {n_layers} a step, "
+                             f"K2 = K3 = 0)")
+    check_projector_trained(trainer, cfg_b, "drcap")
+
+    # (b) DRCap's decode: audio latent -> projection decode -> retrieval -> beam 4
+    keys = [f"utt{i}" for i in range(DRCAP_DECODE)]
+    sources = clap_refine.read_manifest(str(aac["test_manifest"]))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        za = model.encode_audio(torch.from_numpy(np.stack([mels[k] for k in keys])).cuda()).cpu().numpy()
+    latents = drcap.projection_decode(za, support, 0.07)
+    similar = drcap.retrieve_topk(latents, support, captions, k=3)
+    retrieve_s = time.perf_counter() - t0
+    with open(tmp / "drcap_test.jsonl", "w") as f:
+        for key, sims in zip(keys, similar):
+            f.write(json.dumps({"key": key, "source": sources[key], "target": "", "similar_captions": sims}) + "\n")
+    dec_b = _drcap_config(inference_batch.load_run_config, f"++dataset_config.val_data_path={tmp / 'drcap_test.jsonl'}")
+    dec_b.dataset_config.inference_mode = True
+    test_ds = drcap.LatentCaptionDataset(dataset_of(dec_b, llm_tok, dec_b.dataset_config.test_split), latents)
+    batch = test_ds.collator([test_ds[i] for i in range(DRCAP_DECODE)])
+    if batch["input_ids"].shape[1] not in W_PREFILL_T:
+        raise AssertionError(f"DRCap's prefill T {batch['input_ids'].shape[1]} is not one phase 3 checks ({W_PREFILL_T})")
+    gen = Generator(trainer.model.eval(), inference_batch.generation_config(dec_b, llm_tok))
+    arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+    t0 = time.perf_counter()
+    tokens, launches_d = run_counted(lambda: gen.generate(arrays))
+    gen_s = time.perf_counter() - t0
+    st = gen.stats
+    lines = [llm_tok.decode(t) for t in inference_batch.strip_after_eos(tokens, llm_tok.eos_token_id,
+                                                                       llm_tok.pad_token_id)]
+    log(f"[drcap] decode of {DRCAP_DECODE} clips (prefill T {batch['input_ids'].shape[1]}, beam "
+        f"{dec_b.decode_config.num_beams}, {dec_b.decode_config.max_new_tokens} new tokens at most): CLAP audio "
+        f"latents + projection decode (temp 0.07) + top-3 retrieval {1000 * retrieve_s:.1f} ms, generate "
+        f"{gen_s:.2f} s (prefill {1000 * st['prefill_s']:.1f} ms, {1000 * st['decode_s'] / max(st['decode_steps'], 1):.2f}"
+        f" ms/beam step over {st['decode_steps']} steps); RTF {gen_s / batch['audio_seconds']:.4f} (generate alone), "
+        f"{(gen_s + retrieve_s) / batch['audio_seconds']:.4f} (with CLAP and retrieval) over "
+        f"{batch['audio_seconds']:.2f} s of audio; launches {launches_d} | {SMI}")
+    print("\n".join(repr(line) for line in lines[:3]))
+    if tokens.shape[0] != DRCAP_DECODE or launches_d["flash_attention_fwd"] == 0 or any(
+            launches_d[k] for k in AAC_BYPASSED):
+        raise AssertionError(f"DRCap decode: {tokens.shape} tokens, launches {launches_d}")
+    check_reduced_against_cpu(trainer, cfg_b, batch, train_ds, "drcap", DRCAP_LAYERS)
+    del trainer, llm_model, model, gen
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    total = {k: launches_a[k] + launches_b[k] + launches_d[k] for k in launches_a}
+    missing = [name for name in CLAP_PATH if total[name] == 0]
+    if missing or any(total[k] for k in AAC_BYPASSED):
+        raise AssertionError(f"kernels never launched on the CLAP path: {missing}; K2 / K3 launched: "
+                             f"{ {k: total[k] for k in AAC_BYPASSED} }")
+    log(f"[clap] phase 11 in {time.perf_counter() - t_phase:.1f} s")
     return total
 
 
@@ -2138,16 +2494,17 @@ def main() -> int:
     weights = run_weights()
     st = run_st()
     wavlm = run_wavlm()
-    aac = run_aac()
+    aac, aac_files = run_aac()
+    clap = run_clap(aac_files)
     paths = {"decode": decode, "train": train, "train_int8_sr": modes, "weights": weights, "st": st,
-             "wavlm": wavlm, "aac": aac}
+             "wavlm": wavlm, "aac": aac, "clap": clap}
     for r in results:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
         if r["name"].startswith("int8_matmul"):  # the code paths count both epilogues together
             r["launches_by_code_path"] = {p: {path: counts[f"int8_matmul/{p}"] for path, counts in paths.items()}
                                           for p in ("wgmma", "splitk")}
-    log(f"[chip_smoke] phases 1-10 in {time.perf_counter() - t0:.1f} s | {SMI}")
+    log(f"[chip_smoke] phases 1-11 in {time.perf_counter() - t0:.1f} s | {SMI}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

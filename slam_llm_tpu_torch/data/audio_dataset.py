@@ -8,7 +8,10 @@ preprocess, audio_length = post-patch-embed length // projector ds_rate
 [audio, prompt, answer, eos] assembly + collation as the speech dataset.
 Unreadable audio degrades to 1 s of silence (reference :81-89). A config
 without a prompt gets ``DEFAULT_AAC_PROMPT`` (the JAX package gives it the
-speech dataset's ASR prompt instead: ROADMAP Queue 3)."""
+speech dataset's ASR prompt instead: ROADMAP Queue 3). Each item carries
+``audio_seconds``, the clip's length before any crop or pad, which the
+collator sums for the RTF (the JAX items carry none, so its RTF counts the
+fbank mask: 10.24 s for every fixed-length clip)."""
 
 from __future__ import annotations
 
@@ -66,6 +69,7 @@ class AudioDatasetJsonl(SpeechDatasetJsonl):
                 raise ValueError("empty audio")
         except Exception:
             audio_raw = np.zeros(16000, np.float32)  # reference :89
+        audio_seconds = len(audio_raw) / audio_ops.SAMPLE_RATE  # before the crop / pad
 
         if self.model_name == "beats":
             mel = fbank_ops.beats_preprocess(
@@ -98,6 +102,7 @@ class AudioDatasetJsonl(SpeechDatasetJsonl):
                 "attention_mask": np.ones_like(input_ids, dtype=np.int32),
                 "audio_mel": mel.astype(np.float32),
                 "audio_length": audio_length,
+                "audio_seconds": audio_seconds,
                 "prompt_length": prompt_length,
                 "key": key,
                 "target": target,
@@ -116,6 +121,7 @@ class AudioDatasetJsonl(SpeechDatasetJsonl):
             "attention_mask": np.ones_like(input_ids, dtype=np.int32),
             "audio_mel": mel.astype(np.float32),
             "audio_length": audio_length,
+            "audio_seconds": audio_seconds,
             "prompt_length": prompt_length,
             "key": key,
             "target": target,

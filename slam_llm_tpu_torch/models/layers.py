@@ -214,6 +214,51 @@ class LayerNorm(nn.Module):
         return (norm * self.scale + self.bias).to(self.dtype)
 
 
+def dense_f32(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``lin`` applied in f32, whatever dtype its weight is stored in (the
+    CLAP family computes in f32; the trainer may store a frozen copy in
+    bf16)."""
+    return F.linear(x, lin.weight.float(), None if lin.bias is None else lin.bias.float())
+
+
+def layer_norm_f32(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) * scale + bias over the last axis, in f32."""
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + ln.eps) * ln.weight.float() + ln.bias.float()
+
+
+def pick_state(sd, module: nn.Module):
+    """The tensors of ``sd`` under ``module``'s ``state_dict`` names (build
+    it on the meta device), as f32 CPU tensors; a missing name raises
+    ``KeyError``. A converter whose module keeps the reference's names."""
+    names = list(module.state_dict().keys())
+    missing = [n for n in names if n not in sd]
+    if missing:
+        raise KeyError(f"checkpoint lacks {len(missing)} tensors, e.g. {missing[:3]}")
+    return {n: torch.as_tensor(sd[n]).float() for n in names}
+
+
+class FrozenBatchNorm(nn.Module):
+    """Eval-mode BatchNorm in f32 over axis ``axis``: (x - running_mean) *
+    rsqrt(running_var + eps) * weight + bias, with torch's BatchNorm names
+    (the CLAP towers load it pretrained and frozen)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(dim, device=device), requires_grad=False)
+        self.register_buffer("running_mean", torch.zeros(dim, device=device))
+        self.register_buffer("running_var", torch.ones(dim, device=device))
+
+    def forward(self, x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+        shape = [1] * x.ndim
+        shape[axis] = -1
+        inv = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
+        return (x - self.running_mean.float().reshape(shape)) * inv.reshape(shape) + self.bias.float().reshape(shape)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings (HF-llama rotate-half layout)
 # ---------------------------------------------------------------------------

@@ -6,11 +6,14 @@ for the raw-waveform encoders, ``input_ids`` with -1 on audio pseudo-tokens,
 ``attention_mask``, ``modality_mask``, ``labels`` with -100 on ignored
 positions). ``forward`` returns the loss and next-token accuracy of the
 training step; a frozen encoder runs without autograd. The ported encoders
-are whisper, the WavLM family (``wavlm``, ``hubert``, ``emotion2vec``) and
-the fbank encoders of the audio-captioning recipes (``eat``, ``beats``),
-which read ``audio_mel`` / ``audio_mel_mask`` as whisper does; the others
-raise ``NotImplementedError``. The projector is linear, cov1d-linear or
-q-former.
+are whisper, the WavLM family (``wavlm``, ``hubert``, ``emotion2vec``), the
+fbank encoders of the audio-captioning recipes (``eat``, ``beats``), which
+read ``audio_mel`` / ``audio_mel_mask`` as whisper does, and the BERT text
+encoder ``hf-text``, which reads ``text_input_ids`` / ``text_input_mask``.
+Without an encoder (``encoder_name: null``, DRCap) the batch's ``audio_mel``
+(else ``audio``) is the encoder output, with ``audio_mel_mask`` or ones:
+DRCap's one-frame CLAP latents. The other encoders raise
+``NotImplementedError``. The projector is linear, cov1d-linear or q-former.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from torch import nn
 
 from slam_llm_tpu_torch.models.beats import BEATS_PRESETS, BEATsEncoder
+from slam_llm_tpu_torch.models.bert import BERT_PRESETS, BertEncoder
 from slam_llm_tpu_torch.models.llm import CausalLM, KVCache, LLMConfig
 from slam_llm_tpu_torch.models.projector import ProjectorConfig, build_projector
 from slam_llm_tpu_torch.models.vit import VIT_PRESETS, ViTEncoder
@@ -33,15 +37,15 @@ from slam_llm_tpu_torch.models.whisper import WhisperEncoder
 from slam_llm_tpu_torch.ops.quant import check_bwd_mode
 
 IGNORE_INDEX = -100
-_TODO_ENCODERS = "ROADMAP: port the other encoders and recipes"
+_TODO_ENCODERS = "ROADMAP Queue 1: musicfm, spatial_ast, av_hubert and vallex"
 RAW_ENCODERS = ("wavlm", "hubert", "emotion2vec")  # read the raw waveform
 
 
 @dataclass(frozen=True)
 class SLAMConfig:
     llm: LLMConfig = field(default_factory=LLMConfig.tiny_test)
-    encoder_name: Optional[str] = "whisper"  # whisper | wavlm | hubert | emotion2vec | eat | beats | None
-    encoder: Any = None  # WhisperEncoderConfig, WavLMConfig, ViTEncoderConfig or BEATsEncoderConfig
+    encoder_name: Optional[str] = "whisper"  # whisper | wavlm | hubert | emotion2vec | eat | beats | hf-text | None
+    encoder: Any = None  # WhisperEncoderConfig, WavLMConfig, ViTEncoderConfig, BEATsEncoderConfig or BertConfig
     projector: str = "linear"
     projector_cfg: ProjectorConfig = field(default_factory=ProjectorConfig)
     freeze_encoder: bool = True
@@ -95,6 +99,8 @@ class SLAMModel(nn.Module):
             self.encoder = ViTEncoder(cfg.encoder, device)
         elif cfg.encoder_name == "beats":
             self.encoder = BEATsEncoder(cfg.encoder, device)
+        elif cfg.encoder_name == "hf-text":
+            self.encoder = BertEncoder(cfg.encoder, device)
         elif cfg.encoder_name is None:
             self.encoder = None
         else:
@@ -104,11 +110,21 @@ class SLAMModel(nn.Module):
 
     def encode(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         """Projected encoder states + their validity mask. A frozen encoder
-        runs under ``no_grad``: nothing upstream of the projector trains."""
+        runs under ``no_grad``: nothing upstream of the projector trains.
+        Without an encoder, ``audio_mel`` (else ``audio``) is the encoder
+        output, with ``audio_mel_mask`` or ones."""
         frozen = contextlib.nullcontext() if not self.cfg.freeze_encoder else torch.no_grad()
         with frozen:
-            if self.cfg.encoder_name in RAW_ENCODERS:
+            if self.encoder is None:
+                enc = batch["audio_mel"] if "audio_mel" in batch else batch["audio"]
+                enc_mask = batch.get("audio_mel_mask")
+                if enc_mask is None:
+                    enc_mask = torch.ones(enc.shape[:2], dtype=torch.int32, device=enc.device)
+            elif self.cfg.encoder_name in RAW_ENCODERS:
                 enc, enc_mask = self.encoder(batch["audio"], batch.get("audio_mask"))
+            elif self.cfg.encoder_name == "hf-text":
+                enc_mask = batch["text_input_mask"]
+                enc = self.encoder(batch["text_input_ids"], enc_mask)
             else:  # whisper, eat, beats
                 enc, enc_mask = self.encoder(batch["audio_mel"], batch.get("audio_mel_mask"))
         if self.cfg.projector == "q-former":
@@ -123,9 +139,11 @@ class SLAMModel(nn.Module):
         return proj, proj_mask[:, : proj.shape[1]]
 
     def forward_embeds(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Spliced ``inputs_embeds`` and the attention mask."""
+        """Spliced ``inputs_embeds`` and the attention mask: the projected
+        features go in whenever there is an encoder or the batch carries
+        ``audio_mel`` / ``audio``."""
         inputs_embeds = self.llm.embed(batch["input_ids"].clamp_min(0))  # -1 pseudo -> 0
-        if self.encoder is not None:
+        if self.encoder is not None or "audio_mel" in batch or "audio" in batch:
             encoder_outs, _ = self.encode(batch)
             inputs_embeds = splice_modality(inputs_embeds, encoder_outs, batch["modality_mask"])
         return inputs_embeds, batch["attention_mask"]
@@ -165,6 +183,9 @@ def build_slam_config(train_config, model_config) -> SLAMConfig:
         encoder_dim = enc_cfg.d_model
     elif mc.encoder_name == "beats":
         enc_cfg = BEATS_PRESETS[mc.encoder_config or "beats-iter3"]()
+        encoder_dim = enc_cfg.d_model
+    elif mc.encoder_name == "hf-text":
+        enc_cfg = BERT_PRESETS[mc.encoder_config or "bert-base-uncased"]()
         encoder_dim = enc_cfg.d_model
     elif mc.encoder_name is None:
         enc_cfg, encoder_dim = None, mc.encoder_dim

@@ -70,12 +70,13 @@ def build_model_and_data(cfg: RunConfig, split: str = "train", device="cuda"):
 @torch.no_grad()
 def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random init in place, drawn on the generator's device, following the
-    reference's initializers: dense and conv kernels (1-D and 2-D) normal
-    with std 1/sqrt(fan_in), biases 0, LoRA A normal with std 1/r and B
+    reference's initializers: dense and conv kernels (1-D and 2-D; the
+    ``hf-text`` BERT's ``nn.Linear``s too) normal with std 1/sqrt(fan_in),
+    biases 0, LoRA A normal with std 1/r and B
     zero, embeddings and the Q-Former's queries standard normal, WavLM's
     and BEATs' relative-position tables and EAT's CLS token normal with std
-    0.02, norms (and WavLM's gate constants) 1 / 0. An int8 base is the
-    quantization of such a kernel."""
+    0.02, norms (BERT's ``nn.LayerNorm``s included; WavLM's gate constants)
+    1 / 0. An int8 base is the quantization of such a kernel."""
 
     def normal(shape, std):
         return torch.randn(shape, generator=generator, device=generator.device) * std
@@ -94,6 +95,13 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if mod.lora_rank > 0:
                 mod.lora_a.copy_(normal(mod.lora_a.shape, 1.0 / mod.lora_rank))
                 mod.lora_b.zero_()
+        elif isinstance(mod, nn.Linear):
+            mod.weight.copy_(normal(mod.weight.shape, 1.0 / math.sqrt(mod.in_features)))
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
         elif isinstance(mod, (nn.Conv1d, nn.Conv2d)):
             fan_in = mod.weight[0].numel()  # input channels per group x taps
             mod.weight.copy_(normal(mod.weight.shape, 1.0 / math.sqrt(fan_in)))

@@ -18,7 +18,7 @@ from pathlib import Path
 from typing import Any, Callable, Optional
 
 # the JAX package's in-tree datasets the port does not carry yet (ROADMAP.md
-# Queue 1, item 4: the other encoders and recipes)
+# Queue 1: each comes with the recipe that reads it)
 UNPORTED_DATASETS = (
     "mir_dataset", "s2s_dataset", "text_dataset", "vallex_dataset", "echat_dataset",
     "avhubert_dataset", "spatial_audio_dataset", "speech_dataset_large",
@@ -85,8 +85,8 @@ def get_custom_dataset_factory(dataset_config) -> Callable[..., Any]:
         return get_audio_dataset
     if name in UNPORTED_DATASETS:
         raise NotImplementedError(
-            f"dataset {name!r} is not ported to slam_llm_tpu_torch yet (ROADMAP.md Queue 1, item 4: "
-            "the other encoders and recipes)")
+            f"dataset {name!r} is not ported to slam_llm_tpu_torch yet (ROADMAP.md Queue 1: it comes with the "
+            "recipe that reads it)")
     from slam_llm_tpu_torch.data.speech_dataset import get_speech_dataset
 
     return get_speech_dataset

@@ -2,11 +2,11 @@
 under ``torch.profiler``, the unprofiled decode step, and the host cost of one
 K2 / K3 wrapper call beside its device time.
 
-    python -m slam_llm_tpu_torch.tools.profile_decode [--recipe st | wavlm | aac]   # from the repo root, on a GPU
+    python -m slam_llm_tpu_torch.tools.profile_decode [--recipe st | wavlm | aac | drcap]   # from the repo root, on a GPU
 
 Builds the recipe of ``chip_smoke.py`` (asr_whisper_tinyllama.yaml, full width,
 random weights from the recipe's seed; or, with ``--recipe``, phase 8's,
-9's or 10's recipe, as ``tools/profile_train.py`` builds them) on its
+9's, 10's or 11's (DRCap's) recipe, as ``tools/profile_train.py`` builds them) on its
 synthetic corpus, takes the first batch of 8, and prints for each profiled
 region its wall time, the summed device-kernel time, their ratio (the busy
 share) and the top kernels by device time. The full ``key_averages`` tables

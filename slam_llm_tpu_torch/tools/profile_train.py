@@ -2,7 +2,7 @@
 ``torch.profiler``, its device time split by kernel family, the unprofiled
 step time, and the fused cross-entropy alone.
 
-    python -m slam_llm_tpu_torch.tools.profile_train [--recipe st | wavlm | aac] [++key=value ...]   # from the repo root, on a GPU
+    python -m slam_llm_tpu_torch.tools.profile_train [--recipe st | wavlm | aac | drcap] [++key=value ...]   # from the repo root, on a GPU
 
 Builds the recipe of ``chip_smoke.py`` (asr_whisper_tinyllama.yaml, full
 width, random weights from the recipe's seed: frozen whisper-small, trained
@@ -17,7 +17,13 @@ vicuna-7b in the int8 base with the bf16 backward, the trained linear
 projector, a synthetic 32000-entry Llama tokenizer; seeded random weights),
 or with ``--recipe aac`` phase 10's aac_eat_vicuna.yaml (frozen EAT-base
 and vicuna-7b in bf16, the trained linear projector, the same tokenizer,
-fixed-length 1024-frame fbank; seeded random weights),
+fixed-length 1024-frame fbank; seeded random weights), or with
+``--recipe drcap`` phase 11's drcap.yaml (no encoder, the trained
+1024 -> 4096 linear projector, frozen vicuna-7b in bf16, the same
+tokenizer; one latent frame a row, with three retrieved captions in the
+prompt: the manifest's rows go through ``utils.drcap.augment_manifest_with_rag``
+over the synthetic caption store, whose latents are seeded random unit
+vectors, since a profile needs their shape and not a CLAP),
 takes the first training batch of the recipe's size, runs warm-up steps,
 then profiles one step. Kernel families: K3 the s8 GEMM, K4 the flash
 backward, K1 the flash forward, K2 rowquant (both kernels), cuBLAS GEMMs
@@ -62,7 +68,7 @@ def split_by_family(prof) -> dict:
     return dict(out)
 
 
-RECIPES = ("asr", "st", "wavlm", "aac")
+RECIPES = ("asr", "st", "wavlm", "aac", "drcap")
 
 
 def split_recipe(argv) -> tuple:
@@ -90,15 +96,18 @@ def build_recipe(recipe: str, overrides, tmp: Path, device="cuda", split: str = 
         write_qwen2_tokenizer(str(tmp / "qwen2"), QWEN2_BPE, corpus=cs.ST_TARGETS)
         cs._synth_tokenizer_dir = str(tmp / "qwen2")
         head, targets = ["--config", str(cs.ST_RECIPE), factory], cs.ST_TARGETS
-    elif recipe in ("wavlm", "aac"):
+    elif recipe in ("wavlm", "aac", "drcap"):
         write_tokenizer(str(tmp / "tokenizer"), 32000)
         cs._synth_tokenizer_dir = str(tmp / "tokenizer")
-        head = ["--config", str(cs.W_RECIPE if recipe == "wavlm" else cs.AAC_RECIPE), factory]
+        head = ["--config", str({"wavlm": cs.W_RECIPE, "aac": cs.AAC_RECIPE, "drcap": cs.DRCAP_RECIPE}[recipe]), factory]
         targets = cs.AAC_CAPTIONS if recipe == "aac" else None
     else:
         head = ["--config", str(cs.RECIPE)]
     n = finetune.load_run_config(head + list(overrides)).train_config.batch_size_training
-    corpus = cs.write_corpus(tmp, n=n, name=split, targets=targets)
+    if recipe == "drcap":
+        corpus, latents = _drcap_corpus(tmp, n, split)
+    else:
+        corpus = cs.write_corpus(tmp, n=n, name=split, targets=targets)
     cfg = finetune.load_run_config(head + [f"++dataset_config.train_data_path={corpus}",
                                            f"++dataset_config.val_data_path={corpus}", *overrides])
     if split != "train":
@@ -106,7 +115,32 @@ def build_recipe(recipe: str, overrides, tmp: Path, device="cuda", split: str = 
     model, tokenizer, dataset = build_model_and_data(cfg, split=getattr(cfg.dataset_config, f"{split}_split"),
                                                      device=device)
     materialize_params(model, cfg)
+    if recipe == "drcap":
+        from slam_llm_tpu_torch.utils.drcap import LatentCaptionDataset
+
+        dataset = LatentCaptionDataset(dataset, latents)
     return cfg, model, tokenizer, dataset, n
+
+
+def _drcap_corpus(tmp: Path, n: int, split: str):
+    """``n`` clips whose targets are captions of the synthetic store, with
+    their 3 most similar captions (themselves excluded) from seeded random
+    unit latents; returns the RAG manifest and the rows' latents."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from slam_llm_tpu_torch.utils.drcap import augment_manifest_with_rag
+
+    captions = cs.drcap_captions()
+    support = np.random.default_rng(0).standard_normal((len(captions), 1024)).astype(np.float32)
+    support /= np.linalg.norm(support, axis=1, keepdims=True)
+    index = {c: i for i, c in enumerate(captions)}
+    targets = [captions[(7 * i) % len(captions)] for i in range(n)]
+    clips = cs.write_corpus(tmp, n=n, name=f"{split}_clips", targets=targets)
+    rag = tmp / f"{split}.jsonl"
+    augment_manifest_with_rag(str(clips), str(rag), captions, support,
+                              lambda texts: support[[index[t] for t in texts]], k=3)
+    return rag, support[[index[t] for t in targets]]
 
 
 def main(argv=(), steps: int = 3) -> None:

@@ -50,9 +50,25 @@ The two torch files hold tensors and plain dicts only, so
 ``utils.hf_loader.load_torch_checkpoint`` reads them without fairseq or
 omegaconf.
 
-Linear weights are normal with std 1/sqrt(fan_in), embeddings with std 1,
-norm scales 1 + N(0, 0.05^2), biases N(0, 0.02^2). Each ``write_*`` returns
-the bytes it wrote.
+For CLAP and FENSE, called from Python:
+
+* ``write_clap``: a reference ASE checkpoint, ``{"model": sd}`` (f32), with
+  ``audio_encoder.audio_enc.*`` (HTSAT or Cnn14), ``text_encoder.text_enc.*``
+  (HF ``BertModel`` names), the ``audio_proj`` / ``text_proj`` Sequentials
+  (``.0`` and ``.2``) and ``temp``;
+* ``write_bert_vocab``: a BERT ``vocab.txt``: ``[PAD] [UNK] [CLS] [SEP]
+  [MASK]``, the given words, letters, digits and punctuation with their
+  ``##`` pieces, then made-up lower-case words and ``##`` pieces to the size;
+* ``write_sbert``: an HF ``BertModel`` directory (``config.json``,
+  ``model.safetensors`` in f32, ``vocab.txt``), by default TinyBERT-L6-shaped
+  (312 wide, 6 layers, 12 heads, ffn 1200), as FENSE's SBERT;
+* ``write_echecker``: FENSE's error-detector ``.ckpt``,
+  ``{"model_state_dict": sd}`` with a BERT (base by default) under
+  ``encoder.`` and the 6-way ``clf`` head.
+
+Linear weights are normal with std 1/sqrt(fan_in), embeddings with std 1
+(the CLAP and FENSE files' with std 1/sqrt(width)), norm scales 1 + N(0,
+0.05^2), biases N(0, 0.02^2). Each ``write_*`` returns the bytes it wrote.
 """
 
 from __future__ import annotations
@@ -422,6 +438,106 @@ def write_beats(path: str, cfg, seed: int = 0, device="cpu") -> int:
         "max_distance": cfg.max_distance, "gru_rel_pos": True, "finetuned_model": False,
     }
     return _save_torch(path, {"cfg": beats_cfg, "model": sd})
+
+
+def _random_state(module: torch.nn.Module, d: _Draw) -> Dict[str, torch.Tensor]:
+    """A random tensor for each ``state_dict`` entry of ``module`` (built on
+    the meta device): 1-D weights are norm scales, 2-D and wider weights
+    (linear, conv, embedding, the bias tables) normal with std
+    1/sqrt(fan_in), BatchNorm statistics near 0 / 1."""
+    out = {}
+    for name, t in module.state_dict().items():
+        leaf, shape = name.rsplit(".", 1)[-1], tuple(t.shape)
+        if leaf == "running_mean":
+            out[name] = d.normal(shape, 0.1)
+        elif leaf == "running_var":
+            out[name] = d.normal(shape, 0.1, 1.0).abs()
+        elif leaf == "weight" and len(shape) == 1:
+            out[name] = d.normal(shape, 0.05, 1.0)
+        elif len(shape) <= 1:
+            out[name] = d.normal(shape, 0.02)
+        else:
+            out[name] = d.normal(shape, 1.0 / math.sqrt(math.prod(shape[1:])))
+    return out
+
+
+def write_clap(path: str, cfg, seed: int = 0, device="cpu") -> int:
+    """A reference ASE checkpoint file for ``cfg`` (the port's ``CLAPConfig``)."""
+    from slam_llm_tpu_torch.models.clap import CLAP
+
+    wrap = {"audio_enc.": "audio_encoder.audio_enc.", "text_enc.": "text_encoder.text_enc."}
+    sd = {}
+    for name, t in _random_state(CLAP(cfg, device="meta"), _Draw(seed, device)).items():
+        head, _, rest = name.partition(".")
+        sd[wrap.get(head + ".", head + ".") + rest if rest else name] = t
+    sd["temp"] = torch.tensor(cfg.temp_init)
+    return _save_torch(path, {"model": sd})
+
+
+BERT_SPECIALS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+
+
+def write_bert_vocab(path: str, size: int = 30522, seed: int = 0, words: Iterable[str] = ()) -> int:
+    """A BERT ``vocab.txt`` of ``size`` lines (module docstring); ``words``
+    are lower-cased and split on whitespace and punctuation first."""
+    chars = list("abcdefghijklmnopqrstuvwxyz0123456789") + list("!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~")
+    seen = dict.fromkeys(BERT_SPECIALS)
+    for w in words:
+        for piece in "".join(c if c.isalnum() else f" {c} " for c in w.lower()).split():
+            seen.setdefault(piece)
+    for c in chars:
+        seen.setdefault(c)
+    for c in chars[:36]:
+        seen.setdefault("##" + c)
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    while len(seen) < size:
+        n = int(rng.integers(2, 9))
+        tok = "".join(rng.choice(letters, n))
+        seen.setdefault(("##" + tok[:5]) if rng.random() < 0.3 else tok)
+    lines = list(seen)[:size]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    data = ("\n".join(lines) + "\n").encode("utf-8")
+    with open(path, "wb") as f:
+        f.write(data)
+    return len(data)
+
+
+def tinybert_l6():
+    """FENSE's SBERT shape: 312 wide, 6 layers, 12 heads, ffn 1200."""
+    from slam_llm_tpu_torch.models.bert import BertConfig
+
+    return BertConfig(d_model=312, n_layers=6, n_heads=12, ffn_dim=1200)
+
+
+def write_sbert(out_dir: str, cfg=None, seed: int = 0, device="cpu", words: Iterable[str] = ()) -> int:
+    """An HF ``BertModel`` directory for ``cfg`` (the port's ``BertConfig``,
+    TinyBERT-L6-shaped by default) with its ``vocab.txt``."""
+    from slam_llm_tpu_torch.models.bert import BertEncoder
+
+    cfg = cfg or tinybert_l6()
+    sd = {k: v.float() for k, v in _random_state(BertEncoder(cfg, device="meta"), _Draw(seed, device)).items()}
+    os.makedirs(out_dir, exist_ok=True)
+    config = {"architectures": ["BertModel"], "model_type": "bert", "vocab_size": cfg.vocab_size,
+              "hidden_size": cfg.d_model, "num_hidden_layers": cfg.n_layers, "num_attention_heads": cfg.n_heads,
+              "intermediate_size": cfg.ffn_dim, "max_position_embeddings": cfg.max_positions,
+              "type_vocab_size": cfg.type_vocab_size, "layer_norm_eps": cfg.ln_eps, "hidden_act": "gelu"}
+    return (save_file(sd, os.path.join(out_dir, "model.safetensors"), metadata={"format": "pt"})
+            + _write_json(out_dir, "config.json", config)
+            + write_bert_vocab(os.path.join(out_dir, "vocab.txt"), cfg.vocab_size, seed, words))
+
+
+def write_echecker(path: str, cfg=None, seed: int = 0, device="cpu") -> int:
+    """FENSE's error-detector checkpoint for ``cfg`` (BERT-base by default)."""
+    from slam_llm_tpu_torch.models.bert import BertConfig, BertEncoder
+
+    cfg = cfg or BertConfig.base_uncased()
+    d = _Draw(seed, device)
+    sd = {f"encoder.{k}": v.float() for k, v in _random_state(BertEncoder(cfg, device="meta"), d).items()}
+    sd["clf.weight"], sd["clf.bias"] = d.linear(6, cfg.d_model).float(), d.normal((6,), 1.0).float()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({"model_state_dict": sd}, path)
+    return os.path.getsize(path)
 
 
 def _save_torch(path: str, obj: dict) -> int:

@@ -25,6 +25,13 @@ The result loads with ``model.load_state_dict(sd)``, which casts each tensor
 to the dtype the port stores it in: the trainable leaves (LoRA factors, the
 projector) into their f32 masters, bit-equal to the JAX values.
 ``trainable_to_flax`` maps trainable tensors back into the flax layout.
+
+The CLAP family keeps flat parameter names in the JAX package (``l0_q_kernel``,
+``s0b1_rpb``, ``bn0_mean``), and the port the reference's torch names:
+``bert_from_flax``, ``htsat_from_flax``, ``cnn14_from_flax`` and
+``clap_from_flax`` invert the JAX package's ``convert_*_torch_state``, and
+``from_flax_params`` takes an ``hf-text`` model's BERT encoder through
+``bert_from_flax``.
 """
 
 from __future__ import annotations
@@ -93,7 +100,11 @@ def from_flax_params(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """``params``: the flax ``params`` collection of a ``SLAMModel`` (unboxed)
     as nested dicts of arrays; ``cfg``: the port's ``SLAMConfig``. Returns
     the port model's ``state_dict``."""
-    out = flax_to_state_dict(params)
+    if cfg.encoder_name == "hf-text":
+        out = flax_to_state_dict({k: v for k, v in params.items() if k != "encoder"})
+        out.update({f"encoder.{k}": v for k, v in bert_from_flax(params["encoder"], cfg.encoder.n_layers).items()})
+    else:
+        out = flax_to_state_dict(params)
     n = sum(1 for key in out if key.startswith("llm.layers.") and key.endswith(".input_norm.scale"))
     if n != cfg.llm.n_layers:
         raise ValueError(f"parameter tree has {n} decoder layers, config {cfg.llm.n_layers}")
@@ -131,3 +142,89 @@ def _set(node: dict, path: List[str], value) -> None:
     for key in path[:-1]:
         node = node.setdefault(key, {})
     node[path[-1]] = value
+
+
+# ---------------------------------------------------------------------------
+# the CLAP family: flat JAX names -> the reference's torch names
+# ---------------------------------------------------------------------------
+
+
+def _t(arr, *axes) -> torch.Tensor:
+    a = np.asarray(arr, np.float32)
+    return torch.from_numpy(np.array(a.transpose(*axes) if axes else a))
+
+
+def bert_from_flax(p: Mapping, n_layers: int) -> Dict[str, torch.Tensor]:
+    """The JAX ``BertEncoder`` params -> ``models.bert.BertEncoder`` names."""
+    out = {f"embeddings.{name}.weight": _t(p[name])
+           for name in ("word_embeddings", "position_embeddings", "token_type_embeddings")}
+    out["embeddings.LayerNorm.weight"], out["embeddings.LayerNorm.bias"] = _t(p["embed_norm_scale"]), _t(p["embed_norm_bias"])
+    for i in range(n_layers):
+        dst = f"encoder.layer.{i}."
+        for name, hf in (("q", "attention.self.query"), ("k", "attention.self.key"), ("v", "attention.self.value"),
+                         ("o", "attention.output.dense"), ("ffn_in", "intermediate.dense"), ("ffn_out", "output.dense")):
+            out[f"{dst}{hf}.weight"] = _t(p[f"l{i}_{name}_kernel"], 1, 0)
+            out[f"{dst}{hf}.bias"] = _t(p[f"l{i}_{name}_bias"])
+        for name, hf in (("attn_norm", "attention.output.LayerNorm"), ("ffn_norm", "output.LayerNorm")):
+            out[f"{dst}{hf}.weight"], out[f"{dst}{hf}.bias"] = _t(p[f"l{i}_{name}_scale"]), _t(p[f"l{i}_{name}_bias"])
+    return out
+
+
+def htsat_from_flax(p: Mapping, depths) -> Dict[str, torch.Tensor]:
+    """The JAX ``HTSAT`` params -> ``models.htsat.HTSAT`` names."""
+    out = {"bn0.weight": _t(p["bn0_scale"]), "bn0.bias": _t(p["bn0_bias"]), "bn0.running_mean": _t(p["bn0_mean"]),
+           "bn0.running_var": _t(p["bn0_var"]),
+           "patch_embed.proj.weight": _t(p["patch_proj_kernel"], 3, 2, 0, 1),  # HWIO -> OIHW
+           "patch_embed.proj.bias": _t(p["patch_proj_bias"]),
+           "patch_embed.norm.weight": _t(p["patch_norm_scale"]), "patch_embed.norm.bias": _t(p["patch_norm_bias"]),
+           "norm.weight": _t(p["norm_scale"]), "norm.bias": _t(p["norm_bias"]),
+           "tscam_conv.weight": _t(p["tscam_kernel"], 3, 2, 0, 1), "tscam_conv.bias": _t(p["tscam_bias"])}
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            src, dst = f"s{i}b{j}_", f"layers.{i}.blocks.{j}."
+            for name, ref in (("norm1", "norm1"), ("norm2", "norm2")):
+                out[f"{dst}{ref}.weight"], out[f"{dst}{ref}.bias"] = _t(p[src + name + "_scale"]), _t(p[src + name + "_bias"])
+            for name, ref in (("qkv", "attn.qkv"), ("proj", "attn.proj"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+                out[f"{dst}{ref}.weight"] = _t(p[src + name + "_kernel"], 1, 0)
+                out[f"{dst}{ref}.bias"] = _t(p[src + name + "_bias"])
+            out[dst + "attn.relative_position_bias_table"] = _t(p[src + "rpb"])
+        if i < len(depths) - 1:
+            dst = f"layers.{i}.downsample."
+            out[dst + "norm.weight"], out[dst + "norm.bias"] = _t(p[f"d{i}_norm_scale"]), _t(p[f"d{i}_norm_bias"])
+            out[dst + "reduction.weight"] = _t(p[f"d{i}_reduction_kernel"], 1, 0)
+    return out
+
+
+def cnn14_from_flax(p: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``Cnn14`` params -> ``models.cnn14.Cnn14`` names."""
+
+    def bn(prefix, node):
+        return {f"{prefix}.weight": _t(node["scale"]), f"{prefix}.bias": _t(node["bias"]),
+                f"{prefix}.running_mean": _t(node["mean"]), f"{prefix}.running_var": _t(node["var"])}
+
+    out = bn("bn0", p["bn0"])
+    for i in range(1, 7):
+        blk = p[f"conv_block{i}"]
+        for j in (1, 2):
+            out[f"conv_block{i}.conv{j}.weight"] = _t(blk[f"conv{j}"]["kernel"], 3, 2, 0, 1)
+            out.update(bn(f"conv_block{i}.bn{j}", blk[f"bn{j}"]))
+    return out
+
+
+def clap_from_flax(p: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """The JAX ``CLAP`` params (any audio tower) -> ``models.clap.CLAP``
+    names; ``cfg``: the port's ``CLAPConfig``."""
+    if cfg.audio_tower == "cnn14":
+        audio = cnn14_from_flax(p["audio_enc"])
+    elif cfg.audio_tower == "vit":  # the EAT ViT keeps the SLAM model's layout
+        audio = flax_to_state_dict(p["audio_enc"])
+    else:
+        audio = htsat_from_flax(p["audio_enc"], cfg.htsat.depths)
+    out = {f"audio_enc.{k}": v for k, v in audio.items()}
+    out.update({f"text_enc.{k}": v for k, v in bert_from_flax(p["text_enc"], cfg.bert.n_layers).items()})
+    for name in ("audio_proj", "text_proj"):
+        for fc, i in (("fc1", 0), ("fc2", 2)):
+            out[f"{name}.{i}.weight"] = _t(p[name][fc]["kernel"], 1, 0)
+            out[f"{name}.{i}.bias"] = _t(p[name][fc]["bias"])
+    out["temp"] = _t(p["temp"]).reshape(())
+    return out

@@ -1,4 +1,4 @@
-"""HF checkpoint -> the port's modules (llama family, whisper, WavLM / HuBERT, EAT, BEATs).
+"""HF checkpoint -> the port's modules (llama family, whisper, WavLM / HuBERT, EAT, BEATs, BERT).
 
 Counterpart of ``slam_llm_tpu/utils/hf_loader.py``. The reference reads an HF
 directory into f32 numpy, stacks every per-layer tensor on a scanned layer
@@ -16,10 +16,13 @@ onto one ``state_dict`` name, with no stack, transpose or second copy:
   adds the fixed sinusoid itself), llama's ``rotary_emb.inv_freq``;
 * ``convert_encoder_checkpoint`` dispatches an encoder checkpoint as the
   reference does: an HF directory to whisper's converter or, for ``wavlm`` /
-  ``hubert``, to ``models.wavlm.convert_wavlm``; a torch file of ``hubert``
-  to ``models.wavlm.convert_hubert_fairseq``, of ``eat`` to
-  ``models.vit.convert_eat_fairseq`` and of ``beats`` to
-  ``models.beats.convert_beats``;
+  ``hubert``, to ``models.wavlm.convert_wavlm``, or, for ``hf-text``, to
+  ``models.bert.convert_bert_torch_state`` (the reference loads its
+  ``HfTextEncoder`` from such a directory; the JAX package refuses it); a
+  torch file of ``hubert`` to ``models.wavlm.convert_hubert_fairseq``, of
+  ``eat`` to ``models.vit.convert_eat_fairseq`` and of ``beats`` to
+  ``models.beats.convert_beats`` (CLAP reads its own checkpoints:
+  ``models.clap.load_clap``);
 * ``overlay_`` copies each tensor into the model's tensor of that name, one
   tensor at a time, converting on the way to the stored dtype and device;
   an fp kernel meeting an int8 base (``kernel_q`` / ``kernel_scale``) is
@@ -40,12 +43,13 @@ import torch
 from torch import nn
 
 from slam_llm_tpu_torch.models.beats import convert_beats
+from slam_llm_tpu_torch.models.bert import convert_bert_torch_state
 from slam_llm_tpu_torch.models.vit import convert_eat_fairseq
 from slam_llm_tpu_torch.models.wavlm import convert_hubert_fairseq, convert_wavlm
 from slam_llm_tpu_torch.ops.quant import quantize_int8
 from slam_llm_tpu_torch.utils.safetensors_io import load_file, torch_load_file
 
-_TODO_ENCODERS = "ROADMAP Queue 1 item 5: port the other encoders and recipes"
+_TODO_ENCODERS = "ROADMAP Queue 1: spatial_ast, av_hubert and beats_tokenizer come with their recipes"
 
 
 def load_hf_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -135,9 +139,10 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 
 def convert_encoder_checkpoint(encoder_path: str, encoder_name: str, enc_cfg) -> Dict[str, torch.Tensor]:
     """An encoder checkpoint through its family's converter, dispatched as
-    the reference's: an HF directory serves whisper, wavlm and hubert; a
-    torch file serves hubert (fairseq's schema), eat (data2vec2's) and beats
-    (the official BEATs checkpoint). Any other directory raises
+    the reference's: an HF directory serves whisper, wavlm, hubert and
+    hf-text (an HF ``BertModel``, any wrapper prefix); a torch file serves
+    hubert (fairseq's schema), eat (data2vec2's) and beats (the official
+    BEATs checkpoint). Any other directory raises
     ``ValueError``, as in the reference (which has no directory converter
     for them, emotion2vec included); a file of a family the reference loads
     and the port does not yet raises ``NotImplementedError``."""
@@ -146,6 +151,10 @@ def convert_encoder_checkpoint(encoder_path: str, encoder_name: str, enc_cfg) ->
             return convert_whisper_encoder(load_hf_state_dict(encoder_path), enc_cfg)
         if encoder_name in ("wavlm", "hubert"):
             return convert_wavlm(load_hf_state_dict(encoder_path), enc_cfg)
+        if encoder_name == "hf-text":
+            from slam_llm_tpu_torch.utils.fense import strip_prefix
+
+            return convert_bert_torch_state(strip_prefix(load_hf_state_dict(encoder_path)), enc_cfg)
         raise ValueError(f"encoder_name={encoder_name!r} cannot load an HF directory ({encoder_path!r}); "
                          "expected a torch checkpoint file")
     if not os.path.exists(encoder_path):
@@ -157,8 +166,8 @@ def convert_encoder_checkpoint(encoder_path: str, encoder_name: str, enc_cfg) ->
         return _FILE_CONVERTERS[encoder_name](load_torch_checkpoint(encoder_path), enc_cfg)
     if encoder_name in _UNPORTED_FILE_ENCODERS:
         raise NotImplementedError(f"loading a {encoder_name!r} encoder checkpoint is not ported yet ({_TODO_ENCODERS})")
-    raise ValueError(f"no file-checkpoint converter for encoder {encoder_name!r} ({encoder_path!r}); whisper, wavlm "
-                     "and hubert load HF directories; hubert, eat and beats torch files")
+    raise ValueError(f"no file-checkpoint converter for encoder {encoder_name!r} ({encoder_path!r}); whisper, wavlm, "
+                     "hubert and hf-text load HF directories; hubert, eat and beats torch files")
 
 
 @torch.no_grad()

@@ -973,3 +973,104 @@ def test_wavlm_encoder_on_card_matches_the_cpu_plain_path(gen, rel_bias):
     live = cpu_mask.bool()
     cos = torch.nn.functional.cosine_similarity(gpu.float().cpu()[live], cpu.float()[live], dim=-1)
     assert bool(torch.isfinite(gpu).all()) and cos.min().item() >= 0.99
+
+
+# ---- the CLAP recipes: DRCap's training batch, HTSAT-base and BERT-base -----
+
+
+def _drcap_mask(b=16, t=192):
+    """The key mask of DRCap's collated training batch (vicuna-7b, T = 192):
+    each row's audio slot and RAG prompt (131-148 tokens) left-padded to the
+    longest prompt, its caption and EOS (14-34 tokens) right-padded to T; the
+    audio slot is a row's first valid key."""
+    prompts = [131 + (i * 5) % 18 for i in range(b)]
+    answers = [14 + (i * 7) % 21 for i in range(b)]
+    mask = torch.zeros(b, t, dtype=torch.int32, device="cuda")
+    for i, (p, a) in enumerate(zip(prompts, answers)):
+        left = max(prompts) - p
+        mask[i, left:left + p + a] = 1
+    return mask
+
+
+def test_flash_kernels_at_drcaps_training_batch(gen):
+    """K1 (fused RoPE at theta 1e4, causal) and K4 at DRCap's collated
+    training batch (16, 192, 32 / 32 heads, head_dim 128), left and right
+    padded as the speech dataset collates it: out within 2e-2 of the f32
+    twin, live-row lse within 1e-3, dead rows 0; dq / dk / dv within 2e-2
+    relative L2, two runs bit-identical, dead rows' dq 0."""
+    from slam_llm_tpu_torch.models.layers import rope_tables
+
+    b, t, h, d = 16, 192, 32, 128
+    mask = _drcap_mask(b, t)
+    q, k, v = _qkv(b, t, h, h, d, gen)
+    dout = torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
+    rope = rope_tables((mask.long().cumsum(1) - 1).clamp_min(0), d, 1e4)
+    out, lse = tflash.flash_attention_fwd(q, k, v, mask, True, rope=rope)
+    qr, kr = (tflash.apply_rope_tables(x, *rope) for x in (q, k))
+    ref, ref_lse = tflash.flash_attention_ref(qr.float(), kr.float(), v.float(), mask, True)
+    live = mask.cumsum(1) > 0
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    assert (lse - ref_lse)[live].abs().max().item() <= 1e-3
+    assert bool((out[~live] == 0).all())
+    got = tflash.flash_attention_bwd(q, k, v, mask, out, lse, dout, True, rope=rope)
+    again = tflash.flash_attention_bwd(q, k, v, mask, out, lse, dout, True, rope=rope)
+    for g, a, w in zip(got, again, _bwd_twin_f32(q, k, v, mask, out, lse, dout, True, rope)):
+        assert torch.equal(g, a) and _rel_l2(g, w) <= 2e-2
+    assert bool((got[0][~live] == 0).all())
+
+
+def _perturbed(mod, gen):
+    """``mod`` with every parameter redrawn: weights N(0, 1/fan_in), norm
+    scales 1 + N(0, 0.1^2), biases and bias tables N(0, 0.1^2)."""
+    with torch.no_grad():
+        for name, p in mod.named_parameters():
+            if p.ndim >= 2:
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda") / p[0].numel() ** 0.5)
+            elif name.endswith("weight"):
+                p.copy_(1 + 0.1 * torch.randn(p.shape, generator=gen, device="cuda"))
+            else:
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen, device="cuda"))
+    return mod.eval()
+
+
+def test_htsat_base_stage_on_card_matches_the_cpu(gen):
+    """HTSAT-base's first Swin stage (96 wide, 4 heads of 24, window 8 over the
+    64 x 64 patch grid, the second block's shifted windows) and its patch
+    merging, f32 on the card against the same weights on the CPU: cosine
+    >= 0.999 at every token."""
+    from slam_llm_tpu_torch.models.htsat import HTSAT, HTSATConfig
+
+    cfg = HTSATConfig()
+    stage = _perturbed(HTSAT(cfg, device="cuda").layers[0], gen)
+    x = torch.randn(2, 64 * 64, cfg.embed_dim, generator=gen, device="cuda")
+
+    def run(s, y):
+        with torch.no_grad():
+            for block in s.blocks:
+                y = block(y)
+            return s.downsample(y)
+
+    out = run(stage, x)
+    ref = run(stage.to("cpu"), x.cpu())
+    cos = torch.nn.functional.cosine_similarity(out.cpu(), ref, dim=-1)
+    assert out.shape == (2, 32 * 32, 2 * cfg.embed_dim) and stage.blocks[1].shift == 4
+    assert cos.min().item() >= 0.999
+
+
+def test_bert_base_layer_on_card_matches_the_cpu(gen):
+    """One BERT-base layer (768 wide, 12 heads, ffn 3072), f32 on the card
+    against the CPU on the same weights, ragged key masks: cosine >= 0.999
+    at every token of every row."""
+    from slam_llm_tpu_torch.models.bert import BertConfig, BertLayer
+
+    layer = _perturbed(BertLayer(BertConfig(), device="cuda"), gen)
+    x = torch.randn(4, 64, 768, generator=gen, device="cuda")
+    mask = torch.ones(4, 64, dtype=torch.int32, device="cuda")
+    for i, n in enumerate((64, 40, 9, 2)):
+        mask[i, n:] = 0
+    neg = torch.where(mask[:, None, None, :] > 0, 0.0, -1e9)
+    with torch.no_grad():
+        out = layer(x, neg)
+        ref = layer.to("cpu")(x.cpu(), neg.cpu())
+    cos = torch.nn.functional.cosine_similarity(out.cpu(), ref, dim=-1)
+    assert bool(torch.isfinite(out).all()) and cos.min().item() >= 0.999

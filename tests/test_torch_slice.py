@@ -344,9 +344,31 @@ aac = inference_batch.main(tiny_run_config(make_corpus(tmp, n=2), **{
     "decode_config.max_new_tokens": 3}), device="cpu")
 with contextlib.redirect_stdout(io.StringIO()):
     scores = caption_metrics.main(aac["gt"], aac["pred"])
+# the CLAP recipes' pieces: a CLAP file reranking the AAC decode's lines,
+# FENSE from an SBERT directory and an echecker, DRCap's store and retrieval
+import torch
+from slam_llm_tpu_torch.models import bert, clap
+from slam_llm_tpu_torch.tools import synth_checkpoint as synth
+from slam_llm_tpu_torch.utils import clap_refine, drcap, fense
+ccfg = clap.CLAPConfig.tiny_test()
+synth.write_clap(str(tmp / "clap" / "clap.pt"), ccfg, seed=1)
+synth.write_bert_vocab(str(tmp / "clap" / "vocab.txt"), ccfg.bert.vocab_size)
+sel = clap_refine.clap_refine_with_model([aac["pred"]], str(tmp / "clap" / "clap.pt"), str(tmp / "train.jsonl"),
+                                         str(tmp / "refined"), cfg=ccfg, device="cpu")
+bcfg = bert.BertConfig(vocab_size=200, d_model=32, n_layers=1, n_heads=2, ffn_dim=64, max_positions=64)
+synth.write_sbert(str(tmp / "sbert"), bcfg, seed=2)
+synth.write_echecker(str(tmp / "echecker.ckpt"), bcfg, seed=3)
+fense_score = fense.FenseScorer(str(tmp / "sbert"), str(tmp / "echecker.ckpt"), device="cpu").score(
+    list(sel.values()), [[t] for t in sel.values()])
+model, tok = clap.load_clap(str(tmp / "clap" / "clap.pt"), ccfg, "cpu"), fense.WordPieceTokenizer(
+    str(tmp / "clap" / "vocab.txt"))
+store = drcap.encode_captions(["a dog barks", "rain falls"], lambda i, m: model.encode_text(
+    torch.from_numpy(i), torch.from_numpy(m)), tok)
+near = drcap.retrieve_topk(drcap.projection_decode(store, store, 0.07), store, ["a dog barks", "rain falls"], k=1)
 for mod in pkgutil.walk_packages(slam_llm_tpu_torch.__path__, "slam_llm_tpu_torch."):
     importlib.import_module(mod.name)
 print(json.dumps({"n": res["n"] + raw["n"] + aac["n"], "steps": len(train["steps"]) + len(st["steps"]),
+                  "clap": len(sel) == 2 and -1 <= fense_score <= 1 and len(near) == 2,
                   "bleu": "bleu" in bleu[-1] and "spider" in scores,
                   "jax": "jax" in sys.modules, "flax": "flax" in sys.modules,
                   "hf": sorted(m for m in ("tokenizers", "transformers", "regex", "sacrebleu") if m in sys.modules),
@@ -360,7 +382,11 @@ def test_port_runs_without_importing_jax():
     step, BLEU over the decode logs), the WavLM recipe's (an HF WavLM
     directory written and loaded, a raw-audio decode), the AAC recipes' (an
     EAT file written and loaded, an fbank decode through the audio dataset,
-    the caption metrics) and every module of the package, in a
+    the caption metrics), the CLAP recipes' (a CLAP file written and loaded
+    by ``clap_refine_with_model`` over the AAC decode, FENSE from an SBERT
+    directory and an echecker, DRCap's store and retrieval) and every module
+    of the package (``models/{clap,htsat,bert,cnn14}``, ``utils/{fense,
+    clap_refine,drcap}`` among them), in a
     fresh interpreter with a config from the port's own ``config`` module:
     neither jax nor flax nor any module of the JAX package is ever imported
     (this test process has all three), nor tokenizers, transformers, regex
@@ -371,7 +397,7 @@ def test_port_runs_without_importing_jax():
         timeout=300, check=True,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == {
-        "n": 6, "steps": 2, "bleu": True, "jax": False, "flax": False, "hf": [], "slam_llm_tpu": []}
+        "n": 6, "steps": 2, "clap": True, "bleu": True, "jax": False, "flax": False, "hf": [], "slam_llm_tpu": []}
 
 
 def test_port_sources_never_import_jax():

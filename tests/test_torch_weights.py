@@ -386,7 +386,7 @@ def test_loaders_raise_on_unknown_keys_wrong_shapes_and_missing_paths(jax_model,
     # a family the reference loads from a file and the port does not yet;
     # a directory of a family that has no directory converter
     torch.save({"model": {}}, tmp_path / "spatial_ast.pt")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         hf_loader.convert_encoder_checkpoint(str(tmp_path / "spatial_ast.pt"), "spatial_ast", None)
     with pytest.raises(ValueError, match="cannot load an HF directory"):
         hf_loader.convert_encoder_checkpoint(str(tmp_path), "beats", None)
