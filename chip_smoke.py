@@ -18,7 +18,10 @@ Phases, each fatal on failure:
                 (SDPA on q / k rotated beforehand with the equivalent boolean
                 mask), at the shapes the two paths
                 launch: K1 flash forward (whisper-small; TinyLlama prefill;
-                the training path with fused RoPE), K4 flash backward (the
+                the training path with fused RoPE), K1's f32 route
+                (Spatial-AST-base's (16 / 8, 515, 12/12, 64), ragged,
+                causal, D = 128; within 2e-5 of the f32 twin, the twin under
+                single-pass TF32 beside it), K4 flash backward (the
                 training shape (16, 512, 32/4, 64) with fused RoPE, and a
                 whisper-like shape), K2 rowquant (deterministic, and rotate +
                 stochastic rounding at the int8_rot dy shapes, bit-exact; fold,
@@ -104,6 +107,21 @@ Phases, each fatal on failure:
                 trainer's step (K1 = K4 = 32 a step, K2 = K3 = 0), the decode
                 from projection-decoded audio latents; the card against the
                 CPU for the whole CLAP and for DRCap at 2 LLM layers.
+ 12. music_spatial -- three recipes with vicuna-7b in bf16, each through
+                pipeline.finetune (4 steps of 16: the projector moves, the
+                encoder and LLM stay bit-unchanged, K1 / K4 once a layer a
+                step, K2 = K3 = 0) and pipeline.inference_batch with ckpt_path
+                (beam 4, batches of 8, 32 tokens) against the in-memory
+                decode, the card vs the CPU at 2 + 2 layers (run_music_spatial):
+                SELD (seld_spatialast_llama: Spatial-AST-base f32 from a
+                BAT-layout file, its 12 layers on K1's f32 route, the
+                64-query Q-Former, on spatialised 10 s clips; the whole
+                encoder against the CPU f32 path, cosine >= 0.99999); MC
+                (mc_musicfm_vicuna: MusicFM-MSD bf16, linear ds 5, on 10 s
+                crops of 24 kHz clips; the whole MusicFM against the CPU,
+                cosine >= 0.999); SEC (sec_emotion2vec_vicuna on raw 16 kHz
+                audio, then 2 steps of its E-chat variant from one dialog
+                TSV, validating on its 10 %).
 
 Prints one JSON line of kernel results before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -112,6 +130,7 @@ anything fails or no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import subprocess
@@ -218,6 +237,7 @@ def host_ms(fn, calls: int = 50) -> float:
 
 # the H100 SXM's published dense peaks (the card's power limit is logged in phase 1)
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12  # f32 FMA on the CUDA cores
 INT8_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 
@@ -366,6 +386,18 @@ def check_flash(gen) -> dict:
         ("EAT-base encoder, decode batch", 8, AAC_ENC_T, 12, 12, 64, False, "none", 0),
         ("vicuna-7b training (aac), fused RoPE theta 1e4, left-padded", 16, AAC_TRAIN_T, 32, 32, 128, True, "left",
          1e4),
+        # phase 12: MusicFM-MSD's attention over 251 frames (a training and a
+        # decode batch), the 64-query Q-Former's self-attention (SELD, SEC)
+        ("MusicFM-MSD encoder, training batch, right-padded", 16, MC_ENC_T, 16, 16, 64, False, "right", 0),
+        ("MusicFM-MSD encoder, decode batch", 8, MC_ENC_T, 16, 16, 64, False, "none", 0),
+        ("Q-Former self-attn, 64 queries, training batch", 16, 64, 12, 12, 64, False, "none", 0),
+        ("Q-Former self-attn, 64 queries, decode batch", 8, 64, 12, 12, 64, False, "none", 0),
+        # SEC: emotion2vec-base over 10 s / 6 s buckets (499 / 299 frames), and
+        # the E-chat variant's vicuna-7b step at its 512-token bucket
+        ("emotion2vec-base encoder, training batch, right-padded", 16, W_ENC_T, 12, 12, 64, False, "right", 0),
+        ("emotion2vec-base encoder, decode batch, right-padded", 8, 299, 12, 12, 64, False, "right", 0),
+        ("vicuna-7b training (E-chat), fused RoPE theta 1e4, left-padded", 16, ECHAT_T, 32, 32, 128, True, "left",
+         1e4),
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
@@ -418,6 +450,69 @@ def check_flash(gen) -> dict:
                 near_library=NEAR, cases=rows)
 
 
+def check_flash_f32(gen) -> dict:
+    """K1's f32 route (csrc/flash_attention_f32.cu) against the f32 twin on
+    the same f32 unit-normal inputs on the card (TF32 off): out within 2e-5
+    abs, live-row lse within 1e-4, rows with no visible key exactly 0; the
+    twin under single-pass TF32 beside it, for the margin the route exists
+    for. Bound: the operations at the 67 TFLOP/s of f32 FMA."""
+    from slam_llm_tpu_torch.ops.kernels.flash_attention import flash_attention_fwd, flash_attention_ref
+
+    dev = "cuda"
+    cases = [
+        # (name, B, T, H, Hkv, D, causal, padding)
+        ("Spatial-AST-base encoder, training batch", 16, SA_T, 12, 12, 64, False, "none"),
+        ("Spatial-AST-base encoder, decode batch", 8, SA_T, 12, 12, 64, False, "none"),
+        ("ragged keys, right-padded", 8, SA_T, 12, 12, 64, False, "right"),
+        ("causal, left-padded", 4, SA_T, 12, 12, 64, True, "left"),
+        ("GQA, head_dim 128, causal", 2, 256, 8, 2, 128, True, "right"),
+    ]
+    worst, rows = 0.0, []
+    for name, b, t, h, hkv, d, causal, pad in cases:
+        q = torch.randn(b, t, h, d, generator=gen, device=dev)
+        k = torch.randn(b, t, hkv, d, generator=gen, device=dev)
+        v = torch.randn(b, t, hkv, d, generator=gen, device=dev)
+        mask = _padding_mask(b, t, pad)
+        out, lse = flash_attention_fwd(q, k, v, mask, causal)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_attention_ref(q, k, v, mask, causal)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32, _ = flash_attention_ref(q, k, v, mask, causal)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        live = mask.cumsum(1) > 0 if causal else (mask.sum(1, keepdim=True) > 0).expand(b, t)
+        err = (out - ref).abs().max().item()
+        tf32_err = (tf32 - ref).abs().max().item()
+        lse_err = (lse - ref_lse)[live].abs().max().item()
+        dead = out[~live]
+        dead_ok = bool((dead == 0).all().item()) if dead.numel() else True
+        ms = time_ms(lambda: flash_attention_fwd(q, k, v, mask, causal))
+        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, mask, causal), reps=3)
+        bound_ms, bound_by = bound(4 * h * d * attended_pairs(mask, causal), nbytes(q, k, v, mask, out, lse),
+                                   FP32_FLOPS)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = near_ms = None
+        if pad in ("none", "right") and not causal:  # SDPA computes the same function, in f32
+            sdpa_mask = None if pad == "none" else mask[:, None, None, :].bool()
+            library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=h != hkv))
+        else:
+            near_mask = _bool_mask(mask, causal)
+            near_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=near_mask, enable_gqa=h != hkv))
+        log(f"[K1 f32] {name} {(b, t, h, hkv, d)} causal={causal}: max|out-ref| {err:.3e} (the twin under "
+            f"single-pass TF32: {tf32_err:.3e}) max|lse-ref| {lse_err:.3e} dead rows {int((~live).sum())} all-zero "
+            f"{dead_ok} | kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}, f32 FMA) "
+            f"share {bound_ms / ms:.3f} SDPA f32 {_r(library_ms)} ms | SDPA f32, boolean mask (near): {_r(near_ms)} ms")
+        if not (err <= 2e-5 and lse_err <= 1e-4 and dead_ok):
+            raise AssertionError(f"K1 f32 {name}: out err {err} (tol 2e-5), lse err {lse_err} (tol 1e-4), dead rows "
+                                 f"zero {dead_ok}")
+        worst = max(worst, err)
+        rows.append(dict(at=f"{name} {(b, t, h, hkv, d)}", ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms, near_library_ms=near_ms, tf32_err=tf32_err))
+    return dict(max_abs_err=worst, **{k: v for k, v in rows[0].items() if k not in ("near_library_ms", "tf32_err")},
+                near_library="SDPA f32, boolean mask", cases=rows)
+
+
 def check_flash_bwd(gen) -> dict:
     """K4 against the f32 twin on the kernel's own inputs (q / k rotated in
     bf16 as the kernel rotates them, dq / dk counter-rotated in f32)."""
@@ -438,6 +533,9 @@ def check_flash_bwd(gen) -> dict:
         *(("vicuna-7b training, fused RoPE theta 1e4, left-padded", 16, t, 32, 32, 128, True, "left", 1e4)
           for t in W_TRAIN_T),
         ("vicuna-7b training (aac), fused RoPE theta 1e4, left-padded", 16, AAC_TRAIN_T, 32, 32, 128, True, "left",
+         1e4),
+        ("Q-Former self-attn, 64 queries (SELD, SEC training)", 16, 64, 12, 12, 64, False, "none", 0),
+        ("vicuna-7b training (E-chat), fused RoPE theta 1e4, left-padded", 16, ECHAT_T, 32, 32, 128, True, "left",
          1e4),
     ]
     worst, rows = 0.0, []
@@ -719,6 +817,8 @@ KERNELS = [
     # name, source, the TPU kernel it replaces
     ("flash_attention_fwd", "slam_llm_tpu_torch/csrc/flash_attention.cu",
      "slam_llm_tpu/ops/kernels/flash_attention.py:562"),
+    ("flash_attention_fwd_f32", "slam_llm_tpu_torch/csrc/flash_attention_f32.cu",
+     "slam_llm_tpu/ops/kernels/flash_attention.py:562"),
     ("flash_attention_bwd", "slam_llm_tpu_torch/csrc/flash_attention_bwd.cu",
      "slam_llm_tpu/ops/kernels/flash_attention.py:1201"),
     ("rowquant", "slam_llm_tpu_torch/csrc/rowquant.cu", "slam_llm_tpu/ops/kernels/rowquant.py:226"),
@@ -733,7 +833,8 @@ def check_kernels() -> list:
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_wgmma_layouts(gen)
     checks = {
-        "flash_attention_fwd": check_flash, "flash_attention_bwd": check_flash_bwd,
+        "flash_attention_fwd": check_flash, "flash_attention_fwd_f32": check_flash_f32,
+        "flash_attention_bwd": check_flash_bwd,
         "rowquant": check_rowquant, "rowquant_rot_sr": check_rowquant_rot_sr,
         "rowquant_fold": check_rowquant_fold, "int8_matmul": check_int8_matmul,
         "int8_matmul_f32": check_int8_matmul_f32,
@@ -792,6 +893,7 @@ def kernel_counters():
 
     return {
         "flash_attention_fwd": flash_attention.flash_attention_fwd,
+        "flash_attention_fwd_f32": flash_attention.flash_attention_fwd_f32,
         "flash_attention_bwd": flash_attention.flash_attention_bwd,
         "rowquant": rowquant.rowquant,
         "rowquant_rot_sr": rowquant.rowquant_rot_sr,
@@ -842,7 +944,7 @@ def compare_prefill(model, batch, label: str) -> None:
     from slam_llm_tpu_torch.models.llm import init_kv_cache
 
     keys = [k for k in ("input_ids", "attention_mask", "modality_mask", "audio_mel", "audio_mel_mask", "audio",
-                        "audio_mask") if k in batch]
+                        "audio_mask", "audio_binaural") if k in batch]
 
     def run(m, rows, device):
         b = {k: torch.as_tensor(batch[k][rows]).to(device) for k in keys}
@@ -1121,14 +1223,40 @@ def run_training_modes() -> dict:
     return {k: launches[k] + launches2[k] for k in launches}
 
 
-def check_train_grads_against_cpu(trainer, dataset, label: str) -> None:
+@contextlib.contextmanager
+def cpu_attention_on_twins():
+    """CPU attention that the card runs on K1 / K4 (no dense bias) goes
+    through their plain twins (``flash_attention`` on CPU tensors) instead
+    of the model's plain attention: K4's twin rounds P and dS to bf16
+    before its products, as K4 does, so a CPU gradient carries the
+    kernel's own rounding (the leak of a near-uniform attention's dS rows
+    into its query / key gradients)."""
+    from slam_llm_tpu_torch.models import layers
+    from slam_llm_tpu_torch.ops.kernels.flash_attention import flash_attention
+
+    plain = layers._xla_attention
+
+    def twins(q, k, v, bias, kv_mask=None, causal=False):
+        if bias is not None or q.is_cuda or (causal and q.shape[1] != k.shape[1]):
+            return plain(q, k, v, bias, kv_mask, causal)
+        mask = kv_mask.to(torch.int32) if kv_mask is not None else torch.ones(k.shape[:2], dtype=torch.int32)
+        return flash_attention(q, k, v, mask, causal)
+
+    layers._xla_attention = twins
+    try:
+        yield
+    finally:
+        layers._xla_attention = plain
+
+
+def check_train_grads_against_cpu(trainer, dataset, label: str, key_bias_limit: float = 5e-2) -> None:
     """The trainable gradients of one utterance, card vs CPU plain path: the
     trained weights with LoRA B redrawn nonzero (so every LoRA factor gets a
     gradient), the run's backward modes with the same stochastic-rounding
     seeds on both sides, remat as configured, dropout off. Cosine >= 0.99
     for every tensor with a gradient; a key projection's bias (the
-    Q-Former's), whose gradient is 0 in exact arithmetic, within 5e-2 of
-    its query bias's gradient norm on both sides."""
+    Q-Former's), whose gradient is 0 in exact arithmetic, within
+    ``key_bias_limit`` of its query bias's gradient norm on both sides."""
     model = trainer.model
     gen = torch.Generator(device="cuda").manual_seed(1)
     with torch.no_grad():
@@ -1157,8 +1285,9 @@ def check_train_grads_against_cpu(trainer, dataset, label: str) -> None:
     # a key projection's bias shifts every score of a query by one constant,
     # which the softmax cancels: its gradient is 0 in exact arithmetic, so
     # both sides are round-off, held against the query bias's gradient
-    key_bias = {n: max(a.norm().item(), c.norm().item()) / grads[n.replace("k_proj", "q_proj")][1].norm().item()
+    key_bias = {n: (a.norm().item(), c.norm().item(), grads[n.replace("k_proj", "q_proj")][1].norm().item())
                 for n, (a, c) in grads.items() if n.endswith("k_proj.bias")}
+    key_bias = {n: (a / q, c / q) for n, (a, c, q) in key_bias.items()}
     cos = {n: torch.nn.functional.cosine_similarity(a.flatten(), c.flatten(), dim=0).item()
            for n, (a, c) in grads.items() if c.abs().max() > 0 and n not in key_bias}
     worst = min(cos, key=cos.get)
@@ -1167,9 +1296,11 @@ def check_train_grads_against_cpu(trainer, dataset, label: str) -> None:
         f"{len(names) - len(key_bias)} tensors with a gradient, min cosine {cos[worst]:.5f} ({worst}), mean "
         f"{np.mean(list(cos.values())):.5f}" + (f"; {len(key_bias)} key-projection biases (gradient 0 in exact "
                                                f"arithmetic): largest |g| / |g of the query bias| "
-                                               f"{max(key_bias.values()):.2e}" if key_bias else ""))
-    worst_key_bias = max(key_bias.values(), default=0.0)
-    if len(cos) + len(key_bias) != len(names) or cos[worst] < 0.99 or worst_key_bias > 5e-2:
+                                               f"{max(a for a, _ in key_bias.values()):.2e} card, "
+                                               f"{max(c for _, c in key_bias.values()):.2e} CPU (limit "
+                                               f"{key_bias_limit:g})" if key_bias else ""))
+    worst_key_bias = max((max(ac) for ac in key_bias.values()), default=0.0)
+    if len(cos) + len(key_bias) != len(names) or cos[worst] < 0.99 or worst_key_bias > key_bias_limit:
         raise AssertionError(f"gradient check: min cosine {cos[worst]} (< 0.99), zero gradients "
                              f"({len(names) - len(cos) - len(key_bias)}) or a key bias's gradient above round-off "
                              f"({worst_key_bias})")
@@ -1491,37 +1622,36 @@ def st_bleu(out) -> dict:
     return bleu[0]
 
 
-def check_reduced_against_cpu(trainer, cfg, prefill_batch, train_ds, label: str, layers: int = 2) -> None:
-    """The recipe at its full widths but ``layers`` LLM and encoder layers
-    (a 7B f32 model on the host is neither quick nor small; a model without
-    an encoder keeps none), with the
-    trained projector whole (and the trained LoRA factors of the layers
-    kept): the bf16 prefill logits of ``prefill_batch``'s first utterance
-    and every trainable gradient of one utterance of ``train_ds``, card vs
-    CPU plain path."""
+def check_reduced_against_cpu(trainer, cfg, prefill_batch, train_ds, label: str, layers: int = 2,
+                              key_bias_limit: float = 5e-2) -> None:
+    """The recipe's trained model cut to ``layers`` LLM and encoder layers
+    at its full widths (a 7B f32 model on the host is neither quick nor
+    small; a model without an encoder keeps none): the bf16 prefill logits
+    of ``prefill_batch``'s first utterance and every trainable gradient of
+    one utterance of ``train_ds``, card vs CPU plain path."""
     import dataclasses
 
     from slam_llm_tpu_torch.models.slam_model import SLAMModel
-    from slam_llm_tpu_torch.pipeline.common import init_params_
     from slam_llm_tpu_torch.train.state import Trainer
 
     big = trainer.model.cfg
     small_cfg = dataclasses.replace(big, llm=dataclasses.replace(big.llm, n_layers=layers),
                                     encoder=big.encoder and dataclasses.replace(big.encoder, n_layers=layers))
     small = SLAMModel(small_cfg, device="cuda")
-    init_params_(small, torch.Generator(device="cuda").manual_seed(cfg.train_config.seed))
-    trained = trainer.trainable
+    trained = trainer.model.state_dict()
     with torch.no_grad():
-        for n, p in small.named_parameters():
-            if n in trained:
-                p.copy_(trained[n])
+        for n, p in small.state_dict(keep_vars=True).items():
+            if n not in trained or trained[n].shape != p.shape:
+                raise AssertionError(f"{label}: the cut model's {n} {tuple(p.shape)} is not the recipe's "
+                                     f"{tuple(trained[n].shape) if n in trained else 'missing'}")
+            p.copy_(trained[n])
     small_trainer = Trainer(small, small_cfg, cfg.train_config).state_from_params()
     encoder = f"{layers} of {big.encoder.n_layers} encoder layers" if big.encoder else "no encoder"
-    log(f"[{label}] card vs CPU at {layers} of {big.llm.n_layers} LLM layers and {encoder} (full widths, the trained "
-        f"tensors of those layers and the projector whole)")
+    log(f"[{label}] card vs CPU at {layers} of {big.llm.n_layers} LLM layers and {encoder} (full widths, the "
+        f"recipe's trained model cut to those layers)")
     compare_prefill(small.eval(), prefill_batch, label)
     small.to("cuda")
-    check_train_grads_against_cpu(small_trainer, train_ds, label)
+    check_train_grads_against_cpu(small_trainer, train_ds, label, key_bias_limit)
 
 
 def run_st() -> dict:
@@ -1684,33 +1814,35 @@ def check_wavlm_loaded(model, enc_dir: str) -> None:
         raise AssertionError(f"the folded positional conv differs from g * v / ||v|| by {rel}")
 
 
-def check_encoder_against_cpu(label: str, enc, audio, mask, expect_k1: bool) -> dict:
-    """A whole encoder on the card (bf16) against the CPU f32 plain path on
-    the same weights: the last hidden state's cosine >= 0.99 at every valid
-    frame, the masks equal; K1 once per layer where the attention takes a
-    key mask (no rel-pos bias), never with the bias. Returns the launch
-    counts of the card run."""
+def check_encoder_against_cpu(label: str, enc, inputs: tuple, expect_k1: bool, min_cos: float = 0.99,
+                              kernel: str = "flash_attention_fwd") -> dict:
+    """A whole encoder on the card (in its dtype) against the CPU f32 plain
+    path on the same weights: the last hidden state's cosine >= ``min_cos``
+    at every valid frame, the masks equal; ``kernel`` (K1, or K1's f32
+    route) once per layer where the attention takes a key mask (no rel-pos
+    bias), never with the bias. Returns the launch counts of the card run."""
     import dataclasses
 
     with torch.no_grad():
-        (out, out_mask), launches = run_counted(lambda: enc(audio.cuda(), mask.cuda()))
+        (out, out_mask), launches = run_counted(lambda: enc(*(x.cuda() for x in inputs)))
         cpu = type(enc)(dataclasses.replace(enc.cfg, dtype=torch.float32)).eval()
         cpu.load_state_dict({k: v.float().cpu() for k, v in enc.state_dict().items()})
         t0 = time.perf_counter()
-        ref, ref_mask = cpu(audio, mask)
+        ref, ref_mask = cpu(*inputs)
         cpu_s = time.perf_counter() - t0
     live = ref_mask.bool()
     cos = torch.nn.functional.cosine_similarity(out.float().cpu()[live], ref[live], dim=-1)
-    k1 = launches["flash_attention_fwd"]
+    k1 = launches[kernel]
     log(f"{label} ({enc.cfg.n_layers} layers, d {enc.cfg.d_model}, {enc.cfg.n_heads} heads, rel-pos bias "
-        f"{not expect_k1}) on an input of {tuple(audio.shape)}, frames {live.sum(1).tolist()} of "
+        f"{not expect_k1}) on an input of {tuple(inputs[0].shape)}, frames {live.sum(1).tolist()} of "
         f"{live.shape[1]}: card "
-        f"bf16 vs CPU f32 plain path ({cpu_s:.1f} s on CPU): min cosine {cos.min().item():.5f} mean "
-        f"{cos.mean().item():.5f}; K1 launches {k1}")
-    if not (torch.equal(out_mask.cpu(), ref_mask) and bool(torch.isfinite(out).all()) and cos.min().item() >= 0.99):
-        raise AssertionError(f"{label}: masks equal {torch.equal(out_mask.cpu(), ref_mask)}, cosine {cos.min().item()}")
+        f"{enc.cfg.dtype} vs CPU f32 plain path ({cpu_s:.1f} s on CPU): min cosine {cos.min().item():.6f} mean "
+        f"{cos.mean().item():.6f}; {kernel} launches {k1}")
+    if not (torch.equal(out_mask.cpu(), ref_mask) and bool(torch.isfinite(out).all()) and cos.min().item() >= min_cos):
+        raise AssertionError(f"{label}: masks equal {torch.equal(out_mask.cpu(), ref_mask)}, cosine {cos.min().item()} "
+                             f"(limit {min_cos})")
     if k1 != (enc.cfg.n_layers if expect_k1 else 0):
-        raise AssertionError(f"{label}: {k1} K1 launches for {enc.cfg.n_layers} layers (expected K1: {expect_k1})")
+        raise AssertionError(f"{label}: {k1} {kernel} launches for {enc.cfg.n_layers} layers (expected: {expect_k1})")
     del cpu
     return launches
 
@@ -1865,13 +1997,13 @@ def run_wavlm() -> dict:
     # whole encoders on two ragged utterances (10 s and 4.1 s of one 160,000-sample bucket)
     two = test_ds.collator([test_ds[15], test_ds[4]])
     audio, mask = torch.from_numpy(two["audio"]), torch.from_numpy(two["audio_mask"])
-    enc_launches = check_encoder_against_cpu("[wavlm] wavlm-large (the loaded directory)", trainer.model.encoder, audio, mask,
-                                             expect_k1=False)
+    enc_launches = check_encoder_against_cpu("[wavlm] wavlm-large (the loaded directory)", trainer.model.encoder,
+                                             (audio, mask), expect_k1=False)
     del res, trainer
     gen = torch.Generator(device="cuda").manual_seed(4)
     for preset in ("hubert-large", "emotion2vec-base"):
         enc = init_params_(WavLMEncoder(WAVLM_PRESETS[preset](), device="cuda").eval(), gen)
-        got = check_encoder_against_cpu(f"[wavlm] {preset} (random init)", enc, audio, mask, expect_k1=True)
+        got = check_encoder_against_cpu(f"[wavlm] {preset} (random init)", enc, (audio, mask), expect_k1=True)
         enc_launches = {k: enc_launches[k] + got[k] for k in enc_launches}
         del enc
     shutil.rmtree(tmp)
@@ -1915,7 +2047,7 @@ AAC_CAPTIONS = [
 AAC_ENC_T, AAC_TRAIN_T, SLAM_AAC_T = 513, 256, 192
 
 
-def _aac_config(recipe, loader, *extra):
+def _recipe_config(recipe, loader, *extra):
     return loader(["--config", str(recipe), "++model_config.file=__main__:synth_tokenizer_factory", *extra])
 
 
@@ -1987,7 +2119,7 @@ def run_aac() -> dict:
     enc_path = f"++model_config.encoder_path={eat_path}"
     common = (enc_path, "++train_config.log_interval=1", "++train_config.run_validation=false",
               "++train_config.warmup_steps=2", "++train_config.num_epochs=1")
-    cfg = _aac_config(
+    cfg = _recipe_config(
         AAC_RECIPE, finetune.load_run_config, *common,
         f"++dataset_config.train_data_path={write_corpus(tmp, n=16 * AAC_STEPS, name='train', targets=AAC_CAPTIONS)}",
         f"++dataset_config.val_data_path={write_corpus(tmp, n=8, seed=1, name='val', targets=AAC_CAPTIONS)}",
@@ -2039,7 +2171,7 @@ def run_aac() -> dict:
 
     # SLAM-AAC: the same model with LoRA r8 on q / v over the bf16 base
     slam_train = write_corpus(tmp, n=16 * SLAM_AAC_STEPS, name="slam_train", targets=AAC_CAPTIONS)
-    cfg2 = _aac_config(
+    cfg2 = _recipe_config(
         SLAM_AAC_RECIPE, finetune.load_run_config, *common, f"++dataset_config.train_data_path={slam_train}",
         f"++dataset_config.val_data_path={write_corpus(tmp, n=8, seed=1, name='val', targets=AAC_CAPTIONS)}",
         f"++train_config.max_steps_per_epoch={SLAM_AAC_STEPS}", f"++train_config.output_dir={tmp / 'slam_out'}",
@@ -2068,7 +2200,7 @@ def run_aac() -> dict:
         raise AssertionError("model.pt differs from the trained projector and LoRA factors")
 
     test_manifest = write_corpus(tmp, n=16, seed=2, name="test", targets=AAC_CAPTIONS)
-    dec = _aac_config(
+    dec = _recipe_config(
         SLAM_AAC_RECIPE, inference_batch.load_run_config, enc_path, f"++ckpt_path={ckpt}",
         f"++dataset_config.val_data_path={test_manifest}", f"++decode_config.decode_log={tmp / 'decode'}",
         f"++decode_config.max_new_tokens={AAC_NEW_TOKENS}", f"++train_config.val_batch_size={AAC_DECODE_BATCH}",
@@ -2112,7 +2244,7 @@ def run_aac() -> dict:
 
     # the whole encoders on two ragged clips (fixed_length: false), 10 s and 4.1 s
     def two_clips(*extra):
-        ragged = _aac_config(AAC_RECIPE, inference_batch.load_run_config, "++dataset_config.fixed_length=false",
+        ragged = _recipe_config(AAC_RECIPE, inference_batch.load_run_config, "++dataset_config.fixed_length=false",
                              f"++dataset_config.val_data_path={test_manifest}", *extra)
         ragged.dataset_config.inference_mode = True
         ds = dataset_of(ragged, tokenizer, ragged.dataset_config.test_split)
@@ -2120,7 +2252,7 @@ def run_aac() -> dict:
         return torch.from_numpy(two["audio_mel"]), torch.from_numpy(two["audio_mel_mask"])
 
     mel, mask = two_clips()
-    enc_launches = check_encoder_against_cpu("[aac] EAT-base (the loaded file)", trainer2.model.encoder, mel, mask,
+    enc_launches = check_encoder_against_cpu("[aac] EAT-base (the loaded file)", trainer2.model.encoder, (mel, mask),
                                              expect_k1=True)
     del res2, trainer2
     torch.cuda.empty_cache()
@@ -2128,7 +2260,7 @@ def run_aac() -> dict:
                           "++dataset_config.fbank_std=6.55582")
     beats = init_params_(BEATsEncoder(BEATS_PRESETS["beats-iter3"](), device="cuda").eval(),
                          torch.Generator(device="cuda").manual_seed(4))
-    got = check_encoder_against_cpu("[aac] BEATs-iter3 (random init)", beats, mel, mask, expect_k1=False)
+    got = check_encoder_against_cpu("[aac] BEATs-iter3 (random init)", beats, (mel, mask), expect_k1=False)
     enc_launches = {k: enc_launches[k] + got[k] for k in enc_launches}
     bc = beats.cfg
     n_feat = (mel.shape[1] // bc.patch_size) * (bc.n_mels // bc.patch_size)
@@ -2303,7 +2435,7 @@ def run_clap(aac: dict) -> dict:
         f"{n_bytes / 1e9:.3f} GB of f32 parameters")
 
     # (a) SLAM-AAC's candidates, CLAP-Refine, the caption metrics with FENSE
-    dec = _aac_config(
+    dec = _recipe_config(
         SLAM_AAC_RECIPE, inference_batch.load_run_config, aac["enc_path"], f"++ckpt_path={aac['ckpt']}",
         f"++dataset_config.val_data_path={aac['test_manifest']}", f"++decode_config.decode_log={tmp / 'refine'}",
         f"++decode_config.max_new_tokens={REFINE_NEW_TOKENS}", f"++train_config.val_batch_size={AAC_DECODE_BATCH}",
@@ -2482,6 +2614,279 @@ def run_clap(aac: dict) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 12: SELD (Spatial-AST-base in f32 + Q-Former), music captioning
+# (MusicFM-MSD + linear) and SEC (emotion2vec-base + Q-Former, then the
+# E-chat dialogs), each with vicuna-7b in bf16
+# ---------------------------------------------------------------------------
+
+SELD_RECIPE = ROOT / "examples" / "seld_spatialsoundqa" / "conf" / "seld_spatialast_llama.yaml"
+MC_RECIPE = ROOT / "examples" / "mc_musiccaps" / "conf" / "mc_musicfm_vicuna.yaml"
+SEC_RECIPE = ROOT / "examples" / "sec_emotioncaps" / "conf" / "sec_emotion2vec_vicuna.yaml"
+MS_STEPS = 4
+ECHAT_STEPS = 2
+MS_NEW_TOKENS = 32  # decode length (a random model rarely emits EOS)
+MS_DECODE_BATCH = 8
+MS_LAYERS = 2  # LLM and encoder depth of the card-vs-CPU checks
+# a Q-Former key bias's gradient / its query bias's, both sides: under near-uniform attention
+# K4's bf16 dS leaves about a tenth (SELD on an H100), a dS without delta above 1
+MS_KEY_BIAS_LIMIT = 0.3
+SA_T = 515  # Spatial-AST's tokens: 3 CLS + 64 x 8 patches of the 1024-frame resize
+MC_ENC_T = 251  # MusicFM's frames for a 10 s crop: 1001 mel frames / 4
+ECHAT_T = 512  # the E-chat variant's text bucket (its long default prompt)
+SEC_CAPTIONS = ["the speaker sounds happy and excited", "a calm, neutral voice", "the woman speaks with sadness",
+                "an angry man raises his voice", "she sounds surprised and pleased", "a tired and bored tone"]
+
+
+def _recipe_phase(label: str, recipe: Path, tmp: Path, tokenizer, train_args: tuple, test_args: tuple):
+    """One phase-12 recipe through both entry points at full width:
+    pipeline.finetune for MS_STEPS steps of 16 (the projector trains, the
+    encoder and the bf16 vicuna-7b stay bit-unchanged; K1 / K4 launch once a
+    layer a step, K1's f32 route once a Spatial-AST layer, K2 = K3 = 0), the
+    encoder's share of the step, pipeline.inference_batch with ckpt_path
+    (beam 4, batches of 8) against the in-memory trained model's decode, and
+    the card-vs-CPU checks at MS_LAYERS LLM and encoder layers. Returns the
+    trainer, the launches of both runs and the test dataset."""
+    from slam_llm_tpu_torch.pipeline import finetune, inference_batch
+    from slam_llm_tpu_torch.pipeline.inference_batch import decode_loader
+    from slam_llm_tpu_torch.utils.checkpoint import load_trainable
+
+    t_phase = time.perf_counter()
+    cfg = _recipe_config(recipe, finetune.load_run_config, *train_args, "++train_config.log_interval=1",
+                         "++train_config.run_validation=false", "++train_config.warmup_steps=2",
+                         "++train_config.num_epochs=1", f"++train_config.max_steps_per_epoch={MS_STEPS}",
+                         f"++train_config.output_dir={tmp / 'out'}")
+    tc = cfg.train_config
+    if (cfg.model_config.llm_name, tc.batch_size_training, tc.freeze_encoder, tc.freeze_llm, tc.use_peft,
+            tc.shard.base_quant) != ("vicuna-7b", 16, True, True, False, "none"):
+        raise AssertionError(f"the {label} recipe changed: {cfg.model_config} {tc}")
+    res, launches, stats = _finetune(cfg, label)
+    trainer = res["trainer"]
+    c = trainer.model.cfg
+    steps = len(res["steps"])
+    qformer = c.projector_cfg.qformer_layers if c.projector == "q-former" else 0
+    f32 = c.encoder_name == "spatial_ast"
+    per_step = {"flash_attention_fwd": (0 if f32 else c.encoder.n_layers) + qformer + c.llm.n_layers,
+                "flash_attention_fwd_f32": c.encoder.n_layers if f32 else 0,
+                "flash_attention_bwd": qformer + c.llm.n_layers}
+    log(f"[{label}] model: {c.encoder_name} ({c.encoder.n_layers} layers, d {c.encoder.d_model}, "
+        f"{c.encoder.n_heads} heads, {c.encoder.dtype}) + {c.projector} + vicuna-7b ({c.llm.n_layers} layers, base "
+        f"{c.llm.base_quant}, remat {c.llm.remat_policy if c.llm.remat else 'off'}); materialized in "
+        f"{res['load_seconds']:.2f} s; step {stats['step_ms']:.1f} ms, {16 / stats['step_ms'] * 1000:.2f} utt/s, peak "
+        f"memory {stats['peak_gib']:.2f} GiB ({stats['own_peak_gib']:.2f} of its own); per step "
+        f"{ {k: launches[k] / steps for k in per_step} } | {SMI}")
+    if steps != MS_STEPS or not res["checkpoints"]:
+        raise AssertionError(f"{label}: {steps} steps, checkpoints {res['checkpoints']}")
+    if {k: launches[k] for k in per_step} != {k: v * steps for k, v in per_step.items()}:
+        raise AssertionError(f"{label}: launches {launches}, not {per_step} a step")
+    check_projector_trained(trainer, cfg, label)
+    saved = load_trainable(res["checkpoints"][-1])
+    if set(saved) != set(trainer.trainable) or not all(torch.equal(saved[n], p.detach().cpu())
+                                                        for n, p in trainer.trainable.items()):
+        raise AssertionError(f"{label}: model.pt differs from the trained projector")
+    train_ds = dataset_of(cfg, tokenizer, cfg.dataset_config.train_split)
+    batch16 = trainer.put_batch(train_ds.collator([train_ds[i] for i in range(16)]))
+    with torch.no_grad():
+        enc_ms = event_ms(lambda: trainer.model.encode(batch16), reps=3)
+    audio_key = next(k for k in ("audio_binaural", "audio_mel", "audio") if k in batch16)
+    log(f"[{label}] encoder + projector forward of a training batch {audio_key} {tuple(batch16[audio_key].shape)}: "
+        f"{enc_ms:.2f} ms by CUDA events, {enc_ms / stats['step_ms']:.3f} of the step | {SMI}")
+    del batch16
+
+    dec = _recipe_config(recipe, inference_batch.load_run_config, *test_args, f"++ckpt_path={res['checkpoints'][-1]}",
+                         f"++decode_config.decode_log={tmp / 'decode'}",
+                         f"++decode_config.max_new_tokens={MS_NEW_TOKENS}",
+                         f"++train_config.val_batch_size={MS_DECODE_BATCH}")
+    out, dec_launches = run_counted(lambda: inference_batch.main(dec, device="cuda"))
+    test_ds = dataset_of(dec, tokenizer, dec.dataset_config.test_split)
+    batches = list(decode_loader(dec, test_ds))
+    log(f"[{label}] inference_batch with ckpt_path: {out['n']} inputs in batches of {MS_DECODE_BATCH} (T "
+        f"{[b['input_ids'].shape[1] for b in batches]}), beam {dec.decode_config.num_beams}, {MS_NEW_TOKENS} new "
+        f"tokens at most; materialized in {out['load_seconds']:.2f} s; decode {out['seconds']:.2f} s, prefill "
+        f"{1000 * out['prefill_s'] / out['calls']:.1f} ms/batch, "
+        f"{1000 * out['decode_s'] / max(out['decode_steps'], 1):.2f} ms/beam step over {out['decode_steps']} steps, "
+        f"{out['generated_tokens']} tokens, RTF {out['rtf']:.4f} ({out['audio_seconds']:.2f} s of audio); launches "
+        f"{ {k: dec_launches[k] for k in per_step} } | {SMI}")
+    if f32 and dec_launches["flash_attention_fwd_f32"] != c.encoder.n_layers * len(batches):
+        raise AssertionError(f"{label}: K1 f32 launched {dec_launches['flash_attention_fwd_f32']} times over "
+                             f"{len(batches)} prefills of {c.encoder.n_layers} layers")
+    if any(launches[k] + dec_launches[k] for k in AAC_BYPASSED):
+        raise AssertionError(f"{label}: K2 / K3 launched on the bf16 base: "
+                             f"{ {k: launches[k] + dec_launches[k] for k in AAC_BYPASSED} }")
+    if not np.isfinite(out["rtf"]):
+        raise AssertionError(f"{label}: RTF {out['rtf']} over {out['audio_seconds']} s of audio")
+    if c.encoder.dtype == torch.float32:
+        # the trainer re-stored the frozen f32 encoder in frozen_dtype (bf16), as the JAX package's trainer
+        # does, and inference_batch builds it in f32: the in-memory model gets the f32 encoder back
+        from slam_llm_tpu_torch.utils.hf_loader import convert_encoder_checkpoint, overlay_
+
+        overlay_(trainer.model.encoder.float(),
+                 convert_encoder_checkpoint(cfg.model_config.encoder_path, c.encoder_name, c.encoder))
+    # a random model's text may hold line breaks: the log is compared whole, as written
+    with open(out["pred"], encoding="utf-8", newline="") as f:
+        text = f.read()
+    mine = decode_texts(trainer.model, tokenizer, dec)
+    log(f"[{label}] decoded text of the entry point vs the in-memory trained model: "
+        f"{sum(f'{line}' + chr(10) in text for line in mine)} / {len(mine)} identical")
+    print("\n".join(repr(line) for line in mine[:2]))
+    if len(mine) != len(test_ds) or text != "".join(f"{line}\n" for line in mine):
+        raise AssertionError(f"{label}: the reloaded model's decode differs from the in-memory trained model's")
+    # the Q-Former's later blocks attend near-uniformly, where K4's bf16 dS
+    # is most of a query / key gradient: the CPU side rounds as K4 does
+    with cpu_attention_on_twins():
+        check_reduced_against_cpu(trainer, cfg, batches[0], train_ds, label, MS_LAYERS, MS_KEY_BIAS_LIMIT)
+    log(f"[{label}] the recipe in {time.perf_counter() - t_phase:.1f} s")
+    return trainer, {k: launches[k] + dec_launches[k] for k in launches}, test_ds
+
+
+def _ms_tokenizer(tmp: Path):
+    global _synth_tokenizer_dir
+    from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
+    from slam_llm_tpu_torch.tools import synth_checkpoint as synth
+
+    synth.write_tokenizer(str(tmp / "tokenizer"), 32000, seed=0)
+    _synth_tokenizer_dir = str(tmp / "tokenizer")
+    return load_tokenizer(_synth_tokenizer_dir)
+
+
+def run_seld() -> dict:
+    """seld_spatialast_llama: a random Spatial-AST-base file in BAT's layout
+    through ``encoder_path`` (f32, so its 12 layers run K1's f32 route),
+    the 64-query Q-Former, vicuna-7b in bf16, on spatialised 10 s clips
+    (synthetic 32 kHz clips convolved with 2-channel IRs, SpatialSoundQA's
+    manifests); the whole Spatial-AST-base against the CPU f32 plain path."""
+    import shutil
+
+    from slam_llm_tpu_torch.models.spatial_ast import SPATIAL_AST_PRESETS, SpatialASTEncoder
+    from slam_llm_tpu_torch.tools import synth_checkpoint as synth
+    from slam_llm_tpu_torch.utils.hf_loader import convert_encoder_checkpoint, load_torch_checkpoint, overlay_
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_seld_"))
+    t0 = time.perf_counter()
+    cfg_sa = SPATIAL_AST_PRESETS["spatialast-base"]()
+    sa_path = tmp / "spatial_ast.pt"
+    sa_bytes = synth.write_spatial_ast(str(sa_path), cfg_sa, seed=1, device="cuda")
+    over = synth.write_seld_corpus(str(tmp / "seld"), n=16 * MS_STEPS, n_eval=16, seed=0)
+    tokenizer = _ms_tokenizer(tmp)
+    log(f"[seld] wrote Spatial-AST-base f32 in BAT's layout ({sa_bytes / 1e9:.3f} GB), a SpatialSoundQA-shaped corpus "
+        f"(32 kHz clips of 4-12 s, 2-channel IRs, {16 * MS_STEPS} train / 16 test items) and the tokenizer in "
+        f"{time.perf_counter() - t0:.2f} s")
+    args = (f"++model_config.encoder_path={sa_path}", *(f"++dataset_config.{k}={v}" for k, v in over.items()))
+    trainer, launches, test_ds = _recipe_phase("seld", SELD_RECIPE, tmp, tokenizer, args, args)
+    if trainer.model.cfg.encoder.dtype != torch.float32 or trainer.model.cfg.projector_cfg.query_len != 64:
+        raise AssertionError(f"the SELD recipe changed: {trainer.model.cfg}")
+    del trainer
+    torch.cuda.empty_cache()
+    # the whole encoder in f32 from the file, TF32 off on the card (phase 1) and on the CPU
+    sa = SpatialASTEncoder(cfg_sa, device="cuda").eval()
+    overlay_(sa, convert_encoder_checkpoint(str(sa_path), "spatial_ast", cfg_sa))
+    sd = load_torch_checkpoint(str(sa_path))
+    d, last = cfg_sa.d_model, cfg_sa.n_layers - 1
+    for got, want in ((sa.blocks[last].k_proj.weight, sd[f"blocks.{last}.attn.qkv.weight"][d:2 * d]),
+                      (sa.pos_embed, sd["pos_embed"][0, 1:]), (sa.bn_var, sd["bn.running_var"])):
+        if not torch.equal(got.detach().cpu(), want):
+            raise AssertionError("a loaded Spatial-AST tensor differs from the file's")
+    two = test_ds.collator([test_ds[0], test_ds[3]])
+    feats = torch.from_numpy(two["audio_binaural"])
+    log(f"[seld] TF32: matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN {torch.backends.cudnn.allow_tf32}")
+    check_encoder_against_cpu("[seld] Spatial-AST-base f32 (the BAT-layout file)", sa, (feats,), expect_k1=True,
+                              min_cos=0.99999, kernel="flash_attention_fwd_f32")
+    with torch.no_grad():
+        sa_ms = event_ms(lambda: sa(feats.cuda()), reps=3)
+    log(f"[seld] Spatial-AST-base f32 forward of {tuple(feats.shape)}: {sa_ms:.2f} ms by CUDA events | {SMI}")
+    del sa
+    shutil.rmtree(tmp)
+    return launches
+
+
+def run_mc() -> dict:
+    """mc_musicfm_vicuna: MusicFM-MSD in bf16 from its seeded init (neither
+    package converts MusicFM's checkpoint), the linear projector at ds 5,
+    vicuna-7b in bf16, on 10 s crops of 8-14 s 24 kHz clips; the whole
+    MusicFM against the CPU f32 plain path on two clips, one shorter than
+    10 s (zero-padded)."""
+    import shutil
+
+    from slam_llm_tpu_torch.tools import synth_checkpoint as synth
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mc_"))
+    t0 = time.perf_counter()
+    train = synth.write_music_corpus(str(tmp / "music"), n=16 * MS_STEPS, seed=0, name="train")
+    test = synth.write_music_corpus(str(tmp / "music"), n=16, seed=2, name="test", seconds=(6.0, 14.0))
+    tokenizer = _ms_tokenizer(tmp)
+    log(f"[mc] wrote 24 kHz clips ({16 * MS_STEPS} train of 8-14 s, 16 test of 6-14 s) and the tokenizer in "
+        f"{time.perf_counter() - t0:.2f} s")
+    trainer, launches, test_ds = _recipe_phase(
+        "mc", MC_RECIPE, tmp, tokenizer, (f"++dataset_config.train_data_path={train}",),
+        (f"++dataset_config.val_data_path={test}",))
+    enc = trainer.model.encoder
+    if (enc.cfg.d_model, enc.cfg.n_layers, trainer.model.cfg.projector_cfg.ds_rate) != (1024, 12, 5):
+        raise AssertionError(f"the MC recipe changed: {trainer.model.cfg}")
+    two = test_ds.collator([test_ds[0], test_ds[15]])  # 6 s (zero-padded to 10 s) and 14 s (cut)
+    mel, mask = torch.from_numpy(two["audio_mel"]), torch.from_numpy(two["audio_mel_mask"])
+    check_encoder_against_cpu("[mc] MusicFM-MSD bf16 (seeded init)", enc, (mel, mask), expect_k1=True, min_cos=0.999)
+    del trainer, enc
+    shutil.rmtree(tmp)
+    return launches
+
+
+def run_sec() -> dict:
+    """sec_emotion2vec_vicuna: emotion2vec-base from its seeded init, the
+    64-query Q-Former, vicuna-7b in bf16, on raw 16 kHz audio; then its
+    E-chat variant: pipeline.finetune for ECHAT_STEPS steps from one dialog
+    TSV (``dataset: echat_dataset``, ``data_path``), validating on its
+    positional 10 %."""
+    import shutil
+
+    from slam_llm_tpu_torch.pipeline import finetune
+    from slam_llm_tpu_torch.tools import synth_checkpoint as synth
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sec_"))
+    tokenizer = _ms_tokenizer(tmp)
+    train = write_corpus(tmp, n=16 * MS_STEPS, name="train", targets=SEC_CAPTIONS)
+    test = write_corpus(tmp, n=16, seed=2, name="test", targets=SEC_CAPTIONS)
+    trainer, launches, _ = _recipe_phase(
+        "sec", SEC_RECIPE, tmp, tokenizer, (f"++dataset_config.train_data_path={train}",),
+        (f"++dataset_config.val_data_path={test}",))
+    if (trainer.model.cfg.encoder_name, trainer.model.cfg.projector_cfg.query_len) != ("emotion2vec", 64):
+        raise AssertionError(f"the SEC recipe changed: {trainer.model.cfg}")
+    del trainer
+    torch.cuda.empty_cache()
+    tsv = synth.write_echat_corpus(str(tmp / "echat"), n_dialogs=24, seed=3)
+    cfg = _recipe_config(SEC_RECIPE, finetune.load_run_config, "++dataset_config.dataset=echat_dataset",
+                         f"++dataset_config.data_path={tsv}", "++dataset_config.prompt=null",
+                         "++train_config.log_interval=1", "++train_config.warmup_steps=1", "++train_config.num_epochs=1",
+                         f"++train_config.max_steps_per_epoch={ECHAT_STEPS}", "++train_config.save_model=false",
+                         f"++train_config.output_dir={tmp / 'echat_out'}")
+    res, echat_launches, echat_stats = _finetune(cfg, "sec echat")
+    train_ds = dataset_of(cfg, tokenizer, cfg.dataset_config.train_split)
+    val_ds = dataset_of(cfg, tokenizer, "validation")
+    log(f"[sec echat] {len(train_ds)} train / {len(val_ds)} validation turn pairs from one TSV of 24 dialogs; "
+        f"{len(res['steps'])} steps of batch {res['steps'][-1]['shape']}, step {echat_stats['step_ms']:.1f} ms; "
+        f"validation {res.get('final_val')} | {SMI}")
+    if (len(res["steps"]) != ECHAT_STEPS or {s["shape"][1] for s in res["steps"]} != {ECHAT_T}
+            or not res.get("final_val") or not len(val_ds)
+            or any(echat_launches[k] for k in AAC_BYPASSED)):
+        raise AssertionError(f"sec echat: steps {len(res['steps'])}, validation {res.get('final_val')}, "
+                             f"launches {echat_launches}")
+    del res
+    shutil.rmtree(tmp)
+    return {k: launches[k] + echat_launches[k] for k in launches}
+
+
+def run_music_spatial() -> dict:
+    """Phase 12: the SELD, MC and SEC recipes, each through both entry points;
+    a recipe's launches are its training and decode runs' (the whole-encoder
+    checks against the CPU count their own)."""
+    t0 = time.perf_counter()
+    paths = {}
+    for name, fn in (("seld", run_seld), ("mc", run_mc), ("sec", run_sec)):
+        paths[name] = fn()
+        torch.cuda.empty_cache()
+    log(f"[music_spatial] phase 12 in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     global SMI
     t0 = time.perf_counter()
@@ -2496,15 +2901,16 @@ def main() -> int:
     wavlm = run_wavlm()
     aac, aac_files = run_aac()
     clap = run_clap(aac_files)
+    music_spatial = run_music_spatial()
     paths = {"decode": decode, "train": train, "train_int8_sr": modes, "weights": weights, "st": st,
-             "wavlm": wavlm, "aac": aac, "clap": clap}
+             "wavlm": wavlm, "aac": aac, "clap": clap, **music_spatial}
     for r in results:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
         if r["name"].startswith("int8_matmul"):  # the code paths count both epilogues together
             r["launches_by_code_path"] = {p: {path: counts[f"int8_matmul/{p}"] for path, counts in paths.items()}
                                           for p in ("wgmma", "splitk")}
-    log(f"[chip_smoke] phases 1-11 in {time.perf_counter() - t0:.1f} s | {SMI}")
+    log(f"[chip_smoke] phases 1-12 in {time.perf_counter() - t0:.1f} s | {SMI}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

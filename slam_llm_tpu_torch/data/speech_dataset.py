@@ -58,6 +58,11 @@ def bucketize(n: int, buckets: Sequence[int]) -> int:
     return b
 
 
+def read_jsonl(path: str) -> List[dict]:
+    with open(path, encoding="utf-8") as fin:
+        return [json.loads(line) for line in (raw.strip() for raw in fin) if line]
+
+
 class SpeechDatasetJsonl:
     """Map-style dataset over a ``{key, source, target}`` jsonl manifest."""
 
@@ -82,15 +87,12 @@ class SpeechDatasetJsonl:
 
         self._specaug_lock = threading.Lock()
 
-        path = (
-            dataset_config.train_data_path if split == "train" else dataset_config.val_data_path
-        )
-        self.data_list: List[dict] = []
-        with open(path, encoding="utf-8") as fin:
-            for line in fin:
-                line = line.strip()
-                if line:
-                    self.data_list.append(json.loads(line))
+        self.data_list: List[dict] = self.read_manifest(dataset_config, split)
+
+    def read_manifest(self, dataset_config, split: str) -> List[dict]:
+        """The split's items: the jsonl of ``train_data_path`` or
+        ``val_data_path`` (the datasets built on this one read their own)."""
+        return read_jsonl(dataset_config.train_data_path if split == "train" else dataset_config.val_data_path)
 
     def __len__(self):
         return len(self.data_list)

@@ -23,7 +23,8 @@ from slam_llm_tpu_torch.models.llm import init_kv_cache, reorder_cache
 
 NEG_INF = -1.0e9
 _BATCH_KEYS = ("input_ids", "attention_mask", "modality_mask", "audio_mel", "audio_mel_mask", "audio", "audio_mask",
-               "text_input_ids", "text_input_mask")  # the last two: the hf-text encoder's
+               "audio_binaural",  # spatial_ast's (B, 4, frames, mels) feature map
+               "text_input_ids", "text_input_mask")  # the hf-text encoder's
 
 
 @dataclass(frozen=True)

@@ -45,6 +45,8 @@ _SIGNATURES = {
     # q k v mask out dout lse cos sin lse_t dlt_t q_rot k_rot dq dk dv (all contiguous) | b t h hkv d |
     # scale | causal hb tpad sms | stream
     "slam_flash_bwd": [_P] * 16 + [_I] * 5 + [ctypes.c_float] + [_I] * 4 + [_P],
+    # q k v mask out lse | b tq tk h hkv d | q/k/v strides | scale causal | stream
+    "slam_flash_fwd_f32": [_P] * 6 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _I, _P],
     # q k v s_out o_out | d n | stream
     "slam_wgmma_probe": [_P] * 5 + [_I, _I, _P],
 }

@@ -7,9 +7,11 @@ for the raw-waveform encoders, ``input_ids`` with -1 on audio pseudo-tokens,
 positions). ``forward`` returns the loss and next-token accuracy of the
 training step; a frozen encoder runs without autograd. The ported encoders
 are whisper, the WavLM family (``wavlm``, ``hubert``, ``emotion2vec``), the
-fbank encoders of the audio-captioning recipes (``eat``, ``beats``), which
-read ``audio_mel`` / ``audio_mel_mask`` as whisper does, and the BERT text
-encoder ``hf-text``, which reads ``text_input_ids`` / ``text_input_mask``.
+fbank encoders of the audio-captioning recipes (``eat``, ``beats``) and
+MusicFM (``musicfm``), which read ``audio_mel`` / ``audio_mel_mask`` as
+whisper does, Spatial-AST (``spatial_ast``), which reads the binaural
+feature map ``audio_binaural``, and the BERT text encoder ``hf-text``, which
+reads ``text_input_ids`` / ``text_input_mask``.
 Without an encoder (``encoder_name: null``, DRCap) the batch's ``audio_mel``
 (else ``audio``) is the encoder output, with ``audio_mel_mask`` or ones:
 DRCap's one-frame CLAP latents. The other encoders raise
@@ -29,7 +31,9 @@ from torch import nn
 from slam_llm_tpu_torch.models.beats import BEATS_PRESETS, BEATsEncoder
 from slam_llm_tpu_torch.models.bert import BERT_PRESETS, BertEncoder
 from slam_llm_tpu_torch.models.llm import CausalLM, KVCache, LLMConfig
+from slam_llm_tpu_torch.models.musicfm import MUSICFM_PRESETS, MusicFMEncoder
 from slam_llm_tpu_torch.models.projector import ProjectorConfig, build_projector
+from slam_llm_tpu_torch.models.spatial_ast import SPATIAL_AST_PRESETS, SpatialASTEncoder
 from slam_llm_tpu_torch.models.vit import VIT_PRESETS, ViTEncoder
 from slam_llm_tpu_torch.models.wavlm import WAVLM_PRESETS, WavLMEncoder
 from slam_llm_tpu_torch.models.whisper import PRESETS as WHISPER_PRESETS
@@ -37,15 +41,16 @@ from slam_llm_tpu_torch.models.whisper import WhisperEncoder
 from slam_llm_tpu_torch.ops.quant import check_bwd_mode
 
 IGNORE_INDEX = -100
-_TODO_ENCODERS = "ROADMAP Queue 1: musicfm, spatial_ast, av_hubert and vallex"
+_TODO_ENCODERS = "ROADMAP Queue 1: av_hubert and vallex"
 RAW_ENCODERS = ("wavlm", "hubert", "emotion2vec")  # read the raw waveform
 
 
 @dataclass(frozen=True)
 class SLAMConfig:
     llm: LLMConfig = field(default_factory=LLMConfig.tiny_test)
-    encoder_name: Optional[str] = "whisper"  # whisper | wavlm | hubert | emotion2vec | eat | beats | hf-text | None
-    encoder: Any = None  # WhisperEncoderConfig, WavLMConfig, ViTEncoderConfig, BEATsEncoderConfig or BertConfig
+    # whisper | wavlm | hubert | emotion2vec | eat | beats | musicfm | spatial_ast | hf-text | None
+    encoder_name: Optional[str] = "whisper"
+    encoder: Any = None  # the encoder's config (WhisperEncoderConfig, WavLMConfig, MusicFMConfig, ...)
     projector: str = "linear"
     projector_cfg: ProjectorConfig = field(default_factory=ProjectorConfig)
     freeze_encoder: bool = True
@@ -99,6 +104,10 @@ class SLAMModel(nn.Module):
             self.encoder = ViTEncoder(cfg.encoder, device)
         elif cfg.encoder_name == "beats":
             self.encoder = BEATsEncoder(cfg.encoder, device)
+        elif cfg.encoder_name == "musicfm":
+            self.encoder = MusicFMEncoder(cfg.encoder, device)
+        elif cfg.encoder_name == "spatial_ast":
+            self.encoder = SpatialASTEncoder(cfg.encoder, device)
         elif cfg.encoder_name == "hf-text":
             self.encoder = BertEncoder(cfg.encoder, device)
         elif cfg.encoder_name is None:
@@ -125,7 +134,9 @@ class SLAMModel(nn.Module):
             elif self.cfg.encoder_name == "hf-text":
                 enc_mask = batch["text_input_mask"]
                 enc = self.encoder(batch["text_input_ids"], enc_mask)
-            else:  # whisper, eat, beats
+            elif self.cfg.encoder_name == "spatial_ast":
+                enc, enc_mask = self.encoder(batch["audio_binaural"])
+            else:  # whisper, eat, beats, musicfm
                 enc, enc_mask = self.encoder(batch["audio_mel"], batch.get("audio_mel_mask"))
         if self.cfg.projector == "q-former":
             # every query slot stays attendable, as in the reference: the
@@ -183,6 +194,12 @@ def build_slam_config(train_config, model_config) -> SLAMConfig:
         encoder_dim = enc_cfg.d_model
     elif mc.encoder_name == "beats":
         enc_cfg = BEATS_PRESETS[mc.encoder_config or "beats-iter3"]()
+        encoder_dim = enc_cfg.d_model
+    elif mc.encoder_name == "musicfm":
+        enc_cfg = MUSICFM_PRESETS[mc.encoder_config or "musicfm-msd"]()
+        encoder_dim = enc_cfg.d_model
+    elif mc.encoder_name == "spatial_ast":
+        enc_cfg = SPATIAL_AST_PRESETS[mc.encoder_config or "spatialast-base"]()
         encoder_dim = enc_cfg.d_model
     elif mc.encoder_name == "hf-text":
         enc_cfg = BERT_PRESETS[mc.encoder_config or "bert-base-uncased"]()

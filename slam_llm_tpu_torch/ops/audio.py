@@ -202,3 +202,43 @@ def log_mel_spectrogram(audio, n_mels: int = 80) -> np.ndarray:
     log_spec = np.log10(np.maximum(mel, 1e-10))
     log_spec = np.maximum(log_spec, log_spec.max() - 8.0)
     return ((log_spec + 4.0) / 4.0).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# MusicFM's dB mel (the MIR dataset)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=4)
+def _htk_mel_banks(n_mels: int, sr: int, n_fft: int) -> np.ndarray:
+    """HTK-scale unnormalized triangular banks, (n_mels, n_fft // 2 + 1) f32
+    (torchaudio MelSpectrogram's defaults: htk scale, norm=None, f_min=0,
+    f_max=sr/2)."""
+    def hz_to_mel(f):
+        return 2595.0 * np.log10(1.0 + np.asarray(f, np.float64) / 700.0)
+
+    def mel_to_hz(m):
+        return 700.0 * (10.0 ** (np.asarray(m, np.float64) / 2595.0) - 1.0)
+
+    fftfreqs = np.linspace(0, sr / 2, 1 + n_fft // 2)
+    pts = mel_to_hz(np.linspace(hz_to_mel(0.0), hz_to_mel(sr / 2), n_mels + 2))
+    banks = np.zeros((n_mels, 1 + n_fft // 2), np.float64)
+    for i in range(n_mels):
+        up = (fftfreqs - pts[i]) / (pts[i + 1] - pts[i])
+        down = (pts[i + 2] - fftfreqs) / (pts[i + 2] - pts[i + 1])
+        banks[i] = np.maximum(0.0, np.minimum(up, down))
+    return banks.astype(np.float32)
+
+
+def music_log_mel(audio, sr: int = 24000, n_fft: int = 2048, hop: int = 240, n_mels: int = 128) -> np.ndarray:
+    """MusicFM's dB mel spectrogram (torchaudio MelSpectrogram power 2, HTK
+    mel, then AmplitudeToDB with its default top_db=None: no floor). Returns
+    (T, n_mels) f32, T = 1 + S // hop (center=True): 1001 frames for 10 s."""
+    x = np.asarray(audio, np.float32)
+    pad = n_fft // 2
+    padded = np.pad(x, (pad, pad), mode="reflect")
+    n_frames = 1 + (len(padded) - n_fft) // hop
+    idx = np.arange(n_fft)[None, :] + hop * np.arange(n_frames)[:, None]
+    spec = np.fft.rfft(padded[idx] * _hann_periodic(n_fft), axis=-1)
+    mel = np.abs(spec) ** 2 @ _htk_mel_banks(n_mels, sr, n_fft).T
+    return (10.0 * np.log10(np.maximum(mel, 1e-10))).astype(np.float32)

@@ -17,8 +17,12 @@ the backward counter-rotates dq/dk. Self-attention only (Tq == Tk).
 
 The wrappers send CPU tensors to the twins and CUDA tensors to
 ``csrc/flash_attention.cu`` (K1) and ``csrc/flash_attention_bwd.cu`` (K4):
-bf16, D in {64, 128}; they raise on anything else. ``plan_flash`` decides,
-in plain Python, how the kernels cut a call into units of work (rows per
+bf16, D in {64, 128}. f32 CUDA tensors take K1's f32 route
+(``csrc/flash_attention_f32.cu``, ``flash_attention_fwd_f32``: exact f32
+products on the CUDA cores, no fused RoPE); K4 has no f32 route yet, so
+the backward of an f32 call raises. They raise on anything else.
+``plan_flash`` decides, in plain Python, how the bf16 kernels cut a call
+into units of work (rows per
 unit, query heads packed per unit, key or query tile, ring stages, grid,
 launch order, shared memory); the C entry points take its choices.
 """
@@ -116,7 +120,9 @@ def flash_attention_bwd_ref(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain twin of K4, in f32: ``(dq, dk, dv)`` in q's / k's / v's dtypes.
     P is recomputed from (q, k, lse) as the kernel does; invalid pairs and
-    dead rows give P = 0."""
+    dead rows give P = 0. As in the kernel, P and dS = P (dP - delta) are
+    rounded to q's dtype before their products (dV = P^T dout, dQ = dS K,
+    dK = dS^T Q), which leaves f32 inputs exact."""
     _check_shapes(q, k, v, kv_mask, causal, rope)
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
@@ -127,9 +133,9 @@ def flash_attention_bwd_ref(
     p = torch.where(valid, torch.exp2(torch.where(valid, s - lse5, 0.0)), 0.0)
     do = dout.float().reshape(b, tq, hkv, g, d)
     delta = (dout.float() * out.float()).sum(-1).reshape(b, tq, hkv, g).permute(0, 2, 3, 1)[..., None]
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(q.dtype).float(), do)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", do, v.float())
-    ds = p * (dp - delta)
+    ds = (p * (dp - delta)).to(q.dtype).float()
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kr.float()).reshape(b, tq, h, d) * scale
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qr.float().reshape(b, tq, hkv, g, d)) * scale
     if rope is not None:
@@ -236,11 +242,15 @@ def unit_rows(plan: PassPlan, b: int, t: int, h: int, u: int):
     return bb, pos[live], (hg * plan.heads + r % plan.heads)[live]
 
 
-def _check_kernel_inputs(d, *tensors):
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise TypeError(f"flash kernels take bfloat16, got {[t.dtype for t in tensors]}")
+def _check_kernel_inputs(d, *tensors, dtype=torch.bfloat16):
+    if any(t.dtype != dtype for t in tensors):
+        raise TypeError(f"flash kernels take {dtype} here, got {[t.dtype for t in tensors]}")
     if d not in (64, 128):
         raise ValueError(f"flash kernels take head_dim 64 or 128, got {d}")
+
+
+def _is_f32(*tensors) -> bool:
+    return all(t.dtype == torch.float32 for t in tensors)
 
 
 def _kernel_rope(rope: Rope, device):
@@ -257,6 +267,10 @@ def flash_attention_fwd(
     """``(out, lse)``: K1 on CUDA tensors, the twin on CPU tensors."""
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, kv_mask, causal, scale, rope)
+    if _is_f32(q, k, v):
+        if rope is not None:
+            raise NotImplementedError("K1's f32 route takes no fused RoPE (ROADMAP Queue 2): rotate q / k first")
+        return flash_attention_fwd_f32(q, k, v, kv_mask, causal, scale)
     _check_shapes(q, k, v, kv_mask, causal, rope)
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
@@ -292,6 +306,42 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 
 
+def flash_attention_fwd_f32(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor,
+    causal: bool = False, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` of f32 q / k / v: K1's f32 route
+    (``csrc/flash_attention_f32.cu``) on CUDA tensors, the twin on CPU
+    tensors. Any strides with a contiguous last dim; D in {64, 128}."""
+    if not q.is_cuda:
+        return flash_attention_ref(q, k, v, kv_mask, causal, scale)
+    _check_shapes(q, k, v, kv_mask, causal)
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    _check_kernel_inputs(d, q, k, v, dtype=torch.float32)
+    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty((b, tq, h, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, tq, h), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
+
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    with torch.cuda.device(q.device):
+        err = library().slam_flash_fwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            b, tq, tk, h, hkv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale), int(causal),
+            stream_ptr(q),
+        )
+    check(err, "flash_attention_f32")
+    flash_attention_fwd_f32.launches += 1
+    return out, lse
+
+
+flash_attention_fwd_f32.launches = 0
+
+
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor,
     out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
@@ -306,6 +356,9 @@ def flash_attention_bwd(
     hkv = k.shape[2]
     if k.shape[1] != t:
         raise ValueError(f"flash backward kernel takes self-attention (tq == tk), got {t} vs {k.shape[1]}")
+    if _is_f32(q, k, v):
+        raise NotImplementedError("K4 has no f32 route yet (ROADMAP Queue 2): the f32 flash attention takes no "
+                                  "gradient on the card")
     _check_kernel_inputs(d, q, k, v, out, dout)
     q, k, v, out, dout = (x.contiguous() for x in (q, k, v, out, dout))
     lse = lse.float().contiguous()

@@ -98,8 +98,11 @@ def main(cfg: RunConfig, device="cuda"):
     set_seed(tc.seed)
 
     model, tokenizer, train_ds = build_model_and_data(cfg, split=cfg.dataset_config.train_split, device=dev)
+    dc = cfg.dataset_config
+    # the SELD manifests' {qa_data_root}/{stage}/val.json, or E-chat's 90 / 10 split of one data_path
+    has_val_source = dc.val_data_path or getattr(dc, "qa_data_root", None) or getattr(dc, "data_path", None)
     eval_ds = None
-    if tc.run_validation and cfg.dataset_config.val_data_path:
+    if tc.run_validation and has_val_source:
         eval_ds = get_custom_dataset_factory(cfg.dataset_config)(cfg.dataset_config, tokenizer, "validation")
     train_loader = build_dataloader(
         train_ds, tc.batch_size_training, shuffle=True,

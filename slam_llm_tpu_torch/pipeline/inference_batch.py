@@ -69,13 +69,16 @@ def generation_config(cfg: RunConfig, tokenizer) -> GenerationConfig:
 def batch_audio_seconds(batch) -> float:
     """Seconds of audio in a batch, for the RTF: the collator's true
     (pre-pad) durations where it summed them, else the valid frames of the
-    mel mask (10 ms hop) or of the raw waveform's mask (16 kHz)."""
+    mel mask (10 ms hop) or of the raw waveform's mask (16 kHz), else the
+    binaural feature map's frames (B, 4, frames, mels; 10 ms hop at 32 kHz)."""
     if "audio_seconds" in batch:
         return float(batch["audio_seconds"])
     if "audio_mel_mask" in batch:
         return float(batch["audio_mel_mask"].sum()) * 0.01
     if "audio_mask" in batch:
         return float(batch["audio_mask"].sum()) / 16000.0
+    if "audio_binaural" in batch:
+        return float(batch["audio_binaural"].shape[0] * batch["audio_binaural"].shape[2]) * 0.01
     return 0.0
 
 

@@ -5,8 +5,8 @@ recipes; recipes inject their model factory and dataset factory through
 config strings (reference utils/dataset_utils.py:14-46,
 utils/model_utils.py:4-29). The model factory defaults to the port's own
 ``model_factory`` and the dataset factory to the port's speech dataset or,
-by ``dataset_config.dataset``, its audio-captioning dataset; the JAX
-package's other in-tree datasets are not ported yet.
+by ``dataset_config.dataset``, one of its in-tree datasets (``DATASETS``);
+the JAX package's other in-tree datasets are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,10 +19,15 @@ from typing import Any, Callable, Optional
 
 # the JAX package's in-tree datasets the port does not carry yet (ROADMAP.md
 # Queue 1: each comes with the recipe that reads it)
-UNPORTED_DATASETS = (
-    "mir_dataset", "s2s_dataset", "text_dataset", "vallex_dataset", "echat_dataset",
-    "avhubert_dataset", "spatial_audio_dataset", "speech_dataset_large",
-)
+UNPORTED_DATASETS = ("s2s_dataset", "text_dataset", "vallex_dataset", "avhubert_dataset", "speech_dataset_large")
+# dataset_config.dataset -> (module, factory) of the port's in-tree datasets
+DATASETS = {
+    "speech_dataset": ("slam_llm_tpu_torch.data.speech_dataset", "get_speech_dataset"),
+    "audio_dataset": ("slam_llm_tpu_torch.data.audio_dataset", "get_audio_dataset"),
+    "mir_dataset": ("slam_llm_tpu_torch.data.mir_dataset", "get_mir_dataset"),
+    "echat_dataset": ("slam_llm_tpu_torch.data.echat_dataset", "get_echat_dataset"),
+    "spatial_audio_dataset": ("slam_llm_tpu_torch.data.spatial_dataset", "get_spatial_audio_dataset"),
+}
 
 
 def load_module_from_py_file(py_file: str):
@@ -73,20 +78,16 @@ def get_custom_model_factory(model_config) -> Callable[..., Any]:
 
 def get_custom_dataset_factory(dataset_config) -> Callable[..., Any]:
     """A ``dataset_config.file`` spec, else the in-tree dataset named by
-    ``dataset_config.dataset``: the speech or audio-captioning dataset, or a
-    raise for the datasets not ported yet."""
+    ``dataset_config.dataset`` (``DATASETS``; an unknown name takes the
+    speech dataset, as in the reference), or a raise for the datasets not
+    ported yet."""
     spec: Optional[str] = getattr(dataset_config, "file", None)
     if spec:
         return resolve_factory(spec, default_name="get_speech_dataset")
     name = getattr(dataset_config, "dataset", "speech_dataset")
-    if name == "audio_dataset":
-        from slam_llm_tpu_torch.data.audio_dataset import get_audio_dataset
-
-        return get_audio_dataset
     if name in UNPORTED_DATASETS:
         raise NotImplementedError(
             f"dataset {name!r} is not ported to slam_llm_tpu_torch yet (ROADMAP.md Queue 1: it comes with the "
             "recipe that reads it)")
-    from slam_llm_tpu_torch.data.speech_dataset import get_speech_dataset
-
-    return get_speech_dataset
+    module, factory = DATASETS.get(name, DATASETS["speech_dataset"])
+    return getattr(importlib.import_module(module), factory)

@@ -44,7 +44,10 @@ are drawn on ``--device`` (the card unless the caller asks for the CPU):
 * ``write_beats``: an official BEATs checkpoint, ``{"cfg": {...}, "model":
   sd}`` (f32), the positional conv under weight norm in the
   ``parametrizations.weight.original0`` / ``original1`` form and the
-  relative-position table in every layer (BEATs shares layer 0's).
+  relative-position table in every layer (BEATs shares layer 0's);
+* ``write_spatial_ast``: a BAT / Spatial-AST checkpoint, ``{"model": sd}``
+  (f32), the keys ``models.spatial_ast.convert_spatialast_torch`` reads
+  (``--encoder spatialast-base`` writes ``<out dir>/spatial_ast.pt``).
 
 The two torch files hold tensors and plain dicts only, so
 ``utils.hf_loader.load_torch_checkpoint`` reads them without fairseq or
@@ -65,6 +68,12 @@ For CLAP and FENSE, called from Python:
 * ``write_echecker``: FENSE's error-detector ``.ckpt``,
   ``{"model_state_dict": sd}`` with a BERT (base by default) under
   ``encoder.`` and the 6-way ``clf`` head.
+
+The SELD, MIR and E-chat recipes' synthetic corpora, called from Python:
+``write_seld_corpus`` (32 kHz mono clips, 2-channel IR ``.npy`` files and
+``{qa_data_root}/{stage}/{split}.json`` manifests), ``write_music_corpus``
+(24 kHz clips of 8-14 s and a jsonl) and ``write_echat_corpus`` (a dialog
+TSV over 16 kHz turns).
 
 Linear weights are normal with std 1/sqrt(fan_in), embeddings with std 1
 (the CLAP and FENSE files' with std 1/sqrt(width)), norm scales 1 + N(0,
@@ -392,6 +401,41 @@ def write_eat(path: str, cfg, seed: int = 0, device="cpu") -> int:
     return _save_torch(path, {"model": sd})
 
 
+def write_spatial_ast(path: str, cfg, seed: int = 0, device="cpu") -> int:
+    """A BAT / Spatial-AST checkpoint file for ``cfg`` (the port's
+    ``SpatialASTConfig``), ``{"model": sd}`` in f32: the affine-free
+    ``bn`` over the two log-mel channels, ``conv_downsample`` (conv + its
+    BatchNorm), ``patch_embed.proj``, ``pos_embed`` (1, 1 + patches, D) with
+    the legacy leading slot before the fixed sin-cos table, ``cls_tokens``
+    and timm ViT blocks with the fused qkv."""
+    from slam_llm_tpu_torch.models.vit import sincos_2d_positions
+
+    d = _Draw(seed, device)
+    dm, p, hidden = cfg.d_model, cfg.patch_size, int(cfg.d_model * cfg.mlp_ratio)
+    table = torch.from_numpy(sincos_2d_positions(cfg.target_frames // p, cfg.n_mels // p, dm))
+    sd: Dict[str, torch.Tensor] = {
+        # running statistics of dB log-mels: mean around -10, variance around 100
+        "bn.running_mean": d.normal((2,), 2.0, -10.0), "bn.running_var": d.normal((2,), 5.0, 100.0),
+        "conv_downsample.0.weight": d.normal((1, 4, 3, 3), 1.0 / 6.0),
+        "conv_downsample.1.weight": d.normal((1,), 0.05, 1.0), "conv_downsample.1.bias": d.normal((1,), 0.02),
+        "conv_downsample.1.running_mean": d.normal((1,), 0.1), "conv_downsample.1.running_var": d.normal((1,), 0.05, 1.0),
+        "patch_embed.proj.weight": d.normal((dm, 1, p, p), 1.0 / p),
+        "patch_embed.proj.bias": d.normal((dm,), 0.02),
+        "pos_embed": torch.cat([torch.zeros(1, dm), table])[None],
+        "cls_tokens": d.normal((1, cfg.n_cls_tokens, dm), 0.02),
+    }
+    for i in range(cfg.n_layers):
+        q = f"blocks.{i}."
+        for ln in ("norm1", "norm2"):
+            sd[f"{q}{ln}.weight"] = d.normal((dm,), 0.05, 1.0)
+            sd[f"{q}{ln}.bias"] = d.normal((dm,), 0.02)
+        sd[q + "attn.qkv.weight"], sd[q + "attn.qkv.bias"] = d.linear(3 * dm, dm), d.normal((3 * dm,), 0.02)
+        sd[q + "attn.proj.weight"], sd[q + "attn.proj.bias"] = d.linear(dm, dm), d.normal((dm,), 0.02)
+        sd[q + "mlp.fc1.weight"], sd[q + "mlp.fc1.bias"] = d.linear(hidden, dm), d.normal((hidden,), 0.02)
+        sd[q + "mlp.fc2.weight"], sd[q + "mlp.fc2.bias"] = d.linear(dm, hidden), d.normal((dm,), 0.02)
+    return _save_torch(path, {"model": sd})
+
+
 def write_beats(path: str, cfg, seed: int = 0, device="cpu") -> int:
     """An official BEATs checkpoint file for ``cfg`` (the port's ``BEATsEncoderConfig``)."""
     d = _Draw(seed, device)
@@ -540,6 +584,120 @@ def write_echecker(path: str, cfg=None, seed: int = 0, device="cpu") -> int:
     return os.path.getsize(path)
 
 
+# ---------------------------------------------------------------------------
+# synthetic corpora of the SELD, MIR and E-chat recipes
+# ---------------------------------------------------------------------------
+
+
+def write_wav(path: str, x: np.ndarray, sr: int) -> int:
+    """A 16-bit mono wav of ``x`` (floats in [-1, 1])."""
+    import wave
+
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(x, -1.0, 1.0) * 32767).astype("<i2").tobytes())
+    return os.path.getsize(path)
+
+
+def _clip(rng: np.random.Generator, seconds: float, sr: int, i: int) -> np.ndarray:
+    """Two tones and a little noise, distinct per ``i``."""
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = 110.0 * 2 ** ((i % 24) / 12)
+    x = 0.3 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(2 * np.pi * 3.01 * f0 * t + i)
+    return x + 0.02 * rng.standard_normal(t.size)
+
+
+SELD_QUESTIONS = (("Identify the sound events in the audio clip.", "class"),
+                  ("Where is the sound coming from?", "doa"),
+                  ("How far away is the sound source?", "distance"))
+
+
+def write_seld_corpus(root: str, n: int = 16, seed: int = 0, stage: str = "stage1-clsdoa", n_reverbs: int = 4,
+                      seconds=(4.0, 12.0), splits=("train", "val", "test"), n_eval: int = None) -> dict:
+    """A SpatialSoundQA-shaped corpus under ``root``: ``anechoic/clip{i}.wav``
+    (32 kHz mono, ``seconds[0]``-``seconds[1]`` s, so some clips are padded
+    and some cut to 10 s), ``reverb/binaural/ir{j}.npy`` (2 x 0.3 s
+    two-channel IRs: a decaying noise tail, the right channel delayed and
+    damped), and ``qa/{stage}/{split}.json`` ``{"data": [...]}`` manifests of
+    ``n`` QA items for train and ``n_eval`` (default ``n``) for the others,
+    every fourth a two-source mixup. Returns the dataset_config overrides
+    that read it."""
+    rng = np.random.default_rng(seed)
+    anechoic, reverb = os.path.join(root, "anechoic"), os.path.join(root, "reverb", "binaural")
+    os.makedirs(anechoic, exist_ok=True)
+    os.makedirs(reverb, exist_ok=True)
+    n_clips = min(n, 20) + 4
+    for i in range(n_clips):
+        sec = seconds[0] + (seconds[1] - seconds[0]) * i / max(n_clips - 1, 1)
+        write_wav(os.path.join(anechoic, f"clip{i}.wav"), _clip(rng, sec, 32000, i), 32000)
+    length = int(0.3 * 32000)
+    for j in range(n_reverbs):
+        tail = rng.standard_normal((2, length)) * np.exp(-np.arange(length) / (2000.0 + 500 * j))
+        delay = 4 + 7 * j
+        tail[1] = 0.6 * np.roll(tail[1], delay)
+        tail[:, 0] = (1.0, 0.0)
+        tail[1, delay] = 0.7
+        np.save(os.path.join(reverb, f"ir{j}.npy"), tail.astype(np.float32))
+    for s_i, split in enumerate(splits):
+        items = []
+        for k in range(n if split == "train" or n_eval is None else n_eval):
+            question, kind = SELD_QUESTIONS[k % len(SELD_QUESTIONS)]
+            item = {"audio_id": f"clip{(k + s_i) % n_clips}", "reverb_id": f"ir{k % n_reverbs}.npy",
+                    "question": question, "answer": f"{kind} answer {k}", "question_type": kind,
+                    "question_id": k}
+            if k % 4 == 3:
+                item.update(audio_id2=f"clip{(k + 5) % n_clips}", reverb_id2=f"ir{(k + 1) % n_reverbs}.npy")
+            items.append(item)
+        os.makedirs(os.path.join(root, "qa", stage), exist_ok=True)
+        with open(os.path.join(root, "qa", stage, f"{split}.json"), "w", encoding="utf-8") as f:
+            json.dump({"data": items}, f)
+    return {"qa_data_root": os.path.join(root, "qa"), "stage": stage, "anechoic_data_root": anechoic,
+            "reverb_data_root": os.path.join(root, "reverb")}
+
+
+def write_music_corpus(root: str, n: int = 16, seed: int = 0, name: str = "train", seconds=(8.0, 14.0),
+                       targets=("a calm piano melody", "an upbeat rock song with drums")) -> str:
+    """``n`` 24 kHz music-like clips of ``seconds[0]``-``seconds[1]`` s and a
+    ``{key, source, target}`` jsonl manifest; returns its path."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    manifest = os.path.join(root, f"{name}.jsonl")
+    with open(manifest, "w", encoding="utf-8") as f:
+        for i in range(n):
+            sec = seconds[0] + (seconds[1] - seconds[0]) * i / max(n - 1, 1)
+            path = os.path.join(root, f"{name}_music{i}.wav")
+            write_wav(path, _clip(rng, sec, 24000, i), 24000)
+            f.write(json.dumps({"key": f"music{i}", "source": path, "target": targets[i % len(targets)]}) + "\n")
+    return manifest
+
+
+ECHAT_EMOTIONS = ("happy", "sad", "angry", "neutral", "xxx")
+
+
+def write_echat_corpus(root: str, n_dialogs: int = 8, seed: int = 0, name: str = "echat", python_literal=False) -> str:
+    """An E-chat dialog TSV of ``n_dialogs`` dialogs of 3-5 turns (16 kHz
+    wavs of 2-6 s; every fifth emotion ``xxx``, which the dataset skips),
+    ``dialog_name\\t[{"wav", "emotion", "trans"}, ...]`` as JSON or, with
+    ``python_literal``, as a Python literal; returns its path."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, f"{name}.tsv")
+    turn = 0
+    with open(path, "w", encoding="utf-8") as f:
+        for d in range(n_dialogs):
+            turns = []
+            for _ in range(3 + d % 3):
+                wav = os.path.join(root, f"{name}_turn{turn}.wav")
+                write_wav(wav, _clip(rng, 2.0 + (turn % 5), 16000, turn), 16000)
+                turns.append({"wav": wav, "emotion": ECHAT_EMOTIONS[turn % len(ECHAT_EMOTIONS)],
+                              "trans": f"reply number {turn} of dialog {d}"})
+                turn += 1
+            f.write(f"dialog{d}\t{repr(turns) if python_literal else json.dumps(turns)}\n")
+    return path
+
+
 def _save_torch(path: str, obj: dict) -> int:
     """``obj`` with its ``model`` state dict in f32, the published files' dtype."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -560,6 +718,7 @@ def main(argv=None) -> dict:
 
     from slam_llm_tpu_torch.models.beats import BEATS_PRESETS
     from slam_llm_tpu_torch.models.llm import LLMConfig
+    from slam_llm_tpu_torch.models.spatial_ast import SPATIAL_AST_PRESETS
     from slam_llm_tpu_torch.models.vit import VIT_PRESETS
     from slam_llm_tpu_torch.models.wavlm import WAVLM_PRESETS
     from slam_llm_tpu_torch.models.whisper import PRESETS as WHISPER_PRESETS
@@ -575,6 +734,7 @@ def main(argv=None) -> dict:
         **{name: (WAVLM_PRESETS, write_wavlm, "wavlm") for name in WAVLM_PRESETS},
         **{name: (VIT_PRESETS, write_eat, "eat.pt") for name in VIT_PRESETS},
         **{name: (BEATS_PRESETS, write_beats, "beats.pt") for name in BEATS_PRESETS},
+        **{name: (SPATIAL_AST_PRESETS, write_spatial_ast, "spatial_ast.pt") for name in SPATIAL_AST_PRESETS},
     }
     ap.add_argument("--encoder", default="whisper-small", choices=sorted(encoders))
     ap.add_argument("--seed", type=int, default=0)

@@ -17,6 +17,10 @@ nested dicts of numpy arrays, onto this package's ``state_dict`` names:
   ``Conv`` ``kernel`` (kh, kw, in, out) becomes ``Conv2d.weight`` (out, in,
   kh, kw);
 * ``Embed.embedding`` (V, D) becomes ``embed_tokens.weight``;
+* Spatial-AST's flat ``down_kernel`` / ``patch_kernel`` (HWIO) and biases
+  become its ``down`` and ``patch_embed`` convolutions; MusicFM's frozen
+  BatchNorm leaves ``scale`` / ``mean`` / ``var`` become ``weight`` /
+  ``running_mean`` / ``running_var``;
 * the backward-only ``kernel_qr`` / ``kernel_scale_r`` and ``kernel_t`` are
   dropped: the port derives its ``int8_rot`` pair itself
   (``ops.quant.quantize_base_params``).
@@ -100,15 +104,45 @@ def from_flax_params(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """``params``: the flax ``params`` collection of a ``SLAMModel`` (unboxed)
     as nested dicts of arrays; ``cfg``: the port's ``SLAMConfig``. Returns
     the port model's ``state_dict``."""
-    if cfg.encoder_name == "hf-text":
-        out = flax_to_state_dict({k: v for k, v in params.items() if k != "encoder"})
-        out.update({f"encoder.{k}": v for k, v in bert_from_flax(params["encoder"], cfg.encoder.n_layers).items()})
-    else:
-        out = flax_to_state_dict(params)
+    out = flax_to_state_dict({k: v for k, v in params.items() if k != "encoder"})
+    if "encoder" in params:
+        enc = encoder_from_flax(params["encoder"], cfg.encoder_name, cfg.encoder)
+        out.update({f"encoder.{k}": v for k, v in enc.items()})
     n = sum(1 for key in out if key.startswith("llm.layers.") and key.endswith(".input_norm.scale"))
     if n != cfg.llm.n_layers:
         raise ValueError(f"parameter tree has {n} decoder layers, config {cfg.llm.n_layers}")
     return out
+
+
+def encoder_from_flax(params: Mapping, encoder_name: str, enc_cfg) -> Dict[str, torch.Tensor]:
+    """One encoder's flax parameters -> the port encoder's ``state_dict``:
+    the generic mapping, BERT's flat names (``hf-text``), Spatial-AST's flat
+    conv leaves, MusicFM's BatchNorm leaves."""
+    if encoder_name == "hf-text":
+        return bert_from_flax(params, enc_cfg.n_layers)
+    out = flax_to_state_dict(params)
+    if encoder_name == "spatial_ast":
+        return {_SPATIAL_AST_NAMES.get(k, k): v.permute(3, 2, 0, 1).contiguous() if k in _SPATIAL_AST_KERNELS else v
+                for k, v in out.items()}
+    if encoder_name == "musicfm":
+        return {_batch_norm_name(k): v for k, v in out.items()}
+    return out
+
+
+# the JAX SpatialASTEncoder's flat leaves (HWIO conv kernels) -> the port's modules
+_SPATIAL_AST_NAMES = {"down_kernel": "down.weight", "down_bias": "down.bias", "patch_kernel": "patch_embed.weight",
+                      "patch_bias": "patch_embed.bias"}
+_SPATIAL_AST_KERNELS = ("down_kernel", "patch_kernel")
+_BN_LEAVES = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+
+
+def _batch_norm_name(name: str) -> str:
+    """A frozen BatchNorm's flax leaves (``scale`` / ``mean`` / ``var``, under
+    a module named ``bn*`` or ``conv_bn``) -> torch's BatchNorm names."""
+    *path, leaf = name.split(".")
+    if path and (path[-1].startswith("bn") or path[-1] == "conv_bn") and leaf in _BN_LEAVES:
+        return ".".join(path + [_BN_LEAVES[leaf]])
+    return name
 
 
 def trainable_to_flax(tensors: Mapping) -> dict:

@@ -1,4 +1,5 @@
-"""HF checkpoint -> the port's modules (llama family, whisper, WavLM / HuBERT, EAT, BEATs, BERT).
+"""HF and torch checkpoints -> the port's modules (llama family, whisper, WavLM / HuBERT, EAT, BEATs,
+BERT, Spatial-AST, CLAP).
 
 Counterpart of ``slam_llm_tpu/utils/hf_loader.py``. The reference reads an HF
 directory into f32 numpy, stacks every per-layer tensor on a scanned layer
@@ -20,9 +21,10 @@ onto one ``state_dict`` name, with no stack, transpose or second copy:
   ``models.bert.convert_bert_torch_state`` (the reference loads its
   ``HfTextEncoder`` from such a directory; the JAX package refuses it); a
   torch file of ``hubert`` to ``models.wavlm.convert_hubert_fairseq``, of
-  ``eat`` to ``models.vit.convert_eat_fairseq`` and of ``beats`` to
-  ``models.beats.convert_beats`` (CLAP reads its own checkpoints:
-  ``models.clap.load_clap``);
+  ``eat`` to ``models.vit.convert_eat_fairseq``, of ``beats`` to
+  ``models.beats.convert_beats``, of ``spatial_ast`` to
+  ``models.spatial_ast.convert_spatialast_torch`` and of ``clap`` to
+  ``models.clap.convert_ase_torch_state``;
 * ``overlay_`` copies each tensor into the model's tensor of that name, one
   tensor at a time, converting on the way to the stored dtype and device;
   an fp kernel meeting an int8 base (``kernel_q`` / ``kernel_scale``) is
@@ -44,12 +46,14 @@ from torch import nn
 
 from slam_llm_tpu_torch.models.beats import convert_beats
 from slam_llm_tpu_torch.models.bert import convert_bert_torch_state
+from slam_llm_tpu_torch.models.clap import convert_ase_torch_state
+from slam_llm_tpu_torch.models.spatial_ast import convert_spatialast_torch
 from slam_llm_tpu_torch.models.vit import convert_eat_fairseq
 from slam_llm_tpu_torch.models.wavlm import convert_hubert_fairseq, convert_wavlm
 from slam_llm_tpu_torch.ops.quant import quantize_int8
 from slam_llm_tpu_torch.utils.safetensors_io import load_file, torch_load_file
 
-_TODO_ENCODERS = "ROADMAP Queue 1: spatial_ast, av_hubert and beats_tokenizer come with their recipes"
+_TODO_ENCODERS = "ROADMAP Queue 1: av_hubert and beats_tokenizer come with their recipes"
 
 
 def load_hf_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -115,9 +119,10 @@ def convert_whisper_encoder(sd: Dict[str, torch.Tensor], enc_cfg) -> Dict[str, t
 
 
 # the file-checkpoint families of the reference's dispatcher that the port has not taken yet
-_UNPORTED_FILE_ENCODERS = ("spatial_ast", "av_hubert", "beats_tokenizer", "clap")
+_UNPORTED_FILE_ENCODERS = ("av_hubert", "beats_tokenizer")
 # the file-checkpoint families the port converts, by encoder_name
-_FILE_CONVERTERS = {"hubert": convert_hubert_fairseq, "eat": convert_eat_fairseq, "beats": convert_beats}
+_FILE_CONVERTERS = {"hubert": convert_hubert_fairseq, "eat": convert_eat_fairseq, "beats": convert_beats,
+                    "spatial_ast": convert_spatialast_torch, "clap": convert_ase_torch_state}
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
@@ -141,8 +146,9 @@ def convert_encoder_checkpoint(encoder_path: str, encoder_name: str, enc_cfg) ->
     """An encoder checkpoint through its family's converter, dispatched as
     the reference's: an HF directory serves whisper, wavlm, hubert and
     hf-text (an HF ``BertModel``, any wrapper prefix); a torch file serves
-    hubert (fairseq's schema), eat (data2vec2's) and beats (the official
-    BEATs checkpoint). Any other directory raises
+    hubert (fairseq's schema), eat (data2vec2's), beats (the official
+    BEATs checkpoint), spatial_ast (BAT's) and clap (an ASE checkpoint). Any
+    other directory raises
     ``ValueError``, as in the reference (which has no directory converter
     for them, emotion2vec included); a file of a family the reference loads
     and the port does not yet raises ``NotImplementedError``."""
@@ -167,7 +173,8 @@ def convert_encoder_checkpoint(encoder_path: str, encoder_name: str, enc_cfg) ->
     if encoder_name in _UNPORTED_FILE_ENCODERS:
         raise NotImplementedError(f"loading a {encoder_name!r} encoder checkpoint is not ported yet ({_TODO_ENCODERS})")
     raise ValueError(f"no file-checkpoint converter for encoder {encoder_name!r} ({encoder_path!r}); whisper, wavlm, "
-                     "hubert and hf-text load HF directories; hubert, eat and beats torch files")
+                     "hubert and hf-text load HF directories; hubert, eat, beats, spatial_ast and clap torch "
+                     "files")
 
 
 @torch.no_grad()

@@ -212,12 +212,96 @@ def test_flash_kernel_cross_attention_and_routing(gen):
 
 
 def test_flash_kernel_refuses_what_it_cannot_take(gen):
+    """head_dim outside {64, 128} in either route; mixed or half dtypes;
+    fused RoPE on the f32 route; K4 on f32 (no f32 backward yet)."""
     q = torch.randn(1, 64, 2, 32, generator=gen, device="cuda").bfloat16()
     mask = torch.ones(1, 64, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         tflash.flash_attention_fwd(q, q, q, mask)
-    with pytest.raises(TypeError, match="bfloat16"):
+    with pytest.raises(ValueError, match="head_dim"):
         tflash.flash_attention_fwd(q.float(), q.float(), q.float(), mask)
+    q64 = torch.randn(1, 64, 2, 64, generator=gen, device="cuda")
+    with pytest.raises(TypeError, match="bfloat16"):
+        tflash.flash_attention_fwd(q64, q64.bfloat16(), q64.bfloat16(), mask)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tflash.flash_attention_fwd(q64.half(), q64.half(), q64.half(), mask)
+    rope = tuple(torch.zeros(1, 64, 32, device="cuda") for _ in range(2))
+    with pytest.raises(NotImplementedError, match="fused RoPE"):
+        tflash.flash_attention_fwd(q64, q64, q64, mask, rope=rope)
+    out, lse = tflash.flash_attention_fwd(q64, q64, q64, mask)
+    with pytest.raises(NotImplementedError, match="K4 has no f32 route"):
+        tflash.flash_attention_bwd(q64, q64, q64, mask, out, lse, out)
+    x = q64.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="K4 has no f32 route"):
+        tflash.flash_attention(x, x, x, mask).sum().backward()
+
+
+def _f32_mask(b, t, pad):
+    mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
+    if pad == "ragged":  # right-padded to ragged lengths, one row with a single key, one with none
+        for i in range(b):
+            mask[i, [t, t - 63, t // 2, 65, 1, 0, t - 1, 64][i % 8]:] = 0
+    return mask
+
+
+@pytest.mark.parametrize("b,t,h,hkv,d,causal,pad", [
+    (16, 515, 12, 12, 64, False, "none"),  # SpatialAST-base: 3 CLS + 512 patches, a training batch
+    (8, 515, 12, 12, 64, False, "none"),  # its decode batch
+    (8, 515, 12, 12, 64, False, "ragged"),
+    (4, 515, 12, 12, 64, True, "ragged"),
+    (2, 200, 8, 2, 128, True, "ragged"),  # GQA, head_dim 128
+    (3, 70, 4, 1, 64, False, "ragged"),
+    (2, 1, 4, 4, 64, True, "none"),
+])
+def test_flash_f32_kernel_matches_twin(gen, b, t, h, hkv, d, causal, pad):
+    """K1's f32 route against the f32 twin on the same f32 unit-normal
+    inputs: out within 2e-5 abs (single-pass TF32 would miss by ~50x),
+    lse within 1e-4 on live rows, rows with no visible key exactly 0; one
+    launch on the f32 route's count and none on the bf16 kernel's."""
+    q, k, v = (torch.randn(b, t, n, d, generator=gen, device="cuda") for n in (h, hkv, hkv))
+    mask = _f32_mask(b, t, pad)
+    before = tflash.flash_attention_fwd_f32.launches, tflash.flash_attention_fwd.launches
+    out, lse = tflash.flash_attention_fwd(q, k, v, mask, causal)
+    torch.cuda.synchronize()
+    assert (tflash.flash_attention_fwd_f32.launches, tflash.flash_attention_fwd.launches) == (before[0] + 1,
+                                                                                                before[1])
+    assert out.dtype == torch.float32 and lse.dtype == torch.float32
+    ref, ref_lse = tflash.flash_attention_ref(q, k, v, mask, causal)
+    live = mask.cumsum(1) > 0 if causal else (mask.sum(1, keepdim=True) > 0).expand(b, t)
+    assert (out - ref).abs().max().item() <= 2e-5
+    assert (lse - ref_lse)[live].abs().max().item() <= 1e-4
+    assert bool((out[~live] == 0).all())
+
+
+def test_flash_f32_kernel_strided_views(gen):
+    """f32 q from a fused (B, T, 3, H, D) projection and k / v from a (B, T,
+    2, Hkv, D) one, Tq != Tk: the kernel takes the model's strides."""
+    qkv = torch.randn(2, 70, 3, 8, 64, generator=gen, device="cuda")
+    kv = torch.randn(2, 449, 2, 2, 64, generator=gen, device="cuda")
+    q, k, v = qkv[:, :, 0], kv[:, :, 0], kv[:, :, 1]
+    mask = torch.ones(2, 449, dtype=torch.int32, device="cuda")
+    mask[1, 300:] = 0
+    out, lse = tflash.flash_attention_fwd(q, k, v, mask)
+    ref, ref_lse = tflash.flash_attention_ref(q, k, v, mask)
+    assert (out - ref).abs().max().item() <= 2e-5
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("b,t,h,pad", [
+    (16, 251, 16, "ragged"), (8, 251, 16, "none"),  # MusicFM-MSD: 10 s of 24 kHz mel -> 251 frames
+    (16, 64, 12, "none"), (8, 64, 12, "none"),  # the Q-Former's self-attention over 64 queries
+])
+def test_flash_kernel_at_the_music_and_qformer_shapes(gen, b, t, h, pad):
+    """K1 (bf16) at MusicFM's attention (a key mask zeroing the frames past
+    a short clip) and the 64-query Q-Former's: within 2e-2 of the f32 twin,
+    lse within 1e-3 on live rows."""
+    q, k, v = _qkv(b, t, h, h, 64, gen)
+    mask = _f32_mask(b, t, pad)
+    out, lse = tflash.flash_attention_fwd(q, k, v, mask, False)
+    ref, ref_lse = tflash.flash_attention_ref(q.float(), k.float(), v.float(), mask, False)
+    live = (mask.sum(1, keepdim=True) > 0).expand(b, t)
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    assert (lse - ref_lse)[live].abs().max().item() <= 1e-3
 
 
 # K2 at M in {1, 5, 32, 300, 8192}: decode, ragged and training rows
@@ -524,6 +608,7 @@ def test_flash_backward_kernel_matches_twin(gen, b, t, h, hkv, d, causal, rope, 
     (2, 449, 28, 4, 128, True, True, "left"),  # qwen2-7b: G = 7, head_dim 128
     (2, 130, 28, 4, 128, True, True, "both"),
     (2, 80, 12, 12, 64, False, False, "right"),  # the Q-Former's self-attention
+    (16, 64, 12, 12, 64, False, False, "none"),  # the 64-query Q-Former (SELD, SEC)
 ])
 def test_flash_backward_kernel_at_the_st_shapes(gen, b, t, h, hkv, d, causal, rope, pad):
     """The same check at the ST recipe's shapes, RoPE at qwen2's theta 1e6."""

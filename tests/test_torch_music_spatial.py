@@ -1,0 +1,465 @@
+"""The SELD, music-captioning and SEC / E-chat recipes' pieces in the port
+against the JAX package, on the CPU (tiny widths, numpy-seeded inputs).
+
+* ``music_log_mel`` and ``binaural_features`` within 1e-5 relative of the
+  JAX functions;
+* MIR, spatial and E-chat items and collated batches equal to the JAX
+  datasets' on the same manifests and seeds (the seeded crop; the SELD
+  manifests' split aliases, mixup and a jsonl; E-chat's JSON and
+  python-literal dialogs, the ``xxx`` skip, the 90 / 10 split of one file
+  and two files);
+* ``MusicFMEncoder`` (a ragged mel mask) and ``SpatialASTEncoder`` (64
+  target frames from 50 and from 70: the bicubic path and the cut) against
+  the JAX modules through ``utils.convert``, f32 within 1e-5 relative;
+  ``convert_spatialast_torch`` against the JAX converter on a
+  ``tools/synth_checkpoint.write_spatial_ast`` file, which the encoder-file
+  dispatch loads too;
+* each recipe as a tiny SLAMModel (tiny LLM, f32): the loss and every
+  trainable gradient against ``jax.value_and_grad``, beam-4 tokens
+  identical to the JAX ``Generator``; the SELD case feeds ``audio_binaural``
+  through the ``Generator``, and its RTF seconds follow the JAX formula;
+* the registry resolves the three datasets to the port's modules, and
+  ``pipeline.finetune`` trains from one E-chat ``data_path`` with its 10 %
+  validation split.
+"""
+
+import dataclasses
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import linen as nn
+
+from slam_llm_tpu.config import RunConfig as JRunConfig
+from slam_llm_tpu.data import echat_dataset as jechat
+from slam_llm_tpu.data import mir_dataset as jmir
+from slam_llm_tpu.data import spatial_dataset as jspatial
+from slam_llm_tpu.data.tokenizer import ByteTokenizer as JByteTokenizer
+from slam_llm_tpu.inference.generate import GenerationConfig as JGenerationConfig
+from slam_llm_tpu.inference.generate import Generator as JGenerator
+from slam_llm_tpu.models import musicfm as jmusicfm
+from slam_llm_tpu.models import spatial_ast as jspatial_ast
+from slam_llm_tpu.models import wavlm as jwavlm
+from slam_llm_tpu.models.llm import LLMConfig as JLLMConfig
+from slam_llm_tpu.models.projector import ProjectorConfig as JProjectorConfig
+from slam_llm_tpu.models.slam_model import SLAMConfig as JSLAMConfig
+from slam_llm_tpu.models.slam_model import SLAMModel as JSLAMModel
+from slam_llm_tpu.ops import audio as jaudio
+from slam_llm_tpu.train.optimizer import merge_params as j_merge
+from slam_llm_tpu.train.optimizer import partition_params as j_partition
+from slam_llm_tpu_torch.config import RunConfig
+from slam_llm_tpu_torch.data import echat_dataset as techat
+from slam_llm_tpu_torch.data import mir_dataset as tmir
+from slam_llm_tpu_torch.data import spatial_dataset as tspatial
+from slam_llm_tpu_torch.data.tokenizer import ByteTokenizer
+from slam_llm_tpu_torch.inference.generate import GenerationConfig, Generator
+from slam_llm_tpu_torch.models import llm as tllm
+from slam_llm_tpu_torch.models import musicfm as tmusicfm
+from slam_llm_tpu_torch.models import projector as tproj
+from slam_llm_tpu_torch.models import slam_model as tslam
+from slam_llm_tpu_torch.models import spatial_ast as tspatial_ast
+from slam_llm_tpu_torch.models import wavlm as twavlm
+from slam_llm_tpu_torch.ops import audio as taudio
+from slam_llm_tpu_torch.tools import synth_checkpoint as synth
+from slam_llm_tpu_torch.train.optimizer import partition_params
+from slam_llm_tpu_torch.utils import hf_loader
+from slam_llm_tpu_torch.utils.convert import encoder_from_flax, from_flax_params, trainable_to_flax
+
+EOS, PAD = 2, 0
+
+
+def _seeded(tree, seed):
+    """Every float leaf of a flax parameter tree redrawn from a numpy
+    generator: kernels normal with std 1/sqrt(fan_in), norm scales and
+    BatchNorm variances around 1 (positive), biases and means small, CLS
+    tokens at std 0.02; the fixed sin-cos table keeps its init."""
+    rng = np.random.default_rng(seed)
+
+    def draw(key, x):
+        shape = np.shape(x)
+        if key == "pos_embed":
+            return np.asarray(x)
+        if key in ("scale", "gn_scale", "gru_rel_pos_const"):
+            return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+        if key in ("var", "bn_var"):
+            return (0.5 + rng.random(shape)).astype(np.float32)
+        if key in ("bias", "gn_bias", "mean", "bn_mean", "down_bias", "patch_bias"):
+            return (0.1 * rng.standard_normal(shape)).astype(np.float32)
+        if key == "cls_tokens":
+            return (0.02 * rng.standard_normal(shape)).astype(np.float32)
+        fan_in = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else draw(k, v) for k, v in node.items()}
+
+    return walk(nn.meta.unbox(tree))
+
+
+def _flat(tree):
+    return {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(x)
+            for path, x in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def _conv(cls, obj, dtype=torch.float32):
+    """The port's config dataclass ``cls`` from the JAX one's fields."""
+    names = {f.name for f in dataclasses.fields(cls)} - {"dtype", "param_dtype"}
+    return cls(**{n: getattr(obj, n) for n in names if hasattr(obj, n)}, dtype=dtype)
+
+
+def _close(got, want, rel=1e-5):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= rel * np.abs(want).max()
+
+
+# ---------------------------------------------------------------------------
+# the host features
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seconds", [10.0, 3.7])
+def test_music_log_mel_matches_jax(seconds):
+    x = np.random.default_rng(0).standard_normal(int(seconds * 24000)).astype(np.float32) * 0.2
+    got, want = taudio.music_log_mel(x), jaudio.music_log_mel(x)
+    assert got.dtype == np.float32 and got.shape == want.shape == (1 + int(seconds * 24000) // 240, 128)
+    _close(got, want)
+    np.testing.assert_array_equal(taudio._htk_mel_banks(128, 24000, 2048), jaudio._htk_mel_banks(128, 24000, 2048))
+
+
+def test_binaural_features_match_jax():
+    x = np.random.default_rng(1).standard_normal((2, 2, 48000)).astype(np.float32) * 0.1
+    got, want = tspatial_ast.binaural_features(x), jspatial_ast.binaural_features(x)
+    assert got.shape == want.shape == (2, 4, 151, 128) and got.dtype == np.float32
+    for c in range(4):  # the dB log-mels and the IPD projections each against their own scale
+        _close(got[:, c], want[:, c])
+    np.testing.assert_array_equal(tspatial_ast.mel_filterbank_slaney(), jspatial_ast.mel_filterbank_slaney())
+
+
+# ---------------------------------------------------------------------------
+# the datasets
+# ---------------------------------------------------------------------------
+
+
+def _configs(**kw):
+    """The same dataset_config in both packages."""
+    out = []
+    for mod in (JRunConfig, RunConfig):
+        cfg = mod().dataset_config
+        for k, v in kw.items():
+            setattr(cfg, k, v)
+        out.append(cfg)
+    return out
+
+
+def _same(a, b):
+    assert a.keys() == b.keys()
+    for k in b:
+        if isinstance(b[k], np.ndarray):
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+        else:
+            assert a[k] == b[k], k
+
+
+def _pairs_equal(tds, jds, n_items, batches=((0, 1),)):
+    assert len(tds) == len(jds)
+    for i in range(n_items):
+        _same(tds[i], jds[i])
+    for rows in batches:
+        _same(tds.collator([tds[i] for i in rows]), jds.collator([jds[i] for i in rows]))
+
+
+@pytest.mark.parametrize("split,inference", [("train", False), ("test", True)])
+def test_mir_items_and_batches_match_jax(tmp_path, split, inference):
+    """10 s crops of 8-14 s clips (seeded at a random start in train, at 0
+    otherwise), a 5 s clip zero-padded; 50 audio slots at ds 5."""
+    manifest = synth.write_music_corpus(str(tmp_path), n=4, seconds=(8.0, 14.0))
+    with open(manifest, "a") as f:
+        path = str(tmp_path / "short.wav")
+        synth.write_wav(path, np.full(5 * 24000, 0.1), 24000)
+        f.write(json.dumps({"key": "short", "source": path, "target": "a short one"}) + "\n")
+    jc, tc = _configs(dataset="mir_dataset", train_data_path=manifest, val_data_path=manifest, prompt=None,
+                      seed=3, inference_mode=inference)
+    tds = tmir.get_mir_dataset(tc, ByteTokenizer(), split)
+    jds = jmir.get_mir_dataset(jc, JByteTokenizer(), split)
+    assert tds.prompt == tmir.DEFAULT_MC_PROMPT and tds.random_crop == (split == "train")
+    assert tds[0]["audio_mel"].shape == (1001, 128) and tds[0]["audio_length"] == 50
+    _pairs_equal(tds, jds, 5, batches=((0, 4), (2, 3)))
+
+
+@pytest.mark.parametrize("split,inference", [("train", False), ("validation", False), ("test", True)])
+def test_spatial_items_and_batches_match_jax(tmp_path, split, inference):
+    """The ``{qa_data_root}/{stage}/{split}.json`` manifests (validation
+    resolves to val.json), clips padded and cut to 10 s, a two-source mixup
+    item, ``audio_binaural`` (B, 4, 1001, 128)."""
+    over = synth.write_seld_corpus(str(tmp_path), n=4, n_reverbs=2)
+    jc, tc = _configs(dataset="spatial_audio_dataset", fix_length_audio=64, inference_mode=inference, **over)
+    tds = tspatial.get_spatial_audio_dataset(tc, ByteTokenizer(), split)
+    jds = jspatial.get_spatial_audio_dataset(jc, JByteTokenizer(), split)
+    batch = tds.collator([tds[0], tds[3]])
+    assert batch["audio_binaural"].shape == (2, 4, 1001, 128) and tds[3]["audio_stereo"].shape == (2, 320000)
+    _pairs_equal(tds, jds, 4, batches=((0, 3),))
+
+
+def test_spatial_jsonl_manifest_matches_jax(tmp_path):
+    over = synth.write_seld_corpus(str(tmp_path), n=2, n_reverbs=1, splits=("train",))
+    with open(os.path.join(over.pop("qa_data_root"), over["stage"], "train.json")) as f:
+        items = json.load(f)["data"]
+    items[1].pop("reverb_id")  # no IR: the mono clip is duplicated onto both channels
+    manifest = tmp_path / "items.jsonl"
+    manifest.write_text("".join(json.dumps(it) + "\n" for it in items))
+    jc, tc = _configs(dataset="spatial_audio_dataset", train_data_path=str(manifest), **over)
+    tds = tspatial.get_spatial_audio_dataset(tc, ByteTokenizer(), "train")
+    jds = jspatial.get_spatial_audio_dataset(jc, JByteTokenizer(), "train")
+    assert np.array_equal(tds[1]["audio_stereo"][0], tds[1]["audio_stereo"][1])
+    _pairs_equal(tds, jds, 2)
+
+
+@pytest.mark.parametrize("python_literal", [False, True])
+def test_echat_manifest_and_split_match_jax(tmp_path, python_literal):
+    """Turn pairs skip a next turn whose emotion is ``xxx``; one data_path
+    splits 90 / 10 by position; separate files are each their split."""
+    tsv = synth.write_echat_corpus(str(tmp_path), n_dialogs=6, python_literal=python_literal)
+    records = techat.parse_echat_manifest(tsv)
+    assert records == jechat.parse_echat_manifest(tsv) and len(records) > 10
+    assert all(not r["target"].startswith("<|xxx|>") for r in records)
+    for split in ("train", "validation"):
+        jc, tc = _configs(dataset="echat_dataset", data_path=tsv, input_type="raw", normalize=True, prompt=None)
+        tds = techat.get_echat_dataset(tc, ByteTokenizer(), split)
+        jds = jechat.get_echat_dataset(jc, JByteTokenizer(), split)
+        assert tds.data_list == jds.data_list and tds.prompt == techat.DEFAULT_ECHAT_PROMPT
+        cut = int(len(records) * 0.9)
+        assert tds.data_list == (records[:cut] if split == "train" else records[cut:])
+        _pairs_equal(tds, jds, 2)
+    other = synth.write_echat_corpus(str(tmp_path), n_dialogs=2, seed=1, name="val")
+    jc, tc = _configs(dataset="echat_dataset", train_data_path=tsv, val_data_path=other)
+    for split, path in (("train", tsv), ("validation", other)):
+        tds = techat.get_echat_dataset(tc, ByteTokenizer(), split)
+        assert tds.data_list == jechat.get_echat_dataset(jc, JByteTokenizer(), split).data_list
+        assert tds.data_list == techat.parse_echat_manifest(path)
+
+
+def test_registry_resolves_the_recipes_datasets():
+    from slam_llm_tpu_torch.registry import get_custom_dataset_factory
+
+    for name, fn in (("mir_dataset", tmir.get_mir_dataset), ("echat_dataset", techat.get_echat_dataset),
+                     ("spatial_audio_dataset", tspatial.get_spatial_audio_dataset)):
+        cfg = RunConfig().dataset_config
+        cfg.dataset = name
+        assert get_custom_dataset_factory(cfg) is fn
+
+
+# ---------------------------------------------------------------------------
+# the encoders and the Spatial-AST converter
+# ---------------------------------------------------------------------------
+
+
+def test_musicfm_encoder_matches_jax():
+    """musicfm-tiny-test in f32 on a ragged mel mask (row 1 valid for 57 of
+    90 frames): outputs within 1e-5 relative at the valid frames, masks equal."""
+    jcfg = dataclasses.replace(jmusicfm.MusicFMConfig.tiny_test(), dtype=jnp.float32)
+    rng = np.random.default_rng(2)
+    mel = (rng.standard_normal((2, 90, 16)) * 10 - 20).astype(np.float32)
+    mask = np.ones((2, 90), np.int32)
+    mask[1, 57:] = 0
+    jm = jmusicfm.MusicFMEncoder(jcfg)
+    params = _seeded(jm.init(jax.random.PRNGKey(0), jnp.asarray(mel), jnp.asarray(mask))["params"], seed=3)
+    want, want_mask = (np.asarray(a) for a in jm.apply({"params": params}, jnp.asarray(mel), jnp.asarray(mask)))
+    tm = tmusicfm.MusicFMEncoder(_conv(tmusicfm.MusicFMConfig, jcfg))
+    tm.load_state_dict(encoder_from_flax(params, "musicfm", tm.cfg))
+    with torch.no_grad():
+        got, got_mask = tm(torch.from_numpy(mel), torch.from_numpy(mask))
+    np.testing.assert_array_equal(got_mask.numpy(), want_mask)
+    live = want_mask.astype(bool)
+    assert got.shape == want.shape == (2, 23, 32)
+    _close(got.numpy()[live], want[live])
+
+
+@pytest.mark.parametrize("frames", [50, 70])
+def test_spatial_ast_encoder_matches_jax(frames):
+    """spatialast-tiny-test (64 target frames) in f32: 50 frames take the
+    bicubic resize, 70 the cut; 3 CLS + 8 patches out, within 1e-5 relative."""
+    jcfg = jspatial_ast.SpatialASTConfig.tiny_test()
+    feats = (np.random.default_rng(4).standard_normal((2, 4, frames, 32)) * 5).astype(np.float32)
+    jm = jspatial_ast.SpatialASTEncoder(jcfg)
+    params = _seeded(jm.init(jax.random.PRNGKey(0), jnp.asarray(feats))["params"], seed=5)
+    want, want_mask = (np.asarray(a) for a in jm.apply({"params": params}, jnp.asarray(feats)))
+    tm = tspatial_ast.SpatialASTEncoder(_conv(tspatial_ast.SpatialASTConfig, jcfg))
+    tm.load_state_dict(encoder_from_flax(params, "spatial_ast", tm.cfg))
+    with torch.no_grad():
+        got, got_mask = tm(torch.from_numpy(feats))
+    assert got.shape == want.shape == (2, 11, 32) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got_mask.numpy(), want_mask)
+    _close(got.numpy(), want)
+
+
+def test_convert_spatialast_matches_jax_converter(tmp_path):
+    """A ``write_spatial_ast`` file (BAT's layout) through both converters,
+    and through the encoder-file dispatch into a model: the same tensors."""
+    from slam_llm_tpu.models.spatial_ast import convert_spatialast_torch as j_convert
+
+    cfg = tspatial_ast.SpatialASTConfig.tiny_test()
+    path = tmp_path / "spatial_ast.pt"
+    synth.write_spatial_ast(str(path), cfg, seed=7)
+    sd = hf_loader.load_torch_checkpoint(str(path))
+    got = tspatial_ast.convert_spatialast_torch(sd, cfg)
+    want = encoder_from_flax(j_convert(sd, jspatial_ast.SpatialASTConfig.tiny_test()), "spatial_ast", cfg)
+    assert got.keys() == want.keys() == tspatial_ast.SpatialASTEncoder(cfg).state_dict().keys()
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=1e-6, atol=1e-7, err_msg=k)
+    loaded = hf_loader.convert_encoder_checkpoint(str(path), "spatial_ast", cfg)
+    enc = hf_loader.overlay_(tspatial_ast.SpatialASTEncoder(cfg), loaded)
+    assert torch.equal(enc.blocks[1].k_proj.weight, sd["blocks.1.attn.qkv.weight"][32:64])
+    assert torch.equal(enc.pos_embed, sd["pos_embed"][0, 1:])
+
+
+# ---------------------------------------------------------------------------
+# the three recipes as tiny SLAMModels
+# ---------------------------------------------------------------------------
+
+N_SLOTS = 8  # audio pseudo-tokens: the Q-Former's queries, or MusicFM's frames / 5
+
+
+def _recipe(kind):
+    """(JAX SLAMConfig, the port's, the batch's audio keys) of a tiny recipe:
+    seld (spatialast-tiny-test + Q-Former), mc (musicfm-tiny-test + linear
+    ds 5), sec (an emotion2vec-shaped tiny encoder + Q-Former); the tiny LLM
+    in f32, everything frozen but the projector."""
+    llm = dataclasses.replace(JLLMConfig.tiny_test(), lora_rank=0, dtype=jnp.float32)
+    qformer = dict(query_len=N_SLOTS, qformer_layers=2, qformer_dim=32, qformer_heads=2)
+    if kind == "seld":
+        name, enc = "spatial_ast", jspatial_ast.SpatialASTConfig.tiny_test()
+        port_enc = _conv(tspatial_ast.SpatialASTConfig, enc)
+    elif kind == "mc":
+        name, enc = "musicfm", dataclasses.replace(jmusicfm.MusicFMConfig.tiny_test(), dtype=jnp.float32)
+        port_enc, qformer = _conv(tmusicfm.MusicFMConfig, enc), {}
+    else:
+        name = "emotion2vec"
+        enc = dataclasses.replace(jwavlm.WavLMConfig.tiny_test(rel_bias=False), feat_extract_norm="layer",
+                                  do_stable_layer_norm=True, dtype=jnp.float32)
+        port_enc = _conv(twavlm.WavLMConfig, enc)
+    projector = "q-former" if qformer else "linear"
+    proj = JProjectorConfig(encoder_dim=enc.d_model, llm_dim=llm.d_model, ds_rate=5, hidden_dim=32, **qformer,
+                            dtype=jnp.float32)
+    jcfg = JSLAMConfig(llm=llm, encoder_name=name, encoder=enc, projector=projector, projector_cfg=proj,
+                       freeze_encoder=True, freeze_llm=True)
+    tcfg = tslam.SLAMConfig(
+        llm=dataclasses.replace(_conv(tllm.LLMConfig, llm), remat=False), encoder_name=name, encoder=port_enc,
+        projector=projector, projector_cfg=_conv(tproj.ProjectorConfig, proj), freeze_encoder=True,
+        freeze_llm=True)
+    return jcfg, tcfg
+
+
+def _batch(kind):
+    """Two rows, row 0 left-padded by 3: N_SLOTS audio pseudo-tokens, then
+    text, labelled after its first two tokens; the recipe's audio input."""
+    rng = np.random.default_rng(0)
+    b, t = 2, 22
+    ids = rng.integers(3, 250, (b, t)).astype(np.int64)
+    attn = np.ones((b, t), np.int32)
+    modality = np.zeros((b, t), np.int32)
+    labels = ids.copy()
+    attn[0, :3] = 0
+    ids[0, :3] = PAD
+    for row, start in ((0, 3), (1, 0)):
+        ids[row, start:start + N_SLOTS] = -1
+        modality[row, start:start + N_SLOTS] = 1
+        labels[row, :start + N_SLOTS + 2] = -100
+    out = {"input_ids": ids, "attention_mask": attn, "modality_mask": modality, "labels": labels}
+    if kind == "seld":
+        out["audio_binaural"] = (rng.standard_normal((b, 4, 50, 32)) * 5).astype(np.float32)
+    elif kind == "mc":  # 161 frames -> 41 -> 8 slots at ds 5
+        out["audio_mel"] = (rng.standard_normal((b, 161, 16)) * 10 - 20).astype(np.float32)
+        out["audio_mel_mask"] = np.ones((b, 161), np.int32)
+        out["audio_mel_mask"][1, 120:] = 0
+    else:
+        out["audio"] = (rng.standard_normal((b, 2000)) * 0.3).astype(np.float32)
+        out["audio_mask"] = np.ones((b, 2000), np.int32)
+        out["audio_mask"][1, 1300:] = 0
+    return out
+
+
+@pytest.fixture(scope="module", params=["seld", "mc", "sec"])
+def recipe(request):
+    jcfg, tcfg = _recipe(request.param)
+    batch = {k: jnp.asarray(v) for k, v in _batch(request.param).items()}
+    params = _seeded(JSLAMModel(jcfg).init(jax.random.PRNGKey(0), batch, method="init_all")["params"], seed=5)
+    tm = tslam.SLAMModel(tcfg).eval()
+    tm.load_state_dict(from_flax_params(params, tcfg))
+    return request.param, jcfg, params, tm
+
+
+def test_recipe_loss_and_projector_grads_match_jax(recipe):
+    """Loss within 1e-5 relative, accuracy equal, every projector gradient
+    within 1e-4 of its largest entry, the gradient having come back through
+    the frozen LLM; a Q-Former key bias (gradient 0 in exact arithmetic:
+    the softmax cancels it) is held to round-off on both sides."""
+    kind, jcfg, params, tm = recipe
+    trainable, frozen = j_partition(params, jcfg)
+    jbatch = {k: jnp.asarray(v) for k, v in _batch(kind).items()}
+
+    def loss_fn(tr):
+        out = JSLAMModel(jcfg).apply({"params": j_merge(tr, frozen)}, jbatch)
+        return out["loss"], out["acc"]
+
+    (jl, ja), jg = jax.value_and_grad(loss_fn, has_aux=True)(trainable)
+    tr, _ = partition_params(tm, tm.cfg)
+    assert tr and all(n.startswith("encoder_projector.") for n in tr)
+    out = tm({k: torch.from_numpy(v) for k, v in _batch(kind).items()})
+    grads = torch.autograd.grad(out["loss"], list(tr.values()))
+    np.testing.assert_allclose(float(out["loss"].detach()), float(jl), rtol=1e-5)
+    assert float(out["acc"]) == float(ja)
+    got, want = _flat(trainable_to_flax(dict(zip(tr.keys(), grads)))), _flat(jg)
+    assert set(got) == set(want)
+    top = max(np.abs(w).max() for w in want.values())
+    for key, g in got.items():
+        if key.endswith("k_proj/bias"):
+            assert max(np.abs(g).max(), np.abs(want[key]).max()) <= 1e-6 * top, key
+            continue
+        assert np.abs(g - want[key]).max() <= 1e-4 * np.abs(want[key]).max(), key
+
+
+def test_recipe_beam_tokens_identical_to_jax(recipe):
+    kind, jcfg, params, tm = recipe
+    kw = dict(max_new_tokens=6, num_beams=4, eos_token_id=EOS, pad_token_id=PAD)
+    batch = {k: v for k, v in _batch(kind).items() if k != "labels"}
+    want = JGenerator(JSLAMModel(jcfg), JGenerationConfig(**kw)).generate({"params": params}, batch)
+    got = Generator(tm, GenerationConfig(**kw)).generate(batch)
+    assert got.shape == want.shape == (2, 6)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_binaural_batch_seconds_follow_the_jax_formula():
+    """A SELD decode batch carries no audio_seconds or masks: its RTF counts
+    the feature map's frames at the 10 ms hop, as the JAX pipeline does."""
+    from slam_llm_tpu_torch.pipeline.inference_batch import batch_audio_seconds
+
+    feats = np.zeros((3, 4, 1001, 128), np.float32)
+    want = float(feats.shape[0] * feats.shape[2]) * 0.01  # slam_llm_tpu/pipeline/inference_batch.py:114-116
+    assert batch_audio_seconds({"input_ids": np.zeros((3, 5)), "audio_binaural": feats}) == pytest.approx(want)
+    assert want == pytest.approx(30.03)
+
+
+def test_finetune_trains_from_one_echat_file(tmp_path):
+    """``pipeline.finetune`` on the CPU with ``dataset: echat_dataset`` and
+    one ``data_path`` (the tiny whisper + tiny LLM sandwich): two steps on
+    the 90 % split, then validation on the other 10 %."""
+    from slam_llm_tpu_torch.config import set_by_path
+    from slam_llm_tpu_torch.pipeline import finetune
+
+    tsv = synth.write_echat_corpus(str(tmp_path), n_dialogs=6)
+    cfg = RunConfig()
+    for key, val in (("model_config.llm_name", "tiny-test"), ("model_config.encoder_name", "whisper"),
+                     ("model_config.encoder_config", "whisper-tiny-test"), ("dataset_config.dataset", "echat_dataset"),
+                     ("dataset_config.data_path", tsv), ("dataset_config.mel_size", 8),
+                     ("train_config.batch_size_training", 2), ("train_config.val_batch_size", 2),
+                     ("train_config.max_steps_per_epoch", 2), ("train_config.num_epochs", 1),
+                     ("train_config.output_dir", str(tmp_path / "out")), ("train_config.log_interval", 1)):
+        set_by_path(cfg, key, val)
+    res = finetune.main(cfg, device="cpu")
+    assert len(res["steps"]) == 2 and all(np.isfinite(s["loss"]) for s in res["steps"])
+    assert res["final_val"] is not None and np.isfinite(res["final_val"]["loss"])

@@ -126,14 +126,103 @@ def test_trainable_masters_load_f32_bit_equal():
         np.testing.assert_array_equal(arr, want[path])
 
 
+def _nearest(records, x):
+    """The recorded JAX array of ``x``'s shape nearest to ``x`` (max abs)."""
+    cands = [r for r in records if r[0].shape == x.shape]
+    assert cands, x.shape
+    return min(cands, key=lambda r: np.abs(r[0] - x).max())
+
+
+def _pin_int8_roundings(monkeypatch):
+    """Make the port take the JAX side's rounding decisions in the int8
+    base, after checking that they differ only where the two f32 values
+    straddle a rounding boundary.
+
+    Two roundings depend on f32 values that the packages compute in another
+    order: the activation's int8 codes (``act_quant``) and, in the bf16
+    backward, dy's rounding to bf16. Where an f32 value sits on a boundary,
+    the two sides round it apart; a flipped bf16 dy entry moves a gradient
+    by up to 2**-8 of that entry, which is why the comparison used to hinge
+    on the host. Here the JAX side records its codes and its bf16 dy (a
+    wrapper on ``act_quant`` and on the bf16 backward rule), and the port's
+    ``act_quant`` and each int8 dense's incoming dy are held against the
+    record: activations and dy agree within f32 noise (1e-4 of the largest
+    entry), codes differ by at most 1 in at most 1% of the entries, and every
+    bf16 flip is between adjacent bf16 values, unless the two f32 values are
+    already over half a bf16 step apart (entries near 0, where f32 noise is
+    large beside the value). The port then proceeds with the
+    JAX decisions, so the gradients meet the f32 bound. Returns the JAX
+    package's recording hooks to install: ``(install, restore)``."""
+    import slam_llm_tpu.ops.quant as jq
+    import slam_llm_tpu_torch.models.layers as tl
+    import slam_llm_tpu_torch.ops.quant as tq
+
+    acts, dys = [], []
+    j_act_quant = jq.act_quant
+
+    def j_recording_act_quant(x):
+        x_q, x_s = j_act_quant(x)
+        jax.debug.callback(lambda *a: acts.append(tuple(np.asarray(v) for v in a)), x, x_q, x_s)
+        return x_q, x_s
+
+    def j_recording_bwd(res, dy):
+        jax.debug.callback(lambda a: dys.append((np.asarray(a),)), dy)
+        return jq._int8_dot_bwdbf16_bwd(res, dy)
+
+    def install():
+        jq.act_quant = j_recording_act_quant
+        jq._int8_dot_bwdbf16.defvjp(jq._int8_dot_bwdbf16_fwd, j_recording_bwd)
+
+    def restore():
+        jq.act_quant = j_act_quant
+        jq._int8_dot_bwdbf16.defvjp(jq._int8_dot_bwdbf16_fwd, jq._int8_dot_bwdbf16_bwd)
+        jax.effects_barrier()
+
+    t_act_quant = tq.act_quant
+
+    def pinned_act_quant(x):
+        x_q, x_s = t_act_quant(x)
+        xa, jx_q, jx_s = _nearest(acts, x.detach().numpy())
+        assert np.abs(xa - x.detach().numpy()).max() <= 1e-4 * np.abs(xa).max()
+        diff = np.abs(jx_q.astype(np.int32) - x_q.numpy().reshape(jx_q.shape).astype(np.int32))
+        assert diff.max() <= 1 and (diff > 0).mean() <= 0.01, (diff.max(), (diff > 0).sum())
+        np.testing.assert_allclose(x_s.numpy().reshape(jx_s.shape), jx_s, rtol=1e-5)
+        return torch.from_numpy(jx_q.reshape(x_q.shape).copy()), torch.from_numpy(jx_s.reshape(x_s.shape).copy())
+
+    def pin_dy(g):
+        gn = g.numpy()
+        (jd,) = _nearest(dys, gn)
+        top = np.abs(jd).max()
+        assert np.abs(jd - gn).max() <= 1e-4 * top
+        pb = torch.from_numpy(gn).to(torch.bfloat16)
+        jb = torch.from_numpy(jd).to(torch.bfloat16)
+        flip = (pb != jb).numpy()
+        steps = np.abs(pb.view(torch.int16).numpy().astype(np.int32) - jb.view(torch.int16).numpy().astype(np.int32))
+        apart = np.abs(gn - jd) > 2.0**-9 * np.maximum(np.abs(gn), np.abs(jd))  # over half a bf16 step
+        assert ((steps == 1) | apart)[flip].all()
+        return torch.from_numpy(np.where(flip, jb.float().numpy(), gn))
+
+    t_int8_dot = tl.int8_dot
+
+    def pinned_int8_dot(*args, **kwargs):
+        y = t_int8_dot(*args, **kwargs)
+        if y.requires_grad:
+            y.register_hook(pin_dy)
+        return y
+
+    monkeypatch.setattr(tq, "act_quant", pinned_act_quant)
+    monkeypatch.setattr(tl, "int8_dot", pinned_int8_dot)
+    return install, restore
+
+
 @pytest.mark.parametrize("base_quant", ["none", "int8"])
-def test_loss_and_trainable_grads_match_jax(base_quant):
+def test_loss_and_trainable_grads_match_jax(base_quant, monkeypatch):
     """f32, dropout off, int8 with the bf16 backward: loss within 1e-5
     relative, acc equal, every trainable gradient (projector, LoRA) within
-    1e-4 of its largest entry against jax.value_and_grad (1e-3 with the int8
-    base: the two forwards differ by f32 rounding, which moves a few
-    activations across an int8 rounding boundary); the unfused
-    ``return_logits`` path gives the same loss."""
+    1e-4 of its largest entry against jax.value_and_grad; the unfused
+    ``return_logits`` path gives the same loss. With the int8 base the port
+    takes the JAX side's int8 codes and bf16 dy roundings, after checking
+    that they differ only at rounding boundaries (``_pin_int8_roundings``)."""
     jcfg = _jax_cfg(base_quant)
     params = _params(jcfg)
     trainable, frozen = j_partition(params, jcfg)
@@ -143,7 +232,14 @@ def test_loss_and_trainable_grads_match_jax(base_quant):
         out = JSLAMModel(jcfg).apply({"params": j_merge(tr, frozen)}, jbatch)
         return out["loss"], out["acc"]
 
-    (jl, ja), jg = jax.value_and_grad(loss_fn, has_aux=True)(trainable)
+    install = restore = lambda: None  # noqa: E731
+    if base_quant == "int8":
+        install, restore = _pin_int8_roundings(monkeypatch)
+    install()
+    try:
+        (jl, ja), jg = jax.value_and_grad(loss_fn, has_aux=True)(trainable)
+    finally:
+        restore()
     tcfg, tm = _port_model(jcfg, params)
     tr, _ = partition_params(tm, tcfg)
     out = tm(_tbatch())
@@ -155,7 +251,7 @@ def test_loss_and_trainable_grads_match_jax(base_quant):
     assert set(got) == set(want) and len(got) == 4 + 4  # projector kernels + biases, LoRA A/B of q and v (layer-stacked)
     for path, g in got.items():
         w = want[path]
-        assert np.abs(g - w).max() <= (1e-3 if base_quant == "int8" else 1e-4) * np.abs(w).max(), path
+        assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max(), path
     with torch.no_grad():
         unfused = tm(_tbatch(), return_logits=True)
     np.testing.assert_allclose(float(unfused["loss"]), float(out["loss"].detach()), rtol=1e-5)

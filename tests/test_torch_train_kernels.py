@@ -85,6 +85,31 @@ def test_flash_backward_matches_pallas_grad(h, hkv, causal, rope):
         assert dead.any() and np.all(twin[0].numpy()[dead] == 0)
 
 
+def test_flash_backward_twin_rounds_p_and_ds_like_the_kernel():
+    """On bf16 inputs the K4 twin rounds dS to bf16 before dQ = dS K, as K4
+    does. Keys that share a large common part make dQ a small difference
+    (each row of dS sums to ~0), so dS's rounding moves dQ by ~8 %: the
+    twin's dQ is within 10 % of that move from an f64 reference that rounds
+    dS, while the same twin on the f32 values is a whole move away."""
+    g = torch.Generator().manual_seed(0)
+    b, t, h, d = 2, 64, 2, 64
+    q, k = ((0.05 * torch.randn(b, t, h, d, generator=g) + 2.0 * torch.randn(1, 1, h, d, generator=g)).bfloat16()
+            for _ in range(2))
+    v, dout = (torch.randn(b, t, h, d, generator=g).bfloat16() for _ in range(2))
+    mask = torch.ones(b, t, dtype=torch.int32)
+    out, lse = tflash.flash_attention_ref(q, k, v, mask)
+    dq = tflash.flash_attention_bwd_ref(q, k, v, mask, out, lse, dout)[0]
+    dq32 = tflash.flash_attention_bwd_ref(q.float(), k.float(), v.float(), mask, out.float(), lse, dout.float())[0]
+    qd, kd, vd, od, dod = (x.double() for x in (q, k, v, out, dout))
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qd, kd) / d**0.5, -1)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dod, vd) - (dod * od).sum(-1).permute(0, 2, 1)[..., None])
+    exact, rounded = (torch.einsum("bhqk,bkhd->bqhd", x, kd) / d**0.5 for x in (ds, ds.bfloat16().double()))
+    move = (rounded - exact).norm()
+    assert move > 0.05 * exact.norm()
+    assert (dq.double() - rounded).norm() < 0.1 * move
+    assert (dq32.double() - rounded).norm() > 0.5 * move
+
+
 def test_flash_function_saves_no_score_matrix_and_cpu_routes_to_twins():
     """The Function's saved tensors are the reference's residuals (q, k, v,
     mask, out, lse, rope tables): nothing (Tq, Tk)-shaped; the CPU wrappers

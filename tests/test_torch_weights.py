@@ -385,9 +385,9 @@ def test_loaders_raise_on_unknown_keys_wrong_shapes_and_missing_paths(jax_model,
         hf_loader.convert_encoder_checkpoint(str(tmp_path / "no_enc"), "whisper", None)
     # a family the reference loads from a file and the port does not yet;
     # a directory of a family that has no directory converter
-    torch.save({"model": {}}, tmp_path / "spatial_ast.pt")
+    torch.save({"model": {}}, tmp_path / "av_hubert.pt")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        hf_loader.convert_encoder_checkpoint(str(tmp_path / "spatial_ast.pt"), "spatial_ast", None)
+        hf_loader.convert_encoder_checkpoint(str(tmp_path / "av_hubert.pt"), "av_hubert", None)
     with pytest.raises(ValueError, match="cannot load an HF directory"):
         hf_loader.convert_encoder_checkpoint(str(tmp_path), "beats", None)
     with pytest.raises(FileNotFoundError, match="no safetensors"):
@@ -406,6 +406,31 @@ def test_loaders_raise_on_unknown_keys_wrong_shapes_and_missing_paths(jax_model,
 # ---------------------------------------------------------------------------
 # export
 # ---------------------------------------------------------------------------
+
+
+def test_clap_file_loads_through_the_encoder_dispatch(tmp_path):
+    """A ``write_clap`` file (an ASE ``{"model": sd}``) through
+    ``convert_encoder_checkpoint`` with ``encoder_name: clap``: the same
+    tensors as ``convert_ase_torch_state`` on the file's state dict, and the
+    JAX package's dispatch reads the same file."""
+    from slam_llm_tpu.models import clap as jclap
+    from slam_llm_tpu.utils import hf_loader as j_hf_loader
+    from slam_llm_tpu_torch.models import clap as tclap
+    from slam_llm_tpu_torch.tools import synth_checkpoint as synth
+    from slam_llm_tpu_torch.utils.convert import clap_from_flax
+
+    cfg = tclap.CLAPConfig.tiny_test()
+    path = str(tmp_path / "clap.pt")
+    synth.write_clap(path, cfg, seed=2)
+    got = hf_loader.convert_encoder_checkpoint(path, "clap", cfg)
+    want = tclap.convert_ase_torch_state(hf_loader.load_torch_checkpoint(path), cfg)
+    assert got.keys() == want.keys() == tclap.CLAP(cfg).state_dict().keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    j_params = j_hf_loader.convert_encoder_checkpoint(path, "clap", jclap.CLAPConfig.tiny_test())
+    from_jax = clap_from_flax(j_params["params"], cfg)
+    assert from_jax.keys() == got.keys()
+    for k, v in from_jax.items():
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=1e-6, atol=1e-7, err_msg=k)
 
 
 def test_export_llama_loads_back_in_transformers(hf_llama, tmp_path):
