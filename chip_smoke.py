@@ -23,7 +23,11 @@ Phases, each fatal on failure:
                 causal, D = 128; within 2e-5 of the f32 twin, the twin under
                 single-pass TF32 beside it), K4 flash backward (the
                 training shape (16, 512, 32/4, 64) with fused RoPE, and a
-                whisper-like shape), K2 rowquant (deterministic, and rotate +
+                whisper-like shape), K4's f32 route (Spatial-AST-base's
+                training shape (16, 515, 12/12, 64), ragged, causal
+                left-padded, GQA D = 128 causal; within 2e-5 of the f32
+                twin's largest entry, deterministic, SDPA's f32 backward
+                beside it), K2 rowquant (deterministic, and rotate +
                 stochastic rounding at the int8_rot dy shapes, bit-exact; fold,
                 deterministic and stochastic, at the int8_sr dy shapes and the
                 int8 CE head's f32 dlog, bit-exact), K3 s8 GEMM (prefill,
@@ -112,7 +116,8 @@ Phases, each fatal on failure:
                 encoder and LLM stay bit-unchanged, K1 / K4 once a layer a
                 step, K2 = K3 = 0) and pipeline.inference_batch with ckpt_path
                 (beam 4, batches of 8, 32 tokens) against the in-memory
-                decode, the card vs the CPU at 2 + 2 layers (run_music_spatial):
+                decode, the card vs the CPU at 2 + 2 layers, the loss within
+                1 % (run_music_spatial):
                 SELD (seld_spatialast_llama: Spatial-AST-base f32 from a
                 BAT-layout file, its 12 layers on K1's f32 route, the
                 64-query Q-Former, on spatialised 10 s clips; the whole
@@ -122,6 +127,15 @@ Phases, each fatal on failure:
                 cosine >= 0.999); SEC (sec_emotion2vec_vicuna on raw 16 kHz
                 audio, then 2 steps of its E-chat variant from one dialog
                 TSV, validating on its 10 %).
+ 13. seld_encoder -- SELD with ++train_config.freeze_encoder=false on phase
+                12's Spatial-AST-base file and corpus (run_seld_encoder):
+                pipeline.finetune for 4 steps of 16 (every Spatial-AST and
+                Q-Former tensor moves, vicuna-7b stays bit-unchanged, K1's
+                and K4's f32 routes 12 times a step), the encoder's forward
+                + backward share of the step, pipeline.inference_batch with
+                encoder_path then ckpt_path against the in-memory decode,
+                and the card vs the CPU at 2 + 2 layers (loss within 1 %,
+                every encoder tensor's gradient; the Q-Former's logged).
 
 Prints one JSON line of kernel results before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -591,6 +605,82 @@ def check_flash_bwd(gen) -> dict:
                 near_library=NEAR + " (backward)", cases=rows)
 
 
+def check_flash_bwd_f32(gen) -> dict:
+    """K4's f32 route (csrc/flash_attention_bwd_f32.cu) against the f32 twin
+    on the kernel's own inputs (K1 f32's out and lse; TF32 off): dq, dk, dv
+    each within 2e-5 of the twin's largest entry, dq exactly 0 on rows with
+    no visible key, the same bits on a second run; the twin under
+    single-pass TF32 beside it. Bound: five products at the 67 TFLOP/s of
+    f32 FMA. Library: SDPA's f32 backward (autograd of SDPA on the f32
+    tensors with the boolean mask); with causal left padding its dead rows
+    differ, so it is the near yardstick there."""
+    from slam_llm_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_f32,
+        flash_attention_bwd_ref,
+        flash_attention_fwd,
+    )
+
+    dev = "cuda"
+    cases = [
+        # (name, B, T, H, Hkv, D, causal, padding)
+        ("Spatial-AST-base encoder, training batch", 16, SA_T, 12, 12, 64, False, "none"),
+        ("ragged keys, right-padded", 8, SA_T, 12, 12, 64, False, "right"),
+        ("causal, left-padded", 4, SA_T, 12, 12, 64, True, "left"),
+        ("GQA, head_dim 128, causal", 2, 256, 8, 2, 128, True, "right"),
+    ]
+
+    def rel(got, want):
+        return max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want))
+
+    worst, rows = 0.0, []
+    for name, b, t, h, hkv, d, causal, pad in cases:
+        q = torch.randn(b, t, h, d, generator=gen, device=dev)
+        k = torch.randn(b, t, hkv, d, generator=gen, device=dev)
+        v = torch.randn(b, t, hkv, d, generator=gen, device=dev)
+        dout = torch.randn(b, t, h, d, generator=gen, device=dev)
+        mask = _padding_mask(b, t, pad)
+        out, lse = flash_attention_fwd(q, k, v, mask, causal)
+        args = (q, k, v, mask, out, lse, dout, causal)
+        got = flash_attention_bwd(*args)
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_ref(*args)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = flash_attention_bwd_ref(*args)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        err, tf32_err = rel(got, want), rel(tf32, want)
+        abs_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        dead = (mask.cumsum(1) == 0) if causal else (mask.sum(1, keepdim=True) == 0).expand(b, t)
+        dead_ok = bool((got[0][dead] == 0).all().item()) if bool(dead.any()) else True
+        again = flash_attention_bwd(*args)
+        deterministic = all(torch.equal(a, g) for a, g in zip(again, got))
+        ms = time_ms(lambda: flash_attention_bwd_f32(*args))
+        plain_ms = time_ms(lambda: flash_attention_bwd_ref(*args), reps=3)
+        bound_ms, bound_by = bound(10 * h * d * attended_pairs(mask, causal),
+                                   nbytes(q, k, v, mask, out, lse, dout, *got), FP32_FLOPS)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        ref_out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=_bool_mask(mask, causal), enable_gqa=h != hkv)
+        dout_t = dout.transpose(1, 2)
+        sdpa_bwd = event_ms(lambda: torch.autograd.grad(ref_out, (qt, kt, vt), dout_t, retain_graph=True))
+        library_ms, near_ms = (None, sdpa_bwd) if causal and pad == "left" else (sdpa_bwd, None)
+        del ref_out
+        log(f"[K4 f32] {name} {(b, t, h, hkv, d)} causal={causal}: max|g-ref| / max|ref| over dq, dk, dv {err:.3e} "
+            f"(the twin under single-pass TF32: {tf32_err:.3e}), max abs {abs_err:.3e}, dead rows {int(dead.sum())} "
+            f"dq zero {dead_ok}, deterministic {deterministic} | kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+            f"{bound_ms:.4f} ms ({bound_by}, f32 FMA) share {bound_ms / ms:.3f} SDPA f32 backward {_r(library_ms)} "
+            f"ms | SDPA f32 backward, boolean mask (near): {_r(near_ms)} ms | {SMI}")
+        if not (err <= 2e-5 and dead_ok and deterministic):
+            raise AssertionError(f"K4 f32 {name}: error {err} of the twin's largest entry (tol 2e-5), dead dq zero "
+                                 f"{dead_ok}, deterministic {deterministic}")
+        worst = max(worst, abs_err)
+        rows.append(dict(at=f"{name} {(b, t, h, hkv, d)}", ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms, near_library_ms=near_ms, rel_err=err,
+                         tf32_rel_err=tf32_err))
+    return dict(max_abs_err=worst, **{k: v for k, v in rows[0].items() if k not in ("near_library_ms", "tf32_rel_err")},
+                near_library="SDPA f32 backward, boolean mask", cases=rows)
+
+
 def _k2_case(at: str, ms: float, plain_ms: float, bound_ms: float) -> dict:
     return dict(at=at, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, share=bound_ms / ms)
 
@@ -821,6 +911,8 @@ KERNELS = [
      "slam_llm_tpu/ops/kernels/flash_attention.py:562"),
     ("flash_attention_bwd", "slam_llm_tpu_torch/csrc/flash_attention_bwd.cu",
      "slam_llm_tpu/ops/kernels/flash_attention.py:1201"),
+    ("flash_attention_bwd_f32", "slam_llm_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+     "slam_llm_tpu/ops/kernels/flash_attention.py:1201"),
     ("rowquant", "slam_llm_tpu_torch/csrc/rowquant.cu", "slam_llm_tpu/ops/kernels/rowquant.py:226"),
     ("rowquant_rot_sr", "slam_llm_tpu_torch/csrc/rowquant.cu", "slam_llm_tpu/ops/kernels/rowquant.py:222"),
     ("rowquant_fold", "slam_llm_tpu_torch/csrc/rowquant.cu", "slam_llm_tpu/ops/kernels/rowquant.py:222"),
@@ -834,7 +926,7 @@ def check_kernels() -> list:
     check_wgmma_layouts(gen)
     checks = {
         "flash_attention_fwd": check_flash, "flash_attention_fwd_f32": check_flash_f32,
-        "flash_attention_bwd": check_flash_bwd,
+        "flash_attention_bwd": check_flash_bwd, "flash_attention_bwd_f32": check_flash_bwd_f32,
         "rowquant": check_rowquant, "rowquant_rot_sr": check_rowquant_rot_sr,
         "rowquant_fold": check_rowquant_fold, "int8_matmul": check_int8_matmul,
         "int8_matmul_f32": check_int8_matmul_f32,
@@ -895,6 +987,7 @@ def kernel_counters():
         "flash_attention_fwd": flash_attention.flash_attention_fwd,
         "flash_attention_fwd_f32": flash_attention.flash_attention_fwd_f32,
         "flash_attention_bwd": flash_attention.flash_attention_bwd,
+        "flash_attention_bwd_f32": flash_attention.flash_attention_bwd_f32,
         "rowquant": rowquant.rowquant,
         "rowquant_rot_sr": rowquant.rowquant_rot_sr,
         "rowquant_fold": rowquant.rowquant_fold,
@@ -1249,14 +1342,18 @@ def cpu_attention_on_twins():
         layers._xla_attention = plain
 
 
-def check_train_grads_against_cpu(trainer, dataset, label: str, key_bias_limit: float = 5e-2) -> None:
+def check_train_grads_against_cpu(trainer, dataset, label: str, key_bias_limit: float = 5e-2,
+                                  gate: str = "") -> tuple:
     """The trainable gradients of one utterance, card vs CPU plain path: the
     trained weights with LoRA B redrawn nonzero (so every LoRA factor gets a
     gradient), the run's backward modes with the same stochastic-rounding
     seeds on both sides, remat as configured, dropout off. Cosine >= 0.99
     for every tensor with a gradient; a key projection's bias (the
     Q-Former's), whose gradient is 0 in exact arithmetic, within
-    ``key_bias_limit`` of its query bias's gradient norm on both sides."""
+    ``key_bias_limit`` of its query bias's gradient norm on both sides.
+    The gate holds the tensors whose names start with ``gate`` (all by
+    default); the others' worst is logged. Returns the loss on the card and
+    on the CPU."""
     model = trainer.model
     gen = torch.Generator(device="cuda").manual_seed(1)
     with torch.no_grad():
@@ -1299,11 +1396,21 @@ def check_train_grads_against_cpu(trainer, dataset, label: str, key_bias_limit: 
                                                f"{max(a for a, _ in key_bias.values()):.2e} card, "
                                                f"{max(c for _, c in key_bias.values()):.2e} CPU (limit "
                                                f"{key_bias_limit:g})" if key_bias else ""))
+    if gate:
+        outside = {n: c for n, c in cos.items() if not n.startswith(gate)}
+        cos = {n: c for n, c in cos.items() if n.startswith(gate)}
+        key_bias = {n: ac for n, ac in key_bias.items() if n.startswith(gate)}
+        names = [n for n in names if n.startswith(gate)]
+        worst = min(cos, key=cos.get)
+        log(f"[{label}] the gate holds the {len(names)} {gate}* tensors: min cosine {cos[worst]:.5f} ({worst}), "
+            f"largest key-bias ratio {max((max(ac) for ac in key_bias.values()), default=0.0):.2e}; outside it the "
+            f"worst is {min(outside.values()):.5f} ({min(outside, key=outside.get)})")
     worst_key_bias = max((max(ac) for ac in key_bias.values()), default=0.0)
     if len(cos) + len(key_bias) != len(names) or cos[worst] < 0.99 or worst_key_bias > key_bias_limit:
         raise AssertionError(f"gradient check: min cosine {cos[worst]} (< 0.99), zero gradients "
                              f"({len(names) - len(cos) - len(key_bias)}) or a key bias's gradient above round-off "
                              f"({worst_key_bias})")
+    return loss_gpu, loss_cpu
 
 
 # ---------------------------------------------------------------------------
@@ -1573,33 +1680,36 @@ def _st_config(loader, *extra):
     return loader(["--config", str(ST_RECIPE), "++model_config.file=__main__:synth_tokenizer_factory", *extra])
 
 
-def check_projector_trained(trainer, cfg, label: str, lora: bool = False) -> None:
-    """Every projector tensor (and, with ``lora``, every LoRA factor) moved
-    from the seeded init; every other tensor of the state dict (encoder and
-    LLM weights, an int8 base and its scales, norms) is bit-equal to a
-    freshly materialized model's, in the dtype the trainer stores it in."""
+def check_projector_trained(trainer, cfg, label: str, lora: bool = False, trained=("encoder_projector.",)) -> None:
+    """Every parameter under the ``trained`` prefixes (the projector by
+    default; the encoder's too when it trains) and, with ``lora``, every
+    LoRA factor is trainable, an f32 master, and moved from the seeded init;
+    every other tensor of the state dict (encoder and LLM weights, an int8
+    base and its scales, norms) is bit-equal to a freshly materialized
+    model's, in the dtype the trainer stores it in."""
     from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
 
     fresh, _, _ = build_model_and_data(cfg, split=cfg.dataset_config.train_split, device="cuda")
     materialize_params(fresh, cfg)
     init = fresh.state_dict()
     factors = {n for n in trainer.trainable if n.endswith((".lora_a", ".lora_b"))}
-    if (not trainer.trainable or bool(factors) != lora
-            or any(not n.startswith("encoder_projector.") for n in set(trainer.trainable) - factors)):
-        raise AssertionError(f"{label}: the recipe trains the projector{' and LoRA' if lora else ''} alone, not "
-                             f"{sorted(trainer.trainable)[:5]}")
+    under = {n for n, _ in trainer.model.named_parameters() if n.startswith(trained)}
+    if (not trainer.trainable or bool(factors) != lora or set(trainer.trainable) - factors != under
+            or any(p.dtype != torch.float32 for p in trainer.trainable.values())):
+        raise AssertionError(f"{label}: the recipe trains {', '.join(trained)}{' and LoRA' if lora else ''} in f32, "
+                             f"not {sorted(set(trainer.trainable) ^ under)[:5]}")
     unmoved = [n for n, p in trainer.trainable.items() if torch.equal(p, init[n].to(p.dtype))]
     state = trainer.model.state_dict()
     changed = [n for n, t in state.items() if n not in trainer.trainable and not torch.equal(t, init[n].to(t.dtype))]
     n_train = sum(p.numel() for p in trainer.trainable.values())
     n_other = sum(t.numel() for n, t in state.items() if n not in trainer.trainable)
-    log(f"[{label}] {len(trainer.trainable)} projector{' and LoRA' if lora else ''} tensors ({n_train / 1e6:.1f} M "
-        f"parameters, {len(factors)} LoRA factors), unmoved: "
+    log(f"[{label}] {len(trainer.trainable)} trained tensors ({', '.join(trained)}"
+        f"{' and LoRA' if lora else ''}; {n_train / 1e6:.1f} M parameters, {len(factors)} LoRA factors), unmoved: "
         f"{len(unmoved)}; {len(state) - len(trainer.trainable)} other state tensors ({n_other / 1e9:.3f} G "
         f"elements: encoder, LLM, int8 base, scales, norms), changed: {len(changed)}")
     del fresh, init
     if unmoved or changed:
-        raise AssertionError(f"{label}: projector tensors unmoved {unmoved[:5]}, frozen tensors changed {changed[:5]}")
+        raise AssertionError(f"{label}: trained tensors unmoved {unmoved[:5]}, frozen tensors changed {changed[:5]}")
 
 
 def st_bleu(out) -> dict:
@@ -1623,12 +1733,14 @@ def st_bleu(out) -> dict:
 
 
 def check_reduced_against_cpu(trainer, cfg, prefill_batch, train_ds, label: str, layers: int = 2,
-                              key_bias_limit: float = 5e-2) -> None:
+                              key_bias_limit: float = 5e-2, gate: str = "") -> tuple:
     """The recipe's trained model cut to ``layers`` LLM and encoder layers
     at its full widths (a 7B f32 model on the host is neither quick nor
     small; a model without an encoder keeps none): the bf16 prefill logits
     of ``prefill_batch``'s first utterance and every trainable gradient of
-    one utterance of ``train_ds``, card vs CPU plain path."""
+    one utterance of ``train_ds``, card vs CPU plain path (the gradient gate
+    on the tensors named ``gate``*, all by default). Returns the utterance's
+    loss on the card and on the CPU."""
     import dataclasses
 
     from slam_llm_tpu_torch.models.slam_model import SLAMModel
@@ -1651,7 +1763,7 @@ def check_reduced_against_cpu(trainer, cfg, prefill_batch, train_ds, label: str,
         f"recipe's trained model cut to those layers)")
     compare_prefill(small.eval(), prefill_batch, label)
     small.to("cuda")
-    check_train_grads_against_cpu(small_trainer, train_ds, label, key_bias_limit)
+    return check_train_grads_against_cpu(small_trainer, train_ds, label, key_bias_limit, gate)
 
 
 def run_st() -> dict:
@@ -2639,14 +2751,17 @@ SEC_CAPTIONS = ["the speaker sounds happy and excited", "a calm, neutral voice",
 
 
 def _recipe_phase(label: str, recipe: Path, tmp: Path, tokenizer, train_args: tuple, test_args: tuple):
-    """One phase-12 recipe through both entry points at full width:
-    pipeline.finetune for MS_STEPS steps of 16 (the projector trains, the
-    encoder and the bf16 vicuna-7b stay bit-unchanged; K1 / K4 launch once a
-    layer a step, K1's f32 route once a Spatial-AST layer, K2 = K3 = 0), the
-    encoder's share of the step, pipeline.inference_batch with ckpt_path
-    (beam 4, batches of 8) against the in-memory trained model's decode, and
-    the card-vs-CPU checks at MS_LAYERS LLM and encoder layers. Returns the
-    trainer, the launches of both runs and the test dataset."""
+    """One phase-12 / 13 recipe through both entry points at full width:
+    pipeline.finetune for MS_STEPS steps of 16 (the projector trains, and
+    the encoder where ``train_args`` unfreeze it; the rest and the bf16
+    vicuna-7b stay bit-unchanged; K1 / K4 launch once a layer a step, K1's
+    f32 route once a Spatial-AST layer and K4's too when it trains, K2 = K3
+    = 0), the encoder's share of the step, pipeline.inference_batch with
+    ckpt_path (beam 4, batches of 8) against the in-memory trained model's
+    decode, and the card-vs-CPU checks at MS_LAYERS LLM and encoder layers
+    (the loss within 1 %; the gradient gate on the encoder's tensors when it
+    trains, on every tensor otherwise). Returns the trainer, the launches of
+    both runs and the test dataset."""
     from slam_llm_tpu_torch.pipeline import finetune, inference_batch
     from slam_llm_tpu_torch.pipeline.inference_batch import decode_loader
     from slam_llm_tpu_torch.utils.checkpoint import load_trainable
@@ -2657,8 +2772,8 @@ def _recipe_phase(label: str, recipe: Path, tmp: Path, tokenizer, train_args: tu
                          "++train_config.num_epochs=1", f"++train_config.max_steps_per_epoch={MS_STEPS}",
                          f"++train_config.output_dir={tmp / 'out'}")
     tc = cfg.train_config
-    if (cfg.model_config.llm_name, tc.batch_size_training, tc.freeze_encoder, tc.freeze_llm, tc.use_peft,
-            tc.shard.base_quant) != ("vicuna-7b", 16, True, True, False, "none"):
+    if (cfg.model_config.llm_name, tc.batch_size_training, tc.freeze_llm, tc.use_peft,
+            tc.shard.base_quant) != ("vicuna-7b", 16, True, False, "none"):
         raise AssertionError(f"the {label} recipe changed: {cfg.model_config} {tc}")
     res, launches, stats = _finetune(cfg, label)
     trainer = res["trainer"]
@@ -2666,9 +2781,12 @@ def _recipe_phase(label: str, recipe: Path, tmp: Path, tokenizer, train_args: tu
     steps = len(res["steps"])
     qformer = c.projector_cfg.qformer_layers if c.projector == "q-former" else 0
     f32 = c.encoder_name == "spatial_ast"
-    per_step = {"flash_attention_fwd": (0 if f32 else c.encoder.n_layers) + qformer + c.llm.n_layers,
-                "flash_attention_fwd_f32": c.encoder.n_layers if f32 else 0,
-                "flash_attention_bwd": qformer + c.llm.n_layers}
+    enc_trains = not c.freeze_encoder
+    bf16_enc, f32_enc = (0, c.encoder.n_layers) if f32 else (c.encoder.n_layers, 0)
+    per_step = {"flash_attention_fwd": bf16_enc + qformer + c.llm.n_layers,
+                "flash_attention_fwd_f32": f32_enc,
+                "flash_attention_bwd": bf16_enc * enc_trains + qformer + c.llm.n_layers,
+                "flash_attention_bwd_f32": f32_enc * enc_trains}
     log(f"[{label}] model: {c.encoder_name} ({c.encoder.n_layers} layers, d {c.encoder.d_model}, "
         f"{c.encoder.n_heads} heads, {c.encoder.dtype}) + {c.projector} + vicuna-7b ({c.llm.n_layers} layers, base "
         f"{c.llm.base_quant}, remat {c.llm.remat_policy if c.llm.remat else 'off'}); materialized in "
@@ -2679,11 +2797,11 @@ def _recipe_phase(label: str, recipe: Path, tmp: Path, tokenizer, train_args: tu
         raise AssertionError(f"{label}: {steps} steps, checkpoints {res['checkpoints']}")
     if {k: launches[k] for k in per_step} != {k: v * steps for k, v in per_step.items()}:
         raise AssertionError(f"{label}: launches {launches}, not {per_step} a step")
-    check_projector_trained(trainer, cfg, label)
+    check_projector_trained(trainer, cfg, label, trained=("encoder_projector.",) + ("encoder.",) * enc_trains)
     saved = load_trainable(res["checkpoints"][-1])
     if set(saved) != set(trainer.trainable) or not all(torch.equal(saved[n], p.detach().cpu())
                                                         for n, p in trainer.trainable.items()):
-        raise AssertionError(f"{label}: model.pt differs from the trained projector")
+        raise AssertionError(f"{label}: model.pt differs from the trained tensors")
     train_ds = dataset_of(cfg, tokenizer, cfg.dataset_config.train_split)
     batch16 = trainer.put_batch(train_ds.collator([train_ds[i] for i in range(16)]))
     with torch.no_grad():
@@ -2691,6 +2809,17 @@ def _recipe_phase(label: str, recipe: Path, tmp: Path, tokenizer, train_args: tu
     audio_key = next(k for k in ("audio_binaural", "audio_mel", "audio") if k in batch16)
     log(f"[{label}] encoder + projector forward of a training batch {audio_key} {tuple(batch16[audio_key].shape)}: "
         f"{enc_ms:.2f} ms by CUDA events, {enc_ms / stats['step_ms']:.3f} of the step | {SMI}")
+    if enc_trains:  # forward + backward to the encoder's and the projector's tensors, a random cotangent
+        params = [p for n, p in trainer.model.named_parameters() if n.startswith("encoder")]
+        gen = torch.Generator(device="cuda").manual_seed(3)
+
+        def enc_fwd_bwd():
+            h = trainer.model.encode(batch16)[0]
+            torch.autograd.grad(h, params, torch.randn(h.shape, generator=gen, device="cuda", dtype=h.dtype))
+
+        fb_ms = event_ms(enc_fwd_bwd, reps=3)
+        log(f"[{label}] encoder + projector forward + backward of that batch: {fb_ms:.2f} ms by CUDA events, "
+            f"{fb_ms / stats['step_ms']:.3f} of the step | {SMI}")
     del batch16
 
     dec = _recipe_config(recipe, inference_batch.load_run_config, *test_args, f"++ckpt_path={res['checkpoints'][-1]}",
@@ -2707,15 +2836,16 @@ def _recipe_phase(label: str, recipe: Path, tmp: Path, tokenizer, train_args: tu
         f"{1000 * out['decode_s'] / max(out['decode_steps'], 1):.2f} ms/beam step over {out['decode_steps']} steps, "
         f"{out['generated_tokens']} tokens, RTF {out['rtf']:.4f} ({out['audio_seconds']:.2f} s of audio); launches "
         f"{ {k: dec_launches[k] for k in per_step} } | {SMI}")
-    if f32 and dec_launches["flash_attention_fwd_f32"] != c.encoder.n_layers * len(batches):
-        raise AssertionError(f"{label}: K1 f32 launched {dec_launches['flash_attention_fwd_f32']} times over "
-                             f"{len(batches)} prefills of {c.encoder.n_layers} layers")
+    if dec_launches["flash_attention_fwd_f32"] != f32_enc * len(batches) or dec_launches["flash_attention_bwd_f32"]:
+        raise AssertionError(f"{label}: K1 / K4 f32 launched {dec_launches['flash_attention_fwd_f32']} / "
+                             f"{dec_launches['flash_attention_bwd_f32']} times over {len(batches)} prefills of "
+                             f"{c.encoder.n_layers} layers")
     if any(launches[k] + dec_launches[k] for k in AAC_BYPASSED):
         raise AssertionError(f"{label}: K2 / K3 launched on the bf16 base: "
                              f"{ {k: launches[k] + dec_launches[k] for k in AAC_BYPASSED} }")
     if not np.isfinite(out["rtf"]):
         raise AssertionError(f"{label}: RTF {out['rtf']} over {out['audio_seconds']} s of audio")
-    if c.encoder.dtype == torch.float32:
+    if c.encoder.dtype == torch.float32 and not enc_trains:
         # the trainer re-stored the frozen f32 encoder in frozen_dtype (bf16), as the JAX package's trainer
         # does, and inference_batch builds it in f32: the in-memory model gets the f32 encoder back
         from slam_llm_tpu_torch.utils.hf_loader import convert_encoder_checkpoint, overlay_
@@ -2732,9 +2862,14 @@ def _recipe_phase(label: str, recipe: Path, tmp: Path, tokenizer, train_args: tu
     if len(mine) != len(test_ds) or text != "".join(f"{line}\n" for line in mine):
         raise AssertionError(f"{label}: the reloaded model's decode differs from the in-memory trained model's")
     # the Q-Former's later blocks attend near-uniformly, where K4's bf16 dS
-    # is most of a query / key gradient: the CPU side rounds as K4 does
+    # is most of a query / key gradient: the CPU side rounds as K4 does. With
+    # the encoder trained they attend more uniformly still (ROADMAP Queue 3):
+    # the gate then holds the encoder's gradients and logs the Q-Former's
     with cpu_attention_on_twins():
-        check_reduced_against_cpu(trainer, cfg, batches[0], train_ds, label, MS_LAYERS, MS_KEY_BIAS_LIMIT)
+        loss_gpu, loss_cpu = check_reduced_against_cpu(trainer, cfg, batches[0], train_ds, label, MS_LAYERS,
+                                                       MS_KEY_BIAS_LIMIT, gate="encoder." if enc_trains else "")
+    if not abs(loss_gpu - loss_cpu) <= 1e-2 * abs(loss_cpu):
+        raise AssertionError(f"{label}: loss {loss_gpu} on the card, {loss_cpu} on the CPU")
     log(f"[{label}] the recipe in {time.perf_counter() - t_phase:.1f} s")
     return trainer, {k: launches[k] + dec_launches[k] for k in launches}, test_ds
 
@@ -2749,14 +2884,14 @@ def _ms_tokenizer(tmp: Path):
     return load_tokenizer(_synth_tokenizer_dir)
 
 
-def run_seld() -> dict:
+def run_seld() -> tuple:
     """seld_spatialast_llama: a random Spatial-AST-base file in BAT's layout
     through ``encoder_path`` (f32, so its 12 layers run K1's f32 route),
     the 64-query Q-Former, vicuna-7b in bf16, on spatialised 10 s clips
     (synthetic 32 kHz clips convolved with 2-channel IRs, SpatialSoundQA's
-    manifests); the whole Spatial-AST-base against the CPU f32 plain path."""
-    import shutil
-
+    manifests); the whole Spatial-AST-base against the CPU f32 plain path.
+    Returns the launches and the files (directory, file, corpus overrides)
+    that phase 13 reuses and removes."""
     from slam_llm_tpu_torch.models.spatial_ast import SPATIAL_AST_PRESETS, SpatialASTEncoder
     from slam_llm_tpu_torch.tools import synth_checkpoint as synth
     from slam_llm_tpu_torch.utils.hf_loader import convert_encoder_checkpoint, load_torch_checkpoint, overlay_
@@ -2795,8 +2930,7 @@ def run_seld() -> dict:
         sa_ms = event_ms(lambda: sa(feats.cuda()), reps=3)
     log(f"[seld] Spatial-AST-base f32 forward of {tuple(feats.shape)}: {sa_ms:.2f} ms by CUDA events | {SMI}")
     del sa
-    shutil.rmtree(tmp)
-    return launches
+    return launches, dict(tmp=tmp, args=args)
 
 
 def run_mc() -> dict:
@@ -2874,17 +3008,47 @@ def run_sec() -> dict:
     return {k: launches[k] + echat_launches[k] for k in launches}
 
 
-def run_music_spatial() -> dict:
+def run_music_spatial() -> tuple:
     """Phase 12: the SELD, MC and SEC recipes, each through both entry points;
     a recipe's launches are its training and decode runs' (the whole-encoder
-    checks against the CPU count their own)."""
+    checks against the CPU count their own). Returns them and SELD's files."""
     t0 = time.perf_counter()
     paths = {}
-    for name, fn in (("seld", run_seld), ("mc", run_mc), ("sec", run_sec)):
+    paths["seld"], seld_files = run_seld()
+    torch.cuda.empty_cache()
+    for name, fn in (("mc", run_mc), ("sec", run_sec)):
         paths[name] = fn()
         torch.cuda.empty_cache()
     log(f"[music_spatial] phase 12 in {time.perf_counter() - t0:.1f} s")
-    return paths
+    return paths, seld_files
+
+
+# ---------------------------------------------------------------------------
+# phase 13: SELD with its Spatial-AST encoder unfrozen
+# ---------------------------------------------------------------------------
+
+
+def run_seld_encoder(seld_files: dict) -> dict:
+    """Phase 13: seld_spatialast_llama with ``++train_config.freeze_encoder=false``
+    on phase 12's Spatial-AST-base file and corpus, through ``_recipe_phase``:
+    Spatial-AST-base f32 and the Q-Former train (every encoder tensor
+    moves, the BatchNorm statistics too, as in the JAX package), K1's and
+    K4's f32 routes once a Spatial-AST layer a step, vicuna-7b bf16
+    bit-unchanged, the encoder's forward + backward share of the step, the
+    decode from encoder_path then ckpt_path against the in-memory one, and
+    the card vs the CPU gated on the encoder's gradients. Removes the
+    files."""
+    import shutil
+
+    t0 = time.perf_counter()
+    tmp, args = seld_files["tmp"], seld_files["args"]
+    tokenizer = _ms_tokenizer(tmp)
+    trainer, launches, _ = _recipe_phase("seld_encoder", SELD_RECIPE, tmp / "seld_encoder", tokenizer,
+                                         (*args, "++train_config.freeze_encoder=false"), args)
+    del trainer
+    shutil.rmtree(tmp)
+    log(f"[seld_encoder] phase 13 in {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -2901,16 +3065,17 @@ def main() -> int:
     wavlm = run_wavlm()
     aac, aac_files = run_aac()
     clap = run_clap(aac_files)
-    music_spatial = run_music_spatial()
+    music_spatial, seld_files = run_music_spatial()
+    seld_encoder = run_seld_encoder(seld_files)
     paths = {"decode": decode, "train": train, "train_int8_sr": modes, "weights": weights, "st": st,
-             "wavlm": wavlm, "aac": aac, "clap": clap, **music_spatial}
+             "wavlm": wavlm, "aac": aac, "clap": clap, **music_spatial, "seld_encoder": seld_encoder}
     for r in results:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
         if r["name"].startswith("int8_matmul"):  # the code paths count both epilogues together
             r["launches_by_code_path"] = {p: {path: counts[f"int8_matmul/{p}"] for path, counts in paths.items()}
                                           for p in ("wgmma", "splitk")}
-    log(f"[chip_smoke] phases 1-12 in {time.perf_counter() - t0:.1f} s | {SMI}")
+    log(f"[chip_smoke] phases 1-13 in {time.perf_counter() - t0:.1f} s | {SMI}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "slam_flash_bwd": [_P] * 16 + [_I] * 5 + [ctypes.c_float] + [_I] * 4 + [_P],
     # q k v mask out lse | b tq tk h hkv d | q/k/v strides | scale causal | stream
     "slam_flash_fwd_f32": [_P] * 6 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _I, _P],
+    # q k v mask out dout lse delta dq dk dv | b t h hkv d | q/k/v/out/dout strides | scale causal | stream
+    "slam_flash_bwd_f32": [_P] * 11 + [_I] * 5 + [_L] * 15 + [ctypes.c_float, _I, _P],
     # q k v s_out o_out | d n | stream
     "slam_wgmma_probe": [_P] * 5 + [_I, _I, _P],
 }

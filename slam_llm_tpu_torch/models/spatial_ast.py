@@ -17,7 +17,14 @@ presets and numerics:
      tokens in front: 515 tokens
   -> 12 pre-LN ViT blocks (``models.vit.ViTBlock``) in the config's dtype,
      f32 for the recipe, so on a CUDA tensor the attention runs K1's f32
-     route (``csrc/flash_attention_f32.cu``); no final norm.
+     route (``csrc/flash_attention_f32.cu``) and, with the encoder trained
+     (``freeze_encoder: false``), its gradient K4's
+     (``csrc/flash_attention_bwd_f32.cu``); no final norm.
+
+Every tensor is built frozen (``requires_grad=False``);
+``train.optimizer.partition_params`` marks them all trainable when the
+encoder trains, the BatchNorm statistics too, as the JAX package's
+trainable tree holds every encoder leaf.
 
 The host features are numpy (``binaural_features``). ``convert_spatialast_torch``
 maps a BAT ``finetuned.pth``-style state dict (timm ViT names, the fused qkv,

@@ -17,10 +17,11 @@ the backward counter-rotates dq/dk. Self-attention only (Tq == Tk).
 
 The wrappers send CPU tensors to the twins and CUDA tensors to
 ``csrc/flash_attention.cu`` (K1) and ``csrc/flash_attention_bwd.cu`` (K4):
-bf16, D in {64, 128}. f32 CUDA tensors take K1's f32 route
-(``csrc/flash_attention_f32.cu``, ``flash_attention_fwd_f32``: exact f32
-products on the CUDA cores, no fused RoPE); K4 has no f32 route yet, so
-the backward of an f32 call raises. They raise on anything else.
+bf16, D in {64, 128}. f32 CUDA tensors take the f32 routes, exact f32
+products on the CUDA cores without fused RoPE: K1's
+(``csrc/flash_attention_f32.cu``, ``flash_attention_fwd_f32``) and K4's
+(``csrc/flash_attention_bwd_f32.cu``, ``flash_attention_bwd_f32``). They
+raise on anything else.
 ``plan_flash`` decides, in plain Python, how the bf16 kernels cut a call
 into units of work (rows per
 unit, query heads packed per unit, key or query tile, ring stages, grid,
@@ -357,8 +358,9 @@ def flash_attention_bwd(
     if k.shape[1] != t:
         raise ValueError(f"flash backward kernel takes self-attention (tq == tk), got {t} vs {k.shape[1]}")
     if _is_f32(q, k, v):
-        raise NotImplementedError("K4 has no f32 route yet (ROADMAP Queue 2): the f32 flash attention takes no "
-                                  "gradient on the card")
+        if rope is not None:
+            raise NotImplementedError("K4's f32 route takes no fused RoPE (ROADMAP Queue 2): rotate q / k first")
+        return flash_attention_bwd_f32(q, k, v, kv_mask, out, lse, dout, causal, scale)
     _check_kernel_inputs(d, q, k, v, out, dout)
     q, k, v, out, dout = (x.contiguous() for x in (q, k, v, out, dout))
     lse = lse.float().contiguous()
@@ -394,10 +396,58 @@ def flash_attention_bwd(
 flash_attention_bwd.launches = 0
 
 
+def flash_attention_bwd_f32(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    causal: bool = False, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of f32 q / k / v / out / dout: K4's f32 route
+    (``csrc/flash_attention_bwd_f32.cu``, two launches: dq with delta, then
+    dk / dv) on CUDA tensors, the twin on CPU tensors. Self-attention only
+    on the card (Tq == Tk); any strides with a contiguous last dim; D in
+    {64, 128}; ``lse`` is K1 f32's log2 value."""
+    if not q.is_cuda:
+        return flash_attention_bwd_ref(q, k, v, kv_mask, out, lse, dout, causal, scale)
+    _check_shapes(q, k, v, kv_mask, causal)
+    b, t, h, d = q.shape
+    hkv = k.shape[2]
+    if k.shape[1] != t:
+        raise ValueError(f"flash backward kernel takes self-attention (tq == tk), got {t} vs {k.shape[1]}")
+    _check_kernel_inputs(d, q, k, v, out, dout, dtype=torch.float32)
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, t, h):
+        raise ValueError(f"out / dout must be {tuple(q.shape)} and lse {(b, t, h)}, got {tuple(out.shape)}, "
+                         f"{tuple(dout.shape)}, {tuple(lse.shape)}")
+    q, k, v, out, dout = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v, out, dout))
+    lse = lse.float().contiguous()
+    mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
+    dq = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, t, hkv, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
+
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    with torch.cuda.device(q.device):
+        err = library().slam_flash_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, hkv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], *dout.stride()[:3],
+            float(scale), int(causal), stream_ptr(q),
+        )
+    check(err, "flash_attention_bwd_f32")
+    flash_attention_bwd_f32.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_f32.launches = 0
+
+
 class FlashAttention(torch.autograd.Function):
-    """K1 forward, K4 backward. Saves (q, k, v, kv_mask, out, lse, rope) as
-    the reference's ``_fwd_rule`` does: no (Tq, Tk) tensor survives the
-    forward. Given ``out`` and ``lse`` (a checkpointed layer's replay), the
+    """K1 forward, K4 backward (their f32 routes on f32 tensors). Saves
+    (q, k, v, kv_mask, out, lse, rope) as the reference's ``_fwd_rule``
+    does: no (Tq, Tk) tensor survives the forward. Given ``out`` and ``lse`` (a checkpointed layer's replay), the
     forward takes them instead of running K1."""
 
     @staticmethod

@@ -12,7 +12,10 @@ asking for CUDA without a GPU raises). One process, one device:
 Weights come from ``pipeline.common.materialize_params``: the seeded random
 init, then the HF checkpoints of ``++model_config.llm_path=<dir>`` /
 ``++model_config.encoder_path=<dir>``, then the trainable tensors of
-``++ckpt_path=<checkpoint dir, model.pt or model.msgpack>``. ``resume_from`` (a
+``++ckpt_path=<checkpoint dir, model.pt or model.msgpack>``. With
+``++train_config.freeze_encoder=false`` the encoder trains as well, in f32
+masters, and ``model.pt`` carries it (an f32 encoder's attention then
+takes K1's and K4's f32 routes on the card). ``resume_from`` (a
 checkpoint directory or its ``full_state.pt``) restores the trainable
 tensors, the optimizer state and the step that ``save_optimizer`` wrote;
 ``run_test_during_validation`` decodes ``run_test_during_validation_file``

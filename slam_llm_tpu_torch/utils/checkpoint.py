@@ -8,8 +8,12 @@ Counterpart of ``save_trainable`` / ``load_trainable`` /
   ``torch.save`` as ``{name: tensor}`` on the CPU in ``model.pt``;
 * the JAX package's ``model.msgpack`` (flat ``encoder_projector/linear1/kernel``
   keys, the LLM's per-layer tensors stacked on a leading layer axis under
-  ``llm/decoder/layers``), read and written with the port's own codec
-  (``utils.msgpack_codec``) and mapped through ``utils.convert``;
+  ``llm/decoder/layers``, an unfrozen encoder's tensors in its own flax
+  leaves, such as Spatial-AST's HWIO ``down_kernel``), read and written with
+  the port's own codec (``utils.msgpack_codec``) and mapped through
+  ``utils.convert``, the encoder's tensors by the encoder's own rules
+  (``encoder_from_flax`` / ``encoder_to_flax``), so the encoder's name comes
+  with the call: a ``SLAMConfig`` or the name itself;
 * with ``save_optimizer`` the full state (trainable tensors, optimizer
   state, step) in ``full_state.pt`` beside ``model.pt``. The reference's
   Orbax full state stays JAX-only.
@@ -26,13 +30,13 @@ from __future__ import annotations
 import os
 import re
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
 
 from slam_llm_tpu_torch.utils import msgpack_codec
-from slam_llm_tpu_torch.utils.convert import flax_to_state_dict, trainable_to_flax
+from slam_llm_tpu_torch.utils.convert import encoder_from_flax, flax_to_state_dict, trainable_to_flax
 
 FULL_STATE = "full_state.pt"
 TRAINABLE_PT = "model.pt"
@@ -45,10 +49,17 @@ def save_trainable(path: str, tensors: Dict[str, torch.Tensor]) -> str:
     return path
 
 
-def save_trainable_msgpack(path: str, tensors: Dict[str, torch.Tensor]) -> str:
+def _encoder_name(encoder) -> Optional[str]:
+    """The encoder name of a ``SLAMConfig`` (or of a name, or None)."""
+    return encoder if encoder is None or isinstance(encoder, str) else encoder.encoder_name
+
+
+def save_trainable_msgpack(path: str, tensors: Dict[str, torch.Tensor], encoder: Union[str, object, None] = None
+                           ) -> str:
     """The trainable tensors as the JAX package's ``model.msgpack``: flat
-    ``/``-joined keys of the flax layout (``utils.convert.trainable_to_flax``),
-    f32 arrays, which its ``load_trainable_into`` accepts."""
+    ``/``-joined keys of the flax layout (``utils.convert.trainable_to_flax``,
+    ``encoder``'s tensors by its own rules), f32 arrays, which its
+    ``load_trainable_into`` accepts."""
     flat: Dict[str, object] = {}
 
     def walk(node, prefix):
@@ -58,7 +69,7 @@ def save_trainable_msgpack(path: str, tensors: Dict[str, torch.Tensor]) -> str:
             else:
                 flat["/".join(prefix + [key])] = val
 
-    walk(trainable_to_flax(tensors), [])
+    walk(trainable_to_flax(tensors, _encoder_name(encoder)), [])
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(msgpack_codec.serialize(flat))
@@ -79,10 +90,12 @@ def resolve_trainable(path: str) -> str:
     return path
 
 
-def load_trainable(path: str) -> Dict[str, torch.Tensor]:
+def load_trainable(path: str, encoder: Union[str, object, None] = None) -> Dict[str, torch.Tensor]:
     """``{state_dict name: CPU tensor}`` of a trainable checkpoint (see
     ``resolve_trainable``): the port's ``model.pt`` as written, or the JAX
-    package's ``model.msgpack`` mapped onto the port's names and layouts."""
+    package's ``model.msgpack`` mapped onto the port's names and layouts,
+    the ``encoder`` subtree by the rules of ``encoder`` (a ``SLAMConfig`` or
+    an encoder name)."""
     path = resolve_trainable(path)
     if path.endswith(".msgpack"):
         with open(path, "rb") as f:
@@ -94,7 +107,11 @@ def load_trainable(path: str) -> Dict[str, torch.Tensor]:
             for p in parents:
                 node = node.setdefault(p, {})
             node[leaf] = val.numpy() if val.dtype != torch.bfloat16 else val.float().numpy()
-        return flax_to_state_dict(tree)
+        out = flax_to_state_dict({k: v for k, v in tree.items() if k != "encoder"})
+        if "encoder" in tree:
+            enc = encoder_from_flax(tree["encoder"], _encoder_name(encoder))
+            out.update({f"encoder.{k}": v for k, v in enc.items()})
+        return out
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -102,8 +119,10 @@ def load_trainable(path: str) -> Dict[str, torch.Tensor]:
 def load_trainable_into(model: nn.Module, path: str) -> nn.Module:
     """Partial load of a trainable checkpoint into ``model`` in place (the
     module docstring's semantics). Everything is checked before anything is
-    copied, so a failed load leaves the model as it was."""
-    saved = load_trainable(path)
+    copied, so a failed load leaves the model as it was. A JAX
+    ``model.msgpack``'s encoder tensors are mapped by the rules of the
+    model's own encoder."""
+    saved = load_trainable(path, getattr(getattr(model, "cfg", None), "encoder_name", None))
     targets = dict(model.state_dict(keep_vars=True))
     unknown = sorted(set(saved) - set(targets))
     if unknown:

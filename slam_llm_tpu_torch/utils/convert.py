@@ -28,7 +28,10 @@ nested dicts of numpy arrays, onto this package's ``state_dict`` names:
 The result loads with ``model.load_state_dict(sd)``, which casts each tensor
 to the dtype the port stores it in: the trainable leaves (LoRA factors, the
 projector) into their f32 masters, bit-equal to the JAX values.
-``trainable_to_flax`` maps trainable tensors back into the flax layout.
+``trainable_to_flax`` maps trainable tensors back into the flax layout,
+an encoder's through ``encoder_to_flax``, the exact inverse of
+``encoder_from_flax``, so a trainable checkpoint of an unfrozen encoder
+reads and writes the JAX package's names.
 
 The CLAP family keeps flat parameter names in the JAX package (``l0_q_kernel``,
 ``s0b1_rpb``, ``bn0_mean``), and the port the reference's torch names:
@@ -40,8 +43,9 @@ The CLAP family keeps flat parameter names in the JAX package (``l0_q_kernel``,
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -106,7 +110,7 @@ def from_flax_params(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
     the port model's ``state_dict``."""
     out = flax_to_state_dict({k: v for k, v in params.items() if k != "encoder"})
     if "encoder" in params:
-        enc = encoder_from_flax(params["encoder"], cfg.encoder_name, cfg.encoder)
+        enc = encoder_from_flax(params["encoder"], cfg.encoder_name)
         out.update({f"encoder.{k}": v for k, v in enc.items()})
     n = sum(1 for key in out if key.startswith("llm.layers.") and key.endswith(".input_norm.scale"))
     if n != cfg.llm.n_layers:
@@ -114,12 +118,18 @@ def from_flax_params(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
     return out
 
 
-def encoder_from_flax(params: Mapping, encoder_name: str, enc_cfg) -> Dict[str, torch.Tensor]:
-    """One encoder's flax parameters -> the port encoder's ``state_dict``:
-    the generic mapping, BERT's flat names (``hf-text``), Spatial-AST's flat
-    conv leaves, MusicFM's BatchNorm leaves."""
+def encoder_from_flax(params: Mapping, encoder_name: Optional[str]) -> Dict[str, torch.Tensor]:
+    """One encoder's flax parameters, the whole tree or a trainable subset of
+    it -> the port encoder's ``state_dict`` names: the generic mapping,
+    BERT's flat names (``hf-text``), Spatial-AST's flat conv leaves,
+    MusicFM's BatchNorm leaves. A leaf no rule knows keeps the generic name,
+    so a partial load rejects it."""
     if encoder_name == "hf-text":
-        return bert_from_flax(params, enc_cfg.n_layers)
+        out = {}
+        for key, val in params.items():
+            name, transposed = _bert_leaf(key) or (key, False)
+            out[name] = _t(val, 1, 0) if transposed else _t(val)
+        return out
     out = flax_to_state_dict(params)
     if encoder_name == "spatial_ast":
         return {_SPATIAL_AST_NAMES.get(k, k): v.permute(3, 2, 0, 1).contiguous() if k in _SPATIAL_AST_KERNELS else v
@@ -129,6 +139,26 @@ def encoder_from_flax(params: Mapping, encoder_name: str, enc_cfg) -> Dict[str, 
     return out
 
 
+def encoder_to_flax(tensors: Mapping, encoder_name: Optional[str]) -> dict:
+    """Inverse of ``encoder_from_flax`` for any subset of an encoder's
+    tensors (``state_dict`` names without the ``encoder.`` prefix): nested
+    dicts of f32 numpy arrays in the JAX package's layout."""
+    if encoder_name == "hf-text":
+        out = {}
+        for name, t in tensors.items():
+            key, transposed = _bert_flax_name(name) or (name, False)
+            arr = t.detach().cpu().float().numpy()
+            out[key] = arr.T if transposed else arr
+        return out
+    if encoder_name == "spatial_ast":
+        inverse = {v: k for k, v in _SPATIAL_AST_NAMES.items()}
+        tensors = {inverse.get(n, n): t.permute(2, 3, 1, 0) if inverse.get(n) in _SPATIAL_AST_KERNELS else t
+                   for n, t in tensors.items()}
+    elif encoder_name == "musicfm":
+        tensors = {_batch_norm_flax_name(n): t for n, t in tensors.items()}
+    return _to_flax(tensors)
+
+
 # the JAX SpatialASTEncoder's flat leaves (HWIO conv kernels) -> the port's modules
 _SPATIAL_AST_NAMES = {"down_kernel": "down.weight", "down_bias": "down.bias", "patch_kernel": "patch_embed.weight",
                       "patch_bias": "patch_embed.bias"}
@@ -136,21 +166,45 @@ _SPATIAL_AST_KERNELS = ("down_kernel", "patch_kernel")
 _BN_LEAVES = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 
 
+def _is_batch_norm(path: List[str]) -> bool:
+    return bool(path) and (path[-1].startswith("bn") or path[-1] == "conv_bn")
+
+
 def _batch_norm_name(name: str) -> str:
     """A frozen BatchNorm's flax leaves (``scale`` / ``mean`` / ``var``, under
     a module named ``bn*`` or ``conv_bn``) -> torch's BatchNorm names."""
     *path, leaf = name.split(".")
-    if path and (path[-1].startswith("bn") or path[-1] == "conv_bn") and leaf in _BN_LEAVES:
+    if _is_batch_norm(path) and leaf in _BN_LEAVES:
         return ".".join(path + [_BN_LEAVES[leaf]])
     return name
 
 
-def trainable_to_flax(tensors: Mapping) -> dict:
+def _batch_norm_flax_name(name: str) -> str:
+    """Inverse of ``_batch_norm_name``."""
+    *path, leaf = name.split(".")
+    inverse = {v: k for k, v in _BN_LEAVES.items()}
+    if _is_batch_norm(path) and leaf in inverse:
+        return ".".join(path + [inverse[leaf]])
+    return name
+
+
+def trainable_to_flax(tensors: Mapping, encoder_name: Optional[str] = None) -> dict:
     """Inverse of ``from_flax_params`` for trainable tensors (LoRA factors,
-    projector kernels and biases): ``{name: tensor}`` in the port's
-    ``state_dict`` names -> nested dicts of f32 numpy arrays in the flax
-    layout, with the per-layer tensors restacked on the ``layers`` (or
-    ``blocks``) axis and the LLM's under ``decoder``."""
+    projector kernels and biases, an unfrozen encoder's tensors): ``{name:
+    tensor}`` in the port's ``state_dict`` names -> nested dicts of f32 numpy
+    arrays in the flax layout, with the per-layer tensors restacked on the
+    ``layers`` (or ``blocks``) axis and the LLM's under ``decoder``. The
+    ``encoder.`` tensors go through ``encoder_to_flax`` for
+    ``encoder_name``."""
+    enc = {n[len("encoder."):]: t for n, t in tensors.items() if n.startswith("encoder.")}
+    out = _to_flax({n: t for n, t in tensors.items() if not n.startswith("encoder.")})
+    if enc:
+        out["encoder"] = encoder_to_flax(enc, encoder_name)
+    return out
+
+
+def _to_flax(tensors: Mapping) -> dict:
+    """The generic inverse mapping (see the module docstring)."""
     out: dict = {}
     stacked: Dict[tuple, Dict[int, np.ndarray]] = {}
     for name, t in tensors.items():
@@ -188,19 +242,50 @@ def _t(arr, *axes) -> torch.Tensor:
     return torch.from_numpy(np.array(a.transpose(*axes) if axes else a))
 
 
+# BERT's flat JAX names: the embeddings, then l{i}_{module}_{kernel|bias|scale}
+_BERT_EMBED = {"word_embeddings": "embeddings.word_embeddings.weight",
+               "position_embeddings": "embeddings.position_embeddings.weight",
+               "token_type_embeddings": "embeddings.token_type_embeddings.weight",
+               "embed_norm_scale": "embeddings.LayerNorm.weight", "embed_norm_bias": "embeddings.LayerNorm.bias"}
+_BERT_DENSE = {"q": "attention.self.query", "k": "attention.self.key", "v": "attention.self.value",
+               "o": "attention.output.dense", "ffn_in": "intermediate.dense", "ffn_out": "output.dense"}
+_BERT_NORMS = {"attn_norm": "attention.output.LayerNorm", "ffn_norm": "output.LayerNorm"}
+
+
+def _bert_pairs(key: str) -> List[Tuple[str, str, bool]]:
+    """The (JAX leaf, ``models.bert.BertEncoder`` name, whether the (in,
+    out) kernel is transposed) triples of the layer that ``key`` names
+    (``l{i}_...`` or ``encoder.layer.{i}....``), else of the embeddings."""
+    m = re.match(r"l(\d+)_|encoder\.layer\.(\d+)\.", key)
+    if m is None:
+        return [(k, name, False) for k, name in _BERT_EMBED.items()]
+    i = m.group(1) or m.group(2)
+    out = []
+    for name, hf in _BERT_DENSE.items():
+        dst = f"encoder.layer.{i}.{hf}"
+        out += [(f"l{i}_{name}_kernel", f"{dst}.weight", True), (f"l{i}_{name}_bias", f"{dst}.bias", False)]
+    for name, hf in _BERT_NORMS.items():
+        dst = f"encoder.layer.{i}.{hf}"
+        out += [(f"l{i}_{name}_scale", f"{dst}.weight", False), (f"l{i}_{name}_bias", f"{dst}.bias", False)]
+    return out
+
+
+def _bert_leaf(key: str) -> Optional[Tuple[str, bool]]:
+    """A JAX ``BertEncoder`` leaf -> (port name, transposed); None if unknown."""
+    return next(((name, tr) for k, name, tr in _bert_pairs(key) if k == key), None)
+
+
+def _bert_flax_name(name: str) -> Optional[Tuple[str, bool]]:
+    """A port ``BertEncoder`` name -> (JAX leaf, transposed); None if unknown."""
+    return next(((k, tr) for k, n, tr in _bert_pairs(name) if n == name), None)
+
+
 def bert_from_flax(p: Mapping, n_layers: int) -> Dict[str, torch.Tensor]:
     """The JAX ``BertEncoder`` params -> ``models.bert.BertEncoder`` names."""
-    out = {f"embeddings.{name}.weight": _t(p[name])
-           for name in ("word_embeddings", "position_embeddings", "token_type_embeddings")}
-    out["embeddings.LayerNorm.weight"], out["embeddings.LayerNorm.bias"] = _t(p["embed_norm_scale"]), _t(p["embed_norm_bias"])
-    for i in range(n_layers):
-        dst = f"encoder.layer.{i}."
-        for name, hf in (("q", "attention.self.query"), ("k", "attention.self.key"), ("v", "attention.self.value"),
-                         ("o", "attention.output.dense"), ("ffn_in", "intermediate.dense"), ("ffn_out", "output.dense")):
-            out[f"{dst}{hf}.weight"] = _t(p[f"l{i}_{name}_kernel"], 1, 0)
-            out[f"{dst}{hf}.bias"] = _t(p[f"l{i}_{name}_bias"])
-        for name, hf in (("attn_norm", "attention.output.LayerNorm"), ("ffn_norm", "output.LayerNorm")):
-            out[f"{dst}{hf}.weight"], out[f"{dst}{hf}.bias"] = _t(p[f"l{i}_{name}_scale"]), _t(p[f"l{i}_{name}_bias"])
+    out = encoder_from_flax(p, "hf-text")
+    n = sum(1 for key in out if key.startswith("encoder.layer.") and key.endswith(".attention.self.query.weight"))
+    if n != n_layers:
+        raise ValueError(f"BERT parameter tree has {n} layers, config {n_layers}")
     return out
 
 

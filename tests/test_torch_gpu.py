@@ -213,7 +213,8 @@ def test_flash_kernel_cross_attention_and_routing(gen):
 
 def test_flash_kernel_refuses_what_it_cannot_take(gen):
     """head_dim outside {64, 128} in either route; mixed or half dtypes;
-    fused RoPE on the f32 route; K4 on f32 (no f32 backward yet)."""
+    fused RoPE on the f32 routes, forward and backward; K4's f32 route on
+    Tq != Tk."""
     q = torch.randn(1, 64, 2, 32, generator=gen, device="cuda").bfloat16()
     mask = torch.ones(1, 64, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
@@ -229,11 +230,15 @@ def test_flash_kernel_refuses_what_it_cannot_take(gen):
     with pytest.raises(NotImplementedError, match="fused RoPE"):
         tflash.flash_attention_fwd(q64, q64, q64, mask, rope=rope)
     out, lse = tflash.flash_attention_fwd(q64, q64, q64, mask)
-    with pytest.raises(NotImplementedError, match="K4 has no f32 route"):
-        tflash.flash_attention_bwd(q64, q64, q64, mask, out, lse, out)
+    with pytest.raises(NotImplementedError, match="fused RoPE"):
+        tflash.flash_attention_bwd(q64, q64, q64, mask, out, lse, out, rope=rope)
     x = q64.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="K4 has no f32 route"):
-        tflash.flash_attention(x, x, x, mask).sum().backward()
+    with pytest.raises(NotImplementedError, match="fused RoPE"):
+        tflash.flash_attention(x, x, x, mask, rope=rope).sum().backward()
+    k_long = torch.randn(1, 80, 2, 64, generator=gen, device="cuda")
+    mask_long = torch.ones(1, 80, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="self-attention"):
+        tflash.flash_attention_bwd_f32(q64, k_long, k_long, mask_long, out, lse, out)
 
 
 def _f32_mask(b, t, pad):
@@ -285,6 +290,73 @@ def test_flash_f32_kernel_strided_views(gen):
     ref, ref_lse = tflash.flash_attention_ref(q, k, v, mask)
     assert (out - ref).abs().max().item() <= 2e-5
     assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+def _bwd_f32_close(got, want):
+    """Each of dq, dk, dv within 2e-5 of the twin's largest entry."""
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert (g - w).abs().max().item() <= 2e-5 * w.abs().max().item()
+
+
+@pytest.mark.parametrize("b,t,h,hkv,d,causal,pad", [
+    (16, 515, 12, 12, 64, False, "none"),  # Spatial-AST-base's training batch: 3 CLS + 512 patches
+    (8, 515, 12, 12, 64, False, "ragged"),
+    (4, 515, 12, 12, 64, True, "ragged"),
+    (2, 256, 8, 2, 128, True, "ragged"),  # GQA, head_dim 128
+    (2, 200, 12, 4, 128, False, "none"),
+    (8, 70, 4, 1, 64, False, "ragged"),  # MQA, a row with one key, a row with none
+    (2, 2, 4, 4, 64, True, "none"),  # query 0 sees key 0 alone: its dS is round-off
+    (9, 64, 6, 3, 64, True, "ragged"),  # one tile exactly
+])
+def test_flash_bwd_f32_kernel_matches_twin(gen, b, t, h, hkv, d, causal, pad):
+    """K4's f32 route against the f32 twin on K1 f32's out / lse: dq, dk, dv
+    each within 2e-5 of the twin's largest entry, dq exactly 0 on rows with
+    no visible key, the same bits on a second run (no atomics), one launch
+    on the f32 route's count and none on the bf16 kernel's."""
+    q, k, v = (torch.randn(b, t, n, d, generator=gen, device="cuda") for n in (h, hkv, hkv))
+    dout = torch.randn(b, t, h, d, generator=gen, device="cuda")
+    mask = _f32_mask(b, t, pad)
+    out, lse = tflash.flash_attention_fwd(q, k, v, mask, causal)
+    before = tflash.flash_attention_bwd_f32.launches, tflash.flash_attention_bwd.launches
+    got = tflash.flash_attention_bwd(q, k, v, mask, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    assert (tflash.flash_attention_bwd_f32.launches, tflash.flash_attention_bwd.launches) == (before[0] + 1,
+                                                                                              before[1])
+    _bwd_f32_close(got, tflash.flash_attention_bwd_ref(q, k, v, mask, out, lse, dout, causal))
+    live = mask.cumsum(1) > 0 if causal else (mask.sum(1, keepdim=True) > 0).expand(b, t)
+    assert bool((got[0][~live] == 0).all())
+    again = tflash.flash_attention_bwd(q, k, v, mask, out, lse, dout, causal)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_flash_bwd_f32_kernel_strided_views(gen):
+    """q / k / v as views of one fused (B, T, 3, H, D) projection and dout
+    as a (B, H, T, D) tensor's transpose: the kernel takes their strides."""
+    qkv = torch.randn(2, 130, 3, 8, 64, generator=gen, device="cuda")
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    dout = torch.randn(2, 8, 130, 64, generator=gen, device="cuda").transpose(1, 2)
+    mask = _f32_mask(2, 130, "ragged")
+    out, lse = tflash.flash_attention_fwd(q, k, v, mask)
+    got = tflash.flash_attention_bwd_f32(q, k, v, mask, out, lse, dout)
+    _bwd_f32_close(got, tflash.flash_attention_bwd_ref(q, k, v, mask, out, lse, dout))
+
+
+def test_flash_f32_autograd_runs_both_f32_routes(gen):
+    """``flash_attention`` on f32 leaves: K1 f32 forward, K4 f32 backward,
+    each once, no bf16 launch; the gradients within 2e-5 of the twins'."""
+    q, k, v = (torch.randn(2, 515, n, 64, generator=gen, device="cuda").requires_grad_() for n in (12, 12, 12))
+    w = torch.randn(2, 515, 12, 64, generator=gen, device="cuda")
+    mask = _f32_mask(2, 515, "none")
+    counts = (tflash.flash_attention_fwd_f32, tflash.flash_attention_bwd_f32, tflash.flash_attention_fwd,
+              tflash.flash_attention_bwd)
+    before = [c.launches for c in counts]
+    (tflash.flash_attention(q, k, v, mask) * w).sum().backward()
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counts, before)] == [1, 1, 0, 0]
+    out, lse = tflash.flash_attention_ref(q.detach(), k.detach(), v.detach(), mask)
+    _bwd_f32_close((q.grad, k.grad, v.grad),
+                   tflash.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), mask, out, lse, w))
 
 
 @pytest.mark.parametrize("b,t,h,pad", [

@@ -20,7 +20,16 @@ against the JAX package, on the CPU (tiny widths, numpy-seeded inputs).
   through the ``Generator``, and its RTF seconds follow the JAX formula;
 * the registry resolves the three datasets to the port's modules, and
   ``pipeline.finetune`` trains from one E-chat ``data_path`` with its 10 %
-  validation split.
+  validation split;
+* SELD with the encoder unfrozen (``freeze_encoder: false``): the loss and
+  every trainable gradient, Spatial-AST's included, against
+  ``jax.value_and_grad``; two trainer steps against the JAX ``Trainer``
+  (the global-norm clip over the encoder's gradients); a JAX
+  ``model.msgpack`` with trained encoder tensors read by the port and the
+  port's read by the JAX package; ``encoder_to_flax`` inverting
+  ``encoder_from_flax`` for Spatial-AST, MusicFM and BERT; and
+  ``pipeline.finetune`` with ``++train_config.freeze_encoder=false`` then
+  ``pipeline.inference_batch`` with ``ckpt_path`` at a narrow Spatial-AST.
 """
 
 import dataclasses
@@ -67,7 +76,7 @@ from slam_llm_tpu_torch.ops import audio as taudio
 from slam_llm_tpu_torch.tools import synth_checkpoint as synth
 from slam_llm_tpu_torch.train.optimizer import partition_params
 from slam_llm_tpu_torch.utils import hf_loader
-from slam_llm_tpu_torch.utils.convert import encoder_from_flax, from_flax_params, trainable_to_flax
+from slam_llm_tpu_torch.utils.convert import encoder_from_flax, encoder_to_flax, from_flax_params, trainable_to_flax
 
 EOS, PAD = 2, 0
 
@@ -270,7 +279,7 @@ def test_musicfm_encoder_matches_jax():
     params = _seeded(jm.init(jax.random.PRNGKey(0), jnp.asarray(mel), jnp.asarray(mask))["params"], seed=3)
     want, want_mask = (np.asarray(a) for a in jm.apply({"params": params}, jnp.asarray(mel), jnp.asarray(mask)))
     tm = tmusicfm.MusicFMEncoder(_conv(tmusicfm.MusicFMConfig, jcfg))
-    tm.load_state_dict(encoder_from_flax(params, "musicfm", tm.cfg))
+    tm.load_state_dict(encoder_from_flax(params, "musicfm"))
     with torch.no_grad():
         got, got_mask = tm(torch.from_numpy(mel), torch.from_numpy(mask))
     np.testing.assert_array_equal(got_mask.numpy(), want_mask)
@@ -289,7 +298,7 @@ def test_spatial_ast_encoder_matches_jax(frames):
     params = _seeded(jm.init(jax.random.PRNGKey(0), jnp.asarray(feats))["params"], seed=5)
     want, want_mask = (np.asarray(a) for a in jm.apply({"params": params}, jnp.asarray(feats)))
     tm = tspatial_ast.SpatialASTEncoder(_conv(tspatial_ast.SpatialASTConfig, jcfg))
-    tm.load_state_dict(encoder_from_flax(params, "spatial_ast", tm.cfg))
+    tm.load_state_dict(encoder_from_flax(params, "spatial_ast"))
     with torch.no_grad():
         got, got_mask = tm(torch.from_numpy(feats))
     assert got.shape == want.shape == (2, 11, 32) and got.dtype == torch.float32
@@ -307,7 +316,7 @@ def test_convert_spatialast_matches_jax_converter(tmp_path):
     synth.write_spatial_ast(str(path), cfg, seed=7)
     sd = hf_loader.load_torch_checkpoint(str(path))
     got = tspatial_ast.convert_spatialast_torch(sd, cfg)
-    want = encoder_from_flax(j_convert(sd, jspatial_ast.SpatialASTConfig.tiny_test()), "spatial_ast", cfg)
+    want = encoder_from_flax(j_convert(sd, jspatial_ast.SpatialASTConfig.tiny_test()), "spatial_ast")
     assert got.keys() == want.keys() == tspatial_ast.SpatialASTEncoder(cfg).state_dict().keys()
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=1e-6, atol=1e-7, err_msg=k)
@@ -463,3 +472,238 @@ def test_finetune_trains_from_one_echat_file(tmp_path):
     res = finetune.main(cfg, device="cpu")
     assert len(res["steps"]) == 2 and all(np.isfinite(s["loss"]) for s in res["steps"])
     assert res["final_val"] is not None and np.isfinite(res["final_val"]["loss"])
+
+
+# ---------------------------------------------------------------------------
+# SELD with the encoder unfrozen
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def unfrozen_seld():
+    """The tiny SELD recipe with ``freeze_encoder: false`` in both packages:
+    (JAX config, its params, the port model loaded from them)."""
+    jcfg, tcfg = _recipe("seld")
+    jcfg = dataclasses.replace(jcfg, freeze_encoder=False)
+    tcfg = dataclasses.replace(tcfg, freeze_encoder=False)
+    batch = {k: jnp.asarray(v) for k, v in _batch("seld").items()}
+    params = _seeded(JSLAMModel(jcfg).init(jax.random.PRNGKey(0), batch, method="init_all")["params"], seed=5)
+    tm = tslam.SLAMModel(tcfg).eval()
+    tm.load_state_dict(from_flax_params(params, tcfg))
+    return jcfg, params, tm
+
+
+def test_unfrozen_seld_loss_and_every_grad_match_jax(unfrozen_seld):
+    """Loss within 1e-5 relative and every trainable gradient (Spatial-AST's
+    convolutions, BatchNorm statistics, sin-cos table, CLS tokens and ViT
+    blocks; the Q-Former) within 1e-4 of its own largest entry, compared in
+    the flax layout through ``trainable_to_flax``, so the encoder's inverse
+    mapping is held too. ``partition_params`` overrides the encoder's
+    ``requires_grad=False``: every encoder tensor trains, as every leaf of
+    the JAX encoder is in its trainable tree; the key biases' gradients (0
+    in exact arithmetic) are round-off on both sides."""
+    jcfg, params, tm = unfrozen_seld
+    trainable, frozen = j_partition(params, jcfg)
+    jbatch = {k: jnp.asarray(v) for k, v in _batch("seld").items()}
+
+    def loss_fn(tr):
+        return JSLAMModel(jcfg).apply({"params": j_merge(tr, frozen)}, jbatch)["loss"]
+
+    jl, jg = jax.value_and_grad(loss_fn)(trainable)
+    assert not any(p.requires_grad for p in tm.encoder.parameters())  # built frozen, as the module keeps it
+    tr, _ = partition_params(tm, tm.cfg)
+    encoder_names = {n for n in tr if n.startswith("encoder.")}
+    assert encoder_names == {f"encoder.{n}" for n, _ in tm.encoder.named_parameters()}
+    assert {"encoder.bn_mean", "encoder.down.weight", "encoder.pos_embed", "encoder.cls_tokens"} <= encoder_names
+    out = tm({k: torch.from_numpy(v) for k, v in _batch("seld").items()})
+    grads = torch.autograd.grad(out["loss"], list(tr.values()))
+    np.testing.assert_allclose(float(out["loss"].detach()), float(jl), rtol=1e-5)
+    got, want = _flat(trainable_to_flax(dict(zip(tr.keys(), grads)), "spatial_ast")), _flat(jg)
+    assert set(got) == set(want) and {"encoder/down_kernel", "encoder/bn_var", "encoder/blocks/fc1/kernel"} <= set(got)
+    top = max(np.abs(w).max() for w in want.values())
+    for key, g in got.items():
+        assert g.shape == want[key].shape, key
+        if key.endswith("k_proj/bias"):
+            assert max(np.abs(g).max(), np.abs(want[key]).max()) <= 1e-6 * top, key
+            continue
+        assert np.abs(g - want[key]).max() <= 1e-4 * np.abs(want[key]).max(), key
+
+
+def test_unfrozen_seld_trainer_steps_match_jax(unfrozen_seld):
+    """Two steps of the port's Trainer against the JAX ``Trainer.train_step``
+    (f32, the LLM stored in bf16, lr 1e-3, warmup 1): the encoder's tensors
+    are f32 masters, the global gradient norm (above the clip's 1.0, so the
+    clip scales every gradient, the encoder's included) within 1e-5
+    relative, and every trainable tensor after each step within 1e-5 of its
+    norm, but the key biases: their gradients are round-off on both sides
+    (0 in exact arithmetic), below AdamW's eps, so the update normalises
+    round-off."""
+    from slam_llm_tpu.config import TrainConfig
+    from slam_llm_tpu.parallel import make_mesh
+    from slam_llm_tpu.train.state import build_trainer
+    from slam_llm_tpu_torch.train.state import Trainer
+
+    jcfg, params, tm = unfrozen_seld
+    tc = TrainConfig()
+    tc.lr, tc.warmup_steps, tc.total_steps, tc.seed = 1e-3, 1, 10, 0
+    mesh = make_mesh(dp=1, fsdp=1, tp=1, devices=jax.devices()[:1])
+    jt = build_trainer(JSLAMModel(jcfg), jcfg, tc, mesh)
+    state = jt.state_from_params(jax.tree_util.tree_map(jnp.asarray, params))
+    with mesh:
+        db = jt.put_batch(_batch("seld"))
+    port = tslam.SLAMModel(tm.cfg)
+    port.load_state_dict(tm.state_dict())
+    trainer = Trainer(port, port.cfg, tc).state_from_params()
+    assert all(p.dtype == torch.float32 for n, p in trainer.trainable.items() if n.startswith("encoder."))
+    assert port.llm.embed_tokens.weight.dtype == torch.bfloat16
+    tbatch = {k: torch.from_numpy(v) for k, v in _batch("seld").items()}
+    for i in range(2):
+        with mesh:
+            state, m = jt.train_step(state, db, jax.random.PRNGKey(i))
+        met = trainer.train_step(tbatch)
+        assert float(met["grad_norm"]) > 1.0
+        np.testing.assert_allclose(float(met["loss"]), float(m["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(float(met["grad_norm"]), float(m["grad_norm"]), rtol=1e-5)
+        want = _flat(state["trainable"])
+        got = _flat(trainable_to_flax(trainer.trainable, "spatial_ast"))
+        assert set(got) == set(want)
+        for key, g in got.items():
+            if not key.endswith("k_proj/bias"):
+                assert np.linalg.norm(g - want[key]) <= 1e-5 * np.linalg.norm(want[key]), (i, key)
+    moved = _flat(trainable_to_flax(trainer.trainable, "spatial_ast"))
+    start = _flat(j_partition(params, jcfg)[0])
+    assert all(not np.array_equal(moved[k], start[k]) for k in moved if k.startswith("encoder/"))
+
+
+def test_unfrozen_seld_msgpack_round_trips_with_jax(unfrozen_seld, tmp_path):
+    """A JAX ``model.msgpack`` of an unfrozen run (Spatial-AST's flat HWIO
+    conv leaves, BatchNorm statistics, table, CLS tokens and stacked blocks,
+    the Q-Former) loads into a port model built from other weights and
+    gives the JAX weights' tensors exactly; the port's ``model.msgpack``
+    of those tensors loads into the JAX package over other weights and
+    gives the same leaves exactly."""
+    from slam_llm_tpu.utils.checkpoint import load_trainable_into as j_load_into
+    from slam_llm_tpu.utils.checkpoint import save_trainable as j_save
+    from slam_llm_tpu_torch.utils.checkpoint import load_trainable_into, save_trainable_msgpack
+
+    jcfg, params, tm = unfrozen_seld
+    trained = j_partition(params, jcfg)[0]
+    other = _seeded(params, seed=11)  # the same tree, every leaf drawn anew
+    j_save(str(tmp_path / "jax" / "model.msgpack"), trained)
+    port = tslam.SLAMModel(tm.cfg)
+    port.load_state_dict(from_flax_params(other, tm.cfg))
+    load_trainable_into(port, str(tmp_path / "jax"))
+    want = tm.state_dict()
+    tr, _ = partition_params(port, port.cfg)
+    assert any(n.startswith("encoder.") for n in tr)
+    for name, t in port.state_dict().items():
+        if name in tr:
+            assert torch.equal(t, want[name]), name
+    save_trainable_msgpack(str(tmp_path / "port" / "model.msgpack"), tr, port.cfg)
+    loaded = _flat(j_load_into(jax.tree_util.tree_map(jnp.asarray, other), str(tmp_path / "port" / "model.msgpack")))
+    expect = _flat(params)
+    for key, val in _flat(trained).items():
+        np.testing.assert_array_equal(loaded[key], expect[key], err_msg=key)
+    assert not np.array_equal(loaded["encoder/down_kernel"], _flat(other)["encoder/down_kernel"])
+
+
+def _bert_tree():
+    from slam_llm_tpu.models import bert as jbert
+
+    cfg = jbert.BertConfig.tiny_test()
+    ids = jnp.zeros((1, 5), jnp.int32)
+    return _seeded(jbert.BertEncoder(cfg).init(jax.random.PRNGKey(0), ids, jnp.ones((1, 5), jnp.int32))["params"],
+                   seed=2)
+
+
+def _encoder_tree(name):
+    """A seeded JAX parameter tree of a tiny Spatial-AST, MusicFM or BERT."""
+    if name == "hf-text":
+        return _bert_tree()
+    if name == "spatial_ast":
+        feats = jnp.zeros((1, 4, 64, 32), jnp.float32)
+        jm = jspatial_ast.SpatialASTEncoder(jspatial_ast.SpatialASTConfig.tiny_test())
+        return _seeded(jm.init(jax.random.PRNGKey(0), feats)["params"], seed=3)
+    jcfg = dataclasses.replace(jmusicfm.MusicFMConfig.tiny_test(), dtype=jnp.float32)
+    mel, mask = jnp.zeros((1, 90, 16), jnp.float32), jnp.ones((1, 90), jnp.int32)
+    return _seeded(jmusicfm.MusicFMEncoder(jcfg).init(jax.random.PRNGKey(0), mel, mask)["params"], seed=3)
+
+
+@pytest.mark.parametrize("name", ["spatial_ast", "musicfm", "hf-text"])
+def test_encoder_to_flax_inverts_encoder_from_flax(name):
+    """The whole tree and a subset of it (as a trainable checkpoint holds)
+    through ``encoder_from_flax`` and back: the same leaves, bit for bit."""
+    tree = _encoder_tree(name)
+    sd = encoder_from_flax(tree, name)
+    back = _flat(encoder_to_flax(sd, name))
+    want = _flat(tree)
+    assert back.keys() == want.keys()
+    for key in want:
+        np.testing.assert_array_equal(back[key], want[key], err_msg=key)
+    partial: dict = {}
+    for key in sorted(want)[::3]:
+        *path, leaf = key.split("/")
+        node = partial
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = want[key]
+    part_sd = encoder_from_flax(partial, name)
+    assert set(part_sd) < set(sd)
+    part = _flat(encoder_to_flax(part_sd, name))
+    assert part.keys() == set(sorted(want)[::3]) and all(np.array_equal(part[k], want[k]) for k in part)
+
+
+def test_finetune_unfrozen_seld_then_decode_from_ckpt_path(tmp_path, monkeypatch):
+    """The recipe's entry points on the CPU with ``freeze_encoder=false``:
+    ``pipeline.finetune`` (2 steps of 2, a narrow Spatial-AST that keeps the
+    1024-frame, 128-mel grid) moves every encoder tensor, and ``model.pt``
+    carries them; ``pipeline.inference_batch`` with ``ckpt_path`` decodes
+    the text of the in-memory trained model."""
+    from slam_llm_tpu_torch.config import load_run_config
+    from slam_llm_tpu_torch.inference.generate import strip_after_eos
+    from slam_llm_tpu_torch.pipeline import finetune, inference_batch
+    from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
+    from slam_llm_tpu_torch.registry import get_custom_dataset_factory
+    from slam_llm_tpu_torch.utils.checkpoint import load_trainable
+
+    monkeypatch.setitem(tspatial_ast.SPATIAL_AST_PRESETS, "spatialast-narrow-test",
+                        lambda: tspatial_ast.SpatialASTConfig(d_model=32, n_heads=2, n_layers=2))
+    over = synth.write_seld_corpus(str(tmp_path / "seld"), n=4, n_eval=2, n_reverbs=2)
+    common = ["--config", "examples/seld_spatialsoundqa/conf/seld_spatialast_llama.yaml",
+              "++model_config.llm_name=tiny-test", "++model_config.encoder_config=spatialast-narrow-test",
+              "++model_config.encoder_dim=32", "++model_config.qformer_layers=1", "++model_config.qformer_dim=32",
+              "++model_config.qformer_heads=2", "++train_config.freeze_encoder=false",
+              *(f"++dataset_config.{k}={v}" for k, v in over.items())]
+    cfg = load_run_config(common + [
+        "++train_config.batch_size_training=2", "++train_config.max_steps_per_epoch=2",
+        "++train_config.num_epochs=1", "++train_config.warmup_steps=1", "++train_config.lr=1e-3",
+        "++train_config.run_validation=false", "++train_config.frozen_dtype=float32", "++train_config.log_interval=1",
+        f"++train_config.output_dir={tmp_path / 'out'}"])
+    res = finetune.main(cfg, device="cpu")
+    trainer = res["trainer"]
+    assert len(res["steps"]) == 2 and trainer.model.cfg.freeze_encoder is False
+    fresh, _, _ = build_model_and_data(cfg, split="train", device="cpu")
+    materialize_params(fresh, cfg)
+    init = dict(fresh.named_parameters())
+    encoder = [n for n in trainer.trainable if n.startswith("encoder.")]
+    assert len(encoder) == len(list(fresh.encoder.parameters()))
+    assert all(not torch.equal(trainer.trainable[n], init[n]) for n in encoder)
+    saved = load_trainable(res["checkpoints"][-1])
+    assert set(saved) == set(trainer.trainable)
+    assert all(torch.equal(saved[n], p.detach()) for n, p in trainer.trainable.items())
+
+    dec = load_run_config(common + [
+        f"++ckpt_path={res['checkpoints'][-1]}", f"++decode_config.decode_log={tmp_path / 'decode'}",
+        "++decode_config.max_new_tokens=4", "++decode_config.num_beams=2", "++train_config.val_batch_size=2"])
+    out = inference_batch.main(dec, device="cpu")
+    tokenizer = ByteTokenizer()
+    dataset = get_custom_dataset_factory(dec.dataset_config)(dec.dataset_config, tokenizer,
+                                                             dec.dataset_config.test_split)
+    gen = Generator(trainer.model.eval(), inference_batch.generation_config(dec, tokenizer))
+    mine = []
+    for batch in inference_batch.decode_loader(dec, dataset):
+        toks = strip_after_eos(gen.generate({k: v for k, v in batch.items() if isinstance(v, np.ndarray)}),
+                               tokenizer.eos_token_id, tokenizer.pad_token_id)
+        mine += [f"{key}\t{tokenizer.decode(t)}\n" for key, t in zip(batch["keys"], toks)]
+    with open(out["pred"], encoding="utf-8", newline="") as f:
+        assert out["n"] == 2 and f.read() == "".join(mine)

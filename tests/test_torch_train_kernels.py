@@ -40,29 +40,33 @@ def _cos(a, b):
 
 
 @pytest.mark.parametrize(
-    "h,hkv,causal,rope",
+    "h,hkv,causal,rope,t,padded",
     [
-        (4, 2, True, True),  # GQA, causal, fused RoPE: the training path
-        (4, 2, True, False),
-        (2, 1, True, True),  # MQA
-        (4, 4, False, False),  # whisper-like, not causal
-        (4, 4, False, True),
+        pytest.param(4, 2, True, True, 128, True, id="4-2-True-True"),  # GQA, causal, fused RoPE: the training path
+        pytest.param(4, 2, True, False, 128, True, id="4-2-True-False"),
+        pytest.param(2, 1, True, True, 128, True, id="2-1-True-True"),  # MQA
+        pytest.param(4, 4, False, False, 128, True, id="4-4-False-False"),  # whisper-like, not causal
+        pytest.param(4, 4, False, True, 128, True, id="4-4-False-True"),
+        # Spatial-AST-like, K4's f32 route: T not a multiple of 64, not causal, every key valid
+        pytest.param(2, 2, False, False, 131, False, id="spatial_ast-f32"),
     ],
 )
-def test_flash_backward_matches_pallas_grad(h, hkv, causal, rope):
+def test_flash_backward_matches_pallas_grad(h, hkv, causal, rope, t, padded):
     """dq, dk, dv of the twin (``flash_attention_bwd_ref``) and of the
     autograd ``flash_attention`` against ``jax.grad`` of the Pallas kernel
     (interpret mode), f32, left + right padding (causal left padding leaves
-    dead query rows): atol = rtol = 1e-3. Dead rows get dq exactly 0."""
-    rng = np.random.default_rng(h * 10 + hkv + 2 * causal + rope)
-    b, t, d = 2, 128, 64
+    dead query rows) or none: atol = rtol = 1e-3. Dead rows get dq exactly
+    0."""
+    rng = np.random.default_rng(h * 10 + hkv + 2 * causal + rope + (t != 128))
+    b, d = 2, 64
     q = rng.standard_normal((b, t, h, d)).astype(np.float32)
     k = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
     v = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
     w = rng.standard_normal((b, t, h, d)).astype(np.float32)  # dout
     mask = np.ones((b, t), np.int32)
-    mask[0, :17] = 0  # left padding
-    mask[1, t - 11:] = 0  # right padding
+    if padded:
+        mask[0, :17] = 0  # left padding
+        mask[1, t - 11:] = 0  # right padding
     pos = np.maximum(mask.cumsum(1) - 1, 0)
     cos, sin = (np.asarray(a) for a in j_rope_tables(jnp.asarray(pos), d))
     rkw = {"rope_cos": jnp.asarray(cos), "rope_sin": jnp.asarray(sin)} if rope else {}
