@@ -252,6 +252,7 @@ def host_ms(fn, calls: int = 50) -> float:
 # the H100 SXM's published dense peaks (the card's power limit is logged in phase 1)
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12  # f32 FMA on the CUDA cores
+TF32X3_FLOPS = 495e12 / 3  # f32-accurate products as 3-pass split TF32 on the tensor cores (the f32 routes)
 INT8_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 
@@ -310,7 +311,7 @@ def attended_pairs(mask, causal: bool) -> int:
 def _padding_mask(b, t, pad, dev="cuda"):
     mask = torch.ones(b, t, dtype=torch.int32, device=dev)
     for i in range(b):
-        n_pad = (i * 37) % (t // 3)
+        n_pad = (i * 37) % max(1, t // 3)
         if pad in ("right", "both"):
             mask[i, t - n_pad // (2 if pad == "both" else 1):] = 0
         if pad in ("left", "both"):
@@ -464,12 +465,23 @@ def check_flash(gen) -> dict:
                 near_library=NEAR, cases=rows)
 
 
+# the edges of the f32 routes' tiles: 128 / 64 query rows and 64 / 32 keys
+# (K1 f32, dq), 64 keys and 32 / 16 queries (dk / dv) at D = 64 / 128, and
+# a single position: (B, T, H, Hkv, D, causal, padding)
+F32_EDGES = [
+    (2, 127, 4, 4, 64, True, "right"), (2, 128, 4, 2, 64, False, "right"), (2, 129, 4, 4, 64, True, "none"),
+    (3, 1, 4, 4, 64, False, "none"), (2, 129, 4, 4, 128, False, "right"), (3, 97, 6, 3, 128, True, "left"),
+]
+
+
 def check_flash_f32(gen) -> dict:
     """K1's f32 route (csrc/flash_attention_f32.cu) against the f32 twin on
     the same f32 unit-normal inputs on the card (TF32 off): out within 2e-5
     abs, live-row lse within 1e-4, rows with no visible key exactly 0; the
     twin under single-pass TF32 beside it, for the margin the route exists
-    for. Bound: the operations at the 67 TFLOP/s of f32 FMA."""
+    for; then the edges of its tiles (``F32_EDGES``), held alone. Bound: the
+    operations at the 165 TFLOP/s of 3xTF32, with the 67 TFLOP/s of f32 FMA
+    (the route's bound before it ran on the tensor cores) beside it."""
     from slam_llm_tpu_torch.ops.kernels.flash_attention import flash_attention_fwd, flash_attention_ref
 
     dev = "cuda"
@@ -501,8 +513,9 @@ def check_flash_f32(gen) -> dict:
         dead_ok = bool((dead == 0).all().item()) if dead.numel() else True
         ms = time_ms(lambda: flash_attention_fwd(q, k, v, mask, causal))
         plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, mask, causal), reps=3)
-        bound_ms, bound_by = bound(4 * h * d * attended_pairs(mask, causal), nbytes(q, k, v, mask, out, lse),
-                                   FP32_FLOPS)
+        ops, moved = 4 * h * d * attended_pairs(mask, causal), nbytes(q, k, v, mask, out, lse)
+        bound_ms, bound_by = bound(ops, moved, TF32X3_FLOPS)
+        fma_ms = bound(ops, moved, FP32_FLOPS)[0]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = near_ms = None
         if pad in ("none", "right") and not causal:  # SDPA computes the same function, in f32
@@ -515,14 +528,27 @@ def check_flash_f32(gen) -> dict:
                 qt, kt, vt, attn_mask=near_mask, enable_gqa=h != hkv))
         log(f"[K1 f32] {name} {(b, t, h, hkv, d)} causal={causal}: max|out-ref| {err:.3e} (the twin under "
             f"single-pass TF32: {tf32_err:.3e}) max|lse-ref| {lse_err:.3e} dead rows {int((~live).sum())} all-zero "
-            f"{dead_ok} | kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}, f32 FMA) "
-            f"share {bound_ms / ms:.3f} SDPA f32 {_r(library_ms)} ms | SDPA f32, boolean mask (near): {_r(near_ms)} ms")
+            f"{dead_ok} | kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}, 3xTF32) "
+            f"share {bound_ms / ms:.3f}, f32 FMA bound {fma_ms:.4f} ms share {fma_ms / ms:.3f} SDPA f32 "
+            f"{_r(library_ms)} ms | SDPA f32, boolean mask (near): {_r(near_ms)} ms")
         if not (err <= 2e-5 and lse_err <= 1e-4 and dead_ok):
             raise AssertionError(f"K1 f32 {name}: out err {err} (tol 2e-5), lse err {lse_err} (tol 1e-4), dead rows "
                                  f"zero {dead_ok}")
         worst = max(worst, err)
         rows.append(dict(at=f"{name} {(b, t, h, hkv, d)}", ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=library_ms, near_library_ms=near_ms, tf32_err=tf32_err))
+                         bound_by=bound_by, library_ms=library_ms, near_library_ms=near_ms,
+                         tf32_err=tf32_err))
+    for b, t, h, hkv, d, causal, pad in F32_EDGES:
+        q, k, v = (torch.randn(b, t, n, d, generator=gen, device=dev) for n in (h, hkv, hkv))
+        mask = _padding_mask(b, t, pad)
+        out, lse = flash_attention_fwd(q, k, v, mask, causal)
+        ref, ref_lse = flash_attention_ref(q, k, v, mask, causal)
+        live = mask.cumsum(1) > 0 if causal else (mask.sum(1, keepdim=True) > 0).expand(b, t)
+        err, lse_err = (out - ref).abs().max().item(), (lse - ref_lse)[live].abs().max().item()
+        if not (err <= 2e-5 and lse_err <= 1e-4 and bool((out[~live] == 0).all())):
+            raise AssertionError(f"K1 f32 edge {(b, t, h, hkv, d, causal, pad)}: out err {err}, lse err {lse_err}")
+        worst = max(worst, err)
+    log(f"[K1 f32] {len(F32_EDGES)} tile edges {[c[1:5] for c in F32_EDGES]}: max|out-ref| within 2e-5")
     return dict(max_abs_err=worst, **{k: v for k, v in rows[0].items() if k not in ("near_library_ms", "tf32_err")},
                 near_library="SDPA f32, boolean mask", cases=rows)
 
@@ -610,11 +636,13 @@ def check_flash_bwd_f32(gen) -> dict:
     on the kernel's own inputs (K1 f32's out and lse; TF32 off): dq, dk, dv
     each within 2e-5 of the twin's largest entry, dq exactly 0 on rows with
     no visible key, the same bits on a second run; the twin under
-    single-pass TF32 beside it. Bound: five products at the 67 TFLOP/s of
-    f32 FMA. Library: SDPA's f32 backward (autograd of SDPA on the f32
+    single-pass TF32 beside it; then ``F32_EDGES``, held alone. Bound: five
+    products at the 165 TFLOP/s of 3xTF32, the 67 TFLOP/s of f32 FMA beside
+    it. Library: SDPA's f32 backward (autograd of SDPA on the f32
     tensors with the boolean mask); with causal left padding its dead rows
     differ, so it is the near yardstick there."""
     from slam_llm_tpu_torch.ops.kernels.flash_attention import (
+        bwd_f32_error,
         flash_attention_bwd,
         flash_attention_bwd_f32,
         flash_attention_bwd_ref,
@@ -629,9 +657,6 @@ def check_flash_bwd_f32(gen) -> dict:
         ("causal, left-padded", 4, SA_T, 12, 12, 64, True, "left"),
         ("GQA, head_dim 128, causal", 2, 256, 8, 2, 128, True, "right"),
     ]
-
-    def rel(got, want):
-        return max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want))
 
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad in cases:
@@ -648,7 +673,7 @@ def check_flash_bwd_f32(gen) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = True
         tf32 = flash_attention_bwd_ref(*args)
         torch.backends.cuda.matmul.allow_tf32 = False
-        err, tf32_err = rel(got, want), rel(tf32, want)
+        err, tf32_err = (bwd_f32_error(x, want, q, k, v, dout) for x in (got, tf32))
         abs_err = max((g - w).abs().max().item() for g, w in zip(got, want))
         dead = (mask.cumsum(1) == 0) if causal else (mask.sum(1, keepdim=True) == 0).expand(b, t)
         dead_ok = bool((got[0][dead] == 0).all().item()) if bool(dead.any()) else True
@@ -656,8 +681,9 @@ def check_flash_bwd_f32(gen) -> dict:
         deterministic = all(torch.equal(a, g) for a, g in zip(again, got))
         ms = time_ms(lambda: flash_attention_bwd_f32(*args))
         plain_ms = time_ms(lambda: flash_attention_bwd_ref(*args), reps=3)
-        bound_ms, bound_by = bound(10 * h * d * attended_pairs(mask, causal),
-                                   nbytes(q, k, v, mask, out, lse, dout, *got), FP32_FLOPS)
+        ops, moved = 10 * h * d * attended_pairs(mask, causal), nbytes(q, k, v, mask, out, lse, dout, *got)
+        bound_ms, bound_by = bound(ops, moved, TF32X3_FLOPS)
+        fma_ms = bound(ops, moved, FP32_FLOPS)[0]
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
         ref_out = torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=_bool_mask(mask, causal), enable_gqa=h != hkv)
@@ -668,15 +694,31 @@ def check_flash_bwd_f32(gen) -> dict:
         log(f"[K4 f32] {name} {(b, t, h, hkv, d)} causal={causal}: max|g-ref| / max|ref| over dq, dk, dv {err:.3e} "
             f"(the twin under single-pass TF32: {tf32_err:.3e}), max abs {abs_err:.3e}, dead rows {int(dead.sum())} "
             f"dq zero {dead_ok}, deterministic {deterministic} | kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-            f"{bound_ms:.4f} ms ({bound_by}, f32 FMA) share {bound_ms / ms:.3f} SDPA f32 backward {_r(library_ms)} "
-            f"ms | SDPA f32 backward, boolean mask (near): {_r(near_ms)} ms | {SMI}")
+            f"{bound_ms:.4f} ms ({bound_by}, 3xTF32) share {bound_ms / ms:.3f}, f32 FMA bound {fma_ms:.4f} ms share "
+            f"{fma_ms / ms:.3f} SDPA f32 backward {_r(library_ms)} ms | SDPA f32 backward, boolean mask (near): "
+            f"{_r(near_ms)} ms | {SMI}")
         if not (err <= 2e-5 and dead_ok and deterministic):
             raise AssertionError(f"K4 f32 {name}: error {err} of the twin's largest entry (tol 2e-5), dead dq zero "
                                  f"{dead_ok}, deterministic {deterministic}")
         worst = max(worst, abs_err)
         rows.append(dict(at=f"{name} {(b, t, h, hkv, d)}", ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=library_ms, near_library_ms=near_ms, rel_err=err,
-                         tf32_rel_err=tf32_err))
+                         bound_by=bound_by, library_ms=library_ms, near_library_ms=near_ms,
+                         rel_err=err, tf32_rel_err=tf32_err))
+    for b, t, h, hkv, d, causal, pad in F32_EDGES:
+        q, k, v = (torch.randn(b, t, n, d, generator=gen, device=dev) for n in (h, hkv, hkv))
+        dout = torch.randn(b, t, h, d, generator=gen, device=dev)
+        mask = _padding_mask(b, t, pad)
+        args = (q, k, v, mask, *flash_attention_fwd(q, k, v, mask, causal), dout, causal)
+        got, want = flash_attention_bwd(*args), flash_attention_bwd_ref(*args)
+        err = bwd_f32_error(got, want, q, k, v, dout)  # at T = 1 dq / dk against the cancellation's round-off
+        dead = (mask.cumsum(1) == 0) if causal else (mask.sum(1, keepdim=True) == 0).expand(b, t)
+        again = flash_attention_bwd(*args)
+        if not (err <= 2e-5 and bool((got[0][dead] == 0).all()) and all(map(torch.equal, again, got))):
+            raise AssertionError(f"K4 f32 edge {(b, t, h, hkv, d, causal, pad)}: error {err} (tol 2e-5), or dead dq "
+                                 f"not zero, or not deterministic")
+        worst = max(worst, max((g - w).abs().max().item() for g, w in zip(got, want)))
+    log(f"[K4 f32] {len(F32_EDGES)} tile edges {[c[1:5] for c in F32_EDGES]}: within 2e-5 of the twin's largest "
+        f"entry, dead dq zero, deterministic")
     return dict(max_abs_err=worst, **{k: v for k, v in rows[0].items() if k not in ("near_library_ms", "tf32_rel_err")},
                 near_library="SDPA f32 backward, boolean mask", cases=rows)
 

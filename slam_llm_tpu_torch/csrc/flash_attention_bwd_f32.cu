@@ -1,12 +1,12 @@
 // K4's f32 route: flash-attention backward over f32 q / k / v / out / dout,
-// exact f32 scores, probabilities, dS and products, on the CUDA cores.
+// f32-accurate products on the tensor cores (3-pass split TF32), f32
+// probabilities and dS.
 //
 // Replaces the f32 operands of the Pallas backward in
 // slam_llm_tpu/ops/kernels/flash_attention.py (_flash_bwd with f32 inputs:
 // Precision.HIGHEST products and the f32 exp / dS chain, _dot_precision and
 // the exp_dtype branches of _bwd_fused_wide_kernel / _bwd_dq_kernel /
-// _bwd_dkv_kernel). It computes what that backward computes, with nothing
-// rounded below f32:
+// _bwd_dkv_kernel). It computes what that backward computes:
 //
 //   P     = exp2(q k^T * scale * log2 e - lse)   (lse: K1 f32's log2 value)
 //   delta = rowsum(dout o out)                  (from the saved output)
@@ -22,69 +22,102 @@
 //
 // Bound on the H100: the operations. At Spatial-AST's (16, 515, 12/12, 64)
 // a call is five products of 2 B H T^2 D = 6.52 GFLOP, 32.6 GFLOP against
-// 202 MB of q / k / v / out / dout / dq / dk / dv: 0.49 ms at the 67 TFLOP/s
-// of f32 FMA, 0.06 ms at 3.35 TB/s. Single-pass TF32 on the tensor cores
-// keeps about three digits, which the f32 route exists to avoid, so the
-// products run as f32 FMA.
+// 202 MB of q / k / v / out / dout / dq / dk / dv: 0.198 ms at the
+// 165 TFLOP/s of 3xTF32, 0.49 ms at the 67 TFLOP/s of f32 FMA, 0.06 ms at
+// 3.35 TB/s. The products are K1 f32's: 3xTF32 wgmma on its tiles
+// (flash_f32.cuh), each long sum taken a tile at a time into fresh
+// registers and added in f32.
 //
-// The design, simple first, deterministic (no atomics; every sum has one
-// owner and a fixed order), two launches on the caller's stream:
+// Deterministic (no atomics; every sum has one owner and a fixed order),
+// two launches on the caller's stream, each a producer warpgroup that
+// loads, splits and stages the tiles through mbarriers ahead of the
+// consumer warpgroups, as in K1 f32:
 //
-// 1. dq: one block of 256 threads per (64-query tile, query head, batch
-//    row). It stages Q and dout transposed (Qt[d][row], rows padded to 68
-//    floats so a thread reads its 4 rows as one 16-byte load), takes delta of
-//    its rows from out and dout (one warp per 8 rows) and writes it to the
-//    delta scratch for pass 2, then walks the key tiles: K and V row-major
-//    with rows padded to D + 1 floats (16 lanes read 16 key rows without bank
-//    conflicts). Thread (ty, tx) owns query rows 4 ty .. 4 ty + 3 and key
-//    columns tx + 16 j of S and dP (one loop over d computes both), then
-//    writes dS transposed (dSt[key][row]) and accumulates dq's columns
-//    tx + 16 c of its rows from dS K.
-// 2. dk / dv: one block per (64-key tile, kv head, batch row), run after
-//    pass 1 (delta). It stages K and V transposed once, then walks the G
-//    query heads and their query tiles (causal: from the tile of its first
-//    key): Q and dout row-major padded to D + 1, lse and delta of the tile.
-//    Thread (ty, tx) owns keys 4 ty .. 4 ty + 3 and queries tx + 16 j of
-//    S^T and dP^T, writes P and dS as [query][key] rows and accumulates dv
-//    from P^T dout and dk from dS^T q, columns tx + 16 c of its keys.
-//
-// Shared memory: dq 84 KB at D = 64, 150 KB at D = 128; dk / dv 101 KB and
-// 167 KB.
+// 1. dq: one block per (ROWS query rows, query head, batch row). The
+//    producer streams 32-key tiles: K K-major and transposed (Kt[d][key],
+//    keys permuted within 8), V K-major, the next tile's rows loading while
+//    this one waits for its stage. Consumer warpgroups of 64 rows stage
+//    their own Q and dout (K-major), the rows' lse and delta (from out and
+//    dout; delta also goes to the (B, H, T) scratch for pass 2), then: S =
+//    Q K^T and dP = dout V^T by wgmma from shared memory, P and dS in
+//    registers, dS split into A fragments, the tile's dS K (B = Kt) into
+//    fresh registers added to dq. S and dP are computed here and again in
+//    pass 2: removing that needs a reduction of dq across key blocks.
+// 2. dk / dv: one block per (64 keys, kv head, batch row), after pass 1.
+//    The consumer warpgroups stage K and V once (K-major: they are the A
+//    operands); the producer walks the G query heads' query tiles (causal:
+//    from the tile of the block's first key): Q and dout K-major and
+//    transposed (Qt, dOt, queries permuted within 8), lse and delta, the
+//    next tile loading while this one waits for its stage. The consumer
+//    warpgroups take the tiles in turn, one stage each: S^T = K Q^T and
+//    dP^T = V dout^T land in the accumulator layout, so P^T and dS^T feed
+//    dv += P^T dout (B = dOt) and dk += dS^T q (B = Qt) as register A
+//    fragments, each into fresh registers added in f32. At the end
+//    warpgroup 1 hands its dk / dv to warpgroup 0 through shared memory,
+//    which adds them in a fixed order.
+// D = 64: two consumer warpgroups (dq: 128 rows, 2 stages of 32 keys; dk /
+// dv: 32-query tiles) and setmaxnreg's 152 / 176 registers as K1 f32's;
+// D = 128: one (64 rows, 1 stage; 16-query tiles). Tried on the card and
+// slower than this: 64-key dq tiles in one stage, and two tiles in flight
+// in the producers (both spill), and dk / dv accumulated in the tensor
+// core across tiles (barely faster, and without the guard on long sums).
+// Shared memory: dq 226 KB; dk / dv 194 KB (225 KB at D = 128).
 
-#include <cuda_runtime.h>
+#include "flash_f32.cuh"
 
 namespace {
 
-constexpr int kB = 64;         // query rows of a dq block, keys of a dk / dv block, and the tile of the walk
-constexpr int kThreads = 256;  // 16 row groups x 16 lanes
-constexpr int kRowPad = kB + 4;
-constexpr float kLog2e = 1.4426950408889634f;
+using slam::fence_async_shared;
+using slam::fence_regs;
+using slam::mbar_arrive;
+using slam::mbar_init;
+using slam::mbar_wait;
+using slam::smem_u32;
+using slam::wgmma_commit;
+using slam::wgmma_fence;
+using slam::wgmma_wait;
+namespace f32 = slam::f32;
 
 template <int D>
-struct DqLayout {
-  static constexpr int kKs = D + 1;
-  static constexpr int kQt = 0;
-  static constexpr int kDOt = kQt + D * kRowPad;
-  static constexpr int kK = kDOt + D * kRowPad;
-  static constexpr int kV = kK + kB * kKs;
-  static constexpr int kDSt = kV + kB * kKs;
-  static constexpr int kLse = kDSt + kB * kRowPad;
-  static constexpr int kDelta = kLse + kB;
-  static constexpr int kBytes = (kDelta + kB) * 4;
+struct DqL {
+  static constexpr int NC = D == 64 ? 2 : 1;
+  static constexpr int ROWS = 64 * NC;
+  static constexpr int BN = 32;
+  static constexpr int S = D == 64 ? 2 : 1;
+  static constexpr int THREADS = 128 * (NC + 1);
+  static constexpr int q_tile = ROWS * D * 4;
+  static constexpr int kv_tile = BN * D * 4;
+  // after aligning to 1024: Q hi / lo, dout hi / lo, then per stage K hi /
+  // lo, V hi / lo, Kt hi / lo
+  static constexpr int stage0 = 4 * q_tile;
+  static constexpr int lse = stage0 + S * 6 * kv_tile;
+  static constexpr int delta = lse + ROWS * 4;
+  static constexpr int bits = delta + ROWS * 4;
+  static constexpr int bars = bits + 8 * S;
+  static constexpr int total = bars + 2 * S * 8 + 1024;
+  static constexpr int PER = BN * D / 4 / 128;
 };
 
 template <int D>
-struct DkvLayout {
-  static constexpr int kQs = D + 1;
-  static constexpr int kKt = 0;
-  static constexpr int kVt = kKt + D * kRowPad;
-  static constexpr int kQ = kVt + D * kRowPad;
-  static constexpr int kDO = kQ + kB * kQs;
-  static constexpr int kP = kDO + kB * kQs;
-  static constexpr int kDS = kP + kB * kRowPad;
-  static constexpr int kLse = kDS + kB * kRowPad;
-  static constexpr int kDelta = kLse + kB;
-  static constexpr int kBytes = (kDelta + kB) * 4;
+struct DkvL {
+  static constexpr int NC = D == 64 ? 2 : 1;
+  static constexpr int S = NC;  // one stage per consumer warpgroup: tile i goes to stage i % NC
+  static constexpr int KEYS = 64;
+  static constexpr int BQ = D == 64 ? 32 : 16;
+  static constexpr int THREADS = 128 * (NC + 1);
+  static constexpr int kv_tile = KEYS * D * 4;
+  static constexpr int q_tile = BQ * D * 4;
+  static constexpr int t_tile = D * (BQ < 32 ? 32 : BQ) * 4;  // Qt / dOt: whole 128-byte swizzle rows
+  static constexpr int stage_bytes = 4 * q_tile + 4 * t_tile;
+  // K hi / lo, V hi / lo, then per stage Q hi / lo, dout hi / lo, Qt hi /
+  // lo, dOt hi / lo
+  static constexpr int stage0 = 4 * kv_tile;
+  static constexpr int lse = stage0 + S * stage_bytes;
+  static constexpr int delta = lse + S * BQ * 4;
+  static constexpr int bars = delta + S * BQ * 4;
+  static constexpr int total = bars + 2 * S * 8 + 1024;
+  static constexpr int PER_KV = KEYS * D / 4 / 128 / NC;  // a consumer thread's share of K (or V)
+  static constexpr int PER_Q = BQ * D / 4 / 128;
 };
 
 struct Params {
@@ -107,299 +140,361 @@ struct Params {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_f32_dq_kernel(const Params p) {
-  using L = DqLayout<D>;
-  constexpr int kCols = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem + L::kQt;
-  float* dot = smem + L::kDOt;
-  float* ks = smem + L::kK;
-  float* vs = smem + L::kV;
-  float* dst = smem + L::kDSt;
-  float* lse_s = smem + L::kLse;
-  float* dlt_s = smem + L::kDelta;
+__global__ void __launch_bounds__(DqL<D>::THREADS, 1) flash_bwd_f32_dq_kernel(const Params p) {
+  using L = DqL<D>;
+  constexpr int NC = L::NC, ROWS = L::ROWS, BN = L::BN, S = L::S;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* q_hi = smem;
+  uint8_t* q_lo = smem + L::q_tile;
+  uint8_t* do_hi = smem + 2 * L::q_tile;
+  uint8_t* do_lo = smem + 3 * L::q_tile;
+  float* lse_s = reinterpret_cast<float*>(smem + L::lse);
+  float* dlt_s = reinterpret_cast<float*>(smem + L::delta);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(smem + L::bits);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + S;
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * kB, head = blockIdx.y, b = blockIdx.z;
+  const int n_qt = (p.t + ROWS - 1) / ROWS;
+  const int q0 = (p.causal ? n_qt - 1 - static_cast<int>(blockIdx.x) : static_cast<int>(blockIdx.x)) * ROWS;
+  const int head = blockIdx.y, b = blockIdx.z;
   const int kvh = head / (p.h / p.hkv);
-  const float* qb = p.q + b * p.qsb + head * p.qsh;
-  const float* gb = p.dout + b * p.gsb + head * p.gsh;
-  const float* ob = p.out + b * p.osb + head * p.osh;
-  const float* kb = p.k + b * p.ksb + kvh * p.ksh;
-  const float* vb = p.v + b * p.vsb + kvh * p.vsh;
-  const int* mb = p.mask + static_cast<long long>(b) * p.t;
+  int nkt = (p.t + BN - 1) / BN;
+  if (p.causal) nkt = min(nkt, (min(q0 + ROWS, p.t) + BN - 1) / BN);
+  const int wg = threadIdx.x / 128;
 
-  for (int i = tid; i < kB * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const bool in = q0 + r < p.t;
-    qt[d * kRowPad + r] = in ? qb[(q0 + r) * p.qst + d] : 0.0f;
-    dot[d * kRowPad + r] = in ? gb[(q0 + r) * p.gst + d] : 0.0f;
-  }
-  // delta = rowsum(dout o out): warp w owns rows 8 w .. 8 w + 7
-  for (int rr = 0; rr < kB / 8; ++rr) {
-    const int r = warp * (kB / 8) + rr;
-    float sum = 0.0f;
-    if (q0 + r < p.t)
-      for (int d = lane; d < D; d += 32) sum = fmaf(gb[(q0 + r) * p.gst + d], ob[(q0 + r) * p.ost + d], sum);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) {
-      dlt_s[r] = sum;
-      if (q0 + r < p.t) p.delta[(static_cast<long long>(b) * p.h + head) * p.t + q0 + r] = sum;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 128);
+      mbar_init(&empty[s], 4 * NC);
     }
+    slam::mbar_init_fence();
   }
-  if (tid < kB) lse_s[tid] = q0 + tid < p.t ? p.lse[(static_cast<long long>(b) * p.t + q0 + tid) * p.h + head] : 0.0f;
   __syncthreads();
 
-  const int row0 = q0 + ty * 4;  // the thread's first query row
-  float lse_r[4], dlt_r[4], acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    lse_r[i] = lse_s[ty * 4 + i];
-    dlt_r[i] = dlt_s[ty * 4 + i];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
-  }
-
-  int n_tiles = (p.t + kB - 1) / kB;
-  if (p.causal) n_tiles = min(n_tiles, (min(q0 + kB, p.t) + kB - 1) / kB);
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * kB;
-    __syncthreads();  // the previous tile's K, V and dS are no longer read
-    for (int i = tid; i < kB * D; i += kThreads) {
-      const int c = i / D, d = i % D;
-      const bool in = k0 + c < p.t;
-      ks[c * L::kKs + d] = in ? kb[(k0 + c) * p.kst + d] : 0.0f;
-      vs[c * L::kKs + d] = in ? vb[(k0 + c) * p.vst + d] : 0.0f;
-    }
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(qt + d * kRowPad + ty * 4);
-      const float4 gv = *reinterpret_cast<const float4*>(dot + d * kRowPad + ty * 4);
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
-      float kv[4], vv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = ks[(tx + 16 * j) * L::kKs + d];
-        vv[j] = vs[(tx + 16 * j) * L::kKs + d];
+  if (wg == NC) {
+    if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 152;\n");
+    const int pt = threadIdx.x - 128 * NC, lane = pt & 31, warp = pt >> 5;
+    const float* kb = p.k + b * p.ksb + kvh * p.ksh;
+    const float* vb = p.v + b * p.vsb + kvh * p.vsh;
+    const int* mb = p.mask + static_cast<long long>(b) * p.t;
+    // the next tile's rows load once this tile is out (K1 f32's producer)
+    float4 kr[L::PER], vr[L::PER];
+    int mv[1];
+    f32::load_tile<BN, D>(kr, kb, p.kst, p.t, pt);
+    f32::load_tile<BN, D>(vr, vb, p.vst, p.t, pt);
+    if (warp == 0) slam::load_key_mask(mv, mb, 0, p.t, lane);
+    for (int kt = 0; kt < nkt; ++kt) {
+      const int k1 = (kt + 1) * BN, stage = kt % S;
+      const bool more = kt + 1 < nkt;
+      mbar_wait(&empty[stage], ((kt / S) & 1) ^ 1);
+      uint8_t* st = smem + L::stage0 + stage * 6 * L::kv_tile;
+      f32::store_tile_rows<BN>(st, st + L::kv_tile, kr, pt);
+      f32::store_tile_rows<BN>(st + 2 * L::kv_tile, st + 3 * L::kv_tile, vr, pt);
+      f32::store_tile_cols<BN, D>(st + 4 * L::kv_tile, st + 5 * L::kv_tile, kr, pt);
+      if (warp == 0) slam::tile_key_bits(bits + stage, mv, lane);
+      fence_async_shared();
+      mbar_arrive(&full[stage]);
+      if (more) {
+        f32::load_tile<BN, D>(kr, kb + k1 * p.kst, p.kst, p.t - k1, pt);
+        f32::load_tile<BN, D>(vr, vb + k1 * p.vst, p.vst, p.t - k1, pt);
+        if (warp == 0) slam::load_key_mask(mv, mb, k1, p.t, lane);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ga[i], vv[j], dp[i][j]);
+    }
+  } else {
+    if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 176;\n");
+    const int t = threadIdx.x & 127, lane = t & 31, warp = t >> 5, tq4 = lane & 3;
+    {  // the warpgroup stages its own 64 rows of Q and dout, their lse and delta
+      const int r0 = q0 + 64 * wg;
+      const float* qb = p.q + b * p.qsb + head * p.qsh + r0 * p.qst;
+      const float* gb = p.dout + b * p.gsb + head * p.gsh + r0 * p.gst;
+      for (int i0 = 0; i0 < D / 8; i0 += 8) {
+        float4 qv[8], gv[8];
+        f32::load_tile<64, D>(qv, qb, p.qst, p.t - r0, t, i0);
+        f32::load_tile<64, D>(gv, gb, p.gst, p.t - r0, t, i0);
+        f32::store_tile_rows<64>(q_hi, q_lo, qv, t, i0, ROWS, 64 * wg);
+        f32::store_tile_rows<64>(do_hi, do_lo, gv, t, i0, ROWS, 64 * wg);
+      }
+      if (t < 64) {  // delta = rowsum(dout o out) and lse of row r0 + t
+        float sum = 0.f, l = 0.f;
+        if (r0 + t < p.t) {
+          const float4* g4 = reinterpret_cast<const float4*>(gb + t * p.gst);
+          const float4* o4 = reinterpret_cast<const float4*>(p.out + b * p.osb + head * p.osh + (r0 + t) * p.ost);
+#pragma unroll 4
+          for (int c = 0; c < D / 4; ++c) {
+            const float4 g = __ldg(g4 + c), o = __ldg(o4 + c);
+            sum = fmaf(g.x, o.x, sum);
+            sum = fmaf(g.y, o.y, sum);
+            sum = fmaf(g.z, o.z, sum);
+            sum = fmaf(g.w, o.w, sum);
+          }
+          l = p.lse[(static_cast<long long>(b) * p.t + r0 + t) * p.h + head];
+          p.delta[(static_cast<long long>(b) * p.h + head) * p.t + r0 + t] = sum;
         }
-    }
-
-    bool key_ok[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = k0 + tx + 16 * j;
-      key_ok[j] = c < p.t && mb[c] != 0;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = row0 + i;
-        const bool ok = key_ok[j] && r < p.t && (!p.causal || k0 + tx + 16 * j <= r);
-        const float pij = ok ? exp2f(s[i][j] * p.scale2 - lse_r[i]) : 0.0f;
-        ds[i] = pij * (dp[i][j] - dlt_r[i]);
+        lse_s[64 * wg + t] = l;
+        dlt_s[64 * wg + t] = sum;
       }
-      *reinterpret_cast<float4*>(dst + (tx + 16 * j) * kRowPad + ty * 4) = make_float4(ds[0], ds[1], ds[2], ds[3]);
+      fence_async_shared();
+      slam::named_sync(1 + wg, 128);
     }
-    __syncthreads();
+    int pos[2];
+    float lse_r[2], dlt_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * wg + 16 * warp + (lane >> 2) + 8 * h;
+      pos[h] = q0 + r;
+      lse_r[h] = lse_s[r];
+      dlt_r[h] = dlt_s[r];
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
-#pragma unroll 4
-    for (int c = 0; c < kB; ++c) {
-      const float4 sv = *reinterpret_cast<const float4*>(dst + c * kRowPad + ty * 4);
-      const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
+    for (int kt = 0; kt < nkt; ++kt) {
+      const int k0 = kt * BN, stage = kt % S;
+      mbar_wait(&full[stage], (kt / S) & 1);
+      const uint8_t* st = smem + L::stage0 + stage * 6 * L::kv_tile;
+      float s[BN / 2], dp[BN / 2];
+      wgmma_fence();
+      f32::mma3_ss<BN, D / 8>(s, q_hi, q_lo, ROWS, 64 * wg, st, st + L::kv_tile, false);
+      f32::mma3_ss<BN, D / 8>(dp, do_hi, do_lo, ROWS, 64 * wg, st + 2 * L::kv_tile, st + 3 * L::kv_tile, false);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      const uint32_t w = bits[stage];
 #pragma unroll
-      for (int cc = 0; cc < kCols; ++cc) {
-        const float kv = ks[c * L::kKs + tx + 16 * cc];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(sa[i], kv, acc[i][cc]);
+      for (int i = 0; i < BN / 2; ++i) {
+        const int h = (i >> 1) & 1, c = 8 * (i >> 2) + 2 * tq4 + (i & 1);
+        const bool ok = ((w >> c) & 1u) && pos[h] < p.t && (!p.causal || k0 + c <= pos[h]);
+        const float pij = ok ? exp2f(s[i] * p.scale2 - lse_r[h]) : 0.f;
+        s[i] = pij * (dp[i] - dlt_r[h]);  // dS
       }
+      uint32_t a_hi[BN / 8][4], a_lo[BN / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) f32::a_fragment(a_hi[kk], a_lo[kk], s, kk);
+      float fresh[D / 2];
+      f32::mma3_rs_sync<D, BN / 8>(fresh, a_hi, a_lo, st + 4 * L::kv_tile, st + 5 * L::kv_tile);
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) {
+        fence_regs(a_hi[kk]);
+        fence_regs(a_lo[kk]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dq[i] += fresh[i];
     }
-  }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + i;
-    if (r >= p.t) continue;
-    float* o = p.dq + ((static_cast<long long>(b) * p.t + r) * p.h + head) * D;
+    for (int h = 0; h < 2; ++h) {
+      if (pos[h] >= p.t) continue;
+      float* row = p.dq + ((static_cast<long long>(b) * p.t + pos[h]) * p.h + head) * D;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) o[tx + 16 * c] = acc[i][c] * p.scale;
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(row + 8 * j + 2 * tq4) =
+            make_float2(dq[4 * j + 2 * h] * p.scale, dq[4 * j + 2 * h + 1] * p.scale);
+    }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_f32_dkv_kernel(const Params p) {
-  using L = DkvLayout<D>;
-  constexpr int kCols = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* kt = smem + L::kKt;
-  float* vt = smem + L::kVt;
-  float* qs = smem + L::kQ;
-  float* gs = smem + L::kDO;
-  float* ps = smem + L::kP;
-  float* dss = smem + L::kDS;
-  float* lse_s = smem + L::kLse;
-  float* dlt_s = smem + L::kDelta;
+__global__ void __launch_bounds__(DkvL<D>::THREADS, 1) flash_bwd_f32_dkv_kernel(const Params p) {
+  using L = DkvL<D>;
+  constexpr int NC = L::NC, S = L::S, KEYS = L::KEYS, BQ = L::BQ;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* k_hi = smem;
+  uint8_t* k_lo = smem + L::kv_tile;
+  uint8_t* v_hi = smem + 2 * L::kv_tile;
+  uint8_t* v_lo = smem + 3 * L::kv_tile;
+  float* lse_s = reinterpret_cast<float*>(smem + L::lse);
+  float* dlt_s = reinterpret_cast<float*>(smem + L::delta);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + S;
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * kB, kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * KEYS, kvh = blockIdx.y, b = blockIdx.z;
   const int g = p.h / p.hkv;
-  const float* kb = p.k + b * p.ksb + kvh * p.ksh;
-  const float* vb = p.v + b * p.vsb + kvh * p.vsh;
-  const int* mb = p.mask + static_cast<long long>(b) * p.t;
+  const int n_qt = (p.t + BQ - 1) / BQ;
+  const int first_qt = p.causal ? k0 / BQ : 0;  // causal: no query before the block's first key sees it
+  const int per = n_qt - first_qt, n_tiles = g * per;
+  const int wg = threadIdx.x / 128;
 
-  for (int i = tid; i < kB * D; i += kThreads) {
-    const int c = i / D, d = i % D;
-    const bool in = k0 + c < p.t;
-    kt[d * kRowPad + c] = in ? kb[(k0 + c) * p.kst + d] : 0.0f;
-    vt[d * kRowPad + c] = in ? vb[(k0 + c) * p.vst + d] : 0.0f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 128);
+      mbar_init(&empty[s], 4);  // lane 0 of each warp of the stage's warpgroup
+    }
+    slam::mbar_init_fence();
   }
-  const int key0 = k0 + ty * 4;  // the thread's first key
-  bool key_ok[4];
-  float dk[4][kCols], dv[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    key_ok[i] = key0 + i < p.t && mb[key0 + i] != 0;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) dk[i][c] = dv[i][c] = 0.0f;
-  }
+  __syncthreads();
 
-  const int n_qt = (p.t + kB - 1) / kB;
-  const int first_qt = p.causal ? k0 / kB : 0;  // causal: no query before the block's first key sees it
-  for (int hh = 0; hh < g; ++hh) {
-    const int head = kvh * g + hh;
-    const float* qb = p.q + b * p.qsb + head * p.qsh;
-    const float* gb = p.dout + b * p.gsb + head * p.gsh;
-    for (int qtile = first_qt; qtile < n_qt; ++qtile) {
-      const int q0 = qtile * kB;
-      __syncthreads();  // the previous tile's Q, dout, P and dS are no longer read (and K / V are staged)
-      for (int i = tid; i < kB * D; i += kThreads) {
-        const int r = i / D, d = i % D;
-        const bool in = q0 + r < p.t;
-        qs[r * L::kQs + d] = in ? qb[(q0 + r) * p.qst + d] : 0.0f;
-        gs[r * L::kQs + d] = in ? gb[(q0 + r) * p.gst + d] : 0.0f;
+  if (wg == NC) {
+    if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 152;\n");
+    const int pt = threadIdx.x - 128 * NC;
+    // tile i's rows load once tile i - 1 is out (K1 f32's producer)
+    float4 qr[L::PER_Q], gr[L::PER_Q];
+    float l = 0.f, dl = 0.f;
+    auto load = [&](int i) {
+      const int head = kvh * g + i / per, q0 = (first_qt + i % per) * BQ;
+      f32::load_tile<BQ, D>(qr, p.q + b * p.qsb + head * p.qsh + q0 * p.qst, p.qst, p.t - q0, pt);
+      f32::load_tile<BQ, D>(gr, p.dout + b * p.gsb + head * p.gsh + q0 * p.gst, p.gst, p.t - q0, pt);
+      const bool in = pt < BQ && q0 + pt < p.t;
+      l = in ? p.lse[(static_cast<long long>(b) * p.t + q0 + pt) * p.h + head] : 0.f;
+      dl = in ? p.delta[(static_cast<long long>(b) * p.h + head) * p.t + q0 + pt] : 0.f;
+    };
+    load(0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int stage = i % NC;
+      mbar_wait(&empty[stage], ((i / NC) & 1) ^ 1);
+      uint8_t* st = smem + L::stage0 + stage * L::stage_bytes;
+      uint8_t* tt = st + 4 * L::q_tile;
+      if (pt < BQ) {
+        lse_s[stage * BQ + pt] = l;
+        dlt_s[stage * BQ + pt] = dl;
       }
-      if (tid < kB) {
-        const bool in = q0 + tid < p.t;
-        lse_s[tid] = in ? p.lse[(static_cast<long long>(b) * p.t + q0 + tid) * p.h + head] : 0.0f;
-        dlt_s[tid] = in ? p.delta[(static_cast<long long>(b) * p.h + head) * p.t + q0 + tid] : 0.0f;
+      f32::store_tile_rows<BQ>(st, st + L::q_tile, qr, pt);
+      f32::store_tile_rows<BQ>(st + 2 * L::q_tile, st + 3 * L::q_tile, gr, pt);
+      f32::store_tile_cols<BQ, D>(tt, tt + L::t_tile, qr, pt);
+      f32::store_tile_cols<BQ, D>(tt + 2 * L::t_tile, tt + 3 * L::t_tile, gr, pt);
+      fence_async_shared();
+      mbar_arrive(&full[stage]);
+      if (i + 1 < n_tiles) load(i + 1);
+    }
+  } else {
+    if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 176;\n");
+    const int t = threadIdx.x & 127, lane = t & 31, warp = t >> 5, tq4 = lane & 3;
+    {  // the consumer warpgroups stage the block's K and V rows (K-major: the A operands), a share each
+      constexpr int N = L::PER_KV, CH = N < 8 ? N : 8, TH = 128 * NC;
+      const int tt = t + 128 * wg;
+      const float* kb = p.k + b * p.ksb + kvh * p.ksh + k0 * p.kst;
+      const float* vb = p.v + b * p.vsb + kvh * p.vsh + k0 * p.vst;
+      for (int i0 = 0; i0 < N; i0 += CH) {
+        float4 kv[CH], vv[CH];
+        f32::load_tile<KEYS, D, CH, TH>(kv, kb, p.kst, p.t - k0, tt, i0);
+        f32::load_tile<KEYS, D, CH, TH>(vv, vb, p.vst, p.t - k0, tt, i0);
+        f32::store_tile_rows<KEYS, CH, TH>(k_hi, k_lo, kv, tt, i0);
+        f32::store_tile_rows<KEYS, CH, TH>(v_hi, v_lo, vv, tt, i0);
       }
-      __syncthreads();
+      fence_async_shared();
+      slam::named_sync(1, 128 * NC);
+    }
+    int key[2];
+    bool key_ok[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      key[h] = k0 + 16 * warp + (lane >> 2) + 8 * h;
+      key_ok[h] = key[h] < p.t && p.mask[static_cast<long long>(b) * p.t + key[h]] != 0;
+    }
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 
-      // S^T and dP^T: keys 4 ty + i, queries tx + 16 j
-      float s[4][4], dp[4][4];
+    for (int i = wg; i < n_tiles; i += NC) {
+      const int stage = wg, q0 = (first_qt + i % per) * BQ;
+      mbar_wait(&full[stage], (i / NC) & 1);
+      const uint8_t* st = smem + L::stage0 + stage * L::stage_bytes;
+      const uint8_t* tt = st + 4 * L::q_tile;
+      // S^T and dP^T: rows are the block's keys, columns the tile's queries
+      float s[BQ / 2], dp[BQ / 2];
+      wgmma_fence();
+      f32::mma3_ss<BQ, D / 8>(s, k_hi, k_lo, KEYS, 0, st, st + L::q_tile, false);
+      f32::mma3_ss<BQ, D / 8>(dp, v_hi, v_lo, KEYS, 0, st + 2 * L::q_tile, st + 3 * L::q_tile, false);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        const float4 kv4 = *reinterpret_cast<const float4*>(kt + d * kRowPad + ty * 4);
-        const float4 vv4 = *reinterpret_cast<const float4*>(vt + d * kRowPad + ty * 4);
-        const float ka[4] = {kv4.x, kv4.y, kv4.z, kv4.w};
-        const float va[4] = {vv4.x, vv4.y, vv4.z, vv4.w};
-        float qv[4], gv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = qs[(tx + 16 * j) * L::kQs + d];
-          gv[j] = gs[(tx + 16 * j) * L::kQs + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(ka[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(va[i], gv[j], dp[i][j]);
-          }
+      for (int j = 0; j < BQ / 2; ++j) {
+        const int h = (j >> 1) & 1, c = 8 * (j >> 2) + 2 * tq4 + (j & 1), qpos = q0 + c;
+        const bool ok = key_ok[h] && qpos < p.t && (!p.causal || key[h] <= qpos);
+        const float pij = ok ? exp2f(s[j] * p.scale2 - lse_s[stage * BQ + c]) : 0.f;
+        s[j] = pij;
+        dp[j] = pij * (dp[j] - dlt_s[stage * BQ + c]);  // dS^T
       }
+      uint32_t p_hi[BQ / 8][4], p_lo[BQ / 8][4], d_hi[BQ / 8][4], d_lo[BQ / 8][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cq = tx + 16 * j, r = q0 + cq;
-        const float l = lse_s[cq], dl = dlt_s[cq];
-        float pj[4], dsj[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const bool ok = key_ok[i] && r < p.t && (!p.causal || key0 + i <= r);
-          pj[i] = ok ? exp2f(s[i][j] * p.scale2 - l) : 0.0f;
-          dsj[i] = pj[i] * (dp[i][j] - dl);
-        }
-        *reinterpret_cast<float4*>(ps + cq * kRowPad + ty * 4) = make_float4(pj[0], pj[1], pj[2], pj[3]);
-        *reinterpret_cast<float4*>(dss + cq * kRowPad + ty * 4) = make_float4(dsj[0], dsj[1], dsj[2], dsj[3]);
+      for (int kk = 0; kk < BQ / 8; ++kk) {
+        f32::a_fragment(p_hi[kk], p_lo[kk], s, kk);
+        f32::a_fragment(d_hi[kk], d_lo[kk], dp, kk);
       }
-      __syncthreads();
+      float fresh[D / 2];
+      f32::mma3_rs_sync<D, BQ / 8>(fresh, p_hi, p_lo, tt + 2 * L::t_tile, tt + 3 * L::t_tile);
+#pragma unroll
+      for (int c = 0; c < D / 2; ++c) dv[c] += fresh[c];
+      f32::mma3_rs_sync<D, BQ / 8>(fresh, d_hi, d_lo, tt, tt + L::t_tile);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 8; ++kk) {
+        fence_regs(p_hi[kk]);
+        fence_regs(p_lo[kk]);
+        fence_regs(d_hi[kk]);
+        fence_regs(d_lo[kk]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+#pragma unroll
+      for (int c = 0; c < D / 2; ++c) dk[c] += fresh[c];
+    }
 
-      // dv += P^T dout, dk += dS^T q over the tile's queries
-#pragma unroll 2
-      for (int c = 0; c < kB; ++c) {
-        const float4 pv = *reinterpret_cast<const float4*>(ps + c * kRowPad + ty * 4);
-        const float4 sv = *reinterpret_cast<const float4*>(dss + c * kRowPad + ty * 4);
-        const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
-        const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
+    if constexpr (NC == 2) {
+      // warpgroup 1's sums reach warpgroup 0 through its own stage (its
+      // last tile is consumed: the producer writes there no more)
+      float* xfer = reinterpret_cast<float*>(smem + L::stage0 + L::stage_bytes);
+      const int r0 = 16 * warp + (lane >> 2);
+      if (wg == 1) {
 #pragma unroll
-        for (int cc = 0; cc < kCols; ++cc) {
-          const float gq = gs[c * L::kQs + tx + 16 * cc];
-          const float qq = qs[c * L::kQs + tx + 16 * cc];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dv[i][cc] = fmaf(pa[i], gq, dv[i][cc]);
-            dk[i][cc] = fmaf(sa[i], qq, dk[i][cc]);
-          }
+        for (int c = 0; c < D / 2; ++c) {
+          const int at = (r0 + 8 * ((c >> 1) & 1)) * D + 8 * (c >> 2) + 2 * tq4 + (c & 1);
+          xfer[at] = dk[c];
+          xfer[KEYS * D + at] = dv[c];
         }
+      }
+      slam::named_sync(1, 256);
+      if (wg == 1) return;
+#pragma unroll
+      for (int c = 0; c < D / 2; ++c) {
+        const int at = (r0 + 8 * ((c >> 1) & 1)) * D + 8 * (c >> 2) + 2 * tq4 + (c & 1);
+        dk[c] += xfer[at];
+        dv[c] += xfer[KEYS * D + at];
       }
     }
-  }
-
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = key0 + i;
-    if (c >= p.t) continue;
-    const long long at = ((static_cast<long long>(b) * p.t + c) * p.hkv + kvh) * D;
+    for (int h = 0; h < 2; ++h) {
+      if (key[h] >= p.t) continue;
+      const long long at = ((static_cast<long long>(b) * p.t + key[h]) * p.hkv + kvh) * D;
 #pragma unroll
-    for (int cc = 0; cc < kCols; ++cc) {
-      p.dk[at + tx + 16 * cc] = dk[i][cc] * p.scale;
-      p.dv[at + tx + 16 * cc] = dv[i][cc];
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<float2*>(p.dk + at + 8 * j + 2 * tq4) =
+            make_float2(dk[4 * j + 2 * h] * p.scale, dk[4 * j + 2 * h + 1] * p.scale);
+        *reinterpret_cast<float2*>(p.dv + at + 8 * j + 2 * tq4) =
+            make_float2(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+      }
     }
   }
 }
 
 template <int D>
 cudaError_t launch(const Params& p, int b, cudaStream_t st) {
-  const int dq_bytes = DqLayout<D>::kBytes, dkv_bytes = DkvLayout<D>::kBytes;
-  cudaError_t err =
-      cudaFuncSetAttribute(flash_bwd_f32_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+  static unsigned long long dq_done = 0, dkv_done = 0;
+  cudaError_t err = slam::configure_smem(flash_bwd_f32_dq_kernel<D>, DqL<D>::total, dq_done);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_f32_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
+  err = slam::configure_smem(flash_bwd_f32_dkv_kernel<D>, DkvL<D>::total, dkv_done);
   if (err != cudaSuccess) return err;
-  const int tiles = (p.t + kB - 1) / kB;
-  flash_bwd_f32_dq_kernel<D><<<dim3(tiles, p.h, b), kThreads, dq_bytes, st>>>(p);
+  const dim3 dq_grid((p.t + DqL<D>::ROWS - 1) / DqL<D>::ROWS, p.h, b);
+  flash_bwd_f32_dq_kernel<D><<<dq_grid, DqL<D>::THREADS, DqL<D>::total, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_f32_dkv_kernel<D><<<dim3(tiles, p.hkv, b), kThreads, dkv_bytes, st>>>(p);
+  const dim3 dkv_grid((p.t + DkvL<D>::KEYS - 1) / DkvL<D>::KEYS, p.hkv, b);
+  flash_bwd_f32_dkv_kernel<D><<<dkv_grid, DkvL<D>::THREADS, DkvL<D>::total, st>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q / dq / out / dout (B, T, H, D), k / v / dk / dv (B, T, Hkv, D) f32; q, k,
-// v, out and dout with the given element strides (last dim contiguous), dq /
-// dk / dv contiguous; mask (B, T) int32; lse (B, T, H) f32 contiguous; delta
-// (B, H, T) f32 scratch.
+// v, out and dout with the given element strides (last dim contiguous, rows
+// 16-byte aligned), dq / dk / dv contiguous; mask (B, T) int32; lse (B, T,
+// H) f32 contiguous; delta (B, H, T) f32 scratch.
 extern "C" int slam_flash_bwd_f32(const void* q, const void* k, const void* v, const void* mask, const void* out,
                                   const void* dout, const void* lse, void* delta, void* dq, void* dk, void* dv, int b,
                                   int t, int h, int hkv, int d, long long qsb, long long qst, long long qsh,
@@ -412,7 +507,7 @@ extern "C" int slam_flash_bwd_f32(const void* q, const void* k, const void* v, c
                  static_cast<const int*>(mask), static_cast<const float*>(out), static_cast<const float*>(dout),
                  static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<float*>(dq),
                  static_cast<float*>(dk), static_cast<float*>(dv), t, h, hkv, qsb, qst, qsh, ksb, kst, ksh, vsb, vst,
-                 vsh, osb, ost, osh, gsb, gst, gsh, scale, scale * kLog2e, causal};
+                 vsh, osb, ost, osh, gsb, gst, gsh, scale, scale * slam::kLog2e, causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(d == 64 ? launch<64>(p, b, st) : launch<128>(p, b, st));
 }

@@ -242,15 +242,18 @@ def pick_state(sd, module: nn.Module):
 class FrozenBatchNorm(nn.Module):
     """Eval-mode BatchNorm in f32 over axis ``axis``: (x - running_mean) *
     rsqrt(running_var + eps) * weight + bias, with torch's BatchNorm names
-    (the CLAP towers load it pretrained and frozen)."""
+    (the CLAP towers load it pretrained and frozen). The statistics are
+    parameters, as the JAX modules' ``mean`` / ``var`` leaves are: a
+    trainer trains them with the encoder and stores them in
+    ``frozen_dtype`` when it is frozen."""
 
     def __init__(self, dim: int, eps: float = 1e-5, device=None):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim, device=device), requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(dim, device=device), requires_grad=False)
-        self.register_buffer("running_mean", torch.zeros(dim, device=device))
-        self.register_buffer("running_var", torch.ones(dim, device=device))
+        self.running_mean = nn.Parameter(torch.zeros(dim, device=device), requires_grad=False)
+        self.running_var = nn.Parameter(torch.ones(dim, device=device), requires_grad=False)
 
     def forward(self, x: torch.Tensor, axis: int = -1) -> torch.Tensor:
         shape = [1] * x.ndim

@@ -17,8 +17,9 @@ the backward counter-rotates dq/dk. Self-attention only (Tq == Tk).
 
 The wrappers send CPU tensors to the twins and CUDA tensors to
 ``csrc/flash_attention.cu`` (K1) and ``csrc/flash_attention_bwd.cu`` (K4):
-bf16, D in {64, 128}. f32 CUDA tensors take the f32 routes, exact f32
-products on the CUDA cores without fused RoPE: K1's
+bf16, D in {64, 128}. f32 CUDA tensors take the f32 routes, f32-accurate
+products on the tensor cores as 3-pass split TF32 (``tf32_split``: each
+product is hi_a hi_b + hi_a lo_b + lo_a hi_b), without fused RoPE: K1's
 (``csrc/flash_attention_f32.cu``, ``flash_attention_fwd_f32``) and K4's
 (``csrc/flash_attention_bwd_f32.cu``, ``flash_attention_bwd_f32``). They
 raise on anything else.
@@ -145,6 +146,29 @@ def flash_attention_bwd_ref(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def bwd_f32_error(got, want, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor) -> float:
+    """The error the f32 backward route is held to (2e-5) against its twin's
+    ``want``: the largest of dq's, dk's and dv's max |got - want| over the
+    twin's largest entry. At T = 1 every row sees its own key alone, so P =
+    1 and dS = dP - delta = 0 in exact arithmetic: dq and dk are then the
+    round-off of that cancellation on both sides (the twin's largest entry
+    is itself round-off), so the larger of the two largest entries is taken
+    over the largest |dP| x |k| (or |q|) x scale, dk's over its G heads.
+    For the tests and the on-card check; no route calls it."""
+
+    def rel(g, w):
+        err, top = (g - w).abs().max().item(), w.abs().max().item()
+        return err / top if top else (math.inf if err else 0.0)
+
+    errs = [rel(g, w) for g, w in zip(got, want)]
+    if q.shape[1] == 1:
+        h, hkv, d = q.shape[2], k.shape[2], q.shape[3]
+        dp = (dout.float() * v.float().repeat_interleave(h // hkv, 2)).sum(-1).abs().max().item()
+        errs[:2] = [max(g.abs().max().item(), w.abs().max().item()) / (dp * x.abs().max().item() * d ** -0.5 * n)
+                    for g, w, x, n in ((got[0], want[0], k, 1), (got[1], want[1], q, h // hkv))]
+    return max(errs)
+
+
 # ---- the kernels' planner ---------------------------------------------------
 
 UNIT_ROWS = 128  # query rows of a K1 / dq unit, keys of a dk/dv unit: two consumer warpgroups of 64
@@ -243,6 +267,30 @@ def unit_rows(plan: PassPlan, b: int, t: int, h: int, u: int):
     return bb, pos[live], (hg * plan.heads + r % plan.heads)[live]
 
 
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` of f32 ``x`` as the f32 routes split their operands:
+    ``hi = tf32(x)``, ``lo = tf32(x - hi)``, each rounded to TF32's 10
+    mantissa bits to nearest, ties away from zero (``cvt.rna.tf32.f32``).
+    ``x - hi`` is exact in f32, so ``hi + lo`` is within 2^-22 of ``x``
+    relative."""
+
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def _f32_operand(x: torch.Tensor) -> torch.Tensor:
+    """x as the f32 kernels read it: a contiguous last dim and 16-byte
+    aligned rows (each row is loaded as float4), else a contiguous copy."""
+    if x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(st % 4 == 0 for st in x.stride()[:-1]):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def _check_kernel_inputs(d, *tensors, dtype=torch.bfloat16):
     if any(t.dtype != dtype for t in tensors):
         raise TypeError(f"flash kernels take {dtype} here, got {[t.dtype for t in tensors]}")
@@ -313,14 +361,15 @@ def flash_attention_fwd_f32(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` of f32 q / k / v: K1's f32 route
     (``csrc/flash_attention_f32.cu``) on CUDA tensors, the twin on CPU
-    tensors. Any strides with a contiguous last dim; D in {64, 128}."""
+    tensors. Any strides (a view whose rows are not 16-byte aligned is
+    copied); D in {64, 128}."""
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, kv_mask, causal, scale)
     _check_shapes(q, k, v, kv_mask, causal)
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     _check_kernel_inputs(d, q, k, v, dtype=torch.float32)
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    q, k, v = (_f32_operand(x) for x in (q, k, v))
     mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((b, tq, h, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, tq, h), dtype=torch.float32, device=q.device)
@@ -404,8 +453,8 @@ def flash_attention_bwd_f32(
     """``(dq, dk, dv)`` of f32 q / k / v / out / dout: K4's f32 route
     (``csrc/flash_attention_bwd_f32.cu``, two launches: dq with delta, then
     dk / dv) on CUDA tensors, the twin on CPU tensors. Self-attention only
-    on the card (Tq == Tk); any strides with a contiguous last dim; D in
-    {64, 128}; ``lse`` is K1 f32's log2 value."""
+    on the card (Tq == Tk); any strides (a view whose rows are not 16-byte
+    aligned is copied); D in {64, 128}; ``lse`` is K1 f32's log2 value."""
     if not q.is_cuda:
         return flash_attention_bwd_ref(q, k, v, kv_mask, out, lse, dout, causal, scale)
     _check_shapes(q, k, v, kv_mask, causal)
@@ -417,7 +466,7 @@ def flash_attention_bwd_f32(
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, t, h):
         raise ValueError(f"out / dout must be {tuple(q.shape)} and lse {(b, t, h)}, got {tuple(out.shape)}, "
                          f"{tuple(dout.shape)}, {tuple(lse.shape)}")
-    q, k, v, out, dout = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v, out, dout))
+    q, k, v, out, dout = (_f32_operand(x) for x in (q, k, v, out, dout))
     lse = lse.float().contiguous()
     mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
     dq = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)

@@ -1,5 +1,6 @@
-"""K1 and K4 per call at the shapes of ``chip_smoke.py`` phase 3, for an A/B
-of two trees on one card.
+"""K1 and K4 per call at the shapes of ``chip_smoke.py`` phase 3, their f32
+routes (K1 f32, K4 f32) at phase 3's f32 shapes, for an A/B of two trees on
+one card.
 
     python -m slam_llm_tpu_torch.tools.bench_flash [repeats]   # from a checkout's root, on a GPU
 
@@ -31,6 +32,17 @@ K4_CASES = [
     ("training, fused RoPE", 16, 512, 32, 4, 64, True, "both", True),
     ("whisper-like", 2, 1500, 12, 12, 64, False, "right", False),
 ]
+# the f32 routes on f32 tensors (name, B, T, H, Hkv, D, causal, padding),
+# phase 3's: Spatial-AST-base's 3 CLS + 512 patches
+K1_F32_CASES = [
+    ("Spatial-AST training batch", 16, 515, 12, 12, 64, False, "none"),
+    ("Spatial-AST decode batch", 8, 515, 12, 12, 64, False, "none"),
+    ("right-padded", 8, 515, 12, 12, 64, False, "right"),
+    ("causal, left-padded", 4, 515, 12, 12, 64, True, "left"),
+    ("GQA, head_dim 128, causal", 2, 256, 8, 2, 128, True, "right"),
+]
+K4_F32_CASES = [K1_F32_CASES[i] for i in (0, 2, 3, 4)]
+ROPE_THETA = 1e4  # TinyLlama's, for the fused-RoPE cases
 
 
 def by_kernel(fn) -> dict:
@@ -57,19 +69,22 @@ def main(repeats: int = 3) -> dict:
 
     smi = cs.setup()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    res = {"card": smi, "K1": {}, "K4": {}}
-    for kind, cases in (("K1", K1_CASES), ("K4", K4_CASES)):
+    res = {"card": smi, "K1": {}, "K4": {}, "K1 f32": {}, "K4 f32": {}}
+    f32_cases = (("K1 f32", K1_F32_CASES), ("K4 f32", K4_F32_CASES))
+    for kind, cases in (("K1", K1_CASES), ("K4", K4_CASES), *(
+            (kind, [(*c, False) for c in cases]) for kind, cases in f32_cases)):
+        dtype = torch.float32 if kind.endswith("f32") else torch.bfloat16
         for name, b, t, h, hkv, d, causal, pad, fused in cases:
-            q = torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
-            k = torch.randn(b, t, hkv, d, generator=gen, device="cuda").bfloat16()
-            v = torch.randn(b, t, hkv, d, generator=gen, device="cuda").bfloat16()
+            q = torch.randn(b, t, h, d, generator=gen, device="cuda").to(dtype)
+            k = torch.randn(b, t, hkv, d, generator=gen, device="cuda").to(dtype)
+            v = torch.randn(b, t, hkv, d, generator=gen, device="cuda").to(dtype)
             mask = cs._padding_mask(b, t, pad)
-            rope = cs._rope_for(mask, d) if fused else None
-            if kind == "K1":
+            rope = cs._rope_for(mask, d, ROPE_THETA) if fused else None
+            if kind.startswith("K1"):
                 def fn():
                     flash_attention_fwd(q, k, v, mask, causal, rope=rope)
             else:
-                dout = torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
+                dout = torch.randn(b, t, h, d, generator=gen, device="cuda").to(dtype)
                 out, lse = flash_attention_fwd(q, k, v, mask, causal, rope=rope)
 
                 def fn():

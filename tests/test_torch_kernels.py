@@ -5,6 +5,8 @@ through the JAX function (Pallas in interpret mode, or its XLA expression)
 and the twin. The CUDA kernels against their twins: tests/test_torch_gpu.py.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -69,6 +71,96 @@ def test_flash_wrapper_uses_twin_on_cpu_and_checks_causal_shapes():
     assert torch.equal(out, ref) and tflash.flash_attention_fwd.launches == before
     with pytest.raises(ValueError, match="tq == tk"):
         tflash.flash_attention_fwd(q[:, :4], k, k, mask, causal=True)
+
+
+def test_tf32_split_reconstructs_f32():
+    """``tf32_split``: hi and lo keep TF32's 10 mantissa bits (the low 13
+    bits of each are 0), hi is x rounded to nearest with ties away from
+    zero, and hi + lo is within 2^-22 of x relative, over 23 binades and
+    the ties."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.standard_normal(200_000) * np.exp(rng.uniform(-8, 8, 200_000))).astype(np.float32))
+    ties = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 3 * 2.0 ** -11), 3.0 + 2.0 ** -10], dtype=torch.float32)
+    hi, lo = tflash.tf32_split(torch.cat([x, ties]))
+    for part in (hi, lo):
+        assert not bool((part.view(torch.int32) & 0x1FFF).any())
+    full = torch.cat([x, ties]).double()
+    assert ((hi.double() + lo.double() - full).abs() <= 2.0 ** -22 * full.abs()).all()
+    assert ((hi.double() - full).abs() <= 2.0 ** -11 * full.abs()).all()
+    assert hi[-3:].tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2 * 2.0 ** -10), 3.0 + 2.0 ** -9]
+
+
+def _mm3(eq, a, b):
+    """einsum ``eq`` of f32 a and b as the f32 kernels take each product:
+    3-pass split TF32, the small terms first, f32 sums."""
+    ah, al = tflash.tf32_split(a)
+    bh, bl = tflash.tf32_split(b)
+    return (torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)) + torch.einsum(eq, ah, bh)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_3xtf32_attention_within_the_f32_limits(d):
+    """The f32 routes' numeric scheme, before any card: forward and backward
+    at (2, 515, 2/2, D) with every product (S, O, dP, dq, dk, dv) taken as
+    3xTF32, against the f32 twins (themselves held to the JAX package
+    above): S and dP within 2e-5 of their largest entry, out within 2e-5
+    abs, dq / dk / dv within 2e-5 of the twin's largest entry, the limits
+    the card tests hold the kernels to. The tensor core's own rounding of
+    its sums is not modelled: only the card shows it."""
+    rng = np.random.default_rng(1)
+    b, t, h = 2, 515, 2
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(np.float32)) for _ in range(4))
+    mask = torch.ones(b, t, dtype=torch.int32)
+    mask[1, 400:] = 0
+    scale = 1.0 / np.sqrt(d)
+    scale2 = float(np.float32(scale * tflash.LOG2E))
+    valid = mask.bool()[:, None, None, :]
+    out, lse = tflash.flash_attention_ref(q, k, v, mask)
+    # forward: q pre-scaled into the exp2 domain, as K1 f32 stages it
+    s = _mm3("bqhd,bkhd->bhqk", q * scale2, k)
+    s_ref = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale2
+    assert (s - s_ref).abs().max() <= 2e-5 * s_ref.abs().max()
+    s = torch.where(valid, s, torch.full_like(s, tflash.NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s - m)
+    o = _mm3("bhqk,bkhd->bqhd", p, v) / p.sum(-1).permute(0, 2, 1)[..., None]
+    assert (o - out).abs().max() <= 2e-5
+    # backward on the twin's out / lse
+    dq_ref, dk_ref, dv_ref = tflash.flash_attention_bwd_ref(q, k, v, mask, out, lse, dout)
+    s = _mm3("bqhd,bkhd->bhqk", q, k) * scale2
+    p = torch.where(valid, torch.exp2(s - lse.permute(0, 2, 1)[..., None]), 0.0)
+    dp = _mm3("bqhd,bkhd->bhqk", dout, v)
+    dp_ref = torch.einsum("bqhd,bkhd->bhqk", dout, v)
+    assert (dp - dp_ref).abs().max() <= 2e-5 * dp_ref.abs().max()
+    delta = (dout * out).sum(-1).permute(0, 2, 1)[..., None]
+    ds = p * (dp - delta)
+    got = (_mm3("bhqk,bkhd->bqhd", ds, k) * scale, _mm3("bhqk,bqhd->bkhd", ds, q) * scale,
+           _mm3("bhqk,bqhd->bkhd", p, dout))
+    for g, w in zip(got, (dq_ref, dk_ref, dv_ref)):
+        assert (g - w).abs().max() <= 2e-5 * w.abs().max()
+
+
+@pytest.mark.parametrize("t", [1, 70])
+def test_bwd_f32_error_passes_f32_against_f64(t):
+    """``bwd_f32_error``, the measure K4 f32 is held to (2e-5) on the card:
+    the f32 twin against causal GQA attention's autograd in f64 passes it
+    at T = 1 (dS = 0 exactly, so dq and dk are the cancellation's
+    round-off) as at T = 70; one dq entry off by 1e-2 does not."""
+    rng = np.random.default_rng(2)
+    q, dout = (rng.standard_normal((3, t, 4, 64)) for _ in range(2))
+    k, v = (rng.standard_normal((3, t, 2, 64)) for _ in range(2))
+    qd, kd, vd = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd.repeat_interleave(2, 2)) / 8.0
+    s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), -math.inf)
+    o = torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), vd.repeat_interleave(2, 2))
+    want = torch.autograd.grad(o, (qd, kd, vd), torch.from_numpy(dout))
+    q, k, v, dout = (torch.from_numpy(x.astype(np.float32)) for x in (q, k, v, dout))
+    mask = torch.ones(3, t, dtype=torch.int32)
+    got = tflash.flash_attention_bwd_ref(q, k, v, mask, *tflash.flash_attention_ref(q, k, v, mask, True), dout, True)
+    assert tflash.bwd_f32_error(got, want, q, k, v, dout) <= 2e-5
+    off = got[0].clone()
+    off[0, 0, 0, 0] += 1e-2
+    assert tflash.bwd_f32_error((off, *got[1:]), want, q, k, v, dout) > 2e-5
 
 
 # the slices' shapes (B, Tq, Tk, H, Hkv, D, causal, rope), then edges: cross

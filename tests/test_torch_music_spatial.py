@@ -72,6 +72,7 @@ from slam_llm_tpu_torch.models import projector as tproj
 from slam_llm_tpu_torch.models import slam_model as tslam
 from slam_llm_tpu_torch.models import spatial_ast as tspatial_ast
 from slam_llm_tpu_torch.models import wavlm as twavlm
+from slam_llm_tpu_torch.models.layers import FrozenBatchNorm
 from slam_llm_tpu_torch.ops import audio as taudio
 from slam_llm_tpu_torch.tools import synth_checkpoint as synth
 from slam_llm_tpu_torch.train.optimizer import partition_params
@@ -479,18 +480,59 @@ def test_finetune_trains_from_one_echat_file(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def unfrozen_seld():
-    """The tiny SELD recipe with ``freeze_encoder: false`` in both packages:
-    (JAX config, its params, the port model loaded from them)."""
-    jcfg, tcfg = _recipe("seld")
-    jcfg = dataclasses.replace(jcfg, freeze_encoder=False)
-    tcfg = dataclasses.replace(tcfg, freeze_encoder=False)
-    batch = {k: jnp.asarray(v) for k, v in _batch("seld").items()}
+def _unfrozen(kind, freeze_encoder=False):
+    """The tiny ``kind`` recipe with ``freeze_encoder: false`` (or as
+    given) in both packages: (JAX config, its params, the port model loaded
+    from them)."""
+    jcfg, tcfg = _recipe(kind)
+    jcfg = dataclasses.replace(jcfg, freeze_encoder=freeze_encoder)
+    tcfg = dataclasses.replace(tcfg, freeze_encoder=freeze_encoder)
+    batch = {k: jnp.asarray(v) for k, v in _batch(kind).items()}
     params = _seeded(JSLAMModel(jcfg).init(jax.random.PRNGKey(0), batch, method="init_all")["params"], seed=5)
     tm = tslam.SLAMModel(tcfg).eval()
     tm.load_state_dict(from_flax_params(params, tcfg))
     return jcfg, params, tm
+
+
+@pytest.fixture(scope="module")
+def unfrozen_seld():
+    return _unfrozen("seld")
+
+
+@pytest.fixture(scope="module")
+def unfrozen_mc():
+    return _unfrozen("mc")
+
+
+def _every_grad(kind, jcfg, params, tm):
+    """(port loss, JAX loss, the port's gradients and JAX's in the flax
+    layout, the port's trainable names) of the unfrozen recipe ``kind``."""
+    trainable, frozen = j_partition(params, jcfg)
+    jbatch = {k: jnp.asarray(v) for k, v in _batch(kind).items()}
+
+    def loss_fn(tr):
+        return JSLAMModel(jcfg).apply({"params": j_merge(tr, frozen)}, jbatch)["loss"]
+
+    jl, jg = jax.value_and_grad(loss_fn)(trainable)
+    tr, _ = partition_params(tm, tm.cfg)
+    out = tm({k: torch.from_numpy(v) for k, v in _batch(kind).items()})
+    grads = torch.autograd.grad(out["loss"], list(tr.values()))
+    got = _flat(trainable_to_flax(dict(zip(tr.keys(), grads)), jcfg.encoder_name))
+    return float(out["loss"].detach()), float(jl), got, _flat(jg), set(tr)
+
+
+def _grads_close(got, want):
+    """Every gradient within 1e-4 of its own largest entry; the key biases'
+    (0 in exact arithmetic: the softmax cancels them) round-off on both
+    sides."""
+    assert set(got) == set(want)
+    top = max(np.abs(w).max() for w in want.values())
+    for key, g in got.items():
+        assert g.shape == want[key].shape, key
+        if key.endswith("k_proj/bias"):
+            assert max(np.abs(g).max(), np.abs(want[key]).max()) <= 1e-6 * top, key
+            continue
+        assert np.abs(g - want[key]).max() <= 1e-4 * np.abs(want[key]).max(), key
 
 
 def test_unfrozen_seld_loss_and_every_grad_match_jax(unfrozen_seld):
@@ -503,30 +545,32 @@ def test_unfrozen_seld_loss_and_every_grad_match_jax(unfrozen_seld):
     the JAX encoder is in its trainable tree; the key biases' gradients (0
     in exact arithmetic) are round-off on both sides."""
     jcfg, params, tm = unfrozen_seld
-    trainable, frozen = j_partition(params, jcfg)
-    jbatch = {k: jnp.asarray(v) for k, v in _batch("seld").items()}
-
-    def loss_fn(tr):
-        return JSLAMModel(jcfg).apply({"params": j_merge(tr, frozen)}, jbatch)["loss"]
-
-    jl, jg = jax.value_and_grad(loss_fn)(trainable)
     assert not any(p.requires_grad for p in tm.encoder.parameters())  # built frozen, as the module keeps it
-    tr, _ = partition_params(tm, tm.cfg)
-    encoder_names = {n for n in tr if n.startswith("encoder.")}
+    loss, jl, got, want, names = _every_grad("seld", jcfg, params, tm)
+    encoder_names = {n for n in names if n.startswith("encoder.")}
     assert encoder_names == {f"encoder.{n}" for n, _ in tm.encoder.named_parameters()}
     assert {"encoder.bn_mean", "encoder.down.weight", "encoder.pos_embed", "encoder.cls_tokens"} <= encoder_names
-    out = tm({k: torch.from_numpy(v) for k, v in _batch("seld").items()})
-    grads = torch.autograd.grad(out["loss"], list(tr.values()))
-    np.testing.assert_allclose(float(out["loss"].detach()), float(jl), rtol=1e-5)
-    got, want = _flat(trainable_to_flax(dict(zip(tr.keys(), grads)), "spatial_ast")), _flat(jg)
-    assert set(got) == set(want) and {"encoder/down_kernel", "encoder/bn_var", "encoder/blocks/fc1/kernel"} <= set(got)
-    top = max(np.abs(w).max() for w in want.values())
-    for key, g in got.items():
-        assert g.shape == want[key].shape, key
-        if key.endswith("k_proj/bias"):
-            assert max(np.abs(g).max(), np.abs(want[key]).max()) <= 1e-6 * top, key
-            continue
-        assert np.abs(g - want[key]).max() <= 1e-4 * np.abs(want[key]).max(), key
+    np.testing.assert_allclose(loss, jl, rtol=1e-5)
+    assert {"encoder/down_kernel", "encoder/bn_var", "encoder/blocks/fc1/kernel"} <= set(got)
+    _grads_close(got, want)
+
+
+def test_unfrozen_mc_loss_and_every_grad_match_jax(unfrozen_mc):
+    """The music-captioning recipe with MusicFM unfrozen: as the SELD test
+    above. MusicFM's BatchNorm statistics (``running_mean`` /
+    ``running_var`` of its conv stem's ``bn*`` and ``conv_bn``) are
+    parameters, as the JAX module's ``mean`` / ``var`` leaves are, so they
+    train and their gradients match ``jax.value_and_grad``'s."""
+    jcfg, params, tm = unfrozen_mc
+    loss, jl, got, want, names = _every_grad("mc", jcfg, params, tm)
+    encoder_names = {n for n in names if n.startswith("encoder.")}
+    assert encoder_names == {f"encoder.{n}" for n, _ in tm.encoder.named_parameters()}
+    bns = [n for n, m in tm.encoder.named_modules() if isinstance(m, FrozenBatchNorm)]
+    assert bns and all(f"encoder.{n}.{s}" in encoder_names for n in bns for s in ("running_mean", "running_var"))
+    np.testing.assert_allclose(loss, jl, rtol=1e-5)
+    assert {k for k in got if k.endswith(("/mean", "/var"))} == {k for k in want if k.endswith(("/mean", "/var"))}
+    assert any(k.endswith("/var") for k in got)
+    _grads_close(got, want)
 
 
 def test_unfrozen_seld_trainer_steps_match_jax(unfrozen_seld):
@@ -605,6 +649,84 @@ def test_unfrozen_seld_msgpack_round_trips_with_jax(unfrozen_seld, tmp_path):
     for key, val in _flat(trained).items():
         np.testing.assert_array_equal(loaded[key], expect[key], err_msg=key)
     assert not np.array_equal(loaded["encoder/down_kernel"], _flat(other)["encoder/down_kernel"])
+
+
+def _trainer_pair(jcfg, params, tm):
+    """The JAX ``Trainer``'s state and the port's ``Trainer`` over the same
+    weights, with the default ``frozen_dtype`` (bf16), f32 compute, lr
+    1e-3, warmup 1: (JAX trainer, its state, its mesh, the port's)."""
+    from slam_llm_tpu.config import TrainConfig
+    from slam_llm_tpu.parallel import make_mesh
+    from slam_llm_tpu.train.state import build_trainer
+    from slam_llm_tpu_torch.train.state import Trainer
+
+    tc = TrainConfig()
+    tc.lr, tc.warmup_steps, tc.total_steps, tc.seed = 1e-3, 1, 10, 0
+    mesh = make_mesh(dp=1, fsdp=1, tp=1, devices=jax.devices()[:1])
+    jt = build_trainer(JSLAMModel(jcfg), jcfg, tc, mesh)
+    state = jt.state_from_params(jax.tree_util.tree_map(jnp.asarray, params))
+    port = tslam.SLAMModel(tm.cfg)
+    port.load_state_dict(tm.state_dict())
+    return jt, state, mesh, Trainer(port, port.cfg, tc).state_from_params()
+
+
+def test_frozen_mc_trainer_steps_match_jax():
+    """The music-captioning recipe as shipped (MusicFM frozen) through both
+    Trainers with the default ``frozen_dtype``: JAX's ``_cast_frozen``
+    stores every frozen f32 leaf in bf16, MusicFM's BatchNorm ``mean`` /
+    ``var`` included, and the port stores its ``running_mean`` /
+    ``running_var`` in bf16 too; two steps' loss and gradient norm within
+    1e-5 relative and the projector after each within 1e-5 of its norm."""
+    jcfg, params, tm = _unfrozen("mc", freeze_encoder=True)
+    jt, state, mesh, trainer = _trainer_pair(jcfg, params, tm)
+    jstats = {k: v for k, v in _flat(state["frozen"]).items() if k.endswith(("/mean", "/var"))}
+    assert jstats and all(v.dtype == jnp.bfloat16 for v in jstats.values())
+    bns = [m for m in trainer.model.encoder.modules() if isinstance(m, FrozenBatchNorm)]
+    assert sum(m.running_mean.numel() + m.running_var.numel() for m in bns) == sum(v.size for v in jstats.values())
+    assert all(t.dtype == torch.bfloat16 for m in bns for t in (m.running_mean, m.running_var))
+    assert set(trainer.trainable) == {n for n, _ in trainer.model.named_parameters() if "encoder_projector" in n}
+    with mesh:
+        db = jt.put_batch(_batch("mc"))
+    tbatch = {k: torch.from_numpy(v) for k, v in _batch("mc").items()}
+    for i in range(2):
+        with mesh:
+            state, m = jt.train_step(state, db, jax.random.PRNGKey(i))
+        met = trainer.train_step(tbatch)
+        np.testing.assert_allclose(float(met["loss"]), float(m["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(float(met["grad_norm"]), float(m["grad_norm"]), rtol=1e-5)
+        want, got = _flat(state["trainable"]), _flat(trainable_to_flax(trainer.trainable, "musicfm"))
+        assert set(got) == set(want)
+        for key, g in got.items():
+            assert np.linalg.norm(g - want[key]) <= 1e-5 * np.linalg.norm(want[key]), (i, key)
+
+
+def test_unfrozen_mc_msgpack_round_trips_with_jax(unfrozen_mc, tmp_path):
+    """As the SELD round trip above, for MusicFM unfrozen: a JAX
+    ``model.msgpack`` holds MusicFM's BatchNorm ``mean`` / ``var`` among
+    its trained leaves; the port reads them into ``running_mean`` /
+    ``running_var`` and writes them back, and the JAX package reads the
+    port's file to the same leaves, bit for bit."""
+    from slam_llm_tpu.utils.checkpoint import load_trainable_into as j_load_into
+    from slam_llm_tpu.utils.checkpoint import save_trainable as j_save
+    from slam_llm_tpu_torch.utils.checkpoint import load_trainable_into, save_trainable_msgpack
+
+    jcfg, params, tm = unfrozen_mc
+    trained = j_partition(params, jcfg)[0]
+    assert any(k.endswith("/var") and k.startswith("encoder/") for k in _flat(trained))
+    other = _seeded(params, seed=11)
+    j_save(str(tmp_path / "jax" / "model.msgpack"), trained)
+    port = tslam.SLAMModel(tm.cfg)
+    port.load_state_dict(from_flax_params(other, tm.cfg))
+    load_trainable_into(port, str(tmp_path / "jax"))
+    want = tm.state_dict()
+    assert all(torch.equal(t, want[n]) for n, t in port.state_dict().items() if n.startswith("encoder"))
+    tr, _ = partition_params(port, port.cfg)
+    assert any(n.endswith(".running_var") for n in tr)
+    save_trainable_msgpack(str(tmp_path / "port" / "model.msgpack"), tr, port.cfg)
+    loaded = _flat(j_load_into(jax.tree_util.tree_map(jnp.asarray, other), str(tmp_path / "port" / "model.msgpack")))
+    expect = _flat(params)
+    for key in _flat(trained):
+        np.testing.assert_array_equal(loaded[key], expect[key], err_msg=key)
 
 
 def _bert_tree():
