@@ -34,7 +34,10 @@ Phases, each fatal on failure:
                 decode, dx and transposed-weight dx shapes, the planner's
                 wgmma or split-K plan for each, run-to-run identical, and the
                 f32 epilogue of the int8 CE head's logits, bit-exact), plus
-                ragged, left-padded and D = 128 cases;
+                ragged, left-padded and D = 128 cases; phases 14-15 add K1 at
+                AV-HuBERT-large's (8, 50 / 100 / 150, 16/16, 64), at
+                whisper-large-v3's unpadded (42 / 21, 500 / 496, 20/20, 64)
+                and K1 / K4 at vicuna-7b's and Qwen2-7B's batches there;
   4. decode  -- the recipe examples/asr_librispeech/conf/asr_whisper_tinyllama.yaml
                 through slam_llm_tpu_torch.pipeline.inference_batch on 16
                 synthetic utterances (whisper-small, TinyLlama-1.1B int8 base,
@@ -136,6 +139,31 @@ Phases, each fatal on failure:
                 encoder_path then ckpt_path against the in-memory decode,
                 and the card vs the CPU at 2 + 2 layers (loss within 1 %,
                 every encoder tensor's gradient; the Q-Former's logged).
+ 14. vsr     -- vsr_avhubert_vicuna at full width (run_vsr): a random
+                AV-HuBERT-large file in fairseq's layout through encoder_path
+                (BatchNorms folded at load), the recipe's own file: spec,
+                which the registry resolves to the port's dataset; the card's
+                host has no OpenCV, so the dataset's video reader is replaced
+                in-process by one of seeded .npy frames (the crop, flip and
+                normalization stay the port's); video-only 2-6 s clips;
+                pipeline.finetune for 4 steps of 8 (the projector moves, the
+                encoder and vicuna-7b bf16 stay bit-unchanged, K1 56 / K4 32
+                a step), pipeline.inference_batch with ckpt_path (beam 4)
+                against the in-memory decode, the RTF from visual_mask at 25
+                fps, the card vs the CPU at 2 + 2 layers; the whole
+                AV-HuBERT-large on two ragged clips, video only and audio +
+                video, against the CPU f32 path (cosine >= 0.999).
+ 15. large_scale -- aispeech_large_scale at full width (run_large_scale):
+                whisper-large-v3 (128 mels, unpadded) + linear + Qwen2-7B bf16
+                on a wav-ark corpus with hotword prompt pools; the refusal of
+                pipeline.finetune for the iterable dataset (as in the JAX
+                package); the batcher's first two 42 x 192 batches through the
+                trainer's step at accumulation 2, twice (the first update's
+                lr is 0), the first 21 x 192 eval batch through the
+                Generator, the card vs the CPU at 2 + 2 layers; then
+                contextual_wavlm_vicuna and mala_wavlm_vicuna at 2 + 2 layers
+                of WavLM-large + vicuna-7b on the raw-audio batches: a step,
+                a decode, the card vs the CPU.
 
 Prints one JSON line of kernel results before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -413,6 +441,24 @@ def check_flash(gen) -> dict:
         ("emotion2vec-base encoder, decode batch, right-padded", 8, 299, 12, 12, 64, False, "right", 0),
         ("vicuna-7b training (E-chat), fused RoPE theta 1e4, left-padded", 16, ECHAT_T, 32, 32, 128, True, "left",
          1e4),
+        # phase 14: AV-HuBERT-large over 2, 4 and 6 s clips (25 fps) in batches of 8, and vicuna-7b's training
+        # step and prefill at the VSR batches' text bucket
+        *(("AV-HuBERT-large encoder, right-padded", VSR_BATCH, t, 16, 16, 64, False, "right", 0) for t in VSR_FRAMES),
+        ("vicuna-7b training (vsr), fused RoPE theta 1e4, left-padded", VSR_BATCH, VSR_T, 32, 32, 128, True, "left",
+         1e4),
+        ("vicuna-7b prefill (vsr), left-padded", VSR_BATCH, VSR_T, 32, 32, 128, True, "left", 0),
+        # phase 15: the batcher's batches: whisper-large-v3 over the unpadded mel of a train (42) and an eval
+        # (21) batch, Qwen2-7B's training step and prefill at their bucket, and vicuna-7b's (contextual /
+        # MaLa-ASR) on the raw-audio batches
+        *(("whisper-large-v3 (aispeech), unpadded mel, right-padded", b, t, 20, 20, 64, False, "right", 0)
+          for b, t in LS_ENC_SHAPES),
+        *(("qwen2-7b training (aispeech), fused RoPE theta 1e6, left-padded", b, t, 28, 4, 128, True, "left", 1e6)
+          for b, t in sorted(LS_TRAIN_SHAPES)),
+        *(("qwen2-7b prefill (aispeech), left-padded", b, t, 28, 4, 128, True, "left", 0)
+          for b, t in sorted(LS_EVAL_SHAPES)),
+        ("vicuna-7b training (contextual, mala), fused RoPE theta 1e4, left-padded", *CTX_TRAIN_SHAPE, 32, 32, 128,
+         True, "left", 1e4),
+        ("vicuna-7b prefill (contextual, mala), left-padded", *CTX_EVAL_SHAPE, 32, 32, 128, True, "left", 0),
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
@@ -577,6 +623,14 @@ def check_flash_bwd(gen) -> dict:
         ("Q-Former self-attn, 64 queries (SELD, SEC training)", 16, 64, 12, 12, 64, False, "none", 0),
         ("vicuna-7b training (E-chat), fused RoPE theta 1e4, left-padded", 16, ECHAT_T, 32, 32, 128, True, "left",
          1e4),
+        # phases 14-15: the trained LLMs at the VSR batches, the batcher's Qwen2-7B batches and the contextual /
+        # MaLa-ASR raw-audio batches (the encoders are frozen)
+        ("vicuna-7b training (vsr), fused RoPE theta 1e4, left-padded", VSR_BATCH, VSR_T, 32, 32, 128, True, "left",
+         1e4),
+        *(("qwen2-7b training (aispeech), fused RoPE theta 1e6, left-padded", b, t, 28, 4, 128, True, "left", 1e6)
+          for b, t in sorted(LS_TRAIN_SHAPES)),
+        ("vicuna-7b training (contextual, mala), fused RoPE theta 1e4, left-padded", *CTX_TRAIN_SHAPE, 32, 32, 128,
+         True, "left", 1e4),
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
@@ -1079,7 +1133,7 @@ def compare_prefill(model, batch, label: str) -> None:
     from slam_llm_tpu_torch.models.llm import init_kv_cache
 
     keys = [k for k in ("input_ids", "attention_mask", "modality_mask", "audio_mel", "audio_mel_mask", "audio",
-                        "audio_mask", "audio_binaural") if k in batch]
+                        "audio_mask", "audio_binaural", "visual", "visual_mask", "audio_feats") if k in batch]
 
     def run(m, rows, device):
         b = {k: torch.as_tensor(batch[k][rows]).to(device) for k in keys}
@@ -1978,7 +2032,7 @@ def check_encoder_against_cpu(label: str, enc, inputs: tuple, expect_k1: bool, m
     import dataclasses
 
     with torch.no_grad():
-        (out, out_mask), launches = run_counted(lambda: enc(*(x.cuda() for x in inputs)))
+        (out, out_mask), launches = run_counted(lambda: enc(*(None if x is None else x.cuda() for x in inputs)))
         cpu = type(enc)(dataclasses.replace(enc.cfg, dtype=torch.float32)).eval()
         cpu.load_state_dict({k: v.float().cpu() for k, v in enc.state_dict().items()})
         t0 = time.perf_counter()
@@ -1988,7 +2042,8 @@ def check_encoder_against_cpu(label: str, enc, inputs: tuple, expect_k1: bool, m
     cos = torch.nn.functional.cosine_similarity(out.float().cpu()[live], ref[live], dim=-1)
     k1 = launches[kernel]
     log(f"{label} ({enc.cfg.n_layers} layers, d {enc.cfg.d_model}, {enc.cfg.n_heads} heads, rel-pos bias "
-        f"{not expect_k1}) on an input of {tuple(inputs[0].shape)}, frames {live.sum(1).tolist()} of "
+        f"{not expect_k1}) on inputs of {[None if x is None else tuple(x.shape) for x in inputs]}, frames "
+        f"{live.sum(1).tolist()} of "
         f"{live.shape[1]}: card "
         f"{enc.cfg.dtype} vs CPU f32 plain path ({cpu_s:.1f} s on CPU): min cosine {cos.min().item():.6f} mean "
         f"{cos.mean().item():.6f}; {kernel} launches {k1}")
@@ -2792,9 +2847,10 @@ SEC_CAPTIONS = ["the speaker sounds happy and excited", "a calm, neutral voice",
                 "an angry man raises his voice", "she sounds surprised and pleased", "a tired and bored tone"]
 
 
-def _recipe_phase(label: str, recipe: Path, tmp: Path, tokenizer, train_args: tuple, test_args: tuple):
-    """One phase-12 / 13 recipe through both entry points at full width:
-    pipeline.finetune for MS_STEPS steps of 16 (the projector trains, and
+def _recipe_phase(label: str, recipe: Path, tmp: Path, tokenizer, train_args: tuple, test_args: tuple,
+                  batch: int = 16, audio_seconds: float = None, text_t: tuple = None):
+    """One phase-12 / 13 / 14 recipe through both entry points at full width:
+    pipeline.finetune for MS_STEPS steps of ``batch`` (the projector trains, and
     the encoder where ``train_args`` unfreeze it; the rest and the bf16
     vicuna-7b stay bit-unchanged; K1 / K4 launch once a layer a step, K1's
     f32 route once a Spatial-AST layer and K4's too when it trains, K2 = K3
@@ -2802,7 +2858,9 @@ def _recipe_phase(label: str, recipe: Path, tmp: Path, tokenizer, train_args: tu
     ckpt_path (beam 4, batches of 8) against the in-memory trained model's
     decode, and the card-vs-CPU checks at MS_LAYERS LLM and encoder layers
     (the loss within 1 %; the gradient gate on the encoder's tensors when it
-    trains, on every tensor otherwise). Returns the trainer, the launches of
+    trains, on every tensor otherwise); ``audio_seconds`` and ``text_t``,
+    where given, the seconds the decode's RTF must count and the text
+    buckets phase 3 checks the batches at. Returns the trainer, the launches of
     both runs and the test dataset."""
     from slam_llm_tpu_torch.pipeline import finetune, inference_batch
     from slam_llm_tpu_torch.pipeline.inference_batch import decode_loader
@@ -2815,7 +2873,7 @@ def _recipe_phase(label: str, recipe: Path, tmp: Path, tokenizer, train_args: tu
                          f"++train_config.output_dir={tmp / 'out'}")
     tc = cfg.train_config
     if (cfg.model_config.llm_name, tc.batch_size_training, tc.freeze_llm, tc.use_peft,
-            tc.shard.base_quant) != ("vicuna-7b", 16, True, False, "none"):
+            tc.shard.base_quant) != ("vicuna-7b", batch, True, False, "none"):
         raise AssertionError(f"the {label} recipe changed: {cfg.model_config} {tc}")
     res, launches, stats = _finetune(cfg, label)
     trainer = res["trainer"]
@@ -2832,7 +2890,7 @@ def _recipe_phase(label: str, recipe: Path, tmp: Path, tokenizer, train_args: tu
     log(f"[{label}] model: {c.encoder_name} ({c.encoder.n_layers} layers, d {c.encoder.d_model}, "
         f"{c.encoder.n_heads} heads, {c.encoder.dtype}) + {c.projector} + vicuna-7b ({c.llm.n_layers} layers, base "
         f"{c.llm.base_quant}, remat {c.llm.remat_policy if c.llm.remat else 'off'}); materialized in "
-        f"{res['load_seconds']:.2f} s; step {stats['step_ms']:.1f} ms, {16 / stats['step_ms'] * 1000:.2f} utt/s, peak "
+        f"{res['load_seconds']:.2f} s; step {stats['step_ms']:.1f} ms, {batch / stats['step_ms'] * 1000:.2f} utt/s, peak "
         f"memory {stats['peak_gib']:.2f} GiB ({stats['own_peak_gib']:.2f} of its own); per step "
         f"{ {k: launches[k] / steps for k in per_step} } | {SMI}")
     if steps != MS_STEPS or not res["checkpoints"]:
@@ -2845,24 +2903,24 @@ def _recipe_phase(label: str, recipe: Path, tmp: Path, tokenizer, train_args: tu
                                                         for n, p in trainer.trainable.items()):
         raise AssertionError(f"{label}: model.pt differs from the trained tensors")
     train_ds = dataset_of(cfg, tokenizer, cfg.dataset_config.train_split)
-    batch16 = trainer.put_batch(train_ds.collator([train_ds[i] for i in range(16)]))
+    train_batch = trainer.put_batch(train_ds.collator([train_ds[i] for i in range(batch)]))
     with torch.no_grad():
-        enc_ms = event_ms(lambda: trainer.model.encode(batch16), reps=3)
-    audio_key = next(k for k in ("audio_binaural", "audio_mel", "audio") if k in batch16)
-    log(f"[{label}] encoder + projector forward of a training batch {audio_key} {tuple(batch16[audio_key].shape)}: "
+        enc_ms = event_ms(lambda: trainer.model.encode(train_batch), reps=3)
+    audio_key = next(k for k in ("audio_binaural", "audio_mel", "audio", "visual") if k in train_batch)
+    log(f"[{label}] encoder + projector forward of a training batch {audio_key} {tuple(train_batch[audio_key].shape)}: "
         f"{enc_ms:.2f} ms by CUDA events, {enc_ms / stats['step_ms']:.3f} of the step | {SMI}")
     if enc_trains:  # forward + backward to the encoder's and the projector's tensors, a random cotangent
         params = [p for n, p in trainer.model.named_parameters() if n.startswith("encoder")]
         gen = torch.Generator(device="cuda").manual_seed(3)
 
         def enc_fwd_bwd():
-            h = trainer.model.encode(batch16)[0]
+            h = trainer.model.encode(train_batch)[0]
             torch.autograd.grad(h, params, torch.randn(h.shape, generator=gen, device="cuda", dtype=h.dtype))
 
         fb_ms = event_ms(enc_fwd_bwd, reps=3)
         log(f"[{label}] encoder + projector forward + backward of that batch: {fb_ms:.2f} ms by CUDA events, "
             f"{fb_ms / stats['step_ms']:.3f} of the step | {SMI}")
-    del batch16
+    del train_batch
 
     dec = _recipe_config(recipe, inference_batch.load_run_config, *test_args, f"++ckpt_path={res['checkpoints'][-1]}",
                          f"++decode_config.decode_log={tmp / 'decode'}",
@@ -2885,8 +2943,12 @@ def _recipe_phase(label: str, recipe: Path, tmp: Path, tokenizer, train_args: tu
     if any(launches[k] + dec_launches[k] for k in AAC_BYPASSED):
         raise AssertionError(f"{label}: K2 / K3 launched on the bf16 base: "
                              f"{ {k: launches[k] + dec_launches[k] for k in AAC_BYPASSED} }")
-    if not np.isfinite(out["rtf"]):
-        raise AssertionError(f"{label}: RTF {out['rtf']} over {out['audio_seconds']} s of audio")
+    seen_t = {s["shape"][1] for s in res["steps"]} | {b["input_ids"].shape[1] for b in batches}
+    if text_t is not None and not seen_t <= set(text_t):
+        raise AssertionError(f"{label}: batches at T {seen_t}, phase 3 checks {text_t}")
+    if not np.isfinite(out["rtf"]) or (audio_seconds is not None and abs(out["audio_seconds"] - audio_seconds) > 1e-6):
+        raise AssertionError(f"{label}: RTF {out['rtf']} over {out['audio_seconds']} s of audio (expected "
+                             f"{audio_seconds})")
     if c.encoder.dtype == torch.float32 and not enc_trains:
         # the trainer re-stored the frozen f32 encoder in frozen_dtype (bf16), as the JAX package's trainer
         # does, and inference_batch builds it in f32: the in-memory model gets the f32 encoder back
@@ -3093,6 +3155,432 @@ def run_seld_encoder(seld_files: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: VSR (AV-HuBERT-large, video only, + linear + vicuna-7b in bf16)
+# ---------------------------------------------------------------------------
+
+VSR_RECIPE = ROOT / "examples" / "vsr_LRS3" / "conf" / "vsr_avhubert_vicuna.yaml"
+VSR_STEPS = 4
+VSR_BATCH = 8  # the recipe's batch_size_training and val_batch_size
+VSR_FRAMES = (50, 100, 150)  # the clips' lengths in turn: 2, 4 and 6 s at 25 fps
+VSR_T = 128  # the text bucket of the training and decode batches (up to 30 audio slots, the prompt, a target)
+VSR_TARGETS = ["bin blue at f two now", "lay green with d nine soon", "place red by k four please",
+               "set white in p zero again", "we should meet at the station", "she read the letter twice"]
+
+
+def write_video_corpus(root: Path, n: int, seed: int, name: str) -> Path:
+    """``n`` seeded clips in the layout of LRS3's lip crops: (T, 96, 96) uint8
+    grey frames (a mouth-like dark ellipse opening and closing over a noisy
+    face) saved as ``.npy``, T from VSR_FRAMES in turn, each with a 16 kHz
+    wav of its length (for ``modal: audio_video``), and a jsonl manifest."""
+    from slam_llm_tpu_torch.tools.synth_checkpoint import write_wav
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:96, :96].astype(np.float32)
+    manifest = root / f"{name}.jsonl"
+    with open(manifest, "w") as f:
+        for i in range(n):
+            t = VSR_FRAMES[i % len(VSR_FRAMES)]
+            opening = 6 + 5 * np.sin(2 * np.pi * np.arange(t) / (8 + i % 5))[:, None, None]
+            mouth = ((xx - 48) / 22) ** 2 + ((yy - 60) / opening) ** 2 < 1
+            frames = 150 + 20 * rng.standard_normal((t, 96, 96)) - 90 * mouth
+            video = root / f"{name}_v{i}.npy"
+            np.save(video, np.clip(frames, 0, 255).astype(np.uint8))
+            wav = root / f"{name}_a{i}.wav"
+            write_wav(str(wav), 0.2 * np.sin(2 * np.pi * (180 + 20 * i) * np.arange(640 * t) / 16000)
+                      + 0.02 * rng.standard_normal(640 * t), 16000)
+            row = {"key": f"{name}{i}", "video": str(video), "source": str(wav),
+                   "target": VSR_TARGETS[i % len(VSR_TARGETS)]}
+            f.write(json.dumps(row) + "\n")
+    return manifest
+
+
+def read_npy_video(path: str, train: bool = False, rng=None) -> np.ndarray:
+    """``avhubert_dataset.load_video_gray`` for this phase's clips: the card's
+    host has no OpenCV, so the frames come from ``.npy``; the crop, flip and
+    normalization are the port's ``crop_and_normalize``."""
+    from slam_llm_tpu_torch.data.avhubert_dataset import crop_and_normalize
+
+    return crop_and_normalize(np.load(path), train, rng)
+
+
+def check_avhubert_loaded(enc, path: Path) -> None:
+    """The loaded AV-HuBERT-large against the written fairseq file: the
+    transformer tensors bit-equal (in the stored dtype), the stem's folded
+    BatchNorm against ``w * g / sqrt(var + 1e-5)`` computed on the card."""
+    from slam_llm_tpu_torch.utils.hf_loader import load_torch_checkpoint
+
+    sd = load_torch_checkpoint(str(path))
+    last = enc.cfg.n_layers - 1
+    checks = [(enc.layers[last].attention.k_proj.weight, sd[f"encoder.layers.{last}.self_attn.k_proj.weight"]),
+              (enc.layers[0].fc1.bias, sd["encoder.layers.0.fc1.bias"]),
+              (enc.post_proj.weight, sd["post_extract_proj.weight"]),
+              (enc.audio_proj.weight, sd["feature_extractor_audio.proj.weight"]),
+              (enc.video_frontend.layer3_1.prelu2, sd["feature_extractor_video.resnet.trunk.layer4.1.relu2.weight"])]
+    for got, want in checks:
+        if not torch.equal(got.detach().cpu(), want.to(got.dtype)):
+            raise AssertionError(f"a loaded AV-HuBERT tensor {tuple(got.shape)} differs from the written one")
+    res = "feature_extractor_video.resnet.frontend3D."
+    scale = sd[res + "1.weight"].cuda() / (sd[res + "1.running_var"].cuda() + 1e-5).sqrt()
+    want = sd[res + "0.weight"].cuda() * scale[:, None, None, None, None]
+    w = enc.video_frontend.stem.weight
+    rel = ((w.float() - want).abs().max() / want.abs().max()).item()
+    log(f"[vsr] loaded AV-HuBERT-large: {len(checks)} tensors bit-equal to the fairseq file's; the stem {tuple(w.shape)} "
+        f"with its BatchNorm folded against w * g / sqrt(var + eps) on the card: max rel diff {rel:.2e} ({w.dtype})")
+    if rel > 2 ** -8:
+        raise AssertionError(f"the folded stem differs from the file's conv and BatchNorm by {rel}")
+
+
+def run_vsr() -> dict:
+    """Phase 14: vsr_avhubert_vicuna at full width through both entry points
+    (``_recipe_phase``): a random AV-HuBERT-large file in fairseq's layout
+    (tools/synth_checkpoint.write_avhubert) through ``encoder_path``, its
+    BatchNorms folded at load; the recipe's own ``file:`` spec
+    (``slam_llm_tpu.data.avhubert_dataset``), which the registry resolves to
+    the port's module; video-only 2-6 s clips; pipeline.finetune for
+    VSR_STEPS steps of 8 (K1 once an encoder and LLM layer, K4 once an LLM
+    layer a step), pipeline.inference_batch with ckpt_path (beam 4) against
+    the in-memory decode, the RTF from ``visual_mask``, the card vs the CPU
+    at 2 + 2 layers; then the whole AV-HuBERT-large on two ragged clips,
+    video only and audio + video, against the CPU f32 path."""
+    import shutil
+
+    from slam_llm_tpu_torch.data import avhubert_dataset
+    from slam_llm_tpu_torch.models.avhubert import AVHUBERT_PRESETS
+    from slam_llm_tpu_torch.pipeline import inference_batch
+    from slam_llm_tpu_torch.tools import synth_checkpoint as synth
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_vsr_"))
+    avhubert_dataset.load_video_gray = read_npy_video
+    log("[vsr] the card's host has no OpenCV: avhubert_dataset.load_video_gray is replaced in this process by a "
+        "reader of the clips' seeded (T, 96, 96) uint8 .npy frames; the 88 x 88 crop, the flip and the "
+        "(0.421, 0.165) normalization are the port's crop_and_normalize")
+    t0 = time.perf_counter()
+    cfg_av = AVHUBERT_PRESETS["avhubert-large"]()
+    av_path = tmp / "avhubert.pt"
+    av_bytes = synth.write_avhubert(str(av_path), cfg_av, seed=1, device="cuda")
+    train = write_video_corpus(tmp, VSR_BATCH * VSR_STEPS, seed=0, name="train")
+    test = write_video_corpus(tmp, 16, seed=2, name="test")
+    tokenizer = _ms_tokenizer(tmp)
+    log(f"[vsr] wrote AV-HuBERT-large f32 in fairseq's layout ({av_bytes / 1e9:.3f} GB, BatchNorms unfolded, the "
+        f"positional conv as weight_g / weight_v), {VSR_BATCH * VSR_STEPS} train / 16 test clips of "
+        f"{VSR_FRAMES} frames and the tokenizer in {time.perf_counter() - t0:.2f} s")
+    enc_path = f"++model_config.encoder_path={av_path}"
+    trainer, launches, test_ds = _recipe_phase(
+        "vsr", VSR_RECIPE, tmp, tokenizer, (enc_path, f"++dataset_config.train_data_path={train}"),
+        (enc_path, f"++dataset_config.val_data_path={test}"), batch=VSR_BATCH,
+        audio_seconds=sum(VSR_FRAMES[i % len(VSR_FRAMES)] for i in range(16)) / 25, text_t=(VSR_T,))
+    c = trainer.model.cfg
+    if (c.encoder_name, c.encoder.n_layers, c.encoder.d_model, c.projector, c.projector_cfg.ds_rate,
+            type(test_ds).__module__) != ("av_hubert", 24, 1024, "linear", 5, "slam_llm_tpu_torch.data.avhubert_dataset"):
+        raise AssertionError(f"the VSR recipe changed: {c}, dataset {type(test_ds)}")
+    check_avhubert_loaded(trainer.model.encoder, av_path)
+
+    # the whole encoder, video only and audio + video, on a 2 s and a 6 s clip
+    over = _recipe_config(VSR_RECIPE, inference_batch.load_run_config, f"++dataset_config.val_data_path={test}",
+                          "++dataset_config.modal=audio_video")
+    over.dataset_config.inference_mode = True
+    av_ds = dataset_of(over, tokenizer, over.dataset_config.test_split)
+    two = av_ds.collator([av_ds[0], av_ds[2]])
+    visual, feats, mask = (torch.from_numpy(two[k]) for k in ("visual", "audio_feats", "visual_mask"))
+    enc = trainer.model.encoder
+    enc_launches = check_encoder_against_cpu("[vsr] AV-HuBERT-large bf16, video only", enc, (visual, None, mask),
+                                             expect_k1=True, min_cos=0.999)
+    got = check_encoder_against_cpu("[vsr] AV-HuBERT-large bf16, audio + video", enc, (visual, feats, mask),
+                                    expect_k1=True, min_cos=0.999)
+    enc_launches = {k: enc_launches[k] + got[k] for k in enc_launches}
+    del trainer, enc
+    shutil.rmtree(tmp)
+    log(f"[vsr] phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return {k: launches[k] + enc_launches[k] for k in launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the large-scale dataset: aispeech_large_scale (whisper-large-v3 +
+# linear + Qwen2-7B in bf16) on TokenBudgetBatcher batches, then the
+# contextual and MaLa-ASR recipes (WavLM-large + vicuna-7b) at 2 + 2 layers
+# ---------------------------------------------------------------------------
+
+LS_RECIPE = ROOT / "examples" / "aispeech_asr" / "conf" / "aispeech_large_scale.yaml"
+CTX_RECIPE = ROOT / "examples" / "contextual_asr" / "conf" / "contextual_wavlm_vicuna.yaml"
+MALA_RECIPE = ROOT / "examples" / "mala_asr_slidespeech" / "conf" / "mala_wavlm_vicuna.yaml"
+LS_UTTS, LS_EVAL_UTTS = 96, 24  # the train corpus fills the 192 bucket's 42 twice
+LS_NEW_TOKENS = 32
+# the batches the batcher makes of these corpora (ids; whisper-large-v3's frames are half the mel's), which phase 3
+# checks K1 / K4 at
+LS_TRAIN_SHAPES, LS_EVAL_SHAPES = {(42, 192)}, {(21, 192)}
+LS_ENC_SHAPES = ((42, 500), (42, 496), (21, 500))  # the first two train batches' 1000 / 991 mel frames, the eval one's
+# contextual / MaLa-ASR's first raw-audio train batch (bucket 192, its padding overrunning to 384) and eval batch
+CTX_TRAIN_SHAPE, CTX_EVAL_SHAPE = (21, 384), (21, 192)
+LS_LAYERS = 2  # LLM and encoder depth of the card-vs-CPU checks and of the WavLM recipes
+LS_PROMPTS = [("asr", "Transcribe speech to text. "), ("asr", "Write down what is said. "),
+              ("hotword", "Transcribe speech to text. The hotwords are {}. "),
+              ("hotword", "Transcribe the speech, which may name {}. ")]
+LS_NAMES = ["Marguerite", "Athos", "Porthos", "Aramis", "Dartagnan", "Richelieu", "Milady", "Rochefort",
+            "Buckingham", "Constance", "Planchet", "Treville", "Bonacieux", "Ketty", "Mousqueton", "Grimaud"]
+LS_WORDS = ["the", "king", "sent", "a", "letter", "to", "queen", "and", "rode", "north", "at", "dawn", "with",
+            "his", "friends", "river", "castle", "night", "sword", "horse"]
+
+
+def write_large_corpus(root: Path, n: int, seed: int) -> Path:
+    """``root`` as the large-scale dataset reads it: ``n`` seeded 2-10 s
+    utterances (tone + noise) in one wav ark written by the port's
+    ``data.kaldi_ark.write_wav_ark``; ``multitask.jsonl`` rows with their
+    ark rspecifiers, two thirds of them ``hotword`` tasks whose biasing
+    list ``utils.hotword_filter.filter_hotwords`` picks from LS_NAMES for
+    the transcript; ``multiprompt.jsonl`` with a pool of two prompts a task."""
+    from slam_llm_tpu_torch.data.kaldi_ark import write_wav_ark
+    from slam_llm_tpu_torch.utils.hotword_filter import build_ngram_index, filter_hotwords
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    index = build_ngram_index(LS_NAMES)
+    waves, rows = {}, []
+    for i in range(n):
+        samples = int(16000 * (2.0 + 8.0 * ((i * 7) % n) / (n - 1)))
+        t = np.arange(samples) / 16000
+        waves[f"utt{i}"] = (0.3 * np.sin(2 * np.pi * (150 + 13 * (i % 29)) * t)
+                            + 0.02 * rng.standard_normal(samples)).astype(np.float32)
+        words = [LS_WORDS[j] for j in rng.integers(0, len(LS_WORDS), 3 + i % 5)]
+        words.insert(int(rng.integers(0, len(words))), LS_NAMES[i % len(LS_NAMES)])
+        rows.append({"key": f"utt{i}", "task": "asr" if i % 3 == 0 else "hotword", "target": " ".join(words)})
+        if rows[-1]["task"] == "hotword":
+            rows[-1]["hotword"] = ", ".join(filter_hotwords(rows[-1]["target"], LS_NAMES, word_num=3,
+                                                            ngram_index=index))
+    specs = write_wav_ark(str(root / "audio.ark"), waves)
+    with open(root / "multitask.jsonl", "w") as f:
+        for row, spec in zip(rows, specs):
+            f.write(json.dumps({**row, "path": spec}) + "\n")
+    with open(root / "multiprompt.jsonl", "w") as f:
+        for task, prompt in LS_PROMPTS:
+            f.write(json.dumps({"task": task, "prompt": prompt}) + "\n")
+    return root
+
+
+class BatcherItems:
+    """A ``TokenBudgetBatcher``'s utterances as a map-style view for the
+    card-vs-CPU gradient check: ``items[i]`` and ``collator(samples)``,
+    padded to the bucket the batcher gives their longest."""
+
+    def __init__(self, batcher, n: int):
+        from slam_llm_tpu_torch.data.speech_dataset import bucketize
+
+        self.batcher, self.items = batcher, list(itertools.islice(iter(batcher.dataset), n))
+        self.bucketize = bucketize
+
+    def __getitem__(self, i: int) -> dict:
+        return self.items[i]
+
+    def collator(self, samples: list) -> dict:
+        bucket = self.bucketize(max(len(s["input_ids"]) for s in samples), self.batcher.buckets)
+        return self.batcher._collate(samples, bucket)
+
+
+def run_aispeech(tmp: Path) -> tuple:
+    """aispeech_large_scale at full width: the recipe's own batcher (8192
+    tokens a training batch, 4096 an eval batch, buckets 192-768, the mel
+    not padded to 30 s). ``pipeline.finetune`` refuses the iterable dataset
+    (as the JAX package's does), so its first two batches go through the
+    trainer's step at the recipe's gradient accumulation 2, twice (the
+    first update's lr is 0 under warmup); the first eval batch decodes
+    through the Generator (beam 4); the card against the CPU at 2 + 2
+    layers. Returns the launches and the train corpus."""
+    global _synth_tokenizer_dir
+    from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
+    from slam_llm_tpu_torch.inference.generate import Generator
+    from slam_llm_tpu_torch.pipeline import finetune, inference_batch
+    from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
+    from slam_llm_tpu_torch.tools.synth_checkpoint import QWEN2_BPE, write_qwen2_tokenizer
+    from slam_llm_tpu_torch.train.state import Trainer
+
+    t0 = time.perf_counter()
+    train, val = write_large_corpus(tmp / "train", LS_UTTS, seed=0), write_large_corpus(tmp / "eval", LS_EVAL_UTTS,
+                                                                                       seed=1)
+    write_qwen2_tokenizer(str(tmp / "qwen2"), QWEN2_BPE, seed=0,
+                          corpus=[" ".join(LS_WORDS + LS_NAMES)] + [p for _, p in LS_PROMPTS])
+    _synth_tokenizer_dir = str(tmp / "qwen2")
+    tokenizer = load_tokenizer(_synth_tokenizer_dir)
+    log(f"[large_scale] wrote {LS_UTTS} train / {LS_EVAL_UTTS} eval utterances of 2-10 s in wav arks, their "
+        f"multitask / multiprompt manifests (hotword lists from utils.hotword_filter) and a qwen2-layout tokenizer in "
+        f"{time.perf_counter() - t0:.2f} s")
+    args = (f"++dataset_config.train_data_path={train}", f"++dataset_config.val_data_path={val}",
+            f"++train_config.output_dir={tmp / 'out'}", "++train_config.warmup_steps=1")
+    cfg = _recipe_config(LS_RECIPE, finetune.load_run_config, *args)
+    mc, dc, tc = cfg.model_config, cfg.dataset_config, cfg.train_config
+    if (mc.llm_name, mc.encoder_config, mc.encoder_projector, mc.encoder_projector_ds_rate, dc.dataset, dc.mel_size,
+            dc.pad_or_trim, dc.train_max_frame_length, dc.eval_max_frame_length, list(dc.text_buckets),
+            tc.gradient_accumulation_steps, tc.shard.remat, tc.freeze_llm, tc.shard.base_quant) != (
+            "qwen2-7b", "whisper-large-v3", "linear", 5, "speech_dataset_large", 128, False, 8192, 4096,
+            [192, 256, 384, 512, 768], 2, True, True, "none"):
+        raise AssertionError(f"the aispeech recipe changed: {mc} {dc} {tc}")
+    try:
+        finetune.main(cfg, device="cuda")
+    except TypeError as e:  # the loader takes map-style datasets, in both packages
+        refusal = str(e)
+    else:
+        raise AssertionError("pipeline.finetune ran the iterable TokenBudgetBatcher")
+    log(f"[large_scale] pipeline.finetune refused the iterable dataset, as the JAX package's does: {refusal}")
+    if "TokenBudgetBatcher" not in refusal:
+        raise AssertionError(f"pipeline.finetune refused the iterable dataset with {refusal!r}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model, _, batcher = build_model_and_data(cfg, split="train", device="cuda")
+    materialize_params(model, cfg)
+    trainer = Trainer(model, model.cfg, tc).state_from_params()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = list(itertools.islice(iter(batcher), 2))
+    host_s = time.perf_counter() - t0
+    batches = [trainer.put_batch(b) for b in host]
+    shapes = [(tuple(b["input_ids"].shape), tuple(b["audio_mel"].shape)) for b in batches]
+    log(f"[large_scale] Qwen2-7B + whisper-large-v3 built and materialized in {build_s:.2f} s; the batcher's first two "
+        f"train batches (ids, mel) {shapes} in {host_s:.2f} s of host time (ark reads, mel, tokens, collation)")
+    if [(s[0][0], (s[1][1] + 1) // 2) for s in shapes] != list(LS_ENC_SHAPES[:2]) or any(
+            s[0] not in LS_TRAIN_SHAPES for s in shapes):
+        raise AssertionError(f"the train batches {shapes} are not the shapes phase 3 checks K1 / K4 at "
+                             f"({LS_TRAIN_SHAPES}, encoder {LS_ENC_SHAPES[:2]})")
+    proj = {n: p.detach().clone() for n, p in trainer.trainable.items()}
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def steps():
+        times, losses, moved = [], [], []
+        for b in batches + batches:
+            t = time.perf_counter()
+            m = trainer.train_step(b)
+            losses.append(float(m["loss"]))  # waits for the micro-step
+            times.append(time.perf_counter() - t)
+            moved.append(any(not torch.equal(p, proj[n]) for n, p in trainer.trainable.items()))
+        return times, losses, moved
+
+    (times, losses, moved), launches = run_counted(steps)
+    peak = torch.cuda.max_memory_allocated()
+    c = model.cfg
+    per = {"flash_attention_fwd": c.encoder.n_layers + c.llm.n_layers, "flash_attention_bwd": c.llm.n_layers}
+    utts = sum(b["input_ids"].shape[0] for b in batches)
+    step_s = sum(times[2:])
+    log(f"[large_scale] 4 micro-steps (2 updates at accumulation {tc.gradient_accumulation_steps}): losses "
+        f"{[round(x, 5) for x in losses]}, micro-step times {[round(1000 * x, 1) for x in times]} ms; the second "
+        f"update {1000 * step_s:.1f} ms for {utts} utterances ({utts / step_s:.2f} utt/s); trainable tensors moved "
+        f"after each micro-step {moved}; peak memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} of its own); "
+        f"per micro-step K1 {launches['flash_attention_fwd'] / 4:.0f} K4 {launches['flash_attention_bwd'] / 4:.0f} "
+        f"| {SMI}")
+    if not all(np.isfinite(losses)) or moved != [False, False, False, True] or \
+            {k: launches[k] for k in per} != {k: 4 * v for k, v in per.items()} or \
+            any(launches[k] for k in AAC_BYPASSED):
+        raise AssertionError(f"large_scale training: losses {losses}, moved {moved}, launches {launches}")
+    check_projector_trained(trainer, cfg, "large_scale")
+
+    dec = _recipe_config(LS_RECIPE, inference_batch.load_run_config, *args,
+                         f"++decode_config.max_new_tokens={LS_NEW_TOKENS}")
+    dec.dataset_config.inference_mode = True
+    eval_batch = next(iter(dataset_of(dec, tokenizer, dec.dataset_config.test_split)))
+    gen = Generator(trainer.model.eval(), inference_batch.generation_config(dec, tokenizer))
+    arrays = {k: v for k, v in eval_batch.items() if isinstance(v, np.ndarray)}
+    t0 = time.perf_counter()
+    tokens, dec_launches = run_counted(lambda: gen.generate(arrays))
+    gen_s = time.perf_counter() - t0
+    st, seconds = gen.stats, inference_batch.batch_audio_seconds(eval_batch)
+    lines = [tokenizer.decode(t) for t in inference_batch.strip_after_eos(tokens, tokenizer.eos_token_id,
+                                                                         tokenizer.pad_token_id)]
+    log(f"[large_scale] eval batch (budget {dec.dataset_config.eval_max_frame_length}) {arrays['input_ids'].shape} ids, "
+        f"mel {arrays['audio_mel'].shape}: beam {dec.decode_config.num_beams}, {LS_NEW_TOKENS} new tokens at most, "
+        f"{gen_s:.2f} s (prefill {1000 * st['prefill_s']:.1f} ms, "
+        f"{1000 * st['decode_s'] / max(st['decode_steps'], 1):.2f} ms/beam step over {st['decode_steps']} steps), "
+        f"RTF {gen_s / seconds:.4f} over {seconds:.2f} s of audio (the unpadded mel mask); launches {dec_launches} "
+        f"| {SMI}")
+    print("\n".join(repr(line) for line in lines[:2]))
+    if tuple(arrays["input_ids"].shape) not in LS_EVAL_SHAPES or (
+            arrays["audio_mel"].shape[0], (arrays["audio_mel"].shape[1] + 1) // 2) != LS_ENC_SHAPES[2] or \
+            dec_launches["flash_attention_fwd"] == 0 or any(
+            dec_launches[k] for k in AAC_BYPASSED):
+        raise AssertionError(f"large_scale decode: batch {arrays['input_ids'].shape} (phase 3: {LS_EVAL_SHAPES}), "
+                             f"launches {dec_launches}")
+    items = BatcherItems(batcher, 1)
+    loss_gpu, loss_cpu = check_reduced_against_cpu(trainer, cfg, eval_batch, items, "large_scale", LS_LAYERS)
+    if not abs(loss_gpu - loss_cpu) <= 1e-2 * abs(loss_cpu):
+        raise AssertionError(f"large_scale: loss {loss_gpu} on the card, {loss_cpu} on the CPU")
+    del trainer, model, gen, batches
+    torch.cuda.empty_cache()
+    return {k: launches[k] + dec_launches[k] for k in launches}, train
+
+
+def run_wavlm_large_scale(label: str, recipe: Path, corpus: Path, tmp: Path) -> dict:
+    """contextual_wavlm_vicuna or mala_wavlm_vicuna on the batcher's raw-audio
+    batches at LS_LAYERS LLM and encoder layers of their full widths
+    (WavLM-large + vicuna-7b, seeded random init; the full-width model is
+    phase 9's): one training step, one beam-4 decode of an eval batch, and
+    the card against the CPU."""
+    import dataclasses
+
+    from slam_llm_tpu_torch.inference.generate import Generator
+    from slam_llm_tpu_torch.models.slam_model import SLAMModel, build_slam_config
+    from slam_llm_tpu_torch.pipeline import finetune, inference_batch
+    from slam_llm_tpu_torch.pipeline.common import init_params_
+    from slam_llm_tpu_torch.train.state import Trainer
+
+    tokenizer = _ms_tokenizer(tmp)
+    cfg = _recipe_config(recipe, finetune.load_run_config, f"++dataset_config.train_data_path={corpus}",
+                         f"++dataset_config.val_data_path={corpus}", "++train_config.warmup_steps=1")
+    mc, dc = cfg.model_config, cfg.dataset_config
+    if (mc.encoder_config, mc.llm_name, dc.dataset, dc.input_type, dc.normalize) != (
+            "wavlm-large", "vicuna-7b", "speech_dataset_large", "raw", True):
+        raise AssertionError(f"the {label} recipe changed: {mc} {dc}")
+    big = build_slam_config(cfg.train_config, mc)
+    small = dataclasses.replace(big, llm=dataclasses.replace(big.llm, n_layers=LS_LAYERS),
+                                encoder=dataclasses.replace(big.encoder, n_layers=LS_LAYERS))
+    model = init_params_(SLAMModel(small, device="cuda"), torch.Generator(device="cuda").manual_seed(5))
+    trainer = Trainer(model, small, cfg.train_config).state_from_params()
+    batcher = dataset_of(cfg, tokenizer, "train")
+    batch = trainer.put_batch(next(iter(batcher)))
+    t0 = time.perf_counter()
+    m, launches = run_counted(lambda: trainer.train_step(batch))
+    step_s = time.perf_counter() - t0
+    dec = _recipe_config(recipe, inference_batch.load_run_config, f"++dataset_config.val_data_path={corpus}",
+                         f"++decode_config.max_new_tokens={LS_NEW_TOKENS}")
+    dec.dataset_config.inference_mode = True
+    eval_batch = next(iter(dataset_of(dec, tokenizer, dec.dataset_config.test_split)))
+    gen = Generator(model.eval(), inference_batch.generation_config(dec, tokenizer))
+    arrays = {k: v for k, v in eval_batch.items() if isinstance(v, np.ndarray)}
+    tokens, dec_launches = run_counted(lambda: gen.generate(arrays))
+    log(f"[{label}] {LS_LAYERS} + {LS_LAYERS} layers of WavLM-large + vicuna-7b: one step on the batcher's first "
+        f"batch {tuple(batch['input_ids'].shape)} ids, audio {tuple(batch['audio'].shape)}: loss "
+        f"{float(m['loss']):.5f}, {1000 * step_s:.1f} ms (the first: allocation included), launches "
+        f"K1 {launches['flash_attention_fwd']} K4 {launches['flash_attention_bwd']}; decode of an eval batch "
+        f"{arrays['input_ids'].shape} (beam {dec.decode_config.num_beams}): {tokens.shape} tokens, launches K1 "
+        f"{dec_launches['flash_attention_fwd']} | {SMI}")
+    if not np.isfinite(float(m["loss"])) or (launches["flash_attention_fwd"], launches["flash_attention_bwd"]) != (
+            LS_LAYERS, LS_LAYERS) or dec_launches["flash_attention_fwd"] == 0 or (
+            tuple(batch["input_ids"].shape), arrays["input_ids"].shape) != (CTX_TRAIN_SHAPE, CTX_EVAL_SHAPE):
+        raise AssertionError(f"{label}: loss {m['loss']}, launches {launches} / {dec_launches}")
+    loss_gpu, loss_cpu = check_reduced_against_cpu(trainer, cfg, eval_batch, BatcherItems(batcher, 1), label,
+                                                   LS_LAYERS)
+    if not abs(loss_gpu - loss_cpu) <= 1e-2 * abs(loss_cpu):
+        raise AssertionError(f"{label}: loss {loss_gpu} on the card, {loss_cpu} on the CPU")
+    del trainer, model, gen
+    torch.cuda.empty_cache()
+    return {k: launches[k] + dec_launches[k] for k in launches}
+
+
+def run_large_scale() -> dict:
+    """Phase 15: aispeech_large_scale at full width (``run_aispeech``), then
+    contextual_wavlm_vicuna and mala_wavlm_vicuna at LS_LAYERS + LS_LAYERS
+    layers on the same corpus's raw-audio batches."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_large_"))
+    launches, corpus = run_aispeech(tmp)
+    for label, recipe in (("contextual", CTX_RECIPE), ("mala", MALA_RECIPE)):
+        got = run_wavlm_large_scale(label, recipe, corpus, tmp / label)
+        launches = {k: launches[k] + got[k] for k in launches}
+    shutil.rmtree(tmp)
+    log(f"[large_scale] phase 15 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     global SMI
     t0 = time.perf_counter()
@@ -3109,15 +3597,18 @@ def main() -> int:
     clap = run_clap(aac_files)
     music_spatial, seld_files = run_music_spatial()
     seld_encoder = run_seld_encoder(seld_files)
+    vsr = run_vsr()
+    large_scale = run_large_scale()
     paths = {"decode": decode, "train": train, "train_int8_sr": modes, "weights": weights, "st": st,
-             "wavlm": wavlm, "aac": aac, "clap": clap, **music_spatial, "seld_encoder": seld_encoder}
+             "wavlm": wavlm, "aac": aac, "clap": clap, **music_spatial, "seld_encoder": seld_encoder, "vsr": vsr,
+             "large_scale": large_scale}
     for r in results:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
         if r["name"].startswith("int8_matmul"):  # the code paths count both epilogues together
             r["launches_by_code_path"] = {p: {path: counts[f"int8_matmul/{p}"] for path, counts in paths.items()}
                                           for p in ("wgmma", "splitk")}
-    log(f"[chip_smoke] phases 1-13 in {time.perf_counter() - t0:.1f} s | {SMI}")
+    log(f"[chip_smoke] phases 1-15 in {time.perf_counter() - t0:.1f} s | {SMI}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -24,6 +24,7 @@ from slam_llm_tpu_torch.models.llm import init_kv_cache, reorder_cache
 NEG_INF = -1.0e9
 _BATCH_KEYS = ("input_ids", "attention_mask", "modality_mask", "audio_mel", "audio_mel_mask", "audio", "audio_mask",
                "audio_binaural",  # spatial_ast's (B, 4, frames, mels) feature map
+               "visual", "visual_mask", "audio_feats",  # av_hubert's frames, frame mask and stacked fbank
                "text_input_ids", "text_input_mask")  # the hf-text encoder's
 
 

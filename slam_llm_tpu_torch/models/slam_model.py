@@ -11,11 +11,11 @@ fbank encoders of the audio-captioning recipes (``eat``, ``beats``) and
 MusicFM (``musicfm``), which read ``audio_mel`` / ``audio_mel_mask`` as
 whisper does, Spatial-AST (``spatial_ast``), which reads the binaural
 feature map ``audio_binaural``, and the BERT text encoder ``hf-text``, which
-reads ``text_input_ids`` / ``text_input_mask``.
+reads ``text_input_ids`` / ``text_input_mask``, and AV-HuBERT (``av_hubert``),
+which reads ``visual`` / ``audio_feats`` / ``visual_mask``.
 Without an encoder (``encoder_name: null``, DRCap) the batch's ``audio_mel``
 (else ``audio``) is the encoder output, with ``audio_mel_mask`` or ones:
-DRCap's one-frame CLAP latents. The other encoders raise
-``NotImplementedError``. The projector is linear, cov1d-linear or q-former.
+DRCap's one-frame CLAP latents. VALL-E X raises ``NotImplementedError``. The projector is linear, cov1d-linear or q-former.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from slam_llm_tpu_torch.models.avhubert import AVHUBERT_PRESETS, AVHubertEncoder
 from slam_llm_tpu_torch.models.beats import BEATS_PRESETS, BEATsEncoder
 from slam_llm_tpu_torch.models.bert import BERT_PRESETS, BertEncoder
 from slam_llm_tpu_torch.models.llm import CausalLM, KVCache, LLMConfig
@@ -41,14 +42,14 @@ from slam_llm_tpu_torch.models.whisper import WhisperEncoder
 from slam_llm_tpu_torch.ops.quant import check_bwd_mode
 
 IGNORE_INDEX = -100
-_TODO_ENCODERS = "ROADMAP Queue 1: av_hubert and vallex"
+_TODO_ENCODERS = "ROADMAP Queue 1: vallex"
 RAW_ENCODERS = ("wavlm", "hubert", "emotion2vec")  # read the raw waveform
 
 
 @dataclass(frozen=True)
 class SLAMConfig:
     llm: LLMConfig = field(default_factory=LLMConfig.tiny_test)
-    # whisper | wavlm | hubert | emotion2vec | eat | beats | musicfm | spatial_ast | hf-text | None
+    # whisper | wavlm | hubert | emotion2vec | eat | beats | musicfm | spatial_ast | av_hubert | hf-text | None
     encoder_name: Optional[str] = "whisper"
     encoder: Any = None  # the encoder's config (WhisperEncoderConfig, WavLMConfig, MusicFMConfig, ...)
     projector: str = "linear"
@@ -108,6 +109,8 @@ class SLAMModel(nn.Module):
             self.encoder = MusicFMEncoder(cfg.encoder, device)
         elif cfg.encoder_name == "spatial_ast":
             self.encoder = SpatialASTEncoder(cfg.encoder, device)
+        elif cfg.encoder_name == "av_hubert":
+            self.encoder = AVHubertEncoder(cfg.encoder, device)
         elif cfg.encoder_name == "hf-text":
             self.encoder = BertEncoder(cfg.encoder, device)
         elif cfg.encoder_name is None:
@@ -136,6 +139,8 @@ class SLAMModel(nn.Module):
                 enc = self.encoder(batch["text_input_ids"], enc_mask)
             elif self.cfg.encoder_name == "spatial_ast":
                 enc, enc_mask = self.encoder(batch["audio_binaural"])
+            elif self.cfg.encoder_name == "av_hubert":
+                enc, enc_mask = self.encoder(batch.get("visual"), batch.get("audio_feats"), batch.get("visual_mask"))
             else:  # whisper, eat, beats, musicfm
                 enc, enc_mask = self.encoder(batch["audio_mel"], batch.get("audio_mel_mask"))
         if self.cfg.projector == "q-former":
@@ -200,6 +205,9 @@ def build_slam_config(train_config, model_config) -> SLAMConfig:
         encoder_dim = enc_cfg.d_model
     elif mc.encoder_name == "spatial_ast":
         enc_cfg = SPATIAL_AST_PRESETS[mc.encoder_config or "spatialast-base"]()
+        encoder_dim = enc_cfg.d_model
+    elif mc.encoder_name == "av_hubert":
+        enc_cfg = AVHUBERT_PRESETS[mc.encoder_config or "avhubert-large"]()
         encoder_dim = enc_cfg.d_model
     elif mc.encoder_name == "hf-text":
         enc_cfg = BERT_PRESETS[mc.encoder_config or "bert-base-uncased"]()

@@ -13,12 +13,15 @@ to float32, float32 out). The reference computes these features with
   * log(max(power, eps)).
 
 ``eat_preprocess`` / ``beats_preprocess`` reproduce the reference's padding,
-cropping and normalisation conventions.
+cropping and normalisation conventions. ``logfbank_psf`` is the other
+frontend: python_speech_features' log filterbank, which AV-HuBERT's audio
+features are built on.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import numpy as np
@@ -143,3 +146,61 @@ def beats_preprocess(
     x = np.asarray(waveform, np.float32) * 32768.0  # BEATs expects int16 scale
     mel = fbank(x, num_mel_bins=128)
     return (mel - fbank_mean) / (2.0 * fbank_std)
+
+
+# ---------------------------------------------------------------------------
+# python_speech_features logfbank (AV-HuBERT's audio frontend)
+# ---------------------------------------------------------------------------
+
+
+def _psf_mel_banks(nfilt: int, nfft: int, sr: int, lowfreq: float, highfreq: float) -> np.ndarray:
+    """python_speech_features.get_filterbanks: HTK mel points, bins via
+    floor((nfft+1) * hz / sr), un-normalized triangles."""
+
+    def hz2mel(h):
+        return 2595.0 * np.log10(1.0 + np.asarray(h, np.float64) / 700.0)
+
+    def mel2hz(m):
+        return 700.0 * (10.0 ** (np.asarray(m, np.float64) / 2595.0) - 1.0)
+
+    mels = np.linspace(hz2mel(lowfreq), hz2mel(highfreq), nfilt + 2)
+    bins = np.floor((nfft + 1) * mel2hz(mels) / sr).astype(int)
+    fb = np.zeros((nfilt, nfft // 2 + 1))
+    for j in range(nfilt):
+        for i in range(bins[j], bins[j + 1]):
+            fb[j, i] = (i - bins[j]) / max(bins[j + 1] - bins[j], 1)
+        for i in range(bins[j + 1], bins[j + 2]):
+            fb[j, i] = (bins[j + 2] - i) / max(bins[j + 2] - bins[j + 1], 1)
+    return fb
+
+
+def logfbank_psf(
+    signal: np.ndarray,
+    samplerate: int = 16000,
+    winlen: float = 0.025,
+    winstep: float = 0.01,
+    nfilt: int = 26,
+    nfft: int = 512,
+    lowfreq: float = 0.0,
+    highfreq: Optional[float] = None,
+    preemph: float = 0.97,
+) -> np.ndarray:
+    """python_speech_features.logfbank with its defaults, the frontend the
+    AV-HuBERT checkpoints were trained on. It differs from ``fbank`` above
+    in every detail that matters to a frozen checkpoint: a rectangular
+    window, no per-frame DC removal, lowfreq 0, ceil framing with a zero
+    pad, the power spectrum |rfft|^2 / NFFT and the natural log."""
+    highfreq = highfreq or samplerate / 2
+    x = np.asarray(signal, np.float64)
+    x = np.append(x[0], x[1:] - preemph * x[:-1])
+    frame_len = int(round(winlen * samplerate))
+    frame_step = int(round(winstep * samplerate))
+    slen = len(x)
+    numframes = 1 if slen <= frame_len else 1 + int(math.ceil((slen - frame_len) / frame_step))
+    padlen = (numframes - 1) * frame_step + frame_len
+    x = np.concatenate([x, np.zeros(max(padlen - slen, 0))])
+    idx = np.arange(frame_len)[None, :] + frame_step * np.arange(numframes)[:, None]
+    pspec = (np.abs(np.fft.rfft(x[idx], nfft)) ** 2) / nfft
+    feat = pspec @ _psf_mel_banks(nfilt, nfft, samplerate, lowfreq, highfreq).T
+    feat = np.where(feat == 0, np.finfo(np.float64).eps, feat)
+    return np.log(feat).astype(np.float32)

@@ -70,7 +70,7 @@ def build_model_and_data(cfg: RunConfig, split: str = "train", device="cuda"):
 @torch.no_grad()
 def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random init in place, drawn on the generator's device, following the
-    reference's initializers: dense and conv kernels (1-D and 2-D; the
+    reference's initializers: dense and conv kernels (1-D, 2-D and 3-D; the
     ``hf-text`` BERT's ``nn.Linear``s too) normal with std 1/sqrt(fan_in),
     biases 0, LoRA A normal with std 1/r and B
     zero, embeddings and the Q-Former's queries standard normal, WavLM's
@@ -102,7 +102,7 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, nn.LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
-        elif isinstance(mod, (nn.Conv1d, nn.Conv2d)):
+        elif isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Conv3d)):
             fan_in = mod.weight[0].numel()  # input channels per group x taps
             mod.weight.copy_(normal(mod.weight.shape, 1.0 / math.sqrt(fan_in)))
             if mod.bias is not None:

@@ -36,6 +36,8 @@ from slam_llm_tpu_torch.pipeline.common import (
 )
 from slam_llm_tpu_torch.utils.logging_utils import setup_logger
 
+VIDEO_FPS = 25.0  # AV-HuBERT's lip videos
+
 
 def decode_loader(cfg: RunConfig, dataset):
     """The test split in order, ``val_batch_size`` rows per batch; the last
@@ -70,7 +72,10 @@ def batch_audio_seconds(batch) -> float:
     """Seconds of audio in a batch, for the RTF: the collator's true
     (pre-pad) durations where it summed them, else the valid frames of the
     mel mask (10 ms hop) or of the raw waveform's mask (16 kHz), else the
-    binaural feature map's frames (B, 4, frames, mels; 10 ms hop at 32 kHz)."""
+    binaural feature map's frames (B, 4, frames, mels; 10 ms hop at 32 kHz),
+    else the video frames of ``visual_mask`` at 25 fps (the rate
+    ``models.avhubert.stacked_logfbank``'s 4-frame stack assumes). The JAX
+    pipeline has no video branch, so a VSR decode's RTF is nan there."""
     if "audio_seconds" in batch:
         return float(batch["audio_seconds"])
     if "audio_mel_mask" in batch:
@@ -79,6 +84,8 @@ def batch_audio_seconds(batch) -> float:
         return float(batch["audio_mask"].sum()) / 16000.0
     if "audio_binaural" in batch:
         return float(batch["audio_binaural"].shape[0] * batch["audio_binaural"].shape[2]) * 0.01
+    if "visual_mask" in batch:
+        return float(batch["visual_mask"].sum()) / VIDEO_FPS
     return 0.0
 
 

@@ -7,6 +7,12 @@ utils/model_utils.py:4-29). The model factory defaults to the port's own
 ``model_factory`` and the dataset factory to the port's speech dataset or,
 by ``dataset_config.dataset``, one of its in-tree datasets (``DATASETS``);
 the JAX package's other in-tree datasets are not ported yet.
+
+A recipe may name a JAX module in its spec (``vsr_avhubert_vicuna.yaml``'s
+``slam_llm_tpu.data.avhubert_dataset:get_avhubert_dataset``). The port never
+imports the JAX package: such a spec resolves to the port's module of the
+same path under ``slam_llm_tpu_torch``, and raises ``NotImplementedError``
+where the port has none yet.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from typing import Any, Callable, Optional
 
 # the JAX package's in-tree datasets the port does not carry yet (ROADMAP.md
 # Queue 1: each comes with the recipe that reads it)
-UNPORTED_DATASETS = ("s2s_dataset", "text_dataset", "vallex_dataset", "avhubert_dataset", "speech_dataset_large")
+UNPORTED_DATASETS = ("s2s_dataset", "text_dataset", "vallex_dataset")
 # dataset_config.dataset -> (module, factory) of the port's in-tree datasets
 DATASETS = {
     "speech_dataset": ("slam_llm_tpu_torch.data.speech_dataset", "get_speech_dataset"),
@@ -27,7 +33,18 @@ DATASETS = {
     "mir_dataset": ("slam_llm_tpu_torch.data.mir_dataset", "get_mir_dataset"),
     "echat_dataset": ("slam_llm_tpu_torch.data.echat_dataset", "get_echat_dataset"),
     "spatial_audio_dataset": ("slam_llm_tpu_torch.data.spatial_dataset", "get_spatial_audio_dataset"),
+    "avhubert_dataset": ("slam_llm_tpu_torch.data.avhubert_dataset", "get_avhubert_dataset"),
+    "speech_dataset_large": ("slam_llm_tpu_torch.data.speech_dataset_large", "get_speech_dataset_large"),
 }
+_JAX_PACKAGE = "slam_llm_tpu"
+
+
+def port_module_name(target: str) -> str:
+    """A module path of the JAX package -> the port's module of the same
+    path; any other path is returned as it is."""
+    if target == _JAX_PACKAGE or target.startswith(_JAX_PACKAGE + "."):
+        return "slam_llm_tpu_torch" + target[len(_JAX_PACKAGE):]
+    return target
 
 
 def load_module_from_py_file(py_file: str):
@@ -51,8 +68,16 @@ def load_module_from_py_file(py_file: str):
     return module
 
 
+def _has_module(name: str) -> bool:
+    try:
+        return importlib.util.find_spec(name) is not None
+    except ModuleNotFoundError:  # a parent package is missing too
+        return False
+
+
 def resolve_factory(spec: str, default_name: str = "factory") -> Callable[..., Any]:
-    """Resolve ``"pkg.mod:fn"``, ``"path/to/file.py:fn"`` or ``"path/to/file.py"``."""
+    """Resolve ``"pkg.mod:fn"``, ``"path/to/file.py:fn"`` or ``"path/to/file.py"``;
+    a ``slam_llm_tpu.<m>`` module resolves to ``slam_llm_tpu_torch.<m>``."""
     if ":" in spec:
         target, func_name = spec.rsplit(":", 1)
     else:
@@ -60,7 +85,11 @@ def resolve_factory(spec: str, default_name: str = "factory") -> Callable[..., A
     if target.endswith(".py"):
         module = load_module_from_py_file(target)
     else:
-        module = importlib.import_module(target)
+        ported = port_module_name(target)
+        if ported != target and not _has_module(ported):
+            raise NotImplementedError(f"{target} is not ported to slam_llm_tpu_torch yet (ROADMAP.md Queue 1: it "
+                                      "comes with the recipe that reads it)")
+        module = importlib.import_module(ported)
     try:
         return getattr(module, func_name)
     except AttributeError as e:

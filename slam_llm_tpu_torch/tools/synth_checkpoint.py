@@ -2,7 +2,8 @@
 
     python -m slam_llm_tpu_torch.tools.synth_checkpoint <out dir> \\
         [--llm tinyllama-1.1b | vicuna-7b | qwen2-7b | none] \\
-        [--encoder whisper-small | whisper-large-v3 | wavlm-large | hubert-large | eat-base | beats-iter3 | ...]
+        [--encoder whisper-small | whisper-large-v3 | wavlm-large | hubert-large | eat-base | beats-iter3 |
+                   avhubert-large | ...]
         [--seed 0] [--device cuda]
 
 writes ``<out dir>/llm`` (unless ``--llm none``) and ``<out dir>/whisper``
@@ -47,9 +48,13 @@ are drawn on ``--device`` (the card unless the caller asks for the CPU):
   relative-position table in every layer (BEATs shares layer 0's);
 * ``write_spatial_ast``: a BAT / Spatial-AST checkpoint, ``{"model": sd}``
   (f32), the keys ``models.spatial_ast.convert_spatialast_torch`` reads
-  (``--encoder spatialast-base`` writes ``<out dir>/spatial_ast.pt``).
+  (``--encoder spatialast-base`` writes ``<out dir>/spatial_ast.pt``);
+* ``write_avhubert``: a fairseq AV-HuBERT checkpoint, ``{"model": sd}``
+  (f32): the ResNet frontend with unfolded BatchNorms and PReLUs, the
+  positional conv under weight norm, the pre-LN layers
+  (``--encoder avhubert-large`` writes ``<out dir>/avhubert.pt``).
 
-The two torch files hold tensors and plain dicts only, so
+The torch files hold tensors and plain dicts only, so
 ``utils.hf_loader.load_torch_checkpoint`` reads them without fairseq or
 omegaconf.
 
@@ -436,6 +441,74 @@ def write_spatial_ast(path: str, cfg, seed: int = 0, device="cpu") -> int:
     return _save_torch(path, {"model": sd})
 
 
+def write_avhubert(path: str, cfg, seed: int = 0, device="cpu") -> int:
+    """A fairseq AV-HuBERT checkpoint file for ``cfg`` (the port's
+    ``AVHubertConfig``), ``{"model": sd}`` in f32, the keys
+    ``models.avhubert.convert_avhubert_fairseq`` reads: the ResNet video
+    frontend with its BatchNorms unfolded (running statistics around 0 / 1)
+    and bias-free convs, its PReLUs (slopes around 0.25), both modality
+    projections, the fusion LayerNorm and ``post_extract_proj``, the
+    positional conv under weight norm (``weight_g`` / ``weight_v``), the
+    pre-LN layers and the pretraining ``mask_emb`` (which no converter reads)."""
+    d = _Draw(seed, device)
+    dm, fd, k = cfg.d_model, cfg.frontend_dim, cfg.conv_pos
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv(key, shape):
+        sd[key] = d.normal(shape, 1.0 / math.sqrt(int(np.prod(shape[1:]))))
+
+    def bn(prefix, n):
+        sd[prefix + ".weight"], sd[prefix + ".bias"] = d.normal((n,), 0.05, 1.0), d.normal((n,), 0.02)
+        sd[prefix + ".running_mean"], sd[prefix + ".running_var"] = d.normal((n,), 0.1), d.normal((n,), 0.05, 1.0)
+
+    def dense(key, out_f, in_f):
+        sd[key + ".weight"], sd[key + ".bias"] = d.linear(out_f, in_f), d.normal((out_f,), 0.02)
+
+    def norm(key, n):
+        sd[key + ".weight"], sd[key + ".bias"] = d.normal((n,), 0.05, 1.0), d.normal((n,), 0.02)
+
+    res = "feature_extractor_video.resnet."
+    conv(res + "frontend3D.0.weight", (fd, 1, 5, 7, 7))
+    bn(res + "frontend3D.1", fd)
+    sd[res + "frontend3D.2.weight"] = d.normal((fd,), 0.02, 0.25)
+    c_in = fd
+    for stage, dim in enumerate([fd, fd * 2, fd * 4, cfg.resnet_dim]):
+        for j in range(2):
+            blk = f"{res}trunk.layer{stage + 1}.{j}."
+            fan_in, stride = (c_in, 1 if stage == 0 else 2) if j == 0 else (dim, 1)
+            conv(blk + "conv1.weight", (dim, fan_in, 3, 3))
+            bn(blk + "bn1", dim)
+            conv(blk + "conv2.weight", (dim, dim, 3, 3))
+            bn(blk + "bn2", dim)
+            for relu in ("relu1", "relu2"):
+                sd[f"{blk}{relu}.weight"] = d.normal((dim,), 0.02, 0.25)
+            if stride != 1 or fan_in != dim:
+                conv(blk + "downsample.0.weight", (dim, fan_in, 1, 1))
+                bn(blk + "downsample.1", dim)
+        c_in = dim
+    dense("feature_extractor_video.proj", dm, cfg.resnet_dim)
+    dense("feature_extractor_audio.proj", dm, cfg.audio_feat_dim)
+    norm("layer_norm", 2 * dm)
+    dense("post_extract_proj", dm, 2 * dm)
+    per_group = dm // cfg.conv_pos_groups
+    v = d.normal((dm, per_group, k), 1.0 / math.sqrt(per_group * k))
+    norm_v = v.float().square().sum(dim=(0, 1), keepdim=True).sqrt()
+    sd["encoder.pos_conv.0.weight_v"] = v
+    sd["encoder.pos_conv.0.weight_g"] = (norm_v * (1.0 + 0.05 * d.normal((1, 1, k), 1.0).float())).to(DTYPE)
+    sd["encoder.pos_conv.0.bias"] = d.normal((dm,), 0.02)
+    for i in range(cfg.n_layers):
+        p = f"encoder.layers.{i}."
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            dense(f"{p}self_attn.{name}", dm, dm)
+        norm(p + "self_attn_layer_norm", dm)
+        dense(p + "fc1", cfg.ffn_dim, dm)
+        dense(p + "fc2", dm, cfg.ffn_dim)
+        norm(p + "final_layer_norm", dm)
+    norm("encoder.layer_norm", dm)
+    sd["mask_emb"] = d.normal((dm,), 1.0)
+    return _save_torch(path, {"model": sd})
+
+
 def write_beats(path: str, cfg, seed: int = 0, device="cpu") -> int:
     """An official BEATs checkpoint file for ``cfg`` (the port's ``BEATsEncoderConfig``)."""
     d = _Draw(seed, device)
@@ -716,6 +789,7 @@ def _write_json(out_dir: str, name: str, obj) -> int:
 def main(argv=None) -> dict:
     import argparse
 
+    from slam_llm_tpu_torch.models.avhubert import AVHUBERT_PRESETS
     from slam_llm_tpu_torch.models.beats import BEATS_PRESETS
     from slam_llm_tpu_torch.models.llm import LLMConfig
     from slam_llm_tpu_torch.models.spatial_ast import SPATIAL_AST_PRESETS
@@ -735,6 +809,7 @@ def main(argv=None) -> dict:
         **{name: (VIT_PRESETS, write_eat, "eat.pt") for name in VIT_PRESETS},
         **{name: (BEATS_PRESETS, write_beats, "beats.pt") for name in BEATS_PRESETS},
         **{name: (SPATIAL_AST_PRESETS, write_spatial_ast, "spatial_ast.pt") for name in SPATIAL_AST_PRESETS},
+        **{name: (AVHUBERT_PRESETS, write_avhubert, "avhubert.pt") for name in AVHUBERT_PRESETS},
     }
     ap.add_argument("--encoder", default="whisper-small", choices=sorted(encoders))
     ap.add_argument("--seed", type=int, default=0)

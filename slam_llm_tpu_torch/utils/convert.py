@@ -15,7 +15,8 @@ nested dicts of numpy arrays, onto this package's ``state_dict`` names:
 * flax ``Conv`` ``kernel`` (k, in / groups, out) becomes ``Conv1d.weight``
   (out, in / groups, k), and back (``.T`` reverses the three axes); a 2-D
   ``Conv`` ``kernel`` (kh, kw, in, out) becomes ``Conv2d.weight`` (out, in,
-  kh, kw);
+  kh, kw), a 3-D one (kt, kh, kw, in, out) ``Conv3d.weight`` (out, in, kt,
+  kh, kw) (AV-HuBERT's stem);
 * ``Embed.embedding`` (V, D) becomes ``embed_tokens.weight``;
 * Spatial-AST's flat ``down_kernel`` / ``patch_kernel`` (HWIO) and biases
   become its ``down`` and ``patch_embed`` convolutions; MusicFM's frozen
@@ -52,12 +53,15 @@ import torch
 
 _DROPPED = ("kernel_qr", "kernel_scale_r", "kernel_t")
 _SCANNED = ("layers", "blocks")  # subtrees with a leading layer axis
+_TO_FLAX_CONV = {4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}  # Conv2d / Conv3d weight -> flax kernel
 
 
 def _leaf(name: str, arr: np.ndarray):
     if name in _DROPPED:
         return None
     if name == "kernel":
+        if arr.ndim == 5:  # Conv (kt, kh, kw, in, out) -> (out, in, kt, kh, kw)
+            return "weight", arr.transpose(4, 3, 0, 1, 2)
         if arr.ndim == 4:  # Conv (kh, kw, in, out) -> (out, in, kh, kw)
             return "weight", arr.transpose(3, 2, 0, 1)
         if arr.ndim == 3:  # Conv (k, in, out) -> (out, in, k)
@@ -211,7 +215,7 @@ def _to_flax(tensors: Mapping) -> dict:
         *path, leaf = name.split(".")
         arr = t.detach().cpu().float().numpy()
         if leaf == "weight":
-            leaf, arr = "kernel", arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            leaf, arr = "kernel", arr.transpose(_TO_FLAX_CONV[arr.ndim]) if arr.ndim in _TO_FLAX_CONV else arr.T
         elif leaf in ("kernel_q", "lora_a", "lora_b"):
             arr = arr.T
         scanned = [k for k in path if k in _SCANNED]

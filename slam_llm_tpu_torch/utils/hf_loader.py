@@ -1,5 +1,5 @@
 """HF and torch checkpoints -> the port's modules (llama family, whisper, WavLM / HuBERT, EAT, BEATs,
-BERT, Spatial-AST, CLAP).
+BERT, Spatial-AST, CLAP, AV-HuBERT).
 
 Counterpart of ``slam_llm_tpu/utils/hf_loader.py``. The reference reads an HF
 directory into f32 numpy, stacks every per-layer tensor on a scanned layer
@@ -23,8 +23,9 @@ onto one ``state_dict`` name, with no stack, transpose or second copy:
   torch file of ``hubert`` to ``models.wavlm.convert_hubert_fairseq``, of
   ``eat`` to ``models.vit.convert_eat_fairseq``, of ``beats`` to
   ``models.beats.convert_beats``, of ``spatial_ast`` to
-  ``models.spatial_ast.convert_spatialast_torch`` and of ``clap`` to
-  ``models.clap.convert_ase_torch_state``;
+  ``models.spatial_ast.convert_spatialast_torch``, of ``clap`` to
+  ``models.clap.convert_ase_torch_state`` and of ``av_hubert`` to
+  ``models.avhubert.convert_avhubert_fairseq``;
 * ``overlay_`` copies each tensor into the model's tensor of that name, one
   tensor at a time, converting on the way to the stored dtype and device;
   an fp kernel meeting an int8 base (``kernel_q`` / ``kernel_scale``) is
@@ -44,6 +45,7 @@ from typing import Dict
 import torch
 from torch import nn
 
+from slam_llm_tpu_torch.models.avhubert import convert_avhubert_fairseq
 from slam_llm_tpu_torch.models.beats import convert_beats
 from slam_llm_tpu_torch.models.bert import convert_bert_torch_state
 from slam_llm_tpu_torch.models.clap import convert_ase_torch_state
@@ -53,7 +55,7 @@ from slam_llm_tpu_torch.models.wavlm import convert_hubert_fairseq, convert_wavl
 from slam_llm_tpu_torch.ops.quant import quantize_int8
 from slam_llm_tpu_torch.utils.safetensors_io import load_file, torch_load_file
 
-_TODO_ENCODERS = "ROADMAP Queue 1: av_hubert and beats_tokenizer come with their recipes"
+_TODO_ENCODERS = "ROADMAP Queue 1: beats_tokenizer comes with a recipe that reads it"
 
 
 def load_hf_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -119,10 +121,11 @@ def convert_whisper_encoder(sd: Dict[str, torch.Tensor], enc_cfg) -> Dict[str, t
 
 
 # the file-checkpoint families of the reference's dispatcher that the port has not taken yet
-_UNPORTED_FILE_ENCODERS = ("av_hubert", "beats_tokenizer")
+_UNPORTED_FILE_ENCODERS = ("beats_tokenizer",)
 # the file-checkpoint families the port converts, by encoder_name
 _FILE_CONVERTERS = {"hubert": convert_hubert_fairseq, "eat": convert_eat_fairseq, "beats": convert_beats,
-                    "spatial_ast": convert_spatialast_torch, "clap": convert_ase_torch_state}
+                    "spatial_ast": convert_spatialast_torch, "clap": convert_ase_torch_state,
+                    "av_hubert": convert_avhubert_fairseq}
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
@@ -147,7 +150,8 @@ def convert_encoder_checkpoint(encoder_path: str, encoder_name: str, enc_cfg) ->
     the reference's: an HF directory serves whisper, wavlm, hubert and
     hf-text (an HF ``BertModel``, any wrapper prefix); a torch file serves
     hubert (fairseq's schema), eat (data2vec2's), beats (the official
-    BEATs checkpoint), spatial_ast (BAT's) and clap (an ASE checkpoint). Any
+    BEATs checkpoint), spatial_ast (BAT's), clap (an ASE checkpoint) and
+    av_hubert (fairseq's, its BatchNorms folded). Any
     other directory raises
     ``ValueError``, as in the reference (which has no directory converter
     for them, emotion2vec included); a file of a family the reference loads
@@ -173,7 +177,7 @@ def convert_encoder_checkpoint(encoder_path: str, encoder_name: str, enc_cfg) ->
     if encoder_name in _UNPORTED_FILE_ENCODERS:
         raise NotImplementedError(f"loading a {encoder_name!r} encoder checkpoint is not ported yet ({_TODO_ENCODERS})")
     raise ValueError(f"no file-checkpoint converter for encoder {encoder_name!r} ({encoder_path!r}); whisper, wavlm, "
-                     "hubert and hf-text load HF directories; hubert, eat, beats, spatial_ast and clap torch "
+                     "hubert and hf-text load HF directories; hubert, eat, beats, spatial_ast, clap and av_hubert torch "
                      "files")
 
 

@@ -229,7 +229,7 @@ def test_unported_parts_raise(tmp_path):
 
     cfg = _tiny_cfg(tmp_path, n=2)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tslam.build_slam_config(cfg.train_config, dataclasses.replace(cfg.model_config, encoder_name="av_hubert"))
+        tslam.build_slam_config(cfg.train_config, dataclasses.replace(cfg.model_config, encoder_name="vallex"))
     # the q-former and conv1d projectors are ported: they build
     for kind, cls in (("q-former", tproj.ProjectorQFormer), ("cov1d-linear", tproj.ProjectorConv1d)):
         sc = tslam.build_slam_config(cfg.train_config, dataclasses.replace(cfg.model_config, encoder_projector=kind))

@@ -385,9 +385,9 @@ def test_loaders_raise_on_unknown_keys_wrong_shapes_and_missing_paths(jax_model,
         hf_loader.convert_encoder_checkpoint(str(tmp_path / "no_enc"), "whisper", None)
     # a family the reference loads from a file and the port does not yet;
     # a directory of a family that has no directory converter
-    torch.save({"model": {}}, tmp_path / "av_hubert.pt")
+    torch.save({"model": {}}, tmp_path / "beats_tokenizer.pt")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        hf_loader.convert_encoder_checkpoint(str(tmp_path / "av_hubert.pt"), "av_hubert", None)
+        hf_loader.convert_encoder_checkpoint(str(tmp_path / "beats_tokenizer.pt"), "beats_tokenizer", None)
     with pytest.raises(ValueError, match="cannot load an HF directory"):
         hf_loader.convert_encoder_checkpoint(str(tmp_path), "beats", None)
     with pytest.raises(FileNotFoundError, match="no safetensors"):
