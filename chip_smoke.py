@@ -38,6 +38,12 @@ Phases, each fatal on failure:
                 AV-HuBERT-large's (8, 50 / 100 / 150, 16/16, 64), at
                 whisper-large-v3's unpadded (42 / 21, 500 / 496, 20/20, 64)
                 and K1 / K4 at vicuna-7b's and Qwen2-7B's batches there;
+                phase 16 adds K1 at the S2S prefill (1, 362, 28/4, 128),
+                rotated before and fused, and K1 / K4 at S2S's training
+                batches (8, 512 / 768 / 1024 / 1536, 28/4, 128) with fused
+                RoPE theta 1e6, left-padded; last, a structured call at
+                head_dim 80 takes the plain path (no kernel, equal to the
+                plain twin) and one at 256 raises;
   4. decode  -- the recipe examples/asr_librispeech/conf/asr_whisper_tinyllama.yaml
                 through slam_llm_tpu_torch.pipeline.inference_batch on 16
                 synthetic utterances (whisper-small, TinyLlama-1.1B int8 base,
@@ -164,6 +170,27 @@ Phases, each fatal on failure:
                 contextual_wavlm_vicuna and mala_wavlm_vicuna at 2 + 2 layers
                 of WavLM-large + vicuna-7b on the raw-audio batches: a step,
                 a decode, the card vs the CPU.
+ 16. s2s     -- s2s_qwen.yaml (SLAM-Omni) through its own file: specs, which
+                the registry maps to the port (run_s2s): the batch decode of
+                4 questions of 2-12 s through pipeline.generate_s2s at full
+                width (whisper-small, linear ds 5, Qwen2-7B 28 layers bf16,
+                group decode over code_layer 3, 360 new tokens, seeded
+                random init), vocoded by the CosyVoice flow + HiFT at
+                CosyVoice-300M's widths from written flow.pt / hift.pt (a
+                waveform of the expected length for every utterance, K1 12 +
+                28 an utterance); online rounds through S2SSession.run_round
+                (a text round, two wav rounds threading the history); the
+                first 32 greedy text and audio tokens at 2 layers in f32
+                equal on the card and the CPU; both vocoders at full width
+                against the CPU (SNAC snac_24khz from a written file);
+                stream_round at code_layer 7 with SNAC at 2 layers; the
+                recipe's training through pipeline.finetune at 2 layers of
+                Qwen2-7B's widths (batch 8, one step in each of the 512 /
+                1024 / 1536 buckets, K1 14 / K4 2 a step; the embedding, the
+                head, the group-decode adapter and the projector move;
+                model.pt read back), the loss card vs CPU within 1e-2, and
+                two steps each with the TTS adapter and with
+                train_audio_embed_only (the text rows of the head stay).
 
 Prints one JSON line of kernel results before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -459,6 +486,13 @@ def check_flash(gen) -> dict:
         ("vicuna-7b training (contextual, mala), fused RoPE theta 1e4, left-padded", *CTX_TRAIN_SHAPE, 32, 32, 128,
          True, "left", 1e4),
         ("vicuna-7b prefill (contextual, mala), left-padded", *CTX_EVAL_SHAPE, 32, 32, 128, True, "left", 0),
+        # phase 16: S2S on Qwen2-7B: the batch decode's prefill of one utterance (rotated before K1, as prefill
+        # runs it; fused at the same shape, as the training path runs it); the training step and the TTS
+        # adapter's blocks at each of the recipe's text buckets (whisper-small's K1 is the first row's kernel)
+        ("qwen2-7b prefill (s2s)", 1, S2S_PREFILL_T, 28, 4, 128, True, "none", 0),
+        ("qwen2-7b prefill shape (s2s), fused RoPE theta 1e6", 1, S2S_PREFILL_T, 28, 4, 128, True, "none", 1e6),
+        *(("qwen2-7b training (s2s), fused RoPE theta 1e6, left-padded", S2S_BATCH, t, 28, 4, 128, True, "left", 1e6)
+          for t in S2S_TRAIN_T),
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
@@ -631,6 +665,9 @@ def check_flash_bwd(gen) -> dict:
           for b, t in sorted(LS_TRAIN_SHAPES)),
         ("vicuna-7b training (contextual, mala), fused RoPE theta 1e4, left-padded", *CTX_TRAIN_SHAPE, 32, 32, 128,
          True, "left", 1e4),
+        # phase 16: S2S's Qwen2-7B training step (and TTS adapter blocks) at each of the recipe's text buckets
+        *(("qwen2-7b training (s2s), fused RoPE theta 1e6, left-padded", S2S_BATCH, t, 28, 4, 128, True, "left", 1e6)
+          for t in S2S_TRAIN_T),
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
@@ -1029,8 +1066,40 @@ def check_kernels() -> list:
     }
     results = [dict(name=name, route="cuda", source=src, replaces=rep, **checks[name](gen))
                for name, src, rep in KERNELS]
+    check_head_dims(gen)
     torch.cuda.synchronize()
     return results
+
+
+def check_head_dims(gen) -> None:
+    """A structured attention call on the card at a head_dim the flash
+    kernels do not take: D = 80 (D % 64 != 0) runs the plain path, launching
+    no kernel, and equals the plain twin and the CPU's plain path; D = 256
+    (Pallas in the JAX package, no Hopper route yet) raises."""
+    from slam_llm_tpu_torch.models.layers import _xla_attention, apply_rope_tables, mha_attention, rope_tables
+
+    b, t, h, hkv, d = 2, 256, 8, 4, 80
+    q = torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(b, t, hkv, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    mask = _padding_mask(b, t, "left")
+    rope = rope_tables((mask.long().cumsum(1) - 1).clamp_min(0), d, 1e4)
+    out, launches = run_counted(lambda: mha_attention(q, k, v, kv_mask=mask, causal=True, rope=rope))
+    qr, kr = (apply_rope_tables(x, *rope) for x in (q, k))
+    twin = _xla_attention(qr, kr, v, None, mask, True)
+    cpu = mha_attention(*(x.cpu() for x in (q, k, v)), kv_mask=mask.cpu(), causal=True,
+                        rope=tuple(r.cpu() for r in rope))
+    err = (out.float().cpu() - cpu.float()).abs().max().item()
+    flash = sum(n for name, n in launches.items() if name.startswith("flash"))
+    try:
+        mha_attention(*(torch.zeros(1, 8, 2, 256, device="cuda", dtype=torch.bfloat16) for _ in range(3)),
+                      kv_mask=torch.ones(1, 8, dtype=torch.int32, device="cuda"))
+        refused = "nothing"
+    except NotImplementedError as e:
+        refused = str(e)
+    log(f"[head dims] D={d} {(b, t, h, hkv)} causal, fused-RoPE call: flash launches {flash}, equal to the plain twin "
+        f"{torch.equal(out, twin)}, max |card - CPU plain| {err:.3e}; D=256 refused: {refused}")
+    if flash or not torch.equal(out, twin) or err > 2e-2 or "Queue 2" not in refused:
+        raise AssertionError(f"head_dim routing: flash launches {flash}, err {err}, D=256 {refused!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -1241,7 +1310,7 @@ def _finetune(cfg, label: str):
             f"lr {s['lr']:.3e} | {1000 * s['seconds']:.1f} ms, batch {s['shape']}, {s['tokens']} tokens")
     timed = steps[2:] or steps
     step_s = float(np.mean([s["seconds"] for s in timed]))
-    b, t = steps[-1]["shape"]
+    b, t = steps[-1]["shape"][0], steps[-1]["shape"][-1]  # (B, T), or S2S's (B, streams, T)
     tokens = float(np.mean([s["tokens"] for s in timed]))
     log(f"[{label}] {len(steps)} steps of batch {b} x T {t}: step {1000 * step_s:.1f} ms (mean of steps "
         f"{timed[0]['step']}-{timed[-1]['step']}), {b / step_s:.2f} utt/s, {tokens / step_s:.0f} attended tokens/s "
@@ -3581,6 +3650,444 @@ def run_large_scale() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: S2S (SLAM-Omni)
+# ---------------------------------------------------------------------------
+
+S2S_RECIPE = ROOT / "examples" / "s2s" / "conf" / "s2s_qwen.yaml"
+S2S_TEXT_VOCAB = 151936  # Qwen2's text vocabulary: the recipe's tokenizer's, set where no tokenizer file is at hand
+S2S_PREFILL_T = 362  # a batch utterance: the byte tokenizer's 57-token system prompt, 2 markers, 300 audio slots, 3
+S2S_BATCH = 8  # the recipe's batch_size_training
+S2S_TRAIN_T = (512, 768, 1024, 1536)  # the recipe's text buckets (phase 3's K1 / K4 rows)
+S2S_TRAIN_FRAMES = ((100, 140), (420, 640), (700, 1150))  # answers' codec frames: the 512, 1024 and 1536 buckets
+S2S_UTTS = 4  # the serving corpus's questions, 2-12 s
+S2S_LAYERS = 2  # LLM depth of the training run and the card-vs-CPU checks (full widths)
+S2S_CPU_TOKENS = 32  # greedy steps compared card vs CPU
+S2S_ROUND_TOKENS = 64  # new tokens of the online rounds
+S2S_STREAM_TOKENS = 96  # new tokens of the streaming round (4 chunks of the recipe's stride 24)
+S2S_ADAPTER_LAYERS = 2  # the TTS adapter's blocks in its training step (6 by default)
+S2S_BYPASSED = (*AAC_BYPASSED, "flash_attention_fwd_f32", "flash_attention_bwd_f32")
+# SNAC's card-vs-CPU gate, relative L2: random weights drive ~93 % of the
+# samples into tanh's saturation, which amplifies f32 rounding, so a max-abs
+# gate would read rounding. Phase 16 on an H100 80GB HBM3 at 700 W reads
+# ~2.1e-4 for the f32 decode and ~7.2e-2 for its TF32 control.
+SNAC_REL_L2 = 1e-3
+SNAC_HOP = 2048  # snac_24khz's samples a 7-token frame: 4 finest codes of 512
+
+
+def write_s2s_corpus(root: Path, name: str, frames, seconds=(2.0, 4.0), seed: int = 0) -> Path:
+    """A jsonl of len(frames) questions (16 kHz tone + noise wavs, evenly
+    spread over ``seconds``), each answered by a text and a grouped
+    CosyVoice stream of ``frames[i]`` frames of 3 codes."""
+    import wave
+
+    rng = np.random.default_rng(seed)
+    manifest = root / f"{name}.jsonl"
+    with open(manifest, "w") as f:
+        for i, nf in enumerate(frames):
+            sec = seconds[0] + (seconds[1] - seconds[0]) * i / max(len(frames) - 1, 1)
+            t = np.arange(int(sec * 16000)) / 16000
+            x = 0.3 * np.sin(2 * np.pi * (180 + 40 * i) * t) + 0.02 * rng.standard_normal(t.size)
+            wav = root / f"{name}_{i}.wav"
+            with wave.open(str(wav), "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(16000)
+                w.writeframes((x * 32767).astype("<i2").tobytes())
+            f.write(json.dumps({"key": f"{name}{i}", "source_wav": str(wav), "source_text": f"question number {i}",
+                                "target_text": f"this is answer number {i}",
+                                "target_token": rng.integers(0, 4096, 3 * int(nf)).tolist()}) + "\n")
+    return manifest
+
+
+def _s2s_config(loader, *extra):
+    """The recipe with ``extra`` overrides; the text vocabulary is Qwen2's
+    (the recipe factory reads it off the model config, which has no such
+    key, so it is set in-process)."""
+    cfg = loader(["--config", str(S2S_RECIPE), f"++dataset_config.text_vocabsize={S2S_TEXT_VOCAB}", *extra])
+    cfg.model_config.text_vocabsize = S2S_TEXT_VOCAB
+    return cfg
+
+
+@contextlib.contextmanager
+def qwen2_layers(n: int):
+    """``LLMConfig.qwen2_7b`` cut to ``n`` layers at its full widths, in-process."""
+    import dataclasses
+
+    from slam_llm_tpu_torch.models.llm import LLMConfig
+
+    full = LLMConfig.qwen2_7b
+    LLMConfig.qwen2_7b = staticmethod(lambda: dataclasses.replace(full(), n_layers=n))
+    try:
+        yield
+    finally:
+        LLMConfig.qwen2_7b = staticmethod(full)
+
+
+def _cosyvoice_samples(frames: int) -> int:
+    """HiFT's samples for ``frames`` grouped frames of 3 codes (50 codes a
+    second -> 22,050 / 256 mel frames a second -> 256 samples a mel frame)."""
+    return int(3 * frames / 50 * 22050 / 256) * 256
+
+
+def run_s2s_serving(tmp: Path) -> tuple:
+    """s2s_qwen.yaml's batch decode at full width through
+    ``pipeline.generate_s2s`` (whisper-small, linear ds 5, Qwen2-7B 28
+    layers, group decode over code_layer 3, seeded random init; CosyVoice
+    flow + HiFT at CosyVoice-300M's widths from written flow.pt / hift.pt),
+    then online rounds through ``S2SSession.run_round``. Returns the
+    launches and the session."""
+    from slam_llm_tpu_torch.pipeline import generate_s2s
+    from slam_llm_tpu_torch.tools.synth_checkpoint import write_cosyvoice
+
+    corpus = write_s2s_corpus(tmp, "test", [30] * S2S_UTTS, seconds=(2.0, 12.0))
+    t0 = time.perf_counter()
+    wrote = write_cosyvoice(str(tmp / "cosyvoice"), seed=0, device="cuda")
+    log(f"[s2s] wrote {S2S_UTTS} questions of 2-12 s and CosyVoice-300M-shaped flow.pt + hift.pt ({wrote / 2**20:.0f} "
+        f"MiB) in {time.perf_counter() - t0:.2f} s")
+    cfg = _s2s_config(generate_s2s.load_run_config, "++decode_config.mode=batch",
+                      f"++dataset_config.val_data_path={corpus}", f"++decode_config.decode_log={tmp / 'decode'}",
+                      "++model_config.codec_decoder_type=CosyVoice", f"++model_config.codec_decoder_path={tmp / 'cosyvoice'}")
+    mc, dc, dec, tc = cfg.model_config, cfg.dataset_config, cfg.decode_config, cfg.train_config
+    if (mc.file, mc.llm_name, mc.encoder_config, mc.encoder_projector, mc.encoder_projector_ds_rate, dc.file,
+            list(dc.text_buckets), dec.max_new_tokens, dec.do_sample, tc.freeze_llm, tc.batch_size_training) != (
+            "examples/s2s/model/slam_model_s2s.py:model_factory", "qwen2-7b", "whisper-small", "linear", 5,
+            "slam_llm_tpu.data.s2s_dataset:get_s2s_dataset", list(S2S_TRAIN_T), 360, False, False, S2S_BATCH):
+        raise AssertionError(f"the s2s recipe changed: {mc} {dc} {dec} {tc}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    session = generate_s2s.S2SSession(cfg, "cuda")
+    build_s = time.perf_counter() - t0
+    m = session.model
+    v = m.cfg.vocab
+    shapes = (v.code_layer, v.total_vocabsize, m.llm.embed_tokens.weight.shape[0], m.llm.lm_head.weight.shape[0],
+              m.llm.cfg.n_layers, m.encoder.cfg.n_layers, m.group_decode_adapter is not None)
+    log(f"[s2s] session built (model, random init, codec loaded) in {build_s:.2f} s: code_layer, vocab, embedding rows, "
+        f"head rows, LLM / encoder layers, group decode {shapes}; {sum(p.numel() for p in m.parameters()) / 1e9:.3f} G "
+        f"parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if shapes != (3, 164480, 164480, 156160, 28, 12, True):
+        raise AssertionError(f"s2s model {shapes}")
+    res, launches = run_counted(lambda: generate_s2s.run_batch(session, cfg))
+    peak = torch.cuda.max_memory_allocated()
+    for u in res["utterances"]:
+        log(f"[s2s] {u['key']}: prompt {u['prompt_len']} tokens, prefill {1000 * u['prefill_s']:.1f} ms, "
+            f"{u['decode_steps']} decode steps at {1000 * u['decode_s'] / max(u['decode_steps'], 1):.2f} ms, "
+            f"{u['audio_frames']} audio frames, codec {1000 * u['codec_s']:.1f} ms, {u['samples']} samples at 22050 Hz")
+    steps = sum(u["decode_steps"] for u in res["utterances"])
+    log(f"[s2s] batch decode of {res['n']} utterances in {res['seconds']:.2f} s over {res['audio_seconds']:.2f} s of "
+        f"question audio: RTF {res['rtf']:.4f}, {steps} decode steps, {3 * steps / res['seconds']:.1f} audio codes/s; "
+        f"peak memory {peak / 2**30:.2f} GiB; launches K1 {launches['flash_attention_fwd']} K4 "
+        f"{launches['flash_attention_bwd']} | {SMI}")
+    print("\n".join(repr(line) for line in Path(res["pred"]).read_text().splitlines()[:2]))
+    wrong = [u for u in res["utterances"] if u["prompt_len"] != S2S_PREFILL_T or u["audio_frames"] <= 8
+             or u["samples"] != _cosyvoice_samples(u["audio_frames"])
+             or (Path(res["wav_dir"]) / f"{u['key']}.wav").stat().st_size != 44 + 2 * u["samples"]]
+    if res["n"] != S2S_UTTS or wrong or launches["flash_attention_fwd"] != S2S_UTTS * (12 + 28) or any(
+            launches[k] for k in ("flash_attention_bwd", *AAC_BYPASSED)):
+        raise AssertionError(f"s2s batch decode: utterances {wrong}, launches {launches}")
+
+    # online rounds on the same session: a text round, then two wav rounds threading the history
+    session.gen.max_new_tokens = S2S_ROUND_TOKENS
+    wav = str(tmp / "test_1.wav")
+
+    def rounds():
+        out = [session.run_round(text_input="Hello, how is the weather today?")]
+        out += [session.run_round(wav_path=wav, keep_history=True) for _ in range(2)]
+        return out
+
+    t0 = time.perf_counter()
+    out, round_launches = run_counted(rounds)
+    log(f"[s2s] online rounds ({S2S_ROUND_TOKENS} new tokens at most) in {time.perf_counter() - t0:.2f} s: texts "
+        f"{[len(t) for t, _, _ in out]} characters, audio frames {[s.shape[1] for _, _, s in out]}, samples "
+        f"{[None if w is None else len(w) for _, w, _ in out]}; history {session.history[:120]!r}")
+    if session.history.count("USER: <audio>") != 2 or any(
+            w is None or len(w) != _cosyvoice_samples(s.shape[1]) for _, w, s in out):
+        raise AssertionError(f"s2s online rounds: history {session.history!r}")
+    session.gen.max_new_tokens = dec.max_new_tokens
+    return {k: launches[k] + round_launches[k] for k in launches}, session, cfg
+
+
+def s2s_tokens_against_cpu(session, cfg) -> None:
+    """The served model cut to S2S_LAYERS layers (whisper-small whole), in
+    f32 on both sides (the card's K1 f32 route, TF32 off): the first
+    S2S_CPU_TOKENS greedy text and audio tokens of utterance 0, with the
+    recipe's repetition penalties, equal on the card and the CPU. A check,
+    not the recipe's path: its launches are logged and stay out of the
+    ``s2s`` path's counts."""
+    import dataclasses
+
+    from slam_llm_tpu_torch.models.s2s import S2SGenerator, S2SModel
+    from slam_llm_tpu_torch.pipeline.generate_s2s import item_batch
+
+    big = session.model.cfg
+    f32 = torch.float32
+    small_cfg = dataclasses.replace(big, llm=dataclasses.replace(big.llm, n_layers=S2S_LAYERS, dtype=f32),
+                                    encoder=dataclasses.replace(big.encoder, dtype=f32),
+                                    projector_cfg=dataclasses.replace(big.projector_cfg, dtype=f32))
+    small = S2SModel(small_cfg, device="cuda")
+    served = session.model.state_dict()
+    with torch.no_grad():
+        for n, p in small.state_dict(keep_vars=True).items():
+            p.copy_(served[n])
+    batch = item_batch(dataset_of(cfg, session.tokenizer, "test")[0])
+    dc = cfg.decode_config
+
+    def greedy(model):
+        gen = S2SGenerator(model.eval(), max_new_tokens=S2S_CPU_TOKENS, text_repetition_penalty=dc.text_repetition_penalty,
+                           audio_repetition_penalty=dc.audio_repetition_penalty)
+        return gen.generate(batch)
+
+    card, launches = run_counted(lambda: greedy(small))
+    t0 = time.perf_counter()
+    cpu = greedy(small.to("cpu"))
+    cpu_s = time.perf_counter() - t0
+    same = (card == cpu).all(axis=(0, 1))
+    log(f"[s2s] card vs CPU at {S2S_LAYERS} of 28 layers, f32: the first {S2S_CPU_TOKENS} greedy text + "
+        f"{big.vocab.code_layer} audio tokens equal at every step {bool(same.all())} ({cpu_s:.1f} s on the CPU); "
+        f"K1 f32 launches {launches['flash_attention_fwd_f32']}; text {card[0, -1, :12].tolist()}")
+    if not same.all():
+        raise AssertionError(f"s2s greedy tokens differ from step {int(np.argmin(same))}: {card[0]} vs {cpu[0]}")
+    del small
+
+
+def s2s_codecs_against_cpu(session, tmp: Path) -> None:
+    """Both vocoders at full width, card vs CPU, f32 with TF32 off on both,
+    the noise passed in: CosyVoice (HiFT's deterministic source) sample by
+    sample on a short clip (45 codes, 77 mel frames: within 1e-3) and by
+    the spectral envelope on a longer one (150 codes, 258 mel frames: HiFT's
+    phase is an f32 cumsum over the samples, summed in another order on the
+    card; within 0.1 dB); SNAC (snac_24khz from a written file) on 60
+    frames, by the relative L2 (within SNAC_REL_L2, which the same decode
+    with cuDNN's TF32 on must exceed)."""
+    from slam_llm_tpu_torch.models.snac import noise_lengths, snac_decode
+    from slam_llm_tpu_torch.tools.synth_checkpoint import write_snac
+    from slam_llm_tpu_torch.utils.codec_utils import CodecDecoder, snac_streams_to_codebooks
+
+    card = session.codec
+    cpu = CodecDecoder.from_cosyvoice_checkpoint(str(tmp / "cosyvoice" / "flow.pt"), str(tmp / "cosyvoice" / "hift.pt"),
+                                                 device="cpu")
+    rng = np.random.default_rng(5)
+    gen = torch.Generator().manual_seed(5)
+
+    def envelope(w):
+        spec = torch.stft(torch.from_numpy(w), 1024, 256, window=torch.hann_window(1024), return_complex=True)
+        return 20 * torch.log10(spec.abs().mean(-1) + 1e-5)
+
+    for frames in (15, 50):
+        streams = rng.integers(0, 4096, (3, frames))
+        mel = int(3 * frames / 50 * 22050 / 256)
+        z = torch.randn((1, 80, mel), generator=gen)
+        t0 = time.perf_counter()
+        a = card.decode(streams, z=z.cuda(), hift_noise=False)
+        card_ms = 1000 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        b = cpu.decode(streams, z=z, hift_noise=False)
+        err = float(np.abs(a - b).max())
+        env = float((envelope(a) - envelope(b)).abs().max())
+        log(f"[s2s] CosyVoice flow + HiFT, {3 * frames} codes -> {len(a)} samples: card {card_ms:.1f} ms, CPU "
+            f"{1000 * (time.perf_counter() - t0):.1f} ms; max |card - CPU| {err:.3e} (rms {float(np.sqrt(np.mean(a**2))):.4f}), "
+            f"spectral envelope max diff {env:.4f} dB | {SMI}")
+        if len(a) != _cosyvoice_samples(frames) or (err > 1e-3 if frames == 15 else env > 0.1):
+            raise AssertionError(f"CosyVoice card vs CPU at {3 * frames} codes: {err} / {env} dB")
+
+    path = str(tmp / "snac.pt")
+    write_snac(path, seed=3, device="cuda")
+    snac_card = CodecDecoder.from_snac_checkpoint(path, device="cuda")
+    snac_cpu = CodecDecoder.from_snac_checkpoint(path, device="cpu")
+    streams = rng.integers(0, 4096, (7, 60 + 7))
+    t_frames = snac_streams_to_codebooks(streams)[-1].shape[1]
+    noises = [torch.randn((1, 1, n), generator=gen) for n in noise_lengths(t_frames, snac_card.snac_cfg)]
+    snac_card.decode(streams, noises=[n.cuda() for n in noises])  # warm-up
+    t0 = time.perf_counter()
+    a = snac_card.decode(streams, noises=[n.cuda() for n in noises])
+    card_ms = 1000 * (time.perf_counter() - t0)
+    b = snac_cpu.decode(streams, noises=noises)
+    # the control: the same decode with cuDNN's TF32 on, which the gate must refuse
+    cbs = [c % snac_card.snac_cfg.codebook_size for c in snac_streams_to_codebooks(streams)]
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        tf32 = snac_decode(snac_card.snac_params, cbs, snac_card.snac_cfg, [n.cuda() for n in noises])[0].cpu().numpy()
+    err, rel = float(np.abs(a - b).max()), float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    rel_tf32 = float(np.linalg.norm(tf32 - b) / np.linalg.norm(b))
+    log(f"[s2s] SNAC snac_24khz, 60 frames -> {len(a)} samples: card {card_ms:.1f} ms; |card - CPU| max {err:.3e}, "
+        f"relative L2 {rel:.3e} (limit {SNAC_REL_L2}; the TF32 control {rel_tf32:.3e}, max "
+        f"{float(np.abs(tf32 - b).max()):.3e}; {np.mean(np.abs(b) > 0.99):.3f} of the CPU's samples in tanh's "
+        f"saturation) | {SMI}")
+    if len(a) != 60 * SNAC_HOP or not rel <= SNAC_REL_L2 < rel_tf32:
+        raise AssertionError(f"SNAC card vs CPU: {len(a)} samples, relative L2 {rel}, TF32 control {rel_tf32}")
+
+
+def run_s2s_stream(tmp: Path) -> dict:
+    """``S2SSession.stream_round`` at code_layer 7 with SNAC (snac_24khz,
+    the file ``s2s_codecs_against_cpu`` wrote) at S2S_LAYERS LLM layers:
+    chunks of the recipe's stride, each decoding its newly complete frames
+    against the whole history."""
+    from slam_llm_tpu_torch.pipeline import generate_s2s
+
+    cfg = _s2s_config(generate_s2s.load_run_config, "++decode_config.mode=online_stream",
+                      "++model_config.codec_decoder_type=SNAC", f"++model_config.codec_decoder_path={tmp / 'snac.pt'}",
+                      "++dataset_config.code_layer=7", f"++decode_config.max_new_tokens={S2S_STREAM_TOKENS}")
+    cfg.model_config.code_layer = 7
+    with qwen2_layers(S2S_LAYERS):
+        session = generate_s2s.S2SSession(cfg, "cuda")
+    stride = cfg.decode_config.stream_stride
+    t0 = time.perf_counter()
+    chunks, launches = run_counted(lambda: list(session.stream_round(text_input="Tell me about the weather.",
+                                                                    stream_stride=stride)))
+    samples = [0 if w is None else len(w) for _, w in chunks]
+    steps = session.gen.stats["decode_steps"]
+    log(f"[s2s] stream round at code_layer 7, {S2S_LAYERS} layers, stride {stride}: {len(chunks)} chunks in "
+        f"{time.perf_counter() - t0:.2f} s, {steps} decode steps, samples a chunk {samples}; launches K1 "
+        f"{launches['flash_attention_fwd']}")
+    if len(chunks) != -(-steps // stride) or not sum(samples) or any(n % SNAC_HOP for n in samples) or \
+            launches["flash_attention_fwd"] != S2S_LAYERS:
+        raise AssertionError(f"s2s stream: {len(chunks)} chunks over {steps} steps, samples {samples}, {launches}")
+    del session
+    return launches
+
+
+def s2s_trick_step(cfg, label: str, batch_items: range, **flags) -> tuple:
+    """Two trainer steps (the first's lr is 0 under warmup) on one
+    512-bucket batch with ``flags`` set on the model / train configs."""
+    import copy
+
+    from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
+    from slam_llm_tpu_torch.train.state import Trainer
+
+    cfg = copy.deepcopy(cfg)
+    for key, val in flags.items():
+        section, name = key.split(".")
+        setattr(getattr(cfg, section), name, val)
+    model, _, ds = build_model_and_data(cfg, split="train", device="cuda")
+    materialize_params(model, cfg)
+    trainer = Trainer(model, model.cfg, cfg.train_config).state_from_params()
+    before = {n: p.detach().clone() for n, p in trainer.trainable.items()}
+    batch = trainer.put_batch(ds.collator([ds[i] for i in batch_items]))
+    t0 = time.perf_counter()
+    metrics, launches = run_counted(lambda: [trainer.train_step(batch) for _ in range(2)])
+    log(f"[s2s] {label}: 2 steps of {tuple(batch['input_ids'].shape)} in {time.perf_counter() - t0:.2f} s, losses "
+        f"{[round(float(m['loss']), 5) for m in metrics]}; {len(trainer.trainable)} trainable tensors; launches K1 "
+        f"{launches['flash_attention_fwd']} K4 {launches['flash_attention_bwd']}")
+    return trainer, before, launches
+
+
+def run_s2s_training(tmp: Path) -> dict:
+    """The recipe's training through ``pipeline.finetune`` at S2S_LAYERS
+    layers of Qwen2-7B (its widths, whole whisper-small frozen, batch 8):
+    one step in each of the 512, 1024 and 1536 buckets, the validation, the
+    checkpoint of every trained tensor (model.pt) read back; the loss card
+    vs CPU; then two steps each with the TTS adapter and with
+    ``train_audio_embed_only`` (over the full-vocabulary head: group
+    decode's narrow head takes no mask, as in the JAX package)."""
+    from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
+    from slam_llm_tpu_torch.pipeline import finetune
+    from slam_llm_tpu_torch.utils.checkpoint import load_trainable
+
+    frames = [int(lo + (hi - lo) * i / (S2S_BATCH - 1)) for lo, hi in S2S_TRAIN_FRAMES for i in range(S2S_BATCH)]
+    train = write_s2s_corpus(tmp, "train", frames, seed=1)
+    val = write_s2s_corpus(tmp, "val", [30] * 4, seed=2)
+    cfg = _s2s_config(finetune.load_run_config, f"++dataset_config.train_data_path={train}",
+                      f"++dataset_config.val_data_path={val}", "++train_config.max_steps_per_epoch=3",
+                      "++train_config.log_interval=1", "++train_config.warmup_steps=1",
+                      f"++train_config.output_dir={tmp / 'out'}")
+    with qwen2_layers(S2S_LAYERS):
+        res, launches, stats = _finetune(cfg, "s2s")
+        trainer = res["trainer"]
+        buckets = sorted(s["shape"][2] for s in res["steps"])
+        per_step = {"flash_attention_fwd": 12 + S2S_LAYERS, "flash_attention_bwd": S2S_LAYERS}
+        want = {"flash_attention_fwd": 4 * per_step["flash_attention_fwd"], "flash_attention_bwd": 3 * S2S_LAYERS}
+        log(f"[s2s] training: buckets {buckets}, launches K1 {launches['flash_attention_fwd']} K4 "
+            f"{launches['flash_attention_bwd']} (3 steps of {per_step} and one validation batch) | {SMI}")
+        if buckets != [512, 1024, 1536] or any(s["shape"][:2] != (S2S_BATCH, 4) for s in res["steps"]) or \
+                {k: launches[k] for k in want} != want or any(launches[k] for k in AAC_BYPASSED):
+            raise AssertionError(f"s2s training: steps {res['steps']}, launches {launches}")
+        check_projector_trained(trainer, cfg, "s2s", trained=("encoder_projector.", "llm.", "group_decode_adapter."))
+        ckpt = Path(res["checkpoints"][-1]) / "model.pt"
+        t0 = time.perf_counter()
+        saved = load_trainable(str(ckpt))
+        same = set(saved) == set(trainer.trainable) and all(
+            torch.equal(saved[n], p.detach().cpu()) for n, p in trainer.trainable.items())
+        log(f"[s2s] model.pt: {ckpt.stat().st_size / 2**30:.2f} GiB, {len(saved)} tensors (embedding "
+            f"{tuple(saved['llm.embed_tokens.weight'].shape)}, head {tuple(saved['llm.lm_head.weight'].shape)}), read "
+            f"back in {time.perf_counter() - t0:.2f} s, equal to the trained tensors {same}")
+        if not same:
+            raise AssertionError("s2s: model.pt does not hold the trained tensors")
+        del saved
+
+        # the loss of one 512-bucket utterance, card vs the CPU plain path
+        ds = dataset_of(cfg, load_tokenizer(cfg.model_config.llm_path), "train")
+        one = ds.collator([ds[0]])
+        model = trainer.model.eval()
+        with torch.no_grad():
+            loss_gpu = float(model(trainer.put_batch(one))["loss"])
+            del trainer, res
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            cpu_model = model.to("cpu")
+            loss_cpu = float(cpu_model({k: torch.as_tensor(x) for k, x in one.items() if isinstance(x, np.ndarray)})
+                             ["loss"])
+        log(f"[s2s] loss of one {tuple(one['input_ids'].shape)} utterance at {S2S_LAYERS} layers: card {loss_gpu:.6f}, CPU "
+            f"{loss_cpu:.6f} ({time.perf_counter() - t0:.1f} s on the CPU), relative {abs(loss_gpu - loss_cpu) / loss_cpu:.2e}")
+        if not abs(loss_gpu - loss_cpu) <= 1e-2 * abs(loss_cpu):
+            raise AssertionError(f"s2s loss: card {loss_gpu}, CPU {loss_cpu}")
+        del model, cpu_model
+        torch.cuda.empty_cache()
+
+        tts, before, tts_launches = s2s_trick_step(cfg, "TTS adapter", range(S2S_BATCH), **{
+            "model_config.tts_adapter": True, "model_config.tts_adapter_layers": S2S_ADAPTER_LAYERS})
+        adapter = [n for n in tts.trainable if n.startswith(("tts_adapter_", "tts_adapter_ln", "tts_adapter_head"))]
+        unmoved = [n for n in adapter if torch.equal(tts.trainable[n], before[n])]
+        per = {"flash_attention_fwd": 2 * (12 + S2S_LAYERS + S2S_ADAPTER_LAYERS),
+               "flash_attention_bwd": 2 * (S2S_LAYERS + S2S_ADAPTER_LAYERS)}
+        if len(adapter) < S2S_ADAPTER_LAYERS * 9 or unmoved or {k: tts_launches[k] for k in per} != per:
+            raise AssertionError(f"s2s TTS adapter step: {len(adapter)} adapter tensors, unmoved {unmoved[:3]}, "
+                                 f"launches {tts_launches}")
+        del tts, before
+        torch.cuda.empty_cache()
+
+        emb, before, emb_launches = s2s_trick_step(cfg, "train_audio_embed_only (full-vocabulary head)",
+                                                   range(S2S_BATCH), **{"train_config.train_audio_embed_only": True,
+                                                                        "model_config.group_decode": False})
+        head = emb.trainable["llm.lm_head.weight"]
+        ptv = emb.model.cfg.vocab.padded_text_vocabsize
+        text_same = torch.equal(head[:ptv], before["llm.lm_head.weight"][:ptv])
+        audio_moved = not torch.equal(head[ptv:], before["llm.lm_head.weight"][ptv:])
+        log(f"[s2s] train_audio_embed_only: trainable {list(emb.trainable)}, head {tuple(head.shape)}: text rows "
+            f"[0, {ptv}) unchanged {text_same}, audio rows moved {audio_moved}")
+        if list(emb.trainable) != ["llm.lm_head.weight"] or head.shape[0] != 164480 or not text_same or \
+                not audio_moved or emb_launches["flash_attention_bwd"]:
+            raise AssertionError(f"s2s train_audio_embed_only: {list(emb.trainable)} {emb_launches}")
+        del emb, before, head
+        torch.cuda.empty_cache()
+    return {k: launches[k] + tts_launches[k] + emb_launches[k] for k in launches}
+
+
+def run_s2s() -> dict:
+    """Phase 16: s2s_qwen.yaml (SLAM-Omni) serving at full width
+    (``run_s2s_serving``), the card against the CPU
+    (``s2s_tokens_against_cpu``, ``s2s_codecs_against_cpu``), streaming
+    (``run_s2s_stream``) and training at reduced depth
+    (``run_s2s_training``)."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_s2s_"))
+    launches, session, cfg = run_s2s_serving(tmp)
+    s2s_tokens_against_cpu(session, cfg)
+    s2s_codecs_against_cpu(session, tmp)
+    del session
+    torch.cuda.empty_cache()
+    got = run_s2s_stream(tmp)
+    launches = {k: launches[k] + got[k] for k in launches}
+    torch.cuda.empty_cache()
+    got = run_s2s_training(tmp)
+    launches = {k: launches[k] + got[k] for k in launches}
+    shutil.rmtree(tmp)
+    if any(launches[k] for k in S2S_BYPASSED):  # the recipe serves and trains in bf16, with no int8 base
+        raise AssertionError(f"the s2s path launched {', '.join(k for k in S2S_BYPASSED if launches[k])}")
+    log(f"[s2s] phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     global SMI
     t0 = time.perf_counter()
@@ -3599,16 +4106,19 @@ def main() -> int:
     seld_encoder = run_seld_encoder(seld_files)
     vsr = run_vsr()
     large_scale = run_large_scale()
+    s2s = run_s2s()
     paths = {"decode": decode, "train": train, "train_int8_sr": modes, "weights": weights, "st": st,
              "wavlm": wavlm, "aac": aac, "clap": clap, **music_spatial, "seld_encoder": seld_encoder, "vsr": vsr,
-             "large_scale": large_scale}
+             "large_scale": large_scale, "s2s": s2s}
     for r in results:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
         if r["name"].startswith("int8_matmul"):  # the code paths count both epilogues together
             r["launches_by_code_path"] = {p: {path: counts[f"int8_matmul/{p}"] for path, counts in paths.items()}
                                           for p in ("wgmma", "splitk")}
-    log(f"[chip_smoke] phases 1-15 in {time.perf_counter() - t0:.1f} s | {SMI}")
+    if not (s2s["flash_attention_fwd"] and s2s["flash_attention_bwd"]):
+        raise AssertionError(f"the s2s path launched K1 {s2s['flash_attention_fwd']} / K4 {s2s['flash_attention_bwd']}")
+    log(f"[chip_smoke] phases 1-16 in {time.perf_counter() - t0:.1f} s | {SMI}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

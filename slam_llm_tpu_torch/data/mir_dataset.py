@@ -6,7 +6,10 @@ otherwise; shorter clips are zero-padded), MusicFM's dB mel
 (``ops.audio.music_log_mel``: 1001 frames), the caption as the target, and
 ``audio_length = (T_mel // 4) // ds_rate`` = 50 audio slots at ds 5. A
 config without a prompt gets ``DEFAULT_MC_PROMPT``. Token assembly and
-collation are the speech dataset's (mel input)."""
+collation are the speech dataset's (mel input). Each item carries
+``audio_seconds``, the seconds of music its crop holds (a short clip's
+zero padding excluded), which the collator sums for the RTF; the JAX
+package counts the padded crop's mel frames."""
 
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ class MIRDatasetJsonl(SpeechDatasetJsonl):
         target, key = item.get("target"), item.get("key")
         audio_raw = audio_ops.load_audio(item.get("source"), sr=MUSIC_SR)
         crop = int(self.crop_seconds * MUSIC_SR)
+        audio_seconds = min(len(audio_raw), crop) / MUSIC_SR  # the music the crop holds, not its zero padding
         if len(audio_raw) > crop:
             start = 0
             if self.random_crop:
@@ -66,7 +70,7 @@ class MIRDatasetJsonl(SpeechDatasetJsonl):
         prompt_length = len(prompt_ids)
         audio_pseudo = np.full((audio_length,), -1, np.int64)
         common = {"audio_mel": mel, "audio_length": audio_length, "prompt_length": prompt_length, "key": key,
-                  "target": target}
+                  "target": target, "audio_seconds": audio_seconds}
         if self.inference_mode:
             # pseudo ids stay -1: the repetition penalty excludes audio slots by it
             input_ids = np.concatenate([audio_pseudo, np.asarray(prompt_ids, np.int64)])

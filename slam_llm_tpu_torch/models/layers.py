@@ -299,10 +299,11 @@ def mha_attention(
     RoPE rotation fused into them when ``rope`` is given, as the checkpoint
     site ``flash`` of ``owner`` under a ``tape``; a dense bias, a CPU
     tensor, causal with Tq != Tk (end-aligned, which only the plain path
-    defines) or rope with Tq != Tk rotates first and runs the plain path."""
+    defines), rope with Tq != Tk or a head_dim the kernels do not take
+    (``flash_head_dim``) rotates first and runs the plain path."""
     use_kernel = bias is None and q.is_cuda and not (
         (causal or rope is not None) and q.shape[1] != k.shape[1]
-    )
+    ) and flash_head_dim(q.shape[-1])
     if use_kernel:
         mask = (
             kv_mask.to(torch.int32)
@@ -314,6 +315,18 @@ def mha_attention(
         q = apply_rope_tables(q, *rope)
         k = apply_rope_tables(k, *rope)
     return _xla_attention(q, k, v, bias, kv_mask, causal)
+
+
+def flash_head_dim(d: int) -> bool:
+    """Whether a structured call at head_dim ``d`` runs the flash kernels
+    (D 64 / 128) or the plain path (D % 64 != 0, where the JAX package runs
+    XLA too). D 192 / 256 take the Pallas kernels in the JAX package and
+    have no Hopper route yet: they raise."""
+    if d % 64:
+        return False
+    if d not in (64, 128):
+        raise NotImplementedError(f"flash attention at head_dim {d} is not ported yet (ROADMAP Queue 2)")
+    return True
 
 
 def _xla_attention(q, k, v, bias, kv_mask=None, causal=False):

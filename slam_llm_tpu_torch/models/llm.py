@@ -387,14 +387,17 @@ class CausalLM(nn.Module):
         positions: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, KVCache]:
         """Write the prompt into the cache at offset 0; return (B, T, V) f32 logits."""
+        x, cache = self.prefill_hidden(inputs_embeds, attention_mask, cache, positions)
+        return self._head(x), cache
+
+    def prefill_hidden(self, inputs_embeds, attention_mask, cache: KVCache, positions=None
+                       ) -> Tuple[torch.Tensor, KVCache]:
+        """``prefill`` without the head: the final-normed hidden states, which
+        adapters (the S2S TTS adapter) consume."""
         if positions is None:
             positions = _positions_from_mask(attention_mask)
-        x = inputs_embeds.to(self.cfg.dtype)
-        for i, layer in enumerate(self.layers):
-            x, _ = layer(
-                x, positions, kv_mask=attention_mask, cache_k=cache["k"][i], cache_v=cache["v"][i]
-            )
-        return self._head(self.final_norm(x)), cache
+        x = prefill_layers(self.layers, inputs_embeds.to(self.cfg.dtype), attention_mask, positions, cache)
+        return self.final_norm(x), cache
 
     def decode_step(
         self,
@@ -404,17 +407,39 @@ class CausalLM(nn.Module):
         attention_mask: torch.Tensor,  # (B, max_len) valid slots, this one included
         positions: torch.Tensor,  # (B, 1)
     ) -> Tuple[torch.Tensor, KVCache]:
-        bias = make_padding_bias(attention_mask, q_len=1)
-        slot = cache_index - cache["k"].shape[2]
-        x = token_embeds.to(self.cfg.dtype)
-        for i, layer in enumerate(self.layers):
-            x, (nk, nv) = layer(
-                x, positions, bias=bias, cache_k=cache["k"][i], cache_v=cache["v"][i],
-                gen_k=cache["k_gen"][i], gen_v=cache["v_gen"][i], cache_index=cache_index,
-            )
-            cache["k_gen"][i, :, slot] = nk[:, 0]
-            cache["v_gen"][i, :, slot] = nv[:, 0]
-        return self._head(self.final_norm(x)), cache
+        x, cache = self.decode_step_hidden(token_embeds, cache, cache_index, attention_mask, positions)
+        return self._head(x), cache
+
+    def decode_step_hidden(self, token_embeds, cache: KVCache, cache_index: int, attention_mask, positions
+                           ) -> Tuple[torch.Tensor, KVCache]:
+        """``decode_step`` without the head."""
+        x = decode_layers(self.layers, token_embeds.to(self.cfg.dtype), cache, cache_index, attention_mask, positions)
+        return self.final_norm(x), cache
+
+
+def prefill_layers(layers, x: torch.Tensor, attention_mask: torch.Tensor, positions: torch.Tensor,
+                   cache: KVCache) -> torch.Tensor:
+    """Run ``layers`` over a prompt, each writing its rotated k / v into its
+    slice of ``cache``'s prefix in place."""
+    for i, layer in enumerate(layers):
+        x, _ = layer(x, positions, kv_mask=attention_mask, cache_k=cache["k"][i], cache_v=cache["v"][i])
+    return x
+
+
+def decode_layers(layers, x: torch.Tensor, cache: KVCache, cache_index: int, attention_mask: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """Run ``layers`` over one token a row against ``cache``, then write each
+    layer's k / v of the token into the generated tail at ``cache_index``."""
+    bias = make_padding_bias(attention_mask, q_len=1)
+    slot = cache_index - cache["k"].shape[2]
+    for i, layer in enumerate(layers):
+        x, (nk, nv) = layer(
+            x, positions, bias=bias, cache_k=cache["k"][i], cache_v=cache["v"][i],
+            gen_k=cache["k_gen"][i], gen_v=cache["v_gen"][i], cache_index=cache_index,
+        )
+        cache["k_gen"][i, :, slot] = nk[:, 0]
+        cache["v_gen"][i, :, slot] = nv[:, 0]
+    return x
 
 
 def _positions_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,10 @@ A recipe may name a JAX module in its spec (``vsr_avhubert_vicuna.yaml``'s
 ``slam_llm_tpu.data.avhubert_dataset:get_avhubert_dataset``). The port never
 imports the JAX package: such a spec resolves to the port's module of the
 same path under ``slam_llm_tpu_torch``, and raises ``NotImplementedError``
-where the port has none yet.
+where the port has none yet. A recipe's model file that imports the JAX
+package (``examples/s2s/model/slam_model_s2s.py``) is never executed: its
+spec resolves, through the explicit ``PORTED_FILE_SPECS`` table, to the
+port's copy of its factory.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Any, Callable, Optional
 
 # the JAX package's in-tree datasets the port does not carry yet (ROADMAP.md
 # Queue 1: each comes with the recipe that reads it)
-UNPORTED_DATASETS = ("s2s_dataset", "text_dataset", "vallex_dataset")
+UNPORTED_DATASETS = ("text_dataset", "vallex_dataset")
 # dataset_config.dataset -> (module, factory) of the port's in-tree datasets
 DATASETS = {
     "speech_dataset": ("slam_llm_tpu_torch.data.speech_dataset", "get_speech_dataset"),
@@ -35,6 +38,12 @@ DATASETS = {
     "spatial_audio_dataset": ("slam_llm_tpu_torch.data.spatial_dataset", "get_spatial_audio_dataset"),
     "avhubert_dataset": ("slam_llm_tpu_torch.data.avhubert_dataset", "get_avhubert_dataset"),
     "speech_dataset_large": ("slam_llm_tpu_torch.data.speech_dataset_large", "get_speech_dataset_large"),
+    "s2s_dataset": ("slam_llm_tpu_torch.data.s2s_dataset", "get_s2s_dataset"),
+}
+# recipe files whose factories import the JAX package: the spec resolves to
+# the port's own copy of the factory, and the file is never executed
+PORTED_FILE_SPECS = {
+    "examples/s2s/model/slam_model_s2s.py:model_factory": ("slam_llm_tpu_torch.models.s2s", "model_factory"),
 }
 _JAX_PACKAGE = "slam_llm_tpu"
 
@@ -75,9 +84,25 @@ def _has_module(name: str) -> bool:
         return False
 
 
+def _ported_file_spec(spec: str, default_name: str):
+    """The port's (module, factory) for a ``PORTED_FILE_SPECS`` recipe file,
+    named relative to the repository or by any path ending in it; else None."""
+    target, func_name = spec.rsplit(":", 1) if ":" in spec else (spec, default_name)
+    norm = Path(target).as_posix()
+    for known, ported in PORTED_FILE_SPECS.items():
+        path, name = known.rsplit(":", 1)
+        if name == func_name and (norm == path or norm.endswith("/" + path)):
+            return ported
+    return None
+
+
 def resolve_factory(spec: str, default_name: str = "factory") -> Callable[..., Any]:
     """Resolve ``"pkg.mod:fn"``, ``"path/to/file.py:fn"`` or ``"path/to/file.py"``;
-    a ``slam_llm_tpu.<m>`` module resolves to ``slam_llm_tpu_torch.<m>``."""
+    a ``slam_llm_tpu.<m>`` module resolves to ``slam_llm_tpu_torch.<m>``, and
+    a ``PORTED_FILE_SPECS`` recipe file to the port's copy of its factory."""
+    ported = _ported_file_spec(spec, default_name)
+    if ported is not None:
+        return getattr(importlib.import_module(ported[0]), ported[1])
     if ":" in spec:
         target, func_name = spec.rsplit(":", 1)
     else:

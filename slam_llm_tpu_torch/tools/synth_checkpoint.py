@@ -74,6 +74,12 @@ For CLAP and FENSE, called from Python:
   ``{"model_state_dict": sd}`` with a BERT (base by default) under
   ``encoder.`` and the 6-way ``clf`` head.
 
+For the S2S vocoders, called from Python: ``write_cosyvoice`` (CosyVoice's
+``flow.pt`` and ``hift.pt``, plain f32 state dicts in the reference's key
+layout, the convolutions of HiFT under weight norm as ``weight_g`` /
+``weight_v``) and ``write_snac`` (the snac package's decoder state dict,
+weight-normed); ``*_state_dict`` return the dicts.
+
 The SELD, MIR and E-chat recipes' synthetic corpora, called from Python:
 ``write_seld_corpus`` (32 kHz mono clips, 2-channel IR ``.npy`` files and
 ``{qa_data_root}/{stage}/{split}.json`` manifests), ``write_music_corpus``
@@ -589,6 +595,204 @@ def write_clap(path: str, cfg, seed: int = 0, device="cpu") -> int:
         sd[wrap.get(head + ".", head + ".") + rest if rest else name] = t
     sd["temp"] = torch.tensor(cfg.temp_init)
     return _save_torch(path, {"model": sd})
+
+
+# ---------------------------------------------------------------------------
+# the S2S vocoders: CosyVoice's flow.pt / hift.pt and SNAC, plain f32 state dicts
+# ---------------------------------------------------------------------------
+
+
+class _Vocoder:
+    """A plain f32 state dict built key by key: weight-normed convolutions as
+    ``weight_g`` / ``weight_v`` (g the norm of v over every axis but 0, so
+    the folded kernel is v), Snake alphas near 1."""
+
+    def __init__(self, seed: int, device):
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.device, self.sd = device, {}
+
+    def _normal(self, shape, std: float, mean: float = 0.0) -> torch.Tensor:
+        return (torch.randn(shape, generator=self.gen, device=self.device) * std + mean).float().cpu()
+
+    def dense(self, name: str, shape, bias: bool = True):
+        self.sd[f"{name}.weight"] = self._normal(shape, 1.0 / math.sqrt(math.prod(shape[1:])))
+        if bias:
+            self.sd[f"{name}.bias"] = self._normal((shape[0],), 0.02)
+
+    def wn(self, name: str, shape, bias: bool = True, transposed: bool = False):
+        """A weight-normed Conv1d (O, I, K), or ConvTranspose1d (I, O, K)."""
+        fan_in = shape[0] * shape[2] if transposed else math.prod(shape[1:])
+        v = self._normal(shape, 1.0 / math.sqrt(fan_in))
+        self.sd[f"{name}.weight_v"] = v
+        self.sd[f"{name}.weight_g"] = v.square().sum(dim=(1, 2), keepdim=True).sqrt()
+        if bias:
+            self.sd[f"{name}.bias"] = self._normal((shape[1] if transposed else shape[0],), 0.02)
+
+    def norm(self, name: str, dim: int):
+        self.sd[f"{name}.weight"], self.sd[f"{name}.bias"] = self._normal((dim,), 0.05, 1.0), self._normal((dim,), 0.02)
+
+    def alpha(self, name: str, shape):
+        self.sd[name] = self._normal(shape, 0.05, 1.0).abs()
+
+
+def hift_state_dict(cfg, seed: int = 0, device="cpu") -> Dict[str, torch.Tensor]:
+    """CosyVoice's ``hift.pt`` (HiFTNet generator) for ``cfg`` (``models.hift.HiFTConfig``)."""
+    w = _Vocoder(seed, device)
+    cc, base, nfft2 = cfg.f0_cond_channels, cfg.base_channels, cfg.n_fft + 2
+
+    def resblock(pre, ch, k, dilations):
+        for j, _ in enumerate(dilations):
+            w.wn(f"{pre}.convs1.{j}", (ch, ch, k))
+            w.wn(f"{pre}.convs2.{j}", (ch, ch, k))
+            w.alpha(f"{pre}.activations1.{j}.alpha", (ch,))
+            w.alpha(f"{pre}.activations2.{j}.alpha", (ch,))
+
+    for i in range(5):
+        w.wn(f"f0_predictor.condnet.{2 * i}", (cc, cfg.in_channels if i == 0 else cc, 3))
+    w.dense("f0_predictor.classifier", (1, cc))
+    w.dense("m_source.l_linear", (1, cfg.nb_harmonics + 1))
+    w.wn("conv_pre", (base, cfg.in_channels, 7))
+    for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+        w.wn(f"ups.{i}", (base // 2 ** i, base // 2 ** (i + 1), k), transposed=True)
+    cum = np.cumprod([1] + list(cfg.upsample_rates[::-1][:-1]))[::-1]
+    for i, (u, k, d) in enumerate(zip(cum, cfg.source_resblock_kernel_sizes, cfg.source_resblock_dilations)):
+        ch = base // 2 ** (i + 1)
+        w.dense(f"source_downs.{i}", (ch, nfft2, 1 if int(u) == 1 else 2 * int(u)))
+        resblock(f"source_resblocks.{i}", ch, k, d)
+    nk = len(cfg.resblock_kernel_sizes)
+    for i in range(len(cfg.upsample_rates)):
+        for j, (k, d) in enumerate(zip(cfg.resblock_kernel_sizes, cfg.resblock_dilations)):
+            resblock(f"resblocks.{i * nk + j}", base // 2 ** (i + 1), k, d)
+    w.wn("conv_post", (nfft2, base // 2 ** len(cfg.upsample_rates), 7))
+    return w.sd
+
+
+def cosyvoice_flow_state_dict(cfg, seed: int = 0, device="cpu") -> Dict[str, torch.Tensor]:
+    """CosyVoice's ``flow.pt`` (MaskedDiffWithXvec) for ``cfg`` (``models.cosyvoice_flow.FlowConfig``)."""
+    w = _Vocoder(seed, device)
+    d, out, heads = cfg.input_size, cfg.output_size, cfg.enc_heads
+    w.sd["input_embedding.weight"] = w._normal((cfg.vocab_size, d), 1.0)
+    w.dense("spk_embed_affine_layer", (out, cfg.spk_embed_dim))
+    w.dense("encoder.embed.out.0", (d, d))
+    w.norm("encoder.embed.out.1", d)
+    for i in range(cfg.enc_blocks):
+        pre = f"encoder.encoders.{i}"
+        for n in ("q", "k", "v", "out"):
+            w.dense(f"{pre}.self_attn.linear_{n}", (d, d))
+        w.dense(f"{pre}.self_attn.linear_pos", (d, d), bias=False)
+        for n in ("u", "v"):
+            w.sd[f"{pre}.self_attn.pos_bias_{n}"] = w._normal((heads, d // heads), 0.1)
+        w.norm(f"{pre}.norm_mha", d)
+        w.norm(f"{pre}.norm_ff", d)
+        w.dense(f"{pre}.feed_forward.w_1", (cfg.enc_ffn, d))
+        w.dense(f"{pre}.feed_forward.w_2", (d, cfg.enc_ffn))
+    w.norm("encoder.after_norm", d)
+    w.dense("encoder_proj", (out, d))
+    for i in range(cfg.regulator_convs):
+        w.dense(f"length_regulator.model.{3 * i}", (out, out, 3))
+        w.norm(f"length_regulator.model.{3 * i + 1}", out)
+    w.dense(f"length_regulator.model.{3 * cfg.regulator_convs}", (out, out, 1))
+
+    est, ch = "decoder.estimator", cfg.est_channels
+    tdim = ch[0] * 4
+
+    def resnet(pre, din, dout):
+        w.dense(f"{pre}.block1.block.0", (dout, din, 3))
+        w.norm(f"{pre}.block1.block.1", dout)
+        w.dense(f"{pre}.block2.block.0", (dout, dout, 3))
+        w.norm(f"{pre}.block2.block.1", dout)
+        w.dense(f"{pre}.mlp.1", (dout, tdim))
+        w.dense(f"{pre}.res_conv", (dout, din, 1))
+
+    def transformers(pre, c):
+        inner = cfg.est_heads * cfg.est_head_dim
+        for j in range(cfg.est_n_blocks):
+            tf = f"{pre}.{j}"
+            w.norm(f"{tf}.norm1", c)
+            for n in ("to_q", "to_k", "to_v"):
+                w.dense(f"{tf}.attn1.{n}", (inner, c), bias=False)
+            w.dense(f"{tf}.attn1.to_out.0", (c, inner))
+            w.norm(f"{tf}.norm3", c)
+            w.dense(f"{tf}.ff.net.0.proj", (4 * c, c))
+            w.dense(f"{tf}.ff.net.2", (c, 4 * c))
+
+    w.dense(f"{est}.time_mlp.linear_1", (tdim, cfg.est_in_channels))
+    w.dense(f"{est}.time_mlp.linear_2", (tdim, tdim))
+    in_c = cfg.est_in_channels
+    for i, c in enumerate(ch):
+        resnet(f"{est}.down_blocks.{i}.0", in_c, c)
+        transformers(f"{est}.down_blocks.{i}.1", c)
+        w.dense(f"{est}.down_blocks.{i}.2" + (".conv" if i < len(ch) - 1 else ""), (c, c, 3))
+        in_c = c
+    for i in range(cfg.est_mid_blocks):
+        resnet(f"{est}.mid_blocks.{i}.0", ch[-1], ch[-1])
+        transformers(f"{est}.mid_blocks.{i}.1", ch[-1])
+    rev = tuple(reversed(ch)) + (ch[0],)
+    for i in range(len(rev) - 1):
+        resnet(f"{est}.up_blocks.{i}.0", rev[i] * 2, rev[i + 1])
+        transformers(f"{est}.up_blocks.{i}.1", rev[i + 1])
+        if i < len(rev) - 2:  # ConvTranspose1d(c, c, 4, 2, 1): (I, O, K)
+            w.dense(f"{est}.up_blocks.{i}.2.conv", (rev[i + 1], rev[i + 1], 4))
+        else:
+            w.dense(f"{est}.up_blocks.{i}.2", (rev[i + 1], rev[i + 1], 3))
+    w.dense(f"{est}.final_block.block.0", (ch[0], ch[0], 3))
+    w.norm(f"{est}.final_block.block.1", ch[0])
+    w.dense(f"{est}.final_proj", (out, ch[0], 1))
+    return w.sd
+
+
+def snac_state_dict(cfg, seed: int = 0, device="cpu") -> Dict[str, torch.Tensor]:
+    """A ``snac`` package decoder state dict (quantizer + decoder) for ``cfg``
+    (``models.snac.SNACConfig``; ``SNACConfig.snac_24khz()`` is
+    hubertsiuzdak/snac_24khz's)."""
+    w = _Vocoder(seed, device)
+    for i in range(len(cfg.vq_strides)):
+        q = f"quantizer.quantizers.{i}"
+        w.sd[f"{q}.codebook.weight"] = w._normal((cfg.codebook_size, cfg.codebook_dim), 1.0)
+        w.wn(f"{q}.out_proj", (cfg.latent_dim, cfg.codebook_dim, 1))
+    dd = cfg.decoder_dim
+    w.wn("decoder.model.0", (dd, cfg.latent_dim, 7))
+    for i, stride in enumerate(cfg.decoder_rates):
+        base, cin, cout = f"decoder.model.{1 + i}.block", dd // 2 ** i, dd // 2 ** (i + 1)
+        w.alpha(f"{base}.0.alpha", (1, cin, 1))
+        w.wn(f"{base}.1", (cin, cout, 2 * stride), transposed=True)
+        off = 2
+        if cfg.noise:
+            w.wn(f"{base}.2.linear", (cout, cout, 1), bias=False)
+            off = 3
+        for j in range(3):
+            r = f"{base}.{off + j}.block"
+            w.alpha(f"{r}.0.alpha", (1, cout, 1))
+            w.wn(f"{r}.1", (cout, 1 if cfg.depthwise else cout, 7))
+            w.alpha(f"{r}.2.alpha", (1, cout, 1))
+            w.wn(f"{r}.3", (cout, cout, 1))
+    last, n = dd // 2 ** len(cfg.decoder_rates), len(cfg.decoder_rates)
+    w.alpha(f"decoder.model.{1 + n}.alpha", (1, last, 1))
+    w.wn(f"decoder.model.{2 + n}", (1, last, 7))
+    return w.sd
+
+
+def write_cosyvoice(out_dir: str, flow_cfg=None, hift_cfg=None, seed: int = 0, device="cpu") -> int:
+    """``<out_dir>/flow.pt`` and ``<out_dir>/hift.pt`` (CosyVoice-300M's
+    widths by default): the directory ``model_config.codec_decoder_path``
+    takes with ``codec_decoder_type: CosyVoice``."""
+    from slam_llm_tpu_torch.models.cosyvoice_flow import FlowConfig
+    from slam_llm_tpu_torch.models.hift import HiFTConfig
+
+    os.makedirs(out_dir, exist_ok=True)
+    flow, hift = os.path.join(out_dir, "flow.pt"), os.path.join(out_dir, "hift.pt")
+    torch.save(cosyvoice_flow_state_dict(flow_cfg or FlowConfig(), seed, device), flow)
+    torch.save(hift_state_dict(hift_cfg or HiFTConfig(), seed + 1, device), hift)
+    return os.path.getsize(flow) + os.path.getsize(hift)
+
+
+def write_snac(path: str, cfg=None, seed: int = 0, device="cpu") -> int:
+    """A SNAC state dict file (snac_24khz's widths by default)."""
+    from slam_llm_tpu_torch.models.snac import SNACConfig
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(snac_state_dict(cfg or SNACConfig.snac_24khz(), seed, device), path)
+    return os.path.getsize(path)
 
 
 BERT_SPECIALS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")

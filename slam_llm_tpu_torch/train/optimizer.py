@@ -24,7 +24,14 @@ from torch import nn
 def param_label(name: str, slam_cfg) -> str:
     """'train' or 'freeze' for a parameter name (``model.named_parameters``):
     the projector and the LoRA factors train; the encoder freezes iff
-    ``freeze_encoder``, the LLM iff ``freeze_llm``; anything else trains."""
+    ``freeze_encoder``, the LLM iff ``freeze_llm``; anything else trains.
+    The S2S tricks (the reference's trick_utils.py): ``train_embed_only`` /
+    ``train_audio_embed_only`` train the ``lm_head`` alone,
+    ``train_embed`` trains it besides the rest."""
+    if getattr(slam_cfg, "train_embed_only", False) or getattr(slam_cfg, "train_audio_embed_only", False):
+        return "train" if "lm_head" in name else "freeze"
+    if getattr(slam_cfg, "train_embed", False) and "lm_head" in name:
+        return "train"
     if "encoder_projector" in name:
         return "train"
     if "lora_a" in name or "lora_b" in name:
@@ -34,6 +41,21 @@ def param_label(name: str, slam_cfg) -> str:
     if name.startswith("llm."):
         return "freeze" if slam_cfg.freeze_llm else "train"
     return "train"
+
+
+def partial_embed_grad_mask(params: Dict[str, torch.Tensor], start: int, end: int) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``partial_embed_grad_mask`` (the reference's
+    gradient-zeroing hook, trick_utils.py:14-18): for every 2-D ``lm_head``
+    or embedding tensor with at least ``end`` vocabulary rows, a (V, 1) f32
+    mask that keeps the updates of rows [start, end) and zeroes the rest
+    (the port stores both as (V, D)). A narrower head (group decode's) gets
+    none, as in the JAX package."""
+    masks = {}
+    for name, p in params.items():
+        if p.ndim == 2 and ("lm_head" in name or "embed_tokens" in name) and p.shape[0] >= end:
+            rows = torch.arange(p.shape[0], device=p.device)
+            masks[name] = ((rows >= start) & (rows < end)).float()[:, None]
+    return masks
 
 
 def partition_params(model: nn.Module, slam_cfg) -> Tuple[Dict[str, nn.Parameter], Dict[str, nn.Parameter]]:
@@ -91,6 +113,9 @@ class AdamW:
         self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
         self.count = 0
+        # per parameter, None or a mask the update is multiplied by (optax's
+        # chain(tx, partial_embed_grad_mask)); set by the trainer
+        self.update_masks: List = [None] * len(self.params)
 
     def _clipped(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         grads = [g.float() for g in grads]
@@ -106,13 +131,14 @@ class AdamW:
         self.count += 1
         bc1 = float(1 - np.float32(self.b1) ** np.float32(self.count))
         bc2 = float(1 - np.float32(self.b2) ** np.float32(self.count))
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+        for p, g, mu, nu, mask in zip(self.params, grads, self.mu, self.nu, self.update_masks):
             mu.mul_(self.b1).add_(g * (1 - self.b1))
             nu.mul_(self.b2).add_(g * g * (1 - self.b2))
             upd = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             if self.weight_decay:
                 upd = upd + self.weight_decay * p.float()
-            p.add_((upd * -lr).to(p.dtype))
+            upd = upd * -lr
+            p.add_((upd if mask is None else upd * mask).to(p.dtype))
 
     def state_dict(self) -> Dict:
         return {"count": self.count, "mu": [t.detach().cpu() for t in self.mu],
@@ -148,14 +174,16 @@ class AnyPrecisionAdamW(AdamW):
         f32 = np.float32
         bc1 = float(f32(1) - f32(self.b1) ** f32(self.count))
         bc2 = float(f32(1) - f32(self.b2) ** f32(self.count))
-        for p, g, mu, nu, comp in zip(self.params, grads, self.mu, self.nu, self.compensation):
+        for p, g, mu, nu, comp, mask in zip(self.params, grads, self.mu, self.nu, self.compensation,
+                                            self.update_masks):
             mu32 = mu.float() * self.b1 + (1 - self.b1) * g
             nu32 = nu.float() * self.b2 + (1 - self.b2) * g * g
             # the divisions by a tensor stay true divisions on CUDA (see rowquant_ref)
             mu_hat = mu32 / mu32.new_full((), bc1)
             nu_hat = nu32 / nu32.new_full((), bc2)
             upd = mu_hat / (torch.sqrt(nu_hat) + self.eps) + self.weight_decay * p.float()
-            y = (upd * -lr).to(p.dtype) + comp
+            upd = upd * -lr
+            y = (upd if mask is None else upd * mask).to(p.dtype) + comp
             new_p = p + y
             comp.copy_((y - (new_p - p)).to(p.dtype))
             p.add_((new_p - p).to(p.dtype))

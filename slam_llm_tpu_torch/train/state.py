@@ -9,7 +9,9 @@ reference's does:
 * the int8 base gets its backward buffers derived, never trusted (the
   ``int8_rot`` pair, the ``int8_sr`` / ``int8`` transpose), and a
   ``ce_quant`` model its int8 CE head (``ops.quant.quantize_base_params``);
-* ``requires_grad`` follows ``train.optimizer.param_label``; trainable
+* ``requires_grad`` follows ``train.optimizer.param_label`` (an S2S model's
+  ``train_audio_embed_only`` also masks the head's updates to the audio
+  vocabulary, ``train.optimizer.partial_embed_grad_mask``); trainable
   tensors are f32 masters and frozen f32 parameters are stored in
   ``train_config.frozen_dtype`` (bf16 by default). The int8 scales are
   buffers and keep f32, ``kernel_scale_r`` included (the reference rounds
@@ -34,7 +36,13 @@ import torch
 from torch import nn
 
 from slam_llm_tpu_torch.ops.quant import SR_MODES, quantize_base_params
-from slam_llm_tpu_torch.train.optimizer import global_norm, lr_schedule, make_optimizer, partition_params
+from slam_llm_tpu_torch.train.optimizer import (
+    global_norm,
+    lr_schedule,
+    make_optimizer,
+    partial_embed_grad_mask,
+    partition_params,
+)
 
 
 class Trainer:
@@ -83,6 +91,12 @@ class Trainer:
             if getattr(mod, "lora_dropout", 0.0) > 0:
                 mod.generator = self.dropout_generator
         self.optimizer = make_optimizer(list(self.trainable.values()), self.sched, self.train_config)
+        if getattr(cfg, "train_audio_embed_only", False):
+            # S2S: the head's updates kept to the extended audio vocabulary
+            v = cfg.vocab
+            masks = partial_embed_grad_mask(self.trainable, v.padded_text_vocabsize, v.total_vocabsize)
+            inner = getattr(self.optimizer, "inner", self.optimizer)
+            inner.update_masks = [masks.get(name) for name in self.trainable]
         return self
 
     def put_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:

@@ -26,6 +26,11 @@ nested dicts of numpy arrays, onto this package's ``state_dict`` names:
   dropped: the port derives its ``int8_rot`` pair itself
   (``ops.quant.quantize_base_params``).
 
+An S2S model's tree maps by the same rules: the full-vocabulary
+``llm.embed_tokens``, the narrow ``llm.lm_head`` (``head_size``),
+``group_decode_adapter.linear``, ``tts_adapter_{i}`` (decoder layers
+outside the scanned stack), ``tts_adapter_ln`` and ``tts_adapter_head``.
+
 The result loads with ``model.load_state_dict(sd)``, which casts each tensor
 to the dtype the port stores it in: the trainable leaves (LoRA factors, the
 projector) into their f32 masters, bit-equal to the JAX values.
@@ -214,7 +219,9 @@ def _to_flax(tensors: Mapping) -> dict:
     for name, t in tensors.items():
         *path, leaf = name.split(".")
         arr = t.detach().cpu().float().numpy()
-        if leaf == "weight":
+        if leaf == "weight" and path[-1:] == ["embed_tokens"]:
+            leaf = "embedding"  # a trained embedding (S2S): (V, D) in both packages
+        elif leaf == "weight":
             leaf, arr = "kernel", arr.transpose(_TO_FLAX_CONV[arr.ndim]) if arr.ndim in _TO_FLAX_CONV else arr.T
         elif leaf in ("kernel_q", "lora_a", "lora_b"):
             arr = arr.T

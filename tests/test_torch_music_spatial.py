@@ -198,7 +198,39 @@ def test_mir_items_and_batches_match_jax(tmp_path, split, inference):
     jds = jmir.get_mir_dataset(jc, JByteTokenizer(), split)
     assert tds.prompt == tmir.DEFAULT_MC_PROMPT and tds.random_crop == (split == "train")
     assert tds[0]["audio_mel"].shape == (1001, 128) and tds[0]["audio_length"] == 50
-    _pairs_equal(tds, jds, 5, batches=((0, 4), (2, 3)))
+    _pairs_equal(_Without(tds, "audio_seconds"), jds, 5, batches=((0, 4), (2, 3)))
+    assert tds[4]["audio_seconds"] == 5.0 and all(8.0 <= tds[i]["audio_seconds"] <= 10.0 for i in range(4))
+
+
+class _Without:
+    """A dataset whose items lack ``key``, which the port adds and the JAX
+    package's items do not carry."""
+
+    def __init__(self, ds, key):
+        self.ds, self.key, self.collator = ds, key, ds.collator
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        return {k: v for k, v in self.ds[i].items() if k != self.key}
+
+
+def test_mir_rtf_counts_the_music_not_the_padded_crop(tmp_path):
+    """A 6 s clip is zero-padded to the 10 s crop: its batch counts 6 s of
+    audio for the RTF, not the crop's 1001 mel frames (10.01 s)."""
+    from slam_llm_tpu_torch.pipeline.inference_batch import batch_audio_seconds
+
+    path = str(tmp_path / "six.wav")
+    synth.write_wav(path, np.full(6 * 24000, 0.1), 24000)
+    manifest = tmp_path / "m.jsonl"
+    manifest.write_text(json.dumps({"key": "six", "source": path, "target": "six seconds"}) + "\n")
+    _, tc = _configs(dataset="mir_dataset", train_data_path=str(manifest), val_data_path=str(manifest),
+                     inference_mode=True)
+    tds = tmir.get_mir_dataset(tc, ByteTokenizer(), "test")
+    batch = tds.collator([tds[0]])
+    assert batch["audio_mel_mask"].sum() == 1001
+    assert batch_audio_seconds(batch) == pytest.approx(6.0)
 
 
 @pytest.mark.parametrize("split,inference", [("train", False), ("validation", False), ("test", True)])

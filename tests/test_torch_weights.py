@@ -487,8 +487,11 @@ sys.path.insert(0, sys.argv[1])
 llm_dir, tok_dir, msgpack_path = sys.argv[2:5]
 from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
 from slam_llm_tpu_torch.utils import checkpoint, hf_export, hf_loader, textnorm, wer
-from slam_llm_tpu_torch.pipeline import finetune, inference, inference_batch
+from slam_llm_tpu_torch.pipeline import finetune, generate_s2s, inference, inference_batch
 from slam_llm_tpu_torch.tools import synth_checkpoint
+from slam_llm_tpu_torch.models import cosyvoice_flow, hift, s2s, snac
+from slam_llm_tpu_torch.utils import codec_utils
+from slam_llm_tpu_torch.data import s2s_dataset
 sd = hf_loader.load_hf_state_dict(llm_dir)
 tok = load_tokenizer(tok_dir)
 trainable = checkpoint.load_trainable(msgpack_path)
