@@ -41,7 +41,10 @@ Phases, each fatal on failure:
                 phase 16 adds K1 at the S2S prefill (1, 362, 28/4, 128),
                 rotated before and fused, and K1 / K4 at S2S's training
                 batches (8, 512 / 768 / 1024 / 1536, 28/4, 128) with fused
-                RoPE theta 1e6, left-padded; last, a structured call at
+                RoPE theta 1e6, left-padded; phase 17 adds K1 / K4 at
+                VALL-E X's (16, 577 / 1089, 16/16, 64) causal and (16, 576 /
+                1088) non-causal with a hole inside the key rows, and K1 at
+                its AR decode step (1, 589); last, a structured call at
                 head_dim 80 takes the plain path (no kernel, equal to the
                 plain twin) and one at 256 raises;
   4. decode  -- the recipe examples/asr_librispeech/conf/asr_whisper_tinyllama.yaml
@@ -191,6 +194,26 @@ Phases, each fatal on failure:
                 model.pt read back), the loss card vs CPU within 1e-2, and
                 two steps each with the TTS adapter and with
                 train_audio_embed_only (the text rows of the head stay).
+ 17. vallex  -- vallex_tts.yaml (VALL-E X) at full width (run_vallex): base_24l
+                (24 AR + 24 NAR layers, d 1024, 16 heads, 8 codebooks,
+                seeded random init, every tensor trained) through
+                pipeline.finetune on synthetic 8-codebook corpora in the 512
+                and 1024 audio buckets (K1 = K4 = 48 a step; the text's
+                padding is a hole inside the key rows, which phase 3 checks
+                K1 / K4 at), model.pt read back; pipeline.inference_vallex
+                with that checkpoint and a random EnCodec-24kHz written by
+                tools/synth_checkpoint (AR ms a step, NAR ms, codec ms, RTF,
+                the wav); the card vs the CPU at 2 + 2 layers (the loss and
+                every gradient in bf16; the greedy codes in f32, K1's f32
+                route, not counted on the path); EnCodec card vs CPU in f32
+                (relative L2 1e-3, which cuDNN's TF32 must exceed).
+ 18. peft    -- asr_whisper_tinyllama.yaml at full width with
+                peft_method=prefix, then llama_adapter (run_peft):
+                pipeline.finetune for 4 steps of 16 (the projector and the new
+                leaves move, everything else stays), inference_batch with the
+                checkpoint (beam 4) against the in-memory decode, the card vs
+                the CPU at 2 + 2 layers; under prefix-tuning the LLM's
+                attention is the plain path (K1 only in the encoder, no K4).
 
 Prints one JSON line of kernel results before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -364,6 +387,16 @@ def attended_pairs(mask, causal: bool) -> int:
 
 
 def _padding_mask(b, t, pad, dev="cuda"):
+    """Key masks: ``none``, ``right``, ``left``, ``both``; ``hole<tt>``,
+    VALL-E X's ``[text valid | text pad | audio valid | audio pad]`` over a
+    text bucket of ``tt`` (``vallex_mask``); ``tail<n>``, the first ``n``
+    keys valid (an AR decode step's)."""
+    if pad.startswith("hole"):
+        return vallex_mask(b, int(pad[4:]), t - int(pad[4:]), dev)
+    if pad.startswith("tail"):
+        mask = torch.zeros(b, t, dtype=torch.int32, device=dev)
+        mask[:, :int(pad[4:])] = 1
+        return mask
     mask = torch.ones(b, t, dtype=torch.int32, device=dev)
     for i in range(b):
         n_pad = (i * 37) % max(1, t // 3)
@@ -371,6 +404,18 @@ def _padding_mask(b, t, pad, dev="cuda"):
             mask[i, t - n_pad // (2 if pad == "both" else 1):] = 0
         if pad in ("left", "both"):
             mask[i, :n_pad] = 0
+    return mask
+
+
+def vallex_mask(b, tt, ta, dev="cuda"):
+    """VALL-E X's key mask over [text ; audio]: each row's text padded to the
+    bucket ``tt`` leaves a hole inside the row, placed differently in each
+    row so that the holes cross the key tiles in different places."""
+    mask = torch.zeros(b, tt + ta, dtype=torch.int32, device=dev)
+    for i in range(b):
+        nt, na = tt - (i * 13) % (tt // 2), ta - (i * 97) % (ta // 2)
+        mask[i, :nt] = 1
+        mask[i, tt:tt + na] = 1
     return mask
 
 
@@ -493,6 +538,14 @@ def check_flash(gen) -> dict:
         ("qwen2-7b prefill shape (s2s), fused RoPE theta 1e6", 1, S2S_PREFILL_T, 28, 4, 128, True, "none", 1e6),
         *(("qwen2-7b training (s2s), fused RoPE theta 1e6, left-padded", S2S_BATCH, t, 28, 4, 128, True, "left", 1e6)
           for t in S2S_TRAIN_T),
+        # phase 17: VALL-E X (base_24l, 16 / 16 heads, D = 64) at the training buckets: the AR stack causal over
+        # [text ; audio + the end-of-audio column], the NAR stack not causal, the text's padding a hole in the
+        # key row; the AR decode step's whole re-forward over [text ; prompt + max_new]
+        *(("VALL-E X AR training, causal, text-padding hole", VX_BATCH, VX_TT + ta + 1, 16, 16, 64, True,
+           f"hole{VX_TT}", 0) for ta in VX_TA),
+        *(("VALL-E X NAR training, text-padding hole", VX_BATCH, VX_TT + ta, 16, 16, 64, False, f"hole{VX_TT}", 0)
+          for ta in VX_TA),
+        ("VALL-E X AR decode step, causal", 1, VX_DECODE_T, 16, 16, 64, True, f"tail{VX_DECODE_T // 2}", 0),
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
@@ -526,6 +579,11 @@ def check_flash(gen) -> dict:
             sdpa_mask = None if pad == "none" else mask[:, None, None, :].bool()
             library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=sdpa_mask, is_causal=causal and sdpa_mask is None, enable_gqa=h != hkv))
+        elif pad.startswith(("hole", "tail")) and not fused:  # every row sees its first key: the same function
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa_mask = _bool_mask(mask, causal)
+            library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=h != hkv))
         else:  # a near yardstick only: RoPE applied before, the equivalent boolean mask
             qt, kt, vt = (x.transpose(1, 2) for x in (qr, kr, v))
             near_mask = _bool_mask(mask, causal)
@@ -668,6 +726,11 @@ def check_flash_bwd(gen) -> dict:
         # phase 16: S2S's Qwen2-7B training step (and TTS adapter blocks) at each of the recipe's text buckets
         *(("qwen2-7b training (s2s), fused RoPE theta 1e6, left-padded", S2S_BATCH, t, 28, 4, 128, True, "left", 1e6)
           for t in S2S_TRAIN_T),
+        # phase 17: VALL-E X's AR and NAR stacks at the training buckets, the text's padding a hole in the key row
+        *(("VALL-E X AR training, causal, text-padding hole", VX_BATCH, VX_TT + ta + 1, 16, 16, 64, True,
+           f"hole{VX_TT}", 0) for ta in VX_TA),
+        *(("VALL-E X NAR training, text-padding hole", VX_BATCH, VX_TT + ta, 16, 16, 64, False, f"hole{VX_TT}", 0)
+          for ta in VX_TA),
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
@@ -698,8 +761,9 @@ def check_flash_bwd(gen) -> dict:
         bound_ms, bound_by = bound(10 * h * d * attended_pairs(mask, causal),
                                    nbytes(q, k, v, mask, out, lse, dout, *got, *(rope or ())), BF16_FLOPS)
         # SDPA's backward computes the same gradients where there is no fused
-        # RoPE and no causal left padding; else it is the near yardstick
-        same = not causal and not fused
+        # RoPE and no causal left padding (VALL-E X's rows all see their
+        # first key); else it is the near yardstick
+        same = not fused and (not causal or pad.startswith("hole"))
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in ((q, k, v) if same else (qr, kr, v)))
         ref_out = torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=_bool_mask(mask, causal), enable_gqa=h != hkv)
@@ -1510,8 +1574,8 @@ def cpu_attention_on_twins():
 def check_train_grads_against_cpu(trainer, dataset, label: str, key_bias_limit: float = 5e-2,
                                   gate: str = "") -> tuple:
     """The trainable gradients of one utterance, card vs CPU plain path: the
-    trained weights with LoRA B redrawn nonzero (so every LoRA factor gets a
-    gradient), the run's backward modes with the same stochastic-rounding
+    trained weights with LoRA B and llama-adapter's gates redrawn nonzero
+    (so every LoRA factor and adapter prompt gets a gradient), the run's backward modes with the same stochastic-rounding
     seeds on both sides, remat as configured, dropout off. Cosine >= 0.99
     for every tensor with a gradient; a key projection's bias (the
     Q-Former's), whose gradient is 0 in exact arithmetic, within
@@ -1525,6 +1589,8 @@ def check_train_grads_against_cpu(trainer, dataset, label: str, key_bias_limit: 
         for mod in model.modules():
             if getattr(mod, "lora_rank", 0):
                 mod.lora_b.normal_(0.0, 0.02, generator=gen)
+            if hasattr(mod, "adaption_gate"):
+                mod.adaption_gate.normal_(0.0, 0.5, generator=gen)
     batch = dataset.collator([dataset[0]])
     names = list(trainer.trainable)
     seeds = trainer.draw_quant_seeds()
@@ -1845,10 +1911,12 @@ def _st_config(loader, *extra):
     return loader(["--config", str(ST_RECIPE), "++model_config.file=__main__:synth_tokenizer_factory", *extra])
 
 
-def check_projector_trained(trainer, cfg, label: str, lora: bool = False, trained=("encoder_projector.",)) -> None:
+def check_projector_trained(trainer, cfg, label: str, lora: bool = False, trained=("encoder_projector.",),
+                            leaves=()) -> None:
     """Every parameter under the ``trained`` prefixes (the projector by
-    default; the encoder's too when it trains) and, with ``lora``, every
-    LoRA factor is trainable, an f32 master, and moved from the seeded init;
+    default; the encoder's too when it trains), every one named ``leaves``
+    last (the PEFT tensors) and, with ``lora``, every LoRA factor is
+    trainable, an f32 master, and moved from the seeded init;
     every other tensor of the state dict (encoder and LLM weights, an int8
     base and its scales, norms) is bit-equal to a freshly materialized
     model's, in the dtype the trainer stores it in."""
@@ -1858,7 +1926,8 @@ def check_projector_trained(trainer, cfg, label: str, lora: bool = False, traine
     materialize_params(fresh, cfg)
     init = fresh.state_dict()
     factors = {n for n in trainer.trainable if n.endswith((".lora_a", ".lora_b"))}
-    under = {n for n, _ in trainer.model.named_parameters() if n.startswith(trained)}
+    under = {n for n, _ in trainer.model.named_parameters()
+             if n.startswith(trained) or (leaves and n.endswith(tuple(leaves)))}
     if (not trainer.trainable or bool(factors) != lora or set(trainer.trainable) - factors != under
             or any(p.dtype != torch.float32 for p in trainer.trainable.values())):
         raise AssertionError(f"{label}: the recipe trains {', '.join(trained)}{' and LoRA' if lora else ''} in f32, "
@@ -4088,6 +4157,374 @@ def run_s2s() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: VALL-E X (vallex_tts.yaml: AR + NAR codec transformers, EnCodec-24kHz)
+# ---------------------------------------------------------------------------
+
+VX_RECIPE = ROOT / "examples" / "vallex" / "conf" / "vallex_tts.yaml"
+VX_BATCH = 16  # the recipe's batch_size_training
+VX_TT = 64  # the text bucket of the corpus: 40-64 phoneme ids
+VX_TA = (512, 1024)  # the audio buckets trained
+VX_FRAMES = {512: (300, 512), 1024: (600, 1024)}  # the corpus's codec frames in each bucket (a full row included)
+VX_STEPS = {512: 5, 1024: 3}  # training steps in each bucket (step time: the mean from the third on)
+VX_PROMPT_FRAMES = 225  # the enrolled prompt: 3 s at 75 frames a second
+VX_MAX_NEW = 300  # 4 s of new frames at most
+VX_PROMPT_TEXT = "the quick brown fox jumps over "  # 31 characters: the ord fallback's ids
+VX_TARGET_TEXT = "a lazy dog rests in the warm sun."  # 33: 64 ids in all
+VX_DECODE_T = len(VX_PROMPT_TEXT) + len(VX_TARGET_TEXT) + VX_PROMPT_FRAMES + VX_MAX_NEW  # the AR step's T: 589
+VX_LAYERS = 2  # AR and NAR depth of the card-vs-CPU checks (base_24l's widths)
+VX_CPU_NEW = 12  # greedy AR steps compared card vs CPU
+VX_CPU_PROMPT = 40  # their prompt's frames
+VX_BYPASSED = (*AAC_BYPASSED, "flash_attention_fwd_f32", "flash_attention_bwd_f32")  # bf16, no int8 base
+ENCODEC_FRAMES = 150  # 2 s of codes decoded card vs CPU
+# the f32 decode's gate, which the same decode with cuDNN's TF32 on must exceed: TF32 reads 7.9e-4
+# here (the f32 decode 1.2e-6; NVIDIA H100 80GB HBM3), under the 1e-3 that SNAC's gate uses
+ENCODEC_REL_L2 = 1e-5
+VX_SYNTH_SEEDS = (0, 1, 2)  # one synthesis a seed; the first also warms the card up
+
+
+def _vx_config(tmp: Path, bucket: int, steps: int, *extra):
+    from slam_llm_tpu_torch.pipeline import finetune
+    from slam_llm_tpu_torch.tools.synth_checkpoint import write_vallex_corpus
+
+    train = write_vallex_corpus(str(tmp / f"train{bucket}.jsonl"), VX_BATCH * steps, frames=VX_FRAMES[bucket],
+                                text_len=(40, VX_TT), seed=bucket)
+    val = write_vallex_corpus(str(tmp / f"val{bucket}.jsonl"), VX_BATCH, frames=VX_FRAMES[bucket],
+                              text_len=(40, VX_TT), seed=bucket + 1)
+    return finetune.load_run_config([
+        "--config", str(VX_RECIPE), f"++dataset_config.train_data_path={train}",
+        f"++dataset_config.val_data_path={val}", "++dataset_config.code_layer=8",
+        f"++train_config.max_steps_per_epoch={steps}", "++train_config.log_interval=1",
+        f"++train_config.val_batch_size={VX_BATCH}",
+        f"++train_config.output_dir={tmp / f'out{bucket}'}", *extra])
+
+
+def _vx_cut(model, dtype=None, layers: int = VX_LAYERS):
+    """The trained VALLE cut to ``layers`` AR and NAR layers at its widths
+    (``dtype`` its compute dtype, the model's by default), on the card."""
+    import dataclasses
+
+    from slam_llm_tpu_torch.models.vallex import VALLE
+
+    cfg = dataclasses.replace(model.cfg, ar_layers=layers, nar_layers=layers, dtype=dtype or model.cfg.dtype)
+    small = VALLE(cfg, device="cuda")
+    trained = model.state_dict()
+    with torch.no_grad():
+        for n, p in small.state_dict(keep_vars=True).items():
+            p.copy_(trained[n])
+    return small
+
+
+def vallex_grads_against_cpu(model, dataset) -> None:
+    """The trained VALLE cut to VX_LAYERS + VX_LAYERS layers, bf16: the loss and
+    every gradient of two utterances of different lengths (a hole in the key
+    rows) at NAR stages 7 and 5, card (K1 / K4) vs the CPU's plain path: the
+    loss within 1e-2 relative, every gradient's cosine >= 0.99 (the key
+    projections' biases, whose gradient is 0 in exact arithmetic, logged
+    against the query biases'; the codebooks no stage reads, 0 on both
+    sides). A check: its launches stay out of the ``vallex`` path."""
+    small = _vx_cut(model)
+    batch = dataset.collator([dataset[0], dataset[len(dataset) - 1]])
+    batch["nar_stage"] = np.array([7, 5], np.int32)
+    names = [n for n, _ in small.named_parameters()]
+
+    def grads(device):
+        b = {k: torch.as_tensor(v).to(device) for k, v in batch.items() if isinstance(v, np.ndarray)}
+        params = [p.requires_grad_(True) for p in small.parameters()]
+        out = small(b)
+        g = torch.autograd.grad(out["loss"], params)
+        return float(out["loss"].detach()), {n: x.float().cpu() for n, x in zip(names, g)}
+
+    (loss_gpu, g_gpu), launches = run_counted(lambda: grads("cuda"))
+    small.to("cpu")
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = grads("cpu")
+    cpu_s = time.perf_counter() - t0
+    key = {n: max(g_gpu[n].norm().item(), g_cpu[n].norm().item()) / g_cpu[n.replace("k_proj", "q_proj")].norm().item()
+           for n in names if n.endswith("k_proj.bias")}
+    unread = [n for n in names if not g_cpu[n].any() and not g_gpu[n].any()]
+    cos = {n: torch.nn.functional.cosine_similarity(g_gpu[n].flatten(), g_cpu[n].flatten(), dim=0).item()
+           for n in names if n not in key and n not in unread}
+    worst = min(cos, key=cos.get)
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    log(f"[vallex] card vs CPU at {VX_LAYERS} + {VX_LAYERS} layers of base_24l, bf16, two utterances "
+        f"{tuple(batch['text_ids'].shape)} + {tuple(batch['audio_ids'].shape)} ({cpu_s:.1f} s on the CPU): loss "
+        f"{loss_gpu:.6f} vs {loss_cpu:.6f} (relative {rel:.2e}); {len(cos)} gradients, min cosine {cos[worst]:.5f} "
+        f"({worst}), mean {np.mean(list(cos.values())):.5f}; {len(key)} key biases (0 in exact arithmetic): largest "
+        f"|g| / |g of the query bias| {max(key.values()):.2e}; 0 on both sides: {unread}; K1 {launches['flash_attention_fwd']} K4 "
+        f"{launches['flash_attention_bwd']} on the card (a check, not the path)")
+    if (rel > 1e-2 or cos[worst] < 0.99 or max(key.values()) > 5e-2 or unread != ["audio_embedding_7.weight"]
+            or launches["flash_attention_bwd"] != 2 * VX_LAYERS):
+        raise AssertionError(f"vallex card vs CPU: loss {loss_gpu} / {loss_cpu}, min cosine {cos[worst]} ({worst})")
+    del small
+
+
+def vallex_tokens_against_cpu(model) -> None:
+    """The trained VALLE cut to VX_LAYERS + VX_LAYERS layers in f32 (K1's f32
+    route on the card, TF32 off): ``synthesize``'s greedy codes (top_k 1,
+    VX_CPU_NEW AR steps, then the NAR over every codebook) equal on the card
+    and the CPU. A check: its launches stay out of the ``vallex`` path."""
+    from slam_llm_tpu_torch.pipeline.inference_vallex import synthesize, text_to_ids
+
+    small = _vx_cut(model, torch.float32).eval()
+    rng = np.random.default_rng(9)
+    prompt = rng.integers(0, 1024, (8, VX_CPU_PROMPT))
+    args = (text_to_ids(VX_PROMPT_TEXT, None, 512), text_to_ids(VX_TARGET_TEXT, None, 512), prompt)
+
+    def run():
+        # a random model rarely emits end-of-audio: a row that did would end the compare early
+        return synthesize(small, *args, max_new=VX_CPU_NEW, top_k=1)
+
+    (card, n_card), launches = run_counted(run)
+    small.to("cpu")
+    cpu, n_cpu = run()
+    same = n_card == n_cpu and np.array_equal(card, cpu)
+    log(f"[vallex] card vs CPU at {VX_LAYERS} + {VX_LAYERS} layers in f32: greedy codes of {n_card} / {n_cpu} frames x "
+        f"8 codebooks equal {same}; K1 f32 {launches['flash_attention_fwd_f32']} launches (a check, not the path); "
+        f"codebook 0 {card[0, :8].tolist()}")
+    if not same or launches["flash_attention_fwd_f32"] == 0:
+        raise AssertionError(f"vallex greedy codes differ card vs CPU: {card} vs {cpu}")
+    del small
+
+
+def encodec_against_cpu(path: str) -> None:
+    """EnCodec-24kHz from ``path`` (write_encodec's), ENCODEC_FRAMES frames
+    of 8 codebooks, card vs CPU, f32 with cuDNN's TF32 off on both: the
+    relative L2 within ENCODEC_REL_L2, which the same decode on the card
+    with cuDNN's TF32 on (the control) must exceed."""
+    from slam_llm_tpu_torch.models.encodec import (EncodecConfig, decoder_apply, encodec_decode,
+                                                   load_encodec_checkpoint, rvq_decode)
+    from slam_llm_tpu_torch.ops.torch_port import to_device
+
+    cfg = EncodecConfig.encodec_24khz()
+    host = load_encodec_checkpoint(path, cfg)
+    card = to_device(host, "cuda")
+    codes = np.random.default_rng(4).integers(0, cfg.codebook_size, (1, 8, ENCODEC_FRAMES))
+    encodec_decode(card, codes, cfg)  # warm-up
+    t0 = time.perf_counter()
+    a = encodec_decode(card, codes, cfg)
+    card_ms = 1000 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    b = encodec_decode(to_device(host, "cpu"), codes, cfg)
+    cpu_ms = 1000 * (time.perf_counter() - t0)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        c = torch.as_tensor(codes, device="cuda")
+        tf32 = decoder_apply(card, rvq_decode(card, c), cfg)[:, 0].cpu().numpy()
+    rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    rel_tf32 = float(np.linalg.norm(tf32 - b) / np.linalg.norm(b))
+    log(f"[vallex] EnCodec-24kHz, {ENCODEC_FRAMES} frames x 8 codebooks -> {a.shape[1]} samples: card {card_ms:.1f} ms, "
+        f"CPU {cpu_ms:.1f} ms; |card - CPU| max {float(np.abs(a - b).max()):.3e}, relative L2 {rel:.3e} (limit "
+        f"{ENCODEC_REL_L2}; the TF32 control {rel_tf32:.3e}); rms {float(np.sqrt(np.mean(b ** 2))):.4f} | {SMI}")
+    if a.shape != (1, ENCODEC_FRAMES * 320) or not rel <= ENCODEC_REL_L2 < rel_tf32:
+        raise AssertionError(f"EnCodec card vs CPU: {a.shape}, relative L2 {rel}, TF32 control {rel_tf32}")
+
+
+def run_vallex() -> dict:
+    """Phase 17: vallex_tts.yaml at full width (base_24l: 24 AR + 24 NAR
+    layers, d 1024, 16 heads, 8 codebooks, seeded random init; every tensor
+    trains in f32 masters) through pipeline.finetune on synthetic 8-codebook
+    corpora in the 512 and 1024 audio buckets (text bucket 64, so the key
+    rows hold the text's padding as a hole): step ms, peak, K1 = K4 = 48 a
+    step, model.pt read back; the card vs the CPU at 2 + 2 layers;
+    pipeline.inference_vallex.main with the trained checkpoint and a random
+    EnCodec-24kHz from tools/synth_checkpoint.write_encodec (a 3 s prompt,
+    4 s at most of new frames): AR ms a step, NAR ms, codec ms, RTF, the
+    wav; greedy codes card vs CPU in f32 at 2 + 2 layers; EnCodec card vs
+    CPU. Returns the launches of the path (the two trainings and the
+    synthesis)."""
+    import shutil
+    import wave
+
+    from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
+    from slam_llm_tpu_torch.pipeline import inference_vallex
+    from slam_llm_tpu_torch.tools.synth_checkpoint import write_encodec
+    from slam_llm_tpu_torch.utils.checkpoint import load_trainable
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_vallex_"))
+    launches = None
+    for bucket in VX_TA:
+        steps = VX_STEPS[bucket]
+        extra = () if bucket == VX_TA[0] else ("++train_config.run_validation=false", "++train_config.save_model=false")
+        cfg = _vx_config(tmp, bucket, steps, *extra)
+        tc = cfg.train_config
+        if (cfg.model_config.llm_name, cfg.dataset_config.dataset, tc.batch_size_training, tc.freeze_llm, tc.lr) != (
+                "vallex", "vallex_dataset", VX_BATCH, False, 5e-5):
+            raise AssertionError(f"the vallex recipe changed: {cfg.model_config} {cfg.dataset_config} {tc}")
+        res, got, stats = _finetune(cfg, f"vallex {bucket}")
+        trainer = res["trainer"]
+        c = trainer.model.cfg
+        ds = dataset_of(cfg, load_tokenizer(cfg.model_config.llm_path), "train")
+        shapes = {(b["text_ids"].shape, b["audio_ids"].shape) for b in (ds.collator([ds[i] for i in range(j, j + VX_BATCH)])
+                                                                         for j in range(0, len(ds), VX_BATCH))}
+        layers = c.ar_layers + c.nar_layers
+        val_batches = 1 if tc.run_validation else 0
+        want = {"flash_attention_fwd": layers * (steps + val_batches), "flash_attention_bwd": layers * steps}
+        n_params = sum(p.numel() for p in trainer.trainable.values())
+        log(f"[vallex {bucket}] base_24l: {c.ar_layers} AR + {c.nar_layers} NAR layers, d {c.d_model}, {c.n_heads} "
+            f"heads, {c.n_codebooks} codebooks, {n_params / 1e9:.3f} G parameters all trained (f32 masters); batches "
+            f"{sorted(shapes)}; step {stats['step_ms']:.1f} ms, {VX_BATCH / stats['step_ms'] * 1000:.1f} utt/s, peak "
+            f"{stats['peak_gib']:.2f} GiB; launches K1 {got['flash_attention_fwd']} K4 {got['flash_attention_bwd']} "
+            f"(want {want}) | {SMI}")
+        if (shapes != {((VX_BATCH, VX_TT), (VX_BATCH, 8, bucket))} or len(res["steps"]) != steps
+                or {k: got[k] for k in want} != want or any(got[k] for k in VX_BYPASSED)
+                or set(trainer.trainable) != {n for n, _ in trainer.model.named_parameters()}):
+            raise AssertionError(f"vallex {bucket}: batches {shapes}, steps {len(res['steps'])}, launches {got}")
+        launches = got if launches is None else {k: launches[k] + got[k] for k in launches}
+        if bucket == VX_TA[0]:
+            ckpt = res["checkpoints"][-1]
+            t0 = time.perf_counter()
+            saved = load_trainable(ckpt)
+            same = set(saved) == set(trainer.trainable) and all(
+                torch.equal(saved[n], p.detach().cpu()) for n, p in trainer.trainable.items())
+            log(f"[vallex] model.pt: {(Path(ckpt) / 'model.pt').stat().st_size / 2**30:.2f} GiB, {len(saved)} tensors, "
+                f"read back in {time.perf_counter() - t0:.2f} s, equal to the trained tensors {same}; validation "
+                f"{res.get('final_val')}")
+            if not same:
+                raise AssertionError("vallex: model.pt does not hold the trained tensors")
+            del saved
+            trainer.model.eval()
+            vallex_grads_against_cpu(trainer.model, ds)
+            trained = trainer.model
+        del res, trainer
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    size = write_encodec(str(tmp / "encodec"), seed=0, device="cuda")
+    prompt = np.random.default_rng(8).integers(0, 1024, (8, VX_PROMPT_FRAMES))
+    np.save(tmp / "prompt.npy", prompt)
+    log(f"[vallex] wrote a random EnCodec-24kHz model.safetensors ({size / 2**20:.1f} MiB) and a {VX_PROMPT_FRAMES}-frame "
+        f"8-codebook prompt in {time.perf_counter() - t0:.2f} s")
+    totals = {"ar_s": 0.0, "nar_s": 0.0, "codec_s": 0.0, "audio_seconds": 0.0}
+    for seed in VX_SYNTH_SEEDS:
+        argv = ["--ckpt_path", ckpt, "--llm_name", "vallex", "--codec_path", str(tmp / "encodec" / "model.safetensors"),
+                "--prompt_text", VX_PROMPT_TEXT, "--prompt_codes", str(tmp / "prompt.npy"), "--target_text",
+                VX_TARGET_TEXT, "--save_path", str(tmp / f"tts{seed}.wav"), "--max_new", str(VX_MAX_NEW), "--seed",
+                str(seed), "--device", "cuda"]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, got = run_counted(lambda: inference_vallex.main(argv))
+        wall = time.perf_counter() - t0
+        with wave.open(out["path"], "rb") as f:
+            pcm = np.frombuffer(f.readframes(f.getnframes()), np.int16)
+        compute = out["ar_s"] + out["nar_s"] + out["codec_s"]
+        want = {"flash_attention_fwd": 24 * out["ar_steps"] + 24 * 7}
+        log(f"[vallex] inference_vallex.main, seed {seed}: {out['frames']} frames ({out['audio_seconds']:.2f} s, "
+            f"{len(pcm)} samples at 24 kHz, rms {float(np.sqrt(np.mean((pcm / 32767.0) ** 2))):.4f}); AR "
+            f"{1000 * out['ar_s'] / out['ar_steps']:.2f} ms a step over {out['ar_steps']} steps at T {VX_DECODE_T} "
+            f"({out['ar_s']:.2f} s), NAR {1000 * out['nar_s']:.1f} ms (7 stages), codec {1000 * out['codec_s']:.1f} "
+            f"ms; RTF {compute / out['audio_seconds']:.4f} (wall {wall:.2f} s with the model load); peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches K1 {got['flash_attention_fwd']} (want "
+            f"{want['flash_attention_fwd']}) | {SMI}")
+        if (len(pcm) != out["frames"] * 320 or not np.abs(pcm).max() > 0
+                or got["flash_attention_fwd"] != want["flash_attention_fwd"] or any(got[k] for k in VX_BYPASSED)):
+            raise AssertionError(f"vallex synthesis: {out}, launches {got}")
+        if seed != VX_SYNTH_SEEDS[0]:
+            totals = {k: totals[k] + out[k] for k in totals}
+        launches = {k: launches[k] + got[k] for k in launches}
+    log(f"[vallex] synthesis after the first: {totals['audio_seconds']:.2f} s of audio, AR {totals['ar_s']:.2f} s, NAR "
+        f"{totals['nar_s']:.2f} s, codec {totals['codec_s']:.2f} s: RTF "
+        f"{(totals['ar_s'] + totals['nar_s'] + totals['codec_s']) / totals['audio_seconds']:.4f} | {SMI}")
+    vallex_tokens_against_cpu(trained)
+    encodec_against_cpu(str(tmp / "encodec" / "model.safetensors"))
+    del trained
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    log(f"[vallex] phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 18: prefix-tuning and llama-adapter on the ASR recipe
+# ---------------------------------------------------------------------------
+
+PEFT_STEPS = 4
+PEFT_DECODE = 8  # utterances decoded, one batch (the recipe's val_batch_size)
+PEFT_NEW_TOKENS = 32
+# peft_method -> the LLM's trained leaves
+PEFT_METHODS = {"prefix": ("prefix_k", "prefix_v"), "llama_adapter": ("adaption_prompt", "adaption_gate")}
+
+
+def run_peft() -> dict:
+    """Phase 18: asr_whisper_tinyllama.yaml at full width (whisper-small,
+    TinyLlama-1.1B int8 base with the int8_rot backward, the recipe's remat)
+    with ++train_config.peft_config.peft_method=prefix, then llama_adapter:
+    pipeline.finetune for PEFT_STEPS steps of 16 (the projector and the new
+    leaves move, everything else stays), pipeline.inference_batch with the
+    checkpoint (beam 4, PEFT_DECODE utterances) against the in-memory
+    decode, and the card vs the CPU at 2 + 2 layers (the gate on the new
+    leaves' gradients); first the recipe's own LoRA for PEFT_STEPS steps, the
+    step time to compare with in this process (not on the path). Prefix-tuning's LLM attention is the plain path
+    (end-aligned causal over the prefix slots): only the encoder launches
+    K1, and nothing K4. Returns the launches of both methods' runs."""
+    import shutil
+
+    from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
+    from slam_llm_tpu_torch.pipeline import inference_batch
+    from slam_llm_tpu_torch.pipeline.inference_batch import decode_loader
+    from slam_llm_tpu_torch.utils.checkpoint import load_trainable
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lora_"))
+    _, _, lora = _finetune(_train_cfg(tmp, PEFT_STEPS, "++train_config.run_validation=false",
+                                      "++train_config.save_model=false"), "peft: lora, the recipe as shipped")
+    shutil.rmtree(tmp)
+    log(f"[peft] the recipe's LoRA in this process, for reference: step {lora['step_ms']:.1f} ms, peak "
+        f"{lora['peak_gib']:.2f} GiB (not on the peft path)")
+    total = None
+    for method, leaves in PEFT_METHODS.items():
+        tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{method}_"))
+        label = f"peft {method}"
+        cfg = _train_cfg(tmp, PEFT_STEPS, f"++train_config.peft_config.peft_method={method}")
+        res, launches, stats = _finetune(cfg, label)
+        trainer = res["trainer"]
+        llm = trainer.model.cfg.llm
+        log(f"[{label}] TinyLlama-1.1B {llm.peft_method}: {llm.prefix_len or llm.adapter_len} "
+            f"{'key / value slots' if llm.prefix_len else 'prompt tokens'} a layer, lora rank {llm.lora_rank}; step "
+            f"{stats['step_ms']:.1f} ms, peak {stats['peak_gib']:.2f} GiB; per step K1 "
+            f"{launches['flash_attention_fwd'] / PEFT_STEPS:.1f} K4 {launches['flash_attention_bwd'] / PEFT_STEPS:.1f} "
+            f"K2 {launches['rowquant'] / PEFT_STEPS:.1f} | {SMI}")
+        check_projector_trained(trainer, cfg, label, leaves=leaves)
+        ckpt = res["checkpoints"][-1]
+        saved = load_trainable(ckpt)
+        if set(saved) != set(trainer.trainable) or not all(torch.equal(saved[n], p.detach().cpu())
+                                                            for n, p in trainer.trainable.items()):
+            raise AssertionError(f"{label}: model.pt differs from the trained tensors")
+        dec = inference_batch.load_run_config([
+            "--config", str(RECIPE), f"++ckpt_path={ckpt}", "++train_config.use_peft=true",
+            f"++train_config.peft_config.peft_method={method}",
+            f"++dataset_config.val_data_path={write_corpus(tmp, n=PEFT_DECODE, seed=2, name='test')}",
+            f"++decode_config.decode_log={tmp / 'decode'}", f"++decode_config.max_new_tokens={PEFT_NEW_TOKENS}"])
+        out, dec_launches = run_counted(lambda: inference_batch.main(dec, device="cuda"))
+        with open(out["pred"], encoding="utf-8", newline="") as f:
+            text = f.read()
+        tokenizer = load_tokenizer(cfg.model_config.llm_path)
+        mine = decode_texts(trainer.model, tokenizer, dec)
+        log(f"[{label}] inference_batch with ckpt_path: {out['n']} utterances, beam {dec.decode_config.num_beams}, "
+            f"{PEFT_NEW_TOKENS} new tokens at most: prefill {1000 * out['prefill_s'] / out['calls']:.1f} ms/batch, "
+            f"{1000 * out['decode_s'] / max(out['decode_steps'], 1):.2f} ms/beam step over {out['decode_steps']} steps, "
+            f"RTF {out['rtf']:.4f}; equal to the in-memory decode {text == ''.join(f'{x}{chr(10)}' for x in mine)}; "
+            f"launches K1 {dec_launches['flash_attention_fwd']} K4 {dec_launches['flash_attention_bwd']}")
+        if out["n"] != PEFT_DECODE or text != "".join(f"{line}\n" for line in mine):
+            raise AssertionError(f"{label}: the reloaded model's decode differs from the in-memory trained model's")
+        runs = {k: launches[k] + dec_launches[k] for k in launches}
+        enc = trainer.model.cfg.encoder.n_layers
+        forwards = PEFT_STEPS + 1 + out["calls"]  # the steps, the validation batch, the decode's prefills
+        want = ({"flash_attention_fwd": enc * forwards, "flash_attention_bwd": 0} if llm.prefix_len else
+                {"flash_attention_fwd": (enc + llm.n_layers) * forwards, "flash_attention_bwd": llm.n_layers * PEFT_STEPS})
+        if {k: runs[k] for k in want} != want or not runs["rowquant"] or not runs["int8_matmul"]:
+            raise AssertionError(f"{label}: launches {runs}, want {want}")
+        test = dataset_of(dec, tokenizer, dec.dataset_config.test_split)
+        check_reduced_against_cpu(trainer, cfg, next(iter(decode_loader(dec, test))),
+                                  dataset_of(cfg, tokenizer, cfg.dataset_config.train_split), label, gate="llm.")
+        total = runs if total is None else {k: total[k] + runs[k] for k in total}
+        del res, trainer
+        torch.cuda.empty_cache()
+        shutil.rmtree(tmp)
+    log(f"[peft] phase 18 in {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     global SMI
     t0 = time.perf_counter()
@@ -4107,9 +4544,12 @@ def main() -> int:
     vsr = run_vsr()
     large_scale = run_large_scale()
     s2s = run_s2s()
+    vallex = run_vallex()
+    peft = run_peft()
     paths = {"decode": decode, "train": train, "train_int8_sr": modes, "weights": weights, "st": st,
              "wavlm": wavlm, "aac": aac, "clap": clap, **music_spatial, "seld_encoder": seld_encoder, "vsr": vsr,
-             "large_scale": large_scale, "s2s": s2s}
+             "large_scale": large_scale, "s2s": s2s,
+             "vallex": vallex, "peft": peft}
     for r in results:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
@@ -4118,7 +4558,9 @@ def main() -> int:
                                           for p in ("wgmma", "splitk")}
     if not (s2s["flash_attention_fwd"] and s2s["flash_attention_bwd"]):
         raise AssertionError(f"the s2s path launched K1 {s2s['flash_attention_fwd']} / K4 {s2s['flash_attention_bwd']}")
-    log(f"[chip_smoke] phases 1-16 in {time.perf_counter() - t0:.1f} s | {SMI}")
+    if not (vallex["flash_attention_fwd"] and vallex["flash_attention_bwd"]) or any(vallex[k] for k in VX_BYPASSED):
+        raise AssertionError(f"the vallex path launched {vallex}")
+    log(f"[chip_smoke] phases 1-18 in {time.perf_counter() - t0:.1f} s | {SMI}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -198,13 +198,18 @@ class Generator:
         cache, next_logits, prompt_len, v = self._prefill(batch, max_new)
 
         t0 = time.perf_counter()
-        # beams share the prompt prefix: keep "k"/"v" at B rows and give
-        # each beam its own generated tail
-        cache = {
-            "k": cache["k"], "v": cache["v"],
-            "k_gen": cache["k_gen"].new_zeros((cache["k_gen"].shape[0], b * k) + cache["k_gen"].shape[2:]),
-            "v_gen": cache["v_gen"].new_zeros((cache["v_gen"].shape[0], b * k) + cache["v_gen"].shape[2:]),
-        }
+        if self.model.cfg.llm.prefix_len:
+            # prefix-tuning prepends its slots inside the attention, which
+            # needs the prompt cache tiled to the beams, as in the reference
+            cache = {key: val.repeat_interleave(k, dim=1) for key, val in cache.items()}
+        else:
+            # beams share the prompt prefix: keep "k"/"v" at B rows and give
+            # each beam its own generated tail
+            cache = {
+                "k": cache["k"], "v": cache["v"],
+                "k_gen": cache["k_gen"].new_zeros((cache["k_gen"].shape[0], b * k) + cache["k_gen"].shape[2:]),
+                "v_gen": cache["v_gen"].new_zeros((cache["v_gen"].shape[0], b * k) + cache["v_gen"].shape[2:]),
+            }
         att = batch["attention_mask"].repeat_interleave(k, dim=0)  # (B*K, t)
         prompt_len_k = prompt_len.repeat_interleave(k, dim=0)
         counts0 = _prompt_token_counts(batch, v)

@@ -18,6 +18,20 @@ decoder layer with ``remat_policy`` (``models.remat``); inference never does.
 Unlike the reference, whose arrays are immutable, the port writes the KV
 cache in place: prefill fills the prompt prefix, and each decode step writes
 its token's k/v into the generated tail after the layer has attended.
+
+PEFT (``peft_method``): ``lora`` adds LoRA factors to the ``lora_targets``.
+``prefix`` gives every layer learnable post-RoPE key / value slots
+``prefix_k`` / ``prefix_v`` (``prefix_tokens``, Hkv, D) that every query
+attends: they are prepended to the keys, the key mask is widened by ones and
+a decode bias padded on the left. RoPE is then applied before the attention,
+which is end-aligned causal with Tk = Tq + p: the plain path, as in the
+reference (no flash kernel in the LLM). Beam decode needs the prompt cache
+tiled to the beams. ``adaption_prompt`` (llama-adapter) gives every layer a
+learnable prompt (``adaption_prompt_len``, d_model) and a zero-initialised
+gate (H,): the prompt's keys and values come from the layer's own k / v
+projections, a separate non-causal softmax over them is queried with the
+rotated q, and ``tanh(gate)`` times its output is added to the attention's.
+The main attention keeps the flash kernels with RoPE fused.
 """
 
 from __future__ import annotations
@@ -58,11 +72,13 @@ class LLMConfig:
     tied_embeddings: bool = False
     head_size: Optional[int] = None  # lm_head width when it differs from vocab_size
     dtype: torch.dtype = torch.bfloat16
-    peft_method: str = "lora"  # lora | none (prefix / adaption_prompt: not ported yet)
+    peft_method: str = "lora"  # lora | prefix | adaption_prompt | none
     lora_rank: int = 0
     lora_alpha: float = 32.0
     lora_dropout: float = 0.0
     lora_targets: Tuple[str, ...] = ("q_proj", "v_proj")
+    prefix_tokens: int = 30  # prefix-tuning's key / value slots per layer
+    adaption_prompt_len: int = 10  # llama-adapter's prompt tokens per layer
     base_quant: str = "none"  # none | int8
     # dx mode of the int8 denses: bf16 | int8_rot | int8_rot_otf | int8_sr | int8 | <mode>_mlp (ops/quant.py)
     base_quant_bwd: str = "bf16"
@@ -70,6 +86,16 @@ class LLMConfig:
     remat: bool = True  # checkpoint each decoder layer on the training path
     remat_policy: str = "dots_flash_saveable"  # models.remat.POLICIES
     ce_chunk: int = 64  # fused-CE time chunk
+
+    @property
+    def prefix_len(self) -> int:
+        """Prefix-tuning's slots per layer, 0 without it."""
+        return self.prefix_tokens if self.peft_method == "prefix" else 0
+
+    @property
+    def adapter_len(self) -> int:
+        """llama-adapter's prompt tokens per layer, 0 without it."""
+        return self.adaption_prompt_len if self.peft_method == "adaption_prompt" else 0
 
     @staticmethod
     def tinyllama_1_1b() -> "LLMConfig":
@@ -197,6 +223,37 @@ class Attention(nn.Module):
             ("o_proj", c.n_heads * c.head_dim, c.d_model),
         ):
             setattr(self, name, _dense(c, name, fin, fout, c.qkv_bias and name != "o_proj", device))
+        if c.prefix_len:
+            for name in ("prefix_k", "prefix_v"):
+                setattr(self, name, nn.Parameter(torch.zeros(c.prefix_len, c.n_kv_heads, c.head_dim, device=device),
+                                                 requires_grad=False))
+        if c.adapter_len:
+            self.adaption_prompt = nn.Parameter(torch.zeros(c.adapter_len, c.d_model, device=device),
+                                                requires_grad=False)
+            self.adaption_gate = nn.Parameter(torch.zeros(c.n_heads, device=device), requires_grad=False)
+
+    def _prefixed(self, k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """k / v with the prefix slots prepended to every row."""
+        p, b = self.cfg.prefix_len, k.shape[0]
+        pk, pv = (t.to(k.dtype)[None].expand(b, *t.shape) for t in (self.prefix_k, self.prefix_v))
+        return torch.cat([pk, k], dim=1), torch.cat([pv, v], dim=1)
+
+    def _adapter(self, out: torch.Tensor, q_rot: torch.Tensor) -> torch.Tensor:
+        """``out + tanh(gate) * softmax(q_rot pk^T / sqrt(D)) pv``, the prompt's
+        keys / values from this layer's k / v projections (an int8 base runs
+        them through its kernels at M = prompt rows)."""
+        c = self.cfg
+        b, t = q_rot.shape[:2]
+        g = c.n_heads // c.n_kv_heads
+        prompt = self.adaption_prompt[None].to(c.dtype)
+        pk = self.k_proj(prompt).reshape(c.adapter_len, c.n_kv_heads, c.head_dim)
+        pv = self.v_proj(prompt).reshape(c.adapter_len, c.n_kv_heads, c.head_dim)
+        qg = q_rot.reshape(b, t, c.n_kv_heads, g, c.head_dim)
+        scores = torch.einsum("bqhgd,khd->bhgqk", qg.float(), pk.float()) / math.sqrt(c.head_dim)
+        probs = torch.softmax(scores, dim=-1).to(q_rot.dtype)
+        pout = torch.einsum("bhgqk,khd->bqhgd", probs.float(), pv.float()).to(q_rot.dtype)
+        gate = torch.tanh(self.adaption_gate.float()).to(out.dtype)
+        return out + gate[None, None, :, None] * pout.reshape(b, t, c.n_heads, c.head_dim)
 
     def forward(
         self,
@@ -224,16 +281,25 @@ class Attention(nn.Module):
         k = self.k_proj(x, tape, DENSE_SITES["k_proj"], xq).reshape(b, t, c.n_kv_heads, c.head_dim)
         v = self.v_proj(x, tape, DENSE_SITES["v_proj"], xq).reshape(b, t, c.n_kv_heads, c.head_dim)
         cos, sin = rope_tables(positions, c.head_dim, c.rope_theta)
-        if cache_k is None:
+        p = c.prefix_len
+        if cache_k is None and not p:
             # training path: the flash kernels rotate q/k as they load them
             out = mha_attention(q, k, v, kv_mask=kv_mask, causal=True, rope=(cos, sin), tape=tape, owner=self)
+            if c.adapter_len:
+                out = self._adapter(out, apply_rope_tables(q, cos, sin))
             return self.o_proj(out.reshape(b, t, c.n_heads * c.head_dim), tape, DENSE_SITES["o_proj"]), None
-        # rotate before attention: the cache stores rotated keys
+        # rotate before attention: the cache stores rotated keys, and the
+        # prefix slots are post-RoPE
         q = apply_rope_tables(q, cos, sin)
         k = apply_rope_tables(k, cos, sin)
 
         new_kv = None
-        if bias is not None:
+        if cache_k is None:
+            # prefix-tuning's training path: end-aligned causal over [prefix | keys], the plain path
+            k, v = self._prefixed(k, v)
+            kv_mask = None if kv_mask is None else F.pad(kv_mask, (p, 0), value=1)
+            out = mha_attention(q, k, v, kv_mask=kv_mask, causal=True)
+        elif bias is not None:
             if t != 1:
                 raise ValueError("a decode step takes one token per row")
             # the caller marks slot cache_index valid (this token lands
@@ -241,8 +307,11 @@ class Attention(nn.Module):
             new_kv = (k.to(cache_k.dtype), v.to(cache_v.dtype))
             cols = torch.arange(cache_k.shape[1] + gen_k.shape[1], device=x.device)
             bias = torch.where(cols == cache_index, NEG_INF, bias)
-            bias = F.pad(bias, (0, 1))
+            bias = F.pad(bias, (p, 1))  # the prefix slots (attended) and the live token
             if cache_k.shape[0] != b:
+                if p:
+                    raise NotImplementedError("prefix-tuning decode requires a tiled prefix cache "
+                                              "(pass beams pre-tiled to B*K)")
                 # beam decode: the prefix stays at B rows, queries run at B*K
                 out = _shared_prefix_decode_attention(
                     q, cache_k, cache_v, gen_k, gen_v, new_kv[0], new_kv[1], bias
@@ -250,15 +319,22 @@ class Attention(nn.Module):
             else:
                 kk = torch.cat([cache_k, gen_k, new_kv[0]], dim=1).to(q.dtype)
                 vv = torch.cat([cache_v, gen_v, new_kv[1]], dim=1).to(q.dtype)
+                if p:
+                    kk, vv = self._prefixed(kk, vv)
                 out = mha_attention(q, kk, vv, bias=bias)
         else:
             # prefill: the fresh k/v ARE the cache prefix [0, t); attending
             # them directly keeps Tq == Tk, so the causal mask stays
-            # structured and runs the flash kernel
+            # structured and runs the flash kernel (without prefix slots)
             cache_k[:, :t] = k.to(cache_k.dtype)
             cache_v[:, :t] = v.to(cache_v.dtype)
+            if p:
+                k, v = self._prefixed(k, v)
+                kv_mask = None if kv_mask is None else F.pad(kv_mask, (p, 0), value=1)
             out = mha_attention(q, k, v, kv_mask=kv_mask, causal=True)
-        out = self.o_proj(out.reshape(b, t, c.n_heads * c.head_dim))
+        if c.adapter_len:
+            out = self._adapter(out, q)
+        out = self.o_proj(out.reshape(b, t, c.n_heads * c.head_dim), tape, DENSE_SITES["o_proj"])
         return out, new_kv
 
 
@@ -302,10 +378,8 @@ class CausalLM(nn.Module):
     def __init__(self, cfg: LLMConfig, device=None):
         super().__init__()
         c = self.cfg = cfg
-        if c.peft_method not in ("lora", "none"):
-            raise NotImplementedError(
-                f"peft_method {c.peft_method!r} is not ported yet (only lora)"
-            )
+        if c.peft_method not in ("lora", "prefix", "adaption_prompt", "none"):
+            raise ValueError(f"unknown peft_method: {c.peft_method}")
         self.embed_tokens = nn.Embedding(c.vocab_size, c.d_model, dtype=c.dtype, device=device)
         self.embed_tokens.requires_grad_(False)
         self.layers = nn.ModuleList(DecoderLayer(c, device) for _ in range(c.n_layers))

@@ -15,7 +15,11 @@ reads ``text_input_ids`` / ``text_input_mask``, and AV-HuBERT (``av_hubert``),
 which reads ``visual`` / ``audio_feats`` / ``visual_mask``.
 Without an encoder (``encoder_name: null``, DRCap) the batch's ``audio_mel``
 (else ``audio``) is the encoder output, with ``audio_mel_mask`` or ones:
-DRCap's one-frame CLAP latents. VALL-E X raises ``NotImplementedError``. The projector is linear, cov1d-linear or q-former.
+DRCap's one-frame CLAP latents. With ``llm_name: vallex`` (or
+``vallex-tiny-test``) ``model_factory`` builds VALL-E X (``models.vallex``)
+instead, which is the whole model. The projector is linear, cov1d-linear or
+q-former. ``peft_method`` is ``lora``, ``prefix`` / ``prefix_tuning`` or
+``llama_adapter`` / ``adaption_prompt`` (``models.llm``).
 """
 
 from __future__ import annotations
@@ -42,7 +46,6 @@ from slam_llm_tpu_torch.models.whisper import WhisperEncoder
 from slam_llm_tpu_torch.ops.quant import check_bwd_mode
 
 IGNORE_INDEX = -100
-_TODO_ENCODERS = "ROADMAP Queue 1: vallex"
 RAW_ENCODERS = ("wavlm", "hubert", "emotion2vec")  # read the raw waveform
 
 
@@ -116,7 +119,7 @@ class SLAMModel(nn.Module):
         elif cfg.encoder_name is None:
             self.encoder = None
         else:
-            raise NotImplementedError(f"encoder {cfg.encoder_name!r} is not ported yet ({_TODO_ENCODERS})")
+            raise ValueError(f"unknown encoder: {cfg.encoder_name}")
         self.encoder_projector = build_projector(cfg.projector, cfg.projector_cfg, device)
         self.llm = CausalLM(cfg.llm, device)
 
@@ -215,7 +218,7 @@ def build_slam_config(train_config, model_config) -> SLAMConfig:
     elif mc.encoder_name is None:
         enc_cfg, encoder_dim = None, mc.encoder_dim
     else:
-        raise NotImplementedError(f"encoder {mc.encoder_name!r} is not ported yet ({_TODO_ENCODERS})")
+        raise ValueError(f"unknown encoder: {mc.encoder_name}")
 
     llm_presets = {
         "tinyllama-1.1b": LLMConfig.tinyllama_1_1b,
@@ -229,12 +232,19 @@ def build_slam_config(train_config, model_config) -> SLAMConfig:
     if tc.use_peft:
         pc = tc.peft_config
         method = getattr(pc, "peft_method", "lora")
-        if method != "lora":
-            raise NotImplementedError(f"peft_method {method!r} is not ported yet (only lora)")
-        llm_cfg = dataclasses.replace(
-            llm_cfg, peft_method="lora", lora_rank=pc.r, lora_alpha=float(pc.lora_alpha),
-            lora_dropout=float(pc.lora_dropout), lora_targets=tuple(pc.target_modules),
-        )
+        if method == "lora":
+            llm_cfg = dataclasses.replace(
+                llm_cfg, peft_method="lora", lora_rank=pc.r, lora_alpha=float(pc.lora_alpha),
+                lora_dropout=float(pc.lora_dropout), lora_targets=tuple(pc.target_modules),
+            )
+        elif method in ("prefix", "prefix_tuning"):
+            llm_cfg = dataclasses.replace(llm_cfg, peft_method="prefix", lora_rank=0,
+                                          prefix_tokens=getattr(pc, "num_virtual_tokens", 30))
+        elif method in ("llama_adapter", "adaption_prompt"):
+            llm_cfg = dataclasses.replace(llm_cfg, peft_method="adaption_prompt", lora_rank=0,
+                                          adaption_prompt_len=getattr(pc, "adapter_len", 10))
+        else:
+            raise ValueError(f"unknown peft_method: {method}")
     shard = tc.shard
     if getattr(shard, "bwd_pretranspose", False):
         raise NotImplementedError("shard.bwd_pretranspose is not ported yet (ROADMAP Queue 1)")
@@ -262,12 +272,17 @@ def build_slam_config(train_config, model_config) -> SLAMConfig:
 
 def model_factory(train_config, model_config, device=None, **kwargs):
     """Build ``(SLAMModel, tokenizer)`` with zero-filled weights on ``device``;
-    ``pipeline.common.materialize_params`` fills them."""
+    ``pipeline.common.materialize_params`` fills them. ``llm_name: vallex``
+    (``vallex-tiny-test``) builds ``(VALLE, tokenizer)``, as the reference."""
     from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
 
-    if model_config.llm_name.startswith("vallex"):
-        raise NotImplementedError(f"llm_name {model_config.llm_name!r} is not ported yet ({_TODO_ENCODERS})")
     tokenizer = load_tokenizer(model_config.llm_path)
+    if model_config.llm_name.startswith("vallex"):
+        from slam_llm_tpu_torch.models.vallex import PRESETS, VALLE
+
+        if model_config.llm_name not in PRESETS:
+            raise ValueError(f"unknown vallex preset {model_config.llm_name!r}; presets: {sorted(PRESETS)}")
+        return VALLE(PRESETS[model_config.llm_name](), device), tokenizer
     cfg = build_slam_config(train_config, model_config)
     if tokenizer.vocab_size > cfg.llm.vocab_size:
         cfg = dataclasses.replace(

@@ -22,7 +22,9 @@ from torch import nn
 from slam_llm_tpu_torch.config import RunConfig
 from slam_llm_tpu_torch.models.beats import BEATsTransformer
 from slam_llm_tpu_torch.models.layers import DenseGeneralLora
+from slam_llm_tpu_torch.models.llm import Attention
 from slam_llm_tpu_torch.models.projector import ProjectorQFormer
+from slam_llm_tpu_torch.models.vallex import VALLE
 from slam_llm_tpu_torch.models.vit import ViTEncoder
 from slam_llm_tpu_torch.models.wavlm import WavLMEncoder
 from slam_llm_tpu_torch.ops.quant import quantize_int8
@@ -76,11 +78,15 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     zero, embeddings and the Q-Former's queries standard normal, WavLM's
     and BEATs' relative-position tables and EAT's CLS token normal with std
     0.02, norms (BERT's ``nn.LayerNorm``s included; WavLM's gate constants)
-    1 / 0. An int8 base is the quantization of such a kernel."""
+    1 / 0. An int8 base is the quantization of such a kernel. VALL-E X's
+    embeddings are normal with std 0.02; prefix-tuning's slots and
+    llama-adapter's prompt too, its gate 0."""
 
     def normal(shape, std):
         return torch.randn(shape, generator=generator, device=generator.device) * std
 
+    vallex_embeds = {id(m) for v in model.modules() if isinstance(v, VALLE) for m in v.modules()
+                     if isinstance(m, nn.Embedding)}
     for mod in model.modules():
         if isinstance(mod, DenseGeneralLora):
             w = normal((mod.features, mod.in_features), 1.0 / math.sqrt(mod.in_features))
@@ -108,7 +114,13 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):
-            mod.weight.copy_(normal(mod.weight.shape, 1.0))
+            mod.weight.copy_(normal(mod.weight.shape, 0.02 if id(mod) in vallex_embeds else 1.0))
+        elif isinstance(mod, Attention):
+            for name in ("prefix_k", "prefix_v", "adaption_prompt"):
+                if hasattr(mod, name):
+                    getattr(mod, name).copy_(normal(getattr(mod, name).shape, 0.02))
+            if hasattr(mod, "adaption_gate"):
+                mod.adaption_gate.zero_()
         elif isinstance(mod, ProjectorQFormer):
             mod.query.copy_(normal(mod.query.shape, 1.0))
         elif isinstance(mod, (WavLMEncoder, BEATsTransformer)) and mod.rel_attn_embed is not None:

@@ -28,7 +28,7 @@ from typing import Any, Callable, Optional
 
 # the JAX package's in-tree datasets the port does not carry yet (ROADMAP.md
 # Queue 1: each comes with the recipe that reads it)
-UNPORTED_DATASETS = ("text_dataset", "vallex_dataset")
+UNPORTED_DATASETS = ("text_dataset",)
 # dataset_config.dataset -> (module, factory) of the port's in-tree datasets
 DATASETS = {
     "speech_dataset": ("slam_llm_tpu_torch.data.speech_dataset", "get_speech_dataset"),
@@ -39,6 +39,7 @@ DATASETS = {
     "avhubert_dataset": ("slam_llm_tpu_torch.data.avhubert_dataset", "get_avhubert_dataset"),
     "speech_dataset_large": ("slam_llm_tpu_torch.data.speech_dataset_large", "get_speech_dataset_large"),
     "s2s_dataset": ("slam_llm_tpu_torch.data.s2s_dataset", "get_s2s_dataset"),
+    "vallex_dataset": ("slam_llm_tpu_torch.data.vallex_dataset", "get_vallex_dataset"),
 }
 # recipe files whose factories import the JAX package: the spec resolves to
 # the port's own copy of the factory, and the file is never executed

@@ -2,7 +2,7 @@
 ``torch.profiler``, its device time split by kernel family, the unprofiled
 step time, and the fused cross-entropy alone.
 
-    python -m slam_llm_tpu_torch.tools.profile_train [--recipe st | wavlm | aac | drcap] [++key=value ...]   # from the repo root, on a GPU
+    python -m slam_llm_tpu_torch.tools.profile_train [--recipe st | wavlm | aac | drcap | vallex] [++key=value ...]   # from the repo root, on a GPU
 
 Builds the recipe of ``chip_smoke.py`` (asr_whisper_tinyllama.yaml, full
 width, random weights from the recipe's seed: frozen whisper-small, trained
@@ -23,7 +23,9 @@ fixed-length 1024-frame fbank; seeded random weights), or with
 tokenizer; one latent frame a row, with three retrieved captions in the
 prompt: the manifest's rows go through ``utils.drcap.augment_manifest_with_rag``
 over the synthetic caption store, whose latents are seeded random unit
-vectors, since a profile needs their shape and not a CLAP),
+vectors, since a profile needs their shape and not a CLAP), or with
+``--recipe vallex`` phase 17's vallex_tts.yaml (VALL-E X base_24l, every
+tensor trained, a synthetic 8-codebook corpus in the (64, 512) buckets),
 takes the first training batch of the recipe's size, runs warm-up steps,
 then profiles one step. Kernel families: K3 the s8 GEMM, K4 the flash
 backward, K1 the flash forward, K2 rowquant (both kernels), cuBLAS GEMMs
@@ -68,7 +70,7 @@ def split_by_family(prof) -> dict:
     return dict(out)
 
 
-RECIPES = ("asr", "st", "wavlm", "aac", "drcap")
+RECIPES = ("asr", "st", "wavlm", "aac", "drcap", "vallex")
 
 
 def split_recipe(argv) -> tuple:
@@ -101,11 +103,17 @@ def build_recipe(recipe: str, overrides, tmp: Path, device="cuda", split: str = 
         cs._synth_tokenizer_dir = str(tmp / "tokenizer")
         head = ["--config", str({"wavlm": cs.W_RECIPE, "aac": cs.AAC_RECIPE, "drcap": cs.DRCAP_RECIPE}[recipe]), factory]
         targets = cs.AAC_CAPTIONS if recipe == "aac" else None
+    elif recipe == "vallex":
+        head = ["--config", str(cs.VX_RECIPE), "++dataset_config.code_layer=8"]
     else:
         head = ["--config", str(cs.RECIPE)]
     n = finetune.load_run_config(head + list(overrides)).train_config.batch_size_training
     if recipe == "drcap":
         corpus, latents = _drcap_corpus(tmp, n, split)
+    elif recipe == "vallex":
+        from slam_llm_tpu_torch.tools.synth_checkpoint import write_vallex_corpus
+
+        corpus = write_vallex_corpus(str(tmp / f"{split}.jsonl"), n, frames=cs.VX_FRAMES[512], text_len=(40, cs.VX_TT))
     else:
         corpus = cs.write_corpus(tmp, n=n, name=split, targets=targets)
     cfg = finetune.load_run_config(head + [f"++dataset_config.train_data_path={corpus}",
@@ -155,7 +163,8 @@ def main(argv=(), steps: int = 3) -> None:
     cfg, model, _, dataset, n = build_recipe(recipe, overrides, tmp)
     trainer = Trainer(model, model.cfg, cfg.train_config).state_from_params()
     batch = trainer.put_batch(dataset.collator([dataset[i] for i in range(n)]))
-    print(f"batch {tuple(batch['input_ids'].shape)}, {int(batch['attention_mask'].sum())} attended tokens", flush=True)
+    first = next(v for v in batch.values() if v.ndim)
+    print(f"batch {tuple(first.shape)}", flush=True)
     for _ in range(2):  # warm-up
         trainer.train_step(batch)
     torch.cuda.synchronize()
@@ -182,6 +191,9 @@ def main(argv=(), steps: int = 3) -> None:
     print(f"K2 launches in the profiled step: { {n: c.launches - before[n] for n, c in counters.items()} }", flush=True)
     if recipe in ("wavlm", "aac"):
         encoder_rows(trainer, batch, step_ms)
+    if recipe == "vallex":  # no LLM head, no fused CE
+        print(smi)
+        return
 
     # the fused CE alone, at the step's shape (hidden of the trunk, frozen head)
     b, t = batch["input_ids"].shape

@@ -80,6 +80,12 @@ layout, the convolutions of HiFT under weight norm as ``weight_g`` /
 ``weight_v``) and ``write_snac`` (the snac package's decoder state dict,
 weight-normed); ``*_state_dict`` return the dicts.
 
+For VALL-E X, called from Python: ``write_encodec`` (an HF ``EncodecModel``
+``model.safetensors``, facebook/encodec_24khz's widths by default: the
+quantizer's codebooks and the decoder, weight-normed as ``weight_g`` /
+``weight_v``) and ``write_vallex_corpus`` (a jsonl of phoneme ids and
+8-codebook codec codes).
+
 The SELD, MIR and E-chat recipes' synthetic corpora, called from Python:
 ``write_seld_corpus`` (32 kHz mono clips, 2-channel IR ``.npy`` files and
 ``{qa_data_root}/{stage}/{split}.json`` manifests), ``write_music_corpus``
@@ -784,6 +790,70 @@ def write_cosyvoice(out_dir: str, flow_cfg=None, hift_cfg=None, seed: int = 0, d
     torch.save(cosyvoice_flow_state_dict(flow_cfg or FlowConfig(), seed, device), flow)
     torch.save(hift_state_dict(hift_cfg or HiFTConfig(), seed + 1, device), hift)
     return os.path.getsize(flow) + os.path.getsize(hift)
+
+
+def encodec_state_dict(cfg, seed: int = 0, device="cpu") -> Dict[str, torch.Tensor]:
+    """An HF ``EncodecModel`` state dict's quantizer codebooks
+    (``quantizer.layers.{i}.codebook.embed``) and decoder
+    (``decoder.layers.{j}``: the input conv, the LSTM, per ratio an ELU, the
+    ConvTranspose1d and the ResnetBlocks, then an ELU and the output conv),
+    the convolutions under weight norm as ``weight_g`` / ``weight_v``, for
+    ``cfg`` (``models.encodec.EncodecConfig``; its default is
+    facebook/encodec_24khz's). The encoder is left out: a decode never reads it."""
+    w = _Vocoder(seed, device)
+    for i in range(cfg.num_quantizers):
+        w.sd[f"quantizer.layers.{i}.codebook.embed"] = w._normal((cfg.codebook_size, cfg.hidden_size), 1.0)
+    d0 = 2 ** len(cfg.upsampling_ratios) * cfg.num_filters
+    w.wn("decoder.layers.0.conv", (d0, cfg.hidden_size, cfg.kernel_size))
+    for i in range(cfg.num_lstm_layers):
+        for name, shape in (("weight_ih", (4 * d0, d0)), ("weight_hh", (4 * d0, d0))):
+            w.sd[f"decoder.layers.1.lstm.{name}_l{i}"] = w._normal(shape, 1.0 / math.sqrt(d0))
+        for name in ("bias_ih", "bias_hh"):
+            w.sd[f"decoder.layers.1.lstm.{name}_l{i}"] = w._normal((4 * d0,), 0.02)
+    idx, dim = 2, d0
+    for ratio in cfg.upsampling_ratios:
+        out = dim // 2
+        w.wn(f"decoder.layers.{idx + 1}.conv", (dim, out, 2 * ratio), transposed=True)
+        idx += 2
+        for j in range(cfg.num_residual_layers):
+            base = f"decoder.layers.{idx}"
+            w.wn(f"{base}.block.1.conv", (out // cfg.compress, out, cfg.residual_kernel_size))
+            w.wn(f"{base}.block.3.conv", (out, out // cfg.compress, 1))
+            if cfg.use_conv_shortcut:
+                w.wn(f"{base}.shortcut.conv", (out, out, 1))
+            idx += 1
+        dim = out
+    w.wn(f"decoder.layers.{idx + 1}.conv", (1, dim, cfg.last_kernel_size))
+    return w.sd
+
+
+def write_encodec(out_dir: str, cfg=None, seed: int = 0, device="cpu") -> int:
+    """``<out_dir>/model.safetensors``: ``encodec_state_dict`` (EnCodec-24kHz's
+    widths by default), the file ``pipeline.inference_vallex --codec_path``
+    takes."""
+    from slam_llm_tpu_torch.models.encodec import EncodecConfig
+
+    os.makedirs(out_dir, exist_ok=True)
+    return save_file(encodec_state_dict(cfg or EncodecConfig.encodec_24khz(), seed, device),
+                     os.path.join(out_dir, "model.safetensors"))
+
+
+def write_vallex_corpus(path: str, n: int, frames=(300, 500), text_len=(20, 64), n_codebooks: int = 8,
+                        audio_vocab: int = 1024, text_vocab: int = 512, seed: int = 0) -> str:
+    """A VALL-E X jsonl of ``n`` rows ``{key, phonemes, audio_tokens}``:
+    phoneme ids (``text_len`` long, evenly spread, below ``text_vocab``)
+    and (n_codebooks, T) codec codes (T evenly spread over ``frames``, below
+    ``audio_vocab``), seeded."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        for i in range(n):
+            share = i / max(n - 1, 1)
+            nt = int(round(text_len[0] + (text_len[1] - text_len[0]) * share))
+            nf = int(round(frames[0] + (frames[1] - frames[0]) * share))
+            f.write(json.dumps({"key": f"tts{i}", "phonemes": rng.integers(0, text_vocab, nt).tolist(),
+                                "audio_tokens": rng.integers(0, audio_vocab, (n_codebooks, nf)).tolist()}) + "\n")
+    return path
 
 
 def write_snac(path: str, cfg=None, seed: int = 0, device="cpu") -> int:

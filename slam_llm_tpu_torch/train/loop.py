@@ -30,6 +30,22 @@ from slam_llm_tpu_torch.utils.checkpoint import save_state, save_trainable
 from slam_llm_tpu_torch.utils.logging_utils import MemoryTrace, MetricsLogger
 
 
+def _first_array(batch: Dict) -> np.ndarray:
+    """The batch's first array: not every recipe batches on ``input_ids``
+    (VALL-E X batches ``text_ids`` / ``audio_ids``)."""
+    return next(v for v in batch.values() if isinstance(v, np.ndarray) and v.ndim)
+
+
+def _batch_size(batch: Dict) -> Dict[str, Any]:
+    """The logged shape (the first array's) and the attended tokens: the
+    ``attention_mask``'s, else VALL-E X's ``text_mask`` and ``audio_mask``."""
+    if "attention_mask" in batch:
+        tokens = int(batch["attention_mask"].sum())
+    else:
+        tokens = int(batch["text_mask"].sum()) + int(batch["audio_mask"].sum())
+    return {"shape": tuple(_first_array(batch).shape), "tokens": tokens}
+
+
 def evaluate(trainer: Trainer, eval_loader) -> Dict[str, float]:
     """Batch-size-weighted mean loss and accuracy over the eval loader."""
     losses, accs, weights = [], [], []
@@ -37,8 +53,7 @@ def evaluate(trainer: Trainer, eval_loader) -> Dict[str, float]:
         m = trainer.eval_step(trainer.put_batch(batch))
         losses.append(float(m["loss"]))
         accs.append(float(m["acc"]))
-        first = next(v for v in batch.values() if isinstance(v, np.ndarray) and v.ndim)
-        weights.append(len(first))
+        weights.append(len(_first_array(batch)))
     if not losses:
         return {"loss": float("inf"), "acc": 0.0, "ppl": float("inf")}
     loss = float(np.average(losses, weights=weights))
@@ -95,7 +110,7 @@ def train(trainer: Trainer, train_loader, eval_loader=None, train_config=None, l
     validation loss, the texts ``decode_hook`` returned, the profiler traces
     written, and ``steps``: for every logged step its metrics, its wall time
     in seconds (measured when it logs, which waits for the device), the
-    batch shape and its count of attended tokens."""
+    shape of the batch's first array and its count of attended tokens."""
     tc = train_config or trainer.train_config
     logger = MetricsLogger(log_config, tc) if log_config is not None else MetricsLogger(
         type("L", (), {"use_wandb": False, "log_file": None})()
@@ -133,8 +148,7 @@ def train(trainer: Trainer, train_loader, eval_loader=None, train_config=None, l
                 if step % log_interval == 0:
                     metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
                     results["steps"].append({
-                        "step": step, "seconds": time.perf_counter() - t0, **metrics,
-                        "shape": tuple(batch["input_ids"].shape), "tokens": int(batch["attention_mask"].sum()),
+                        "step": step, "seconds": time.perf_counter() - t0, **metrics, **_batch_size(batch),
                     })
                     logger.log(metrics, step)
                 if tc.run_validation and eval_loader is not None and step % tc.validation_interval == 0:

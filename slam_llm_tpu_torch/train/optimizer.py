@@ -21,9 +21,13 @@ import torch
 from torch import nn
 
 
+# prefix-tuning's key / value slots, llama-adapter's prompt and gate
+_PEFT_LEAVES = ("prefix_k", "prefix_v", "adaption_prompt", "adaption_gate")
+
+
 def param_label(name: str, slam_cfg) -> str:
     """'train' or 'freeze' for a parameter name (``model.named_parameters``):
-    the projector and the LoRA factors train; the encoder freezes iff
+    the projector, the LoRA factors and the prefix / adapter tensors train; the encoder freezes iff
     ``freeze_encoder``, the LLM iff ``freeze_llm``; anything else trains.
     The S2S tricks (the reference's trick_utils.py): ``train_embed_only`` /
     ``train_audio_embed_only`` train the ``lm_head`` alone,
@@ -35,6 +39,8 @@ def param_label(name: str, slam_cfg) -> str:
     if "encoder_projector" in name:
         return "train"
     if "lora_a" in name or "lora_b" in name:
+        return "train"
+    if name.endswith(_PEFT_LEAVES):
         return "train"
     if name.startswith("encoder."):
         return "freeze" if slam_cfg.freeze_encoder else "train"

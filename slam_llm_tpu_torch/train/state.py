@@ -61,7 +61,7 @@ class Trainer:
         self.quant_generator = torch.Generator().manual_seed(tc.seed)
         self.sr_modules = [m for m in model.modules() if getattr(m, "quant", None) == "int8"
                            and m.quant_bwd in SR_MODES]
-        self.ce_sr = slam_cfg.llm.ce_quant == "int8_sr"
+        self.ce_sr = getattr(getattr(slam_cfg, "llm", None), "ce_quant", "none") == "int8_sr"
         self.trainable: Dict[str, nn.Parameter] = {}
         self.frozen: Dict[str, nn.Parameter] = {}
         self.optimizer = None
@@ -73,7 +73,9 @@ class Trainer:
         re-store the parameters, and build the optimizer over the trainable
         ones."""
         model, cfg = self.model, self.slam_cfg
-        if cfg.llm.base_quant != "none" and not cfg.freeze_llm:
+        llm = getattr(cfg, "llm", None)  # VALL-E X's config has none: every VALLE tensor trains
+        base_quant, ce_quant = getattr(llm, "base_quant", "none"), getattr(llm, "ce_quant", "none")
+        if base_quant != "none" and not cfg.freeze_llm:
             raise ValueError(
                 "llm.base_quant requires freeze_llm: the int8 dot's weight gradient is zero by "
                 "construction, so training the base through it would silently not train"
@@ -85,7 +87,7 @@ class Trainer:
             for p in self.frozen.values():
                 if p.dtype == torch.float32:
                     p.data = p.data.to(torch.bfloat16)
-        if cfg.llm.base_quant != "none" or cfg.llm.ce_quant != "none":
+        if base_quant != "none" or ce_quant != "none":
             quantize_base_params(model)
         for mod in model.modules():
             if getattr(mod, "lora_dropout", 0.0) > 0:

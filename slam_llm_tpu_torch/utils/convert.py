@@ -30,6 +30,11 @@ An S2S model's tree maps by the same rules: the full-vocabulary
 ``llm.embed_tokens``, the narrow ``llm.lm_head`` (``head_size``),
 ``group_decode_adapter.linear``, ``tts_adapter_{i}`` (decoder layers
 outside the scanned stack), ``tts_adapter_ln`` and ``tts_adapter_head``.
+So do VALL-E X's (``text_embedding``, ``audio_embedding_{i}``,
+``nar_stage_embedding``, the scanned ``layers`` of ``ar_decoder`` /
+``nar_decoder`` with the AdaLN ``mod`` denses, ``ar_head`` / ``nar_head``,
+``ar_norm`` / ``nar_norm``), and the PEFT leaves ``prefix_k`` / ``prefix_v``
+/ ``adaption_prompt`` / ``adaption_gate`` of each decoder layer's ``attn``.
 
 The result loads with ``model.load_state_dict(sd)``, which casts each tensor
 to the dtype the port stores it in: the trainable leaves (LoRA factors, the
@@ -59,6 +64,8 @@ import torch
 _DROPPED = ("kernel_qr", "kernel_scale_r", "kernel_t")
 _SCANNED = ("layers", "blocks")  # subtrees with a leading layer axis
 _TO_FLAX_CONV = {4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}  # Conv2d / Conv3d weight -> flax kernel
+# the modules whose ``weight`` is a flax ``Embed.embedding``: the LLM's, VALL-E X's
+_EMBEDDING = re.compile(r"embed_tokens|text_embedding|audio_embedding_\d+|nar_stage_embedding")
 
 
 def _leaf(name: str, arr: np.ndarray):
@@ -219,8 +226,8 @@ def _to_flax(tensors: Mapping) -> dict:
     for name, t in tensors.items():
         *path, leaf = name.split(".")
         arr = t.detach().cpu().float().numpy()
-        if leaf == "weight" and path[-1:] == ["embed_tokens"]:
-            leaf = "embedding"  # a trained embedding (S2S): (V, D) in both packages
+        if leaf == "weight" and path and _EMBEDDING.fullmatch(path[-1]):
+            leaf = "embedding"  # a trained embedding (S2S, VALL-E X): (V, D) in both packages
         elif leaf == "weight":
             leaf, arr = "kernel", arr.transpose(_TO_FLAX_CONV[arr.ndim]) if arr.ndim in _TO_FLAX_CONV else arr.T
         elif leaf in ("kernel_q", "lora_a", "lora_b"):

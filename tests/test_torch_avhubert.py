@@ -229,7 +229,7 @@ def test_registry_resolves_the_vsr_dataset():
     assert get_custom_dataset_factory(cfg) is tds_mod.get_avhubert_dataset
     cfg.file = "slam_llm_tpu.data.avhubert_dataset:get_avhubert_dataset"
     assert get_custom_dataset_factory(cfg) is tds_mod.get_avhubert_dataset
-    cfg.file = "slam_llm_tpu.data.vallex_dataset:get_vallex_dataset"  # a module the port does not carry yet
+    cfg.file = "slam_llm_tpu.data.text_dataset:get_text_dataset"  # a module the port does not carry yet
     with pytest.raises(NotImplementedError, match="not ported"):
         get_custom_dataset_factory(cfg)
 

@@ -1252,3 +1252,73 @@ def test_bert_base_layer_on_card_matches_the_cpu(gen):
         ref = layer.to("cpu")(x.cpu(), neg.cpu())
     cos = torch.nn.functional.cosine_similarity(out.cpu(), ref, dim=-1)
     assert bool(torch.isfinite(out).all()) and cos.min().item() >= 0.999
+
+
+def _vallex_mask(b, tt, ta):
+    """VALL-E X's key mask ``[text valid | text pad | audio valid | audio
+    pad]``: the text padded to its bucket leaves a hole inside the row, the
+    holes of the rows crossing the key tiles at different places."""
+    mask = torch.zeros(b, tt + ta, dtype=torch.int32, device="cuda")
+    for i in range(b):
+        nt, na = tt - (i * 13) % (tt // 2), ta - (i * 97) % (ta // 2)
+        mask[i, :nt] = 1
+        mask[i, tt:tt + na] = 1
+    return mask
+
+
+@pytest.mark.parametrize("tt,ta,causal", [(64, 513, True), (64, 1025, True), (64, 512, False), (64, 1024, False),
+                                          (32, 97, True)])
+def test_flash_kernels_at_the_vallex_masks(gen, tt, ta, causal):
+    """K1 and K4 at VALL-E X's attention (16 heads, D = 64): the AR stack
+    causal over [text ; audio + its end-of-audio column], the NAR stack not
+    causal, with the text's padding a hole inside the key row. K1 within
+    2e-2 of the f32 twin, lse within 1e-3; K4 within 2e-2 relative L2,
+    deterministic."""
+    b, h, d = 4, 16, 64
+    t = tt + ta
+    q, k, v = _qkv(b, t, h, h, d, gen)
+    dout = torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
+    mask = _vallex_mask(b, tt, ta)
+    out, lse = tflash.flash_attention_fwd(q, k, v, mask, causal)
+    ref, ref_lse = tflash.flash_attention_ref(q.float(), k.float(), v.float(), mask, causal)
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    got = tflash.flash_attention_bwd(q, k, v, mask, out, lse, dout, causal)
+    again = tflash.flash_attention_bwd(q, k, v, mask, out, lse, dout, causal)
+    want = _bwd_twin_f32(q, k, v, mask, out, lse, dout, causal, None)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a) and _rel_l2(g, w) <= 2e-2
+
+
+def test_vallex_on_card_matches_the_cpu(gen):
+    """Two AR + two NAR layers at base_24l's widths, bf16 on the card (K1 /
+    K4) against the CPU's plain path on the same weights: the loss within
+    1e-2 relative, every gradient's cosine >= 0.99."""
+    from slam_llm_tpu_torch.models.vallex import VALLE, VallexConfig
+
+    cfg = dataclasses.replace(VallexConfig.base_24l(), ar_layers=2, nar_layers=2)
+    model = VALLE(cfg, device="cuda")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * (0.02 if p.ndim == 2 else 0.01)
+                    + (1.0 if p.ndim == 1 and p.shape[0] == cfg.d_model else 0.0))
+    mask = _vallex_mask(4, 64, 300)
+    ids = torch.randint(0, 1024, (4, 8, 300), generator=gen, device="cuda")
+    batch = {"text_ids": torch.randint(0, 512, (4, 64), generator=gen, device="cuda") * mask[:, :64],
+             "text_mask": mask[:, :64], "audio_ids": ids * mask[:, None, 64:], "audio_mask": mask[:, 64:],
+             "nar_stage": torch.tensor([1, 3, 5, 7], device="cuda")}
+    params = list(model.parameters())
+    for p in params:
+        p.requires_grad_(True)
+    before = (tflash.flash_attention_fwd.launches, tflash.flash_attention_bwd.launches)
+    out = model(batch)
+    grads = torch.autograd.grad(out["loss"], params)
+    assert (tflash.flash_attention_fwd.launches - before[0], tflash.flash_attention_bwd.launches - before[1]) == (4, 4)
+    model.to("cpu")
+    cpu = model({k: x.cpu() for k, x in batch.items()})
+    cpu_grads = torch.autograd.grad(cpu["loss"], list(model.parameters()))
+    assert abs(float(out["loss"]) - float(cpu["loss"])) <= 1e-2 * abs(float(cpu["loss"]))
+    scale = max(float(c.abs().max()) for c in cpu_grads)
+    for g, c in zip(grads, cpu_grads):
+        if float(c.abs().max()) > 1e-4 * scale:  # the key biases' gradients are 0 up to rounding
+            assert torch.nn.functional.cosine_similarity(g.cpu().flatten().float(), c.flatten().float(), 0) >= 0.99

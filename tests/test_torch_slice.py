@@ -228,7 +228,7 @@ def test_unported_parts_raise(tmp_path):
     from slam_llm_tpu_torch.pipeline.common import materialize_params
 
     cfg = _tiny_cfg(tmp_path, n=2)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="unknown encoder"):  # as the JAX package
         tslam.build_slam_config(cfg.train_config, dataclasses.replace(cfg.model_config, encoder_name="vallex"))
     # the q-former and conv1d projectors are ported: they build
     for kind, cls in (("q-former", tproj.ProjectorQFormer), ("cov1d-linear", tproj.ProjectorConv1d)):

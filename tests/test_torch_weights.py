@@ -491,7 +491,9 @@ from slam_llm_tpu_torch.pipeline import finetune, generate_s2s, inference, infer
 from slam_llm_tpu_torch.tools import synth_checkpoint
 from slam_llm_tpu_torch.models import cosyvoice_flow, hift, s2s, snac
 from slam_llm_tpu_torch.utils import codec_utils
-from slam_llm_tpu_torch.data import s2s_dataset
+from slam_llm_tpu_torch.data import s2s_dataset, vallex_dataset
+from slam_llm_tpu_torch.models import encodec, vallex
+from slam_llm_tpu_torch.pipeline import inference_vallex
 sd = hf_loader.load_hf_state_dict(llm_dir)
 tok = load_tokenizer(tok_dir)
 trainable = checkpoint.load_trainable(msgpack_path)
