@@ -214,6 +214,21 @@ Phases, each fatal on failure:
                 checkpoint (beam 4) against the in-memory decode, the card vs
                 the CPU at 2 + 2 layers; under prefix-tuning the LLM's
                 attention is the plain path (K1 only in the encoder, no K4).
+ 19. distributed -- the sharded path (run_distributed): `python -m
+                torch.distributed.run --standalone --nproc_per_node=1
+                chip_smoke.py --distributed-job <json>`, a subprocess with a
+                timeout, runs at world size 1 on NCCL, FSDP2 over the
+                ("dp", "fsdp") mesh: (a) the ASR recipe through
+                pipeline.finetune as phase 5 runs it (8 steps of 16, int8
+                base, LoRA, remat), its losses, grad norms and model.pt
+                within 1e-6 relative of phase 5's (bit-equality logged);
+                (b) s2s_qwen at 2 layers of Qwen2-7B's widths, the whole LLM
+                trained, against phase 16's steps; (c) inference_batch, line
+                for line against phase 4's decode; every module's parameters
+                plain and contiguous when it computes; the launches count on
+                the `distributed` path. With two or more cards, (a) at
+                fsdp=2 (with four, also fsdp=4 and dp=2 x fsdp=2) against (a)
+                (run_multi_card); otherwise a line says why not.
 
 Prints one JSON line of kernel results before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -1300,12 +1315,9 @@ def run_slice() -> dict:
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     manifest = write_corpus(tmp)
-    cfg = inference_batch.load_run_config([
-        "--config", str(RECIPE),
-        f"++dataset_config.train_data_path={manifest}",
-        f"++dataset_config.val_data_path={manifest}",
-        f"++decode_config.decode_log={tmp / 'decode'}",
-    ])
+    args = ["--config", str(RECIPE), f"++dataset_config.train_data_path={manifest}",
+            f"++dataset_config.val_data_path={manifest}"]
+    cfg = inference_batch.load_run_config([*args, f"++decode_config.decode_log={tmp / 'decode'}"])
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1332,6 +1344,7 @@ def run_slice() -> dict:
         f"{res['decode_steps']} beam steps: {launches['rowquant'] / forwards / RECIPE_LAYERS:.2f} per layer per "
         f"forward (q / k / v share one, gate / up one)")
     check_prefill_against_cpu(cfg)
+    PHASE["decode"] = {"args": args, "pred": res["pred"], "seconds": res["seconds"]}
     return launches
 
 
@@ -1343,10 +1356,8 @@ TRAIN_STEPS = 8  # the first two are warm-up; step time is the mean of the rest
 NO_REMAT_STEPS = 6  # the short run with activation checkpointing off
 
 
-def _train_cfg(tmp: Path, steps: int, *extra: str):
-    from slam_llm_tpu_torch.pipeline import finetune
-
-    return finetune.load_run_config([
+def _train_args(tmp: Path, steps: int, *extra: str) -> list:
+    return [
         "--config", str(RECIPE),
         f"++dataset_config.train_data_path={write_corpus(tmp, n=16 * steps, name='train')}",
         f"++dataset_config.val_data_path={write_corpus(tmp, n=8, seed=1, name='val')}",
@@ -1354,7 +1365,13 @@ def _train_cfg(tmp: Path, steps: int, *extra: str):
         "++train_config.log_interval=1",
         f"++train_config.output_dir={tmp / 'out'}",
         *extra,
-    ])
+    ]
+
+
+def _train_cfg(tmp: Path, steps: int, *extra: str):
+    from slam_llm_tpu_torch.pipeline import finetune
+
+    return finetune.load_run_config(_train_args(tmp, steps, *extra))
 
 
 def _finetune(cfg, label: str):
@@ -1453,12 +1470,17 @@ def run_training() -> dict:
     checkpoint; the same for NO_REMAT_STEPS with remat off, for its step
     time and peak memory; then the gradient check against the CPU plain
     path."""
+    from slam_llm_tpu_torch.pipeline import finetune
+
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
-    cfg = _train_cfg(tmp, TRAIN_STEPS)
+    args = _train_args(tmp, TRAIN_STEPS)
+    cfg = finetune.load_run_config(args)
     if not (cfg.train_config.shard.remat and cfg.train_config.shard.remat_policy == "dots_flash_saveable"):
         raise AssertionError("the recipe no longer ships remat with dots_flash_saveable")
     res, launches, remat_on = _finetune(cfg, "train")
     trainer, steps = res["trainer"], res["steps"]
+    PHASE["train"] = {"args": args, "steps": steps, "checkpoints": res["checkpoints"],
+                      "final_val": res.get("final_val"), **remat_on}
     if len(steps) != TRAIN_STEPS:
         raise AssertionError(f"expected {TRAIN_STEPS} training steps, got {len(steps)}")
     missing = [name for name in TRAIN_PATH if launches[name] == 0]
@@ -4054,13 +4076,16 @@ def run_s2s_training(tmp: Path) -> dict:
     frames = [int(lo + (hi - lo) * i / (S2S_BATCH - 1)) for lo, hi in S2S_TRAIN_FRAMES for i in range(S2S_BATCH)]
     train = write_s2s_corpus(tmp, "train", frames, seed=1)
     val = write_s2s_corpus(tmp, "val", [30] * 4, seed=2)
-    cfg = _s2s_config(finetune.load_run_config, f"++dataset_config.train_data_path={train}",
-                      f"++dataset_config.val_data_path={val}", "++train_config.max_steps_per_epoch=3",
-                      "++train_config.log_interval=1", "++train_config.warmup_steps=1",
-                      f"++train_config.output_dir={tmp / 'out'}")
+    def args(train, val):
+        return (f"++dataset_config.train_data_path={train}", f"++dataset_config.val_data_path={val}",
+                "++train_config.max_steps_per_epoch=3", "++train_config.log_interval=1",
+                "++train_config.warmup_steps=1")
+
+    cfg = _s2s_config(finetune.load_run_config, *args(train, val), f"++train_config.output_dir={tmp / 'out'}")
     with qwen2_layers(S2S_LAYERS):
         res, launches, stats = _finetune(cfg, "s2s")
         trainer = res["trainer"]
+        PHASE["s2s"] = {"args": args, "steps": res["steps"], "final_val": res.get("final_val")}
         buckets = sorted(s["shape"][2] for s in res["steps"])
         per_step = {"flash_attention_fwd": 12 + S2S_LAYERS, "flash_attention_bwd": S2S_LAYERS}
         want = {"flash_attention_fwd": 4 * per_step["flash_attention_fwd"], "flash_attention_bwd": 3 * S2S_LAYERS}
@@ -4525,6 +4550,255 @@ def run_peft() -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the (dp, fsdp) mesh under torchrun
+# ---------------------------------------------------------------------------
+
+# what phases 4, 5 and 16 leave for phase 19 to hold its runs against
+PHASE = {}
+DIST_LAUNCH_TIMEOUT_S = 300  # the torchrun launch of phase 19, kernels loaded from phase 2's build
+DIST_PATH = ("flash_attention_fwd", "flash_attention_bwd", "rowquant", "rowquant_rot_sr", "int8_matmul")
+DIST_RTOL = 1e-6  # phase 19 against phases 5 and 16, relative
+
+
+def _torchrun(nproc: int, job: dict, tmp: Path) -> dict:
+    """``python -m torch.distributed.run --standalone --nproc_per_node=nproc
+    chip_smoke.py --distributed-job <job>``, the users' launch, with a
+    timeout; a non-zero exit fails the phase. Returns rank 0's results."""
+    job = dict(job, out=str(tmp / f"result_{nproc}.json"))
+    path = tmp / f"job_{nproc}.json"
+    path.write_text(json.dumps(job))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={nproc}",
+           str(Path(__file__).resolve()), "--distributed-job", str(path)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=DIST_LAUNCH_TIMEOUT_S)
+    (tmp / f"torchrun_{nproc}.log").write_text(proc.stdout + proc.stderr)
+    for line in proc.stdout.splitlines():
+        if line.startswith("[dist"):
+            log(line)
+    log(f"[distributed] torchrun --nproc_per_node={nproc}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun --nproc_per_node={nproc} failed ({proc.returncode}):\n"
+                             f"{(proc.stdout + proc.stderr)[-6000:]}")
+    return json.loads(Path(job["out"]).read_text())
+
+
+def _plain_param_check():
+    """Forward pre-hooks, installed on every module with parameters of its
+    own once the trainer has sharded the model, recording any parameter a
+    module computes with that is a DTensor or not contiguous: the kernels'
+    wrappers must get FSDP2's unsharded plain tensors. They check a run's
+    first training step (its forward and the backward's replays) and are
+    removed after it, so the timed steps (3 on) carry none."""
+    from torch.distributed.tensor import DTensor
+
+    from slam_llm_tpu_torch.train.state import Trainer
+
+    bad, seen, handles = [], [0], []
+    original, original_step = Trainer.state_from_params, Trainer.train_step
+
+    def hook(mod, args):
+        for name, p in mod.named_parameters(recurse=False):
+            seen[0] += 1
+            if isinstance(p, DTensor) or not p.is_contiguous():
+                bad.append(f"{type(mod).__name__}.{name}")
+
+    def state_from_params(self):
+        out = original(self)
+        for mod in self.model.modules():
+            if any(True for _ in mod.parameters(recurse=False)):
+                handles.append(mod.register_forward_pre_hook(hook))
+        return out
+
+    def train_step(self, batch):
+        try:
+            return original_step(self, batch)
+        finally:
+            for h in handles:
+                h.remove()
+            handles.clear()
+
+    Trainer.state_from_params, Trainer.train_step = state_from_params, train_step
+    return bad, seen
+
+
+def distributed_job(path: str) -> None:
+    """One torchrun rank of phase 19: the jobs of ``path`` in turn, each
+    through the entry points with the launch counts set to 0 just before
+    and read just after; rank 0 writes the results."""
+    import torch.distributed as dist
+
+    from slam_llm_tpu_torch.pipeline import finetune, inference_batch
+    from slam_llm_tpu_torch.pipeline.common import maybe_init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job = json.loads(Path(path).read_text())
+    if not maybe_init_distributed("cuda"):
+        raise RuntimeError("phase 19's job runs under torchrun")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    bad, seen = _plain_param_check()
+    out = {"world": world, "backend": dist.get_backend(), "launches": {}, "device": torch.cuda.current_device()}
+
+    def train(key: str, cfg):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, launches = run_counted(lambda: finetune.main(cfg, device="cuda"))
+        out[key] = {"steps": [{k: v for k, v in s.items()} for s in res["steps"]],
+                    "checkpoints": res["checkpoints"], "final_val": res.get("final_val"),
+                    "base_bytes": res["base_bytes"], "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "wall_s": time.perf_counter() - t0, "launches": launches}
+        return launches
+
+    for name in job["run"]:
+        t0 = time.perf_counter()
+        if name == "asr":
+            cfg = finetune.load_run_config(job["asr_args"])
+            launches = train("asr", cfg)
+        elif name == "s2s":
+            cfg = _s2s_config(finetune.load_run_config, *job["s2s_args"])
+            with qwen2_layers(S2S_LAYERS):
+                launches = train("s2s", cfg)
+        else:
+            cfg = inference_batch.load_run_config(job["decode_args"])
+            res, launches = run_counted(lambda: inference_batch.main(cfg, device="cuda"))
+            out["decode"] = {"pred": res["pred"], "n": res["n"], "seconds": res["seconds"]}
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        if rank == 0:
+            print(f"[distributed rank 0/{world}] {name} in {time.perf_counter() - t0:.1f} s, launches "
+                  f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    out["plain_params"] = {"checked": seen[0], "dtensor_or_strided": sorted(set(bad))}
+    if rank == 0:
+        Path(job["out"]).write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _same_run(label: str, got: dict, want: dict, rtol: float, norm_rtol: float = None) -> bool:
+    """Phase 19's steps against another run's: losses within ``rtol``
+    relative, grad norms within ``norm_rtol`` (``rtol`` by default); True
+    where every one is bit-equal."""
+    gates = {"loss": rtol, "grad_norm": rtol if norm_rtol is None else norm_rtol}
+    diffs = {k: [_rel(g[k], w[k]) for g, w in zip(got["steps"], want["steps"])] for k in gates}
+    if len(got["steps"]) != len(want["steps"]) or any(max(diffs[k]) > gates[k] for k in gates):
+        raise AssertionError(f"{label}: steps {got['steps']} against {want['steps']}")
+    exact = all(g[k] == w[k] for g, w in zip(got["steps"], want["steps"]) for k in gates)
+    log(f"[distributed] {label}: {len(got['steps'])} steps, losses {[round(s['loss'], 6) for s in got['steps']]}, "
+        f"largest relative difference loss {max(diffs['loss']):.2e} / grad norm {max(diffs['grad_norm']):.2e} "
+        f"(gates {gates['loss']:g} / {gates['grad_norm']:g}), bit-equal {exact}")
+    return exact
+
+
+def run_multi_card(one: dict, args: list, tmp: Path) -> None:
+    """The ASR run of phase 19 (a) on two cards at ``fsdp=2`` and, with four,
+    at ``fsdp=4`` and ``(dp=2, fsdp=2)``, each against (a): the losses within
+    one bf16 rounding (a rank's GEMMs see fewer rows), the grad norms within
+    1e-2 (each rank's stochastic rounding draws its own noise); a rank's
+    step ms, peak and bytes of the int8 base."""
+    meshes = [(2, ("++train_config.shard.fsdp=2",))]
+    if torch.cuda.device_count() >= 4:
+        meshes += [(4, ("++train_config.shard.fsdp=4",)),
+                   (4, ("++train_config.shard.dp=2", "++train_config.shard.fsdp=2"))]
+    timed = one["steps"][2:]
+    one_ms = 1000 * float(np.mean([s["seconds"] for s in timed]))
+    for i, (nproc, extra) in enumerate(meshes):
+        got = _torchrun(nproc, {"run": ["asr"], "asr_args": [*args, f"++train_config.output_dir={tmp / f'cards_{i}'}",
+                                                             *extra]}, tmp)
+        label = f"{nproc} cards {' '.join(e.split('.')[-1] for e in extra)}"
+        _same_run(f"{label} vs (a)", got["asr"], one, 2.0 ** -8, 1e-2)
+        asr = got["asr"]
+        step_ms = 1000 * float(np.mean([s["seconds"] for s in asr["steps"][2:]]))
+        log(f"[distributed] {label}: step {step_ms:.1f} ms vs (a)'s {one_ms:.1f} ms on one card, rank 0's peak "
+            f"{asr['peak_gib']:.2f} GiB vs {one['peak_gib']:.2f}, int8 base {asr['base_bytes'] / 2**20:.1f} MiB a "
+            f"rank vs {one['base_bytes'] / 2**20:.1f} | {SMI}")
+
+
+def run_distributed() -> dict:
+    """Phase 19: the sharded path (FSDP2 over the ``(dp, fsdp)`` mesh, NCCL)
+    through torchrun at world size 1, which runs every line of it: (a) the
+    ASR recipe as phase 5 runs it, its losses, grad norms and model.pt
+    against phase 5's; (b) S2S at 2 layers of Qwen2-7B's widths with the
+    whole LLM trained, against phase 16's steps; (c) the batch decode,
+    line for line against phase 4's. With two or more cards, an ``fsdp=2``
+    run of (a) against (a)."""
+    from slam_llm_tpu_torch.utils.checkpoint import load_trainable
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    torch.cuda.empty_cache()
+    train, s2s, decode = PHASE["train"], PHASE["s2s"], PHASE["decode"]
+    frames = [int(lo + (hi - lo) * i / (S2S_BATCH - 1)) for lo, hi in S2S_TRAIN_FRAMES for i in range(S2S_BATCH)]
+    s2s_train = write_s2s_corpus(tmp, "train", frames, seed=1)
+    s2s_val = write_s2s_corpus(tmp, "val", [30] * 4, seed=2)
+    job = {
+        "run": ["asr", "s2s", "decode"],
+        "asr_args": [*train["args"], f"++train_config.output_dir={tmp / 'asr'}"],
+        "s2s_args": [*s2s["args"](s2s_train, s2s_val), f"++train_config.output_dir={tmp / 's2s'}",
+                     "++train_config.save_model=false"],
+        "decode_args": [*decode["args"], f"++decode_config.decode_log={tmp / 'decode'}"],
+    }
+    got = _torchrun(1, job, tmp)
+    if got["world"] != 1 or got["backend"] != "nccl":
+        raise AssertionError(f"phase 19 ran on {got['world']} ranks over {got['backend']}")
+    if got["plain_params"]["dtensor_or_strided"] or not got["plain_params"]["checked"]:
+        raise AssertionError(f"kernel inputs: {got['plain_params']}")
+    log(f"[distributed] every module computed with FSDP2's unsharded plain, contiguous parameters "
+        f"({got['plain_params']['checked']} parameter reads checked)")
+
+    # (a) the ASR recipe against phase 5
+    asr = got["asr"]
+    exact = _same_run("(a) asr_whisper_tinyllama, 8 steps of 16, NCCL world 1 vs phase 5", asr, train, DIST_RTOL)
+    mine = load_trainable(str(Path(asr["checkpoints"][-1]) / "model.pt"))
+    ref = load_trainable(str(Path(train["checkpoints"][-1]) / "model.pt"))
+    worst = max(float((mine[n] - w).norm() / w.norm().clamp_min(1e-30)) for n, w in ref.items())
+    same = set(mine) == set(ref) and all(torch.equal(mine[n], w) for n, w in ref.items())
+    log(f"[distributed] (a) model.pt: {len(mine)} whole tensors, largest relative difference {worst:.2e} against "
+        f"phase 5's, bit-equal {same}; validation {asr['final_val']} vs {train['final_val']}")
+    if set(mine) != set(ref) or worst > DIST_RTOL or any(mine[n].shape != w.shape for n, w in ref.items()):
+        raise AssertionError("(a): model.pt differs from phase 5's")
+    timed = asr["steps"][2:]
+    step_ms = 1000 * float(np.mean([s["seconds"] for s in timed]))
+    log(f"[distributed] (a) step ms {[round(1000 * s['seconds'], 1) for s in asr['steps']]} vs phase 5's "
+        f"{[round(1000 * s['seconds'], 1) for s in train['steps']]}")
+    log(f"[distributed] (a) world size 1 under FSDP2: step {step_ms:.1f} ms vs phase 5's {train['step_ms']:.1f} ms "
+        f"({step_ms / train['step_ms'] - 1:+.1%}), peak {asr['peak_gib']:.2f} GiB vs phase 5's run "
+        f"{train['peak_gib']:.2f} GiB; int8 base {asr['base_bytes'] / 2**20:.1f} MiB on the rank; "
+        f"bit-equal steps {exact} | {SMI}")
+
+    # (b) S2S at 2 layers against phase 16
+    _same_run(f"(b) s2s_qwen at {S2S_LAYERS} layers, whole LLM trained, vs phase 16", got["s2s"], s2s, DIST_RTOL)
+    s2s_ms = [round(1000 * s["seconds"], 1) for s in got["s2s"]["steps"]]
+    log(f"[distributed] (b) step ms {s2s_ms} vs phase 16's {[round(1000 * s['seconds'], 1) for s in s2s['steps']]}, "
+        f"peak {got['s2s']['peak_gib']:.2f} GiB | {SMI}")
+
+    # (c) the decode against phase 4
+    lines, want = Path(got["decode"]["pred"]).read_text().splitlines(), Path(decode["pred"]).read_text().splitlines()
+    log(f"[distributed] (c) inference_batch under torchrun: {len(lines)} lines, equal to phase 4's {lines == want}; "
+        f"decode loop {got['decode']['seconds']:.2f} s vs phase 4's {decode['seconds']:.2f} s")
+    if lines != want:
+        raise AssertionError("(c): the decode under torchrun differs from phase 4's")
+
+    launches = got["launches"]
+    missing = [k for k in DIST_PATH if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"kernels never launched on the distributed path: {missing}")
+
+    if torch.cuda.device_count() >= 2:
+        run_multi_card(asr, train["args"], tmp)
+    else:
+        log(f"[distributed] the two-card fsdp=2 run was not run: this machine has {torch.cuda.device_count()} card "
+            "(NCCL refuses two ranks on one device)")
+    import shutil
+
+    shutil.rmtree(tmp)
+    log(f"[distributed] phase 19 in {time.perf_counter() - t_phase:.1f} s")
+    return {k: launches.get(k, 0) for k in kernel_counters()}
+
+
 def main() -> int:
     global SMI
     t0 = time.perf_counter()
@@ -4546,10 +4820,11 @@ def main() -> int:
     s2s = run_s2s()
     vallex = run_vallex()
     peft = run_peft()
+    distributed = run_distributed()
     paths = {"decode": decode, "train": train, "train_int8_sr": modes, "weights": weights, "st": st,
              "wavlm": wavlm, "aac": aac, "clap": clap, **music_spatial, "seld_encoder": seld_encoder, "vsr": vsr,
              "large_scale": large_scale, "s2s": s2s,
-             "vallex": vallex, "peft": peft}
+             "vallex": vallex, "peft": peft, "distributed": distributed}
     for r in results:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
@@ -4560,7 +4835,7 @@ def main() -> int:
         raise AssertionError(f"the s2s path launched K1 {s2s['flash_attention_fwd']} / K4 {s2s['flash_attention_bwd']}")
     if not (vallex["flash_attention_fwd"] and vallex["flash_attention_bwd"]) or any(vallex[k] for k in VX_BYPASSED):
         raise AssertionError(f"the vallex path launched {vallex}")
-    log(f"[chip_smoke] phases 1-18 in {time.perf_counter() - t0:.1f} s | {SMI}")
+    log(f"[chip_smoke] phases 1-19 in {time.perf_counter() - t0:.1f} s | {SMI}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -4569,4 +4844,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--distributed-job"]:
+        distributed_job(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

@@ -26,7 +26,7 @@ from torch import nn
 
 from slam_llm_tpu_torch.models.remat import DEAD_SITES, SumOf, Tape, placeholder
 from slam_llm_tpu_torch.ops.kernels.flash_attention import Rope, apply_rope_tables, flash_attention
-from slam_llm_tpu_torch.ops.quant import SharedActQuant, int8_dot
+from slam_llm_tpu_torch.ops.quant import SharedActQuant, int8_dot, int8_of
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -132,9 +132,9 @@ class DenseGeneralLora(nn.Module):
 
     def _base(self, h: torch.Tensor, out: Optional[torch.Tensor], pre_quant: Optional[SharedActQuant]) -> torch.Tensor:
         if self.quant == "int8":
-            return int8_dot(h, self.kernel_q, self.kernel_scale, bwd=self.quant_bwd, seed=self.quant_seed,
-                            w_rot=(self.kernel_qr, self.kernel_scale_r) if self.quant_bwd == "int8_rot" else None,
-                            w_t=getattr(self, "kernel_qt", None), out=out, pre_quant=pre_quant)
+            return int8_dot(h, int8_of(self.kernel_q), self.kernel_scale, bwd=self.quant_bwd, seed=self.quant_seed,
+                            w_rot=(int8_of(self.kernel_qr), self.kernel_scale_r) if self.quant_bwd == "int8_rot" else None,
+                            w_t=int8_of(getattr(self, "kernel_qt", None)), out=out, pre_quant=pre_quant)
         return linear(h, self.weight.to(self.dtype), out)
 
     def forward(self, x: torch.Tensor, tape: Optional[Tape] = None, site: Optional[str] = None,

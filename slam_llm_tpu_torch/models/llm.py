@@ -53,8 +53,8 @@ from slam_llm_tpu_torch.models.layers import (
     mha_attention,
     rope_tables,
 )
-from slam_llm_tpu_torch.models.remat import DENSE_SITES, Tape, checkpoint_layer, policy_names
-from slam_llm_tpu_torch.ops.quant import SharedActQuant, resolve_bwd
+from slam_llm_tpu_torch.models.remat import DENSE_SITES, Tape, checkpoint_layer, checkpointed, policy_names
+from slam_llm_tpu_torch.ops.quant import SharedActQuant, int8_of, resolve_bwd
 
 
 @dataclass(frozen=True)
@@ -365,7 +365,9 @@ class DecoderLayer(nn.Module):
         self.post_attn_norm = RMSNorm(c.d_model, c.rms_eps, c.dtype, device)
         self.mlp = MLP(c, device)
 
-    def forward(self, x, positions, tape: Optional[Tape] = None, **attn_kwargs):
+    def forward(self, x, positions, tape: Optional[Tape] = None, remat=None, **attn_kwargs):
+        if remat is not None:  # models.remat.checkpoint_layer
+            return checkpointed(self, remat, x, positions, attn_kwargs["kv_mask"]), None
         attn_out, new_kv = self.attn(self.input_norm(x), positions, tape=tape, **attn_kwargs)
         x = x + attn_out
         x = x + self.mlp(self.post_attn_norm(x), tape)
@@ -447,7 +449,8 @@ class CausalLM(nn.Module):
         kernel = self.head_weight()  # (V, D)
         head = None
         if self.cfg.ce_quant != "none":
-            head = QuantHead(self.head_q, self.head_scale, self.head_qt, self.cfg.ce_quant == "int8_sr", self.ce_seed)
+            head = QuantHead(int8_of(self.head_q), self.head_scale, int8_of(self.head_qt), self.cfg.ce_quant == "int8_sr",
+                             self.ce_seed)
         return fused_linear_ce(
             x[:, :-1], kernel, labels[:, 1:], chunk=self.cfg.ce_chunk,
             kernel_needs_grad=kernel.requires_grad, compute_dtype=self.cfg.dtype, head=head,

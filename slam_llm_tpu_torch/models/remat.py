@@ -24,6 +24,14 @@ product whose value no backward reads: a dense whose output was saved (its
 base product and LoRA-B product feed only the sum), and ``mlp_down``, whose
 output feeds only the residual add (so it is never saved either).
 
+FSDP2. ``checkpoint_layer`` enters through the layer's own call, whose
+``forward(remat=...)`` runs the Function (``checkpointed``), so an FSDP2
+unit's hooks wrap it as they wrap any forward: the pre-forward gathers the
+parameters, which the Function takes as inputs; the pre-backward hook on
+its output gathers them again before its backward replays the layer (past
+the call hooks, ``layer.forward``); their gradients go to the unsharded
+parameters, which the post-backward hook reduce-scatters.
+
 Generators. LoRA dropout draws from an explicit ``torch.Generator``, which
 ``torch.utils.checkpoint``'s ``preserve_rng_state`` would not restore, so
 the replay would draw another mask. The forward records each generator's
@@ -130,7 +138,7 @@ class _CheckpointedLayer(torch.autograd.Function):
         ctx.layer, ctx.names, ctx.params = layer, names, params
         ctx.gen_states = [(g, g.get_state()) for g in gens.values()]
         tape = Tape(names)
-        out, _ = layer(x, positions, kv_mask=kv_mask, tape=tape)
+        out, _ = layer.forward(x, positions, kv_mask=kv_mask, tape=tape)
         ctx.keys = list(tape.values)
         ctx.save_for_backward(x, positions, kv_mask, *tape.values.values())
         return out
@@ -143,7 +151,7 @@ class _CheckpointedLayer(torch.autograd.Function):
         need = ctx.needs_input_grad[5:]
         params = [p for p, n in zip(ctx.params, need) if n]
         with torch.enable_grad(), _generator_states(ctx.gen_states):
-            out, _ = ctx.layer(x, positions, kv_mask=kv_mask, tape=tape)
+            out, _ = ctx.layer.forward(x, positions, kv_mask=kv_mask, tape=tape)
         inputs = ([x] if x.requires_grad else []) + params
         grads = iter(torch.autograd.grad(out, inputs, dout, allow_unused=True))
         dx = next(grads) if x.requires_grad else None
@@ -153,6 +161,15 @@ class _CheckpointedLayer(torch.autograd.Function):
 def checkpoint_layer(layer: nn.Module, names: FrozenSet[str], x: torch.Tensor, positions: torch.Tensor,
                      kv_mask: torch.Tensor) -> torch.Tensor:
     """``layer(x, positions, kv_mask=kv_mask)[0]`` keeping only ``x`` and what
-    the policy ``names`` saves for the backward."""
+    the policy ``names`` saves for the backward: the layer's ``forward``
+    hands ``remat=names`` to ``checkpointed``, so the layer's own call hooks
+    (FSDP2's) run around the checkpoint."""
+    return layer(x, positions, kv_mask=kv_mask, remat=names)[0]
+
+
+def checkpointed(layer: nn.Module, names: FrozenSet[str], x: torch.Tensor, positions: torch.Tensor,
+                 kv_mask: torch.Tensor) -> torch.Tensor:
+    """The checkpointed body of ``layer.forward``; the layer's parameters
+    that train (the unsharded ones under FSDP2) are the Function's inputs."""
     params = [p for p in layer.parameters() if p.requires_grad]
     return _CheckpointedLayer.apply(layer, names, x, positions, kv_mask, *params)

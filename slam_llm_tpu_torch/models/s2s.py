@@ -53,6 +53,7 @@ from slam_llm_tpu_torch.models.llm import (
 from slam_llm_tpu_torch.models.projector import ProjectorConfig, build_projector
 from slam_llm_tpu_torch.models.slam_model import IGNORE_INDEX, splice_modality
 from slam_llm_tpu_torch.models.whisper import WhisperEncoder
+from slam_llm_tpu_torch.parallel.sharding import token_count
 
 
 @dataclass(frozen=True)
@@ -284,7 +285,7 @@ class S2SModel(nn.Module):
             safe = lb[:, 1:].clamp_min(0)
             lg = lg[:, :-1].float()
             nll = torch.logsumexp(lg, dim=-1) - lg.gather(-1, safe[..., None])[..., 0]
-            denom = mask.sum().clamp_min(1.0)
+            denom = token_count(mask)
             acc = ((lg.argmax(-1) == safe).float() * mask).sum() / denom
             return (nll * mask).sum() / denom, acc.detach()
 

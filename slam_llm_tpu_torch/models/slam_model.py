@@ -44,6 +44,7 @@ from slam_llm_tpu_torch.models.wavlm import WAVLM_PRESETS, WavLMEncoder
 from slam_llm_tpu_torch.models.whisper import PRESETS as WHISPER_PRESETS
 from slam_llm_tpu_torch.models.whisper import WhisperEncoder
 from slam_llm_tpu_torch.ops.quant import check_bwd_mode
+from slam_llm_tpu_torch.parallel.sharding import token_count
 
 IGNORE_INDEX = -100
 RAW_ENCODERS = ("wavlm", "hubert", "emotion2vec")  # read the raw waveform
@@ -86,12 +87,13 @@ def causal_lm_loss_and_accuracy(
     logits: torch.Tensor,  # (B, T, V) f32
     labels: torch.Tensor,  # (B, T) with IGNORE_INDEX masking
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Shifted CE + next-token accuracy over the non-ignored positions."""
+    """Shifted CE + next-token accuracy over the non-ignored positions (of
+    the global batch: ``parallel.sharding.token_count``)."""
     shift_logits, shift_labels = logits[:, :-1], labels[:, 1:]
     mask = (shift_labels != IGNORE_INDEX).float()
     safe = shift_labels.clamp_min(0)
     nll = torch.logsumexp(shift_logits, dim=-1) - shift_logits.gather(-1, safe[..., None])[..., 0]
-    denom = mask.sum().clamp_min(1.0)
+    denom = token_count(mask)
     acc = ((shift_logits.argmax(-1) == safe).float() * mask).sum() / denom
     return (nll * mask).sum() / denom, acc.detach()
 

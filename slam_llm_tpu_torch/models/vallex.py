@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from slam_llm_tpu_torch.models.layers import DenseGeneralLora, LayerNorm, mha_attention, sinusoidal_positions
+from slam_llm_tpu_torch.parallel.sharding import token_count
 
 
 @dataclass(frozen=True)
@@ -219,14 +220,14 @@ class VALLE(nn.Module):
         ar_in = torch.cat([torch.full_like(a0[:, :1], c.eos_audio), a0_ext[:, :-1]], dim=1)
         ar_logits = self.ar_forward(text_ids, text_mask, ar_in, mask_ext)
         mask_f = mask_ext.float()
-        denom = mask_f.sum().clamp_min(1.0)
+        denom = token_count(mask_f)
         ar_loss = (_nll(ar_logits, a0_ext) * mask_f).sum() / denom
 
         if c.n_codebooks > 1:
             nar_logits = self.nar_forward(text_ids, text_mask, audio_ids, audio_mask, stage)
             target = audio_ids[rows, stage.long()]
             nar_mask = audio_mask.float()
-            nar_loss = (_nll(nar_logits, target) * nar_mask).sum() / nar_mask.sum().clamp_min(1.0)
+            nar_loss = (_nll(nar_logits, target) * nar_mask).sum() / token_count(nar_mask)
         else:  # one codebook: the NAR branch would be a copy task
             nar_loss = torch.zeros((), device=a0.device)
         acc = ((ar_logits.argmax(-1) == a0_ext).float() * mask_f).sum() / denom

@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from slam_llm_tpu_torch.ops.kernels.rowquant import rowquant
+from slam_llm_tpu_torch.parallel.sharding import token_count
 from slam_llm_tpu_torch.ops.quant import act_quant, dequantize_int8, int8_matmul, unit_scale
 
 
@@ -68,7 +69,7 @@ class _FusedLinearCE(torch.autograd.Function):
         valid = labels != ignore_index
         safe = torch.where(valid, labels, torch.zeros_like(labels))
         w = valid.float()
-        denom = w.sum().clamp_min(1.0)
+        denom = token_count(w)
         wc_t = kernel.to(compute_dtype).t() if head is None else None
         nll = hidden.new_zeros((), dtype=torch.float32)
         correct = hidden.new_zeros((), dtype=torch.float32)
@@ -138,7 +139,8 @@ def fused_linear_ce(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked-mean CE loss + next-token accuracy (not differentiable),
     exactly ``mean_over_valid(logsumexp(xW^T) - (xW^T)[label])`` with f32
-    sums. ``kernel_needs_grad=False`` (a frozen head) skips dW; ``head``
+    sums; the count of valid labels is the global batch's
+    (``parallel.sharding.token_count``). ``kernel_needs_grad=False`` (a frozen head) skips dW; ``head``
     runs the int8 head, which must be frozen."""
     if head is not None and kernel_needs_grad:
         raise ValueError(

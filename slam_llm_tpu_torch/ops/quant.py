@@ -110,6 +110,13 @@ def rotate_quantize_bwd(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8).contiguous(), scale
 
 
+def int8_of(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The int8 tensor ``t`` holds: ``t`` itself, or the int8 view of the
+    one-byte float carrier a sharded model keeps it in
+    (``parallel.sharding.INT8_CARRIER``)."""
+    return t if t is None or t.dtype == torch.int8 else t.view(torch.int8)
+
+
 @torch.no_grad()
 def quantize_base_params(model: nn.Module) -> nn.Module:
     """Derive, in place, every buffer that the backward contracts and no

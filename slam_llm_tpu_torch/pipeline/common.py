@@ -6,14 +6,24 @@ draws the port's own random init from ``train_config.seed`` through a
 (``model_config.llm_path`` / ``encoder_path``) and the trainable checkpoint
 (``ckpt_path``), in the reference's order. ``encode_one`` builds the one-wav batch of the
 reference's ``pipeline/inference.py`` (``run_test_during_validation``).
+
+Under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` and
+``MASTER_ADDR`` / ``MASTER_PORT`` in the environment) ``maybe_init_distributed``
+joins the process group: NCCL on ``cuda:LOCAL_RANK``, or gloo when the caller
+asks for the CPU; ``resolve_device`` then names the local rank's card and
+``build_mesh`` lays the ``(dp, fsdp, tp)`` mesh over the world. Every rank
+builds and fills the same whole model from the same seed; the trainer
+shards it. Without torchrun's environment nothing here changes.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
 import random
-from typing import List, Tuple
+from datetime import timedelta
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,12 +60,73 @@ def parse_device(argv: List[str]) -> Tuple[List[str], str]:
     return argv, device
 
 
+# how long a collective may wait before the run fails (it never hangs for good)
+DIST_TIMEOUT = timedelta(seconds=600)
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def launched_by_torchrun() -> bool:
+    return all(k in os.environ for k in _TORCHRUN_ENV)
+
+
 def resolve_device(device) -> torch.device:
-    """A ``torch.device``; asking for CUDA without a usable GPU raises."""
+    """A ``torch.device``; asking for CUDA without a usable GPU raises.
+    Under torchrun, ``cuda`` names the local rank's card."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+    if dev.type == "cuda" and dev.index is None and launched_by_torchrun():
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     return dev
+
+
+def maybe_init_distributed(device, timeout: timedelta = DIST_TIMEOUT) -> bool:
+    """Join torchrun's process group (the reference's ``init_process_group``):
+    NCCL on the local rank's card, gloo for ``--device cpu``, with ``timeout``
+    on every collective. False (and nothing done) without torchrun's
+    environment."""
+    import torch.distributed as dist
+
+    if not launched_by_torchrun():
+        return False
+    if dist.is_initialized():
+        return True
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", device_id=dev, timeout=timeout)
+    elif dev.type == "cpu":
+        dist.init_process_group("gloo", timeout=timeout)
+    else:
+        raise ValueError(f"no process group for device {device!r}: expected cuda or cpu")
+    logging.getLogger("slam_llm_tpu_torch").info(
+        "joined the process group: rank %d of %d on %s (%s)", dist.get_rank(), dist.get_world_size(), dev,
+        dist.get_backend())
+    return True
+
+
+def destroy_process_group() -> None:
+    """Leave the process group, if this process joined one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def build_mesh(cfg: RunConfig, device) -> Optional[object]:
+    """The ``(dp, fsdp, tp)`` mesh of ``train_config.shard`` over the process
+    group, or None outside torchrun; there a mesh other than one process
+    raises ``ValueError`` (``parallel.sharding.mesh_shape``), as the
+    reference's ``make_mesh`` does on one device."""
+    import torch.distributed as dist
+
+    from slam_llm_tpu_torch.parallel.sharding import make_mesh, mesh_shape
+
+    s = cfg.train_config.shard
+    if not dist.is_initialized():
+        mesh_shape(s.dp, s.fsdp, s.tp, 1)
+        return None
+    return make_mesh(dp=s.dp, fsdp=s.fsdp, tp=s.tp, device_type=resolve_device(device).type)
 
 
 def build_model_and_data(cfg: RunConfig, split: str = "train", device="cuda"):

@@ -19,8 +19,23 @@ takes K1's and K4's f32 routes on the card). ``resume_from`` (a
 checkpoint directory or its ``full_state.pt``) restores the trainable
 tensors, the optimizer state and the step that ``save_optimizer`` wrote;
 ``run_test_during_validation`` decodes ``run_test_during_validation_file``
-greedily after every validation and logs the text. Multi-GPU training
-raises until its ROADMAP item is done.
+greedily after every validation and logs the text.
+
+Several cards: one process per card under torchrun, the mesh from
+``train_config.shard`` (``dp`` / ``fsdp``; ``dp=-1`` takes the rest of the
+world), NCCL on ``cuda:LOCAL_RANK`` (gloo with ``--device cpu``):
+
+    torchrun --nproc_per_node=4 -m slam_llm_tpu_torch.pipeline.finetune \\
+        --config examples/s2s/conf/s2s_qwen.yaml ++train_config.shard.fsdp=4 ...
+
+Every rank builds the same whole model from ``train_config.seed``, loads the
+same checkpoints, and the trainer shards it (FSDP2, ``parallel.shard_params``);
+every rank iterates the same seeded loader, whose ``batch_size_training``
+is the global batch, and keeps its rows of each batch. Rank 0 logs and
+writes the checkpoints, which hold whole tensors. A run without torchrun's
+environment is the one-device run; there a mesh of more than one process
+raises ``ValueError``. ``shard.tp > 1`` raises ``NotImplementedError``
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -32,10 +47,14 @@ from typing import List, Optional
 from slam_llm_tpu_torch.config import RunConfig, load_run_config
 from slam_llm_tpu_torch.data.loader import build_dataloader
 from slam_llm_tpu_torch.inference.generate import GenerationConfig, Generator, strip_after_eos
+from slam_llm_tpu_torch.parallel.sharding import INT8_BASE_TENSORS, TP_NOT_PORTED, local_part, unsharded
 from slam_llm_tpu_torch.pipeline.common import (
+    build_mesh,
+    destroy_process_group,
     build_model_and_data,
     encode_one,
     materialize_params,
+    maybe_init_distributed,
     parse_device,
     resolve_device,
     set_seed,
@@ -50,10 +69,8 @@ from slam_llm_tpu_torch.utils.logging_utils import setup_logger
 
 def check_ported(cfg: RunConfig) -> None:
     """Raise on the training options the port does not run yet."""
-    tc = cfg.train_config
-    if tc.shard.fsdp > 1 or tc.shard.tp > 1:
-        raise NotImplementedError("multi-GPU training (shard.fsdp / shard.tp > 1) is not ported yet "
-                                  "(ROADMAP Queue 1)")
+    if cfg.train_config.shard.tp > 1:
+        raise NotImplementedError(TP_NOT_PORTED)
 
 
 def build_decode_hook(cfg: RunConfig, model, tokenizer):
@@ -83,8 +100,10 @@ def build_decode_hook(cfg: RunConfig, model, tokenizer):
     )
 
     def decode_hook(trainer: Trainer) -> str:
+        # every rank decodes the same wav on the gathered model (rank 0 logs it)
         trainer.model.eval()
-        toks = strip_after_eos(gen.generate(batch), tokenizer.eos_token_id, tokenizer.pad_token_id)
+        with unsharded(trainer.model):
+            toks = strip_after_eos(gen.generate(batch), tokenizer.eos_token_id, tokenizer.pad_token_id)
         return tokenizer.decode(toks[0])
 
     return decode_hook
@@ -92,11 +111,14 @@ def build_decode_hook(cfg: RunConfig, model, tokenizer):
 
 def main(cfg: RunConfig, device="cuda"):
     """Train on the train split; returns the loop's results (step metrics,
-    validations, checkpoint paths) plus the trainer and the seconds that
-    ``materialize_params`` took (``load_seconds``)."""
+    validations, checkpoint paths) plus the trainer, the seconds that
+    ``materialize_params`` took (``load_seconds``) and this rank's bytes of
+    the int8 base (``base_bytes``)."""
+    maybe_init_distributed(device)
     dev = resolve_device(device)
     logger = setup_logger("slam_llm_tpu_torch", log_file=cfg.log_config.log_file)
     check_ported(cfg)
+    mesh = build_mesh(cfg, dev)
     tc = cfg.train_config
     set_seed(tc.seed)
 
@@ -120,24 +142,31 @@ def main(cfg: RunConfig, device="cuda"):
     t0 = time.perf_counter()
     materialize_params(model, cfg)
     load_s = time.perf_counter() - t0
-    trainer = Trainer(model, model.cfg, tc).state_from_params()
+    trainer = Trainer(model, model.cfg, tc, mesh=mesh).state_from_params()
     if tc.resume_from:
         logger.info("resuming the full state (trainable tensors, optimizer, step) from %s", tc.resume_from)
         trainer.load_state_dict(load_state(tc.resume_from))
-    int8_base = sum(buf.numel() for name, buf in model.named_buffers() if name.endswith("kernel_q"))
-    logger.info("params: trainable=%.2fM frozen=%.2fM (+ %.2fM in the int8 base) on %s, materialized in %.2f s",
-                count_params(trainer.trainable) / 1e6, count_params(trainer.frozen) / 1e6, int8_base / 1e6, dev, load_s)
+    # the int8 base: buffers on one device, frozen parameters (this rank's shards) under a mesh
+    base = [t for name, t in [*model.named_parameters(), *model.named_buffers()]
+            if name.rsplit(".", 1)[-1] in INT8_BASE_TENSORS]
+    base_bytes = sum(local_part(t).numel() * t.element_size() for t in base)
+    logger.info("params: trainable=%.2fM frozen=%.2fM on %s, materialized in %.2f s; the int8 base holds %.1f MB "
+                "on this rank%s", count_params(trainer.trainable) / 1e6, count_params(trainer.frozen) / 1e6, dev,
+                load_s, base_bytes / 1e6, "" if mesh is None else f" (mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))})")
     results = train(trainer, train_loader, eval_loader, train_config=tc, log_config=cfg.log_config,
                     decode_hook=build_decode_hook(cfg, model, tokenizer))
     logger.info("training done: best_val_loss=%s checkpoints=%s",
                 results.get("best_val_loss"), results.get("checkpoints"))
-    results["trainer"], results["load_seconds"] = trainer, load_s
+    results["trainer"], results["load_seconds"], results["base_bytes"] = trainer, load_s, base_bytes
     return results
 
 
 def main_cli(argv: Optional[List[str]] = None):
     argv, device = parse_device(list(sys.argv[1:] if argv is None else argv))
-    return main(load_run_config(argv), device=device)
+    try:
+        return main(load_run_config(argv), device=device)
+    finally:
+        destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -13,6 +13,18 @@ Weights come from ``pipeline.common.materialize_params`` (the seeded random
 init, the HF directories, then the trainable checkpoint: a directory holding
 ``model.pt`` or the JAX package's ``model.msgpack``, or either file).
 ``utils.wer`` scores the ``_pred`` / ``_gt`` logs.
+
+Several cards: ``torchrun --nproc_per_node=N -m
+slam_llm_tpu_torch.pipeline.inference_batch ...`` runs one process per card
+(NCCL, or gloo with ``--device cpu``), as the reference's multi-host decode
+does: each rank holds a whole replica and decodes a rank-strided share of
+the batches (the ragged tail wraps around, so every batch is decoded by
+some rank), writing ``{decode_log}_pred_rank{r}`` / ``_gt_rank{r}``; the
+union of the logs is the one-process decode. No collective runs inside
+``generate`` (ranks take different numbers of decode steps), so a sharded
+decode (``shard.fsdp`` / ``shard.tp`` > 1) raises. Batch ``bi`` of rank
+``r`` samples from its own stream, seeded from ``train_config.seed`` and
+``bi + r * 100003``, as the reference folds its key.
 """
 
 from __future__ import annotations
@@ -29,7 +41,9 @@ from slam_llm_tpu_torch.data.loader import build_dataloader
 from slam_llm_tpu_torch.inference.generate import GenerationConfig, Generator, strip_after_eos
 from slam_llm_tpu_torch.pipeline.common import (
     build_model_and_data,
+    destroy_process_group,
     materialize_params,
+    maybe_init_distributed,
     parse_device,
     resolve_device,
     set_seed,
@@ -39,14 +53,21 @@ from slam_llm_tpu_torch.utils.logging_utils import setup_logger
 VIDEO_FPS = 25.0  # AV-HuBERT's lip videos
 
 
-def decode_loader(cfg: RunConfig, dataset):
-    """The test split in order, ``val_batch_size`` rows per batch; the last
-    batch is filled up by wrapping around."""
+def decode_loader(cfg: RunConfig, dataset, num_replicas: int = 1, rank: int = 0):
+    """The test split in order, ``val_batch_size`` rows per batch; with
+    ``num_replicas`` ranks, rank ``rank``'s every ``num_replicas``-th batch,
+    the last round filled up by wrapping around to the first batches."""
     return build_dataloader(
         dataset, cfg.train_config.val_batch_size, shuffle=False, drop_last=False,
         num_workers=cfg.dataset_config.num_workers, prefetch=cfg.dataset_config.prefetch,
-        ragged_tail="wrap",
+        num_replicas=num_replicas, rank=rank, ragged_tail="wrap",
     )
+
+
+def batch_stream_seed(seed: int, index: int) -> int:
+    """The seed of one batch's sampling stream: ``train_config.seed`` mixed
+    with ``index`` (the reference's ``fold_in(PRNGKey(seed), index)``)."""
+    return int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint32)[0])
 
 
 def generation_config(cfg: RunConfig, tokenizer) -> GenerationConfig:
@@ -90,33 +111,46 @@ def batch_audio_seconds(batch) -> float:
 
 
 def main(cfg: RunConfig, device="cuda"):
-    """Decode the test split; returns counts, timings and the log paths."""
+    """Decode the test split (this rank's share of it under torchrun);
+    returns counts, timings and the log paths."""
+    import torch.distributed as dist
+
+    shard = cfg.train_config.shard
+    if shard.fsdp > 1 or shard.tp > 1:
+        raise NotImplementedError(
+            "a sharded decode (shard.fsdp / shard.tp > 1) is not ported: each rank decodes on a whole replica "
+            "(ROADMAP Queue 1: a sharded decode)")
+    maybe_init_distributed(device)
     dev = resolve_device(device)
     logger = setup_logger("slam_llm_tpu_torch", log_file=cfg.log_config.log_file)
     set_seed(cfg.train_config.seed)
     cfg.dataset_config.inference_mode = True
+    world, rank = (dist.get_world_size(), dist.get_rank()) if dist.is_initialized() else (1, 0)
 
     model, tokenizer, dataset = build_model_and_data(cfg, split=cfg.dataset_config.test_split, device=dev)
     model.eval()
     t0 = time.perf_counter()
     materialize_params(model, cfg)
     load_s = time.perf_counter() - t0
-    loader = decode_loader(cfg, dataset)
+    loader = decode_loader(cfg, dataset, num_replicas=world, rank=rank)
 
     gen_cfg = generation_config(cfg, tokenizer)
     generator = Generator(model, gen_cfg)
-    sampler = torch.Generator(device=dev).manual_seed(cfg.train_config.seed)
     nrs = (
         min(max(1, gen_cfg.num_return_sequences), gen_cfg.num_beams)
         if gen_cfg.num_beams > 1 and not gen_cfg.do_sample
         else 1
     )
 
-    pred_path, gt_path = cfg.decode_config.decode_log + "_pred", cfg.decode_config.decode_log + "_gt"
+    suffix = f"_rank{rank}" if world > 1 else ""
+    pred_path = cfg.decode_config.decode_log + "_pred" + suffix
+    gt_path = cfg.decode_config.decode_log + "_gt" + suffix
     n, n_tokens, t_total, audio_s = 0, 0, 0.0, 0.0
     with open(pred_path, "w", encoding="utf-8") as f_pred, open(gt_path, "w", encoding="utf-8") as f_gt:
-        for batch in loader:
+        for bi, batch in enumerate(loader):
             t0 = time.perf_counter()
+            sampler = torch.Generator(device=dev).manual_seed(
+                batch_stream_seed(cfg.train_config.seed, bi + rank * 100003))
             tokens = generator.generate(
                 {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}, generator=sampler
             )
@@ -140,7 +174,10 @@ def main(cfg: RunConfig, device="cuda"):
 
 def main_cli(argv: Optional[List[str]] = None):
     argv, device = parse_device(list(sys.argv[1:] if argv is None else argv))
-    return main(load_run_config(argv), device=device)
+    try:
+        return main(load_run_config(argv), device=device)
+    finally:
+        destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -15,6 +15,12 @@ is drawn anew (``seed + epoch``). With ``log_config.profile_dir``, steps
 ``[profile_start, profile_start + profile_steps)`` of this run, counted
 across epochs, are traced with ``torch.profiler`` (the host, and the card
 when the model is on one) into a Chrome trace in that directory.
+
+Under a mesh every rank takes the same steps on the same global batches;
+the step metrics and validations are the global batch's (the trainer
+all-reduces the sums), every rank runs ``decode_hook`` (on the gathered
+model), and rank 0 alone logs, profiles and writes the checkpoints, whose
+tensors every rank helps gather whole.
 """
 
 from __future__ import annotations
@@ -25,9 +31,10 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
+from slam_llm_tpu_torch.parallel.sharding import data_size
 from slam_llm_tpu_torch.train.state import Trainer
 from slam_llm_tpu_torch.utils.checkpoint import save_state, save_trainable
-from slam_llm_tpu_torch.utils.logging_utils import MemoryTrace, MetricsLogger
+from slam_llm_tpu_torch.utils.logging_utils import MemoryTrace, MetricsLogger, process_rank
 
 
 def _first_array(batch: Dict) -> np.ndarray:
@@ -46,11 +53,34 @@ def _batch_size(batch: Dict) -> Dict[str, Any]:
     return {"shape": tuple(_first_array(batch).shape), "tokens": tokens}
 
 
+def pad_rows(batch: Dict, n: int) -> Dict:
+    """A ragged batch (the eval loader's last) filled up to a multiple of
+    ``n`` rows with copies of its last row whose labels are all ignored, so
+    it splits over ``n`` ranks and the padding adds no token to any sum."""
+    rows = len(_first_array(batch))
+    extra = -rows % n
+    if not extra:
+        return batch
+    if "labels" not in batch:
+        raise ValueError(f"a batch of {rows} rows without labels cannot be padded to split over {n} ranks")
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray) and v.ndim and v.shape[0] == rows:
+            tail = np.repeat(v[-1:], extra, axis=0)
+            if k == "labels":
+                tail = np.full_like(tail, -100)
+            v = np.concatenate([v, tail])
+        out[k] = v
+    return out
+
+
 def evaluate(trainer: Trainer, eval_loader) -> Dict[str, float]:
-    """Batch-size-weighted mean loss and accuracy over the eval loader."""
+    """Batch-size-weighted mean loss and accuracy over the eval loader (each
+    batch's loss and accuracy are the whole batch's on every rank)."""
     losses, accs, weights = [], [], []
     for batch in eval_loader:
-        m = trainer.eval_step(trainer.put_batch(batch))
+        rows = batch if trainer.mesh is None else pad_rows(batch, data_size(trainer.mesh))
+        m = trainer.eval_step(trainer.put_batch(rows))
         losses.append(float(m["loss"]))
         accs.append(float(m["acc"]))
         weights.append(len(_first_array(batch)))
@@ -69,7 +99,7 @@ class _ProfileWindow:
     into ``directory`` and logs its path."""
 
     def __init__(self, log_config, device, logger):
-        self.dir = getattr(log_config, "profile_dir", None) if log_config is not None else None
+        self.dir = getattr(log_config, "profile_dir", None) if log_config is not None and process_rank() == 0 else None
         self.start = int(getattr(log_config, "profile_start", 3) or 3)
         self.steps = int(getattr(log_config, "profile_steps", 5) or 5)
         self.device, self.logger = device, logger
@@ -185,8 +215,12 @@ def train(trainer: Trainer, train_loader, eval_loader=None, train_config=None, l
 
 
 def _save_checkpoint(trainer: Trainer, tc, epoch: int, step: int) -> str:
+    """Whole tensors (every rank joins the gathers); rank 0 writes."""
     out = Path(tc.output_dir) / f"{tc.model_name}_epoch_{epoch + 1}_step_{step}"
-    save_trainable(str(out / "model.pt"), trainer.trainable)
-    if tc.save_optimizer:
-        save_state(str(out), trainer.state_dict())
+    tensors = trainer.whole_trainable()
+    state = trainer.state_dict() if tc.save_optimizer else None
+    if process_rank() == 0:
+        save_trainable(str(out / "model.pt"), tensors)
+        if state is not None:
+            save_state(str(out), state)
     return str(out)

@@ -10,6 +10,13 @@ updates), written out in f32 with the reference's operation order; the
 schedule evaluates in f32 like optax's. ``gradient_accumulation_steps > 1``
 wraps either in ``MultiSteps`` (optax's). ``state_dict`` / ``load_state_dict``
 carry the full optimizer state for ``save_optimizer`` / ``resume_from``.
+
+Under FSDP2 (``train.state.Trainer`` with a mesh) the optimizer holds the
+local shards of the parameters and gets their local gradients: the clip's
+global norm sums the squares over the local shards and all-reduces the sum
+over ``norm_group`` (the ``fsdp`` ranks; ``dp`` replicas hold the same
+shards), and ``layout`` (``parallel.sharding.ShardLayout``) gathers the
+state whole for saving and takes a whole one apart on loading.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 
@@ -101,9 +109,14 @@ def lr_schedule(train_config) -> Callable[[int], float]:
     return sched
 
 
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """optax.global_norm: sqrt of the sum of every entry's square, in f32."""
-    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+def global_norm(grads: Sequence[torch.Tensor], group=None) -> torch.Tensor:
+    """optax.global_norm: sqrt of the sum of every entry's square, in f32;
+    with ``group``, of the local shards' sums all-reduced over it."""
+    sq = sum(g.float().square().sum() for g in grads)
+    if group is not None:
+        sq = sq.clone()
+        dist.all_reduce(sq, group=group)
+    return torch.sqrt(sq)
 
 
 class AdamW:
@@ -122,10 +135,12 @@ class AdamW:
         # per parameter, None or a mask the update is multiplied by (optax's
         # chain(tx, partial_embed_grad_mask)); set by the trainer
         self.update_masks: List = [None] * len(self.params)
+        self.norm_group = None  # set by a sharded trainer
+        self.layout = None
 
     def _clipped(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         grads = [g.float() for g in grads]
-        norm = global_norm(grads)
+        norm = global_norm(grads, self.norm_group)
         clip = norm >= self.max_grad_norm
         return [torch.where(clip, g / norm * self.max_grad_norm, g) for g in grads]
 
@@ -147,14 +162,13 @@ class AdamW:
             p.add_((upd if mask is None else upd * mask).to(p.dtype))
 
     def state_dict(self) -> Dict:
-        return {"count": self.count, "mu": [t.detach().cpu() for t in self.mu],
-                "nu": [t.detach().cpu() for t in self.nu]}
+        return {"count": self.count, "mu": _export(self.mu, self.layout), "nu": _export(self.nu, self.layout)}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
         self.count = int(state["count"])
         for key in ("mu", "nu"):
-            _copy_list(getattr(self, key), state[key], key)
+            _copy_list(getattr(self, key), state[key], key, self.layout)
 
 
 class AnyPrecisionAdamW(AdamW):
@@ -197,12 +211,12 @@ class AnyPrecisionAdamW(AdamW):
             nu.copy_(nu32)
 
     def state_dict(self) -> Dict:
-        return {**super().state_dict(), "compensation": [t.detach().cpu() for t in self.compensation]}
+        return {**super().state_dict(), "compensation": _export(self.compensation, self.layout)}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
         super().load_state_dict(state)
-        _copy_list(self.compensation, state["compensation"], "compensation")
+        _copy_list(self.compensation, state["compensation"], "compensation", self.layout)
 
 
 class MultiSteps:
@@ -215,6 +229,7 @@ class MultiSteps:
         self.inner, self.k = inner, k
         self.acc = [torch.zeros_like(p, dtype=torch.float32) for p in inner.params]
         self.mini_step = 0
+        self.layout = None  # the inner optimizer's, set by a sharded trainer
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
@@ -228,17 +243,23 @@ class MultiSteps:
                 acc.zero_()
 
     def state_dict(self) -> Dict:
-        return {"inner": self.inner.state_dict(), "mini_step": self.mini_step,
-                "acc": [t.detach().cpu() for t in self.acc]}
+        return {"inner": self.inner.state_dict(), "mini_step": self.mini_step, "acc": _export(self.acc, self.layout)}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
         self.inner.load_state_dict(state["inner"])
         self.mini_step = int(state["mini_step"])
-        _copy_list(self.acc, state["acc"], "acc")
+        _copy_list(self.acc, state["acc"], "acc", self.layout)
 
 
-def _copy_list(dst: List[torch.Tensor], src: Sequence[torch.Tensor], what: str) -> None:
+def _export(tensors: Sequence[torch.Tensor], layout) -> List[torch.Tensor]:
+    """Per-parameter state on the CPU, whole (gathered through ``layout``)."""
+    return [(t if layout is None else layout.whole(i, t)).detach().cpu() for i, t in enumerate(tensors)]
+
+
+def _copy_list(dst: List[torch.Tensor], src: Sequence[torch.Tensor], what: str, layout=None) -> None:
+    if len(dst) == len(src) and layout is not None:
+        src = [layout.local(i, s) for i, s in enumerate(src)]
     if len(dst) != len(src) or any(d.shape != s.shape or d.dtype != s.dtype for d, s in zip(dst, src)):
         raise ValueError(f"optimizer state {what!r} does not match the trainable tensors")
     for d, s in zip(dst, src):

@@ -25,17 +25,45 @@ whose dy quantization rounds stochastically and one for the int8_sr CE
 head (the reference's ``quant`` rng stream); another drives LoRA dropout.
 Neither is saved with the state: a resumed run restarts both from the seed,
 as the reference's loop restarts its key.
+
+With a ``mesh`` (``parallel.make_mesh``; one process per card) the trainer
+runs the reference's sharded step: ``state_from_params`` derives the int8
+tensors on the whole model and then shards it (``parallel.shard_params``:
+FSDP2 over ``("dp", "fsdp")``); ``put_batch`` keeps the rank's rows of the
+global batch; the forward divides each rank's NLL sum by the global batch's
+token count, so the ranks' losses sum to the reference's mean and FSDP2's
+summed reduce-scatter leaves each rank the gradient of the global loss on
+its shards; the optimizer updates the local shards, its clip reading the
+global norm (a sum of squares all-reduced over ``fsdp``). The logged loss
+and accuracy are the global batch's. ``state_dict`` gathers whole tensors
+(every rank joins) and ``load_state_dict`` takes whole tensors, so a state
+moves between world sizes. Each data rank's LoRA dropout and stochastic-
+rounding seeds are offset by its rank (rank 0 keeps the one-process
+streams): a rank quantizes its own rows, whose row indices restart at 0.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from slam_llm_tpu_torch.ops.quant import SR_MODES, quantize_base_params
+from slam_llm_tpu_torch.parallel.sharding import (
+    ShardLayout,
+    all_reduce_sum,
+    data_rank,
+    full_tensor,
+    global_loss,
+    local_part,
+    local_shard,
+    shard_batch,
+    shard_params,
+)
 from slam_llm_tpu_torch.train.optimizer import (
     global_norm,
     lr_schedule,
@@ -45,8 +73,11 @@ from slam_llm_tpu_torch.train.optimizer import (
 )
 
 
+_SEED_STRIDE = 0x9E3779B9  # a data rank's offset of the stochastic-rounding seeds
+
+
 class Trainer:
-    def __init__(self, model: nn.Module, slam_cfg, train_config):
+    def __init__(self, model: nn.Module, slam_cfg, train_config, mesh=None):
         tc = train_config
         frozen_dtype = getattr(tc, "frozen_dtype", "bfloat16")
         if frozen_dtype not in (None, "float32", "fp32", "bfloat16", "bf16"):
@@ -56,8 +87,14 @@ class Trainer:
         self.sched = lr_schedule(tc)
         self.accum = max(1, tc.gradient_accumulation_steps)
         self.device = next(model.parameters()).device
+        self.mesh = mesh
+        self.rank = data_rank(mesh) if mesh is not None else 0
+        # the ranks a batch is split over (loss sums; tp is 1) and those a
+        # parameter is sharded over (norm sums)
+        self.data_group = dist.group.WORLD if mesh is not None else None
+        self.norm_group = mesh["fsdp"].get_group() if mesh is not None else None
         self.use_dropout = bool(tc.use_peft and tc.peft_config.lora_dropout > 0)
-        self.dropout_generator = torch.Generator(device=self.device).manual_seed(tc.seed)
+        self.dropout_generator = torch.Generator(device=self.device).manual_seed(tc.seed + self.rank)
         self.quant_generator = torch.Generator().manual_seed(tc.seed)
         self.sr_modules = [m for m in model.modules() if getattr(m, "quant", None) == "int8"
                            and m.quant_bwd in SR_MODES]
@@ -70,8 +107,9 @@ class Trainer:
     @torch.no_grad()
     def state_from_params(self) -> "Trainer":
         """Derive the int8 backward buffers and the int8 CE head, split and
-        re-store the parameters, and build the optimizer over the trainable
-        ones."""
+        re-store the parameters, shard them over the mesh (when there is
+        one), and build the optimizer over the trainable ones (their local
+        shards)."""
         model, cfg = self.model, self.slam_cfg
         llm = getattr(cfg, "llm", None)  # VALL-E X's config has none: every VALLE tensor trains
         base_quant, ce_quant = getattr(llm, "base_quant", "none"), getattr(llm, "ce_quant", "none")
@@ -92,17 +130,41 @@ class Trainer:
         for mod in model.modules():
             if getattr(mod, "lora_dropout", 0.0) > 0:
                 mod.generator = self.dropout_generator
-        self.optimizer = make_optimizer(list(self.trainable.values()), self.sched, self.train_config)
+        if self.mesh is not None:
+            shard_params(model, self.mesh)
+            self.trainable = {n: p for n, p in model.named_parameters() if p.requires_grad}
+            self.frozen = {n: p for n, p in model.named_parameters() if not p.requires_grad}
+        params = list(self.trainable.values())
+        self.optimizer = make_optimizer([local_part(p) for p in params], self.sched, self.train_config)
+        inner = getattr(self.optimizer, "inner", self.optimizer)
+        inner.norm_group = self.norm_group
+        if self.mesh is not None:
+            inner.layout = ShardLayout(params)
+            if inner is not self.optimizer:
+                self.optimizer.layout = inner.layout
         if getattr(cfg, "train_audio_embed_only", False):
-            # S2S: the head's updates kept to the extended audio vocabulary
+            # S2S: the head's updates kept to the extended audio vocabulary (the rank's rows of it)
             v = cfg.vocab
             masks = partial_embed_grad_mask(self.trainable, v.padded_text_vocabsize, v.total_vocabsize)
-            inner = getattr(self.optimizer, "inner", self.optimizer)
-            inner.update_masks = [masks.get(name) for name in self.trainable]
+            inner.update_masks = [None if name not in masks else local_shard(masks[name], p)
+                                  for name, p in self.trainable.items()]
         return self
 
+    def _global_loss(self):
+        """Loss denominators over the global batch (``parallel.sharding.token_count``)."""
+        return global_loss(self.data_group) if self.mesh is not None else contextlib.nullcontext()
+
+    def _global_metrics(self, loss: torch.Tensor, acc: torch.Tensor):
+        """The global batch's loss and accuracy: the sum of the ranks' shares."""
+        if self.mesh is None:
+            return loss, acc
+        return tuple(all_reduce_sum([loss, acc], self.data_group))
+
     def put_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """Host batch (numpy) -> tensors on the model's device."""
+        """Host batch (numpy) -> tensors on the model's device; with a mesh,
+        this rank's rows of it (``parallel.shard_batch``)."""
+        if self.mesh is not None:
+            batch = shard_batch(self.mesh, batch)
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items() if isinstance(v, np.ndarray)}
 
@@ -111,6 +173,7 @@ class Trainer:
         int8_sr CE head, set on the modules."""
         n = len(self.sr_modules) + int(self.ce_sr)
         seeds = torch.randint(0, 2 ** 32, (n,), generator=self.quant_generator, dtype=torch.int64).tolist()
+        seeds = [(s + self.rank * _SEED_STRIDE) % 2 ** 32 for s in seeds]
         self.set_quant_seeds(seeds)
         return seeds
 
@@ -125,35 +188,48 @@ class Trainer:
         """One micro-step: forward, backward and the optimizer (which moves
         the parameters on every ``gradient_accumulation_steps``-th call).
         Returns loss, acc, the lr of the current update and this micro-step's
-        global gradient norm (tensors stay on the device; lr is a float)."""
+        global gradient norm (tensors stay on the device; lr is a float).
+        The backward accumulates into ``.grad`` (FSDP2 reduce-scatters from
+        there), which is read (the local shard) and cleared."""
         self.draw_quant_seeds()
         self.model.train(self.use_dropout)
-        out = self.model(batch)
+        with self._global_loss():
+            out = self.model(batch)
+        out["loss"].backward()
         params = list(self.trainable.values())
-        grads = torch.autograd.grad(out["loss"], params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        grads = [torch.zeros_like(local_part(p)) if p.grad is None else local_part(p.grad) for p in params]
+        for p in params:
+            p.grad = None
         lr = self.sched(self.step // self.accum)  # the reference logs the inner update's lr
         self.optimizer.step(grads)
         self.step += 1
-        return {"loss": out["loss"].detach(), "acc": out["acc"], "lr": lr, "grad_norm": global_norm(grads)}
+        loss, acc = self._global_metrics(out["loss"].detach(), out["acc"])
+        return {"loss": loss, "acc": acc, "lr": lr, "grad_norm": global_norm(grads, self.norm_group)}
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The global batch's loss and accuracy."""
         self.model.eval()
-        out = self.model(batch)
-        return {"loss": out["loss"], "acc": out["acc"]}
+        with self._global_loss():
+            out = self.model(batch)
+        loss, acc = self._global_metrics(out["loss"], out["acc"])
+        return {"loss": loss, "acc": acc}
+
+    def whole_trainable(self) -> Dict[str, torch.Tensor]:
+        """The trainable tensors whole, on the CPU (gathered: every rank joins)."""
+        return {n: full_tensor(local_part(p.detach()), p).cpu() for n, p in self.trainable.items()}
 
     def state_dict(self) -> Dict:
         """The reference's full state: trainable tensors, optimizer state and
-        step (no generator state)."""
-        return {"trainable": {n: p.detach().cpu() for n, p in self.trainable.items()},
-                "optimizer": self.optimizer.state_dict(), "step": self.step}
+        step (no generator state), all whole (every rank joins)."""
+        return {"trainable": self.whole_trainable(), "optimizer": self.optimizer.state_dict(), "step": self.step}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
+        """A full state of whole tensors (saved at any world size)."""
         if set(state["trainable"]) != set(self.trainable):
             raise ValueError("the full state's trainable tensors do not match this model's")
         for name, p in self.trainable.items():
-            p.copy_(state["trainable"][name])
+            local_part(p).copy_(local_shard(state["trainable"][name], p))
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])

@@ -1,7 +1,9 @@
 """Logging + metrics surface: console/file logger, optional wandb, and a
 device-memory tracer (the reference's MemoryTrace, utils/memory_utils.py:13-61,
 re-pointed at the CUDA caching allocator's stats + host RSS). Counterpart of
-``slam_llm_tpu/utils/logging_utils.py``."""
+``slam_llm_tpu/utils/logging_utils.py``. Under ``torch.distributed`` only
+rank 0 logs: other ranks' loggers keep warnings and errors, and their
+``MetricsLogger`` writes nothing."""
 
 from __future__ import annotations
 
@@ -13,9 +15,16 @@ from typing import Any, Dict, Optional
 _FORMAT = "[%(asctime)s][%(name)s][%(levelname)s] - %(message)s"
 
 
+def process_rank() -> int:
+    """The ``torch.distributed`` rank, 0 outside a process group."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
 def setup_logger(name: str = "slam_llm_tpu", log_file: Optional[str] = None, level=logging.INFO):
     logger = logging.getLogger(name)
-    logger.setLevel(level)
+    logger.setLevel(level if process_rank() == 0 else max(level, logging.WARNING))
     logger.propagate = False
     if not logger.handlers:
         sh = logging.StreamHandler()
@@ -36,7 +45,8 @@ class MetricsLogger:
         self.cfg = log_config
         self.logger = setup_logger(log_file=getattr(log_config, "log_file", None))
         self.wandb = None
-        if getattr(log_config, "use_wandb", False):
+        self.rank0 = process_rank() == 0
+        if getattr(log_config, "use_wandb", False) and self.rank0:
             try:
                 import wandb
 
@@ -53,6 +63,8 @@ class MetricsLogger:
                 self.wandb = None
 
     def log(self, metrics: Dict[str, Any], step: int, prefix: str = "train_inner") -> None:
+        if not self.rank0:
+            return
         flat = {f"{prefix}/{k}": float(v) for k, v in metrics.items()}
         self.logger.info("step %d %s", step, " ".join(f"{k}={v:.5g}" for k, v in flat.items()))
         if self.wandb is not None:

@@ -494,6 +494,8 @@ from slam_llm_tpu_torch.utils import codec_utils
 from slam_llm_tpu_torch.data import s2s_dataset, vallex_dataset
 from slam_llm_tpu_torch.models import encodec, vallex
 from slam_llm_tpu_torch.pipeline import inference_vallex
+from slam_llm_tpu_torch import parallel
+from slam_llm_tpu_torch.parallel import sharding
 sd = hf_loader.load_hf_state_dict(llm_dir)
 tok = load_tokenizer(tok_dir)
 trainable = checkpoint.load_trainable(msgpack_path)
