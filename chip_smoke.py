@@ -229,6 +229,23 @@ Phases, each fatal on failure:
                 the `distributed` path. With two or more cards, (a) at
                 fsdp=2 (with four, also fsdp=4 and dp=2 x fsdp=2) against (a)
                 (run_multi_card); otherwise a line says why not.
+ 20. tensor parallel -- the decoder LLM split over shard.tp
+                (run_tensor_parallel): phase 3 already held K1 / K4 at a tp
+                rank's heads (TinyLlama, vicuna-7b, Qwen2-7B at tp = 2 and 4),
+                K2's absmax and given-scale passes (bit-equal to the columns
+                of a whole-row K2 run) and K3's s32 mode and epilogue
+                (bit-equal to the fused bf16 / f32 path) at a rank's widths;
+                (b) whether gloo runs all_reduce SUM / MAX (f32, int32,
+                int64) and all_gather on CUDA tensors; if it does, two
+                torchrun ranks on this card over gloo: the ASR recipe
+                through pipeline.finetune at shard.tp=2, 8 steps of 16,
+                against phase 5 (losses within one bf16 rounding, grad norms
+                within 1e-2), inference_batch at tp=2 line for line against
+                phase 4, the launches count on the `tensor_parallel` path.
+                (c) with two or more cards (NCCL) the ASR recipe at tp=2,
+                with four also tp=4, fsdp=2 x tp=2 and s2s_qwen at Qwen2-7B's
+                full 28 layers at tp=4 and fsdp=2 x tp=2 (run_multi_card_tp);
+                otherwise a line says why not.
 
 Prints one JSON line of kernel results before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -238,8 +255,10 @@ anything fails or no CUDA device is present.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import itertools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -561,6 +580,8 @@ def check_flash(gen) -> dict:
         *(("VALL-E X NAR training, text-padding hole", VX_BATCH, VX_TT + ta, 16, 16, 64, False, f"hole{VX_TT}", 0)
           for ta in VX_TA),
         ("VALL-E X AR decode step, causal", 1, VX_DECODE_T, 16, 16, 64, True, f"tail{VX_DECODE_T // 2}", 0),
+        # phase 20: a tensor-parallel rank's heads (H / tp, Hkv / tp) at tp = 2 and 4
+        *TP_K1_CASES,
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
@@ -746,6 +767,8 @@ def check_flash_bwd(gen) -> dict:
            f"hole{VX_TT}", 0) for ta in VX_TA),
         *(("VALL-E X NAR training, text-padding hole", VX_BATCH, VX_TT + ta, 16, 16, 64, False, f"hole{VX_TT}", 0)
           for ta in VX_TA),
+        # phase 20: a tensor-parallel rank's heads at the training shapes
+        *(c for c in TP_K1_CASES if "training" in c[0]),
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
@@ -1115,6 +1138,202 @@ def check_int8_matmul(gen) -> dict:
     return dict(max_abs_err=worst, **first)
 
 
+# phase 20: a tensor-parallel rank's shapes. K1 / K4 at H / tp query and
+# Hkv / tp key / value heads (TinyLlama 32 / 4, vicuna-7b 32 / 32, Qwen2-7B
+# 28 / 4) at tp = 2 and 4, training (fused RoPE) and prefill
+TP_SIZES = (2, 4)
+TP_K1_CASES = [case for tp in TP_SIZES for case in (
+    (f"tinyllama training at tp={tp}, fused RoPE, left-padded", 16, 512, 32 // tp, 4 // tp, 64, True, "left", 1e4),
+    (f"tinyllama prefill at tp={tp}", 8, 512, 32 // tp, 4 // tp, 64, True, "none", 0),
+    (f"vicuna-7b training at tp={tp}, fused RoPE theta 1e4, left-padded", 16, 192, 32 // tp, 32 // tp, 128, True,
+     "left", 1e4),
+    (f"vicuna-7b prefill at tp={tp}, left-padded", 8, 192, 32 // tp, 32 // tp, 128, True, "left", 0),
+    (f"qwen2-7b training (s2s) at tp={tp}, fused RoPE theta 1e6, left-padded", 8, 1536, 28 // tp, 4 // tp, 128, True,
+     "left", 1e6),
+    (f"qwen2-7b prefill at tp={tp}, left-padded", 8, 128, 28 // tp, 4 // tp, 128, True, "left", 0),
+)]
+# K2's row-split passes and K3's s32 mode at a rank's widths: (label, M, K
+# of the rank's columns, the whole row's K, dtype, fold, rotation block)
+TP_K2_CASES = [
+    # the row-parallel forward's activations (o_proj / down_proj inputs), deterministic
+    *((f"tinyllama o_proj input at tp={tp}", 8192, 2048 // tp, 2048, "bf16", False, 0) for tp in TP_SIZES),
+    *((f"tinyllama down_proj input at tp={tp}", 8192, 5632 // tp, 5632, "bf16", False, 0) for tp in TP_SIZES),
+    ("vicuna-7b down_proj input at tp=2", 3072, 5504, 11008, "bf16", False, 0),
+    ("qwen2-7b down_proj input at tp=4", 12288, 4736, 18944, "bf16", False, 0),
+    # the column-parallel int8_rot dx: dy rotated by the whole row's block 256 (whole blocks a rank)
+    ("tinyllama q_proj dy at tp=2, rotated", 8192, 1024, 2048, "bf16", False, 256),
+    ("tinyllama gate / up dy at tp=2, rotated", 8192, 2816, 5632, "bf16", False, 256),
+    ("tinyllama q_proj dy at tp=4, rotated", 8192, 512, 2048, "bf16", False, 256),
+    # the column-parallel int8_sr dx (fold) and the vocab-parallel int8_sr CE head's f32 dlog
+    ("tinyllama gate / up dy at tp=4, fold", 8192, 1408, 5632, "bf16", True, 0),
+    ("vicuna-7b gate / up dy at tp=4, fold", 3072, 2752, 11008, "bf16", True, 0),
+    ("CE head dlog at tp=2, f32 fold", 1024, 16000, 32000, "f32", True, 0),
+]
+# (label, M, K of the rank, F): row-parallel products x_q (M, K / tp) x
+# w_q (F, K / tp), and the column-parallel dx z (M, F / tp) x w (K, F / tp)
+TP_K3_CASES = [
+    *((f"tinyllama o_proj at tp={tp}", 8192, 2048 // tp, 2048) for tp in TP_SIZES),
+    *((f"tinyllama down_proj at tp={tp}", 8192, 5632 // tp, 2048) for tp in TP_SIZES),
+    ("tinyllama gate / up dx at tp=2", 8192, 2816, 2048),
+    ("tinyllama k / v dx at tp=2", 8192, 128, 2048),
+    ("vicuna-7b down_proj at tp=2", 3072, 5504, 4096),
+    ("vicuna-7b o_proj at tp=4", 3072, 1024, 4096),
+    ("qwen2-7b down_proj at tp=4", 12288, 4736, 3584),
+    ("qwen2-7b o_proj at tp=2", 12288, 1792, 3584),
+    ("CE head dx at tp=2 (split K)", 1024, 16000, 2048),
+    ("tinyllama o_proj at tp=2, beam decode M", 32, 1024, 2048),
+]
+
+
+def _tp_k2_inputs(gen, m, k, k_whole, dt, fold, block):
+    """A whole row's x (M, K_whole), its fold, and this rank's first column
+    (the last rank's: the largest Philox offset)."""
+    x = torch.randn(m, k_whole, generator=gen, device="cuda") * (1e-2 if dt == "f32" else 1.0)
+    x[0] = 0.0  # an all-zero row
+    x[1, 3] = 40.0  # an outlier the other columns' scale must follow
+    x = x.float() if dt == "f32" else x.bfloat16()
+    f = torch.rand(k_whole, generator=gen, device="cuda") * 0.02 + 1e-4 if fold else None
+    return x, f, k_whole - k
+
+
+def check_rowquant_absmax(gen) -> dict:
+    """K2's absmax pass at a tensor-parallel rank's widths, bit-exact
+    against the twin; the MAX over the ranks' slices equals the whole row's
+    absmax (every rank's slice is checked)."""
+    from slam_llm_tpu_torch.ops.kernels.rowquant import rowquant_absmax, rowquant_absmax_ref
+
+    first, rows = None, []
+    for label, m, k, k_whole, dt, fold, block in TP_K2_CASES:
+        x, f, off = _tp_k2_inputs(gen, m, k, k_whole, dt, fold, block)
+        parts = [rowquant_absmax(x[:, a:a + k].contiguous(), None if f is None else f[a:a + k].contiguous(),
+                                 rotate_block=block) for a in range(0, k_whole, k)]
+        whole = rowquant_absmax_ref(x, f, rotate_block=block)
+        torch.cuda.synchronize()
+        xs, fs = x[:, off:].contiguous(), None if f is None else f[off:].contiguous()
+        exact = torch.equal(parts[-1], rowquant_absmax_ref(xs, fs, rotate_block=block)) and \
+            torch.equal(torch.stack(parts).amax(0), whole)
+        ms = time_ms(lambda: rowquant_absmax(xs, fs, rotate_block=block))
+        plain_ms = time_ms(lambda: rowquant_absmax_ref(xs, fs, rotate_block=block), reps=3)
+        lib_ms = None if block or fs is not None else time_ms(lambda: torch.amax(xs.abs(), dim=-1))
+        bound_ms, bound_by = bound(0, nbytes(xs, fs) + 4 * m, BF16_FLOPS)
+        log(f"[K2 absmax] {label} ({m}, {k}) of {k_whole} {dt} fold={fold} block={block}: bit-exact {exact} | "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) share "
+            f"{bound_ms / ms:.3f} amax(abs) {_r(lib_ms)} ms")
+        if not exact:
+            raise AssertionError(f"K2 absmax {label}: not bit-exact")
+        rows.append(dict(at=label, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=lib_ms))
+        if first is None:
+            first = rows[-1]
+    return dict(max_abs_err=0.0, **first, cases=rows)
+
+
+def check_rowquant_scaled(gen) -> dict:
+    """K2's given-scale pass at a rank's widths: the last rank's columns
+    quantized with the whole row's scale and its Philox offset, bit-equal to
+    those columns of K2's whole-row run (where K2 takes the row) and to the
+    twin; at offset 0 with the row's own scale, equal to K2."""
+    from slam_llm_tpu_torch.ops.kernels.rowquant import (
+        row_scale,
+        rowquant,
+        rowquant_absmax_ref,
+        rowquant_scaled,
+        rowquant_scaled_ref,
+    )
+
+    first, rows = None, []
+    for label, m, k, k_whole, dt, fold, block in TP_K2_CASES:
+        x, f, off = _tp_k2_inputs(gen, m, k, k_whole, dt, fold, block)
+        seed = None if "input" in label else 2**32 - 3
+        s = row_scale(rowquant_absmax_ref(x, f, rotate_block=block))
+        xs, fs = x[:, off:].contiguous(), None if f is None else f[off:].contiguous()
+        q = rowquant_scaled(xs, s, fs, seed=seed, col_offset=off, rotate_block=block)
+        torch.cuda.synchronize()
+        exact = torch.equal(q, rowquant_scaled_ref(xs, s, fs, seed=seed, col_offset=off, rotate_block=block))
+        if block in (0, 256):  # K2 itself takes the whole row
+            qw, sw = rowquant(x, f, seed=seed, rotate=bool(block))
+            exact = exact and torch.equal(q, qw[:, off:]) and torch.equal(sw.reshape(-1), s)
+        ms = time_ms(lambda: rowquant_scaled(xs, s, fs, seed=seed, col_offset=off, rotate_block=block))
+        plain_ms = time_ms(lambda: rowquant_scaled_ref(xs, s, fs, seed=seed, col_offset=off, rotate_block=block),
+                           reps=3)
+        bound_ms, bound_by = bound(0, nbytes(xs, fs, s, q), BF16_FLOPS)
+        log(f"[K2 scaled] {label} ({m}, {k}) at column {off} of {k_whole} {dt} fold={fold} block={block} "
+            f"seed={seed}: bit-equal to the whole row's columns and the twin {exact} | kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) share {bound_ms / ms:.3f} library none")
+        if not exact:
+            raise AssertionError(f"K2 scaled {label}: not bit-equal")
+        rows.append(dict(at=label, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        if first is None:
+            first = rows[-1]
+    return dict(max_abs_err=0.0, **first, cases=rows)
+
+
+def check_int8_matmul_s32(gen) -> dict:
+    """K3's s32 mode at a rank's products, bit-exact against the f64 twin
+    and against ``torch._int_mm`` (the same function); the epilogue check
+    below holds it against the fused bf16 path."""
+    from slam_llm_tpu_torch.kernels.build import sm_count
+    from slam_llm_tpu_torch.ops.quant import int8_matmul_s32, int8_matmul_s32_ref, plan_int8_matmul
+
+    first, rows = None, []
+    for label, m, k, f in TP_K3_CASES:
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        wq = torch.randint(-127, 128, (f, k), generator=gen, device="cuda", dtype=torch.int8)
+        acc = int8_matmul_s32(xq, wq)
+        torch.cuda.synchronize()
+        exact = torch.equal(acc, int8_matmul_s32_ref(xq, wq))
+        plan = plan_int8_matmul(m, f, k, sm_count(0))
+        wqs = cold(wq) if m <= 32 else itertools.repeat(wq)
+        ms = time_ms(lambda: int8_matmul_s32(xq, next(wqs)))
+        plain_ms = time_ms(lambda: int8_matmul_s32_ref(xq, wq), reps=3)
+        lib_ms = time_ms(lambda: torch._int_mm(xq, next(wqs).t())) if m > 16 else None
+        if m > 16:
+            exact = exact and torch.equal(acc, torch._int_mm(xq, wq.t()))
+        bound_ms, bound_by = bound(2.0 * m * k * f, nbytes(xq, wq, acc), INT8_OPS)
+        log(f"[K3 s32] {label} M={m} K={k} F={f} ({plan.path}, splits {plan.splits}): bit-exact {exact} | kernel "
+            f"{ms:.4f} ms plain(f64) {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) share "
+            f"{bound_ms / ms:.3f} torch._int_mm {_r(lib_ms)} ms{' (weights cold in L2)' if m <= 32 else ''}")
+        if not exact:
+            raise AssertionError(f"K3 s32 {label}: not bit-exact")
+        rows.append(dict(at=label, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+        if first is None:
+            first = rows[-1]
+    return dict(max_abs_err=0.0, **first, cases=rows)
+
+
+def check_int8_epilogue(gen) -> dict:
+    """The scale epilogue of an s32 product at a rank's output shapes, bf16
+    and f32: bit-equal to K3's fused epilogue on the same sums and to the
+    twin."""
+    from slam_llm_tpu_torch.ops.quant import int8_epilogue, int8_epilogue_ref, int8_matmul, int8_matmul_s32
+
+    first, rows = None, []
+    for label, m, k, f in TP_K3_CASES:
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        wq = torch.randint(-127, 128, (f, k), generator=gen, device="cuda", dtype=torch.int8)
+        xs = torch.rand(m, generator=gen, device="cuda") * 0.05 + 1e-3
+        ws = torch.rand(f, generator=gen, device="cuda") * 0.01 + 1e-4
+        acc = int8_matmul_s32(xq, wq)
+        exact = True
+        for dt in (torch.bfloat16, torch.float32):
+            out = int8_epilogue(acc, xs, ws, dt)
+            exact = exact and torch.equal(out, int8_matmul(xq, wq, xs, ws, dt)) and \
+                torch.equal(out, int8_epilogue_ref(acc, xs, ws, dt))
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: int8_epilogue(acc, xs, ws))
+        plain_ms = time_ms(lambda: int8_epilogue_ref(acc, xs, ws, torch.bfloat16))
+        bound_ms, bound_by = bound(2.0 * m * f, nbytes(acc, xs, ws) + 2 * m * f, FP32_FLOPS)
+        log(f"[K3 epilogue] {label} ({m}, {f}): bit-equal to the fused epilogue (bf16, f32) and the twin {exact} | "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) share "
+            f"{bound_ms / ms:.3f} library none")
+        if not exact:
+            raise AssertionError(f"K3 epilogue {label}: not bit-equal")
+        rows.append(dict(at=label, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        if first is None:
+            first = rows[-1]
+    return dict(max_abs_err=0.0, **first, cases=rows)
+
+
 KERNELS = [
     # name, source, the TPU kernel it replaces
     ("flash_attention_fwd", "slam_llm_tpu_torch/csrc/flash_attention.cu",
@@ -1130,6 +1349,11 @@ KERNELS = [
     ("rowquant_fold", "slam_llm_tpu_torch/csrc/rowquant.cu", "slam_llm_tpu/ops/kernels/rowquant.py:222"),
     ("int8_matmul", "slam_llm_tpu_torch/csrc/int8_matmul.cu", "slam_llm_tpu/ops/quant.py:103"),
     ("int8_matmul_f32", "slam_llm_tpu_torch/csrc/int8_matmul.cu", "slam_llm_tpu/ops/fused_ce.py:115"),
+    # the tensor-parallel passes (phase 20): K2's absmax and given-scale passes, K3's s32 mode and its epilogue
+    ("rowquant_absmax", "slam_llm_tpu_torch/csrc/rowquant.cu", "slam_llm_tpu/ops/kernels/rowquant.py:226"),
+    ("rowquant_scaled", "slam_llm_tpu_torch/csrc/rowquant.cu", "slam_llm_tpu/ops/kernels/rowquant.py:222"),
+    ("int8_matmul_s32", "slam_llm_tpu_torch/csrc/int8_matmul.cu", "slam_llm_tpu/ops/quant.py:103"),
+    ("int8_epilogue", "slam_llm_tpu_torch/csrc/int8_matmul.cu", "slam_llm_tpu/ops/quant.py:103"),
 ]
 
 
@@ -1141,7 +1365,9 @@ def check_kernels() -> list:
         "flash_attention_bwd": check_flash_bwd, "flash_attention_bwd_f32": check_flash_bwd_f32,
         "rowquant": check_rowquant, "rowquant_rot_sr": check_rowquant_rot_sr,
         "rowquant_fold": check_rowquant_fold, "int8_matmul": check_int8_matmul,
-        "int8_matmul_f32": check_int8_matmul_f32,
+        "int8_matmul_f32": check_int8_matmul_f32, "rowquant_absmax": check_rowquant_absmax,
+        "rowquant_scaled": check_rowquant_scaled, "int8_matmul_s32": check_int8_matmul_s32,
+        "int8_epilogue": check_int8_epilogue,
     }
     results = [dict(name=name, route="cuda", source=src, replaces=rep, **checks[name](gen))
                for name, src, rep in KERNELS]
@@ -1237,6 +1463,10 @@ def kernel_counters():
         "rowquant_fold": rowquant.rowquant_fold,
         "int8_matmul": quant.int8_matmul,
         "int8_matmul_f32": quant.int8_matmul_f32,
+        "rowquant_absmax": rowquant.rowquant_absmax,
+        "rowquant_scaled": rowquant.rowquant_scaled,
+        "int8_matmul_s32": quant.int8_matmul_s32,
+        "int8_epilogue": quant.int8_epilogue,
         # K3's code paths, over both epilogues
         "int8_matmul/wgmma": quant.K3_PATHS["wgmma"],
         "int8_matmul/splitk": quant.K3_PATHS["splitk"],
@@ -3815,6 +4045,14 @@ def qwen2_layers(n: int):
         LLMConfig.qwen2_7b = staticmethod(full)
 
 
+def s2s_train_args(train, val) -> tuple:
+    """The S2S training runs' overrides: one step in each bucket of the
+    written corpus (phases 16, 19 and 20)."""
+    return (f"++dataset_config.train_data_path={train}", f"++dataset_config.val_data_path={val}",
+            "++train_config.max_steps_per_epoch=3", "++train_config.log_interval=1",
+            "++train_config.warmup_steps=1")
+
+
 def _cosyvoice_samples(frames: int) -> int:
     """HiFT's samples for ``frames`` grouped frames of 3 codes (50 codes a
     second -> 22,050 / 256 mel frames a second -> 256 samples a mel frame)."""
@@ -4076,11 +4314,7 @@ def run_s2s_training(tmp: Path) -> dict:
     frames = [int(lo + (hi - lo) * i / (S2S_BATCH - 1)) for lo, hi in S2S_TRAIN_FRAMES for i in range(S2S_BATCH)]
     train = write_s2s_corpus(tmp, "train", frames, seed=1)
     val = write_s2s_corpus(tmp, "val", [30] * 4, seed=2)
-    def args(train, val):
-        return (f"++dataset_config.train_data_path={train}", f"++dataset_config.val_data_path={val}",
-                "++train_config.max_steps_per_epoch=3", "++train_config.log_interval=1",
-                "++train_config.warmup_steps=1")
-
+    args = s2s_train_args
     cfg = _s2s_config(finetune.load_run_config, *args(train, val), f"++train_config.output_dir={tmp / 'out'}")
     with qwen2_layers(S2S_LAYERS):
         res, launches, stats = _finetune(cfg, "s2s")
@@ -4561,17 +4795,19 @@ DIST_PATH = ("flash_attention_fwd", "flash_attention_bwd", "rowquant", "rowquant
 DIST_RTOL = 1e-6  # phase 19 against phases 5 and 16, relative
 
 
-def _torchrun(nproc: int, job: dict, tmp: Path) -> dict:
+def _torchrun(nproc: int, job: dict, tmp: Path, timeout: float = DIST_LAUNCH_TIMEOUT_S, env=None) -> dict:
     """``python -m torch.distributed.run --standalone --nproc_per_node=nproc
     chip_smoke.py --distributed-job <job>``, the users' launch, with a
-    timeout; a non-zero exit fails the phase. Returns rank 0's results."""
+    timeout (and ``env`` added to the children's environment); a non-zero
+    exit fails the phase. Returns rank 0's results."""
     job = dict(job, out=str(tmp / f"result_{nproc}.json"))
     path = tmp / f"job_{nproc}.json"
     path.write_text(json.dumps(job))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={nproc}",
            str(Path(__file__).resolve()), "--distributed-job", str(path)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=DIST_LAUNCH_TIMEOUT_S)
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+                          env=None if env is None else {**os.environ, **env})
     (tmp / f"torchrun_{nproc}.log").write_text(proc.stdout + proc.stderr)
     for line in proc.stdout.splitlines():
         if line.startswith("[dist"):
@@ -4634,7 +4870,13 @@ def distributed_job(path: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     job = json.loads(Path(path).read_text())
-    if not maybe_init_distributed("cuda"):
+    device = "cuda"
+    if job.get("backend") == "gloo":  # phase 20 (b): every rank on the one card, gloo between them
+        device = "cuda:0"
+        torch.cuda.set_device(0)
+        torch.zeros(1, device=device)  # the context is up: DeviceMesh keeps this device, not LOCAL_RANK's
+        dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=DIST_LAUNCH_TIMEOUT_S))
+    if not maybe_init_distributed(device):
         raise RuntimeError("phase 19's job runs under torchrun")
     rank, world = dist.get_rank(), dist.get_world_size()
     bad, seen = _plain_param_check()
@@ -4643,7 +4885,7 @@ def distributed_job(path: str) -> None:
     def train(key: str, cfg):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res, launches = run_counted(lambda: finetune.main(cfg, device="cuda"))
+        res, launches = run_counted(lambda: finetune.main(cfg, device=device))
         out[key] = {"steps": [{k: v for k, v in s.items()} for s in res["steps"]],
                     "checkpoints": res["checkpoints"], "final_val": res.get("final_val"),
                     "base_bytes": res["base_bytes"], "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -4652,16 +4894,21 @@ def distributed_job(path: str) -> None:
 
     for name in job["run"]:
         t0 = time.perf_counter()
+        if name == "probe":  # phase 20 (b): the rest runs only where gloo runs every collective
+            out["probe"] = gloo_probe()
+            if not all(v is True for v in out["probe"].values()):
+                break
+            continue
         if name == "asr":
             cfg = finetune.load_run_config(job["asr_args"])
             launches = train("asr", cfg)
         elif name == "s2s":
             cfg = _s2s_config(finetune.load_run_config, *job["s2s_args"])
-            with qwen2_layers(S2S_LAYERS):
+            with qwen2_layers(job.get("s2s_layers", S2S_LAYERS)):
                 launches = train("s2s", cfg)
         else:
             cfg = inference_batch.load_run_config(job["decode_args"])
-            res, launches = run_counted(lambda: inference_batch.main(cfg, device="cuda"))
+            res, launches = run_counted(lambda: inference_batch.main(cfg, device=device))
             out["decode"] = {"pred": res["pred"], "n": res["n"], "seconds": res["seconds"]}
         for k, v in launches.items():
             out["launches"][k] = out["launches"].get(k, 0) + v
@@ -4799,6 +5046,166 @@ def run_distributed() -> dict:
     return {k: launches.get(k, 0) for k in kernel_counters()}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: tensor parallelism
+# ---------------------------------------------------------------------------
+
+# the kernels a tp=2 step of the ASR recipe runs: K2's row-split passes for
+# the row-parallel forward and the column-parallel int8_rot dx (q, gate / up
+# hold whole rotation blocks a rank; k / v gather dy and take K2's rotation),
+# K3's s32 mode and epilogue for every product that crosses ranks
+TP_PATH = ("flash_attention_fwd", "flash_attention_bwd", "rowquant", "rowquant_rot_sr", "rowquant_absmax",
+           "rowquant_scaled", "int8_matmul", "int8_matmul_s32", "int8_epilogue")
+TP_LOSS_RTOL, TP_NORM_RTOL = 2.0 ** -8, 1e-2  # a tp run against one card's: one bf16 rounding; the grad norm
+TP_LAUNCH_TIMEOUT_S = 480  # phase 20's torchrun (b): two ranks through gloo on one card
+# (b)'s cut: gloo stages every collective through the host (~14 s a step of 16, ~0.3 s a beam step), so it
+# runs phase 5's first 3 steps (the first two at the seed's weights) and phase 4's first batch of 8
+TP_GLOO_STEPS, TP_GLOO_UTTS = 3, 8
+
+
+def gloo_probe() -> dict:
+    """Whether this process group (gloo) runs the collectives tensor
+    parallelism needs on CUDA tensors: all_reduce SUM / MAX of f32, int32
+    and int64, and all_gather; each checked against its expected value, or
+    the error it raised."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    got = {}
+    for dt in (torch.float32, torch.int32, torch.int64):
+        for op, want in (("SUM", sum(range(1, world + 1))), ("MAX", world)):
+            t = torch.full((1024,), rank + 1, dtype=dt, device="cuda")
+            try:
+                dist.all_reduce(t, op=getattr(dist.ReduceOp, op))
+                got[f"all_reduce {op} {str(dt).split('.')[-1]}"] = bool((t == want).all().item())
+            except Exception as e:  # the answer is the error
+                got[f"all_reduce {op} {str(dt).split('.')[-1]}"] = f"{type(e).__name__}: {e}"[:200]
+    try:
+        parts = [torch.empty(16, device="cuda") for _ in range(world)]
+        dist.all_gather(parts, torch.full((16,), float(rank), device="cuda"))
+        got["all_gather f32"] = all(bool((p == r).all().item()) for r, p in enumerate(parts))
+    except Exception as e:
+        got["all_gather f32"] = f"{type(e).__name__}: {e}"[:200]
+    return got
+
+
+def run_tensor_parallel() -> dict:
+    """Phase 20: tensor parallelism (the decoder LLM split Megatron-style
+    over ``shard.tp``). The per-rank kernel rows ran in phase 3. (b) Whether
+    gloo runs the tp collectives on CUDA tensors; if it does, two torchrun
+    ranks on this one card (gloo): the ASR recipe through
+    ``pipeline.finetune`` at ``shard.tp=2``, 8 steps of 16 against phase 5
+    (losses and grad norms within ``TP_LOSS_RTOL`` / ``TP_NORM_RTOL``), and
+    ``pipeline.inference_batch`` at tp=2 line for line against phase 4.
+    (c) With two or more cards (NCCL), the ASR recipe at tp=2, and with
+    four at tp=4 and fsdp=2 x tp=2 and ``s2s_qwen.yaml`` at Qwen2-7B's full
+    28 layers at tp=4 and fsdp=2 x tp=2."""
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    torch.cuda.empty_cache()
+    train, decode = PHASE["train"], PHASE["decode"]
+    launches = {}
+    manifest = next(a.split("=", 1)[1] for a in decode["args"] if a.startswith("++dataset_config.val_data_path="))
+    first = tmp / "first.jsonl"
+    first.write_text("".join(Path(manifest).read_text().splitlines(keepends=True)[:TP_GLOO_UTTS]))
+    job = {"backend": "gloo", "run": ["probe", "asr", "decode"],
+           "asr_args": [*train["args"], f"++train_config.output_dir={tmp / 'asr'}", "++train_config.shard.tp=2",
+                        f"++train_config.max_steps_per_epoch={TP_GLOO_STEPS}", "++train_config.run_validation=false"],
+           "decode_args": [*decode["args"], f"++decode_config.decode_log={tmp / 'decode'}",
+                           f"++dataset_config.val_data_path={first}", "++train_config.shard.tp=2"]}
+    got = _torchrun(2, job, tmp, timeout=TP_LAUNCH_TIMEOUT_S)
+    log(f"[tensor parallel] (b) gloo on CUDA tensors (torch {torch.__version__}): {got['probe']}")
+    if "asr" in got:
+        if got["world"] != 2 or got["backend"] != "gloo":
+            raise AssertionError(f"phase 20 (b) ran on {got['world']} ranks over {got['backend']}")
+        asr = got["asr"]
+        exact = _same_run(f"(b) asr_whisper_tinyllama at tp=2 (gloo, two ranks on one card) vs phase 5's first "
+                          f"{TP_GLOO_STEPS} steps", asr, {"steps": train["steps"][:TP_GLOO_STEPS]}, TP_LOSS_RTOL,
+                          TP_NORM_RTOL)
+        step_ms = 1000 * float(np.mean([s["seconds"] for s in asr["steps"][1:]]))
+        log(f"[tensor parallel] (b) step ms {[round(1000 * s['seconds'], 1) for s in asr['steps']]}: {step_ms:.1f} "
+            f"ms a step (steps 2 on) against phase 5's {train['step_ms']:.1f} ms (both ranks on one card, their "
+            f"collectives through the host: a check of the path, not a speed); rank 0's peak {asr['peak_gib']:.2f} "
+            f"GiB vs {train['peak_gib']:.2f}; int8 base {asr['base_bytes'] / 2**20:.1f} MiB a rank; bit-equal {exact} "
+            f"| {SMI}")
+        lines = Path(got["decode"]["pred"]).read_text().splitlines()
+        want = Path(decode["pred"]).read_text().splitlines()[:TP_GLOO_UTTS]
+        log(f"[tensor parallel] (b) inference_batch at tp=2, phase 4's first {TP_GLOO_UTTS} utterances: {len(lines)} "
+            f"lines, equal to phase 4's {lines == want}; decode loop {got['decode']['seconds']:.2f} s (phase 4's 16 "
+            f"utterances: {decode['seconds']:.2f} s)")
+        if lines != want:
+            raise AssertionError("(b): the tp=2 decode differs from phase 4's")
+        launches = got["launches"]
+        missing = [k for k in TP_PATH if not launches.get(k)]
+        log(f"[tensor parallel] (b) launches on rank 0 over the tp path: "
+            f"{ {k: launches.get(k, 0) for k in TP_PATH} }")
+        if missing:
+            raise AssertionError(f"kernels never launched on the tensor-parallel path: {missing}")
+    else:
+        log("[tensor parallel] (b) not run: gloo does not run every tp collective on CUDA tensors here (above), and "
+            "NCCL refuses two ranks on one card")
+    if torch.cuda.device_count() >= 2:
+        run_multi_card_tp(train, tmp)
+    else:
+        log(f"[tensor parallel] (c) the NCCL runs on two and four cards were not run: this machine has "
+            f"{torch.cuda.device_count()} card")
+    import shutil
+
+    shutil.rmtree(tmp)
+    log(f"[tensor parallel] phase 20 in {time.perf_counter() - t_phase:.1f} s")
+    return {k: launches.get(k, 0) for k in kernel_counters()}
+
+
+def run_multi_card_tp(one: dict, tmp: Path) -> None:
+    """Phase 20 (c), NCCL one process a card: the ASR recipe at tp=2 (and,
+    with four cards, tp=4 and fsdp=2 x tp=2) against phase 5, a rank's step
+    ms, peak and bytes of the int8 base; with four cards ``run_s2s_tp``."""
+    meshes = [(2, ("++train_config.shard.tp=2",))]
+    if torch.cuda.device_count() >= 4:
+        meshes += [(4, ("++train_config.shard.tp=4",)),
+                   (4, ("++train_config.shard.fsdp=2", "++train_config.shard.tp=2"))]
+    one_ms = 1000 * float(np.mean([s["seconds"] for s in one["steps"][2:]]))
+    for i, (nproc, extra) in enumerate(meshes):
+        args = [*one["args"], f"++train_config.output_dir={tmp / f'tp_{i}'}", *extra]
+        got = _torchrun(nproc, {"run": ["asr"], "asr_args": args}, tmp, timeout=TP_LAUNCH_TIMEOUT_S)
+        label = f"{nproc} cards {' '.join(e.split('.')[-1] for e in extra)}"
+        _same_run(f"(c) {label} vs phase 5", got["asr"], one, TP_LOSS_RTOL, TP_NORM_RTOL)
+        asr = got["asr"]
+        step_ms = 1000 * float(np.mean([s["seconds"] for s in asr["steps"][2:]]))
+        log(f"[tensor parallel] (c) {label}: step {step_ms:.1f} ms vs phase 5's {one_ms:.1f} ms, rank 0's peak "
+            f"{asr['peak_gib']:.2f} GiB vs {one['peak_gib']:.2f}, int8 base {asr['base_bytes'] / 2**20:.1f} MiB a rank "
+            f"| {SMI}")
+    if torch.cuda.device_count() < 4:
+        log("[tensor parallel] (c) s2s_qwen.yaml at 28 layers was not run: it needs four cards")
+        return
+    run_s2s_tp(tmp)
+
+
+def run_s2s_tp(tmp: Path) -> None:
+    """``s2s_qwen.yaml`` at Qwen2-7B's full 28 layers, the whole LLM trained,
+    on four cards at tp=4 and fsdp=2 x tp=2: 3 steps of 8 in the recipe's
+    512 bucket, a rank's step ms and peak. The S2S loss reads the head's
+    whole logits (gathered: its heads are not split), (8, T, 156160) f32 and
+    their gradients on every rank, which at the 1536 bucket exceed a card
+    beside the 28 layers' state."""
+    lo, hi = S2S_TRAIN_FRAMES[0]  # the 512 bucket's answers
+    frames = [int(lo + (hi - lo) * i / (3 * S2S_BATCH - 1)) for i in range(3 * S2S_BATCH)]
+    s2s_train = write_s2s_corpus(tmp, "train", frames, seed=1)
+    s2s_val = write_s2s_corpus(tmp, "val", [30] * 4, seed=2)
+    args = s2s_train_args(s2s_train, s2s_val)
+    for i, extra in enumerate((("++train_config.shard.tp=4",),
+                               ("++train_config.shard.fsdp=2", "++train_config.shard.tp=2"))):
+        got = _torchrun(4, {"run": ["s2s"], "s2s_layers": 28, "s2s_args": [
+            *args, f"++train_config.output_dir={tmp / f's2s_{i}'}", "++train_config.save_model=false",
+            "++train_config.run_validation=false", *extra]}, tmp, timeout=TP_LAUNCH_TIMEOUT_S,
+            env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})  # the whole model is built, then split
+        s2s = got["s2s"]
+        label = " ".join(e.split(".")[-1] for e in extra)
+        log(f"[tensor parallel] (c) s2s_qwen at 28 layers, whole LLM trained, 4 cards {label}: step ms "
+            f"{[round(1000 * s['seconds'], 1) for s in s2s['steps']]} (buckets {[s['shape'] for s in s2s['steps']]}), "
+            f"losses {[round(s['loss'], 5) for s in s2s['steps']]}, rank 0's peak {s2s['peak_gib']:.2f} GiB | {SMI}")
+
+
 def main() -> int:
     global SMI
     t0 = time.perf_counter()
@@ -4821,10 +5228,11 @@ def main() -> int:
     vallex = run_vallex()
     peft = run_peft()
     distributed = run_distributed()
+    tensor_parallel = run_tensor_parallel()
     paths = {"decode": decode, "train": train, "train_int8_sr": modes, "weights": weights, "st": st,
              "wavlm": wavlm, "aac": aac, "clap": clap, **music_spatial, "seld_encoder": seld_encoder, "vsr": vsr,
              "large_scale": large_scale, "s2s": s2s,
-             "vallex": vallex, "peft": peft, "distributed": distributed}
+             "vallex": vallex, "peft": peft, "distributed": distributed, "tensor_parallel": tensor_parallel}
     for r in results:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
@@ -4835,7 +5243,7 @@ def main() -> int:
         raise AssertionError(f"the s2s path launched K1 {s2s['flash_attention_fwd']} / K4 {s2s['flash_attention_bwd']}")
     if not (vallex["flash_attention_fwd"] and vallex["flash_attention_bwd"]) or any(vallex[k] for k in VX_BYPASSED):
         raise AssertionError(f"the vallex path launched {vallex}")
-    log(f"[chip_smoke] phases 1-19 in {time.perf_counter() - t0:.1f} s | {SMI}")
+    log(f"[chip_smoke] phases 1-20 in {time.perf_counter() - t0:.1f} s | {SMI}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

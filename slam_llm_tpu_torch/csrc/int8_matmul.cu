@@ -58,6 +58,12 @@
 // reference, bf16 within its one rounding. Both kernels load the scales
 // before their main loop, so no output store waits on a load.
 //
+// The s32 mode (out_kind 2) writes the accumulators themselves, with no
+// epilogue: a tensor-parallel rank's partial sums over its K shard, which
+// the ranks all-reduce as integers (exact, in any order) before
+// slam_int8_epilogue applies the scales with the same roundings as the
+// fused epilogue, so the two routes agree bit for bit.
+//
 // The TMA descriptors are encoded per call (hopper.cuh: cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint(ByVersion), so the library links no
 // libcuda).
@@ -106,6 +112,16 @@ __device__ __forceinline__ void add_pair(const int* p, int n, int col, int& v0, 
 
 __device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 __device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
+
+// the s32 mode: OutT int, the accumulators stored as they are
+template <typename T>
+struct IsS32 {
+  static constexpr bool value = false;
+};
+template <>
+struct IsS32<int> {
+  static constexpr bool value = true;
+};
 
 __device__ __forceinline__ void out_pair(__nv_bfloat16* p, int n, int col, float v0, float v1) {
   if ((n & 1) == 0 && col + 1 < n) {
@@ -209,6 +225,7 @@ __device__ __forceinline__ void stage_pair(__nv_bfloat16* p, float v0, float v1)
 __device__ __forceinline__ void stage_pair(float* p, float v0, float v1) {
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
 }
+__device__ __forceinline__ void stage_pair(int* p, int v0, int v1) { *reinterpret_cast<int2*>(p) = make_int2(v0, v1); }
 
 template <typename OutT>
 __global__ void __launch_bounds__(WG_THREADS, 1)
@@ -224,6 +241,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   uint64_t* empty = full + WG_STAGES;
   __shared__ int last;  // this block finishes the tile's split sum
   __shared__ float s_ws[WG_BN], s_xs[WG_BM];  // the unit's column and row scales
+  constexpr bool kRaw = IsS32<OutT>::value;   // no scales, no epilogue
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -272,8 +290,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       // the unit's scales, loaded now and held until the epilogue: their
       // latency hides behind the main loop
       const int cw = nt * WG_BN + threadIdx.x, rx = mt * WG_BM + threadIdx.x;
-      const float wv = cw < p.n ? __ldg(p.ws + cw) : 0.f;
-      const float xv = threadIdx.x < WG_BM && rx < p.m ? __ldg(p.xs + rx) : 0.f;
+      const float wv = !kRaw && cw < p.n ? __ldg(p.ws + cw) : 0.f;
+      const float xv = !kRaw && threadIdx.x < WG_BM && rx < p.m ? __ldg(p.xs + rx) : 0.f;
       int prev = 0;
       for (int kt = 0; kt < p.k_tiles_per_split; ++kt) {
         mbar_wait(&full[stage], phase);
@@ -356,10 +374,14 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
           const int j = pass * (kPassCols / 8) + jj;
           const float w0 = s_ws[lc + 8 * j], w1 = s_ws[lc + 8 * j + 1];
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-            stage_pair(reinterpret_cast<OutT*>(stg + (lr - wg * 64 + 8 * h) * WG_STG_PITCH) + 8 * jj + lc,
-                       static_cast<float>(d[4 * j + 2 * h]) * sx[h] * w0,
-                       static_cast<float>(d[4 * j + 2 * h + 1]) * sx[h] * w1);
+          for (int h = 0; h < 2; ++h) {
+            OutT* dst = reinterpret_cast<OutT*>(stg + (lr - wg * 64 + 8 * h) * WG_STG_PITCH) + 8 * jj + lc;
+            if constexpr (kRaw)
+              stage_pair(dst, d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+            else
+              stage_pair(dst, static_cast<float>(d[4 * j + 2 * h]) * sx[h] * w0,
+                         static_cast<float>(d[4 * j + 2 * h + 1]) * sx[h] * w1);
+          }
         }
         warpgroup_sync(wg);
 #pragma unroll 4
@@ -472,20 +494,21 @@ __global__ void __launch_bounds__(SK_THREADS)
   // the block's scales, loaded while the slices are in flight: into
   // registers for the fragment epilogue, into shared memory for a split's
   __shared__ float s_xs[BM], s_ws[SK_BN];
-  if (tid < BM) s_xs[tid] = m0 + tid < p.m ? __ldg(p.xs + m0 + tid) : 0.f;
-  if (tid < SK_BN) s_ws[tid] = n0 + tid < p.n ? __ldg(p.ws + n0 + tid) : 0.f;
+  constexpr bool kRaw = IsS32<OutT>::value;  // no scales, no epilogue
+  if (tid < BM) s_xs[tid] = !kRaw && m0 + tid < p.m ? __ldg(p.xs + m0 + tid) : 0.f;
+  if (tid < SK_BN) s_ws[tid] = !kRaw && n0 + tid < p.n ? __ldg(p.ws + n0 + tid) : 0.f;
   const int col0 = n0 + warp * (SK_BN / 4) + 2 * t;
   float w[SK_NJ][2], sx[MI][2];
 #pragma unroll
   for (int j = 0; j < SK_NJ; ++j)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) w[j][e] = col0 + 8 * j + e < p.n ? __ldg(p.ws + col0 + 8 * j + e) : 0.f;
+    for (int e = 0; e < 2; ++e) w[j][e] = !kRaw && col0 + 8 * j + e < p.n ? __ldg(p.ws + col0 + 8 * j + e) : 0.f;
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = m0 + mi * 16 + g + 8 * h;
-      sx[mi][h] = row < p.m ? __ldg(p.xs + row) : 0.f;
+      sx[mi][h] = !kRaw && row < p.m ? __ldg(p.xs + row) : 0.f;
     }
 
   int acc[MI][SK_NJ][4];
@@ -559,8 +582,10 @@ __global__ void __launch_bounds__(SK_THREADS)
       if (r0 + lr >= BM || row >= p.m || col >= p.n) continue;
       int sum = 0;
       for (int b = 0; b < p.splits; ++b) sum += recv[(b * rows_per + lr) * SK_BN + c];
-      store_one(out + static_cast<long long>(row) * p.n + col,
-                static_cast<float>(sum) * s_xs[r0 + lr] * s_ws[c]);
+      if constexpr (kRaw)
+        out[static_cast<long long>(row) * p.n + col] = sum;
+      else
+        store_one(out + static_cast<long long>(row) * p.n + col, static_cast<float>(sum) * s_xs[r0 + lr] * s_ws[c]);
     }
     return;
   }
@@ -573,9 +598,13 @@ __global__ void __launch_bounds__(SK_THREADS)
       for (int h = 0; h < 2; ++h) {
         const int row = m0 + mi * 16 + g + 8 * h;
         if (row >= p.m) continue;
-        out_pair(out + static_cast<long long>(row) * p.n + col0 + 8 * j, p.n, col0 + 8 * j,
-                 static_cast<float>(acc[mi][j][2 * h]) * sx[mi][h] * w[j][0],
-                 static_cast<float>(acc[mi][j][2 * h + 1]) * sx[mi][h] * w[j][1]);
+        if constexpr (kRaw)
+          put_pair(out + static_cast<long long>(row) * p.n + col0 + 8 * j, p.n, col0 + 8 * j, acc[mi][j][2 * h],
+                   acc[mi][j][2 * h + 1]);
+        else
+          out_pair(out + static_cast<long long>(row) * p.n + col0 + 8 * j, p.n, col0 + 8 * j,
+                   static_cast<float>(acc[mi][j][2 * h]) * sx[mi][h] * w[j][0],
+                   static_cast<float>(acc[mi][j][2 * h + 1]) * sx[mi][h] * w[j][1]);
       }
 }
 
@@ -660,6 +689,23 @@ cudaError_t run(const void* xq, const void* wq, const float* xs, const float* ws
   return launch_splitk<64, OutT>(xq, wq, p, st);
 }
 
+// ---------------------------------------------------------------------------
+// the scale epilogue of an s32 product: out = (float)acc * xs[row] * ws[col],
+// the fused epilogue's two roundings, then bf16 or f32; elementwise, bound by
+// its bytes (4 read, 2 or 4 written an element)
+// ---------------------------------------------------------------------------
+
+template <typename OutT>
+__global__ void __launch_bounds__(256) int8_epilogue_kernel(const int* acc, const float* xs, const float* ws,
+                                                            OutT* out, long long m, int n) {
+  const long long total = m * n;
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < total; i += static_cast<long long>(gridDim.x) * 256) {
+    const long long row = i / n;
+    const int col = static_cast<int>(i - row * n);
+    store_one(out + i, __fmul_rn(__fmul_rn(static_cast<float>(__ldg(acc + i)), __ldg(xs + row)), __ldg(ws + col)));
+  }
+}
+
 }  // namespace
 
 // One K3 call, one launch. path 0: wgmma, bm must be 128 (tile 128 x 256 x
@@ -668,14 +714,17 @@ cudaError_t run(const void* xq, const void* wq, const float* xs, const float* ws
 // path 1. Path 0 with splits > 1 needs scratch, (splits, m, n) s32 of any
 // content, and counters, one s32 per output tile that is 0 before the call
 // and 0 again after it (calls that share them must not run concurrently).
-// sms: the card's SM count (the persistent grid). Returns a cudaError_t.
+// sms: the card's SM count (the persistent grid). out_kind: 0 bf16, 1 f32
+// (the scale epilogue), 2 s32 (the accumulators; xs and ws are not read).
+// Returns a cudaError_t.
 extern "C" int slam_int8_matmul(const void* xq, const void* wq, const void* xs, const void* ws, void* out,
-                                void* scratch, void* counters, int m, int n, int k, int out_f32, int path, int bm,
+                                void* scratch, void* counters, int m, int n, int k, int out_kind, int path, int bm,
                                 int splits, int sms, void* stream) {
   const int k_tiles = (k + 127) / 128;
   const bool ok = m > 0 && n > 0 && k > 0 && k % 16 == 0 && splits >= 1 && k_tiles % splits == 0 && sms > 0 &&
                   ((path == 0 && bm == WG_BM && (splits == 1 || (scratch != nullptr && counters != nullptr))) ||
-                   (path == 1 && (bm == 16 || bm == 32 || bm == 64) && splits <= SK_MAX_SPLITS));
+                   (path == 1 && (bm == 16 || bm == 32 || bm == 64) && splits <= SK_MAX_SPLITS)) &&
+                  out_kind >= 0 && out_kind <= 2;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sa = static_cast<const float*>(xs);
@@ -683,7 +732,26 @@ extern "C" int slam_int8_matmul(const void* xq, const void* wq, const void* xs, 
   int* scr = static_cast<int*>(scratch);
   int* count = static_cast<int*>(counters);
   const cudaError_t err =
-      out_f32 ? run<float>(xq, wq, sa, sb, out, scr, count, m, n, k, path, bm, splits, sms, st)
-              : run<__nv_bfloat16>(xq, wq, sa, sb, out, scr, count, m, n, k, path, bm, splits, sms, st);
+      out_kind == 2   ? run<int>(xq, wq, sa, sb, out, scr, count, m, n, k, path, bm, splits, sms, st)
+      : out_kind == 1 ? run<float>(xq, wq, sa, sb, out, scr, count, m, n, k, path, bm, splits, sms, st)
+                      : run<__nv_bfloat16>(xq, wq, sa, sb, out, scr, count, m, n, k, path, bm, splits, sms, st);
   return static_cast<int>(err);
+}
+
+// The scale epilogue of an s32 product: acc (m, n) s32, xs (m,) and ws (n,)
+// f32, out (m, n) bf16 (out_f32 = 0) or f32, all contiguous.
+extern "C" int slam_int8_epilogue(const void* acc, const void* xs, const void* ws, void* out, long long m, int n,
+                                  int out_f32, void* stream) {
+  if (m <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long blocks = (m * n + 255) / 256;
+  const unsigned grid = static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16);
+  const int* a = static_cast<const int*>(acc);
+  const float* sx = static_cast<const float*>(xs);
+  const float* sw = static_cast<const float*>(ws);
+  if (out_f32)
+    int8_epilogue_kernel<float><<<grid, 256, 0, st>>>(a, sx, sw, static_cast<float*>(out), m, n);
+  else
+    int8_epilogue_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(a, sx, sw, static_cast<__nv_bfloat16*>(out), m, n);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -123,7 +123,7 @@ class Generator:
         t0 = time.perf_counter()
         # split layout: decode writes touch only the [t, t + max_new) tail
         cache = init_kv_cache(
-            self.model.cfg.llm, b, t + max_new, gen_start=t, device=self.device
+            self.model.llm.cache_cfg, b, t + max_new, gen_start=t, device=self.device
         )
         logits, cache = self.model.prefill(batch, cache)
         # the last VALID position seeds the first generated token

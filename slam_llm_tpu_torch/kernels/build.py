@@ -38,8 +38,12 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # x fold q s | m k x_f32 rotate stochastic seed | threads rows units fold_smem | stream
     "slam_rowquant": [_P] * 4 + [_L, _I, _I, _I, _I, _L] + [_I] * 4 + [_P],
-    # xq wq xs ws out scratch counters | m n k out_f32 path bm splits sms | stream
+    # x fold s out | m k x_f32 rot_block | rot_scale | absmax_only stochastic seed col_offset blocks | stream
+    "slam_rowquant_tp": [_P] * 4 + [_L, _I, _I, _I, ctypes.c_float, _I, _I, _L, _L, _I, _P],
+    # xq wq xs ws out scratch counters | m n k out_kind path bm splits sms | stream
     "slam_int8_matmul": [_P] * 7 + [_I] * 8 + [_P],
+    # acc xs ws out | m | n out_f32 | stream
+    "slam_int8_epilogue": [_P] * 4 + [_L, _I, _I, _P],
     # q k v mask out lse cos sin k_rot | b tq tk h hkv d | q/k/v strides | scale causal hb bn sms stream
     "slam_flash_fwd": [_P] * 9 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _I, _I, _I, _I, _P],
     # q k v mask out dout lse cos sin lse_t dlt_t q_rot k_rot dq dk dv (all contiguous) | b t h hkv d |

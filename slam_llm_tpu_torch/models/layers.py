@@ -27,6 +27,7 @@ from torch import nn
 from slam_llm_tpu_torch.models.remat import DEAD_SITES, SumOf, Tape, placeholder
 from slam_llm_tpu_torch.ops.kernels.flash_attention import Rope, apply_rope_tables, flash_attention
 from slam_llm_tpu_torch.ops.quant import SharedActQuant, int8_dot, int8_of
+from slam_llm_tpu_torch.parallel.tensor_parallel import copy_to_tp, reduce_from_tp
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -80,6 +81,15 @@ class DenseGeneralLora(nn.Module):
     products a ``dot`` site. ``pre_quant`` (an int8 base only): the
     ``ops.quant.SharedActQuant`` of this input, which the denses over one
     input share, asked only if the base product is computed.
+
+    Tensor parallelism (``tp``, set by ``parallel.tensor_parallel.split_dense``):
+    a ``column`` shard holds F / tp output features (``lora_b`` split, ``lora_a``
+    whole, its rank-r intermediate through ``copy_to_tp``) and takes x whole;
+    a ``row`` shard holds K / tp input features (``lora_a`` split, its rank-r
+    partial reduced before the whole ``lora_b``; the bias added once, after
+    the reduction) and returns the whole output. Either returns x's whole
+    gradient. ``features`` / ``in_features`` are the local widths; a row
+    shard's LoRA dropout draws the whole row's mask and keeps its columns.
     """
 
     def __init__(
@@ -98,6 +108,7 @@ class DenseGeneralLora(nn.Module):
         self.lora_scale = float(torch.tensor(lora_alpha / max(lora_rank, 1), dtype=dtype))
         self.quant_seed = 0
         self.generator: Optional[torch.Generator] = None
+        self.tp = None  # parallel.tensor_parallel.TP with its role, under tensor parallelism
         base_dtype = dtype if frozen_base else param_dtype
         if quant == "int8":
             self.register_buffer(
@@ -131,11 +142,19 @@ class DenseGeneralLora(nn.Module):
             )
 
     def _base(self, h: torch.Tensor, out: Optional[torch.Tensor], pre_quant: Optional[SharedActQuant]) -> torch.Tensor:
+        tp = self.tp
         if self.quant == "int8":
             return int8_dot(h, int8_of(self.kernel_q), self.kernel_scale, bwd=self.quant_bwd, seed=self.quant_seed,
                             w_rot=(int8_of(self.kernel_qr), self.kernel_scale_r) if self.quant_bwd == "int8_rot" else None,
-                            w_t=int8_of(getattr(self, "kernel_qt", None)), out=out, pre_quant=pre_quant)
-        return linear(h, self.weight.to(self.dtype), out)
+                            w_t=int8_of(getattr(self, "kernel_qt", None)), out=out, pre_quant=pre_quant, tp=tp)
+        w = self.weight.to(self.dtype)
+        if tp is None:
+            return linear(h, w, out)
+        if tp.role == "column":
+            return linear(copy_to_tp(h, tp), w, out)
+        # row: the partial sums reduced; a replay that holds the value skips
+        # the reduction, whose backward is the identity
+        return linear(h, w, out) if out is not None else reduce_from_tp(linear(h, w), tp)
 
     def forward(self, x: torch.Tensor, tape: Optional[Tape] = None, site: Optional[str] = None,
                 pre_quant: Optional[SharedActQuant] = None) -> torch.Tensor:
@@ -166,10 +185,17 @@ class DenseGeneralLora(nn.Module):
         if self.bias is not None:
             parts.append(self.bias.to(self.dtype))
         if self.lora_rank > 0:
+            row = self.tp is not None and self.tp.role == "row"
             if self.lora_dropout > 0.0 and self.training:
-                h = _dropout(h, self.lora_dropout, self.generator)
+                h = _dropout(h, self.lora_dropout, self.generator, self.tp if row else None)
             a, b = self.lora_a.to(self.dtype), self.lora_b.to(self.dtype)
-            inner = dot("lora_a", lambda: linear(h, a), lambda out: linear(h, a, out), False) * self.lora_scale
+            if row:  # the rank-r partial sums reduced (a saved value is the reduced one)
+                inner = dot("lora_a", lambda: reduce_from_tp(linear(h, a), self.tp), lambda out: linear(h, a, out),
+                            False) * self.lora_scale
+            else:
+                inner = dot("lora_a", lambda: linear(h, a), lambda out: linear(h, a, out), False) * self.lora_scale
+                if self.tp is not None:
+                    inner = copy_to_tp(inner, self.tp)
             parts.append(dot("lora_b", lambda: linear(inner, b), lambda out: linear(inner, b, out), lazy))
         if value is not None:
             return SumOf.apply(value, *parts)
@@ -180,10 +206,17 @@ class DenseGeneralLora(nn.Module):
         return y
 
 
-def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], tp=None) -> torch.Tensor:
     """Inverted dropout with an explicit generator: keep with probability
-    1 - rate and scale the kept entries by 1 / (1 - rate), as flax does."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    1 - rate and scale the kept entries by 1 / (1 - rate), as flax does.
+    ``tp``: x is this rank's columns of a row-parallel input, whose mask is
+    the whole row's mask's columns (drawn whole, as one process draws it)."""
+    if tp is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    else:
+        k = x.shape[-1]
+        whole = torch.rand(x.shape[:-1] + (k * tp.size,), generator=generator, device=x.device)
+        keep = whole.narrow(-1, tp.rank * k, k) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

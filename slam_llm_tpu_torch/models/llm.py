@@ -32,6 +32,15 @@ gate (H,): the prompt's keys and values come from the layer's own k / v
 projections, a separate non-causal softmax over them is queried with the
 rotated q, and ``tanh(gate)`` times its output is added to the attention's.
 The main attention keeps the flash kernels with RoPE fused.
+
+Tensor parallelism (``parallel.tensor_parallel.split_llm``): each rank
+holds ``n_heads / tp`` query and ``n_kv_heads / tp`` key / value heads (the
+layers' ``cfg`` is the local one, ``cache_cfg`` for the KV cache), q / k / v
+and gate / up column-parallel, o_proj and down_proj row-parallel, and
+``V / tp`` rows of the embedding and the head (``tp`` set): ``embed`` looks
+up its rows and all-reduces, ``_head`` all-gathers the logits in rank
+order (its readers, the ``Generator`` and S2S, see whole logits and run the
+same on every rank), and ``loss_and_accuracy`` runs the vocab-parallel CE.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from slam_llm_tpu_torch.models.layers import (
 )
 from slam_llm_tpu_torch.models.remat import DENSE_SITES, Tape, checkpoint_layer, checkpointed, policy_names
 from slam_llm_tpu_torch.ops.quant import SharedActQuant, int8_of, resolve_bwd
+from slam_llm_tpu_torch.parallel.tensor_parallel import copy_to_tp, gather_last, reduce_from_tp
 
 
 @dataclass(frozen=True)
@@ -402,20 +412,37 @@ class CausalLM(nn.Module):
                                        ("head_qt", (c.d_model, v), torch.int8)):
                 self.register_buffer(name, torch.zeros(shape, dtype=dtype, device=device), persistent=False)
         self.ce_seed = 0  # uint32 seed of the int8_sr CE head's dx, set fresh per step by the trainer
+        self.tp = None  # parallel.tensor_parallel.TP once split over tp
+
+    @property
+    def cache_cfg(self) -> LLMConfig:
+        """The config a KV cache is laid out by: this rank's heads under tp."""
+        return self.layers[0].attn.cfg if len(self.layers) else self.cfg
 
     def head_weight(self) -> torch.Tensor:
         """The (V, D) head: ``lm_head.weight`` or the tied embedding table."""
         return self.embed_tokens.weight if self.cfg.tied_embeddings else self.lm_head.weight
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.embed_tokens(input_ids).to(self.cfg.dtype)
+        if self.tp is None:
+            return self.embed_tokens(input_ids).to(self.cfg.dtype)
+        # this rank's rows of the table; the other rows' ranks add zeros
+        table = self.embed_tokens.weight
+        n = table.shape[0]
+        local = input_ids - self.tp.rank * n
+        mine = (local >= 0) & (local < n)
+        rows = F.embedding(local.clamp(0, n - 1), table)
+        return reduce_from_tp(torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype)),
+                              self.tp).to(self.cfg.dtype)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tied_embeddings:
-            logits = F.linear(x.to(self.cfg.dtype), self.embed_tokens.weight.to(self.cfg.dtype))
+            h = x.to(self.cfg.dtype)
+            logits = F.linear(h if self.tp is None else copy_to_tp(h, self.tp),
+                              self.embed_tokens.weight.to(self.cfg.dtype))
         else:
             logits = self.lm_head(x)
-        return logits.float()
+        return logits.float() if self.tp is None else gather_last(logits.float(), self.tp)
 
     def trunk(self, inputs_embeds, attention_mask, positions=None) -> torch.Tensor:
         """Decoder stack + final norm without the head."""
@@ -453,7 +480,7 @@ class CausalLM(nn.Module):
                              self.ce_seed)
         return fused_linear_ce(
             x[:, :-1], kernel, labels[:, 1:], chunk=self.cfg.ce_chunk,
-            kernel_needs_grad=kernel.requires_grad, compute_dtype=self.cfg.dtype, head=head,
+            kernel_needs_grad=kernel.requires_grad, compute_dtype=self.cfg.dtype, head=head, tp=self.tp,
         )
 
     def prefill(

@@ -18,6 +18,21 @@ int8 dx contracts the dequantized head in the compute dtype (a plain
 product); int8_sr folds the head scales into the f32 ``dlog`` and quantizes
 it per row with stochastic rounding (K2 fold, seed ``seed + chunk index``
 mod 2**32), then contracts the head's int8 transpose (K3).
+
+Vocab-parallel (``tp``, a ``parallel.tensor_parallel.TP``): ``kernel`` (and
+the int8 head) hold this rank's V / tp rows, from row ``tp.rank * V / tp``,
+and each rank forms its chunk's V / tp columns of the logits (1 / tp of the
+head's products). The chunk's logits are all-gathered in rank order for its
+statistics, so the logsumexp, the label logit and the accuracy's argmax
+(the lowest index among equal values) are one process's, bit for bit where
+the logits are (the int8 head; a plain head's products may round apart): a
+MAX and a SUM all-reduce of per-rank statistics would sum the exponentials
+in another order. The peak is one chunk's whole logits, as in one process.
+The backward recomputes only the rank's columns: dlog from the saved
+logsumexp, dW local, and dx's partial sums over V all-reduced: f32 partials
+rounded once, or, under ``int8_sr``, the dlog row scale all-reduced with
+MAX, the Philox columns offset by the rank's first vocabulary row, and the
+s32 accumulators all-reduced (exact).
 """
 
 from __future__ import annotations
@@ -26,9 +41,18 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from slam_llm_tpu_torch.ops.kernels.rowquant import rowquant
+from slam_llm_tpu_torch.ops.kernels.rowquant import row_scale, rowquant, rowquant_absmax, rowquant_scaled
+from slam_llm_tpu_torch.ops.quant import (
+    act_quant,
+    dequantize_int8,
+    int8_epilogue,
+    int8_matmul,
+    int8_matmul_s32,
+    mm_f32,
+    unit_scale,
+)
 from slam_llm_tpu_torch.parallel.sharding import token_count
-from slam_llm_tpu_torch.ops.quant import act_quant, dequantize_int8, int8_matmul, unit_scale
+from slam_llm_tpu_torch.parallel.tensor_parallel import TP, all_gather_last, all_reduce_max, all_reduce_sum
 
 
 class QuantHead(NamedTuple):
@@ -43,20 +67,10 @@ class QuantHead(NamedTuple):
     seed: int = 0
 
 
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` (2-D) with an f32 sum and f32 result over compute-dtype
-    operands: the reference's ``preferred_element_type=float32``."""
-    if a.dtype == torch.float32:
-        return a @ b
-    if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()  # bf16 products are exact in f32
-
-
 def _chunk_logits(xc: torch.Tensor, wc_t: Optional[torch.Tensor], head: Optional[QuantHead]) -> torch.Tensor:
     """(M, V) f32 logits of xc (M, D), already in the compute dtype."""
     if head is None:
-        return _mm_f32(xc, wc_t)
+        return mm_f32(xc, wc_t)
     xq, xs = act_quant(xc)
     return int8_matmul(xq, head.q, xs.reshape(-1), head.scale, torch.float32)
 
@@ -64,7 +78,7 @@ def _chunk_logits(xc: torch.Tensor, wc_t: Optional[torch.Tensor], head: Optional
 class _FusedLinearCE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hidden, kernel, labels, chunk: int, kernel_needs_grad: bool,
-                compute_dtype: torch.dtype, ignore_index: int, head: Optional[QuantHead]):
+                compute_dtype: torch.dtype, ignore_index: int, head: Optional[QuantHead], tp: Optional[TP]):
         b, t, d = hidden.shape
         valid = labels != ignore_index
         safe = torch.where(valid, labels, torch.zeros_like(labels))
@@ -77,7 +91,10 @@ class _FusedLinearCE(torch.autograd.Function):
         for i in range(0, t, chunk):
             xc = hidden[:, i:i + chunk].to(compute_dtype)
             c = xc.shape[1]
-            logits = _chunk_logits(xc.reshape(b * c, d), wc_t, head).reshape(b, c, -1)
+            logits = _chunk_logits(xc.reshape(b * c, d), wc_t, head)
+            if tp is not None:  # the whole vocabulary's logits, in rank order
+                logits = all_gather_last(logits, tp)
+            logits = logits.reshape(b, c, -1)
             lse = torch.logsumexp(logits, dim=-1)
             lab, wt = safe[:, i:i + c], w[:, i:i + c]
             ll = logits.gather(-1, lab[..., None])[..., 0]
@@ -85,6 +102,7 @@ class _FusedLinearCE(torch.autograd.Function):
             correct = correct + ((logits.argmax(-1) == lab).float() * wt).sum()
             lses.append(lse)
         ctx.chunk, ctx.kernel_needs_grad, ctx.compute_dtype, ctx.head = chunk, kernel_needs_grad, compute_dtype, head
+        ctx.tp = tp
         ctx.save_for_backward(hidden, kernel, safe, w, torch.cat(lses, dim=1), denom)
         acc = correct / denom
         ctx.mark_non_differentiable(acc)
@@ -94,7 +112,7 @@ class _FusedLinearCE(torch.autograd.Function):
     def backward(ctx, g_loss, g_acc):
         hidden, kernel, safe, w, lse, denom = ctx.saved_tensors
         b, t, d = hidden.shape
-        cdt, head = ctx.compute_dtype, ctx.head
+        cdt, head, tp = ctx.compute_dtype, ctx.head, ctx.tp
         wc = wc_t = None
         if head is None:
             wc = kernel.to(cdt)
@@ -112,18 +130,33 @@ class _FusedLinearCE(torch.autograd.Function):
             logits = _chunk_logits(xc.reshape(b * c, d), wc_t, head).reshape(b, c, -1)
             # (softmax - onehot) * w * g / denom
             dlog = torch.exp(logits - lse[:, i:i + c, None])
-            dlog.scatter_add_(-1, safe[:, i:i + c, None], torch.full((b, c, 1), -1.0, device=dlog.device))
+            v = dlog.shape[-1]
+            lab = safe[:, i:i + c, None] - (0 if tp is None else tp.rank * v)
+            mine = (lab >= 0) & (lab < v)
+            dlog.scatter_add_(-1, lab.clamp(0, v - 1), torch.where(mine, -1.0, 0.0).to(dlog.dtype))
             dlog = dlog * (w[:, i:i + c] * scale)[..., None]
+            seed = (head.seed + n) & 0xFFFFFFFF if head is not None else None
+            if head is not None and head.int8_sr and tp is not None:
+                d2 = dlog.reshape(b * c, -1)
+                s = row_scale(all_reduce_max(rowquant_absmax(d2, head.scale), tp))
+                z = rowquant_scaled(d2, s, head.scale, seed=seed, col_offset=tp.rank * v)
+                acc = all_reduce_sum(int8_matmul_s32(z, head.qt), tp)
+                dx[:, i:i + c] = int8_epilogue(acc, s, unit_scale(d, head.qt.device), hidden.dtype).reshape(b, c, d)
+                continue
             if head is not None and head.int8_sr:
-                z, sz = rowquant(dlog.reshape(b * c, -1), head.scale, seed=(head.seed + n) & 0xFFFFFFFF)
+                z, sz = rowquant(dlog.reshape(b * c, -1), head.scale, seed=seed)
                 dxc = int8_matmul(z, head.qt, sz.reshape(-1), unit_scale(d, head.qt.device), hidden.dtype)
                 dx[:, i:i + c] = dxc.reshape(b, c, d)
                 continue
             dlog = dlog.to(cdt)
-            dx[:, i:i + c] = torch.matmul(dlog, wc).to(hidden.dtype)
+            if tp is None:
+                dx[:, i:i + c] = torch.matmul(dlog, wc).to(hidden.dtype)
+            else:  # f32 partial sums over the vocabulary shards, reduced, rounded once
+                part = all_reduce_sum(mm_f32(dlog.reshape(b * c, -1), wc), tp)
+                dx[:, i:i + c] = part.reshape(b, c, d).to(hidden.dtype)
             if dw is not None:
-                dw += _mm_f32(dlog.reshape(b * c, -1).t(), xc.reshape(b * c, d))
-        return dx, (dw.to(kernel.dtype) if dw is not None else None), None, None, None, None, None, None
+                dw += mm_f32(dlog.reshape(b * c, -1).t(), xc.reshape(b * c, d))
+        return dx, (dw.to(kernel.dtype) if dw is not None else None), None, None, None, None, None, None, None
 
 
 def fused_linear_ce(
@@ -136,16 +169,19 @@ def fused_linear_ce(
     kernel_needs_grad: bool = True,
     compute_dtype: torch.dtype = torch.bfloat16,
     head: Optional[QuantHead] = None,
+    tp: Optional[TP] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked-mean CE loss + next-token accuracy (not differentiable),
     exactly ``mean_over_valid(logsumexp(xW^T) - (xW^T)[label])`` with f32
     sums; the count of valid labels is the global batch's
     (``parallel.sharding.token_count``). ``kernel_needs_grad=False`` (a frozen head) skips dW; ``head``
-    runs the int8 head, which must be frozen."""
+    runs the int8 head, which must be frozen. ``tp``: ``kernel`` / ``head``
+    are this rank's vocabulary shard (see the note at the top)."""
     if head is not None and kernel_needs_grad:
         raise ValueError(
             "fused_linear_ce with an int8 head requires a frozen head (kernel_needs_grad=False): "
             "the s8 product's kernel gradient is zero by construction"
         )
     chunk = max(1, min(chunk, hidden.shape[1]))
-    return _FusedLinearCE.apply(hidden, kernel, labels, chunk, kernel_needs_grad, compute_dtype, ignore_index, head)
+    return _FusedLinearCE.apply(hidden, kernel, labels, chunk, kernel_needs_grad, compute_dtype, ignore_index, head,
+                                tp)

@@ -24,6 +24,17 @@ shape.
 
 Each wrapper also counts its launches by row width in ``.widths``.
 
+Two passes serve a row split over tensor-parallel ranks
+(``parallel.tensor_parallel``), where each rank holds some columns of every
+row but the scale must be the whole row's: ``rowquant_absmax`` (each row's
+f32 absmax of x, of ``x * fold`` or of ``rotate_cols(x)``), which the caller
+all-reduces with MAX, and ``rowquant_scaled`` (the quantization with a given
+row scale, the Philox counter of column ``c`` taken at ``col_offset + c``,
+the rotation block given: the whole row's). At ``col_offset`` 0 with the
+row's own scale, ``rowquant_scaled`` is ``rowquant``, bit for bit. Both run
+one simpler kernel of ``csrc/rowquant.cu`` (``slam_rowquant_tp``), each with
+its launch count.
+
 The TPU draws ``u`` from its own generator, which nothing else reproduces.
 Here ``u`` comes from Philox4x32-10 keyed by ``(seed, 0)`` with counter
 ``(col // 4, row mod 2**32, row // 2**32, 0)``, word ``col % 4``, low 24
@@ -68,14 +79,18 @@ def _fwht_scale(b: int) -> float:
     return float(torch.tensor(1.0 / math.sqrt(b), dtype=torch.float32))
 
 
-def rotate_cols(x: torch.Tensor) -> torch.Tensor:
+def rotate_cols(x: torch.Tensor, block: Optional[int] = None) -> torch.Tensor:
     """Block-diagonal orthonormal Hadamard along the last axis, block
-    ``rot_block(F)``, computed in f32 as a fast Walsh-Hadamard transform:
-    log2(b) butterfly stages of add/sub in natural (Sylvester) order, stride
-    1 first, then one multiply by 1/sqrt(b). K2 runs the same stages in the
-    same order, so the two agree bit for bit. Returns f32."""
+    ``rot_block(F)`` (or ``block``, a power of two dividing F: a slice of a
+    wider row rotates with the whole row's block), computed in f32 as a fast
+    Walsh-Hadamard transform: log2(b) butterfly stages of add/sub in natural
+    (Sylvester) order, stride 1 first, then one multiply by 1/sqrt(b). K2
+    runs the same stages in the same order, so the two agree bit for bit.
+    Returns f32."""
     f = x.shape[-1]
-    b = rot_block(f)
+    b = rot_block(f) if block is None else block
+    if f % b or b & (b - 1):
+        raise ValueError(f"rotation block {b} must be a power of two dividing the width {f}")
     y = x.float().reshape(-1, f // b, b)
     h = 1
     while h < b:
@@ -115,12 +130,15 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int = 0):
     return c0, c1, c2, c3
 
 
-def uniform_ref(m: int, k: int, seed: int, device=None) -> torch.Tensor:
+def uniform_ref(m: int, k: int, seed: int, device=None, col_offset: int = 0) -> torch.Tensor:
     """The (m, k) f32 uniforms in [0, 1) that K2's stochastic rounding adds:
-    element (row, col) is word ``col % 4`` of Philox at counter
-    ``(col // 4, row lo, row hi, 0)``, key ``(seed, 0)``, low 24 bits."""
+    element (row, col) is word ``c % 4`` of Philox at counter
+    ``(c // 4, row lo, row hi, 0)``, key ``(seed, 0)``, low 24 bits, for the
+    global column ``c = col_offset + col`` (``col_offset`` a multiple of 4)."""
+    if col_offset % 4:
+        raise ValueError(f"col_offset must be a multiple of 4, got {col_offset}")
     g = (k + 3) // 4
-    c0 = torch.arange(g, dtype=torch.int64, device=device)[None, :].expand(m, g)
+    c0 = torch.arange(col_offset // 4, col_offset // 4 + g, dtype=torch.int64, device=device)[None, :].expand(m, g)
     rows = torch.arange(m, dtype=torch.int64, device=device)[:, None].expand(m, g)
     zero = torch.zeros_like(c0)
     words = philox4x32(c0, rows & _MASK32, rows >> 32, zero, int(seed) & _MASK32)
@@ -163,6 +181,45 @@ def rowquant_ref(
         m = x.numel() // k if k else 0
         q = torch.floor(y + uniform_ref(m, k, seed, x.device).reshape(x.shape))
     return q.clamp_(-127, 127).to(torch.int8), s
+
+
+def row_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The per-row scale ``max(amax, 1e-28) / 127`` of an f32 absmax, as
+    ``rowquant_ref`` (and K2) forms it: a true division."""
+    return torch.clamp_min(amax, _EPS_AMAX) / amax.new_full((), 127.0)
+
+
+def _tp_values(x: torch.Tensor, fold: Optional[torch.Tensor], rotate_block: int) -> torch.Tensor:
+    """The f32 y that the row-split passes quantize: ``rotate_cols(x)`` with
+    the given block, ``x * fold``, or x."""
+    _check_fold(fold, bool(rotate_block))
+    if rotate_block:
+        return rotate_cols(x, rotate_block)
+    return x.float() * fold.float() if fold is not None else x.float()
+
+
+def rowquant_absmax_ref(x: torch.Tensor, fold: Optional[torch.Tensor] = None, *,
+                        rotate_block: int = 0) -> torch.Tensor:
+    """Plain twin of K2's absmax pass: each row's max |y| in f32, shape
+    ``x.shape[:-1]``, y as ``rowquant_ref`` forms it (the rotation with block
+    ``rotate_block``)."""
+    return _tp_values(x, fold, rotate_block).abs().amax(dim=-1)
+
+
+def rowquant_scaled_ref(x: torch.Tensor, s: torch.Tensor, fold: Optional[torch.Tensor] = None, *,
+                        seed: Optional[int] = None, col_offset: int = 0, rotate_block: int = 0) -> torch.Tensor:
+    """Plain twin of K2's given-scale pass: ``clip(round(y / s))``, or
+    ``clip(floor(y / s + u))`` with ``seed``, u drawn at the global columns
+    ``col_offset + col``; ``s`` holds one f32 scale per row
+    (``row_scale`` of the whole row's absmax)."""
+    k = x.shape[-1]
+    y = _tp_values(x, fold, rotate_block) / s.reshape(x.shape[:-1] + (1,))
+    if seed is None:
+        q = torch.round(y)
+    else:
+        m = x.numel() // k if k else 0
+        q = torch.floor(y + uniform_ref(m, k, seed, x.device, col_offset).reshape(x.shape))
+    return q.clamp_(-127, 127).to(torch.int8)
 
 
 def _check_kernel_input(x: torch.Tensor, k_multiple: int, dtypes=(torch.bfloat16,)) -> None:
@@ -368,3 +425,84 @@ def rowquant_fold(
 
 rowquant_fold.launches = 0
 rowquant_fold.widths = collections.Counter()  # launches by row width K
+
+
+# ---- the row-split passes (tensor parallelism) --------------------------------------
+
+TP_THREADS = 256  # the row-split kernel's block: 4 columns a thread, tiles of 1024 columns
+
+
+def _launch_tp(x: torch.Tensor, fold: Optional[torch.Tensor], s: Optional[torch.Tensor], seed: Optional[int],
+               col_offset: int, rotate_block: int) -> torch.Tensor:
+    """One launch of ``slam_rowquant_tp``: the absmax (``s`` None, an f32
+    row vector out) or the given-scale quantization (int8 like x out)."""
+    from slam_llm_tpu_torch.kernels.build import check, library, sm_count, stream_ptr
+
+    _check_fold(fold, bool(rotate_block))
+    _check_kernel_input(x, 4, (torch.bfloat16, torch.float32))
+    k = x.shape[-1]
+    m = x.numel() // k if k else 0
+    if rotate_block and (rotate_block & (rotate_block - 1) or not 4 <= rotate_block <= ROT_BLOCK
+                         or k % rotate_block or x.dtype != torch.bfloat16):
+        raise ValueError(f"rowquant row-split kernel rotates bf16 rows in power-of-two blocks of 4 .. {ROT_BLOCK} "
+                         f"dividing K, got block {rotate_block}, K={k}, {x.dtype}")
+    if col_offset % 4 or col_offset < 0:
+        raise ValueError(f"rowquant row-split kernel takes a column offset that is a multiple of 4, got {col_offset}")
+    if fold is not None and (fold.shape != (k,) or fold.dtype != torch.float32 or not fold.is_contiguous()
+                             or fold.device != x.device):
+        raise ValueError(f"rowquant row-split kernel takes a contiguous f32 fold of shape ({k},) on {x.device}")
+    dev = x.device
+    if s is None:
+        out = torch.empty(x.shape[:-1], dtype=torch.float32, device=dev)
+    else:
+        s = s.reshape(-1)
+        if s.dtype != torch.float32 or s.numel() != m or not s.is_contiguous() or s.device != dev:
+            raise ValueError(f"rowquant row-split kernel takes a contiguous f32 scale per row ({m},) on {dev}")
+        out = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    if m == 0 or k == 0:
+        return out.zero_()
+    with torch.cuda.device(dev):
+        err = library().slam_rowquant_tp(
+            x.data_ptr(), None if fold is None else fold.data_ptr(), None if s is None else s.data_ptr(),
+            out.data_ptr(), m, k, int(x.dtype == torch.float32), rotate_block,
+            _fwht_scale(rotate_block) if rotate_block else 1.0, int(s is None), int(seed is not None),
+            (int(seed) & _MASK32) if seed is not None else 0, col_offset, 8 * sm_count(dev.index), stream_ptr(x),
+        )
+    if err:
+        check(err, "rowquant row-split pass")
+    return out
+
+
+def rowquant_absmax(x: torch.Tensor, fold: Optional[torch.Tensor] = None, *,
+                    rotate_block: int = 0) -> torch.Tensor:
+    """K2's absmax pass: each row's max |y| in f32 (shape ``x.shape[:-1]``),
+    y = ``rotate_cols(x, rotate_block)``, ``x * fold`` or x; bf16 or f32 x
+    with K % 4 == 0 (the rotation bf16 only). A CPU tensor takes the twin."""
+    if not x.is_cuda:
+        return rowquant_absmax_ref(x, fold, rotate_block=rotate_block)
+    out = _launch_tp(x, fold, None, None, 0, rotate_block)
+    rowquant_absmax.launches += 1
+    rowquant_absmax.widths[x.shape[-1]] += 1
+    return out
+
+
+rowquant_absmax.launches = 0
+rowquant_absmax.widths = collections.Counter()  # launches by row width K
+
+
+def rowquant_scaled(x: torch.Tensor, s: torch.Tensor, fold: Optional[torch.Tensor] = None, *,
+                    seed: Optional[int] = None, col_offset: int = 0, rotate_block: int = 0) -> torch.Tensor:
+    """K2's given-scale pass: int8 like x, ``round(y / s)`` or, with
+    ``seed``, ``floor(y / s + u)`` with u drawn at the global columns
+    ``col_offset + col`` (a multiple of 4); ``s`` one f32 scale per row. A
+    CPU tensor takes the twin."""
+    if not x.is_cuda:
+        return rowquant_scaled_ref(x, s, fold, seed=seed, col_offset=col_offset, rotate_block=rotate_block)
+    out = _launch_tp(x, fold, s, seed, col_offset, rotate_block)
+    rowquant_scaled.launches += 1
+    rowquant_scaled.widths[x.shape[-1]] += 1
+    return out
+
+
+rowquant_scaled.launches = 0
+rowquant_scaled.widths = collections.Counter()  # launches by row width K

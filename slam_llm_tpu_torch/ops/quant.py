@@ -32,6 +32,24 @@ derives and no checkpoint stores: one more byte per base parameter, as the
 int8_rot pair costs. K3 gets a cached ``ones(K)`` as its column scale, so
 its epilogue ``acc * s_dy * 1.0`` equals the reference's ``acc * s_dy``.
 
+Tensor parallelism (``tp``, a ``parallel.tensor_parallel.TP`` with its role):
+a ``column`` dense holds rows of ``w_q`` (its F shard) and gets x whole, so
+its forward is the one-process product's columns; its dx reduces over F
+across the ranks. A ``row`` dense holds columns of ``w_q`` (its K shard) and
+gets x's matching columns: each row's absmax is all-reduced with MAX
+(``rowquant_absmax``), x is quantized with that scale (``rowquant_scaled``),
+K3 runs in its s32 mode, the accumulators are all-reduced with SUM (exact)
+and ``int8_epilogue`` applies the scales: the one-process output bit for
+bit. Its dx takes dy whole and is the one-process dx's columns. The column
+dx: ``int8_sr`` / ``int8`` fold ``w_scale`` into dy, all-reduce the dy
+scale with MAX, quantize with the Philox counter at the rank's first global
+column, contract in s32, all-reduce, epilogue; ``int8_rot`` does the same
+with the rotation block of the whole F where the rank's columns hold whole
+blocks, and otherwise gathers dy along F and quantizes it whole (as GSPMD
+does for the reference), contracting only its columns; ``bf16`` all-reduces
+f32 partial sums and rounds once. The int8 products are the one-process
+port's bit for bit; the bf16 dx within its one rounding.
+
 ``int8_matmul`` sends CPU tensors to ``int8_matmul_ref`` and CUDA tensors to
 ``csrc/int8_matmul.cu`` (bf16 output, counted on ``int8_matmul.launches``;
 f32 output through ``int8_matmul_f32``, counted on its own); it raises on
@@ -51,7 +69,15 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from slam_llm_tpu_torch.ops.kernels.rowquant import rotate_cols, rowquant
+from slam_llm_tpu_torch.ops.kernels.rowquant import (
+    rot_block,
+    rotate_cols,
+    row_scale,
+    rowquant,
+    rowquant_absmax,
+    rowquant_scaled,
+)
+from slam_llm_tpu_torch.parallel.tensor_parallel import TP, all_gather_last, all_reduce_max, all_reduce_sum
 
 _EPS = 1e-30
 
@@ -104,7 +130,10 @@ def rotate_quantize_bwd(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     contiguous (the (N, Kc) layout K3 reads for the dx product), scale
     (..., K) f32."""
     wr = rotate_cols(w)
-    amax = wr.abs().amax(dim=-1)
+    return _quantize_rows(wr, wr.abs().amax(dim=-1))
+
+
+def _quantize_rows(wr: torch.Tensor, amax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale = torch.clamp_min(amax, _EPS) / amax.new_full((), 127.0)
     q = torch.round(wr / scale[..., None]).clamp_(-127, 127)
     return q.to(torch.int8).contiguous(), scale
@@ -156,11 +185,22 @@ def dequantize_base_params(module: nn.Module, dtype=torch.float32) -> Dict[str, 
     return sd
 
 
-def rotated_pair(w_q: torch.Tensor, w_scale: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def rotated_pair(w_q: torch.Tensor, w_scale: torch.Tensor, tp: Optional[TP] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ``int8_rot`` backward pair ``(quant(W R) (K, F), scale (K,))`` of
-    the dequantized forward weight ``W = dequant(w_q (F, K), w_scale)^T``."""
+    the dequantized forward weight ``W = dequant(w_q (F, K), w_scale)^T``;
+    for a column-parallel shard (``w_q`` this rank's F rows) the shard's
+    columns of the whole weight's pair, each K row's scale the whole row's."""
     w = dequantize_int8(w_q, w_scale, contract_axis=-1)  # (F, K)
-    return rotate_quantize_bwd(w.T)
+    if tp is None or tp.role != "column":
+        return rotate_quantize_bwd(w.T)
+    f = w.shape[0]
+    b = rot_block(f * tp.size)
+    if f % b:  # the rotation blocks straddle ranks: rotate the whole weight
+        whole = rotate_cols(all_gather_last(w.T, tp))
+        return _quantize_rows(whole.narrow(-1, tp.rank * f, f), whole.abs().amax(dim=-1))
+    wr = rotate_cols(w.T, b)
+    return _quantize_rows(wr, all_reduce_max(wr.abs().amax(dim=-1), tp))
 
 
 def act_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -277,18 +317,24 @@ def _tiles(plan: Int8Plan, m: int, n: int) -> int:
     return -(-m // bm) * -(-n // bn)
 
 
+_OUT_KIND = {torch.bfloat16: 0, torch.float32: 1, torch.int32: 2}
+
+
 def _int8_matmul_launch(x_q, w_q, x_s, w_scale, out_dtype: torch.dtype, plan: Optional[Int8Plan] = None):
+    """One K3 launch; ``out_dtype`` int32 is the s32 mode (``x_s`` and
+    ``w_scale`` None: no epilogue)."""
     m, k = x_q.shape
     f = w_q.shape[0]
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8 or w_q.shape != (f, k):
         raise TypeError(f"int8_matmul takes int8 (M, K) x (F, K), got {x_q.dtype}{tuple(x_q.shape)} "
                         f"x {w_q.dtype}{tuple(w_q.shape)}")
-    if x_s.dtype != torch.float32 or w_scale.dtype != torch.float32 or x_s.numel() != m \
-            or w_scale.shape != (f,):
+    if out_dtype not in _OUT_KIND:
+        raise TypeError(f"int8_matmul kernel writes bfloat16, float32 or int32, got {out_dtype}")
+    scales = () if out_dtype == torch.int32 else (x_s, w_scale)
+    if scales and (x_s.dtype != torch.float32 or w_scale.dtype != torch.float32 or x_s.numel() != m
+                   or w_scale.shape != (f,)):
         raise TypeError("int8_matmul takes f32 scales x_s (M,) and w_scale (F,)")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"int8_matmul kernel writes bfloat16 or float32, got {out_dtype}")
-    if k % 16 or not all(t.is_contiguous() for t in (x_q, w_q, x_s, w_scale)) \
+    if k % 16 or not all(t.is_contiguous() for t in (x_q, w_q, *scales)) \
             or x_q.data_ptr() % 16 or w_q.data_ptr() % 16:
         raise ValueError("int8_matmul kernel needs contiguous, 16-byte aligned operands and K % 16 == 0")
     out = torch.empty((m, f), dtype=out_dtype, device=x_q.device)
@@ -304,10 +350,10 @@ def _int8_matmul_launch(x_q, w_q, x_s, w_scale, out_dtype: torch.dtype, plan: Op
         counters = _split_counters(x_q.device, _tiles(plan, m, f))
     with torch.cuda.device(x_q.device):
         err = library().slam_int8_matmul(
-            x_q.data_ptr(), w_q.data_ptr(), x_s.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), None if counters is None else counters.data_ptr(),
-            m, f, k, int(out_dtype == torch.float32), 0 if plan.path == "wgmma" else 1, plan.tile[0], plan.splits,
-            sms, stream_ptr(x_q),
+            x_q.data_ptr(), w_q.data_ptr(), *(t.data_ptr() if scales else None for t in (x_s, w_scale)),
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            None if counters is None else counters.data_ptr(), m, f, k, _OUT_KIND[out_dtype],
+            0 if plan.path == "wgmma" else 1, plan.tile[0], plan.splits, sms, stream_ptr(x_q),
         )
     check(err, f"int8_matmul {plan}")
     K3_PATHS[plan.path].launches += 1
@@ -353,6 +399,67 @@ int8_matmul_f32.launches = 0
 int8_matmul_f32.widths = collections.Counter()  # launches by (K, F)
 
 
+def int8_matmul_s32_ref(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K3's s32 mode: the exact integer sums (float64 holds
+    every partial sum of int8 products exactly)."""
+    return (x_q.double() @ w_q.double().T).to(torch.int32)
+
+
+def int8_matmul_s32(x_q: torch.Tensor, w_q: torch.Tensor, plan: Optional[Int8Plan] = None) -> torch.Tensor:
+    """K3 in its s32 mode: x_q (M, K) int8, w_q (F, K) int8 -> the (M, F)
+    int32 accumulators, no epilogue: a partial sum over a K shard, which
+    tensor-parallel ranks all-reduce as integers before ``int8_epilogue``."""
+    if not x_q.is_cuda:
+        return int8_matmul_s32_ref(x_q, w_q)
+    out = _int8_matmul_launch(x_q, w_q, None, None, torch.int32, plan)
+    int8_matmul_s32.launches += 1
+    int8_matmul_s32.widths[tuple(reversed(w_q.shape))] += 1
+    return out
+
+
+int8_matmul_s32.launches = 0
+int8_matmul_s32.widths = collections.Counter()  # launches by (K, F)
+
+
+def int8_epilogue_ref(acc: torch.Tensor, x_s: torch.Tensor, w_scale: torch.Tensor, out_dtype: torch.dtype
+                      ) -> torch.Tensor:
+    """Plain twin of the scale epilogue: ``int8_matmul_ref``'s roundings
+    (acc to f32, times the row scale, times the column scale)."""
+    return (acc.float() * x_s.reshape(-1, 1) * w_scale).to(out_dtype)
+
+
+def int8_epilogue(acc: torch.Tensor, x_s: torch.Tensor, w_scale: torch.Tensor,
+                  out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The scale epilogue of an s32 product (``csrc/int8_matmul.cu``,
+    ``slam_int8_epilogue``): acc (M, F) int32, x_s (M,) or (M, 1) f32,
+    w_scale (F,) f32 -> (M, F) bf16 or f32, bit-equal to K3's fused
+    epilogue on the same sums."""
+    if not acc.is_cuda:
+        return int8_epilogue_ref(acc, x_s, w_scale, out_dtype)
+    m, f = acc.shape
+    x_s = x_s.reshape(-1)
+    if acc.dtype != torch.int32 or x_s.dtype != torch.float32 or w_scale.dtype != torch.float32 \
+            or x_s.numel() != m or w_scale.shape != (f,) \
+            or not all(t.is_contiguous() for t in (acc, x_s, w_scale)):
+        raise TypeError("int8_epilogue takes contiguous int32 acc (M, F), f32 x_s (M,) and w_scale (F,)")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"int8_epilogue writes bfloat16 or float32, got {out_dtype}")
+    out = torch.empty((m, f), dtype=out_dtype, device=acc.device)
+    if out.numel() == 0:
+        return out
+    from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
+
+    with torch.cuda.device(acc.device):
+        err = library().slam_int8_epilogue(acc.data_ptr(), x_s.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+                                           m, f, int(out_dtype == torch.float32), stream_ptr(acc))
+    check(err, "int8_epilogue")
+    int8_epilogue.launches += 1
+    return out
+
+
+int8_epilogue.launches = 0
+
+
 @functools.lru_cache(maxsize=None)
 def unit_scale(n: int, device: torch.device) -> torch.Tensor:
     """A cached ``ones(n)`` f32: K3's column scale where the reference
@@ -364,26 +471,59 @@ PreQuant = Callable[[], Tuple[torch.Tensor, torch.Tensor]]
 
 
 def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
-                pre_quant: Optional[PreQuant] = None) -> torch.Tensor:
+                pre_quant: Optional[PreQuant] = None, tp: Optional[TP] = None) -> torch.Tensor:
     """Forward of the reference's ``int8_dot``: ``x (..., K) @ dequant(w_q)^T``
     computed s8 x s8, returned in x's dtype; ``pre_quant`` returns x's
-    ``act_quant`` pair."""
+    ``act_quant`` pair. A row-parallel ``tp`` shard reduces over the ranks
+    (see the note at the top)."""
     k = x.shape[-1]
+    if tp is not None and tp.role == "row":
+        x2 = x.reshape(-1, k).contiguous()
+        s = row_scale(all_reduce_max(rowquant_absmax(x2), tp))
+        acc = all_reduce_sum(int8_matmul_s32(rowquant_scaled(x2, s), w_q), tp)
+        return int8_epilogue(acc, s, w_scale, x.dtype).reshape(*x.shape[:-1], w_q.shape[0])
     x_q, x_s = act_quant(x) if pre_quant is None else pre_quant()
     y = int8_matmul(x_q.reshape(-1, k), w_q, x_s.reshape(-1), w_scale, x.dtype)
     return y.reshape(*x.shape[:-1], w_q.shape[0])
 
 
-def int8_dx(dy: torch.Tensor, bwd: str, seed: int, out_dtype: torch.dtype, w_q, w_scale, w_aux=None):
+def int8_dx(dy: torch.Tensor, bwd: str, seed: int, out_dtype: torch.dtype, w_q, w_scale, w_aux=None,
+            tp: Optional[TP] = None):
     """dx (M, K) of ``dy (M, F) @ dequant(w_q (F, K))`` in a quantized mode:
     ``w_aux`` is the rotated pair (int8_rot), or ``kernel_qt`` (int8_sr /
-    int8); int8_rot_otf derives the rotated pair here."""
+    int8); int8_rot_otf derives the rotated pair here. A column-parallel
+    ``tp`` shard takes ``int8_dx_column``."""
+    if tp is not None and tp.role == "column":
+        return int8_dx_column(dy, bwd, seed, out_dtype, w_q, w_scale, w_aux, tp)
     if bwd in ("int8_rot", "int8_rot_otf"):
         wr_q, wr_scale = w_aux if bwd == "int8_rot" else rotated_pair(w_q, w_scale)
         z, s_dy = rowquant(dy, seed=seed, rotate=True)
         return int8_matmul(z, wr_q, s_dy.reshape(-1), wr_scale, out_dtype)
     z, s_dy = rowquant(dy, w_scale, seed=seed if bwd == "int8_sr" else None)
     return int8_matmul(z, w_aux, s_dy.reshape(-1), unit_scale(w_aux.shape[0], w_aux.device), out_dtype)
+
+
+def int8_dx_column(dy: torch.Tensor, bwd: str, seed: int, out_dtype: torch.dtype, w_q, w_scale, w_aux,
+                   tp: TP) -> torch.Tensor:
+    """``int8_dx`` of a column-parallel shard: dy (M, f) this rank's columns
+    of F, the weights its F shard; the whole dx (M, K) on every rank, equal
+    to the one-process dx bit for bit (see the note at the top)."""
+    f = dy.shape[-1]
+    off = tp.rank * f
+    if bwd in ("int8_rot", "int8_rot_otf"):
+        wr_q, wr_scale = w_aux if bwd == "int8_rot" else rotated_pair(w_q, w_scale, tp)
+        b = rot_block(f * tp.size)
+        if f % b:  # the whole row's blocks straddle ranks: quantize dy whole, keep this rank's columns
+            z, s = rowquant(all_gather_last(dy, tp), seed=seed, rotate=True)
+            z, s = z[:, off:off + f].contiguous(), s.reshape(-1)
+        else:
+            s = row_scale(all_reduce_max(rowquant_absmax(dy, rotate_block=b), tp))
+            z = rowquant_scaled(dy, s, seed=seed, col_offset=off, rotate_block=b)
+        return int8_epilogue(all_reduce_sum(int8_matmul_s32(z, wr_q), tp), s, wr_scale, out_dtype)
+    s = row_scale(all_reduce_max(rowquant_absmax(dy, w_scale), tp))
+    z = rowquant_scaled(dy, s, w_scale, seed=seed if bwd == "int8_sr" else None, col_offset=off)
+    acc = all_reduce_sum(int8_matmul_s32(z, w_aux), tp)
+    return int8_epilogue(acc, s, unit_scale(w_aux.shape[0], w_aux.device), out_dtype)
 
 
 class _Int8Dot(torch.autograd.Function):
@@ -396,33 +536,37 @@ class _Int8Dot(torch.autograd.Function):
     value nothing reads), and never asks ``pre_quant`` for x's int8 form."""
 
     @staticmethod
-    def forward(ctx, x, w_q, w_scale, w_aux_a, w_aux_b, bwd: str, seed: int, out, pre_quant):
-        ctx.bwd, ctx.seed, ctx.x_dtype = bwd, seed, x.dtype
+    def forward(ctx, x, w_q, w_scale, w_aux_a, w_aux_b, bwd: str, seed: int, out, pre_quant, tp):
+        ctx.bwd, ctx.seed, ctx.x_dtype, ctx.tp = bwd, seed, x.dtype, tp
         if bwd == "int8_rot":
             ctx.save_for_backward(w_aux_a, w_aux_b)
         elif bwd in ("int8_sr", "int8"):
             ctx.save_for_backward(w_q, w_scale, w_aux_a)
         else:
             ctx.save_for_backward(w_q, w_scale)
-        return int8_linear(x, w_q, w_scale, pre_quant) if out is None else out
+        return int8_linear(x, w_q, w_scale, pre_quant, tp) if out is None else out
 
     @staticmethod
     def backward(ctx, dy):
         f = dy.shape[-1]
         dy2 = dy.reshape(-1, f).contiguous()
+        tp = ctx.tp if ctx.tp is not None and ctx.tp.role == "column" else None  # a row shard's dx is local
         if ctx.bwd == "int8_rot":
             wr_q, wr_scale = ctx.saved_tensors
-            dx = int8_dx(dy2, "int8_rot", ctx.seed, ctx.x_dtype, None, None, (wr_q, wr_scale))
+            dx = int8_dx(dy2, "int8_rot", ctx.seed, ctx.x_dtype, None, None, (wr_q, wr_scale), tp)
         elif ctx.bwd == "bf16":
             w, scale = ctx.saved_tensors
             # the dequantized weight in bf16, contracted with f32 accumulation:
             # an f32 x keeps the f32 sum, a bf16 x rounds it once
             acc = torch.float32 if ctx.x_dtype == torch.float32 else torch.bfloat16
             wd = dequantize_int8(w, scale, contract_axis=-1, dtype=torch.bfloat16)
-            dx = torch.matmul(dy2.to(torch.bfloat16).to(acc), wd.to(acc)).to(ctx.x_dtype)
+            if tp is not None:  # f32 partial sums over the F shards, reduced, rounded once
+                dx = all_reduce_sum(mm_f32(dy2.to(torch.bfloat16).to(acc), wd.to(acc)), tp).to(ctx.x_dtype)
+            else:
+                dx = torch.matmul(dy2.to(torch.bfloat16).to(acc), wd.to(acc)).to(ctx.x_dtype)
         else:
-            dx = int8_dx(dy2, ctx.bwd, ctx.seed, ctx.x_dtype, *ctx.saved_tensors)
-        return dx.reshape(*dy.shape[:-1], dx.shape[-1]), None, None, None, None, None, None, None, None
+            dx = int8_dx(dy2, ctx.bwd, ctx.seed, ctx.x_dtype, *ctx.saved_tensors, tp=tp)
+        return dx.reshape(*dy.shape[:-1], dx.shape[-1]), None, None, None, None, None, None, None, None, None
 
 
 def int8_dot(
@@ -436,6 +580,7 @@ def int8_dot(
     w_t: Optional[torch.Tensor] = None,
     out: Optional[torch.Tensor] = None,
     pre_quant: Optional[PreQuant] = None,
+    tp: Optional[TP] = None,
 ) -> torch.Tensor:
     """``x @ dequant(w_q)^T`` computed s8 x s8, differentiable in ``x``.
 
@@ -447,7 +592,9 @@ def int8_dot(
     ``_Int8Dot``). ``pre_quant``: a callable returning ``act_quant(x)``'s
     ``(x_q, x_s)`` (``SharedActQuant``), asked only when the product is
     computed: denses over one input quantize it once, as with the
-    reference's ``pre_quant``. The gradient flows through ``x`` alone."""
+    reference's ``pre_quant``. ``tp``: this dense's tensor-parallel shard
+    and role (see the note at the top). The gradient flows through ``x``
+    alone."""
     if bwd not in BWD_MODES:
         raise ValueError(f"int8_dot bwd={bwd!r}: expected one of {BWD_MODES}")
     if bwd == "int8_rot" and w_rot is None:
@@ -455,6 +602,16 @@ def int8_dot(
     if bwd in ("int8_sr", "int8") and w_t is None:
         raise ValueError(f"int8_dot bwd={bwd!r} needs w_t, the (K, F) transpose of w_q")
     if not (torch.is_grad_enabled() and x.requires_grad):
-        return int8_linear(x, w_q, w_scale, pre_quant) if out is None else out  # no backward to prepare for
+        return int8_linear(x, w_q, w_scale, pre_quant, tp) if out is None else out  # no backward to prepare for
     aux_a, aux_b = w_rot if w_rot is not None else (w_t, None)
-    return _Int8Dot.apply(x, w_q, w_scale, aux_a, aux_b, bwd, 0 if seed is None else int(seed), out, pre_quant)
+    return _Int8Dot.apply(x, w_q, w_scale, aux_a, aux_b, bwd, 0 if seed is None else int(seed), out, pre_quant, tp)
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D) with an f32 sum and f32 result over compute-dtype
+    operands: the reference's ``preferred_element_type=float32``."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()  # bf16 products are exact in f32

@@ -1,4 +1,4 @@
-"""The (dp, fsdp) mesh on ``torch.distributed``: FSDP2 over the data axes.
+"""The (dp, fsdp, tp) mesh on ``torch.distributed``: FSDP2 over the data axes.
 
 Counterpart of ``slam_llm_tpu/parallel/sharding.py``. The reference lays one
 GSPMD mesh ``(dp, fsdp, tp)`` over its devices and lets XLA insert the
@@ -10,7 +10,10 @@ axes:
   ``world // (fsdp * tp)``. A mesh that does not equal the world raises,
   smaller ones included: the reference's silent truncation to the leading
   devices is not copied.
-* ``shard_params`` applies ``fully_shard`` over the 2-D ``("dp", "fsdp")``
+* ``shard_params`` first splits the decoder LLM over ``tp``
+  (``parallel.tensor_parallel.split_for_tp``: a Megatron-style split of its
+  heads, MLP and vocabulary, the rest of the model replicated over tp), then
+  applies ``fully_shard`` over the 2-D ``("dp", "fsdp")``
   sub-mesh (HSDP: replicated over ``dp``, sharded over ``fsdp``, as the
   reference's ``embed -> fsdp`` rule shards every parameter on ``fsdp`` and
   none on ``dp``) to each layer of the model's layer lists, then to the
@@ -20,26 +23,32 @@ axes:
   FSDP2 shards it as the reference's ``embed`` axis does. Gradients are summed, not averaged, over the ranks: each rank's
   loss is already its share of the global mean (``token_count``).
 * ``shard_batch`` keeps rank ``r``'s rows ``[r B/n, (r+1) B/n)`` of the
-  global batch, ``n = dp * fsdp``.
+  global batch, ``n = dp * fsdp``, ``r`` the data rank: the tp ranks of one
+  data rank share its rows.
 * ``token_count`` is the loss denominator: the count of valid tokens of the
   whole global batch, all-reduced over the data ranks inside
   ``global_loss``, so a rank's loss is its own NLL sum over the global
-  count and the ranks' losses sum to the reference's mean.
-
-Tensor parallelism (``tp > 1``) is not ported (ROADMAP Queue 1): with
-hand-written kernels it needs a Megatron-style split of every model
-family, not a sharding annotation.
+  count and the ranks' losses sum to the reference's mean. Under tp the
+  data ranks' group is ``data_group`` (one per tp index).
+* whole tensors: ``ShardLayout`` gathers a trainable tensor (or its
+  optimizer state) over its FSDP placements, then over tp along its split
+  dim, and takes a whole one apart in the reverse order, so checkpoints hold
+  whole tensors and resume at any ``(dp, fsdp, tp)``; ``NormGroups`` sums a
+  gradient norm's squares over the ranks that hold distinct parts.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+import logging
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from slam_llm_tpu_torch.parallel.tensor_parallel import TP, all_gather_stack, replicated_modules, split_for_tp, tp_of
 
 MESH_AXES = ("dp", "fsdp", "tp")
 
@@ -52,9 +61,6 @@ INT8_BASE_TENSORS = ("kernel_q", "kernel_scale", "kernel_qr", "kernel_scale_r", 
 # floating dtype of the same shape, which FSDP2 only copies; their readers
 # take ``ops.quant.int8_of`` of them
 INT8_CARRIER = torch.float8_e4m3fn
-
-TP_NOT_PORTED = ("tensor parallelism (shard.tp > 1) is not ported yet (ROADMAP Queue 1: a Megatron-style "
-                 "split of every model family and a vocab-parallel fused CE)")
 
 
 def mesh_shape(dp: int, fsdp: int, tp: int, world: int) -> Tuple[int, int, int]:
@@ -90,6 +96,24 @@ def data_size(mesh) -> int:
 def data_rank(mesh) -> int:
     """This rank's place among the ``dp * fsdp`` batch shards."""
     return mesh["dp"].get_local_rank() * mesh["fsdp"].size() + mesh["fsdp"].get_local_rank()
+
+
+_DATA_GROUPS: Dict[Tuple[int, ...], Any] = {}
+
+
+def data_group(mesh):
+    """The process group of the ``dp * fsdp`` data ranks that share this
+    rank's tp index (the world where tp is 1): the group the loss sums and
+    metrics reduce over. Every rank creates every such group, in one order."""
+    tp = mesh["tp"].size()
+    if tp == 1:
+        return dist.group.WORLD
+    key = tuple(mesh.mesh.flatten().tolist())
+    if key not in _DATA_GROUPS:
+        ranks = mesh.mesh.reshape(-1, tp)
+        groups = [dist.new_group(ranks[:, t].tolist()) for t in range(tp)]
+        _DATA_GROUPS[key] = groups[mesh["tp"].get_local_rank()]
+    return _DATA_GROUPS[key]
 
 
 def replicated(mesh) -> Tuple:
@@ -136,12 +160,20 @@ def int8_base_as_parameters(model: nn.Module) -> None:
 
 
 def shard_params(model: nn.Module, mesh) -> nn.Module:
-    """``fully_shard`` each layer unit, then the root, over the ``("dp",
-    "fsdp")`` sub-mesh; gradients are summed over the data ranks."""
+    """Split the decoder LLM over ``tp`` (after ``quantize_base_params``:
+    the int8 base is quantized whole, then split), then ``fully_shard`` each
+    layer unit and the root over the ``("dp", "fsdp")`` sub-mesh; gradients
+    are summed over the data ranks. A tp mesh with one data rank takes no
+    FSDP2: it would shard nothing, and its hooks cost host time a step."""
     from torch.distributed.fsdp import FSDPModule, fully_shard
 
-    if mesh["tp"].size() > 1:
-        raise NotImplementedError(TP_NOT_PORTED)
+    split = split_for_tp(model, mesh)
+    if split:
+        logging.getLogger("slam_llm_tpu_torch").info(
+            "tensor parallel tp=%d: split %s (heads, MLP, vocabulary); replicated %s", mesh["tp"].size(),
+            split, replicated_modules(model, split))
+        if data_size(mesh) == 1:
+            return model
     data_mesh = mesh["dp", "fsdp"]
     int8_base_as_parameters(model)
     for unit in layer_units(model):
@@ -235,19 +267,68 @@ def full_tensor(local: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return dt.full_tensor()
 
 
+def gather_dim(t: torch.Tensor, dim: int, tp: TP) -> torch.Tensor:
+    """The tp ranks' ``t`` concatenated along ``dim``, in rank order."""
+    return torch.cat(list(all_gather_stack(t, tp).unbind(0)), dim=dim)
+
+
 class ShardLayout:
     """Maps the optimizer's per-parameter tensors (local shards) to whole
-    tensors and back, by the ``DTensor`` parameters they belong to, so its
-    saved state is whole at any world size."""
+    tensors and back, by the parameters they belong to (their FSDP
+    placements, then their tp split dims, ``tp_dims``, None where whole over
+    tp), so its saved state is whole at any mesh."""
 
-    def __init__(self, params: Sequence[torch.Tensor]):
+    def __init__(self, params: Sequence[torch.Tensor], tp_dims: Optional[Sequence[Optional[int]]] = None,
+                 tp: Optional[TP] = None):
         self.params = list(params)
+        self.tp_dims = list(tp_dims) if tp_dims is not None else [None] * len(self.params)
+        self.tp = tp
 
     def whole(self, i: int, t: torch.Tensor) -> torch.Tensor:
-        return full_tensor(t, self.params[i])
+        t = full_tensor(t, self.params[i])
+        dim = self.tp_dims[i]
+        return t if dim is None or self.tp is None else gather_dim(t, dim, self.tp)
 
     def local(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        dim = self.tp_dims[i]
+        if dim is not None and self.tp is not None:
+            n = t.shape[dim] // self.tp.size
+            t = t.narrow(dim, self.tp.rank * n, n)
         return local_shard(t, self.params[i])
+
+    def split(self) -> Tuple[bool, ...]:
+        """Whether each tensor is split over tp."""
+        return tuple(dim is not None and self.tp is not None for dim in self.tp_dims)
+
+
+class NormGroups(NamedTuple):
+    """What a sharded gradient norm sums over: every tensor's squares over
+    the ``fsdp`` ranks; a tensor split over tp (``split``) also over the tp
+    ranks, one replicated over tp once (tp rank 0's)."""
+
+    fsdp: Any
+    tp: TP
+    split: Tuple[bool, ...]
+
+    def square_sum(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        zero = torch.zeros((), dtype=torch.float32, device=grads[0].device if grads else None)
+        parts = [sum((g.float().square().sum() for g, s in zip(grads, self.split) if s == want), zero)
+                 for want in (True, False)]
+        if self.tp.rank:
+            parts[1] = torch.zeros_like(parts[1])
+        sq = torch.stack(parts)
+        dist.all_reduce(sq, group=self.fsdp)
+        dist.all_reduce(sq, group=self.tp.group)
+        return sq.sum()
+
+
+def norm_groups(mesh, layout: ShardLayout):
+    """The optimizer's ``norm_group``: the fsdp group, or ``NormGroups``
+    under tp."""
+    tp = tp_of(mesh)
+    if tp is None:
+        return mesh["fsdp"].get_group()
+    return NormGroups(mesh["fsdp"].get_group(), tp, layout.split())
 
 
 @contextlib.contextmanager

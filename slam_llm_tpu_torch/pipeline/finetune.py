@@ -22,20 +22,23 @@ tensors, the optimizer state and the step that ``save_optimizer`` wrote;
 greedily after every validation and logs the text.
 
 Several cards: one process per card under torchrun, the mesh from
-``train_config.shard`` (``dp`` / ``fsdp``; ``dp=-1`` takes the rest of the
-world), NCCL on ``cuda:LOCAL_RANK`` (gloo with ``--device cpu``):
+``train_config.shard`` (``dp`` / ``fsdp`` / ``tp``; ``dp=-1`` takes the rest
+of the world), NCCL on ``cuda:LOCAL_RANK`` (gloo with ``--device cpu``):
 
     torchrun --nproc_per_node=4 -m slam_llm_tpu_torch.pipeline.finetune \\
-        --config examples/s2s/conf/s2s_qwen.yaml ++train_config.shard.fsdp=4 ...
+        --config examples/s2s/conf/s2s_qwen.yaml ++train_config.shard.fsdp=2 \\
+        ++train_config.shard.tp=2 ...
 
 Every rank builds the same whole model from ``train_config.seed``, loads the
-same checkpoints, and the trainer shards it (FSDP2, ``parallel.shard_params``);
-every rank iterates the same seeded loader, whose ``batch_size_training``
-is the global batch, and keeps its rows of each batch. Rank 0 logs and
+same checkpoints, and the trainer shards it (``parallel.shard_params``: the
+decoder LLM split over ``tp``, Megatron-style, then FSDP2 over ``dp`` x
+``fsdp``); every rank iterates the same seeded loader, whose
+``batch_size_training`` is the global batch, and keeps its data rank's rows
+of each batch (the tp ranks of a data rank share them). Rank 0 logs and
 writes the checkpoints, which hold whole tensors. A run without torchrun's
 environment is the one-device run; there a mesh of more than one process
-raises ``ValueError``. ``shard.tp > 1`` raises ``NotImplementedError``
-(ROADMAP Queue 1).
+raises ``ValueError``. A model with no decoder LLM to split (VALL-E X)
+raises under tp.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from typing import List, Optional
 from slam_llm_tpu_torch.config import RunConfig, load_run_config
 from slam_llm_tpu_torch.data.loader import build_dataloader
 from slam_llm_tpu_torch.inference.generate import GenerationConfig, Generator, strip_after_eos
-from slam_llm_tpu_torch.parallel.sharding import INT8_BASE_TENSORS, TP_NOT_PORTED, local_part, unsharded
+from slam_llm_tpu_torch.parallel.sharding import INT8_BASE_TENSORS, local_part, unsharded
 from slam_llm_tpu_torch.pipeline.common import (
     build_mesh,
     destroy_process_group,
@@ -65,12 +68,6 @@ from slam_llm_tpu_torch.train.optimizer import count_params
 from slam_llm_tpu_torch.train.state import Trainer
 from slam_llm_tpu_torch.utils.checkpoint import load_state
 from slam_llm_tpu_torch.utils.logging_utils import setup_logger
-
-
-def check_ported(cfg: RunConfig) -> None:
-    """Raise on the training options the port does not run yet."""
-    if cfg.train_config.shard.tp > 1:
-        raise NotImplementedError(TP_NOT_PORTED)
 
 
 def build_decode_hook(cfg: RunConfig, model, tokenizer):
@@ -117,7 +114,6 @@ def main(cfg: RunConfig, device="cuda"):
     maybe_init_distributed(device)
     dev = resolve_device(device)
     logger = setup_logger("slam_llm_tpu_torch", log_file=cfg.log_config.log_file)
-    check_ported(cfg)
     mesh = build_mesh(cfg, dev)
     tc = cfg.train_config
     set_seed(tc.seed)

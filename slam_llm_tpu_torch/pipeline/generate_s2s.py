@@ -279,6 +279,11 @@ def run_batch(session: S2SSession, cfg: RunConfig) -> Dict[str, Any]:
 def main(cfg: RunConfig, device="cuda"):
     """Build the session on ``device`` and run ``decode_config.mode``;
     returns ``run_batch``'s results or the online rounds' texts."""
+    shard = cfg.train_config.shard
+    if shard.tp > 1 or shard.fsdp > 1:
+        raise NotImplementedError(
+            "generate_s2s runs one process on a whole model (ROADMAP Queue 1: a multi-rank generate_s2s, then the "
+            "tp split of the S2S heads)")
     session = S2SSession(cfg, device)
     mode = getattr(cfg.decode_config, "mode", "online")
     if mode == "batch":

@@ -20,15 +20,21 @@ slam_llm_tpu_torch.pipeline.inference_batch ...`` runs one process per card
 does: each rank holds a whole replica and decodes a rank-strided share of
 the batches (the ragged tail wraps around, so every batch is decoded by
 some rank), writing ``{decode_log}_pred_rank{r}`` / ``_gt_rank{r}``; the
-union of the logs is the one-process decode. No collective runs inside
-``generate`` (ranks take different numbers of decode steps), so a sharded
-decode (``shard.fsdp`` / ``shard.tp`` > 1) raises. Batch ``bi`` of rank
-``r`` samples from its own stream, seeded from ``train_config.seed`` and
+union of the logs is the one-process decode. With ``shard.tp=N`` the
+decoder LLM is split over tp (``parallel.tensor_parallel``): the batches are
+shared out over the data ranks (``world / N``), the N tp ranks of one data
+rank decode the same batches in lockstep (they see the same whole logits
+and make the same choices), and tp rank 0 writes the data rank's logs
+(``_rank{r}`` suffixes only with more than one data rank). A decode sharded
+over ``fsdp`` raises: data ranks take different numbers of decode steps,
+which FSDP's gathers cannot follow. Batch ``bi`` of data rank ``r`` samples
+from its own stream, seeded from ``train_config.seed`` and
 ``bi + r * 100003``, as the reference folds its key.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 from typing import List, Optional
@@ -39,6 +45,8 @@ import torch
 from slam_llm_tpu_torch.config import RunConfig, load_run_config
 from slam_llm_tpu_torch.data.loader import build_dataloader
 from slam_llm_tpu_torch.inference.generate import GenerationConfig, Generator, strip_after_eos
+from slam_llm_tpu_torch.parallel.sharding import data_rank, data_size, make_mesh
+from slam_llm_tpu_torch.parallel.tensor_parallel import split_for_tp
 from slam_llm_tpu_torch.pipeline.common import (
     build_model_and_data,
     destroy_process_group,
@@ -116,21 +124,29 @@ def main(cfg: RunConfig, device="cuda"):
     import torch.distributed as dist
 
     shard = cfg.train_config.shard
-    if shard.fsdp > 1 or shard.tp > 1:
+    if shard.fsdp > 1:
         raise NotImplementedError(
-            "a sharded decode (shard.fsdp / shard.tp > 1) is not ported: each rank decodes on a whole replica "
-            "(ROADMAP Queue 1: a sharded decode)")
+            "a decode sharded over fsdp (shard.fsdp > 1) is not ported: each data rank decodes on a whole "
+            "replica or its tp shard (ROADMAP Queue 1: a sharded decode)")
     maybe_init_distributed(device)
     dev = resolve_device(device)
     logger = setup_logger("slam_llm_tpu_torch", log_file=cfg.log_config.log_file)
     set_seed(cfg.train_config.seed)
     cfg.dataset_config.inference_mode = True
-    world, rank = (dist.get_world_size(), dist.get_rank()) if dist.is_initialized() else (1, 0)
+    world, rank, tp_rank = (dist.get_world_size(), dist.get_rank(), 0) if dist.is_initialized() else (1, 0, 0)
+    mesh = None
+    if shard.tp > 1:
+        if not dist.is_initialized():
+            raise ValueError(f"shard.tp={shard.tp} needs {shard.tp} processes (torchrun); this is one")
+        mesh = make_mesh(dp=-1, fsdp=1, tp=shard.tp, device_type=dev.type)
+        world, rank, tp_rank = data_size(mesh), data_rank(mesh), mesh["tp"].get_local_rank()
 
     model, tokenizer, dataset = build_model_and_data(cfg, split=cfg.dataset_config.test_split, device=dev)
     model.eval()
     t0 = time.perf_counter()
     materialize_params(model, cfg)
+    if mesh is not None:
+        logger.info("tensor parallel tp=%d: split %s", shard.tp, split_for_tp(model, mesh))
     load_s = time.perf_counter() - t0
     loader = decode_loader(cfg, dataset, num_replicas=world, rank=rank)
 
@@ -145,6 +161,8 @@ def main(cfg: RunConfig, device="cuda"):
     suffix = f"_rank{rank}" if world > 1 else ""
     pred_path = cfg.decode_config.decode_log + "_pred" + suffix
     gt_path = cfg.decode_config.decode_log + "_gt" + suffix
+    if tp_rank:  # tp rank 0 writes the data rank's logs
+        pred_path = gt_path = os.devnull
     n, n_tokens, t_total, audio_s = 0, 0, 0.0, 0.0
     with open(pred_path, "w", encoding="utf-8") as f_pred, open(gt_path, "w", encoding="utf-8") as f_gt:
         for bi, batch in enumerate(loader):

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 import wave
@@ -155,6 +156,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
 
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "inference_vallex runs one process on a whole model (ROADMAP Queue 1: a multi-rank inference_vallex, "
+            "then the tp split of VALL-E X)")
     dev = resolve_device(device)
     model = load_vallex(args.ckpt_path, args.llm_name, dev)
     cfg = model.cfg

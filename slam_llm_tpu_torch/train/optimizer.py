@@ -15,7 +15,8 @@ Under FSDP2 (``train.state.Trainer`` with a mesh) the optimizer holds the
 local shards of the parameters and gets their local gradients: the clip's
 global norm sums the squares over the local shards and all-reduces the sum
 over ``norm_group`` (the ``fsdp`` ranks; ``dp`` replicas hold the same
-shards), and ``layout`` (``parallel.sharding.ShardLayout``) gathers the
+shards; under tp also the tp ranks, ``parallel.sharding.NormGroups``), and
+``layout`` (``parallel.sharding.ShardLayout``) gathers the
 state whole for saving and takes a whole one apart on loading.
 """
 
@@ -111,7 +112,11 @@ def lr_schedule(train_config) -> Callable[[int], float]:
 
 def global_norm(grads: Sequence[torch.Tensor], group=None) -> torch.Tensor:
     """optax.global_norm: sqrt of the sum of every entry's square, in f32;
-    with ``group``, of the local shards' sums all-reduced over it."""
+    with ``group``, of the local shards' sums all-reduced over it (a
+    ``parallel.sharding.NormGroups`` under tensor parallelism: the fsdp and
+    tp ranks, each tp-replicated tensor counted once)."""
+    if hasattr(group, "square_sum"):
+        return torch.sqrt(group.square_sum(grads))
     sq = sum(g.float().square().sum() for g in grads)
     if group is not None:
         sq = sq.clone()

@@ -40,6 +40,15 @@ and accuracy are the global batch's. ``state_dict`` gathers whole tensors
 moves between world sizes. Each data rank's LoRA dropout and stochastic-
 rounding seeds are offset by its rank (rank 0 keeps the one-process
 streams): a rank quantizes its own rows, whose row indices restart at 0.
+
+Under tensor parallelism (``tp`` > 1) ``shard_params`` first splits the
+decoder LLM over tp (``parallel.tensor_parallel``); the tp ranks of one data
+rank take the same rows, draw the same dropout masks and seeds (both keyed
+on the data rank) and hold one layer's shards each. The loss sums and
+metrics reduce over the data ranks only (``parallel.sharding.data_group``),
+the norm over the fsdp and tp ranks with each tp-replicated tensor counted
+once (``NormGroups``), and the whole tensors of a checkpoint are gathered
+over FSDP, then over tp (``ShardLayout``).
 """
 
 from __future__ import annotations
@@ -49,21 +58,21 @@ from typing import Dict, List
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from slam_llm_tpu_torch.ops.quant import SR_MODES, quantize_base_params
 from slam_llm_tpu_torch.parallel.sharding import (
     ShardLayout,
     all_reduce_sum,
+    data_group,
     data_rank,
-    full_tensor,
     global_loss,
     local_part,
-    local_shard,
+    norm_groups,
     shard_batch,
     shard_params,
 )
+from slam_llm_tpu_torch.parallel.tensor_parallel import tp_dim, tp_of
 from slam_llm_tpu_torch.train.optimizer import (
     global_norm,
     lr_schedule,
@@ -89,10 +98,11 @@ class Trainer:
         self.device = next(model.parameters()).device
         self.mesh = mesh
         self.rank = data_rank(mesh) if mesh is not None else 0
-        # the ranks a batch is split over (loss sums; tp is 1) and those a
-        # parameter is sharded over (norm sums)
-        self.data_group = dist.group.WORLD if mesh is not None else None
-        self.norm_group = mesh["fsdp"].get_group() if mesh is not None else None
+        # the ranks a batch is split over (loss sums) and those a parameter
+        # is sharded over (norm sums; set with the layout)
+        self.data_group = data_group(mesh) if mesh is not None else None
+        self.norm_group = None
+        self.layout = None  # parallel.sharding.ShardLayout of the trainable tensors, under a mesh
         self.use_dropout = bool(tc.use_peft and tc.peft_config.lora_dropout > 0)
         self.dropout_generator = torch.Generator(device=self.device).manual_seed(tc.seed + self.rank)
         self.quant_generator = torch.Generator().manual_seed(tc.seed)
@@ -137,18 +147,35 @@ class Trainer:
         params = list(self.trainable.values())
         self.optimizer = make_optimizer([local_part(p) for p in params], self.sched, self.train_config)
         inner = getattr(self.optimizer, "inner", self.optimizer)
-        inner.norm_group = self.norm_group
         if self.mesh is not None:
-            inner.layout = ShardLayout(params)
+            self.layout = ShardLayout(params, [tp_dim(model, n) for n in self.trainable], tp_of(self.mesh))
+            self.norm_group = norm_groups(self.mesh, self.layout)
+            inner.layout = self.layout
             if inner is not self.optimizer:
                 self.optimizer.layout = inner.layout
+        inner.norm_group = self.norm_group
         if getattr(cfg, "train_audio_embed_only", False):
             # S2S: the head's updates kept to the extended audio vocabulary (the rank's rows of it)
             v = cfg.vocab
-            masks = partial_embed_grad_mask(self.trainable, v.padded_text_vocabsize, v.total_vocabsize)
-            inner.update_masks = [None if name not in masks else local_shard(masks[name], p)
-                                  for name, p in self.trainable.items()]
+            masks = partial_embed_grad_mask(self._whole_shapes(), v.padded_text_vocabsize, v.total_vocabsize)
+            inner.update_masks = [None if name not in masks else self._local(i, masks[name].to(self.device))
+                                  for i, name in enumerate(self.trainable)]
         return self
+
+    def _whole_shapes(self) -> Dict[str, torch.Tensor]:
+        """Stand-ins of the trainable tensors' whole shapes (one element each)."""
+        out = {}
+        for i, (name, p) in enumerate(self.trainable.items()):
+            shape = list(p.shape)  # a DTensor's is whole over FSDP
+            dim = None if self.layout is None else self.layout.tp_dims[i]
+            if dim is not None and self.layout.tp is not None:
+                shape[dim] *= self.layout.tp.size
+            out[name] = torch.zeros((), device=self.device).expand(shape)
+        return out
+
+    def _local(self, i: int, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's part of trainable tensor ``i``'s whole value."""
+        return whole if self.layout is None else self.layout.local(i, whole)
 
     def _global_loss(self):
         """Loss denominators over the global batch (``parallel.sharding.token_count``)."""
@@ -217,7 +244,10 @@ class Trainer:
 
     def whole_trainable(self) -> Dict[str, torch.Tensor]:
         """The trainable tensors whole, on the CPU (gathered: every rank joins)."""
-        return {n: full_tensor(local_part(p.detach()), p).cpu() for n, p in self.trainable.items()}
+        if self.layout is None:
+            return {n: p.detach().cpu() for n, p in self.trainable.items()}
+        return {n: self.layout.whole(i, local_part(p.detach())).cpu()
+                for i, (n, p) in enumerate(self.trainable.items())}
 
     def state_dict(self) -> Dict:
         """The reference's full state: trainable tensors, optimizer state and
@@ -229,7 +259,7 @@ class Trainer:
         """A full state of whole tensors (saved at any world size)."""
         if set(state["trainable"]) != set(self.trainable):
             raise ValueError("the full state's trainable tensors do not match this model's")
-        for name, p in self.trainable.items():
-            local_part(p).copy_(local_shard(state["trainable"][name], p))
+        for i, (name, p) in enumerate(self.trainable.items()):
+            local_part(p).copy_(self._local(i, state["trainable"][name]))
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])

@@ -226,9 +226,11 @@ def _free_port() -> int:
 
 
 class _Group:
-    """``n`` worker processes on one payload; ``result(name)`` waits for all."""
+    """``n`` worker processes on one payload; ``result(name)`` waits for all.
+    Each runs ``script`` (this file by default) with the payload and the
+    output directory as its arguments."""
 
-    def __init__(self, n: int, jobs, tmp: Path):
+    def __init__(self, n: int, jobs, tmp: Path, script: Path = Path(__file__)):
         self.dir = tmp
         tmp.mkdir(parents=True, exist_ok=True)
         torch.save(jobs, tmp / "payload.pt")
@@ -240,7 +242,7 @@ class _Group:
         for r in range(n):
             log = open(tmp / f"rank{r}.log", "w")
             self.procs.append(subprocess.Popen(
-                [sys.executable, str(Path(__file__)), str(tmp / "payload.pt"), str(tmp)],
+                [sys.executable, str(script), str(tmp / "payload.pt"), str(tmp)],
                 env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=log, stderr=subprocess.STDOUT, cwd=str(tmp)))
         self.t0 = time.monotonic()
         self.rcs = None
@@ -361,10 +363,10 @@ def _jax_int8_records():
         jax.effects_barrier()
 
 
-def _jax_steps(jcfg, params, dp, fsdp):
+def _jax_steps(jcfg, params, dp, fsdp, tp=1):
     """The JAX Trainer's losses, grad norms and trainable leaves over STEPS
-    steps on its (dp, fsdp) mesh of virtual CPU devices, the params laid out
-    by the logical rules."""
+    steps on its (dp, fsdp, tp) mesh of virtual CPU devices, the params laid
+    out by the logical rules."""
     import jax
     import jax.numpy as jnp
     from flax import linen as nn
@@ -375,7 +377,7 @@ def _jax_steps(jcfg, params, dp, fsdp):
     from slam_llm_tpu.parallel.sharding import logical_to_sharding
     from slam_llm_tpu.train.state import build_trainer
 
-    mesh = make_mesh(dp=dp, fsdp=fsdp, tp=1, devices=jax.devices()[:dp * fsdp])
+    mesh = make_mesh(dp=dp, fsdp=fsdp, tp=tp, devices=jax.devices()[:dp * fsdp * tp])
     jt = build_trainer(JSLAMModel(jcfg), jcfg, _train_config(port=False), mesh)
     example = {k: jnp.asarray(v) for k, v in _batch().items()}
     boxed = jax.eval_shape(lambda r: JSLAMModel(jcfg).init(r, example, method="init_all"), jax.random.PRNGKey(0))

@@ -464,17 +464,16 @@ def _reached(key, res, tmp_path):
                                         "decode_config.max_new_tokens": 3}, None),
         ("resume_from", {"train_config.resume_from": "/nonexistent"}, (FileNotFoundError, "full training state")),
         ("save_optimizer", {"train_config.save_optimizer": True}, None),
-        ("tp", {"train_config.shard.tp": 2}, (NotImplementedError, "ROADMAP Queue 1")),
+        ("tp", {"train_config.shard.tp": 2}, (ValueError, r"1 processes not divisible by fsdp\*tp=2")),
         ("fsdp", {"train_config.shard.fsdp": 2}, (ValueError, "1 processes not divisible by fsdp")),
     ],
 )
 def test_unported_training_options_raise(tmp_path, key, overrides, raises):
     """The training options that were not ported before: each ported one
     trains on the CPU through the finetune CLI and reaches its own code
-    path; tensor parallelism still raises with its ROADMAP pointer, a mesh
-    of two processes in one process raises as the reference's ``make_mesh``
-    does on one device, and a resume from a directory with no full state
-    says so."""
+    path; a mesh of two processes (fsdp=2 or tp=2) in one process raises as
+    the reference's ``make_mesh`` does on one device, and a resume from a
+    directory with no full state says so."""
     from helpers import write_wav
 
     from slam_llm_tpu_torch.pipeline import finetune
