@@ -44,16 +44,16 @@ Phases, each fatal on failure:
                 RoPE theta 1e6, left-padded; phase 17 adds K1 / K4 at
                 VALL-E X's (16, 577 / 1089, 16/16, 64) causal and (16, 576 /
                 1088) non-causal with a hole inside the key rows, and K1 at
-                its AR decode step (1, 589); last, a structured call at
+                its AR decode step (1, 364); last, a structured call at
                 head_dim 80 takes the plain path (no kernel, equal to the
                 plain twin) and one at 256 raises;
   4. decode  -- the recipe examples/asr_librispeech/conf/asr_whisper_tinyllama.yaml
                 through slam_llm_tpu_torch.pipeline.inference_batch on 16
                 synthetic utterances (whisper-small, TinyLlama-1.1B int8 base,
-                beam 4, 200 new tokens, random weights from the recipe's
+                beam 4, 32 new tokens, random weights from the recipe's
                 seed), with kernel launch counts (K3's split-K path must
-                run), a prefill-logit check
-                against the CPU plain path, and throughput;
+                run), a prefill-logit check against the CPU plain path
+                (the model cut to 2 + 2 layers), and throughput;
   5. train   -- the same recipe through slam_llm_tpu_torch.pipeline.finetune
                 (frozen whisper-small, trained projector, TinyLlama-1.1B int8
                 base with LoRA r8 on q/v, int8_rot backward, batch 16) for a
@@ -63,12 +63,14 @@ Phases, each fatal on failure:
                 throughput, peak memory and launches per kernel, and the same
                 step time and peak memory from a short run with remat off;
                 then the trainable gradients of one utterance on the card
-                against the CPU plain path;
+                against the CPU plain path, the trained model cut to 2 + 2
+                layers;
   6. modes   -- the same recipe through pipeline.finetune with the int8_sr
                 backward, the int8_sr CE head, anyprecision, gradient
                 accumulation 2, full-state checkpoints and the validation
                 decode of one wav: 8 micro-steps, a resume from the
-                checkpoint for 2 more, and the card-vs-CPU gradient check;
+                checkpoint for 2 more, and the card-vs-CPU gradient check
+                at 2 + 2 layers;
   7. weights -- the recipe from pretrained-shaped weights: whisper-small and
                 TinyLlama-1.1B written as random bf16 HF directories (with a
                 32000-entry Llama tokenizer.json) by tools/synth_checkpoint;
@@ -175,10 +177,11 @@ Phases, each fatal on failure:
                 a decode, the card vs the CPU.
  16. s2s     -- s2s_qwen.yaml (SLAM-Omni) through its own file: specs, which
                 the registry maps to the port (run_s2s): the batch decode of
-                4 questions of 2-12 s through pipeline.generate_s2s at full
+                2 questions of 2-12 s through pipeline.generate_s2s at full
                 width (whisper-small, linear ds 5, Qwen2-7B 28 layers bf16,
-                group decode over code_layer 3, 360 new tokens, seeded
-                random init), vocoded by the CosyVoice flow + HiFT at
+                group decode over code_layer 3, 48 of the recipe's 360 new
+                tokens, seeded random init), vocoded by the CosyVoice flow +
+                HiFT at
                 CosyVoice-300M's widths from written flow.pt / hift.pt (a
                 waveform of the expected length for every utterance, K1 12 +
                 28 an utterance); online rounds through S2SSession.run_round
@@ -238,10 +241,14 @@ Phases, each fatal on failure:
                 (b) whether gloo runs all_reduce SUM / MAX (f32, int32,
                 int64) and all_gather on CUDA tensors; if it does, two
                 torchrun ranks on this card over gloo: the ASR recipe
-                through pipeline.finetune at shard.tp=2, 8 steps of 16,
-                against phase 5 (losses within one bf16 rounding, grad norms
+                through pipeline.finetune at shard.tp=2, phase 5's first
+                step of 16 (the loss within one bf16 rounding, the grad norm
                 within 1e-2), inference_batch at tp=2 line for line against
-                phase 4, the launches count on the `tensor_parallel` path.
+                phase 4's first 8, s2s_qwen at 2 layers of Qwen2-7B's widths
+                at tp=2 against phase 19 (b)'s first 2 steps (its heads split
+                over the vocabulary: no rank gathers more than one CE chunk
+                of logits), generate_s2s at tp=2 against world size 1; the
+                launches count on the `tensor_parallel` path.
                 (c) with two or more cards (NCCL) the ASR recipe at tp=2,
                 with four also tp=4, fsdp=2 x tp=2 and s2s_qwen at Qwen2-7B's
                 full 28 layers at tp=4 and fsdp=2 x tp=2 (run_multi_card_tp);
@@ -254,6 +261,7 @@ anything fails or no CUDA device is present.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import datetime
 import itertools
@@ -262,6 +270,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -274,6 +283,38 @@ RECIPE = ROOT / "examples" / "asr_librispeech" / "conf" / "asr_whisper_tinyllama
 
 def log(*args):
     print(*args, flush=True)
+
+
+# The CPU side of the card-vs-CPU checks (a bf16 model on the host runs at a
+# few hundred GFLOP/s: about a quarter of the whole run) runs on one worker
+# thread beside the phases after its own; phase 19 starts once every one has
+# passed. The card side of each check runs in the main thread, so the launch
+# counts and the card's memory stay the phases' own.
+CPU_SIDE_THREADS = 6  # intra-op threads of the worker: the card's host has 8 cores, the phases keep the rest
+_CPU_SIDE = {"pool": None, "pending": []}
+
+
+def on_cpu(label: str, fn) -> None:
+    """Queue ``fn`` (the CPU side of a check, with its log and its gate) on
+    the worker thread; ``cpu_checks_done`` waits for it and raises its
+    failure."""
+    if _CPU_SIDE["pool"] is None:
+        _CPU_SIDE["pool"] = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="cpu_side", initializer=torch.set_num_threads, initargs=(CPU_SIDE_THREADS,))
+    _CPU_SIDE["pending"].append((label, _CPU_SIDE["pool"].submit(fn)))
+
+
+def cpu_checks_done() -> None:
+    """Waits for every queued CPU side, in order; raises the first failure."""
+    t0 = time.perf_counter()
+    pending, _CPU_SIDE["pending"] = _CPU_SIDE["pending"], []
+    for label, fut in pending:
+        try:
+            fut.result()
+        except Exception as e:
+            raise AssertionError(f"the card-vs-CPU check of {label} failed: {type(e).__name__}: {e}") from e
+    log(f"[cpu side] {len(pending)} card-vs-CPU checks passed; phase 19 waited {time.perf_counter() - t0:.1f} s for "
+        f"them")
 
 
 # ---------------------------------------------------------------------------
@@ -1444,6 +1485,10 @@ def write_corpus(root: Path, n: int = 16, seed: int = 0, name: str = "test", tar
 
 
 RECIPE_LAYERS = 22  # TinyLlama-1.1B's decoder layers
+# the decode's new tokens (the recipe's 200, cut: a random model rarely stops early, so each beam step of the
+# phase and of phases 19-20, which repeat it, runs to this length)
+SLICE_NEW_TOKENS = 32
+RECIPE_CHECK_LAYERS = 2  # LLM and encoder depth of phases 4-6's card-vs-CPU checks (full widths)
 
 # the kernels decode runs; K3's beam steps (M = 32) take its split-K path
 DECODE_PATH = ("flash_attention_fwd", "rowquant", "int8_matmul", "int8_matmul/splitk")
@@ -1495,19 +1540,25 @@ def run_counted(fn):
 
 def check_prefill_against_cpu(cfg) -> None:
     """Prefill logits of the first batch on the card (finite), and of its
-    first utterance against the CPU plain path with the same weights and dtype."""
+    first utterance against the CPU plain path with the same weights and
+    dtype, the model cut to RECIPE_CHECK_LAYERS layers."""
     from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
     from slam_llm_tpu_torch.pipeline.inference_batch import decode_loader
 
     model, _, dataset = build_model_and_data(cfg, split=cfg.dataset_config.test_split, device="cuda")
     materialize_params(model.eval(), cfg)
-    compare_prefill(model, next(iter(decode_loader(cfg, dataset))), "slice")
+    small, _ = cut_model(model, cfg, RECIPE_CHECK_LAYERS, "slice")
+    del model
+    cpu_side = compare_prefill(small.eval(), next(iter(decode_loader(cfg, dataset))), "slice")
+    small.to("cpu")
+    on_cpu("slice", cpu_side)
 
 
-def compare_prefill(model, batch, label: str) -> None:
+def compare_prefill(model, batch, label: str):
     """The prefill logits of ``batch`` on the card (finite), and of its first
-    utterance against the CPU plain path with the same weights and dtype
-    (cosine >= 0.99 at every valid position); ``model`` ends on the CPU."""
+    utterance; returns the CPU side, to call once ``model`` is on the CPU:
+    the same utterance through the CPU plain path with the same weights and
+    dtype, cosine >= 0.99 at every valid position."""
     from slam_llm_tpu_torch.models.llm import init_kv_cache
 
     keys = [k for k in ("input_ids", "attention_mask", "modality_mask", "audio_mel", "audio_mel_mask", "audio",
@@ -1527,17 +1578,21 @@ def compare_prefill(model, batch, label: str) -> None:
     log(f"[{label}] prefill logits {tuple(logits.shape)} finite")
     del logits
     gpu, mask = run(model, slice(0, 1), "cuda")
-    t0 = time.perf_counter()
-    cpu, _ = run(model.to("cpu"), slice(0, 1), "cpu")
-    cpu_s = time.perf_counter() - t0
-    g, c = gpu[mask], cpu[mask]  # (valid positions, V)
-    cos = torch.nn.functional.cosine_similarity(g, c, dim=-1)
-    agree = (g.argmax(-1) == c.argmax(-1)).float().mean().item()
-    log(f"[{label}] utterance 0 prefill logits, card vs CPU plain path ({cpu_s:.1f} s on CPU): "
-        f"min cosine {cos.min().item():.5f} mean {cos.mean().item():.5f} argmax agreement {agree:.4f} "
-        f"max |diff| {(g - c).abs().max().item():.4f}")
-    if cos.min().item() < 0.99:
-        raise AssertionError(f"prefill logits cosine {cos.min().item()} < 0.99 against the CPU path")
+
+    def cpu_side():
+        t0 = time.perf_counter()
+        cpu, _ = run(model, slice(0, 1), "cpu")
+        cpu_s = time.perf_counter() - t0
+        g, c = gpu[mask], cpu[mask]  # (valid positions, V)
+        cos = torch.nn.functional.cosine_similarity(g, c, dim=-1)
+        agree = (g.argmax(-1) == c.argmax(-1)).float().mean().item()
+        log(f"[{label}] utterance 0 prefill logits, card vs CPU plain path ({cpu_s:.1f} s on CPU): "
+            f"min cosine {cos.min().item():.5f} mean {cos.mean().item():.5f} argmax agreement {agree:.4f} "
+            f"max |diff| {(g - c).abs().max().item():.4f}")
+        if cos.min().item() < 0.99:
+            raise AssertionError(f"prefill logits cosine {cos.min().item()} < 0.99 against the CPU path")
+
+    return cpu_side
 
 
 def run_slice() -> dict:
@@ -1546,7 +1601,7 @@ def run_slice() -> dict:
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     manifest = write_corpus(tmp)
     args = ["--config", str(RECIPE), f"++dataset_config.train_data_path={manifest}",
-            f"++dataset_config.val_data_path={manifest}"]
+            f"++dataset_config.val_data_path={manifest}", f"++decode_config.max_new_tokens={SLICE_NEW_TOKENS}"]
     cfg = inference_batch.load_run_config([*args, f"++decode_config.decode_log={tmp / 'decode'}"])
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1735,7 +1790,7 @@ def run_training() -> dict:
     del res_off
     log(f"[train] remat on (dots_flash_saveable) vs off: step {remat_on['step_ms']:.1f} vs {remat_off['step_ms']:.1f} "
         f"ms, the run's own peak {remat_on['own_peak_gib']:.2f} vs {remat_off['own_peak_gib']:.2f} GiB")
-    check_train_grads_against_cpu(trainer, dataset, "train")
+    check_train_grads_against_cpu(cut_model(trainer.model, cfg, RECIPE_CHECK_LAYERS, "train")[1], dataset, "train")
     return launches
 
 
@@ -1793,7 +1848,7 @@ def run_training_modes() -> dict:
         f"{trainer2.optimizer.inner.count} inner updates")
     dataset = _check_moved(trainer2, cfg2, trainer2.step)
     k2_per_step(trainer2, dataset, {k: launches[k] + launches2[k] for k in launches}, MODES_STEPS + 2, "modes")
-    check_train_grads_against_cpu(trainer2, dataset, "modes")
+    check_train_grads_against_cpu(cut_model(trainer2.model, cfg2, RECIPE_CHECK_LAYERS, "modes")[1], dataset, "modes")
     return {k: launches[k] + launches2[k] for k in launches}
 
 
@@ -1804,14 +1859,16 @@ def cpu_attention_on_twins():
     of the model's plain attention: K4's twin rounds P and dS to bf16
     before its products, as K4 does, so a CPU gradient carries the
     kernel's own rounding (the leak of a near-uniform attention's dS rows
-    into its query / key gradients)."""
+    into its query / key gradients). Only the thread that entered it sees
+    the twins (the CPU sides run beside the phases)."""
     from slam_llm_tpu_torch.models import layers
     from slam_llm_tpu_torch.ops.kernels.flash_attention import flash_attention
 
-    plain = layers._xla_attention
+    plain, owner = layers._xla_attention, threading.get_ident()
 
     def twins(q, k, v, bias, kv_mask=None, causal=False):
-        if bias is not None or q.is_cuda or (causal and q.shape[1] != k.shape[1]):
+        if (threading.get_ident() != owner or bias is not None or q.is_cuda
+                or (causal and q.shape[1] != k.shape[1])):
             return plain(q, k, v, bias, kv_mask, causal)
         mask = kv_mask.to(torch.int32) if kv_mask is not None else torch.ones(k.shape[:2], dtype=torch.int32)
         return flash_attention(q, k, v, mask, causal)
@@ -1823,19 +1880,9 @@ def cpu_attention_on_twins():
         layers._xla_attention = plain
 
 
-def check_train_grads_against_cpu(trainer, dataset, label: str, key_bias_limit: float = 5e-2,
-                                  gate: str = "") -> tuple:
-    """The trainable gradients of one utterance, card vs CPU plain path: the
-    trained weights with LoRA B and llama-adapter's gates redrawn nonzero
-    (so every LoRA factor and adapter prompt gets a gradient), the run's backward modes with the same stochastic-rounding
-    seeds on both sides, remat as configured, dropout off. Cosine >= 0.99
-    for every tensor with a gradient; a key projection's bias (the
-    Q-Former's), whose gradient is 0 in exact arithmetic, within
-    ``key_bias_limit`` of its query bias's gradient norm on both sides.
-    The gate holds the tensors whose names start with ``gate`` (all by
-    default); the others' worst is logged. Returns the loss on the card and
-    on the CPU."""
-    model = trainer.model
+def redraw_adapters(model) -> None:
+    """LoRA B and llama-adapter's gates redrawn nonzero (seeded), so every
+    LoRA factor and adapter prompt gets a gradient."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     with torch.no_grad():
         for mod in model.modules():
@@ -1843,6 +1890,30 @@ def check_train_grads_against_cpu(trainer, dataset, label: str, key_bias_limit: 
                 mod.lora_b.normal_(0.0, 0.02, generator=gen)
             if hasattr(mod, "adaption_gate"):
                 mod.adaption_gate.normal_(0.0, 0.5, generator=gen)
+
+
+def check_train_grads_against_cpu(trainer, dataset, label: str, key_bias_limit: float = 5e-2) -> None:
+    """``train_grads_card`` on ``trainer``'s model (a cut copy, which ends on
+    the CPU) with its adapters redrawn; its CPU side queued."""
+    redraw_adapters(trainer.model)
+    cpu_side = train_grads_card(trainer, dataset, label, key_bias_limit)
+    trainer.model.to("cpu")
+    on_cpu(label, cpu_side)
+
+
+def train_grads_card(trainer, dataset, label: str, key_bias_limit: float = 5e-2, gate: str = "",
+                     loss_rtol: float = None):
+    """The trainable gradients of one utterance on the card; returns the CPU
+    side, to call once the model is on the CPU: the same through the CPU
+    plain path, the run's backward modes with the same stochastic-rounding
+    seeds on both sides, remat as configured, dropout off. Cosine >= 0.99
+    for every tensor with a gradient; a key projection's bias (the
+    Q-Former's), whose gradient is 0 in exact arithmetic, within
+    ``key_bias_limit`` of its query bias's gradient norm on both sides.
+    The gate holds the tensors whose names start with ``gate`` (all by
+    default); the others' worst is logged. With ``loss_rtol``, the losses
+    within it, relative."""
+    model = trainer.model
     batch = dataset.collator([dataset[0]])
     names = list(trainer.trainable)
     seeds = trainer.draw_quant_seeds()
@@ -1857,43 +1928,48 @@ def check_train_grads_against_cpu(trainer, dataset, label: str, key_bias_limit: 
         return float(out["loss"].detach()), [x.float().cpu() for x in g], tuple(b["input_ids"].shape)
 
     loss_gpu, g_gpu, shape = grads("cuda")
-    model.to("cpu")
-    t0 = time.perf_counter()
-    loss_cpu, g_cpu, _ = grads("cpu")
-    cpu_s = time.perf_counter() - t0
-    grads = dict(zip(names, zip(g_gpu, g_cpu)))
-    # a key projection's bias shifts every score of a query by one constant,
-    # which the softmax cancels: its gradient is 0 in exact arithmetic, so
-    # both sides are round-off, held against the query bias's gradient
-    key_bias = {n: (a.norm().item(), c.norm().item(), grads[n.replace("k_proj", "q_proj")][1].norm().item())
-                for n, (a, c) in grads.items() if n.endswith("k_proj.bias")}
-    key_bias = {n: (a / q, c / q) for n, (a, c, q) in key_bias.items()}
-    cos = {n: torch.nn.functional.cosine_similarity(a.flatten(), c.flatten(), dim=0).item()
-           for n, (a, c) in grads.items() if c.abs().max() > 0 and n not in key_bias}
-    worst = min(cos, key=cos.get)
-    log(f"[{label}] gradient check, one utterance {shape}, {model.cfg.llm.n_layers} layers, card vs CPU plain "
-        f"path ({cpu_s:.1f} s on CPU): loss {loss_gpu:.5f} vs {loss_cpu:.5f}; {len(cos)} of "
-        f"{len(names) - len(key_bias)} tensors with a gradient, min cosine {cos[worst]:.5f} ({worst}), mean "
-        f"{np.mean(list(cos.values())):.5f}" + (f"; {len(key_bias)} key-projection biases (gradient 0 in exact "
-                                               f"arithmetic): largest |g| / |g of the query bias| "
-                                               f"{max(a for a, _ in key_bias.values()):.2e} card, "
-                                               f"{max(c for _, c in key_bias.values()):.2e} CPU (limit "
-                                               f"{key_bias_limit:g})" if key_bias else ""))
-    if gate:
-        outside = {n: c for n, c in cos.items() if not n.startswith(gate)}
-        cos = {n: c for n, c in cos.items() if n.startswith(gate)}
-        key_bias = {n: ac for n, ac in key_bias.items() if n.startswith(gate)}
-        names = [n for n in names if n.startswith(gate)]
+
+    def cpu_side():
+        t0 = time.perf_counter()
+        loss_cpu, g_cpu, _ = grads("cpu")
+        cpu_s = time.perf_counter() - t0
+        pairs = dict(zip(names, zip(g_gpu, g_cpu)))
+        # a key projection's bias shifts every score of a query by one constant,
+        # which the softmax cancels: its gradient is 0 in exact arithmetic, so
+        # both sides are round-off, held against the query bias's gradient
+        key_bias = {n: (a.norm().item(), c.norm().item(), pairs[n.replace("k_proj", "q_proj")][1].norm().item())
+                    for n, (a, c) in pairs.items() if n.endswith("k_proj.bias")}
+        key_bias = {n: (a / q, c / q) for n, (a, c, q) in key_bias.items()}
+        cos = {n: torch.nn.functional.cosine_similarity(a.flatten(), c.flatten(), dim=0).item()
+               for n, (a, c) in pairs.items() if c.abs().max() > 0 and n not in key_bias}
         worst = min(cos, key=cos.get)
-        log(f"[{label}] the gate holds the {len(names)} {gate}* tensors: min cosine {cos[worst]:.5f} ({worst}), "
-            f"largest key-bias ratio {max((max(ac) for ac in key_bias.values()), default=0.0):.2e}; outside it the "
-            f"worst is {min(outside.values()):.5f} ({min(outside, key=outside.get)})")
-    worst_key_bias = max((max(ac) for ac in key_bias.values()), default=0.0)
-    if len(cos) + len(key_bias) != len(names) or cos[worst] < 0.99 or worst_key_bias > key_bias_limit:
-        raise AssertionError(f"gradient check: min cosine {cos[worst]} (< 0.99), zero gradients "
-                             f"({len(names) - len(cos) - len(key_bias)}) or a key bias's gradient above round-off "
-                             f"({worst_key_bias})")
-    return loss_gpu, loss_cpu
+        log(f"[{label}] gradient check, one utterance {shape}, {model.cfg.llm.n_layers} layers, card vs CPU plain "
+            f"path ({cpu_s:.1f} s on CPU): loss {loss_gpu:.5f} vs {loss_cpu:.5f}; {len(cos)} of "
+            f"{len(names) - len(key_bias)} tensors with a gradient, min cosine {cos[worst]:.5f} ({worst}), mean "
+            f"{np.mean(list(cos.values())):.5f}" + (f"; {len(key_bias)} key-projection biases (gradient 0 in exact "
+                                                   f"arithmetic): largest |g| / |g of the query bias| "
+                                                   f"{max(a for a, _ in key_bias.values()):.2e} card, "
+                                                   f"{max(c for _, c in key_bias.values()):.2e} CPU (limit "
+                                                   f"{key_bias_limit:g})" if key_bias else ""))
+        held = names
+        if gate:
+            outside = {n: c for n, c in cos.items() if not n.startswith(gate)}
+            cos = {n: c for n, c in cos.items() if n.startswith(gate)}
+            key_bias = {n: ac for n, ac in key_bias.items() if n.startswith(gate)}
+            held = [n for n in names if n.startswith(gate)]
+            worst = min(cos, key=cos.get)
+            log(f"[{label}] the gate holds the {len(held)} {gate}* tensors: min cosine {cos[worst]:.5f} ({worst}), "
+                f"largest key-bias ratio {max((max(ac) for ac in key_bias.values()), default=0.0):.2e}; outside it the "
+                f"worst is {min(outside.values()):.5f} ({min(outside, key=outside.get)})")
+        worst_key_bias = max((max(ac) for ac in key_bias.values()), default=0.0)
+        if len(cos) + len(key_bias) != len(held) or cos[worst] < 0.99 or worst_key_bias > key_bias_limit:
+            raise AssertionError(f"gradient check: min cosine {cos[worst]} (< 0.99), zero gradients "
+                                 f"({len(held) - len(cos) - len(key_bias)}) or a key bias's gradient above round-off "
+                                 f"({worst_key_bias})")
+        if loss_rtol is not None and not abs(loss_gpu - loss_cpu) <= loss_rtol * abs(loss_cpu):
+            raise AssertionError(f"{label}: loss {loss_gpu} on the card, {loss_cpu} on the CPU")
+
+    return cpu_side
 
 
 # ---------------------------------------------------------------------------
@@ -2219,37 +2295,65 @@ def st_bleu(out) -> dict:
 
 
 def check_reduced_against_cpu(trainer, cfg, prefill_batch, train_ds, label: str, layers: int = 2,
-                              key_bias_limit: float = 5e-2, gate: str = "") -> tuple:
+                              key_bias_limit: float = 5e-2, gate: str = "", loss_rtol: float = None,
+                              twins: bool = False) -> None:
     """The recipe's trained model cut to ``layers`` LLM and encoder layers
     at its full widths (a 7B f32 model on the host is neither quick nor
     small; a model without an encoder keeps none): the bf16 prefill logits
-    of ``prefill_batch``'s first utterance and every trainable gradient of
-    one utterance of ``train_ds``, card vs CPU plain path (the gradient gate
-    on the tensors named ``gate``*, all by default). Returns the utterance's
-    loss on the card and on the CPU."""
+    of ``prefill_batch``'s first utterance and, with the adapters redrawn,
+    every trainable gradient of one utterance of ``train_ds``, card vs CPU
+    plain path (the gradient gate on the tensors named ``gate``*, all by
+    default; with ``loss_rtol``, the utterance's loss on both within it).
+    The CPU side is queued, under ``cpu_attention_on_twins`` with
+    ``twins``."""
+    small, small_trainer = cut_model(trainer.model, cfg, layers, label)
+    prefill_cpu = compare_prefill(small.eval(), prefill_batch, label)
+    adapters = [n for n, _ in small.named_parameters() if n.endswith(("lora_b", "adaption_gate"))]
+    params = dict(small.named_parameters())
+    trained = {n: params[n].detach().cpu().clone() for n in adapters}
+    redraw_adapters(small)
+    redrawn = {n: params[n].detach().cpu().clone() for n in adapters}
+    grads_cpu = train_grads_card(small_trainer, train_ds, label, key_bias_limit, gate, loss_rtol)
+    small.to("cpu")
+
+    def cpu_side():
+        with cpu_attention_on_twins() if twins else contextlib.nullcontext():
+            with torch.no_grad():
+                for n, t in trained.items():
+                    params[n].copy_(t)
+            prefill_cpu()
+            with torch.no_grad():
+                for n, t in redrawn.items():
+                    params[n].copy_(t)
+            grads_cpu()
+
+    on_cpu(label, cpu_side)
+
+
+def cut_model(model, cfg, layers: int, label: str) -> tuple:
+    """``model`` cut to its first ``layers`` LLM and encoder layers at its
+    full widths, its tensors copied (a model without an encoder keeps
+    none), on the card; returns it and a Trainer over it."""
     import dataclasses
 
     from slam_llm_tpu_torch.models.slam_model import SLAMModel
     from slam_llm_tpu_torch.train.state import Trainer
 
-    big = trainer.model.cfg
+    big = model.cfg
     small_cfg = dataclasses.replace(big, llm=dataclasses.replace(big.llm, n_layers=layers),
                                     encoder=big.encoder and dataclasses.replace(big.encoder, n_layers=layers))
     small = SLAMModel(small_cfg, device="cuda")
-    trained = trainer.model.state_dict()
+    trained = model.state_dict()
     with torch.no_grad():
         for n, p in small.state_dict(keep_vars=True).items():
             if n not in trained or trained[n].shape != p.shape:
                 raise AssertionError(f"{label}: the cut model's {n} {tuple(p.shape)} is not the recipe's "
                                      f"{tuple(trained[n].shape) if n in trained else 'missing'}")
             p.copy_(trained[n])
-    small_trainer = Trainer(small, small_cfg, cfg.train_config).state_from_params()
     encoder = f"{layers} of {big.encoder.n_layers} encoder layers" if big.encoder else "no encoder"
     log(f"[{label}] card vs CPU at {layers} of {big.llm.n_layers} LLM layers and {encoder} (full widths, the "
-        f"recipe's trained model cut to those layers)")
-    compare_prefill(small.eval(), prefill_batch, label)
-    small.to("cuda")
-    return check_train_grads_against_cpu(small_trainer, train_ds, label, key_bias_limit, gate)
+        f"recipe's model cut to those layers)")
+    return small, Trainer(small, small_cfg, cfg.train_config).state_from_params()
 
 
 def run_st() -> dict:
@@ -2418,31 +2522,36 @@ def check_encoder_against_cpu(label: str, enc, inputs: tuple, expect_k1: bool, m
     path on the same weights: the last hidden state's cosine >= ``min_cos``
     at every valid frame, the masks equal; ``kernel`` (K1, or K1's f32
     route) once per layer where the attention takes a key mask (no rel-pos
-    bias), never with the bias. Returns the launch counts of the card run."""
+    bias), never with the bias. Returns the launch counts of the card run;
+    the CPU side is queued."""
     import dataclasses
 
     with torch.no_grad():
         (out, out_mask), launches = run_counted(lambda: enc(*(None if x is None else x.cuda() for x in inputs)))
         cpu = type(enc)(dataclasses.replace(enc.cfg, dtype=torch.float32)).eval()
         cpu.load_state_dict({k: v.float().cpu() for k, v in enc.state_dict().items()})
-        t0 = time.perf_counter()
-        ref, ref_mask = cpu(*inputs)
-        cpu_s = time.perf_counter() - t0
-    live = ref_mask.bool()
-    cos = torch.nn.functional.cosine_similarity(out.float().cpu()[live], ref[live], dim=-1)
+    out, out_mask = out.float().cpu(), out_mask.cpu()
     k1 = launches[kernel]
-    log(f"{label} ({enc.cfg.n_layers} layers, d {enc.cfg.d_model}, {enc.cfg.n_heads} heads, rel-pos bias "
-        f"{not expect_k1}) on inputs of {[None if x is None else tuple(x.shape) for x in inputs]}, frames "
-        f"{live.sum(1).tolist()} of "
-        f"{live.shape[1]}: card "
-        f"{enc.cfg.dtype} vs CPU f32 plain path ({cpu_s:.1f} s on CPU): min cosine {cos.min().item():.6f} mean "
-        f"{cos.mean().item():.6f}; {kernel} launches {k1}")
-    if not (torch.equal(out_mask.cpu(), ref_mask) and bool(torch.isfinite(out).all()) and cos.min().item() >= min_cos):
-        raise AssertionError(f"{label}: masks equal {torch.equal(out_mask.cpu(), ref_mask)}, cosine {cos.min().item()} "
-                             f"(limit {min_cos})")
     if k1 != (enc.cfg.n_layers if expect_k1 else 0):
         raise AssertionError(f"{label}: {k1} {kernel} launches for {enc.cfg.n_layers} layers (expected: {expect_k1})")
-    del cpu
+    cfg = enc.cfg
+
+    def cpu_side():
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ref, ref_mask = cpu(*inputs)
+        cpu_s = time.perf_counter() - t0
+        live = ref_mask.bool()
+        cos = torch.nn.functional.cosine_similarity(out[live], ref[live], dim=-1)
+        log(f"{label} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, rel-pos bias "
+            f"{not expect_k1}) on inputs of {[None if x is None else tuple(x.shape) for x in inputs]}, frames "
+            f"{live.sum(1).tolist()} of {live.shape[1]}: card {cfg.dtype} vs CPU f32 plain path ({cpu_s:.1f} s on "
+            f"CPU): min cosine {cos.min().item():.6f} mean {cos.mean().item():.6f}; {kernel} launches {k1}")
+        if not (torch.equal(out_mask, ref_mask) and bool(torch.isfinite(out).all()) and cos.min().item() >= min_cos):
+            raise AssertionError(f"{label}: masks equal {torch.equal(out_mask, ref_mask)}, cosine "
+                                 f"{cos.min().item()} (limit {min_cos})")
+
+    on_cpu(label, cpu_side)
     return launches
 
 
@@ -3359,11 +3468,8 @@ def _recipe_phase(label: str, recipe: Path, tmp: Path, tokenizer, train_args: tu
     # is most of a query / key gradient: the CPU side rounds as K4 does. With
     # the encoder trained they attend more uniformly still (ROADMAP Queue 3):
     # the gate then holds the encoder's gradients and logs the Q-Former's
-    with cpu_attention_on_twins():
-        loss_gpu, loss_cpu = check_reduced_against_cpu(trainer, cfg, batches[0], train_ds, label, MS_LAYERS,
-                                                       MS_KEY_BIAS_LIMIT, gate="encoder." if enc_trains else "")
-    if not abs(loss_gpu - loss_cpu) <= 1e-2 * abs(loss_cpu):
-        raise AssertionError(f"{label}: loss {loss_gpu} on the card, {loss_cpu} on the CPU")
+    check_reduced_against_cpu(trainer, cfg, batches[0], train_ds, label, MS_LAYERS, MS_KEY_BIAS_LIMIT,
+                              gate="encoder." if enc_trains else "", loss_rtol=1e-2, twins=True)
     log(f"[{label}] the recipe in {time.perf_counter() - t_phase:.1f} s")
     return trainer, {k: launches[k] + dec_launches[k] for k in launches}, test_ds
 
@@ -3889,9 +3995,7 @@ def run_aispeech(tmp: Path) -> tuple:
         raise AssertionError(f"large_scale decode: batch {arrays['input_ids'].shape} (phase 3: {LS_EVAL_SHAPES}), "
                              f"launches {dec_launches}")
     items = BatcherItems(batcher, 1)
-    loss_gpu, loss_cpu = check_reduced_against_cpu(trainer, cfg, eval_batch, items, "large_scale", LS_LAYERS)
-    if not abs(loss_gpu - loss_cpu) <= 1e-2 * abs(loss_cpu):
-        raise AssertionError(f"large_scale: loss {loss_gpu} on the card, {loss_cpu} on the CPU")
+    check_reduced_against_cpu(trainer, cfg, eval_batch, items, "large_scale", LS_LAYERS, loss_rtol=1e-2)
     del trainer, model, gen, batches
     torch.cuda.empty_cache()
     return {k: launches[k] + dec_launches[k] for k in launches}, train
@@ -3945,10 +4049,7 @@ def run_wavlm_large_scale(label: str, recipe: Path, corpus: Path, tmp: Path) -> 
             LS_LAYERS, LS_LAYERS) or dec_launches["flash_attention_fwd"] == 0 or (
             tuple(batch["input_ids"].shape), arrays["input_ids"].shape) != (CTX_TRAIN_SHAPE, CTX_EVAL_SHAPE):
         raise AssertionError(f"{label}: loss {m['loss']}, launches {launches} / {dec_launches}")
-    loss_gpu, loss_cpu = check_reduced_against_cpu(trainer, cfg, eval_batch, BatcherItems(batcher, 1), label,
-                                                   LS_LAYERS)
-    if not abs(loss_gpu - loss_cpu) <= 1e-2 * abs(loss_cpu):
-        raise AssertionError(f"{label}: loss {loss_gpu} on the card, {loss_cpu} on the CPU")
+    check_reduced_against_cpu(trainer, cfg, eval_batch, BatcherItems(batcher, 1), label, LS_LAYERS, loss_rtol=1e-2)
     del trainer, model, gen
     torch.cuda.empty_cache()
     return {k: launches[k] + dec_launches[k] for k in launches}
@@ -3981,10 +4082,11 @@ S2S_PREFILL_T = 362  # a batch utterance: the byte tokenizer's 57-token system p
 S2S_BATCH = 8  # the recipe's batch_size_training
 S2S_TRAIN_T = (512, 768, 1024, 1536)  # the recipe's text buckets (phase 3's K1 / K4 rows)
 S2S_TRAIN_FRAMES = ((100, 140), (420, 640), (700, 1150))  # answers' codec frames: the 512, 1024 and 1536 buckets
-S2S_UTTS = 4  # the serving corpus's questions, 2-12 s
+S2S_UTTS = 2  # the serving corpus's questions, of 2 and 12 s
+S2S_DECODE_TOKENS = 48  # new tokens of the batch decode (the recipe's 360, cut: ~60-90 ms a step at 28 layers)
 S2S_LAYERS = 2  # LLM depth of the training run and the card-vs-CPU checks (full widths)
 S2S_CPU_TOKENS = 32  # greedy steps compared card vs CPU
-S2S_ROUND_TOKENS = 64  # new tokens of the online rounds
+S2S_ROUND_TOKENS = 16  # new tokens of the online rounds
 S2S_STREAM_TOKENS = 96  # new tokens of the streaming round (4 chunks of the recipe's stride 24)
 S2S_ADAPTER_LAYERS = 2  # the TTS adapter's blocks in its training step (6 by default)
 S2S_BYPASSED = (*AAC_BYPASSED, "flash_attention_fwd_f32", "flash_attention_bwd_f32")
@@ -4031,14 +4133,16 @@ def _s2s_config(loader, *extra):
 
 
 @contextlib.contextmanager
-def qwen2_layers(n: int):
-    """``LLMConfig.qwen2_7b`` cut to ``n`` layers at its full widths, in-process."""
+def qwen2_layers(n: int, dtype=None):
+    """``LLMConfig.qwen2_7b`` cut to ``n`` layers at its full widths (in
+    ``dtype`` where given), in-process."""
     import dataclasses
 
     from slam_llm_tpu_torch.models.llm import LLMConfig
 
     full = LLMConfig.qwen2_7b
-    LLMConfig.qwen2_7b = staticmethod(lambda: dataclasses.replace(full(), n_layers=n))
+    LLMConfig.qwen2_7b = staticmethod(lambda: dataclasses.replace(
+        full(), n_layers=n, **({} if dtype is None else {"dtype": dtype})))
     try:
         yield
     finally:
@@ -4096,6 +4200,7 @@ def run_s2s_serving(tmp: Path) -> tuple:
         f"parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     if shapes != (3, 164480, 164480, 156160, 28, 12, True):
         raise AssertionError(f"s2s model {shapes}")
+    session.gen.max_new_tokens = S2S_DECODE_TOKENS
     res, launches = run_counted(lambda: generate_s2s.run_batch(session, cfg))
     peak = torch.cuda.max_memory_allocated()
     for u in res["utterances"]:
@@ -4167,16 +4272,20 @@ def s2s_tokens_against_cpu(session, cfg) -> None:
         return gen.generate(batch)
 
     card, launches = run_counted(lambda: greedy(small))
-    t0 = time.perf_counter()
-    cpu = greedy(small.to("cpu"))
-    cpu_s = time.perf_counter() - t0
-    same = (card == cpu).all(axis=(0, 1))
-    log(f"[s2s] card vs CPU at {S2S_LAYERS} of 28 layers, f32: the first {S2S_CPU_TOKENS} greedy text + "
-        f"{big.vocab.code_layer} audio tokens equal at every step {bool(same.all())} ({cpu_s:.1f} s on the CPU); "
-        f"K1 f32 launches {launches['flash_attention_fwd_f32']}; text {card[0, -1, :12].tolist()}")
-    if not same.all():
-        raise AssertionError(f"s2s greedy tokens differ from step {int(np.argmin(same))}: {card[0]} vs {cpu[0]}")
-    del small
+    small.to("cpu")
+
+    def cpu_side():
+        t0 = time.perf_counter()
+        cpu = greedy(small)
+        cpu_s = time.perf_counter() - t0
+        same = (card == cpu).all(axis=(0, 1))
+        log(f"[s2s] card vs CPU at {S2S_LAYERS} of 28 layers, f32: the first {S2S_CPU_TOKENS} greedy text + "
+            f"{big.vocab.code_layer} audio tokens equal at every step {bool(same.all())} ({cpu_s:.1f} s on the CPU); "
+            f"K1 f32 launches {launches['flash_attention_fwd_f32']}; text {card[0, -1, :12].tolist()}")
+        if not same.all():
+            raise AssertionError(f"s2s greedy tokens differ from step {int(np.argmin(same))}: {card[0]} vs {cpu[0]}")
+
+    on_cpu("s2s greedy tokens", cpu_side)
 
 
 def s2s_codecs_against_cpu(session, tmp: Path) -> None:
@@ -4202,22 +4311,26 @@ def s2s_codecs_against_cpu(session, tmp: Path) -> None:
         spec = torch.stft(torch.from_numpy(w), 1024, 256, window=torch.hann_window(1024), return_complex=True)
         return 20 * torch.log10(spec.abs().mean(-1) + 1e-5)
 
+    def cosyvoice_side(frames, streams, z, a, card_ms):
+        def cpu_side():
+            t0 = time.perf_counter()
+            b = cpu.decode(streams, z=z, hift_noise=False)
+            err = float(np.abs(a - b).max())
+            env = float((envelope(a) - envelope(b)).abs().max())
+            log(f"[s2s] CosyVoice flow + HiFT, {3 * frames} codes -> {len(a)} samples: card {card_ms:.1f} ms, CPU "
+                f"{1000 * (time.perf_counter() - t0):.1f} ms; max |card - CPU| {err:.3e} (rms "
+                f"{float(np.sqrt(np.mean(a**2))):.4f}), spectral envelope max diff {env:.4f} dB | {SMI}")
+            if len(a) != _cosyvoice_samples(frames) or (err > 1e-3 if frames == 15 else env > 0.1):
+                raise AssertionError(f"CosyVoice card vs CPU at {3 * frames} codes: {err} / {env} dB")
+        return cpu_side
+
     for frames in (15, 50):
         streams = rng.integers(0, 4096, (3, frames))
         mel = int(3 * frames / 50 * 22050 / 256)
         z = torch.randn((1, 80, mel), generator=gen)
         t0 = time.perf_counter()
         a = card.decode(streams, z=z.cuda(), hift_noise=False)
-        card_ms = 1000 * (time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        b = cpu.decode(streams, z=z, hift_noise=False)
-        err = float(np.abs(a - b).max())
-        env = float((envelope(a) - envelope(b)).abs().max())
-        log(f"[s2s] CosyVoice flow + HiFT, {3 * frames} codes -> {len(a)} samples: card {card_ms:.1f} ms, CPU "
-            f"{1000 * (time.perf_counter() - t0):.1f} ms; max |card - CPU| {err:.3e} (rms {float(np.sqrt(np.mean(a**2))):.4f}), "
-            f"spectral envelope max diff {env:.4f} dB | {SMI}")
-        if len(a) != _cosyvoice_samples(frames) or (err > 1e-3 if frames == 15 else env > 0.1):
-            raise AssertionError(f"CosyVoice card vs CPU at {3 * frames} codes: {err} / {env} dB")
+        on_cpu(f"CosyVoice at {3 * frames} codes", cosyvoice_side(frames, streams, z, a, 1000 * (time.perf_counter() - t0)))
 
     path = str(tmp / "snac.pt")
     write_snac(path, seed=3, device="cuda")
@@ -4347,18 +4460,22 @@ def run_s2s_training(tmp: Path) -> dict:
         model = trainer.model.eval()
         with torch.no_grad():
             loss_gpu = float(model(trainer.put_batch(one))["loss"])
-            del trainer, res
-            torch.cuda.empty_cache()
-            t0 = time.perf_counter()
-            cpu_model = model.to("cpu")
-            loss_cpu = float(cpu_model({k: torch.as_tensor(x) for k, x in one.items() if isinstance(x, np.ndarray)})
-                             ["loss"])
-        log(f"[s2s] loss of one {tuple(one['input_ids'].shape)} utterance at {S2S_LAYERS} layers: card {loss_gpu:.6f}, CPU "
-            f"{loss_cpu:.6f} ({time.perf_counter() - t0:.1f} s on the CPU), relative {abs(loss_gpu - loss_cpu) / loss_cpu:.2e}")
-        if not abs(loss_gpu - loss_cpu) <= 1e-2 * abs(loss_cpu):
-            raise AssertionError(f"s2s loss: card {loss_gpu}, CPU {loss_cpu}")
-        del model, cpu_model
+        del trainer, res
+        model.to("cpu")
         torch.cuda.empty_cache()
+
+        def cpu_side():
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                loss_cpu = float(model({k: torch.as_tensor(x) for k, x in one.items() if isinstance(x, np.ndarray)})
+                                 ["loss"])
+            log(f"[s2s] loss of one {tuple(one['input_ids'].shape)} utterance at {S2S_LAYERS} layers: card "
+                f"{loss_gpu:.6f}, CPU {loss_cpu:.6f} ({time.perf_counter() - t0:.1f} s on the CPU), relative "
+                f"{abs(loss_gpu - loss_cpu) / loss_cpu:.2e}")
+            if not abs(loss_gpu - loss_cpu) <= 1e-2 * abs(loss_cpu):
+                raise AssertionError(f"s2s loss: card {loss_gpu}, CPU {loss_cpu}")
+
+        on_cpu("s2s loss", cpu_side)
 
         tts, before, tts_launches = s2s_trick_step(cfg, "TTS adapter", range(S2S_BATCH), **{
             "model_config.tts_adapter": True, "model_config.tts_adapter_layers": S2S_ADAPTER_LAYERS})
@@ -4427,10 +4544,10 @@ VX_TA = (512, 1024)  # the audio buckets trained
 VX_FRAMES = {512: (300, 512), 1024: (600, 1024)}  # the corpus's codec frames in each bucket (a full row included)
 VX_STEPS = {512: 5, 1024: 3}  # training steps in each bucket (step time: the mean from the third on)
 VX_PROMPT_FRAMES = 225  # the enrolled prompt: 3 s at 75 frames a second
-VX_MAX_NEW = 300  # 4 s of new frames at most
+VX_MAX_NEW = 75  # 1 s of new frames at most
 VX_PROMPT_TEXT = "the quick brown fox jumps over "  # 31 characters: the ord fallback's ids
 VX_TARGET_TEXT = "a lazy dog rests in the warm sun."  # 33: 64 ids in all
-VX_DECODE_T = len(VX_PROMPT_TEXT) + len(VX_TARGET_TEXT) + VX_PROMPT_FRAMES + VX_MAX_NEW  # the AR step's T: 589
+VX_DECODE_T = len(VX_PROMPT_TEXT) + len(VX_TARGET_TEXT) + VX_PROMPT_FRAMES + VX_MAX_NEW  # the AR step's T: 364
 VX_LAYERS = 2  # AR and NAR depth of the card-vs-CPU checks (base_24l's widths)
 VX_CPU_NEW = 12  # greedy AR steps compared card vs CPU
 VX_CPU_PROMPT = 40  # their prompt's frames
@@ -4439,7 +4556,7 @@ ENCODEC_FRAMES = 150  # 2 s of codes decoded card vs CPU
 # the f32 decode's gate, which the same decode with cuDNN's TF32 on must exceed: TF32 reads 7.9e-4
 # here (the f32 decode 1.2e-6; NVIDIA H100 80GB HBM3), under the 1e-3 that SNAC's gate uses
 ENCODEC_REL_L2 = 1e-5
-VX_SYNTH_SEEDS = (0, 1, 2)  # one synthesis a seed; the first also warms the card up
+VX_SYNTH_SEEDS = (0, 1)  # one synthesis a seed; the first also warms the card up
 
 
 def _vx_config(tmp: Path, bucket: int, steps: int, *extra):
@@ -4858,13 +4975,36 @@ def _plain_param_check():
     return bad, seen
 
 
+def _step_peaks() -> dict:
+    """``{"steps": [...], "between": [...]}``: each ``Trainer.train_step``
+    of this process appends its peak device memory (GiB) to ``steps``, the
+    peak counter reset before the step, and the peak since the last reset
+    (the build, validation) to ``between``."""
+    from slam_llm_tpu_torch.train.state import Trainer
+
+    peaks, original = {"steps": [], "between": []}, Trainer.train_step
+
+    def train_step(self, batch):
+        peaks["between"].append(torch.cuda.max_memory_allocated() / 2**30)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            return original(self, batch)
+        finally:
+            torch.cuda.synchronize()
+            peaks["steps"].append(torch.cuda.max_memory_allocated() / 2**30)
+
+    Trainer.train_step = train_step
+    return peaks
+
+
 def distributed_job(path: str) -> None:
     """One torchrun rank of phase 19: the jobs of ``path`` in turn, each
     through the entry points with the launch counts set to 0 just before
     and read just after; rank 0 writes the results."""
     import torch.distributed as dist
 
-    from slam_llm_tpu_torch.pipeline import finetune, inference_batch
+    from slam_llm_tpu_torch.parallel import tensor_parallel
+    from slam_llm_tpu_torch.pipeline import finetune, generate_s2s, inference_batch
     from slam_llm_tpu_torch.pipeline.common import maybe_init_distributed
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4880,16 +5020,22 @@ def distributed_job(path: str) -> None:
         raise RuntimeError("phase 19's job runs under torchrun")
     rank, world = dist.get_rank(), dist.get_world_size()
     bad, seen = _plain_param_check()
+    step_peaks = _step_peaks()
     out = {"world": world, "backend": dist.get_backend(), "launches": {}, "device": torch.cuda.current_device()}
 
     def train(key: str, cfg):
         torch.cuda.reset_peak_memory_stats()
+        tensor_parallel.reset_largest_gather()
+        for v in step_peaks.values():
+            v.clear()
         t0 = time.perf_counter()
         res, launches = run_counted(lambda: finetune.main(cfg, device=device))
+        peak = max([torch.cuda.max_memory_allocated() / 2**30, *step_peaks["steps"], *step_peaks["between"]])
         out[key] = {"steps": [{k: v for k, v in s.items()} for s in res["steps"]],
                     "checkpoints": res["checkpoints"], "final_val": res.get("final_val"),
-                    "base_bytes": res["base_bytes"], "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                    "wall_s": time.perf_counter() - t0, "launches": launches}
+                    "base_bytes": res["base_bytes"], "peak_gib": peak, "wall_s": time.perf_counter() - t0,
+                    "launches": launches, "step_peak_gib": list(step_peaks["steps"]),
+                    "largest_gather": tensor_parallel.LARGEST_GATHER["shape"]}
         return launches
 
     for name in job["run"]:
@@ -4906,6 +5052,12 @@ def distributed_job(path: str) -> None:
             cfg = _s2s_config(finetune.load_run_config, *job["s2s_args"])
             with qwen2_layers(job.get("s2s_layers", S2S_LAYERS)):
                 launches = train("s2s", cfg)
+        elif name == "s2s_decode":  # phase 20 (b): generate_s2s's batch mode, its LLM in f32
+            cfg = _s2s_config(generate_s2s.load_run_config, *job["s2s_decode_args"])
+            with qwen2_layers(S2S_LAYERS, torch.float32):
+                res, launches = run_counted(lambda: generate_s2s.main(cfg, device=device))
+            out["s2s_decode"] = {"pred": res["pred"], "n": res["n"], "seconds": res["seconds"],
+                                 "steps": sum(u["decode_steps"] for u in res["utterances"])}
         else:
             cfg = inference_batch.load_run_config(job["decode_args"])
             res, launches = run_counted(lambda: inference_batch.main(cfg, device=device))
@@ -5018,6 +5170,7 @@ def run_distributed() -> dict:
 
     # (b) S2S at 2 layers against phase 16
     _same_run(f"(b) s2s_qwen at {S2S_LAYERS} layers, whole LLM trained, vs phase 16", got["s2s"], s2s, DIST_RTOL)
+    PHASE["s2s_dist"] = got["s2s"]  # phase 20 (b) holds its tp=2 steps against these
     s2s_ms = [round(1000 * s["seconds"], 1) for s in got["s2s"]["steps"]]
     log(f"[distributed] (b) step ms {s2s_ms} vs phase 16's {[round(1000 * s['seconds'], 1) for s in s2s['steps']]}, "
         f"peak {got['s2s']['peak_gib']:.2f} GiB | {SMI}")
@@ -5058,9 +5211,13 @@ TP_PATH = ("flash_attention_fwd", "flash_attention_bwd", "rowquant", "rowquant_r
            "rowquant_scaled", "int8_matmul", "int8_matmul_s32", "int8_epilogue")
 TP_LOSS_RTOL, TP_NORM_RTOL = 2.0 ** -8, 1e-2  # a tp run against one card's: one bf16 rounding; the grad norm
 TP_LAUNCH_TIMEOUT_S = 480  # phase 20's torchrun (b): two ranks through gloo on one card
-# (b)'s cut: gloo stages every collective through the host (~14 s a step of 16, ~0.3 s a beam step), so it
-# runs phase 5's first 3 steps (the first two at the seed's weights) and phase 4's first batch of 8
-TP_GLOO_STEPS, TP_GLOO_UTTS = 3, 8
+# (b)'s cut: gloo stages every collective through the host (~13 s a step of 16, ~0.25 s a beam step), so it
+# runs phase 5's first step and phase 4's first batch of 8
+TP_GLOO_STEPS, TP_GLOO_UTTS = 1, 8
+# (b)'s S2S cut: phase 19 (b)'s first 2 steps (its corpus; the 1536 and 1024 buckets come first), and
+# generate_s2s on 2 questions of 32 new tokens with the LLM in f32: a greedy token flips only where the
+# two runs' logits round apart, which bf16's rounding of the logits (2^-5 at their largest) would make likely
+TP_S2S_STEPS, TP_S2S_QUESTIONS, TP_S2S_NEW = 2, 2, 32
 
 
 def gloo_probe() -> dict:
@@ -5094,9 +5251,10 @@ def run_tensor_parallel() -> dict:
     over ``shard.tp``). The per-rank kernel rows ran in phase 3. (b) Whether
     gloo runs the tp collectives on CUDA tensors; if it does, two torchrun
     ranks on this one card (gloo): the ASR recipe through
-    ``pipeline.finetune`` at ``shard.tp=2``, 8 steps of 16 against phase 5
-    (losses and grad norms within ``TP_LOSS_RTOL`` / ``TP_NORM_RTOL``), and
-    ``pipeline.inference_batch`` at tp=2 line for line against phase 4.
+    ``pipeline.finetune`` at ``shard.tp=2``, TP_GLOO_STEPS steps of 16
+    against phase 5's (losses and grad norms within ``TP_LOSS_RTOL`` /
+    ``TP_NORM_RTOL``), ``pipeline.inference_batch`` at tp=2 line for line
+    against phase 4, and S2S's steps and decode (``run_s2s_gloo``).
     (c) With two or more cards (NCCL), the ASR recipe at tp=2, and with
     four at tp=4 and fsdp=2 x tp=2 and ``s2s_qwen.yaml`` at Qwen2-7B's full
     28 layers at tp=4 and fsdp=2 x tp=2."""
@@ -5108,11 +5266,22 @@ def run_tensor_parallel() -> dict:
     manifest = next(a.split("=", 1)[1] for a in decode["args"] if a.startswith("++dataset_config.val_data_path="))
     first = tmp / "first.jsonl"
     first.write_text("".join(Path(manifest).read_text().splitlines(keepends=True)[:TP_GLOO_UTTS]))
-    job = {"backend": "gloo", "run": ["probe", "asr", "decode"],
+    frames = [int(lo + (hi - lo) * i / (S2S_BATCH - 1)) for lo, hi in S2S_TRAIN_FRAMES for i in range(S2S_BATCH)]
+    s2s_train = write_s2s_corpus(tmp, "train", frames, seed=1)  # phase 19 (b)'s corpus, written again
+    s2s_val = write_s2s_corpus(tmp, "val", [30] * 4, seed=2)
+    questions = write_s2s_corpus(tmp, "questions", [30] * TP_S2S_QUESTIONS, seed=3)
+    s2s_decode = ["++decode_config.mode=batch", f"++dataset_config.val_data_path={questions}",
+                  f"++decode_config.max_new_tokens={TP_S2S_NEW}"]
+    job = {"backend": "gloo", "run": ["probe", "asr", "decode", "s2s", "s2s_decode"],
            "asr_args": [*train["args"], f"++train_config.output_dir={tmp / 'asr'}", "++train_config.shard.tp=2",
                         f"++train_config.max_steps_per_epoch={TP_GLOO_STEPS}", "++train_config.run_validation=false"],
            "decode_args": [*decode["args"], f"++decode_config.decode_log={tmp / 'decode'}",
-                           f"++dataset_config.val_data_path={first}", "++train_config.shard.tp=2"]}
+                           f"++dataset_config.val_data_path={first}", "++train_config.shard.tp=2"],
+           "s2s_args": [*PHASE["s2s"]["args"](s2s_train, s2s_val), f"++train_config.output_dir={tmp / 's2s'}",
+                        "++train_config.save_model=false", "++train_config.run_validation=false",
+                        f"++train_config.max_steps_per_epoch={TP_S2S_STEPS}", "++train_config.shard.tp=2"],
+           "s2s_decode_args": [*s2s_decode, f"++decode_config.decode_log={tmp / 's2s_tp2'}",
+                               "++train_config.shard.tp=2"]}
     got = _torchrun(2, job, tmp, timeout=TP_LAUNCH_TIMEOUT_S)
     log(f"[tensor parallel] (b) gloo on CUDA tensors (torch {torch.__version__}): {got['probe']}")
     if "asr" in got:
@@ -5122,9 +5291,8 @@ def run_tensor_parallel() -> dict:
         exact = _same_run(f"(b) asr_whisper_tinyllama at tp=2 (gloo, two ranks on one card) vs phase 5's first "
                           f"{TP_GLOO_STEPS} steps", asr, {"steps": train["steps"][:TP_GLOO_STEPS]}, TP_LOSS_RTOL,
                           TP_NORM_RTOL)
-        step_ms = 1000 * float(np.mean([s["seconds"] for s in asr["steps"][1:]]))
-        log(f"[tensor parallel] (b) step ms {[round(1000 * s['seconds'], 1) for s in asr['steps']]}: {step_ms:.1f} "
-            f"ms a step (steps 2 on) against phase 5's {train['step_ms']:.1f} ms (both ranks on one card, their "
+        log(f"[tensor parallel] (b) step ms {[round(1000 * s['seconds'], 1) for s in asr['steps']]} against phase "
+            f"5's {train['step_ms']:.1f} ms (both ranks on one card, their "
             f"collectives through the host: a check of the path, not a speed); rank 0's peak {asr['peak_gib']:.2f} "
             f"GiB vs {train['peak_gib']:.2f}; int8 base {asr['base_bytes'] / 2**20:.1f} MiB a rank; bit-equal {exact} "
             f"| {SMI}")
@@ -5135,10 +5303,11 @@ def run_tensor_parallel() -> dict:
             f"utterances: {decode['seconds']:.2f} s)")
         if lines != want:
             raise AssertionError("(b): the tp=2 decode differs from phase 4's")
+        run_s2s_gloo(got, tmp / "s2s_one", s2s_decode)
         launches = got["launches"]
         missing = [k for k in TP_PATH if not launches.get(k)]
         log(f"[tensor parallel] (b) launches on rank 0 over the tp path: "
-            f"{ {k: launches.get(k, 0) for k in TP_PATH} }")
+            f"{ {k: launches.get(k, 0) for k in (*TP_PATH, 'flash_attention_fwd_f32')} }")
         if missing:
             raise AssertionError(f"kernels never launched on the tensor-parallel path: {missing}")
     else:
@@ -5154,6 +5323,46 @@ def run_tensor_parallel() -> dict:
     shutil.rmtree(tmp)
     log(f"[tensor parallel] phase 20 in {time.perf_counter() - t_phase:.1f} s")
     return {k: launches.get(k, 0) for k in kernel_counters()}
+
+
+def run_s2s_gloo(got: dict, log_prefix: Path, decode_args: list) -> None:
+    """Phase 20 (b)'s S2S runs (``s2s_qwen.yaml`` at S2S_LAYERS layers of
+    Qwen2-7B's widths, whole LLM trained, group decode, tp=2 on one card
+    over gloo): the training steps against phase 19 (b)'s first
+    TP_S2S_STEPS (losses within one bf16 rounding, grad norms within 1e-2),
+    the largest tensor a rank gathered (one CE chunk of the head's logits,
+    never (B, T, vocabulary)); then ``generate_s2s`` at tp=2, its ``_pred``
+    against the same run at world size 1 here (the LLM in f32)."""
+    from slam_llm_tpu_torch.models.llm import LLMConfig
+    from slam_llm_tpu_torch.pipeline import generate_s2s
+
+    s2s, want = got["s2s"], {"steps": PHASE["s2s_dist"]["steps"][:TP_S2S_STEPS]}
+    exact = _same_run(f"(b) s2s_qwen at {S2S_LAYERS} layers at tp=2 (gloo, two ranks on one card) vs phase 19 (b)'s "
+                      f"first {TP_S2S_STEPS} steps", s2s, want, TP_LOSS_RTOL, TP_NORM_RTOL)
+    gathered = tuple(s2s["largest_gather"] or ())
+    log(f"[tensor parallel] (b) s2s steps {[s['shape'] for s in s2s['steps']]}: ms "
+        f"{[round(1000 * s['seconds'], 1) for s in s2s['steps']]} vs phase 19 (b)'s "
+        f"{[round(1000 * s['seconds'], 1) for s in want['steps']]}, rank 0's peak a step "
+        f"{[round(g, 2) for g in s2s['step_peak_gib']]} GiB ({s2s['peak_gib']:.2f} with the build) vs phase 19 (b)'s "
+        f"{PHASE['s2s_dist']['peak_gib']:.2f}; the largest tensor a rank gathered {gathered}; bit-equal {exact} "
+        f"| {SMI}")
+    chunk = LLMConfig.qwen2_7b().ce_chunk  # a rank's CEs gather (B * chunk) rows of logits at a time
+    if not gathered or int(np.prod(gathered[:-1])) > S2S_BATCH * chunk:
+        raise AssertionError(f"(b) s2s at tp=2 gathered {gathered}: more than one CE chunk of logits")
+
+    cfg = _s2s_config(generate_s2s.load_run_config, *decode_args, f"++decode_config.decode_log={log_prefix}")
+    with qwen2_layers(S2S_LAYERS, torch.float32):
+        one, launches = run_counted(lambda: generate_s2s.main(cfg, device="cuda"))
+    tp2 = got["s2s_decode"]
+    same = Path(tp2["pred"]).read_text() == Path(one["pred"]).read_text()
+    log(f"[tensor parallel] (b) generate_s2s batch, {TP_S2S_QUESTIONS} questions, greedy, {TP_S2S_NEW} new tokens, "
+        f"the LLM in f32: tp=2 {tp2['n']} utterances, {tp2['steps']} decode steps in {tp2['seconds']:.2f} s; world "
+        f"size 1 {one['n']}, {sum(u['decode_steps'] for u in one['utterances'])} steps in {one['seconds']:.2f} s "
+        f"(launches K1 f32 {launches['flash_attention_fwd_f32']}, K1 {launches['flash_attention_fwd']}); _pred equal "
+        f"{same}")
+    if not same or tp2["n"] != TP_S2S_QUESTIONS or one["n"] != TP_S2S_QUESTIONS:
+        raise AssertionError("(b): generate_s2s at tp=2 differs from world size 1:\n"
+                             f"{Path(tp2['pred']).read_text()!r}\n{Path(one['pred']).read_text()!r}")
 
 
 def run_multi_card_tp(one: dict, tmp: Path) -> None:
@@ -5181,54 +5390,83 @@ def run_multi_card_tp(one: dict, tmp: Path) -> None:
     run_s2s_tp(tmp)
 
 
+S2S_TP_BUCKETS = (512, 1536)  # (c)'s buckets: 3 steps of 8 in each, in the loader's order
+
+
 def run_s2s_tp(tmp: Path) -> None:
     """``s2s_qwen.yaml`` at Qwen2-7B's full 28 layers, the whole LLM trained,
-    on four cards at tp=4 and fsdp=2 x tp=2: 3 steps of 8 in the recipe's
-    512 bucket, a rank's step ms and peak. The S2S loss reads the head's
-    whole logits (gathered: its heads are not split), (8, T, 156160) f32 and
-    their gradients on every rank, which at the 1536 bucket exceed a card
-    beside the 28 layers' state."""
-    lo, hi = S2S_TRAIN_FRAMES[0]  # the 512 bucket's answers
-    frames = [int(lo + (hi - lo) * i / (3 * S2S_BATCH - 1)) for i in range(3 * S2S_BATCH)]
+    on four cards at tp=4 and fsdp=2 x tp=2: 3 steps of 8 in each of the
+    recipe's 512 and 1536 buckets, a rank's step ms and rank 0's peak a
+    step, and the two meshes' losses against each other. No rank holds
+    whole logits: the loss reads column windows of its head and adapter
+    shards, one CE chunk at a time."""
+    spans = {512: S2S_TRAIN_FRAMES[0], 1536: S2S_TRAIN_FRAMES[2]}  # the answers' codec frames of each bucket
+    frames = [int(lo + (hi - lo) * i / (3 * S2S_BATCH - 1)) for b in S2S_TP_BUCKETS for lo, hi in [spans[b]]
+              for i in range(3 * S2S_BATCH)]
     s2s_train = write_s2s_corpus(tmp, "train", frames, seed=1)
     s2s_val = write_s2s_corpus(tmp, "val", [30] * 4, seed=2)
     args = s2s_train_args(s2s_train, s2s_val)
+    runs = {}
     for i, extra in enumerate((("++train_config.shard.tp=4",),
                                ("++train_config.shard.fsdp=2", "++train_config.shard.tp=2"))):
         got = _torchrun(4, {"run": ["s2s"], "s2s_layers": 28, "s2s_args": [
             *args, f"++train_config.output_dir={tmp / f's2s_{i}'}", "++train_config.save_model=false",
-            "++train_config.run_validation=false", *extra]}, tmp, timeout=TP_LAUNCH_TIMEOUT_S,
+            "++train_config.run_validation=false", f"++train_config.max_steps_per_epoch={3 * len(S2S_TP_BUCKETS)}",
+            *extra]}, tmp, timeout=TP_LAUNCH_TIMEOUT_S,
             env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})  # the whole model is built, then split
-        s2s = got["s2s"]
+        s2s = runs[i] = got["s2s"]
         label = " ".join(e.split(".")[-1] for e in extra)
-        log(f"[tensor parallel] (c) s2s_qwen at 28 layers, whole LLM trained, 4 cards {label}: step ms "
-            f"{[round(1000 * s['seconds'], 1) for s in s2s['steps']]} (buckets {[s['shape'] for s in s2s['steps']]}), "
-            f"losses {[round(s['loss'], 5) for s in s2s['steps']]}, rank 0's peak {s2s['peak_gib']:.2f} GiB | {SMI}")
+        for bucket in S2S_TP_BUCKETS:
+            mine = [(st, pk) for st, pk in zip(s2s["steps"], s2s["step_peak_gib"]) if st["shape"][2] == bucket]
+            log(f"[tensor parallel] (c) s2s_qwen at 28 layers, whole LLM trained, 4 cards {label}, the {bucket} "
+                f"bucket: step ms {[round(1000 * st['seconds'], 1) for st, _ in mine]}, losses "
+                f"{[round(st['loss'], 5) for st, _ in mine]}, rank 0's peak a step {[round(pk, 2) for _, pk in mine]} "
+                f"GiB | {SMI}")
+        log(f"[tensor parallel] (c) {label}: buckets in order {[st['shape'][2] for st in s2s['steps']]}, rank 0's "
+            f"peak {s2s['peak_gib']:.2f} GiB with the build; the largest tensor a rank gathered "
+            f"{s2s['largest_gather']}")
+        if sorted(st["shape"][2] for st in s2s["steps"]) != sorted(3 * list(S2S_TP_BUCKETS)):
+            raise AssertionError(f"(c) s2s {label}: steps {s2s['steps']}")
+    gaps = [_rel(a["loss"], b["loss"]) for a, b in zip(runs[0]["steps"], runs[1]["steps"])]
+    log(f"[tensor parallel] (c) tp=4 vs fsdp=2 x tp=2, the same batches: relative loss gaps "
+        f"{[f'{g:.2e}' for g in gaps]} (buckets {[st['shape'][2] for st in runs[0]['steps']]})")
+
+
+PHASE_SECONDS = {}
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its wall seconds kept under ``name`` in PHASE_SECONDS."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+    return out
 
 
 def main() -> int:
     global SMI
     t0 = time.perf_counter()
     SMI = setup()
-    build()
-    results = check_kernels()
-    decode = run_slice()
-    train = run_training()
-    modes = run_training_modes()
-    weights = run_weights()
-    st = run_st()
-    wavlm = run_wavlm()
-    aac, aac_files = run_aac()
-    clap = run_clap(aac_files)
-    music_spatial, seld_files = run_music_spatial()
-    seld_encoder = run_seld_encoder(seld_files)
-    vsr = run_vsr()
-    large_scale = run_large_scale()
-    s2s = run_s2s()
-    vallex = run_vallex()
-    peft = run_peft()
-    distributed = run_distributed()
-    tensor_parallel = run_tensor_parallel()
+    timed("build", build)
+    results = timed("kernels", check_kernels)
+    decode = timed("decode", run_slice)
+    train = timed("train", run_training)
+    modes = timed("modes", run_training_modes)
+    weights = timed("weights", run_weights)
+    st = timed("st", run_st)
+    wavlm = timed("wavlm", run_wavlm)
+    aac, aac_files = timed("aac", run_aac)
+    clap = timed("clap", run_clap, aac_files)
+    music_spatial, seld_files = timed("music_spatial", run_music_spatial)
+    seld_encoder = timed("seld_encoder", run_seld_encoder, seld_files)
+    vsr = timed("vsr", run_vsr)
+    large_scale = timed("large_scale", run_large_scale)
+    s2s = timed("s2s", run_s2s)
+    vallex = timed("vallex", run_vallex)
+    peft = timed("peft", run_peft)
+    timed("cpu_side", cpu_checks_done)  # phases 19-20 start with the host to themselves
+    distributed = timed("distributed", run_distributed)
+    tensor_parallel = timed("tensor_parallel", run_tensor_parallel)
     paths = {"decode": decode, "train": train, "train_int8_sr": modes, "weights": weights, "st": st,
              "wavlm": wavlm, "aac": aac, "clap": clap, **music_spatial, "seld_encoder": seld_encoder, "vsr": vsr,
              "large_scale": large_scale, "s2s": s2s,
@@ -5243,7 +5481,7 @@ def main() -> int:
         raise AssertionError(f"the s2s path launched K1 {s2s['flash_attention_fwd']} / K4 {s2s['flash_attention_bwd']}")
     if not (vallex["flash_attention_fwd"] and vallex["flash_attention_bwd"]) or any(vallex[k] for k in VX_BYPASSED):
         raise AssertionError(f"the vallex path launched {vallex}")
-    log(f"[chip_smoke] phases 1-20 in {time.perf_counter() - t0:.1f} s | {SMI}")
+    log(f"[chip_smoke] phases 1-20 in {time.perf_counter() - t0:.1f} s, by phase {PHASE_SECONDS} | {SMI}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -5255,4 +5493,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--distributed-job"]:
         distributed_job(sys.argv[2])
         sys.exit(0)
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:  # a failed phase exits without the queued CPU sides (the running one ends first)
+        if _CPU_SIDE["pool"] is not None:
+            _CPU_SIDE["pool"].shutdown(wait=False, cancel_futures=True)

@@ -26,12 +26,15 @@ shared memory: the worker writes the collated batch into a segment
 (+~27 ms, on the scaling side of the boundary) and the parent attaches
 (~0.01 ms) + copies out (~15 ms, GIL released) — ~2.4x more parent
 headroom with ordinary owning arrays and no segment lifetime on consumers.
-``worker_type="process_pickle"`` keeps the plain pickle transport.
+``worker_type="process_pickle"`` keeps the plain pickle transport. The
+port names its segments ``SHM_PREFIX`` + random hex, not Python's default
+``psm_``, so a leak check of either package's segments counts its own.
 """
 
 from __future__ import annotations
 
 import queue
+import secrets
 import threading
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
@@ -42,6 +45,7 @@ import numpy as np
 # (fork start method: the dataset is inherited copy-on-write, the initargs
 # pickle is paid once per worker, not per batch)
 _WORKER_STATE: Optional[tuple] = None
+SHM_PREFIX = "slam_torch_"  # the port's shared-memory segments: /dev/shm/slam_torch_<hex>
 
 
 def _process_worker_init(dataset, collator):
@@ -67,6 +71,17 @@ def _untrack_shm(name: str) -> None:
         pass
 
 
+def _create_shm(nbytes: int):
+    """A new segment of ``nbytes`` named ``SHM_PREFIX`` + 16 random hex digits."""
+    from multiprocessing import shared_memory
+
+    while True:
+        try:
+            return shared_memory.SharedMemory(name=SHM_PREFIX + secrets.token_hex(8), create=True, size=nbytes)
+        except FileExistsError:
+            continue
+
+
 def _process_worker_collate_shm(idxs):
     """Collate, then hand the arrays to the parent through POSIX shared
     memory instead of the result pickle. Measured at the flagship batch
@@ -76,8 +91,6 @@ def _process_worker_collate_shm(idxs):
     ceiling disappears and the +~27 ms segment write stays on the workers,
     which scale with cores. Non-array fields (keys, targets) still ride the
     (small) result pickle."""
-    from multiprocessing import shared_memory
-
     dataset, collator = _WORKER_STATE
     batch = collator([dataset[j] for j in idxs])
     arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
@@ -85,7 +98,7 @@ def _process_worker_collate_shm(idxs):
     nbytes = sum(v.nbytes for v in arrays.values())
     if nbytes == 0:
         return None, {}, rest
-    shm = shared_memory.SharedMemory(create=True, size=nbytes)
+    shm = _create_shm(nbytes)
     meta, off = {}, 0
     try:
         for k, v in arrays.items():

@@ -39,8 +39,10 @@ layers' ``cfg`` is the local one, ``cache_cfg`` for the KV cache), q / k / v
 and gate / up column-parallel, o_proj and down_proj row-parallel, and
 ``V / tp`` rows of the embedding and the head (``tp`` set): ``embed`` looks
 up its rows and all-reduces, ``_head`` all-gathers the logits in rank
-order (its readers, the ``Generator`` and S2S, see whole logits and run the
-same on every rank), and ``loss_and_accuracy`` runs the vocab-parallel CE.
+order (its readers, the ``Generator`` and S2S's decoding, see whole logits
+and run the same on every rank), and ``loss_and_accuracy`` runs the
+vocab-parallel CE; S2S's training loss reads the rank's own head rows
+(``head_weight``, ``head_first_row``) without the gather.
 """
 
 from __future__ import annotations
@@ -420,8 +422,15 @@ class CausalLM(nn.Module):
         return self.layers[0].attn.cfg if len(self.layers) else self.cfg
 
     def head_weight(self) -> torch.Tensor:
-        """The (V, D) head: ``lm_head.weight`` or the tied embedding table."""
+        """The (V, D) head: ``lm_head.weight`` or the tied embedding table
+        (this rank's V / tp rows under tp)."""
         return self.embed_tokens.weight if self.cfg.tied_embeddings else self.lm_head.weight
+
+    def head_first_row(self) -> int:
+        """The whole head's index of this rank's first row (0 without tp):
+        its logits are the whole logits' columns from there, which S2S's
+        vocab-parallel loss reads without the gather of ``_head``."""
+        return 0 if self.tp is None else self.tp.rank * self.head_weight().shape[0]
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         if self.tp is None:

@@ -21,6 +21,21 @@ Counterpart of ``slam_llm_tpu/models/s2s.py``:
   as a Python loop over static-shape tensors on the device (the JAX
   package's ``lax.while_loop``); ``stream_generate`` yields chunks.
 
+Tensor parallelism (``tp``, set by ``parallel.tensor_parallel.split_for_tp``:
+the LLM, the group-decode adapter, the TTS adapter's blocks and head split
+over the vocabulary / heads, as the JAX package's ``vocab -> tp`` rule
+shards both heads): the training loss holds no whole (B, T, vocabulary)
+logits. The text CE runs over the window [0, padded_text) of the rank's
+head rows (``ops.fused_ce.windowed_linear_ce``, its logits rounded to the
+compute dtype as the head's output is); the head's audio slot comes from
+the rank(s) holding its rows (a masked local product, then an exact
+all-reduce: one nonzero contributor a column); each codebook's CE reads its
+window of the rank's adapter or TTS-head shard
+(``ops.fused_ce.windowed_logits_ce``). Without group decode or the TTS
+adapter, every CE is a window of the head. Decoding gathers what the
+sampler reads, so every tp rank samples the same tokens; ``return_logits``
+gathers the head's logits on request.
+
 ``model_factory`` is the port's copy of the recipe factory
 ``examples/s2s/model/slam_model_s2s.py:model_factory`` (which imports the
 JAX package): ``registry.resolve_factory`` maps that spec here.
@@ -53,7 +68,9 @@ from slam_llm_tpu_torch.models.llm import (
 from slam_llm_tpu_torch.models.projector import ProjectorConfig, build_projector
 from slam_llm_tpu_torch.models.slam_model import IGNORE_INDEX, splice_modality
 from slam_llm_tpu_torch.models.whisper import WhisperEncoder
+from slam_llm_tpu_torch.ops.fused_ce import windowed_linear_ce, windowed_logits_ce
 from slam_llm_tpu_torch.parallel.sharding import token_count
+from slam_llm_tpu_torch.parallel.tensor_parallel import copy_to_tp, gather_last, reduce_from_tp
 
 
 @dataclass(frozen=True)
@@ -204,11 +221,23 @@ class S2SModel(nn.Module):
             self.tts_adapter_ln = RMSNorm(llm_cfg.d_model, dtype=c.llm.dtype, device=device)
             self.tts_adapter_head = DenseGeneralLora(llm_cfg.d_model, v.total_audio_vocabsize, dtype=c.llm.dtype,
                                                      device=device)
+        self.tp = None  # parallel.tensor_parallel.TP once the heads are split over tp
 
     @property
     def tts_adapter_blocks(self) -> List[DecoderLayer]:
         return [getattr(self, f"tts_adapter_{i}") for i in range(self.cfg.tts_adapter_layers)] \
             if self.cfg.tts_adapter else []
+
+    @property
+    def adapter_cache_cfg(self) -> LLMConfig:
+        """The config the TTS adapter's KV cache is laid out by: this rank's
+        heads under tp."""
+        blocks = self.tts_adapter_blocks
+        return blocks[0].attn.cfg if blocks else self.adapter_cfg
+
+    def _whole(self, local: torch.Tensor) -> torch.Tensor:
+        """A column-parallel head's output gathered whole (itself without tp)."""
+        return local if self.tp is None else gather_last(local, self.tp)
 
     # ---- the embedding of code_layer + 1 parallel streams ----------------
 
@@ -252,11 +281,12 @@ class S2SModel(nn.Module):
         v = self.cfg.vocab
         xt, rest = logits[..., : v.padded_text_vocabsize], logits[..., v.padded_text_vocabsize:]
         if self.group_decode_adapter is not None:
-            rest = self.group_decode_adapter(rest[..., : v.padded_audio_vocabsize].to(self.cfg.llm.dtype)).float()
+            rest = self._whole(self.group_decode_adapter(rest[..., : v.padded_audio_vocabsize].to(
+                self.cfg.llm.dtype))).float()
         return xt, self._audio_split(rest)
 
     def _adapter_audio_logits(self, ha: torch.Tensor) -> torch.Tensor:
-        return self._audio_split(self.tts_adapter_head(self.tts_adapter_ln(ha)).float())
+        return self._audio_split(self._whole(self.tts_adapter_head(self.tts_adapter_ln(ha))).float())
 
     def forward(self, batch: Dict[str, torch.Tensor], return_logits: bool = False) -> Dict[str, torch.Tensor]:
         """The parallel loss: ``loss`` (the mean of the text and the L audio
@@ -264,6 +294,8 @@ class S2SModel(nn.Module):
         ``text_loss``, ``audio_loss`` / ``audio_acc`` (L,); ``logits`` (B, T,
         head) f32 with ``return_logits``."""
         c, v = self.cfg, self.cfg.vocab
+        if self.tp is not None:
+            return self._forward_tp(batch, return_logits)
         embeds, attention_mask = self.forward_embeds(batch)
         if c.tts_adapter:
             h = self.llm.trunk(embeds, attention_mask)
@@ -291,13 +323,62 @@ class S2SModel(nn.Module):
 
         text_loss, text_acc = ce(xt, labels[:, v.code_layer])
         audio = [ce(xa[i], labels[:, i]) for i in range(v.code_layer)]
-        audio_losses = torch.stack([a[0] for a in audio])
-        loss = text_loss if c.task_type == "asr" else (text_loss + audio_losses.sum()) / (v.code_layer + 1)
+        return self._losses(text_loss, text_acc, torch.stack([a[0] for a in audio]),
+                            torch.stack([a[1] for a in audio]), logits if return_logits else None)
+
+    def _losses(self, text_loss, text_acc, audio_losses, audio_accs, logits) -> Dict[str, torch.Tensor]:
+        c, L = self.cfg, self.cfg.vocab.code_layer
+        loss = text_loss if c.task_type == "asr" else (text_loss + audio_losses.sum()) / (L + 1)
         out = {"loss": loss, "acc": text_acc, "text_loss": text_loss.detach(), "audio_loss": audio_losses.detach(),
-               "audio_acc": torch.stack([a[1] for a in audio])}
-        if return_logits:
+               "audio_acc": audio_accs}
+        if logits is not None:
             out["logits"] = logits
         return out
+
+    def _audio_slot(self, h: torch.Tensor) -> torch.Tensor:
+        """Under tp: the head's one audio slot, its logits' columns
+        [padded_text, padded_text + padded_audio) (B, T, Va) in the compute
+        dtype, whole on every rank: each rank forms the slot columns its head
+        rows hold (maybe none), the rest zeros, and the all-reduce adds one
+        nonzero contributor a column (exact)."""
+        v, llm, tp = self.cfg.vocab, self.llm, self.tp
+        w, first = llm.head_weight(), llm.head_first_row()
+        lo, hi = v.padded_text_vocabsize, v.padded_text_vocabsize + v.padded_audio_vocabsize
+        a = min(max(lo, first), hi)
+        e = max(a, min(hi, first + w.shape[0]))
+        dt = self.cfg.llm.dtype
+        part = torch.nn.functional.linear(copy_to_tp(h.to(dt), tp), w[a - first:e - first].to(dt))
+        return reduce_from_tp(torch.nn.functional.pad(part, (a - lo, hi - e)), tp)
+
+    def _forward_tp(self, batch: Dict[str, torch.Tensor], return_logits: bool) -> Dict[str, torch.Tensor]:
+        """``forward`` on this rank's shards: every CE over a column window
+        of the rank's head or adapter logits, one chunk of T at a time."""
+        c, v, llm, tp = self.cfg, self.cfg.vocab, self.llm, self.tp
+        L, pt, va = v.code_layer, v.padded_text_vocabsize, v.padded_audio_vocabsize
+        embeds, attention_mask = self.forward_embeds(batch)
+        h = llm.trunk(embeds, attention_mask)
+        lb = batch["labels"][..., 1:]  # (B, L+1, T-1): the shifted labels of every stream
+        kernel = llm.head_weight()
+        head_ce = dict(chunk=c.llm.ce_chunk, kernel_needs_grad=kernel.requires_grad, compute_dtype=c.llm.dtype,
+                       ignore_index=IGNORE_INDEX, tp=tp)
+        codebooks = [(i * va, (i + 1) * va) for i in range(L)]
+        if self.group_decode_adapter is None and not c.tts_adapter:  # every CE a window of the head
+            losses, accs = windowed_linear_ce(h[:, :-1], kernel, [lb[:, L], *lb[:, :L].unbind(1)],
+                                              [(0, pt), *((pt + lo, pt + hi) for lo, hi in codebooks)], **head_ce)
+            text_loss, text_acc, audio_losses, audio_accs = losses[0], accs[0], losses[1:], accs[1:]
+        else:
+            losses, accs = windowed_linear_ce(h[:, :-1], kernel, [lb[:, L]], [(0, pt)], **head_ce)
+            text_loss, text_acc = losses[0], accs[0]
+            if c.tts_adapter:
+                ha, pos = h, _positions_from_mask(attention_mask)
+                for blk in self.tts_adapter_blocks:
+                    ha, _ = blk(ha, pos, kv_mask=attention_mask)
+                local = self.tts_adapter_head(self.tts_adapter_ln(ha))
+            else:
+                local = self.group_decode_adapter(self._audio_slot(h))
+            audio_losses, audio_accs = windowed_logits_ce(local[:, :-1], lb[:, :L].unbind(1), codebooks,
+                                                          chunk=c.llm.ce_chunk, ignore_index=IGNORE_INDEX, tp=tp)
+        return self._losses(text_loss, text_acc, audio_losses, audio_accs, llm._head(h) if return_logits else None)
 
     # ---- decoding ----------------------------------------------------------
 
@@ -378,12 +459,12 @@ class S2SGenerator:
         L = v.code_layer
         b, _, t = batch["input_ids"].shape
         dev = self.device
-        cache = init_kv_cache(model.llm.cfg, b, t + max_new, gen_start=t, device=dev)
+        cache = init_kv_cache(model.llm.cache_cfg, b, t + max_new, gen_start=t, device=dev)
         rows = torch.arange(b, device=dev)
         last_idx = _last_valid_index(batch["attention_mask"])  # the collator left-pads
         a_cache = None
         if model.cfg.tts_adapter:
-            a_cache = init_kv_cache(model.adapter_cfg, b, t + max_new, gen_start=t, device=dev)
+            a_cache = init_kv_cache(model.adapter_cache_cfg, b, t + max_new, gen_start=t, device=dev)
             xt_all, xa_all, cache, a_cache = model.prefill_tts(batch, cache, a_cache)
             next_xt, next_xa = xt_all[rows, last_idx], xa_all[:, rows, last_idx]
         else:

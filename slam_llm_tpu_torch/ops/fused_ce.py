@@ -33,11 +33,24 @@ logsumexp, dW local, and dx's partial sums over V all-reduced: f32 partials
 rounded once, or, under ``int8_sr``, the dlog row scale all-reduced with
 MAX, the Philox columns offset by the rank's first vocabulary row, and the
 s32 accumulators all-reduced (exact).
+
+Column windows (``windowed_linear_ce``, ``windowed_logits_ce``; S2S's text
+and codebook CEs): each of several CEs reads the columns [lo, hi) of one
+vocabulary, its labels relative to lo, and a window may straddle the tp
+shards. The gathered chunk's logsumexp and argmax read only the window's
+columns, so the statistics are one process's; the backward forms each
+window's ``dlog`` on the rank's columns that fall inside it (zero
+elsewhere), one dx product for all windows; ``windowed_linear_ce`` rounds
+the head's logits to the compute dtype, as S2S's head output is rounded.
+``windowed_logits_ce`` takes the
+logits a rank already holds (a column-parallel dense's output, a bias
+included) instead of a head, and returns their gradient. Either gathers
+one chunk of T at a time: a rank's peak is one chunk's logits.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -67,43 +80,90 @@ class QuantHead(NamedTuple):
     seed: int = 0
 
 
-def _chunk_logits(xc: torch.Tensor, wc_t: Optional[torch.Tensor], head: Optional[QuantHead]) -> torch.Tensor:
-    """(M, V) f32 logits of xc (M, D), already in the compute dtype."""
+def _chunk_logits(xc: torch.Tensor, wc_t: Optional[torch.Tensor], head: Optional[QuantHead],
+                  round_to: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(M, V) f32 logits of xc (M, D), already in the compute dtype;
+    ``round_to``: rounded to that dtype first, as a head whose output is
+    stored in it (S2S's)."""
     if head is None:
-        return mm_f32(xc, wc_t)
-    xq, xs = act_quant(xc)
-    return int8_matmul(xq, head.q, xs.reshape(-1), head.scale, torch.float32)
+        logits = mm_f32(xc, wc_t)
+    else:
+        xq, xs = act_quant(xc)
+        logits = int8_matmul(xq, head.q, xs.reshape(-1), head.scale, torch.float32)
+    return logits if round_to is None else logits.to(round_to).float()
+
+
+def _targets(labels: torch.Tensor, ignore_index: int):
+    """(W, B, T) labels -> the safe labels, the weights and each window's
+    global count of valid labels (``parallel.sharding.token_count``)."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    w = valid.float()
+    return safe, w, torch.stack([token_count(wj) for wj in w])
+
+
+def _window_stats(logits: torch.Tensor, windows, lab: torch.Tensor, wt: torch.Tensor):
+    """Per window [lo, hi) of a chunk's whole (B, c, V) logits: its
+    logsumexp (B, c), the weighted NLL sum and the correct-prediction sum
+    (the argmax is the lowest index among equal values)."""
+    out = []
+    for j, (lo, hi) in enumerate(windows):
+        lg = logits[..., lo:hi]
+        lse = torch.logsumexp(lg, dim=-1)
+        ll = lg.gather(-1, lab[j][..., None])[..., 0]
+        out.append((lse, ((lse - ll) * wt[j]).sum(), ((lg.argmax(-1) == lab[j]).float() * wt[j]).sum()))
+    return out
+
+
+def _window_dlog(logits: torch.Tensor, first: int, windows, lab, wt, lse, scale) -> torch.Tensor:
+    """(softmax - onehot) * w * g / denom of every window on this rank's
+    columns [first, first + n) of the vocabulary, f32 (B, c, n): each
+    window's softmax over its own columns, zero outside the windows."""
+    n = logits.shape[-1]
+    dlog = None
+    for j, (lo, hi) in enumerate(windows):
+        a, e = max(lo, first), min(hi, first + n)
+        if a >= e:
+            continue
+        part = torch.exp(logits[..., a - first:e - first] - lse[j][..., None])
+        k = lab[j][..., None] + (lo - a)  # the label's column in the part
+        mine = (k >= 0) & (k < e - a)
+        part.scatter_add_(-1, k.clamp(0, e - a - 1), torch.where(mine, -1.0, 0.0).to(part.dtype))
+        part = part * (wt[j] * scale[j])[..., None]
+        if dlog is None and (a, e) == (first, first + n):
+            dlog = part
+            continue
+        if dlog is None:
+            dlog = logits.new_zeros(logits.shape)
+        dlog[..., a - first:e - first] += part
+    return logits.new_zeros(logits.shape) if dlog is None else dlog
 
 
 class _FusedLinearCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, hidden, kernel, labels, chunk: int, kernel_needs_grad: bool,
-                compute_dtype: torch.dtype, ignore_index: int, head: Optional[QuantHead], tp: Optional[TP]):
+    def forward(ctx, hidden, kernel, labels, windows, chunk: int, kernel_needs_grad: bool,
+                compute_dtype: torch.dtype, ignore_index: int, head: Optional[QuantHead], tp: Optional[TP],
+                round_to: Optional[torch.dtype]):
         b, t, d = hidden.shape
-        valid = labels != ignore_index
-        safe = torch.where(valid, labels, torch.zeros_like(labels))
-        w = valid.float()
-        denom = token_count(w)
+        safe, w, denom = _targets(labels, ignore_index)
         wc_t = kernel.to(compute_dtype).t() if head is None else None
-        nll = hidden.new_zeros((), dtype=torch.float32)
-        correct = hidden.new_zeros((), dtype=torch.float32)
+        nw = len(windows)
+        nll = hidden.new_zeros((nw,), dtype=torch.float32)
+        correct = hidden.new_zeros((nw,), dtype=torch.float32)
         lses = []
         for i in range(0, t, chunk):
             xc = hidden[:, i:i + chunk].to(compute_dtype)
             c = xc.shape[1]
-            logits = _chunk_logits(xc.reshape(b * c, d), wc_t, head)
+            logits = _chunk_logits(xc.reshape(b * c, d), wc_t, head, round_to)
             if tp is not None:  # the whole vocabulary's logits, in rank order
                 logits = all_gather_last(logits, tp)
-            logits = logits.reshape(b, c, -1)
-            lse = torch.logsumexp(logits, dim=-1)
-            lab, wt = safe[:, i:i + c], w[:, i:i + c]
-            ll = logits.gather(-1, lab[..., None])[..., 0]
-            nll = nll + ((lse - ll) * wt).sum()
-            correct = correct + ((logits.argmax(-1) == lab).float() * wt).sum()
-            lses.append(lse)
-        ctx.chunk, ctx.kernel_needs_grad, ctx.compute_dtype, ctx.head = chunk, kernel_needs_grad, compute_dtype, head
-        ctx.tp = tp
-        ctx.save_for_backward(hidden, kernel, safe, w, torch.cat(lses, dim=1), denom)
+            stats = _window_stats(logits.reshape(b, c, -1), windows, safe[:, :, i:i + c], w[:, :, i:i + c])
+            nll = nll + torch.stack([s[1] for s in stats])
+            correct = correct + torch.stack([s[2] for s in stats])
+            lses.append(torch.stack([s[0] for s in stats]))
+        ctx.windows, ctx.chunk, ctx.kernel_needs_grad = windows, chunk, kernel_needs_grad
+        ctx.compute_dtype, ctx.head, ctx.tp, ctx.round_to = compute_dtype, head, tp, round_to
+        ctx.save_for_backward(hidden, kernel, safe, w, torch.cat(lses, dim=2), denom)
         acc = correct / denom
         ctx.mark_non_differentiable(acc)
         return nll / denom, acc
@@ -127,14 +187,10 @@ class _FusedLinearCE(torch.autograd.Function):
         for n, i in enumerate(range(0, t, ctx.chunk)):
             xc = hidden[:, i:i + ctx.chunk].to(cdt)
             c = xc.shape[1]
-            logits = _chunk_logits(xc.reshape(b * c, d), wc_t, head).reshape(b, c, -1)
-            # (softmax - onehot) * w * g / denom
-            dlog = torch.exp(logits - lse[:, i:i + c, None])
-            v = dlog.shape[-1]
-            lab = safe[:, i:i + c, None] - (0 if tp is None else tp.rank * v)
-            mine = (lab >= 0) & (lab < v)
-            dlog.scatter_add_(-1, lab.clamp(0, v - 1), torch.where(mine, -1.0, 0.0).to(dlog.dtype))
-            dlog = dlog * (w[:, i:i + c] * scale)[..., None]
+            logits = _chunk_logits(xc.reshape(b * c, d), wc_t, head, ctx.round_to).reshape(b, c, -1)
+            v = logits.shape[-1]
+            dlog = _window_dlog(logits, 0 if tp is None else tp.rank * v, ctx.windows, safe[:, :, i:i + c],
+                                w[:, :, i:i + c], lse[:, :, i:i + c], scale)
             seed = (head.seed + n) & 0xFFFFFFFF if head is not None else None
             if head is not None and head.int8_sr and tp is not None:
                 d2 = dlog.reshape(b * c, -1)
@@ -156,7 +212,80 @@ class _FusedLinearCE(torch.autograd.Function):
                 dx[:, i:i + c] = part.reshape(b, c, d).to(hidden.dtype)
             if dw is not None:
                 dw += mm_f32(dlog.reshape(b * c, -1).t(), xc.reshape(b * c, d))
-        return dx, (dw.to(kernel.dtype) if dw is not None else None), None, None, None, None, None, None, None
+        return (dx, (dw.to(kernel.dtype) if dw is not None else None), None, None, None, None, None, None, None, None,
+                None)
+
+
+class _WindowedLogitsCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, labels, windows, chunk: int, ignore_index: int, tp: Optional[TP]):
+        t = local.shape[1]
+        safe, w, denom = _targets(labels, ignore_index)
+        nll = local.new_zeros((len(windows),), dtype=torch.float32)
+        correct = torch.zeros_like(nll)
+        lses = []
+        for i in range(0, t, chunk):
+            logits = local[:, i:i + chunk].float()
+            if tp is not None:
+                logits = all_gather_last(logits, tp)
+            stats = _window_stats(logits, windows, safe[:, :, i:i + chunk], w[:, :, i:i + chunk])
+            nll = nll + torch.stack([s[1] for s in stats])
+            correct = correct + torch.stack([s[2] for s in stats])
+            lses.append(torch.stack([s[0] for s in stats]))
+        ctx.windows, ctx.chunk, ctx.tp = windows, chunk, tp
+        ctx.save_for_backward(local, safe, w, torch.cat(lses, dim=2), denom)
+        acc = correct / denom
+        ctx.mark_non_differentiable(acc)
+        return nll / denom, acc
+
+    @staticmethod
+    def backward(ctx, g_loss, g_acc):
+        local, safe, w, lse, denom = ctx.saved_tensors
+        scale = g_loss / denom
+        first = 0 if ctx.tp is None else ctx.tp.rank * local.shape[-1]
+        grad = torch.empty_like(local)
+        for i in range(0, local.shape[1], ctx.chunk):
+            sl = slice(i, i + ctx.chunk)
+            grad[:, sl] = _window_dlog(local[:, sl].float(), first, ctx.windows, safe[:, :, sl], w[:, :, sl],
+                                       lse[:, :, sl], scale).to(local.dtype)
+        return grad, None, None, None, None, None
+
+
+def windowed_linear_ce(
+    hidden: torch.Tensor,  # (B, T, D), already shifted by the caller
+    kernel: torch.Tensor,  # (V, D), this rank's V / tp rows under tp
+    labels: Sequence[torch.Tensor],  # per window (B, T), relative to its lo, shifted; ignore_index masks
+    windows: Sequence[Tuple[int, int]],  # per window its columns [lo, hi) of the whole vocabulary
+    *,
+    ignore_index: int = -100,
+    chunk: int = 64,
+    kernel_needs_grad: bool = True,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    tp: Optional[TP] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each window's masked-mean CE and accuracy (``(W,)`` each, the
+    accuracies not differentiable) over the head's logits ``x W^T``, which
+    are formed a chunk of T at a time and never whole, and rounded to
+    ``compute_dtype`` as a head whose output is stored in it (S2S's)."""
+    chunk = max(1, min(chunk, hidden.shape[1]))
+    return _FusedLinearCE.apply(hidden, kernel, torch.stack(list(labels)), tuple(windows), chunk, kernel_needs_grad,
+                                compute_dtype, ignore_index, None, tp, compute_dtype)
+
+
+def windowed_logits_ce(
+    local: torch.Tensor,  # (B, T, V / tp): this rank's columns of the logits (already shifted)
+    labels: Sequence[torch.Tensor],  # per window (B, T), relative to its lo; ignore_index masks
+    windows: Sequence[Tuple[int, int]],
+    *,
+    ignore_index: int = -100,
+    chunk: int = 64,
+    tp: Optional[TP] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``windowed_linear_ce`` over logits a rank already holds (whole without
+    tp): their statistics in f32 from one gathered chunk at a time, their
+    gradient in ``local``'s dtype."""
+    chunk = max(1, min(chunk, local.shape[1]))
+    return _WindowedLogitsCE.apply(local, torch.stack(list(labels)), tuple(windows), chunk, ignore_index, tp)
 
 
 def fused_linear_ce(
@@ -183,5 +312,7 @@ def fused_linear_ce(
             "the s8 product's kernel gradient is zero by construction"
         )
     chunk = max(1, min(chunk, hidden.shape[1]))
-    return _FusedLinearCE.apply(hidden, kernel, labels, chunk, kernel_needs_grad, compute_dtype, ignore_index, head,
-                                tp)
+    v = kernel.shape[0] if head is None else head.q.shape[0]
+    loss, acc = _FusedLinearCE.apply(hidden, kernel, labels[None], ((0, v * (1 if tp is None else tp.size)),), chunk,
+                                     kernel_needs_grad, compute_dtype, ignore_index, head, tp, None)
+    return loss[0], acc[0]

@@ -12,7 +12,8 @@ axes:
   devices is not copied.
 * ``shard_params`` first splits the decoder LLM over ``tp``
   (``parallel.tensor_parallel.split_for_tp``: a Megatron-style split of its
-  heads, MLP and vocabulary, the rest of the model replicated over tp), then
+  heads, MLP and vocabulary, and of S2S's heads past it; the rest of the
+  model replicated over tp), then
   applies ``fully_shard`` over the 2-D ``("dp", "fsdp")``
   sub-mesh (HSDP: replicated over ``dp``, sharded over ``fsdp``, as the
   reference's ``embed -> fsdp`` rule shards every parameter on ``fsdp`` and
@@ -126,8 +127,11 @@ def replicated(mesh) -> Tuple:
 def layer_units(model: nn.Module) -> List[nn.Module]:
     """The modules ``shard_params`` shards one by one: the entries of every
     ``nn.ModuleList`` named ``layers`` / ``blocks`` / ``layer`` (or ending in
-    ``_layers`` / ``_blocks``) that holds no such list itself: the decoder
-    layers, each encoder's blocks, the S2S adapter's blocks."""
+    ``_layers`` / ``_blocks``) that holds no such list itself (the decoder
+    layers, each encoder's blocks), and the S2S TTS adapter's blocks
+    (``tts_adapter_blocks``: attributes of their own, not a list). The S2S
+    heads stay in the root unit: the vocab-parallel loss reads the LLM
+    head's rows outside its forward."""
 
     def is_list(name: str, mod: nn.Module) -> bool:
         leaf = name.rsplit(".", 1)[-1]
@@ -140,7 +144,7 @@ def layer_units(model: nn.Module) -> List[nn.Module]:
         if any(other != name and other.startswith(name + ".") for other, _ in lists):
             continue  # a list of stages that hold the blocks
         units += [m for m in lst if any(True for _ in m.parameters())]
-    return units
+    return units + list(getattr(model, "tts_adapter_blocks", ()))
 
 
 def int8_base_as_parameters(model: nn.Module) -> None:

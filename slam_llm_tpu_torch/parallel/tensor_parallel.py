@@ -26,15 +26,23 @@ own weight shards, and the collectives are explicit:
 * the vocabulary: the embedding table split on its rows (a masked local
   lookup, then an all-reduce that adds one nonzero row: exact), the head
   split on its rows (``CausalLM._head`` all-gathers the logits in rank
-  order, so every reader sees whole logits; the fused CE gathers a chunk's
-  logits for its statistics and reduces its dx, ``ops.fused_ce``).
+  order, so every decode reader sees whole logits; the fused CE gathers a
+  chunk's logits for its statistics and reduces its dx, ``ops.fused_ce``).
+* S2S (``models.s2s.S2SModel``): the group-decode adapter's ``linear`` and
+  the TTS adapter's head column-parallel on their ``code_layer x padded
+  audio`` outputs, each TTS-adapter block as a decoder layer. Training
+  reads no whole logits: the text CE and every codebook's CE run over a
+  column window of the rank's head or adapter shard (``ops.fused_ce``), and
+  the head's audio slot comes from the rank(s) holding its rows (a masked
+  local product, then an exact all-reduce). ``all_gather_last`` records the
+  largest tensor it forms (``LARGEST_GATHER``).
 
 The split is applied to the whole model after its int8 base is derived
 (``ops.quant.quantize_base_params``: the per-channel scales are the whole
 tensor's): ``split_for_tp`` replaces each tensor by this rank's slice and
 records the split dim in the owning module's ``tp_dims``, which the
-checkpoint gathers read (``parallel.sharding.ShardLayout``). Encoders,
-projectors and the S2S heads stay whole on every tp rank (replicated).
+checkpoint gathers read (``parallel.sharding.ShardLayout``). Encoders and
+projectors stay whole on every tp rank (replicated).
 """
 
 from __future__ import annotations
@@ -106,9 +114,21 @@ def _gather(t: torch.Tensor, tp: TP) -> List[torch.Tensor]:
     return parts
 
 
+# the largest tensor ``all_gather_last`` formed since ``reset_largest_gather``:
+# its element count and shape (the memory tests and chip_smoke read it)
+LARGEST_GATHER: Dict[str, Any] = {"numel": 0, "shape": None}
+
+
+def reset_largest_gather() -> None:
+    LARGEST_GATHER.update(numel=0, shape=None)
+
+
 def all_gather_last(t: torch.Tensor, tp: TP) -> torch.Tensor:
     """The tp ranks' ``t`` concatenated along the last axis, in rank order."""
-    return torch.cat(_gather(t, tp), dim=-1)
+    out = torch.cat(_gather(t, tp), dim=-1)
+    if out.numel() > LARGEST_GATHER["numel"]:
+        LARGEST_GATHER.update(numel=out.numel(), shape=tuple(out.shape))
+    return out
 
 
 def all_gather_stack(t: torch.Tensor, tp: TP) -> torch.Tensor:
@@ -208,29 +228,48 @@ def split_dense(dense: nn.Module, tp: TP, role: str) -> None:
     dense.tp = tp._replace(role=role)
 
 
-def check_llm_divides(cfg, size: int) -> None:
-    """Raise, naming the dimension, where tp does not divide a split one."""
-    _check_divides("attention heads", cfg.n_heads, size)
-    _check_divides("kv heads", cfg.n_kv_heads, size)
-    _check_divides("ffn", cfg.ffn_dim, size)
-    _check_divides("vocabulary", cfg.vocab_size, size)
-    if cfg.head_size:
-        _check_divides("head vocabulary (head_size)", cfg.head_size, size)
+def check_llm_divides(cfg, size: int, owner: str = "") -> None:
+    """Raise, naming the dimension (``owner`` its module, e.g. "TTS adapter's
+    "), where tp does not divide a split one."""
+    _check_divides(f"{owner}attention heads", cfg.n_heads, size)
+    _check_divides(f"{owner}kv heads", cfg.n_kv_heads, size)
+    _check_divides(f"{owner}ffn", cfg.ffn_dim, size)
+    if not owner:
+        _check_divides("vocabulary", cfg.vocab_size, size)
+        if cfg.head_size:
+            _check_divides("head vocabulary (head_size)", cfg.head_size, size)
+
+
+def check_s2s_divides(model: nn.Module, size: int) -> None:
+    """The S2S heads' split dimensions (``check_llm_divides`` covers the LLM)."""
+    if model.group_decode_adapter is not None:
+        _check_divides("group-decode adapter's audio vocabularies (code_layer x padded audio)",
+                       model.group_decode_adapter.linear.features, size)
+    if model.cfg.tts_adapter:
+        _check_divides("TTS adapter head's audio vocabularies (code_layer x padded audio)",
+                       model.tts_adapter_head.features, size)
+        check_llm_divides(model.adapter_cfg, size, "TTS adapter's ")
+
+
+@torch.no_grad()
+def split_decoder_layer(layer: nn.Module, tp: TP) -> None:
+    """One ``models.llm.DecoderLayer`` to this rank's shard, in place: its
+    attention runs the local heads from then on."""
+    attn, mlp = layer.attn, layer.mlp
+    for name in COLUMN + ROW:
+        owner = attn if hasattr(attn, name) else mlp
+        split_dense(getattr(owner, name), tp, "column" if name in COLUMN else "row")
+    split_tensors(attn, {"prefix_k": 1, "prefix_v": 1, "adaption_gate": 0}, tp)
+    c = attn.cfg
+    attn.cfg = dataclasses.replace(c, n_heads=c.n_heads // tp.size, n_kv_heads=c.n_kv_heads // tp.size)
 
 
 @torch.no_grad()
 def split_llm(llm: nn.Module, tp: TP) -> None:
     """One ``models.llm.CausalLM`` to this rank's shard, in place."""
-    c = llm.cfg
-    check_llm_divides(c, tp.size)
-    local = dataclasses.replace(c, n_heads=c.n_heads // tp.size, n_kv_heads=c.n_kv_heads // tp.size)
+    check_llm_divides(llm.cfg, tp.size)
     for layer in llm.layers:
-        attn, mlp = layer.attn, layer.mlp
-        for name in COLUMN + ROW:
-            owner = attn if hasattr(attn, name) else mlp
-            split_dense(getattr(owner, name), tp, "column" if name in COLUMN else "row")
-        split_tensors(attn, {"prefix_k": 1, "prefix_v": 1, "adaption_gate": 0}, tp)
-        attn.cfg = local
+        split_decoder_layer(layer, tp)
     split_tensors(llm.embed_tokens, {"weight": 0}, tp)
     llm.embed_tokens.num_embeddings //= tp.size
     if hasattr(llm, "lm_head"):
@@ -239,12 +278,34 @@ def split_llm(llm: nn.Module, tp: TP) -> None:
     llm.tp = tp
 
 
+@torch.no_grad()
+def split_s2s_heads(model: nn.Module, tp: TP) -> List[str]:
+    """An S2S model's heads past the LLM to this rank's shard, in place:
+    the group-decode adapter and the TTS adapter's head column-parallel,
+    the TTS adapter's blocks as decoder layers. Returns the split modules."""
+    split = []
+    if model.group_decode_adapter is not None:
+        split_dense(model.group_decode_adapter.linear, tp, "column")
+        split.append("group_decode_adapter")
+    for i, block in enumerate(model.tts_adapter_blocks):
+        split_decoder_layer(block, tp)
+        split.append(f"tts_adapter_{i}")
+    if model.cfg.tts_adapter:
+        split_dense(model.tts_adapter_head, tp, "column")
+        split.append("tts_adapter_head")
+    model.tp = tp
+    return split
+
+
 def split_for_tp(model: nn.Module, mesh) -> List[str]:
     """Replace the whole tensors of every decoder LLM (``CausalLM``) in
-    ``model`` by this rank's slices, after ``quantize_base_params``; the
-    rest of the model stays whole (replicated over tp). Returns the names of
-    the split modules. A model with no ``CausalLM`` (VALL-E X) raises."""
+    ``model``, and of an S2S model's heads, by this rank's slices, after
+    ``quantize_base_params``; the rest of the model stays whole (replicated
+    over tp). Every split dimension is checked before any tensor is
+    touched. Returns the names of the split modules. A model with no
+    ``CausalLM`` (VALL-E X) raises."""
     from slam_llm_tpu_torch.models.llm import CausalLM
+    from slam_llm_tpu_torch.models.s2s import S2SModel
 
     tp = tp_of(mesh)
     if tp is None:
@@ -254,9 +315,17 @@ def split_for_tp(model: nn.Module, mesh) -> List[str]:
         raise NotImplementedError(
             f"tensor parallelism splits the decoder LLM (models.llm.CausalLM); {type(model).__name__} has none "
             "(ROADMAP Queue 1: the tp split of the other model families)")
+    s2s = [(name, m) for name, m in model.named_modules() if isinstance(m, S2SModel)]
+    for _, llm in llms:
+        check_llm_divides(llm.cfg, tp.size)
+    for _, m in s2s:
+        check_s2s_divides(m, tp.size)
     for _, llm in llms:
         split_llm(llm, tp)
-    return [name or type(model).__name__ for name, _ in llms]
+    names = [name or type(model).__name__ for name, _ in llms]
+    for prefix, m in s2s:
+        names += [f"{prefix}.{n}" if prefix else n for n in split_s2s_heads(m, tp)]
+    return names
 
 
 def replicated_modules(model: nn.Module, split: List[str]) -> List[str]:

@@ -20,6 +20,21 @@ without audio.
 / ``_gt`` and ``{decode_log}_wav/<key>.wav``). Weights: the seeded random
 init, then ``llm_path`` / ``encoder_path`` / ``ckpt_path``
 (``pipeline.common.materialize_params``).
+
+Under torchrun the session decodes on the ``(dp, 1, tp)`` mesh of
+``train_config.shard`` (the JAX package's ``build_mesh``): with ``shard.tp``
+the model is split after its weights are materialized
+(``parallel.tensor_parallel.split_for_tp``), and the tp ranks of a data rank
+decode the same items in lockstep on the same whole logits, each sampling
+stream seeded alike (``train_config.seed``, fresh for every generation, as
+the JAX package's ``PRNGKey(0)``); only tp rank 0 loads the codec, prints and
+writes. Batch mode takes the items rank-strided over the data ranks, with
+``_rank{r}`` logs where there are several. The online modes read their lines
+on tp rank 0 and broadcast them to the tp group; several data ranks raise.
+``shard.fsdp > 1`` raises (ROADMAP Queue 1: a sharded decode).
+
+    torchrun --nproc_per_node=2 -m slam_llm_tpu_torch.pipeline.generate_s2s --config <yaml> \\
+        ++train_config.shard.tp=2 ++decode_config.mode=batch ...
 """
 
 from __future__ import annotations
@@ -32,13 +47,22 @@ from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from slam_llm_tpu_torch.config import RunConfig, load_run_config
 from slam_llm_tpu_torch.data.s2s_dataset import DEFAULT_S2S_PROMPT, PROMPT_TEMPLATE, header_streams, question_mel
 from slam_llm_tpu_torch.data.speech_dataset import bucketize
 from slam_llm_tpu_torch.models.s2s import S2SGenerator, VocabConfig, trim_generated
 from slam_llm_tpu_torch.ops import audio as audio_ops
-from slam_llm_tpu_torch.pipeline.common import materialize_params, parse_device, resolve_device
+from slam_llm_tpu_torch.parallel.sharding import data_rank, data_size, make_mesh
+from slam_llm_tpu_torch.parallel.tensor_parallel import split_for_tp, tp_of
+from slam_llm_tpu_torch.pipeline.common import (
+    destroy_process_group,
+    materialize_params,
+    maybe_init_distributed,
+    parse_device,
+    resolve_device,
+)
 from slam_llm_tpu_torch.registry import get_custom_dataset_factory, get_custom_model_factory
 from slam_llm_tpu_torch.utils.codec_utils import CodecDecoder
 from slam_llm_tpu_torch.utils.logging_utils import setup_logger
@@ -119,15 +143,20 @@ def load_codec(cfg: RunConfig, device) -> Optional[CodecDecoder]:
 
 
 class S2SSession:
-    """The model (weights materialized on ``device``), its generator and
-    codec; runs dialogue rounds."""
+    """The model (weights materialized on ``device``, then split over the
+    mesh's tp axis), its generator and codec; runs dialogue rounds."""
 
-    def __init__(self, cfg: RunConfig, device="cuda"):
+    def __init__(self, cfg: RunConfig, device="cuda", mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         model, tokenizer = get_custom_model_factory(cfg.model_config)(cfg.train_config, cfg.model_config,
                                                                       device=self.device)
         materialize_params(model, cfg)
+        self.mesh, self.tp = mesh, tp_of(mesh)
+        if self.tp is not None:
+            logger.info("tensor parallel tp=%d: split %s", self.tp.size, split_for_tp(model, mesh))
+        self.writer = self.tp is None or self.tp.rank == 0  # prints, runs the codec, writes
+        self.seed = cfg.train_config.seed
         self.model, self.tokenizer = model.eval(), tokenizer
         self.vocab = model.cfg.vocab
         dc = cfg.decode_config
@@ -138,12 +167,17 @@ class S2SSession:
             num_latency_tokens=getattr(dc, "num_latency_tokens", 0),
             decode_text_only=getattr(dc, "decode_text_only", False),
         )
-        self.codec = load_codec(cfg, self.device)
+        self.codec = load_codec(cfg, self.device) if self.writer else None
         self.history = ""
         self.mel_size = getattr(cfg.dataset_config, "mel_size", 80)
         self.fix_length_audio = getattr(cfg.dataset_config, "fix_length_audio", -1)
         self.max_audio_s = getattr(cfg.dataset_config, "max_audio_length_s", 30.0)
         self.system_prompt = getattr(cfg.dataset_config, "prompt", None) or DEFAULT_S2S_PROMPT
+
+    def sampler(self) -> torch.Generator:
+        """A generation's sampling stream: seeded alike on every rank and for
+        every generation (unused by greedy decoding)."""
+        return torch.Generator(device=self.device).manual_seed(self.seed)
 
     def _text(self, ids) -> str:
         return self.tokenizer.decode([int(x) for x in ids if 0 <= int(x) < self.vocab.text_vocabsize]).strip()
@@ -157,7 +191,7 @@ class S2SSession:
                   keep_history: bool = False) -> Tuple[str, Optional[np.ndarray], np.ndarray]:
         """One round -> (text, waveform or None, the trimmed audio streams)."""
         batch = self._round_batch(wav_path, text_input, self.history if keep_history else "")
-        trimmed = trim_generated(self.gen.generate(batch)[0], self.vocab)
+        trimmed = trim_generated(self.gen.generate(batch, generator=self.sampler())[0], self.vocab)
         text_out = self._text(trimmed[-1])
         # trim_generated cuts every audio layer at one end index
         streams = np.stack(trimmed[:-1]) if trimmed[0].size else np.zeros((self.vocab.code_layer, 0), np.int64)
@@ -175,7 +209,8 @@ class S2SSession:
         batch = self._round_batch(wav_path, text_input)
         acc_ids: List[int] = []
         prev = ""
-        for chunk in self.gen.stream_generate(batch, stream_stride=stream_stride, codec_decoder=self.codec):
+        for chunk in self.gen.stream_generate(batch, generator=self.sampler(), stream_stride=stream_stride,
+                                              codec_decoder=self.codec):
             acc_ids.extend(int(x) for x in chunk["text_tokens"][0] if 0 <= int(x) < self.vocab.text_vocabsize)
             full = self.tokenizer.decode(acc_ids)
             delta, prev = full[len(prev):], full
@@ -187,33 +222,47 @@ class S2SSession:
 # ---------------------------------------------------------------------------
 
 
+def _tp_lines(session: S2SSession, lines) -> Iterator[str]:
+    """The input lines, read on tp rank 0 and broadcast to the tp group
+    (every tp rank decodes each round); an empty line ends them."""
+    import torch.distributed as dist
+
+    source = iter(sys.stdin if lines is None else lines) if session.writer else None
+    src = None if session.tp is None else dist.get_global_rank(session.tp.group, 0)
+    while True:
+        line = [next(source, "").strip() if source is not None else None]
+        if session.tp is not None:
+            dist.broadcast_object_list(line, src=src, group=session.tp.group)
+        if not line[0]:
+            return
+        yield line[0]
+
+
 def run_online(session: S2SSession, cfg: RunConfig, multi_round: bool, stream: bool, lines=None) -> List[str]:
     """Rounds from ``lines`` (stdin by default) until an empty line: a wav
     path or ``t:<text>``; the wavs go to ``{decode_log}/round<i>.wav``.
     Returns the texts."""
+    say = print if session.writer else (lambda *a, **k: None)
     out_dir = Path(getattr(cfg.decode_config, "decode_log", "/tmp/s2s_out"))
     out_dir.mkdir(parents=True, exist_ok=True)
     mode = "multi-round" if multi_round else ("streaming" if stream else "single")
-    print(f"S2S online ({mode}). Enter: <wav_path>  or  t:<text>  (empty line exits)")
+    say(f"S2S online ({mode}). Enter: <wav_path>  or  t:<text>  (empty line exits)")
     texts = []
-    for rnd, line in enumerate(sys.stdin if lines is None else lines):
-        line = line.strip()
-        if not line:
-            break
+    for rnd, line in enumerate(_tp_lines(session, lines)):
         wav_path, text_input = (None, line[2:]) if line.startswith("t:") else (line, None)
         if stream:
             pieces, wavs = [], []
             for text, wav in session.stream_round(wav_path, text_input,
                                                   stream_stride=getattr(cfg.decode_config, "stream_stride", 24)):
-                print(text, end="", flush=True)
+                say(text, end="", flush=True)
                 pieces.append(text)
                 if wav is not None:
                     wavs.append(wav)
-            print()
+            say()
             text, wav = "".join(pieces), np.concatenate(wavs) if wavs else None
         else:
             text, wav, _ = session.run_round(wav_path, text_input, keep_history=multi_round)
-            print(f"ASSISTANT: {text}")
+            say(f"ASSISTANT: {text}")
         if wav is not None:
             path = str(out_dir / f"round{rnd}.wav")
             write_wav(path, wav, session.codec.sample_rate)
@@ -237,25 +286,31 @@ def item_batch(item: Dict[str, Any]) -> Dict[str, np.ndarray]:
 
 def run_batch(session: S2SSession, cfg: RunConfig) -> Dict[str, Any]:
     """Manifest decode (the reference's generate_s2s_batch.py):
-    ``{decode_log}_pred`` / ``_gt`` and a wav per utterance. Returns the
-    counts, the paths, per utterance its prefill / decode / codec times,
-    decode steps and samples, and the RTF over the questions' audio (as
-    much of each as the model hears: ``max_audio_length_s`` at most)."""
+    ``{decode_log}_pred`` / ``_gt`` and a wav per utterance (this data
+    rank's items, every ``n``-th from its rank, into ``_rank{r}`` logs when
+    there are ``n`` > 1 data ranks). Returns the counts, the paths, per
+    utterance its prefill / decode / codec times, decode steps and samples,
+    and the RTF over the questions' audio (as much of each as the model
+    hears: ``max_audio_length_s`` at most)."""
     cfg.dataset_config.inference_mode = True
     ds = get_custom_dataset_factory(cfg.dataset_config)(cfg.dataset_config, session.tokenizer, "test")
+    ranks, rank = (1, 0) if session.mesh is None else (data_size(session.mesh), data_rank(session.mesh))
     log = getattr(cfg.decode_config, "decode_log", "/tmp/s2s_decode")
+    suffix = f"_rank{rank}" if ranks > 1 else ""
+    pred, gt = (log + "_pred" + suffix, log + "_gt" + suffix) if session.writer else (os.devnull, os.devnull)
     wav_dir = Path(log + "_wav")
-    wav_dir.mkdir(parents=True, exist_ok=True)
+    if session.writer:
+        wav_dir.mkdir(parents=True, exist_ok=True)
     utts, audio_s = [], 0.0
     t_all = time.perf_counter()
-    with open(log + "_pred", "w") as fp, open(log + "_gt", "w") as fg:
-        for i in range(len(ds)):
+    with open(pred, "w") as fp, open(gt, "w") as fg:
+        for i in range(rank, len(ds), ranks):
             item = ds[i]
             t = item["input_ids"].shape[1]
             batch = item_batch(item)
             audio_s += item["audio_seconds"]
             st0 = dict(session.gen.stats)
-            trimmed = trim_generated(session.gen.generate(batch)[0], session.vocab)
+            trimmed = trim_generated(session.gen.generate(batch, generator=session.sampler())[0], session.vocab)
             st = {k: session.gen.stats[k] - st0[k] for k in st0}
             key = item.get("key", str(i))
             fp.write(f"{key}\t{session._text(trimmed[-1])}\n")
@@ -271,21 +326,32 @@ def run_batch(session: S2SSession, cfg: RunConfig) -> Dict[str, Any]:
                          "decode_steps": st["decode_steps"], "audio_frames": int(trimmed[0].size),
                          "codec_s": codec_s, "samples": samples})
     seconds = time.perf_counter() - t_all
-    logger.info("wrote %s_pred / _gt (+ wavs in %s)", log, wav_dir)
-    return {"n": len(ds), "pred": log + "_pred", "gt": log + "_gt", "wav_dir": str(wav_dir), "utterances": utts,
+    if session.writer:
+        logger.info("wrote %s / %s (+ wavs in %s)", pred, gt, wav_dir)
+    return {"n": len(utts), "pred": pred, "gt": gt, "wav_dir": str(wav_dir), "utterances": utts,
             "seconds": seconds, "audio_seconds": audio_s, "rtf": seconds / audio_s if audio_s else float("nan")}
 
 
 def main(cfg: RunConfig, device="cuda"):
-    """Build the session on ``device`` and run ``decode_config.mode``;
-    returns ``run_batch``'s results or the online rounds' texts."""
+    """Build the session on ``device`` (on the ``(dp, 1, tp)`` mesh under
+    torchrun) and run ``decode_config.mode``; returns ``run_batch``'s
+    results or the online rounds' texts."""
     shard = cfg.train_config.shard
-    if shard.tp > 1 or shard.fsdp > 1:
+    if shard.fsdp > 1:
         raise NotImplementedError(
-            "generate_s2s runs one process on a whole model (ROADMAP Queue 1: a multi-rank generate_s2s, then the "
-            "tp split of the S2S heads)")
-    session = S2SSession(cfg, device)
+            "a decode sharded over fsdp (shard.fsdp > 1) is not ported: each data rank decodes on a whole "
+            "replica or its tp shard (ROADMAP Queue 1: a sharded decode)")
+    mesh = None
+    if maybe_init_distributed(device):
+        mesh = make_mesh(dp=-1, fsdp=1, tp=shard.tp, device_type=resolve_device(device).type)
+    elif shard.tp > 1:
+        raise ValueError(f"shard.tp={shard.tp} needs {shard.tp} processes (torchrun); this is one")
     mode = getattr(cfg.decode_config, "mode", "online")
+    if mode != "batch" and mesh is not None and data_size(mesh) > 1:
+        raise NotImplementedError(
+            f"generate_s2s {mode} decodes one dialogue: run it on the tp ranks alone (world = shard.tp), "
+            f"not on {data_size(mesh)} data ranks")
+    session = S2SSession(cfg, device, mesh)
     if mode == "batch":
         return run_batch(session, cfg)
     return run_online(session, cfg, multi_round="multi_round" in mode, stream="stream" in mode)
@@ -293,7 +359,10 @@ def main(cfg: RunConfig, device="cuda"):
 
 def main_cli(argv: Optional[List[str]] = None):
     argv, device = parse_device(list(sys.argv[1:] if argv is None else argv))
-    return main(load_run_config(argv), device=device)
+    try:
+        return main(load_run_config(argv), device=device)
+    finally:
+        destroy_process_group()
 
 
 if __name__ == "__main__":

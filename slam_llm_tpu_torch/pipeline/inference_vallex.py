@@ -158,8 +158,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(
-            "inference_vallex runs one process on a whole model (ROADMAP Queue 1: a multi-rank inference_vallex, "
-            "then the tp split of VALL-E X)")
+            "inference_vallex runs one process on a whole model, as the JAX package's does (ROADMAP, Do not port: "
+            "a multi-rank inference_vallex)")
     dev = resolve_device(device)
     model = load_vallex(args.ckpt_path, args.llm_name, dev)
     cfg = model.cfg

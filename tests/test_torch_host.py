@@ -179,15 +179,23 @@ def test_samplers_give_the_same_batch_order(seed):
 
 @pytest.mark.parametrize("worker_type", ["thread", "process"])
 def test_build_dataloader_yields_identical_batches(tmp_path, worker_type):
+    """The port's loader with ``worker_type`` against the JAX loader's thread
+    route (which ``tests/test_loader.py`` holds equal to its process route,
+    so this case makes no ``psm_*`` segment beside that test's leak check);
+    the process route leaves none of the port's ``SHM_PREFIX`` segments."""
     manifest = make_corpus(tmp_path, n=6)
-    kw = dict(batch_size=2, shuffle=True, seed=3, num_workers=2, worker_type=worker_type)
+    kw = dict(batch_size=2, shuffle=True, seed=3, num_workers=2)
+    before = set(Path("/dev/shm").glob(tloader.SHM_PREFIX + "*"))
     got = list(tloader.build_dataloader(
-        tspeech.get_speech_dataset(_dataset_config(tconfig, manifest), ttok.ByteTokenizer(), "train"), **kw))
+        tspeech.get_speech_dataset(_dataset_config(tconfig, manifest), ttok.ByteTokenizer(), "train"),
+        worker_type=worker_type, **kw))
     want = list(jloader.build_dataloader(
-        jspeech.get_speech_dataset(_dataset_config(jconfig, manifest), jtok.ByteTokenizer(), "train"), **kw))
+        jspeech.get_speech_dataset(_dataset_config(jconfig, manifest), jtok.ByteTokenizer(), "train"),
+        worker_type="thread", **kw))
     assert len(got) == len(want) == 3
     for a, b in zip(got, want):
         _assert_batches_equal(a, b)
+    assert set(Path("/dev/shm").glob(tloader.SHM_PREFIX + "*")) - before == set()
 
 
 def test_registry_resolves_like_the_reference_and_names_the_unported(tmp_path):

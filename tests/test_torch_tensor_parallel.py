@@ -566,24 +566,24 @@ def test_tp2_decode_writes_logs_equal_to_one_process(runs):
 
 
 def test_unsplit_paths_raise_under_tp(tmp_path, monkeypatch):
-    """(h) generate_s2s, inference_vallex and a decode sharded over fsdp
-    raise under tp > 1 (or several processes), naming their ROADMAP queue;
-    so does a model with no decoder LLM to split."""
+    """(h) A decode sharded over fsdp (``inference_batch`` and
+    ``generate_s2s`` under ``shard.fsdp=2``) and inference_vallex under
+    several processes raise, naming their ROADMAP entry; so does a model
+    with no decoder LLM to split. (generate_s2s under tp runs:
+    ``tests/test_torch_s2s_tp.py``.)"""
     from slam_llm_tpu_torch.config import RunConfig, set_by_path
     from slam_llm_tpu_torch.models.vallex import VALLE, VallexConfig
     from slam_llm_tpu_torch.parallel.tensor_parallel import split_for_tp
     from slam_llm_tpu_torch.pipeline import generate_s2s, inference_batch, inference_vallex
 
     cfg = RunConfig()
-    set_by_path(cfg, "train_config.shard.tp", 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: a multi-rank generate_s2s"):
-        generate_s2s.main(cfg, device="cpu")
-    cfg = RunConfig()
     set_by_path(cfg, "train_config.shard.fsdp", 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: a sharded decode"):
+        generate_s2s.main(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: a sharded decode"):
         inference_batch.main(cfg, device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: a multi-rank inference_vallex"):
+    with pytest.raises(NotImplementedError, match="ROADMAP, Do not port: a multi-rank inference_vallex"):
         inference_vallex.main(["--ckpt_path", "x", "--codec_path", "x", "--prompt_text", "a", "--prompt_codes", "x",
                                "--target_text", "b", "--save_path", str(tmp_path / "o.wav"), "--device", "cpu"])
 
