@@ -50,7 +50,7 @@ Phases, each fatal on failure:
   4. decode  -- the recipe examples/asr_librispeech/conf/asr_whisper_tinyllama.yaml
                 through slam_llm_tpu_torch.pipeline.inference_batch on 16
                 synthetic utterances (whisper-small, TinyLlama-1.1B int8 base,
-                beam 4, 32 new tokens, random weights from the recipe's
+                beam 4, 12 new tokens, random weights from the recipe's
                 seed), with kernel launch counts (K3's split-K path must
                 run), a prefill-logit check against the CPU plain path
                 (the model cut to 2 + 2 layers), and throughput;
@@ -239,19 +239,27 @@ Phases, each fatal on failure:
                 of a whole-row K2 run) and K3's s32 mode and epilogue
                 (bit-equal to the fused bf16 / f32 path) at a rank's widths;
                 (b) whether gloo runs all_reduce SUM / MAX (f32, int32,
-                int64) and all_gather on CUDA tensors; if it does, two
-                torchrun ranks on this card over gloo: the ASR recipe
-                through pipeline.finetune at shard.tp=2, phase 5's first
-                step of 16 (the loss within one bf16 rounding, the grad norm
-                within 1e-2), inference_batch at tp=2 line for line against
-                phase 4's first 8, s2s_qwen at 2 layers of Qwen2-7B's widths
-                at tp=2 against phase 19 (b)'s first 2 steps (its heads split
-                over the vocabulary: no rank gathers more than one CE chunk
-                of logits), generate_s2s at tp=2 against world size 1; the
-                launches count on the `tensor_parallel` path.
+                int64), all_gather and FSDP2's all_gather_into_tensor (bf16,
+                f32, uint8) on CUDA tensors; where it does, two torchrun
+                ranks on this card over gloo: the ASR recipe (whisper, the
+                projector and the LLM split) through pipeline.finetune at
+                shard.tp=2, phase 5's first step of 16 (the loss within one
+                bf16 rounding, the grad norm within 1e-2), inference_batch
+                at tp=2 line for line against phase 4's first 8, s2s_qwen at
+                2 layers of Qwen2-7B's widths at tp=2 against phase 19 (b)'s
+                first step (its heads split over the vocabulary: no rank
+                gathers more than one CE chunk of logits), generate_s2s at
+                tp=2 against world size 1; then the decodes sharded over
+                fsdp=2: inference_batch on phase 4's 16 utterances (a batch
+                a rank) line for line phase 4's, generate_s2s against world
+                size 1, each rank's decode steps and its own last useful
+                steps, every module computing with plain, contiguous
+                parameters; the launches count on the `tensor_parallel` path.
                 (c) with two or more cards (NCCL) the ASR recipe at tp=2,
-                with four also tp=4, fsdp=2 x tp=2 and s2s_qwen at Qwen2-7B's
-                full 28 layers at tp=4 and fsdp=2 x tp=2 (run_multi_card_tp);
+                with four also tp=4, fsdp=2 x tp=2, s2s_qwen at Qwen2-7B's
+                full 28 layers at tp=4 and fsdp=2 x tp=2 (run_multi_card_tp),
+                and the decodes at fsdp=4 and fsdp=2 x tp=2 against one card,
+                s2s_qwen's at 28 layers at fsdp=4 (run_multi_card_decode);
                 otherwise a line says why not.
 
 Prints one JSON line of kernel results before the last line, and as the last
@@ -266,6 +274,7 @@ import contextlib
 import datetime
 import itertools
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -1192,6 +1201,8 @@ TP_K1_CASES = [case for tp in TP_SIZES for case in (
     (f"qwen2-7b training (s2s) at tp={tp}, fused RoPE theta 1e6, left-padded", 8, 1536, 28 // tp, 4 // tp, 128, True,
      "left", 1e6),
     (f"qwen2-7b prefill at tp={tp}, left-padded", 8, 128, 28 // tp, 4 // tp, 128, True, "left", 0),
+    # the whisper encoder split over tp: whisper-small's heads a rank, the slice's decode batch
+    (f"whisper-small self-attn at tp={tp}", 8, 1500, 12 // tp, 12 // tp, 64, False, "right", 0),
 )]
 # K2's row-split passes and K3's s32 mode at a rank's widths: (label, M, K
 # of the rank's columns, the whole row's K, dtype, fold, rotation block)
@@ -1486,8 +1497,9 @@ def write_corpus(root: Path, n: int = 16, seed: int = 0, name: str = "test", tar
 
 RECIPE_LAYERS = 22  # TinyLlama-1.1B's decoder layers
 # the decode's new tokens (the recipe's 200, cut: a random model rarely stops early, so each beam step of the
-# phase and of phases 19-20, which repeat it, runs to this length)
-SLICE_NEW_TOKENS = 32
+# phase and of phases 19-20, which repeat it, runs to this length; 12 since phase 20 (b) decodes it over fsdp
+# on gloo, ~3 s a beam step)
+SLICE_NEW_TOKENS = 12
 RECIPE_CHECK_LAYERS = 2  # LLM and encoder depth of phases 4-6's card-vs-CPU checks (full widths)
 
 # the kernels decode runs; K3's beam steps (M = 32) take its split-K path
@@ -1629,7 +1641,8 @@ def run_slice() -> dict:
         f"{res['decode_steps']} beam steps: {launches['rowquant'] / forwards / RECIPE_LAYERS:.2f} per layer per "
         f"forward (q / k / v share one, gate / up one)")
     check_prefill_against_cpu(cfg)
-    PHASE["decode"] = {"args": args, "pred": res["pred"], "seconds": res["seconds"]}
+    PHASE["decode"] = {"args": args, "pred": res["pred"], "seconds": res["seconds"], "peak_gib": peak / 2**30,
+                       "step_ms": 1000 * res["decode_s"] / max(res["decode_steps"], 1)}
     return launches
 
 
@@ -4972,7 +4985,68 @@ def _plain_param_check():
             handles.clear()
 
     Trainer.state_from_params, Trainer.train_step = state_from_params, train_step
+    _decode_param_check(hook)
     return bad, seen
+
+
+def _decode_param_check(hook) -> None:
+    """``hook`` installed, for the whole decode, on every module with
+    parameters of its own of a model that a generator binds under FSDP2
+    (the sharded decodes: ``inference.generate.Generator`` and
+    ``models.s2s.S2SGenerator``)."""
+    from torch.distributed.fsdp import FSDPModule
+
+    from slam_llm_tpu_torch.inference.generate import Generator
+    from slam_llm_tpu_torch.models.s2s import S2SGenerator
+
+    for cls in (Generator, S2SGenerator):
+        original = cls.__init__
+
+        def init(self, model, *args, _original=original, **kwargs):
+            _original(self, model, *args, **kwargs)
+            if isinstance(model, FSDPModule):
+                for mod in model.modules():
+                    if any(True for _ in mod.parameters(recurse=False)):
+                        mod.register_forward_pre_hook(hook)
+
+        cls.__init__ = init
+
+
+@contextlib.contextmanager
+def decode_memory(record: dict):
+    """Inside, a generator's construction (once the entry point has built,
+    filled and sharded the model) records the card's resident GiB and the
+    peak so far (the build's) into ``record``, then resets the peak
+    counter: the peak read after the run is the decode's own."""
+    from slam_llm_tpu_torch.inference.generate import Generator
+    from slam_llm_tpu_torch.models.s2s import S2SGenerator
+
+    originals = {cls: cls.__init__ for cls in (Generator, S2SGenerator)}
+
+    def wrap(init):
+        def init_and_record(self, *args, **kwargs):
+            init(self, *args, **kwargs)
+            record.update(resident_gib=torch.cuda.memory_allocated() / 2**30,
+                          build_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            torch.cuda.reset_peak_memory_stats()
+        return init_and_record
+
+    for cls, init in originals.items():
+        cls.__init__ = wrap(init)
+    try:
+        yield record
+    finally:
+        for cls, init in originals.items():
+            cls.__init__ = init
+
+
+def _all_ranks(info: dict) -> list:
+    """Every rank's ``info``, in rank order (a collective of every rank)."""
+    import torch.distributed as dist
+
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, info)
+    return got
 
 
 def _step_peaks() -> dict:
@@ -4995,6 +5069,52 @@ def _step_peaks() -> dict:
 
     Trainer.train_step = train_step
     return peaks
+
+
+# phase 20 (b)'s gap check: the bf16 whisper-small encoder and linear projector at tp=2 against the same
+# modules whole differ by summation order only (a few bf16 roundings, relative); a wrong split or a bias
+# added twice moves the outputs by about their own size
+TP_GAP_RTOL = 2.0 ** -5
+
+
+def tp_gap(device: str) -> dict:
+    """Phase 20 (b), on each rank: asr_whisper_tinyllama.yaml's whisper-small
+    encoder and linear projector (bf16, random weights from seed 0) on 8
+    random 30 s mels, whole and then split at tp=2 (this rank's shards):
+    the split modules' outputs against the whole ones'. No kernel count is
+    read here."""
+    from slam_llm_tpu_torch.models import projector as tproj
+    from slam_llm_tpu_torch.models import whisper as twhisper
+    from slam_llm_tpu_torch.parallel.sharding import make_mesh
+    from slam_llm_tpu_torch.parallel.tensor_parallel import split_projector, split_whisper, tp_of
+    from slam_llm_tpu_torch.pipeline.common import init_params_
+
+    ecfg = twhisper.WhisperEncoderConfig.small()
+    pcfg = tproj.ProjectorConfig(encoder_dim=ecfg.d_model, llm_dim=2048, ds_rate=5, hidden_dim=2048)
+    enc, proj = twhisper.WhisperEncoder(ecfg, device), tproj.build_projector("linear", pcfg, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    init_params_(enc, gen)
+    init_params_(proj, gen)
+    mel = torch.randn((8, 3000, ecfg.n_mels), generator=gen, device=device)
+    mask = torch.ones((8, 3000), dtype=torch.int32, device=device)
+    tp = tp_of(make_mesh(dp=1, fsdp=1, tp=2, device_type=torch.device(device).type))
+
+    def run():
+        e = enc(mel, mask)[0]
+        return e, proj(e)
+
+    def gap(a, b):
+        d = (a.float() - b.float())
+        return {"max_abs": float(d.abs().max()), "rel": float(torch.linalg.norm(d) / torch.linalg.norm(b.float())),
+                "differ": float((a != b).float().mean()), "scale": float(b.float().abs().max())}
+
+    with torch.no_grad():
+        whole = run()
+        split_whisper(enc, tp)
+        split_projector(proj, tp)
+        split = run()
+    return {"encoder": gap(split[0], whole[0]), "projector": gap(split[1], whole[1]),
+            "shape": [list(whole[0].shape), list(whole[1].shape)], "heads": enc.layers[0].attn.n_heads}
 
 
 def distributed_job(path: str) -> None:
@@ -5020,6 +5140,15 @@ def distributed_job(path: str) -> None:
         raise RuntimeError("phase 19's job runs under torchrun")
     rank, world = dist.get_rank(), dist.get_world_size()
     bad, seen = _plain_param_check()
+    notes = []  # the split and sharding the entry points log (rank 0's, each once)
+
+    class Notes(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if msg.startswith(("tensor parallel tp=", "sharded decode")) and msg not in notes:
+                notes.append(msg)
+
+    logging.getLogger("slam_llm_tpu_torch").addHandler(Notes())
     step_peaks = _step_peaks()
     out = {"world": world, "backend": dist.get_backend(), "launches": {}, "device": torch.cuda.current_device()}
 
@@ -5040,10 +5169,13 @@ def distributed_job(path: str) -> None:
 
     for name in job["run"]:
         t0 = time.perf_counter()
-        if name == "probe":  # phase 20 (b): the rest runs only where gloo runs every collective
+        if name == "probe":  # phase 20 (b): each run goes only where gloo runs its collectives
             out["probe"] = gloo_probe()
-            if not all(v is True for v in out["probe"].values()):
-                break
+            continue
+        if "probe" in out and not probe_allows(out["probe"], name):
+            continue
+        if name == "tp_gap":
+            out["tp_gap"] = tp_gap(device)
             continue
         if name == "asr":
             cfg = finetune.load_run_config(job["asr_args"])
@@ -5058,16 +5190,37 @@ def distributed_job(path: str) -> None:
                 res, launches = run_counted(lambda: generate_s2s.main(cfg, device=device))
             out["s2s_decode"] = {"pred": res["pred"], "n": res["n"], "seconds": res["seconds"],
                                  "steps": sum(u["decode_steps"] for u in res["utterances"])}
+        elif name == "fsdp_decode":  # inference_batch sharded over fsdp: each rank's steps and its own last
+            cfg = inference_batch.load_run_config(job["fsdp_decode_args"])
+            torch.cuda.reset_peak_memory_stats()
+            with decode_memory({}) as mem:
+                res, launches = run_counted(lambda: inference_batch.main(cfg, device=device))
+            out["fsdp_decode"] = {"ranks": _all_ranks({
+                "pred": res["pred"], "n": res["n"], "seconds": res["seconds"], "steps": res["decode_steps"],
+                "useful": res["useful_steps"], "step_ms": 1000 * res["decode_s"] / max(res["decode_steps"], 1),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30, **mem})}
+        elif name == "fsdp_s2s_decode":  # generate_s2s batch mode sharded over fsdp
+            cfg = _s2s_config(generate_s2s.load_run_config, *job["fsdp_s2s_decode_args"])
+            dtype = {"float32": torch.float32}.get(job.get("s2s_dtype"))
+            torch.cuda.reset_peak_memory_stats()
+            with qwen2_layers(job.get("s2s_layers", S2S_LAYERS), dtype), decode_memory({}) as mem:
+                res, launches = run_counted(lambda: generate_s2s.main(cfg, device=device))
+            out["fsdp_s2s_decode"] = {"ranks": _all_ranks({
+                "pred": res["pred"], "n": res["n"], "seconds": res["seconds"],
+                "steps": [(u["key"], u["decode_steps"], u["useful_steps"]) for u in res["utterances"]],
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30, **mem})}
         else:
             cfg = inference_batch.load_run_config(job["decode_args"])
             res, launches = run_counted(lambda: inference_batch.main(cfg, device=device))
             out["decode"] = {"pred": res["pred"], "n": res["n"], "seconds": res["seconds"]}
         for k, v in launches.items():
             out["launches"][k] = out["launches"].get(k, 0) + v
+        out.setdefault("launches_by_run", {})[name] = {k: v for k, v in launches.items() if v}
         if rank == 0:
             print(f"[distributed rank 0/{world}] {name} in {time.perf_counter() - t0:.1f} s, launches "
                   f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     out["plain_params"] = {"checked": seen[0], "dtensor_or_strided": sorted(set(bad))}
+    out["notes"] = notes
     if rank == 0:
         Path(job["out"]).write_text(json.dumps(out))
     dist.destroy_process_group()
@@ -5214,17 +5367,26 @@ TP_LAUNCH_TIMEOUT_S = 480  # phase 20's torchrun (b): two ranks through gloo on 
 # (b)'s cut: gloo stages every collective through the host (~13 s a step of 16, ~0.25 s a beam step), so it
 # runs phase 5's first step and phase 4's first batch of 8
 TP_GLOO_STEPS, TP_GLOO_UTTS = 1, 8
-# (b)'s S2S cut: phase 19 (b)'s first 2 steps (its corpus; the 1536 and 1024 buckets come first), and
-# generate_s2s on 2 questions of 32 new tokens with the LLM in f32: a greedy token flips only where the
-# two runs' logits round apart, which bf16's rounding of the logits (2^-5 at their largest) would make likely
-TP_S2S_STEPS, TP_S2S_QUESTIONS, TP_S2S_NEW = 2, 2, 32
+# (b)'s S2S cut: phase 19 (b)'s first step (its corpus; the 1536 bucket comes first), and generate_s2s on
+# 2 questions of 8 new tokens: at tp=2 with the LLM in f32 (a greedy token flips only where the two runs'
+# logits round apart, which bf16's rounding of the logits, 2^-5 at their largest, would make likely), and at
+# fsdp=2 in the recipe's bf16 (FSDP2 gathers exact copies; a step gathers the 2 layers through the host)
+TP_S2S_STEPS, TP_S2S_QUESTIONS, TP_S2S_NEW = 1, 2, 8
+
+
+# the all-gathers FSDP2 runs in a sharded decode here: a unit whose tensors share
+# one dtype gathers in it (whisper's blocks bf16, S2S's f32 LLM), a unit of mixed
+# dtypes as bytes (uint8: the int8 base's one-byte carriers with their f32 scales)
+FSDP_GATHER_DTYPES = (torch.bfloat16, torch.float32, torch.uint8)
 
 
 def gloo_probe() -> dict:
     """Whether this process group (gloo) runs the collectives tensor
     parallelism needs on CUDA tensors: all_reduce SUM / MAX of f32, int32
-    and int64, and all_gather; each checked against its expected value, or
-    the error it raised."""
+    and int64, and all_gather; and those of a sharded decode:
+    all_gather_into_tensor of ``FSDP_GATHER_DTYPES`` and of the int8 base's
+    carrier dtype (which FSDP2 gathers inside a uint8 buffer here); each
+    checked against its expected value, or the error it raised."""
     import torch.distributed as dist
 
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -5243,7 +5405,28 @@ def gloo_probe() -> dict:
         got["all_gather f32"] = all(bool((p == r).all().item()) for r, p in enumerate(parts))
     except Exception as e:
         got["all_gather f32"] = f"{type(e).__name__}: {e}"[:200]
+    from slam_llm_tpu_torch.parallel.sharding import INT8_CARRIER
+
+    for dt in (*FSDP_GATHER_DTYPES, INT8_CARRIER):
+        key = f"all_gather_into_tensor {str(dt).split('.')[-1]}"
+        try:
+            part = torch.full((16,), rank + 1, dtype=torch.float32, device="cuda").to(dt)
+            whole = torch.empty(16 * world, dtype=dt, device="cuda")
+            dist.all_gather_into_tensor(whole, part)
+            got[key] = bool((whole.float().reshape(world, 16) == torch.arange(1, world + 1, device="cuda")[:, None])
+                            .all().item())
+        except Exception as e:
+            got[key] = f"{type(e).__name__}: {e}"[:200]
     return got
+
+
+def probe_allows(probe: dict, run: str) -> bool:
+    """Whether the gloo probe's answers let ``run`` go: the sharded decodes
+    need FSDP2's all-gathers, the tp runs every tp collective."""
+    if run.startswith("fsdp_"):
+        return all(probe.get(f"all_gather_into_tensor {str(dt).split('.')[-1]}") is True
+                   for dt in FSDP_GATHER_DTYPES)
+    return all(v is True for k, v in probe.items() if not k.startswith("all_gather_into_tensor"))
 
 
 def run_tensor_parallel() -> dict:
@@ -5272,7 +5455,7 @@ def run_tensor_parallel() -> dict:
     questions = write_s2s_corpus(tmp, "questions", [30] * TP_S2S_QUESTIONS, seed=3)
     s2s_decode = ["++decode_config.mode=batch", f"++dataset_config.val_data_path={questions}",
                   f"++decode_config.max_new_tokens={TP_S2S_NEW}"]
-    job = {"backend": "gloo", "run": ["probe", "asr", "decode", "s2s", "s2s_decode"],
+    job = {"backend": "gloo", "run": ["probe", "tp_gap", "asr", "decode", "s2s", "s2s_decode", "fsdp_decode", "fsdp_s2s_decode"],
            "asr_args": [*train["args"], f"++train_config.output_dir={tmp / 'asr'}", "++train_config.shard.tp=2",
                         f"++train_config.max_steps_per_epoch={TP_GLOO_STEPS}", "++train_config.run_validation=false"],
            "decode_args": [*decode["args"], f"++decode_config.decode_log={tmp / 'decode'}",
@@ -5281,9 +5464,24 @@ def run_tensor_parallel() -> dict:
                         "++train_config.save_model=false", "++train_config.run_validation=false",
                         f"++train_config.max_steps_per_epoch={TP_S2S_STEPS}", "++train_config.shard.tp=2"],
            "s2s_decode_args": [*s2s_decode, f"++decode_config.decode_log={tmp / 's2s_tp2'}",
-                               "++train_config.shard.tp=2"]}
+                               "++train_config.shard.tp=2"],
+           # the sharded decodes: phase 4's 16 utterances (a batch of 8 a rank), and TP_S2S_QUESTIONS questions
+           "fsdp_decode_args": [*decode["args"], f"++decode_config.decode_log={tmp / 'fsdp2'}",
+                                "++train_config.shard.fsdp=2"],
+           "fsdp_s2s_decode_args": [*s2s_decode, f"++decode_config.decode_log={tmp / 's2s_fsdp2'}",
+                                    "++train_config.shard.fsdp=2"]}
     got = _torchrun(2, job, tmp, timeout=TP_LAUNCH_TIMEOUT_S)
     log(f"[tensor parallel] (b) gloo on CUDA tensors (torch {torch.__version__}): {got['probe']}")
+    for note in got.get("notes", []):
+        log(f"[tensor parallel] (b) rank 0: {note}")
+    if "tp_gap" in got:
+        g = got["tp_gap"]
+        log(f"[tensor parallel] (b) whisper-small + linear projector in bf16, split at tp=2 ({g['heads']} heads a "
+            f"rank) against whole, outputs {g['shape']}: encoder {g['encoder']}, projector {g['projector']} "
+            f"(max_abs / rel: the difference's largest entry and norm over the whole output's; differ: the share of "
+            f"entries not bit-equal; scale: the output's largest entry) | {SMI}")
+        if max(g["encoder"]["rel"], g["projector"]["rel"]) > TP_GAP_RTOL:
+            raise AssertionError(f"(b): the split whisper / projector differ from whole by more than {TP_GAP_RTOL}")
     if "asr" in got:
         if got["world"] != 2 or got["backend"] != "gloo":
             raise AssertionError(f"phase 20 (b) ran on {got['world']} ranks over {got['backend']}")
@@ -5313,6 +5511,12 @@ def run_tensor_parallel() -> dict:
     else:
         log("[tensor parallel] (b) not run: gloo does not run every tp collective on CUDA tensors here (above), and "
             "NCCL refuses two ranks on one card")
+    if "fsdp_decode" in got:
+        check_fsdp_gloo(got, decode, s2s_world1(tmp / "s2s_one_bf16", s2s_decode, dtype=None))
+        launches = got["launches"]
+    else:
+        log("[tensor parallel] (b) the fsdp=2 decodes were not run: gloo does not run FSDP2's all-gathers of "
+            f"{[str(dt).split('.')[-1] for dt in FSDP_GATHER_DTYPES]} on CUDA tensors here (above)")
     if torch.cuda.device_count() >= 2:
         run_multi_card_tp(train, tmp)
     else:
@@ -5334,7 +5538,6 @@ def run_s2s_gloo(got: dict, log_prefix: Path, decode_args: list) -> None:
     never (B, T, vocabulary)); then ``generate_s2s`` at tp=2, its ``_pred``
     against the same run at world size 1 here (the LLM in f32)."""
     from slam_llm_tpu_torch.models.llm import LLMConfig
-    from slam_llm_tpu_torch.pipeline import generate_s2s
 
     s2s, want = got["s2s"], {"steps": PHASE["s2s_dist"]["steps"][:TP_S2S_STEPS]}
     exact = _same_run(f"(b) s2s_qwen at {S2S_LAYERS} layers at tp=2 (gloo, two ranks on one card) vs phase 19 (b)'s "
@@ -5350,9 +5553,8 @@ def run_s2s_gloo(got: dict, log_prefix: Path, decode_args: list) -> None:
     if not gathered or int(np.prod(gathered[:-1])) > S2S_BATCH * chunk:
         raise AssertionError(f"(b) s2s at tp=2 gathered {gathered}: more than one CE chunk of logits")
 
-    cfg = _s2s_config(generate_s2s.load_run_config, *decode_args, f"++decode_config.decode_log={log_prefix}")
-    with qwen2_layers(S2S_LAYERS, torch.float32):
-        one, launches = run_counted(lambda: generate_s2s.main(cfg, device="cuda"))
+    one = s2s_world1(log_prefix, decode_args)
+    launches = one["launches"]
     tp2 = got["s2s_decode"]
     same = Path(tp2["pred"]).read_text() == Path(one["pred"]).read_text()
     log(f"[tensor parallel] (b) generate_s2s batch, {TP_S2S_QUESTIONS} questions, greedy, {TP_S2S_NEW} new tokens, "
@@ -5363,6 +5565,61 @@ def run_s2s_gloo(got: dict, log_prefix: Path, decode_args: list) -> None:
     if not same or tp2["n"] != TP_S2S_QUESTIONS or one["n"] != TP_S2S_QUESTIONS:
         raise AssertionError("(b): generate_s2s at tp=2 differs from world size 1:\n"
                              f"{Path(tp2['pred']).read_text()!r}\n{Path(one['pred']).read_text()!r}")
+
+
+def s2s_world1(log_prefix: Path, decode_args: list, layers: int = S2S_LAYERS, dtype=torch.float32) -> dict:
+    """``generate_s2s`` batch mode in this process (world size 1) at
+    ``layers`` layers of Qwen2-7B's widths: its results, launches, and the
+    decode's peak GiB beside the build's and the resident model's
+    (``decode_memory``)."""
+    from slam_llm_tpu_torch.pipeline import generate_s2s
+
+    cfg = _s2s_config(generate_s2s.load_run_config, *decode_args, f"++decode_config.decode_log={log_prefix}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with qwen2_layers(layers, dtype), decode_memory({}) as mem:
+        one, launches = run_counted(lambda: generate_s2s.main(cfg, device="cuda"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()  # the session is gone: its card's memory goes back for the ranks
+    return {**one, "launches": launches, "peak_gib": peak, **mem}
+
+
+def check_fsdp_gloo(got: dict, decode: dict, one_s2s: dict) -> None:
+    """Phase 20 (b)'s sharded decodes, two ranks on one card over gloo at
+    ``shard.fsdp=2``: inference_batch on phase 4's 16 utterances (rank r
+    decodes batch r of 8), its two rank logs in rank order line for line
+    phase 4's ``_pred``; generate_s2s batch mode on TP_S2S_QUESTIONS
+    questions (bf16), its rank logs against the world-size-1 decode. Each
+    rank's decode steps and its own last useful step are
+    logged: the ranks step in lockstep, each as long as the longest."""
+    fsdp = got["fsdp_decode"]["ranks"]
+    lines = [line for rank in fsdp for line in Path(rank["pred"]).read_text().splitlines()]
+    want = Path(decode["pred"]).read_text().splitlines()
+    for r, rank in enumerate(fsdp):
+        log(f"[tensor parallel] (b) inference_batch at fsdp=2, rank {r}: {rank['n']} utterances, {rank['steps']} "
+            f"decode steps, its own last useful steps summed {rank['useful']}, {rank['step_ms']:.2f} ms a step, "
+            f"decode loop {rank['seconds']:.2f} s; {rank['resident_gib']:.2f} GiB resident once sharded, the "
+            f"decode's peak {rank['peak_gib']:.2f} GiB (the build's {rank['build_peak_gib']:.2f}) | {SMI}")
+    log(f"[tensor parallel] (b) inference_batch at fsdp=2 (gloo, two ranks on one card): {len(lines)} lines, equal "
+        f"to phase 4's {lines == want}; launches {got['launches_by_run']['fsdp_decode']}; parameters computed with "
+        f"{got['plain_params']}")
+    if lines != want or len({rank["steps"] for rank in fsdp}) != 1:
+        raise AssertionError("(b): the fsdp=2 decode differs from phase 4's, or its ranks took different steps")
+    missing = [k for k in ("flash_attention_fwd", "rowquant", "int8_matmul")
+               if not got["launches_by_run"]["fsdp_decode"].get(k)]
+    if missing or got["plain_params"]["dtensor_or_strided"]:
+        raise AssertionError(f"(b): the fsdp=2 decode launched no {missing}, or computed with {got['plain_params']}")
+    s2s = got["fsdp_s2s_decode"]["ranks"]
+    text = "".join(Path(rank["pred"]).read_text() for rank in s2s)
+    for r, rank in enumerate(s2s):
+        log(f"[tensor parallel] (b) generate_s2s at fsdp=2, rank {r}: (key, decode steps, own useful steps) "
+            f"{rank['steps']}, {rank['seconds']:.2f} s; {rank['resident_gib']:.2f} GiB resident, the decode's peak "
+            f"{rank['peak_gib']:.2f} GiB (the build's {rank['build_peak_gib']:.2f})")
+    log(f"[tensor parallel] (b) generate_s2s batch at fsdp=2, {TP_S2S_QUESTIONS} questions, bf16: _pred "
+        f"equal to world size 1's {text == Path(one_s2s['pred']).read_text()}")
+    if text != Path(one_s2s["pred"]).read_text() or sum(rank["n"] for rank in s2s) != TP_S2S_QUESTIONS:
+        raise AssertionError(f"(b): generate_s2s at fsdp=2 differs from world size 1:\n{text!r}\n"
+                             f"{Path(one_s2s['pred']).read_text()!r}")
 
 
 def run_multi_card_tp(one: dict, tmp: Path) -> None:
@@ -5388,6 +5645,56 @@ def run_multi_card_tp(one: dict, tmp: Path) -> None:
         log("[tensor parallel] (c) s2s_qwen.yaml at 28 layers was not run: it needs four cards")
         return
     run_s2s_tp(tmp)
+    run_multi_card_decode(PHASE["decode"], tmp)
+
+
+def run_multi_card_decode(decode: dict, tmp: Path) -> None:
+    """Phase 20 (c)'s sharded decodes on four cards (NCCL): inference_batch
+    of phase 4's 16 utterances at fsdp=4 and at fsdp=2 x tp=2, each rank
+    log line for line phase 4's (a data rank past the two batches decodes a
+    wrapped one), a beam step's ms at each mesh against one card's; then
+    ``s2s_qwen.yaml`` at Qwen2-7B's 28 layers (bf16), generate_s2s batch
+    mode at fsdp=4 against this card alone, rank 0's peak GiB against one
+    card's."""
+    want = Path(decode["pred"]).read_text().splitlines()
+    for extra in (("++train_config.shard.fsdp=4",), ("++train_config.shard.fsdp=2", "++train_config.shard.tp=2")):
+        label = " x ".join(e.split(".")[-1] for e in extra)
+        got = _torchrun(4, {"run": ["fsdp_decode"], "fsdp_decode_args": [
+            *decode["args"], f"++decode_config.decode_log={tmp / ('decode_' + label.replace(' x ', '_'))}", *extra]},
+            tmp, timeout=TP_LAUNCH_TIMEOUT_S)
+        ranks = got["fsdp_decode"]["ranks"]
+        writers = {Path(r["pred"]) for r in ranks if r["pred"] != os.devnull}
+        merged = {}
+        for path in writers:
+            merged.update(line.split("\t", 1) for line in path.read_text().splitlines())
+        same = [f"{k}\t{merged.get(k)}" for k in (line.split("\t", 1)[0] for line in want)] == want
+        log(f"[tensor parallel] (c) inference_batch on 4 cards at {label}: {len(writers)} rank logs, line for line "
+            f"phase 4's {same}; a beam step {[round(r['step_ms'], 2) for r in ranks]} ms a rank vs one card's "
+            f"{decode['step_ms']:.2f} ms; decode steps {[r['steps'] for r in ranks]}, own useful "
+            f"{[r['useful'] for r in ranks]}; rank 0: {ranks[0]['resident_gib']:.2f} GiB resident, the decode's peak "
+            f"{ranks[0]['peak_gib']:.2f} (the build's {ranks[0]['build_peak_gib']:.2f}) vs one card's run "
+            f"{decode['peak_gib']:.2f} | {SMI}")
+        if not same or got["plain_params"]["dtensor_or_strided"]:
+            raise AssertionError(f"(c) the decode at {label} differs from phase 4's, or computed with "
+                                 f"{got['plain_params']}")
+    questions = write_s2s_corpus(tmp, "questions4", [30] * TP_S2S_QUESTIONS, seed=3)
+    args = ["++decode_config.mode=batch", f"++dataset_config.val_data_path={questions}",
+            f"++decode_config.max_new_tokens={TP_S2S_NEW}"]
+    one = s2s_world1(tmp / "s2s28_one", args, layers=28, dtype=None)
+    got = _torchrun(4, {"run": ["fsdp_s2s_decode"], "s2s_layers": 28, "fsdp_s2s_decode_args": [
+        *args, f"++decode_config.decode_log={tmp / 's2s28_fsdp4'}", "++train_config.shard.fsdp=4"]},
+        tmp, timeout=TP_LAUNCH_TIMEOUT_S, env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    ranks = got["fsdp_s2s_decode"]["ranks"]
+    text = "".join(Path(r["pred"]).read_text() for r in ranks)
+    log(f"[tensor parallel] (c) s2s_qwen at 28 layers (bf16), generate_s2s batch at fsdp=4 on 4 cards: _pred "
+        f"equal to one card's {text == Path(one['pred']).read_text()}; rank 0: {ranks[0]['resident_gib']:.2f} GiB "
+        f"resident once sharded, the decode's peak {ranks[0]['peak_gib']:.2f} GiB (the build's "
+        f"{ranks[0]['build_peak_gib']:.2f}: every rank builds the whole model, then shards it) vs one card's "
+        f"{one['resident_gib']:.2f} / {one['peak_gib']:.2f} ({one['build_peak_gib']:.2f}) GiB; "
+        f"{[round(r['seconds'], 2) for r in ranks]} s a rank vs {one['seconds']:.2f} s; steps "
+        f"{[r['steps'] for r in ranks]} | {SMI}")
+    if text != Path(one["pred"]).read_text():
+        raise AssertionError("(c) generate_s2s at fsdp=4 differs from one card's")
 
 
 S2S_TP_BUCKETS = (512, 1536)  # (c)'s buckets: 3 steps of 8 in each, in the loader's order

@@ -7,6 +7,13 @@ Beam search keeps the reference's HF-4.57 semantics, including its tie
 order: ``jax.lax.top_k`` puts the lower index first among equal values,
 which ``_top_k`` reproduces with a stable descending sort (``torch.topk``
 promises no order among ties).
+
+A model sharded over ``fsdp`` (``Generator(..., mesh=mesh)``) decodes in
+lockstep: every data rank takes the same number of steps, since each step's
+layer units gather their parameters over them. The loops' stop tests are
+global (``parallel.sharding.all_running``), as the reference's while-loop
+test over a batch sharded across devices is; a rank whose rows have all
+ended keeps stepping with them frozen (its tokens do not change).
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import numpy as np
 import torch
 
 from slam_llm_tpu_torch.models.llm import init_kv_cache, reorder_cache
+from slam_llm_tpu_torch.parallel.sharding import all_running, sharded_decode, under_fsdp
 
 NEG_INF = -1.0e9
 _BATCH_KEYS = ("input_ids", "attention_mask", "modality_mask", "audio_mel", "audio_mel_mask", "audio", "audio_mask",
@@ -101,18 +109,27 @@ def _sync(device: torch.device) -> None:
 
 
 class Generator:
-    """Binds a ``SLAMModel`` and a ``GenerationConfig``.
+    """Binds a ``SLAMModel`` and a ``GenerationConfig``; ``mesh``: the
+    ``(dp, fsdp, tp)`` mesh of a model sharded over fsdp (``shard_params``),
+    whose data ranks decode in lockstep.
 
     ``stats`` accumulates over calls: ``prefill_s`` and ``decode_s`` (host
     clock around device-synchronised work), ``decode_steps`` (model decode
-    steps run) and ``calls``.
+    steps run), ``useful_steps`` (those this rank's rows needed: fewer than
+    ``decode_steps`` where another rank ran on) and ``calls``.
     """
 
-    def __init__(self, model, gen_cfg: GenerationConfig):
+    def __init__(self, model, gen_cfg: GenerationConfig, mesh=None):
         self.model = model
         self.cfg = gen_cfg
-        self.stats = {"prefill_s": 0.0, "decode_s": 0.0, "decode_steps": 0, "calls": 0}
+        self.mesh = mesh
+        self.stats = {"prefill_s": 0.0, "decode_s": 0.0, "decode_steps": 0, "useful_steps": 0, "calls": 0}
         self._warned_beam_sample = False
+
+    def _log_lockstep(self, steps: int, useful: int) -> None:
+        if self.mesh is not None:
+            logging.getLogger("slam_llm_tpu_torch").info(
+                "lockstep decode: %d steps, this rank's last useful step %d", steps, useful)
 
     @property
     def device(self) -> torch.device:
@@ -163,20 +180,27 @@ class Generator:
         cols = torch.arange(max_len, device=dev)[None, :]
         prompt_valid = torch.nn.functional.pad(batch["attention_mask"].bool(), (0, max_len - t))
 
-        i = 1
-        while i < max_new and not bool(finished.all()):
+        i, useful = 1, 0
+        while i < max_new:
+            live = not bool(finished.all())  # the step's one read of the device
+            if not all_running(live, self.mesh, dev):
+                break
             prev = out_tokens[:, i - 1 : i]
             pos = (prompt_len + i - 1)[:, None]
             cache_index = t + i - 1  # write slot: prompt bucket + i - 1
             step_mask = (prompt_valid | ((cols >= t) & (cols <= t + i - 1))).to(torch.int32)
             logits, cache = self.model.decode_step(prev, cache, cache_index, step_mask, pos)
-            tok = pick(logits[:, 0], token_counts)
-            tok = torch.where(finished, cfg.pad_token_id, tok)
-            out_tokens[:, i] = tok
-            finished = finished | (tok == cfg.eos_token_id)
-            _add_one(token_counts, tok)
+            if live:  # else only another rank's rows run on
+                tok = pick(logits[:, 0], token_counts)
+                tok = torch.where(finished, cfg.pad_token_id, tok)
+                out_tokens[:, i] = tok
+                finished = finished | (tok == cfg.eos_token_id)
+                _add_one(token_counts, tok)
+                useful = i
             i += 1
             self.stats["decode_steps"] += 1
+        self.stats["useful_steps"] += useful
+        self._log_lockstep(i - 1, useful)
         _sync(dev)
         self.stats["decode_s"] += time.perf_counter() - t0
         return out_tokens
@@ -283,25 +307,32 @@ class Generator:
         cols = torch.arange(max_len, device=dev)[None, :]
         prompt_valid = torch.nn.functional.pad(att.bool(), (0, max_len - t))
 
-        i = 1
-        while i < max_new and bool(unsat.any()) and not bool(hits.all()):
+        i, useful = 1, 0
+        while i < max_new:
+            live = bool(unsat.any()) and not bool(hits.all())
+            if not all_running(live, self.mesh, dev):
+                break
             tok = run_tokens[:, :, i - 1].reshape(b * k)
             pos = (prompt_len_k + i - 1)[:, None]
             cache_index = t + i - 1
             step_mask = (prompt_valid | ((cols >= t) & (cols <= t + i - 1))).to(torch.int32)
             logits, cache = self.model.decode_step(tok[:, None], cache, cache_index, step_mask, pos)
-            logp = _apply_repetition_penalty(
-                torch.log_softmax(logits[:, 0], -1), token_counts, cfg.repetition_penalty
-            )
-            run_scores, run_tokens, sel_src, hits, fin, unsat = process(
-                i, run_scores, run_tokens, logp.reshape(b, k, v), fin, unsat
-            )
-            flat_src = (rows[:, None] * k + sel_src).reshape(b * k)
-            cache = reorder_cache(cache, flat_src)
-            token_counts = token_counts[flat_src]
-            _add_one(token_counts, run_tokens[:, :, i].reshape(-1))
+            if live:  # else only another rank's rows run on
+                logp = _apply_repetition_penalty(
+                    torch.log_softmax(logits[:, 0], -1), token_counts, cfg.repetition_penalty
+                )
+                run_scores, run_tokens, sel_src, hits, fin, unsat = process(
+                    i, run_scores, run_tokens, logp.reshape(b, k, v), fin, unsat
+                )
+                flat_src = (rows[:, None] * k + sel_src).reshape(b * k)
+                cache = reorder_cache(cache, flat_src)
+                token_counts = token_counts[flat_src]
+                _add_one(token_counts, run_tokens[:, :, i].reshape(-1))
+                useful = i
             i += 1
             self.stats["decode_steps"] += 1
+        self.stats["useful_steps"] += useful
+        self._log_lockstep(i - 1, useful)
         _sync(dev)
         self.stats["decode_s"] += time.perf_counter() - t0
         # finished scores stay sorted by the top-k merge: beam 0 is best
@@ -312,7 +343,6 @@ class Generator:
 
     # ---- public API -------------------------------------------------------
 
-    @torch.inference_mode()
     def generate(
         self,
         batch: Dict[str, object],
@@ -321,6 +351,10 @@ class Generator:
     ) -> np.ndarray:
         """Token ids (B, max_new) (B * num_return_sequences rows for beam),
         pad-filled after EOS. ``generator`` drives sampling."""
+        with decode_mode(self.model), sharded_decode(self.model):
+            return self._generate(batch, generator, max_new_tokens)
+
+    def _generate(self, batch, generator, max_new_tokens) -> np.ndarray:
         cfg = self.cfg
         max_new = cfg.max_new_tokens if max_new_tokens is None else max_new_tokens
         dev = self.device
@@ -341,6 +375,15 @@ class Generator:
                 self._warned_beam_sample = True
             out = self._greedy(batch, max_new, generator)
         return out.cpu().numpy()
+
+
+def decode_mode(model):
+    """``torch.inference_mode()``; ``torch.no_grad()`` for a model under
+    FSDP2. Its gathers run under inference mode too, but the unsharded
+    parameters FSDP2 allocates on first use (and keeps, resizing their
+    storage) would be inference tensors, which a later training forward of
+    the same model could not save for backward."""
+    return torch.no_grad() if under_fsdp(model) else torch.inference_mode()
 
 
 def strip_after_eos(tokens: np.ndarray, eos_id: int, pad_id: int) -> np.ndarray:

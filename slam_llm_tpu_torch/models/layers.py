@@ -384,7 +384,9 @@ def _xla_attention(q, k, v, bias, kv_mask=None, causal=False):
     if bias is not None:
         row_live = (bias > NEG_INF * 0.5).any(-1)  # (B, 1|H, Tq)
         bh = bias.shape[1]
-        bias5 = bias.reshape(b, hkv, g, tq, tk) if bh == h else bias[:, :, None]
+        # a per-head bias (B, H, Tq | 1, Tk) splits its heads into groups; a
+        # shared one (B, 1, ...) broadcasts (both at one head, a tp rank's)
+        bias5 = bias.reshape(b, hkv, g, *bias.shape[2:]) if bh == h else bias[:, :, None]
         logits = logits + bias5
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(), v.float()).reshape(b, tq, h, d)

@@ -19,7 +19,10 @@ Counterpart of ``slam_llm_tpu/models/s2s.py``:
 * ``S2SGenerator`` samples a text token and ``code_layer`` audio tokens a
   step, with separate repetition penalties and separate text / audio EOS,
   as a Python loop over static-shape tensors on the device (the JAX
-  package's ``lax.while_loop``); ``stream_generate`` yields chunks.
+  package's ``lax.while_loop``); ``stream_generate`` yields chunks. A model
+  sharded over fsdp decodes in lockstep over the data ranks (``mesh``):
+  every stop test is global, a rank whose rows ended steps on with them
+  frozen.
 
 Tensor parallelism (``tp``, set by ``parallel.tensor_parallel.split_for_tp``:
 the LLM, the group-decode adapter, the TTS adapter's blocks and head split
@@ -45,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Optional, Tuple
@@ -53,7 +57,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from slam_llm_tpu_torch.inference.generate import _apply_repetition_penalty, _last_valid_index, _sync
+from slam_llm_tpu_torch.inference.generate import _apply_repetition_penalty, _last_valid_index, _sync, decode_mode
 from slam_llm_tpu_torch.models.layers import DenseGeneralLora, RMSNorm
 from slam_llm_tpu_torch.models.llm import (
     CausalLM,
@@ -69,7 +73,7 @@ from slam_llm_tpu_torch.models.projector import ProjectorConfig, build_projector
 from slam_llm_tpu_torch.models.slam_model import IGNORE_INDEX, splice_modality
 from slam_llm_tpu_torch.models.whisper import WhisperEncoder
 from slam_llm_tpu_torch.ops.fused_ce import windowed_linear_ce, windowed_logits_ce
-from slam_llm_tpu_torch.parallel.sharding import token_count
+from slam_llm_tpu_torch.parallel.sharding import all_running, sharded_decode, token_count
 from slam_llm_tpu_torch.parallel.tensor_parallel import copy_to_tp, gather_last, reduce_from_tp
 
 
@@ -425,19 +429,23 @@ class S2SGenerator:
     """Parallel text + audio decoding, greedy or sampled (top-k).
 
     ``stats`` accumulates over calls: ``prefill_s`` and ``decode_s`` (host
-    clock around device-synchronised work) and ``decode_steps``."""
+    clock around device-synchronised work), ``decode_steps`` and
+    ``useful_steps`` (the steps this rank's rows needed). ``mesh``: the
+    ``(dp, fsdp, tp)`` mesh of a model sharded over fsdp, whose data ranks
+    step in lockstep."""
 
     def __init__(self, model: S2SModel, max_new_tokens: int = 360, do_sample: bool = False,
                  temperature: float = 1.0, top_k: int = 0, text_repetition_penalty: float = 1.0,
                  audio_repetition_penalty: float = 1.0, num_latency_tokens: int = 0,
-                 decode_text_only: bool = False):
+                 decode_text_only: bool = False, mesh=None):
         self.model = model
+        self.mesh = mesh
         self.max_new_tokens = max_new_tokens
         self.do_sample, self.temperature, self.top_k = do_sample, temperature, top_k
         self.text_rp, self.audio_rp = text_repetition_penalty, audio_repetition_penalty
         self.num_latency_tokens = num_latency_tokens
         self.decode_text_only = decode_text_only
-        self.stats = {"prefill_s": 0.0, "decode_s": 0.0, "decode_steps": 0}
+        self.stats = {"prefill_s": 0.0, "decode_s": 0.0, "decode_steps": 0, "useful_steps": 0}
 
     @property
     def device(self) -> torch.device:
@@ -473,7 +481,7 @@ class S2SGenerator:
         out = torch.full((b, L + 1, max_new), v.pad_a, dtype=torch.int64, device=dev)
         out[:, L] = v.pad_t
         state = dict(
-            i=0, xt=next_xt, xa=next_xa, cache=cache, a_cache=a_cache, out=out,
+            i=0, useful=0, xt=next_xt, xa=next_xa, cache=cache, a_cache=a_cache, out=out,
             text_end=torch.zeros(b, dtype=torch.bool, device=dev), audio_end=torch.zeros(b, dtype=torch.bool,
                                                                                            device=dev),
             text_counts=torch.zeros(b, v.padded_text_vocabsize, dtype=torch.int32, device=dev),
@@ -485,16 +493,30 @@ class S2SGenerator:
         self.stats["prefill_s"] += time.perf_counter() - t0
         return state
 
+    def _running(self, state: Dict[str, Any]) -> torch.Tensor:
+        """Whether any of this rank's rows still runs."""
+        return ~(state["text_end"] & state["audio_end"]).all()
+
     def _run_until(self, state: Dict[str, Any], limit: int, generator: Optional[torch.Generator]) -> None:
-        """Advance the state to step ``limit`` or until every row ended."""
+        """Advance the state to step ``limit`` or until every row ended (of
+        every data rank, in lockstep)."""
         t0 = time.perf_counter()
-        model, v = self.model, self.model.cfg.vocab
+        v = self.model.cfg.vocab
         L, t, dev = v.code_layer, state["t"], self.device
         b = state["out"].shape[0]
         rows = torch.arange(b, device=dev)
         cols = torch.arange(t + state["max_new"], device=dev)[None, :]
-        while state["i"] < limit and not bool((state["text_end"] & state["audio_end"]).all()):
+        while state["i"] < limit:
+            live = bool(self._running(state))  # the step's one read of the device
+            if not all_running(live, self.mesh, dev):
+                break
             i = state["i"]
+            if not live:  # only another rank's rows run on: step with these frozen
+                pads = torch.tensor([int(v.layershift(np.int64(v.pad_a), layer)) for layer in range(L)] + [v.pad_t],
+                                    device=dev)
+                self._step(state, pads.expand(b, -1), cols)
+                self.stats["decode_steps"] += 1
+                continue
             was_text_end = state["text_end"]
             tok_t = self._pick(_apply_repetition_penalty(state["xt"], state["text_counts"], self.text_rp), generator)
             tok_t = torch.where(was_text_end, v.pad_t, tok_t)
@@ -515,31 +537,45 @@ class S2SGenerator:
             for layer in range(L):
                 state["audio_counts"][rows, layer, tok_a[:, layer]] += sampled_a.to(torch.int32)
             shifted = torch.stack([v.layershift(tok_a[:, layer], layer) for layer in range(L)] + [tok_t], dim=1)
-            pos = (state["prompt_len"] + i)[:, None]
-            step_mask = (state["prompt_valid"] | ((cols >= t) & (cols <= t + i))).to(torch.int32)
-            if model.cfg.tts_adapter:
-                xt, xa, state["cache"], state["a_cache"] = model.decode_step_tts(
-                    shifted, state["cache"], state["a_cache"], t + i, step_mask, pos)
-                state["xt"], state["xa"] = xt[:, 0], xa[:, :, 0]
-            else:
-                logits, state["cache"] = model.decode_step(shifted, state["cache"], t + i, step_mask, pos)
-                state["xt"], state["xa"] = model.split_logits(logits[:, 0])
-            state["i"] = i + 1
+            self._step(state, shifted, cols)
+            state["useful"] = i + 1
             self.stats["decode_steps"] += 1
+            self.stats["useful_steps"] += 1
         _sync(dev)
         self.stats["decode_s"] += time.perf_counter() - t0
+
+    def _step(self, state: Dict[str, Any], shifted: torch.Tensor, cols: torch.Tensor) -> None:
+        """One model step at ``state["i"]`` on the layershifted tokens
+        ``shifted`` (B, L+1): the next logits into the state."""
+        model, i, t = self.model, state["i"], state["t"]
+        pos = (state["prompt_len"] + i)[:, None]
+        step_mask = (state["prompt_valid"] | ((cols >= t) & (cols <= t + i))).to(torch.int32)
+        if model.cfg.tts_adapter:
+            xt, xa, state["cache"], state["a_cache"] = model.decode_step_tts(
+                shifted, state["cache"], state["a_cache"], t + i, step_mask, pos)
+            state["xt"], state["xa"] = xt[:, 0], xa[:, :, 0]
+        else:
+            logits, state["cache"] = model.decode_step(shifted, state["cache"], t + i, step_mask, pos)
+            state["xt"], state["xa"] = model.split_logits(logits[:, 0])
+        state["i"] = i + 1
+
+    def _log_lockstep(self, state: Dict[str, Any]) -> None:
+        if self.mesh is not None:
+            logging.getLogger("slam_llm_tpu_torch").info(
+                "lockstep decode: %d steps, this rank's last useful step %d", state["i"], state["useful"])
 
     def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(x).to(self.device) for k, x in batch.items() if k in _BATCH_KEYS}
 
-    @torch.inference_mode()
     def generate(self, batch, generator: Optional[torch.Generator] = None,
                  max_new_tokens: Optional[int] = None) -> np.ndarray:
         """Tokens (B, L+1, max_new): the audio streams (unshifted codebook ids,
         pad_a-filled) and then the text stream (pad_t-filled)."""
         max_new = max_new_tokens or self.max_new_tokens
-        state = self._init_state(self._device_batch(batch), max_new)
-        self._run_until(state, max_new, generator)
+        with decode_mode(self.model), sharded_decode(self.model):
+            state = self._init_state(self._device_batch(batch), max_new)
+            self._run_until(state, max_new, generator)
+        self._log_lockstep(state)
         return state["out"].cpu().numpy()
 
     def stream_generate(self, batch, generator: Optional[torch.Generator] = None, stream_stride: int = 24,
@@ -550,19 +586,23 @@ class S2SGenerator:
         the device between chunks. A SNAC codec decodes the newly complete
         frames against the whole trimmed history; another codec decodes
         each chunk's tokens. A codec failure raises."""
-        max_new = max_new_tokens or self.max_new_tokens
+        with sharded_decode(self.model):
+            yield from self._stream(batch, generator, stream_stride, max_new_tokens or self.max_new_tokens,
+                                    codec_decoder)
+
+    def _stream(self, batch, generator, stream_stride: int, max_new: int, codec_decoder):
         v = self.model.cfg.vocab
         L = v.code_layer
-        with torch.inference_mode():
+        with decode_mode(self.model):
             state = self._init_state(self._device_batch(batch), max_new)
         start = frames_done = 0
         while start < max_new:
             n = min(stream_stride, max_new - start)
-            with torch.inference_mode():
+            with decode_mode(self.model):
                 self._run_until(state, start + n, generator)
             out = state["out"].cpu().numpy()
             steps = start + n
-            done = bool((state["text_end"] & state["audio_end"]).all())
+            done = not all_running(bool(self._running(state)), self.mesh, self.device)
             payload = {"audio_tokens": out[:, :L, start:steps], "text_tokens": out[:, L, start:steps]}
             if codec_decoder is not None and getattr(codec_decoder, "codec_type", "snac") == "snac":
                 # layer j's token for frame f sits at step f + j + 1: decode the
@@ -578,6 +618,7 @@ class S2SGenerator:
             start += n
             if done:
                 break
+        self._log_lockstep(state)
 
 
 def trim_generated(tokens: np.ndarray, vocab: VocabConfig) -> List[np.ndarray]:

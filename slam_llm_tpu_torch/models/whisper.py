@@ -5,7 +5,10 @@ conv1d(k3, s2, p1) + GELU, fixed sinusoidal positions sliced to the
 post-conv length, pre-LN transformer blocks, final LayerNorm. Any even mel
 length works. ``mask_padding`` masks padded mel frames in the attention (the
 reference's default). Layers are a ``ModuleList`` walked in a loop where the
-reference scans a stacked layer axis.
+reference scans a stacked layer axis. Under tensor parallelism
+(``parallel.tensor_parallel.split_whisper``) a block runs ``n_heads / tp``
+heads a rank: its q / k / v and fc1 column-parallel, out_proj and fc2
+row-parallel, as the reference's ``heads`` / ``mlp`` axes shard them.
 
 Input (B, T_mel, n_mels) + optional (B, T_mel) mask -> (B, T_mel // 2, d_model)
 + the post-conv mask.
@@ -83,6 +86,7 @@ class WhisperAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
+        self.n_heads = cfg.n_heads  # this rank's heads (n_heads / tp once split)
 
         def dense(use_bias):
             return DenseGeneralLora(d, d, use_bias=use_bias, dtype=cfg.dtype, device=device)
@@ -94,12 +98,12 @@ class WhisperAttention(nn.Module):
     def forward(self, x: torch.Tensor, kv_mask: Optional[torch.Tensor]) -> torch.Tensor:
         c = self.cfg
         b, t, _ = x.shape
-        hd = c.d_model // c.n_heads
-        q = self.q_proj(x).reshape(b, t, c.n_heads, hd)
-        k = self.k_proj(x).reshape(b, t, c.n_heads, hd)
-        v = self.v_proj(x).reshape(b, t, c.n_heads, hd)
+        h, hd = self.n_heads, c.d_model // c.n_heads
+        q = self.q_proj(x).reshape(b, t, h, hd)
+        k = self.k_proj(x).reshape(b, t, h, hd)
+        v = self.v_proj(x).reshape(b, t, h, hd)
         out = mha_attention(q, k, v, kv_mask=kv_mask)
-        return self.out_proj(out.reshape(b, t, c.d_model))
+        return self.out_proj(out.reshape(b, t, h * hd))
 
 
 class WhisperBlock(nn.Module):

@@ -10,10 +10,11 @@ axes:
   ``world // (fsdp * tp)``. A mesh that does not equal the world raises,
   smaller ones included: the reference's silent truncation to the leading
   devices is not copied.
-* ``shard_params`` first splits the decoder LLM over ``tp``
-  (``parallel.tensor_parallel.split_for_tp``: a Megatron-style split of its
-  heads, MLP and vocabulary, and of S2S's heads past it; the rest of the
-  model replicated over tp), then
+* ``shard_params`` first splits the model over ``tp``
+  (``parallel.tensor_parallel.split_for_tp``: a Megatron-style split of the
+  decoder LLM's heads, MLP and vocabulary, of S2S's heads past it, of the
+  whisper encoder's heads and MLP and of the linear / conv1d projectors;
+  the other encoders and the Q-Former replicated over tp), then
   applies ``fully_shard`` over the 2-D ``("dp", "fsdp")``
   sub-mesh (HSDP: replicated over ``dp``, sharded over ``fsdp``, as the
   reference's ``embed -> fsdp`` rule shards every parameter on ``fsdp`` and
@@ -36,12 +37,19 @@ axes:
   dim, and takes a whole one apart in the reverse order, so checkpoints hold
   whole tensors and resume at any ``(dp, fsdp, tp)``; ``NormGroups`` sums a
   gradient norm's squares over the ranks that hold distinct parts.
+* a decode sharded over ``fsdp`` (``sharded_decode``): FSDP2 gathers each
+  layer unit around its forward and reshards it after, so no rank holds a
+  whole replica; the root unit (embeddings, final norm, heads, projector,
+  the encoders' stems) is gathered once for a decode call. The data ranks
+  step in lockstep: every stop test is global (``all_running``), as the
+  reference's ``lax.while_loop`` over a sharded batch is.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import sys
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -164,8 +172,9 @@ def int8_base_as_parameters(model: nn.Module) -> None:
 
 
 def shard_params(model: nn.Module, mesh) -> nn.Module:
-    """Split the decoder LLM over ``tp`` (after ``quantize_base_params``:
-    the int8 base is quantized whole, then split), then ``fully_shard`` each
+    """Split the model over ``tp`` (``split_for_tp``, after
+    ``quantize_base_params``: the int8 base is quantized whole, then
+    split), then ``fully_shard`` each
     layer unit and the root over the ``("dp", "fsdp")`` sub-mesh; gradients
     are summed over the data ranks. A tp mesh with one data rank takes no
     FSDP2: it would shard nothing, and its hooks cost host time a step."""
@@ -174,7 +183,7 @@ def shard_params(model: nn.Module, mesh) -> nn.Module:
     split = split_for_tp(model, mesh)
     if split:
         logging.getLogger("slam_llm_tpu_torch").info(
-            "tensor parallel tp=%d: split %s (heads, MLP, vocabulary); replicated %s", mesh["tp"].size(),
+            "tensor parallel tp=%d: split %s; replicated %s", mesh["tp"].size(),
             split, replicated_modules(model, split))
         if data_size(mesh) == 1:
             return model
@@ -352,6 +361,70 @@ def unsharded(model: nn.Module) -> Iterator[None]:
         for unit in units:
             unit.reshard()
             unit.set_reshard_after_forward(True, recurse=False)
+
+
+def under_fsdp(model: nn.Module) -> bool:
+    """Whether ``model`` is an FSDP2 unit. A model ``shard_params`` sharded
+    has imported ``torch.distributed.fsdp``; a one-process decode does not
+    import it (seconds on the first call), so it is looked up, not imported."""
+    fsdp = sys.modules.get("torch.distributed.fsdp")
+    return fsdp is not None and isinstance(model, fsdp.FSDPModule)
+
+
+# the decode entry points of the models, run as forward methods of FSDP2's root
+DECODE_METHODS = ("prefill", "decode_step", "prefill_tts", "decode_step_tts")
+
+
+@contextlib.contextmanager
+def sharded_decode(model: nn.Module) -> Iterator[None]:
+    """Around one decode call of a model sharded by ``shard_params``: every
+    layer unit stays sharded except around its own forward, and the root
+    unit's parameters are gathered once. FSDP2 runs its hooks around
+    ``forward`` only, and a decode enters through the model's
+    ``DECODE_METHODS``: on first use they are registered as forward methods
+    of the root (``register_fsdp_forward_method``), so the root's hooks open
+    every call (a layer unit reached first would be initialised as the root
+    and keep its parameters gathered). The root's parameters (embeddings,
+    final norm, heads, projector, the encoder's stem) are read by every
+    prefill and step and between them (S2S's ``split_logits``): the root
+    does not reshard after its forward during the call (FSDP2's own choice
+    for the root in training) and is resharded at its end. A no-op on a
+    model without FSDP2."""
+    if not under_fsdp(model):
+        yield
+        return
+    from torch.distributed.fsdp import register_fsdp_forward_method
+
+    if not getattr(model, "_decode_methods_registered", False):
+        for name in DECODE_METHODS:
+            if hasattr(model, name):
+                register_fsdp_forward_method(model, name)
+        model._decode_methods_registered = True
+    model.set_reshard_after_forward(False, recurse=False)
+    try:
+        yield
+    finally:
+        model.reshard()
+        # FSDP2 records each unit's forward for the backward's prefetch and
+        # clears the record after a backward; a decode runs none, so the
+        # record would grow with every call
+        order = getattr(getattr(model._get_fsdp_state(), "_comm_ctx", None), "post_forward_order", None)
+        if order is None:
+            raise RuntimeError(f"FSDP2's forward record (_comm_ctx.post_forward_order) is not in torch "
+                               f"{torch.__version__}: sharded_decode cannot clear it after a decode")
+        order.clear()
+
+
+def all_running(running: bool, mesh, device) -> bool:
+    """The lockstep stop test of a sharded decode: whether any data rank
+    (``data_group(mesh)``: the ranks whose FSDP2 gathers this rank joins)
+    still runs, given this rank's ``running``; ``running`` itself without a
+    mesh (no collective, no tensor)."""
+    if mesh is None:
+        return running
+    flag = torch.tensor([int(running)], dtype=torch.int32, device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=data_group(mesh))
+    return bool(flag.item())
 
 
 def all_reduce_sum(values: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:

@@ -1,4 +1,5 @@
-"""Tensor parallelism: a Megatron-style split of the decoder LLM over ``tp``.
+"""Tensor parallelism: a Megatron-style split of the decoder LLM, the whisper
+encoder and the MLP projectors over ``tp``.
 
 Counterpart of the JAX package's logical rules ``heads`` / ``kv_heads`` /
 ``mlp`` / ``vocab -> tp`` (``slam_llm_tpu/parallel/sharding.py``). There
@@ -36,13 +37,23 @@ own weight shards, and the collectives are explicit:
   the head's audio slot comes from the rank(s) holding its rows (a masked
   local product, then an exact all-reduce). ``all_gather_last`` records the
   largest tensor it forms (``LARGEST_GATHER``).
+* the whisper encoder (the reference's ``heads`` / ``mlp`` axes,
+  ``slam_llm_tpu/models/whisper.py``): each block's q / k / v and fc1
+  column-parallel (their biases split with their rows), out_proj and fc2
+  row-parallel (the bias added once, after the reduce), ``n_heads / tp``
+  heads a rank; the convolutions, positions and LayerNorms whole. The MLP
+  projectors (``linear``, ``cov1d-linear``): linear1 column-parallel,
+  linear2 row-parallel, the conv1d whole. Their row-parallel partials are
+  reduced as the LLM's plain row denses' are: each rank's product in the
+  compute dtype, the partials summed in f32 and rounded once.
 
 The split is applied to the whole model after its int8 base is derived
 (``ops.quant.quantize_base_params``: the per-channel scales are the whole
 tensor's): ``split_for_tp`` replaces each tensor by this rank's slice and
 records the split dim in the owning module's ``tp_dims``, which the
-checkpoint gathers read (``parallel.sharding.ShardLayout``). Encoders and
-projectors stay whole on every tp rank (replicated).
+checkpoint gathers read (``parallel.sharding.ShardLayout``). The other
+encoders (WavLM, BEATs, ViT / EAT, MusicFM, Spatial-AST, AV-HuBERT, BERT)
+and the Q-Former stay whole on every tp rank (replicated).
 """
 
 from __future__ import annotations
@@ -251,6 +262,42 @@ def check_s2s_divides(model: nn.Module, size: int) -> None:
         check_llm_divides(model.adapter_cfg, size, "TTS adapter's ")
 
 
+def check_whisper_divides(cfg, size: int) -> None:
+    """The whisper encoder's split dimensions: its heads and its MLP
+    (``4 * d_model``)."""
+    _check_divides("whisper encoder's attention heads", cfg.n_heads, size)
+    _check_divides("whisper encoder's mlp (4 x d_model)", 4 * cfg.d_model, size)
+
+
+def check_projector_divides(projector: nn.Module, size: int) -> None:
+    """An MLP projector's hidden width (linear1's outputs)."""
+    _check_divides("projector's hidden width", projector.linear1.features, size)
+
+
+@torch.no_grad()
+def split_whisper(encoder: nn.Module, tp: TP) -> None:
+    """One ``models.whisper.WhisperEncoder`` to this rank's shard, in place:
+    each block's attention runs ``n_heads / tp`` heads from then on."""
+    check_whisper_divides(encoder.cfg, tp.size)
+    for block in encoder.layers:
+        attn = block.attn
+        for name in ("q_proj", "k_proj", "v_proj"):
+            split_dense(getattr(attn, name), tp, "column")
+        split_dense(attn.out_proj, tp, "row")
+        split_dense(block.fc1, tp, "column")
+        split_dense(block.fc2, tp, "row")
+        attn.n_heads //= tp.size
+
+
+@torch.no_grad()
+def split_projector(projector: nn.Module, tp: TP) -> None:
+    """A ``ProjectorConcat`` / ``ProjectorConv1d`` to this rank's shard, in
+    place: linear1 column-parallel, linear2 row-parallel."""
+    check_projector_divides(projector, tp.size)
+    split_dense(projector.linear1, tp, "column")
+    split_dense(projector.linear2, tp, "row")
+
+
 @torch.no_grad()
 def split_decoder_layer(layer: nn.Module, tp: TP) -> None:
     """One ``models.llm.DecoderLayer`` to this rank's shard, in place: its
@@ -299,13 +346,16 @@ def split_s2s_heads(model: nn.Module, tp: TP) -> List[str]:
 
 def split_for_tp(model: nn.Module, mesh) -> List[str]:
     """Replace the whole tensors of every decoder LLM (``CausalLM``) in
-    ``model``, and of an S2S model's heads, by this rank's slices, after
-    ``quantize_base_params``; the rest of the model stays whole (replicated
-    over tp). Every split dimension is checked before any tensor is
-    touched. Returns the names of the split modules. A model with no
-    ``CausalLM`` (VALL-E X) raises."""
+    ``model``, of an S2S model's heads, of every whisper encoder and of every
+    MLP projector (``linear`` / ``cov1d-linear``) by this rank's slices,
+    after ``quantize_base_params``; the rest of the model stays whole
+    (replicated over tp: ``replicated_modules``). Every split dimension is
+    checked before any tensor is touched. Returns the names of the split
+    modules. A model with no ``CausalLM`` (VALL-E X) raises."""
     from slam_llm_tpu_torch.models.llm import CausalLM
+    from slam_llm_tpu_torch.models.projector import ProjectorConcat, ProjectorConv1d
     from slam_llm_tpu_torch.models.s2s import S2SModel
+    from slam_llm_tpu_torch.models.whisper import WhisperEncoder
 
     tp = tp_of(mesh)
     if tp is None:
@@ -316,20 +366,34 @@ def split_for_tp(model: nn.Module, mesh) -> List[str]:
             f"tensor parallelism splits the decoder LLM (models.llm.CausalLM); {type(model).__name__} has none "
             "(ROADMAP Queue 1: the tp split of the other model families)")
     s2s = [(name, m) for name, m in model.named_modules() if isinstance(m, S2SModel)]
+    encoders = [(name, m) for name, m in model.named_modules() if isinstance(m, WhisperEncoder)]
+    projectors = [(name, m) for name, m in model.named_modules() if isinstance(m, (ProjectorConcat, ProjectorConv1d))]
     for _, llm in llms:
         check_llm_divides(llm.cfg, tp.size)
     for _, m in s2s:
         check_s2s_divides(m, tp.size)
+    for _, enc in encoders:
+        check_whisper_divides(enc.cfg, tp.size)
+    for _, proj in projectors:
+        check_projector_divides(proj, tp.size)
     for _, llm in llms:
         split_llm(llm, tp)
     names = [name or type(model).__name__ for name, _ in llms]
     for prefix, m in s2s:
         names += [f"{prefix}.{n}" if prefix else n for n in split_s2s_heads(m, tp)]
+    for name, enc in encoders:
+        split_whisper(enc, tp)
+        names.append(name)
+    for name, proj in projectors:
+        split_projector(proj, tp)
+        names.append(name)
     return names
 
 
 def replicated_modules(model: nn.Module, split: List[str]) -> List[str]:
-    """The top-level modules that hold tensors and stay whole over tp."""
+    """The top-level modules that hold tensors and stay whole over tp (the
+    whole parts of a split module, whisper's convolutions and LayerNorms or
+    the conv1d projector's convolution, are not listed)."""
     return [name for name, m in model.named_children()
             if name not in split and any(True for _ in m.parameters())]
 

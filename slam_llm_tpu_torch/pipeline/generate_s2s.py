@@ -21,20 +21,26 @@ without audio.
 init, then ``llm_path`` / ``encoder_path`` / ``ckpt_path``
 (``pipeline.common.materialize_params``).
 
-Under torchrun the session decodes on the ``(dp, 1, tp)`` mesh of
+Under torchrun the session decodes on the ``(dp, fsdp, tp)`` mesh of
 ``train_config.shard`` (the JAX package's ``build_mesh``): with ``shard.tp``
 the model is split after its weights are materialized
 (``parallel.tensor_parallel.split_for_tp``), and the tp ranks of a data rank
 decode the same items in lockstep on the same whole logits, each sampling
 stream seeded alike (``train_config.seed``, fresh for every generation, as
 the JAX package's ``PRNGKey(0)``); only tp rank 0 loads the codec, prints and
-writes. Batch mode takes the items rank-strided over the data ranks, with
-``_rank{r}`` logs where there are several. The online modes read their lines
-on tp rank 0 and broadcast them to the tp group; several data ranks raise.
-``shard.fsdp > 1`` raises (ROADMAP Queue 1: a sharded decode).
+writes. With ``shard.fsdp`` the model is sharded as the trainer shards it
+(``parallel.shard_params``: FSDP2 over the data ranks), no rank holds a
+whole replica, and the data ranks decode in lockstep (global stop tests);
+the vocoders stay whole on each writing rank and run no collective. Batch
+mode takes the items rank-strided over the data ranks, with ``_rank{r}``
+logs where there are several; under fsdp a rank whose share ran out decodes
+a wrapped item unwritten, so every rank runs as many decodes. The online
+modes read their lines on rank 0 and broadcast them to every rank (the tp
+and fsdp ranks serve one dialogue; rank 0 prints and writes); several dp
+replicas raise.
 
     torchrun --nproc_per_node=2 -m slam_llm_tpu_torch.pipeline.generate_s2s --config <yaml> \\
-        ++train_config.shard.tp=2 ++decode_config.mode=batch ...
+        ++train_config.shard.fsdp=2 ++decode_config.mode=batch ...
 """
 
 from __future__ import annotations
@@ -54,7 +60,7 @@ from slam_llm_tpu_torch.data.s2s_dataset import DEFAULT_S2S_PROMPT, PROMPT_TEMPL
 from slam_llm_tpu_torch.data.speech_dataset import bucketize
 from slam_llm_tpu_torch.models.s2s import S2SGenerator, VocabConfig, trim_generated
 from slam_llm_tpu_torch.ops import audio as audio_ops
-from slam_llm_tpu_torch.parallel.sharding import data_rank, data_size, make_mesh
+from slam_llm_tpu_torch.parallel.sharding import data_rank, data_size, make_mesh, shard_params
 from slam_llm_tpu_torch.parallel.tensor_parallel import split_for_tp, tp_of
 from slam_llm_tpu_torch.pipeline.common import (
     destroy_process_group,
@@ -144,18 +150,28 @@ def load_codec(cfg: RunConfig, device) -> Optional[CodecDecoder]:
 
 class S2SSession:
     """The model (weights materialized on ``device``, then split over the
-    mesh's tp axis), its generator and codec; runs dialogue rounds."""
+    mesh's tp axis and, with fsdp, sharded over its data ranks), its
+    generator and codec; runs dialogue rounds. ``one_dialogue``: every rank
+    serves the same rounds (the online modes), and only rank 0 writes."""
 
-    def __init__(self, cfg: RunConfig, device="cuda", mesh=None):
+    def __init__(self, cfg: RunConfig, device="cuda", mesh=None, one_dialogue: bool = False):
+        import torch.distributed as dist
+
         self.cfg = cfg
         self.device = resolve_device(device)
         model, tokenizer = get_custom_model_factory(cfg.model_config)(cfg.train_config, cfg.model_config,
                                                                       device=self.device)
         materialize_params(model, cfg)
         self.mesh, self.tp = mesh, tp_of(mesh)
-        if self.tp is not None:
+        self.sharded = mesh is not None and mesh["fsdp"].size() > 1
+        if self.sharded:
+            shard_params(model, mesh)  # the tp split, then FSDP2 over the data ranks
+            logger.info("sharded decode: fsdp=%d x tp=%d", mesh["fsdp"].size(), mesh["tp"].size())
+        elif self.tp is not None:
             logger.info("tensor parallel tp=%d: split %s", self.tp.size, split_for_tp(model, mesh))
-        self.writer = self.tp is None or self.tp.rank == 0  # prints, runs the codec, writes
+        # prints, runs the codec, writes
+        self.writer = (dist.get_rank() == 0) if one_dialogue and mesh is not None else (
+            self.tp is None or self.tp.rank == 0)
         self.seed = cfg.train_config.seed
         self.model, self.tokenizer = model.eval(), tokenizer
         self.vocab = model.cfg.vocab
@@ -165,7 +181,7 @@ class S2SSession:
             top_k=dc.top_k, text_repetition_penalty=getattr(dc, "text_repetition_penalty", dc.repetition_penalty),
             audio_repetition_penalty=getattr(dc, "audio_repetition_penalty", 1.0),
             num_latency_tokens=getattr(dc, "num_latency_tokens", 0),
-            decode_text_only=getattr(dc, "decode_text_only", False),
+            decode_text_only=getattr(dc, "decode_text_only", False), mesh=mesh if self.sharded else None,
         )
         self.codec = load_codec(cfg, self.device) if self.writer else None
         self.history = ""
@@ -222,17 +238,16 @@ class S2SSession:
 # ---------------------------------------------------------------------------
 
 
-def _tp_lines(session: S2SSession, lines) -> Iterator[str]:
-    """The input lines, read on tp rank 0 and broadcast to the tp group
-    (every tp rank decodes each round); an empty line ends them."""
+def _lines(session: S2SSession, lines) -> Iterator[str]:
+    """The input lines, read on rank 0 and broadcast to every rank (each
+    tp and fsdp rank decodes each round); an empty line ends them."""
     import torch.distributed as dist
 
     source = iter(sys.stdin if lines is None else lines) if session.writer else None
-    src = None if session.tp is None else dist.get_global_rank(session.tp.group, 0)
     while True:
         line = [next(source, "").strip() if source is not None else None]
-        if session.tp is not None:
-            dist.broadcast_object_list(line, src=src, group=session.tp.group)
+        if session.mesh is not None:
+            dist.broadcast_object_list(line, src=0)
         if not line[0]:
             return
         yield line[0]
@@ -248,7 +263,7 @@ def run_online(session: S2SSession, cfg: RunConfig, multi_round: bool, stream: b
     mode = "multi-round" if multi_round else ("streaming" if stream else "single")
     say(f"S2S online ({mode}). Enter: <wav_path>  or  t:<text>  (empty line exits)")
     texts = []
-    for rnd, line in enumerate(_tp_lines(session, lines)):
+    for rnd, line in enumerate(_lines(session, lines)):
         wav_path, text_input = (None, line[2:]) if line.startswith("t:") else (line, None)
         if stream:
             pieces, wavs = [], []
@@ -295,6 +310,9 @@ def run_batch(session: S2SSession, cfg: RunConfig) -> Dict[str, Any]:
     cfg.dataset_config.inference_mode = True
     ds = get_custom_dataset_factory(cfg.dataset_config)(cfg.dataset_config, session.tokenizer, "test")
     ranks, rank = (1, 0) if session.mesh is None else (data_size(session.mesh), data_rank(session.mesh))
+    # under fsdp every rank runs as many decodes (its gathers pair up): a
+    # rank whose share ran out decodes a wrapped item and writes nothing
+    rounds = -(-len(ds) // ranks) if session.sharded else None
     log = getattr(cfg.decode_config, "decode_log", "/tmp/s2s_decode")
     suffix = f"_rank{rank}" if ranks > 1 else ""
     pred, gt = (log + "_pred" + suffix, log + "_gt" + suffix) if session.writer else (os.devnull, os.devnull)
@@ -304,7 +322,11 @@ def run_batch(session: S2SSession, cfg: RunConfig) -> Dict[str, Any]:
     utts, audio_s = [], 0.0
     t_all = time.perf_counter()
     with open(pred, "w") as fp, open(gt, "w") as fg:
-        for i in range(rank, len(ds), ranks):
+        items = range(rank, len(ds), ranks) if rounds is None else range(rank, rounds * ranks, ranks)
+        for i in items:
+            if i >= len(ds):  # the wrapped item: its decode joins the others' steps
+                session.gen.generate(item_batch(ds[i % len(ds)]), generator=session.sampler())
+                continue
             item = ds[i]
             t = item["input_ids"].shape[1]
             batch = item_batch(item)
@@ -323,7 +345,8 @@ def run_batch(session: S2SSession, cfg: RunConfig) -> Dict[str, Any]:
                 samples = len(wav)
                 write_wav(str(wav_dir / f"{key}.wav"), wav, session.codec.sample_rate)
             utts.append({"key": key, "prompt_len": t, "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
-                         "decode_steps": st["decode_steps"], "audio_frames": int(trimmed[0].size),
+                         "decode_steps": st["decode_steps"], "useful_steps": st["useful_steps"],
+                         "audio_frames": int(trimmed[0].size),
                          "codec_s": codec_s, "samples": samples})
     seconds = time.perf_counter() - t_all
     if session.writer:
@@ -333,25 +356,22 @@ def run_batch(session: S2SSession, cfg: RunConfig) -> Dict[str, Any]:
 
 
 def main(cfg: RunConfig, device="cuda"):
-    """Build the session on ``device`` (on the ``(dp, 1, tp)`` mesh under
+    """Build the session on ``device`` (on the ``(dp, fsdp, tp)`` mesh under
     torchrun) and run ``decode_config.mode``; returns ``run_batch``'s
     results or the online rounds' texts."""
     shard = cfg.train_config.shard
-    if shard.fsdp > 1:
-        raise NotImplementedError(
-            "a decode sharded over fsdp (shard.fsdp > 1) is not ported: each data rank decodes on a whole "
-            "replica or its tp shard (ROADMAP Queue 1: a sharded decode)")
     mesh = None
     if maybe_init_distributed(device):
-        mesh = make_mesh(dp=-1, fsdp=1, tp=shard.tp, device_type=resolve_device(device).type)
-    elif shard.tp > 1:
-        raise ValueError(f"shard.tp={shard.tp} needs {shard.tp} processes (torchrun); this is one")
+        mesh = make_mesh(dp=-1, fsdp=shard.fsdp, tp=shard.tp, device_type=resolve_device(device).type)
+    elif shard.tp > 1 or shard.fsdp > 1:
+        raise ValueError(f"shard.fsdp={shard.fsdp} x shard.tp={shard.tp} needs {shard.fsdp * shard.tp} processes "
+                         "or more (torchrun); this is one")
     mode = getattr(cfg.decode_config, "mode", "online")
-    if mode != "batch" and mesh is not None and data_size(mesh) > 1:
+    if mode != "batch" and mesh is not None and mesh["dp"].size() > 1:
         raise NotImplementedError(
-            f"generate_s2s {mode} decodes one dialogue: run it on the tp ranks alone (world = shard.tp), "
-            f"not on {data_size(mesh)} data ranks")
-    session = S2SSession(cfg, device, mesh)
+            f"generate_s2s {mode} decodes one dialogue: run it on the tp and fsdp ranks alone "
+            f"(world = shard.fsdp x shard.tp), not on {mesh['dp'].size()} dp replicas")
+    session = S2SSession(cfg, device, mesh, one_dialogue=mode != "batch")
     if mode == "batch":
         return run_batch(session, cfg)
     return run_online(session, cfg, multi_round="multi_round" in mode, stream="stream" in mode)

@@ -25,11 +25,19 @@ decoder LLM is split over tp (``parallel.tensor_parallel``): the batches are
 shared out over the data ranks (``world / N``), the N tp ranks of one data
 rank decode the same batches in lockstep (they see the same whole logits
 and make the same choices), and tp rank 0 writes the data rank's logs
-(``_rank{r}`` suffixes only with more than one data rank). A decode sharded
-over ``fsdp`` raises: data ranks take different numbers of decode steps,
-which FSDP's gathers cannot follow. Batch ``bi`` of data rank ``r`` samples
-from its own stream, seeded from ``train_config.seed`` and
-``bi + r * 100003``, as the reference folds its key.
+(``_rank{r}`` suffixes only with more than one data rank). With
+``shard.fsdp=N`` the model is sharded as the trainer shards it
+(``parallel.shard_params`` on the ``(dp, fsdp, tp)`` mesh: FSDP2 over the
+data ranks after the tp split), so no rank holds a whole replica: each layer
+unit is gathered around its forward only. The data ranks decode their own
+batches in lockstep (every stop test is global, ``inference.generate``), and
+the wrapped ragged tail gives every rank the same number of batches, so
+their gathers pair up. Batch ``bi`` of data rank ``r`` samples from its own
+stream, seeded from ``train_config.seed`` and ``bi + r * 100003``, as the
+reference folds its key.
+
+    torchrun --nproc_per_node=4 -m slam_llm_tpu_torch.pipeline.inference_batch --config <yaml> \\
+        ++train_config.shard.fsdp=2 ++train_config.shard.tp=2 ...
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ import torch
 from slam_llm_tpu_torch.config import RunConfig, load_run_config
 from slam_llm_tpu_torch.data.loader import build_dataloader
 from slam_llm_tpu_torch.inference.generate import GenerationConfig, Generator, strip_after_eos
-from slam_llm_tpu_torch.parallel.sharding import data_rank, data_size, make_mesh
+from slam_llm_tpu_torch.parallel.sharding import data_rank, data_size, make_mesh, shard_params
 from slam_llm_tpu_torch.parallel.tensor_parallel import split_for_tp
 from slam_llm_tpu_torch.pipeline.common import (
     build_model_and_data,
@@ -124,10 +132,6 @@ def main(cfg: RunConfig, device="cuda"):
     import torch.distributed as dist
 
     shard = cfg.train_config.shard
-    if shard.fsdp > 1:
-        raise NotImplementedError(
-            "a decode sharded over fsdp (shard.fsdp > 1) is not ported: each data rank decodes on a whole "
-            "replica or its tp shard (ROADMAP Queue 1: a sharded decode)")
     maybe_init_distributed(device)
     dev = resolve_device(device)
     logger = setup_logger("slam_llm_tpu_torch", log_file=cfg.log_config.log_file)
@@ -135,23 +139,27 @@ def main(cfg: RunConfig, device="cuda"):
     cfg.dataset_config.inference_mode = True
     world, rank, tp_rank = (dist.get_world_size(), dist.get_rank(), 0) if dist.is_initialized() else (1, 0, 0)
     mesh = None
-    if shard.tp > 1:
+    if shard.tp > 1 or shard.fsdp > 1:
         if not dist.is_initialized():
-            raise ValueError(f"shard.tp={shard.tp} needs {shard.tp} processes (torchrun); this is one")
-        mesh = make_mesh(dp=-1, fsdp=1, tp=shard.tp, device_type=dev.type)
+            raise ValueError(f"shard.fsdp={shard.fsdp} x shard.tp={shard.tp} needs {shard.fsdp * shard.tp} "
+                             "processes or more (torchrun); this is one")
+        mesh = make_mesh(dp=-1, fsdp=shard.fsdp, tp=shard.tp, device_type=dev.type)
         world, rank, tp_rank = data_size(mesh), data_rank(mesh), mesh["tp"].get_local_rank()
 
     model, tokenizer, dataset = build_model_and_data(cfg, split=cfg.dataset_config.test_split, device=dev)
     model.eval()
     t0 = time.perf_counter()
     materialize_params(model, cfg)
-    if mesh is not None:
+    if shard.fsdp > 1:
+        shard_params(model, mesh)  # the tp split, then FSDP2 over the data ranks
+        logger.info("sharded decode: fsdp=%d x tp=%d, %d data ranks in lockstep", shard.fsdp, shard.tp, world)
+    elif mesh is not None:
         logger.info("tensor parallel tp=%d: split %s", shard.tp, split_for_tp(model, mesh))
     load_s = time.perf_counter() - t0
     loader = decode_loader(cfg, dataset, num_replicas=world, rank=rank)
 
     gen_cfg = generation_config(cfg, tokenizer)
-    generator = Generator(model, gen_cfg)
+    generator = Generator(model, gen_cfg, mesh=mesh if shard.fsdp > 1 else None)
     nrs = (
         min(max(1, gen_cfg.num_return_sequences), gen_cfg.num_beams)
         if gen_cfg.num_beams > 1 and not gen_cfg.do_sample

@@ -44,6 +44,8 @@ BF16 = 2.0 ** -8
 LLM_DIMS = {"n_heads": 8, "n_kv_heads": 4, "head_dim": 8, "ffn_dim": 512}
 EVEN_VOCAB = 264  # the byte tokenizer's 259 ids, padded so tp=2 divides the vocabulary
 FACTORY = f"{Path(__file__).resolve()}:even_vocab_factory"
+TP2_ORDER_FACTORY = f"{Path(__file__).resolve()}:tp2_order_factory"
+F32_FACTORY = f"{Path(__file__).resolve()}:f32_factory"
 # the int8 base tensors (and the weights) whose local shapes a rank reports
 SHAPE_LEAVES = ("kernel_q", "kernel_scale", "kernel_qr", "kernel_scale_r", "kernel_qt", "head_q", "head_scale",
                 "head_qt", "weight", "lora_a", "lora_b")
@@ -66,12 +68,74 @@ def even_vocab_factory(train_config, model_config, device=None, **kwargs):
     return SLAMModel(cfg, device), load_tokenizer(model_config.llm_path)
 
 
+def tp2_order_factory(train_config, model_config, device=None, **kwargs):
+    """``even_vocab_factory``'s model summing its split modules' row products
+    in a tp=2 run's order (``sum_in_tp2_order``): the one-process reference
+    of the bf16 pipeline runs."""
+    model, tokenizer = even_vocab_factory(train_config, model_config, device, **kwargs)
+    sum_in_tp2_order(model)
+    return model, tokenizer
+
+
+def f32_factory(train_config, model_config, device=None, **kwargs):
+    """``even_vocab_factory``'s model computing in f32 (the LLM, the encoder
+    and the projector), for the decodes compared without reordering."""
+    from slam_llm_tpu_torch.data.tokenizer import load_tokenizer
+    from slam_llm_tpu_torch.models.slam_model import SLAMModel, build_slam_config
+
+    cfg = build_slam_config(train_config, model_config)
+    f32 = torch.float32
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, vocab_size=EVEN_VOCAB, dtype=f32),
+                              encoder=dataclasses.replace(cfg.encoder, dtype=f32),
+                              projector_cfg=dataclasses.replace(cfg.projector_cfg, dtype=f32))
+    return SLAMModel(cfg, device), load_tokenizer(model_config.llm_path)
+
+
+def _tp2_row_base(self, h, out, pre_quant):
+    """A plain row dense's product as two tp=2 ranks form it: each half of
+    K in the compute dtype, the two summed in f32 and rounded once
+    (``parallel.tensor_parallel.reduce_from_tp``)."""
+    from slam_llm_tpu_torch.models.layers import linear
+
+    assert out is None and self.quant == "none" and self.tp is None
+    w, k = self.weight.to(self.dtype), h.shape[-1] // 2
+    a, b = (linear(h[..., r * k:(r + 1) * k].contiguous(), w[:, r * k:(r + 1) * k].contiguous()) for r in (0, 1))
+    return a + b if a.dtype in (torch.float32, torch.float64) else (a.float() + b.float()).to(a.dtype)
+
+
+def sum_in_tp2_order(model):
+    """One process's row-parallel products of the modules tp splits past
+    the LLM (the whisper encoder's out_proj / fc2, the projector's linear2)
+    summed in the order of a tp=2 run (``_tp2_row_base``); the LLM's own
+    row denses are the int8 base's exact s32 sums. In bf16, the order moves
+    a rounding now and then, so the one-process port in this order equals
+    tp=2 where one in its own order would differ by those roundings (the
+    f32 decodes compare the two orders: ``test_tp2_decode_in_f32_...``)."""
+    import types
+
+    from slam_llm_tpu_torch.models.projector import ProjectorConcat, ProjectorConv1d
+    from slam_llm_tpu_torch.models.whisper import WhisperEncoder
+
+    rows = []
+    for m in model.modules():
+        if isinstance(m, WhisperEncoder):
+            rows += [d for layer in m.layers for d in (layer.attn.out_proj, layer.fc2)]
+        elif isinstance(m, (ProjectorConcat, ProjectorConv1d)):
+            rows.append(m.linear2)
+    for dense in rows:
+        dense._base = types.MethodType(_tp2_row_base, dense)
+    return model
+
+
 # ---- shared by the workers and the references (no JAX) -----------------------------
 
 
-def _trainer_steps(tcfg, state_dict, tc, batch, mesh=None):
+def _trainer_steps(tcfg, state_dict, tc, batch, mesh=None, tp_order=False):
     """STEPS trainer steps: metrics, whole trainable tensors, the checkpointed
-    layer calls, the local shapes of ``SHAPE_LEAVES`` and the seeds drawn."""
+    layer calls, the local shapes of ``SHAPE_LEAVES`` and the seeds drawn.
+    ``tp_order`` (one process): the split modules' row products and the
+    gradient norm summed in the order of a tp=2 run's (``sum_in_tp2_order``,
+    ``_tp2_norm``)."""
     from slam_llm_tpu_torch.models import remat
     from slam_llm_tpu_torch.models import slam_model as tslam
     from slam_llm_tpu_torch.parallel.sharding import local_part
@@ -88,7 +152,11 @@ def _trainer_steps(tcfg, state_dict, tc, batch, mesh=None):
     try:
         model = tslam.SLAMModel(tcfg)
         model.load_state_dict(state_dict)
+        if tp_order:
+            sum_in_tp2_order(model)
         trainer = Trainer(model, tcfg, tc, mesh=mesh).state_from_params()
+        if tp_order:
+            trainer.norm_group = trainer.optimizer.norm_group = _tp2_norm(list(trainer.trainable))
         metrics, seeds = [], []
         for _ in range(STEPS):
             m = trainer.train_step(trainer.put_batch(batch))
@@ -100,6 +168,32 @@ def _trainer_steps(tcfg, state_dict, tc, batch, mesh=None):
               if n.rsplit(".", 1)[-1] in SHAPE_LEAVES}
     return {"metrics": metrics, "trainable": trainer.whole_trainable(), "remat_calls": calls[0], "shapes": shapes,
             "seeds": seeds}
+
+
+def _tp2_norm(names):
+    """A one-process ``norm_group`` summing the gradient's squares as a tp=2
+    run's ``NormGroups`` does: each rank's part of the split tensors in
+    turn (the projector's linear1 on its outputs, linear2's weight on its
+    inputs), the two ranks' sums added, then the whole tensors."""
+    from slam_llm_tpu_torch.parallel.tensor_parallel import DENSE_DIMS
+
+    def dim(name):
+        owner, leaf = name.rsplit(".", 1)
+        role = {"linear1": "column", "linear2": "row"}.get(owner.rsplit(".", 1)[-1])
+        return None if role is None or not owner.startswith("encoder_projector.") else DENSE_DIMS[role].get(leaf)
+
+    dims = [dim(n) for n in names]
+
+    class Norm:
+        @staticmethod
+        def square_sum(grads):
+            zero = torch.zeros((), dtype=torch.float32)
+            ranks = [sum((g.narrow(d, r * (g.shape[d] // 2), g.shape[d] // 2).contiguous().float().square().sum()
+                          for g, d in zip(grads, dims) if d is not None), zero) for r in (0, 1)]
+            whole = sum((g.float().square().sum() for g, d in zip(grads, dims) if d is None), zero)
+            return torch.stack([ranks[0] + ranks[1], whole]).sum()
+
+    return Norm()
 
 
 def _dense_cases():
@@ -320,9 +414,13 @@ def runs(tmp_path_factory):
             "train_config.output_dir": str(root / "tp2"), "train_config.shard.tp": 2})},
         {"kind": "decode", "name": "decode", "cfg": _run_cfg(root, **{
             "decode_config.decode_log": str(root / "tp2_decode"), "train_config.shard.tp": 2})},
+        {"kind": "decode", "name": "decode_f32", "cfg": _run_cfg(root, **{
+            "decode_config.decode_log": str(root / "tp2_f32_decode"), "train_config.shard.tp": 2,
+            "model_config.file": F32_FACTORY})},
         *(trainer_job(f"lora_{p}", _policy_cfg(lora_t, p), lora_sd) for p in OTHER_REMAT),
     ], root / "rest", script=Path(__file__))
-    one = finetune.main(_run_cfg(root, **{"train_config.output_dir": str(root / "one")}), device="cpu")
+    one = finetune.main(_run_cfg(root, **{"train_config.output_dir": str(root / "one"),
+                                          "model_config.file": TP2_ORDER_FACTORY}), device="cpu")
     seeds_t = dataclasses.replace(mixed["int8_rot"][0], llm=dataclasses.replace(
         mixed["int8_rot"][0].llm, lora_dropout=0.05))
     seeds_tc = _train_config()
@@ -339,8 +437,8 @@ def runs(tmp_path_factory):
     torch.set_num_threads(2)
     refs = {
         "lora": _jax_steps(lora_j, lora_params, 1, 1, tp=2),
-        **{f"exact_{m}": _trainer_steps(*exact[m], tc, batch) for m in exact},
-        **{f"mixed_{m}": _trainer_steps(*mixed[m], tc, batch) for m in mixed},
+        **{f"exact_{m}": _trainer_steps(*exact[m], tc, batch, tp_order=True) for m in exact},
+        **{f"mixed_{m}": _trainer_steps(*mixed[m], tc, batch, tp_order=True) for m in mixed},
         "units": _units(),
         "one": one,
     }
@@ -395,7 +493,11 @@ def test_tp2_int8_base_equals_one_process_bit_for_bit(runs, mode):
     CE head, bf16, the projector trained (no LoRA: every reduction of the
     backward is an s32 sum): three steps of the two ranks equal the
     one-process port's bit for bit: losses, accuracies, grad norms, the
-    stochastic-rounding seeds and every trainable tensor."""
+    stochastic-rounding seeds and every trainable tensor. The projector is
+    split over tp, so the ranks sum its gradient's squares a part at a
+    time (``NormGroups``): the one-process norm is summed in that
+    association (``_tp2_norm``), as test_torch_distributed's one-process
+    reference rounds each rank's rows as that rank does."""
     got, want = runs["steps"].result(f"exact_{mode}"), runs["refs"][f"exact_{mode}"]
     assert got["metrics"] == want["metrics"]
     assert got["seeds"] == want["seeds"]
@@ -422,8 +524,10 @@ def test_tp2_lora_over_the_int8_base_matches_one_process(runs, mode):
 def test_tp2_holds_its_shards_of_the_int8_base(runs):
     """A tp=2 rank holds half of every split tensor on the axis its dense
     splits (q / k / v, gate / up column-parallel on F; o_proj / down_proj
-    row-parallel on K; the head on the vocabulary), and the scales whose
-    axis is not split whole, each quantized from the whole tensor first."""
+    row-parallel on K; the head on the vocabulary; the whisper encoder's
+    q / k / v / fc1 on F and out_proj / fc2 on K; the projector's linear1 on
+    F and linear2 on K), and the scales whose axis is not split whole, each
+    quantized from the whole tensor first."""
     got = runs["steps"].result("exact_int8_rot")["shapes"]
     want = runs["refs"]["exact_int8_rot"]["shapes"]
     assert set(got) == set(want)
@@ -432,8 +536,11 @@ def test_tp2_holds_its_shards_of_the_int8_base(runs):
         owner, leaf = name.rsplit(".", 1)
         dense = owner.rsplit(".", 1)[-1]
         llm = owner.startswith("llm.")
+        whisper = owner.startswith("encoder.")
         dims = (COLUMN_DIMS if llm and dense in ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj", "lm_head")
-                else ROW_DIMS if llm and dense in ("o_proj", "down_proj") else None)
+                else ROW_DIMS if llm and dense in ("o_proj", "down_proj")
+                else COLUMN_DIMS if whisper and dense in ("q_proj", "k_proj", "v_proj", "fc1") or dense == "linear1"
+                else ROW_DIMS if whisper and dense in ("out_proj", "fc2") or dense == "linear2" else None)
         if owner == "llm":
             dim = {"head_q": 0, "head_scale": 0, "head_qt": 1}[leaf]
         elif owner == "llm.embed_tokens":
@@ -441,7 +548,7 @@ def test_tp2_holds_its_shards_of_the_int8_base(runs):
         elif dims is not None:
             dim = dims[leaf]
         else:
-            dim = None  # the encoder and projector: whole
+            dim = None  # the encoder's convolutions and LayerNorms: whole
         expect = list(shape)
         if dim is not None:
             expect[dim] //= 2
@@ -507,7 +614,8 @@ def test_tp_ranks_of_a_data_rank_draw_the_same_masks_and_seeds(runs):
 def test_tp2_checkpoints_hold_whole_tensors_and_resume_across_meshes(runs):
     """(g) pipeline.finetune at tp=2 (the int8 base, LoRA, validation):
     model.pt and full_state.pt hold whole tensors of the one-process run's
-    names and shapes, within a bf16 rounding of its values; the tp=2 state
+    names and shapes (its whisper and projector summing in the tp=2 order,
+    ``sum_in_tp2_order``), within a bf16 rounding of its values; the tp=2 state
     resumed in one process is restored bit for bit; the one-process state
     resumed at fsdp=2 x tp=2 is gathered back bit for bit."""
     from test_torch_distributed import _close
@@ -549,28 +657,44 @@ def test_tp2_checkpoints_hold_whole_tensors_and_resume_across_meshes(runs):
         assert all(torch.equal(a, b) for a, b in zip(back["optimizer"][key], full_one["optimizer"][key]))
 
 
-def test_tp2_decode_writes_logs_equal_to_one_process(runs):
-    """(h) inference_batch at tp=2: tp rank 0 writes ``_pred`` / ``_gt``
-    (one data rank: no rank suffix), line for line the one-process decode's."""
+def _decode_equals_one_process(runs, name: str, factory: str) -> None:
     from slam_llm_tpu_torch.pipeline import inference_batch
 
     root = runs["root"]
-    runs["rest"].result("decode")
-    one = inference_batch.main(_run_cfg(root, **{"decode_config.decode_log": str(root / "one_decode")}),
-                               device="cpu")
+    runs["rest"].result(name)
+    one = inference_batch.main(_run_cfg(root, **{"decode_config.decode_log": str(root / f"one_{name}"),
+                                                 "model_config.file": factory}), device="cpu")
+    log = {"decode": "tp2_decode", "decode_f32": "tp2_f32_decode"}[name]
     for kind in ("pred", "gt"):
         want = Path(one[kind]).read_text().splitlines()
         assert len(want) == 5
-        assert Path(f"{root}/tp2_decode_{kind}").read_text().splitlines() == want
-    assert not Path(f"{root}/tp2_decode_pred_rank0").exists()
+        assert Path(f"{root}/{log}_{kind}").read_text().splitlines() == want
+    assert not Path(f"{root}/{log}_pred_rank0").exists()
+
+
+def test_tp2_decode_writes_logs_equal_to_one_process(runs):
+    """(h) inference_batch at tp=2, the recipe's bf16: tp rank 0 writes
+    ``_pred`` / ``_gt`` (one data rank: no rank suffix), line for line the
+    one-process decode's whose whisper and projector sum their row products
+    in the tp=2 order (``sum_in_tp2_order``: the order alone moves a bf16
+    rounding now and then, and the random tiny model's beams hold near
+    ties)."""
+    _decode_equals_one_process(runs, "decode", TP2_ORDER_FACTORY)
+
+
+def test_tp2_decode_in_f32_writes_logs_equal_to_one_process(runs):
+    """(h) inference_batch at tp=2 in f32 (the LLM, the encoder and the
+    projector): line for line the one-process decode's in its own order."""
+    _decode_equals_one_process(runs, "decode_f32", F32_FACTORY)
 
 
 def test_unsplit_paths_raise_under_tp(tmp_path, monkeypatch):
-    """(h) A decode sharded over fsdp (``inference_batch`` and
-    ``generate_s2s`` under ``shard.fsdp=2``) and inference_vallex under
-    several processes raise, naming their ROADMAP entry; so does a model
-    with no decoder LLM to split. (generate_s2s under tp runs:
-    ``tests/test_torch_s2s_tp.py``.)"""
+    """(h) inference_vallex under several processes raises, naming its
+    ROADMAP entry; so does a model with no decoder LLM to split. A decode
+    sharded over fsdp (``inference_batch`` and ``generate_s2s`` under
+    ``shard.fsdp=2``) in one process raises ValueError: its mesh is not the
+    world. (The sharded decodes run: ``tests/test_torch_sharded_serving.py``;
+    generate_s2s under tp: ``tests/test_torch_s2s_tp.py``.)"""
     from slam_llm_tpu_torch.config import RunConfig, set_by_path
     from slam_llm_tpu_torch.models.vallex import VALLE, VallexConfig
     from slam_llm_tpu_torch.parallel.tensor_parallel import split_for_tp
@@ -578,10 +702,9 @@ def test_unsplit_paths_raise_under_tp(tmp_path, monkeypatch):
 
     cfg = RunConfig()
     set_by_path(cfg, "train_config.shard.fsdp", 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: a sharded decode"):
-        generate_s2s.main(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: a sharded decode"):
-        inference_batch.main(cfg, device="cpu")
+    for entry in (generate_s2s, inference_batch):
+        with pytest.raises(ValueError, match="shard.fsdp=2 x shard.tp=1 needs 2 processes"):
+            entry.main(cfg, device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="ROADMAP, Do not port: a multi-rank inference_vallex"):
         inference_vallex.main(["--ckpt_path", "x", "--codec_path", "x", "--prompt_text", "a", "--prompt_codes", "x",
