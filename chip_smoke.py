@@ -232,9 +232,12 @@ Phases, each fatal on failure:
                 the `distributed` path. With two or more cards, (a) at
                 fsdp=2 (with four, also fsdp=4 and dp=2 x fsdp=2) against (a)
                 (run_multi_card); otherwise a line says why not.
- 20. tensor parallel -- the decoder LLM split over shard.tp
+ 20. tensor parallel -- every family split over shard.tp
                 (run_tensor_parallel): phase 3 already held K1 / K4 at a tp
-                rank's heads (TinyLlama, vicuna-7b, Qwen2-7B at tp = 2 and 4),
+                rank's heads (TinyLlama, vicuna-7b, Qwen2-7B at tp = 2 and 4;
+                VALL-E X at tp = 2 and 4; the Q-Former, EAT, emotion2vec,
+                MusicFM, AV-HuBERT, HuBERT and, on the f32 routes,
+                Spatial-AST at tp = 2),
                 K2's absmax and given-scale passes (bit-equal to the columns
                 of a whole-row K2 run) and K3's s32 mode and epilogue
                 (bit-equal to the fused bf16 / f32 path) at a rank's widths;
@@ -254,13 +257,20 @@ Phases, each fatal on failure:
                 a rank) line for line phase 4's, generate_s2s against world
                 size 1, each rank's decode steps and its own last useful
                 steps, every module computing with plain, contiguous
-                parameters; the launches count on the `tensor_parallel` path.
+                parameters; then the other families (run_tp_families) at 2 +
+                2 layers, against world size 1 run here: SELD with
+                Spatial-AST trained and VALL-E X, a training step each
+                (losses within one bf16 rounding, grad norms within 1e-2),
+                and the SEC decode (emotion2vec and the Q-Former split) line
+                for line; the launches count on the `tensor_parallel` path.
                 (c) with two or more cards (NCCL) the ASR recipe at tp=2,
                 with four also tp=4, fsdp=2 x tp=2, s2s_qwen at Qwen2-7B's
                 full 28 layers at tp=4 and fsdp=2 x tp=2 (run_multi_card_tp),
-                and the decodes at fsdp=4 and fsdp=2 x tp=2 against one card,
-                s2s_qwen's at 28 layers at fsdp=4 (run_multi_card_decode);
-                otherwise a line says why not.
+                the decodes at fsdp=4 and fsdp=2 x tp=2 against one card,
+                s2s_qwen's at 28 layers at fsdp=4 (run_multi_card_decode),
+                vallex_tts at base_24l at tp=4 and fsdp=2 x tp=2 and
+                asr_wavlm_vicuna at tp=4 (run_families_tp); otherwise a line
+                says why not.
 
 Prints one JSON line of kernel results before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -632,6 +642,7 @@ def check_flash(gen) -> dict:
         ("VALL-E X AR decode step, causal", 1, VX_DECODE_T, 16, 16, 64, True, f"tail{VX_DECODE_T // 2}", 0),
         # phase 20: a tensor-parallel rank's heads (H / tp, Hkv / tp) at tp = 2 and 4
         *TP_K1_CASES,
+        *TP_FAMILY_K1_CASES,
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
@@ -716,6 +727,7 @@ def check_flash_f32(gen) -> dict:
         ("ragged keys, right-padded", 8, SA_T, 12, 12, 64, False, "right"),
         ("causal, left-padded", 4, SA_T, 12, 12, 64, True, "left"),
         ("GQA, head_dim 128, causal", 2, 256, 8, 2, 128, True, "right"),
+        *TP_FAMILY_F32_CASES,
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad in cases:
@@ -819,6 +831,7 @@ def check_flash_bwd(gen) -> dict:
           for ta in VX_TA),
         # phase 20: a tensor-parallel rank's heads at the training shapes
         *(c for c in TP_K1_CASES if "training" in c[0]),
+        *TP_FAMILY_K4_CASES,
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
@@ -899,6 +912,7 @@ def check_flash_bwd_f32(gen) -> dict:
         ("ragged keys, right-padded", 8, SA_T, 12, 12, 64, False, "right"),
         ("causal, left-padded", 4, SA_T, 12, 12, 64, True, "left"),
         ("GQA, head_dim 128, causal", 2, 256, 8, 2, 128, True, "right"),
+        *TP_FAMILY_F32_CASES,
     ]
 
     worst, rows = 0.0, []
@@ -4570,6 +4584,24 @@ ENCODEC_FRAMES = 150  # 2 s of codes decoded card vs CPU
 # here (the f32 decode 1.2e-6; NVIDIA H100 80GB HBM3), under the 1e-3 that SNAC's gate uses
 ENCODEC_REL_L2 = 1e-5
 VX_SYNTH_SEEDS = (0, 1)  # one synthesis a seed; the first also warms the card up
+# the other families split over tp (phase 20 (b)): a rank's heads at the recipes' shapes, tp = 2 (and 4 for
+# VALL-E X, whose four-card runs take it): (name, B, T, H, Hkv, D, causal, padding, fused RoPE's theta or 0)
+TP_FAMILY_K1_CASES = [
+    *(case for tp in (2, 4) for case in (
+        (f"VALL-E X AR training at tp={tp}, causal, text-padding hole", VX_BATCH, VX_TT + VX_TA[0] + 1, 16 // tp,
+         16 // tp, 64, True, f"hole{VX_TT}", 0),
+        (f"VALL-E X NAR training at tp={tp}, text-padding hole", VX_BATCH, VX_TT + VX_TA[0], 16 // tp, 16 // tp, 64,
+         False, f"hole{VX_TT}", 0))),
+    ("Q-Former self-attn, 64 queries, training batch at tp=2", 16, 64, 6, 6, 64, False, "none", 0),
+    ("EAT-base encoder, training batch at tp=2", 16, AAC_ENC_T, 6, 6, 64, False, "none", 0),
+    ("emotion2vec-base encoder, training batch at tp=2, right-padded", 16, W_ENC_T, 6, 6, 64, False, "right", 0),
+    ("MusicFM-MSD encoder, training batch at tp=2, right-padded", 16, MC_ENC_T, 8, 8, 64, False, "right", 0),
+    ("AV-HuBERT-large encoder at tp=2, right-padded", VSR_BATCH, VSR_FRAMES[-1], 8, 8, 64, False, "right", 0),
+    ("hubert-large encoder at tp=2, right-padded", 2, W_ENC_T, 8, 8, 64, False, "right", 0),
+]
+TP_FAMILY_K4_CASES = [c for c in TP_FAMILY_K1_CASES if c[0].startswith(("VALL-E X", "Q-Former"))]  # what trains
+# Spatial-AST-base split at tp=2 (f32: K1 / K4's f32 routes): (name, B, T, H, Hkv, D, causal, padding)
+TP_FAMILY_F32_CASES = [("Spatial-AST-base encoder, training batch at tp=2", 16, SA_T, 6, 6, 64, False, "none")]
 
 
 def _vx_config(tmp: Path, bucket: int, steps: int, *extra):
@@ -4925,18 +4957,22 @@ DIST_PATH = ("flash_attention_fwd", "flash_attention_bwd", "rowquant", "rowquant
 DIST_RTOL = 1e-6  # phase 19 against phases 5 and 16, relative
 
 
-def _torchrun(nproc: int, job: dict, tmp: Path, timeout: float = DIST_LAUNCH_TIMEOUT_S, env=None) -> dict:
+def _torchrun(nproc: int, job: dict, tmp: Path, timeout: float = DIST_LAUNCH_TIMEOUT_S, env=None,
+              root: Path = ROOT) -> dict:
     """``python -m torch.distributed.run --standalone --nproc_per_node=nproc
     chip_smoke.py --distributed-job <job>``, the users' launch, with a
     timeout (and ``env`` added to the children's environment); a non-zero
-    exit fails the phase. Returns rank 0's results."""
+    exit fails the phase. ``root``: the checkout whose ``chip_smoke.py`` and
+    package run (another tree's, for an A/B in one call). Returns rank 0's
+    results."""
     job = dict(job, out=str(tmp / f"result_{nproc}.json"))
     path = tmp / f"job_{nproc}.json"
     path.write_text(json.dumps(job))
+    script = Path(__file__).resolve() if root == ROOT else Path(root).resolve() / "chip_smoke.py"
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={nproc}",
-           str(Path(__file__).resolve()), "--distributed-job", str(path)]
+           str(script), "--distributed-job", str(path)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=timeout,
                           env=None if env is None else {**os.environ, **env})
     (tmp / f"torchrun_{nproc}.log").write_text(proc.stdout + proc.stderr)
     for line in proc.stdout.splitlines():
@@ -5139,6 +5175,9 @@ def distributed_job(path: str) -> None:
     if not maybe_init_distributed(device):
         raise RuntimeError("phase 19's job runs under torchrun")
     rank, world = dist.get_rank(), dist.get_world_size()
+    if "family" in job:  # phase 20 (b)'s family runs read phase 20's synthetic tokenizer
+        global _synth_tokenizer_dir
+        _synth_tokenizer_dir = job["family"]["tokenizer_dir"]
     bad, seen = _plain_param_check()
     notes = []  # the split and sharding the entry points log (rank 0's, each once)
 
@@ -5190,6 +5229,14 @@ def distributed_job(path: str) -> None:
                 res, launches = run_counted(lambda: generate_s2s.main(cfg, device=device))
             out["s2s_decode"] = {"pred": res["pred"], "n": res["n"], "seconds": res["seconds"],
                                  "steps": sum(u["decode_steps"] for u in res["utterances"])}
+        elif name.startswith("family_"):  # phase 20 (b): a family's recipe at tp=2 (run_tp_families)
+            kind = name[len("family_"):]
+            torch.cuda.reset_peak_memory_stats()
+            res, launches = family_run(kind, job["family"], Path(job["family_dir"]), device,
+                                       ("++train_config.shard.tp=2",))
+            out[name] = ({"pred": res["pred"], "n": res["n"], "seconds": res["seconds"]} if kind == "sec" else
+                         {"steps": [dict(s) for s in res["steps"]],
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
         elif name == "fsdp_decode":  # inference_batch sharded over fsdp: each rank's steps and its own last
             cfg = inference_batch.load_run_config(job["fsdp_decode_args"])
             torch.cuda.reset_peak_memory_stats()
@@ -5430,14 +5477,15 @@ def probe_allows(probe: dict, run: str) -> bool:
 
 
 def run_tensor_parallel() -> dict:
-    """Phase 20: tensor parallelism (the decoder LLM split Megatron-style
-    over ``shard.tp``). The per-rank kernel rows ran in phase 3. (b) Whether
+    """Phase 20: tensor parallelism (every family split Megatron-style over
+    ``shard.tp``). The per-rank kernel rows ran in phase 3. (b) Whether
     gloo runs the tp collectives on CUDA tensors; if it does, two torchrun
     ranks on this one card (gloo): the ASR recipe through
     ``pipeline.finetune`` at ``shard.tp=2``, TP_GLOO_STEPS steps of 16
     against phase 5's (losses and grad norms within ``TP_LOSS_RTOL`` /
     ``TP_NORM_RTOL``), ``pipeline.inference_batch`` at tp=2 line for line
-    against phase 4, and S2S's steps and decode (``run_s2s_gloo``).
+    against phase 4, S2S's steps and decode (``run_s2s_gloo``) and the other
+    families (``run_tp_families``).
     (c) With two or more cards (NCCL), the ASR recipe at tp=2, and with
     four at tp=4 and fsdp=2 x tp=2 and ``s2s_qwen.yaml`` at Qwen2-7B's full
     28 layers at tp=4 and fsdp=2 x tp=2."""
@@ -5455,7 +5503,10 @@ def run_tensor_parallel() -> dict:
     questions = write_s2s_corpus(tmp, "questions", [30] * TP_S2S_QUESTIONS, seed=3)
     s2s_decode = ["++decode_config.mode=batch", f"++dataset_config.val_data_path={questions}",
                   f"++decode_config.max_new_tokens={TP_S2S_NEW}"]
-    job = {"backend": "gloo", "run": ["probe", "tp_gap", "asr", "decode", "s2s", "s2s_decode", "fsdp_decode", "fsdp_s2s_decode"],
+    family_args, family_one = tp_family_references(tmp / "families")
+    job = {"backend": "gloo", "run": ["probe", "tp_gap", "asr", "decode", "s2s", "s2s_decode", "fsdp_decode",
+                                      "fsdp_s2s_decode", *FAMILY_RUNS],
+           "family": family_args, "family_dir": str(tmp / "families" / "tp2"),
            "asr_args": [*train["args"], f"++train_config.output_dir={tmp / 'asr'}", "++train_config.shard.tp=2",
                         f"++train_config.max_steps_per_epoch={TP_GLOO_STEPS}", "++train_config.run_validation=false"],
            "decode_args": [*decode["args"], f"++decode_config.decode_log={tmp / 'decode'}",
@@ -5517,6 +5568,11 @@ def run_tensor_parallel() -> dict:
     else:
         log("[tensor parallel] (b) the fsdp=2 decodes were not run: gloo does not run FSDP2's all-gathers of "
             f"{[str(dt).split('.')[-1] for dt in FSDP_GATHER_DTYPES]} on CUDA tensors here (above)")
+    if all(r in got for r in FAMILY_RUNS):
+        check_tp_families(got, family_one)
+    else:
+        log("[tensor parallel] (b) the other families' tp runs were not run: gloo does not run every tp collective "
+            "on CUDA tensors here (above)")
     if torch.cuda.device_count() >= 2:
         run_multi_card_tp(train, tmp)
     else:
@@ -5527,6 +5583,159 @@ def run_tensor_parallel() -> dict:
     shutil.rmtree(tmp)
     log(f"[tensor parallel] phase 20 in {time.perf_counter() - t_phase:.1f} s")
     return {k: launches.get(k, 0) for k in kernel_counters()}
+
+
+# (b)'s other families at tp=2 over gloo on one card, against world size 1 in this process at the same cut:
+# each recipe at TP_FAMILY_LAYERS LLM (VALL-E X: AR and NAR), encoder and, for the trained SELD Q-Former,
+# Q-Former layers at its full widths, one training step of 16 (the recipe's 8 Q-Former blocks put the grad
+# norms 1.2 % apart: blocks 3-7 attend near-uniformly, so their q / k gradients are K4's bf16 rounding, which
+# the split reorders; ROADMAP Queue 3); the SEC decode on one batch of TP_FAMILY_UTTS utterances,
+# TP_FAMILY_NEW new tokens, its LLM in f32 (as (b)'s S2S decode: a bf16 LLM's reordered sums would flip a
+# random model's near-tied tokens)
+TP_FAMILY_LAYERS, TP_FAMILY_UTTS, TP_FAMILY_NEW = 2, 8, 8
+TP_FAMILY_PATH = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd_f32", "flash_attention_bwd_f32")
+
+
+@contextlib.contextmanager
+def family_layers(n: int, llm_dtype=None, enc_dtype=None):
+    """vicuna-7b, Spatial-AST-base, emotion2vec-base and VALL-E X's
+    base_24l (AR and NAR each) cut to ``n`` layers at their full widths,
+    vicuna-7b in ``llm_dtype`` and emotion2vec-base in ``enc_dtype`` where
+    given, in-process."""
+    import dataclasses
+
+    from slam_llm_tpu_torch.models import spatial_ast, vallex, wavlm
+    from slam_llm_tpu_torch.models.llm import LLMConfig
+
+    full = LLMConfig.vicuna_7b
+    tables = ((spatial_ast.SPATIAL_AST_PRESETS, "spatialast-base", {"n_layers": n}),
+              (wavlm.WAVLM_PRESETS, "emotion2vec-base", {"n_layers": n, **({} if enc_dtype is None else
+                                                                             {"dtype": enc_dtype})}),
+              (vallex.PRESETS, "vallex", {"ar_layers": n, "nar_layers": n}))
+    saved = [(table, key, table[key]) for table, key, _ in tables]
+    LLMConfig.vicuna_7b = staticmethod(lambda: dataclasses.replace(
+        full(), n_layers=n, **({} if llm_dtype is None else {"dtype": llm_dtype})))
+    for table, key, kw in tables:
+        table[key] = (lambda preset, kw: lambda: dataclasses.replace(preset(), **kw))(table[key], kw)
+    try:
+        yield
+    finally:
+        LLMConfig.vicuna_7b = staticmethod(full)
+        for table, key, preset in saved:
+            table[key] = preset
+
+
+def tp_family_args(tmp: Path) -> dict:
+    """The corpora, the tokenizer and the entry points' arguments of (b)'s
+    family runs: SELD with its encoder trained, VALL-E X in the 512 bucket
+    (one step of 16 each) and the SEC decode."""
+    from slam_llm_tpu_torch.tools import synth_checkpoint as synth
+
+    _ms_tokenizer(tmp)
+    over = synth.write_seld_corpus(str(tmp / "seld"), n=16, n_eval=4, seed=0)
+    vx_train = synth.write_vallex_corpus(str(tmp / "vx.jsonl"), VX_BATCH, frames=VX_FRAMES[VX_TA[0]],
+                                         text_len=(40, VX_TT), seed=VX_TA[0])
+    sec_test = write_corpus(tmp, n=TP_FAMILY_UTTS, seed=2, name="sec_test", targets=SEC_CAPTIONS)
+    one_step = ("++train_config.log_interval=1", "++train_config.run_validation=false",
+                "++train_config.warmup_steps=1", "++train_config.num_epochs=1", "++train_config.max_steps_per_epoch=1",
+                "++train_config.save_model=false")
+    recipe = ("++model_config.file=__main__:synth_tokenizer_factory",)
+    return {
+        "tokenizer_dir": _synth_tokenizer_dir,
+        "seld_args": ["--config", str(SELD_RECIPE), *recipe, *(f"++dataset_config.{k}={v}" for k, v in over.items()),
+                      f"++model_config.qformer_layers={TP_FAMILY_LAYERS}", "++train_config.freeze_encoder=false",
+                      *one_step],
+        "vallex_args": ["--config", str(VX_RECIPE), f"++dataset_config.train_data_path={vx_train}",
+                        "++dataset_config.code_layer=8", *one_step],
+        "sec_args": ["--config", str(SEC_RECIPE), *recipe, f"++dataset_config.val_data_path={sec_test}",
+                     f"++decode_config.max_new_tokens={TP_FAMILY_NEW}",
+                     f"++train_config.val_batch_size={TP_FAMILY_UTTS}"],
+    }
+
+
+def family_run(name: str, args: dict, out_dir: Path, device: str, extra=()):
+    """One of (b)'s family runs through its entry point at the cut
+    (``family_layers``): ``seld`` / ``vallex`` training, ``sec`` decoding;
+    its result and launches."""
+    from slam_llm_tpu_torch.pipeline import finetune, inference_batch
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if name == "sec":
+        cfg = inference_batch.load_run_config([*args["sec_args"], f"++decode_config.decode_log={out_dir / 'sec'}",
+                                               *extra])
+        with family_layers(TP_FAMILY_LAYERS, llm_dtype=torch.float32, enc_dtype=torch.float32):
+            return run_counted(lambda: inference_batch.main(cfg, device=device))
+    cfg = finetune.load_run_config([*args[f"{name}_args"], f"++train_config.output_dir={out_dir / name}", *extra])
+    with family_layers(TP_FAMILY_LAYERS):
+        return run_counted(lambda: finetune.main(cfg, device=device))
+
+
+FAMILY_RUNS = ("family_seld", "family_vallex", "family_sec")
+
+
+def tp_family_references(tmp: Path) -> tuple:
+    """(b)'s family runs at world size 1 in this process: their arguments
+    (``tp_family_args``) and results, the references of the tp=2 runs."""
+    tmp.mkdir(parents=True, exist_ok=True)
+    args = tp_family_args(tmp)
+    one = {}
+    for name in ("seld", "vallex", "sec"):
+        one[name], _ = family_run(name, args, tmp / "one", "cuda")
+        torch.cuda.empty_cache()
+    return args, one
+
+
+def check_tp_families(got: dict, one: dict) -> dict:
+    """Phase 20 (b), the families split over tp past the LLM and whisper,
+    each run at tp=2 over gloo against ``one`` (``tp_family_references``):
+    the SELD recipe with Spatial-AST-base trained (f32: K1 / K4's f32
+    routes) and the 64-query Q-Former split, and vallex_tts.yaml (base_24l's
+    widths), TP_FAMILY_LAYERS + TP_FAMILY_LAYERS layers, one training step
+    of 16 each through ``pipeline.finetune``: losses within one bf16
+    rounding, grad norms within 1e-2; the SEC recipe's ``inference_batch``
+    (emotion2vec-base and the Q-Former split, beam 4), its ``_pred`` line
+    for line. Every family is logged before a failure raises. Returns rank
+    0's launches of the family runs."""
+    failed = []
+    for name, label in (("seld", "seld_spatialast_llama, Spatial-AST trained"), ("vallex", "vallex_tts")):
+        tp2, ref = got[f"family_{name}"], one[name]
+        try:
+            exact = _same_run(f"(b) {label} at {TP_FAMILY_LAYERS} + {TP_FAMILY_LAYERS} layers at tp=2 (gloo, two "
+                              f"ranks on one card) vs world size 1", tp2, ref, TP_LOSS_RTOL, TP_NORM_RTOL)
+        except AssertionError as e:
+            failed.append(str(e))
+            exact = False
+        log(f"[tensor parallel] (b) {label}: step ms {[round(1000 * s['seconds'], 1) for s in tp2['steps']]} at tp=2 "
+            f"vs {[round(1000 * s['seconds'], 1) for s in ref['steps']]} at world size 1; rank 0's peak "
+            f"{tp2['peak_gib']:.2f} GiB; bit-equal {exact}; launches at tp=2 "
+            f"{got['launches_by_run'][f'family_{name}']} | {SMI}")
+    sec = got["family_sec"]
+    lines, want = (Path(p).read_text().splitlines() for p in (sec["pred"], one["sec"]["pred"]))
+    log(f"[tensor parallel] (b) sec_emotion2vec_vicuna inference_batch at tp=2, {TP_FAMILY_LAYERS} + "
+        f"{TP_FAMILY_LAYERS} layers, the LLM and emotion2vec in f32: {len(lines)} lines, equal to world size 1's "
+        f"{lines == want}; decode {sec['seconds']:.2f} s vs {one['sec']['seconds']:.2f} s")
+    if lines != want or len(lines) != TP_FAMILY_UTTS:
+        failed.append(f"(b): the SEC decode at tp=2 differs from world size 1's:\n{lines}\n{want}")
+    launches = {k: sum(got["launches_by_run"][r].get(k, 0) for r in FAMILY_RUNS) for k in TP_FAMILY_PATH}
+    log(f"[tensor parallel] (b) the families' launches on rank 0 over the tp path: {launches}")
+    failed += [f"{k} never launched on the families' tensor-parallel path" for k, v in launches.items() if not v]
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return launches
+
+
+def run_tp_families(tmp: Path) -> dict:
+    """Phase 20 (b)'s family runs alone (``check_tp_families``): the world
+    size 1 references here, then two gloo ranks on this card."""
+    t0 = time.perf_counter()
+    args, one = tp_family_references(tmp)
+    got = _torchrun(2, {"backend": "gloo", "run": ["probe", *FAMILY_RUNS], "family": args,
+                        "family_dir": str(tmp / "tp2")}, tmp, timeout=TP_LAUNCH_TIMEOUT_S)
+    if not all(r in got for r in FAMILY_RUNS):
+        raise AssertionError(f"(b) the family runs did not run over gloo: probe {got.get('probe')}")
+    launches = check_tp_families(got, one)
+    log(f"[tensor parallel] (b) the families in {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def run_s2s_gloo(got: dict, log_prefix: Path, decode_args: list) -> None:
@@ -5646,6 +5855,55 @@ def run_multi_card_tp(one: dict, tmp: Path) -> None:
         return
     run_s2s_tp(tmp)
     run_multi_card_decode(PHASE["decode"], tmp)
+    run_families_tp(tmp)
+
+
+VX4_STEPS = 4  # (c)'s VALL-E X steps of 16 in the 512 bucket (step ms: the mean from the third on)
+VX_ONE_CARD = (389.5, 31.82)  # one card's step ms and peak GiB at (64, 512): PERF.md section 5's VALL-E X row
+
+
+def run_families_tp(tmp: Path, parent: Path = None) -> None:
+    """Phase 20 (c) with four cards (NCCL, one process a card), the families
+    split past the LLM: ``vallex_tts.yaml`` at base_24l in the (64, 512)
+    bucket, VX4_STEPS steps of 16 at tp=4 and at fsdp=2 x tp=2, rank 0's
+    step ms and peak against one card's (``VX_ONE_CARD``); then
+    ``asr_wavlm_vicuna.yaml`` (WavLM-large, the int8 vicuna-7b, the byte
+    tokenizer, seeded weights) W_STEPS steps of 16 at tp=4, rank 0's peak
+    with WavLM-large split, and with ``parent`` (another checkout's root)
+    the same run of that tree in this call, its kernels built first."""
+    from slam_llm_tpu_torch.tools.synth_checkpoint import write_vallex_corpus
+
+    tmp.mkdir(parents=True, exist_ok=True)
+    train = write_vallex_corpus(str(tmp / "vx4.jsonl"), VX_BATCH * VX4_STEPS, frames=VX_FRAMES[VX_TA[0]],
+                                text_len=(40, VX_TT), seed=VX_TA[0])
+    common = ("++train_config.log_interval=1", "++train_config.run_validation=false",
+              "++train_config.save_model=false", "++train_config.num_epochs=1")
+    vx = ["--config", str(VX_RECIPE), f"++dataset_config.train_data_path={train}", "++dataset_config.code_layer=8",
+          f"++train_config.max_steps_per_epoch={VX4_STEPS}", f"++train_config.output_dir={tmp / 'vx4'}", *common]
+    for extra in (("++train_config.shard.tp=4",), ("++train_config.shard.fsdp=2", "++train_config.shard.tp=2")):
+        label = " x ".join(e.split(".")[-1] for e in extra)
+        got = _torchrun(4, {"run": ["asr"], "asr_args": [*vx, *extra]}, tmp, timeout=TP_LAUNCH_TIMEOUT_S)["asr"]
+        step_ms = 1000 * float(np.mean([s["seconds"] for s in got["steps"][2:]]))
+        log(f"[tensor parallel] (c) vallex_tts base_24l (64, 512) on 4 cards at {label}: losses "
+            f"{[round(s['loss'], 5) for s in got['steps']]}, step {step_ms:.1f} ms (mean of steps 3-{VX4_STEPS}) vs "
+            f"one card's {VX_ONE_CARD[0]} ms, rank 0's peak {got['peak_gib']:.2f} GiB (a step: "
+            f"{[round(g, 2) for g in got['step_peak_gib']]}) vs one card's {VX_ONE_CARD[1]} | {SMI}")
+        if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in got["steps"]):
+            raise AssertionError(f"(c) vallex_tts at {label}: non-finite steps {got['steps']}")
+    corpus = write_corpus(tmp, n=16 * W_STEPS, name="wavlm4")
+    wv = ["--config", str(W_RECIPE), f"++dataset_config.train_data_path={corpus}",
+          f"++train_config.max_steps_per_epoch={W_STEPS}", f"++train_config.output_dir={tmp / 'wavlm4'}", *common,
+          "++train_config.shard.tp=4"]
+    trees = [("this tree", ROOT)] + ([] if parent is None else [("parent", Path(parent))])
+    for name, root in trees:
+        if root != ROOT:
+            subprocess.run([sys.executable, "-c", "from slam_llm_tpu_torch.kernels.build import build; build()"],
+                           cwd=root, check=True, timeout=600)
+        got = _torchrun(4, {"run": ["asr"], "asr_args": wv}, tmp, timeout=TP_LAUNCH_TIMEOUT_S, root=root)["asr"]
+        step_ms = 1000 * float(np.mean([s["seconds"] for s in got["steps"][2:]]))
+        log(f"[tensor parallel] (c) asr_wavlm_vicuna on 4 cards at tp=4, {name}: losses "
+            f"{[round(s['loss'], 5) for s in got['steps']]}, step {step_ms:.1f} ms, rank 0's peak "
+            f"{got['peak_gib']:.2f} GiB (a step: {[round(g, 2) for g in got['step_peak_gib']]}) | {SMI}")
 
 
 def run_multi_card_decode(decode: dict, tmp: Path) -> None:

@@ -66,7 +66,7 @@ from slam_llm_tpu_torch.models.layers import (
 )
 from slam_llm_tpu_torch.models.remat import DENSE_SITES, Tape, checkpoint_layer, checkpointed, policy_names
 from slam_llm_tpu_torch.ops.quant import SharedActQuant, int8_of, resolve_bwd
-from slam_llm_tpu_torch.parallel.tensor_parallel import copy_to_tp, gather_last, reduce_from_tp
+from slam_llm_tpu_torch.parallel.tensor_parallel import copy_to_tp, gather_last, vocab_parallel_lookup
 
 
 @dataclass(frozen=True)
@@ -435,14 +435,7 @@ class CausalLM(nn.Module):
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         if self.tp is None:
             return self.embed_tokens(input_ids).to(self.cfg.dtype)
-        # this rank's rows of the table; the other rows' ranks add zeros
-        table = self.embed_tokens.weight
-        n = table.shape[0]
-        local = input_ids - self.tp.rank * n
-        mine = (local >= 0) & (local < n)
-        rows = F.embedding(local.clamp(0, n - 1), table)
-        return reduce_from_tp(torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype)),
-                              self.tp).to(self.cfg.dtype)
+        return vocab_parallel_lookup(input_ids, self.embed_tokens.weight, self.tp).to(self.cfg.dtype)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tied_embeddings:

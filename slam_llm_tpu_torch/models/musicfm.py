@@ -17,6 +17,14 @@ and numerics. The input is the 128-band dB mel of 24 kHz audio at hop 240
   kernel 31, then BatchNorm, swish and the second pointwise conv;
 * the output mask is the mel mask at every fourth frame.
 
+Under tensor parallelism (``parallel.tensor_parallel.split_conformer``) a
+layer runs ``n_heads / tp`` heads a rank (q / k / v and both FFNs' first
+dense column-parallel, out_proj and their second row-parallel; the
+rotation before q / k stays on the whole LayerNorm output), and the
+convolution module runs ``d_model / tp`` channels: ``pointwise_conv1`` holds
+the rank's window of each GLU half, the depthwise conv and ``conv_bn`` the
+rank's channels, ``pointwise_conv2`` is row-parallel.
+
 BatchNorms run from their running statistics: MusicFM is a frozen encoder
 in every SLAM recipe. The JAX package has no converter for MusicFM's
 checkpoint, so the encoder runs from its seeded init in both packages.
@@ -109,6 +117,7 @@ class ConformerLayer(nn.Module):
                                         groups=d, bias=False, dtype=dt, device=device).requires_grad_(False)
         self.conv_bn = FrozenBatchNorm(d, device=device)
         self.pointwise_conv2 = DenseGeneralLora(d, d, dtype=dt, device=device)
+        self.n_heads = cfg.n_heads  # this rank's heads (n_heads / tp once split)
 
     def _ffn(self, h: torch.Tensor, prefix: str) -> torch.Tensor:
         return getattr(self, f"{prefix}_out")(F.silu(getattr(self, f"{prefix}_in")(h)))
@@ -116,22 +125,22 @@ class ConformerLayer(nn.Module):
     def forward(self, x: torch.Tensor, kv_mask: Optional[torch.Tensor], rope) -> torch.Tensor:
         c = self.cfg
         b, t, _ = x.shape
-        hd = c.d_model // c.n_heads
+        nh, hd = self.n_heads, c.d_model // c.n_heads
         x = x + 0.5 * self._ffn(self.ffn1_ln(x), "ffn1")
 
         h = self.attn_ln(x)
         h_rot = apply_rope_tables(h.reshape(b, t, c.n_heads, hd), *rope).reshape(b, t, c.d_model)
-        q = self.q_proj(h_rot).reshape(b, t, c.n_heads, hd)
-        k = self.k_proj(h_rot).reshape(b, t, c.n_heads, hd)
-        v = self.v_proj(h).reshape(b, t, c.n_heads, hd)  # v: unrotated, as HF's conformer
-        x = x + self.out_proj(mha_attention(q, k, v, kv_mask=kv_mask).reshape(b, t, c.d_model))
+        q = self.q_proj(h_rot).reshape(b, t, nh, hd)
+        k = self.k_proj(h_rot).reshape(b, t, nh, hd)
+        v = self.v_proj(h).reshape(b, t, nh, hd)  # v: unrotated, as HF's conformer
+        x = x + self.out_proj(mha_attention(q, k, v, kv_mask=kv_mask).reshape(b, t, nh * hd))
 
         h = self.conv_ln(x)
         if kv_mask is not None:  # padded frames are zeroed before the kernel-31 conv mixes them in
             h = h * kv_mask[..., None].to(h.dtype)
         h = F.glu(self.pointwise_conv1(h), dim=-1)
-        w = self.depthwise_conv.weight.to(c.dtype)
-        h = F.conv1d(h.transpose(1, 2), w, None, padding=self.depthwise_conv.padding, groups=c.d_model)
+        w = self.depthwise_conv.weight.to(c.dtype)  # (channels, 1, k): this rank's channels under tp
+        h = F.conv1d(h.transpose(1, 2), w, None, padding=self.depthwise_conv.padding, groups=w.shape[0])
         h = F.silu(self.conv_bn(h.transpose(1, 2)).to(c.dtype))
         x = x + self.pointwise_conv2(h)
 

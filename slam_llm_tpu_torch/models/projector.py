@@ -18,7 +18,11 @@ the queries are ``param_dtype`` (f32) masters, cast to the compute dtype at
 use. The Q-Former's self-attention (no mask) goes through
 ``layers.mha_attention``, so on the card it runs the flash kernels (K1
 forward, K4 backward); its cross-attention carries a dense padding bias and
-runs the plain attention, as the reference's does.
+runs the plain attention, as the reference's does. Under tensor parallelism
+(``parallel.tensor_parallel.split_qformer``) a block runs ``qformer_heads /
+tp`` heads of each attention a rank, fc1 and the output ``linear`` are
+column-parallel, out_proj and fc2 row-parallel; ``linear``'s columns are
+gathered before ``norm``, which normalizes whole rows.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from slam_llm_tpu_torch.models.layers import DenseGeneralLora, LayerNorm, make_padding_bias, mha_attention
+from slam_llm_tpu_torch.parallel.tensor_parallel import gather_last
 
 
 @dataclass(frozen=True)
@@ -115,15 +120,16 @@ class QFormerBlock(nn.Module):
         self.mlp_ln = LayerNorm(d, dtype=cfg.dtype, device=device)
         self.fc1 = _dense(cfg, d, 4 * d, device)
         self.fc2 = _dense(cfg, 4 * d, d, device)
+        self.n_heads = cfg.qformer_heads  # this rank's heads (qformer_heads / tp once split)
 
     def _attend(self, prefix: str, xq: torch.Tensor, xkv: torch.Tensor, bias: Optional[torch.Tensor]):
         c = self.cfg
-        h, hd = c.qformer_heads, c.qformer_dim // c.qformer_heads
+        h, hd = self.n_heads, c.qformer_dim // c.qformer_heads
         b = xq.shape[0]
         q = getattr(self, f"{prefix}_q_proj")(xq).reshape(b, xq.shape[1], h, hd)
         k = getattr(self, f"{prefix}_k_proj")(xkv).reshape(b, xkv.shape[1], h, hd)
         v = getattr(self, f"{prefix}_v_proj")(xkv).reshape(b, xkv.shape[1], h, hd)
-        out = mha_attention(q, k, v, bias=bias).reshape(b, xq.shape[1], c.qformer_dim)
+        out = mha_attention(q, k, v, bias=bias).reshape(b, xq.shape[1], h * hd)
         return getattr(self, f"{prefix}_out_proj")(out)
 
     def forward(self, q: torch.Tensor, enc: torch.Tensor, enc_bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -146,6 +152,7 @@ class ProjectorQFormer(nn.Module):
             self.add_module(f"block_{i}", QFormerBlock(cfg, device))
         self.linear = _dense(cfg, cfg.qformer_dim, cfg.llm_dim, device)
         self.norm = LayerNorm(cfg.llm_dim, dtype=cfg.dtype, device=device)
+        self.tp = None  # parallel.tensor_parallel.TP once split over tp
 
     def forward(self, x: torch.Tensor, enc_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         c = self.cfg
@@ -154,7 +161,8 @@ class ProjectorQFormer(nn.Module):
         x = x.to(c.dtype)
         for i in range(c.qformer_layers):
             q = getattr(self, f"block_{i}")(q, x, enc_bias)
-        return self.norm(self.linear(q))
+        out = self.linear(q)
+        return self.norm(out if self.tp is None else gather_last(out, self.tp))
 
 
 def build_projector(name: str, cfg: ProjectorConfig, device=None) -> nn.Module:

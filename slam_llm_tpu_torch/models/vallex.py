@@ -24,6 +24,18 @@ the compute dtype at use.
 length ``prompt + max_new`` as the reference does; a row's tokens after its
 end-of-audio are end-of-audio. ``infer_nar`` fills codebooks 1.. greedily,
 keeping the enrolled prompt's true codes.
+
+Under tensor parallelism (``parallel.tensor_parallel.split_vallex``) each
+block runs ``n_heads / tp`` heads a rank (q / k / v and fc1 column-parallel,
+out_proj and fc2 row-parallel); AdaLN's ``mod`` is column-parallel and its
+(B, 2 x d_model) output gathered before the ``[scale | bias]`` chunk; every
+embedding holds its rows ``[r V / tp, (r + 1) V / tp)`` (a masked local
+lookup, then an exact all-reduce whose backward reaches the rank's rows);
+both heads are column-parallel over the audio vocabulary. The loss reads
+no whole logits: each CE is vocab-parallel
+(``ops.fused_ce.windowed_logits_ce``: one chunk of T gathered at a time for
+the logsumexp, the label's logit and the argmax, lowest index first), and
+the decodes gather the logits in rank order.
 """
 
 from __future__ import annotations
@@ -36,7 +48,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from slam_llm_tpu_torch.models.layers import DenseGeneralLora, LayerNorm, mha_attention, sinusoidal_positions
+from slam_llm_tpu_torch.ops.fused_ce import windowed_logits_ce
 from slam_llm_tpu_torch.parallel.sharding import token_count
+from slam_llm_tpu_torch.parallel.tensor_parallel import gather_last, vocab_parallel_lookup
 
 
 @dataclass(frozen=True)
@@ -84,13 +98,17 @@ class AdaLayerNorm(nn.Module):
         super().__init__()
         self.dtype = c.dtype
         self.mod = _dense(c.d_model, 2 * c.d_model, c, device)
+        self.tp = None  # parallel.tensor_parallel.TP once split over tp
 
     def forward(self, x: torch.Tensor, stage_emb: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         mean = x32.mean(-1, keepdim=True)
         var = (x32 - mean).square().mean(-1, keepdim=True)
         norm = (x32 - mean) * torch.rsqrt(var + 1e-5)
-        scale, bias = self.mod(stage_emb).float().chunk(2, dim=-1)  # (B, D) each
+        mod = self.mod(stage_emb)
+        if self.tp is not None:
+            mod = gather_last(mod, self.tp)
+        scale, bias = mod.float().chunk(2, dim=-1)  # (B, D) each
         return (norm * (1.0 + scale[:, None, :]) + bias[:, None, :]).to(self.dtype)
 
 
@@ -104,6 +122,7 @@ class VallexBlock(nn.Module):
             setattr(self, name, _dense(c.d_model, c.d_model, c, device))
         self.fc1 = _dense(c.d_model, c.ffn_mult * c.d_model, c, device)
         self.fc2 = _dense(c.ffn_mult * c.d_model, c.d_model, c, device)
+        self.n_heads = c.n_heads  # this rank's heads (n_heads / tp once split)
 
     def _norm(self, norm: nn.Module, x: torch.Tensor, stage_emb: Optional[torch.Tensor]) -> torch.Tensor:
         return norm(x, stage_emb) if self.adaptive else norm(x)
@@ -111,11 +130,11 @@ class VallexBlock(nn.Module):
     def forward(self, x, kv_mask, causal: bool, stage_emb=None):
         c = self.cfg
         b, t, _ = x.shape
-        hd = c.d_model // c.n_heads
+        nh, hd = self.n_heads, c.d_model // c.n_heads
         h = self._norm(self.norm1, x, stage_emb)
-        q, k, v = (proj(h).reshape(b, t, c.n_heads, hd) for proj in (self.q_proj, self.k_proj, self.v_proj))
+        q, k, v = (proj(h).reshape(b, t, nh, hd) for proj in (self.q_proj, self.k_proj, self.v_proj))
         attn = mha_attention(q, k, v, kv_mask=kv_mask, causal=causal)
-        x = x + self.out_proj(attn.reshape(b, t, c.d_model))
+        x = x + self.out_proj(attn.reshape(b, t, nh * hd))
         h = F.gelu(self.fc1(self._norm(self.norm2, x, stage_emb)))
         return x + self.fc2(h)
 
@@ -153,9 +172,18 @@ class VALLE(nn.Module):
         self.nar_head = _dense(c.d_model, c.audio_vocab_padded, c, device, use_bias=False)
         self.ar_norm = LayerNorm(c.d_model, 1e-5, c.dtype, device)
         self.nar_norm = LayerNorm(c.d_model, 1e-5, c.dtype, device)
+        self.tp = None  # parallel.tensor_parallel.TP once split over tp
 
     def _embed(self, table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids.clamp_min(0), table.weight).to(self.cfg.dtype)
+        ids = ids.clamp_min(0)
+        rows = F.embedding(ids, table.weight) if self.tp is None else vocab_parallel_lookup(ids, table.weight, self.tp)
+        return rows.to(self.cfg.dtype)
+
+    def _logits(self, head: DenseGeneralLora, x: torch.Tensor, local: bool) -> torch.Tensor:
+        """f32 logits of ``x``: this rank's columns of the vocabulary under tp
+        where ``local``, else whole (gathered in rank order)."""
+        out = head(x).float()
+        return out if local or self.tp is None else gather_last(out, self.tp)
 
     def _audio_embedding(self, i: int) -> nn.Embedding:
         return getattr(self, f"audio_embedding_{i}")
@@ -165,23 +193,26 @@ class VALLE(nn.Module):
 
     # ---- AR stage ----------------------------------------------------------
 
-    def ar_forward(self, text_ids, text_mask, audio0_ids, audio_mask) -> torch.Tensor:
+    def ar_forward(self, text_ids, text_mask, audio0_ids, audio_mask, local: bool = False) -> torch.Tensor:
         """``[text ; codebook-0 audio]`` through the causal stack -> (B, Ta, V)
-        f32 logits at the audio positions."""
+        f32 logits at the audio positions (``local``: this rank's V / tp
+        columns under tp)."""
         tt, ta = text_ids.shape[1], audio0_ids.shape[1]
         x = torch.cat([self._embed(self.text_embedding, text_ids), self._embed(self.audio_embedding_0, audio0_ids)], 1)
         x = x + self._pos(tt + ta, x.device)[None]
         mask = torch.cat([text_mask, audio_mask], dim=1)
         x = self.ar_norm(self.ar_decoder(x, mask, True))
-        return self.ar_head(x[:, tt:]).float()
+        return self._logits(self.ar_head, x[:, tt:], local)
 
     # ---- NAR stage ---------------------------------------------------------
 
-    def nar_forward(self, text_ids, text_mask, audio_ids, audio_mask, stage, prompt_len=None) -> torch.Tensor:
+    def nar_forward(self, text_ids, text_mask, audio_ids, audio_mask, stage, prompt_len=None,
+                    local: bool = False) -> torch.Tensor:
         """``audio_ids`` (B, n_codebooks, Ta) with the codebooks below each
-        row's ``stage`` (B,) known -> f32 logits of codebook ``stage``. At
-        positions below ``prompt_len`` (B,), the enrolled prompt, every
-        codebook is summed whatever the stage."""
+        row's ``stage`` (B,) known -> f32 logits of codebook ``stage``
+        (``local`` as in ``ar_forward``). At positions below ``prompt_len``
+        (B,), the enrolled prompt, every codebook is summed whatever the
+        stage."""
         c = self.cfg
         b, _, ta = audio_ids.shape
         tt = text_ids.shape[1]
@@ -196,7 +227,7 @@ class VALLE(nn.Module):
         stage_emb = self._embed(self.nar_stage_embedding, stage)  # (B, D)
         mask = torch.cat([text_mask, audio_mask], dim=1)
         x = self.nar_norm(self.nar_decoder(x, mask, False, stage_emb))
-        return self.nar_head(x[:, tt:]).float()
+        return self._logits(self.nar_head, x[:, tt:], local)
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """``{"loss", "acc", "ar_loss", "nar_loss"}``: the AR CE on codebook 0
@@ -218,20 +249,34 @@ class VALLE(nn.Module):
         mask_ext = F.pad(audio_mask, (0, 1))
         mask_ext[rows, lens] = 1
         ar_in = torch.cat([torch.full_like(a0[:, :1], c.eos_audio), a0_ext[:, :-1]], dim=1)
-        ar_logits = self.ar_forward(text_ids, text_mask, ar_in, mask_ext)
-        mask_f = mask_ext.float()
-        denom = token_count(mask_f)
-        ar_loss = (_nll(ar_logits, a0_ext) * mask_f).sum() / denom
+        local = self.tp is not None
+        ar_logits = self.ar_forward(text_ids, text_mask, ar_in, mask_ext, local=local)
+        if local:
+            ar_loss, acc = self._vocab_parallel_ce(ar_logits, a0_ext, mask_ext)
+        else:
+            mask_f = mask_ext.float()
+            denom = token_count(mask_f)
+            ar_loss = (_nll(ar_logits, a0_ext) * mask_f).sum() / denom
+            acc = ((ar_logits.argmax(-1) == a0_ext).float() * mask_f).sum() / denom
 
         if c.n_codebooks > 1:
-            nar_logits = self.nar_forward(text_ids, text_mask, audio_ids, audio_mask, stage)
+            nar_logits = self.nar_forward(text_ids, text_mask, audio_ids, audio_mask, stage, local=local)
             target = audio_ids[rows, stage.long()]
-            nar_mask = audio_mask.float()
-            nar_loss = (_nll(nar_logits, target) * nar_mask).sum() / token_count(nar_mask)
+            if local:
+                nar_loss = self._vocab_parallel_ce(nar_logits, target, audio_mask)[0]
+            else:
+                nar_mask = audio_mask.float()
+                nar_loss = (_nll(nar_logits, target) * nar_mask).sum() / token_count(nar_mask)
         else:  # one codebook: the NAR branch would be a copy task
             nar_loss = torch.zeros((), device=a0.device)
-        acc = ((ar_logits.argmax(-1) == a0_ext).float() * mask_f).sum() / denom
         return {"loss": ar_loss + nar_loss, "acc": acc.detach(), "ar_loss": ar_loss, "nar_loss": nar_loss}
+
+    def _vocab_parallel_ce(self, local_logits, target, mask):
+        """The masked-mean CE and accuracy of this rank's vocabulary columns
+        of the logits, over the whole vocabulary (``windowed_logits_ce``)."""
+        labels = torch.where(mask.bool(), target.long(), torch.full_like(target.long(), -100))
+        loss, acc = windowed_logits_ce(local_logits, [labels], [(0, self.cfg.audio_vocab_padded)], tp=self.tp)
+        return loss[0], acc[0]
 
     # ---- inference ---------------------------------------------------------
 

@@ -14,6 +14,10 @@ Kaldi fbank "image":
   runs the flash kernel (K1);
 * the final LayerNorm.
 
+Under tensor parallelism (``parallel.tensor_parallel.split_vit``) a block
+runs ``n_heads / tp`` heads a rank: q / k / v and fc1 column-parallel, proj
+and fc2 row-parallel.
+
 ``convert_eat_fairseq`` maps an EAT fairseq checkpoint (the data2vec2
 layout, torch tensors) onto this module's ``state_dict`` names.
 """
@@ -110,16 +114,17 @@ class ViTBlock(nn.Module):
         hidden = int(d * cfg.mlp_ratio)
         self.fc1 = DenseGeneralLora(d, hidden, use_bias=True, dtype=dt, device=device)
         self.fc2 = DenseGeneralLora(hidden, d, use_bias=True, dtype=dt, device=device)
+        self.n_heads = cfg.n_heads  # this rank's heads (n_heads / tp once split)
 
     def forward(self, x: torch.Tensor, kv_mask: Optional[torch.Tensor]) -> torch.Tensor:
         c = self.cfg
         b, t, _ = x.shape
-        hd = c.d_model // c.n_heads
+        nh, hd = self.n_heads, c.d_model // c.n_heads
         h = self.norm1(x)
-        q = self.q_proj(h).reshape(b, t, c.n_heads, hd)
-        k = self.k_proj(h).reshape(b, t, c.n_heads, hd)
-        v = self.v_proj(h).reshape(b, t, c.n_heads, hd)
-        x = x + self.proj(mha_attention(q, k, v, kv_mask=kv_mask).reshape(b, t, c.d_model))
+        q = self.q_proj(h).reshape(b, t, nh, hd)
+        k = self.k_proj(h).reshape(b, t, nh, hd)
+        v = self.v_proj(h).reshape(b, t, nh, hd)
+        x = x + self.proj(mha_attention(q, k, v, kv_mask=kv_mask).reshape(b, t, nh * hd))
         return x + self.fc2(F.gelu(self.fc1(self.norm2(x)), approximate="none"))
 
 

@@ -24,6 +24,15 @@ package sends every dense bias to XLA); without it the padding stays a
 structured ``kv_mask``, which on a CUDA tensor runs the flash kernels (K1
 forward, K4 backward).
 
+Under tensor parallelism (``parallel.tensor_parallel.split_wavlm``) a layer
+runs ``n_heads / tp`` heads a rank (q / k / v and fc1 column-parallel,
+out_proj and fc2 row-parallel), with the rank's columns of the rel-pos table
+and of ``gru_rel_pos_const``: the (B, H / tp, T, T) gated bias is the
+rank's heads only. A gate from the hidden states reads x's columns of the
+rank's heads; the hd -> 8 gate dense stays whole on every rank. Each rank
+feeds it, and reads x for it, over its own heads only, so the gradients of
+both are summed over the ranks (``copy_to_tp``).
+
 ``convert_wavlm`` maps an HF ``WavLMModel`` / ``HubertModel`` state dict
 (torch tensors) onto this module's ``state_dict`` names, folding the
 positional conv's weight norm from either key form; ``convert_hubert_fairseq``
@@ -42,7 +51,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from slam_llm_tpu_torch.models.layers import NEG_INF, DenseGeneralLora, LayerNorm, mha_attention
+from slam_llm_tpu_torch.models.layers import NEG_INF, DenseGeneralLora, LayerNorm, linear, mha_attention
+from slam_llm_tpu_torch.parallel.tensor_parallel import copy_to_tp
 
 
 @dataclass(frozen=True)
@@ -217,19 +227,38 @@ class WavLMSelfAttention(nn.Module):
             self.gru_rel_pos_linear = DenseGeneralLora(hd, 8, use_bias=True, dtype=cfg.dtype, device=device)
             self.gru_rel_pos_const = nn.Parameter(torch.ones(1, cfg.n_heads, 1, 1, device=device),
                                                   requires_grad=False)
+        self.n_heads = cfg.n_heads  # this rank's heads (n_heads / tp once split)
+        self.tp = None  # parallel.tensor_parallel.TP once split over tp
+
+    def _gate_proj(self, gate_in: torch.Tensor) -> torch.Tensor:
+        """``gru_rel_pos_linear`` over the rank's heads; under tp its weight
+        and bias enter through ``copy_to_tp``, so their gradient is the
+        whole one on every rank."""
+        lin = self.gru_rel_pos_linear
+        if self.tp is None:
+            return lin(gate_in)
+        dt = self.cfg.dtype
+        w, bias = (copy_to_tp(t.to(dt), self.tp) for t in (lin.weight, lin.bias))
+        return linear(gate_in.to(dt), w) + bias
 
     def forward(self, x, key_mask_bias, position_bias, kv_mask=None):
         c = self.cfg
         b, t, _ = x.shape
-        h, hd = c.n_heads, c.d_model // c.n_heads
+        h, hd = self.n_heads, c.d_model // c.n_heads
         q = self.q_proj(x).reshape(b, t, h, hd)
         k = self.k_proj(x).reshape(b, t, h, hd)
         v = self.v_proj(x).reshape(b, t, h, hd)
         bias = key_mask_bias  # (B, 1, T, T) f32 or None
         if position_bias is not None:
             # linear(hd -> 8) -> (..., 2, 4).sum(-1) -> sigmoid -> gate_a / gate_b
-            gate_in = q if c.gate_from_query else x.reshape(b, t, h, hd)
-            proj = self.gru_rel_pos_linear(gate_in).reshape(b, t, h, 2, 4).sum(-1)  # (B, T, H, 2)
+            if c.gate_from_query:
+                gate_in = q
+            elif self.tp is None:
+                gate_in = x.reshape(b, t, h, hd)
+            else:  # x's columns of this rank's heads; their gradient summed over the ranks
+                first = self.tp.rank * h
+                gate_in = copy_to_tp(x, self.tp).reshape(b, t, c.n_heads, hd)[:, :, first:first + h]
+            proj = self._gate_proj(gate_in).reshape(b, t, h, 2, 4).sum(-1)  # (B, T, H, 2)
             gates = torch.sigmoid(proj.float())
             gate_a, gate_b = gates[..., 0].transpose(1, 2), gates[..., 1].transpose(1, 2)  # (B, H, T)
             const = self.gru_rel_pos_const[0, :, 0, 0].float()[None, :, None]
@@ -240,7 +269,7 @@ class WavLMSelfAttention(nn.Module):
             out = mha_attention(q, k, v, kv_mask=kv_mask)
         else:
             out = mha_attention(q, k, v, bias=bias)
-        return self.out_proj(out.reshape(b, t, c.d_model))
+        return self.out_proj(out.reshape(b, t, h * hd))
 
 
 class WavLMLayer(nn.Module):

@@ -11,10 +11,11 @@ axes:
   smaller ones included: the reference's silent truncation to the leading
   devices is not copied.
 * ``shard_params`` first splits the model over ``tp``
-  (``parallel.tensor_parallel.split_for_tp``: a Megatron-style split of the
-  decoder LLM's heads, MLP and vocabulary, of S2S's heads past it, of the
-  whisper encoder's heads and MLP and of the linear / conv1d projectors;
-  the other encoders and the Q-Former replicated over tp), then
+  (``parallel.tensor_parallel.split_for_tp``: a Megatron-style split of
+  every module the reference annotates with ``heads`` / ``mlp`` / ``vocab``:
+  the decoder LLM, S2S's heads past it, the encoders' transformer layers,
+  the projectors and VALL-E X; conv frontends, stems, positions and norms
+  replicated over tp), then
   applies ``fully_shard`` over the 2-D ``("dp", "fsdp")``
   sub-mesh (HSDP: replicated over ``dp``, sharded over ``fsdp``, as the
   reference's ``embed -> fsdp`` rule shards every parameter on ``fsdp`` and
@@ -57,7 +58,15 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from slam_llm_tpu_torch.parallel.tensor_parallel import TP, all_gather_stack, replicated_modules, split_for_tp, tp_of
+from slam_llm_tpu_torch.parallel.tensor_parallel import (
+    TP,
+    Split,
+    gather_shard,
+    narrow_shard,
+    replicated_modules,
+    split_for_tp,
+    tp_of,
+)
 
 MESH_AXES = ("dp", "fsdp", "tp")
 
@@ -184,7 +193,7 @@ def shard_params(model: nn.Module, mesh) -> nn.Module:
     if split:
         logging.getLogger("slam_llm_tpu_torch").info(
             "tensor parallel tp=%d: split %s; replicated %s", mesh["tp"].size(),
-            split, replicated_modules(model, split))
+            split, replicated_modules(model))
         if data_size(mesh) == 1:
             return model
     data_mesh = mesh["dp", "fsdp"]
@@ -280,18 +289,13 @@ def full_tensor(local: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return dt.full_tensor()
 
 
-def gather_dim(t: torch.Tensor, dim: int, tp: TP) -> torch.Tensor:
-    """The tp ranks' ``t`` concatenated along ``dim``, in rank order."""
-    return torch.cat(list(all_gather_stack(t, tp).unbind(0)), dim=dim)
-
-
 class ShardLayout:
     """Maps the optimizer's per-parameter tensors (local shards) to whole
     tensors and back, by the parameters they belong to (their FSDP
     placements, then their tp split dims, ``tp_dims``, None where whole over
     tp), so its saved state is whole at any mesh."""
 
-    def __init__(self, params: Sequence[torch.Tensor], tp_dims: Optional[Sequence[Optional[int]]] = None,
+    def __init__(self, params: Sequence[torch.Tensor], tp_dims: Optional[Sequence[Optional[Split]]] = None,
                  tp: Optional[TP] = None):
         self.params = list(params)
         self.tp_dims = list(tp_dims) if tp_dims is not None else [None] * len(self.params)
@@ -300,13 +304,12 @@ class ShardLayout:
     def whole(self, i: int, t: torch.Tensor) -> torch.Tensor:
         t = full_tensor(t, self.params[i])
         dim = self.tp_dims[i]
-        return t if dim is None or self.tp is None else gather_dim(t, dim, self.tp)
+        return t if dim is None or self.tp is None else gather_shard(t, dim, self.tp)
 
     def local(self, i: int, t: torch.Tensor) -> torch.Tensor:
         dim = self.tp_dims[i]
         if dim is not None and self.tp is not None:
-            n = t.shape[dim] // self.tp.size
-            t = t.narrow(dim, self.tp.rank * n, n)
+            t = narrow_shard(t, dim, self.tp)
         return local_shard(t, self.params[i])
 
     def split(self) -> Tuple[bool, ...]:

@@ -30,15 +30,17 @@ of the world), NCCL on ``cuda:LOCAL_RANK`` (gloo with ``--device cpu``):
         ++train_config.shard.tp=2 ...
 
 Every rank builds the same whole model from ``train_config.seed``, loads the
-same checkpoints, and the trainer shards it (``parallel.shard_params``: the
-decoder LLM split over ``tp``, Megatron-style, then FSDP2 over ``dp`` x
-``fsdp``); every rank iterates the same seeded loader, whose
-``batch_size_training`` is the global batch, and keeps its data rank's rows
+same checkpoints, and the trainer shards it (``parallel.shard_params``: every
+module the reference annotates with ``heads`` / ``mlp`` / ``vocab`` split
+over ``tp``, Megatron-style, then FSDP2 over ``dp`` x ``fsdp``); every rank
+iterates the same seeded loader, whose ``batch_size_training`` is the global
+batch, and keeps its data rank's rows
 of each batch (the tp ranks of a data rank share them). Rank 0 logs and
 writes the checkpoints, which hold whole tensors. A run without torchrun's
 environment is the one-device run; there a mesh of more than one process
-raises ``ValueError``. A model with no decoder LLM to split (VALL-E X)
-raises under tp.
+raises ``ValueError``. VALL-E X splits over tp as the reference's logical
+rules split it (``--config examples/vallex/conf/vallex_tts.yaml
+++train_config.shard.tp=2``).
 """
 
 from __future__ import annotations

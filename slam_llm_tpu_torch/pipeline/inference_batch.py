@@ -21,7 +21,8 @@ does: each rank holds a whole replica and decodes a rank-strided share of
 the batches (the ragged tail wraps around, so every batch is decoded by
 some rank), writing ``{decode_log}_pred_rank{r}`` / ``_gt_rank{r}``; the
 union of the logs is the one-process decode. With ``shard.tp=N`` the
-decoder LLM is split over tp (``parallel.tensor_parallel``): the batches are
+model is split over tp (``parallel.tensor_parallel``: the decoder LLM, the
+encoder's transformer layers, the projector): the batches are
 shared out over the data ranks (``world / N``), the N tp ranks of one data
 rank decode the same batches in lockstep (they see the same whole logits
 and make the same choices), and tp rank 0 writes the data rank's logs

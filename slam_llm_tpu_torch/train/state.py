@@ -72,7 +72,7 @@ from slam_llm_tpu_torch.parallel.sharding import (
     shard_batch,
     shard_params,
 )
-from slam_llm_tpu_torch.parallel.tensor_parallel import tp_dim, tp_of
+from slam_llm_tpu_torch.parallel.tensor_parallel import split_dim, tp_dim, tp_of
 from slam_llm_tpu_torch.train.optimizer import (
     global_norm,
     lr_schedule,
@@ -169,7 +169,7 @@ class Trainer:
             shape = list(p.shape)  # a DTensor's is whole over FSDP
             dim = None if self.layout is None else self.layout.tp_dims[i]
             if dim is not None and self.layout.tp is not None:
-                shape[dim] *= self.layout.tp.size
+                shape[split_dim(dim)] *= self.layout.tp.size
             out[name] = torch.zeros((), device=self.device).expand(shape)
         return out
 

@@ -690,7 +690,8 @@ def test_tp2_decode_in_f32_writes_logs_equal_to_one_process(runs):
 
 def test_unsplit_paths_raise_under_tp(tmp_path, monkeypatch):
     """(h) inference_vallex under several processes raises, naming its
-    ROADMAP entry; so does a model with no decoder LLM to split. A decode
+    ROADMAP entry (VALL-E X itself splits over tp: its tables and heads hold
+    half their rows a rank; ``tests/test_torch_tp_families.py`` runs it). A decode
     sharded over fsdp (``inference_batch`` and ``generate_s2s`` under
     ``shard.fsdp=2``) in one process raises ValueError: its mesh is not the
     world. (The sharded decodes run: ``tests/test_torch_sharded_serving.py``;
@@ -710,13 +711,14 @@ def test_unsplit_paths_raise_under_tp(tmp_path, monkeypatch):
         inference_vallex.main(["--ckpt_path", "x", "--codec_path", "x", "--prompt_text", "a", "--prompt_codes", "x",
                                "--target_text", "b", "--save_path", str(tmp_path / "o.wav"), "--device", "cpu"])
 
-    class Mesh:  # a tp axis of two, without a process group (the split raises first)
+    class Mesh:  # a tp axis of two, without a process group (the split itself runs no collective)
         def __getitem__(self, axis):
             return type("Axis", (), {"size": lambda s: 2, "get_group": lambda s: None,
                                      "get_local_rank": lambda s: 0})()
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: the tp split of the other model families"):
-        split_for_tp(VALLE(VallexConfig.tiny_test()), Mesh())
+    model = VALLE(VallexConfig.tiny_test())
+    assert split_for_tp(model, Mesh()) == ["VALLE"]
+    assert model.text_embedding.weight.shape == (16, 32) and model.ar_head.weight.shape == (12, 32)
 
 
 @pytest.mark.parametrize("mode", ["deterministic", "sr", "fold", "fold_sr", "rotate_sr", "f32_fold_sr"])
