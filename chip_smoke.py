@@ -50,7 +50,7 @@ Phases, each fatal on failure:
   4. decode  -- the recipe examples/asr_librispeech/conf/asr_whisper_tinyllama.yaml
                 through slam_llm_tpu_torch.pipeline.inference_batch on 16
                 synthetic utterances (whisper-small, TinyLlama-1.1B int8 base,
-                beam 4, 12 new tokens, random weights from the recipe's
+                beam 4, 8 new tokens, random weights from the recipe's
                 seed), with kernel launch counts (K3's split-K path must
                 run), a prefill-logit check against the CPU plain path
                 (the model cut to 2 + 2 layers), and throughput;
@@ -129,7 +129,7 @@ Phases, each fatal on failure:
                 pipeline.finetune (4 steps of 16: the projector moves, the
                 encoder and LLM stay bit-unchanged, K1 / K4 once a layer a
                 step, K2 = K3 = 0) and pipeline.inference_batch with ckpt_path
-                (beam 4, batches of 8, 32 tokens) against the in-memory
+                (beam 4, batches of 8, 16 tokens) against the in-memory
                 decode, the card vs the CPU at 2 + 2 layers, the loss within
                 1 % (run_music_spatial):
                 SELD (seld_spatialast_llama: Spatial-AST-base f32 from a
@@ -271,6 +271,30 @@ Phases, each fatal on failure:
                 vallex_tts at base_24l at tp=4 and fsdp=2 x tp=2 and
                 asr_wavlm_vicuna at tp=4 (run_families_tp); otherwise a line
                 says why not.
+ 21. text    -- runs after phase 15, before phase 16 (run_text): the
+                text-only recipe (dataset text_dataset, encoder_name null,
+                the byte tokenizer) on Qwen2-7B at full width and depth
+                (seeded random weights, the int8 base with the int8_rot
+                backward and the int8 CE head, LoRA r8 on q / v) through
+                pipeline.finetune (4 steps of 8 in the 256 bucket: LoRA
+                moves, the unreached projector does not) and
+                pipeline.inference_batch with ckpt_path (beam 4, 16 tokens)
+                line for line against the in-memory decode; the int8_rot
+                backward by its statistics and the deterministic int8
+                backward against the CPU plain path at 2 layers (cosine >=
+                0.99, the loss within 1e-2); shard.bwd_pretranspose on
+                TinyLlama-1.1B with a bf16 base, with and without (losses
+                within 2^-8, LoRA gradients cosine >= 0.999); the BEATs
+                tokenizer's extract_labels at beats_iter3's widths (K1 at
+                (4, 496, 12/12, 64)) against its CPU plain path (>= 99 % of
+                the labels, features cosine >= 0.999); the perplexity CLI
+                on a random TinyLlama-1.1B directory it writes, card vs CPU
+                within 1e-2. Phase 3 holds K1 / K4 at (8, 256, 28/4, 128)
+                with fused RoPE theta 1e6 and K1 at (4, 496, 12/12, 64), K2
+                at rows 3584 / 18944 wide (deterministic, rotate + SR, fold)
+                and the (512, 152064) f32 dlog, K3 at Qwen2-7B's separate
+                projections, MLP and dx at M = 2048 and beam M = 32 (cold
+                weights), and the CE head's f32 logits (512, 3584 -> 152064).
 
 Prints one JSON line of kernel results before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -643,6 +667,10 @@ def check_flash(gen) -> dict:
         # phase 20: a tensor-parallel rank's heads (H / tp, Hkv / tp) at tp = 2 and 4
         *TP_K1_CASES,
         *TP_FAMILY_K1_CASES,
+        # phase 21: the text-only Qwen2-7B step (its 256 bucket) and the BEATs tokenizer's trunk (10 s clips)
+        ("qwen2-7b text-only training, fused RoPE theta 1e6, left-padded", TEXT_BATCH, TEXT_T, 28, 4, 128, True,
+         "left", 1e6),
+        ("BEATs tokenizer trunk, right-padded", BT_CLIPS, BT_PATCHES, 12, 12, 64, False, "right", 0),
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
@@ -832,6 +860,9 @@ def check_flash_bwd(gen) -> dict:
         # phase 20: a tensor-parallel rank's heads at the training shapes
         *(c for c in TP_K1_CASES if "training" in c[0]),
         *TP_FAMILY_K4_CASES,
+        # phase 21: the text-only Qwen2-7B step
+        ("qwen2-7b text-only training, fused RoPE theta 1e6, left-padded", TEXT_BATCH, TEXT_T, 28, 4, 128, True,
+         "left", 1e6),
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
@@ -993,8 +1024,11 @@ def check_rowquant(gen) -> dict:
     # then vicuna-7b's rows (phase 9): training M = 16 x T, prefill M = 8 x T, beam M = 32
     vicuna = [(m, k) for m in sorted({16 * t for t in W_TRAIN_T} | {8 * t for t in W_PREFILL_T} | {32}, reverse=True)
               for k in (4096, 11008)]
+    # phase 21: Qwen2-7B's rows 3584 / 18944 wide at the text batch's M and beam M, the int8 CE head's hidden
+    # (a chunk of 8 x 64 rows)
+    qwen2 = [(m, k) for m in (TEXT_M, 32) for k in (3584, 18944)] + [(TEXT_BATCH * 64, 3584)]
     for m, k in ((4096, 2048), (4096, 5632), (32, 2048), (32, 5632), (8192, 2048), (8192, 5632), (3584, 2048),
-                 (1337, 5632), (3, 2056), *vicuna):
+                 (1337, 5632), (3, 2056), *vicuna, *qwen2):
         x = torch.randn(m, k, generator=gen, device=dev) * 3
         x[0] = 0.0  # all-zero row
         # exact .5 ties after scaling: amax 127 gives s == 1, so x/s == x
@@ -1030,8 +1064,10 @@ def check_rowquant_rot_sr(gen) -> dict:
 
     dev = "cuda"
     worst, first, rows = 0.0, None, []
+    # phase 21: the int8_rot dy of Qwen2-7B's denses at the text batch's M (F = 3584, 512, 18944)
+    qwen2 = [(TEXT_M, f, 31 + f, True) for f in (3584, 512, 18944)]
     for m, k, seed, rotate in ((8192, 2048, 1234567, True), (8192, 256, 7, True), (8192, 5632, 2**32 - 1, True),
-                               (37, 2048, None, True), (37, 2048, 99, False)):
+                               (37, 2048, None, True), (37, 2048, 99, False), *qwen2):
         x = torch.randn(m, k, generator=gen, device=dev) * 1e-3
         x[0] = 0.0  # all-zero row
         x[1, 5] = 2.0  # one large outlier
@@ -1067,6 +1103,10 @@ def check_rowquant_fold(gen) -> dict:
     worst, first, rows = 0.0, None, []
     cases = [(8192, k, dt, seed) for k in (2048, 5632, 256) for dt in (torch.bfloat16,) for seed in (None, 977)]
     cases += [(1024, 32000, torch.float32, 2**32 - 5), (1024, 32000, torch.float32, None), (37, 2056, torch.bfloat16, 3)]
+    # phase 21: Qwen2-7B's deterministic int8 dy (its card-vs-CPU check) and the 152064-wide f32 dlog of a CE
+    # chunk (8 x 64 rows), the long-row path
+    cases += [(TEXT_M, k, torch.bfloat16, None) for k in (3584, 512, 18944)]
+    cases += [(TEXT_BATCH * 64, 152064, torch.float32, seed) for seed in (None, 2**31 + 7)]
     for m, k, dt, seed in cases:
         x = torch.randn(m, k, generator=gen, device=dev) * 1e-2
         x[0] = 0.0  # all-zero row
@@ -1116,7 +1156,8 @@ def check_int8_matmul_f32(gen) -> dict:
 
     dev = "cuda"
     worst, first = 0.0, None
-    for m, k, f in ((1024, 2048, 32000), (1024, 32000, 2048), (37, 48, 40)):
+    # phase 21: Qwen2-7B's int8 CE head, the logits of a chunk (8 x 64 rows, 3584 -> 152064)
+    for m, k, f in ((1024, 2048, 32000), (1024, 32000, 2048), (37, 48, 40), (TEXT_BATCH * 64, 3584, 152064)):
         xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
         wq = torch.randint(-127, 128, (f, k), generator=gen, device=dev, dtype=torch.int8)
         xs = torch.rand(m, generator=gen, device=dev) * 0.05 + 1e-3
@@ -1167,6 +1208,11 @@ def check_int8_matmul(gen) -> dict:
     shapes += [(m, kc, n) for m in sorted({16 * t for t in W_TRAIN_T} | {8 * t for t in W_PREFILL_T} | {32},
                                           reverse=True)
                for kc, n in ((4096, 4096), (4096, 11008), (11008, 4096))]
+    # phase 21: Qwen2-7B's separate projections (q / o 3584 -> 3584, k / v 3584 -> 512), gate / up and down at
+    # the text batch's M and at beam M (weights cold), and the int8_rot dx of k / v (512 -> 3584; the others'
+    # dx shapes are the forward ones)
+    shapes += [(m, kc, n) for m in (TEXT_M, 32) for kc, n in ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584))]
+    shapes += [(TEXT_M, 512, 3584)]
     for m, k, f in shapes:
         xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
         wq = torch.randint(-127, 128, (f, k), generator=gen, device=dev, dtype=torch.int8)
@@ -1512,8 +1558,8 @@ def write_corpus(root: Path, n: int = 16, seed: int = 0, name: str = "test", tar
 RECIPE_LAYERS = 22  # TinyLlama-1.1B's decoder layers
 # the decode's new tokens (the recipe's 200, cut: a random model rarely stops early, so each beam step of the
 # phase and of phases 19-20, which repeat it, runs to this length; 12 since phase 20 (b) decodes it over fsdp
-# on gloo, ~3 s a beam step)
-SLICE_NEW_TOKENS = 12
+# on gloo, ~2-3 s a beam step; 8 since phase 21 joined the run)
+SLICE_NEW_TOKENS = 8
 RECIPE_CHECK_LAYERS = 2  # LLM and encoder depth of phases 4-6's card-vs-CPU checks (full widths)
 
 # the kernels decode runs; K3's beam steps (M = 32) take its split-K path
@@ -1946,21 +1992,29 @@ def train_grads_card(trainer, dataset, label: str, key_bias_limit: float = 5e-2,
     seeds = trainer.draw_quant_seeds()
 
     def grads(device):
+        """(loss, the gradients of ``names``, the batch's shape); a tensor
+        the batch never reaches (a text batch's projector) has None."""
         b = {k: torch.as_tensor(v).to(device) for k, v in batch.items() if isinstance(v, np.ndarray)}
         trainer.set_quant_seeds(seeds)
         model.eval()
         params = dict(model.named_parameters())
         out = model(b)
-        g = torch.autograd.grad(out["loss"], [params[n] for n in names])
-        return float(out["loss"].detach()), [x.float().cpu() for x in g], tuple(b["input_ids"].shape)
+        g = torch.autograd.grad(out["loss"], [params[n] for n in names], allow_unused=True)
+        return (float(out["loss"].detach()), [None if x is None else x.float().cpu() for x in g],
+                tuple(b["input_ids"].shape))
 
     loss_gpu, g_gpu, shape = grads("cuda")
+    unreached = [n for n, g in zip(names, g_gpu) if g is None]
+    if unreached:
+        log(f"[{label}] {len(unreached)} trainable tensors the batch does not reach (no gradient): {unreached[:4]}")
 
     def cpu_side():
         t0 = time.perf_counter()
         loss_cpu, g_cpu, _ = grads("cpu")
         cpu_s = time.perf_counter() - t0
-        pairs = dict(zip(names, zip(g_gpu, g_cpu)))
+        if [n for n, g in zip(names, g_cpu) if g is None] != unreached:
+            raise AssertionError(f"{label}: the card and the CPU reach different trainable tensors")
+        pairs = {n: (a, c) for n, a, c in zip(names, g_gpu, g_cpu) if a is not None}
         # a key projection's bias shifts every score of a query by one constant,
         # which the softmax cancels: its gradient is 0 in exact arithmetic, so
         # both sides are round-off, held against the query bias's gradient
@@ -1972,18 +2026,18 @@ def train_grads_card(trainer, dataset, label: str, key_bias_limit: float = 5e-2,
         worst = min(cos, key=cos.get)
         log(f"[{label}] gradient check, one utterance {shape}, {model.cfg.llm.n_layers} layers, card vs CPU plain "
             f"path ({cpu_s:.1f} s on CPU): loss {loss_gpu:.5f} vs {loss_cpu:.5f}; {len(cos)} of "
-            f"{len(names) - len(key_bias)} tensors with a gradient, min cosine {cos[worst]:.5f} ({worst}), mean "
+            f"{len(pairs) - len(key_bias)} tensors with a gradient, min cosine {cos[worst]:.5f} ({worst}), mean "
             f"{np.mean(list(cos.values())):.5f}" + (f"; {len(key_bias)} key-projection biases (gradient 0 in exact "
                                                    f"arithmetic): largest |g| / |g of the query bias| "
                                                    f"{max(a for a, _ in key_bias.values()):.2e} card, "
                                                    f"{max(c for _, c in key_bias.values()):.2e} CPU (limit "
                                                    f"{key_bias_limit:g})" if key_bias else ""))
-        held = names
+        held = [n for n in names if n not in unreached]
         if gate:
             outside = {n: c for n, c in cos.items() if not n.startswith(gate)}
             cos = {n: c for n, c in cos.items() if n.startswith(gate)}
             key_bias = {n: ac for n, ac in key_bias.items() if n.startswith(gate)}
-            held = [n for n in names if n.startswith(gate)]
+            held = [n for n in held if n.startswith(gate)]
             worst = min(cos, key=cos.get)
             log(f"[{label}] the gate holds the {len(held)} {gate}* tensors: min cosine {cos[worst]:.5f} ({worst}), "
                 f"largest key-bias ratio {max((max(ac) for ac in key_bias.values()), default=0.0):.2e}; outside it the "
@@ -2004,7 +2058,7 @@ def train_grads_card(trainer, dataset, label: str, key_bias_limit: float = 5e-2,
 # ---------------------------------------------------------------------------
 
 WEIGHTS_STEPS = 4
-WEIGHTS_NEW_TOKENS = 32  # decode length of the reload check (a random model rarely stops early)
+WEIGHTS_NEW_TOKENS = 16  # the reload check's decode length (32 until phase 21 joined the run)
 WEIGHTS_PATH = ("flash_attention_fwd", "flash_attention_bwd", "rowquant", "rowquant_rot_sr", "int8_matmul")
 
 
@@ -2223,7 +2277,7 @@ def run_weights() -> dict:
 
 ST_RECIPE = ROOT / "examples" / "st_covost2" / "conf" / "st_whisper_qwen.yaml"
 ST_STEPS = 4
-ST_NEW_TOKENS = 32  # decode length (a random model rarely emits EOS)
+ST_NEW_TOKENS = 16  # decode length (a random model rarely emits EOS; 32 before phase 21)
 ST_DECODE_BATCH = 8
 ST_LAYERS = 2  # LLM and encoder depth of the card-vs-CPU checks
 ST_PATH = ("flash_attention_fwd", "flash_attention_bwd")
@@ -2357,17 +2411,18 @@ def check_reduced_against_cpu(trainer, cfg, prefill_batch, train_ds, label: str,
     on_cpu(label, cpu_side)
 
 
-def cut_model(model, cfg, layers: int, label: str) -> tuple:
+def cut_model(model, cfg, layers: int, label: str, **llm) -> tuple:
     """``model`` cut to its first ``layers`` LLM and encoder layers at its
     full widths, its tensors copied (a model without an encoder keeps
-    none), on the card; returns it and a Trainer over it."""
+    none), on the card, the LLM config's fields ``llm`` replaced (a
+    backward mode); returns it and a Trainer over it."""
     import dataclasses
 
     from slam_llm_tpu_torch.models.slam_model import SLAMModel
     from slam_llm_tpu_torch.train.state import Trainer
 
     big = model.cfg
-    small_cfg = dataclasses.replace(big, llm=dataclasses.replace(big.llm, n_layers=layers),
+    small_cfg = dataclasses.replace(big, llm=dataclasses.replace(big.llm, n_layers=layers, **llm),
                                     encoder=big.encoder and dataclasses.replace(big.encoder, n_layers=layers))
     small = SLAMModel(small_cfg, device="cuda")
     trained = model.state_dict()
@@ -2487,7 +2542,7 @@ def run_st() -> dict:
 
 W_RECIPE = ROOT / "examples" / "asr_librispeech" / "conf" / "asr_wavlm_vicuna.yaml"
 W_STEPS = 4
-W_NEW_TOKENS = 32  # decode length (a random model rarely emits EOS)
+W_NEW_TOKENS = 16  # decode length (a random model rarely emits EOS; 32 before phase 21)
 W_LAYERS = 2  # LLM and encoder depth of the card-vs-CPU checks
 # the text buckets of the training batches (up to 100 audio slots, the
 # prompt, a target, EOS) and of a decode batch (no target), and the encoder
@@ -2760,7 +2815,7 @@ AAC_STEPS = 4
 # LoRA B starts at 0 and step 0's lr is 0 under warmup, so LoRA A first
 # receives a gradient at step 2 (the third)
 SLAM_AAC_STEPS = 3
-AAC_NEW_TOKENS = 32  # decode length (a random model rarely emits EOS)
+AAC_NEW_TOKENS = 16  # decode length (a random model rarely emits EOS; 32 before phase 21)
 AAC_DECODE_BATCH = 8
 AAC_LAYERS = 2  # LLM and encoder depth of the card-vs-CPU checks
 AAC_PATH = ("flash_attention_fwd", "flash_attention_bwd")
@@ -3360,7 +3415,7 @@ MC_RECIPE = ROOT / "examples" / "mc_musiccaps" / "conf" / "mc_musicfm_vicuna.yam
 SEC_RECIPE = ROOT / "examples" / "sec_emotioncaps" / "conf" / "sec_emotion2vec_vicuna.yaml"
 MS_STEPS = 4
 ECHAT_STEPS = 2
-MS_NEW_TOKENS = 32  # decode length (a random model rarely emits EOS)
+MS_NEW_TOKENS = 16  # decode length (a random model rarely emits EOS; 32 before phase 21)
 MS_DECODE_BATCH = 8
 MS_LAYERS = 2  # LLM and encoder depth of the card-vs-CPU checks
 # a Q-Former key bias's gradient / its query bias's, both sides: under near-uniform attention
@@ -3829,7 +3884,7 @@ LS_RECIPE = ROOT / "examples" / "aispeech_asr" / "conf" / "aispeech_large_scale.
 CTX_RECIPE = ROOT / "examples" / "contextual_asr" / "conf" / "contextual_wavlm_vicuna.yaml"
 MALA_RECIPE = ROOT / "examples" / "mala_asr_slidespeech" / "conf" / "mala_wavlm_vicuna.yaml"
 LS_UTTS, LS_EVAL_UTTS = 96, 24  # the train corpus fills the 192 bucket's 42 twice
-LS_NEW_TOKENS = 32
+LS_NEW_TOKENS = 16  # 32 until phase 21 joined the run
 # the batches the batcher makes of these corpora (ids; whisper-large-v3's frames are half the mel's), which phase 3
 # checks K1 / K4 at
 LS_TRAIN_SHAPES, LS_EVAL_SHAPES = {(42, 192)}, {(21, 192)}
@@ -4861,7 +4916,7 @@ def run_vallex() -> dict:
 
 PEFT_STEPS = 4
 PEFT_DECODE = 8  # utterances decoded, one batch (the recipe's val_batch_size)
-PEFT_NEW_TOKENS = 32
+PEFT_NEW_TOKENS = 16  # 32 until phase 21 joined the run
 # peft_method -> the LLM's trained leaves
 PEFT_METHODS = {"prefix": ("prefix_k", "prefix_v"), "llama_adapter": ("adaption_prompt", "adaption_gate")}
 
@@ -5415,10 +5470,10 @@ TP_LAUNCH_TIMEOUT_S = 480  # phase 20's torchrun (b): two ranks through gloo on 
 # runs phase 5's first step and phase 4's first batch of 8
 TP_GLOO_STEPS, TP_GLOO_UTTS = 1, 8
 # (b)'s S2S cut: phase 19 (b)'s first step (its corpus; the 1536 bucket comes first), and generate_s2s on
-# 2 questions of 8 new tokens: at tp=2 with the LLM in f32 (a greedy token flips only where the two runs'
+# 2 questions of 4 new tokens (8 until phase 21 joined the run): at tp=2 with the LLM in f32 (a greedy token flips only where the two runs'
 # logits round apart, which bf16's rounding of the logits, 2^-5 at their largest, would make likely), and at
 # fsdp=2 in the recipe's bf16 (FSDP2 gathers exact copies; a step gathers the 2 layers through the host)
-TP_S2S_STEPS, TP_S2S_QUESTIONS, TP_S2S_NEW = 1, 2, 8
+TP_S2S_STEPS, TP_S2S_QUESTIONS, TP_S2S_NEW = 1, 2, 4
 
 
 # the all-gathers FSDP2 runs in a sharded decode here: a unit whose tensors share
@@ -5997,6 +6052,317 @@ def run_s2s_tp(tmp: Path) -> None:
         f"{[f'{g:.2e}' for g in gaps]} (buckets {[st['shape'][2] for st in runs[0]['steps']]})")
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the text-only fine-tune on Qwen2-7B's int8 base, bwd_pretranspose,
+# the BEATs tokenizer and the perplexity CLI
+# ---------------------------------------------------------------------------
+
+TEXT_LAYERS = 28  # Qwen2-7B's decoder layers: the whole depth
+TEXT_STEPS = 4
+TEXT_BATCH, TEXT_T = 8, 256  # the batch and its text bucket (every row longer than the 192 bucket)
+TEXT_M = TEXT_BATCH * TEXT_T  # the rows of the step's dense products
+TEXT_NEW_TOKENS = 16
+TEXT_CHECK_LAYERS = 2  # LLM depth of the card-vs-CPU check (full widths)
+TEXT_PROMPT = "Answer the instruction."
+TEXT_PATH = ("flash_attention_fwd", "flash_attention_bwd", "rowquant", "rowquant_rot_sr", "int8_matmul",
+             "int8_matmul_f32", "int8_matmul/wgmma", "int8_matmul/splitk")
+TEXT_BYPASSED = ("flash_attention_fwd_f32", "flash_attention_bwd_f32", "rowquant_fold")  # bf16; no int8 / int8_sr dy
+BT_CLIPS, BT_PATCHES = 4, 496  # the BEATs tokenizer's check: 10 s clips of 1000 fbank frames, 62 x 8 patches
+BT_FRAMES = (1000, 800, 600, 1000)
+PPL_TEXTS = ["the quick brown fox jumps over the lazy dog", "speech models read audio and write text",
+             "a random model scores every sentence about the same", "one two three four five six seven eight",
+             "hello world", "translate this sentence into german please", "x", "the end of the list"]
+_EN = ("the", "red", "small", "house", "river", "train", "left", "early", "morning", "with", "three", "old",
+       "friends", "who", "talked", "about", "music", "and", "books", "near", "quiet", "lake", "under", "sky")
+_DE = ("das", "rote", "kleine", "haus", "fluss", "zug", "fuhr", "frueh", "morgen", "mit", "drei", "alten",
+       "freunden", "die", "sprachen", "ueber", "musik", "und", "buecher", "nahe", "stillen", "see", "unter")
+
+
+def write_text_corpus(root: Path, n: int, seed: int, name: str) -> Path:
+    """A jsonl of ``n`` instruction / answer pairs in ASCII words, each
+    prompt + answer 160-210 bytes: with the byte tokenizer and the prompt
+    template every training row lands in the 256 bucket."""
+    rng = np.random.default_rng(seed)
+    path = root / f"{name}.jsonl"
+    with open(path, "w") as f:
+        for i in range(n):
+            total = int(rng.integers(160, 211))
+            instruct = "Translate into German: " + " ".join(rng.choice(_EN, 40))
+            target = " ".join(rng.choice(_DE, 40))
+            cut = int(rng.integers(70, 110))
+            instruct, target = instruct[:cut].rstrip(), target[:total - cut].rstrip()
+            f.write(json.dumps({"key": f"{name}_{i:03d}", "instruct": instruct, "target": target}) + "\n")
+    return path
+
+
+def text_args(tmp: Path, steps: int = TEXT_STEPS, llm: str = "qwen2-7b", *extra: str) -> list:
+    """The text-only recipe: ``dataset: text_dataset``, ``encoder_name:
+    null``, LoRA r8 on q / v over the int8 base with the int8_rot backward
+    and the int8 CE head, batch 8, the byte tokenizer."""
+    return [
+        f"++model_config.llm_name={llm}", "++model_config.encoder_name=null",
+        "++dataset_config.dataset=text_dataset", f"++dataset_config.prompt={TEXT_PROMPT}",
+        f"++dataset_config.train_data_path={write_text_corpus(tmp, TEXT_BATCH * steps, 0, 'train')}",
+        f"++dataset_config.val_data_path={write_text_corpus(tmp, TEXT_BATCH, 1, 'val')}",
+        "++train_config.use_peft=true", "++train_config.freeze_llm=true", "++train_config.peft_config.r=8",
+        "++train_config.peft_config.lora_dropout=0.0", "++train_config.shard.base_quant=int8",
+        "++train_config.shard.base_quant_bwd=int8_rot", "++train_config.shard.ce_quant=int8",
+        f"++train_config.batch_size_training={TEXT_BATCH}", f"++train_config.val_batch_size={TEXT_BATCH}",
+        f"++train_config.max_steps_per_epoch={steps}", "++train_config.num_epochs=1", "++train_config.warmup_steps=2",
+        "++train_config.lr=1e-3", "++train_config.log_interval=1", f"++train_config.output_dir={tmp / 'out'}",
+        "++train_config.model_name=text", *extra,
+    ]
+
+
+def lora_grads(trainer, batch) -> tuple:
+    """(loss, the LoRA gradients) of one forward + backward of ``batch`` on
+    the card, dropout off, no update."""
+    model = trainer.model.eval()
+    names = [n for n in trainer.trainable if "lora_" in n]
+    params = dict(model.named_parameters())
+    out = model(batch)
+    grads = torch.autograd.grad(out["loss"], [params[n] for n in names])
+    return float(out["loss"].detach()), dict(zip(names, (g.float() for g in grads)))
+
+
+def _cosines(a: dict, b: dict) -> dict:
+    return {n: torch.nn.functional.cosine_similarity(a[n].flatten(), b[n].flatten(), dim=0).item() for n in a}
+
+
+def rot_sr_statistics(model, cfg, batch) -> None:
+    """The int8_rot backward's seeded stochastic rounding, held by its
+    statistics at TEXT_CHECK_LAYERS layers on the card: two seeds give two
+    different LoRA gradients, each within cosine 0.99 of the deterministic
+    int8 backward's and of the bf16 backward's (the exact gradient of the
+    int8 forward)."""
+    runs = {}
+    for mode in ("int8_rot", "int8", "bf16"):
+        small, trainer = cut_model(model, cfg, TEXT_CHECK_LAYERS, f"text {mode}", base_quant_bwd=mode)
+        tb = trainer.put_batch(batch)
+        seeds = [11, 12] if mode == "int8_rot" else [0]
+        for seed in seeds:
+            trainer.set_quant_seeds([seed] * len(trainer.sr_modules))
+            runs[(mode, seed)] = lora_grads(trainer, tb)[1]
+        del small, trainer
+    a, b, det, exact = runs[("int8_rot", 11)], runs[("int8_rot", 12)], runs[("int8", 0)], runs[("bf16", 0)]
+    differ = any(not torch.equal(a[n], b[n]) for n in a)
+    worst = min(min(_cosines(g, ref).values()) for g in (a, b) for ref in (det, exact))
+    log(f"[text] int8_rot statistics at {TEXT_CHECK_LAYERS} layers: two seeds differ {differ}; min cosine against "
+        f"the deterministic int8 and the bf16 backward {worst:.5f} over {len(a)} LoRA tensors (int8 vs bf16 "
+        f"{min(_cosines(det, exact).values()):.5f})")
+    if not differ or worst < 0.99:
+        raise AssertionError(f"int8_rot: seeds differ {differ}, min cosine {worst}")
+
+
+def check_pretranspose(tmp: Path) -> None:
+    """``shard.bwd_pretranspose`` on TinyLlama-1.1B with a bf16 base (LoRA r8
+    on q / v, remat as shipped), the same seeded weights with and without
+    it on a text batch of 8: losses within one bf16 rounding (2^-8), every
+    LoRA gradient within cosine 0.999; every decoder dense's ``kernel_t``
+    its weight's transpose. A comparison: its launches count on no path."""
+    from slam_llm_tpu_torch.models.layers import DenseGeneralLora
+    from slam_llm_tpu_torch.pipeline import finetune
+    from slam_llm_tpu_torch.pipeline.common import build_model_and_data, materialize_params
+    from slam_llm_tpu_torch.train.state import Trainer
+
+    out = {}
+    for flag in (False, True):
+        cfg = finetune.load_run_config(text_args(tmp, 1, "tinyllama-1.1b", "++train_config.shard.base_quant=none",
+                                                 "++train_config.shard.ce_quant=none",
+                                                 f"++train_config.shard.bwd_pretranspose={str(flag).lower()}"))
+        model, _, dataset = build_model_and_data(cfg, split="train", device="cuda")
+        materialize_params(model, cfg)
+        trainer = Trainer(model, model.cfg, cfg.train_config).state_from_params()
+        redraw_adapters(model)
+        denses = [m for m in model.modules() if isinstance(m, DenseGeneralLora) and hasattr(m, "kernel_t")]
+        if flag and (len(denses) != 7 * RECIPE_LAYERS or not all(torch.equal(m.kernel_t, m.weight.t()) for m in denses)):
+            raise AssertionError(f"bwd_pretranspose: {len(denses)} denses with kernel_t, not the transposes")
+        batch = trainer.put_batch(dataset.collator([dataset[i] for i in range(TEXT_BATCH)]))
+        t0 = time.perf_counter()
+        out[flag] = (*lora_grads(trainer, batch), time.perf_counter() - t0)
+        del model, trainer
+        torch.cuda.empty_cache()
+    (la, ga, sa), (lb, gb, sb) = out[False], out[True]
+    cos = _cosines(ga, gb)
+    log(f"[pretranspose] TinyLlama-1.1B bf16 base, batch {TEXT_BATCH}: loss {la:.6f} without, {lb:.6f} with "
+        f"({abs(la - lb) / abs(la):.2e} relative); {len(cos)} LoRA gradients, min cosine {min(cos.values()):.6f}; "
+        f"forward + backward {sa:.2f} / {sb:.2f} s (first calls)")
+    if abs(la - lb) > 2.0**-8 * abs(la) or min(cos.values()) < 0.999:
+        raise AssertionError(f"bwd_pretranspose: loss {la} vs {lb}, min cosine {min(cos.values())}")
+
+
+def check_beats_tokenizer() -> dict:
+    """``BEATsTokenizer.extract_labels`` at beats_iter3's widths (seeded
+    random weights, bf16, the codebook from ``kmeans_cosine`` of the
+    trunk's features on the card) on 4 clips of 10 / 8 / 6 / 10 s of
+    normalized fbank: K1 once a layer at (4, 496, 12/12, 64); its CPU plain
+    path (the same weights and inputs) queued: at least 99 % of the labels
+    agree and the projected features keep cosine >= 0.999 over the valid
+    patches."""
+    from slam_llm_tpu_torch.models.beats_tokenizer import BEATsTokenizer, BEATsTokenizerConfig, kmeans_cosine, l2norm
+    from slam_llm_tpu_torch.pipeline.common import init_params_
+
+    cfg = BEATsTokenizerConfig.beats_iter3()
+    model = BEATsTokenizer(cfg, device="cuda").eval()
+    init_params_(model, torch.Generator(device="cuda").manual_seed(3))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    fbank = torch.randn(BT_CLIPS, max(BT_FRAMES), cfg.trunk.n_mels, generator=gen, device="cuda")
+    mask = (torch.arange(max(BT_FRAMES), device="cuda")[None] < torch.tensor(BT_FRAMES, device="cuda")[:, None])
+    mask = mask.to(torch.int32)
+    with torch.inference_mode():
+        # the codebook as the quantizer's kmeans_init makes it: cosine k-means of the trunk's features (a
+        # random codebook leaves near-ties that bf16 flips: 97.3 % of the labels agreed in the first run)
+        zin, out_mask = model.project(fbank, mask)
+        samples = l2norm(zin.float()[out_mask.bool()])
+        means, bins = kmeans_cosine(samples, cfg.quant_n, 10, generator=gen)
+        model.codebook.copy_(means)
+        (labels, (zin, out_mask)), launches = run_counted(
+            lambda: (model.extract_labels(fbank, mask), model.project(fbank, mask)))
+        t0 = time.perf_counter()
+        model.extract_labels(fbank, mask)
+        torch.cuda.synchronize()
+        ms = 1000 * (time.perf_counter() - t0)
+    if tuple(labels.shape) != (BT_CLIPS, BT_PATCHES) or launches["flash_attention_fwd"] != 2 * cfg.trunk.n_layers:
+        raise AssertionError(f"BEATs tokenizer: labels {tuple(labels.shape)}, K1 launches "
+                             f"{launches['flash_attention_fwd']}")
+    log(f"[beats tokenizer] extract_labels {tuple(labels.shape)} of (4, {max(BT_FRAMES)}, 128) fbank on the card, "
+        f"{ms:.1f} ms a call (host clock), K1 {launches['flash_attention_fwd'] // 2} a call; "
+        f"{int(out_mask.sum())} valid patches; the codebook from k-means of their features on the card "
+        f"({int((bins > 0).sum())} of {cfg.quant_n} clusters hold a patch)")
+    card = (labels.cpu(), zin.float().cpu(), out_mask.bool().cpu())
+    model.to("cpu")
+
+    def cpu_side():
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            c_labels = model.extract_labels(fbank.cpu(), mask.cpu())
+            c_zin, _ = model.project(fbank.cpu(), mask.cpu())
+        valid = card[2]
+        agree = (card[0] == c_labels)[valid].float().mean().item()
+        cos = torch.nn.functional.cosine_similarity(card[1][valid], c_zin.float()[valid], dim=-1)
+        log(f"[beats tokenizer] card vs CPU plain path ({time.perf_counter() - t0:.1f} s on CPU): labels agree "
+            f"{agree:.4f} of the valid patches (limit 0.99); projected features min cosine {cos.min().item():.5f} "
+            f"mean {cos.mean().item():.5f} (limit 0.999)")
+        if agree < 0.99 or cos.min().item() < 0.999:
+            raise AssertionError(f"BEATs tokenizer: labels agree {agree}, min cosine {cos.min().item()}")
+
+    on_cpu("beats tokenizer", cpu_side)
+    return launches
+
+
+def check_ppl() -> dict:
+    """``python -m slam_llm_tpu_torch.utils.ppl`` (its ``main``) on the card
+    over a random TinyLlama-1.1B HF directory that the phase writes (K1
+    with fused RoPE, once a layer a text); the same on the CPU queued: the
+    corpus perplexity within 1e-2 relative."""
+    import shutil
+
+    from slam_llm_tpu_torch.models.llm import LLMConfig
+    from slam_llm_tpu_torch.tools.synth_checkpoint import write_llama, write_tokenizer
+    from slam_llm_tpu_torch.utils import ppl
+
+    llm = Path(tempfile.mkdtemp(prefix="chip_smoke_ppl_"))
+    write_llama(str(llm), LLMConfig.tinyllama_1_1b(), seed=5, device="cuda")
+    write_tokenizer(str(llm), 32000, seed=5)
+    decode_log = llm / "ppl_pred"
+    decode_log.write_text("".join(f"utt{i}\t{t}\n" for i, t in enumerate(PPL_TEXTS)))
+    argv = [str(decode_log), "--llm", str(llm), "--llm-name", "tinyllama-1.1b"]
+    t0 = time.perf_counter()
+    card, launches = run_counted(lambda: ppl.main(argv))
+    wall = time.perf_counter() - t0
+    model, tok = ppl.load_llm(str(llm), "tinyllama-1.1b", "cuda")
+    per_card, _ = ppl.ppl_of_texts(model, tok, PPL_TEXTS)
+    del model
+    log(f"[ppl] the CLI on the card: corpus ppl {card:.4f} over {len(PPL_TEXTS)} texts in {wall:.2f} s (load "
+        f"included); K1 {launches['flash_attention_fwd']} launches")
+    if not (np.isfinite(card) and launches["flash_attention_fwd"] == RECIPE_LAYERS * len(PPL_TEXTS)):
+        raise AssertionError(f"ppl: {card}, K1 launches {launches['flash_attention_fwd']}")
+
+    def cpu_side():
+        t0 = time.perf_counter()
+        per_cpu, cpu = ppl.ppl_of_texts(*ppl.load_llm(str(llm), "tinyllama-1.1b", "cpu"), PPL_TEXTS)
+        worst = max(abs(a - b) / b for a, b in zip(per_card, per_cpu))
+        log(f"[ppl] card vs CPU ({time.perf_counter() - t0:.1f} s on CPU): corpus {card:.4f} vs {cpu:.4f} "
+            f"({abs(card - cpu) / cpu:.2e} relative), worst text {worst:.2e} (limit 1e-2)")
+        shutil.rmtree(llm)
+        if abs(card - cpu) > 1e-2 * cpu or worst > 1e-2:
+            raise AssertionError(f"ppl: card {card}, CPU {cpu}, worst text {worst}")
+
+    on_cpu("ppl", cpu_side)
+    return launches
+
+
+def run_text() -> tuple:
+    """Phase 21: the text-only recipe on Qwen2-7B's int8 base at full width
+    (TEXT_LAYERS layers, seeded random weights, the byte tokenizer):
+    pipeline.finetune for TEXT_STEPS steps of 8 in the 256 bucket (LoRA
+    moves, the projector, which a text batch never reaches, does not),
+    pipeline.inference_batch with ckpt_path (beam 4) against the in-memory
+    decode; the int8_rot backward by its statistics and the deterministic
+    int8 backward against the CPU plain path at TEXT_CHECK_LAYERS layers
+    (cosine >= 0.99, the loss within 1e-2); then bwd_pretranspose, the BEATs
+    tokenizer and the perplexity CLI. Returns the launches of the text
+    path, of the BEATs tokenizer and of the CLI."""
+    import shutil
+
+    from slam_llm_tpu_torch.pipeline import finetune, inference_batch
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_text_"))
+    args = text_args(tmp)
+    cfg = finetune.load_run_config(args)
+    with contextlib.ExitStack() as stack:
+        if TEXT_LAYERS != 28:
+            stack.enter_context(qwen2_layers(TEXT_LAYERS))
+        res, launches, stats = _finetune(cfg, "text")
+        trainer, steps = res["trainer"], res["steps"]
+        shapes = {tuple(s["shape"]) for s in steps}
+        if len(steps) != TEXT_STEPS or shapes != {(TEXT_BATCH, TEXT_T)}:
+            raise AssertionError(f"text: {len(steps)} steps of {shapes}, not {TEXT_STEPS} of {(TEXT_BATCH, TEXT_T)}")
+        llm = trainer.model.llm
+        log(f"[text] Qwen2-7B at {llm.cfg.n_layers} layers, d {llm.cfg.d_model}, vocab {llm.cfg.vocab_size}, "
+            f"q / k / v biases {llm.layers[0].attn.q_proj.bias is not None}, the int8 base "
+            f"{res['base_bytes'] / 1e9:.2f} GB; materialized in {res['load_seconds']:.2f} s; K2 widths "
+            f"{sorted(WIDTHS.get('rowquant', {}))}, K3 (K, F) {sorted(WIDTHS.get('int8_matmul', {}))}")
+        moved = [n for n, p in trainer.trainable.items() if "lora_" in n]
+        if trainer.model.encoder is not None or not moved:
+            raise AssertionError("text: an encoder was built, or no LoRA tensor trains")
+        ckpt = res["checkpoints"][-1]
+        dec = inference_batch.load_run_config([*args, f"++ckpt_path={ckpt}", f"++decode_config.decode_log={tmp / 'decode'}",
+                                               f"++decode_config.max_new_tokens={TEXT_NEW_TOKENS}",
+                                               "++decode_config.num_beams=4"])
+        out, dec_launches = run_counted(lambda: inference_batch.main(dec, device="cuda"))
+        preds = Path(out["pred"]).read_text().splitlines()
+        from slam_llm_tpu_torch.data.tokenizer import ByteTokenizer
+
+        mine = decode_texts(trainer.model, ByteTokenizer(), dec)
+        log(f"[text] inference_batch with ckpt_path: {out['n']} prompts, beam 4, {out['generated_tokens']} tokens in "
+            f"{out['seconds']:.2f} s ({1000 * out['decode_s'] / max(out['decode_steps'], 1):.1f} ms a beam step), "
+            f"weights materialized in {out['load_seconds']:.2f} s; against the in-memory trained model: "
+            f"{sum(a == b for a, b in zip(preds, mine))} / {len(preds)} lines identical; launches {dec_launches}")
+        if len(preds) != TEXT_BATCH or preds != mine:
+            raise AssertionError("text: the reloaded model's decode differs from the in-memory trained model's")
+        dataset = dataset_of(cfg, ByteTokenizer(), "train")
+        check = dataset.collator([dataset[i] for i in range(2)])
+        rot_sr_statistics(trainer.model, cfg, check)
+        small, strainer = cut_model(trainer.model, cfg, TEXT_CHECK_LAYERS, "text", base_quant_bwd="int8")
+        del res, trainer
+        redraw_adapters(small)
+        cpu_side = train_grads_card(strainer, dataset, "text", loss_rtol=1e-2)
+        small.to("cpu")
+        on_cpu("text", cpu_side)
+    torch.cuda.empty_cache()
+    total = {k: launches[k] + dec_launches[k] for k in launches}
+    missing = [name for name in TEXT_PATH if total[name] == 0]
+    if missing or any(total[k] for k in TEXT_BYPASSED):
+        raise AssertionError(f"the text path launched {total}")
+    check_pretranspose(tmp)
+    beats = check_beats_tokenizer()
+    ppl_launches = check_ppl()
+    shutil.rmtree(tmp)
+    return total, beats, ppl_launches
+
+
+
 PHASE_SECONDS = {}
 
 
@@ -6026,6 +6392,8 @@ def main() -> int:
     seld_encoder = timed("seld_encoder", run_seld_encoder, seld_files)
     vsr = timed("vsr", run_vsr)
     large_scale = timed("large_scale", run_large_scale)
+    # phase 21 here: its CPU sides (~50 s) run beside phases 16-18
+    text, beats_tokenizer, ppl = timed("text", run_text)
     s2s = timed("s2s", run_s2s)
     vallex = timed("vallex", run_vallex)
     peft = timed("peft", run_peft)
@@ -6035,7 +6403,8 @@ def main() -> int:
     paths = {"decode": decode, "train": train, "train_int8_sr": modes, "weights": weights, "st": st,
              "wavlm": wavlm, "aac": aac, "clap": clap, **music_spatial, "seld_encoder": seld_encoder, "vsr": vsr,
              "large_scale": large_scale, "s2s": s2s,
-             "vallex": vallex, "peft": peft, "distributed": distributed, "tensor_parallel": tensor_parallel}
+             "vallex": vallex, "peft": peft, "text": text, "beats_tokenizer": beats_tokenizer, "ppl": ppl,
+             "distributed": distributed, "tensor_parallel": tensor_parallel}
     for r in results:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
@@ -6046,7 +6415,7 @@ def main() -> int:
         raise AssertionError(f"the s2s path launched K1 {s2s['flash_attention_fwd']} / K4 {s2s['flash_attention_bwd']}")
     if not (vallex["flash_attention_fwd"] and vallex["flash_attention_bwd"]) or any(vallex[k] for k in VX_BYPASSED):
         raise AssertionError(f"the vallex path launched {vallex}")
-    log(f"[chip_smoke] phases 1-20 in {time.perf_counter() - t0:.1f} s, by phase {PHASE_SECONDS} | {SMI}")
+    log(f"[chip_smoke] phases 1-21 in {time.perf_counter() - t0:.1f} s, by phase {PHASE_SECONDS} | {SMI}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -185,26 +185,34 @@ class LlamaTokenizer:
         return _clean_up(text) if self.clean_up_spaces else text
 
 
-# the Split pattern of qwen2's tokenizer.json, the one ByteLevelTokenizer takes
+# the Split patterns ByteLevelTokenizer takes: qwen2's tokenizer.json, and
+# Llama-3's, which differs in taking digits in runs of up to three
 QWEN2_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}| ?[^\s\p{L}\p{N}]+[\r\n]*|"
                r"\s*[\r\n]+|\s+(?!\S)|\s+")
+LLAMA3_SPLIT = QWEN2_SPLIT.replace(r"\p{N}|", r"\p{N}{1,3}|", 1)
+# each pattern's longest run of digits in one piece
+_SPLIT_DIGITS = {QWEN2_SPLIT: 1, LLAMA3_SPLIT: 3}
 
 
 class ByteLevelTokenizer:
-    r"""qwen2's ``tokenizer.json`` (ByteLevel BPE), encoded and decoded as
-    ``AutoTokenizer`` does:
+    r"""qwen2's and Llama-3's ``tokenizer.json`` (ByteLevel BPE), encoded and
+    decoded as ``AutoTokenizer`` does:
 
-    * the added tokens (``<|endoftext|>``, ``<|im_start|>``, ``<|im_end|>``)
-      are split out of the raw text first, leftmost-longest;
+    * the added tokens (``<|endoftext|>``, ``<|im_start|>``, ``<|im_end|>``;
+      ``<|begin_of_text|>`` ...) are split out of the raw text first,
+      leftmost-longest;
     * the normalizer: NFC, or none;
-    * the pre-tokenizer: ``Split`` with ``QWEN2_SPLIT`` (behaviour
-      ``Isolated``), run by a scanner over ``unicodedata`` categories
-      (``split_qwen2``), since Python's ``re`` has no ``\p{..}``; then
-      ``ByteLevel`` (no prefix space, no regex of its own): each piece's
-      UTF-8 bytes through GPT-2's byte -> unicode map;
+    * the pre-tokenizer: ``Split`` with ``QWEN2_SPLIT`` or ``LLAMA3_SPLIT``
+      (behaviour ``Isolated``), run by a scanner over ``unicodedata``
+      categories (``split_pretokens``), since Python's ``re`` has no
+      ``\p{..}``; then ``ByteLevel`` (no prefix space, no regex of its own):
+      each piece's UTF-8 bytes through GPT-2's byte -> unicode map;
     * the model: BPE, merges applied by rank as ``LlamaTokenizer`` applies
-      them;
-    * the post-processor: ``ByteLevel``, which adds no token (no BOS);
+      them; with ``ignore_merges`` (Llama-3) a piece that is a vocabulary
+      entry whole is that entry, unmerged;
+    * the post-processor: ``ByteLevel``, which adds no token (qwen2: no
+      BOS), alone or before a ``TemplateProcessing`` whose single template
+      ``add_bos`` applies (Llama-3: ``<|begin_of_text|>`` first);
     * the decoder: ``ByteLevel``: each token's characters back to bytes (a
       token with a character outside the map gives its own UTF-8 bytes), the
       bytes decoded with U+FFFD for invalid sequences. Ids neither in the
@@ -214,8 +222,8 @@ class ByteLevelTokenizer:
 
     bos / eos / pad come from ``tokenizer_config.json`` or
     ``special_tokens_map.json``, with no default (qwen2's bos is null); pad
-    is eos when neither sets one. Any other pre-tokenizer, pattern (such as
-    Llama-3's ``\p{N}{1,3}``) or component raises ``NotImplementedError``.
+    is eos when neither sets one. Any other pre-tokenizer, pattern or
+    component raises ``NotImplementedError``.
     """
 
     def __init__(self, spec: dict, config: Optional[dict] = None):
@@ -223,9 +231,10 @@ class ByteLevelTokenizer:
         model = spec.get("model") or {}
         if model.get("type") != "BPE":
             raise NotImplementedError(f"tokenizer model {model.get('type')!r}: only BPE is ported")
-        for key in ("continuing_subword_prefix", "end_of_word_suffix", "dropout", "ignore_merges", "byte_fallback"):
+        for key in ("continuing_subword_prefix", "end_of_word_suffix", "dropout", "byte_fallback"):
             if model.get(key):
                 raise NotImplementedError(f"BPE {key}={model[key]!r} is not ported for ByteLevel")
+        self.ignore_merges = bool(model.get("ignore_merges", False))
         _read_bpe(self, spec)
         if any(t.get("normalized") for t in self.added):
             raise NotImplementedError("normalized added tokens are not ported for ByteLevel")
@@ -238,22 +247,29 @@ class ByteLevelTokenizer:
         if kinds != ["Split", "ByteLevel"]:
             raise NotImplementedError(f"pre-tokenizers {kinds} are not ported (Split + ByteLevel is)")
         split, level = pre
-        if (split["pattern"].get("Regex") != QWEN2_SPLIT or split.get("behavior") != "Isolated"
-                or split.get("invert")):
-            raise NotImplementedError(f"Split {split} is not ported (qwen2's pattern, Isolated, is)")
+        pattern = split["pattern"].get("Regex")
+        if pattern not in _SPLIT_DIGITS or split.get("behavior") != "Isolated" or split.get("invert"):
+            raise NotImplementedError(f"Split {split} is not ported (qwen2's and Llama-3's patterns, Isolated, are)")
+        self.digits = _SPLIT_DIGITS[pattern]
         if level.get("add_prefix_space") or level.get("use_regex"):
             raise NotImplementedError(f"{level} is not ported (ByteLevel without prefix space or regex is)")
         # the ByteLevel post-processor adds no token and the decoder maps
         # bytes back whatever their flags (which touch only offsets)
-        post, dec = spec.get("post_processor"), _flatten(spec.get("decoder"), "decoders")
-        if (post is not None and post["type"] != "ByteLevel") or [d["type"] for d in dec] != ["ByteLevel"]:
-            raise NotImplementedError(f"post-processor {post} / decoders {dec} are not ported (ByteLevel is)")
+        post = _flatten(spec.get("post_processor"), "processors")
+        dec = _flatten(spec.get("decoder"), "decoders")
+        kinds = [p["type"] for p in post]
+        if kinds not in ([], ["ByteLevel"], ["ByteLevel", "TemplateProcessing"]) or [d["type"] for d in dec] != [
+                "ByteLevel"]:
+            raise NotImplementedError(f"post-processors {kinds} / decoders {dec} are not ported (ByteLevel, then "
+                                      "an optional TemplateProcessing, is)")
+        self.prefix, self.suffix = _template(post[-1] if kinds[-1:] == ["TemplateProcessing"] else None)
         _special_ids(self, config, None, None)
         self.clean_up_spaces = bool(config.get("clean_up_tokenization_spaces", False))
 
     def encode(self, text: str, add_bos: bool = True) -> List[int]:
-        """Token ids of ``text``; the ByteLevel post-processor adds none, so
-        ``add_bos`` changes nothing."""
+        """Token ids of ``text``; ``add_bos`` applies the template of a
+        ``TemplateProcessing`` post-processor (``add_special_tokens``), and
+        changes nothing without one."""
         ids: List[int] = []
         for piece, _, added_id in _split_added(self.added, text):
             if added_id is not None:
@@ -261,14 +277,18 @@ class ByteLevelTokenizer:
                 continue
             if self.nfc:
                 piece = unicodedata.normalize("NFC", piece)
-            for word in split_qwen2(piece):
+            for word in split_pretokens(piece, self.digits):
+                chars = "".join(BYTE_TO_UNICODE[b] for b in word.encode("utf-8"))
+                if self.ignore_merges and chars in self.vocab:
+                    ids.append(self.vocab[chars])
+                    continue
                 syms = []
-                for ch in "".join(BYTE_TO_UNICODE[b] for b in word.encode("utf-8")):
+                for ch in chars:
                     if ch not in self.vocab:
                         raise ValueError(f"byte character {ch!r} is not in the vocabulary")
                     syms.append(self.vocab[ch])
                 ids.extend(_merge(self.ranks, syms))
-        return ids
+        return self.prefix + ids + self.suffix if add_bos else ids
 
     def decode(self, ids, skip_special_tokens: bool = True) -> str:
         data = bytearray()
@@ -312,18 +332,19 @@ def _other(ch: str) -> bool:
     return ch not in _SPACE and unicodedata.category(ch)[0] not in "LN"
 
 
-def split_qwen2(text: str) -> List[str]:
-    """``text`` cut by ``QWEN2_SPLIT`` (every character lands in a match)."""
+def split_pretokens(text: str, digits: int) -> List[str]:
+    r"""``text`` cut by ``QWEN2_SPLIT`` (``digits`` 1) or ``LLAMA3_SPLIT``
+    (``digits`` 3, its ``\p{N}{1,3}``); every character lands in a match."""
     out, i = [], 0
     while i < len(text):
-        j = _match_qwen2(text, i)
+        j = _match_pretoken(text, i, digits)
         out.append(text[i:j])
         i = j
     return out
 
 
-def _match_qwen2(s: str, i: int) -> int:
-    """End of the leftmost alternative of ``QWEN2_SPLIT`` matching at ``i``,
+def _match_pretoken(s: str, i: int, digits: int) -> int:
+    """End of the leftmost alternative of the pattern matching at ``i``,
     with the regex engine's greedy backtracking worked out per alternative."""
     n, c = len(s), s[i]
     if c == "'":  # (?i:'s|'t|'re|'ve|'m|'ll|'d): the first alternative that matches
@@ -338,8 +359,11 @@ def _match_qwen2(s: str, i: int) -> int:
         while start < n and _letter(s[start]):
             start += 1
         return start
-    if _number(c):  # \p{N}
-        return i + 1
+    if _number(c):  # \p{N}, or \p{N}{1,3}: the run's first ``digits`` characters
+        j = i + 1
+        while j < min(n, i + digits) and _number(s[j]):
+            j += 1
+        return j
     # ' ?[^\s\p{L}\p{N}]+[\r\n]*'
     j = i + 1 if c == " " and i + 1 < n and _other(s[i + 1]) else i
     if _other(s[j]):

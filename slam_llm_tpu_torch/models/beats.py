@@ -53,13 +53,19 @@ class BEATsEncoderConfig:
     conv_pos: int = 128
     conv_pos_groups: int = 16
     layer_norm_eps: float = 1e-5
+    # the BEATs encoder's gated rel-pos bias and deep norm; the BEATs
+    # tokenizer's trunk (models.beats_tokenizer) is a plain post-LN stack
+    # without either
+    rel_bias: bool = True
+    deep_norm: bool = True
+    gate_from_query: bool = True
     dtype: torch.dtype = torch.bfloat16
 
     def layer_cfg(self) -> WavLMConfig:
         return WavLMConfig(
             d_model=self.d_model, n_heads=self.n_heads, n_layers=self.n_layers, ffn_dim=self.ffn_dim,
-            num_buckets=self.num_buckets, max_distance=self.max_distance, rel_bias=True,
-            deep_norm=True, gate_from_query=True, do_stable_layer_norm=False,
+            num_buckets=self.num_buckets, max_distance=self.max_distance, rel_bias=self.rel_bias,
+            deep_norm=self.deep_norm, gate_from_query=self.gate_from_query, do_stable_layer_norm=False,
             conv_pos=self.conv_pos, conv_pos_groups=self.conv_pos_groups, layer_norm_eps=self.layer_norm_eps,
             dtype=self.dtype,
         )
@@ -95,7 +101,11 @@ def beats_patch_mask(mel_mask: torch.Tensor, n_features: int) -> torch.Tensor:
 
 class BEATsTransformer(nn.Module):
     """Zero the padded features, add the positional conv, ``encoder_ln``,
-    then the deep-norm layers with the shared gated rel-pos bias."""
+    then the layers: deep-norm with the shared gated rel-pos bias (the
+    encoder), or plain post-LN without a bias (``rel_bias`` off, the
+    tokenizer's trunk), whose padding is a structured key mask, so on a CUDA
+    tensor its attention runs K1 (the JAX package's dense padding bias there
+    is the same function)."""
 
     def __init__(self, cfg: BEATsEncoderConfig, device=None):
         super().__init__()
@@ -104,22 +114,25 @@ class BEATsTransformer(nn.Module):
         self.pos_conv = PositionalConvEmbedding(lc, device)
         self.encoder_ln = LayerNorm(cfg.d_model, cfg.layer_norm_eps, cfg.dtype, device)
         self.rel_attn_embed = nn.Parameter(torch.zeros(cfg.num_buckets, cfg.n_heads, device=device),
-                                           requires_grad=False)
+                                           requires_grad=False) if cfg.rel_bias else None
         self.layers = nn.ModuleList(WavLMLayer(lc, device) for _ in range(cfg.n_layers))
 
     def forward(self, x: torch.Tensor, out_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         c = self.cfg
         b, n, _ = x.shape
-        key_mask_bias = None
+        key_mask_bias = position_bias = None
         if out_mask is not None:
             x = x * out_mask[..., None].to(x.dtype)
-            valid = out_mask[:, None, None, :].bool().expand(b, 1, n, n)
-            key_mask_bias = torch.where(valid, 0.0, NEG_INF).float()
+            if c.rel_bias:
+                valid = out_mask[:, None, None, :].bool().expand(b, 1, n, n)
+                key_mask_bias = torch.where(valid, 0.0, NEG_INF).float()
         x = self.encoder_ln(x + self.pos_conv(x))
-        buckets = _buckets(n, c.num_buckets, c.max_distance, x.device)
-        position_bias = self.rel_attn_embed[buckets].permute(2, 0, 1).float()  # (H, T, T)
+        if c.rel_bias:
+            buckets = _buckets(n, c.num_buckets, c.max_distance, x.device)
+            position_bias = self.rel_attn_embed[buckets].permute(2, 0, 1).float()  # (H, T, T)
+        kv_mask = None if c.rel_bias else out_mask
         for layer in self.layers:
-            x = layer(x, key_mask_bias, position_bias)
+            x = layer(x, key_mask_bias, position_bias, kv_mask)
         return x
 
 

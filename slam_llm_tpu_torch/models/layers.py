@@ -52,10 +52,36 @@ class _Linear(torch.autograd.Function):
         return dx, dw, None
 
 
-def linear(x: torch.Tensor, w: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+def linear(x: torch.Tensor, w: torch.Tensor, out: Optional[torch.Tensor] = None,
+           w_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w^T``; with ``w_t`` (== ``w.T``, stored) its backward contracts
+    the stored transpose (``_PretransposedLinear``)."""
     if not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
         return F.linear(x, w) if out is None else out
+    if w_t is not None:
+        return _PretransposedLinear.apply(x, w, w_t, out)
     return _Linear.apply(x, w, out)
+
+
+class _PretransposedLinear(torch.autograd.Function):
+    """``x @ w^T`` whose backward contracts a stored transpose ``w_t == w.T``
+    (K, F): dx = dy w_t^T reads ``w_t`` row-major, as the forward reads
+    ``w``. The reference's ``_pretransposed_dot``: the weight gradient is
+    exact (dw = dy^T x, when w trains) and ``w_t`` gets none, which is why
+    the trainer refuses it for a base that trains. ``out`` as in ``_Linear``."""
+
+    @staticmethod
+    def forward(ctx, x, w, w_t, out):
+        ctx.save_for_backward(x if w.requires_grad else None, w_t)
+        return F.linear(x, w) if out is None else out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_t = ctx.saved_tensors
+        dy2 = dy.reshape(-1, dy.shape[-1])
+        dx = F.linear(dy, w_t) if ctx.needs_input_grad[0] else None
+        dw = dy2.t().mm(x.reshape(-1, x.shape[-1])) if ctx.needs_input_grad[1] else None
+        return dx, dw, None, None
 
 
 class DenseGeneralLora(nn.Module):
@@ -82,6 +108,13 @@ class DenseGeneralLora(nn.Module):
     ``ops.quant.SharedActQuant`` of this input, which the denses over one
     input share, asked only if the base product is computed.
 
+    ``pretranspose_bwd`` (a plain base only, the reference's
+    ``shard.bwd_pretranspose``): the frozen base keeps ``kernel_t`` (K, F), a
+    stored ``weight.T``, whose backward dx product contracts it
+    (``_PretransposedLinear``). It is derived, never loaded (not in the
+    state dict): ``refresh_pretransposed`` writes it, after the base is
+    loaded and split.
+
     Tensor parallelism (``tp``, set by ``parallel.tensor_parallel.split_dense``):
     a ``column`` shard holds F / tp output features (``lora_b`` split, ``lora_a``
     whole, its rank-r intermediate through ``copy_to_tp``) and takes x whole;
@@ -96,11 +129,14 @@ class DenseGeneralLora(nn.Module):
         self, in_features: int, features: int, *, use_bias: bool = False,
         dtype: torch.dtype = torch.bfloat16, param_dtype: torch.dtype = torch.float32,
         frozen_base: bool = True, lora_rank: int = 0, lora_alpha: float = 32.0,
-        lora_dropout: float = 0.0, quant: str = "none", quant_bwd: str = "bf16", device=None,
+        lora_dropout: float = 0.0, quant: str = "none", quant_bwd: str = "bf16", pretranspose_bwd: bool = False,
+        device=None,
     ):
         super().__init__()
         if quant not in ("none", "int8"):
             raise ValueError(f"unknown quant {quant!r}")
+        if quant == "int8" and pretranspose_bwd:
+            raise ValueError("quant='int8' and pretranspose_bwd are exclusive")
         self.in_features, self.features = in_features, features
         self.dtype, self.quant, self.quant_bwd = dtype, quant, quant_bwd
         self.lora_rank, self.lora_alpha, self.lora_dropout = lora_rank, lora_alpha, lora_dropout
@@ -129,6 +165,9 @@ class DenseGeneralLora(nn.Module):
             self.weight = nn.Parameter(
                 torch.zeros(features, in_features, dtype=base_dtype, device=device), requires_grad=False
             )
+            if pretranspose_bwd:
+                self.register_buffer("kernel_t", torch.zeros(in_features, features, dtype=base_dtype, device=device),
+                                     persistent=False)
         self.bias = (
             nn.Parameter(torch.zeros(features, dtype=base_dtype, device=device), requires_grad=False)
             if use_bias else None
@@ -148,13 +187,15 @@ class DenseGeneralLora(nn.Module):
                             w_rot=(int8_of(self.kernel_qr), self.kernel_scale_r) if self.quant_bwd == "int8_rot" else None,
                             w_t=int8_of(getattr(self, "kernel_qt", None)), out=out, pre_quant=pre_quant, tp=tp)
         w = self.weight.to(self.dtype)
+        w_t = getattr(self, "kernel_t", None)
+        w_t = None if w_t is None else w_t.to(self.dtype)
         if tp is None:
-            return linear(h, w, out)
+            return linear(h, w, out, w_t)
         if tp.role == "column":
-            return linear(copy_to_tp(h, tp), w, out)
+            return linear(copy_to_tp(h, tp), w, out, w_t)
         # row: the partial sums reduced; a replay that holds the value skips
         # the reduction, whose backward is the identity
-        return linear(h, w, out) if out is not None else reduce_from_tp(linear(h, w), tp)
+        return linear(h, w, out, w_t) if out is not None else reduce_from_tp(linear(h, w, None, w_t), tp)
 
     def forward(self, x: torch.Tensor, tape: Optional[Tape] = None, site: Optional[str] = None,
                 pre_quant: Optional[SharedActQuant] = None) -> torch.Tensor:
@@ -204,6 +245,19 @@ class DenseGeneralLora(nn.Module):
         if lazy and site not in DEAD_SITES:
             tape.put(self, site, y)
         return y
+
+
+@torch.no_grad()
+def refresh_pretransposed(model: nn.Module) -> nn.Module:
+    """Rewrite every dense's ``kernel_t`` as the transpose of its own
+    ``weight`` (a tp rank's: the transpose of its shard), in the weight's
+    dtype and device. It runs whenever the weights may have changed (init,
+    loaders, the tp split): a stale copy would make the backward silently
+    wrong (the reference's ``refresh_pretransposed``)."""
+    for mod in model.modules():
+        if isinstance(mod, DenseGeneralLora) and getattr(mod, "kernel_t", None) is not None:
+            mod.kernel_t = mod.weight.detach().t().contiguous()
+    return model
 
 
 def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], tp=None) -> torch.Tensor:

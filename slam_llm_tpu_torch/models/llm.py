@@ -95,6 +95,10 @@ class LLMConfig:
     # dx mode of the int8 denses: bf16 | int8_rot | int8_rot_otf | int8_sr | int8 | <mode>_mlp (ops/quant.py)
     base_quant_bwd: str = "bf16"
     ce_quant: str = "none"  # none | int8 | int8_sr: the int8 head of the fused CE (frozen head)
+    # the frozen decoder denses keep a stored transpose that their backward
+    # dx product contracts (layers._PretransposedLinear); exclusive with the
+    # int8 base; the trainer refuses it for an LLM that trains
+    bwd_pretranspose: bool = False
     remat: bool = True  # checkpoint each decoder layer on the training path
     remat_policy: str = "dots_flash_saveable"  # models.remat.POLICIES
     ce_chunk: int = 64  # fused-CE time chunk
@@ -214,7 +218,7 @@ def _dense(c: LLMConfig, name: str, fin: int, fout: int, use_bias: bool, device)
         fin, fout, use_bias=use_bias, dtype=c.dtype,
         lora_rank=c.lora_rank if name in c.lora_targets else 0, lora_alpha=c.lora_alpha,
         lora_dropout=c.lora_dropout, quant=c.base_quant, quant_bwd=resolve_bwd(c.base_quant_bwd, name),
-        device=device,
+        pretranspose_bwd=c.bwd_pretranspose, device=device,
     )
 
 

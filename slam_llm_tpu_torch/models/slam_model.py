@@ -248,10 +248,9 @@ def build_slam_config(train_config, model_config) -> SLAMConfig:
         else:
             raise ValueError(f"unknown peft_method: {method}")
     shard = tc.shard
-    if getattr(shard, "bwd_pretranspose", False):
-        raise NotImplementedError("shard.bwd_pretranspose is not ported yet (ROADMAP Queue 1)")
     llm_cfg = dataclasses.replace(
         llm_cfg,
+        bwd_pretranspose=getattr(shard, "bwd_pretranspose", False),
         base_quant=getattr(shard, "base_quant", "none"),
         base_quant_bwd=getattr(shard, "base_quant_bwd", "bf16"),
         ce_quant=getattr(shard, "ce_quant", "none"),

@@ -23,7 +23,9 @@ axes:
   root. The int8 base (``kernel_q`` / ``kernel_scale`` and the derived
   ``int8_rot`` / ``int8_sr`` tensors, the ``ce_quant`` head) becomes frozen
   parameters first (the int8 ones carried in a one-byte float dtype), so
-  FSDP2 shards it as the reference's ``embed`` axis does. Gradients are summed, not averaged, over the ranks: each rank's
+  FSDP2 shards it as the reference's ``embed`` axis does; so does
+  ``bwd_pretranspose``'s ``kernel_t``, derived from the rank's own shard
+  after the tp split, as the reference shards it by its reversed axes. Gradients are summed, not averaged, over the ranks: each rank's
   loss is already its share of the global mean (``token_count``).
 * ``shard_batch`` keeps rank ``r``'s rows ``[r B/n, (r+1) B/n)`` of the
   global batch, ``n = dp * fsdp``, ``r`` the data rank: the tp ranks of one
@@ -164,13 +166,15 @@ def layer_units(model: nn.Module) -> List[nn.Module]:
     return units + list(getattr(model, "tts_adapter_blocks", ()))
 
 
-def int8_base_as_parameters(model: nn.Module) -> None:
-    """Re-register the int8 base's buffers (``INT8_BASE_TENSORS``) as frozen
-    parameters, in place, so FSDP2 shards them on dim 0; the int8 ones as
-    ``INT8_CARRIER`` views of the same bytes. Derive them
-    (``ops.quant.quantize_base_params``) first."""
+def derived_as_parameters(model: nn.Module) -> None:
+    """Re-register the derived frozen buffers (the int8 base's
+    ``INT8_BASE_TENSORS`` and ``bwd_pretranspose``'s ``kernel_t``) as frozen
+    parameters, in place, so FSDP2 shards them on dim 0 in their dense's
+    unit; the int8 ones as ``INT8_CARRIER`` views of the same bytes. Derive
+    them (``ops.quant.quantize_base_params``,
+    ``models.layers.refresh_pretransposed``) first."""
     for mod in model.modules():
-        for name in INT8_BASE_TENSORS:
+        for name in (*INT8_BASE_TENSORS, "kernel_t"):
             t = mod._buffers.get(name)
             if t is None:
                 continue
@@ -183,13 +187,16 @@ def int8_base_as_parameters(model: nn.Module) -> None:
 def shard_params(model: nn.Module, mesh) -> nn.Module:
     """Split the model over ``tp`` (``split_for_tp``, after
     ``quantize_base_params``: the int8 base is quantized whole, then
-    split), then ``fully_shard`` each
+    split), derive ``kernel_t`` from each rank's shard, then ``fully_shard`` each
     layer unit and the root over the ``("dp", "fsdp")`` sub-mesh; gradients
     are summed over the data ranks. A tp mesh with one data rank takes no
     FSDP2: it would shard nothing, and its hooks cost host time a step."""
     from torch.distributed.fsdp import FSDPModule, fully_shard
 
+    from slam_llm_tpu_torch.models.layers import refresh_pretransposed  # models import this package
+
     split = split_for_tp(model, mesh)
+    refresh_pretransposed(model)  # the transpose of this rank's shard
     if split:
         logging.getLogger("slam_llm_tpu_torch").info(
             "tensor parallel tp=%d: split %s; replicated %s", mesh["tp"].size(),
@@ -197,7 +204,7 @@ def shard_params(model: nn.Module, mesh) -> nn.Module:
         if data_size(mesh) == 1:
             return model
     data_mesh = mesh["dp", "fsdp"]
-    int8_base_as_parameters(model)
+    derived_as_parameters(model)
     for unit in layer_units(model):
         fully_shard(unit, mesh=data_mesh)
     fully_shard(model, mesh=data_mesh)

@@ -401,7 +401,8 @@ def _wavlm_parts(encoder: nn.Module):
     from slam_llm_tpu_torch.models.beats import BEATsEncoder
 
     if isinstance(encoder, BEATsEncoder):
-        return encoder.cfg.layer_cfg(), encoder.transformer.layers, encoder.transformer
+        lc = encoder.cfg.layer_cfg()
+        return lc, encoder.transformer.layers, encoder.transformer if lc.rel_bias else None
     lc = encoder.cfg if hasattr(encoder.cfg, "rel_bias") else encoder.cfg.layer_cfg()
     return lc, encoder.layers, encoder if lc.rel_bias else None
 

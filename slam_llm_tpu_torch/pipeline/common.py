@@ -31,6 +31,7 @@ from torch import nn
 
 from slam_llm_tpu_torch.config import RunConfig
 from slam_llm_tpu_torch.models.beats import BEATsTransformer
+from slam_llm_tpu_torch.models.beats_tokenizer import BEATsTokenizer, l2norm
 from slam_llm_tpu_torch.models.layers import DenseGeneralLora
 from slam_llm_tpu_torch.models.llm import Attention
 from slam_llm_tpu_torch.models.projector import ProjectorQFormer
@@ -149,9 +150,10 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     zero, embeddings and the Q-Former's queries standard normal, WavLM's
     and BEATs' relative-position tables and EAT's CLS token normal with std
     0.02, norms (BERT's ``nn.LayerNorm``s included; WavLM's gate constants)
-    1 / 0. An int8 base is the quantization of such a kernel. VALL-E X's
-    embeddings are normal with std 0.02; prefix-tuning's slots and
-    llama-adapter's prompt too, its gate 0."""
+    1 / 0, the BEATs tokenizer's codebook standard normal rows
+    l2-normalized. An int8 base is the quantization of such a kernel.
+    VALL-E X's embeddings are normal with std 0.02; prefix-tuning's slots
+    and llama-adapter's prompt too, its gate 0."""
 
     def normal(shape, std):
         return torch.randn(shape, generator=generator, device=generator.device) * std
@@ -198,6 +200,8 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.rel_attn_embed.copy_(normal(mod.rel_attn_embed.shape, 0.02))
         elif isinstance(mod, ViTEncoder):
             mod.cls_token.copy_(normal(mod.cls_token.shape, 0.02))
+        elif isinstance(mod, BEATsTokenizer):
+            mod.codebook.copy_(l2norm(normal(mod.codebook.shape, 1.0)))
     return model
 
 

@@ -5,14 +5,14 @@ recipes; recipes inject their model factory and dataset factory through
 config strings (reference utils/dataset_utils.py:14-46,
 utils/model_utils.py:4-29). The model factory defaults to the port's own
 ``model_factory`` and the dataset factory to the port's speech dataset or,
-by ``dataset_config.dataset``, one of its in-tree datasets (``DATASETS``);
-the JAX package's other in-tree datasets are not ported yet.
+by ``dataset_config.dataset``, one of its in-tree datasets (``DATASETS``,
+every in-tree dataset of the JAX package).
 
 A recipe may name a JAX module in its spec (``vsr_avhubert_vicuna.yaml``'s
 ``slam_llm_tpu.data.avhubert_dataset:get_avhubert_dataset``). The port never
 imports the JAX package: such a spec resolves to the port's module of the
 same path under ``slam_llm_tpu_torch``, and raises ``NotImplementedError``
-where the port has none yet. A recipe's model file that imports the JAX
+where the port has none. A recipe's model file that imports the JAX
 package (``examples/s2s/model/slam_model_s2s.py``) is never executed: its
 spec resolves, through the explicit ``PORTED_FILE_SPECS`` table, to the
 port's copy of its factory.
@@ -26,9 +26,6 @@ import sys
 from pathlib import Path
 from typing import Any, Callable, Optional
 
-# the JAX package's in-tree datasets the port does not carry yet (ROADMAP.md
-# Queue 1: each comes with the recipe that reads it)
-UNPORTED_DATASETS = ("text_dataset",)
 # dataset_config.dataset -> (module, factory) of the port's in-tree datasets
 DATASETS = {
     "speech_dataset": ("slam_llm_tpu_torch.data.speech_dataset", "get_speech_dataset"),
@@ -40,6 +37,7 @@ DATASETS = {
     "speech_dataset_large": ("slam_llm_tpu_torch.data.speech_dataset_large", "get_speech_dataset_large"),
     "s2s_dataset": ("slam_llm_tpu_torch.data.s2s_dataset", "get_s2s_dataset"),
     "vallex_dataset": ("slam_llm_tpu_torch.data.vallex_dataset", "get_vallex_dataset"),
+    "text_dataset": ("slam_llm_tpu_torch.data.text_dataset", "get_text_dataset"),
 }
 # recipe files whose factories import the JAX package: the spec resolves to
 # the port's own copy of the factory, and the file is never executed
@@ -113,8 +111,7 @@ def resolve_factory(spec: str, default_name: str = "factory") -> Callable[..., A
     else:
         ported = port_module_name(target)
         if ported != target and not _has_module(ported):
-            raise NotImplementedError(f"{target} is not ported to slam_llm_tpu_torch yet (ROADMAP.md Queue 1: it "
-                                      "comes with the recipe that reads it)")
+            raise NotImplementedError(f"{target} is not ported: slam_llm_tpu_torch has no module {ported}")
         module = importlib.import_module(ported)
     try:
         return getattr(module, func_name)
@@ -134,15 +131,10 @@ def get_custom_model_factory(model_config) -> Callable[..., Any]:
 def get_custom_dataset_factory(dataset_config) -> Callable[..., Any]:
     """A ``dataset_config.file`` spec, else the in-tree dataset named by
     ``dataset_config.dataset`` (``DATASETS``; an unknown name takes the
-    speech dataset, as in the reference), or a raise for the datasets not
-    ported yet."""
+    speech dataset, as in the reference)."""
     spec: Optional[str] = getattr(dataset_config, "file", None)
     if spec:
         return resolve_factory(spec, default_name="get_speech_dataset")
     name = getattr(dataset_config, "dataset", "speech_dataset")
-    if name in UNPORTED_DATASETS:
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported to slam_llm_tpu_torch yet (ROADMAP.md Queue 1: it comes with the "
-            "recipe that reads it)")
     module, factory = DATASETS.get(name, DATASETS["speech_dataset"])
     return getattr(importlib.import_module(module), factory)

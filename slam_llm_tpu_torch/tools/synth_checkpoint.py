@@ -110,7 +110,7 @@ from typing import Dict, Iterable
 import numpy as np
 import torch
 
-from slam_llm_tpu_torch.data.tokenizer import BYTE_TO_UNICODE, QWEN2_SPLIT, split_qwen2
+from slam_llm_tpu_torch.data.tokenizer import BYTE_TO_UNICODE, QWEN2_SPLIT, split_pretokens
 from slam_llm_tpu_torch.models.layers import sinusoidal_positions
 from slam_llm_tpu_torch.utils.safetensors_io import save_file
 
@@ -237,7 +237,7 @@ def write_qwen2_tokenizer(out_dir: str, vocab_size: int = QWEN2_BPE, seed: int =
     # greedy BPE over the corpus: the most frequent adjacent pair (the first
     # seen of equal counts) merges next, while a pair occurs twice or more
     words = Counter("".join(BYTE_TO_UNICODE[b] for b in w.encode("utf-8"))
-                    for text in corpus for w in split_qwen2(unicodedata.normalize("NFC", text)))
+                    for text in corpus for w in split_pretokens(unicodedata.normalize("NFC", text), 1))
     seqs = {w: list(w) for w in words}
     while len(vocab) < vocab_size:
         pairs: Counter = Counter()

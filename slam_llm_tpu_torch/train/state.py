@@ -9,6 +9,8 @@ reference's does:
 * the int8 base gets its backward buffers derived, never trusted (the
   ``int8_rot`` pair, the ``int8_sr`` / ``int8`` transpose), and a
   ``ce_quant`` model its int8 CE head (``ops.quant.quantize_base_params``);
+  a ``bwd_pretranspose`` model its ``kernel_t`` copies
+  (``models.layers.refresh_pretransposed``, from each tp rank's own shard);
 * ``requires_grad`` follows ``train.optimizer.param_label`` (an S2S model's
   ``train_audio_embed_only`` also masks the head's updates to the audio
   vocabulary, ``train.optimizer.partial_embed_grad_mask``); trainable
@@ -60,6 +62,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from slam_llm_tpu_torch.models.layers import refresh_pretransposed
 from slam_llm_tpu_torch.ops.quant import SR_MODES, quantize_base_params
 from slam_llm_tpu_torch.parallel.sharding import (
     ShardLayout,
@@ -128,6 +131,11 @@ class Trainer:
                 "llm.base_quant requires freeze_llm: the int8 dot's weight gradient is zero by "
                 "construction, so training the base through it would silently not train"
             )
+        if getattr(llm, "bwd_pretranspose", False) and not cfg.freeze_llm:
+            raise ValueError(
+                "llm.bwd_pretranspose requires freeze_llm: training the base "
+                "kernels would silently desynchronize their kernel_t copies"
+            )
         self.trainable, self.frozen = partition_params(model, cfg)
         for p in self.trainable.values():
             p.data = p.data.float()
@@ -140,7 +148,9 @@ class Trainer:
         for mod in model.modules():
             if getattr(mod, "lora_dropout", 0.0) > 0:
                 mod.generator = self.dropout_generator
-        if self.mesh is not None:
+        if self.mesh is None:
+            refresh_pretransposed(model)
+        else:  # derives kernel_t after the tp split
             shard_params(model, self.mesh)
             self.trainable = {n: p for n, p in model.named_parameters() if p.requires_grad}
             self.frozen = {n: p for n, p in model.named_parameters() if not p.requires_grad}

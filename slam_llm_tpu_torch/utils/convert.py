@@ -23,8 +23,16 @@ nested dicts of numpy arrays, onto this package's ``state_dict`` names:
   BatchNorm leaves ``scale`` / ``mean`` / ``var`` become ``weight`` /
   ``running_mean`` / ``running_var``;
 * the backward-only ``kernel_qr`` / ``kernel_scale_r`` and ``kernel_t`` are
-  dropped: the port derives its ``int8_rot`` pair itself
-  (``ops.quant.quantize_base_params``).
+  dropped: the port derives its ``int8_rot`` pair
+  (``ops.quant.quantize_base_params``) and ``bwd_pretranspose``'s
+  ``kernel_t`` (``models.layers.refresh_pretransposed``) itself.
+
+A text-only model's tree (``encoder_name: null``: the ``llm`` alone; the
+JAX init never reaches the projector) maps by the same rules, and loads
+with ``strict=False`` leaving the port's projector as it is.
+``flax_to_state_dict`` carries a ``BEATsTokenizer`` tree (``trunk``,
+``quantize_in`` / ``quantize_out``, ``codebook``) onto
+``models.beats_tokenizer.BEATsTokenizer``.
 
 An S2S model's tree maps by the same rules: the full-vocabulary
 ``llm.embed_tokens``, the narrow ``llm.lm_head`` (``head_size``),

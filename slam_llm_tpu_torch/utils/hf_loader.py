@@ -23,7 +23,8 @@ onto one ``state_dict`` name, with no stack, transpose or second copy:
   torch file of ``hubert`` to ``models.wavlm.convert_hubert_fairseq``, of
   ``eat`` to ``models.vit.convert_eat_fairseq``, of ``beats`` to
   ``models.beats.convert_beats``, of ``spatial_ast`` to
-  ``models.spatial_ast.convert_spatialast_torch``, of ``clap`` to
+  ``models.spatial_ast.convert_spatialast_torch``, of ``beats_tokenizer``
+  to ``models.beats_tokenizer.convert_beats_tokenizer``, of ``clap`` to
   ``models.clap.convert_ase_torch_state`` and of ``av_hubert`` to
   ``models.avhubert.convert_avhubert_fairseq``;
 * ``overlay_`` copies each tensor into the model's tensor of that name, one
@@ -47,6 +48,7 @@ from torch import nn
 
 from slam_llm_tpu_torch.models.avhubert import convert_avhubert_fairseq
 from slam_llm_tpu_torch.models.beats import convert_beats
+from slam_llm_tpu_torch.models.beats_tokenizer import convert_beats_tokenizer
 from slam_llm_tpu_torch.models.bert import convert_bert_torch_state
 from slam_llm_tpu_torch.models.clap import convert_ase_torch_state
 from slam_llm_tpu_torch.models.spatial_ast import convert_spatialast_torch
@@ -54,8 +56,6 @@ from slam_llm_tpu_torch.models.vit import convert_eat_fairseq
 from slam_llm_tpu_torch.models.wavlm import convert_hubert_fairseq, convert_wavlm
 from slam_llm_tpu_torch.ops.quant import quantize_int8
 from slam_llm_tpu_torch.utils.safetensors_io import load_file, torch_load_file
-
-_TODO_ENCODERS = "ROADMAP Queue 1: beats_tokenizer comes with a recipe that reads it"
 
 
 def load_hf_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -120,12 +120,10 @@ def convert_whisper_encoder(sd: Dict[str, torch.Tensor], enc_cfg) -> Dict[str, t
     return out
 
 
-# the file-checkpoint families of the reference's dispatcher that the port has not taken yet
-_UNPORTED_FILE_ENCODERS = ("beats_tokenizer",)
 # the file-checkpoint families the port converts, by encoder_name
 _FILE_CONVERTERS = {"hubert": convert_hubert_fairseq, "eat": convert_eat_fairseq, "beats": convert_beats,
-                    "spatial_ast": convert_spatialast_torch, "clap": convert_ase_torch_state,
-                    "av_hubert": convert_avhubert_fairseq}
+                    "beats_tokenizer": convert_beats_tokenizer, "spatial_ast": convert_spatialast_torch,
+                    "clap": convert_ase_torch_state, "av_hubert": convert_avhubert_fairseq}
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
@@ -150,12 +148,12 @@ def convert_encoder_checkpoint(encoder_path: str, encoder_name: str, enc_cfg) ->
     the reference's: an HF directory serves whisper, wavlm, hubert and
     hf-text (an HF ``BertModel``, any wrapper prefix); a torch file serves
     hubert (fairseq's schema), eat (data2vec2's), beats (the official
-    BEATs checkpoint), spatial_ast (BAT's), clap (an ASE checkpoint) and
-    av_hubert (fairseq's, its BatchNorms folded). Any
-    other directory raises
-    ``ValueError``, as in the reference (which has no directory converter
-    for them, emotion2vec included); a file of a family the reference loads
-    and the port does not yet raises ``NotImplementedError``."""
+    BEATs checkpoint), beats_tokenizer (the official BEATs tokenizer's, into
+    ``models.beats_tokenizer.BEATsTokenizer``; ``enc_cfg`` its
+    ``BEATsTokenizerConfig``), spatial_ast (BAT's), clap (an ASE checkpoint)
+    and av_hubert (fairseq's, its BatchNorms folded). Any other directory
+    raises ``ValueError``, as in the reference (which has no directory
+    converter for them, emotion2vec included)."""
     if os.path.isdir(encoder_path):
         if encoder_name == "whisper":
             return convert_whisper_encoder(load_hf_state_dict(encoder_path), enc_cfg)
@@ -174,11 +172,9 @@ def convert_encoder_checkpoint(encoder_path: str, encoder_name: str, enc_cfg) ->
         )
     if encoder_name in _FILE_CONVERTERS:
         return _FILE_CONVERTERS[encoder_name](load_torch_checkpoint(encoder_path), enc_cfg)
-    if encoder_name in _UNPORTED_FILE_ENCODERS:
-        raise NotImplementedError(f"loading a {encoder_name!r} encoder checkpoint is not ported yet ({_TODO_ENCODERS})")
     raise ValueError(f"no file-checkpoint converter for encoder {encoder_name!r} ({encoder_path!r}); whisper, wavlm, "
-                     "hubert and hf-text load HF directories; hubert, eat, beats, spatial_ast, clap and av_hubert torch "
-                     "files")
+                     "hubert and hf-text load HF directories; hubert, eat, beats, beats_tokenizer, spatial_ast, clap "
+                     "and av_hubert torch files")
 
 
 @torch.no_grad()

@@ -229,7 +229,9 @@ def test_registry_resolves_the_vsr_dataset():
     assert get_custom_dataset_factory(cfg) is tds_mod.get_avhubert_dataset
     cfg.file = "slam_llm_tpu.data.avhubert_dataset:get_avhubert_dataset"
     assert get_custom_dataset_factory(cfg) is tds_mod.get_avhubert_dataset
-    cfg.file = "slam_llm_tpu.data.text_dataset:get_text_dataset"  # a module the port does not carry yet
+    cfg.file = "slam_llm_tpu.data.text_dataset:get_text_dataset"
+    assert get_custom_dataset_factory(cfg).__module__ == "slam_llm_tpu_torch.data.text_dataset"
+    cfg.file = "slam_llm_tpu.data.no_such_dataset:get_it"  # a module the port does not carry
     with pytest.raises(NotImplementedError, match="not ported"):
         get_custom_dataset_factory(cfg)
 

@@ -18,11 +18,12 @@ import numpy as np
 import pytest
 
 from slam_llm_tpu_torch.data.tokenizer import (
+    LLAMA3_SPLIT,
     QWEN2_SPLIT,
     ByteLevelTokenizer,
     LlamaTokenizer,
     load_tokenizer,
-    split_qwen2,
+    split_pretokens,
 )
 
 REPO = Path(__file__).resolve().parent.parent
@@ -147,12 +148,13 @@ def test_any_ids_decode_as_tokenizers_decodes_them(trained):
 
 
 def test_the_split_scanner_matches_the_regex(trained):
-    """``split_qwen2`` against ``tokenizers``' own Split pre-tokenizer."""
+    """``split_pretokens`` with qwen2's digits against ``tokenizers``' own
+    Split pre-tokenizer."""
     from tokenizers import Regex, pre_tokenizers
 
     split = pre_tokenizers.Split(Regex(QWEN2_SPLIT), behavior="isolated", invert=False)
     for s in STRINGS:
-        assert split_qwen2(s) == [p for p, _ in split.pre_tokenize_str(s)], s
+        assert split_pretokens(s, 1) == [p for p, _ in split.pre_tokenize_str(s)], s
 
 
 def test_synthetic_qwen2_tokenizer_matches_autotokenizer(tmp_path):
@@ -177,20 +179,127 @@ def test_synthetic_qwen2_tokenizer_matches_autotokenizer(tmp_path):
 
 
 def test_other_byte_level_tokenizers_raise(trained, tmp_path):
-    """Llama-3's pattern (``\\p{N}{1,3}``), GPT-2's regex inside ByteLevel, and
-    a ByteLevel file handed to the Llama reader all raise."""
+    """A Split pattern other than qwen2's and Llama-3's (digits in runs of up
+    to two), GPT-2's regex inside ByteLevel, a post-processor other than
+    ByteLevel + TemplateProcessing, and a ByteLevel file handed to the Llama
+    reader all raise."""
     tok, _ = trained
     spec = json.loads(tok.to_str())
-    llama3 = json.loads(json.dumps(spec))
-    llama3["pre_tokenizer"]["pretokenizers"][0]["pattern"]["Regex"] = QWEN2_SPLIT.replace(r"\p{N}|", r"\p{N}{1,3}|")
+    other = json.loads(json.dumps(spec))
+    other["pre_tokenizer"]["pretokenizers"][0]["pattern"]["Regex"] = QWEN2_SPLIT.replace(r"\p{N}|", r"\p{N}{1,2}|")
     with pytest.raises(NotImplementedError, match="Split"):
-        ByteLevelTokenizer(llama3)
+        ByteLevelTokenizer(other)
+    bert = json.loads(json.dumps(spec))
+    bert["post_processor"] = {"type": "BertProcessing", "sep": ["[SEP]", 0], "cls": ["[CLS]", 1]}
+    with pytest.raises(NotImplementedError, match="post-processors"):
+        ByteLevelTokenizer(bert)
     gpt2 = json.loads(json.dumps(spec))
     gpt2["pre_tokenizer"] = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True, "use_regex": True}
     with pytest.raises(NotImplementedError, match="pre-tokenizers"):
         ByteLevelTokenizer(gpt2)
     with pytest.raises(NotImplementedError, match="ByteLevelTokenizer"):
         LlamaTokenizer(spec)
+
+
+# ---------------------------------------------------------------------------
+# Llama-3's tokenizer.json
+# ---------------------------------------------------------------------------
+
+LLAMA3_SPECIALS = ["<|begin_of_text|>", "<|end_of_text|>", "<|start_header_id|>", "<|end_header_id|>", "<|eot_id|>"]
+UNMERGED = "zqxjkv"
+DIGITS = ["1", "12", "123", "1234", "12345", "123456", "1234567", "x1234567y 89 0.5 2024-10-18 ٣٤٥٦ ²³⁴⁵",
+          "a1b22c333d4444"]
+
+
+@pytest.fixture(scope="module")
+def llama3(tmp_path_factory):
+    """A synthetic Llama-3 ``tokenizer.json``, as Meta's is laid out: a BPE
+    trained by ``tokenizers`` with Llama-3's Split (``\\p{N}{1,3}``,
+    Isolated) and ByteLevel pre-tokenizers, ``ignore_merges``, the
+    ByteLevel + TemplateProcessing post-processor (``<|begin_of_text|>``
+    first), the ByteLevel decoder and ``tokenizer_config.json``'s
+    ``PreTrainedTokenizerFast`` with ``clean_up_tokenization_spaces``:
+    (the JAX package's tokenizer, the port's, the directory)."""
+    from tokenizers import Regex, Tokenizer, decoders, models, pre_tokenizers, processors, trainers
+
+    from slam_llm_tpu.data.tokenizer import load_tokenizer as j_load_tokenizer
+
+    tok = Tokenizer(models.BPE())
+    tok.pre_tokenizer = pre_tokenizers.Sequence([
+        pre_tokenizers.Split(Regex(LLAMA3_SPLIT), behavior="isolated", invert=False),
+        pre_tokenizers.ByteLevel(add_prefix_space=False, trim_offsets=True, use_regex=False),
+    ])
+    tok.decoder = decoders.ByteLevel(add_prefix_space=True, trim_offsets=True, use_regex=True)
+    trainer = trainers.BpeTrainer(vocab_size=1500, special_tokens=LLAMA3_SPECIALS, show_progress=False,
+                                  initial_alphabet=pre_tokenizers.ByteLevel.alphabet())
+    tok.train_from_iterator(CORPUS + DIGITS * 4, trainer)
+    bos = tok.token_to_id(LLAMA3_SPECIALS[0])
+    tok.post_processor = processors.Sequence([
+        processors.ByteLevel(add_prefix_space=True, trim_offsets=False, use_regex=True),
+        processors.TemplateProcessing(single=f"{LLAMA3_SPECIALS[0]} $A", pair=f"{LLAMA3_SPECIALS[0]} $A $B",
+                                      special_tokens=[(LLAMA3_SPECIALS[0], bos)]),
+    ])
+    spec = json.loads(tok.to_str())
+    spec["model"]["ignore_merges"] = True
+    vocab = spec["model"]["vocab"]
+    vocab[UNMERGED] = max(vocab.values()) + 1  # an entry no merge builds: only ignore_merges reaches it
+    d = tmp_path_factory.mktemp("llama3")
+    (d / "tokenizer.json").write_text(json.dumps(spec, ensure_ascii=False), encoding="utf-8")
+    (d / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast", "bos_token": LLAMA3_SPECIALS[0], "eos_token": LLAMA3_SPECIALS[1],
+        "clean_up_tokenization_spaces": True, "model_max_length": 131072}))
+    port = load_tokenizer(str(d))
+    assert isinstance(port, ByteLevelTokenizer) and port.ignore_merges and port.digits == 3
+    return j_load_tokenizer(str(d)), port, d
+
+
+def test_llama3_split_scanner_matches_the_regex():
+    """``split_pretokens(.., 3)`` against ``tokenizers``' own Split with
+    Llama-3's pattern, digit runs of 1-7 included."""
+    from tokenizers import Regex, pre_tokenizers
+
+    split = pre_tokenizers.Split(Regex(LLAMA3_SPLIT), behavior="isolated", invert=False)
+    for s in STRINGS + DIGITS:
+        assert split_pretokens(s, 3) == [p for p, _ in split.pre_tokenize_str(s)], s
+    assert split_pretokens("1234567", 3) == ["123", "456", "7"]
+
+
+def test_llama3_ids_and_text_match_the_jax_tokenizer(llama3):
+    """Encode (``<|begin_of_text|>`` first; ``add_bos=False`` drops it) and
+    decode (special tokens kept or skipped, the clean-up applied) equal the
+    JAX package's ``load_tokenizer`` (``AutoTokenizer``) on every string,
+    digits in runs of 1-7 included; bos / eos / pad and the vocabulary
+    size too."""
+    jtok, port, _ = llama3
+    assert (port.bos_token_id, port.eos_token_id, port.pad_token_id, port.vocab_size) == (
+        jtok.bos_token_id, jtok.eos_token_id, jtok.pad_token_id, jtok.vocab_size)
+    for s in STRINGS + DIGITS + ["<|begin_of_text|>hi<|eot_id|>", "<|start_header_id|>user<|end_header_id|>\n\n9",
+                                 UNMERGED, f"say {UNMERGED}{UNMERGED} 1234567"]:
+        ids = jtok.encode(s)
+        assert port.encode(s) == ids, s
+        assert ids[0] == port.bos_token_id and port.encode(s, add_bos=False) == ids[1:], s
+        for skip in (True, False):
+            assert port.decode(ids, skip_special_tokens=skip) == jtok.decode(ids, skip_special_tokens=skip), s
+
+
+def test_llama3_ignore_merges_takes_whole_vocabulary_entries(llama3):
+    """With ``ignore_merges`` a piece that is a vocabulary entry is that
+    entry, as ``tokenizers``' own model reads the file; ``UNMERGED``, which
+    no merge builds, is one id only because of it."""
+    from tokenizers import Tokenizer
+
+    _, port, d = llama3
+    words = [w for w in port.vocab if len(w) > 2 and w.isascii() and w.isalpha()][:200]
+    assert words
+    spec = json.loads((d / "tokenizer.json").read_text(encoding="utf-8"))
+    raw = Tokenizer.from_str(json.dumps({**spec, "post_processor": None}))
+    for w in words + [UNMERGED]:
+        assert port.encode(w, add_bos=False) == raw.encode(w).ids == [port.vocab[w]], w
+    port.ignore_merges = False
+    try:
+        assert len(port.encode(UNMERGED, add_bos=False)) > 1
+    finally:
+        port.ignore_merges = True
 
 
 # ---------------------------------------------------------------------------

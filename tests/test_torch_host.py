@@ -207,11 +207,15 @@ def test_registry_resolves_like_the_reference_and_names_the_unported(tmp_path):
     assert jregistry.resolve_factory(f"{recipe}:get_speech_dataset")(None, None, "x") == ("custom", "x")
     cfg.file = None
     assert tregistry.get_custom_dataset_factory(cfg) is tspeech.get_speech_dataset
-    for name in tregistry.UNPORTED_DATASETS:
+    # every in-tree dataset of the JAX package is the port's module of the same path
+    for name, (module, factory) in tregistry.DATASETS.items():
         cfg.dataset = name
-        assert jregistry.get_custom_dataset_factory(cfg) is not jspeech.get_speech_dataset
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            tregistry.get_custom_dataset_factory(cfg)
+        jfactory = jregistry.get_custom_dataset_factory(cfg)
+        assert module == tregistry.port_module_name(jfactory.__module__) and factory == jfactory.__name__, name
+        assert tregistry.get_custom_dataset_factory(cfg).__module__ == module
+    cfg.dataset, cfg.file = None, "slam_llm_tpu.data.no_such_dataset:get_it"  # a JAX path the port has no module for
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tregistry.get_custom_dataset_factory(cfg)
     assert tregistry.resolve_factory("slam_llm_tpu_torch.data.tokenizer:load_tokenizer") is ttok.load_tokenizer
 
 

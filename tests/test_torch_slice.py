@@ -243,10 +243,22 @@ def test_unported_parts_raise(tmp_path):
         assert getattr(sc.llm, key) == val
         names = {n.rsplit(".", 1)[-1] for n, _ in tslam.SLAMModel(sc).named_buffers()}
         assert (buffer in names) if buffer else not names & {"kernel_qr", "kernel_qt", "head_qt"}
-    for shard, err in (({"base_quant_bwd": "int4"}, ValueError), ({"bwd_pretranspose": True}, NotImplementedError)):
-        tc = dataclasses.replace(cfg.train_config, shard=dataclasses.replace(cfg.train_config.shard, **shard))
-        with pytest.raises(err, match="base_quant_bwd|ROADMAP Queue 1"):
-            tslam.build_slam_config(tc, cfg.model_config)
+    tc = dataclasses.replace(cfg.train_config, shard=dataclasses.replace(cfg.train_config.shard, base_quant_bwd="int4"))
+    with pytest.raises(ValueError, match="base_quant_bwd"):
+        tslam.build_slam_config(tc, cfg.model_config)
+    # bwd_pretranspose: a plain base keeps kernel_t buffers, the int8 base
+    # refuses it as the JAX package's dense does
+    for base_quant in ("none", "int8"):
+        tc = dataclasses.replace(cfg.train_config, shard=dataclasses.replace(
+            cfg.train_config.shard, bwd_pretranspose=True, base_quant=base_quant))
+        sc = tslam.build_slam_config(tc, cfg.model_config)
+        assert sc.llm.bwd_pretranspose
+        if base_quant == "int8":
+            with pytest.raises(ValueError, match="exclusive"):
+                tslam.SLAMModel(sc)
+        else:
+            names = {n.rsplit(".", 1)[-1] for n, _ in tslam.SLAMModel(sc).named_buffers()}
+            assert "kernel_t" in names
     tslam.build_slam_config(dataclasses.replace(cfg.train_config, frozen_dtype="float32"), cfg.model_config)
     from slam_llm_tpu_torch.ops.kernels.rowquant import rowquant
 

@@ -383,11 +383,11 @@ def test_loaders_raise_on_unknown_keys_wrong_shapes_and_missing_paths(jax_model,
         hf_loader.load_pretrained_into(tm, mc)
     with pytest.raises(FileNotFoundError, match="encoder_path"):
         hf_loader.convert_encoder_checkpoint(str(tmp_path / "no_enc"), "whisper", None)
-    # a family the reference loads from a file and the port does not yet;
+    # a file of a family that has no file converter (as in the reference);
     # a directory of a family that has no directory converter
-    torch.save({"model": {}}, tmp_path / "beats_tokenizer.pt")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        hf_loader.convert_encoder_checkpoint(str(tmp_path / "beats_tokenizer.pt"), "beats_tokenizer", None)
+    torch.save({"model": {}}, tmp_path / "whisper.pt")
+    with pytest.raises(ValueError, match="no file-checkpoint converter"):
+        hf_loader.convert_encoder_checkpoint(str(tmp_path / "whisper.pt"), "whisper", None)
     with pytest.raises(ValueError, match="cannot load an HF directory"):
         hf_loader.convert_encoder_checkpoint(str(tmp_path), "beats", None)
     with pytest.raises(FileNotFoundError, match="no safetensors"):
@@ -496,6 +496,10 @@ from slam_llm_tpu_torch.models import encodec, vallex
 from slam_llm_tpu_torch.pipeline import inference_vallex
 from slam_llm_tpu_torch import parallel
 from slam_llm_tpu_torch.parallel import sharding
+from slam_llm_tpu_torch.data import concatenator, text_dataset
+from slam_llm_tpu_torch.models import beats_tokenizer
+from slam_llm_tpu_torch.ops import monotonic_align
+from slam_llm_tpu_torch.utils import chat_utils, ppl, preprocess_text, safety_utils
 sd = hf_loader.load_hf_state_dict(llm_dir)
 tok = load_tokenizer(tok_dir)
 trainable = checkpoint.load_trainable(msgpack_path)
