@@ -129,7 +129,7 @@ Phases, each fatal on failure:
                 pipeline.finetune (4 steps of 16: the projector moves, the
                 encoder and LLM stay bit-unchanged, K1 / K4 once a layer a
                 step, K2 = K3 = 0) and pipeline.inference_batch with ckpt_path
-                (beam 4, batches of 8, 16 tokens) against the in-memory
+                (beam 4, batches of 8, 8 tokens) against the in-memory
                 decode, the card vs the CPU at 2 + 2 layers, the loss within
                 1 % (run_music_spatial):
                 SELD (seld_spatialast_llama: Spatial-AST-base f32 from a
@@ -278,7 +278,7 @@ Phases, each fatal on failure:
                 backward and the int8 CE head, LoRA r8 on q / v) through
                 pipeline.finetune (4 steps of 8 in the 256 bucket: LoRA
                 moves, the unreached projector does not) and
-                pipeline.inference_batch with ckpt_path (beam 4, 16 tokens)
+                pipeline.inference_batch with ckpt_path (beam 4, 8 tokens)
                 line for line against the in-memory decode; the int8_rot
                 backward by its statistics and the deterministic int8
                 backward against the CPU plain path at 2 layers (cosine >=
@@ -295,6 +295,24 @@ Phases, each fatal on failure:
                 and the (512, 152064) f32 dlog, K3 at Qwen2-7B's separate
                 projections, MLP and dx at M = 2048 and beam M = 32 (cold
                 weights), and the CE head's f32 logits (512, 3584 -> 152064).
+ 22. routes -- the flash kernels' last routes on the paths that reach them
+                (run_routes, after phase 21): (a) models.llm.CausalLM at
+                TinyLlama-1.1B's widths in f32, 22 layers, LoRA r8 on q / v,
+                two AdamW steps of 8 x 512 left-padded rows (K1 f32 and K4
+                f32 with fused RoPE once a layer) and a prefill, the card
+                against the CPU at 2 layers with TF32 off (loss within 1e-5
+                relative, LoRA gradients cosine >= 0.9999); (b) a head_dim-
+                256 decoder at gemma-2b's widths (bf16, 18 layers, 8 heads
+                over 1, tied embeddings), two steps (K1 / K4 at D 256 with
+                fused RoPE), a prefill and 7 decode steps through the KV
+                cache, the card against the CPU at 2 layers (loss 1e-2,
+                cosine 0.99); (c) layers.mha_attention with gradients at Tq
+                != Tk, keys right-padded, bf16 and f32, 256 queries over 1500
+                keys and back at whisper-small's heads and one case at D 256,
+                against the twins (K4 within 2.4e-3 relative L2, the f32
+                routes 2e-5 of the twin's largest entry). Phase 3 holds the
+                four kernels at these shapes (and D 192 at (4, 1024, 16/2,
+                192) with fused RoPE), under the path key "routes".
 
 Prints one JSON line of kernel results before the last line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -494,14 +512,20 @@ def event_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
-def attended_pairs(mask, causal: bool) -> int:
+def attended_pairs(mask, causal: bool, tq: int = None) -> int:
     """(query, key) pairs the attention computes for this key mask: every
-    query against each live key, or only keys at or before it when causal."""
+    one of the ``tq`` queries (Tk by default) against each live key, or only
+    keys at or before it when causal."""
     live = mask.bool()
     t = mask.shape[1]
     if causal:
         return int((live * torch.arange(t, 0, -1, device=mask.device)).sum().item())
-    return int(live.sum().item()) * t
+    return int(live.sum().item()) * (t if tq is None else tq)
+
+
+def _tq_tk(t):
+    """A case's T: one length (self-attention) or (Tq, Tk)."""
+    return t if isinstance(t, tuple) else (t, t)
 
 
 def _padding_mask(b, t, pad, dev="cuda"):
@@ -671,14 +695,18 @@ def check_flash(gen) -> dict:
         ("qwen2-7b text-only training, fused RoPE theta 1e6, left-padded", TEXT_BATCH, TEXT_T, 28, 4, 128, True,
          "left", 1e6),
         ("BEATs tokenizer trunk, right-padded", BT_CLIPS, BT_PATCHES, 12, 12, 64, False, "right", 0),
+        # phase 22: the head_dim-256 decoder's training (fused RoPE) and prefill (rotated before K1), head_dim
+        # 192, and the op at Tq != Tk (T is (Tq, Tk))
+        *ROUTES_K1_CASES,
     ]
     worst, rows = 0.0, []
     for name, b, t, h, hkv, d, causal, pad, theta in cases:
         fused = theta > 0
-        q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
-        k = torch.randn(b, t, hkv, d, generator=gen, device=dev).bfloat16()
-        v = torch.randn(b, t, hkv, d, generator=gen, device=dev).bfloat16()
-        mask = _padding_mask(b, t, pad)
+        tq, tk = _tq_tk(t)
+        q = torch.randn(b, tq, h, d, generator=gen, device=dev).bfloat16()
+        k = torch.randn(b, tk, hkv, d, generator=gen, device=dev).bfloat16()
+        v = torch.randn(b, tk, hkv, d, generator=gen, device=dev).bfloat16()
+        mask = _padding_mask(b, tk, pad)
         rope = _rope_for(mask, d, theta) if fused else None
         out, lse = flash_attention_fwd(q, k, v, mask, causal, rope=rope)
         torch.cuda.synchronize()
@@ -688,7 +716,7 @@ def check_flash(gen) -> dict:
         if causal:
             live = mask.cumsum(1) > 0  # left padding + causal: rows before the first key are dead
         else:
-            live = (mask.sum(1, keepdim=True) > 0).expand(b, t)
+            live = (mask.sum(1, keepdim=True) > 0).expand(b, tq)
         err = (out.float() - ref).abs().max().item()
         lse_err = (lse - ref_lse)[live].abs().max().item()
         dead = out[~live]
@@ -696,7 +724,7 @@ def check_flash(gen) -> dict:
         n_dead = int((~live).sum().item())
         ms = time_ms(lambda: flash_attention_fwd(q, k, v, mask, causal, rope=rope))
         plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, mask, causal, rope=rope), reps=3)
-        bound_ms, bound_by = bound(4 * h * d * attended_pairs(mask, causal),
+        bound_ms, bound_by = bound(4 * h * d * attended_pairs(mask, causal, tq),
                                    nbytes(q, k, v, mask, out, lse, *(rope or ())), BF16_FLOPS)
         library_ms = near_ms = None
         if pad in ("none", "right") and not fused:  # SDPA computes the same function
@@ -745,7 +773,11 @@ def check_flash_f32(gen) -> dict:
     for; then the edges of its tiles (``F32_EDGES``), held alone. Bound: the
     operations at the 165 TFLOP/s of 3xTF32, with the 67 TFLOP/s of f32 FMA
     (the route's bound before it ran on the tensor cores) beside it."""
-    from slam_llm_tpu_torch.ops.kernels.flash_attention import flash_attention_fwd, flash_attention_ref
+    from slam_llm_tpu_torch.ops.kernels.flash_attention import (
+        apply_rope_tables,
+        flash_attention_fwd,
+        flash_attention_ref,
+    )
 
     dev = "cuda"
     cases = [
@@ -756,33 +788,42 @@ def check_flash_f32(gen) -> dict:
         ("causal, left-padded", 4, SA_T, 12, 12, 64, True, "left"),
         ("GQA, head_dim 128, causal", 2, 256, 8, 2, 128, True, "right"),
         *TP_FAMILY_F32_CASES,
+        # phase 22: the f32 decoder's training (fused RoPE) and prefill (rotated before K1 f32), head_dim 192 /
+        # 256 (the f32 FMA kernel), and the op at Tq != Tk; (.., padding, fused RoPE's theta)
+        *ROUTES_F32_CASES,
     ]
     worst, rows = 0.0, []
-    for name, b, t, h, hkv, d, causal, pad in cases:
-        q = torch.randn(b, t, h, d, generator=gen, device=dev)
-        k = torch.randn(b, t, hkv, d, generator=gen, device=dev)
-        v = torch.randn(b, t, hkv, d, generator=gen, device=dev)
-        mask = _padding_mask(b, t, pad)
-        out, lse = flash_attention_fwd(q, k, v, mask, causal)
+    for name, b, t, h, hkv, d, causal, pad, *theta in cases:
+        fused = bool(theta) and theta[0] > 0
+        tq, tk = _tq_tk(t)
+        q = torch.randn(b, tq, h, d, generator=gen, device=dev)
+        k = torch.randn(b, tk, hkv, d, generator=gen, device=dev)
+        v = torch.randn(b, tk, hkv, d, generator=gen, device=dev)
+        mask = _padding_mask(b, tk, pad)
+        rope = _rope_for(mask, d, theta[0]) if fused else None
+        out, lse = flash_attention_fwd(q, k, v, mask, causal, rope=rope)
         torch.cuda.synchronize()
-        ref, ref_lse = flash_attention_ref(q, k, v, mask, causal)
+        ref, ref_lse = flash_attention_ref(q, k, v, mask, causal, rope=rope)
         torch.backends.cuda.matmul.allow_tf32 = True
-        tf32, _ = flash_attention_ref(q, k, v, mask, causal)
+        tf32, _ = flash_attention_ref(q, k, v, mask, causal, rope=rope)
         torch.backends.cuda.matmul.allow_tf32 = False
-        live = mask.cumsum(1) > 0 if causal else (mask.sum(1, keepdim=True) > 0).expand(b, t)
+        live = mask.cumsum(1) > 0 if causal else (mask.sum(1, keepdim=True) > 0).expand(b, tq)
         err = (out - ref).abs().max().item()
         tf32_err = (tf32 - ref).abs().max().item()
         lse_err = (lse - ref_lse)[live].abs().max().item()
         dead = out[~live]
         dead_ok = bool((dead == 0).all().item()) if dead.numel() else True
-        ms = time_ms(lambda: flash_attention_fwd(q, k, v, mask, causal))
-        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, mask, causal), reps=3)
-        ops, moved = 4 * h * d * attended_pairs(mask, causal), nbytes(q, k, v, mask, out, lse)
-        bound_ms, bound_by = bound(ops, moved, TF32X3_FLOPS)
+        ms = time_ms(lambda: flash_attention_fwd(q, k, v, mask, causal, rope=rope))
+        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, mask, causal, rope=rope), reps=3)
+        ops, moved = 4 * h * d * attended_pairs(mask, causal, tq), nbytes(q, k, v, mask, out, lse, *(rope or ()))
+        # D 64 / 128 run 3xTF32 on the tensor cores, D 192 / 256 f32 FMA on the CUDA cores
+        bound_ms, bound_by = bound(ops, moved, TF32X3_FLOPS if d <= 128 else FP32_FLOPS)
         fma_ms = bound(ops, moved, FP32_FLOPS)[0]
+        if fused:
+            q, k = (apply_rope_tables(x, *rope) for x in (q, k))  # the near yardstick's operands
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = near_ms = None
-        if pad in ("none", "right") and not causal:  # SDPA computes the same function, in f32
+        if pad in ("none", "right") and not causal and not fused:  # SDPA computes the same function, in f32
             sdpa_mask = None if pad == "none" else mask[:, None, None, :].bool()
             library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=h != hkv))
@@ -792,8 +833,9 @@ def check_flash_f32(gen) -> dict:
                 qt, kt, vt, attn_mask=near_mask, enable_gqa=h != hkv))
         log(f"[K1 f32] {name} {(b, t, h, hkv, d)} causal={causal}: max|out-ref| {err:.3e} (the twin under "
             f"single-pass TF32: {tf32_err:.3e}) max|lse-ref| {lse_err:.3e} dead rows {int((~live).sum())} all-zero "
-            f"{dead_ok} | kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}, 3xTF32) "
-            f"share {bound_ms / ms:.3f}, f32 FMA bound {fma_ms:.4f} ms share {fma_ms / ms:.3f} SDPA f32 "
+            f"{dead_ok} | kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{'3xTF32' if d <= 128 else 'f32 FMA'}) share {bound_ms / ms:.3f}, f32 FMA bound {fma_ms:.4f} ms share "
+            f"{fma_ms / ms:.3f} SDPA f32 "
             f"{_r(library_ms)} ms | SDPA f32, boolean mask (near): {_r(near_ms)} ms")
         if not (err <= 2e-5 and lse_err <= 1e-4 and dead_ok):
             raise AssertionError(f"K1 f32 {name}: out err {err} (tol 2e-5), lse err {lse_err} (tol 1e-4), dead rows "
@@ -863,15 +905,19 @@ def check_flash_bwd(gen) -> dict:
         # phase 21: the text-only Qwen2-7B step
         ("qwen2-7b text-only training, fused RoPE theta 1e6, left-padded", TEXT_BATCH, TEXT_T, 28, 4, 128, True,
          "left", 1e6),
+        # phase 22: the head_dim-256 decoder's step, head_dim 192, the op at Tq != Tk (held to 2.4e-3)
+        *ROUTES_K4_CASES,
     ]
     worst, rows = 0.0, []
-    for name, b, t, h, hkv, d, causal, pad, theta in cases:
+    for case in cases:
+        name, b, t, h, hkv, d, causal, pad, theta = case
         fused = theta > 0
-        q = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
-        k = torch.randn(b, t, hkv, d, generator=gen, device=dev).bfloat16()
-        v = torch.randn(b, t, hkv, d, generator=gen, device=dev).bfloat16()
-        dout = torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16()
-        mask = _padding_mask(b, t, pad)
+        tq, tk = _tq_tk(t)
+        q = torch.randn(b, tq, h, d, generator=gen, device=dev).bfloat16()
+        k = torch.randn(b, tk, hkv, d, generator=gen, device=dev).bfloat16()
+        v = torch.randn(b, tk, hkv, d, generator=gen, device=dev).bfloat16()
+        dout = torch.randn(b, tq, h, d, generator=gen, device=dev).bfloat16()
+        mask = _padding_mask(b, tk, pad)
         rope = _rope_for(mask, d, theta) if fused else None
         out, lse = flash_attention_fwd(q, k, v, mask, causal, rope=rope)
         got = flash_attention_bwd(q, k, v, mask, out, lse, dout, causal, rope=rope)
@@ -884,13 +930,16 @@ def check_flash_bwd(gen) -> dict:
                     apply_rope_tables(want[1], *rope, inverse=True), want[2])
         rel = [((g.float() - w).norm() / w.norm()).item() for g, w in zip(got, want)]
         err = max((g.float() - w).abs().max().item() for g, w in zip(got, want))
-        dead = (mask.cumsum(1) == 0) if causal else torch.zeros_like(mask, dtype=torch.bool)
+        if causal:
+            dead = mask.cumsum(1) == 0
+        else:
+            dead = (mask.sum(1, keepdim=True) == 0).expand(b, tq)
         dead_ok = bool((got[0][dead] == 0).all().item()) if bool(dead.any()) else True
         again = flash_attention_bwd(q, k, v, mask, out, lse, dout, causal, rope=rope)
         deterministic = all(torch.equal(a, g) for a, g in zip(again, got))
         ms = time_ms(lambda: flash_attention_bwd(q, k, v, mask, out, lse, dout, causal, rope=rope))
         plain_ms = time_ms(lambda: flash_attention_bwd_ref(*args32), reps=3)
-        bound_ms, bound_by = bound(10 * h * d * attended_pairs(mask, causal),
+        bound_ms, bound_by = bound(10 * h * d * attended_pairs(mask, causal, tq),
                                    nbytes(q, k, v, mask, out, lse, dout, *got, *(rope or ())), BF16_FLOPS)
         # SDPA's backward computes the same gradients where there is no fused
         # RoPE and no causal left padding (VALL-E X's rows all see their
@@ -908,8 +957,9 @@ def check_flash_bwd(gen) -> dict:
             f"{deterministic} | kernel {ms:.4f} ms plain f32 {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
             f"({bound_by}) share {bound_ms / ms:.3f} SDPA backward {_r(library_ms)} ms | {NEAR} "
             f"(backward): {_r(near_ms)} ms")
-        if not (max(rel) <= 2e-2 and dead_ok and deterministic):
-            raise AssertionError(f"K4 {name}: rel L2 {rel} (tol 2e-2), dead dq zero {dead_ok}, "
+        tol = K4_ROUTES_REL_L2 if case in ROUTES_K4_CASES else 2e-2
+        if not (max(rel) <= tol and dead_ok and deterministic):
+            raise AssertionError(f"K4 {name}: rel L2 {rel} (tol {tol}), dead dq zero {dead_ok}, "
                                  f"deterministic {deterministic}")
         worst = max(worst, err)
         rows.append(dict(at=f"{name} {(b, t, h, hkv, d)}", ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -929,6 +979,7 @@ def check_flash_bwd_f32(gen) -> dict:
     tensors with the boolean mask); with causal left padding its dead rows
     differ, so it is the near yardstick there."""
     from slam_llm_tpu_torch.ops.kernels.flash_attention import (
+        apply_rope_tables,
         bwd_f32_error,
         flash_attention_bwd,
         flash_attention_bwd_f32,
@@ -944,45 +995,55 @@ def check_flash_bwd_f32(gen) -> dict:
         ("causal, left-padded", 4, SA_T, 12, 12, 64, True, "left"),
         ("GQA, head_dim 128, causal", 2, 256, 8, 2, 128, True, "right"),
         *TP_FAMILY_F32_CASES,
+        # phase 22: the f32 decoder's step (fused RoPE), head_dim 192 / 256 (the f32 FMA kernels), the op at
+        # Tq != Tk; (.., padding, fused RoPE's theta)
+        *(c for c in ROUTES_F32_CASES if "prefill" not in c[0]),
     ]
 
     worst, rows = 0.0, []
-    for name, b, t, h, hkv, d, causal, pad in cases:
-        q = torch.randn(b, t, h, d, generator=gen, device=dev)
-        k = torch.randn(b, t, hkv, d, generator=gen, device=dev)
-        v = torch.randn(b, t, hkv, d, generator=gen, device=dev)
-        dout = torch.randn(b, t, h, d, generator=gen, device=dev)
-        mask = _padding_mask(b, t, pad)
-        out, lse = flash_attention_fwd(q, k, v, mask, causal)
+    for name, b, t, h, hkv, d, causal, pad, *theta in cases:
+        fused = bool(theta) and theta[0] > 0
+        tq, tk = _tq_tk(t)
+        q = torch.randn(b, tq, h, d, generator=gen, device=dev)
+        k = torch.randn(b, tk, hkv, d, generator=gen, device=dev)
+        v = torch.randn(b, tk, hkv, d, generator=gen, device=dev)
+        dout = torch.randn(b, tq, h, d, generator=gen, device=dev)
+        mask = _padding_mask(b, tk, pad)
+        rope = _rope_for(mask, d, theta[0]) if fused else None
+        out, lse = flash_attention_fwd(q, k, v, mask, causal, rope=rope)
         args = (q, k, v, mask, out, lse, dout, causal)
-        got = flash_attention_bwd(*args)
+        got = flash_attention_bwd(*args, rope=rope)
         torch.cuda.synchronize()
-        want = flash_attention_bwd_ref(*args)
+        want = flash_attention_bwd_ref(*args, rope=rope)
         torch.backends.cuda.matmul.allow_tf32 = True
-        tf32 = flash_attention_bwd_ref(*args)
+        tf32 = flash_attention_bwd_ref(*args, rope=rope)
         torch.backends.cuda.matmul.allow_tf32 = False
         err, tf32_err = (bwd_f32_error(x, want, q, k, v, dout) for x in (got, tf32))
         abs_err = max((g - w).abs().max().item() for g, w in zip(got, want))
-        dead = (mask.cumsum(1) == 0) if causal else (mask.sum(1, keepdim=True) == 0).expand(b, t)
+        dead = (mask.cumsum(1) == 0) if causal else (mask.sum(1, keepdim=True) == 0).expand(b, tq)
         dead_ok = bool((got[0][dead] == 0).all().item()) if bool(dead.any()) else True
-        again = flash_attention_bwd(*args)
+        again = flash_attention_bwd(*args, rope=rope)
         deterministic = all(torch.equal(a, g) for a, g in zip(again, got))
-        ms = time_ms(lambda: flash_attention_bwd_f32(*args))
-        plain_ms = time_ms(lambda: flash_attention_bwd_ref(*args), reps=3)
-        ops, moved = 10 * h * d * attended_pairs(mask, causal), nbytes(q, k, v, mask, out, lse, dout, *got)
-        bound_ms, bound_by = bound(ops, moved, TF32X3_FLOPS)
+        ms = time_ms(lambda: flash_attention_bwd_f32(*args, rope=rope))
+        plain_ms = time_ms(lambda: flash_attention_bwd_ref(*args, rope=rope), reps=3)
+        ops = 10 * h * d * attended_pairs(mask, causal, tq)
+        moved = nbytes(q, k, v, mask, out, lse, dout, *got, *(rope or ()))
+        bound_ms, bound_by = bound(ops, moved, TF32X3_FLOPS if d <= 128 else FP32_FLOPS)
         fma_ms = bound(ops, moved, FP32_FLOPS)[0]
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        qr, kr = (apply_rope_tables(x, *rope) for x in (q, k)) if fused else (q, k)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (qr, kr, v))
         ref_out = torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=_bool_mask(mask, causal), enable_gqa=h != hkv)
         dout_t = dout.transpose(1, 2)
         sdpa_bwd = event_ms(lambda: torch.autograd.grad(ref_out, (qt, kt, vt), dout_t, retain_graph=True))
-        library_ms, near_ms = (None, sdpa_bwd) if causal and pad == "left" else (sdpa_bwd, None)
+        near = fused or (causal and pad == "left")
+        library_ms, near_ms = (None, sdpa_bwd) if near else (sdpa_bwd, None)
         del ref_out
         log(f"[K4 f32] {name} {(b, t, h, hkv, d)} causal={causal}: max|g-ref| / max|ref| over dq, dk, dv {err:.3e} "
             f"(the twin under single-pass TF32: {tf32_err:.3e}), max abs {abs_err:.3e}, dead rows {int(dead.sum())} "
             f"dq zero {dead_ok}, deterministic {deterministic} | kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-            f"{bound_ms:.4f} ms ({bound_by}, 3xTF32) share {bound_ms / ms:.3f}, f32 FMA bound {fma_ms:.4f} ms share "
+            f"{bound_ms:.4f} ms ({bound_by}, {'3xTF32' if d <= 128 else 'f32 FMA'}) share {bound_ms / ms:.3f}, "
+            f"f32 FMA bound {fma_ms:.4f} ms share "
             f"{fma_ms / ms:.3f} SDPA f32 backward {_r(library_ms)} ms | SDPA f32 backward, boolean mask (near): "
             f"{_r(near_ms)} ms | {SMI}")
         if not (err <= 2e-5 and dead_ok and deterministic):
@@ -1491,9 +1552,11 @@ def check_kernels() -> list:
 def check_head_dims(gen) -> None:
     """A structured attention call on the card at a head_dim the flash
     kernels do not take: D = 80 (D % 64 != 0) runs the plain path, launching
-    no kernel, and equals the plain twin and the CPU's plain path; D = 256
-    (Pallas in the JAX package, no Hopper route yet) raises."""
+    no kernel, and equals the plain twin and the CPU's plain path; at D =
+    256 (Pallas in the JAX package) the same call launches K1 once and
+    matches the f32 twin within 2e-2."""
     from slam_llm_tpu_torch.models.layers import _xla_attention, apply_rope_tables, mha_attention, rope_tables
+    from slam_llm_tpu_torch.ops.kernels.flash_attention import flash_attention_ref
 
     b, t, h, hkv, d = 2, 256, 8, 4, 80
     q = torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
@@ -1507,16 +1570,19 @@ def check_head_dims(gen) -> None:
                         rope=tuple(r.cpu() for r in rope))
     err = (out.float().cpu() - cpu.float()).abs().max().item()
     flash = sum(n for name, n in launches.items() if name.startswith("flash"))
-    try:
-        mha_attention(*(torch.zeros(1, 8, 2, 256, device="cuda", dtype=torch.bfloat16) for _ in range(3)),
-                      kv_mask=torch.ones(1, 8, dtype=torch.int32, device="cuda"))
-        refused = "nothing"
-    except NotImplementedError as e:
-        refused = str(e)
+    wq = torch.randn(b, t, h, 256, generator=gen, device="cuda").bfloat16()
+    wk, wv = (torch.randn(b, t, hkv, 256, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    wrope = rope_tables((mask.long().cumsum(1) - 1).clamp_min(0), 256, 1e4)
+    wide, wide_launches = run_counted(lambda: mha_attention(wq, wk, wv, kv_mask=mask, causal=True, rope=wrope))
+    wref, _ = flash_attention_ref(*(apply_rope_tables(x, *wrope).float() for x in (wq, wk)), wv.float(), mask, True)
+    wide_err = (wide.float() - wref).abs().max().item()
     log(f"[head dims] D={d} {(b, t, h, hkv)} causal, fused-RoPE call: flash launches {flash}, equal to the plain twin "
-        f"{torch.equal(out, twin)}, max |card - CPU plain| {err:.3e}; D=256 refused: {refused}")
-    if flash or not torch.equal(out, twin) or err > 2e-2 or "Queue 2" not in refused:
-        raise AssertionError(f"head_dim routing: flash launches {flash}, err {err}, D=256 {refused!r}")
+        f"{torch.equal(out, twin)}, max |card - CPU plain| {err:.3e}; the same call at D=256: K1 launches "
+        f"{wide_launches['flash_attention_fwd']}, max |out - f32 twin| {wide_err:.3e}")
+    if flash or not torch.equal(out, twin) or err > 2e-2:
+        raise AssertionError(f"head_dim routing: flash launches {flash}, err {err}")
+    if wide_launches["flash_attention_fwd"] != 1 or sum(wide_launches.values()) != 1 or wide_err > 2e-2:
+        raise AssertionError(f"head_dim 256: launches {wide_launches}, err {wide_err}")
 
 
 # ---------------------------------------------------------------------------
@@ -2058,7 +2124,7 @@ def train_grads_card(trainer, dataset, label: str, key_bias_limit: float = 5e-2,
 # ---------------------------------------------------------------------------
 
 WEIGHTS_STEPS = 4
-WEIGHTS_NEW_TOKENS = 16  # the reload check's decode length (32 until phase 21 joined the run)
+WEIGHTS_NEW_TOKENS = 8  # the reload check's decode length (32 until phase 21 joined the run, 16 until phase 22)
 WEIGHTS_PATH = ("flash_attention_fwd", "flash_attention_bwd", "rowquant", "rowquant_rot_sr", "int8_matmul")
 
 
@@ -2277,7 +2343,7 @@ def run_weights() -> dict:
 
 ST_RECIPE = ROOT / "examples" / "st_covost2" / "conf" / "st_whisper_qwen.yaml"
 ST_STEPS = 4
-ST_NEW_TOKENS = 16  # decode length (a random model rarely emits EOS; 32 before phase 21)
+ST_NEW_TOKENS = 8  # decode length (a random model rarely emits EOS; 32 before phase 21, 16 before phase 22)
 ST_DECODE_BATCH = 8
 ST_LAYERS = 2  # LLM and encoder depth of the card-vs-CPU checks
 ST_PATH = ("flash_attention_fwd", "flash_attention_bwd")
@@ -2542,7 +2608,7 @@ def run_st() -> dict:
 
 W_RECIPE = ROOT / "examples" / "asr_librispeech" / "conf" / "asr_wavlm_vicuna.yaml"
 W_STEPS = 4
-W_NEW_TOKENS = 16  # decode length (a random model rarely emits EOS; 32 before phase 21)
+W_NEW_TOKENS = 8  # decode length (a random model rarely emits EOS; 32 before phase 21, 16 before phase 22)
 W_LAYERS = 2  # LLM and encoder depth of the card-vs-CPU checks
 # the text buckets of the training batches (up to 100 audio slots, the
 # prompt, a target, EOS) and of a decode batch (no target), and the encoder
@@ -2815,7 +2881,7 @@ AAC_STEPS = 4
 # LoRA B starts at 0 and step 0's lr is 0 under warmup, so LoRA A first
 # receives a gradient at step 2 (the third)
 SLAM_AAC_STEPS = 3
-AAC_NEW_TOKENS = 16  # decode length (a random model rarely emits EOS; 32 before phase 21)
+AAC_NEW_TOKENS = 8  # decode length (a random model rarely emits EOS; 32 before phase 21, 16 before phase 22)
 AAC_DECODE_BATCH = 8
 AAC_LAYERS = 2  # LLM and encoder depth of the card-vs-CPU checks
 AAC_PATH = ("flash_attention_fwd", "flash_attention_bwd")
@@ -3415,7 +3481,7 @@ MC_RECIPE = ROOT / "examples" / "mc_musiccaps" / "conf" / "mc_musicfm_vicuna.yam
 SEC_RECIPE = ROOT / "examples" / "sec_emotioncaps" / "conf" / "sec_emotion2vec_vicuna.yaml"
 MS_STEPS = 4
 ECHAT_STEPS = 2
-MS_NEW_TOKENS = 16  # decode length (a random model rarely emits EOS; 32 before phase 21)
+MS_NEW_TOKENS = 8  # decode length (a random model rarely emits EOS; 32 before phase 21, 16 before phase 22)
 MS_DECODE_BATCH = 8
 MS_LAYERS = 2  # LLM and encoder depth of the card-vs-CPU checks
 # a Q-Former key bias's gradient / its query bias's, both sides: under near-uniform attention
@@ -3884,7 +3950,7 @@ LS_RECIPE = ROOT / "examples" / "aispeech_asr" / "conf" / "aispeech_large_scale.
 CTX_RECIPE = ROOT / "examples" / "contextual_asr" / "conf" / "contextual_wavlm_vicuna.yaml"
 MALA_RECIPE = ROOT / "examples" / "mala_asr_slidespeech" / "conf" / "mala_wavlm_vicuna.yaml"
 LS_UTTS, LS_EVAL_UTTS = 96, 24  # the train corpus fills the 192 bucket's 42 twice
-LS_NEW_TOKENS = 16  # 32 until phase 21 joined the run
+LS_NEW_TOKENS = 8  # 32 until phase 21 joined the run, 16 until phase 22
 # the batches the batcher makes of these corpora (ids; whisper-large-v3's frames are half the mel's), which phase 3
 # checks K1 / K4 at
 LS_TRAIN_SHAPES, LS_EVAL_SHAPES = {(42, 192)}, {(21, 192)}
@@ -4916,7 +4982,7 @@ def run_vallex() -> dict:
 
 PEFT_STEPS = 4
 PEFT_DECODE = 8  # utterances decoded, one batch (the recipe's val_batch_size)
-PEFT_NEW_TOKENS = 16  # 32 until phase 21 joined the run
+PEFT_NEW_TOKENS = 8  # 32 until phase 21 joined the run, 16 until phase 22
 # peft_method -> the LLM's trained leaves
 PEFT_METHODS = {"prefix": ("prefix_k", "prefix_v"), "llama_adapter": ("adaption_prompt", "adaption_gate")}
 
@@ -6061,7 +6127,7 @@ TEXT_LAYERS = 28  # Qwen2-7B's decoder layers: the whole depth
 TEXT_STEPS = 4
 TEXT_BATCH, TEXT_T = 8, 256  # the batch and its text bucket (every row longer than the 192 bucket)
 TEXT_M = TEXT_BATCH * TEXT_T  # the rows of the step's dense products
-TEXT_NEW_TOKENS = 16
+TEXT_NEW_TOKENS = 8  # 16 until phase 22 joined the run
 TEXT_CHECK_LAYERS = 2  # LLM depth of the card-vs-CPU check (full widths)
 TEXT_PROMPT = "Answer the instruction."
 TEXT_PATH = ("flash_attention_fwd", "flash_attention_bwd", "rowquant", "rowquant_rot_sr", "int8_matmul",
@@ -6363,6 +6429,326 @@ def run_text() -> tuple:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the flash kernels' last routes on their main paths
+# ---------------------------------------------------------------------------
+
+ROUTES_BATCH, ROUTES_T = 8, 512  # the decoders' batch: 8 left-padded rows of 512
+ROUTES_STEPS = 2  # training steps of each decoder (forward, backward, one AdamW update)
+ROUTES_DECODE_STEPS = 8  # the head_dim-256 decoder's greedy steps through the KV cache
+ROUTES_CHECK_LAYERS = 2  # the decoders' depth in the card-vs-CPU checks (full widths)
+ROUTES_CROSS = ((256, 1500), (1500, 256))  # (Tq, Tk) of the op: queries over whisper-small's 1500 frames and back
+K4_ROUTES_REL_L2 = 2.4e-3  # the new K4 rows' limit against the f32 twin (the older rows keep 2e-2)
+ROUTES_PATH = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd_f32", "flash_attention_bwd_f32")
+ROUTES_BYPASSED = ("rowquant", "rowquant_rot_sr", "rowquant_fold", "int8_matmul", "int8_matmul_f32")  # no int8 base
+
+# phase 3's rows for the routes: (name, B, T or (Tq, Tk), H, Hkv, D, causal, padding, fused RoPE's theta or 0)
+ROUTES_K1_CASES = [
+    ("head_dim 256 decoder training (gemma-2b widths), fused RoPE, 8:1 GQA, left-padded", ROUTES_BATCH, ROUTES_T, 8,
+     1, 256, True, "left", 1e4),
+    ("head_dim 256 decoder prefill, left-padded", ROUTES_BATCH, ROUTES_T, 8, 1, 256, True, "left", 0),
+    ("head_dim 192, fused RoPE, left-padded", 4, 1024, 16, 2, 192, True, "left", 1e4),
+    *((f"{tq} queries over {tk} keys (whisper-small's heads), right-padded", ROUTES_BATCH, (tq, tk), 12, 12, 64,
+       False, "right", 0) for tq, tk in ROUTES_CROSS),
+    ("256 queries over 1500 keys at head_dim 256, 8:1 GQA, right-padded", ROUTES_BATCH, (256, 1500), 8, 1, 256, False,
+     "right", 0),
+]
+ROUTES_K4_CASES = [c for c in ROUTES_K1_CASES if "prefill" not in c[0]]
+ROUTES_F32_CASES = [
+    ("f32 tinyllama training, fused RoPE, left-padded", ROUTES_BATCH, ROUTES_T, 32, 4, 64, True, "left", 1e4),
+    ("f32 tinyllama prefill, left-padded", ROUTES_BATCH, ROUTES_T, 32, 4, 64, True, "left", 0),
+    ("f32 head_dim 192, fused RoPE, left-padded", 4, 1024, 16, 2, 192, True, "left", 1e4),
+    ("f32 head_dim 256, fused RoPE, 8:1 GQA, left-padded", ROUTES_BATCH, ROUTES_T, 8, 1, 256, True, "left", 1e4),
+    *((f"f32 {tq} queries over {tk} keys (whisper-small's heads), right-padded", ROUTES_BATCH, (tq, tk), 12, 12, 64,
+       False, "right", 0) for tq, tk in ROUTES_CROSS),
+    ("f32 256 queries over 1500 keys at head_dim 256, 8:1 GQA, right-padded", ROUTES_BATCH, (256, 1500), 8, 1, 256,
+     False, "right", 0),
+]
+
+
+def gemma_2b_widths():
+    """An LLMConfig at google/gemma-2b's published widths (config.json:
+    vocab 256000, hidden 2048, 18 layers, 8 heads over 1 kv head of 256,
+    intermediate 16384, tied embeddings, rope_theta 1e4, rms_norm_eps 1e-6),
+    as far as the JAX package's LLMConfig expresses them: the block stays
+    its Llama block (SwiGLU, no embedding scale), so this is a head_dim-256
+    decoder and not Gemma; bf16, ~2.5 B parameters."""
+    from slam_llm_tpu_torch.models.llm import LLMConfig
+
+    return LLMConfig(vocab_size=256000, d_model=2048, n_layers=18, n_heads=8, n_kv_heads=1, head_dim=256,
+                     ffn_dim=16384, rope_theta=10000.0, rms_eps=1e-6, tied_embeddings=True)
+
+
+def text_batch(vocab: int, rows: int, t: int, seed: int, device="cuda"):
+    """(ids, mask, labels): seeded token ids, rows left-padded as
+    ``_padding_mask`` pads them, the labels the valid tokens past each
+    row's first quarter (its prompt)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ids = torch.randint(3, vocab, (rows, t), generator=gen, device=device)
+    mask = _padding_mask(rows, t, "left", dev=device)
+    labels = torch.where(mask.bool(), ids, torch.full_like(ids, -100))
+    labels[:, :t // 4] = -100
+    return ids, mask, labels
+
+
+def lora_decoder(cfg, layers: int = None, like=None):
+    """``models.llm.CausalLM`` at ``cfg`` (LoRA r8 on q / v) on the card:
+    seeded random weights, LoRA B redrawn nonzero; with ``like``, its
+    first ``layers`` layers copied from that model instead. Returns the
+    model and its LoRA factors (requires_grad on)."""
+    import dataclasses
+
+    from slam_llm_tpu_torch.models.llm import CausalLM
+    from slam_llm_tpu_torch.pipeline.common import init_params_
+
+    cfg = dataclasses.replace(cfg, lora_rank=8, n_layers=layers or cfg.n_layers)
+    model = CausalLM(cfg, device="cuda")
+    if like is None:
+        init_params_(model, torch.Generator(device="cuda").manual_seed(22))
+        redraw_adapters(model)
+    else:
+        keep = {n: p for n, p in like.state_dict().items()
+                if not n.startswith("layers.") or int(n.split(".")[1]) < cfg.n_layers}
+        model.load_state_dict(keep)
+    lora = {n: p for n, p in model.named_parameters() if "lora_" in n}
+    for p in lora.values():
+        p.requires_grad_(True)
+    return model, lora
+
+
+def lm_grads(model, lora: dict, ids, mask, labels) -> tuple:
+    """(loss, the LoRA gradients) of one forward + backward through
+    ``loss_and_accuracy`` (the fused CE), remat as configured."""
+    loss, _ = model.loss_and_accuracy(model.embed(ids), mask, labels)
+    grads = torch.autograd.grad(loss, list(lora.values()))
+    return float(loss.detach()), dict(zip(lora, grads))
+
+
+def train_decoder(model, lora: dict, batch, steps: int, label: str) -> list:
+    """``steps`` training steps on the card: loss and gradients, then one
+    AdamW update of the LoRA factors (``train.optimizer``); every LoRA
+    factor moves. Returns the steps' (loss, seconds)."""
+    from slam_llm_tpu_torch.train.optimizer import AdamW
+
+    before = {n: p.detach().clone() for n, p in lora.items()}
+    opt = AdamW(list(lora.values()), lambda count: 1e-3)
+    out = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = lm_grads(model, lora, *batch)
+        opt.step(list(grads.values()))
+        torch.cuda.synchronize()
+        out.append((loss, time.perf_counter() - t0))
+    still = [n for n, p in lora.items() if torch.equal(p, before[n])]
+    if still or not all(np.isfinite(loss) for loss, _ in out):
+        raise AssertionError(f"{label}: losses {out}, LoRA factors that did not move: {still[:4]}")
+    return out
+
+
+def decoder_against_cpu(model, label: str, layers: int, batch, loss_rtol: float, min_cos: float) -> None:
+    """``model`` cut to ``layers`` layers at its full widths: the loss and
+    LoRA gradients of ``batch`` on the card, and the CPU side queued: the
+    same on the CPU plain path, the loss within ``loss_rtol`` relative and
+    every LoRA gradient within cosine ``min_cos``."""
+    small, lora = lora_decoder(model.cfg, layers, like=model)
+    card_loss, card = lm_grads(small, lora, *batch)
+    card = {n: g.float().cpu() for n, g in card.items()}
+    small.to("cpu")
+    cpu_batch = tuple(x.cpu() for x in batch)
+
+    def cpu_side():
+        t0 = time.perf_counter()
+        cpu_loss, cpu = lm_grads(small, lora, *cpu_batch)
+        cos = _cosines(card, {n: g.float() for n, g in cpu.items()})
+        rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        log(f"[routes] {label} at {layers} layers, card vs CPU plain path ({time.perf_counter() - t0:.1f} s on CPU), "
+            f"batch {tuple(batch[0].shape)}: loss {card_loss:.7f} vs {cpu_loss:.7f} ({rel:.2e} relative, limit "
+            f"{loss_rtol:.0e}); {len(cos)} LoRA gradients, min cosine {min(cos.values()):.7f} (limit {min_cos})")
+        if rel > loss_rtol or min(cos.values()) < min_cos:
+            raise AssertionError(f"{label}: loss {card_loss} vs {cpu_loss}, min cosine {min(cos.values())}")
+
+    on_cpu(f"routes {label}", cpu_side)
+
+
+def routes_f32_decoder() -> dict:
+    """(a) ``models.llm.CausalLM`` at TinyLlama-1.1B's widths in f32 (all
+    22 layers, LoRA r8 on q / v, no int8 base): two training steps of the
+    8 x 512 left-padded batch (K1 f32 and K4 f32 with fused RoPE once a
+    layer each), one prefill (K1 f32 on rotated q / k once a layer); the
+    card against the CPU at ROUTES_CHECK_LAYERS layers (TF32 off): the loss
+    within 1e-5 relative, every LoRA gradient within cosine 0.9999."""
+    import dataclasses
+
+    from slam_llm_tpu_torch.models.llm import LLMConfig, init_kv_cache
+
+    cfg = dataclasses.replace(LLMConfig.tinyllama_1_1b(), dtype=torch.float32)
+    model, lora = lora_decoder(cfg)
+    batch = text_batch(cfg.vocab_size, ROUTES_BATCH, ROUTES_T, 31)
+    steps, launches = run_counted(lambda: train_decoder(model, lora, batch, ROUTES_STEPS, "f32 decoder"))
+    step_launches = dict(launches)
+
+    def prefill():
+        cache = init_kv_cache(cfg, ROUTES_BATCH, ROUTES_T + 1, gen_start=ROUTES_T, device="cuda")
+        with torch.inference_mode():
+            x, _ = model.prefill_hidden(model.embed(batch[0]), batch[1], cache)
+            return model._head(x[:, -1])
+
+    logits, pre = run_counted(prefill)
+    launches = {k: launches[k] + pre[k] for k in launches}
+    log(f"[routes] (a) f32 TinyLlama-1.1B, {cfg.n_layers} layers, LoRA r8, batch {tuple(batch[0].shape)}: steps "
+        f"{[(round(l, 5), round(sec, 3)) for l, sec in steps]} (loss, s); K1 f32 {step_launches['flash_attention_fwd_f32']}"
+        f" / K4 f32 {step_launches['flash_attention_bwd_f32']} launches in {ROUTES_STEPS} steps, K1 f32 "
+        f"{pre['flash_attention_fwd_f32']} in the prefill; last-position logits {tuple(logits.shape)} finite "
+        f"{bool(torch.isfinite(logits).all())}")
+    per_step = cfg.n_layers * ROUTES_STEPS
+    if (step_launches["flash_attention_fwd_f32"] != per_step or step_launches["flash_attention_bwd_f32"] != per_step
+            or pre["flash_attention_fwd_f32"] != cfg.n_layers or not bool(torch.isfinite(logits).all())
+            or any(launches[k] for k in ("flash_attention_fwd", "flash_attention_bwd", *ROUTES_BYPASSED))):
+        raise AssertionError(f"routes (a): launches {launches}")
+    check = tuple(x[:2] for x in batch)  # a full row and a left-padded one
+    decoder_against_cpu(model, "(a) f32 decoder", ROUTES_CHECK_LAYERS, check, 1e-5, 0.9999)
+    del model, lora
+    torch.cuda.empty_cache()
+    return launches
+
+
+def routes_head_dim_256() -> dict:
+    """(b) ``models.llm.CausalLM`` at gemma-2b's widths (``gemma_2b_widths``,
+    bf16, 18 layers, LoRA r8 on q / v): two training steps of the 8 x 512
+    left-padded batch (K1 and K4 at D 256 with fused RoPE and 8:1 GQA once
+    a layer each), a prefill of the 8 prompts (K1 at D 256 on rotated q /
+    k), ROUTES_DECODE_STEPS greedy steps through the KV cache; the card
+    against the CPU at ROUTES_CHECK_LAYERS layers: the loss within 1e-2,
+    every LoRA gradient within cosine 0.99."""
+    from slam_llm_tpu_torch.models.llm import init_kv_cache
+
+    cfg = gemma_2b_widths()
+    t0 = time.perf_counter()
+    model, lora = lora_decoder(cfg)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = text_batch(cfg.vocab_size, ROUTES_BATCH, ROUTES_T, 32)
+    steps, launches = run_counted(lambda: train_decoder(model, lora, batch, ROUTES_STEPS, "head_dim 256 decoder"))
+    step_launches = dict(launches)
+    ids, mask, _ = batch
+    t = ids.shape[1]
+
+    def generate():
+        cache = init_kv_cache(cfg, ROUTES_BATCH, t + ROUTES_DECODE_STEPS, gen_start=t, device="cuda")
+        step_mask = torch.cat([mask, torch.zeros(ROUTES_BATCH, ROUTES_DECODE_STEPS, dtype=mask.dtype,
+                                                 device="cuda")], 1)
+        pos = mask.sum(1, keepdim=True).long()
+        with torch.inference_mode():
+            x, cache = model.prefill_hidden(model.embed(ids), mask, cache)
+            tok = model._head(x[:, -1:]).argmax(-1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = [tok]
+            for s_ in range(ROUTES_DECODE_STEPS - 1):
+                step_mask[:, t + s_] = 1
+                logits, cache = model.decode_step(model.embed(tok), cache, t + s_, step_mask, pos + s_)
+                tok = logits.argmax(-1)
+                out.append(tok)
+            torch.cuda.synchronize()
+        return torch.cat(out, 1), (time.perf_counter() - t1) / max(ROUTES_DECODE_STEPS - 1, 1)
+
+    (tokens, step_s), gen_launches = run_counted(generate)
+    launches = {k: launches[k] + gen_launches[k] for k in launches}
+    log(f"[routes] (b) head_dim-256 decoder at gemma-2b's widths: {n_params / 1e9:.3f} B parameters "
+        f"(built and drawn in {build_s:.1f} s), batch {tuple(ids.shape)}: steps "
+        f"{[(round(l, 5), round(sec, 3)) for l, sec in steps]} (loss, s); K1 {step_launches['flash_attention_fwd']} / "
+        f"K4 {step_launches['flash_attention_bwd']} launches in {ROUTES_STEPS} steps; prefill + "
+        f"{ROUTES_DECODE_STEPS - 1} decode steps: tokens {tuple(tokens.shape)}, {1000 * step_s:.1f} ms a decode step, "
+        f"K1 {gen_launches['flash_attention_fwd']}; first row {tokens[0].tolist()}")
+    per_step = cfg.n_layers * ROUTES_STEPS
+    if (step_launches["flash_attention_fwd"] != per_step or step_launches["flash_attention_bwd"] != per_step
+            or gen_launches["flash_attention_fwd"] != cfg.n_layers
+            or tuple(tokens.shape) != (ROUTES_BATCH, ROUTES_DECODE_STEPS)
+            or any(launches[k] for k in ("flash_attention_fwd_f32", "flash_attention_bwd_f32", *ROUTES_BYPASSED))):
+        raise AssertionError(f"routes (b): launches {launches}, tokens {tuple(tokens.shape)}")
+    ids_c, mask_c, labels_c = text_batch(cfg.vocab_size, 2, ROUTES_T // 2, 33)
+    check = (ids_c[1:], mask_c[1:], labels_c[1:])  # one left-padded row of 256: the CPU's bf16 head is 256000 wide
+    decoder_against_cpu(model, "(b) head_dim-256 decoder", ROUTES_CHECK_LAYERS, check, 1e-2, 0.99)
+    del model, lora
+    torch.cuda.empty_cache()
+    return launches
+
+
+def routes_cross_attention() -> dict:
+    """(c) ``layers.mha_attention`` with gradients at Tq != Tk (not causal,
+    keys right-padded), in bf16 and f32: 256 queries over 1500 keys and
+    1500 over 256 at (8, ., 12/12, 64), and 256 over 1500 at head_dim 256
+    (8/1 heads). Each output and gradient against its twin on the kernel's
+    own (out, lse): bf16 out within 2e-2 abs, gradients within 2.4e-3
+    relative L2; f32 out within 2e-5 abs, gradients within 2e-5 of the
+    twin's largest entry (``bwd_f32_error``)."""
+    from slam_llm_tpu_torch.models.layers import mha_attention
+    from slam_llm_tpu_torch.ops.kernels.flash_attention import (
+        bwd_f32_error,
+        flash_attention_bwd_ref,
+        flash_attention_fwd,
+        flash_attention_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    shapes = [(tq, tk, 12, 12, 64) for tq, tk in ROUTES_CROSS] + [(256, 1500, 8, 1, 256)]
+    total = None
+    for dt in (torch.bfloat16, torch.float32):
+        for tq, tk, h, hkv, d in shapes:
+            q = torch.randn(ROUTES_BATCH, tq, h, d, generator=gen, device="cuda").to(dt)
+            k, v = (torch.randn(ROUTES_BATCH, tk, hkv, d, generator=gen, device="cuda").to(dt) for _ in range(2))
+            dout = torch.randn(ROUTES_BATCH, tq, h, d, generator=gen, device="cuda").to(dt)
+            mask = _padding_mask(ROUTES_BATCH, tk, "right")
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+            def step():
+                out = mha_attention(*leaves, kv_mask=mask)
+                return out.detach(), torch.autograd.grad(out, leaves, dout)
+
+            (out, got), launches = run_counted(step)
+            total = launches if total is None else {n: total[n] + launches[n] for n in total}
+            k1, k4 = (("flash_attention_fwd", "flash_attention_bwd") if dt == torch.bfloat16
+                      else ("flash_attention_fwd_f32", "flash_attention_bwd_f32"))
+            if launches[k1] != 1 or launches[k4] != 1 or sum(launches.values()) != 2:
+                raise AssertionError(f"routes (c) {(tq, tk, h, hkv, d)} {dt}: launches {launches}")
+            k_out, k_lse = flash_attention_fwd(q, k, v, mask)  # the comparison's (out, lse): not counted
+            if dt == torch.float32:
+                ref, _ = flash_attention_ref(q, k, v, mask)
+                want = flash_attention_bwd_ref(q, k, v, mask, k_out, k_lse, dout)
+                out_err, grad_err = (out - ref).abs().max().item(), bwd_f32_error(got, want, q, k, v, dout)
+                ok = out_err <= 2e-5 and grad_err <= 2e-5
+                what = "of the twin's largest entry"
+            else:
+                ref, _ = flash_attention_ref(q.float(), k.float(), v.float(), mask)
+                want = flash_attention_bwd_ref(q.float(), k.float(), v.float(), mask, k_out.float(), k_lse,
+                                               dout.float())
+                out_err = (out.float() - ref).abs().max().item()
+                grad_err = max(((g.float() - w).norm() / w.norm()).item() for g, w in zip(got, want))
+                ok = out_err <= 2e-2 and grad_err <= K4_ROUTES_REL_L2
+                what = "relative L2"
+            log(f"[routes] (c) mha_attention {str(dt)[6:]} (8, {tq} queries over {tk} keys, {h}/{hkv}, {d}), keys "
+                f"right-padded: max|out - twin| {out_err:.3e}, gradients {grad_err:.3e} {what}; {k1} / {k4} once each")
+            if not ok:
+                raise AssertionError(f"routes (c) {(tq, tk, h, hkv, d)} {dt}: out {out_err}, gradients {grad_err}")
+    return total
+
+
+def run_routes() -> tuple:
+    """Phase 22: the flash kernels' last routes on the paths that reach
+    them: (a) an f32 TinyLlama-1.1B decoder (K1 f32 / K4 f32 with fused
+    RoPE), (b) a head_dim-256 decoder at gemma-2b's widths (K1 / K4 at D
+    256), (c) ``mha_attention`` at Tq != Tk (K4 and K4 f32 over Tq queries
+    and Tk keys). Returns the launches of the phase and by part."""
+    by_part = {"f32_fused_rope": routes_f32_decoder(), "head_dim_256": routes_head_dim_256(),
+               "tq_ne_tk": routes_cross_attention()}
+    total = {n: sum(part[n] for part in by_part.values()) for n in by_part["f32_fused_rope"]}
+    missing = [n for n in ROUTES_PATH if total[n] == 0]
+    if missing:
+        raise AssertionError(f"the routes path never launched {missing}")
+    return total, by_part
+
+
 PHASE_SECONDS = {}
 
 
@@ -6392,8 +6778,9 @@ def main() -> int:
     seld_encoder = timed("seld_encoder", run_seld_encoder, seld_files)
     vsr = timed("vsr", run_vsr)
     large_scale = timed("large_scale", run_large_scale)
-    # phase 21 here: its CPU sides (~50 s) run beside phases 16-18
+    # phases 21-22 here: their CPU sides run beside phases 16-18
     text, beats_tokenizer, ppl = timed("text", run_text)
+    routes, routes_by_part = timed("routes", run_routes)
     s2s = timed("s2s", run_s2s)
     vallex = timed("vallex", run_vallex)
     peft = timed("peft", run_peft)
@@ -6404,7 +6791,7 @@ def main() -> int:
              "wavlm": wavlm, "aac": aac, "clap": clap, **music_spatial, "seld_encoder": seld_encoder, "vsr": vsr,
              "large_scale": large_scale, "s2s": s2s,
              "vallex": vallex, "peft": peft, "text": text, "beats_tokenizer": beats_tokenizer, "ppl": ppl,
-             "distributed": distributed, "tensor_parallel": tensor_parallel}
+             "routes": routes, "distributed": distributed, "tensor_parallel": tensor_parallel}
     for r in results:
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
@@ -6415,7 +6802,13 @@ def main() -> int:
         raise AssertionError(f"the s2s path launched K1 {s2s['flash_attention_fwd']} / K4 {s2s['flash_attention_bwd']}")
     if not (vallex["flash_attention_fwd"] and vallex["flash_attention_bwd"]) or any(vallex[k] for k in VX_BYPASSED):
         raise AssertionError(f"the vallex path launched {vallex}")
-    log(f"[chip_smoke] phases 1-21 in {time.perf_counter() - t0:.1f} s, by phase {PHASE_SECONDS} | {SMI}")
+    # each new route of phase 22 launched on its own part of the path: f32 with fused RoPE, D 256, Tq != Tk
+    want = {"f32_fused_rope": ("flash_attention_fwd_f32", "flash_attention_bwd_f32"),
+            "head_dim_256": ("flash_attention_fwd", "flash_attention_bwd"),
+            "tq_ne_tk": ("flash_attention_bwd", "flash_attention_bwd_f32")}
+    if any(not routes_by_part[part][n] for part, names in want.items() for n in names):
+        raise AssertionError(f"the routes phase launched {routes_by_part}")
+    log(f"[chip_smoke] phases 1-22 in {time.perf_counter() - t0:.1f} s, by phase {PHASE_SECONDS} | {SMI}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

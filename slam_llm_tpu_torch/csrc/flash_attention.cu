@@ -51,6 +51,10 @@
 // Shared memory per block: 2 x Q 16 KB + 3 x (K + V) 32 KB + 18 KB of
 // staging = 147 KB at D = 64 (115 KB with 64-key tiles); 2 x 32 KB + 3 x
 // 32 KB + 34 KB = 195 KB at D = 128 (plus barriers and the key bits).
+// D = 192 / 256 keep one Q buffer (48 / 64 KB; the next unit's Q loads
+// once this unit's last tile has read it), 3 / 2 stages of 64-key K + V
+// tiles (48 / 64 KB each) and write the output from registers: 192 KB. A
+// warpgroup's P V runs as 128- and 64-column wgmma (wgmma_rs).
 
 #include "flash_common.cuh"
 
@@ -78,21 +82,26 @@ constexpr int kThreads = 384;  // consumer warpgroups 0 and 1, then the producer
 
 // byte offsets in the block's shared memory (after aligning it to 1024);
 // BN, keys per tile: 128 at D = 64 without the causal mask, else 64 (less of
-// the causal diagonal is wasted, and D = 128 fits)
+// the causal diagonal is wasted, and D >= 128 fits). D = 192 / 256 (a Q
+// tile of 48 / 64 KB) keep one Q buffer and write the output from
+// registers: two buffers and the staging rows would pass the 227 KB.
 template <int D, int BN>
 struct FwdSmem {
-  static constexpr int S = BN == 128 ? 3 : (D == 64 ? 4 : 3);  // ring stages
+  static constexpr bool WIDE = D > 128;
+  static constexpr int S = BN == 128 ? 3 : (D == 64 ? 4 : (D == 256 ? 2 : 3));  // ring stages
+  static constexpr int QB = WIDE ? 1 : 2;  // Q buffers: with two, the next unit's loads while this one runs
   static constexpr int words = BN / 32;
   static constexpr int kv_tile = BN * D * 2;
   static constexpr int q_tile = kRows * D * 2;
   static constexpr int pitch = D * 2 + 16;  // staging row: 16 bytes of pad keep the fragment writes conflict-free
-  static constexpr int q = 0;  // two Q buffers: the next unit's loads while this one runs
-  static constexpr int k = 2 * q_tile;
+  static constexpr int q = 0;
+  static constexpr int k = QB * q_tile;
   static constexpr int v = k + S * kv_tile;
-  static constexpr int stage = v + S * kv_tile;  // the output rows on their way out
-  static constexpr int bits = stage + kRows * pitch;
+  static constexpr int stage = v + S * kv_tile;  // the output rows on their way out (D <= 128)
+  static constexpr int bits = stage + (WIDE ? 0 : kRows * pitch);
   static constexpr int bars = bits + S * words * 4;
   static constexpr int total = bars + (4 + 2 * S) * 8 + 1024;  // + the alignment slack
+  static_assert(total <= 232448, "K1's shared memory passes the H100's 227 KB");
 };
 
 struct FwdParams {
@@ -119,36 +128,45 @@ __device__ __forceinline__ void fwd_unit(const FwdParams& p, int u, int& b, int&
 }
 
 // The fused RoPE of a warpgroup's 64 Q rows: each thread owns D / 32 chunks
-// of 8 lower-half columns (and their upper partners); their table entries
-// are loaded before the Q tile lands, the rotation runs in shared memory.
+// of 8 lower-half columns (and their upper partners); at D <= 128 their
+// table entries are loaded before the Q tile lands (at D = 192 / 256 they
+// would hold 96 / 128 registers: each chunk's are loaded as it is rotated),
+// the rotation runs in shared memory.
 template <int D>
 struct QRope {
-  static constexpr int N = D / 32, CH = D / 16;
-  float cs[N][8], sn[N][8];
+  static constexpr int N = D / 32, CH = D / 16, HELD = D <= 128 ? N : 1;
+  float cs[HELD][8], sn[HELD][8];
 
-  __device__ __forceinline__ void load(const FwdParams& p, int b, int q0, int row0, int t) {
-#pragma unroll
-    for (int m = 0; m < N; ++m) {
-      const int i = t + 128 * m, r = row0 + i / CH, c = (i % CH) * 8, pos = q0 + r / p.hb;
-      if (r < p.hb * p.bt && pos < p.tq) {
-        const long long tab = (static_cast<long long>(b) * p.tq + pos) * (D / 2) + c;
-        slam::load8(cs[m], p.cos_t + tab);
-        slam::load8(sn[m], p.sin_t + tab);
-      }
+  __device__ __forceinline__ void load_one(float (&c8)[8], float (&s8)[8], const FwdParams& p, int b, int q0, int row0,
+                                           int t, int m) {
+    const int i = t + 128 * m, r = row0 + i / CH, c = (i % CH) * 8, pos = q0 + r / p.hb;
+    if (r < p.hb * p.bt && pos < p.tq) {
+      const long long tab = (static_cast<long long>(b) * p.tq + pos) * (D / 2) + c;
+      slam::load8(c8, p.cos_t + tab);
+      slam::load8(s8, p.sin_t + tab);
     }
   }
 
-  __device__ __forceinline__ void apply(uint8_t* qt, const FwdParams& p, int q0, int row0, int t) {
+  __device__ __forceinline__ void load(const FwdParams& p, int b, int q0, int row0, int t) {
+    if constexpr (D <= 128) {
+#pragma unroll
+      for (int m = 0; m < N; ++m) load_one(cs[m], sn[m], p, b, q0, row0, t, m);
+    }
+  }
+
+  __device__ __forceinline__ void apply(uint8_t* qt, const FwdParams& p, int b, int q0, int row0, int t) {
 #pragma unroll
     for (int m = 0; m < N; ++m) {
       const int i = t + 128 * m, r = row0 + i / CH, c = (i % CH) * 8, cu = c + D / 2;
       if (r >= p.hb * p.bt || q0 + r / p.hb >= p.tq) continue;
+      const int slot = D <= 128 ? m : 0;
+      if constexpr (D > 128) load_one(cs[0], sn[0], p, b, q0, row0, t, m);
       uint4* lo = reinterpret_cast<uint4*>(qt + (c / 64) * kRows * kPanelBytes + r * kPanelBytes +
                                            ((((c % 64) / 8) ^ (r & 7)) << 4));
       uint4* hi = reinterpret_cast<uint4*>(qt + (cu / 64) * kRows * kPanelBytes + r * kPanelBytes +
                                            ((((cu % 64) / 8) ^ (r & 7)) << 4));
       uint4 x = *lo, y = *hi;
-      slam::rope_chunk(x, y, cs[m], sn[m]);
+      slam::rope_chunk(x, y, cs[slot], sn[slot]);
       *lo = x;
       *hi = y;
     }
@@ -160,7 +178,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tma_q, const __grid_constant__ CUtensorMap tma_k,
                      const __grid_constant__ CUtensorMap tma_v, const FwdParams p) {
   using L = FwdSmem<D, BN>;
-  constexpr int S = L::S, PANELS = D / 64, W = L::words;
+  constexpr int S = L::S, QB = L::QB, PANELS = D / 64, W = L::words;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* qs = smem + L::q;
@@ -186,9 +204,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     slam::mbar_init_fence();
   }
-  if (wg < 2) {  // rows past hb * bt are never loaded: zero them once, in both buffers
+  if (wg < 2) {  // rows past hb * bt are never loaded: zero them once, in every buffer
     const int n = (kRows - rows_used) * 8;  // 16-byte chunks per panel
-    for (int i = threadIdx.x; i < 2 * n * PANELS; i += 256)
+    for (int i = threadIdx.x; i < QB * n * PANELS; i += 256)
       *reinterpret_cast<uint4*>(qs + (i / n) * kRows * kPanelBytes + rows_used * kPanelBytes + (i % n) * 16) =
           make_uint4(0, 0, 0, 0);
     fence_async_shared();
@@ -216,9 +234,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int u = blockIdx.x; u < p.units; u += gridDim.x, ++j) {
         int b, hg, q0, nkt;
         fwd_unit<BN>(p, u, b, hg, q0, nkt);
-        const int hk = hg * p.hb / G, qb = j & 1;
+        const int hk = hg * p.hb / G, qb = j % QB;
         if (lane == 0) {
-          mbar_wait(&q_empty[qb], ((j >> 1) & 1) ^ 1);
+          mbar_wait(&q_empty[qb], ((j / QB) & 1) ^ 1);
           mbar_expect_tx(&q_full[qb], PANELS * rows_used * kPanelBytes);
           for (int pn = 0; pn < PANELS; ++pn)
             slam::tma_load_5d(qs + qb * L::q_tile + pn * kRows * kPanelBytes, &tma_q, &q_full[qb], 64 * pn, 0, hg,
@@ -260,7 +278,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int u = blockIdx.x; u < p.units; u += gridDim.x, ++j) {
       int b, hg, q0, nkt;
       fwd_unit<BN>(p, u, b, hg, q0, nkt);
-      const int qb = j & 1;
+      const int qb = j % QB;
+      const uint32_t qpar = (j / QB) & 1;
       uint8_t* qt = qs + qb * L::q_tile;
       int rr[2], pos[2];
 #pragma unroll
@@ -272,12 +291,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (p.cos_t != nullptr) {
         QRope<D> rope;
         rope.load(p, b, q0, 64 * wg, t);
-        mbar_wait(&q_full[qb], (j >> 1) & 1);
-        rope.apply(qt, p, q0, 64 * wg, t);
+        mbar_wait(&q_full[qb], qpar);
+        rope.apply(qt, p, b, q0, 64 * wg, t);
         fence_async_shared();
         slam::named_sync(2 + wg, 128);
       } else {
-        mbar_wait(&q_full[qb], (j >> 1) & 1);
+        mbar_wait(&q_full[qb], qpar);
       }
 
       float o[D / 2];
@@ -365,7 +384,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint8_t* vts = vs + stage * L::kv_tile;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk) slam::wgmma_rs<D>(o, pa[kk], mnmajor_step(vts, BN, kk));
+        for (int kk = 0; kk < BN / 16; ++kk) slam::wgmma_rs<D>(o, pa[kk], vts, BN, kk);
         wgmma_commit();
         prev = stage;
         if (++stage == S) {
@@ -385,22 +404,33 @@ __global__ void __launch_bounds__(kThreads, 1)
         l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
         l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
       }
-      // the warpgroup's rows go out through its staging rows, 16 bytes a thread
-      slam::named_sync(2 + wg, 128);  // the last unit's rows are out
+      // D <= 128: the warpgroup's rows go out through its staging rows, 16
+      // bytes a thread; D = 192 / 256: from the registers, 4 bytes a thread
+      if constexpr (!L::WIDE) slam::named_sync(2 + wg, 128);  // the last unit's rows are out
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const float l_safe = fmaxf(l_run[h], 1e-30f);
         // a row that saw no valid key keeps the sentinel max: its output is 0
         const float inv = (m_run[h] > 0.5f * kNeg ? 1.f : 0.f) / l_safe;
-        uint8_t* row = stg + rr[h] * L::pitch;
+        const bool row_ok = rr[h] < rows_used && pos[h] < p.tq;
+        const long long orow = (static_cast<long long>(b) * p.tq + pos[h]) * p.h + hg * p.hb + rr[h] % p.hb;
+        if constexpr (L::WIDE) {
+          if (row_ok) {
 #pragma unroll
-        for (int jj = 0; jj < D / 8; ++jj)
-          *reinterpret_cast<uint32_t*>(row + (8 * jj + 2 * tq4) * 2) =
-              pack_bf16(o[4 * jj + 2 * h] * inv, o[4 * jj + 2 * h + 1] * inv);
-        if (tq4 == 0 && rr[h] < rows_used && pos[h] < p.tq)
-          p.lse[(static_cast<long long>(b) * p.tq + pos[h]) * p.h + hg * p.hb + rr[h] % p.hb] =
-              m_run[h] + log2f(l_safe);
+            for (int jj = 0; jj < D / 8; ++jj)
+              *reinterpret_cast<uint32_t*>(p.out + orow * D + 8 * jj + 2 * tq4) =
+                  pack_bf16(o[4 * jj + 2 * h] * inv, o[4 * jj + 2 * h + 1] * inv);
+          }
+        } else {
+          uint8_t* row = stg + rr[h] * L::pitch;
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj)
+            *reinterpret_cast<uint32_t*>(row + (8 * jj + 2 * tq4) * 2) =
+                pack_bf16(o[4 * jj + 2 * h] * inv, o[4 * jj + 2 * h + 1] * inv);
+        }
+        if (tq4 == 0 && row_ok) p.lse[orow] = m_run[h] + log2f(l_safe);
       }
+      if constexpr (L::WIDE) continue;
       slam::named_sync(2 + wg, 128);
 #pragma unroll
       for (int c = t; c < 64 * (D / 8); c += 128) {
@@ -468,7 +498,7 @@ __global__ void __launch_bounds__(128) wgmma_probe_kernel(const __grid_constant_
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) slam::wgmma_rs<D>(o, pa[kk], mnmajor_step(vs, N, kk));
+  for (int kk = 0; kk < N / 16; ++kk) slam::wgmma_rs<D>(o, pa[kk], vs, N, kk);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(o);
@@ -550,7 +580,7 @@ extern "C" int slam_flash_fwd(const void* q, const void* k, const void* v, const
                               int hb, int bn, int sms, void* stream) {
   const bool rope = cos_t != nullptr;
   if (b < 1 || tq < 1 || tk < 1 || hkv < 1 || h % hkv != 0 || hb < 1 || hb > kRows || (h / hkv) % hb != 0 ||
-      sms < 1 || (d != 64 && d != 128) || (causal && tq != tk) ||
+      sms < 1 || (d != 64 && d != 128 && d != 192 && d != 256) || (causal && tq != tk) ||
       (rope && (sin_t == nullptr || k_rot == nullptr || tq != tk)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -563,8 +593,11 @@ extern "C" int slam_flash_fwd(const void* q, const void* k, const void* v, const
   long long ks[3] = {ksb, kst, ksh};
   const void* kk = k;
   if (rope) {
-    const cudaError_t err = d == 64 ? launch_rope<64>(k, k_rot, p.cos_t, p.sin_t, b, tk, hkv, ks, st)
-                                    : launch_rope<128>(k, k_rot, p.cos_t, p.sin_t, b, tk, hkv, ks, st);
+    cudaError_t err = cudaErrorInvalidValue;
+    if (d == 64) err = launch_rope<64>(k, k_rot, p.cos_t, p.sin_t, b, tk, hkv, ks, st);
+    if (d == 128) err = launch_rope<128>(k, k_rot, p.cos_t, p.sin_t, b, tk, hkv, ks, st);
+    if (d == 192) err = launch_rope<192>(k, k_rot, p.cos_t, p.sin_t, b, tk, hkv, ks, st);
+    if (d == 256) err = launch_rope<256>(k, k_rot, p.cos_t, p.sin_t, b, tk, hkv, ks, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     kk = k_rot;
     ks[0] = static_cast<long long>(tk) * hkv * d;
@@ -575,6 +608,8 @@ extern "C" int slam_flash_fwd(const void* q, const void* k, const void* v, const
   if (d == 64 && bn == 128) err = launch_fwd<64, 128>(q, kk, v, p, qs, ks, vs, sms, st);
   if (d == 64 && bn == 64) err = launch_fwd<64, 64>(q, kk, v, p, qs, ks, vs, sms, st);
   if (d == 128 && bn == 64) err = launch_fwd<128, 64>(q, kk, v, p, qs, ks, vs, sms, st);
+  if (d == 192 && bn == 64) err = launch_fwd<192, 64>(q, kk, v, p, qs, ks, vs, sms, st);
+  if (d == 256 && bn == 64) err = launch_fwd<256, 64>(q, kk, v, p, qs, ks, vs, sms, st);
   return static_cast<int>(err);
 }
 

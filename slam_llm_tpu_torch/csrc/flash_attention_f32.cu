@@ -11,8 +11,10 @@
 // mask, GQA (query head h reads kv head h / (H / Hkv)), causal start-aligned
 // (key j visible to query i iff j <= i; the caller asks for it only when
 // Tq == Tk), lse (B, Tq, H) as log2-sum-exp2, and query rows that see no
-// valid key written as exactly 0. Fused RoPE is not taken here: the wrapper
-// raises for it.
+// valid key written as exactly 0. Fused RoPE (cos / sin (B, T, D/2), Tq ==
+// Tk): a pass rotates q and k into the caller's f32 scratch first
+// (flash_f32.cuh: rope_pass, apply_rope_tables' f32 numerics), then the
+// products run on the rotated copies.
 //
 // Bound on the H100: the operations. At Spatial-AST's (16, 515, 12/12, 64)
 // a call is 13.0 GFLOP against 101 MB of q / k / v / out: 0.079 ms at the
@@ -43,6 +45,17 @@
 // which cost more on the card than the consumers gain.
 // D = 64: NC = 2 (128 rows), 64-key tiles; D = 128: NC = 1, 32-key tiles.
 // Shared memory: Q hi + lo 64 KB, 2 stages of K + Vt hi + lo 64 KB: 193 KB.
+//
+// D = 192 / 256 take a CUDA-core kernel instead (namespace fma, PR 12's
+// design for D 64 / 128): a 64-row Q tile's hi / lo alone would fill 96 /
+// 128 KB and the accumulator with its fresh tile 2 x D / 2 registers a
+// thread, so the 3xTF32 layout does not fit. One block of 256 threads per
+// (64 query rows, query head, batch row), causal blocks longest first:
+// Q staged transposed and pre-scaled (Qt[d][row], rows padded to 68
+// floats), keys in tiles of 32 (K rows padded to D + 1 floats, V), thread
+// (ty, tx) owns rows 4 ty .. 4 ty + 3 and keys tx, tx + 16 of the score
+// tile and output columns tx + 16 c; f32 FMA throughout. Bound: the 67
+// TFLOP/s of f32 FMA. Shared memory 108 / 141 KB.
 
 #include "flash_f32.cuh"
 
@@ -260,6 +273,193 @@ __global__ void __launch_bounds__(Fwd<D>::THREADS, 1) flash_fwd_f32_kernel(const
   }
 }
 
+namespace fma {
+
+constexpr int kBq = 64;        // query rows of a block
+constexpr int kBk = 32;        // keys of a tile
+constexpr int kKJ = kBk / 16;  // key columns a thread owns
+constexpr int kThreads = 256;  // 16 row groups x 16 lanes
+constexpr int kRowPad = kBq + 4;
+
+template <int D>
+struct Layout {  // float offsets
+  static constexpr int kKs = D + 1;  // K row length in shared memory
+  static constexpr int kQt = 0;
+  static constexpr int kK = kQt + D * kRowPad;
+  static constexpr int kV = kK + kBk * kKs;
+  static constexpr int kPt = kV + kBk * D;
+  static constexpr int kBytes = (kPt + kBk * kRowPad) * 4;
+  static_assert(kBytes <= 232448, "the FMA forward's shared memory passes the H100's 227 KB");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_f32_fma_kernel(const Params p) {
+  using L = Layout<D>;
+  constexpr int kCols = D / 16;  // output columns a thread owns
+  extern __shared__ __align__(16) float fsm[];
+  float* qt = fsm + L::kQt;
+  float* ks = fsm + L::kK;
+  float* vs = fsm + L::kV;
+  float* pt = fsm + L::kPt;
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int n_qt = (p.tq + kBq - 1) / kBq;
+  const int q0 = (p.causal ? n_qt - 1 - static_cast<int>(blockIdx.x) : static_cast<int>(blockIdx.x)) * kBq;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (p.h / p.hkv);
+  const float* qb = p.q + b * p.qsb + head * p.qsh;
+  const float* kb = p.k + b * p.ksb + kvh * p.ksh;
+  const float* vb = p.v + b * p.vsb + kvh * p.vsh;
+  const int* mb = p.mask + static_cast<long long>(b) * p.tk;
+
+  for (int i = tid; i < kBq * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    qt[d * kRowPad + r] = q0 + r < p.tq ? qb[(q0 + r) * p.qst + d] * p.scale2 : 0.0f;
+  }
+
+  float m[4], l[4], acc[4][kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
+  }
+
+  const int row0 = q0 + ty * 4;  // the thread's first query row
+  int n_tiles = (p.tk + kBk - 1) / kBk;
+  if (p.causal) n_tiles = min(n_tiles, (min(q0 + kBq, p.tq) + kBk - 1) / kBk);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * kBk;
+    __syncthreads();  // the previous tile's K, V and P are no longer read (and Q is staged)
+    for (int i = tid; i < kBk * D; i += kThreads) {
+      const int c = i / D, d = i % D;
+      const bool in = k0 + c < p.tk;
+      ks[c * L::kKs + d] = in ? kb[(k0 + c) * p.kst + d] : 0.0f;
+      vs[c * D + d] = in ? vb[(k0 + c) * p.vst + d] : 0.0f;
+    }
+    __syncthreads();
+
+    float s[4][kKJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kKJ; ++j) s[i][j] = 0.0f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      const float4 qv = *reinterpret_cast<const float4*>(qt + d * kRowPad + ty * 4);
+      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
+      float kv[kKJ];
+#pragma unroll
+      for (int j = 0; j < kKJ; ++j) kv[j] = ks[(tx + 16 * j) * L::kKs + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kKJ; ++j) s[i][j] = fmaf(qa[i], kv[j], s[i][j]);
+    }
+
+    bool key_ok[kKJ];
+#pragma unroll
+    for (int j = 0; j < kKJ; ++j) {
+      const int c = k0 + tx + 16 * j;
+      key_ok[j] = c < p.tk && mb[c] != 0;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = kNeg;
+#pragma unroll
+      for (int j = 0; j < kKJ; ++j) {
+        const bool ok = key_ok[j] && (!p.causal || k0 + tx + 16 * j <= row0 + i);
+        s[i][j] = ok ? s[i][j] : kNeg;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = exp2f(m[i] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kKJ; ++j) {
+        s[i][j] = s[i][j] > 0.5f * kNeg ? exp2f(s[i][j] - m_new) : 0.0f;
+        sum += s[i][j];
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < kKJ; ++j)
+      *reinterpret_cast<float4*>(pt + (tx + 16 * j) * kRowPad + ty * 4) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < kBk; ++c) {
+      const float4 pv = *reinterpret_cast<const float4*>(pt + c * kRowPad + ty * 4);
+      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+      for (int cc = 0; cc < kCols; ++cc) {
+        const float vv = vs[c * D + tx + 16 * cc];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(pa[i], vv, acc[i][cc]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + i;
+    if (r >= p.tq) continue;
+    // a row that saw no valid key keeps the sentinel max: its output is 0
+    const float inv = m[i] > 0.5f * kNeg ? 1.0f / l[i] : 0.0f;
+    const long long row = (static_cast<long long>(b) * p.tq + r) * p.h + head;
+    float* o = p.out + row * D;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) o[tx + 16 * c] = acc[i][c] * inv;
+    if (tx == 0) p.lse[row] = m[i] + log2f(fmaxf(l[i], 1e-30f));
+  }
+}
+
+template <int D>
+cudaError_t launch(const Params& p, int b, cudaStream_t st) {
+  constexpr int bytes = Layout<D>::kBytes;
+  static unsigned long long configured = 0;
+  cudaError_t err = slam::configure_smem(flash_fwd_f32_fma_kernel<D>, bytes, configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.tq + kBq - 1) / kBq, p.h, b);
+  flash_fwd_f32_fma_kernel<D><<<grid, kThreads, bytes, st>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace fma
+
+template <int D>
+__global__ void flash_fwd_f32_rope_kernel(const float* __restrict__ x, float* __restrict__ out,
+                                          const float* __restrict__ cos_t, const float* __restrict__ sin_t, int b,
+                                          int T, int hx, long long sb, long long st, long long sh) {
+  f32::rope_pass<D>(x, out, cos_t, sin_t, b, T, hx, sb, st, sh);
+}
+
+// q and k rotated into q_rot / k_rot (contiguous), p pointed at them
+template <int D>
+cudaError_t rotate_qk(Params& p, int b, const float* cos_t, const float* sin_t, float* q_rot, float* k_rot,
+                      cudaStream_t st) {
+  cudaError_t err = f32::launch_rope<D>(flash_fwd_f32_rope_kernel<D>, p.q, q_rot, cos_t, sin_t, b, p.tq, p.h, p.qsb,
+                                        p.qst, p.qsh, st);
+  if (err != cudaSuccess) return err;
+  err = f32::launch_rope<D>(flash_fwd_f32_rope_kernel<D>, p.k, k_rot, cos_t, sin_t, b, p.tk, p.hkv, p.ksb, p.kst,
+                            p.ksh, st);
+  if (err != cudaSuccess) return err;
+  p.q = q_rot;
+  p.qsb = static_cast<long long>(p.tq) * p.h * D, p.qst = static_cast<long long>(p.h) * D, p.qsh = D;
+  p.k = k_rot;
+  p.ksb = static_cast<long long>(p.tk) * p.hkv * D, p.kst = static_cast<long long>(p.hkv) * D, p.ksh = D;
+  return cudaSuccess;
+}
+
 template <int D>
 cudaError_t launch(const Params& p, int b, cudaStream_t st) {
   using L = Fwd<D>;
@@ -275,17 +475,38 @@ cudaError_t launch(const Params& p, int b, cudaStream_t st) {
 
 // q (B, Tq, H, D), k / v (B, Tk, Hkv, D) f32 with the given element strides
 // (last dim contiguous, rows 16-byte aligned); mask (B, Tk) int32; out
-// (B, Tq, H, D) and lse (B, Tq, H) f32, contiguous.
+// (B, Tq, H, D) and lse (B, Tq, H) f32, contiguous; cos / sin (B, T, D/2)
+// f32 or null, and then q_rot / k_rot, (B, T, H | Hkv, D) f32 scratch (Tq ==
+// Tk). D in {64, 128} runs 3xTF32 on the tensor cores, {192, 256} f32 FMA.
 extern "C" int slam_flash_fwd_f32(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
-                                  int b, int tq, int tk, int h, int hkv, int d, long long qsb, long long qst,
-                                  long long qsh, long long ksb, long long kst, long long ksh, long long vsb,
-                                  long long vst, long long vsh, float scale, int causal, void* stream) {
-  if (b < 1 || b > 65535 || tq < 1 || tk < 1 || hkv < 1 || h % hkv != 0 || h > 65535 || (d != 64 && d != 128) ||
-      (causal && tq != tk))
+                                  const void* cos_t, const void* sin_t, void* q_rot, void* k_rot, int b, int tq,
+                                  int tk, int h, int hkv, int d, long long qsb, long long qst, long long qsh,
+                                  long long ksb, long long kst, long long ksh, long long vsb, long long vst,
+                                  long long vsh, float scale, int causal, void* stream) {
+  const bool rope = cos_t != nullptr;
+  if (b < 1 || b > 65535 || tq < 1 || tk < 1 || hkv < 1 || h % hkv != 0 || h > 65535 ||
+      (d != 64 && d != 128 && d != 192 && d != 256) || (causal && tq != tk) ||
+      (rope && (sin_t == nullptr || q_rot == nullptr || k_rot == nullptr || tq != tk)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-                 static_cast<const int*>(mask), static_cast<float*>(out), static_cast<float*>(lse), tq, tk, h, hkv,
-                 qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, scale * slam::kLog2e, causal};
+  Params p{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+           static_cast<const int*>(mask), static_cast<float*>(out), static_cast<float*>(lse), tq, tk, h, hkv,
+           qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, scale * slam::kLog2e, causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(d == 64 ? launch<64>(p, b, st) : launch<128>(p, b, st));
+  const auto* cs = static_cast<const float*>(cos_t);
+  const auto* sn = static_cast<const float*>(sin_t);
+  auto* qr = static_cast<float*>(q_rot);
+  auto* kr = static_cast<float*>(k_rot);
+  cudaError_t err = cudaSuccess;
+  if (rope) {
+    if (d == 64) err = rotate_qk<64>(p, b, cs, sn, qr, kr, st);
+    if (d == 128) err = rotate_qk<128>(p, b, cs, sn, qr, kr, st);
+    if (d == 192) err = rotate_qk<192>(p, b, cs, sn, qr, kr, st);
+    if (d == 256) err = rotate_qk<256>(p, b, cs, sn, qr, kr, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (d == 64) err = launch<64>(p, b, st);
+  if (d == 128) err = launch<128>(p, b, st);
+  if (d == 192) err = fma::launch<192>(p, b, st);
+  if (d == 256) err = fma::launch<256>(p, b, st);
+  return static_cast<int>(err);
 }

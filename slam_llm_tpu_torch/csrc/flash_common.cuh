@@ -115,18 +115,24 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// d[64 x 32] (+)= A[64 x 16] * B[32 x 16]^T, A and B K-major bf16 in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d (+)= A * B^T with A (64 x 16) and B (N x 16) K-major tiles in shared memory
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  if constexpr (N == 64) wgmma_ss_n64(d, desc_a, desc_b, scale_d);
+  static_assert(N == 32 || N == 64 || N == 128, "S / dP tiles of 32, 64 or 128 columns");
+  if constexpr (N == 32) wgmma_ss_n32(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64(d, desc_a, desc_b, scale_d);
   else wgmma_ss_n128(d, desc_a, desc_b, scale_d);
-}
-
-// d += A * B with A (64 x 16) in registers and B (16 x N) MN-major in shared memory
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, desc_b, 1);
-  else wgmma_rs_n128(d, a, desc_b, 1);
 }
 
 // the K-major descriptor of k16 step kk of rows [row0, row0 + 64) of a tile
@@ -138,6 +144,28 @@ __device__ __forceinline__ uint64_t kmajor_step(const uint8_t* tile, int rows, i
 // the MN-major descriptor of k16 step kk (rows 16 kk .. 16 kk + 15) of a tile of `rows` rows
 __device__ __forceinline__ uint64_t mnmajor_step(const uint8_t* tile, int rows, int kk) {
   return desc_mnmajor(tile + kk * 16 * kPanelBytes, static_cast<uint32_t>(rows * kPanelBytes));
+}
+
+// columns [c0, c0 + W) of an accumulator of N columns: the accumulator of
+// that W-column product (d[4 j + ...] holds column 8 j + ..., so the block
+// of W / 2 registers from c0 / 2 on)
+template <int W, int N>
+__device__ __forceinline__ float (&acc_cols(float (&d)[N / 2], int c0))[W / 2] {
+  return *reinterpret_cast<float(*)[W / 2]>(&d[c0 / 2]);
+}
+
+// d += A * B over N = 64 .. 256 columns with A (64 x 16) in registers and B
+// k16 step kk of a `rows`-row tile read MN-major: one wgmma per 128 columns
+// (two panels, the panel stride as LBO), then one for a last 64
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], const uint8_t* tile, int rows,
+                                         int kk) {
+  static_assert(N % 64 == 0 && N <= 256, "head_dim 64, 128, 192 or 256");
+#pragma unroll
+  for (int c = 0; c + 128 <= N; c += 128)
+    wgmma_rs_n128(acc_cols<128, N>(d, c), a, mnmajor_step(tile + (c / 64) * rows * kPanelBytes, rows, kk), 1);
+  if constexpr (N % 128 != 0)
+    wgmma_rs_n64(acc_cols<64, N>(d, N - 64), a, mnmajor_step(tile + (N / 64 - 1) * rows * kPanelBytes, rows, kk), 1);
 }
 
 // columns 16 kk .. 16 kk + 15 of an accumulator as the A fragment of a k16 step

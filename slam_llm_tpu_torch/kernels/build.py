@@ -46,13 +46,14 @@ _SIGNATURES = {
     "slam_int8_epilogue": [_P] * 4 + [_L, _I, _I, _P],
     # q k v mask out lse cos sin k_rot | b tq tk h hkv d | q/k/v strides | scale causal hb bn sms stream
     "slam_flash_fwd": [_P] * 9 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _I, _I, _I, _I, _P],
-    # q k v mask out dout lse cos sin lse_t dlt_t q_rot k_rot dq dk dv (all contiguous) | b t h hkv d |
+    # q k v mask out dout lse cos sin lse_t dlt_t q_rot k_rot dq dk dv (all contiguous) | b tq tk h hkv d |
     # scale | causal hb tpad sms | stream
-    "slam_flash_bwd": [_P] * 16 + [_I] * 5 + [ctypes.c_float] + [_I] * 4 + [_P],
-    # q k v mask out lse | b tq tk h hkv d | q/k/v strides | scale causal | stream
-    "slam_flash_fwd_f32": [_P] * 6 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _I, _P],
-    # q k v mask out dout lse delta dq dk dv | b t h hkv d | q/k/v/out/dout strides | scale causal | stream
-    "slam_flash_bwd_f32": [_P] * 11 + [_I] * 5 + [_L] * 15 + [ctypes.c_float, _I, _P],
+    "slam_flash_bwd": [_P] * 16 + [_I] * 6 + [ctypes.c_float] + [_I] * 4 + [_P],
+    # q k v mask out lse cos sin q_rot k_rot | b tq tk h hkv d | q/k/v strides | scale causal | stream
+    "slam_flash_fwd_f32": [_P] * 10 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _I, _P],
+    # q k v mask out dout lse cos sin q_rot k_rot delta dq dk dv | b tq tk h hkv d | q/k/v/out/dout strides |
+    # scale causal | stream
+    "slam_flash_bwd_f32": [_P] * 15 + [_I] * 6 + [_L] * 15 + [ctypes.c_float, _I, _P],
     # q k v s_out o_out | d n | stream
     "slam_wgmma_probe": [_P] * 5 + [_I, _I, _P],
 }

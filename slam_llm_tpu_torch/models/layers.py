@@ -406,14 +406,11 @@ def mha_attention(
 
 def flash_head_dim(d: int) -> bool:
     """Whether a structured call at head_dim ``d`` runs the flash kernels
-    (D 64 / 128) or the plain path (D % 64 != 0, where the JAX package runs
-    XLA too). D 192 / 256 take the Pallas kernels in the JAX package and
-    have no Hopper route yet: they raise."""
-    if d % 64:
-        return False
-    if d not in (64, 128):
-        raise NotImplementedError(f"flash attention at head_dim {d} is not ported yet (ROADMAP Queue 2)")
-    return True
+    (D 64, 128, 192, 256, where the JAX package runs its Pallas kernels)
+    or the plain path (D % 64 != 0, where the JAX package runs XLA too).
+    A wider D, which no configuration reaches, raises in the kernels'
+    wrappers."""
+    return d % 64 == 0
 
 
 def _xla_attention(q, k, v, bias, kv_mask=None, causal=False):

@@ -11,18 +11,21 @@ only defined for Tq == Tk. ``lse`` (B, Tq, H) f32 is in the log2 domain
 output exactly 0 and get dq = 0; their lse carries no meaning.
 
 ``rope=(cos, sin)``, each (B, T, D/2) f32 from ``rope_tables``, fuses the
-RoPE rotation: q/k come PRE-rotation, the kernels rotate them as they load
-them (f32 rotation, one rounding to q's dtype: ``apply_rope_tables``) and
-the backward counter-rotates dq/dk. Self-attention only (Tq == Tk).
+RoPE rotation: q/k come PRE-rotation, the kernels rotate them (f32
+rotation, one rounding to q's dtype: ``apply_rope_tables``) and the
+backward counter-rotates dq/dk. Self-attention only (Tq == Tk).
 
 The wrappers send CPU tensors to the twins and CUDA tensors to
 ``csrc/flash_attention.cu`` (K1) and ``csrc/flash_attention_bwd.cu`` (K4):
-bf16, D in {64, 128}. f32 CUDA tensors take the f32 routes, f32-accurate
-products on the tensor cores as 3-pass split TF32 (``tf32_split``: each
-product is hi_a hi_b + hi_a lo_b + lo_a hi_b), without fused RoPE: K1's
+bf16, D in {64, 128, 192, 256}. f32 CUDA tensors take the f32 routes: K1's
 (``csrc/flash_attention_f32.cu``, ``flash_attention_fwd_f32``) and K4's
-(``csrc/flash_attention_bwd_f32.cu``, ``flash_attention_bwd_f32``). They
-raise on anything else.
+(``csrc/flash_attention_bwd_f32.cu``, ``flash_attention_bwd_f32``),
+f32-accurate products on the tensor cores as 3-pass split TF32 at D 64 /
+128 (``tf32_split``: each product is hi_a hi_b + hi_a lo_b + lo_a hi_b), f32
+FMA on the CUDA cores at D 192 / 256; with fused RoPE a pass rotates q / k
+into f32 scratch first. Both backward kernels take Tq != Tk (not causal, no
+RoPE): dq over the queries, dk / dv over the keys. They raise on anything
+else: another head_dim, f16, mixed dtypes.
 ``plan_flash`` decides, in plain Python, how the bf16 kernels cut a call
 into units of work (rows per
 unit, query heads packed per unit, key or query tile, ring stages, grid,
@@ -172,6 +175,8 @@ def bwd_f32_error(got, want, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
 # ---- the kernels' planner ---------------------------------------------------
 
 UNIT_ROWS = 128  # query rows of a K1 / dq unit, keys of a dk/dv unit: two consumer warpgroups of 64
+HEAD_DIMS = (64, 128, 192, 256)  # what the kernels take (D % 64 != 0 runs the plain path in the models)
+WIDE_HEAD_DIMS = (192, 256)  # the layouts that fit 227 KB at these widths (plan_flash)
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on the H100 (227 KB)
 _BAR_BYTES = 8
 _ALIGN_SLACK = 1024  # the kernels align their shared memory to the 128-byte swizzle's 1024 bytes
@@ -197,8 +202,8 @@ class PassPlan(NamedTuple):
 
 class FlashPlan(NamedTuple):
     fwd: PassPlan
-    dq: Optional[PassPlan]  # None where the backward kernel does not run (Tq != Tk)
-    dkv: Optional[PassPlan]
+    dq: PassPlan
+    dkv: PassPlan
 
 
 def heads_per_unit(g: int) -> int:
@@ -212,43 +217,50 @@ def plan_flash(b: int, tq: int, tk: int, h: int, hkv: int, d: int, causal: bool,
     """K1's and K4's plans for one call (mirrors the layouts in
     csrc/flash_attention*.cu). K1 and the dq pass pack ``heads_per_unit``
     query heads of one kv head into 128 rows, so a K / V tile serves all of
-    them, and double-buffer the unit's Q (and dout); K1 streams 128-key
-    tiles through 3 stages at D = 64 without the causal mask, else 64-key
-    tiles through 4 (3 at D = 128); dq 64-key tiles through 3. The dk/dv
-    pass owns 128 keys of one kv head and streams 64-query tiles of each of
-    the G heads through 3 stages (2 at D = 128). K4's two passes are one
-    launch: they share its grid and shared memory. Raises on what the
-    kernels do not take."""
-    if d not in (64, 128):
-        raise ValueError(f"flash kernels take head_dim 64 or 128, got {d}")
+    them, and double-buffer the unit's Q (and dout) at D <= 128; K1 streams
+    128-key tiles through 3 stages at D = 64 without the causal mask, else
+    64-key tiles through 4 (3 at D = 128 and 192, 2 at 256); dq 64-key
+    tiles through 3. The dk/dv pass owns 128 keys of one kv head and
+    streams 64-query tiles of each of the G heads through 3 stages (2 at D
+    = 128). D = 192 / 256 (``WIDE_HEAD_DIMS``) keep one Q (and dout) buffer,
+    K1 writes its output from registers, dk/dv units own 64 keys (dK and dV
+    in different warpgroups) over 32-query tiles, and dq streams 32-key
+    tiles. K4's two passes are one launch: they share its grid and shared
+    memory; its dq units cover the Tq queries, its dk/dv units the Tk keys.
+    Raises on what the kernels do not take."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash kernels take head_dim {', '.join(map(str, HEAD_DIMS))}, got {d}")
     if min(b, tq, tk, h, hkv) < 1 or h % hkv:
         raise ValueError(f"flash kernels need B, T >= 1 and H % Hkv == 0, got B={b} Tq={tq} Tk={tk} H={h} Hkv={hkv}")
     if (causal or rope) and tq != tk:
         raise ValueError(f"causal / fused-rope flash attention requires tq == tk, got {tq} vs {tk}")
     g = h // hkv
+    wide = d in WIDE_HEAD_DIMS
+    q_bufs = 1 if wide else 2
     # K1: 128-key tiles at D = 64 without the causal mask, else 64 (less of
-    # the diagonal tile is wasted, and D = 128 fits); two Q buffers and the
-    # output's staging rows
+    # the diagonal tile is wasted, and D >= 128 fits); the Q buffers and, at
+    # D <= 128, the output's staging rows
     bn = 128 if d == 64 and not causal else 64
-    st_fwd = 3 if bn == 128 else (4 if d == 64 else 3)
+    st_fwd = 3 if bn == 128 else {64: 4, 128: 3, 192: 3, 256: 2}[d]
     hb = heads_per_unit(g)
     units = -(-tq // (UNIT_ROWS // hb)) * (h // hb) * b
-    smem = (2 * UNIT_ROWS * d * 2 + UNIT_ROWS * (d * 2 + 16) + st_fwd * (2 * bn * d * 2 + bn // 32 * 4)
+    staging = 0 if wide else UNIT_ROWS * (d * 2 + 16)
+    smem = (q_bufs * UNIT_ROWS * d * 2 + staging + st_fwd * (2 * bn * d * 2 + bn // 32 * 4)
             + (4 + 2 * st_fwd) * _BAR_BYTES + _ALIGN_SLACK)
     fwd = PassPlan(UNIT_ROWS, hb, UNIT_ROWS // hb, bn, st_fwd, units, min(units, sms), causal, smem)
-    if tq != tk:
-        return FlashPlan(fwd, None, None)
     # K4: the dk/dv and dq passes run as one persistent launch (dk/dv units
     # first) in one shared-memory region, the larger of the two layouts
-    st_dkv = 3 if d == 64 else 2
-    dkv_bytes = 2 * UNIT_ROWS * d * 2 + st_dkv * (2 * 64 * d * 2 + 2 * 64 * 4)
-    dq_bytes = 4 * UNIT_ROWS * d * 2 + 3 * 2 * 64 * d * 2
-    smem = max(dkv_bytes, dq_bytes) + 3 * 2 * 4 + (2 + 2 * st_dkv + 4 + 2 * 3) * _BAR_BYTES + _ALIGN_SLACK
+    keys, bq, dq_bn = (64, 32, 32) if wide else (UNIT_ROWS, 64, 64)
+    st_dkv = 2 if d == 128 else 3
+    dkv_bytes = 2 * keys * d * 2 + st_dkv * (2 * bq * d * 2 + 2 * bq * 4)
+    dq_bytes = 2 * q_bufs * UNIT_ROWS * d * 2 + 3 * 2 * dq_bn * d * 2
+    bits = -(-3 * (dq_bn // 32) * 4 // _BAR_BYTES) * _BAR_BYTES
+    smem = max(dkv_bytes, dq_bytes) + bits + (2 + 2 * st_dkv + 4 + 2 * 3) * _BAR_BYTES + _ALIGN_SLACK
     dq_units = -(-tq // (UNIT_ROWS // hb)) * (h // hb) * b
-    dkv_units = -(-tq // UNIT_ROWS) * hkv * b
+    dkv_units = -(-tk // keys) * hkv * b
     grid = min(dq_units + dkv_units, sms)
-    dq = PassPlan(UNIT_ROWS, hb, UNIT_ROWS // hb, 64, 3, dq_units, grid, causal, smem)
-    dkv = PassPlan(UNIT_ROWS, 1, 0, 64, st_dkv, dkv_units, grid, causal, smem)
+    dq = PassPlan(UNIT_ROWS, hb, UNIT_ROWS // hb, dq_bn, 3, dq_units, grid, causal, smem)
+    dkv = PassPlan(keys, 1, 0, bq, st_dkv, dkv_units, grid, causal, smem)
     return FlashPlan(fwd, dq, dkv)
 
 
@@ -294,8 +306,8 @@ def _f32_operand(x: torch.Tensor) -> torch.Tensor:
 def _check_kernel_inputs(d, *tensors, dtype=torch.bfloat16):
     if any(t.dtype != dtype for t in tensors):
         raise TypeError(f"flash kernels take {dtype} here, got {[t.dtype for t in tensors]}")
-    if d not in (64, 128):
-        raise ValueError(f"flash kernels take head_dim 64 or 128, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash kernels take head_dim {', '.join(map(str, HEAD_DIMS))}, got {d}")
 
 
 def _is_f32(*tensors) -> bool:
@@ -317,9 +329,7 @@ def flash_attention_fwd(
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, kv_mask, causal, scale, rope)
     if _is_f32(q, k, v):
-        if rope is not None:
-            raise NotImplementedError("K1's f32 route takes no fused RoPE (ROADMAP Queue 2): rotate q / k first")
-        return flash_attention_fwd_f32(q, k, v, kv_mask, causal, scale)
+        return flash_attention_fwd_f32(q, k, v, kv_mask, causal, scale, rope)
     _check_shapes(q, k, v, kv_mask, causal, rope)
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
@@ -355,17 +365,29 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 
 
+def _rope_scratch(rope: Rope, q: torch.Tensor, k: torch.Tensor):
+    """The f32 routes' fused RoPE: ``(tensors to keep alive over the
+    launch, pointers of cos, sin and of contiguous f32 scratch for the
+    rotated q and k)``; null pointers without RoPE."""
+    cos, sin, cos_p, sin_p = _kernel_rope(rope, q.device)
+    if rope is None:
+        return (), (0, 0, 0, 0)
+    q_rot, k_rot = (torch.empty(x.shape, dtype=torch.float32, device=q.device) for x in (q, k))
+    return (cos, sin, q_rot, k_rot), (cos_p, sin_p, q_rot.data_ptr(), k_rot.data_ptr())
+
+
 def flash_attention_fwd_f32(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor,
-    causal: bool = False, scale: Optional[float] = None,
+    causal: bool = False, scale: Optional[float] = None, rope: Rope = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` of f32 q / k / v: K1's f32 route
     (``csrc/flash_attention_f32.cu``) on CUDA tensors, the twin on CPU
     tensors. Any strides (a view whose rows are not 16-byte aligned is
-    copied); D in {64, 128}."""
+    copied); D in {64, 128, 192, 256}; ``rope`` as ``flash_attention_fwd``'s
+    (a pass rotates q / k into f32 scratch first)."""
     if not q.is_cuda:
-        return flash_attention_ref(q, k, v, kv_mask, causal, scale)
-    _check_shapes(q, k, v, kv_mask, causal)
+        return flash_attention_ref(q, k, v, kv_mask, causal, scale, rope)
+    _check_shapes(q, k, v, kv_mask, causal, rope)
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     _check_kernel_inputs(d, q, k, v, dtype=torch.float32)
@@ -377,12 +399,13 @@ def flash_attention_fwd_f32(
         return out, lse
     from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
 
+    keep, rope_ptrs = _rope_scratch(rope, q, k)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     with torch.cuda.device(q.device):
         err = library().slam_flash_fwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, tq, tk, h, hkv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale), int(causal),
-            stream_ptr(q),
+            *rope_ptrs, b, tq, tk, h, hkv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            float(scale), int(causal), stream_ptr(q),
         )
     check(err, "flash_attention_f32")
     flash_attention_fwd_f32.launches += 1
@@ -397,19 +420,15 @@ def flash_attention_bwd(
     out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
     causal: bool = False, scale: Optional[float] = None, rope: Rope = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq, dk, dv)``: K4 on CUDA tensors, the twin on CPU tensors.
-    Self-attention only on the card (Tq == Tk)."""
+    """``(dq, dk, dv)``: K4 on CUDA tensors, the twin on CPU tensors. Tq !=
+    Tk (cross-attention) takes neither the causal mask nor RoPE."""
     if not q.is_cuda:
         return flash_attention_bwd_ref(q, k, v, kv_mask, out, lse, dout, causal, scale, rope)
     _check_shapes(q, k, v, kv_mask, causal, rope)
-    b, t, h, d = q.shape
-    hkv = k.shape[2]
-    if k.shape[1] != t:
-        raise ValueError(f"flash backward kernel takes self-attention (tq == tk), got {t} vs {k.shape[1]}")
     if _is_f32(q, k, v):
-        if rope is not None:
-            raise NotImplementedError("K4's f32 route takes no fused RoPE (ROADMAP Queue 2): rotate q / k first")
-        return flash_attention_bwd_f32(q, k, v, kv_mask, out, lse, dout, causal, scale)
+        return flash_attention_bwd_f32(q, k, v, kv_mask, out, lse, dout, causal, scale, rope)
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
     _check_kernel_inputs(d, q, k, v, out, dout)
     q, k, v, out, dout = (x.contiguous() for x in (q, k, v, out, dout))
     lse = lse.float().contiguous()
@@ -417,10 +436,10 @@ def flash_attention_bwd(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0:
         return dq, dk, dv
-    plan = plan_flash(b, t, t, h, hkv, d, causal, rope is not None)
-    # lse and delta in a (B, H, Tpad) layout, each query tile's values one
-    # 256-byte bulk copy; with fused RoPE, q and k rotated once
-    tpad = -(-t // 64) * 64
+    plan = plan_flash(b, tq, tk, h, hkv, d, causal, rope is not None)
+    # lse and delta in a (B, H, Tpad) layout over the queries, each query
+    # tile's values one bulk copy; with fused RoPE, q and k rotated once
+    tpad = -(-tq // 64) * 64
     lse_t = torch.empty((b, h, tpad), dtype=torch.float32, device=q.device)
     dlt_t = torch.empty_like(lse_t)
     q_rot = torch.empty_like(q) if rope is not None else None
@@ -434,7 +453,7 @@ def flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), cos_p, sin_p, lse_t.data_ptr(), dlt_t.data_ptr(),
             q_rot.data_ptr() if q_rot is not None else 0, k_rot.data_ptr() if k_rot is not None else 0,
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, hkv, d,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, tk, h, hkv, d,
             float(scale), int(causal), plan.dq.heads, tpad, sm_count(q.device.index), stream_ptr(q),
         )
     check(err, "flash_attention_bwd")
@@ -448,40 +467,41 @@ flash_attention_bwd.launches = 0
 def flash_attention_bwd_f32(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor,
     out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
-    causal: bool = False, scale: Optional[float] = None,
+    causal: bool = False, scale: Optional[float] = None, rope: Rope = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of f32 q / k / v / out / dout: K4's f32 route
     (``csrc/flash_attention_bwd_f32.cu``, two launches: dq with delta, then
-    dk / dv) on CUDA tensors, the twin on CPU tensors. Self-attention only
-    on the card (Tq == Tk); any strides (a view whose rows are not 16-byte
-    aligned is copied); D in {64, 128}; ``lse`` is K1 f32's log2 value."""
+    dk / dv) on CUDA tensors, the twin on CPU tensors. Any strides (a view
+    whose rows are not 16-byte aligned is copied); D in {64, 128, 192, 256};
+    ``lse`` is K1 f32's log2 value; ``rope`` as ``flash_attention_bwd``'s;
+    Tq != Tk takes neither the causal mask nor RoPE."""
     if not q.is_cuda:
-        return flash_attention_bwd_ref(q, k, v, kv_mask, out, lse, dout, causal, scale)
-    _check_shapes(q, k, v, kv_mask, causal)
-    b, t, h, d = q.shape
-    hkv = k.shape[2]
-    if k.shape[1] != t:
-        raise ValueError(f"flash backward kernel takes self-attention (tq == tk), got {t} vs {k.shape[1]}")
+        return flash_attention_bwd_ref(q, k, v, kv_mask, out, lse, dout, causal, scale, rope)
+    _check_shapes(q, k, v, kv_mask, causal, rope)
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
     _check_kernel_inputs(d, q, k, v, out, dout, dtype=torch.float32)
-    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, t, h):
-        raise ValueError(f"out / dout must be {tuple(q.shape)} and lse {(b, t, h)}, got {tuple(out.shape)}, "
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, tq, h):
+        raise ValueError(f"out / dout must be {tuple(q.shape)} and lse {(b, tq, h)}, got {tuple(out.shape)}, "
                          f"{tuple(dout.shape)}, {tuple(lse.shape)}")
     q, k, v, out, dout = (_f32_operand(x) for x in (q, k, v, out, dout))
     lse = lse.float().contiguous()
     mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
-    dq = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
-    dk = torch.empty((b, t, hkv, d), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, tq, h, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, tk, hkv, d), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     if dq.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
 
+    keep, rope_ptrs = _rope_scratch(rope, q, k)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     with torch.cuda.device(q.device):
         err = library().slam_flash_bwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, hkv, d,
+            lse.data_ptr(), *rope_ptrs, delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, tq, tk, h, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], *dout.stride()[:3],
             float(scale), int(causal), stream_ptr(q),
         )

@@ -212,9 +212,9 @@ def test_flash_kernel_cross_attention_and_routing(gen):
 
 
 def test_flash_kernel_refuses_what_it_cannot_take(gen):
-    """head_dim outside {64, 128} in either route; mixed or half dtypes;
-    fused RoPE on the f32 routes, forward and backward; K4's f32 route on
-    Tq != Tk."""
+    """head_dim outside {64, 128, 192, 256} in either route; mixed or half
+    dtypes; the causal mask or fused RoPE at Tq != Tk (the JAX package
+    raises or runs XLA there), forward and backward, in either route."""
     q = torch.randn(1, 64, 2, 32, generator=gen, device="cuda").bfloat16()
     mask = torch.ones(1, 64, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
@@ -226,19 +226,162 @@ def test_flash_kernel_refuses_what_it_cannot_take(gen):
         tflash.flash_attention_fwd(q64, q64.bfloat16(), q64.bfloat16(), mask)
     with pytest.raises(TypeError, match="bfloat16"):
         tflash.flash_attention_fwd(q64.half(), q64.half(), q64.half(), mask)
-    rope = tuple(torch.zeros(1, 64, 32, device="cuda") for _ in range(2))
-    with pytest.raises(NotImplementedError, match="fused RoPE"):
-        tflash.flash_attention_fwd(q64, q64, q64, mask, rope=rope)
-    out, lse = tflash.flash_attention_fwd(q64, q64, q64, mask)
-    with pytest.raises(NotImplementedError, match="fused RoPE"):
-        tflash.flash_attention_bwd(q64, q64, q64, mask, out, lse, out, rope=rope)
-    x = q64.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="fused RoPE"):
-        tflash.flash_attention(x, x, x, mask, rope=rope).sum().backward()
     k_long = torch.randn(1, 80, 2, 64, generator=gen, device="cuda")
     mask_long = torch.ones(1, 80, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="self-attention"):
-        tflash.flash_attention_bwd_f32(q64, k_long, k_long, mask_long, out, lse, out)
+    rope = tuple(torch.zeros(1, 64, 32, device="cuda") for _ in range(2))
+    out, lse = tflash.flash_attention_fwd(q64, k_long, k_long, mask_long)
+    for x, kk in ((q64, k_long), (q64.bfloat16(), k_long.bfloat16())):
+        with pytest.raises(ValueError, match="tq == tk"):
+            tflash.flash_attention_fwd(x, kk, kk, mask_long, causal=True)
+        with pytest.raises(ValueError, match="tq == tk"):
+            tflash.flash_attention_fwd(x, kk, kk, mask_long, rope=rope)
+        with pytest.raises(ValueError, match="tq == tk"):
+            tflash.flash_attention_bwd(x, kk, kk, mask_long, out.to(x.dtype), lse, out.to(x.dtype), causal=True)
+
+
+def _check_bwd_route(q, k, v, mask, dout, causal, rope, f32):
+    """One forward and one backward on the card, each launched once on its
+    route's count (f32 or bf16) and never on the other's; the outputs
+    against the f32 twins on the kernels' own inputs: f32 out within 2e-5
+    abs and dq / dk / dv within 2e-5 of the twin's largest entry; bf16 out
+    within 2e-2 abs and dq / dk / dv within 2e-2 relative L2; live-row lse
+    within 1e-4 (f32) / 1e-3; rows that see no key give out = 0 and dq = 0;
+    a second backward gives the same bits."""
+    counts = (tflash.flash_attention_fwd_f32, tflash.flash_attention_bwd_f32, tflash.flash_attention_fwd,
+              tflash.flash_attention_bwd)
+    before = [c.launches for c in counts]
+    out, lse = tflash.flash_attention_fwd(q, k, v, mask, causal, rope=rope)
+    got = tflash.flash_attention_bwd(q, k, v, mask, out, lse, dout, causal, rope=rope)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counts, before)] == ([1, 1, 0, 0] if f32 else [0, 0, 1, 1])
+    b, tq = q.shape[:2]
+    if causal:
+        live = mask.cumsum(1) > 0
+    else:
+        live = (mask.sum(1, keepdim=True) > 0).expand(b, tq)
+    if f32:
+        ref, ref_lse = tflash.flash_attention_ref(q, k, v, mask, causal, rope=rope)
+        assert (out - ref).abs().max().item() <= 2e-5
+        assert (lse - ref_lse)[live].abs().max().item() <= 1e-4
+        want = tflash.flash_attention_bwd_ref(q, k, v, mask, out, lse, dout, causal, rope=rope)
+        _bwd_f32_close(got, want, q, k, v, dout)
+    else:
+        qr, kr = (tflash.apply_rope_tables(x, *rope) for x in (q, k)) if rope is not None else (q, k)
+        ref, ref_lse = tflash.flash_attention_ref(qr.float(), kr.float(), v.float(), mask, causal)
+        assert (out.float() - ref).abs().max().item() <= 2e-2
+        assert (lse - ref_lse)[live].abs().max().item() <= 1e-3
+        want = _bwd_twin_f32(q, k, v, mask, out, lse, dout, causal, rope)
+        for g, w in zip(got, want):
+            assert g.dtype == q.dtype and _rel_l2(g, w) <= 2e-2
+    assert bool((out[~live] == 0).all()) and bool((got[0][~live] == 0).all())
+    again = tflash.flash_attention_bwd(q, k, v, mask, out, lse, dout, causal, rope=rope)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("b,t,h,hkv,d", [
+    (2, 130, 8, 2, 64),  # GQA, TinyLlama's head_dim
+    (2, 129, 4, 4, 64),
+    (3, 97, 6, 3, 128),
+    (2, 1, 2, 1, 64),
+    (2, 70, 4, 1, 192),  # the FMA kernels
+    (2, 130, 4, 2, 256),
+])
+def test_flash_f32_fused_rope_matches_twin(gen, b, t, h, hkv, d):
+    """K1 f32 and K4 f32 with fused RoPE (causal, left-padded rows, RoPE
+    at the left-padding-safe positions) against the f32 twins with the same
+    tables."""
+    q, k, v = (torch.randn(b, t, n, d, generator=gen, device="cuda") for n in (h, hkv, hkv))
+    dout = torch.randn(b, t, h, d, generator=gen, device="cuda")
+    mask, rope = _rope(b, t, gen, left_pad=[(i * 37) % max(1, t // 3) for i in range(b)], d=d)
+    _check_bwd_route(q, k, v, mask, dout, True, rope, f32=True)
+
+
+def _cross_mask(b, tk):
+    """Keys right-padded to ragged lengths, the last row with none valid."""
+    mask = torch.ones(b, tk, dtype=torch.int32, device="cuda")
+    for i in range(b):
+        mask[i, tk - 5 - (i * 37) % (tk // 3):] = 0
+    mask[b - 1] = 0
+    return mask
+
+
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("b,tq,tk,h,hkv,d", [
+    (3, 70, 200, 4, 2, 64),
+    (3, 200, 70, 4, 2, 64),
+    (2, 256, 1500, 12, 12, 64),  # queries over whisper-small's frames
+    (2, 1500, 256, 12, 12, 64),
+    (3, 130, 300, 8, 2, 128),
+    (3, 100, 260, 4, 2, 192),
+    (3, 300, 130, 4, 1, 256),
+])
+def test_flash_backward_cross_attention_matches_twin(gen, f32, b, tq, tk, h, hkv, d):
+    """K4 and K4 f32 at Tq != Tk (not causal, no RoPE, keys right-padded):
+    dq over the queries, dk / dv over the keys, against the twins."""
+    dt = torch.float32 if f32 else torch.bfloat16
+    q = torch.randn(b, tq, h, d, generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn(b, tk, hkv, d, generator=gen, device="cuda").to(dt) for _ in range(2))
+    dout = torch.randn(b, tq, h, d, generator=gen, device="cuda").to(dt)
+    _check_bwd_route(q, k, v, _cross_mask(b, tk), dout, False, None, f32)
+
+
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("b,t,h,hkv,d,causal,rope", [
+    (2, 130, 8, 1, 256, True, True),  # Gemma-2B's 8:1 GQA at head_dim 256
+    (2, 449, 8, 8, 256, False, False),
+    (2, 200, 16, 2, 192, True, True),
+    (2, 70, 4, 4, 192, False, False),
+    (2, 257, 4, 2, 256, True, False),
+])
+def test_flash_kernels_at_head_dim_192_and_256(gen, f32, b, t, h, hkv, d, causal, rope):
+    """K1 and K4 (and their f32 routes) at D 192 / 256, with GQA, the key
+    mask (left-padded under the causal mask, else right-padded), causal and
+    fused RoPE, against the twins."""
+    dt = torch.float32 if f32 else torch.bfloat16
+    q = torch.randn(b, t, h, d, generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn(b, t, hkv, d, generator=gen, device="cuda").to(dt) for _ in range(2))
+    dout = torch.randn(b, t, h, d, generator=gen, device="cuda").to(dt)
+    if causal:
+        mask, tables = _rope(b, t, gen, left_pad=[(i * 37) % (t // 3) for i in range(b)], d=d)
+    else:
+        mask, tables = _cross_mask(b + 1, t)[:b], None
+    _check_bwd_route(q, k, v, mask, dout, causal, tables if rope else None, f32)
+
+
+def test_flash_f32_autograd_with_fused_rope(gen):
+    """``flash_attention`` on f32 leaves with fused RoPE (the f32 decoder's
+    training path): K1 f32 and K4 f32 once each, nothing on the bf16
+    kernels; the gradients within 2e-5 of the twins'."""
+    b, t, h, hkv, d = 2, 130, 8, 2, 64
+    q, k, v = (torch.randn(b, t, n, d, generator=gen, device="cuda").requires_grad_() for n in (h, hkv, hkv))
+    w = torch.randn(b, t, h, d, generator=gen, device="cuda")
+    mask, rope = _rope(b, t, gen, left_pad=[3, 40], d=d)
+    counts = (tflash.flash_attention_fwd_f32, tflash.flash_attention_bwd_f32, tflash.flash_attention_fwd,
+              tflash.flash_attention_bwd)
+    before = [c.launches for c in counts]
+    (tflash.flash_attention(q, k, v, mask, causal=True, rope=rope) * w).sum().backward()
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counts, before)] == [1, 1, 0, 0]
+    grads, (q, k, v) = (q.grad, k.grad, v.grad), (q.detach(), k.detach(), v.detach())
+    out, lse = tflash.flash_attention_ref(q, k, v, mask, True, rope=rope)
+    _bwd_f32_close(grads, tflash.flash_attention_bwd_ref(q, k, v, mask, out, lse, w, True, rope=rope), q, k, v, w)
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_mha_attention_takes_the_kernels_at_wide_head_dims(gen, d):
+    """``layers.mha_attention`` at D 192 / 256 (a structured, causal,
+    fused-RoPE call) launches K1 once and agrees with the plain path."""
+    from slam_llm_tpu_torch.models import layers
+
+    b, t, h, hkv = 2, 130, 8, 1
+    q, k, v = _qkv(b, t, h, hkv, d, gen)
+    mask, rope = _rope(b, t, gen, left_pad=[0, 17], d=d)
+    before = tflash.flash_attention_fwd.launches
+    got = layers.mha_attention(q, k, v, kv_mask=mask, causal=True, rope=rope)
+    assert tflash.flash_attention_fwd.launches == before + 1
+    qr, kr = (tflash.apply_rope_tables(x, *rope) for x in (q, k))
+    want = layers._xla_attention(qr, kr, v, None, mask, True)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
 
 
 def _f32_mask(b, t, pad):
@@ -486,7 +629,7 @@ def test_int8_matmul_kernel_matches_twin(gen, m, k, f):
     out32 = tquant.int8_matmul(xq, wq, xs, ws, torch.float32)
     assert tquant.int8_matmul_f32.launches == before + 1
     assert torch.equal(out32, tquant.int8_matmul_ref(xq, wq, xs, ws, torch.float32))
-    with pytest.raises(TypeError, match="bfloat16 or float32"):
+    with pytest.raises(TypeError, match="bfloat16, float32 or int32"):
         tquant.int8_matmul(xq, wq, xs, ws, torch.float16)
 
 

@@ -196,11 +196,11 @@ def test_flash_plan_covers_every_row_once_and_fits(shape):
         assert (h // hkv) % p.heads == 0 and p.heads >= min(h // hkv, 2)
         assert p.smem_bytes <= tflash.SMEM_LIMIT
     assert plan.fwd.grid == min(plan.fwd.units, 132)
-    assert (plan.dq is None) == (tq != tk) == (plan.dkv is None)
-    if plan.dkv is not None:  # K4's two passes: one launch, one grid
-        assert plan.dkv.units * plan.dkv.rows >= tk * hkv * b and plan.dkv.units == -(-tk // 128) * hkv * b
-        assert plan.dq.grid == plan.dkv.grid == min(plan.dq.units + plan.dkv.units, 132)
-        assert plan.dkv.smem_bytes == plan.dq.smem_bytes <= tflash.SMEM_LIMIT
+    # K4's two passes: one launch, one grid; dq over the Tq queries (above), dk/dv over the Tk keys
+    assert plan.dkv.units * plan.dkv.rows >= tk * hkv * b
+    assert plan.dkv.units == -(-tk // plan.dkv.rows) * hkv * b
+    assert plan.dq.grid == plan.dkv.grid == min(plan.dq.units + plan.dkv.units, 132)
+    assert plan.dkv.smem_bytes == plan.dq.smem_bytes <= tflash.SMEM_LIMIT
 
 
 def test_flash_plan_at_the_slices_shapes():

@@ -643,16 +643,11 @@ def test_recipe_specs_resolve_in_a_fresh_interpreter_without_jax():
 
 @pytest.mark.parametrize("d", [16, 40, 64, 80, 96, 128, 192, 256])
 def test_flash_head_dim_routes_as_jax(d):
-    """Structured attention takes the flash kernels at D 64 / 128 and the
-    plain path wherever D % 64 != 0, where the JAX package runs XLA
-    (``_should_use_pallas``); D 192 / 256 take Pallas there and raise here,
-    naming the ROADMAP queue that ports them."""
+    """Structured attention takes the flash kernels at D 64, 128, 192 and
+    256, where the JAX package takes Pallas, and the plain path wherever D
+    % 64 != 0, where the JAX package runs XLA (``_should_use_pallas``)."""
     from slam_llm_tpu_torch.models.layers import flash_head_dim
+    from slam_llm_tpu_torch.ops.kernels.flash_attention import HEAD_DIMS
 
-    if d % 64:
-        assert flash_head_dim(d) is False
-    elif d in (64, 128):
-        assert flash_head_dim(d) is True
-    else:
-        with pytest.raises(NotImplementedError, match="Queue 2"):
-            flash_head_dim(d)
+    assert flash_head_dim(d) is (d % 64 == 0)
+    assert (d in HEAD_DIMS) is (d % 64 == 0)
