@@ -324,6 +324,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import datetime
+import functools
 import itertools
 import json
 import logging
@@ -1072,6 +1073,99 @@ def check_flash_bwd_f32(gen) -> dict:
                 near_library="SDPA f32 backward, boolean mask", cases=rows)
 
 
+def check_flash_panels(gen, f32: bool, backward: bool) -> dict:
+    """The panel route above head_dim 256 (csrc/flash_attention_wide.cu) at
+    phase 22's shapes (``PANEL_CASES``), one of its four kernels: K1 or K4,
+    bf16 or f32, each against the f32 twin on the kernel's own inputs (q / k
+    rotated in the inputs' dtype as the kernel rotates them; K4 on K1's out
+    and lse). K1: bf16 out within 2e-2 abs and live-row lse within 1e-3,
+    f32 out within 2e-5 of the twin's largest entry and lse within 1e-4; K4:
+    bf16 dq / dk / dv within K4_PANEL_REL_L2 relative L2, f32 within 2e-5
+    of the twin's largest entry (``bwd_f32_error``); rows with no visible
+    key 0, K4 the same bits twice. Bound: 4 (K1) / 10 (K4) operations a
+    visible pair and head_dim at the data type's peak (bf16's tensor cores,
+    f32's FMA). Library: SDPA (its backward for K4) where it computes the
+    same function (no fused RoPE, no causal left padding), else the near
+    yardstick."""
+    from slam_llm_tpu_torch.ops.kernels import flash_attention as fa
+
+    dt = torch.float32 if f32 else torch.bfloat16
+    kernel = getattr(fa, f"flash_attention_{'bwd' if backward else 'fwd'}_wide{'_f32' if f32 else ''}")
+    label = f"[{'K4' if backward else 'K1'}{' f32' if f32 else ''} panels]"
+    worst, rows = 0.0, []
+    for name, b, t, h, hkv, d, causal, pad, theta in PANEL_CASES:
+        fused = theta > 0
+        tq, tk = _tq_tk(t)
+        q = torch.randn(b, tq, h, d, generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn(b, tk, hkv, d, generator=gen, device="cuda").to(dt) for _ in range(2))
+        dout = torch.randn(b, tq, h, d, generator=gen, device="cuda").to(dt)
+        mask = _padding_mask(b, tk, pad)
+        rope = _rope_for(mask, d, theta) if fused else None
+        out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, rope=rope)
+        qr, kr = (fa.apply_rope_tables(x, *rope) for x in (q, k)) if fused else (q, k)
+        live = mask.cumsum(1) > 0 if causal else (mask.sum(1, keepdim=True) > 0).expand(b, tq)
+        if backward:
+            args = (q, k, v, mask, out, lse, dout, causal)
+            got = kernel(*args, rope=rope)
+            torch.cuda.synchronize()
+            args32 = (qr.float(), kr.float(), v.float(), mask, out.float(), lse, dout.float(), causal)
+            want = fa.flash_attention_bwd_ref(*args32)
+            if fused:
+                want = (fa.apply_rope_tables(want[0], *rope, inverse=True),
+                        fa.apply_rope_tables(want[1], *rope, inverse=True), want[2])
+            if f32:
+                err, tol, what = fa.bwd_f32_error(got, want, q, k, v, dout), 2e-5, "of the twin's largest entry"
+            else:
+                err = max(((g.float() - w).norm() / w.norm()).item() for g, w in zip(got, want))
+                tol, what = K4_PANEL_REL_L2, "relative L2"
+            abs_err = max((g.float() - w).abs().max().item() for g, w in zip(got, want))
+            again = kernel(*args, rope=rope)
+            ok = all(torch.equal(a, g) for a, g in zip(again, got)) and bool((got[0][~live] == 0).all())
+            lse_err = 0.0
+            ms = time_ms(lambda: kernel(*args, rope=rope), reps=3)
+            plain_ms = time_ms(lambda: fa.flash_attention_bwd_ref(*args32), reps=3)
+            ops, moved = 10 * h * d * attended_pairs(mask, causal, tq), nbytes(*args[:7], *got, *(rope or ()))
+        else:
+            out, lse = kernel(q, k, v, mask, causal, rope=rope)
+            torch.cuda.synchronize()
+            ref, ref_lse = fa.flash_attention_ref(qr.float(), kr.float(), v.float(), mask, causal)
+            if f32:
+                err, tol, what = (out - ref).abs().max().item() / ref.abs().max().item(), 2e-5, "of the largest"
+            else:
+                err, tol, what = (out.float() - ref).abs().max().item(), 2e-2, "abs"
+            abs_err = (out.float() - ref).abs().max().item()
+            lse_err = (lse - ref_lse)[live].abs().max().item()
+            ok = lse_err <= (1e-4 if f32 else 1e-3) and bool((out[~live] == 0).all())
+            ms = time_ms(lambda: kernel(q, k, v, mask, causal, rope=rope), reps=3)
+            plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v, mask, causal, rope=rope), reps=3)
+            ops, moved = 4 * h * d * attended_pairs(mask, causal, tq), nbytes(q, k, v, mask, out, lse, *(rope or ()))
+        bound_ms, bound_by = bound(ops, moved, FP32_FLOPS if f32 else BF16_FLOPS)
+        same = not fused and not (causal and pad == "left")
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(backward) for x in (qr, kr, v))
+        sdpa_mask = _bool_mask(mask, causal)
+        if backward:
+            ref_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask,
+                                                                       enable_gqa=h != hkv)
+            dout_t = dout.transpose(1, 2)
+            sdpa_ms = event_ms(lambda: torch.autograd.grad(ref_out, (qt, kt, vt), dout_t, retain_graph=True), reps=3)
+            del ref_out
+        else:
+            sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=h != hkv), reps=3)
+        library_ms, near_ms = (sdpa_ms, None) if same else (None, sdpa_ms)
+        log(f"{label} {name} {(b, t, h, hkv, d)} causal={causal}: error {err:.3e} {what} (limit {tol:.0e}), live-row "
+            f"lse {lse_err:.3e}, dead rows {int((~live).sum())} zero / deterministic {ok} | kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}, {'f32 FMA' if f32 else 'bf16'}) share "
+            f"{bound_ms / ms:.4f} SDPA {_r(library_ms)} ms | near: {_r(near_ms)} ms | {SMI}")
+        if not (err <= tol and ok):
+            raise AssertionError(f"{label} {name}: error {err} (limit {tol}), dead rows / determinism / lse {ok}")
+        worst = max(worst, abs_err)
+        rows.append(dict(at=f"{name} {(b, t, h, hkv, d)}", ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms, near_library_ms=near_ms, error=err, limit=tol))
+    first = {k: v for k, v in rows[0].items() if k not in ("near_library_ms", "error", "limit")}
+    return dict(max_abs_err=worst, **first, error_is=what, near_library=NEAR, cases=rows)
+
+
 def _k2_case(at: str, ms: float, plain_ms: float, bound_ms: float) -> dict:
     return dict(at=at, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, share=bound_ms / ms)
 
@@ -1527,6 +1621,15 @@ KERNELS = [
     ("rowquant_scaled", "slam_llm_tpu_torch/csrc/rowquant.cu", "slam_llm_tpu/ops/kernels/rowquant.py:222"),
     ("int8_matmul_s32", "slam_llm_tpu_torch/csrc/int8_matmul.cu", "slam_llm_tpu/ops/quant.py:103"),
     ("int8_epilogue", "slam_llm_tpu_torch/csrc/int8_matmul.cu", "slam_llm_tpu/ops/quant.py:103"),
+    # the flash kernels above head_dim 256 (phase 22): K1 / K4 and their f32 routes, D split into panels
+    ("flash_attention_fwd_wide", "slam_llm_tpu_torch/csrc/flash_attention_wide.cu",
+     "slam_llm_tpu/ops/kernels/flash_attention.py:562"),
+    ("flash_attention_fwd_wide_f32", "slam_llm_tpu_torch/csrc/flash_attention_wide.cu",
+     "slam_llm_tpu/ops/kernels/flash_attention.py:562"),
+    ("flash_attention_bwd_wide", "slam_llm_tpu_torch/csrc/flash_attention_wide.cu",
+     "slam_llm_tpu/ops/kernels/flash_attention.py:1201"),
+    ("flash_attention_bwd_wide_f32", "slam_llm_tpu_torch/csrc/flash_attention_wide.cu",
+     "slam_llm_tpu/ops/kernels/flash_attention.py:1201"),
 ]
 
 
@@ -1541,6 +1644,8 @@ def check_kernels() -> list:
         "int8_matmul_f32": check_int8_matmul_f32, "rowquant_absmax": check_rowquant_absmax,
         "rowquant_scaled": check_rowquant_scaled, "int8_matmul_s32": check_int8_matmul_s32,
         "int8_epilogue": check_int8_epilogue,
+        **{name: functools.partial(check_flash_panels, f32="f32" in name, backward="bwd" in name)
+           for name in PANEL_PATH},
     }
     results = [dict(name=name, route="cuda", source=src, replaces=rep, **checks[name](gen))
                for name, src, rep in KERNELS]
@@ -1650,6 +1755,10 @@ def kernel_counters():
         "rowquant_scaled": rowquant.rowquant_scaled,
         "int8_matmul_s32": quant.int8_matmul_s32,
         "int8_epilogue": quant.int8_epilogue,
+        "flash_attention_fwd_wide": flash_attention.flash_attention_fwd_wide,
+        "flash_attention_fwd_wide_f32": flash_attention.flash_attention_fwd_wide_f32,
+        "flash_attention_bwd_wide": flash_attention.flash_attention_bwd_wide,
+        "flash_attention_bwd_wide_f32": flash_attention.flash_attention_bwd_wide_f32,
         # K3's code paths, over both epilogues
         "int8_matmul/wgmma": quant.K3_PATHS["wgmma"],
         "int8_matmul/splitk": quant.K3_PATHS["splitk"],
@@ -5172,19 +5281,22 @@ def _decode_param_check(hook) -> None:
 @contextlib.contextmanager
 def decode_memory(record: dict):
     """Inside, a generator's construction (once the entry point has built,
-    filled and sharded the model) records the card's resident GiB and the
-    peak so far (the build's) into ``record``, then resets the peak
-    counter: the peak read after the run is the decode's own."""
+    filled and sharded the model) records the card's resident GiB, the
+    peak so far (the build's) and the largest whole parameter's f32 GiB
+    into ``record``, then resets the peak counter: the peak read after the
+    run is the decode's own."""
     from slam_llm_tpu_torch.inference.generate import Generator
     from slam_llm_tpu_torch.models.s2s import S2SGenerator
 
     originals = {cls: cls.__init__ for cls in (Generator, S2SGenerator)}
 
     def wrap(init):
-        def init_and_record(self, *args, **kwargs):
-            init(self, *args, **kwargs)
+        def init_and_record(self, model, *args, **kwargs):
+            init(self, model, *args, **kwargs)
+            # a DTensor's numel is its whole tensor's over FSDP
             record.update(resident_gib=torch.cuda.memory_allocated() / 2**30,
-                          build_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                          build_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                          largest_f32_gib=max(p.numel() for p in model.parameters()) * 4 / 2**30)
             torch.cuda.reset_peak_memory_stats()
         return init_and_record
 
@@ -5979,6 +6091,7 @@ def run_multi_card_tp(one: dict, tmp: Path) -> None:
     run_families_tp(tmp)
 
 
+BUILD_SLACK_GIB = 1  # (c)'s sharded-build gate: a rank's build peak within its shards, 2 whole f32 tensors and this
 VX4_STEPS = 4  # (c)'s VALL-E X steps of 16 in the 512 bucket (step ms: the mean from the third on)
 VX_ONE_CARD = (389.5, 31.82)  # one card's step ms and peak GiB at (64, 512): PERF.md section 5's VALL-E X row
 
@@ -6056,6 +6169,14 @@ def run_multi_card_decode(decode: dict, tmp: Path) -> None:
         if not same or got["plain_params"]["dtensor_or_strided"]:
             raise AssertionError(f"(c) the decode at {label} differs from phase 4's, or computed with "
                                  f"{got['plain_params']}")
+    run_multi_card_s2s_decode(tmp)
+
+
+def run_multi_card_s2s_decode(tmp: Path) -> None:
+    """Phase 20 (c) on four cards: ``s2s_qwen.yaml`` at Qwen2-7B's 28
+    layers (bf16), generate_s2s batch mode at fsdp=4 against this card
+    alone, rank 0's build peak held to its shards (the sharded build's
+    gate) and its peaks against one card's."""
     questions = write_s2s_corpus(tmp, "questions4", [30] * TP_S2S_QUESTIONS, seed=3)
     args = ["++decode_config.mode=batch", f"++dataset_config.val_data_path={questions}",
             f"++decode_config.max_new_tokens={TP_S2S_NEW}"]
@@ -6065,15 +6186,22 @@ def run_multi_card_decode(decode: dict, tmp: Path) -> None:
         tmp, timeout=TP_LAUNCH_TIMEOUT_S, env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
     ranks = got["fsdp_s2s_decode"]["ranks"]
     text = "".join(Path(r["pred"]).read_text() for r in ranks)
+    r0 = ranks[0]
+    # the sharded build's gate: the rank's shards, two whole tensors in f32 in flight and 1 GiB
+    limit = r0["resident_gib"] + 2 * r0["largest_f32_gib"] + BUILD_SLACK_GIB
     log(f"[tensor parallel] (c) s2s_qwen at 28 layers (bf16), generate_s2s batch at fsdp=4 on 4 cards: _pred "
-        f"equal to one card's {text == Path(one['pred']).read_text()}; rank 0: {ranks[0]['resident_gib']:.2f} GiB "
-        f"resident once sharded, the decode's peak {ranks[0]['peak_gib']:.2f} GiB (the build's "
-        f"{ranks[0]['build_peak_gib']:.2f}: every rank builds the whole model, then shards it) vs one card's "
+        f"equal to one card's {text == Path(one['pred']).read_text()}; rank 0: {r0['resident_gib']:.2f} GiB "
+        f"resident once sharded, the decode's peak {r0['peak_gib']:.2f} GiB, the build's peak "
+        f"{r0['build_peak_gib']:.2f} GiB built into its shards (limit {limit:.2f}: resident + 2 x the largest whole "
+        f"tensor's {r0['largest_f32_gib']:.2f} GiB in f32 + {BUILD_SLACK_GIB} GiB) vs one card's "
         f"{one['resident_gib']:.2f} / {one['peak_gib']:.2f} ({one['build_peak_gib']:.2f}) GiB; "
         f"{[round(r['seconds'], 2) for r in ranks]} s a rank vs {one['seconds']:.2f} s; steps "
         f"{[r['steps'] for r in ranks]} | {SMI}")
     if text != Path(one["pred"]).read_text():
         raise AssertionError("(c) generate_s2s at fsdp=4 differs from one card's")
+    if r0["build_peak_gib"] > limit:
+        raise AssertionError(f"(c) generate_s2s at fsdp=4: rank 0's build peaked at {r0['build_peak_gib']:.2f} GiB, "
+                             f"above {limit:.2f} GiB")
 
 
 S2S_TP_BUCKETS = (512, 1536)  # (c)'s buckets: 3 steps of 8 in each, in the loader's order
@@ -6440,6 +6568,13 @@ ROUTES_CHECK_LAYERS = 2  # the decoders' depth in the card-vs-CPU checks (full w
 ROUTES_CROSS = ((256, 1500), (1500, 256))  # (Tq, Tk) of the op: queries over whisper-small's 1500 frames and back
 K4_ROUTES_REL_L2 = 2.4e-3  # the new K4 rows' limit against the f32 twin (the older rows keep 2e-2)
 ROUTES_PATH = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd_f32", "flash_attention_bwd_f32")
+# the panel route above head_dim 256: its K4 rows' limit against the f32 twin, set before their first card run
+# from the bf16 twin's own spread against the f32 twin on the CPU at PANEL_CASES' shapes and the head_dim-512
+# decoder's (2.288e-3 to 2.356e-3 relative L2 over dq / dk / dv)
+K4_PANEL_REL_L2 = 3e-3
+PANEL_PATH = ("flash_attention_fwd_wide", "flash_attention_bwd_wide", "flash_attention_fwd_wide_f32",
+              "flash_attention_bwd_wide_f32")
+ROUTES_D512_HEADS = 4  # the head_dim-512 decoder: gemma-2b's q width (2048) as 4 heads of 512 over 1 kv head
 ROUTES_BYPASSED = ("rowquant", "rowquant_rot_sr", "rowquant_fold", "int8_matmul", "int8_matmul_f32")  # no int8 base
 
 # phase 3's rows for the routes: (name, B, T or (Tq, Tk), H, Hkv, D, causal, padding, fused RoPE's theta or 0)
@@ -6454,6 +6589,17 @@ ROUTES_K1_CASES = [
      "right", 0),
 ]
 ROUTES_K4_CASES = [c for c in ROUTES_K1_CASES if "prefill" not in c[0]]
+# phase 3's rows of the panel route, each of its four kernels (bf16 and f32); the first two are the head_dim-512
+# decoder's training and prefill shapes (phase 22 (d))
+PANEL_CASES = [
+    ("head_dim 512 decoder training, fused RoPE, 4:1 GQA, left-padded", ROUTES_BATCH, ROUTES_T, ROUTES_D512_HEADS, 1,
+     512, True, "left", 1e4),
+    ("head_dim 512 decoder prefill, left-padded", ROUTES_BATCH, ROUTES_T, ROUTES_D512_HEADS, 1, 512, True, "left", 0),
+    ("head_dim 512, fused RoPE, 8:1 GQA, left-padded", 4, 1024, 8, 1, 512, True, "left", 1e4),
+    ("head_dim 320, causal", 4, 1024, 16, 2, 320, True, "none", 0),
+    ("256 queries over 1024 keys at head_dim 384, right-padded", 4, (256, 1024), 8, 2, 384, False, "right", 0),
+    ("head_dim 1024", 2, 512, 4, 1, 1024, False, "none", 0),
+]
 ROUTES_F32_CASES = [
     ("f32 tinyllama training, fused RoPE, left-padded", ROUTES_BATCH, ROUTES_T, 32, 4, 64, True, "left", 1e4),
     ("f32 tinyllama prefill, left-padded", ROUTES_BATCH, ROUTES_T, 32, 4, 64, True, "left", 0),
@@ -6613,6 +6759,15 @@ def routes_f32_decoder() -> dict:
     return launches
 
 
+def head_dim_512_widths():
+    """``gemma_2b_widths`` with the q width (2048) as ROUTES_D512_HEADS heads
+    of 512 over 1 kv head: a head_dim-512 decoder, which no model the repo
+    supports has (neither package has a preset), at ~2.5 B parameters."""
+    import dataclasses
+
+    return dataclasses.replace(gemma_2b_widths(), n_heads=ROUTES_D512_HEADS, head_dim=512)
+
+
 def routes_head_dim_256() -> dict:
     """(b) ``models.llm.CausalLM`` at gemma-2b's widths (``gemma_2b_widths``,
     bf16, 18 layers, LoRA r8 on q / v): two training steps of the 8 x 512
@@ -6621,15 +6776,38 @@ def routes_head_dim_256() -> dict:
     k), ROUTES_DECODE_STEPS greedy steps through the KV cache; the card
     against the CPU at ROUTES_CHECK_LAYERS layers: the loss within 1e-2,
     every LoRA gradient within cosine 0.99."""
+    return routes_bf16_decoder("(b) head_dim-256", gemma_2b_widths(), 32, "flash_attention_fwd",
+                               "flash_attention_bwd", ("flash_attention_fwd_f32", "flash_attention_bwd_f32",
+                                                       *PANEL_PATH))
+
+
+def routes_head_dim_512() -> dict:
+    """(d) (b) at head_dim 512 (``head_dim_512_widths``: 4 heads over 1):
+    the panel route's K1 and K4 at D 512 with fused RoPE and 4:1 GQA once a
+    layer each in the training steps, its K1 in the prefill; held as (b)."""
+    return routes_bf16_decoder("(d) head_dim-512", head_dim_512_widths(), 34, "flash_attention_fwd_wide",
+                               "flash_attention_bwd_wide", ("flash_attention_fwd", "flash_attention_bwd",
+                                                            "flash_attention_fwd_f32", "flash_attention_bwd_f32",
+                                                            "flash_attention_fwd_wide_f32",
+                                                            "flash_attention_bwd_wide_f32"))
+
+
+def routes_bf16_decoder(label: str, cfg, seed: int, k1: str, k4: str, idle: tuple) -> dict:
+    """A bf16 decoder of phase 22 at ``cfg``'s widths (18 layers, LoRA r8 on
+    q / v): two training steps of the 8 x 512 left-padded batch (``k1`` and
+    ``k4`` with fused RoPE once a layer each), a prefill of the 8 prompts
+    (``k1`` on rotated q / k), ROUTES_DECODE_STEPS greedy steps through the
+    KV cache, and none of ``idle`` or ROUTES_BYPASSED; the card against the
+    CPU at ROUTES_CHECK_LAYERS layers: the loss within 1e-2, every LoRA
+    gradient within cosine 0.99."""
     from slam_llm_tpu_torch.models.llm import init_kv_cache
 
-    cfg = gemma_2b_widths()
     t0 = time.perf_counter()
     model, lora = lora_decoder(cfg)
     build_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    batch = text_batch(cfg.vocab_size, ROUTES_BATCH, ROUTES_T, 32)
-    steps, launches = run_counted(lambda: train_decoder(model, lora, batch, ROUTES_STEPS, "head_dim 256 decoder"))
+    batch = text_batch(cfg.vocab_size, ROUTES_BATCH, ROUTES_T, seed)
+    steps, launches = run_counted(lambda: train_decoder(model, lora, batch, ROUTES_STEPS, f"{label} decoder"))
     step_launches = dict(launches)
     ids, mask, _ = batch
     t = ids.shape[1]
@@ -6655,21 +6833,20 @@ def routes_head_dim_256() -> dict:
 
     (tokens, step_s), gen_launches = run_counted(generate)
     launches = {k: launches[k] + gen_launches[k] for k in launches}
-    log(f"[routes] (b) head_dim-256 decoder at gemma-2b's widths: {n_params / 1e9:.3f} B parameters "
-        f"(built and drawn in {build_s:.1f} s), batch {tuple(ids.shape)}: steps "
-        f"{[(round(l, 5), round(sec, 3)) for l, sec in steps]} (loss, s); K1 {step_launches['flash_attention_fwd']} / "
-        f"K4 {step_launches['flash_attention_bwd']} launches in {ROUTES_STEPS} steps; prefill + "
+    log(f"[routes] {label} decoder ({cfg.n_heads} heads of {cfg.head_dim} over {cfg.n_kv_heads}): "
+        f"{n_params / 1e9:.3f} B parameters (built and drawn in {build_s:.1f} s), batch {tuple(ids.shape)}: steps "
+        f"{[(round(l, 5), round(sec, 3)) for l, sec in steps]} (loss, s); {k1} {step_launches[k1]} / "
+        f"{k4} {step_launches[k4]} launches in {ROUTES_STEPS} steps; prefill + "
         f"{ROUTES_DECODE_STEPS - 1} decode steps: tokens {tuple(tokens.shape)}, {1000 * step_s:.1f} ms a decode step, "
-        f"K1 {gen_launches['flash_attention_fwd']}; first row {tokens[0].tolist()}")
+        f"{k1} {gen_launches[k1]}; first row {tokens[0].tolist()}")
     per_step = cfg.n_layers * ROUTES_STEPS
-    if (step_launches["flash_attention_fwd"] != per_step or step_launches["flash_attention_bwd"] != per_step
-            or gen_launches["flash_attention_fwd"] != cfg.n_layers
+    if (step_launches[k1] != per_step or step_launches[k4] != per_step or gen_launches[k1] != cfg.n_layers
             or tuple(tokens.shape) != (ROUTES_BATCH, ROUTES_DECODE_STEPS)
-            or any(launches[k] for k in ("flash_attention_fwd_f32", "flash_attention_bwd_f32", *ROUTES_BYPASSED))):
-        raise AssertionError(f"routes (b): launches {launches}, tokens {tuple(tokens.shape)}")
-    ids_c, mask_c, labels_c = text_batch(cfg.vocab_size, 2, ROUTES_T // 2, 33)
+            or any(launches[k] for k in (*idle, *ROUTES_BYPASSED))):
+        raise AssertionError(f"routes {label}: launches {launches}, tokens {tuple(tokens.shape)}")
+    ids_c, mask_c, labels_c = text_batch(cfg.vocab_size, 2, ROUTES_T // 2, seed + 1)
     check = (ids_c[1:], mask_c[1:], labels_c[1:])  # one left-padded row of 256: the CPU's bf16 head is 256000 wide
-    decoder_against_cpu(model, "(b) head_dim-256 decoder", ROUTES_CHECK_LAYERS, check, 1e-2, 0.99)
+    decoder_against_cpu(model, f"{label} decoder", ROUTES_CHECK_LAYERS, check, 1e-2, 0.99)
     del model, lora
     torch.cuda.empty_cache()
     return launches
@@ -6734,16 +6911,84 @@ def routes_cross_attention() -> dict:
     return total
 
 
+def routes_panel_op() -> dict:
+    """(e) ``layers.mha_attention`` with gradients on the panel route:
+    causal f32 with fused RoPE at D 320 and 512 (4:1 GQA, left-padded), bf16
+    causal 4:1 GQA at D 384, and 256 queries over 1024 keys at D 512 (keys
+    right-padded) in bf16 and f32. Each output and gradient against the
+    twin on the kernel's own (out, lse): f32 within 2e-5 (out abs, the
+    gradients of the twin's largest entry, ``bwd_f32_error``); bf16 out
+    within 2e-2 abs, gradients within K4_PANEL_REL_L2 relative L2."""
+    from slam_llm_tpu_torch.models.layers import mha_attention
+    from slam_llm_tpu_torch.ops.kernels.flash_attention import (
+        apply_rope_tables,
+        bwd_f32_error,
+        flash_attention_bwd_ref,
+        flash_attention_fwd,
+        flash_attention_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    b, h, hkv = ROUTES_BATCH, 4, 1
+    cases = [(torch.float32, 320, ROUTES_T, True), (torch.float32, 512, ROUTES_T, True),
+             (torch.bfloat16, 384, ROUTES_T, True), (torch.bfloat16, 512, (256, 1024), False),
+             (torch.float32, 512, (256, 1024), False)]
+    total = None
+    for dt, d, t, causal in cases:
+        tq, tk = _tq_tk(t)
+        q = torch.randn(b, tq, h, d, generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn(b, tk, hkv, d, generator=gen, device="cuda").to(dt) for _ in range(2))
+        dout = torch.randn(b, tq, h, d, generator=gen, device="cuda").to(dt)
+        mask = _padding_mask(b, tk, "left" if causal else "right")
+        rope = _rope_for(mask, d, 1e4) if causal and dt == torch.float32 else None
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+        def step():
+            out = mha_attention(*leaves, kv_mask=mask, causal=causal, rope=rope)
+            return out.detach(), torch.autograd.grad(out, leaves, dout)
+
+        (out, got), launches = run_counted(step)
+        total = launches if total is None else {n: total[n] + launches[n] for n in total}
+        k1, k4 = (("flash_attention_fwd_wide", "flash_attention_bwd_wide") if dt == torch.bfloat16
+                  else ("flash_attention_fwd_wide_f32", "flash_attention_bwd_wide_f32"))
+        if launches[k1] != 1 or launches[k4] != 1 or sum(launches.values()) != 2:
+            raise AssertionError(f"routes (e) {(tq, tk, h, hkv, d)} {dt}: launches {launches}")
+        k_out, k_lse = flash_attention_fwd(q, k, v, mask, causal, rope=rope)  # the comparison's: not counted
+        qr, kr = (apply_rope_tables(x, *rope) for x in (q, k)) if rope is not None else (q, k)
+        ref, _ = flash_attention_ref(qr.float(), kr.float(), v.float(), mask, causal)
+        want = flash_attention_bwd_ref(qr.float(), kr.float(), v.float(), mask, k_out.float(), k_lse, dout.float(),
+                                       causal)
+        if rope is not None:
+            want = (apply_rope_tables(want[0], *rope, inverse=True), apply_rope_tables(want[1], *rope, inverse=True),
+                    want[2])
+        out_err = (out.float() - ref).abs().max().item()
+        if dt == torch.float32:
+            grad_err, what = bwd_f32_error(got, want, q, k, v, dout), "of the twin's largest entry"
+            ok = out_err <= 2e-5 and grad_err <= 2e-5
+        else:
+            grad_err = max(((g.float() - w).norm() / w.norm()).item() for g, w in zip(got, want))
+            what, ok = "relative L2", out_err <= 2e-2 and grad_err <= K4_PANEL_REL_L2
+        log(f"[routes] (e) mha_attention {str(dt)[6:]} ({b}, {tq} queries over {tk} keys, {h}/{hkv}, {d}) "
+            f"causal={causal} fused RoPE={rope is not None}: max|out - twin| {out_err:.3e}, gradients "
+            f"{grad_err:.3e} {what}; {k1} / {k4} once each")
+        if not ok:
+            raise AssertionError(f"routes (e) {(tq, tk, h, hkv, d)} {dt}: out {out_err}, gradients {grad_err}")
+    return total
+
+
 def run_routes() -> tuple:
     """Phase 22: the flash kernels' last routes on the paths that reach
     them: (a) an f32 TinyLlama-1.1B decoder (K1 f32 / K4 f32 with fused
     RoPE), (b) a head_dim-256 decoder at gemma-2b's widths (K1 / K4 at D
     256), (c) ``mha_attention`` at Tq != Tk (K4 and K4 f32 over Tq queries
-    and Tk keys). Returns the launches of the phase and by part."""
+    and Tk keys), (d) a head_dim-512 decoder (the panel route's K1 / K4),
+    (e) ``mha_attention`` on the panel route (its four kernels). Returns
+    the launches of the phase and by part."""
     by_part = {"f32_fused_rope": routes_f32_decoder(), "head_dim_256": routes_head_dim_256(),
-               "tq_ne_tk": routes_cross_attention()}
+               "tq_ne_tk": routes_cross_attention(), "head_dim_512": routes_head_dim_512(),
+               "panel_op": routes_panel_op()}
     total = {n: sum(part[n] for part in by_part.values()) for n in by_part["f32_fused_rope"]}
-    missing = [n for n in ROUTES_PATH if total[n] == 0]
+    missing = [n for n in (*ROUTES_PATH, *PANEL_PATH) if total[n] == 0]
     if missing:
         raise AssertionError(f"the routes path never launched {missing}")
     return total, by_part
@@ -6802,10 +7047,12 @@ def main() -> int:
         raise AssertionError(f"the s2s path launched K1 {s2s['flash_attention_fwd']} / K4 {s2s['flash_attention_bwd']}")
     if not (vallex["flash_attention_fwd"] and vallex["flash_attention_bwd"]) or any(vallex[k] for k in VX_BYPASSED):
         raise AssertionError(f"the vallex path launched {vallex}")
-    # each new route of phase 22 launched on its own part of the path: f32 with fused RoPE, D 256, Tq != Tk
+    # each new route of phase 22 launched on its own part of the path: f32 with fused RoPE, D 256, Tq != Tk,
+    # the panel route at D 512 and through the op
     want = {"f32_fused_rope": ("flash_attention_fwd_f32", "flash_attention_bwd_f32"),
             "head_dim_256": ("flash_attention_fwd", "flash_attention_bwd"),
-            "tq_ne_tk": ("flash_attention_bwd", "flash_attention_bwd_f32")}
+            "tq_ne_tk": ("flash_attention_bwd", "flash_attention_bwd_f32"),
+            "head_dim_512": ("flash_attention_fwd_wide", "flash_attention_bwd_wide"), "panel_op": PANEL_PATH}
     if any(not routes_by_part[part][n] for part, names in want.items() for n in names):
         raise AssertionError(f"the routes phase launched {routes_by_part}")
     log(f"[chip_smoke] phases 1-22 in {time.perf_counter() - t0:.1f} s, by phase {PHASE_SECONDS} | {SMI}")

@@ -444,13 +444,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D>
-__global__ void flash_fwd_rope_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
-                                      const float* __restrict__ cos_t, const float* __restrict__ sin_t, int b, int T,
-                                      int hx, long long sb, long long st, long long sh) {
-  slam::rope_pass<D>(x, out, cos_t, sin_t, b, T, hx, sb, st, sh);
-}
-
 // ---------------------------------------------------------------------------
 // the layout probe: one S = Q K^T (both K-major) and one O = bf16(S) V (S
 // from the accumulator registers, V MN-major) on a single tile
@@ -537,16 +530,6 @@ cudaError_t launch_fwd(const void* q, const void* kk, const void* v, const FwdPa
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_rope(const void* x, void* out, const float* cos_t, const float* sin_t, int b, int T, int hx,
-                        const long long* s, cudaStream_t st) {
-  const long long n = static_cast<long long>(b) * T * hx * (D / 16);
-  flash_fwd_rope_kernel<D><<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), cos_t, sin_t, b, T, hx, s[0], s[1],
-      s[2]);
-  return cudaGetLastError();
-}
-
 template <int D, int N>
 cudaError_t launch_probe(const void* q, const void* k, const void* v, float* s_out, float* o_out, cudaStream_t st) {
   constexpr int smem = (64 + 2 * N) * D * 2 + 8 + 1024;
@@ -593,11 +576,8 @@ extern "C" int slam_flash_fwd(const void* q, const void* k, const void* v, const
   long long ks[3] = {ksb, kst, ksh};
   const void* kk = k;
   if (rope) {
-    cudaError_t err = cudaErrorInvalidValue;
-    if (d == 64) err = launch_rope<64>(k, k_rot, p.cos_t, p.sin_t, b, tk, hkv, ks, st);
-    if (d == 128) err = launch_rope<128>(k, k_rot, p.cos_t, p.sin_t, b, tk, hkv, ks, st);
-    if (d == 192) err = launch_rope<192>(k, k_rot, p.cos_t, p.sin_t, b, tk, hkv, ks, st);
-    if (d == 256) err = launch_rope<256>(k, k_rot, p.cos_t, p.sin_t, b, tk, hkv, ks, st);
+    const cudaError_t err = slam::launch_rope(static_cast<const __nv_bfloat16*>(k), static_cast<__nv_bfloat16*>(k_rot),
+                                              p.cos_t, p.sin_t, b, tk, hkv, d, ks[0], ks[1], ks[2], st);
     if (err != cudaSuccess) return static_cast<int>(err);
     kk = k_rot;
     ks[0] = static_cast<long long>(tk) * hkv * d;

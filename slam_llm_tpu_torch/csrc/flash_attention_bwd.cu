@@ -673,14 +673,6 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(const __grid_con
   }
 }
 
-template <int D>
-__global__ void flash_bwd_rope_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
-                                      const float* __restrict__ cos_t, const float* __restrict__ sin_t, int b, int T,
-                                      int hx) {
-  const long long row = static_cast<long long>(hx) * D;
-  slam::rope_pass<D>(x, out, cos_t, sin_t, b, T, hx, T * row, row, D);
-}
-
 // a contiguous (B, T, heads, D) bf16 tensor as a 4-D map (D, heads, T, B), boxes of 64 x 1 x rows x 1
 bool encode_bthd(CUtensorMap* map, const void* base, int D, int heads, int T, int b, int rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(T),
@@ -713,13 +705,12 @@ cudaError_t launch_bwd(const __nv_bfloat16* q, const __nv_bfloat16* k, const __n
   if (err != cudaSuccess) return err;
   using L = BwdSmem<D>;
   if (p.cos_t != nullptr) {  // q and k rotated once, into the caller's scratch (Tq == Tk)
-    const long long nq = static_cast<long long>(p.b) * p.tq * p.h * (D / 16);
-    const long long nk = static_cast<long long>(p.b) * p.tk * p.hkv * (D / 16);
-    flash_bwd_rope_kernel<D><<<static_cast<unsigned>((nq + 255) / 256), 256, 0, st>>>(q, q_rot, p.cos_t, p.sin_t, p.b,
-                                                                                     p.tq, p.h);
-    flash_bwd_rope_kernel<D><<<static_cast<unsigned>((nk + 255) / 256), 256, 0, st>>>(k, k_rot, p.cos_t, p.sin_t, p.b,
-                                                                                     p.tk, p.hkv);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const long long qrow = static_cast<long long>(p.h) * D, krow = static_cast<long long>(p.hkv) * D;
+    if ((err = slam::launch_rope(q, q_rot, p.cos_t, p.sin_t, p.b, p.tq, p.h, D, p.tq * qrow, qrow, D, st)) !=
+            cudaSuccess ||
+        (err = slam::launch_rope(k, k_rot, p.cos_t, p.sin_t, p.b, p.tk, p.hkv, D, p.tk * krow, krow, D, st)) !=
+            cudaSuccess)
+      return err;
     q = q_rot;
     k = k_rot;
   }

@@ -853,26 +853,16 @@ cudaError_t launch(const Params& p, int b, cudaStream_t st) {
 
 }  // namespace fma
 
-template <int D>
-__global__ void flash_bwd_f32_rope_kernel(const float* __restrict__ x, float* __restrict__ out,
-                                          const float* __restrict__ cos_t, const float* __restrict__ sin_t, int b,
-                                          int T, int hx, long long sb, long long st, long long sh) {
-  f32::rope_pass<D>(x, out, cos_t, sin_t, b, T, hx, sb, st, sh);
-}
-
 // q and k rotated into q_rot / k_rot (contiguous), p pointed at them
-template <int D>
-cudaError_t rotate_qk(Params& p, int b, float* q_rot, float* k_rot, cudaStream_t st) {
-  cudaError_t err = f32::launch_rope<D>(flash_bwd_f32_rope_kernel<D>, p.q, q_rot, p.cos_t, p.sin_t, b, p.tq, p.h,
-                                        p.qsb, p.qst, p.qsh, st);
+cudaError_t rotate_qk(Params& p, int b, int d, float* q_rot, float* k_rot, cudaStream_t st) {
+  cudaError_t err = slam::launch_rope(p.q, q_rot, p.cos_t, p.sin_t, b, p.tq, p.h, d, p.qsb, p.qst, p.qsh, st);
   if (err != cudaSuccess) return err;
-  err = f32::launch_rope<D>(flash_bwd_f32_rope_kernel<D>, p.k, k_rot, p.cos_t, p.sin_t, b, p.tk, p.hkv, p.ksb,
-                            p.kst, p.ksh, st);
+  err = slam::launch_rope(p.k, k_rot, p.cos_t, p.sin_t, b, p.tk, p.hkv, d, p.ksb, p.kst, p.ksh, st);
   if (err != cudaSuccess) return err;
   p.q = q_rot;
-  p.qsb = static_cast<long long>(p.tq) * p.h * D, p.qst = static_cast<long long>(p.h) * D, p.qsh = D;
+  p.qsb = static_cast<long long>(p.tq) * p.h * d, p.qst = static_cast<long long>(p.h) * d, p.qsh = d;
   p.k = k_rot;
-  p.ksb = static_cast<long long>(p.tk) * p.hkv * D, p.kst = static_cast<long long>(p.hkv) * D, p.ksh = D;
+  p.ksb = static_cast<long long>(p.tk) * p.hkv * d, p.kst = static_cast<long long>(p.hkv) * d, p.ksh = d;
   return cudaSuccess;
 }
 
@@ -924,11 +914,7 @@ extern "C" int slam_flash_bwd_f32(const void* q, const void* k, const void* v, c
   auto* kr = static_cast<float*>(k_rot);
   cudaError_t err = cudaSuccess;
   if (rope) {
-    if (d == 64) err = rotate_qk<64>(p, b, qr, kr, st);
-    if (d == 128) err = rotate_qk<128>(p, b, qr, kr, st);
-    if (d == 192) err = rotate_qk<192>(p, b, qr, kr, st);
-    if (d == 256) err = rotate_qk<256>(p, b, qr, kr, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if ((err = rotate_qk(p, b, d, qr, kr, st)) != cudaSuccess) return static_cast<int>(err);
   }
   if (d == 64) err = launch<64>(p, b, st);
   if (d == 128) err = launch<128>(p, b, st);

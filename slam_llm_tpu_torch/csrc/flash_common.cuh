@@ -1,6 +1,7 @@
 // Device code shared by the flash-attention forward (K1) and backward (K4):
 // the bf16 wgmma products, the layout of a tile in shared memory, the
-// per-tile key mask, and the fused RoPE rotation.
+// per-tile key mask, the fused RoPE rotation, and the RoPE pass (rope_kernel)
+// that every flash route, bf16 and f32, runs before its products.
 //
 // Tiles. TMA writes every bf16 tile as panels of 64 columns (128 bytes, one
 // 128-byte swizzle row), each panel `rows` x 128 bytes, the next panel
@@ -226,31 +227,70 @@ __device__ __forceinline__ void load8(float (&v)[8], const float* p) {
   v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
 }
 
-// The rotate pass: x (B, T, Hx, D) bf16 with strides (sb, st, sh, 1) ->
-// out (B, T, Hx, D) contiguous, rotated with cos / sin (B, T, D/2) f32.
-// One thread per 8-column chunk of the lower half (and its partner).
-template <int D>
-__device__ __forceinline__ void rope_pass(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
-                                          const float* __restrict__ cos_t, const float* __restrict__ sin_t, int b,
-                                          int T, int hx, long long sb, long long st, long long sh) {
-  constexpr int HALF = D / 2, CH = HALF / 8;
+// 4 consecutive elements as f32 (a 16-byte f32 / 8-byte bf16 load, 4-element aligned) ...
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  return make_float4(__low2float(a), __high2float(a), __low2float(b), __high2float(b));
+}
+
+// ... and back, rounded to nearest
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+
+// The kernels below have internal linkage: every object file that launches
+// them registers its own copy.
+namespace {
+
+// The RoPE pass of every flash route: x (B, T, Hx, D) with strides (sb, st,
+// sh, 1) -> out (B, T, Hx, D) contiguous, rotated with cos / sin (B, T, D/2)
+// f32 (R, or R^T with `inverse`: sin negated) and rounded once to Out; with
+// cos_t null, converted only. Any D % 8 == 0. One thread per 4-column chunk
+// of the lower half and its partner.
+template <typename In, typename Out>
+__global__ void rope_kernel(const In* __restrict__ x, Out* __restrict__ out, const float* __restrict__ cos_t,
+                            const float* __restrict__ sin_t, int b, int T, int hx, int d, long long sb, long long st,
+                            long long sh, bool inverse) {
+  const int half = d / 2, ch = half / 4;
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<long long>(b) * T * hx * CH) return;
-  const int c = static_cast<int>(i % CH) * 8;
-  const long long row = i / CH;  // (bb, t, head)
+  if (i >= static_cast<long long>(b) * T * hx * ch) return;
+  const int c = static_cast<int>(i % ch) * 4;
+  const long long row = i / ch;  // (bb, t, head)
   const int head = static_cast<int>(row % hx);
   const long long bt = row / hx;  // bb * T + t
   const int t = static_cast<int>(bt % T), bb = static_cast<int>(bt / T);
-  const __nv_bfloat16* src = x + bb * sb + t * st + head * sh;
-  uint4 lo = *reinterpret_cast<const uint4*>(src + c), hi = *reinterpret_cast<const uint4*>(src + c + HALF);
-  float cs[8], sn[8];
-  load8(cs, cos_t + bt * HALF + c);
-  load8(sn, sin_t + bt * HALF + c);
-  rope_chunk(lo, hi, cs, sn);
-  __nv_bfloat16* dst = out + row * D;
-  *reinterpret_cast<uint4*>(dst + c) = lo;
-  *reinterpret_cast<uint4*>(dst + c + HALF) = hi;
+  const In* src = x + bb * sb + t * st + head * sh;
+  float4 lo = load4(src + c), hi = load4(src + c + half);
+  if (cos_t != nullptr) {
+    const float4 cs = __ldg(reinterpret_cast<const float4*>(cos_t + bt * half + c));
+    float4 sn = __ldg(reinterpret_cast<const float4*>(sin_t + bt * half + c));
+    if (inverse) sn = make_float4(-sn.x, -sn.y, -sn.z, -sn.w);
+    const float4 l = lo;
+    lo = make_float4(rope1(l.x, hi.x, cs.x, sn.x, false), rope1(l.y, hi.y, cs.y, sn.y, false),
+                     rope1(l.z, hi.z, cs.z, sn.z, false), rope1(l.w, hi.w, cs.w, sn.w, false));
+    hi = make_float4(rope1(hi.x, l.x, cs.x, sn.x, true), rope1(hi.y, l.y, cs.y, sn.y, true),
+                     rope1(hi.z, l.z, cs.z, sn.z, true), rope1(hi.w, l.w, cs.w, sn.w, true));
+  }
+  Out* dst = out + row * d;
+  store4(dst + c, lo);
+  store4(dst + c + half, hi);
 }
+
+// rope_kernel over (b, T, hx) rows of width d
+template <typename In, typename Out>
+cudaError_t launch_rope(const In* x, Out* out, const float* cos_t, const float* sin_t, int b, int T, int hx, int d,
+                        long long sb, long long st, long long sh, cudaStream_t stream, bool inverse = false) {
+  const long long n = static_cast<long long>(b) * T * hx * (d / 8);
+  rope_kernel<In, Out><<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(x, out, cos_t, sin_t, b, T, hx, d,
+                                                                                  sb, st, sh, inverse);
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 // counter-rotates an accumulator in place (d_pre = R^T d_post):
 //   lower' = lower * cos + upper * sin,  upper' = upper * cos - lower * sin

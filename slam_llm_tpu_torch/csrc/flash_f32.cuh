@@ -234,44 +234,5 @@ __device__ __forceinline__ void store_tile_cols(uint8_t* hi, uint8_t* lo, const 
   }
 }
 
-// The f32 routes' fused RoPE, as a pass before the products: x (B, T, Hx,
-// D) f32 with strides (sb, st, sh, 1) -> out (B, T, Hx, D) contiguous,
-// rotated with cos / sin (B, T, D/2) f32 in rope1's numerics (each product
-// and the sum rounded once: apply_rope_tables in f32). One thread per
-// 4-column chunk of the lower half and its partner.
-template <int D>
-__device__ __forceinline__ void rope_pass(const float* __restrict__ x, float* __restrict__ out,
-                                          const float* __restrict__ cos_t, const float* __restrict__ sin_t, int b,
-                                          int T, int hx, long long sb, long long st, long long sh) {
-  constexpr int HALF = D / 2, CH = HALF / 4;
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<long long>(b) * T * hx * CH) return;
-  const int c = static_cast<int>(i % CH) * 4;
-  const long long row = i / CH;  // (bb, t, head)
-  const int head = static_cast<int>(row % hx);
-  const long long bt = row / hx;  // bb * T + t
-  const int t = static_cast<int>(bt % T), bb = static_cast<int>(bt / T);
-  const float* src = x + bb * sb + t * st + head * sh;
-  const float4 lo = *reinterpret_cast<const float4*>(src + c), hi = *reinterpret_cast<const float4*>(src + c + HALF);
-  const float4 cs = __ldg(reinterpret_cast<const float4*>(cos_t + bt * HALF + c));
-  const float4 sn = __ldg(reinterpret_cast<const float4*>(sin_t + bt * HALF + c));
-  float* dst = out + row * D;
-  *reinterpret_cast<float4*>(dst + c) =
-      make_float4(rope1(lo.x, hi.x, cs.x, sn.x, false), rope1(lo.y, hi.y, cs.y, sn.y, false),
-                  rope1(lo.z, hi.z, cs.z, sn.z, false), rope1(lo.w, hi.w, cs.w, sn.w, false));
-  *reinterpret_cast<float4*>(dst + c + HALF) =
-      make_float4(rope1(hi.x, lo.x, cs.x, sn.x, true), rope1(hi.y, lo.y, cs.y, sn.y, true),
-                  rope1(hi.z, lo.z, cs.z, sn.z, true), rope1(hi.w, lo.w, cs.w, sn.w, true));
-}
-
-// the launch of a __global__ wrapper of rope_pass<D> over (b, T, hx) rows
-template <int D, typename Kernel>
-cudaError_t launch_rope(Kernel kernel, const float* x, float* out, const float* cos_t, const float* sin_t, int b, int T,
-                        int hx, long long sb, long long st, long long sh, cudaStream_t stream) {
-  const long long n = static_cast<long long>(b) * T * hx * (D / 8);
-  kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(x, out, cos_t, sin_t, b, T, hx, sb, st, sh);
-  return cudaGetLastError();
-}
-
 }  // namespace f32
 }  // namespace slam

@@ -54,6 +54,11 @@ _SIGNATURES = {
     # q k v mask out dout lse cos sin q_rot k_rot delta dq dk dv | b tq tk h hkv d | q/k/v/out/dout strides |
     # scale causal | stream
     "slam_flash_bwd_f32": [_P] * 15 + [_I] * 6 + [_L] * 15 + [ctypes.c_float, _I, _P],
+    # q k v mask out lse cos sin q_rot k_rot | b tq tk h hkv d | q/k/v strides | scale causal f32 | stream
+    "slam_flash_fwd_wide": [_P] * 10 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _I, _I, _P],
+    # q k v mask out dout lse cos sin q_rot k_rot delta dq32 dk32 dv32 dq dk dv | b tq tk h hkv d |
+    # q/k/v/out/dout strides | scale causal f32 | stream
+    "slam_flash_bwd_wide": [_P] * 18 + [_I] * 6 + [_L] * 15 + [ctypes.c_float, _I, _I, _P],
     # q k v s_out o_out | d n | stream
     "slam_wgmma_probe": [_P] * 5 + [_I, _I, _P],
 }

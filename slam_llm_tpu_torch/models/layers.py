@@ -406,10 +406,9 @@ def mha_attention(
 
 def flash_head_dim(d: int) -> bool:
     """Whether a structured call at head_dim ``d`` runs the flash kernels
-    (D 64, 128, 192, 256, where the JAX package runs its Pallas kernels)
-    or the plain path (D % 64 != 0, where the JAX package runs XLA too).
-    A wider D, which no configuration reaches, raises in the kernels'
-    wrappers."""
+    (every D % 64 == 0, where the JAX package runs its Pallas kernels: D
+    64 to 256 on the TMA / wgmma kernels, wider on the panel route) or the
+    plain path (D % 64 != 0, where the JAX package runs XLA too)."""
     return d % 64 == 0
 
 

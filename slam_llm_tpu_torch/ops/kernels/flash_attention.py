@@ -17,7 +17,11 @@ backward counter-rotates dq/dk. Self-attention only (Tq == Tk).
 
 The wrappers send CPU tensors to the twins and CUDA tensors to
 ``csrc/flash_attention.cu`` (K1) and ``csrc/flash_attention_bwd.cu`` (K4):
-bf16, D in {64, 128, 192, 256}. f32 CUDA tensors take the f32 routes: K1's
+bf16, D in {64, 128, 192, 256}. Above D 256, at any D % 64 == 0, both
+dtypes take the panel route (``csrc/flash_attention_wide.cu``:
+``flash_attention_fwd_wide`` / ``_bwd_wide`` and their ``_f32`` twins), D
+split into 64-column panels for the score products and outputs recomputed
+256 (dK / dV 128) columns at a time. f32 CUDA tensors take the f32 routes: K1's
 (``csrc/flash_attention_f32.cu``, ``flash_attention_fwd_f32``) and K4's
 (``csrc/flash_attention_bwd_f32.cu``, ``flash_attention_bwd_f32``),
 f32-accurate products on the tensor cores as 3-pass split TF32 at D 64 /
@@ -25,7 +29,7 @@ f32-accurate products on the tensor cores as 3-pass split TF32 at D 64 /
 FMA on the CUDA cores at D 192 / 256; with fused RoPE a pass rotates q / k
 into f32 scratch first. Both backward kernels take Tq != Tk (not causal, no
 RoPE): dq over the queries, dk / dv over the keys. They raise on anything
-else: another head_dim, f16, mixed dtypes.
+else: D % 64 != 0, f16, mixed dtypes.
 ``plan_flash`` decides, in plain Python, how the bf16 kernels cut a call
 into units of work (rows per
 unit, query heads packed per unit, key or query tile, ring stages, grid,
@@ -175,8 +179,12 @@ def bwd_f32_error(got, want, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
 # ---- the kernels' planner ---------------------------------------------------
 
 UNIT_ROWS = 128  # query rows of a K1 / dq unit, keys of a dk/dv unit: two consumer warpgroups of 64
-HEAD_DIMS = (64, 128, 192, 256)  # what the kernels take (D % 64 != 0 runs the plain path in the models)
+HEAD_DIMS = (64, 128, 192, 256)  # what the TMA / wgmma kernels take (D % 64 != 0 runs the plain path in the models)
 WIDE_HEAD_DIMS = (192, 256)  # the layouts that fit 227 KB at these widths (plan_flash)
+# the panel route above D 256 (csrc/flash_attention_wide.cu): rows of a block
+# and keys / queries of a tile, contraction panel, output columns a block holds
+PANEL_TILE, PANEL_COLS = 64, 64
+PANEL_FWD_COLS, PANEL_DQ_COLS, PANEL_DKV_COLS = 256, 256, 128
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on the H100 (227 KB)
 _BAR_BYTES = 8
 _ALIGN_SLACK = 1024  # the kernels align their shared memory to the 128-byte swizzle's 1024 bytes
@@ -198,6 +206,7 @@ class PassPlan(NamedTuple):
     grid: int
     longest_first: bool
     smem_bytes: int
+    panels: int = 1  # output column panels each unit's rows are walked for (the panel route)
 
 
 class FlashPlan(NamedTuple):
@@ -210,6 +219,39 @@ def heads_per_unit(g: int) -> int:
     """Query heads packed into one unit's rows: the largest divisor of the
     group G = H / Hkv that fits the unit's 128 rows (G itself up to 128)."""
     return max(x for x in range(1, min(g, UNIT_ROWS) + 1) if g % x == 0)
+
+
+def panel_route(d: int) -> bool:
+    """Whether head_dim ``d`` takes the panel route (D > 256, D % 64 == 0)."""
+    return d > max(HEAD_DIMS) and d % 64 == 0
+
+
+def kernel_head_dim(d: int) -> bool:
+    """Whether the flash kernels take head_dim ``d``: every D % 64 == 0."""
+    return d in HEAD_DIMS or panel_route(d)
+
+
+def _plan_panels(b: int, tq: int, tk: int, h: int, hkv: int, d: int, causal: bool) -> FlashPlan:
+    """The panel route's cut (csrc/flash_attention_wide.cu): blocks of 64
+    query rows of one head (K1: every O panel of 256 columns in turn; dq:
+    one block per 256-column panel), dk / dv blocks of 64 keys of one kv
+    head per 128-column panel walking the G heads' 64-query tiles; one
+    block per unit (no persistent grid), causal query tiles longest first.
+    Shared memory in f32: two contraction panels of 64 x 65, the 64 x 65
+    P (or dS, or P^T and dS^T) and the output panels' operand rows padded
+    by one float, plus the key mask (and lse / delta)."""
+    n_qt, n_kt = -(-tq // PANEL_TILE), -(-tk // PANEL_TILE)
+    tile = PANEL_TILE * (PANEL_COLS + 1) * 4
+    fwd_panels, dq_panels, dkv_panels = (-(-d // c) for c in (PANEL_FWD_COLS, PANEL_DQ_COLS, PANEL_DKV_COLS))
+    fwd_smem = 3 * tile + PANEL_TILE * (PANEL_FWD_COLS + 1) * 4 + PANEL_TILE * 4
+    dq_smem = 3 * tile + PANEL_TILE * (PANEL_DQ_COLS + 1) * 4 + 3 * PANEL_TILE * 4
+    dkv_smem = 4 * tile + 2 * PANEL_TILE * (PANEL_DKV_COLS + 1) * 4 + 3 * PANEL_TILE * 4
+    units = n_qt * h * b
+    fwd = PassPlan(PANEL_TILE, 1, PANEL_TILE, PANEL_TILE, 1, units, units, causal, fwd_smem, fwd_panels)
+    dq = PassPlan(PANEL_TILE, 1, PANEL_TILE, PANEL_TILE, 1, units, units * dq_panels, causal, dq_smem, dq_panels)
+    dkv_units = n_kt * hkv * b
+    dkv = PassPlan(PANEL_TILE, 1, 0, PANEL_TILE, 1, dkv_units, dkv_units * dkv_panels, causal, dkv_smem, dkv_panels)
+    return FlashPlan(fwd, dq, dkv)
 
 
 def plan_flash(b: int, tq: int, tk: int, h: int, hkv: int, d: int, causal: bool, rope: bool,
@@ -227,13 +269,16 @@ def plan_flash(b: int, tq: int, tk: int, h: int, hkv: int, d: int, causal: bool,
     in different warpgroups) over 32-query tiles, and dq streams 32-key
     tiles. K4's two passes are one launch: they share its grid and shared
     memory; its dq units cover the Tq queries, its dk/dv units the Tk keys.
-    Raises on what the kernels do not take."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernels take head_dim {', '.join(map(str, HEAD_DIMS))}, got {d}")
+    Above D 256 the panel route's plan (``_plan_panels``). Raises on what
+    the kernels do not take."""
+    if not kernel_head_dim(d):
+        raise ValueError(f"flash kernels take head_dim % 64 == 0, got {d}")
     if min(b, tq, tk, h, hkv) < 1 or h % hkv:
         raise ValueError(f"flash kernels need B, T >= 1 and H % Hkv == 0, got B={b} Tq={tq} Tk={tk} H={h} Hkv={hkv}")
     if (causal or rope) and tq != tk:
         raise ValueError(f"causal / fused-rope flash attention requires tq == tk, got {tq} vs {tk}")
+    if panel_route(d):
+        return _plan_panels(b, tq, tk, h, hkv, d, causal)
     g = h // hkv
     wide = d in WIDE_HEAD_DIMS
     q_bufs = 1 if wide else 2
@@ -295,9 +340,10 @@ def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, rna(x - hi)
 
 
-def _f32_operand(x: torch.Tensor) -> torch.Tensor:
-    """x as the f32 kernels read it: a contiguous last dim and 16-byte
-    aligned rows (each row is loaded as float4), else a contiguous copy."""
+def _vec4_operand(x: torch.Tensor) -> torch.Tensor:
+    """x as the f32 kernels and the panel route read it, 4 elements at a
+    time: a contiguous last dim, other strides multiples of 4 and a 16-byte
+    aligned base, else a contiguous copy."""
     if x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(st % 4 == 0 for st in x.stride()[:-1]):
         return x
     return x.clone(memory_format=torch.contiguous_format)
@@ -306,8 +352,8 @@ def _f32_operand(x: torch.Tensor) -> torch.Tensor:
 def _check_kernel_inputs(d, *tensors, dtype=torch.bfloat16):
     if any(t.dtype != dtype for t in tensors):
         raise TypeError(f"flash kernels take {dtype} here, got {[t.dtype for t in tensors]}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernels take head_dim {', '.join(map(str, HEAD_DIMS))}, got {d}")
+    if not kernel_head_dim(d):
+        raise ValueError(f"flash kernels take head_dim % 64 == 0, got {d}")
 
 
 def _is_f32(*tensors) -> bool:
@@ -330,6 +376,8 @@ def flash_attention_fwd(
         return flash_attention_ref(q, k, v, kv_mask, causal, scale, rope)
     if _is_f32(q, k, v):
         return flash_attention_fwd_f32(q, k, v, kv_mask, causal, scale, rope)
+    if panel_route(q.shape[-1]):
+        return flash_attention_fwd_wide(q, k, v, kv_mask, causal, scale, rope)
     _check_shapes(q, k, v, kv_mask, causal, rope)
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
@@ -366,13 +414,14 @@ flash_attention_fwd.launches = 0
 
 
 def _rope_scratch(rope: Rope, q: torch.Tensor, k: torch.Tensor):
-    """The f32 routes' fused RoPE: ``(tensors to keep alive over the
-    launch, pointers of cos, sin and of contiguous f32 scratch for the
-    rotated q and k)``; null pointers without RoPE."""
+    """The fused RoPE of the f32 routes and the panel route: ``(tensors to
+    keep alive over the launch, pointers of cos, sin and of contiguous
+    scratch for the rotated q and k in their dtype)``; null pointers
+    without RoPE."""
     cos, sin, cos_p, sin_p = _kernel_rope(rope, q.device)
     if rope is None:
         return (), (0, 0, 0, 0)
-    q_rot, k_rot = (torch.empty(x.shape, dtype=torch.float32, device=q.device) for x in (q, k))
+    q_rot, k_rot = (torch.empty(x.shape, dtype=x.dtype, device=q.device) for x in (q, k))
     return (cos, sin, q_rot, k_rot), (cos_p, sin_p, q_rot.data_ptr(), k_rot.data_ptr())
 
 
@@ -387,11 +436,13 @@ def flash_attention_fwd_f32(
     (a pass rotates q / k into f32 scratch first)."""
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, kv_mask, causal, scale, rope)
+    if panel_route(q.shape[-1]):
+        return flash_attention_fwd_wide_f32(q, k, v, kv_mask, causal, scale, rope)
     _check_shapes(q, k, v, kv_mask, causal, rope)
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     _check_kernel_inputs(d, q, k, v, dtype=torch.float32)
-    q, k, v = (_f32_operand(x) for x in (q, k, v))
+    q, k, v = (_vec4_operand(x) for x in (q, k, v))
     mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((b, tq, h, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, tq, h), dtype=torch.float32, device=q.device)
@@ -427,6 +478,8 @@ def flash_attention_bwd(
     _check_shapes(q, k, v, kv_mask, causal, rope)
     if _is_f32(q, k, v):
         return flash_attention_bwd_f32(q, k, v, kv_mask, out, lse, dout, causal, scale, rope)
+    if panel_route(q.shape[-1]):
+        return flash_attention_bwd_wide(q, k, v, kv_mask, out, lse, dout, causal, scale, rope)
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     _check_kernel_inputs(d, q, k, v, out, dout)
@@ -477,6 +530,8 @@ def flash_attention_bwd_f32(
     Tq != Tk takes neither the causal mask nor RoPE."""
     if not q.is_cuda:
         return flash_attention_bwd_ref(q, k, v, kv_mask, out, lse, dout, causal, scale, rope)
+    if panel_route(q.shape[-1]):
+        return flash_attention_bwd_wide_f32(q, k, v, kv_mask, out, lse, dout, causal, scale, rope)
     _check_shapes(q, k, v, kv_mask, causal, rope)
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
@@ -484,7 +539,7 @@ def flash_attention_bwd_f32(
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, tq, h):
         raise ValueError(f"out / dout must be {tuple(q.shape)} and lse {(b, tq, h)}, got {tuple(out.shape)}, "
                          f"{tuple(dout.shape)}, {tuple(lse.shape)}")
-    q, k, v, out, dout = (_f32_operand(x) for x in (q, k, v, out, dout))
+    q, k, v, out, dout = (_vec4_operand(x) for x in (q, k, v, out, dout))
     lse = lse.float().contiguous()
     mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
     dq = torch.empty((b, tq, h, d), dtype=torch.float32, device=q.device)
@@ -511,6 +566,146 @@ def flash_attention_bwd_f32(
 
 
 flash_attention_bwd_f32.launches = 0
+
+
+# ---- the panel route above D 256 ----------------------------------------------
+
+
+def _panel_inputs(q, k, v, kv_mask, causal, rope, dtype, *more):
+    _check_shapes(q, k, v, kv_mask, causal, rope)
+    d = q.shape[-1]
+    if d % 64 != 0:  # the kernels take any such D; flash_attention_fwd / _bwd send D > 256 here
+        raise ValueError(f"the panel route takes head_dim % 64 == 0, got {d}")
+    _check_kernel_inputs(d, q, k, v, *more, dtype=dtype)
+    mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
+    return [_vec4_operand(x) for x in (q, k, v, *more)], mask
+
+
+def _fwd_panels(q, k, v, kv_mask, causal, scale, rope, dtype):
+    (q, k, v), mask = _panel_inputs(q, k, v, kv_mask, causal, rope, dtype)
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    out = torch.empty((b, tq, h, d), dtype=dtype, device=q.device)
+    lse = torch.empty((b, tq, h), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
+
+    keep, rope_ptrs = _rope_scratch(rope, q, k)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    with torch.cuda.device(q.device):
+        err = library().slam_flash_fwd_wide(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            *rope_ptrs, b, tq, tk, h, hkv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            float(scale), int(causal), int(dtype == torch.float32), stream_ptr(q),
+        )
+    check(err, "flash_attention_fwd_wide")
+    return out, lse
+
+
+def flash_attention_fwd_wide(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor,
+    causal: bool = False, scale: Optional[float] = None, rope: Rope = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` of bf16 q / k / v at any D % 64 == 0: K1's panel
+    route (``csrc/flash_attention_wide.cu``) on CUDA tensors, the twin on
+    CPU tensors; ``flash_attention_fwd`` sends D > 256 here."""
+    if not q.is_cuda:
+        return flash_attention_ref(q, k, v, kv_mask, causal, scale, rope)
+    out = _fwd_panels(q, k, v, kv_mask, causal, scale, rope, torch.bfloat16)
+    flash_attention_fwd_wide.launches += 1
+    return out
+
+
+flash_attention_fwd_wide.launches = 0
+
+
+def flash_attention_fwd_wide_f32(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor,
+    causal: bool = False, scale: Optional[float] = None, rope: Rope = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_fwd_wide`` over f32 q / k / v (K1 f32's panel
+    route); ``flash_attention_fwd_f32`` sends such calls here."""
+    if not q.is_cuda:
+        return flash_attention_ref(q, k, v, kv_mask, causal, scale, rope)
+    out = _fwd_panels(q, k, v, kv_mask, causal, scale, rope, torch.float32)
+    flash_attention_fwd_wide_f32.launches += 1
+    return out
+
+
+flash_attention_fwd_wide_f32.launches = 0
+
+
+def _bwd_panels(q, k, v, kv_mask, out, lse, dout, causal, scale, rope, dtype):
+    b, tq, h, d = q.shape
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, tq, h):
+        raise ValueError(f"out / dout must be {tuple(q.shape)} and lse {(b, tq, h)}, got {tuple(out.shape)}, "
+                         f"{tuple(dout.shape)}, {tuple(lse.shape)}")
+    (q, k, v, out, dout), mask = _panel_inputs(q, k, v, kv_mask, causal, rope, dtype, out, dout)
+    tk, hkv = k.shape[1], k.shape[2]
+    lse = lse.float().contiguous()
+    dq = torch.empty((b, tq, h, d), dtype=dtype, device=q.device)
+    dk = torch.empty((b, tk, hkv, d), dtype=dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    # f32 accumulators: the outputs themselves where they are f32 and not counter-rotated
+    direct = dtype == torch.float32
+    dq32 = dq if direct and rope is None else torch.empty(dq.shape, dtype=torch.float32, device=q.device)
+    dk32 = dk if direct and rope is None else torch.empty(dk.shape, dtype=torch.float32, device=q.device)
+    dv32 = dv if direct else torch.empty(dv.shape, dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, tq, h), dtype=torch.float32, device=q.device)
+    from slam_llm_tpu_torch.kernels.build import check, library, stream_ptr
+
+    keep, (cos_p, sin_p, q_rot, k_rot) = _rope_scratch(rope, q, k)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    with torch.cuda.device(q.device):
+        err = library().slam_flash_bwd_wide(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), cos_p, sin_p, q_rot, k_rot, delta.data_ptr(), dq32.data_ptr(), dk32.data_ptr(),
+            dv32.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, tk, h, hkv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], *dout.stride()[:3],
+            float(scale), int(causal), int(dtype == torch.float32), stream_ptr(q),
+        )
+    check(err, "flash_attention_bwd_wide")
+    return dq, dk, dv
+
+
+def flash_attention_bwd_wide(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    causal: bool = False, scale: Optional[float] = None, rope: Rope = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of bf16 tensors at any D % 64 == 0 (``flash_attention_bwd``
+    sends D > 256 here): K4's panel route
+    (``csrc/flash_attention_wide.cu``: a delta pass, the dq and dk / dv
+    blocks, a pass to bf16 with R^T under fused RoPE) on CUDA tensors, the
+    twin on CPU tensors."""
+    if not q.is_cuda:
+        return flash_attention_bwd_ref(q, k, v, kv_mask, out, lse, dout, causal, scale, rope)
+    grads = _bwd_panels(q, k, v, kv_mask, out, lse, dout, causal, scale, rope, torch.bfloat16)
+    flash_attention_bwd_wide.launches += 1
+    return grads
+
+
+flash_attention_bwd_wide.launches = 0
+
+
+def flash_attention_bwd_wide_f32(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    causal: bool = False, scale: Optional[float] = None, rope: Rope = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``flash_attention_bwd_wide`` over f32 tensors (K4 f32's panel
+    route); ``flash_attention_bwd_f32`` sends such calls here."""
+    if not q.is_cuda:
+        return flash_attention_bwd_ref(q, k, v, kv_mask, out, lse, dout, causal, scale, rope)
+    grads = _bwd_panels(q, k, v, kv_mask, out, lse, dout, causal, scale, rope, torch.float32)
+    flash_attention_bwd_wide_f32.launches += 1
+    return grads
+
+
+flash_attention_bwd_wide_f32.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

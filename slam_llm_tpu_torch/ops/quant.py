@@ -158,18 +158,29 @@ def quantize_base_params(model: nn.Module) -> nn.Module:
     always re-derived, never trusted (a converter or loader may carry a stale
     copy). The port keeps ``kernel_scale_r`` in f32."""
     for mod in model.modules():
-        if getattr(mod, "kernel_qr", None) is not None:
-            qr, sr = rotated_pair(mod.kernel_q, mod.kernel_scale)
-            mod.kernel_qr.copy_(qr)
-            mod.kernel_scale_r.copy_(sr)
-        if getattr(mod, "kernel_qt", None) is not None:
-            mod.kernel_qt.copy_(mod.kernel_q.T)
+        derive_dense_int8_(mod)
         if getattr(mod, "head_q", None) is not None:
-            q, scale = quantize_int8(mod.head_weight(), contract_axis=-1)  # per vocab row, over D
-            mod.head_q.copy_(q)
-            mod.head_scale.copy_(scale)
-            mod.head_qt.copy_(q.T)
+            for name, t in head_int8(mod.head_weight()).items():
+                getattr(mod, name).copy_(t)
     return model
+
+
+def derive_dense_int8_(mod: nn.Module) -> None:
+    """``quantize_base_params`` on one dense's own tensors: the ``int8_rot``
+    pair and the transpose ``kernel_qt`` from its (kernel_q, kernel_scale)."""
+    if getattr(mod, "kernel_qr", None) is not None:
+        qr, sr = rotated_pair(mod.kernel_q, mod.kernel_scale)
+        mod.kernel_qr.copy_(qr)
+        mod.kernel_scale_r.copy_(sr)
+    if getattr(mod, "kernel_qt", None) is not None:
+        mod.kernel_qt.copy_(mod.kernel_q.T)
+
+
+def head_int8(head: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The int8 CE head of a (V, D) head weight: ``head_q`` / ``head_scale``
+    per vocab row (over D) and the transpose ``head_qt``."""
+    q, scale = quantize_int8(head, contract_axis=-1)
+    return {"head_q": q, "head_scale": scale, "head_qt": q.T}
 
 
 def dequantize_base_params(module: nn.Module, dtype=torch.float32) -> Dict[str, torch.Tensor]:

@@ -11,13 +11,24 @@ Under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` and
 ``MASTER_ADDR`` / ``MASTER_PORT`` in the environment) ``maybe_init_distributed``
 joins the process group: NCCL on ``cuda:LOCAL_RANK``, or gloo when the caller
 asks for the CPU; ``resolve_device`` then names the local rank's card and
-``build_mesh`` lays the ``(dp, fsdp, tp)`` mesh over the world. Every rank
-builds and fills the same whole model from the same seed; the trainer
-shards it. Without torchrun's environment nothing here changes.
+``build_mesh`` lays the ``(dp, fsdp, tp)`` mesh over the world. Given the
+mesh, ``build_model_and_data`` builds the model on ``meta`` (each tensor is
+made on the card as its module is built, its value kept on the host if it
+is not all zero, then moved to ``meta``), and ``materialize_params`` builds
+it straight into the rank's shards: the tp split and FSDP2 laid out on
+``meta``, the shards allocated, then one module's whole tensors at a time
+drawn in the one-process order from the one seeded generator, overlaid with
+the HF and trainable checkpoints, cast, their int8 base derived, and cut to
+this rank's part (the tp slice, then FSDP2's dim-0 chunk). So no rank holds
+more of the model than its shards and one module's tensors in flight, and
+every value equals a one-process build's bit for bit. Without torchrun's
+environment nothing here changes.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import logging
 import math
 import os
@@ -130,15 +141,71 @@ def build_mesh(cfg: RunConfig, device) -> Optional[object]:
     return make_mesh(dp=s.dp, fsdp=s.fsdp, tp=s.tp, device_type=resolve_device(device).type)
 
 
-def build_model_and_data(cfg: RunConfig, split: str = "train", device="cuda"):
+def build_model_and_data(cfg: RunConfig, split: str = "train", device="cuda", mesh=None):
     """Resolve the factories, build (model, tokenizer, dataset); the model's
     tensors are allocated on ``device`` (the card unless the caller asks for
-    the CPU) and zero-filled."""
-    factory = get_custom_model_factory(cfg.model_config)
-    model, tokenizer = factory(cfg.train_config, cfg.model_config, device=resolve_device(device))
+    the CPU) and zero-filled, or, given a ``mesh``, built on ``meta``
+    (``build_on_meta``) for ``materialize_params`` to fill into the rank's
+    shards."""
+    model, tokenizer = build_model(cfg, device, mesh)
     ds_factory = get_custom_dataset_factory(cfg.dataset_config)
     dataset = ds_factory(cfg.dataset_config, tokenizer, split)
     return model, tokenizer, dataset
+
+
+def build_model(cfg: RunConfig, device="cuda", mesh=None):
+    """(model, tokenizer) of the model factory: on ``device``, or on
+    ``meta`` given a ``mesh`` (``build_on_meta``)."""
+    factory = get_custom_model_factory(cfg.model_config)
+    if mesh is None:
+        return factory(cfg.train_config, cfg.model_config, device=resolve_device(device))
+    with build_on_meta():
+        model, tokenizer = factory(cfg.train_config, cfg.model_config, device=resolve_device(device))
+    return offload_to_meta(model), tokenizer
+
+
+# ---- building into the shards ---------------------------------------------------
+
+
+def offload_to_meta(module: nn.Module) -> nn.Module:
+    """Move every tensor of ``module`` that is not on ``meta`` yet there,
+    each module's own in place (tied tensors stay tied), keeping its value
+    as built: None where it is all zero, else a host copy, in the module's
+    ``construction_values`` (what ``materialize_params`` starts from before
+    the seeded init, as a built model's tensors hold it)."""
+    for mod in module.modules():
+        kept = {}
+        for name, t in [*mod._parameters.items(), *mod._buffers.items()]:
+            if t is None or t.is_meta:
+                continue
+            kept[name] = t.detach().to("cpu", copy=True) if bool(t.detach().ne(0).any()) else None
+        if kept:
+            mod.__dict__.setdefault("construction_values", {}).update(kept)
+            mod.to_empty(device="meta", recurse=False)
+    return module
+
+
+@contextlib.contextmanager
+def build_on_meta():
+    """Inside, each module is moved to ``meta`` (``offload_to_meta``) as it
+    is registered into its parent, i.e. once its constructor has finished:
+    a model built here never holds more than the modules still under
+    construction on its device. The root's own tensors stay; the caller
+    offloads them."""
+
+    def hook(parent, name, child):
+        if child is not None:
+            offload_to_meta(child)
+
+    handle = torch.nn.modules.module.register_module_module_registration_hook(hook)
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+def on_meta(model: nn.Module) -> bool:
+    return any(t.is_meta for t in [*model.parameters(), *model.buffers()])
 
 
 @torch.no_grad()
@@ -154,58 +221,65 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     l2-normalized. An int8 base is the quantization of such a kernel.
     VALL-E X's embeddings are normal with std 0.02; prefix-tuning's slots
     and llama-adapter's prompt too, its gate 0."""
-
-    def normal(shape, std):
-        return torch.randn(shape, generator=generator, device=generator.device) * std
-
     vallex_embeds = {id(m) for v in model.modules() if isinstance(v, VALLE) for m in v.modules()
                      if isinstance(m, nn.Embedding)}
     for mod in model.modules():
-        if isinstance(mod, DenseGeneralLora):
-            w = normal((mod.features, mod.in_features), 1.0 / math.sqrt(mod.in_features))
-            if mod.quant == "int8":
-                q, s = quantize_int8(w, contract_axis=-1)
-                mod.kernel_q.copy_(q)
-                mod.kernel_scale.copy_(s)
-            else:
-                mod.weight.copy_(w)
-            if mod.bias is not None:
-                mod.bias.zero_()
-            if mod.lora_rank > 0:
-                mod.lora_a.copy_(normal(mod.lora_a.shape, 1.0 / mod.lora_rank))
-                mod.lora_b.zero_()
-        elif isinstance(mod, nn.Linear):
-            mod.weight.copy_(normal(mod.weight.shape, 1.0 / math.sqrt(mod.in_features)))
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, nn.LayerNorm):
-            mod.weight.fill_(1.0)
-            mod.bias.zero_()
-        elif isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Conv3d)):
-            fan_in = mod.weight[0].numel()  # input channels per group x taps
-            mod.weight.copy_(normal(mod.weight.shape, 1.0 / math.sqrt(fan_in)))
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, nn.Embedding):
-            mod.weight.copy_(normal(mod.weight.shape, 0.02 if id(mod) in vallex_embeds else 1.0))
-        elif isinstance(mod, Attention):
-            for name in ("prefix_k", "prefix_v", "adaption_prompt"):
-                if hasattr(mod, name):
-                    getattr(mod, name).copy_(normal(getattr(mod, name).shape, 0.02))
-            if hasattr(mod, "adaption_gate"):
-                mod.adaption_gate.zero_()
-        elif isinstance(mod, ProjectorQFormer):
-            mod.query.copy_(normal(mod.query.shape, 1.0))
-        elif isinstance(mod, (WavLMEncoder, BEATsTransformer)) and mod.rel_attn_embed is not None:
-            mod.rel_attn_embed.copy_(normal(mod.rel_attn_embed.shape, 0.02))
-        elif isinstance(mod, ViTEncoder):
-            mod.cls_token.copy_(normal(mod.cls_token.shape, 0.02))
-        elif isinstance(mod, BEATsTokenizer):
-            mod.codebook.copy_(l2norm(normal(mod.codebook.shape, 1.0)))
+        init_module_(mod, generator, id(mod) in vallex_embeds)
     return model
 
 
-def materialize_params(model: nn.Module, cfg: RunConfig) -> nn.Module:
+@torch.no_grad()
+def init_module_(mod: nn.Module, generator: torch.Generator, vallex_embed: bool = False) -> None:
+    """``init_params_``'s draws for one module's own tensors (``vallex_embed``:
+    an embedding of VALL-E X)."""
+
+    def normal(shape, std):  # scaled in place: one whole f32 draw in flight
+        return torch.randn(shape, generator=generator, device=generator.device).mul_(std)
+
+    if isinstance(mod, DenseGeneralLora):
+        w = normal((mod.features, mod.in_features), 1.0 / math.sqrt(mod.in_features))
+        if mod.quant == "int8":
+            q, s = quantize_int8(w, contract_axis=-1)
+            mod.kernel_q.copy_(q)
+            mod.kernel_scale.copy_(s)
+        else:
+            mod.weight.copy_(w)
+        if mod.bias is not None:
+            mod.bias.zero_()
+        if mod.lora_rank > 0:
+            mod.lora_a.copy_(normal(mod.lora_a.shape, 1.0 / mod.lora_rank))
+            mod.lora_b.zero_()
+    elif isinstance(mod, nn.Linear):
+        mod.weight.copy_(normal(mod.weight.shape, 1.0 / math.sqrt(mod.in_features)))
+        if mod.bias is not None:
+            mod.bias.zero_()
+    elif isinstance(mod, nn.LayerNorm):
+        mod.weight.fill_(1.0)
+        mod.bias.zero_()
+    elif isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Conv3d)):
+        fan_in = mod.weight[0].numel()  # input channels per group x taps
+        mod.weight.copy_(normal(mod.weight.shape, 1.0 / math.sqrt(fan_in)))
+        if mod.bias is not None:
+            mod.bias.zero_()
+    elif isinstance(mod, nn.Embedding):
+        mod.weight.copy_(normal(mod.weight.shape, 0.02 if vallex_embed else 1.0))
+    elif isinstance(mod, Attention):
+        for name in ("prefix_k", "prefix_v", "adaption_prompt"):
+            if hasattr(mod, name):
+                getattr(mod, name).copy_(normal(getattr(mod, name).shape, 0.02))
+        if hasattr(mod, "adaption_gate"):
+            mod.adaption_gate.zero_()
+    elif isinstance(mod, ProjectorQFormer):
+        mod.query.copy_(normal(mod.query.shape, 1.0))
+    elif isinstance(mod, (WavLMEncoder, BEATsTransformer)) and mod.rel_attn_embed is not None:
+        mod.rel_attn_embed.copy_(normal(mod.rel_attn_embed.shape, 0.02))
+    elif isinstance(mod, ViTEncoder):
+        mod.cls_token.copy_(normal(mod.cls_token.shape, 0.02))
+    elif isinstance(mod, BEATsTokenizer):
+        mod.codebook.copy_(l2norm(normal(mod.codebook.shape, 1.0)))
+
+
+def materialize_params(model: nn.Module, cfg: RunConfig, mesh=None, device=None, train: bool = False) -> nn.Module:
     """Fill the model's weights as the reference does: the seeded random
     init, then the HF weights of ``model_config.llm_path`` /
     ``encoder_path`` (``utils.hf_loader``), then the trainable tensors of
@@ -213,7 +287,13 @@ def materialize_params(model: nn.Module, cfg: RunConfig) -> nn.Module:
     holding ``model.pt``, else ``model.msgpack``, or either file). A path
     that is given and missing raises. The int8 backward buffers and CE head
     are derived from the loaded weights afterwards, by the trainer
-    (``ops.quant.quantize_base_params``)."""
+    (``ops.quant.quantize_base_params``).
+
+    A model that ``build_model_and_data`` built on ``meta`` for a ``mesh``
+    is built straight into this rank's shards on ``device``
+    (``materialize_sharded``), for the trainer with ``train``."""
+    if mesh is not None and on_meta(model):
+        return materialize_sharded(model, cfg, mesh, device, train)
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(cfg.train_config.seed)
     init_params_(model, gen)
@@ -225,6 +305,127 @@ def materialize_params(model: nn.Module, cfg: RunConfig) -> nn.Module:
         load_trainable_into(model, cfg.ckpt_path)
     if device.type == "cuda":
         torch.cuda.synchronize(device)  # a caller timing the load sees the copies and quantizations done
+    return model
+
+
+def _own(mod: nn.Module, name: str) -> torch.Tensor:
+    t = mod._parameters.get(name)
+    return mod._buffers[name] if t is None else t
+
+
+def _put(target: nn.Module, name: str, whole: torch.Tensor, tp) -> None:
+    """This rank's part of tensor ``name`` of ``target`` from its whole
+    value: the tp slice (the module's ``tp_dims``), then FSDP2's dim-0
+    chunk, copied into the local shard (the int8 ones through their
+    carrier's bytes)."""
+    from slam_llm_tpu_torch.parallel.sharding import INT8_CARRIER, local_part, local_shard
+    from slam_llm_tpu_torch.parallel.tensor_parallel import narrow_shard
+
+    t = _own(target, name)
+    spec = getattr(target, "tp_dims", {}).get(name)
+    if spec is not None and tp is not None:
+        whole = narrow_shard(whole, spec, tp)
+    local = local_part(t)
+    if local.dtype == INT8_CARRIER:
+        local = local.view(torch.int8)
+    local.copy_(local_shard(whole, t))
+
+
+@torch.no_grad()
+def materialize_sharded(model: nn.Module, cfg: RunConfig, mesh, device=None, train: bool = False) -> nn.Module:
+    """Build ``model`` (on ``meta``, from ``build_on_meta``) into this rank's
+    shards on ``device``, each value a one-process build's bit for bit, as
+    the trainer (``train``) or a decoder shards it:
+
+    * a copy of the whole model stays on ``meta``; ``model`` takes the
+      trainer's dtypes and ``requires_grad`` (``train.state.prepare_params``)
+      with ``train``, then its sharding (``parallel.shard_params``: the tp
+      split, ``kernel_t`` of each shard, FSDP2's units; for a decoder
+      without fsdp, the tp split alone) and is allocated on ``device``: the
+      rank's shards only;
+    * then, for each module in ``init_params_``'s order, the copy's own
+      tensors are made whole on ``device``: their built values, the seeded
+      draws from the one generator (``init_module_``), the HF and ``ckpt_path``
+      tensors that land there, the cast to the shard's dtype and, where the
+      trainer derives them (``train.state.derives_int8``), the int8 base's derived tensors (and a CE head's from
+      the head's weight); each is cut to this rank's part (``_put``),
+      ``kernel_t`` is the transpose of the weight's tp slice, and the module
+      goes back to ``meta``."""
+    from slam_llm_tpu_torch.models.layers import refresh_pretransposed
+    from slam_llm_tpu_torch.ops.quant import derive_dense_int8_, head_int8
+    from slam_llm_tpu_torch.parallel.sharding import INT8_CARRIER, shard_params
+    from slam_llm_tpu_torch.parallel.tensor_parallel import narrow_shard, split_for_tp, tp_of
+    from slam_llm_tpu_torch.utils.checkpoint import checked_trainable
+    from slam_llm_tpu_torch.utils.hf_loader import pretrained_plan, write_overlay
+
+    from slam_llm_tpu_torch.train.state import derives_int8, prepare_params
+
+    dev = resolve_device(device)
+    whole = copy.deepcopy(model)
+    quantize = train and derives_int8(model.cfg)
+    if train:
+        prepare_params(model, model.cfg, cfg.train_config)
+    if train or mesh["fsdp"].size() > 1:
+        shard_params(model, mesh)
+    else:
+        logging.getLogger("slam_llm_tpu_torch").info("tensor parallel tp=%d: split %s", mesh["tp"].size(),
+                                                     split_for_tp(model, mesh))
+        refresh_pretransposed(model)
+    model.to_empty(device=dev)
+    tp, targets = tp_of(mesh), dict(model.named_modules())
+    mc = cfg.model_config
+    landing = {}  # module name -> the checkpoint writes into its own tensors, in the loaders' order
+    for name, src, quant in pretrained_plan(whole, mc) if mc.llm_path or mc.encoder_path else ():
+        owner, _, leaf = name.rpartition(".")
+        landing.setdefault(owner, []).append((leaf, src, quant))
+    for name, val in checked_trainable(whole, cfg.ckpt_path).items() if cfg.ckpt_path else ():
+        owner, _, leaf = name.rpartition(".")
+        landing.setdefault(owner, []).append((leaf, val, False))
+    heads = {}  # id of the module whose weight is a CE head -> the name of the module deriving the int8 head
+    if quantize:
+        for name, mod in whole.named_modules():
+            if getattr(mod, "head_q", None) is not None:
+                heads[id(mod.embed_tokens if mod.cfg.tied_embeddings else mod.lm_head)] = name
+    vallex_embeds = {id(m) for v in whole.modules() if isinstance(v, VALLE) for m in v.modules()
+                     if isinstance(m, nn.Embedding)}
+    gen = torch.Generator(device=dev).manual_seed(cfg.train_config.seed)
+    for name, mod in whole.named_modules():
+        if not any(t is not None for t in [*mod._parameters.values(), *mod._buffers.values()]):
+            continue
+        mod.to_empty(device=dev, recurse=False)
+        built = getattr(mod, "construction_values", {})
+        own = {n: t for n, t in [*mod._parameters.items(), *mod._buffers.items()] if t is not None}
+        for n, t in own.items():
+            if built.get(n) is None:
+                t.zero_()
+            else:
+                t.copy_(built[n])
+        init_module_(mod, gen, id(mod) in vallex_embeds)
+        for leaf, src, quant in landing.get(name, ()):
+            write_overlay(own, leaf, src, quant)
+        if quantize:
+            derive_dense_int8_(mod)
+        target = targets[name]
+        values = {}
+        for n, t in own.items():
+            dtype = _own(target, n).dtype
+            values[n] = t.to(torch.int8 if dtype == INT8_CARRIER else dtype)
+        if id(mod) in heads:
+            for n, t in head_int8(values["weight"]).items():
+                _put(targets[heads[id(mod)]], n, t, tp)
+        for n, t in values.items():
+            if n == "kernel_t":
+                continue
+            _put(target, n, t, tp)
+            if n == "weight" and getattr(target, "kernel_t", None) is not None:
+                spec = getattr(target, "tp_dims", {}).get(n)
+                shard = t if spec is None or tp is None else narrow_shard(t, spec, tp)
+                _put(target, "kernel_t", shard.t().contiguous(), None)
+        del own, values
+        mod.to_empty(device="meta", recurse=False)
+    model.sharded_build = True
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
     return model
 
 

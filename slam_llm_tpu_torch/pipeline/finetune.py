@@ -120,7 +120,8 @@ def main(cfg: RunConfig, device="cuda"):
     tc = cfg.train_config
     set_seed(tc.seed)
 
-    model, tokenizer, train_ds = build_model_and_data(cfg, split=cfg.dataset_config.train_split, device=dev)
+    model, tokenizer, train_ds = build_model_and_data(cfg, split=cfg.dataset_config.train_split, device=dev,
+                                                      mesh=mesh)
     dc = cfg.dataset_config
     # the SELD manifests' {qa_data_root}/{stage}/val.json, or E-chat's 90 / 10 split of one data_path
     has_val_source = dc.val_data_path or getattr(dc, "qa_data_root", None) or getattr(dc, "data_path", None)
@@ -138,7 +139,8 @@ def main(cfg: RunConfig, device="cuda"):
     )
 
     t0 = time.perf_counter()
-    materialize_params(model, cfg)
+    # under a mesh: straight into this rank's shards, as the trainer prepares them
+    materialize_params(model, cfg, mesh=mesh, device=dev, train=True)
     load_s = time.perf_counter() - t0
     trainer = Trainer(model, model.cfg, tc, mesh=mesh).state_from_params()
     if tc.resume_from:

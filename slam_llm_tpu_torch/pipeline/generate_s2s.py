@@ -22,9 +22,10 @@ init, then ``llm_path`` / ``encoder_path`` / ``ckpt_path``
 (``pipeline.common.materialize_params``).
 
 Under torchrun the session decodes on the ``(dp, fsdp, tp)`` mesh of
-``train_config.shard`` (the JAX package's ``build_mesh``): with ``shard.tp``
-the model is split after its weights are materialized
-(``parallel.tensor_parallel.split_for_tp``), and the tp ranks of a data rank
+``train_config.shard`` (the JAX package's ``build_mesh``), the model built
+straight into each rank's shards (``pipeline.common.materialize_params``):
+with ``shard.tp`` it is split (``parallel.tensor_parallel.split_for_tp``),
+and the tp ranks of a data rank
 decode the same items in lockstep on the same whole logits, each sampling
 stream seeded alike (``train_config.seed``, fresh for every generation, as
 the JAX package's ``PRNGKey(0)``); only tp rank 0 loads the codec, prints and
@@ -60,16 +61,17 @@ from slam_llm_tpu_torch.data.s2s_dataset import DEFAULT_S2S_PROMPT, PROMPT_TEMPL
 from slam_llm_tpu_torch.data.speech_dataset import bucketize
 from slam_llm_tpu_torch.models.s2s import S2SGenerator, VocabConfig, trim_generated
 from slam_llm_tpu_torch.ops import audio as audio_ops
-from slam_llm_tpu_torch.parallel.sharding import data_rank, data_size, make_mesh, shard_params
-from slam_llm_tpu_torch.parallel.tensor_parallel import split_for_tp, tp_of
+from slam_llm_tpu_torch.parallel.sharding import data_rank, data_size, make_mesh
+from slam_llm_tpu_torch.parallel.tensor_parallel import tp_of
 from slam_llm_tpu_torch.pipeline.common import (
     destroy_process_group,
+    build_model,
     materialize_params,
     maybe_init_distributed,
     parse_device,
     resolve_device,
 )
-from slam_llm_tpu_torch.registry import get_custom_dataset_factory, get_custom_model_factory
+from slam_llm_tpu_torch.registry import get_custom_dataset_factory
 from slam_llm_tpu_torch.utils.codec_utils import CodecDecoder
 from slam_llm_tpu_torch.utils.logging_utils import setup_logger
 
@@ -159,16 +161,14 @@ class S2SSession:
 
         self.cfg = cfg
         self.device = resolve_device(device)
-        model, tokenizer = get_custom_model_factory(cfg.model_config)(cfg.train_config, cfg.model_config,
-                                                                      device=self.device)
-        materialize_params(model, cfg)
         self.mesh, self.tp = mesh, tp_of(mesh)
         self.sharded = mesh is not None and mesh["fsdp"].size() > 1
+        # under a mesh on meta, then straight into this rank's shards: the tp
+        # split, then FSDP2 over the data ranks when sharded
+        model, tokenizer = build_model(cfg, self.device, mesh)
+        materialize_params(model, cfg, mesh=mesh, device=self.device)
         if self.sharded:
-            shard_params(model, mesh)  # the tp split, then FSDP2 over the data ranks
             logger.info("sharded decode: fsdp=%d x tp=%d", mesh["fsdp"].size(), mesh["tp"].size())
-        elif self.tp is not None:
-            logger.info("tensor parallel tp=%d: split %s", self.tp.size, split_for_tp(model, mesh))
         # prints, runs the codec, writes
         self.writer = (dist.get_rank() == 0) if one_dialogue and mesh is not None else (
             self.tp is None or self.tp.rank == 0)

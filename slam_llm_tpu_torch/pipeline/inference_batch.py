@@ -54,8 +54,7 @@ import torch
 from slam_llm_tpu_torch.config import RunConfig, load_run_config
 from slam_llm_tpu_torch.data.loader import build_dataloader
 from slam_llm_tpu_torch.inference.generate import GenerationConfig, Generator, strip_after_eos
-from slam_llm_tpu_torch.parallel.sharding import data_rank, data_size, make_mesh, shard_params
-from slam_llm_tpu_torch.parallel.tensor_parallel import split_for_tp
+from slam_llm_tpu_torch.parallel.sharding import data_rank, data_size, make_mesh
 from slam_llm_tpu_torch.pipeline.common import (
     build_model_and_data,
     destroy_process_group,
@@ -147,15 +146,14 @@ def main(cfg: RunConfig, device="cuda"):
         mesh = make_mesh(dp=-1, fsdp=shard.fsdp, tp=shard.tp, device_type=dev.type)
         world, rank, tp_rank = data_size(mesh), data_rank(mesh), mesh["tp"].get_local_rank()
 
-    model, tokenizer, dataset = build_model_and_data(cfg, split=cfg.dataset_config.test_split, device=dev)
+    model, tokenizer, dataset = build_model_and_data(cfg, split=cfg.dataset_config.test_split, device=dev,
+                                                     mesh=mesh)
     model.eval()
     t0 = time.perf_counter()
-    materialize_params(model, cfg)
+    # under a mesh: straight into this rank's shards (the tp split, then FSDP2 over the data ranks with fsdp)
+    materialize_params(model, cfg, mesh=mesh, device=dev)
     if shard.fsdp > 1:
-        shard_params(model, mesh)  # the tp split, then FSDP2 over the data ranks
         logger.info("sharded decode: fsdp=%d x tp=%d, %d data ranks in lockstep", shard.fsdp, shard.tp, world)
-    elif mesh is not None:
-        logger.info("tensor parallel tp=%d: split %s", shard.tp, split_for_tp(model, mesh))
     load_s = time.perf_counter() - t0
     loader = decode_loader(cfg, dataset, num_replicas=world, rank=rank)
 

@@ -88,13 +88,53 @@ from slam_llm_tpu_torch.train.optimizer import (
 _SEED_STRIDE = 0x9E3779B9  # a data rank's offset of the stochastic-rounding seeds
 
 
+def frozen_in_f32(train_config) -> bool:
+    """Whether ``train_config.frozen_dtype`` keeps frozen f32 parameters in
+    f32 (else bf16); another value raises."""
+    frozen_dtype = getattr(train_config, "frozen_dtype", "bfloat16")
+    if frozen_dtype not in (None, "float32", "fp32", "bfloat16", "bf16"):
+        raise ValueError(f"train_config.frozen_dtype={frozen_dtype!r}: expected bfloat16 or float32")
+    return frozen_dtype in (None, "float32", "fp32")
+
+
+def derives_int8(slam_cfg) -> bool:
+    """Whether the trainer derives the int8 base's backward tensors or the
+    int8 CE head (``ops.quant.quantize_base_params``)."""
+    llm = getattr(slam_cfg, "llm", None)  # VALL-E X's config has none: every VALLE tensor trains
+    return getattr(llm, "base_quant", "none") != "none" or getattr(llm, "ce_quant", "none") != "none"
+
+
+@torch.no_grad()
+def prepare_params(model: nn.Module, slam_cfg, train_config):
+    """The trainer's checks, ``requires_grad`` by ``param_label``, the f32
+    master of every trainable tensor and ``frozen_dtype`` on the frozen f32
+    ones, in place (values, or dtypes alone on a model on ``meta``).
+    Returns (trainable, frozen)."""
+    llm = getattr(slam_cfg, "llm", None)
+    if getattr(llm, "base_quant", "none") != "none" and not slam_cfg.freeze_llm:
+        raise ValueError(
+            "llm.base_quant requires freeze_llm: the int8 dot's weight gradient is zero by "
+            "construction, so training the base through it would silently not train"
+        )
+    if getattr(llm, "bwd_pretranspose", False) and not slam_cfg.freeze_llm:
+        raise ValueError(
+            "llm.bwd_pretranspose requires freeze_llm: training the base "
+            "kernels would silently desynchronize their kernel_t copies"
+        )
+    trainable, frozen = partition_params(model, slam_cfg)
+    for p in trainable.values():
+        p.data = p.data.float()
+    if not frozen_in_f32(train_config):
+        for p in frozen.values():
+            if p.dtype == torch.float32:
+                p.data = p.data.to(torch.bfloat16)
+    return trainable, frozen
+
+
 class Trainer:
     def __init__(self, model: nn.Module, slam_cfg, train_config, mesh=None):
         tc = train_config
-        frozen_dtype = getattr(tc, "frozen_dtype", "bfloat16")
-        if frozen_dtype not in (None, "float32", "fp32", "bfloat16", "bf16"):
-            raise ValueError(f"train_config.frozen_dtype={frozen_dtype!r}: expected bfloat16 or float32")
-        self.frozen_f32 = frozen_dtype in (None, "float32", "fp32")
+        self.frozen_f32 = frozen_in_f32(tc)
         self.model, self.slam_cfg, self.train_config = model, slam_cfg, tc
         self.sched = lr_schedule(tc)
         self.accum = max(1, tc.gradient_accumulation_steps)
@@ -124,34 +164,19 @@ class Trainer:
         one), and build the optimizer over the trainable ones (their local
         shards)."""
         model, cfg = self.model, self.slam_cfg
-        llm = getattr(cfg, "llm", None)  # VALL-E X's config has none: every VALLE tensor trains
-        base_quant, ce_quant = getattr(llm, "base_quant", "none"), getattr(llm, "ce_quant", "none")
-        if base_quant != "none" and not cfg.freeze_llm:
-            raise ValueError(
-                "llm.base_quant requires freeze_llm: the int8 dot's weight gradient is zero by "
-                "construction, so training the base through it would silently not train"
-            )
-        if getattr(llm, "bwd_pretranspose", False) and not cfg.freeze_llm:
-            raise ValueError(
-                "llm.bwd_pretranspose requires freeze_llm: training the base "
-                "kernels would silently desynchronize their kernel_t copies"
-            )
-        self.trainable, self.frozen = partition_params(model, cfg)
-        for p in self.trainable.values():
-            p.data = p.data.float()
-        if not self.frozen_f32:
-            for p in self.frozen.values():
-                if p.dtype == torch.float32:
-                    p.data = p.data.to(torch.bfloat16)
-        if base_quant != "none" or ce_quant != "none":
-            quantize_base_params(model)
+        built = getattr(model, "sharded_build", False)  # pipeline.common built it into its shards
+        if not built:
+            self.trainable, self.frozen = prepare_params(model, cfg, self.train_config)
+            if derives_int8(cfg):
+                quantize_base_params(model)
         for mod in model.modules():
             if getattr(mod, "lora_dropout", 0.0) > 0:
                 mod.generator = self.dropout_generator
         if self.mesh is None:
             refresh_pretransposed(model)
         else:  # derives kernel_t after the tp split
-            shard_params(model, self.mesh)
+            if not built:
+                shard_params(model, self.mesh)
             self.trainable = {n: p for n, p in model.named_parameters() if p.requires_grad}
             self.frozen = {n: p for n, p in model.named_parameters() if not p.requires_grad}
         params = list(self.trainable.values())

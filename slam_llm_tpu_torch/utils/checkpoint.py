@@ -122,6 +122,16 @@ def load_trainable_into(model: nn.Module, path: str) -> nn.Module:
     copied, so a failed load leaves the model as it was. A JAX
     ``model.msgpack``'s encoder tensors are mapped by the rules of the
     model's own encoder."""
+    saved = checked_trainable(model, path)
+    targets = dict(model.state_dict(keep_vars=True))
+    for name, val in saved.items():
+        targets[name].copy_(val)
+    return model
+
+
+def checked_trainable(model: nn.Module, path: str) -> Dict[str, torch.Tensor]:
+    """``load_trainable``'s tensors for ``model``, every name and shape
+    checked against the model's (which may lie on ``meta``)."""
     saved = load_trainable(path, getattr(getattr(model, "cfg", None), "encoder_name", None))
     targets = dict(model.state_dict(keep_vars=True))
     unknown = sorted(set(saved) - set(targets))
@@ -130,9 +140,7 @@ def load_trainable_into(model: nn.Module, path: str) -> nn.Module:
     for name, val in saved.items():
         if tuple(val.shape) != tuple(targets[name].shape):
             raise ValueError(f"shape mismatch for {name}: {tuple(val.shape)} vs {tuple(targets[name].shape)}")
-    for name, val in saved.items():
-        targets[name].copy_(val)
-    return model
+    return saved
 
 
 def latest_checkpoint(output_dir: str) -> Optional[str]:

@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
@@ -177,6 +177,40 @@ def convert_encoder_checkpoint(encoder_path: str, encoder_name: str, enc_cfg) ->
                      "and av_hubert torch files")
 
 
+def overlay_plan(module: nn.Module, tensors: Dict[str, torch.Tensor], where: str = "") -> List[Tuple]:
+    """``overlay_``'s checks of ``tensors`` against the module's tensors
+    (every name and shape), then its writes as ``(target name, source,
+    quant)``: ``quant`` where an fp ``weight`` lands in its dense's int8
+    base (the target is then its ``kernel_q``)."""
+    targets = dict(module.state_dict(keep_vars=True))
+    plan = []
+    for name, src in tensors.items():
+        base, _, leaf = name.rpartition(".")
+        quant = leaf == "weight" and name not in targets and f"{base}.kernel_q" in targets
+        target = f"{base}.kernel_q" if quant else name
+        dst = targets.get(target)
+        if dst is None:
+            raise KeyError(f"converted key {where}{name} not in the model")
+        if tuple(dst.shape) != tuple(src.shape):
+            raise ValueError(f"shape mismatch at {where}{name}: model {tuple(dst.shape)} vs ckpt {tuple(src.shape)}")
+        plan.append((target, src, quant))
+    return plan
+
+
+@torch.no_grad()
+def write_overlay(targets: Dict[str, torch.Tensor], name: str, src: torch.Tensor, quant: bool) -> None:
+    """One write of an overlay plan into ``targets`` (state_dict names):
+    the source in the target's dtype and device, or quantized per output
+    channel (over K) into ``name`` (a ``kernel_q``) and its ``kernel_scale``."""
+    dst = targets[name]
+    if quant:
+        q, scale = quantize_int8(src.to(dst.device), contract_axis=-1)
+        dst.copy_(q)
+        targets[name[: -len("kernel_q")] + "kernel_scale"].copy_(scale)
+    else:
+        dst.copy_(src.to(dst.device))  # the stored dtype crosses, the target's dtype lands
+
+
 @torch.no_grad()
 def overlay_(module: nn.Module, tensors: Dict[str, torch.Tensor], where: str = "") -> nn.Module:
     """Copy ``tensors`` (``state_dict`` names under ``module``) into the
@@ -186,29 +220,16 @@ def overlay_(module: nn.Module, tensors: Dict[str, torch.Tensor], where: str = "
     shape is checked before anything is copied; names the module has and
     ``tensors`` lacks (LoRA, the projector) keep their values."""
     targets = dict(module.state_dict(keep_vars=True))
-    plan = []
-    for name, src in tensors.items():
-        base, _, leaf = name.rpartition(".")
-        quant = leaf == "weight" and name not in targets and f"{base}.kernel_q" in targets
-        dst = targets.get(f"{base}.kernel_q" if quant else name)
-        if dst is None:
-            raise KeyError(f"converted key {where}{name} not in the model")
-        if tuple(dst.shape) != tuple(src.shape):
-            raise ValueError(f"shape mismatch at {where}{name}: model {tuple(dst.shape)} vs ckpt {tuple(src.shape)}")
-        plan.append((base, src, dst, quant))
-    for base, src, dst, quant in plan:
-        if quant:
-            q, scale = quantize_int8(src.to(dst.device), contract_axis=-1)  # per output channel, over K
-            dst.copy_(q)
-            targets[f"{base}.kernel_scale"].copy_(scale)
-        else:
-            dst.copy_(src.to(dst.device))  # the stored dtype crosses, the target's dtype lands
+    for name, src, quant in overlay_plan(module, tensors, where):
+        write_overlay(targets, name, src, quant)
     return module
 
 
-def load_pretrained_into(model: nn.Module, model_config) -> nn.Module:
-    """Overlay the HF LLM (``model_config.llm_path``) and encoder
-    (``model_config.encoder_path``) onto a built ``SLAMModel`` in place."""
+def pretrained_plan(model: nn.Module, model_config) -> List[Tuple]:
+    """The overlay plan (``overlay_plan``, names under ``model``) of the HF
+    LLM (``model_config.llm_path``) and encoder (``encoder_path``) onto a
+    built ``SLAMModel``; every check runs first, a missing path raises."""
+    plan = []
     if model_config.llm_path:
         if not os.path.isdir(model_config.llm_path):
             # a typo here must not silently train random-init weights
@@ -216,11 +237,21 @@ def load_pretrained_into(model: nn.Module, model_config) -> nn.Module:
                 f"model_config.llm_path={model_config.llm_path!r} is not a checkpoint directory "
                 "(expected an HF dir with config.json + safetensors/bin)"
             )
-        overlay_(model.llm, convert_llama(load_hf_state_dict(model_config.llm_path), model.cfg.llm), "llm.")
+        sd = convert_llama(load_hf_state_dict(model_config.llm_path), model.cfg.llm)
+        plan += [(f"llm.{n}", src, q) for n, src, q in overlay_plan(model.llm, sd, "llm.")]
     if model_config.encoder_path:
         if model.encoder is None:
             raise ValueError(f"model_config.encoder_path={model_config.encoder_path!r} given to a model without "
                              "an encoder")
         sub = convert_encoder_checkpoint(model_config.encoder_path, model_config.encoder_name, model.cfg.encoder)
-        overlay_(model.encoder, sub, "encoder.")
+        plan += [(f"encoder.{n}", src, q) for n, src, q in overlay_plan(model.encoder, sub, "encoder.")]
+    return plan
+
+
+def load_pretrained_into(model: nn.Module, model_config) -> nn.Module:
+    """Overlay the HF LLM (``model_config.llm_path``) and encoder
+    (``model_config.encoder_path``) onto a built ``SLAMModel`` in place."""
+    targets = dict(model.state_dict(keep_vars=True))
+    for name, src, quant in pretrained_plan(model, model_config):
+        write_overlay(targets, name, src, quant)
     return model

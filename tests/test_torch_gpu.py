@@ -241,14 +241,18 @@ def test_flash_kernel_refuses_what_it_cannot_take(gen):
 
 def _check_bwd_route(q, k, v, mask, dout, causal, rope, f32):
     """One forward and one backward on the card, each launched once on its
-    route's count (f32 or bf16) and never on the other's; the outputs
+    route's count (f32 or bf16; the panel route's above D 256) and never on
+    the other's; the outputs
     against the f32 twins on the kernels' own inputs: f32 out within 2e-5
     abs and dq / dk / dv within 2e-5 of the twin's largest entry; bf16 out
     within 2e-2 abs and dq / dk / dv within 2e-2 relative L2; live-row lse
     within 1e-4 (f32) / 1e-3; rows that see no key give out = 0 and dq = 0;
     a second backward gives the same bits."""
-    counts = (tflash.flash_attention_fwd_f32, tflash.flash_attention_bwd_f32, tflash.flash_attention_fwd,
-              tflash.flash_attention_bwd)
+    counts = ((tflash.flash_attention_fwd_wide_f32, tflash.flash_attention_bwd_wide_f32,
+               tflash.flash_attention_fwd_wide, tflash.flash_attention_bwd_wide)
+              if tflash.panel_route(q.shape[-1]) else
+              (tflash.flash_attention_fwd_f32, tflash.flash_attention_bwd_f32, tflash.flash_attention_fwd,
+               tflash.flash_attention_bwd))
     before = [c.launches for c in counts]
     out, lse = tflash.flash_attention_fwd(q, k, v, mask, causal, rope=rope)
     got = tflash.flash_attention_bwd(q, k, v, mask, out, lse, dout, causal, rope=rope)
@@ -314,6 +318,9 @@ def _cross_mask(b, tk):
     (3, 130, 300, 8, 2, 128),
     (3, 100, 260, 4, 2, 192),
     (3, 300, 130, 4, 1, 256),
+    (3, 100, 260, 4, 2, 384),  # the panel route
+    (3, 260, 100, 4, 1, 512),
+    (2, 70, 130, 2, 1, 1024),
 ])
 def test_flash_backward_cross_attention_matches_twin(gen, f32, b, tq, tk, h, hkv, d):
     """K4 and K4 f32 at Tq != Tk (not causal, no RoPE, keys right-padded):
@@ -346,6 +353,50 @@ def test_flash_kernels_at_head_dim_192_and_256(gen, f32, b, t, h, hkv, d, causal
     else:
         mask, tables = _cross_mask(b + 1, t)[:b], None
     _check_bwd_route(q, k, v, mask, dout, causal, tables if rope else None, f32)
+
+
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("b,t,h,hkv,d,causal,rope", [
+    (2, 130, 4, 1, 320, True, True),  # 4:1 GQA, fused RoPE, left-padded
+    (2, 200, 8, 2, 384, True, False),
+    (2, 70, 2, 2, 448, False, False),  # right-padded, a row with no key
+    (2, 257, 4, 1, 512, True, True),  # the head_dim-512 decoder's heads
+    (2, 129, 4, 4, 512, False, False),
+    (1, 130, 2, 1, 1024, True, True),  # past the widths the tests name: D taken at run time
+])
+def test_flash_kernels_above_head_dim_256(gen, f32, b, t, h, hkv, d, causal, rope):
+    """K1 and K4 (and their f32 routes) on the panel route at D 320 to
+    1024, with GQA, the key mask, causal and fused RoPE, against the
+    twins."""
+    dt = torch.float32 if f32 else torch.bfloat16
+    q = torch.randn(b, t, h, d, generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn(b, t, hkv, d, generator=gen, device="cuda").to(dt) for _ in range(2))
+    dout = torch.randn(b, t, h, d, generator=gen, device="cuda").to(dt)
+    if causal:
+        mask, tables = _rope(b, t, gen, left_pad=[(i * 37) % (t // 3) for i in range(b)], d=d)
+    else:
+        mask, tables = _cross_mask(b + 1, t)[:b], None
+    _check_bwd_route(q, k, v, mask, dout, causal, tables if rope else None, f32)
+
+
+@pytest.mark.parametrize("f32", [False, True])
+def test_flash_panel_route_strided_views(gen, f32):
+    """The panel route on q / k / v views of a fused projection (rows
+    strided by the projection's width) equals it on contiguous copies."""
+    dt = torch.float32 if f32 else torch.bfloat16
+    b, t, h, hkv, d = 2, 100, 2, 1, 320
+    qkv = torch.randn(b, t, (h + 2 * hkv) * d, generator=gen, device="cuda").to(dt)
+    q, k, v = qkv.split([h * d, hkv * d, hkv * d], dim=-1)
+    q, k, v = q.unflatten(-1, (h, d)), k.unflatten(-1, (hkv, d)), v.unflatten(-1, (hkv, d))
+    mask = _cross_mask(b + 1, t)[:b]
+    dout = torch.randn(b, t, h, d, generator=gen, device="cuda").to(dt)
+    out, lse = tflash.flash_attention_fwd(q, k, v, mask)
+    got = tflash.flash_attention_bwd(q, k, v, mask, out, lse, dout)
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    out_c, lse_c = tflash.flash_attention_fwd(qc, kc, vc, mask)
+    want = tflash.flash_attention_bwd(qc, kc, vc, mask, out_c, lse_c, dout)
+    assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_flash_f32_autograd_with_fused_rope(gen):
@@ -382,6 +433,33 @@ def test_mha_attention_takes_the_kernels_at_wide_head_dims(gen, d):
     qr, kr = (tflash.apply_rope_tables(x, *rope) for x in (q, k))
     want = layers._xla_attention(qr, kr, v, None, mask, True)
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("d", [320, 512])
+def test_mha_attention_takes_the_panel_route(gen, f32, d):
+    """``layers.mha_attention`` at D 320 / 512 (a structured, causal,
+    fused-RoPE call, with gradients) launches the panel route's K1 and K4
+    once each and agrees with the plain path."""
+    from slam_llm_tpu_torch.models import layers
+
+    dt = torch.float32 if f32 else torch.bfloat16
+    b, t, h, hkv = 2, 130, 4, 1
+    q, k, v = (x.to(dt).requires_grad_() for x in _qkv(b, t, h, hkv, d, gen))
+    mask, rope = _rope(b, t, gen, left_pad=[0, 17], d=d)
+    fwd, bwd = ((tflash.flash_attention_fwd_wide_f32, tflash.flash_attention_bwd_wide_f32) if f32 else
+                (tflash.flash_attention_fwd_wide, tflash.flash_attention_bwd_wide))
+    before = (fwd.launches, bwd.launches)
+    got = layers.mha_attention(q, k, v, kv_mask=mask, causal=True, rope=rope)
+    got.float().square().sum().backward()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    qr, kr = (tflash.apply_rope_tables(x, *rope) for x in leaves[:2])
+    want = layers._xla_attention(qr, kr, leaves[2], None, mask, True)
+    want.float().square().sum().backward()
+    assert (got.float() - want.float()).abs().max().item() <= (2e-5 if f32 else 2e-2)
+    for g, w in zip((q.grad, k.grad, v.grad), (x.grad for x in leaves)):
+        assert _rel_l2(g, w) <= (1e-4 if f32 else 3e-2)
 
 
 def _f32_mask(b, t, pad):

@@ -79,13 +79,14 @@ def run_decode(cfg, state_dict):
     from slam_llm_tpu_torch.models import slam_model as tslam
     from slam_llm_tpu_torch.pipeline import inference_batch
 
-    build, materialize = tslam.build_slam_config, inference_batch.materialize_params
+    from test_torch_tp_families import with_weights
+
+    build = tslam.build_slam_config
     tslam.build_slam_config = lambda train_config, model_config: _port_slam_cfg()
-    inference_batch.materialize_params = lambda model, cfg: model.load_state_dict(state_dict)
     try:
-        return inference_batch.main(cfg, device="cpu")
+        return inference_batch.main(with_weights(cfg, state_dict), device="cpu")
     finally:
-        tslam.build_slam_config, inference_batch.materialize_params = build, materialize
+        tslam.build_slam_config = build
 
 
 def _unit_watch():

@@ -203,6 +203,22 @@ def _decode_cfg(manifest: str, log: str, **shard):
     return cfg
 
 
+def with_weights(cfg, state_dict):
+    """A copy of ``cfg`` whose ``ckpt_path`` holds ``state_dict`` whole (a
+    ``model.pt`` of this process's own), which overlays the seeded init as
+    the entry point builds the model, into its shards under a mesh."""
+    import copy
+
+    import torch.distributed as dist
+
+    from slam_llm_tpu_torch.utils.checkpoint import save_trainable
+
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    cfg = copy.deepcopy(cfg)
+    cfg.ckpt_path = save_trainable(f"{cfg.decode_config.decode_log}_weights_rank{rank}.pt", state_dict)
+    return cfg
+
+
 def run_decode(cfg, state_dict, dtype, tp2_order=False):
     """``pipeline.inference_batch.main`` on the whisper + Q-Former recipe at
     ``dtype`` holding ``state_dict``; returns its ``_pred`` lines and each
@@ -212,16 +228,13 @@ def run_decode(cfg, state_dict, dtype, tp2_order=False):
     from slam_llm_tpu_torch.models import slam_model as tslam
     from slam_llm_tpu_torch.pipeline import inference_batch
 
-    def load(model, cfg):
-        model.load_state_dict(state_dict)
-        if tp2_order:
-            _rows_in_tp2_order(model, tslam.SLAMModel(_qformer_slam_cfg(torch.float32)))
-
     steps = []
     generator_cls = inference_batch.Generator
 
     class Recording(generator_cls):
         def __init__(self, model, *args, **kwargs):
+            if tp2_order:
+                _rows_in_tp2_order(model, tslam.SLAMModel(_qformer_slam_cfg(torch.float32)))
             super().__init__(model, *args, **kwargs)
             step = model.decode_step
 
@@ -237,14 +250,13 @@ def run_decode(cfg, state_dict, dtype, tp2_order=False):
             steps.append([out[1].float().clone()])
             return out
 
-    build, materialize = tslam.build_slam_config, inference_batch.materialize_params
+    build = tslam.build_slam_config
     tslam.build_slam_config = lambda train_config, model_config: _qformer_slam_cfg(dtype)
-    inference_batch.materialize_params = load
     inference_batch.Generator = Recording
     try:
-        res = inference_batch.main(cfg, device="cpu")
+        res = inference_batch.main(with_weights(cfg, state_dict), device="cpu")
     finally:
-        tslam.build_slam_config, inference_batch.materialize_params = build, materialize
+        tslam.build_slam_config = build
         inference_batch.Generator = generator_cls
     return {"pred": Path(res["pred"]).read_text().splitlines(), "steps": steps}
 
